@@ -5,22 +5,34 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build: the native host library (g++) and both CUDA kernels (one nvcc
-     per source, all started together), from the sources in the checkout;
+  2. build: the native host library (g++) and the three CUDA kernels (one
+     nvcc per source, all started together), from the sources in the
+     checkout;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (bitwise), with its median time over 25 launches,
-     the plain version's time, the least time the card could take (bound)
-     and, for the merge, the LSD torch.sort passes of the CPU "sort" mode as
-     the library yardstick; then one main-path shard through the whole
-     shard program, timed, with its top ops by device time;
-  4. the main path: bench.py's compaction job (4 presorted runs, 8-digit
-     keys, 20-byte values, ~2x overwrites, N = 10,000,000 entries, written
-     by the port's columnar writer) compacted L0 -> L2 bottommost through
-     run_device_compaction(device_name="cuda"), once without snapshots and
-     once with 3 snapshots; every output is read back and held against a
-     numpy oracle of the surviving versions; the kernels' launch counters
-     must be > 0;
-  5. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
+     the main paths' shapes (bitwise), with its median time over 25 launches
+     with the L2 flushed, the plain version's time, the least time the card
+     could take (bound) and, for the merge, the LSD torch.sort passes of the
+     CPU "sort" mode as the library yardstick; then one main-path shard
+     through the whole shard program, timed, with its top ops by device
+     time;
+  4. the packed-download route: bench.py's compaction job (4 presorted
+     runs, 8-digit keys, 20-byte values, ~2x overwrites, N = 10,000,000
+     entries, written by the port's columnar writer) compacted L0 -> L2
+     bottommost through run_device_compaction(device_name="cuda"), once
+     without snapshots and once with 3 snapshots; every output is read back
+     and held against a numpy oracle of the surviving versions; the
+     kernels' launch counters must be > 0;
+  5. the block-assembly route: the same generator at N = 4,000,000 (one
+     shard of at most 2^22 rows, the route's envelope) through
+     run_device_compaction(device_name="cuda", device_blocks=True,
+     num_shards=1), without and with 3 snapshots; each output matches the
+     oracle and the packed-download route's bytes for the same inputs, and
+     all three kernels launch;
+  6. range tombstones: a 1,000,000-entry job with 20 range tombstones in
+     its inputs, ~10% deletions and 3 snapshots through both routes on
+     "cuda" and on "cpu" — four byte-identical outputs that match the oracle
+     extended to tombstones, with gc_rows launched on tombstone words;
+  7. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
      deletions and 4 shards on "cuda" and on "cpu" — identical SST bytes.
 
 The last three lines of standard output are the card's name and power
@@ -49,6 +61,8 @@ RAW_PER_ENTRY = 28      # 8B user key + 20B value, as bench.py counts
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 MAIN_N = 10_000_000
+BLOCKS_N = 4_000_000
+TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
 
 
@@ -62,12 +76,17 @@ def log(msg: str) -> None:
 
 
 def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
-               p_del=0.0, num_runs=4):
+               p_del=0.0, num_runs=4, n_tombs=0):
     """bench.py's build_inputs (bench.py:78): 8 ASCII decimal digit keys,
     20-byte values, ~2x overwrite factor (key space N/2), one sorted run per
     file. With p_del > 0 that share of rows are DELETIONs (empty values).
-    Returns (metas, rows) with rows = [(draws, seqs, vtypes)] per run."""
+    With n_tombs > 0 each run's file also holds n_tombs / num_runs range
+    tombstones, each over ~1% of the key space at most, whose seqnos are
+    drawn from the run's seqno span (the points take the rest). Returns
+    (metas, rows, tombs): rows = [(draws, seqs, vtypes)] per run, tombs =
+    [(seq, begin, end)] with integer key bounds, end exclusive."""
     from toplingdb_tpu_torch.db.dbformat import ValueType
+    from toplingdb_tpu_torch.db.range_del import RangeTombstone
     from toplingdb_tpu_torch.db.version_edit import FileMetaData
     from toplingdb_tpu_torch.ops.columnar_io import (
         ColumnarKV,
@@ -77,12 +96,21 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
     rng = np.random.default_rng(seed)
     key_space = max(n_entries // 2, 1)
     per_run = n_entries // num_runs
-    metas, rows = [], []
+    t_per_run = n_tombs // num_runs
+    metas, rows, tombs = [], [], []
     for run in range(num_runs):
         n = per_run
         draws = rng.integers(0, key_space, n, dtype=np.int64)
-        seqs = np.arange(run * per_run + 1, run * per_run + n + 1,
-                         dtype=np.uint64)
+        base = run * (per_run + t_per_run)
+        seqs = np.arange(base + 1, base + n + t_per_run + 1, dtype=np.uint64)
+        run_tombs = []
+        if t_per_run:
+            tpos = rng.choice(len(seqs), t_per_run, replace=False)
+            for ts in seqs[tpos]:
+                lo = int(rng.integers(0, key_space))
+                hi = lo + int(rng.integers(1, max(2, key_space // 100)))
+                run_tombs.append((int(ts), lo, hi))
+            seqs = np.delete(seqs, tpos)
         vt = np.full(n, int(ValueType.VALUE), dtype=np.int32)
         if p_del:
             vt[rng.random(n) < p_del] = int(ValueType.DELETION)
@@ -109,6 +137,8 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
             env, dbdir, alloc, icmp, topts, kv,
             np.arange(n, dtype=np.int32), np.full(n, -1, dtype=np.int64),
             vt[s], seqs[s], creation_time=1,
+            tombstones=[RangeTombstone(ts, b"%08d" % lo, b"%08d" % hi)
+                        for ts, lo, hi in run_tombs],
         )
         for fnum, path, props, smallest, largest, _sel in files:
             metas.append(FileMetaData(
@@ -118,14 +148,17 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
                 largest_seqno=props.largest_seqno,
             ))
         rows.append((draws, seqs, vt))
-    return metas, rows
+        tombs += run_tombs
+    return metas, rows, tombs
 
 
-def expected_survivors(rows, snapshots, bottommost=True):
+def expected_survivors(rows, snapshots, bottommost=True, tombs=()):
     """Numpy oracle: per (user key, snapshot stripe) the newest version
-    survives; at the bottommost level a stripe-0 DELETION is dropped and a
-    stripe-0 VALUE has its seqno zeroed. Returns (key, out_seq, vtype,
-    orig_seq) in output order (key asc, seqno desc)."""
+    survives, unless a range tombstone (seq, begin, end) newer than it in
+    the same snapshot stripe covers its key — then no version of that
+    stripe survives; at the bottommost level a stripe-0 DELETION is dropped
+    and a stripe-0 VALUE has its seqno zeroed. Returns (key, out_seq,
+    vtype, orig_seq) in output order (key asc, seqno desc)."""
     key = np.concatenate([r[0] for r in rows])
     seq = np.concatenate([r[1] for r in rows])
     vt = np.concatenate([r[2] for r in rows])
@@ -135,7 +168,12 @@ def expected_survivors(rows, snapshots, bottommost=True):
     stripe = np.searchsorted(snaps, seq, side="left")
     first = np.ones(len(key), dtype=bool)
     first[1:] = (key[1:] != key[:-1]) | (stripe[1:] != stripe[:-1])
-    keep = first
+    covered = np.zeros(len(key), dtype=bool)
+    for ts, lo, hi in tombs:
+        t_stripe = np.searchsorted(snaps, np.uint64(ts), side="left")
+        covered |= ((key >= lo) & (key < hi) & (seq < np.uint64(ts))
+                    & (stripe == t_stripe))
+    keep = first & ~covered
     if bottommost:
         keep = keep & ~((stripe == 0) & (vt == 0))
     out_seq = np.where(bottommost & (stripe == 0) & (vt == 1), 0, seq)
@@ -171,9 +209,10 @@ def read_outputs(env, dbdir, icmp, outputs):
     return cat(keys), cat(seqs), cat(vts), cat(vlast)
 
 
-def check_against_oracle(env, dbdir, icmp, outputs, rows, snapshots):
+def check_against_oracle(env, dbdir, icmp, outputs, rows, snapshots,
+                         tombs=()):
     key, seq, vt, vlast = read_outputs(env, dbdir, icmp, outputs)
-    wkey, wseq, wvt, worig = expected_survivors(rows, snapshots)
+    wkey, wseq, wvt, worig = expected_survivors(rows, snapshots, tombs=tombs)
     assert len(key) == len(wkey), f"{len(key)} entries, oracle {len(wkey)}"
     assert np.array_equal(key, wkey), "user keys differ from the oracle"
     assert np.array_equal(seq, wseq), "seqnos differ from the oracle"
@@ -337,8 +376,85 @@ def kernel_phase(torch, device):
     log(f"kernel merge_runs: {ms:.4f} ms (plain {plain_ms:.4f} ms, LSD "
         f"torch.sort {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by})")
-    del flush
+    del cols, run_starts, col_list, lib_perm, got, want
+
+    # shared_prefix_lengths at the block-assembly route's p = 2^22: K = 16
+    # without lens (the route's width, timed), K = 128 with lens.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    pp = 1 << 22
+    for k, with_lens in ((128, True), (16, False)):
+        keys, lens = prefix_inputs(torch, gen, pp, k, with_lens, device)
+        got = kernels.shared_prefix_lengths(keys, lens)
+        want = kernels.shared_prefix_lengths_plain(keys, lens)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [got], [want])
+        dups = int((want == kernels.KEY_LANES).sum()) if lens is None else 0
+        log(f"kernel shared_prefix p={pp} K={k} lens={with_lens}: "
+            f"max_abs_err={err} (rows equal to their predecessor: {dups})")
+        assert err == 0, "shared_prefix disagrees with its plain version"
+        if with_lens:
+            del keys, lens, got, want
+    ms = time_ms(torch, lambda: kernels.shared_prefix_lengths(keys), flush)
+    plain_ms = time_ms(
+        torch, lambda: kernels.shared_prefix_lengths_plain(keys), flush)
+    n_bytes = pp * (16 + 4)
+    n_ops = pp * 4 * 2  # two 8-byte compares and a select per row
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    results["shared_prefix"] = dict(
+        name="shared_prefix", route="cuda",
+        source="toplingdb_tpu_torch/csrc/shared_prefix.cu",
+        replaces="toplingdb_tpu/ops/pallas_kernels.py:28",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    log(f"kernel shared_prefix: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by})")
+    del flush, keys, got, want
     return results
+
+
+def prefix_inputs(torch, gen, p, k, with_lens, device):
+    """[p, k] uint8 sorted rows with long shared prefixes: a constant head
+    of k - 8 bytes, then a big-endian 8-byte counter drawn with repeats
+    (key space p/2, so ~40% of rows equal their predecessor); lens
+    (int32, k/2..k) when asked."""
+    vals = torch.sort(torch.randint(0, p // 2, (p,), generator=gen,
+                                    device=device)).values
+    keys = torch.full((p, k), ord("p"), dtype=torch.uint8, device=device)
+    keys[:, : k // 4] = torch.randint(0, 256, (k // 4,), generator=gen,
+                                      device=device).to(torch.uint8)
+    for j in range(8):
+        keys[:, k - 1 - j] = ((vals >> (8 * j)) & 0xFF).to(torch.uint8)
+    lens = None
+    if with_lens:
+        lens = torch.randint(k // 2, k + 1, (p,), generator=gen,
+                             device=device, dtype=torch.int32)
+    return keys, lens
+
+
+def profile_device(torch, fn):
+    """Run fn() once under torch.profiler: (device time in us, kinds of
+    device events, the 8 largest as text, names cut to the function)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def short(name):
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+        return re.split(r"[<(]", name, maxsplit=1)[0].strip()
+
+    dev = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0))
+    dev.sort(key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in dev)
+    top = ", ".join(f"{short(e.key)} x{e.count} {dev_us(e):.0f}us"
+                    for e in dev[:8])
+    return total, len(dev), top
 
 
 def shard_phase(torch, device):
@@ -382,27 +498,10 @@ def shard_phase(torch, device):
         ck.fused_uniform_shard_finish(pending)
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    # Device-side events (kernels and copies), names cut to the function.
-    def short(name):
-        name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
-        return re.split(r"[<(]", name, maxsplit=1)[0].strip()
-
-    dev = [e for e in prof.key_averages()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dev_us = lambda e: getattr(e, "device_time_total",
-                               getattr(e, "cuda_time_total", 0))
-    dev.sort(key=dev_us, reverse=True)
-    total = sum(dev_us(e) for e in dev)
-    top = ", ".join(f"{short(e.key)} x{e.count} {dev_us(e):.0f}us"
-                    for e in dev[:8])
+    total, n_kinds, top = profile_device(torch, run)
     log(f"shard program (p=2^20, 4 chunks, 3 snapshots): {ms:.3f} ms "
         f"(CUDA events, median of 5); profiler device time {total:.0f}us "
-        f"in {len(dev)} kinds of device events; top: {top}")
+        f"in {n_kinds} kinds of device events; top: {top}")
     return ms
 
 
@@ -420,7 +519,8 @@ class Alloc:
         return self.n
 
 
-def compact(env, dbdir, icmp, topts, metas, snapshots, device_name, alloc):
+def compact(env, dbdir, icmp, topts, metas, snapshots, device_name, alloc,
+            **kwargs):
     from toplingdb_tpu_torch.compaction.picker import Compaction
     from toplingdb_tpu_torch.db.table_cache import TableCache
     from toplingdb_tpu_torch.ops.device_compaction import (
@@ -433,17 +533,27 @@ def compact(env, dbdir, icmp, topts, metas, snapshots, device_name, alloc):
     t0 = time.time()
     outputs, stats = run_device_compaction(
         env, dbdir, icmp, c, tc, topts, snapshots, new_file_number=alloc,
-        creation_time=1, device_name=device_name)
+        creation_time=1, device_name=device_name, **kwargs)
     wall = time.time() - t0
     tc.close()
     return outputs, stats, wall
+
+
+def sst_bytes(dbdir, outs):
+    return [open(os.path.join(dbdir, f"{m.number:06d}.sst"), "rb").read()
+            for m in outs]
+
+
+def remove_ssts(dbdir, metas):
+    for m in metas:
+        os.remove(os.path.join(dbdir, f"{m.number:06d}.sst"))
 
 
 def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     from toplingdb_tpu_torch.ops import kernels
 
     t0 = time.time()
-    metas, rows = write_runs(env, dbdir, icmp, topts, n, Alloc(9))
+    metas, rows, _ = write_runs(env, dbdir, icmp, topts, n, Alloc(9))
     log(f"main path inputs: {n} entries, {len(metas)} SSTs, "
         f"{sum(m.file_size for m in metas)} bytes ({time.time() - t0:.1f}s)")
     max_seq = n // 4 * 4
@@ -472,42 +582,185 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
         jobs.append(dict(label=label, wall_s=wall, raw_MBps=mbps,
                          phases=stats.phase_dict(), gc_rows=gc_n,
                          merge_runs=mr_n))
-        for m in outputs:
-            os.remove(os.path.join(dbdir, f"{m.number:06d}.sst"))
+        remove_ssts(dbdir, outputs)
     launches = {"gc_rows": kernels.gc_rows.launches,
                 "merge_runs": kernels.merge_runs_perm.launches}
-    for m in metas:
-        os.remove(os.path.join(dbdir, f"{m.number:06d}.sst"))
+    remove_ssts(dbdir, metas)
     return launches, jobs
+
+
+def blocks_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
+    """The block-assembly route at n entries, one shard, without and with 3
+    snapshots: oracle, byte parity with the packed-download route, and the
+    three kernels' launches (counts set to 0 just before each job). The
+    assembly program's device time is read from CUDA events around
+    `assemble_blocks`. Returns (launches summed over both jobs, jobs)."""
+    from toplingdb_tpu_torch.ops import block_assembly as ba
+    from toplingdb_tpu_torch.ops import kernels
+
+    t0 = time.time()
+    metas, rows, _ = write_runs(env, dbdir, icmp, topts, n, Alloc(9))
+    log(f"block-assembly inputs: {n} entries, {len(metas)} SSTs, "
+        f"{sum(m.file_size for m in metas)} bytes ({time.time() - t0:.1f}s)")
+    program_ms, enqueue_ms, last_call = [], [], []
+    assemble = ba.assemble_blocks
+
+    def timed_assemble(*a, **k):
+        last_call[:] = [a, k]
+        if device_name == "cpu":
+            return assemble(*a, **k)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_host = time.time()
+        start.record()
+        out = assemble(*a, **k)
+        end.record()
+        enqueue_ms.append((time.time() - t_host) * 1e3)
+        end.synchronize()
+        program_ms.append(start.elapsed_time(end))
+        return out
+
+    max_seq = n // 4 * 4
+    runs = [("no snapshots", []),
+            ("3 snapshots", [max_seq // 5, max_seq // 2, 4 * max_seq // 5])]
+    names = ("gc_rows", "merge_runs_perm", "shared_prefix_lengths")
+    total = dict.fromkeys(names, 0)
+    jobs = []
+    for label, snaps in runs:
+        for name in names:
+            getattr(kernels, name).launches = 0
+        ba.assemble_blocks = timed_assemble
+        try:
+            outputs, stats, wall = compact(
+                env, dbdir, icmp, topts, metas, snaps, device_name,
+                Alloc(40_000), device_blocks=True, num_shards=1)
+        finally:
+            ba.assemble_blocks = assemble
+        counts = {name: getattr(kernels, name).launches for name in names}
+        mbps = n * RAW_PER_ENTRY / 1e6 / wall
+        prog = (f"{program_ms[-1]:.3f} ms on the device (CUDA events), "
+                f"{enqueue_ms[-1]:.3f} ms host enqueue" if program_ms
+                else "not measured")
+        log(f"block-assembly job ({label}): wall {wall:.3f}s, {mbps:.2f} raw "
+            f"MB/s, {stats.output_records} entries in {len(outputs)} SSTs, "
+            f"assembly program {prog}, launches {json.dumps(counts)}, phases "
+            f"{json.dumps(stats.phase_dict())}")
+        if snaps and device_name != "cpu":
+            # Where the program's device time goes: the same call again,
+            # traced, after the job (its result and launches are dropped).
+            a, k = last_call
+            total_us, n_kinds, top = profile_device(
+                torch, lambda: assemble(*a, **k))
+            log(f"assembly program (p=2^22, {label}): profiler device time "
+                f"{total_us:.0f}us in {n_kinds} kinds of device events; "
+                f"top: {top}")
+        last_call.clear()
+        if device_name != "cpu":
+            assert min(counts.values()) > 0, \
+                "a kernel of the block-assembly route never launched"
+        for name in names:
+            total[name] += counts[name]
+        packed, pstats, pwall = compact(env, dbdir, icmp, topts, metas, snaps,
+                                        device_name, Alloc(50_000))
+        log(f"packed-download job, same inputs ({label}): wall {pwall:.3f}s,"
+            f" {n * RAW_PER_ENTRY / 1e6 / pwall:.2f} raw MB/s, phases "
+            f"{json.dumps(pstats.phase_dict())}")
+        assert outputs and sst_bytes(dbdir, outputs) == sst_bytes(
+            dbdir, packed), "block-assembly and packed-download bytes differ"
+        t1 = time.time()
+        n_ok = check_against_oracle(env, dbdir, icmp, outputs, rows, snaps)
+        log(f"block-assembly job ({label}): {n_ok} entries match the oracle "
+            f"and the packed-download bytes ({time.time() - t1:.1f}s)")
+        jobs.append(dict(label=label, wall_s=wall, raw_MBps=mbps,
+                         packed_wall_s=pwall, program_ms=program_ms[-1:],
+                         phases=stats.phase_dict(), launches=counts))
+        remove_ssts(dbdir, outputs)
+        remove_ssts(dbdir, packed)
+    remove_ssts(dbdir, metas)
+    return total, jobs
+
+
+def tombstone_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
+    """Range tombstones through both routes on `device_name` and on the
+    CPU: four byte-identical outputs, the device's matching the oracle with
+    tombstones, and gc_rows launched on tombstone words."""
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import kernels
+
+    metas, rows, tombs = write_runs(env, dbdir, icmp, topts, n, Alloc(9),
+                                    seed=77, p_del=0.1, n_tombs=20)
+    max_seq = n + len(tombs)
+    snaps = [max_seq // 5, max_seq // 2, 4 * max_seq // 5]
+    # Observe the GC mask's calls: each launches gc_rows once, with the
+    # tombstone words it is given.
+    gc_mask = ck._gc_mask
+    with_tombs = []
+
+    def spy(*a, **k):
+        with_tombs.append(a[7] is not None and a[7].device.type == "cuda")
+        return gc_mask(*a, **k)
+
+    outs, walls, phases = {}, {}, {}
+    base = 60_000
+    kernels.gc_rows.launches = 0
+    ck._gc_mask = spy
+    try:
+        for dev in (device_name, "cpu"):
+            for blocks in (True, False):
+                base += 1000
+                o, st, walls[(dev, blocks)] = compact(
+                    env, dbdir, icmp, topts, metas, snaps, dev, Alloc(base),
+                    device_blocks=blocks, num_shards=1 if blocks else None)
+                outs[(dev, blocks)] = o
+                phases[(dev, blocks)] = st.phase_dict()
+    finally:
+        ck._gc_mask = gc_mask
+    ref = sst_bytes(dbdir, outs[(device_name, True)])
+    for key, o in outs.items():
+        assert sst_bytes(dbdir, o) == ref, f"{key} writes other bytes"
+    n_rd = sum(m.num_range_deletions for m in outs[(device_name, True)])
+    assert n_rd > 0, "no range tombstone survived into the output"
+    if device_name != "cpu":
+        assert any(with_tombs) and kernels.gc_rows.launches > 0, \
+            "gc_rows never launched on tombstone words"
+    n_ok = 0
+    for blocks in (True, False):
+        n_ok = check_against_oracle(env, dbdir, icmp,
+                                    outs[(device_name, blocks)], rows, snaps,
+                                    tombs)
+    log(f"range tombstones: {n} entries, {len(tombs)} tombstones, "
+        f"{n_rd} fragments kept; both routes on {device_name} and cpu write "
+        f"identical bytes, {n_ok} entries match the oracle; gc_rows launches "
+        f"{kernels.gc_rows.launches}, {sum(with_tombs)} of them on tombstone "
+        f"words; walls "
+        + ", ".join(f"{d}/{'blocks' if b else 'packed'} {w:.3f}s"
+                    for (d, b), w in walls.items())
+        + "; phases on " + ", ".join(
+            f"{d}/{'blocks' if b else 'packed'} {json.dumps(ph)}"
+            for (d, b), ph in phases.items() if d == device_name))
+    for o in outs.values():
+        remove_ssts(dbdir, o)
+    remove_ssts(dbdir, metas)
 
 
 def device_vs_plain(env, dbdir, icmp, topts, n, device_name="cuda"):
     from toplingdb_tpu_torch.ops import device_compaction as dc
 
-    metas, rows = write_runs(env, dbdir, icmp, topts, n, Alloc(9), seed=99,
-                             p_del=0.1)
+    metas, rows, _ = write_runs(env, dbdir, icmp, topts, n, Alloc(9),
+                                seed=99, p_del=0.1)
     snaps = [n // 5, n // 2, 4 * n // 5]
-    old = dc._SHARD_ROWS
-    dc._SHARD_ROWS = n // 4
-    n_shards = dc._device_shards(n)
-    try:
-        out_cuda, _, wall_cuda = compact(env, dbdir, icmp, topts, metas,
-                                         snaps, device_name, Alloc(20_000))
-        out_cpu, _, wall_cpu = compact(env, dbdir, icmp, topts, metas, snaps,
-                                       "cpu", Alloc(30_000))
-    finally:
-        dc._SHARD_ROWS = old
-
-    def blobs(outs):
-        return [open(os.path.join(dbdir, f"{m.number:06d}.sst"), "rb").read()
-                for m in outs]
-
-    assert out_cuda and blobs(out_cuda) == blobs(out_cpu), \
-        "cuda and cpu outputs differ"
+    n_shards = 4
+    assert n >= dc._SHARD_MIN_ROWS, "the job would run as one shard"
+    out_cuda, _, wall_cuda = compact(env, dbdir, icmp, topts, metas, snaps,
+                                     device_name, Alloc(20_000),
+                                     num_shards=n_shards)
+    out_cpu, _, wall_cpu = compact(env, dbdir, icmp, topts, metas, snaps,
+                                   "cpu", Alloc(30_000), num_shards=n_shards)
+    assert out_cuda and sst_bytes(dbdir, out_cuda) == sst_bytes(
+        dbdir, out_cpu), "cuda and cpu outputs differ"
     n_ok = check_against_oracle(env, dbdir, icmp, out_cuda, rows, snaps)
-    assert n_shards >= 2
-    log(f"device vs plain: {n} entries, {n_shards} shards, {len(out_cuda)} SSTs "
-        f"byte-identical (cuda {wall_cuda:.3f}s, cpu {wall_cpu:.3f}s), "
+    log(f"device vs plain: {n} entries, {n_shards} shards, {len(out_cuda)} "
+        f"SSTs byte-identical (cuda {wall_cuda:.3f}s, cpu {wall_cpu:.3f}s), "
         f"{n_ok} entries match the oracle")
 
 
@@ -553,10 +806,16 @@ def main() -> int:
     topts = TableOptions()
     try:
         launches, _jobs = main_path(torch, env, dbdir, icmp, topts, MAIN_N)
+        blk_launches, _bjobs = blocks_path(torch, env, dbdir, icmp, topts,
+                                           BLOCKS_N)
+        tombstone_path(torch, env, dbdir, icmp, topts, TOMB_N)
         device_vs_plain(env, dbdir, icmp, topts, PLAIN_N)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
 
+    # Launches on each kernel's own main path: the packed-download route for
+    # gc_rows and the merge, the block-assembly route for shared_prefix.
+    launches["shared_prefix"] = blk_launches["shared_prefix_lengths"]
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -4,7 +4,9 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 
 - each kernel equals its plain PyTorch version bitwise on the card;
 - one compaction job on device_name="cuda" (merge and gc_rows kernels)
-  writes the same SST bytes as on device_name="cpu" (plain versions).
+  writes the same SST bytes as on device_name="cpu" (plain versions);
+- a small block-assembly job with a range tombstone (all three kernels)
+  writes the same SST bytes on "cuda" as on "cpu".
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from toplingdb_tpu_torch.compaction.picker import Compaction
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
+from toplingdb_tpu_torch.db.range_del import RangeTombstone
 from toplingdb_tpu_torch.db.table_cache import TableCache
 from toplingdb_tpu_torch.db.version_edit import FileMetaData
 from toplingdb_tpu_torch.env import PosixEnv
@@ -81,7 +84,26 @@ def test_merge_matches_plain(dev):
     assert torch.equal(got.cpu(), want)
 
 
-def _write_run(env, dbdir, icmp, topts, fnum, rng, n, seq0):
+def test_shared_prefix_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    for k, n, with_lens in ((16, 100_000, False), (17, 3000, True),
+                            (128, 5000, True)):
+        vals = np.sort(rng.integers(0, n // 2, n)).astype(np.uint64)
+        m = np.full((n, k), ord("p"), dtype=np.uint8)
+        for j in range(8):
+            m[:, k - 1 - j] = (vals >> np.uint64(8 * j)) & np.uint64(0xFF)
+        keys = torch.from_numpy(m)
+        lens = (torch.from_numpy(rng.integers(k // 2, k + 1, n).astype(
+            np.int32)) if with_lens else None)
+        want = kernels.shared_prefix_lengths(keys, lens)
+        before = kernels.shared_prefix_lengths.launches
+        got = kernels.shared_prefix_lengths(
+            keys.to(dev), None if lens is None else lens.to(dev))
+        assert kernels.shared_prefix_lengths.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def _write_run(env, dbdir, icmp, topts, fnum, rng, n, seq0, tombstones=()):
     """One presorted run of 8-digit keys (10% deletions) as one SST."""
     draws = rng.integers(0, n, n)
     seqs = np.arange(seq0, seq0 + n, dtype=np.uint64)
@@ -100,7 +122,7 @@ def _write_run(env, dbdir, icmp, topts, fnum, rng, n, seq0):
     files = write_tables_columnar(
         env, dbdir, lambda: fnum, icmp, topts, kv,
         np.arange(n, dtype=np.int32), np.full(n, -1, np.int64), vt[s],
-        seqs[s], creation_time=1)
+        seqs[s], creation_time=1, tombstones=tombstones)
     _, path, props, smallest, largest, _sel = files[0]
     return FileMetaData(number=fnum, file_size=env.get_file_size(path),
                         smallest=smallest, largest=largest,
@@ -128,3 +150,35 @@ def test_cuda_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
         out[device_name] = [open(f"{dbdir}/{m.number:06d}.sst", "rb").read()
                             for m in outs]
     assert len(out["cuda"]) > 1 and out["cuda"] == out["cpu"]
+
+
+def test_block_assembly_job_with_tombstone(dev, tmp_path):
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(5)
+    # Seqnos 1..8192 for points; the tombstone sits between two snapshots.
+    tomb = RangeTombstone(5000, b"00000500", b"00002500")
+    metas = [_write_run(env, dbdir, icmp, topts, 10 + i, rng, 4096,
+                        1 + i * 4096, (tomb,) if i else ())
+             for i in range(2)]
+    out = {}
+    launches = {}
+    for device_name, base in (("cuda", 100), ("cpu", 200)):
+        c = Compaction(level=0, output_level=2, inputs=list(metas),
+                       bottommost=True)
+        alloc = iter(range(base, base + 100))
+        counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches,
+                  kernels.shared_prefix_lengths.launches]
+        outs, _ = dc.run_device_compaction(
+            env, dbdir, icmp, c, TableCache(env, dbdir, icmp, topts), topts,
+            [3000, 6000], new_file_number=lambda: next(alloc),
+            creation_time=1, device_name=device_name, device_blocks=True)
+        launches[device_name] = [
+            kernels.gc_rows.launches - counts[0],
+            kernels.merge_runs_perm.launches - counts[1],
+            kernels.shared_prefix_lengths.launches - counts[2]]
+        out[device_name] = [open(f"{dbdir}/{m.number:06d}.sst", "rb").read()
+                            for m in outs]
+        assert len(outs) == 1 and outs[0].num_range_deletions == 1
+    assert out["cuda"] == out["cpu"]
+    assert min(launches["cuda"]) > 0 and max(launches["cpu"]) == 0

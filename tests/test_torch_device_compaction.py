@@ -1,9 +1,9 @@
 """One compaction job through toplingdb_tpu_torch against toplingdb_tpu:
 input SSTs written by the JAX package, the same job compacted by both
 packages' run_device_compaction (the port on device_name="cpu", the
-reference on JAX's CPU backend through its serial shard path); the output
-SST files must be byte-identical and the FileMetaData equal. Tolerance:
-bitwise."""
+reference on JAX's CPU backend through its serial shard path), with and
+without range tombstones; the output SST files must be byte-identical and
+the FileMetaData equal. Tolerance: bitwise."""
 
 import dataclasses
 import os
@@ -49,32 +49,37 @@ def plain_options(o) -> dict:
 
 
 def write_inputs(dbdir, rng, n_files=3, per_file=300, key_space=400,
-                 p_del=0.1, merge_rows=0, tombstone=False):
+                 p_del=0.1, complex_rows=0, complex_type=ValueType.MERGE,
+                 tombstones=(), seq_step=1):
     """Input SSTs written with the JAX package's TableBuilder; returns the
-    reference FileMetaData list."""
+    reference FileMetaData list. The first `complex_rows` rows of each file
+    get `complex_type`; point seqnos advance by `seq_step`; each
+    (seq, begin, end) range tombstone goes into the file whose seqno span
+    holds it."""
     env = default_env()
     topts = RefTO(block_size=BLOCK)
     metas, seq = [], 1
     for fnum in range(41, 41 + n_files):
         entries = []
+        seq_lo = seq
         for _ in range(per_file):
             t = (ValueType.DELETION if rng.random() < p_del
                  else ValueType.VALUE)
-            if merge_rows and len(entries) < merge_rows:
-                t = ValueType.MERGE
+            if complex_rows and len(entries) < complex_rows:
+                t = complex_type
             k = b"key%05d" % rng.randrange(key_space)
             entries.append((make_internal_key(k, seq, t), b"val%06d" % seq))
-            seq += 1
+            seq += seq_step
         entries.sort(key=lambda kv: REF_ICMP.sort_key(kv[0]))
         path = ref_fn.table_file_name(dbdir, fnum)
         w = env.new_writable_file(path)
         b = TableBuilder(w, REF_ICMP, topts)
         for k, v in entries:
             b.add(k, v)
-        if tombstone and fnum == 41:
-            b.add_tombstone(make_internal_key(b"key00010", seq, 0xF),
-                            b"key00020")
-            seq += 1
+        for t_seq, begin, end in tombstones:
+            if seq_lo <= t_seq < seq:
+                b.add_tombstone(make_internal_key(
+                    begin, t_seq, ValueType.RANGE_DELETION), end)
         props = b.finish()
         w.close()
         metas.append(RefMeta(
@@ -107,7 +112,8 @@ def run_ref(dbdir, metas, snaps, bottommost, max_out):
     return outs
 
 
-def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu"):
+def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu",
+             num_shards=None):
     inputs = [FileMetaData(**{k: v for k, v in dataclasses.asdict(m).items()})
               for m in metas]
     c = Compaction(level=0, output_level=2, inputs=inputs,
@@ -116,7 +122,8 @@ def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu"):
     tc = TableCache(PosixEnv(), dbdir, ICMP, topts)
     outs, stats = dc.run_device_compaction(
         PosixEnv(), dbdir, ICMP, c, tc, topts, snaps,
-        new_file_number=allocator(200), creation_time=7, device_name=device)
+        new_file_number=allocator(200), creation_time=7, device_name=device,
+        num_shards=num_shards)
     assert stats.input_records == sum(
         tc.get_reader(m.number).properties.num_entries for m in metas)
     return outs
@@ -224,20 +231,128 @@ def test_default_device_requires_a_card(tmp_path):
     assert sorted(os.listdir(dbdir)) == before
 
 
-@pytest.mark.parametrize("kind", ["range_tombstone", "merge_rows"])
+@pytest.mark.parametrize("kind", ["single_deletion_rows", "merge_rows"])
 def test_unsupported_jobs_raise_without_output(tmp_path, kind):
     dbdir = str(tmp_path)
     metas, _ = write_inputs(
-        dbdir, random.Random(9), n_files=2, per_file=50,
-        merge_rows=5 if kind == "merge_rows" else 0,
-        tombstone=kind == "range_tombstone")
+        dbdir, random.Random(9), n_files=2, per_file=50, complex_rows=5,
+        complex_type=(ValueType.MERGE if kind == "merge_rows"
+                      else ValueType.SINGLE_DELETION))
     before = sorted(os.listdir(dbdir))
     inputs = [FileMetaData(**dataclasses.asdict(m)) for m in metas]
     c = Compaction(level=0, output_level=2, inputs=inputs, bottommost=True)
     tc = TableCache(PosixEnv(), dbdir, ICMP)
-    match = "range tombstones" if kind == "range_tombstone" else "MERGE"
-    with pytest.raises(NotSupported, match=match):
+    with pytest.raises(NotSupported, match="MERGE / SINGLE_DELETION"):
         dc.run_device_compaction(PosixEnv(), dbdir, ICMP, c, tc, tc._topts,
                                  [], new_file_number=allocator(300),
                                  device_name="cpu")
     assert sorted(os.listdir(dbdir)) == before
+
+
+# Overlapping range tombstones (point seqnos are odd, tombstone seqnos
+# even), several pairs straddling a snapshot of TOMB_SNAPS: an older
+# in-stripe tombstone must still delete a row that a newer tombstone above
+# the snapshot also covers.
+TOMBSTONES = [
+    (480, b"key00010", b"key00090"),
+    (520, b"key00050", b"key00150"),
+    (990, b"key00100", b"key00220"),
+    (1010, b"key00200", b"key00260"),
+    (1390, b"key00300", b"key00380"),
+    (1600, b"key00000", b"key00030"),
+]
+TOMB_SNAPS = [500, 1000, 1400]
+
+
+@pytest.mark.parametrize("shards,snaps,bottommost", [
+    (1, [], True),
+    (4, [], False),
+    (1, TOMB_SNAPS, False),
+    (4, TOMB_SNAPS, True),
+])
+def test_range_tombstones_write_reference_bytes(tmp_path, monkeypatch,
+                                                shards, snaps, bottommost):
+    monkeypatch.setenv("TPULSM_PIPELINE", "0")
+    monkeypatch.setenv("TPULSM_DEVICE_SHARDS", str(shards))
+    monkeypatch.setattr(ref_dc, "_SHARD_MIN_ROWS", 1)
+    monkeypatch.setattr(dc, "_SHARD_MIN_ROWS", 1)
+    seen = {}
+    orig = dc._dispatch_shards
+
+    def spy(shard_list, cover, *a, **k):
+        seen["shards"] = len(shard_list)
+        seen["covered_rows"] = int(np.count_nonzero(cover))
+        return orig(shard_list, cover, *a, **k)
+
+    monkeypatch.setattr(dc, "_dispatch_shards", spy)
+    dbdir = str(tmp_path)
+    metas, _ = write_inputs(dbdir, random.Random(31 + shards),
+                            tombstones=TOMBSTONES, seq_step=2)
+    ref_outs = run_ref(dbdir, metas, snaps, bottommost, 4096)
+    port_outs = run_port(dbdir, metas, snaps, bottommost, 4096,
+                         num_shards=shards)
+    assert seen["shards"] == shards and seen["covered_rows"] > 0
+    assert ref_outs and len(ref_outs) == len(port_outs)
+    assert read_bytes(dbdir, port_outs) == read_bytes(dbdir, ref_outs)
+    for r, p in zip(ref_outs, port_outs):
+        assert same_meta(r, p)
+    kept = sum(m.num_range_deletions for m in port_outs)
+    if not bottommost or snaps:
+        # Surviving tombstones keep the job in one output file.
+        assert kept > 0 and len(port_outs) == 1
+    else:
+        assert kept == 0 and len(port_outs) > 1
+
+
+def test_reference_reads_port_range_del_block(tmp_path, monkeypatch):
+    from toplingdb_tpu.db.range_del import RangeTombstone as RefTombstone
+    from toplingdb_tpu.table.reader import TableReader as RefReader
+
+    monkeypatch.setenv("TPULSM_PIPELINE", "0")
+    dbdir = str(tmp_path)
+    metas, _ = write_inputs(dbdir, random.Random(8), tombstones=TOMBSTONES,
+                            seq_step=2)
+    port_outs = run_port(dbdir, metas, TOMB_SNAPS, False, 1 << 30)
+    path = ref_fn.table_file_name(dbdir, port_outs[0].number)
+    ref_r = RefReader(default_env().new_random_access_file(path), REF_ICMP,
+                      RefTO(block_size=BLOCK))
+    frags = [RefTombstone.from_table_entry(b, e)
+             for b, e in ref_r.range_del_entries()]
+    assert len(frags) == port_outs[0].num_range_deletions > 0
+    # Every fragment lies inside one of the input tombstones, at its seqno.
+    for f in frags:
+        assert any(f.seq == s and b <= f.begin and f.end <= e
+                   for s, b, e in TOMBSTONES), f
+
+
+@pytest.mark.parametrize("snaps,bottommost", [([7], True), ([], False),
+                                              ([], True)])
+def test_tombstone_only_job_writes_reference_bytes(tmp_path, monkeypatch,
+                                                   snaps, bottommost):
+    """Inputs that hold range tombstones and no point entries: one output
+    with the surviving fragments, or none when all are dropped."""
+    monkeypatch.setenv("TPULSM_PIPELINE", "0")
+    dbdir = str(tmp_path)
+    env = default_env()
+    metas = []
+    for fnum, (seq, begin, end) in ((41, (5, b"key00010", b"key00050")),
+                                    (42, (9, b"key00030", b"key00090"))):
+        path = ref_fn.table_file_name(dbdir, fnum)
+        w = env.new_writable_file(path)
+        b = TableBuilder(w, REF_ICMP, RefTO(block_size=BLOCK))
+        b.add_tombstone(make_internal_key(begin, seq,
+                                          ValueType.RANGE_DELETION), end)
+        props = b.finish()
+        w.close()
+        metas.append(RefMeta(
+            number=fnum, file_size=env.get_file_size(path),
+            smallest=b.smallest_key, largest=b.largest_key,
+            smallest_seqno=props.smallest_seqno,
+            largest_seqno=props.largest_seqno))
+    ref_outs = run_ref(dbdir, metas, snaps, bottommost, 1 << 30)
+    port_outs = run_port(dbdir, metas, snaps, bottommost, 1 << 30)
+    assert len(ref_outs) == len(port_outs) == (0 if bottommost and not snaps
+                                               else 1)
+    assert read_bytes(dbdir, port_outs) == read_bytes(dbdir, ref_outs)
+    for r, p in zip(ref_outs, port_outs):
+        assert same_meta(r, p) and p.num_range_deletions > 0

@@ -1,7 +1,8 @@
 """The port's kernel plain versions against the JAX package's kernels, on
 the same numpy inputs: `gc_rows` against the Pallas gc_rows run in interpret
-mode, and the merge against the XLA `_merge_runs_perm` and the Pallas
-`bitonic_merge_runs` (interpret mode). Tolerance: bitwise."""
+mode, the merge against the XLA `_merge_runs_perm` and the Pallas
+`bitonic_merge_runs` (interpret mode), and `shared_prefix_lengths` against
+the Pallas `shared_prefix_lengths` (interpret mode). Tolerance: bitwise."""
 
 import jax
 import jax.numpy as jnp
@@ -115,3 +116,74 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(NotImplementedError):
         kernels.merge_runs_perm(torch.zeros((2, 4), dtype=torch.int32,
                                             device="meta"), x[:3], 1)
+    with pytest.raises(NotImplementedError):
+        kernels.shared_prefix_lengths(
+            torch.zeros((4, 16), dtype=torch.uint8, device="meta"))
+
+
+def _key_matrix(keys, k):
+    m = np.zeros((len(keys), k), dtype=np.uint8)
+    for i, key in enumerate(keys):
+        m[i, : len(key)] = np.frombuffer(key, dtype=np.uint8)
+    return m, np.array([len(key) for key in keys], dtype=np.int32)
+
+
+def _prefix_both(m, lens):
+    """(port plain version, Pallas interpret run) on the same rows."""
+    got = kernels.shared_prefix_lengths(
+        torch.from_numpy(m), None if lens is None else torch.from_numpy(lens))
+    want = pk.shared_prefix_lengths(m, lens, interpret=True)
+    assert got.dtype == torch.int32
+    return got.numpy(), want
+
+
+def _pallas_test_rows(case):
+    """The rows of tests/test_pallas_kernels.py's four cases."""
+    import random
+
+    if case == "basic":
+        keys = sorted(b"key%05d" % (i * 7 % 1000) for i in range(500))
+    elif case == "zero_padding":
+        return _key_matrix([b"ab", b"ab\x00cd"], 8)
+    elif case == "random":
+        rng = random.Random(3)
+        keys = sorted({rng.randbytes(rng.randint(1, 30)) for _ in range(700)})
+    elif case == "single":
+        keys = [b"solo"]
+    else:
+        return np.zeros((0, 32), dtype=np.uint8), np.zeros(0, np.int32)
+    return _key_matrix(keys, 32)
+
+
+@pytest.mark.parametrize("case", ["basic", "zero_padding", "random",
+                                  "single", "empty"])
+def test_prefix_plain_matches_pallas_reference_cases(case):
+    m, lens = _pallas_test_rows(case)
+    for kl in (lens, None):
+        got, want = _prefix_both(m, kl)
+        assert got.shape == (len(m),)
+        assert np.array_equal(got, want)
+    if case == "zero_padding":
+        assert _prefix_both(m, lens)[0].tolist() == [0, 2]
+
+
+@pytest.mark.parametrize("with_lens", [False, True])
+@pytest.mark.parametrize("n", [1, 1000, 3000])
+@pytest.mark.parametrize("k", [16, 40, 128])
+def test_prefix_plain_matches_pallas_sorted_rows(k, n, with_lens):
+    """Sorted rows sharing long prefixes: a constant head, then a
+    big-endian counter drawn with repeats, so many rows equal their
+    predecessor (the 128 case without lens)."""
+    rng = np.random.default_rng(k * 10 + n)
+    vals = np.sort(rng.integers(0, max(2, n // 2), n)).astype(np.uint64)
+    m = np.full((n, k), ord("p"), dtype=np.uint8)
+    m[:, : k // 4] = rng.integers(0, 256, k // 4).astype(np.uint8)
+    for j in range(8):
+        m[:, k - 1 - j] = ((vals >> np.uint64(8 * j)) & np.uint64(0xFF))
+    lens = rng.integers(k // 2, k + 1, n).astype(np.int32) if with_lens \
+        else None
+    got, want = _prefix_both(m, lens)
+    assert np.array_equal(got, want)
+    if n > 1 and not with_lens:
+        assert (got == kernels.KEY_LANES).any()  # duplicate rows
+        assert (got[1:] >= k - 8).all()

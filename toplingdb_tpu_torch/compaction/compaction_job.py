@@ -1,10 +1,17 @@
-"""Per-job compaction stats (copied from
-toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats`;
-the per-entry CompactionJob comes with a later slice)."""
+"""Per-job compaction stats and the tombstones a job writes (copied from
+toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats` and
+`surviving_tombstone_fragments`; the per-entry CompactionJob comes with a
+later slice)."""
 
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass
+
+from toplingdb_tpu_torch.db.range_del import (
+    RangeDelAggregator,
+    fragment_tombstones,
+)
 
 
 @dataclass
@@ -81,3 +88,19 @@ class CompactionStats:
             if resid < 0:
                 out["pipeline_overlap_s"] = round(-resid / 1e6, 3)
         return out
+
+
+def surviving_tombstone_fragments(rd: RangeDelAggregator,
+                                  snapshots: list[int], bottommost: bool,
+                                  ucmp):
+    """Tombstones that must be written to outputs. At the bottommost level a
+    fragment is droppable only in snapshot stripe 0 (same rule as point
+    DELETIONs); newer-than-a-snapshot tombstones must be kept or they would
+    resurrect older kept entries."""
+    if rd.empty():
+        return []
+    snaps = sorted(snapshots)
+    frags = fragment_tombstones(rd.tombstones(), ucmp)
+    if bottommost:
+        return [f for f in frags if bisect.bisect_left(snaps, f.seq) > 0]
+    return frags

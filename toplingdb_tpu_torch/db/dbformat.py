@@ -44,6 +44,22 @@ def pack_seq_type(seq: int, t: ValueType | int) -> int:
     return (seq << 8) | int(t)
 
 
+def unpack_seq_type(packed: int) -> tuple[int, int]:
+    return packed >> 8, packed & 0xFF
+
+
+def make_internal_key(user_key: bytes, seq: int, t: ValueType | int) -> bytes:
+    return user_key + _U64.pack(pack_seq_type(seq, t))
+
+
+def split_internal_key(ikey: bytes) -> tuple[bytes, int, int]:
+    """Returns (user_key, seqno, value_type)."""
+    if len(ikey) < 8:
+        raise Corruption(f"internal key too short: {len(ikey)}")
+    seq, t = unpack_seq_type(_U64.unpack_from(ikey, len(ikey) - 8)[0])
+    return ikey[:-8], seq, t
+
+
 class Comparator:
     """Bytewise user-key comparator; find_shortest_separator and
     find_short_successor shorten index-block keys."""

@@ -22,6 +22,7 @@ from toplingdb_tpu_torch.table.block import BlockBuilder
 from toplingdb_tpu_torch.table.builder import (
     METAINDEX_FILTER,
     METAINDEX_PROPERTIES,
+    METAINDEX_RANGE_DEL,
     unsupported_options,
 )
 from toplingdb_tpu_torch.table.properties import TableProperties
@@ -320,8 +321,10 @@ def _bulk_decode(lib, raw, block_offs, block_lens, verify):
 
 class _ColumnarSST:
     """Framing state for ONE output file of the columnar writer (index,
-    props, meta blocks, footer): data blocks arrive as pre-framed sections,
-    and the whole index block is built natively at finish."""
+    props, meta blocks, footer): data blocks arrive as pre-framed sections.
+    Sections from the native builder keep per-block arrays and the whole
+    index block is built natively at finish; sections framed elsewhere
+    (the on-device block assembly) index each block as it is added."""
 
     def __init__(self, env, dbname, fnum, icmp, options, creation_time,
                  column_family=(0, "default")):
@@ -344,6 +347,9 @@ class _ColumnarSST:
             smallest_seqno=dbformat.MAX_SEQUENCE_NUMBER,
         )
         self._sections: list = []  # (start_pos, counts, plens, base offset)
+        self.index_block = BlockBuilder(options.index_restart_interval)
+        self.pending_last_key: bytes | None = None
+        self.pending_handle = None
         self.first_key: bytes | None = None
         self.last_key: bytes | None = None
         self.num_entries = 0
@@ -364,6 +370,28 @@ class _ColumnarSST:
         total = int(cnts.sum())
         self.num_entries += total
         self.last_key = entry_key_fn(start_pos + total - 1)
+        self.w.append(section)
+
+    def add_framed_section(self, section: bytes, blocks) -> None:
+        """Append a pre-framed run of uncompressed blocks (payload + type
+        byte + crc trailer, exactly what write_block emits); `blocks` yields
+        (payload_len, first_key, last_key, n_entries) per block in file
+        order, and each block's index entry is added here."""
+        offset = self.w.file_size()
+        for payload_len, block_first, block_last, n_entries in blocks:
+            if self.first_key is None:
+                self.first_key = block_first
+            if self.pending_last_key is not None:
+                sep = self._icmp.find_shortest_separator(
+                    self.pending_last_key, block_first)
+                self.index_block.add(sep, self.pending_handle.encode())
+            self.pending_handle = fmt.BlockHandle(offset, payload_len)
+            self.pending_last_key = block_last
+            self.props.data_size += payload_len
+            self.props.num_data_blocks += 1
+            self.last_key = block_last
+            self.num_entries += n_entries
+            offset += payload_len + fmt.BLOCK_TRAILER_SIZE
         self.w.append(section)
 
     def _native_index_raw(self, lib, kv, order, trailer_override) -> bytes:
@@ -403,26 +431,47 @@ class _ColumnarSST:
                 raise NotSupported(f"native index build failed rc={rc}")
             return out[: int(out_len[0])].tobytes()
 
-    def finish(self, lib, kv, sel, vtypes, seqs, order, trailer_override):
+    def finish(self, lib, kv, sel, vtypes, seqs, order=None,
+               trailer_override=None, tombstones=(), precomputed=None):
         """Write meta blocks + footer; `sel` = the original-index selection
-        of this file's entries (stats and bloom are vectorized over it)."""
+        of this file's entries (stats and bloom are vectorized over it).
+        `order`/`trailer_override` feed the native index build of native
+        sections. `tombstones`: fragments for the range-del meta block.
+        `precomputed`: entry stats already reduced elsewhere (the on-device
+        block assembly; its `sel` then only feeds the bloom) — a dict with
+        num_entries/raw_key_size/raw_value_size/num_deletions/
+        num_merge_operands/smallest_seqno/largest_seqno."""
+        icmp = self._icmp
         options = self._options
         props = self.props
         n = len(sel)
-        props.num_entries = n
-        props.raw_key_size = int(kv.key_lens[sel].sum()) if n else 0
-        props.raw_value_size = int(kv.val_lens[sel].sum()) if n else 0
-        vt = vtypes[sel] if n else vtypes[:0]
-        props.num_deletions = int(np.count_nonzero(
-            (vt == int(dbformat.ValueType.DELETION))
-            | (vt == int(dbformat.ValueType.SINGLE_DELETION))
-        ))
-        props.num_merge_operands = int(np.count_nonzero(
-            vt == int(dbformat.ValueType.MERGE)
-        ))
-        sq = seqs[sel] if n else seqs[:0]
-        props.smallest_seqno = int(sq.min()) if n else 0
-        props.largest_seqno = int(sq.max()) if n else 0
+        if self._sections and self.pending_last_key is not None:
+            # Per-block and native index entries would interleave out of
+            # order; no writer mixes them in one file.
+            raise NotSupported("mixed index modes in one output file")
+        if self.pending_last_key is not None:
+            succ = icmp.find_short_successor(self.pending_last_key)
+            self.index_block.add(succ, self.pending_handle.encode())
+        if precomputed is not None:
+            for k in ("num_entries", "raw_key_size", "raw_value_size",
+                      "num_deletions", "num_merge_operands",
+                      "smallest_seqno", "largest_seqno"):
+                setattr(props, k, precomputed[k])
+        else:
+            props.num_entries = n
+            props.raw_key_size = int(kv.key_lens[sel].sum()) if n else 0
+            props.raw_value_size = int(kv.val_lens[sel].sum()) if n else 0
+            vt = vtypes[sel] if n else vtypes[:0]
+            props.num_deletions = int(np.count_nonzero(
+                (vt == int(dbformat.ValueType.DELETION))
+                | (vt == int(dbformat.ValueType.SINGLE_DELETION))
+            ))
+            props.num_merge_operands = int(np.count_nonzero(
+                vt == int(dbformat.ValueType.MERGE)
+            ))
+            sq = seqs[sel] if n else seqs[:0]
+            props.smallest_seqno = int(sq.min()) if n else 0
+            props.largest_seqno = int(sq.max()) if n else 0
 
         meta_entries = []
         metaindex = BlockBuilder(restart_interval=1)
@@ -438,10 +487,30 @@ class _ColumnarSST:
             props.filter_size = len(fdata)
             meta_entries.append((METAINDEX_FILTER, fh))
 
+        smallest = self.first_key
+        largest = self.last_key
+        if tombstones:
+            rdb = BlockBuilder(restart_interval=1)
+            for frag in tombstones:
+                b, e = frag.to_table_entry()
+                rdb.add(b, e)
+                props.num_range_deletions += 1
+                if smallest is None or icmp.compare(b, smallest) < 0:
+                    smallest = b
+                end_ikey = dbformat.make_internal_key(
+                    e, dbformat.MAX_SEQUENCE_NUMBER,
+                    dbformat.VALUE_TYPE_FOR_SEEK)
+                if largest is None or icmp.compare(end_ikey, largest) > 0:
+                    largest = end_ikey
+                props.smallest_seqno = min(props.smallest_seqno, frag.seq)
+                props.largest_seqno = max(props.largest_seqno, frag.seq)
+            rh = fmt.write_block(self.w, rdb.finish())
+            meta_entries.append((METAINDEX_RANGE_DEL, rh))
+
         if self._sections:
             iraw = self._native_index_raw(lib, kv, order, trailer_override)
         else:
-            iraw = BlockBuilder(options.index_restart_interval).finish()
+            iraw = self.index_block.finish()
         props.index_size = len(iraw)
         ph = fmt.write_block(self.w, props.encode_block())
         meta_entries.append((METAINDEX_PROPERTIES, ph))
@@ -453,7 +522,7 @@ class _ColumnarSST:
         self.w.flush()
         self.w.sync()
         self.w.close()
-        return props, self.first_key, self.last_key
+        return props, smallest, largest
 
 
 def write_tables_columnar(env, dbname, new_file_number, icmp, options,
@@ -461,12 +530,15 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                           vtypes: np.ndarray, seqs: np.ndarray,
                           creation_time: int,
                           max_output_file_size: int = 2 ** 62,
-                          column_family=(0, "default")):
+                          column_family=(0, "default"), tombstones=()):
     """Build output SSTs from `kv` entries in `order`, byte-identical to the
     reference writer fed the same stream — including the output-cutting rule
     (cut at a user-key boundary once the file's written bytes reach
-    max_output_file_size). trailer_override[i] (per ORIGINAL entry index)
-    >= 0 replaces the 8-byte key trailer (seqno zeroing). Returns a list of
+    max_output_file_size). `tombstones` (range-tombstone fragments) go into
+    the range-del block of the output; while any survive there is one
+    output file, as in the reference. trailer_override[i] (per ORIGINAL
+    entry index) >= 0 replaces the 8-byte key trailer (seqno zeroing).
+    Returns a list of
     (fnum, path, props, smallest, largest, sel) where sel is the
     original-index selection written to that file. On any failure every
     partial output is deleted before re-raising.
@@ -475,8 +547,7 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     shard s's survivors stream into SSTs while shard s+1 is still
     computing). Chunks must be key-range-ordered with no user key spanning a
     chunk boundary, and the caller may update trailer_override/seqs rows for
-    a chunk any time before yielding it. Range tombstones are not written
-    by this slice of the port."""
+    a chunk any time before yielding it."""
     lib = native.lib()
     if lib is None:
         raise NotSupported("native library unavailable")
@@ -554,6 +625,7 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     p_plens = native.np_i64p(sec_plens)
     p_seclen = native.np_i64p(sec_len)
 
+    can_cut = not tombstones  # single output while tombstones survive
     results = []
     cur: _ColumnarSST | None = None
     lo = 0
@@ -579,7 +651,7 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                 if start >= filled:
                     break
             limit = filled
-            if (cur.num_entries
+            if (can_cut and cur.num_entries
                     and cur.w.file_size() >= max_output_file_size):
                 if not same_user_key(start, start - 1):
                     # Cut HERE (the per-entry path's pre-add check).
@@ -599,8 +671,9 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                         j += 1
                     limit = j
             base_size = cur.w.file_size()
-            budget = min(base_size + _SECTION_RUN_BYTES,
-                         max_output_file_size)
+            budget = base_size + _SECTION_RUN_BYTES
+            if can_cut and max_output_file_size < budget:
+                budget = max_output_file_size
             rc = lib.tpulsm_build_data_section(
                 p_kbuf, p_koff, p_klen, p_vbuf, p_voff, p_vlen,
                 p_tro, p_order, start, limit,
@@ -640,7 +713,7 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
             start = pos
         sel = order[lo:filled]
         results.append((cur.fnum, cur.path) + cur.finish(
-            lib, kv, sel, vtypes, seqs, order, trailer_override
+            lib, kv, sel, vtypes, seqs, order, trailer_override, tombstones
         ) + (sel,))
         cur = None
         return results

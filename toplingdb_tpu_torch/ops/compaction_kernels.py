@@ -3,7 +3,8 @@ toplingdb_tpu/ops/compaction_kernels.py, uniform-shard programs only).
 
 One key-range shard of a compaction runs as one device program over two
 bulk uploads (front-coded or plain user-key bytes, plus one packed u32 per
-row: (seq - chunk_min_seq) << 8 | vtype):
+row: (seq - chunk_min_seq) << 8 | vtype) and, when the job has range
+tombstones, two u32 planes of each row's max covering tombstone seqno:
 
   1. decode the [p, uk_len] key matrix and rebuild each row's 64-bit
      (seq << 8 | type) trailer from its 24-bit delta;
@@ -14,7 +15,9 @@ row: (seq - chunk_min_seq) << 8 | vtype):
   4. compact the survivors to the front, stably;
   5. pack the survivor order into three byte planes for the download
      (22-bit local row ids, bit 23 = zero-seq flag, bit 22 = complex-group
-     flag) plus [count, has_complex].
+     flag) plus [count, has_complex] — or, on the block-assembly route
+     (ops/block_assembly.py), build the output's data blocks from steps
+     1-4 (`_uniform_shard_core`).
 
 Every reference u32 word is carried in int64 and masked to 32 bits after
 `~`, `<<` and `+`; the kernels take int32 tensors holding the bit patterns.
@@ -184,13 +187,29 @@ def _decode_front_coded(plens: torch.Tensor, sfx: torch.Tensor,
     return sfx[pos.clamp(0, sfx.shape[0] - 1)].T.contiguous()
 
 
-def _uniform_shard_core(kb, pkb, starts, min_his, min_los, snap_hi, snap_lo,
-                        total: int, num_key_words: int, uk_len: int,
-                        bottommost: bool, run_starts=None,
+def _stable_partition(mask: torch.Tensor) -> torch.Tensor:
+    """The reference's argsort(~mask, stable=True): rows with mask set
+    first, then the rest, each in row order (int64 permutation)."""
+    p = mask.shape[0]
+    m = mask.to(torch.int64)
+    count = m.sum()
+    dest = torch.where(mask, torch.cumsum(m, 0) - 1,
+                       torch.cumsum(1 - m, 0) - 1 + count)
+    return torch.empty_like(dest).scatter_(
+        0, dest, torch.arange(p, dtype=torch.int64, device=mask.device))
+
+
+def _uniform_shard_core(kb, pkb, starts, min_his, min_los, tomb_hi, tomb_lo,
+                        snap_hi, snap_lo, total: int, num_key_words: int,
+                        uk_len: int, bottommost: bool, run_starts=None,
                         merge_mode: str = "sort"):
-    """[p, uk_len] u8 key matrix in → order + GC. Returns (perm, out,
-    zero_seq, host_resolve): perm maps sorted row → local row, the rest are
-    per sorted row."""
+    """[p, uk_len] u8 key matrix in → order + GC. tomb_hi/tomb_lo: per
+    ORIGINAL row max covering tombstone seqno words (int32 bit patterns),
+    or both None. Returns a dict of per-SORTED-row tensors (perm: sorted
+    row → local row, take: the survivors-first stable partition, out,
+    zero_seq, host_resolve) plus per-ORIGINAL-row packed trailer words
+    (packed_hi, packed_lo: u32 values in int64), vtype_orig and valid, for
+    the packed-download and block-assembly tails."""
     p = pkb.shape[0]
     device = pkb.device
     span = num_key_words * 4
@@ -248,41 +267,41 @@ def _uniform_shard_core(kb, pkb, starts, min_his, min_los, snap_hi, snap_lo,
         ih = inv_hi[perm]
         il = inv_lo[perm]
         vt = vtype[perm]
+    th = tl = None
+    if tomb_hi is not None:
+        th = tomb_hi[perm]
+        tl = tomb_lo[perm]
     keep, zero_seq, host_resolve = _gc_mask(
-        kw, kl, ih, il, vt, snap_hi, snap_lo, None, None, bottommost)
+        kw, kl, ih, il, vt, snap_hi, snap_lo, th, tl, bottommost)
     out = keep | host_resolve
-    return perm, out, zero_seq, host_resolve
+    return {
+        "perm": perm, "take": _stable_partition(out), "out": out,
+        "zero_seq": zero_seq, "host_resolve": host_resolve,
+        "packed_hi": packed_hi, "packed_lo": packed_lo,
+        "vtype_orig": vt0, "valid": valid,
+    }
 
 
-def _uniform_shard_tail(kb, pkb, starts, min_his, min_los, snap_hi, snap_lo,
-                        total, num_key_words, uk_len, bottommost,
-                        run_starts=None, merge_mode="sort"):
+def _uniform_shard_tail(kb, pkb, starts, min_his, min_los, tomb_hi, tomb_lo,
+                        snap_hi, snap_lo, total, num_key_words, uk_len,
+                        bottommost, run_starts=None, merge_mode="sort"):
     """Packed-download tail: (packed_bytes u8[3p], meta int32[2])."""
-    perm, out, zero_seq, host_resolve = _uniform_shard_core(
-        kb, pkb, starts, min_his, min_los, snap_hi, snap_lo, total,
-        num_key_words, uk_len, bottommost, run_starts=run_starts,
-        merge_mode=merge_mode,
+    core = _uniform_shard_core(
+        kb, pkb, starts, min_his, min_los, tomb_hi, tomb_lo, snap_hi,
+        snap_lo, total, num_key_words, uk_len, bottommost,
+        run_starts=run_starts, merge_mode=merge_mode,
     )
-    p = out.shape[0]
-    # Stable partition of the survivors to the front (the reference's
-    # argsort(~out, stable=True)): survivors take their rank among
-    # survivors, the rest follow in order.
-    out_i = out.to(torch.int64)
-    count = out_i.sum()
-    rank_in = torch.cumsum(out_i, 0) - 1
-    rank_out = torch.cumsum(1 - out_i, 0) - 1 + count
-    dest = torch.where(out, rank_in, rank_out)
-    take = torch.empty_like(dest).scatter_(
-        0, dest, torch.arange(p, dtype=torch.int64, device=out.device))
-    po = (perm[take]
-          | (zero_seq[take].to(torch.int64) << 23)
-          | (host_resolve[take].to(torch.int64) << 22))
+    take = core["take"]
+    po = (core["perm"][take]
+          | (core["zero_seq"][take].to(torch.int64) << 23)
+          | (core["host_resolve"][take].to(torch.int64) << 22))
     packed_bytes = torch.cat([
         (po & 0xFF).to(torch.uint8),
         ((po >> 8) & 0xFF).to(torch.uint8),
         ((po >> 16) & 0xFF).to(torch.uint8),
     ])
-    meta = torch.stack([count, host_resolve.any().to(torch.int64)]).to(
+    meta = torch.stack([core["out"].sum(),
+                        core["host_resolve"].any().to(torch.int64)]).to(
         torch.int32)
     return packed_bytes, meta
 
@@ -332,12 +351,15 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def upload_uniform_shard(chunks, front_code=None, device="cuda"):
+def upload_uniform_shard(chunks, covers=None, front_code=None,
+                         device="cuda"):
     """Pack one shard's prepared chunks (prepare_uniform_chunk outputs, in
     row order) into device buffers, pad rows to the next power of two, and
-    start the host→device copies. `front_code` (None = auto): upload
-    per-row shared-prefix lengths + suffix bytes instead of full key bytes;
-    the device rebuilds the exact key matrix. Returns a handle dict."""
+    start the host→device copies. `covers`: optional per-chunk uint64
+    max-covering-tombstone arrays (None = tombstone-free), uploaded as two
+    u32 planes. `front_code` (None = auto): upload per-row shared-prefix
+    lengths + suffix bytes instead of full key bytes; the device rebuilds
+    the exact key matrix. Returns a handle dict."""
     device = torch.device(device)
     uk_len = chunks[0][4]
     ns = tuple(int(c[3]) for c in chunks)
@@ -351,13 +373,18 @@ def upload_uniform_shard(chunks, front_code=None, device="cuda"):
         front_code = False  # plens is uint8; a longer prefix would wrap
     p = _next_pow2(max(1, total))
     pkb = np.zeros(p, dtype=np.uint32)
+    has_tombs = covers is not None and any(
+        c is not None and np.any(c) for c in covers)
+    if has_tombs:
+        tomb_hi = np.zeros(p, dtype=np.uint32)
+        tomb_lo = np.zeros(p, dtype=np.uint32)
     if front_code:
         plens = np.zeros(p, dtype=np.uint8)
         sfx_parts = []
     else:
         ukb = np.zeros(p * uk_len, dtype=np.uint8)
     pos = 0
-    for uk, pk32, _mn, n, _l in chunks:
+    for ci, (uk, pk32, _mn, n, _l) in enumerate(chunks):
         if front_code and n:
             kb2 = uk.reshape(n, uk_len)
             eq = kb2[1:] == kb2[:-1]
@@ -370,6 +397,10 @@ def upload_uniform_shard(chunks, front_code=None, device="cuda"):
         elif not front_code:
             ukb[pos * uk_len:(pos + n) * uk_len] = uk
         pkb[pos:pos + n] = pk32
+        if has_tombs and covers[ci] is not None:
+            cv = covers[ci]
+            tomb_hi[pos:pos + n] = (cv >> np.uint64(32)).astype(np.uint32)
+            tomb_lo[pos:pos + n] = (cv & np.uint64(_M32)).astype(np.uint32)
         pos += n
     mins = np.array([c[2] for c in chunks], dtype=np.uint64)
     # Chunk starts + per-chunk min seqnos, pow2-padded (sentinel 2^31-1).
@@ -397,6 +428,8 @@ def upload_uniform_shard(chunks, front_code=None, device="cuda"):
         "min_his": _to_device(min_his, device),
         "min_los": _to_device(min_los, device),
         "run_starts": _to_device(run_starts, device),
+        "tomb_hi": _to_device(tomb_hi, device) if has_tombs else None,
+        "tomb_lo": _to_device(tomb_lo, device) if has_tombs else None,
     }
     if front_code:
         sfx = (np.concatenate(sfx_parts) if sfx_parts
@@ -422,6 +455,16 @@ def shard_merge_mode(handle) -> str:
     return "merge" if handle["device"].type == "cuda" else "sort"
 
 
+def shard_key_matrix(handle) -> torch.Tensor:
+    """The shard's [p, uk_len] u8 user-key matrix on its device: decoded
+    from the front-coded upload, or the plain upload reshaped."""
+    p = handle["pkb"].shape[0]
+    if "plens" in handle:
+        return _decode_front_coded(handle["plens"], handle["sfx"],
+                                   handle["uk_len"])
+    return handle["ukb"].reshape(p, handle["uk_len"])
+
+
 def fused_uniform_shard_start(handle, snapshots: list[int], bottommost: bool,
                               merge_mode: str | None = None):
     """Enqueue one shard's device program over an upload_uniform_shard
@@ -440,14 +483,10 @@ def fused_uniform_shard_start(handle, snapshots: list[int], bottommost: bool,
     snap_hi, snap_lo = _split_snapshots(snapshots)
     snap_hi = _to_device(snap_hi, device)
     snap_lo = _to_device(snap_lo, device)
-    p = h["pkb"].shape[0]
-    if "plens" in h:
-        kb = _decode_front_coded(h["plens"], h["sfx"], uk_len)
-    else:
-        kb = h["ukb"].reshape(p, uk_len)
     packed_bytes, meta = _uniform_shard_tail(
-        kb, h["pkb"], h["starts"], h["min_his"], h["min_los"], snap_hi,
-        snap_lo, h["total"], w, uk_len, bool(bottommost),
+        shard_key_matrix(h), h["pkb"], h["starts"], h["min_his"],
+        h["min_los"], h["tomb_hi"], h["tomb_lo"], snap_hi, snap_lo,
+        h["total"], w, uk_len, bool(bottommost),
         run_starts=h["run_starts"], merge_mode=merge_mode,
     )
     if device.type != "cuda":

@@ -2,17 +2,24 @@
 toplingdb_tpu/ops/device_compaction.py).
 
 One compaction job, from input SSTs to output SSTs:
-  1. a native whole-file scan of every input into columnar buffers;
+  1. a native whole-file scan of every input into columnar buffers, and the
+     range tombstones of every input into a per-row max covering tombstone
+     seqno (stripe-clamped on the host; fragments are few);
   2. the input runs cut into user-key-range shards of about 1M rows;
-  3. per shard, one device program (ops/compaction_kernels.py): merge of
-     the presorted runs, MVCC GC, survivor compaction, packed download;
-  4. each shard's survivors streamed into the native SST writer, which
-     writes files byte-identical to the reference's for the same job.
+  3. one of two device routes, chosen on the host before any device work:
+     - packed download (the default): per shard, one device program
+       (ops/compaction_kernels.py) — merge of the presorted runs, MVCC GC,
+       survivor compaction, packed download — and each shard's survivors
+       streamed into the native SST writer;
+     - block assembly (`device_blocks=True`, single-shard jobs that
+       `block_assembly.assembly_supported` accepts): the device builds the
+       finished data-block payloads and the host only frames them;
+  4. output files byte-identical to the reference's for the same job.
 
-`run_device_compaction(..., device_name="cuda")` runs the device program on
-the card and raises when there is none; `device_name="cpu"` runs the plain
-versions of the kernels. Jobs this slice of the port does not cover raise
-NotSupported naming what is missing; nothing is routed elsewhere.
+`run_device_compaction(..., device_name="cuda")` runs the device programs
+on the card and raises when there is none; `device_name="cpu"` runs the
+plain versions of the kernels. Jobs this slice of the port does not cover
+raise NotSupported naming what is missing; nothing is routed elsewhere.
 """
 
 from __future__ import annotations
@@ -25,8 +32,16 @@ import numpy as np
 import torch
 
 from toplingdb_tpu_torch import native
-from toplingdb_tpu_torch.compaction.compaction_job import CompactionStats
+from toplingdb_tpu_torch.compaction.compaction_job import (
+    CompactionStats,
+    surviving_tombstone_fragments,
+)
 from toplingdb_tpu_torch.db import dbformat
+from toplingdb_tpu_torch.db.range_del import (
+    RangeDelAggregator,
+    RangeTombstone,
+)
+from toplingdb_tpu_torch.ops import block_assembly as ba
 from toplingdb_tpu_torch.ops import compaction_kernels as ck
 from toplingdb_tpu_torch.table.builder import unsupported_options
 from toplingdb_tpu_torch.utils.status import NotSupported
@@ -86,32 +101,41 @@ def _part_bounds(part, splitters: list[bytes]) -> list[int]:
     shard)."""
     b = [0]
     for spl in splitters:
-        lo, hi = b[-1], part.n
-        while lo < hi:
-            mid = (lo + hi) // 2
-            if _part_user_key(part, mid) < spl:
-                lo = mid + 1
-            else:
-                hi = mid
-        b.append(lo)
+        b.append(_part_lower_bound(part, spl, b[-1]))
     b.append(part.n)
     return b
 
 
-def _device_shards(total_rows: int) -> int:
-    """Range-shard count: shards of about _SHARD_ROWS rows, a power of two
-    (so per-shard padded shapes repeat), at most 16."""
+def _part_lower_bound(part, key: bytes, lo: int = 0) -> int:
+    """First row of the (sorted) part whose user key >= key."""
+    hi = part.n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if _part_user_key(part, mid) < key:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _device_shards(total_rows: int, num_shards: int | None = None) -> int:
+    """Range-shard count: `num_shards` when given; otherwise shards of
+    about _SHARD_ROWS rows, a power of two (so per-shard padded shapes
+    repeat), at most 16."""
+    if num_shards is not None:
+        return max(1, int(num_shards))
     s = 1
     while s < 16 and total_rows // s > _SHARD_ROWS:
         s *= 2
     return s
 
 
-def _collect_raw_columnar(compaction, table_cache):
-    """Scan every input file into columnar buffers, split the sorted parts
-    into user-key-range shards and prepare each shard's uniform chunk
-    columns on the host. Returns (kv, readers, shards); shards is None
-    when the uniform shard path does not apply."""
+def _collect_raw_columnar(compaction, table_cache, icmp, num_shards=None):
+    """Scan every input file into columnar buffers and its range tombstones
+    into an aggregator, split the sorted parts into user-key-range shards
+    and prepare each shard's uniform chunk columns on the host. Returns
+    (kv, rd, shards, parts); shards is None when the uniform shard path
+    does not apply."""
     from toplingdb_tpu_torch.ops.columnar_io import (
         ColumnarKV,
         scan_table_columnar,
@@ -127,13 +151,59 @@ def _collect_raw_columnar(compaction, table_cache):
     else:
         parts = [scan_table_columnar(r) for r in readers]
         kv = ColumnarKV.concat(parts)
-    return kv, readers, _prepare_uniform_shards(parts)
+    rd = RangeDelAggregator(icmp.user_comparator)
+    for r in readers:
+        for b, e in r.range_del_entries():
+            rd.add(RangeTombstone.from_table_entry(b, e))
+    return kv, rd, _prepare_uniform_shards(parts, num_shards), parts
 
 
-def _prepare_uniform_shards(parts):
+def _cover_for_parts(parts, rd: RangeDelAggregator, snapshots):
+    """Per-ORIGINAL-row (concat order) max covering tombstone seqno,
+    clamped to the row's snapshot stripe: a tombstone counts only when it
+    is newer than the row and not newer than the first snapshot at or
+    above the row's seqno. Computed per sorted input part with interval
+    binary searches (fragments are few, rows are many). Returns
+    uint64[sum(part.n)] or None when there are no tombstones."""
+    frags = rd.fragments()
+    if not frags:
+        return None
+    snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
+    covers = []
+    for part in parts:
+        n = part.n
+        cov = np.zeros(n, dtype=np.uint64)
+        if n:
+            seqs = _kv_seq_vtype(part).seq
+            if len(snaps):
+                idx = np.searchsorted(snaps, seqs, side="left")
+                upper = np.where(
+                    idx < len(snaps),
+                    snaps[np.minimum(idx, len(snaps) - 1)],
+                    np.uint64(dbformat.MAX_SEQUENCE_NUMBER),
+                )
+            else:
+                upper = np.full(n, dbformat.MAX_SEQUENCE_NUMBER,
+                                dtype=np.uint64)
+            for frag in frags:
+                lo = _part_lower_bound(part, frag.begin)
+                hi = _part_lower_bound(part, frag.end, lo)
+                if lo < hi:
+                    t = np.uint64(frag.seq)
+                    sl = slice(lo, hi)
+                    elig = ((t > seqs[sl]) & (t <= upper[sl])
+                            & (t > cov[sl]))
+                    cov[sl] = np.where(elig, t, cov[sl])
+        covers.append(cov)
+    return np.concatenate(covers) if covers else None
+
+
+def _prepare_uniform_shards(parts, num_shards=None):
     """Host half of the sharded uniform device path: validate density and
     uniform key length, pick range splitters, slice every part into
-    per-shard chunks. Returns the shards list or None when ineligible."""
+    per-shard chunks (`num_shards` of them when given, at or above
+    _SHARD_MIN_ROWS rows). Returns the shards list or None when
+    ineligible."""
     uniform_len = 0
     total_rows = 0
     for part in parts:
@@ -161,7 +231,7 @@ def _prepare_uniform_shards(parts):
     splitters = None
     for part in parts:
         if part.n:
-            n_shards = (_device_shards(total_rows)
+            n_shards = (_device_shards(total_rows, num_shards)
                         if total_rows >= _SHARD_MIN_ROWS else 1)
             splitters = _shard_splitters(part, n_shards)
             break
@@ -228,17 +298,22 @@ def _outputs_from_files(env, files, stats):
     return outputs
 
 
-def _dispatch_shards(shards, snapshots, bottommost, device):
-    """Serial shard dispatch: every shard is uploaded and its device program
-    enqueued up front on one device (uploads and launches are asynchronous,
-    so shard s+1's copies stream while shard s computes, and each result's
-    download is enqueued behind its program). Returns finish(s), to be
-    called for s = 0..n-1 in order."""
+def _dispatch_shards(shards, cover, snapshots, bottommost, device):
+    """Serial shard dispatch: every shard is uploaded (with its rows'
+    tombstone cover, when there is one) and its device program enqueued up
+    front on one device (uploads and launches are asynchronous, so shard
+    s+1's copies stream while shard s computes, and each result's download
+    is enqueued behind its program). Returns finish(s), to be called for
+    s = 0..n-1 in order."""
     pending = [
         ck.fused_uniform_shard_start(
-            ck.upload_uniform_shard(chunks, device=device), snapshots,
-            bottommost)
-        for chunks, _ranges in shards
+            ck.upload_uniform_shard(
+                chunks,
+                None if cover is None else [cover[lo:hi]
+                                            for lo, hi in ranges],
+                device=device),
+            snapshots, bottommost)
+        for chunks, ranges in shards
     ]
 
     def finish(s):
@@ -267,24 +342,22 @@ def resolve_device(device_name: str) -> torch.device:
 def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                     table_cache, table_options, snapshots,
                                     new_file_number, creation_time, device,
-                                    column_family=(0, "default")):
+                                    column_family=(0, "default"),
+                                    device_blocks=False, num_shards=None):
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
 
     t0 = time.time()
     stats = CompactionStats(device=str(device))
     stats.input_bytes = compaction.total_input_bytes()
     stats.input_files = len(compaction.all_inputs())
-    kv, readers, shards = _collect_raw_columnar(compaction, table_cache)
-    if any(r.range_del_entries() for r in readers):
-        raise NotSupported(
-            "range tombstones (the per-row tombstone cover) are not ported "
-            "yet")
+    kv, rd, shards, parts = _collect_raw_columnar(
+        compaction, table_cache, icmp, num_shards)
     stats.input_scan_usec = int((time.time() - t0) * 1e6)
     stats.input_records = kv.n
-    if kv.n == 0:
+    if kv.n == 0 and rd.empty():
         stats.work_time_usec = int((time.time() - t0) * 1e6)
         return [], stats
-    if int(kv.key_lens.max()) - 8 > MAX_DEVICE_KEY_BYTES:
+    if kv.n and int(kv.key_lens.max()) - 8 > MAX_DEVICE_KEY_BYTES:
         raise NotSupported(
             f"user keys over {MAX_DEVICE_KEY_BYTES}B are not supported by "
             "the device path")
@@ -298,26 +371,39 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
             "CompactionIterator) are not ported yet")
     if np.any(col.vtype == int(_VT.BLOB_INDEX)):
         raise NotSupported("blob values are not ported yet")
-    if shards is None:
+    if shards is None and kv.n:
         raise NotSupported(
             "variable-length keys and sparse layouts (fused_encode_sort_gc) "
             "are not ported yet")
     if len(snapshots) > ck.MAX_SNAPSHOTS:
         raise NotSupported(
             f"device GC supports <= {ck.MAX_SNAPSHOTS} live snapshots")
+    tombs = surviving_tombstone_fragments(
+        rd, snapshots, compaction.bottommost, icmp.user_comparator)
     stats.finish_usec += int((time.time() - t_fin) * 1e6)
+    if creation_time is None:
+        creation_time = int(time.time())
+    # Range tombstones ride the device programs as a per-row max covering
+    # seqno side input.
+    t_cov = time.time()
+    cover = None if rd.empty() else _cover_for_parts(parts, rd, snapshots)
+    stats.host_compute_usec += int((time.time() - t_cov) * 1e6)
 
-    t_up = time.time()
-    finish_shard = _dispatch_shards(shards, snapshots, compaction.bottommost,
-                                    device)
-    stats.transfer_time_usec += int((time.time() - t_up) * 1e6)
+    if ba.assembly_supported(device_blocks, table_options, kv, shards,
+                             False, compaction.max_output_file_size,
+                             col.vtype):
+        files = ba.run_block_assembly(
+            env, dbname, icmp, kv, shards[0], cover, snapshots,
+            compaction.bottommost, table_options, new_file_number,
+            creation_time, tombs, device, column_family, stats=stats)
+        outputs = _outputs_from_files(env, files, stats)
+        stats.work_time_usec = int((time.time() - t0) * 1e6)
+        return outputs, stats
 
-    t_fin = time.time()
     trailer_override = np.full(kv.n, -1, dtype=np.int64)
     seqs = col.seq.copy()
-    vtypes = col.vtype
 
-    def _shard_order_chunks():
+    def _shard_order_chunks(finish_shard):
         # Each chunk's trailers/seqs land just before the writer consumes
         # it (the writer reads both arrays per native call).
         for s_i, (_chunks, ranges) in enumerate(shards):
@@ -332,14 +418,22 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
             seqs[zero_s] = 0
             yield order_s
 
-    stats.finish_usec += int((time.time() - t_fin) * 1e6)
+    if kv.n:
+        t_up = time.time()
+        order_feed = _shard_order_chunks(_dispatch_shards(
+            shards, cover, snapshots, compaction.bottommost, device))
+        stats.transfer_time_usec += int((time.time() - t_up) * 1e6)
+    elif tombs:
+        order_feed = np.empty(0, dtype=np.int32)  # tombstones only
+    else:
+        stats.work_time_usec = int((time.time() - t0) * 1e6)
+        return [], stats
     t_wr = time.time()
     files = write_tables_columnar(
-        env, dbname, new_file_number, icmp, table_options, kv,
-        _shard_order_chunks(), trailer_override, vtypes, seqs,
-        creation_time if creation_time is not None else int(time.time()),
+        env, dbname, new_file_number, icmp, table_options, kv, order_feed,
+        trailer_override, col.vtype, seqs, creation_time,
         max_output_file_size=compaction.max_output_file_size,
-        column_family=column_family,
+        column_family=column_family, tombstones=tombs,
     )
     outputs = _outputs_from_files(env, files, stats)
     stats.encode_write_usec = int((time.time() - t_wr) * 1e6)
@@ -352,18 +446,24 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                           compaction_filter=None, new_file_number=None,
                           creation_time=None, device_name="cuda",
                           blob_resolver=None, blob_gc=None,
-                          column_family=(0, "default")):
+                          column_family=(0, "default"), device_blocks=False,
+                          num_shards=None):
     """Run one compaction job through the device data plane; the same
     signature as the reference's run_device_compaction and byte-identical
     outputs (including output cutting). Returns (outputs, stats).
 
     device_name: "cuda" (default; raises when no card is present) or "cpu"
-    (the plain versions of the kernels). Raises NotSupported, before any
+    (the plain versions of the kernels). device_blocks: take the on-device
+    block-assembly route where its gate admits the job (the reference's
+    TPULSM_DEVICE_BLOCKS=1); other jobs take the packed-download route.
+    num_shards: the key-range shard count for jobs of at least
+    _SHARD_MIN_ROWS rows (the reference's TPULSM_DEVICE_SHARDS; None sizes
+    shards to about _SHARD_ROWS rows). Raises NotSupported, before any
     output is written, for what this slice of the port does not cover:
     compaction filters, blob GC, non-bytewise comparators, table options
-    other than uncompressed block-based tables with a binary index, range
-    tombstones, MERGE / SINGLE_DELETION rows, blob values, variable-length
-    keys and more than 1024 snapshots."""
+    other than uncompressed block-based tables with a binary index,
+    MERGE / SINGLE_DELETION rows, blob values, variable-length keys and more
+    than 1024 snapshots."""
     device = resolve_device(device_name)
     del merge_operator, blob_resolver  # used only by complex groups
     if native.lib() is None:
@@ -382,4 +482,5 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     return _run_device_compaction_columnar(
         env, dbname, icmp, compaction, table_cache, table_options,
         snapshots, new_file_number, creation_time, device, column_family,
+        device_blocks=device_blocks, num_shards=num_shards,
     )

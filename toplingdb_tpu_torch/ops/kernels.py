@@ -6,6 +6,9 @@ PyTorch versions (the counterpart of toplingdb_tpu/ops/pallas_kernels.py).
 - `merge_runs_perm`: the stable merge permutation of presorted runs
   (replaces the Pallas `_bitonic_merge_kernel`; its plain version is a torch
   port of the XLA `_merge_runs_perm`), CUDA source `csrc/merge_runs.cu`.
+- `shared_prefix_lengths`: shared-prefix lengths between consecutive sorted
+  keys (replaces the Pallas `_prefix_kernel`), CUDA source
+  `csrc/shared_prefix.cu`.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
@@ -30,7 +33,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = {"gc_rows": "gc_rows.cu", "merge_runs": "merge_runs.cu"}
+SOURCES = {"gc_rows": "gc_rows.cu", "merge_runs": "merge_runs.cu",
+           "shared_prefix": "shared_prefix.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -111,6 +115,9 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "gc_rows":
             lib.tpt_gc_rows.restype = i32
             lib.tpt_gc_rows.argtypes = [vp] * 8 + [i32, i64] + [vp] * 5
+        elif name == "shared_prefix":
+            lib.tpt_shared_prefix.restype = i32
+            lib.tpt_shared_prefix.argtypes = [vp, vp, i32, i64, vp, vp]
         else:
             lib.tpt_merge_round.restype = i32
             lib.tpt_merge_round.argtypes = [vp, i32, i64, vp, vp, vp, i32,
@@ -331,3 +338,71 @@ def merge_runs_perm(cols: torch.Tensor, run_starts: torch.Tensor,
 
 
 merge_runs_perm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix lengths
+# ---------------------------------------------------------------------------
+
+# Lanes of the Pallas kernel: a row equal to its predecessor reports this.
+KEY_LANES = 128
+
+
+def shared_prefix_lengths_plain(keys: torch.Tensor,
+                                key_lens: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of `shared_prefix_lengths`: the torch twin of
+    the Pallas `_prefix_kernel` (first differing lane by a where/min over
+    the lanes) plus its host wrapper's clamp."""
+    n, k = keys.shape
+    out = torch.zeros(n, dtype=torch.int32, device=keys.device)
+    if n > 1:
+        lane = torch.arange(k, dtype=torch.uint8, device=keys.device)
+        first = torch.where(keys[1:] != keys[:-1], lane,
+                            torch.tensor(KEY_LANES, dtype=torch.uint8,
+                                         device=keys.device))
+        out[1:] = first.amin(dim=1).to(torch.int32)
+    if key_lens is not None and n:
+        cap = torch.minimum(key_lens, torch.roll(key_lens, 1))
+        cap[0] = 0
+        out = torch.minimum(out, cap.to(torch.int32))
+    return out
+
+
+def shared_prefix_lengths(keys: torch.Tensor,
+                          key_lens: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """out[i] (int32) = index of the first byte where row i of the [N, K]
+    uint8 key matrix (1 <= K <= 128) differs from row i-1; out[0] = 0 and a
+    row equal to its predecessor gives 128 (KEY_LANES), as in the Pallas
+    entry. With key_lens (int32 [N]) the result is clamped to
+    min(key_lens[i], key_lens[i-1])."""
+    if keys.dim() != 2 or keys.dtype != torch.uint8:
+        raise ValueError("keys must be a [N, K] uint8 tensor")
+    n, k = keys.shape
+    if not 1 <= k <= KEY_LANES:
+        raise ValueError(f"key width {k} is outside 1..{KEY_LANES}")
+    device = keys.device
+    if device.type == "cpu":
+        return shared_prefix_lengths_plain(keys, key_lens)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"shared_prefix_lengths has no kernel for {device}")
+    if not keys.is_contiguous():
+        raise ValueError("keys must be contiguous")
+    if key_lens is not None:
+        _check(key_lens, "key_lens", torch.int32, device, n)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    with torch.cuda.device(device):
+        rc = _lib("shared_prefix").tpt_shared_prefix(
+            _ptr(keys), _ptr(key_lens), k, n, _ptr(out), _stream(device))
+    if rc != 0:
+        raise RuntimeError(
+            f"shared_prefix kernel launch failed: cuda error {rc}")
+    shared_prefix_lengths.launches += 1
+    return out
+
+
+shared_prefix_lengths.launches = 0
