@@ -9,12 +9,12 @@ Phases (any failure ends the run with a non-zero exit code):
      nvcc per source, all started together), from the sources in the
      checkout;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main paths' shapes (bitwise), with its median time over 25 launches
-     with the L2 flushed, the plain version's time, the least time the card
-     could take (bound) and, for the merge, the LSD torch.sort passes of the
-     CPU "sort" mode as the library yardstick; then one main-path shard
-     through the whole shard program, timed, with its top ops by device
-     time;
+     the main paths' shapes (bitwise; gc_rows and the merge at both routes'
+     p = 2^20 and p = 2^22), with its median time over 25 launches with the
+     L2 flushed, the plain version's time, the least time the card could
+     take (bound) and, for the merge, the LSD torch.sort passes of the CPU
+     "sort" mode as the library yardstick; then one main-path shard through
+     the whole shard program, timed, with its top ops by device time;
   4. the packed-download route: bench.py's compaction job (4 presorted
      runs, 8-digit keys, 20-byte values, ~2x overwrites, N = 10,000,000
      entries, written by the port's columnar writer) compacted L0 -> L2
@@ -312,19 +312,15 @@ def merge_inputs(torch, rng, p, per_run, device):
     return cols_t, torch.from_numpy(run_starts).to(device)
 
 
-def kernel_phase(torch, device):
-    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+def gc_rows_case(torch, rng, p, flush):
+    """gc_rows at p rows: bitwise against its plain version with S = 64 and
+    1024 and tombstone words and in the main path's own form (S = 64, no
+    tombstone words), which is then timed. Returns the numbers of the
+    kernels JSON line."""
     from toplingdb_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(7)
-    p = 1 << 20
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    results = {}
-
-    # gc_rows at p = 2^20: S = 64 and 1024 with tombstone words, and the
-    # main path's own form (S = 64, no tombstone words).
     for n_snaps, tombs in ((40, True), (1000, True), (3, False)):
-        args = gc_rows_inputs(torch, rng, p, n_snaps, tombs, device)
+        args = gc_rows_inputs(torch, rng, p, n_snaps, tombs, flush.device)
         got = kernels.gc_rows(*args)
         want = kernels.gc_rows_plain(*args)
         torch.cuda.synchronize()
@@ -338,16 +334,21 @@ def kernel_phase(torch, device):
     n_bytes = p * (4 + 4 + 1 + 4) + 2 * 4 * s + p * (4 + 1 + 1 + 1)
     n_ops = p * (2 * 4 * max(1, s.bit_length() - 1) + 8)
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    results["gc_rows"] = dict(
-        name="gc_rows", route="cuda", source="toplingdb_tpu_torch/csrc/gc_rows.cu",
-        replaces="toplingdb_tpu/ops/pallas_kernels.py:60",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
-    log(f"kernel gc_rows: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+    log(f"kernel gc_rows p={p}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
-    # Merge: 4 presorted runs + the pad run over p = 2^20, 5 columns.
-    cols, run_starts = merge_inputs(torch, rng, p, 156_250, device)
+
+def merge_case(torch, rng, p, per_run, flush):
+    """The merge over 4 presorted runs of per_run rows plus the pad run
+    (R = 8, 5 columns) at p rows: bitwise against its plain version and
+    the LSD torch.sort order, then timed beside its bound and the LSD
+    passes. Returns the numbers of the kernels JSON line."""
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import kernels
+
+    cols, run_starts = merge_inputs(torch, rng, p, per_run, flush.device)
     got = kernels.merge_runs_perm(cols, run_starts, 3)
     want = kernels.merge_runs_perm_plain(cols, run_starts, 3)
     torch.cuda.synchronize()
@@ -358,6 +359,7 @@ def kernel_phase(torch, device):
     lib_perm = ck._sort_perm(col_list)
     assert torch.equal(lib_perm.to(torch.int32), got), \
         "LSD sort order differs from the merge"
+    del lib_perm, got, want
     ms = time_ms(torch, lambda: kernels.merge_runs_perm(cols, run_starts, 3),
                  flush)
     plain_ms = time_ms(
@@ -367,16 +369,35 @@ def kernel_phase(torch, device):
     n_bytes = cols.numel() * 4 + p * 4 + run_starts.numel() * 4
     n_ops = p * 3 * 2 * cols.shape[0]
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    results["merge_runs"] = dict(
-        name="merge_runs", route="cuda",
-        source="toplingdb_tpu_torch/csrc/merge_runs.cu",
-        replaces="toplingdb_tpu/ops/pallas_kernels.py:202",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
-    log(f"kernel merge_runs: {ms:.4f} ms (plain {plain_ms:.4f} ms, LSD "
+    log(f"kernel merge_runs p={p}: {ms:.4f} ms (plain {plain_ms:.4f} ms, LSD "
         f"torch.sort {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by})")
-    del cols, run_starts, col_list, lib_perm, got, want
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# The two routes' shapes: the packed route's shard (p = 2^20, 4 runs of
+# 156,250 rows) and the block-assembly route's (p = 2^22, 4 runs of 10^6).
+SHAPES = ((1 << 20, 156_250), (1 << 22, 1_000_000))
+
+
+def kernel_phase(torch, device):
+    rng = np.random.default_rng(7)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    results = {}
+    for p, per_run in SHAPES:
+        gc = gc_rows_case(torch, rng, p, flush)
+        mr = merge_case(torch, rng, p, per_run, flush)
+        if p == SHAPES[0][0]:  # the JSON line's shape: the packed route's
+            results["gc_rows"] = dict(
+                name="gc_rows", route="cuda",
+                source="toplingdb_tpu_torch/csrc/gc_rows.cu",
+                replaces="toplingdb_tpu/ops/pallas_kernels.py:60", **gc)
+            results["merge_runs"] = dict(
+                name="merge_runs", route="cuda",
+                source="toplingdb_tpu_torch/csrc/merge_runs.cu",
+                replaces="toplingdb_tpu/ops/pallas_kernels.py:202", **mr)
+    from toplingdb_tpu_torch.ops import kernels
 
     # shared_prefix_lengths at the block-assembly route's p = 2^22: K = 16
     # without lens (the route's width, timed), K = 128 with lens.
@@ -462,7 +483,8 @@ def shard_phase(torch, device):
     (8-digit keys over a 5M key space), front-coded upload, 3 snapshots,
     bottommost — through the shard program: its device time by CUDA
     events (median of 5, upload excluded) and the ops that take the device
-    time, by torch.profiler. Returns the median in ms."""
+    time, by torch.profiler. Returns the median in ms and the profiled
+    device time in us."""
     from toplingdb_tpu_torch.ops import compaction_kernels as ck
 
     rng = np.random.default_rng(11)
@@ -502,7 +524,7 @@ def shard_phase(torch, device):
     log(f"shard program (p=2^20, 4 chunks, 3 snapshots): {ms:.3f} ms "
         f"(CUDA events, median of 5); profiler device time {total:.0f}us "
         f"in {n_kinds} kinds of device events; top: {top}")
-    return ms
+    return ms, total
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +786,13 @@ def device_vs_plain(env, dbdir, icmp, topts, n, device_name="cuda"):
         f"{n_ok} entries match the oracle")
 
 
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -778,10 +807,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"card: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 

@@ -2,7 +2,11 @@
 there is none). This file imports only the port, so it runs on a machine
 without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 
-- each kernel equals its plain PyTorch version bitwise on the card;
+- each kernel equals its plain PyTorch version bitwise on the card: the
+  merge over 1 to 32 runs, 1 to 35 key columns and the layouts its tiling
+  must get right, up to 2^22 rows; gc_rows from 1 to 2^20 rows, with 64
+  and 1024 snapshot words, with and without tombstone words, on aligned
+  and offset slices;
 - one compaction job on device_name="cuda" (merge and gc_rows kernels)
   writes the same SST bytes as on device_name="cpu" (plain versions);
 - a small block-assembly job with a range tombstone (all three kernels)
@@ -82,6 +86,138 @@ def test_merge_matches_plain(dev):
                                   torch.from_numpy(starts).to(dev), 3)
     assert kernels.merge_runs_perm.launches == before + 3
     assert torch.equal(got.cpu(), want)
+
+
+def _layout_runs(rng, p, n_runs, n_cols, layout):
+    """[n_cols, p] int32 presorted runs bounded by [n_runs+1] starts, laid
+    out as the merge kernel's tiling has to get right: empty runs leading,
+    in the middle or trailing, runs shorter than one tile, one run longer
+    than all the others together, and keys equal across every run."""
+    if layout == "leading_empty":
+        cuts = np.concatenate([np.zeros(n_runs // 2, np.int64), np.sort(
+            rng.integers(0, p + 1, n_runs - 1 - n_runs // 2))])
+    elif layout == "trailing_empty":
+        cuts = np.concatenate([np.sort(rng.integers(
+            0, p + 1, n_runs - 1 - n_runs // 2)), np.full(n_runs // 2, p)])
+    elif layout == "one_long":
+        cuts = rng.integers(p - p // 8, p + 1, n_runs - 1)
+    else:
+        cuts = np.sort(rng.integers(0, p + 1, n_runs - 1))
+        cuts[1: n_runs // 3] = cuts[:1]
+    starts = np.concatenate([[0], np.sort(cuts), [p]]).astype(np.int32)
+    if layout == "all_equal":
+        cols = np.full((n_cols, p), 5, dtype=np.int32)
+    else:
+        cols = rng.integers(-1, 2, (n_cols, p)).astype(np.int32)
+        cols[-1] = rng.integers(-2**31, 2**31, p)
+        cols[-1, rng.random(p) < 0.5] = 7
+    for r in range(n_runs):
+        s, e = starts[r], starts[r + 1]
+        if e > s:
+            seg = cols[:, s:e]
+            cols[:, s:e] = seg[:, np.lexsort(seg[::-1])]
+    return cols, starts
+
+
+@pytest.mark.parametrize("n_runs,n_cols,p,layout", [
+    (1, 5, 5000, "middle_empty"),
+    (2, 5, 100_003, "middle_empty"),
+    (8, 5, 1 << 16, "leading_empty"),
+    (8, 5, 70_001, "trailing_empty"),
+    (8, 1, 50_001, "middle_empty"),
+    (8, 35, 30_001, "middle_empty"),
+    (32, 5, 3001, "middle_empty"),  # runs shorter than one tile
+    (32, 35, 20_000, "all_equal"),
+    (8, 5, 40_000, "all_equal"),
+    (4, 5, 100_000, "one_long"),
+    (8, 5, 1 << 22, "middle_empty"),
+])
+def test_merge_matches_plain_layouts(dev, n_runs, n_cols, p, layout):
+    rng = np.random.default_rng(n_runs * 1000 + n_cols)
+    cols, starts = _layout_runs(rng, p, n_runs, n_cols, layout)
+    cols = torch.from_numpy(cols).to(dev)
+    starts = torch.from_numpy(starts).to(dev)
+    n_rounds = n_runs.bit_length() - 1
+    want = kernels.merge_runs_perm_plain(cols, starts, n_rounds)
+    before = kernels.merge_runs_perm.launches
+    got = kernels.merge_runs_perm(cols, starts, n_rounds)
+    torch.cuda.synchronize()
+    assert kernels.merge_runs_perm.launches == before + n_rounds
+    assert torch.equal(got, want)
+
+
+TIE_CASES = ((4000, 8, 5), (5000, 8, 1), (3000, 4, 2), (9000, 8, 5),
+             (2500, 2, 5), (7000, 8, 3))
+
+
+@pytest.mark.parametrize("case", range(len(TIE_CASES)))
+def test_merge_matches_plain_tie_cases(dev, case):
+    """Keys from {-1, 0, 1} in every column, so most compares tie on the
+    leading columns, over runs of a few thousand rows (several tiles per
+    pair) with empty runs among them: inputs on which a variant of the
+    kernel that kept the leading columns in registers lost and repeated
+    rows at in-tile boundaries. All cases come from one generator, in
+    order."""
+    rng = np.random.default_rng(5)
+    for p, n_runs, n_cols in TIE_CASES[: case + 1]:
+        cuts = np.sort(rng.integers(0, p + 1, n_runs - 1))
+        cuts[1: n_runs // 3] = cuts[:1]
+        starts = np.concatenate([[0], cuts, [p]]).astype(np.int32)
+        cols = rng.integers(-1, 2, (n_cols, p)).astype(np.int32)
+    for r in range(n_runs):
+        s, e = starts[r], starts[r + 1]
+        if e > s:
+            seg = cols[:, s:e]
+            cols[:, s:e] = seg[:, np.lexsort(seg[::-1])]
+    cols = torch.from_numpy(cols).to(dev)
+    starts = torch.from_numpy(starts).to(dev)
+    n_rounds = n_runs.bit_length() - 1
+    want = kernels.merge_runs_perm_plain(cols, starts, n_rounds)
+    got = kernels.merge_runs_perm(cols, starts, n_rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _gc_args(rng, n, n_snaps, tombs, offset, dev):
+    """gc_rows inputs of n rows on the card, each a slice starting
+    `offset` elements into a longer tensor (offset 1: data pointers that
+    are not 16-byte aligned). Seqnos repeat and meet the snapshots."""
+    seq = np.sort(rng.integers(1, 1 << 36, n + offset).astype(
+        np.uint64))[::-1]
+    seq[rng.random(n + offset) < 0.3] = np.uint64(1 << 35)
+    snaps = sorted(int(x) for x in rng.integers(1, 1 << 36, n_snaps))
+    snaps[0] = 1 << 35
+    snap_hi, snap_lo = ck._split_snapshots(snaps)
+    hi = lambda x: (x >> np.uint64(32)).astype(np.uint32)
+    lo = lambda x: (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)[offset:]
+    tomb = np.where(rng.random(n + offset) < 0.3,
+                    rng.integers(1, 1 << 36, n + offset).astype(np.uint64),
+                    np.uint64(0))
+    return [t(hi(seq).view(np.int32)), t(lo(seq).view(np.int32)),
+            t(rng.random(n + offset) < 0.4),
+            t(hi(tomb).view(np.int32)) if tombs else None,
+            t(lo(tomb).view(np.int32)) if tombs else None,
+            t(rng.choice([0, 1, 2, 7], n + offset).astype(np.int32)),
+            torch.from_numpy(snap_hi.view(np.int32)).to(dev),
+            torch.from_numpy(snap_lo.view(np.int32)).to(dev)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4 * 1000 + 1, 1 << 20])
+@pytest.mark.parametrize("n_snaps", [40, 1000])  # buckets of 64 and 1024
+def test_gc_rows_matches_plain_shapes(dev, n, n_snaps):
+    rng = np.random.default_rng(n + n_snaps)
+    for tombs in (True, False):
+        for offset in (0, 1):
+            args = _gc_args(rng, n, n_snaps, tombs, offset, dev)
+            assert args[0].shape[0] == n
+            want = kernels.gc_rows_plain(*args)
+            before = kernels.gc_rows.launches
+            got = kernels.gc_rows(*args)
+            torch.cuda.synchronize()
+            assert kernels.gc_rows.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (tombs, offset)
 
 
 def test_shared_prefix_matches_plain(dev):

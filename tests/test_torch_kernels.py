@@ -109,6 +109,98 @@ def test_merge_plain_matches_reference_merges(n_runs):
     assert np.array_equal(got.numpy(), want_pallas)
 
 
+def _edge_runs(rng, p, n_runs, n_cols, layout):
+    """Presorted runs in the layouts the merge kernel's tiling must get
+    right: empty runs leading, trailing or in the middle, one run longer
+    than all the others together, and keys equal across every run."""
+    if layout == "leading_empty":
+        cuts = np.concatenate([np.zeros(n_runs // 2, np.int64), np.sort(
+            rng.integers(0, p + 1, n_runs - 1 - n_runs // 2))])
+    elif layout == "trailing_empty":
+        cuts = np.concatenate([np.sort(rng.integers(
+            0, p + 1, n_runs - 1 - n_runs // 2)), np.full(n_runs // 2, p)])
+    elif layout == "one_long":
+        cuts = np.sort(rng.integers(p - p // 8, p + 1, n_runs - 1))
+    else:
+        cuts = np.sort(rng.integers(0, p + 1, n_runs - 1))
+        cuts[1: n_runs // 3] = cuts[0]
+    starts = np.concatenate([[0], np.sort(cuts), [p]]).astype(np.int32)
+    if layout == "all_equal":
+        cols = np.full((n_cols, p), 5, dtype=np.int32)
+    else:
+        cols = rng.integers(-1, 2, (n_cols, p)).astype(np.int32)
+        cols[-1] = rng.integers(-2**31, 2**31, p)
+        cols[-1, rng.random(p) < 0.5] = 7
+    for r in range(n_runs):
+        s, e = starts[r], starts[r + 1]
+        if e > s:
+            seg = cols[:, s:e]
+            cols[:, s:e] = seg[:, np.lexsort(seg[::-1])]
+    return cols, starts
+
+
+@pytest.mark.parametrize("n_runs,n_cols,p,layout", [
+    (32, 5, 1000, "middle_empty"),
+    (8, 35, 777, "middle_empty"),
+    (8, 1, 1025, "middle_empty"),
+    (8, 5, 1000, "leading_empty"),
+    (8, 5, 1000, "trailing_empty"),
+    (4, 5, 999, "one_long"),
+    (8, 5, 1000, "all_equal"),
+    (32, 3, 600, "all_equal"),
+])
+def test_merge_plain_matches_xla_edge_layouts(n_runs, n_cols, p, layout):
+    rng = np.random.default_rng(n_runs * 100 + n_cols)
+    cols, starts = _edge_runs(rng, p, n_runs, n_cols, layout)
+    n_rounds = n_runs.bit_length() - 1
+    got = kernels.merge_runs_perm(torch.from_numpy(cols),
+                                  torch.from_numpy(starts), n_rounds)
+    want = _ref_merge(
+        tuple(jnp.asarray(c) for c in cols), jnp.asarray(starts), n_rounds)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    # The merge is the stable sort of the rows by key.
+    assert np.array_equal(got.numpy(), np.lexsort(
+        (np.arange(p),) + tuple(cols[::-1])))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_gc_rows_plain_matches_pallas_few_rows(n):
+    """n rows (row 0's previous row is row n-1), against the Pallas kernel
+    on the same rows padded to its 1024-row block."""
+    rng = np.random.default_rng(50 + n)
+    seq = np.sort(rng.integers(0, 1 << 44, n).astype(np.uint64))[::-1]
+    snaps = sorted(int(x) for x in rng.integers(0, 1 << 44, 20))
+    snaps[0] = int(seq[-1])  # a row seqno equal to a snapshot
+    snap_hi, snap_lo = ref_ck._split_snapshots(snaps)
+    tomb = seq + np.uint64(1)
+    tomb[0] = 0
+    vtype = np.array([2, 1, 7][:n], dtype=np.int32)
+    new_key = np.zeros(n, dtype=bool)
+    pad = lambda x: np.concatenate([x, np.zeros(1024 - n, x.dtype)])
+    pseq = np.roll(seq, 1)
+    want = pk.gc_rows(
+        jnp.asarray(pad(_hi(seq))), jnp.asarray(pad(_lo(seq))),
+        jnp.asarray(pad(_hi(pseq))), jnp.asarray(pad(_lo(pseq))),
+        jnp.asarray(pad(new_key)), jnp.asarray(pad(_hi(tomb))),
+        jnp.asarray(pad(_lo(tomb))), jnp.asarray(pad(vtype)),
+        jnp.asarray(snap_hi), jnp.asarray(snap_lo), interpret=True,
+    )
+    got = kernels.gc_rows(
+        _t32(_hi(seq)), _t32(_lo(seq)), torch.from_numpy(new_key),
+        _t32(_hi(tomb)), _t32(_lo(tomb)), torch.from_numpy(vtype),
+        _t32(snap_hi), _t32(snap_lo),
+    )
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)[:n])
+    if n == 1:
+        assert not got[1][0]  # its own predecessor: same stripe, no new key
+    else:
+        # Row 2's seqno is a snapshot, so its tombstone (seqno + 1) lies in
+        # the next stripe and does not cover it.
+        assert got[2].tolist() == [False, True, False]
+        assert got[3].tolist() == [True, False, True]
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(NotImplementedError):

@@ -120,8 +120,8 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.tpt_shared_prefix.argtypes = [vp, vp, i32, i64, vp, vp]
         else:
             lib.tpt_merge_round.restype = i32
-            lib.tpt_merge_round.argtypes = [vp, i32, i64, vp, vp, vp, i32,
-                                            i32, vp]
+            lib.tpt_merge_round.argtypes = [vp] * 6 + [i32, i64, vp, i32,
+                                                       i32, vp]
         _libs[name] = lib
         return lib
 
@@ -303,9 +303,10 @@ def merge_runs_perm(cols: torch.Tensor, run_starts: torch.Tensor,
                     n_rounds: int) -> torch.Tensor:
     """Permutation (new row -> old row, int32) realizing the stable merge of
     the R presorted runs bounded by run_starts ([R+1] int32, R = 2^n_rounds,
-    empty runs allowed). cols: [C, p] int32, priority-ordered key columns
-    compared as signed int32 (u32 words in sign-flipped order). Ties keep
-    the earlier run's rows first."""
+    nondecreasing from 0 to p, empty runs allowed). cols: [C, p] int32,
+    priority-ordered key columns compared as signed int32 (u32 words in
+    sign-flipped order). Ties keep the earlier run's rows first. On CUDA
+    each round is one kernel launch (n_rounds per call)."""
     device = cols.device
     if device.type == "cpu":
         return merge_runs_perm_plain(cols, run_starts, n_rounds)
@@ -318,22 +319,41 @@ def merge_runs_perm(cols: torch.Tensor, run_starts: torch.Tensor,
         raise ValueError(f"{n_runs} runs do not make {n_rounds} rounds")
     _check(run_starts, "run_starts", torch.int32, device, n_runs + 1)
     n_cols, p = cols.shape
-    perm = torch.arange(p, dtype=torch.int32, device=device)
     if n_rounds == 0:
-        return perm
-    out = torch.empty_like(perm)
+        return torch.arange(p, dtype=torch.int32, device=device)
     lib = _lib("merge_runs")
-    stream = _stream(device)
+    perm = torch.empty(p, dtype=torch.int32, device=device)
+    # Rounds before the last write the rows they move, keys + origin rows,
+    # into one of two [C+1, p] buffers that the next round streams, and one
+    # flag per run: 1 while the run still lies unmoved in `cols`. One
+    # workspace holds the buffers, then their flags; the rounds take raw
+    # addresses in it, so the loop makes no tensor views.
+    n_bufs = min(2, n_rounds - 1)
+    buf_words = (n_cols + 1) * p
+    base = 0
+    if n_bufs:
+        work = torch.empty(n_bufs * (buf_words + n_runs), dtype=torch.int32,
+                           device=device)
+        base = work.data_ptr()
+    buf = lambda b: base + 4 * b * buf_words
+    flag = lambda b: base + 4 * (n_bufs * buf_words + b * n_runs)
+    cols_ptr, starts_ptr = cols.data_ptr(), run_starts.data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         for r in range(n_rounds):
-            rc = lib.tpt_merge_round(_ptr(cols), n_cols, p, _ptr(perm),
-                                     _ptr(out), _ptr(run_starts), n_runs,
-                                     1 << r, stream)
+            last = r == n_rounds - 1
+            src = buf((r - 1) % 2) if r else None
+            f_in = flag((r - 1) % 2) if r else None
+            dst = None if last else buf(r % 2)
+            dst_org = perm.data_ptr() if last else dst + 4 * n_cols * p
+            f_out = None if last else flag(r % 2)
+            rc = lib.tpt_merge_round(cols_ptr, src, dst, dst_org, f_in, f_out,
+                                     n_cols, p, starts_ptr, n_runs, 1 << r,
+                                     stream)
             if rc != 0:
                 raise RuntimeError(
                     f"merge_runs kernel launch failed: cuda error {rc}")
             merge_runs_perm.launches += 1
-            perm, out = out, perm
     return perm
 
 
