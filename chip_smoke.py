@@ -9,31 +9,45 @@ Phases (any failure ends the run with a non-zero exit code):
      nvcc per source, all started together), from the sources in the
      checkout;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main paths' shapes (bitwise; gc_rows and the merge at both routes'
-     p = 2^20 and p = 2^22), with its median time over 25 launches with the
-     L2 flushed, the plain version's time, the least time the card could
-     take (bound) and, for the merge, the LSD torch.sort passes of the CPU
-     "sort" mode as the library yardstick; then one main-path shard through
-     the whole shard program, timed, with its top ops by device time;
-  4. the packed-download route: bench.py's compaction job (4 presorted
-     runs, 8-digit keys, 20-byte values, ~2x overwrites, N = 10,000,000
-     entries, written by the port's columnar writer) compacted L0 -> L2
-     bottommost through run_device_compaction(device_name="cuda"), once
-     without snapshots and once with 3 snapshots; every output is read back
-     and held against a numpy oracle of the surviving versions; the
-     kernels' launch counters must be > 0;
+     the main paths' shapes (bitwise; gc_rows and the merge at the
+     pipelined route's p = 2^19, the serial packed route's p = 2^20 and the
+     block-assembly route's p = 2^22), with its median time over 25
+     launches with the L2 flushed, the plain version's time, the least time
+     the card could take (bound) and, for the merge, the LSD torch.sort
+     passes of the CPU "sort" mode as the library yardstick; then one
+     serial-route shard through the whole shard program, timed, with its
+     top ops by device time;
+  4. the main path, the pipelined plane: bench.py's compaction job (4
+     presorted runs, 8-digit keys, 20-byte values, ~2x overwrites,
+     N = 10,000,000 entries, written by the port's columnar writer)
+     compacted L0 -> L2 bottommost through run_device_compaction(
+     device_name="cuda") with its defaults, once without snapshots and once
+     with 3 snapshots; the job must run pipelined and launch both kernels,
+     every output is read back and held against a numpy oracle of the
+     surviving versions, and the serial route (pipeline=False) on the same
+     inputs must write the same bytes. Each shard program's CUDA-event time
+     is summed over the job's wall as the device's busy share;
   5. the block-assembly route: the same generator at N = 4,000,000 (one
      shard of at most 2^22 rows, the route's envelope) through
      run_device_compaction(device_name="cuda", device_blocks=True,
      num_shards=1), without and with 3 snapshots; each output matches the
-     oracle and the packed-download route's bytes for the same inputs, and
-     all three kernels launch;
-  6. range tombstones: a 1,000,000-entry job with 20 range tombstones in
-     its inputs, ~10% deletions and 3 snapshots through both routes on
-     "cuda" and on "cpu" — four byte-identical outputs that match the oracle
-     extended to tombstones, with gc_rows launched on tombstone words;
-  7. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
-     deletions and 4 shards on "cuda" and on "cpu" — identical SST bytes.
+     oracle and the serial packed-download route's bytes for the same
+     inputs, and all three kernels launch;
+  6. variable-length keys: 4,000,000 entries in 4 presorted runs with YCSB
+     keys ("user" + the decimal FNV-64 hash of the key number, 5-23 bytes)
+     and 100-byte values (one YCSB field, not the 10-field 1 KB record),
+     ~10% deletions, without and with 3 snapshots, through the whole-job
+     device program: oracle, gc_rows launched, the program's CUDA-event
+     time; then 1,000,000 entries of the same generator on "cuda" and on
+     "cpu" - identical SST bytes;
+  7. range tombstones: a 1,000,000-entry job with 20 range tombstones in
+     its inputs, ~10% deletions and 3 snapshots through the block-assembly,
+     serial packed and pipelined routes on "cuda" and on "cpu" - six
+     byte-identical outputs that match the oracle extended to tombstones,
+     with gc_rows launched on tombstone words;
+  8. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
+     deletions and 4 serial shards on "cuda" and on "cpu" - identical SST
+     bytes.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object {"kernels": [...]}, and the result line
@@ -62,6 +76,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 MAIN_N = 10_000_000
 BLOCKS_N = 4_000_000
+VARLEN_N = 4_000_000
+VARLEN_PLAIN_N = 1_000_000
 TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
 
@@ -376,9 +392,11 @@ def merge_case(torch, rng, p, per_run, flush):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-# The two routes' shapes: the packed route's shard (p = 2^20, 4 runs of
-# 156,250 rows) and the block-assembly route's (p = 2^22, 4 runs of 10^6).
-SHAPES = ((1 << 20, 156_250), (1 << 22, 1_000_000))
+# The routes' shapes: the pipelined route's shard (p = 2^19, 4 runs of
+# 78,125 rows: a 10M-entry job in 32 shards), the serial packed route's
+# (p = 2^20, 4 runs of 156,250) and the block-assembly route's (p = 2^22, 4
+# runs of 10^6). The JSON line reports the main path's, the first.
+SHAPES = ((1 << 19, 78_125), (1 << 20, 156_250), (1 << 22, 1_000_000))
 
 
 def kernel_phase(torch, device):
@@ -388,7 +406,7 @@ def kernel_phase(torch, device):
     for p, per_run in SHAPES:
         gc = gc_rows_case(torch, rng, p, flush)
         mr = merge_case(torch, rng, p, per_run, flush)
-        if p == SHAPES[0][0]:  # the JSON line's shape: the packed route's
+        if p == SHAPES[0][0]:  # the JSON line's shape: the main path's
             results["gc_rows"] = dict(
                 name="gc_rows", route="cuda",
                 source="toplingdb_tpu_torch/csrc/gc_rows.cu",
@@ -479,7 +497,7 @@ def profile_device(torch, fn):
 
 
 def shard_phase(torch, device):
-    """One main-path shard — 4 presorted chunks of 156,250 bench-style rows
+    """One serial-route shard: 4 presorted chunks of 156,250 bench-style rows
     (8-digit keys over a 5M key space), front-coded upload, 3 snapshots,
     bottommost — through the shard program: its device time by CUDA
     events (median of 5, upload excluded) and the ops that take the device
@@ -532,6 +550,75 @@ def shard_phase(torch, device):
 # ---------------------------------------------------------------------------
 
 
+class HostTimers:
+    """Host seconds spent in the named functions while the context is open,
+    summed per (thread, function); a function's time includes what it calls
+    and any wait for the interpreter lock. Threads are named by role: main,
+    compute (pipeline-compute), scan (pipeline-scan-*), pool (others)."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (owner, attribute name) pairs
+        self.secs = {}
+        self._saved = []
+
+    def _wrap(self, fn, name):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                t = threading.current_thread().name
+                role = ("main" if t == "MainThread" else "compute"
+                        if t == "pipeline-compute" else "scan"
+                        if t.startswith("pipeline-scan") else "pool")
+                key = f"{role}/{name}"
+                self.secs[key] = (self.secs.get(key, 0.0)
+                                  + time.perf_counter() - t0)
+        return wrapped
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def text(self) -> str:
+        return json.dumps({k: round(v, 3) for k, v in sorted(self.secs.items())})
+
+
+def plane_timers():
+    """HostTimers over the stages of both uniform-key routes: opening the
+    inputs, the pipeline's plan, stage bodies and waits, the shard
+    program's host calls, the serial route's scan, shard preparation and
+    trailer decode, the variable-length program, and the SST writer with
+    its per-file finish."""
+    from toplingdb_tpu_torch.db.table_cache import TableCache
+    from toplingdb_tpu_torch.ops import columnar_io as cio
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import device_compaction as dc
+    from toplingdb_tpu_torch.ops import pipeline as pl
+
+    return HostTimers(
+        (TableCache, "get_reader"), (cio._ColumnarSST, "finish"),
+        (pl, "run_pipelined"), (pl, "_build_plan"), (pl, "_scan_file"),
+        (pl, "_device_compute"),
+        (pl._Progress, "wait_shard"), (pl, "_put"),
+        (pl, "_range_seq_vtype"), (pl, "_cover_for_ranges"),
+        (pl, "_ranges_lmap"), (ck, "prepare_uniform_chunk"),
+        (ck, "upload_uniform_shard"), (ck, "fused_uniform_shard_start"),
+        (ck, "fused_uniform_shard_finish"),
+        (cio, "scan_tables_columnar_prealloc"), (cio, "_file_scan_prologue"),
+        (dc, "_prepare_uniform_shards"), (dc, "_kv_seq_vtype"),
+        (ck, "fused_encode_sort_gc_start"),
+        (ck, "fused_encode_sort_gc_finish"), (cio, "write_tables_columnar"))
+
+
 class Alloc:
     def __init__(self, base):
         self.n = base
@@ -572,6 +659,14 @@ def remove_ssts(dbdir, metas):
 
 
 def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
+    """The main path: the pipelined plane (run_device_compaction's default)
+    on bench.py's job, without and with 3 snapshots. The kernels' counts
+    are set to 0 just before each pipelined job and read just after; each
+    shard program (`_uniform_shard_tail`, on the compute thread's stream)
+    is timed with CUDA events. The serial route (pipeline=False) then runs
+    the same inputs and must write the same bytes. Returns (launches summed
+    over the pipelined jobs, jobs)."""
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
     from toplingdb_tpu_torch.ops import kernels
 
     t0 = time.time()
@@ -581,41 +676,91 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     max_seq = n // 4 * 4
     runs = [("no snapshots", []),
             ("3 snapshots", [max_seq // 5, max_seq // 2, 4 * max_seq // 5])]
-    kernels.gc_rows.launches = 0
-    kernels.merge_runs_perm.launches = 0
+    tail = ck._uniform_shard_tail
+    shard_log = []  # (padded p, start event, end event) per shard program
+
+    def timed_tail(kb, pkb, *a, **k):
+        if pkb.device.type != "cuda":
+            shard_log.append((pkb.shape[0], None, None))
+            return tail(kb, pkb, *a, **k)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = tail(kb, pkb, *a, **k)
+        end.record()
+        shard_log.append((pkb.shape[0], start, end))
+        return out
+
+    launches = {"gc_rows": 0, "merge_runs": 0}
     jobs = []
     for label, snaps in runs:
-        before = (kernels.gc_rows.launches, kernels.merge_runs_perm.launches)
-        outputs, stats, wall = compact(env, dbdir, icmp, topts, metas, snaps,
-                                       device_name, Alloc(10_000))
-        gc_n = kernels.gc_rows.launches - before[0]
-        mr_n = kernels.merge_runs_perm.launches - before[1]
+        shard_log.clear()
+        kernels.gc_rows.launches = 0
+        kernels.merge_runs_perm.launches = 0
+        ck._uniform_shard_tail = timed_tail
+        try:
+            with plane_timers() as timers:
+                outputs, stats, wall = compact(env, dbdir, icmp, topts, metas,
+                                               snaps, device_name,
+                                               Alloc(10_000))
+        finally:
+            ck._uniform_shard_tail = tail
+        gc_n = kernels.gc_rows.launches
+        mr_n = kernels.merge_runs_perm.launches
+        launches["gc_rows"] += gc_n
+        launches["merge_runs"] += mr_n
+        assert stats.pipelined, "the main path did not run pipelined"
         mbps = n * RAW_PER_ENTRY / 1e6 / wall
-        log(f"main path job ({label}): wall {wall:.3f}s, {mbps:.2f} raw MB/s,"
-            f" {stats.output_records} entries in {len(outputs)} SSTs, "
-            f"launches gc_rows={gc_n} merge_runs={mr_n}, "
-            f"phases {json.dumps(stats.phase_dict())}")
+        shard_ps = sorted({p for p, _, _ in shard_log})
         if device_name != "cpu":
             assert gc_n > 0 and mr_n > 0, "a kernel of the path never launched"
+            prog_ms = sum(a.elapsed_time(b) for _, a, b in shard_log)
+            busy = (f"{prog_ms:.3f} ms of shard programs by CUDA events, "
+                    f"{prog_ms / 1e3 / wall:.4f} of the wall (device busy "
+                    "share, derived)")
+        else:
+            prog_ms, busy = None, "device busy share not measured"
+        log(f"main path job ({label}, pipelined): wall {wall:.3f}s, "
+            f"{mbps:.2f} raw MB/s, {stats.output_records} entries in "
+            f"{len(outputs)} SSTs, {len(shard_log)} shards padded to p="
+            f"{shard_ps}, launches gc_rows={gc_n} merge_runs={mr_n}, {busy}, "
+            f"pipeline_stall_usec={stats.pipeline_stall_usec} "
+            f"prefetch_hits={stats.prefetch_hits} "
+            f"prefetch_misses={stats.prefetch_misses}, "
+            f"phases {json.dumps(stats.phase_dict())}; host seconds by "
+            f"thread/function {timers.text()}")
         t1 = time.time()
         n_ok = check_against_oracle(env, dbdir, icmp, outputs, rows, snaps)
         log(f"main path job ({label}): {n_ok} entries match the oracle "
             f"({time.time() - t1:.1f}s)")
+        with plane_timers() as stimers:
+            serial, sstats, swall = compact(env, dbdir, icmp, topts, metas,
+                                            snaps, device_name, Alloc(20_000),
+                                            pipeline=False)
+        assert not sstats.pipelined
+        assert sst_bytes(dbdir, serial) == sst_bytes(dbdir, outputs), \
+            "the pipelined and serial routes write different bytes"
+        smbps = n * RAW_PER_ENTRY / 1e6 / swall
+        log(f"serial route, same inputs ({label}): wall {swall:.3f}s, "
+            f"{smbps:.2f} raw MB/s, same bytes as the pipelined job; phases "
+            f"{json.dumps(sstats.phase_dict())}; host seconds by "
+            f"thread/function {stimers.text()}")
         jobs.append(dict(label=label, wall_s=wall, raw_MBps=mbps,
-                         phases=stats.phase_dict(), gc_rows=gc_n,
-                         merge_runs=mr_n))
+                         serial_wall_s=swall, serial_raw_MBps=smbps,
+                         phases=stats.phase_dict(), shards=len(shard_log),
+                         shard_p=shard_ps, program_ms=prog_ms,
+                         gc_rows=gc_n, merge_runs=mr_n))
         remove_ssts(dbdir, outputs)
-    launches = {"gc_rows": kernels.gc_rows.launches,
-                "merge_runs": kernels.merge_runs_perm.launches}
+        remove_ssts(dbdir, serial)
     remove_ssts(dbdir, metas)
     return launches, jobs
 
 
 def blocks_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     """The block-assembly route at n entries, one shard, without and with 3
-    snapshots: oracle, byte parity with the packed-download route, and the
-    three kernels' launches (counts set to 0 just before each job). The
-    assembly program's device time is read from CUDA events around
+    snapshots: oracle, byte parity with the serial packed-download route,
+    and the three kernels' launches (counts set to 0 just before each job).
+    The assembly program's device time is read from CUDA events around
     `assemble_blocks`. Returns (launches summed over both jobs, jobs)."""
     from toplingdb_tpu_torch.ops import block_assembly as ba
     from toplingdb_tpu_torch.ops import kernels
@@ -683,7 +828,8 @@ def blocks_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
         for name in names:
             total[name] += counts[name]
         packed, pstats, pwall = compact(env, dbdir, icmp, topts, metas, snaps,
-                                        device_name, Alloc(50_000))
+                                        device_name, Alloc(50_000),
+                                        pipeline=False)
         log(f"packed-download job, same inputs ({label}): wall {pwall:.3f}s,"
             f" {n * RAW_PER_ENTRY / 1e6 / pwall:.2f} raw MB/s, phases "
             f"{json.dumps(pstats.phase_dict())}")
@@ -702,10 +848,246 @@ def blocks_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     return total, jobs
 
 
+# ---------------------------------------------------------------------------
+# Variable-length keys: YCSB's key names
+# ---------------------------------------------------------------------------
+
+YCSB_KEY_WIDTH = 23  # "user" + at most 19 decimal digits
+YCSB_VALUE_LEN = 100  # one field of YCSB's default record (fieldlength)
+
+
+def ycsb_user_keys(knums):
+    """YCSB CoreWorkload.buildKeyName(keynum) with hashed inserts and
+    zeropadding=1: "user" + Long.toString(Utils.fnvhash64(keynum)), the FNV-1a
+    hash of the key number's 8 little-endian bytes, sign dropped (5-23
+    bytes). Returns ([n, 23] uint8 zero-padded key bytes, int64 lengths)."""
+    v = knums.astype(np.uint64)
+    h = np.full(len(v), 0xCBF29CE484222325, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for _ in range(8):
+            h ^= v & np.uint64(0xFF)
+            h *= np.uint64(1099511628211)
+            v >>= np.uint64(8)
+    a = np.abs(h.view(np.int64))
+    assert (a >= 0).all(), "a hash of Long.MIN_VALUE has no such key"
+    a = a.astype(np.uint64)
+    nd = np.ones(len(a), dtype=np.int64)
+    for k in range(1, 19):
+        nd += a >= np.uint64(10 ** k)
+    keys = np.zeros((len(a), YCSB_KEY_WIDTH), dtype=np.uint8)
+    keys[:, :4] = np.frombuffer(b"user", dtype=np.uint8)
+    rows = np.arange(len(a))
+    for k in range(19):
+        m = nd > k
+        keys[rows[m], 3 + nd[m] - k] = (a[m] // np.uint64(10 ** k)
+                                         % np.uint64(10)) + ord("0")
+    return keys, 4 + nd
+
+
+def ikey_buffer(keys, klen, knum, packed):
+    """Dense internal-key bytes for rows of key numbers `knum` (user key +
+    8-byte little-endian packed trailer) and their lengths."""
+    ul = klen[knum]
+    lens = ul + 8
+    offs = np.cumsum(lens) - lens
+    buf = np.empty(int(lens.sum()), dtype=np.uint8)
+    for j in range(YCSB_KEY_WIDTH):
+        m = ul > j
+        buf[offs[m] + j] = keys[knum[m], j]
+    for j in range(8):
+        buf[offs + ul + j] = (packed >> np.uint64(8 * j)) & np.uint64(0xFF)
+    return buf, lens.astype(np.int32)
+
+
+def write_varlen_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=4321,
+                      p_del=0.1, num_runs=4):
+    """num_runs presorted runs of YCSB-keyed rows (key space N/2, ~2x
+    overwrites, p_del DELETIONs), one SST each, written with the port's
+    columnar writer. Values: 100 bytes, the last the seqno's last digit.
+    Returns (metas, rows, keys, klen, by_rank): rows = [(rank, seqs, vtypes)]
+    with rank the key's place in byte order, by_rank[rank] = key number."""
+    from toplingdb_tpu_torch.db.dbformat import ValueType
+    from toplingdb_tpu_torch.db.version_edit import FileMetaData
+    from toplingdb_tpu_torch.ops.columnar_io import (
+        ColumnarKV,
+        write_tables_columnar,
+    )
+
+    rng = np.random.default_rng(seed)
+    key_space = max(n_entries // 2, 1)
+    keys, klen = ycsb_user_keys(np.arange(key_space))
+    wide = np.zeros((key_space, 24), dtype=np.uint8)
+    wide[:, :YCSB_KEY_WIDTH] = keys
+    be = wide.view(">u8").reshape(key_space, 3)  # zero padding sorts first
+    by_rank = np.lexsort((be[:, 2], be[:, 1], be[:, 0]))
+    rank = np.empty(key_space, dtype=np.int64)
+    rank[by_rank] = np.arange(key_space)
+    per_run = n_entries // num_runs
+    metas, rows = [], []
+    for run in range(num_runs):
+        n = per_run
+        draws = rng.integers(0, key_space, n)
+        seqs = np.arange(run * n + 1, run * n + n + 1, dtype=np.uint64)
+        vt = np.where(rng.random(n) < p_del, int(ValueType.DELETION),
+                      int(ValueType.VALUE)).astype(np.int32)
+        s = np.lexsort((np.iinfo(np.int64).max - seqs.view(np.int64),
+                        rank[draws]))
+        packed = (seqs[s] << np.uint64(8)) | vt[s].astype(np.uint64)
+        kbuf, klens = ikey_buffer(keys, klen, draws[s], packed)
+        has_v = vt[s] == int(ValueType.VALUE)
+        vals = np.full((int(has_v.sum()), YCSB_VALUE_LEN), ord("v"),
+                       dtype=np.uint8)
+        vals[:, -1] = (seqs[s][has_v] % 10 + ord("0")).astype(np.uint8)
+        val_lens = np.where(has_v, YCSB_VALUE_LEN, 0).astype(np.int32)
+        kv = ColumnarKV(
+            kbuf, (np.cumsum(klens) - klens).astype(np.int32), klens,
+            vals.reshape(-1), (np.cumsum(val_lens) - val_lens).astype(
+                np.int32), val_lens)
+        files = write_tables_columnar(
+            env, dbdir, alloc, icmp, topts, kv, np.arange(n, dtype=np.int32),
+            np.full(n, -1, dtype=np.int64), vt[s], seqs[s], creation_time=1)
+        for fnum, path, props, smallest, largest, _sel in files:
+            metas.append(FileMetaData(
+                number=fnum, file_size=env.get_file_size(path),
+                smallest=smallest, largest=largest,
+                smallest_seqno=props.smallest_seqno,
+                largest_seqno=props.largest_seqno))
+        rows.append((rank[draws], seqs, vt))
+    return metas, rows, keys, klen, by_rank
+
+
+def check_varlen_against_oracle(env, dbdir, icmp, outputs, rows, snapshots,
+                                keys, klen, by_rank):
+    """Every output read back with the port's reader and held, byte for
+    byte, against the oracle's internal keys (user key + zeroed or kept
+    seqno + type), and the values' lengths and last bytes."""
+    from toplingdb_tpu_torch.db import filename
+    from toplingdb_tpu_torch.ops.columnar_io import scan_table_columnar
+    from toplingdb_tpu_torch.table.reader import TableReader
+
+    kbufs, vlens, vlast = [], [], []
+    for m in outputs:
+        r = TableReader(env.new_random_access_file(
+            filename.table_file_name(dbdir, m.number)), icmp)
+        kv = scan_table_columnar(r)
+        r.close()
+        assert m.num_entries == kv.n
+        kbufs.append(kv.key_buf[: int(kv.key_lens.sum())])
+        has_v = kv.val_lens > 0
+        last = np.full(kv.n, -1, dtype=np.int64)
+        last[has_v] = kv.val_buf[kv.val_offs[has_v] + kv.val_lens[has_v] - 1]
+        vlens.append(kv.val_lens)
+        vlast.append(last)
+    wrank, wseq, wvt, worig = expected_survivors(rows, snapshots)
+    want, _ = ikey_buffer(keys, klen, by_rank[wrank],
+                          (wseq << np.uint64(8)) | wvt.astype(np.uint64))
+    got = np.concatenate(kbufs)
+    assert len(got) == len(want) and np.array_equal(got, want), \
+        "internal keys differ from the oracle"
+    assert np.array_equal(np.concatenate(vlens),
+                          np.where(wvt == 1, YCSB_VALUE_LEN, 0)), \
+        "value lengths differ from the oracle"
+    assert np.array_equal(np.concatenate(vlast), np.where(
+        wvt == 1, (worig % 10).astype(np.int64) + ord("0"), -1)), \
+        "values differ from the oracle"
+    return len(wrank)
+
+
+def varlen_path(torch, env, dbdir, icmp, topts, n, n_plain,
+                device_name="cuda"):
+    """Variable-length keys at n entries, without and with 3 snapshots,
+    through the whole-job device program (the pipeline gives up on
+    non-uniform keys, as the reference's does): oracle, gc_rows launched
+    (its count set to 0 just before each job), the program's CUDA-event
+    time. Then n_plain entries of the same generator on `device_name` and
+    on the CPU: identical bytes. Returns (gc_rows launches over the n-entry
+    jobs, jobs)."""
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import kernels
+
+    t0 = time.time()
+    metas, rows, keys, klen, by_rank = write_varlen_runs(
+        env, dbdir, icmp, topts, n, Alloc(9))
+    log(f"variable-length inputs: {n} entries, YCSB keys of "
+        f"{int(klen.min())}-{int(klen.max())} bytes, {YCSB_VALUE_LEN}-byte "
+        f"values (one YCSB field; cut from the 10-field 1 KB record), "
+        f"{len(metas)} SSTs, {sum(m.file_size for m in metas)} bytes "
+        f"({time.time() - t0:.1f}s)")
+    impl = ck._fused_encode_sort_gc_impl
+    program_ms = []
+
+    def timed_impl(kb, *a, **k):
+        if kb.device.type != "cuda":
+            return impl(kb, *a, **k)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = impl(kb, *a, **k)
+        end.record()
+        end.synchronize()
+        program_ms.append(start.elapsed_time(end))
+        return out
+
+    max_seq = n // 4 * 4
+    runs = [("no snapshots", []),
+            ("3 snapshots", [max_seq // 5, max_seq // 2, 4 * max_seq // 5])]
+    total, jobs = 0, []
+    for label, snaps in runs:
+        program_ms.clear()
+        kernels.gc_rows.launches = 0
+        ck._fused_encode_sort_gc_impl = timed_impl
+        try:
+            with plane_timers() as timers:
+                outputs, stats, wall = compact(env, dbdir, icmp, topts, metas,
+                                               snaps, device_name,
+                                               Alloc(70_000))
+        finally:
+            ck._fused_encode_sort_gc_impl = impl
+        gc_n = kernels.gc_rows.launches
+        total += gc_n
+        assert not stats.pipelined
+        if device_name != "cpu":
+            assert gc_n > 0, "gc_rows never launched on variable-length keys"
+        prog = (f"{program_ms[0]:.3f} ms on the device (CUDA events, host "
+                "enqueue inside)" if program_ms else "not measured")
+        log(f"variable-length job ({label}): wall {wall:.3f}s, "
+            f"{stats.output_records} entries in {len(outputs)} SSTs, program "
+            f"{prog}, launches gc_rows={gc_n}, phases "
+            f"{json.dumps(stats.phase_dict())}; host seconds by "
+            f"thread/function (the pipeline's attempt included) "
+            f"{timers.text()}")
+        t1 = time.time()
+        n_ok = check_varlen_against_oracle(env, dbdir, icmp, outputs, rows,
+                                           snaps, keys, klen, by_rank)
+        log(f"variable-length job ({label}): {n_ok} entries match the oracle "
+            f"({time.time() - t1:.1f}s)")
+        jobs.append(dict(label=label, wall_s=wall, program_ms=program_ms[:1],
+                         phases=stats.phase_dict(), gc_rows=gc_n))
+        remove_ssts(dbdir, outputs)
+    remove_ssts(dbdir, metas)
+
+    metas, rows, *_ = write_varlen_runs(env, dbdir, icmp, topts, n_plain,
+                                        Alloc(9), seed=99)
+    snaps = [n_plain // 5, n_plain // 2, 4 * n_plain // 5]
+    out_dev, _, wall_dev = compact(env, dbdir, icmp, topts, metas, snaps,
+                                   device_name, Alloc(80_000))
+    out_cpu, _, wall_cpu = compact(env, dbdir, icmp, topts, metas, snaps,
+                                   "cpu", Alloc(90_000))
+    assert out_dev and sst_bytes(dbdir, out_dev) == sst_bytes(
+        dbdir, out_cpu), "variable-length outputs differ on cuda and cpu"
+    log(f"variable-length device vs plain: {n_plain} entries, {len(out_dev)} "
+        f"SSTs byte-identical ({device_name} {wall_dev:.3f}s, cpu "
+        f"{wall_cpu:.3f}s)")
+    for o in (out_dev, out_cpu, metas):
+        remove_ssts(dbdir, o)
+    return total, jobs
+
+
 def tombstone_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
-    """Range tombstones through both routes on `device_name` and on the
-    CPU: four byte-identical outputs, the device's matching the oracle with
-    tombstones, and gc_rows launched on tombstone words."""
+    """Range tombstones through the block-assembly, serial packed and
+    pipelined routes on `device_name` and on the CPU: six byte-identical
+    outputs, the device's matching the oracle with tombstones, and gc_rows
+    launched on tombstone words."""
     from toplingdb_tpu_torch.ops import compaction_kernels as ck
     from toplingdb_tpu_torch.ops import kernels
 
@@ -726,40 +1108,42 @@ def tombstone_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     base = 60_000
     kernels.gc_rows.launches = 0
     ck._gc_mask = spy
+    routes = {"blocks": dict(device_blocks=True, num_shards=1),
+              "packed": dict(pipeline=False), "pipelined": {}}
     try:
         for dev in (device_name, "cpu"):
-            for blocks in (True, False):
+            for route, kw in routes.items():
                 base += 1000
-                o, st, walls[(dev, blocks)] = compact(
+                o, st, walls[(dev, route)] = compact(
                     env, dbdir, icmp, topts, metas, snaps, dev, Alloc(base),
-                    device_blocks=blocks, num_shards=1 if blocks else None)
-                outs[(dev, blocks)] = o
-                phases[(dev, blocks)] = st.phase_dict()
+                    **kw)
+                assert st.pipelined == (route == "pipelined"), route
+                outs[(dev, route)] = o
+                phases[(dev, route)] = st.phase_dict()
     finally:
         ck._gc_mask = gc_mask
-    ref = sst_bytes(dbdir, outs[(device_name, True)])
+    ref = sst_bytes(dbdir, outs[(device_name, "blocks")])
     for key, o in outs.items():
         assert sst_bytes(dbdir, o) == ref, f"{key} writes other bytes"
-    n_rd = sum(m.num_range_deletions for m in outs[(device_name, True)])
+    n_rd = sum(m.num_range_deletions for m in outs[(device_name, "blocks")])
     assert n_rd > 0, "no range tombstone survived into the output"
     if device_name != "cpu":
         assert any(with_tombs) and kernels.gc_rows.launches > 0, \
             "gc_rows never launched on tombstone words"
     n_ok = 0
-    for blocks in (True, False):
+    for route in routes:
         n_ok = check_against_oracle(env, dbdir, icmp,
-                                    outs[(device_name, blocks)], rows, snaps,
+                                    outs[(device_name, route)], rows, snaps,
                                     tombs)
     log(f"range tombstones: {n} entries, {len(tombs)} tombstones, "
-        f"{n_rd} fragments kept; both routes on {device_name} and cpu write "
-        f"identical bytes, {n_ok} entries match the oracle; gc_rows launches "
-        f"{kernels.gc_rows.launches}, {sum(with_tombs)} of them on tombstone "
-        f"words; walls "
-        + ", ".join(f"{d}/{'blocks' if b else 'packed'} {w:.3f}s"
-                    for (d, b), w in walls.items())
+        f"{n_rd} fragments kept; the three routes on {device_name} and cpu "
+        f"write identical bytes, {n_ok} entries match the oracle; gc_rows "
+        f"launches {kernels.gc_rows.launches}, {sum(with_tombs)} of them on "
+        f"tombstone words; walls "
+        + ", ".join(f"{d}/{r} {w:.3f}s" for (d, r), w in walls.items())
         + "; phases on " + ", ".join(
-            f"{d}/{'blocks' if b else 'packed'} {json.dumps(ph)}"
-            for (d, b), ph in phases.items() if d == device_name))
+            f"{d}/{r} {json.dumps(ph)}"
+            for (d, r), ph in phases.items() if d == device_name))
     for o in outs.values():
         remove_ssts(dbdir, o)
     remove_ssts(dbdir, metas)
@@ -775,9 +1159,10 @@ def device_vs_plain(env, dbdir, icmp, topts, n, device_name="cuda"):
     assert n >= dc._SHARD_MIN_ROWS, "the job would run as one shard"
     out_cuda, _, wall_cuda = compact(env, dbdir, icmp, topts, metas, snaps,
                                      device_name, Alloc(20_000),
-                                     num_shards=n_shards)
+                                     num_shards=n_shards, pipeline=False)
     out_cpu, _, wall_cpu = compact(env, dbdir, icmp, topts, metas, snaps,
-                                   "cpu", Alloc(30_000), num_shards=n_shards)
+                                   "cpu", Alloc(30_000), num_shards=n_shards,
+                                   pipeline=False)
     assert out_cuda and sst_bytes(dbdir, out_cuda) == sst_bytes(
         dbdir, out_cpu), "cuda and cpu outputs differ"
     n_ok = check_against_oracle(env, dbdir, icmp, out_cuda, rows, snaps)
@@ -834,12 +1219,14 @@ def main() -> int:
         launches, _jobs = main_path(torch, env, dbdir, icmp, topts, MAIN_N)
         blk_launches, _bjobs = blocks_path(torch, env, dbdir, icmp, topts,
                                            BLOCKS_N)
+        varlen_path(torch, env, dbdir, icmp, topts, VARLEN_N,
+                    VARLEN_PLAIN_N)
         tombstone_path(torch, env, dbdir, icmp, topts, TOMB_N)
         device_vs_plain(env, dbdir, icmp, topts, PLAIN_N)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
 
-    # Launches on each kernel's own main path: the packed-download route for
+    # Launches on each kernel's own main path: the pipelined plane for
     # gc_rows and the merge, the block-assembly route for shared_prefix.
     launches["shared_prefix"] = blk_launches["shared_prefix_lengths"]
     for name, r in results.items():

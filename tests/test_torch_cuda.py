@@ -10,8 +10,17 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - one compaction job on device_name="cuda" (merge and gc_rows kernels)
   writes the same SST bytes as on device_name="cpu" (plain versions);
 - a small block-assembly job with a range tombstone (all three kernels)
-  writes the same SST bytes on "cuda" as on "cpu".
+  writes the same SST bytes on "cuda" as on "cpu";
+- the pipelined plane's shapes (gc_rows and the merge at p = 2^19, R = 8,
+  C = 5) bitwise against the plain versions;
+- a small pipelined job and a small variable-length job write the same SST
+  bytes on "cuda" as on "cpu", and a CUDA error raised inside the
+  pipeline's compute thread reaches the caller.
 """
+
+import os
+import threading
+
 
 import numpy as np
 import pytest
@@ -26,6 +35,7 @@ from toplingdb_tpu_torch.env import PosixEnv
 from toplingdb_tpu_torch.ops import compaction_kernels as ck
 from toplingdb_tpu_torch.ops import device_compaction as dc
 from toplingdb_tpu_torch.ops import kernels
+from toplingdb_tpu_torch.ops import pipeline as pl
 from toplingdb_tpu_torch.ops.columnar_io import (
     ColumnarKV,
     write_tables_columnar,
@@ -282,7 +292,7 @@ def test_cuda_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
         outs, _ = dc.run_device_compaction(
             env, dbdir, icmp, c, TableCache(env, dbdir, icmp, topts), topts,
             [3000, 9000], new_file_number=lambda: next(alloc),
-            creation_time=1, device_name=device_name)
+            creation_time=1, device_name=device_name, pipeline=False)
         out[device_name] = [open(f"{dbdir}/{m.number:06d}.sst", "rb").read()
                             for m in outs]
     assert len(out["cuda"]) > 1 and out["cuda"] == out["cpu"]
@@ -318,3 +328,147 @@ def test_block_assembly_job_with_tombstone(dev, tmp_path):
         assert len(outs) == 1 and outs[0].num_range_deletions == 1
     assert out["cuda"] == out["cpu"]
     assert min(launches["cuda"]) > 0 and max(launches["cpu"]) == 0
+
+
+def test_kernels_at_the_pipeline_shard_shape(dev):
+    """The pipelined plane's shard: p = 2^19 rows, 4 presorted runs of
+    78,125 rows (a 10M-entry job in 32 shards) plus the pad run and 3 empty
+    runs (R = 8), 5 key columns; gc_rows over the same p with 64 snapshot
+    words."""
+    rng = np.random.default_rng(19)
+    p, per_run = 1 << 19, 78_125
+    cols = rng.integers(-2**31, 2**31, (5, p)).astype(np.int32)
+    cols[:2] = rng.integers(-3, 3, (2, p))  # ties on the leading words
+    cols[:, 4 * per_run:] = 2**31 - 1
+    starts = np.array([0, per_run, 2 * per_run, 3 * per_run, 4 * per_run,
+                       p, p, p, p], dtype=np.int32)
+    for r in range(4):
+        seg = cols[:, starts[r]:starts[r + 1]]
+        cols[:, starts[r]:starts[r + 1]] = seg[:, np.lexsort(seg[::-1])]
+    cols_t = torch.from_numpy(cols).to(dev)
+    starts_t = torch.from_numpy(starts).to(dev)
+    want = kernels.merge_runs_perm_plain(cols_t, starts_t, 3)
+    before = kernels.merge_runs_perm.launches
+    got = kernels.merge_runs_perm(cols_t, starts_t, 3)
+    torch.cuda.synchronize()
+    assert kernels.merge_runs_perm.launches == before + 3
+    assert torch.equal(got, want)
+    for tombs in (False, True):
+        args = _gc_args(rng, p, 40, tombs, 0, dev)
+        want = kernels.gc_rows_plain(*args)
+        got = kernels.gc_rows(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tombs
+
+
+def _job(dev_name, env, dbdir, icmp, topts, metas, base, **kw):
+    c = Compaction(level=0, output_level=2, inputs=list(metas),
+                   bottommost=True, max_output_file_size=1 << 16)
+    alloc = iter(range(base, base + 100))
+    outs, stats = dc.run_device_compaction(
+        env, dbdir, icmp, c, TableCache(env, dbdir, icmp, topts), topts,
+        [3000, 9000], new_file_number=lambda: next(alloc), creation_time=1,
+        device_name=dev_name, **kw)
+    return [open(f"{dbdir}/{m.number:06d}.sst", "rb").read()
+            for m in outs], stats
+
+
+def test_pipelined_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    monkeypatch.setattr(pl, "MIN_PIPELINE_ROWS", 256)
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(6)
+    metas = [_write_run(env, dbdir, icmp, topts, 10 + i, rng, 4096,
+                        1 + i * 4096) for i in range(4)]
+    streams = []
+    orig = ck.fused_uniform_shard_start
+
+    def spy(h, *a, **k):
+        if h["device"].type == "cuda":
+            cur = torch.cuda.current_stream(h["device"])
+            streams.append(cur != torch.cuda.default_stream(h["device"]))
+        return orig(h, *a, **k)
+
+    monkeypatch.setattr(ck, "fused_uniform_shard_start", spy)
+    counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches]
+    got, stats = _job("cuda", env, dbdir, icmp, topts, metas, 100,
+                      pipeline_shards=4)
+    assert stats.pipelined and kernels.gc_rows.launches - counts[0] == 4
+    assert kernels.merge_runs_perm.launches - counts[1] == 12
+    assert streams == [True] * 4  # the compute thread's own stream
+    want, cstats = _job("cpu", env, dbdir, icmp, topts, metas, 200,
+                        pipeline_shards=4)
+    assert cstats.pipelined and len(got) > 1 and got == want
+
+
+def _write_varlen_run(env, dbdir, icmp, topts, fnum, rng, n, seq0):
+    """One presorted run of "user" + decimal keys (5-16 bytes, 10%
+    deletions) as one SST."""
+    draws = rng.integers(0, 10 ** 12, n // 2)[rng.integers(0, n // 2, n)]
+    uks = [b"user%d" % d for d in draws]
+    seqs = np.arange(seq0, seq0 + n, dtype=np.uint64)
+    vt = np.where(rng.random(n) < 0.1, 0, 1).astype(np.int32)
+    s = sorted(range(n), key=lambda i: (uks[i], -i))
+    keys = [uks[i] + int((int(seqs[i]) << 8) | int(vt[i])).to_bytes(
+        8, "little") for i in s]
+    klens = np.array([len(k) for k in keys], dtype=np.int32)
+    kv = ColumnarKV(np.frombuffer(b"".join(keys), np.uint8).copy(),
+                    (np.cumsum(klens) - klens).astype(np.int32), klens,
+                    np.full(n * 8, ord("v"), np.uint8),
+                    np.arange(n, dtype=np.int32) * 8,
+                    np.full(n, 8, np.int32))
+    files = write_tables_columnar(
+        env, dbdir, lambda: fnum, icmp, topts, kv,
+        np.arange(n, dtype=np.int32), np.full(n, -1, np.int64), vt[s],
+        seqs[s], creation_time=1)
+    _, path, props, smallest, largest, _sel = files[0]
+    return FileMetaData(number=fnum, file_size=env.get_file_size(path),
+                        smallest=smallest, largest=largest,
+                        smallest_seqno=props.smallest_seqno,
+                        largest_seqno=props.largest_seqno)
+
+
+def test_varlen_job_writes_the_cpu_bytes(dev, tmp_path):
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(8)
+    metas = [_write_varlen_run(env, dbdir, icmp, topts, 10 + i, rng, 4000,
+                               1 + i * 4000) for i in range(3)]
+    before = kernels.gc_rows.launches
+    got, stats = _job("cuda", env, dbdir, icmp, topts, metas, 100)
+    assert kernels.gc_rows.launches == before + 1 and not stats.pipelined
+    want, _ = _job("cpu", env, dbdir, icmp, topts, metas, 200)
+    assert len(got) > 1 and got == want
+
+
+def test_cuda_error_in_the_compute_thread_reaches_the_caller(
+        dev, tmp_path, monkeypatch):
+    """A CUDA allocation failure inside the pipeline's compute thread is
+    raised to the caller as it is: the serial route never runs, and no
+    thread or output file is left behind."""
+    monkeypatch.setattr(pl, "MIN_PIPELINE_ROWS", 256)
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(7)
+    metas = [_write_run(env, dbdir, icmp, topts, 10 + i, rng, 4096,
+                        1 + i * 4096) for i in range(4)]
+    before = set(os.listdir(dbdir))
+    orig = ck.upload_uniform_shard
+    calls, serial = [], []
+
+    def upload(*a, **k):
+        calls.append(threading.current_thread().name)
+        if len(calls) == 2:
+            torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ck, "upload_uniform_shard", upload)
+    monkeypatch.setattr(dc, "_collect_raw_columnar",
+                        lambda *a, **k: serial.append(1))
+    with pytest.raises(torch.OutOfMemoryError):
+        _job("cuda", env, dbdir, icmp, topts, metas, 100, pipeline_shards=4)
+    assert calls == ["pipeline-compute"] * 2 and not serial
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("pipeline-")]
+    assert set(os.listdir(dbdir)) == before

@@ -123,7 +123,7 @@ def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu",
     outs, stats = dc.run_device_compaction(
         PosixEnv(), dbdir, ICMP, c, tc, topts, snaps,
         new_file_number=allocator(200), creation_time=7, device_name=device,
-        num_shards=num_shards)
+        num_shards=num_shards, pipeline=False)
     assert stats.input_records == sum(
         tc.get_reader(m.number).properties.num_entries for m in metas)
     return outs

@@ -1,5 +1,6 @@
 """Device half of the compaction data plane, in PyTorch (the counterpart of
-toplingdb_tpu/ops/compaction_kernels.py, uniform-shard programs only).
+toplingdb_tpu/ops/compaction_kernels.py: the uniform-shard programs and the
+whole-job program over variable-length keys).
 
 One key-range shard of a compaction runs as one device program over two
 bulk uploads (front-coded or plain user-key bytes, plus one packed u32 per
@@ -18,6 +19,12 @@ tombstones, two u32 planes of each row's max covering tombstone seqno:
      flag) plus [count, has_complex] — or, on the block-assembly route
      (ops/block_assembly.py), build the output's data blocks from steps
      1-4 (`_uniform_shard_core`).
+
+Jobs whose keys are not of one length run `fused_encode_sort_gc` instead:
+one program over the job's raw internal-key bytes and lengths that encodes
+each row (trailer unpack, big-endian user-key words), orders the rows by a
+full LSD sort, runs the same GC mask (`gc_rows`) and compacts the
+survivors; the order, zero-seq and complex flags come back whole.
 
 Every reference u32 word is carried in int64 and masked to 32 bits after
 `~`, `<<` and `+`; the kernels take int32 tensors holding the bit patterns.
@@ -304,6 +311,167 @@ def _uniform_shard_tail(kb, pkb, starts, min_his, min_los, tomb_hi, tomb_lo,
                         core["host_resolve"].any().to(torch.int64)]).to(
         torch.int32)
     return packed_bytes, meta
+
+
+# ---------------------------------------------------------------------------
+# Whole-job program over raw variable-length key bytes
+# ---------------------------------------------------------------------------
+
+
+def _encode_from_bytes(key_buf, key_offs, key_lens, valid,
+                       num_key_words: int):
+    """Encode from raw internal-key bytes (u8 key_buf, int64 offsets and
+    lengths, bool valid, all on one device): the trailer unpack and the
+    big-endian packing of the user key into num_key_words u32 words, bytes
+    past the user key zeroed, invalid rows masked to the int32max sentinel.
+    Returns (key_words [p, w], key_len, inv_hi, inv_lo, vtype), int32."""
+    device = key_buf.device
+    top = key_buf.shape[0] - 1
+    lane8 = torch.arange(8, dtype=torch.int64, device=device)
+    tr_idx = (key_offs + key_lens - 8)[:, None] + lane8[None, :]
+    tr = key_buf[tr_idx.clamp(0, top)].to(torch.int64)
+    packed_lo = tr[:, 0] | (tr[:, 1] << 8) | (tr[:, 2] << 16) | (tr[:, 3] << 24)
+    packed_hi = tr[:, 4] | (tr[:, 5] << 8) | (tr[:, 6] << 16) | (tr[:, 7] << 24)
+    vtype = torch.where(valid, packed_lo & 0xFF, -1).to(torch.int32)
+    # i32(~packed ^ SIGN) == 2^31 - 1 - packed for u32 packed words.
+    inv_hi = torch.where(valid, _INT32_MAX - packed_hi,
+                         _INT32_MAX).to(torch.int32)
+    inv_lo = torch.where(valid, _INT32_MAX - packed_lo,
+                         _INT32_MAX).to(torch.int32)
+
+    uk_len = key_lens - 8
+    lane4 = torch.arange(4, dtype=torch.int64, device=device)
+    words = []
+    for j in range(num_key_words):  # one [p, 4] gather per word
+        pos = 4 * j + lane4
+        b = key_buf[(key_offs[:, None] + pos[None, :]).clamp(0, top)]
+        b = b.to(torch.int64) * (pos[None, :] < uk_len[:, None])
+        words.append((b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8)
+                     | b[:, 3])
+    # i32(words ^ SIGN) == words - 2^31 for u32 words.
+    key_words = torch.where(valid[:, None], torch.stack(words, 1) - 2**31,
+                            _INT32_MAX).to(torch.int32)
+    key_len = torch.where(valid, uk_len, _INT32_MAX).to(torch.int32)
+    return key_words, key_len, inv_hi, inv_lo, vtype
+
+
+def _sort_gc_compact_tail(key_words, key_len, inv_hi, inv_lo, vtype,
+                          snap_hi, snap_lo, bottommost: bool,
+                          tomb_hi_orig=None, tomb_lo_orig=None):
+    """Sort → GC mask → survivors compacted to the front in sorted order
+    (the reference's _sort_gc_compact_tail). Rows of complex groups are
+    included in the output, flagged in cx_flags. tomb_*_orig: per-ORIGINAL
+    row max covering tombstone seqno words (int32 bit patterns), or both
+    None. Returns (order int32, zero_flags, cx_flags, count, has_complex),
+    each of padded length except the two scalars."""
+    w = key_words.shape[1]
+    perm = _sort_perm([key_words[:, j] for j in range(w)]
+                      + [key_len, inv_hi, inv_lo])
+    th = tl = None
+    if tomb_hi_orig is not None:
+        th = tomb_hi_orig[perm]
+        tl = tomb_lo_orig[perm]
+    keep, zero_seq, host_resolve = _gc_mask(
+        key_words[perm], key_len[perm], inv_hi[perm], inv_lo[perm],
+        vtype[perm], snap_hi, snap_lo, th, tl, bottommost)
+    out = keep | host_resolve
+    take = _stable_partition(out)
+    return (perm[take].to(torch.int32), zero_seq[take], host_resolve[take],
+            out.sum(), host_resolve.any())
+
+
+def _fused_encode_sort_gc_impl(key_buf, key_lens, valid, tomb_hi, tomb_lo,
+                               snap_hi, snap_lo, num_key_words: int,
+                               bottommost: bool):
+    """Columnar encode + sort + GC mask over raw internal-key bytes and
+    lengths (entries densely packed, so the offsets are an exclusive cumsum
+    of the lengths). tomb_hi/tomb_lo: each original row's max covering
+    tombstone seqno words, or both None. Returns _sort_gc_compact_tail's
+    tuple."""
+    lens = key_lens.to(torch.int64)
+    offs = torch.cumsum(lens, 0) - lens
+    return _sort_gc_compact_tail(
+        *_encode_from_bytes(key_buf, offs, lens, valid, num_key_words),
+        snap_hi, snap_lo, bottommost, tomb_hi, tomb_lo)
+
+
+def fused_encode_sort_gc_start(key_buf: np.ndarray, key_offs: np.ndarray,
+                               key_lens: np.ndarray, max_key_bytes: int,
+                               snapshots: list[int], bottommost: bool,
+                               cover: np.ndarray | None = None,
+                               device="cuda"):
+    """Upload one job's raw flat key bytes (rows and bytes padded to powers
+    of two, as the reference pads them), enqueue the whole-job program and
+    the download of its result into pinned memory behind an event. `cover`:
+    optional per-original-row uint64 max covering tombstone seqno (0 =
+    uncovered). Decode with fused_encode_sort_gc_finish. Raises
+    NotSupported for a key buffer that is not densely packed or more than
+    MAX_SNAPSHOTS snapshots."""
+    if len(snapshots) > MAX_SNAPSHOTS:
+        raise NotSupported(
+            f"device GC supports <= {MAX_SNAPSHOTS} live snapshots")
+    device = torch.device(device)
+    n = len(key_offs)
+    # The device derives offsets as an exclusive cumsum of the lengths; that
+    # requires the dense end-to-end layout ColumnarKV scans produce.
+    if n and (int(key_offs[0]) != 0
+              or int(key_offs[-1]) + int(key_lens[-1]) != len(key_buf)
+              or not np.array_equal(
+                  key_offs[1:], (np.cumsum(key_lens) - key_lens)[1:])):
+        raise NotSupported("fused encode requires densely packed key buffers")
+    p = _next_pow2(max(1, n))
+    w = (max_key_bytes + 3) // 4
+    lens = np.zeros(p, dtype=np.int32)  # pad rows: zero-length (masked)
+    valid = np.zeros(p, dtype=bool)
+    lens[:n] = key_lens
+    valid[:n] = True
+    snap_hi, snap_lo = _split_snapshots(snapshots)
+    tomb_hi = tomb_lo = None
+    if cover is not None and np.any(cover):
+        tc = np.zeros(p, dtype=np.uint64)
+        tc[:n] = cover
+        tomb_hi = _to_device((tc >> np.uint64(32)).astype(np.uint32), device)
+        tomb_lo = _to_device((tc & np.uint64(_M32)).astype(np.uint32), device)
+    kb = np.zeros(_next_pow2(max(8, len(key_buf))), dtype=np.uint8)
+    kb[: len(key_buf)] = key_buf
+    order, zero_flags, cx_flags, count, has_complex = \
+        _fused_encode_sort_gc_impl(
+            _to_device(kb, device), _to_device(lens, device),
+            _to_device(valid, device), tomb_hi, tomb_lo,
+            _to_device(snap_hi, device), _to_device(snap_lo, device), w,
+            bool(bottommost))
+    meta = torch.stack([count, has_complex.to(torch.int64)]).to(torch.int32)
+    out = (order, zero_flags, cx_flags, meta)
+    if device.type != "cuda":
+        return out, None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in out)
+    for h, t in zip(host, out):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, done
+
+
+def fused_encode_sort_gc_finish(pending):
+    """Block on the whole-job program: (order[count] int32 original rows,
+    zero_flags[count] bool, cx_flags[count] bool, has_complex)."""
+    (order, zero_flags, cx_flags, meta), done = pending
+    if done is not None:
+        done.synchronize()
+    c, has_complex = (int(x) for x in meta.numpy())
+    return (order.numpy()[:c], zero_flags.numpy()[:c], cx_flags.numpy()[:c],
+            bool(has_complex))
+
+
+def fused_encode_sort_gc(key_buf, key_offs, key_lens, max_key_bytes,
+                         snapshots, bottommost, cover=None, device="cuda"):
+    """Raw flat key bytes in, survivor order out, in one call (the
+    reference's fused_encode_sort_gc): fused_encode_sort_gc_start, then
+    fused_encode_sort_gc_finish."""
+    return fused_encode_sort_gc_finish(fused_encode_sort_gc_start(
+        key_buf, key_offs, key_lens, max_key_bytes, snapshots, bottommost,
+        cover, device=device))
 
 
 def prepare_uniform_chunk(key_buf: np.ndarray, n: int, key_len: int):

@@ -1,20 +1,29 @@
 """Device compaction data plane: host orchestration (the counterpart of
 toplingdb_tpu/ops/device_compaction.py).
 
-One compaction job, from input SSTs to output SSTs:
-  1. a native whole-file scan of every input into columnar buffers, and the
-     range tombstones of every input into a per-row max covering tombstone
-     seqno (stripe-clamped on the host; fragments are few);
-  2. the input runs cut into user-key-range shards of about 1M rows;
-  3. one of two device routes, chosen on the host before any device work:
-     - packed download (the default): per shard, one device program
-       (ops/compaction_kernels.py) — merge of the presorted runs, MVCC GC,
-       survivor compaction, packed download — and each shard's survivors
-       streamed into the native SST writer;
-     - block assembly (`device_blocks=True`, single-shard jobs that
-       `block_assembly.assembly_supported` accepts): the device builds the
-       finished data-block payloads and the host only frames them;
-  4. output files byte-identical to the reference's for the same job.
+One compaction job, from input SSTs to output SSTs, by one of three routes:
+  - the pipelined plane (the default, `pipeline=True`; ops/pipeline.py):
+    per-file scan threads, a compute thread that uploads and runs one
+    key-range shard's device program while the next shard uploads, and the
+    native SST writer streaming each shard's survivors, all overlapped. Jobs
+    it does not cover (fewer than MIN_PIPELINE_ROWS rows, non-uniform key
+    lengths, `device_blocks=True`) fall through to the serial route with
+    clean stats;
+  - the serial route: a native whole-file scan of every input into columnar
+    buffers, the range tombstones of every input into a per-row max covering
+    tombstone seqno (stripe-clamped on the host; fragments are few), then
+    - uniform-length keys: the input runs cut into user-key-range shards of
+      about 1M rows, and per shard one device program
+      (ops/compaction_kernels.py) - merge of the presorted runs, MVCC GC,
+      survivor compaction, packed download - whose survivors stream into
+      the native SST writer; or, with `device_blocks=True` and a
+      single-shard job that `block_assembly.assembly_supported` accepts,
+      the device builds the finished data-block payloads and the host only
+      frames them;
+    - variable-length keys (dense buffers): one whole-job device program
+      (`fused_encode_sort_gc`: encode, full sort, MVCC GC, compaction) and
+      the survivor order written in one pass.
+Output files are byte-identical to the reference's for the same job.
 
 `run_device_compaction(..., device_name="cuda")` runs the device programs
 on the card and raises when there is none; `device_name="cpu"` runs the
@@ -343,13 +352,36 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                     table_cache, table_options, snapshots,
                                     new_file_number, creation_time, device,
                                     column_family=(0, "default"),
-                                    device_blocks=False, num_shards=None):
+                                    device_blocks=False, num_shards=None,
+                                    pipeline=True, pipeline_shards=None):
+    from toplingdb_tpu_torch.ops import pipeline as pl
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
 
     t0 = time.time()
     stats = CompactionStats(device=str(device))
     stats.input_bytes = compaction.total_input_bytes()
     stats.input_files = len(compaction.all_inputs())
+    # Pipelined data plane first (on-device block assembly has its own data
+    # plane): scan, device programs and encode overlap at key-range-shard
+    # granularity, byte-identical outputs. Shapes it does not cover fall
+    # through to the serial route below with clean stats.
+    if pipeline and not device_blocks:
+        pstats = CompactionStats(device=str(device))
+        pstats.input_bytes = stats.input_bytes
+        pstats.input_files = stats.input_files
+        try:
+            pfiles = pl.run_pipelined(
+                env, dbname, icmp, compaction, table_cache, table_options,
+                snapshots, new_file_number, creation_time, pstats,
+                MAX_DEVICE_KEY_BYTES, column_family, device=device,
+                n_shards=pipeline_shards,
+            )
+        except (pl.PipelineIneligible, NotSupported):
+            pass  # the serial route decides (and raises what it must)
+        else:
+            outputs = _outputs_from_files(env, pfiles, pstats)
+            pstats.work_time_usec = int((time.time() - t0) * 1e6)
+            return outputs, pstats
     kv, rd, shards, parts = _collect_raw_columnar(
         compaction, table_cache, icmp, num_shards)
     stats.input_scan_usec = int((time.time() - t0) * 1e6)
@@ -371,10 +403,6 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
             "CompactionIterator) are not ported yet")
     if np.any(col.vtype == int(_VT.BLOB_INDEX)):
         raise NotSupported("blob values are not ported yet")
-    if shards is None and kv.n:
-        raise NotSupported(
-            "variable-length keys and sparse layouts (fused_encode_sort_gc) "
-            "are not ported yet")
     if len(snapshots) > ck.MAX_SNAPSHOTS:
         raise NotSupported(
             f"device GC supports <= {ck.MAX_SNAPSHOTS} live snapshots")
@@ -418,7 +446,32 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
             seqs[zero_s] = 0
             yield order_s
 
-    if kv.n:
+    if kv.n and shards is None:
+        # Variable-length keys (or shards the uniform path refused): one
+        # whole-job program over the raw key bytes; raises NotSupported
+        # when the key buffer is not densely packed.
+        t_up = time.time()
+        pending = ck.fused_encode_sort_gc_start(
+            kv.key_buf, kv.key_offs, kv.key_lens,
+            max(4, int(kv.key_lens.max()) - 8), snapshots,
+            compaction.bottommost, cover, device=device)
+        t_dn = time.time()
+        stats.transfer_time_usec += int((t_dn - t_up) * 1e6)
+        order, zero_flags, _cx, has_complex = ck.fused_encode_sort_gc_finish(
+            pending)
+        stats.device_wait_usec += int((time.time() - t_dn) * 1e6)
+        if has_complex:
+            raise NotSupported("complex groups reached the device path")
+        t_fin = time.time()
+        zero_orig = order[zero_flags]
+        trailer_override[zero_orig] = col.vtype[zero_orig].astype(np.int64)
+        seqs[zero_orig] = 0
+        order_feed = order
+        stats.finish_usec += int((time.time() - t_fin) * 1e6)
+        if not len(order) and not tombs:
+            stats.work_time_usec = int((time.time() - t0) * 1e6)
+            return [], stats
+    elif kv.n:
         t_up = time.time()
         order_feed = _shard_order_chunks(_dispatch_shards(
             shards, cover, snapshots, compaction.bottommost, device))
@@ -447,23 +500,30 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                           creation_time=None, device_name="cuda",
                           blob_resolver=None, blob_gc=None,
                           column_family=(0, "default"), device_blocks=False,
-                          num_shards=None):
+                          num_shards=None, pipeline=True,
+                          pipeline_shards=None):
     """Run one compaction job through the device data plane; the same
     signature as the reference's run_device_compaction and byte-identical
     outputs (including output cutting). Returns (outputs, stats).
 
     device_name: "cuda" (default; raises when no card is present) or "cpu"
-    (the plain versions of the kernels). device_blocks: take the on-device
-    block-assembly route where its gate admits the job (the reference's
-    TPULSM_DEVICE_BLOCKS=1); other jobs take the packed-download route.
-    num_shards: the key-range shard count for jobs of at least
-    _SHARD_MIN_ROWS rows (the reference's TPULSM_DEVICE_SHARDS; None sizes
-    shards to about _SHARD_ROWS rows). Raises NotSupported, before any
-    output is written, for what this slice of the port does not cover:
-    compaction filters, blob GC, non-bytewise comparators, table options
-    other than uncompressed block-based tables with a binary index,
-    MERGE / SINGLE_DELETION rows, blob values, variable-length keys and more
-    than 1024 snapshots."""
+    (the plain versions of the kernels). pipeline: try the pipelined plane
+    first (the reference's default, TPULSM_PIPELINE=1); jobs it does not
+    cover take the serial route. pipeline_shards: the pipeline's key-range
+    shard count (the reference's TPULSM_PIPELINE_SHARDS; None sizes shards
+    to about 2^19 rows). device_blocks: take the on-device block-assembly
+    route where its gate admits the job (the reference's
+    TPULSM_DEVICE_BLOCKS=1, which also turns the pipeline off); other jobs
+    take the packed-download route. num_shards: the serial route's
+    key-range shard count for jobs of at least _SHARD_MIN_ROWS rows (the
+    reference's TPULSM_DEVICE_SHARDS; None sizes shards to about _SHARD_ROWS
+    rows). Raises NotSupported for what this slice of the port does not
+    cover: compaction filters, blob GC, non-bytewise comparators, table
+    options other than uncompressed block-based tables with a binary index,
+    MERGE / SINGLE_DELETION rows, blob values, variable-length keys in a
+    sparse key buffer and more than 1024 snapshots. No output is left
+    behind: the serial route raises before writing, and a pipelined attempt
+    that gives up deletes what it wrote."""
     device = resolve_device(device_name)
     del merge_operator, blob_resolver  # used only by complex groups
     if native.lib() is None:
@@ -483,4 +543,5 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
         env, dbname, icmp, compaction, table_cache, table_options,
         snapshots, new_file_number, creation_time, device, column_family,
         device_blocks=device_blocks, num_shards=num_shards,
+        pipeline=pipeline, pipeline_shards=pipeline_shards,
     )
