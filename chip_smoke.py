@@ -47,7 +47,22 @@ Phases (any failure ends the run with a non-zero exit code):
      with gc_rows launched on tombstone words;
   8. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
      deletions and 4 serial shards on "cuda" and on "cpu" - identical SST
-     bytes.
+     bytes;
+  9. complex groups: a 2,000,000-entry job of db_bench's mergerandom kind
+     (60% Put, 20% Merge with the uint64add operator, 10% Delete, 10%
+     SingleDelete) with 8 range tombstones, without and with 3 snapshots:
+     the pipeline's attempt gives up on the complex groups, the serial
+     route runs 2 shards at p = 2^20 and folds the groups on the host;
+     "cuda" and "cpu" write identical bytes, the entries equal the port's
+     CompactionIterator over the host-sorted inputs, and the per-entry
+     route is never entered;
+ 10. the per-entry route: a 1,000,000-entry job with 5% empty values and
+     10% BLOB_INDEX rows (1 KiB values in two blob files) and 3 snapshots,
+     first on the columnar route (blob_refs equal to the CPU route's),
+     then with RemoveEmptyValueCompactionFilter and blob GC (age cutoff
+     0.5, min_blob_size 512) on the per-entry route, one gc_rows launch at
+     p = 2^20: "cuda" and "cpu" write identical SST and blob bytes, every
+     blob index resolves to its value, no filtered empty value survives.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object {"kernels": [...]}, and the result line
@@ -80,6 +95,8 @@ VARLEN_N = 4_000_000
 VARLEN_PLAIN_N = 1_000_000
 TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
+COMPLEX_N = 2_000_000
+ENTRIES_N = 1_000_000
 
 
 def log(msg: str) -> None:
@@ -92,15 +109,18 @@ def log(msg: str) -> None:
 
 
 def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
-               p_del=0.0, num_runs=4, n_tombs=0):
+               p_del=0.0, num_runs=4, n_tombs=0, mix=None):
     """bench.py's build_inputs (bench.py:78): 8 ASCII decimal digit keys,
     20-byte values, ~2x overwrite factor (key space N/2), one sorted run per
     file. With p_del > 0 that share of rows are DELETIONs (empty values).
-    With n_tombs > 0 each run's file also holds n_tombs / num_runs range
-    tombstones, each over ~1% of the key space at most, whose seqnos are
-    drawn from the run's seqno span (the points take the rest). Returns
-    (metas, rows, tombs): rows = [(draws, seqs, vtypes)] per run, tombs =
-    [(seq, begin, end)] with integer key bounds, end exclusive."""
+    With `mix` ({value type: share}) the rows' types are drawn from it
+    instead: MERGE rows carry an 8-byte little-endian operand (seqno % 97),
+    DELETION and SINGLE_DELETION rows an empty value. With n_tombs > 0 each
+    run's file also holds n_tombs / num_runs range tombstones, each over
+    ~1% of the key space at most, whose seqnos are drawn from the run's
+    seqno span (the points take the rest). Returns (metas, rows, tombs):
+    rows = [(draws, seqs, vtypes)] per run, tombs = [(seq, begin, end)]
+    with integer key bounds, end exclusive."""
     from toplingdb_tpu_torch.db.dbformat import ValueType
     from toplingdb_tpu_torch.db.range_del import RangeTombstone
     from toplingdb_tpu_torch.db.version_edit import FileMetaData
@@ -130,6 +150,9 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
         vt = np.full(n, int(ValueType.VALUE), dtype=np.int32)
         if p_del:
             vt[rng.random(n) < p_del] = int(ValueType.DELETION)
+        if mix:
+            vt = rng.choice(list(mix), n, p=list(mix.values())).astype(
+                np.int32)
         ik = np.empty((n, 16), dtype=np.uint8)
         for j in range(8):
             ik[:, 7 - j] = (draws // 10 ** j) % 10 + ord("0")
@@ -138,15 +161,22 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
             np.uint64)[None, :] & np.uint64(0xFF)
         vals = np.full((n, 20), ord("v"), dtype=np.uint8)
         vals[:, 19] = (seqs % 10 + ord("0")).astype(np.uint8)
+        # MERGE operands: seqno % 97 as a u64 in the row's first 8 bytes.
+        vals[:, :8] = np.where(
+            (vt == int(ValueType.MERGE))[:, None],
+            (seqs % np.uint64(97)).astype(np.uint64)[:, None]
+            >> (np.arange(8) * 8).astype(np.uint64)[None, :]
+            & np.uint64(0xFF), vals[:, :8])
         s = np.lexsort((np.iinfo(np.int64).max - seqs.view(np.int64), draws))
-        val_lens = np.where(vt[s] == int(ValueType.VALUE), 20, 0).astype(
-            np.int32)
+        val_lens = np.select(
+            [vt[s] == int(ValueType.VALUE), vt[s] == int(ValueType.MERGE)],
+            [20, 8], 0).astype(np.int32)
         val_offs = (np.cumsum(val_lens) - val_lens).astype(np.int32)
         kv = ColumnarKV(
             np.ascontiguousarray(ik[s]).reshape(-1),
             np.arange(n, dtype=np.int32) * 16,
             np.full(n, 16, dtype=np.int32),
-            np.ascontiguousarray(vals[s][val_lens > 0]).reshape(-1),
+            vals[s][np.arange(20)[None, :] < val_lens[:, None]],
             val_offs, val_lens,
         )
         files = write_tables_columnar(
@@ -617,6 +647,25 @@ def plane_timers():
         (dc, "_prepare_uniform_shards"), (dc, "_kv_seq_vtype"),
         (ck, "fused_encode_sort_gc_start"),
         (ck, "fused_encode_sort_gc_finish"), (cio, "write_tables_columnar"))
+
+
+def entry_timers():
+    """HostTimers over the per-entry route's stages: the Python scan, the
+    columns' padding, the device sort and GC mask (each ends in a download,
+    so its host time holds the device time), the tombstone cover, the whole
+    writer loop (`build_outputs`, which drives the survivor stream, the
+    host fold, the filter and the blob rewrite), new blob records and each
+    output's finish."""
+    from toplingdb_tpu_torch.db import blob
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import device_compaction as dc
+    from toplingdb_tpu_torch.table.builder import TableBuilder
+
+    return HostTimers(
+        (dc, "collect_raw_entries"), (ck, "pad_columns"),
+        (ck, "device_sort"), (ck, "gc_mask"), (dc, "_tombstone_cover"),
+        (dc, "build_outputs"), (blob.BlobFileBuilder, "add"),
+        (TableBuilder, "finish"))
 
 
 class Alloc:
@@ -1171,6 +1220,372 @@ def device_vs_plain(env, dbdir, icmp, topts, n, device_name="cuda"):
         f"{n_ok} entries match the oracle")
 
 
+# ---------------------------------------------------------------------------
+# MERGE / SINGLE_DELETION groups, and the per-entry route
+# ---------------------------------------------------------------------------
+
+# db_bench's mergerandom mix with deletions: Put, Merge (uint64add), Delete,
+# SingleDelete.
+COMPLEX_MIX = {1: 0.6, 2: 0.2, 0: 0.1, 7: 0.1}
+
+
+class ListIter:
+    """A sorted (internal key, value) list as the iterator the
+    CompactionIterator reads."""
+
+    def __init__(self, items):
+        self._items = items
+        self._i = 0
+
+    def valid(self):
+        return self._i < len(self._items)
+
+    def key(self):
+        return self._items[self._i][0]
+
+    def value(self):
+        return self._items[self._i][1]
+
+    def next(self):
+        self._i += 1
+
+
+def complex_oracle(rows, tombs, snapshots, icmp, merge_operator):
+    """The survivor stream of the port's CompactionIterator over the
+    host-sorted inputs (the device plane is not involved): [(internal key,
+    value)] in output order."""
+    import struct
+
+    from toplingdb_tpu_torch.compaction.compaction_iterator import (
+        CompactionIterator,
+    )
+    from toplingdb_tpu_torch.db.range_del import (
+        RangeDelAggregator,
+        RangeTombstone,
+    )
+
+    key = np.concatenate([r[0] for r in rows])
+    seq = np.concatenate([r[1] for r in rows])
+    vt = np.concatenate([r[2] for r in rows])
+    o = np.lexsort((np.iinfo(np.int64).max - seq.view(np.int64), key))
+    items = []
+    for k, sq, t in zip(key[o].tolist(), seq[o].tolist(), vt[o].tolist()):
+        v = (b"v" * 19 + b"%d" % (sq % 10) if t == 1
+             else struct.pack("<Q", sq % 97) if t == 2 else b"")
+        items.append((b"%08d" % k + ((sq << 8) | t).to_bytes(8, "little"),
+                      v))
+    rd = RangeDelAggregator(icmp.user_comparator)
+    for ts, lo, hi in tombs:
+        rd.add(RangeTombstone(ts, b"%08d" % lo, b"%08d" % hi))
+    ci = CompactionIterator(ListIter(items), icmp, snapshots,
+                            bottommost_level=True,
+                            merge_operator=merge_operator, range_del_agg=rd)
+    return list(ci.entries())
+
+
+def read_entries(env, dbdir, icmp, outputs):
+    """Every output's (internal key, value) pairs in file order."""
+    from toplingdb_tpu_torch.db import filename
+    from toplingdb_tpu_torch.ops.columnar_io import scan_table_columnar
+    from toplingdb_tpu_torch.table.reader import TableReader
+
+    out = []
+    for m in outputs:
+        r = TableReader(env.new_random_access_file(
+            filename.table_file_name(dbdir, m.number)), icmp)
+        kv = scan_table_columnar(r)
+        r.close()
+        out += [(kv.ikey(i), kv.value(i)) for i in range(kv.n)]
+    return out
+
+
+def complex_path(torch, env, dbdir, icmp, topts, n, card,
+                 device_name="cuda"):
+    """MERGE / SINGLE_DELETION groups at n entries (COMPLEX_MIX, 8 range
+    tombstones), without and with 3 snapshots: the pipeline's attempt gives
+    up on the complex groups, the serial route runs 2 shards and folds the
+    groups on the host. The kernels' counts are set to 0 just before each
+    job and read just after; collect_raw_entries must stay uncalled. The
+    card's bytes equal the CPU route's, and the card's entries equal the
+    CompactionIterator oracle's. Returns the jobs' numbers."""
+    from toplingdb_tpu_torch.ops import device_compaction as dc
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.utils.merge_operator import UInt64AddOperator
+
+    t0 = time.time()
+    metas, rows, tombs = write_runs(env, dbdir, icmp, topts, n, Alloc(9),
+                                    seed=55, n_tombs=8, mix=COMPLEX_MIX)
+    key = np.concatenate([r[0] for r in rows])
+    vt = np.concatenate([r[2] for r in rows])
+    n_groups = len(np.unique(key[(vt == 2) | (vt == 7)]))
+    log(f"complex inputs: {n} entries (60% Put, 20% Merge, 10% Delete, 10% "
+        f"SingleDelete), {len(tombs)} range tombstones, {len(metas)} SSTs, "
+        f"{n_groups} user keys with MERGE or SINGLE_DELETION rows "
+        f"({time.time() - t0:.1f}s)")
+
+    def no_entries(*a, **k):
+        raise AssertionError("the complex job left the columnar route")
+
+    max_seq = n + len(tombs)
+    runs = [("no snapshots", []),
+            ("3 snapshots", [max_seq // 5, max_seq // 2, 4 * max_seq // 5])]
+    jobs = []
+    collect = dc.collect_raw_entries
+    dc.collect_raw_entries = no_entries
+    try:
+        for label, snaps in runs:
+            kernels.gc_rows.launches = 0
+            kernels.merge_runs_perm.launches = 0
+            with plane_timers() as timers:
+                outs, stats, wall = compact(
+                    env, dbdir, icmp, topts, metas, snaps, device_name,
+                    Alloc(100_000), merge_operator=UInt64AddOperator(),
+                    num_shards=2)
+            counts = {"gc_rows": kernels.gc_rows.launches,
+                      "merge_runs": kernels.merge_runs_perm.launches}
+            assert not stats.pipelined and stats.resolve_usec > 0
+            if device_name != "cpu":
+                assert min(counts.values()) > 0, \
+                    "a kernel of the complex job never launched"
+            cpu, cstats, cwall = compact(
+                env, dbdir, icmp, topts, metas, snaps, "cpu", Alloc(110_000),
+                merge_operator=UInt64AddOperator(), num_shards=2)
+            assert outs and sst_bytes(dbdir, outs) == sst_bytes(dbdir, cpu), \
+                f"complex job ({label}): {device_name} and cpu bytes differ"
+            t1 = time.time()
+            want = complex_oracle(rows, tombs, snaps, icmp,
+                                  UInt64AddOperator())
+            got = read_entries(env, dbdir, icmp, outs)
+            assert got == want, f"complex job ({label}) differs from the " \
+                "CompactionIterator oracle"
+            mbps = n * RAW_PER_ENTRY / 1e6 / wall
+            log(f"complex job ({label}) [{card}]: wall {wall:.3f}s, "
+                f"{mbps:.2f} raw MB/s, {stats.output_records} entries in "
+                f"{len(outs)} SSTs, {n_groups} complex groups folded in "
+                f"{stats.resolve_usec / 1e6:.3f}s (resolve), launches "
+                f"{json.dumps(counts)} (the pipeline's attempt included), "
+                f"phases {json.dumps(stats.phase_dict())}; cpu route "
+                f"{cwall:.3f}s, same bytes, phases "
+                f"{json.dumps(cstats.phase_dict())}; {len(got)} entries "
+                f"match the "
+                f"oracle ({time.time() - t1:.1f}s); host seconds by "
+                f"thread/function {timers.text()}")
+            jobs.append(dict(label=label, wall_s=wall, raw_MBps=mbps,
+                             cpu_wall_s=cwall, phases=stats.phase_dict(),
+                             launches=counts, groups=n_groups))
+            remove_ssts(dbdir, outs)
+            remove_ssts(dbdir, cpu)
+    finally:
+        dc.collect_raw_entries = collect
+    remove_ssts(dbdir, metas)
+    return jobs
+
+
+BLOB_LEN = 1024
+BLOB_FILES = (7, 8)
+
+
+def write_blob_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=66,
+                    num_runs=4):
+    """bench.py's key shape (8-digit keys, key space N/2, num_runs presorted
+    runs) with 5% empty values and 10% BLOB_INDEX rows whose 1 KiB values
+    (the letter 'A' + seqno % 26, repeated) live in two blob files; the
+    rest are bench.py's 20-byte values. Returns (metas, rows) with rows =
+    [(draws, seqs, vtypes, empty)] per run."""
+    from toplingdb_tpu_torch.db import blob
+    from toplingdb_tpu_torch.db.version_edit import FileMetaData
+    from toplingdb_tpu_torch.ops.columnar_io import (
+        ColumnarKV,
+        write_tables_columnar,
+    )
+
+    rng = np.random.default_rng(seed)
+    key_space = max(n_entries // 2, 1)
+    per_run = n_entries // num_runs
+    builders = {fn: blob.BlobFileBuilder(env, dbdir, fn) for fn in BLOB_FILES}
+    metas, rows = [], []
+    for run in range(num_runs):
+        n = per_run
+        draws = rng.integers(0, key_space, n)
+        seqs = np.arange(run * n + 1, run * n + n + 1, dtype=np.uint64)
+        r = rng.random(n)
+        empty = r < 0.05
+        is_blob = (r >= 0.05) & (r < 0.15)
+        vt = np.where(is_blob, 0x11, 1).astype(np.int32)
+        s = np.lexsort((np.iinfo(np.int64).max - seqs.view(np.int64), draws))
+        vals, refs = [], set()
+        for d, sq, b, e in zip(draws[s].tolist(), seqs[s].tolist(),
+                               is_blob[s].tolist(), empty[s].tolist()):
+            if b:
+                fn = BLOB_FILES[sq % 2]
+                refs.add(fn)
+                vals.append(builders[fn].add(
+                    b"%08d" % d, bytes([65 + sq % 26]) * BLOB_LEN))
+            else:
+                vals.append(b"" if e else b"v" * 19 + b"%d" % (sq % 10))
+        ik = np.empty((n, 16), dtype=np.uint8)
+        for j in range(8):
+            ik[:, 7 - j] = (draws[s] // 10 ** j) % 10 + ord("0")
+        packed = (seqs[s] << np.uint64(8)) | vt[s].astype(np.uint64)
+        ik[:, 8:] = packed[:, None] >> (np.arange(8) * 8).astype(
+            np.uint64)[None, :] & np.uint64(0xFF)
+        val_lens = np.array([len(v) for v in vals], dtype=np.int32)
+        kv = ColumnarKV(
+            ik.reshape(-1), np.arange(n, dtype=np.int32) * 16,
+            np.full(n, 16, dtype=np.int32),
+            np.frombuffer(b"".join(vals), dtype=np.uint8).copy(),
+            (np.cumsum(val_lens) - val_lens).astype(np.int32), val_lens)
+        files = write_tables_columnar(
+            env, dbdir, alloc, icmp, topts, kv, np.arange(n, dtype=np.int32),
+            np.full(n, -1, dtype=np.int64), vt[s], seqs[s], creation_time=1)
+        for fnum, path, props, smallest, largest, _sel in files:
+            metas.append(FileMetaData(
+                number=fnum, file_size=env.get_file_size(path),
+                smallest=smallest, largest=largest,
+                smallest_seqno=props.smallest_seqno,
+                largest_seqno=props.largest_seqno, blob_refs=sorted(refs)))
+        rows.append((draws, seqs, vt, empty))
+    for b in builders.values():
+        b.finish()
+    return metas, rows
+
+
+def check_blob_outputs(env, dbdir, icmp, outputs, filtered_to=None):
+    """Every surviving blob index resolves to its original 1 KiB value,
+    each output's blob_refs are the files its blob indexes name, and, with
+    `filtered_to` (the earliest snapshot of a job that ran
+    RemoveEmptyValueCompactionFilter), no empty VALUE at or below it
+    survives. Returns (blob indexes, empty values kept)."""
+    from toplingdb_tpu_torch.db import blob
+
+    src = blob.BlobSource(env, dbdir)
+    n_blob = n_empty = 0
+    for m in outputs:
+        refs = set()
+        for k, v in read_entries(env, dbdir, icmp, [m]):
+            sq, t = int.from_bytes(k[-8:], "little") >> 8, k[-8]
+            if t == 0x11:
+                refs.add(blob.decode_blob_index(v)[0])
+                assert src.get(v) == bytes([65 + sq % 26]) * BLOB_LEN, \
+                    "a blob index does not resolve to its value"
+                n_blob += 1
+            elif t == 1 and not v:
+                assert filtered_to is None or sq > filtered_to, \
+                    "an empty value survived the filter"
+                n_empty += 1
+        assert sorted(refs) == m.blob_refs, "blob_refs disagree"
+    src.close()
+    return n_blob, n_empty
+
+
+def entries_path(torch, env, dbdir, icmp, topts, n, card,
+                 device_name="cuda"):
+    """Blob values at n entries with 3 snapshots. First the columnar route
+    (no filter, no blob GC): the card's outputs and blob_refs equal the
+    CPU route's. Then RemoveEmptyValueCompactionFilter and a
+    BlobGarbageCollector (age cutoff 0.5, min_blob_size 512): the per-entry
+    route (collect_raw_entries, device_gc_entries with one gc_rows launch,
+    the GC rewrite, build_outputs), on the card and on the CPU in twin
+    directories: the same SST and blob bytes, blob indexes resolving to
+    their values, no empty VALUE at or below the earliest snapshot.
+    Returns the jobs' numbers."""
+    from toplingdb_tpu_torch.db import blob
+    from toplingdb_tpu_torch.ops import device_compaction as dc
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.utils.compaction_filter import (
+        RemoveEmptyValueCompactionFilter,
+    )
+
+    t0 = time.time()
+    metas, rows = write_blob_runs(env, dbdir, icmp, topts, n, Alloc(9))
+    log(f"blob inputs: {n} entries (5% empty values, 10% BLOB_INDEX rows of "
+        f"{BLOB_LEN} B values in 2 blob files), {len(metas)} SSTs "
+        f"({time.time() - t0:.1f}s)")
+    snaps = [n // 5, n // 2, 4 * n // 5]
+    kernels.gc_rows.launches = 0
+    outs, stats, wall = compact(env, dbdir, icmp, topts, metas, snaps,
+                                device_name, Alloc(120_000))
+    col_launches = kernels.gc_rows.launches
+    cpu, _, cwall = compact(env, dbdir, icmp, topts, metas, snaps, "cpu",
+                            Alloc(130_000))
+    assert sst_bytes(dbdir, outs) == sst_bytes(dbdir, cpu), \
+        "blob job: columnar bytes differ"
+    assert [m.blob_refs for m in outs] == [m.blob_refs for m in cpu] and \
+        set().union(*(m.blob_refs for m in outs)) == set(BLOB_FILES)
+    n_blob, _ = check_blob_outputs(env, dbdir, icmp, outs)
+    route = "pipelined" if stats.pipelined else "serial"
+    log(f"blob job, columnar route ({route}) [{card}]: wall {wall:.3f}s, {stats.output_records} entries in "
+        f"{len(outs)} SSTs, {n_blob} blob indexes, blob_refs equal the cpu "
+        f"route's (cpu {cwall:.3f}s, same bytes), gc_rows launches "
+        f"{col_launches}, phases {json.dumps(stats.phase_dict())}")
+    remove_ssts(dbdir, outs)
+    remove_ssts(dbdir, cpu)
+
+    twin = dbdir + "_cpu"
+    shutil.rmtree(twin, ignore_errors=True)
+    os.makedirs(twin)
+    for name in os.listdir(dbdir):
+        os.link(os.path.join(dbdir, name), os.path.join(twin, name))
+    entered = []
+    collect = dc.collect_raw_entries
+    dc.collect_raw_entries = lambda *a, **k: entered.append(1) or collect(
+        *a, **k)
+    res = {}
+    try:
+        for dev, d in ((device_name, dbdir), ("cpu", twin)):
+            alloc = Alloc(140_000)
+            src = blob.BlobSource(env, d)
+            gc = blob.BlobGarbageCollector(
+                env, d, [fn for m in metas for fn in m.blob_refs], 0.5, 512,
+                src.get, alloc)
+            kernels.gc_rows.launches = 0
+            with entry_timers() as timers:
+                o, st, w = compact(
+                    env, d, icmp, topts, metas, snaps, dev, alloc,
+                    compaction_filter=RemoveEmptyValueCompactionFilter(),
+                    blob_gc=gc, blob_resolver=src.get)
+            res[dev] = (o, st, w, gc, kernels.gc_rows.launches, timers)
+            src.close()
+    finally:
+        dc.collect_raw_entries = collect
+    o, st, w, gc, launches, timers = res[device_name]
+    co, _, cw, cgc, _, ctimers = res["cpu"]
+    assert entered == [1, 1], "the filter job did not take the per-entry route"
+    if device_name != "cpu":
+        assert launches == 1, f"gc_rows launched {launches} times"
+    assert gc.new_blob_file == cgc.new_blob_file is not None
+    names = [f"{m.number:06d}.sst" for m in o] + [
+        f"{gc.new_blob_file:06d}.blob"]
+    assert [m.number for m in o] == [m.number for m in co]
+    for name in names:
+        with open(os.path.join(dbdir, name), "rb") as a, \
+                open(os.path.join(twin, name), "rb") as b:
+            assert a.read() == b.read(), f"{name} differs on cuda and cpu"
+    n_blob, n_empty = check_blob_outputs(env, dbdir, icmp, o, min(snaps))
+    assert gc.rewritten > 0
+    mbps = n * RAW_PER_ENTRY / 1e6 / w
+    log(f"blob GC job, per-entry route [{card}]: wall {w:.3f}s, "
+        f"{mbps:.2f} raw MB/s, {st.output_records} entries in {len(o)} SSTs, "
+        f"{gc.rewritten} values rewritten into blob file {gc.new_blob_file}, "
+        f"{n_blob} blob indexes resolve, {n_empty} empty values kept above "
+        f"the earliest snapshot, gc_rows launches {launches}, phases "
+        f"{json.dumps(st.phase_dict())}; host seconds by function "
+        f"{timers.text()}; cpu {cw:.3f}s, the same SST and blob bytes, host "
+        f"seconds by function {ctimers.text()}")
+    shutil.rmtree(twin, ignore_errors=True)
+    for m in o:
+        os.remove(os.path.join(dbdir, f"{m.number:06d}.sst"))
+    os.remove(os.path.join(dbdir, f"{gc.new_blob_file:06d}.blob"))
+    remove_ssts(dbdir, metas)
+    for fn in BLOB_FILES:
+        os.remove(os.path.join(dbdir, f"{fn:06d}.blob"))
+    return [dict(label="columnar", wall_s=wall, cpu_wall_s=cwall,
+                 phases=stats.phase_dict(), pipelined=stats.pipelined),
+            dict(label="per-entry, filter + blob GC", wall_s=w,
+                 raw_MBps=mbps, cpu_wall_s=cw, phases=st.phase_dict(),
+                 gc_rows=launches, rewritten=gc.rewritten)]
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1223,8 +1638,11 @@ def main() -> int:
                     VARLEN_PLAIN_N)
         tombstone_path(torch, env, dbdir, icmp, topts, TOMB_N)
         device_vs_plain(env, dbdir, icmp, topts, PLAIN_N)
+        complex_path(torch, env, dbdir, icmp, topts, COMPLEX_N, smi)
+        entries_path(torch, env, dbdir, icmp, topts, ENTRIES_N, smi)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
+        shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
 
     # Launches on each kernel's own main path: the pipelined plane for
     # gc_rows and the merge, the block-assembly route for shared_prefix.

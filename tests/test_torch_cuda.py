@@ -15,7 +15,13 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   C = 5) bitwise against the plain versions;
 - a small pipelined job and a small variable-length job write the same SST
   bytes on "cuda" as on "cpu", and a CUDA error raised inside the
-  pipeline's compute thread reaches the caller.
+  pipeline's compute thread reaches the caller;
+- a small job with MERGE and SINGLE_DELETION groups (columnar route, the
+  fold on the host) and a per-entry job with a compaction filter and blob
+  GC write the same SST and blob bytes on "cuda" as on "cpu"; the
+  per-entry route's GC mask at 1 and 3 rows equals the plain version's;
+  a CUDA error inside the per-entry route reaches the caller and leaves no
+  file behind.
 """
 
 import os
@@ -249,11 +255,15 @@ def test_shared_prefix_matches_plain(dev):
         assert torch.equal(got.cpu(), want)
 
 
-def _write_run(env, dbdir, icmp, topts, fnum, rng, n, seq0, tombstones=()):
-    """One presorted run of 8-digit keys (10% deletions) as one SST."""
+def _write_run(env, dbdir, icmp, topts, fnum, rng, n, seq0, tombstones=(),
+               mix=None):
+    """One presorted run of 8-digit keys (10% deletions, or the value types
+    and shares of `mix`) as one SST."""
     draws = rng.integers(0, n, n)
     seqs = np.arange(seq0, seq0 + n, dtype=np.uint64)
     vt = np.where(rng.random(n) < 0.1, 0, 1).astype(np.int32)
+    if mix is not None:
+        vt = rng.choice(list(mix), n, p=list(mix.values())).astype(np.int32)
     s = np.lexsort((np.iinfo(np.int64).max - seqs.view(np.int64), draws))
     ik = np.empty((n, 16), dtype=np.uint8)
     for j in range(8):
@@ -471,4 +481,171 @@ def test_cuda_error_in_the_compute_thread_reaches_the_caller(
     assert calls == ["pipeline-compute"] * 2 and not serial
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("pipeline-")]
+    assert set(os.listdir(dbdir)) == before
+
+
+# MERGE operands are the runs' 8-byte values ("vvvvvvvv"), folded as u64.
+COMPLEX_MIX = {1: 0.6, 2: 0.2, 0: 0.1, 7: 0.1}
+
+
+def test_complex_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    from toplingdb_tpu_torch.utils.merge_operator import UInt64AddOperator
+
+    monkeypatch.setattr(dc, "_SHARD_MIN_ROWS", 1)
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(12)
+    metas = [_write_run(env, dbdir, icmp, topts, 10 + i, rng, 4096,
+                        1 + i * 4096, mix=COMPLEX_MIX) for i in range(4)]
+    resolved = []
+    orig = dc._resolve_complex_stream
+    monkeypatch.setattr(dc, "_resolve_complex_stream",
+                        lambda *a: resolved.append(1) or orig(*a))
+    counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches]
+    got, stats = _job("cuda", env, dbdir, icmp, topts, metas, 100,
+                      merge_operator=UInt64AddOperator(), num_shards=2)
+    assert kernels.gc_rows.launches - counts[0] == 2
+    # Two or three merge rounds per shard (4 runs, plus the pad run).
+    assert 4 <= kernels.merge_runs_perm.launches - counts[1] <= 6
+    assert not stats.pipelined and resolved == [1]
+    want, _ = _job("cpu", env, dbdir, icmp, topts, metas, 200,
+                   merge_operator=UInt64AddOperator(), num_shards=2)
+    assert len(got) > 1 and got == want
+
+
+def _write_blob_inputs(env, dbdir, icmp, topts, rng, n_files=3, n=3000):
+    """Inputs of a blob-GC job: runs of 8-digit keys (5% empty values, 10%
+    BLOB_INDEX rows into blob files 5 and 6 holding 1 KiB or 300-byte
+    values) written with the port's TableBuilder."""
+    from toplingdb_tpu_torch.db import blob
+    from toplingdb_tpu_torch.db.dbformat import ValueType, make_internal_key
+    from toplingdb_tpu_torch.table.builder import TableBuilder
+
+    blobs = {fn: blob.BlobFileBuilder(env, dbdir, fn) for fn in (5, 6)}
+    metas, seq = [], 1
+    for fnum in range(10, 10 + n_files):
+        rows = {}
+        for _ in range(n):
+            k = b"%08d" % rng.integers(0, n)
+            r = rng.random()
+            if r < 0.05:
+                rows[k, seq] = (ValueType.VALUE, b"")
+            elif r < 0.15:
+                raw = b"%c" % (65 + seq % 26) * int(rng.choice([300, 1024]))
+                rows[k, seq] = (ValueType.BLOB_INDEX,
+                                blobs[5 + seq % 2].add(k, raw))
+            else:
+                rows[k, seq] = (ValueType.VALUE, b"val%05d" % seq)
+            seq += 1
+        path = f"{dbdir}/{fnum:06d}.sst"
+        w = env.new_writable_file(path)
+        b = TableBuilder(w, icmp, topts)
+        refs = set()
+        for (k, sq), (t, v) in sorted(rows.items(),
+                                      key=lambda kv: (kv[0][0], -kv[0][1])):
+            b.add(make_internal_key(k, sq, t), v)
+            if t == ValueType.BLOB_INDEX:
+                refs.add(blob.decode_blob_index(v)[0])
+        props = b.finish()
+        w.close()
+        metas.append(FileMetaData(
+            number=fnum, file_size=env.get_file_size(path),
+            smallest=b.smallest_key, largest=b.largest_key,
+            smallest_seqno=props.smallest_seqno,
+            largest_seqno=props.largest_seqno, blob_refs=sorted(refs)))
+    for bb in blobs.values():
+        bb.finish()
+    return metas
+
+
+def _gc_job(dev_name, env, dbdir, icmp, topts, metas, fail=None):
+    from toplingdb_tpu_torch.db import blob
+    from toplingdb_tpu_torch.utils.compaction_filter import (
+        RemoveEmptyValueCompactionFilter,
+    )
+
+    alloc = iter(range(100, 200))
+    new_number = lambda: next(alloc)  # noqa: E731
+    src = blob.BlobSource(env, dbdir)
+    gc = blob.BlobGarbageCollector(
+        env, dbdir, [fn for m in metas for fn in m.blob_refs], 0.5, 512,
+        src.get, new_number)
+    c = Compaction(level=0, output_level=2, inputs=list(metas),
+                   bottommost=True, max_output_file_size=1 << 16)
+    outs, _ = dc.run_device_compaction(
+        env, dbdir, icmp, c, TableCache(env, dbdir, icmp, topts), topts,
+        [2000, 6000], new_file_number=new_number, creation_time=1,
+        device_name=dev_name, blob_resolver=src.get, blob_gc=gc,
+        compaction_filter=RemoveEmptyValueCompactionFilter())
+    names = [f"{m.number:06d}.sst" for m in outs]
+    names.append(f"{gc.new_blob_file:06d}.blob")
+    return [open(f"{dbdir}/{n}", "rb").read() for n in names], outs, gc
+
+
+def test_per_entry_job_with_filter_and_blob_gc(dev, tmp_path):
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dirs = [str(tmp_path / d) for d in ("cuda", "cpu")]
+    os.makedirs(dirs[0])
+    metas = _write_blob_inputs(env, dirs[0], icmp, topts,
+                               np.random.default_rng(13))
+    os.makedirs(dirs[1])
+    for name in os.listdir(dirs[0]):
+        os.link(f"{dirs[0]}/{name}", f"{dirs[1]}/{name}")
+    before = kernels.gc_rows.launches
+    got, outs, gc = _gc_job("cuda", env, dirs[0], icmp, topts, metas)
+    assert kernels.gc_rows.launches == before + 1
+    assert gc.rewritten > 0 and gc.inlined > 0
+    want, cpu_outs, _ = _gc_job("cpu", env, dirs[1], icmp, topts, metas)
+    assert len(got) > 2 and got == want
+    assert [m.blob_refs for m in outs] == [m.blob_refs for m in cpu_outs]
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_per_entry_gc_mask_few_rows(dev, n):
+    from toplingdb_tpu_torch.db.dbformat import ValueType, make_internal_key
+    from toplingdb_tpu_torch.ops.columnar import ColumnarEntries
+
+    icmp = InternalKeyComparator()
+    entries = [(make_internal_key(b"k%d" % (i % 2), 10 - i,
+                                  ValueType.VALUE if i % 2 else
+                                  ValueType.MERGE), b"\x01" * 8)
+               for i in range(n)]
+    col = ColumnarEntries.from_entries(entries)
+    out = {}
+    for d in (dev, "cpu"):
+        before = kernels.gc_rows.launches
+        cols, perm = ck.device_sort(ck.pad_columns(col), d)
+        out[str(d)] = (perm,) + ck.gc_mask(cols, [5], None, True)
+        if d == dev:
+            assert kernels.gc_rows.launches == before + 1
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        assert np.array_equal(a, b)
+    from toplingdb_tpu_torch.utils.merge_operator import UInt64AddOperator
+
+    assert list(dc.device_gc_entries(
+        entries, icmp, [5], True, merge_operator=UInt64AddOperator(),
+        device_name="cuda")) == list(dc.device_gc_entries(
+            entries, icmp, [5], True, merge_operator=UInt64AddOperator(),
+            device_name="cpu"))
+
+
+def test_cuda_error_in_the_per_entry_route_reaches_the_caller(
+        dev, tmp_path, monkeypatch):
+    """A CUDA allocation failure while the per-entry route masks the job
+    on the card is raised to the caller as it is, with no SST and no blob
+    file left behind."""
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    metas = _write_blob_inputs(env, dbdir, icmp, topts,
+                               np.random.default_rng(14), n_files=2, n=500)
+    before = set(os.listdir(dbdir))
+    orig = ck.gc_mask
+
+    def gc_mask(*a, **k):
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ck, "gc_mask", gc_mask)
+    with pytest.raises(torch.OutOfMemoryError):
+        _gc_job("cuda", env, dbdir, icmp, topts, metas)
     assert set(os.listdir(dbdir)) == before

@@ -113,7 +113,7 @@ def run_ref(dbdir, metas, snaps, bottommost, max_out):
 
 
 def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu",
-             num_shards=None):
+             num_shards=None, **kwargs):
     inputs = [FileMetaData(**{k: v for k, v in dataclasses.asdict(m).items()})
               for m in metas]
     c = Compaction(level=0, output_level=2, inputs=inputs,
@@ -123,7 +123,7 @@ def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu",
     outs, stats = dc.run_device_compaction(
         PosixEnv(), dbdir, ICMP, c, tc, topts, snaps,
         new_file_number=allocator(200), creation_time=7, device_name=device,
-        num_shards=num_shards, pipeline=False)
+        num_shards=num_shards, pipeline=False, **kwargs)
     assert stats.input_records == sum(
         tc.get_reader(m.number).properties.num_entries for m in metas)
     return outs
@@ -231,20 +231,108 @@ def test_default_device_requires_a_card(tmp_path):
     assert sorted(os.listdir(dbdir)) == before
 
 
-@pytest.mark.parametrize("kind", ["single_deletion_rows", "merge_rows"])
+class _ReverseComparator:
+    """A non-bytewise user comparator (its name is what the port checks)."""
+
+    def name(self):
+        return "test.ReverseBytewise"
+
+    def compare(self, a, b):
+        return (a < b) - (a > b)
+
+
+def _long_key_inputs(dbdir):
+    """One input SST whose user keys are 130 bytes long."""
+    env = default_env()
+    path = ref_fn.table_file_name(dbdir, 41)
+    w = env.new_writable_file(path)
+    b = TableBuilder(w, REF_ICMP, RefTO(block_size=BLOCK))
+    for i in range(20):
+        b.add(make_internal_key(b"k" * 126 + b"%04d" % i, i + 1,
+                                ValueType.VALUE), b"v%d" % i)
+    props = b.finish()
+    w.close()
+    return [RefMeta(number=41, file_size=env.get_file_size(path),
+                    smallest=b.smallest_key, largest=b.largest_key,
+                    smallest_seqno=props.smallest_seqno,
+                    largest_seqno=props.largest_seqno)]
+
+
+@pytest.mark.parametrize("kind", [
+    "single_deletion_rows", "merge_rows", "compressed_options",
+    "non_bytewise_comparator", "long_keys_per_entry",
+    "over_1024_snapshots"])
 def test_unsupported_jobs_raise_without_output(tmp_path, kind):
+    """MERGE and SINGLE_DELETION rows, once refused, now write the
+    reference's bytes on the columnar route. What the port still refuses
+    (compressed tables, a non-bytewise comparator, user keys over 128
+    bytes, which reach the per-entry route and are refused there as in the
+    reference, and more than 1024 snapshots, refused the same way) raises
+    NotSupported and leaves no file behind."""
+    from toplingdb_tpu.utils.merge_operator import StringAppendOperator
+    from toplingdb_tpu.utils.status import NotSupported as RefNotSupported
+
+    from toplingdb_tpu_torch.utils.merge_operator import (
+        create_merge_operator,
+    )
+
     dbdir = str(tmp_path)
-    metas, _ = write_inputs(
-        dbdir, random.Random(9), n_files=2, per_file=50, complex_rows=5,
-        complex_type=(ValueType.MERGE if kind == "merge_rows"
-                      else ValueType.SINGLE_DELETION))
+    if kind == "long_keys_per_entry":
+        metas = _long_key_inputs(dbdir)
+    else:
+        metas, _ = write_inputs(
+            dbdir, random.Random(9), n_files=2, per_file=50, complex_rows=5,
+            complex_type=(ValueType.SINGLE_DELETION
+                          if kind == "single_deletion_rows"
+                          else ValueType.MERGE))
+    ref_op = StringAppendOperator()
+    if kind in ("single_deletion_rows", "merge_rows"):
+        c = RefCompaction(level=0, output_level=2, inputs=list(metas),
+                          bottommost=True)
+        topts = RefTO(block_size=BLOCK)
+        tc = RefTableCache(default_env(), dbdir, REF_ICMP, topts)
+        ref_outs, _ = ref_dc.run_device_compaction(
+            default_env(), dbdir, REF_ICMP, c, tc, topts, [],
+            merge_operator=ref_op, new_file_number=allocator(100),
+            creation_time=7, device_name="cpu")
+        port_outs = run_port(dbdir, metas, [], True, 1 << 30,
+                             merge_operator=create_merge_operator(
+                                 ref_op.name()))
+        assert ref_outs and len(ref_outs) == len(port_outs)
+        assert read_bytes(dbdir, port_outs) == read_bytes(dbdir, ref_outs)
+        for r, p in zip(ref_outs, port_outs):
+            assert same_meta(r, p)
+        return
     before = sorted(os.listdir(dbdir))
     inputs = [FileMetaData(**dataclasses.asdict(m)) for m in metas]
     c = Compaction(level=0, output_level=2, inputs=inputs, bottommost=True)
-    tc = TableCache(PosixEnv(), dbdir, ICMP)
-    with pytest.raises(NotSupported, match="MERGE / SINGLE_DELETION"):
-        dc.run_device_compaction(PosixEnv(), dbdir, ICMP, c, tc, tc._topts,
-                                 [], new_file_number=allocator(300),
+    icmp = ICMP
+    topts = table_options_from_plain(plain_options(RefTO(block_size=BLOCK)))
+    tc = TableCache(PosixEnv(), dbdir, ICMP, topts)
+    if kind == "compressed_options":
+        topts = dataclasses.replace(topts, compression=1)
+    elif kind == "non_bytewise_comparator":
+        icmp = InternalKeyComparator(_ReverseComparator())
+    snaps = list(range(1, 1026)) if kind == "over_1024_snapshots" else []
+    if kind in ("long_keys_per_entry", "over_1024_snapshots"):
+        # The reference refuses the same job on its per-entry route.
+        rc = RefCompaction(level=0, output_level=2, inputs=list(metas),
+                           bottommost=True)
+        with pytest.raises(RefNotSupported):
+            ref_dc.run_device_compaction(
+                default_env(), dbdir, REF_ICMP, rc,
+                RefTableCache(default_env(), dbdir, REF_ICMP,
+                              RefTO(block_size=BLOCK)),
+                RefTO(block_size=BLOCK), snaps,
+                new_file_number=allocator(100), device_name="cpu")
+        assert sorted(os.listdir(dbdir)) == before
+    with pytest.raises(NotSupported, match={
+            "long_keys_per_entry": "device key budget",
+            "over_1024_snapshots": "1024 live snapshots",
+            "compressed_options": "compression",
+            "non_bytewise_comparator": "bytewise comparator"}[kind]):
+        dc.run_device_compaction(PosixEnv(), dbdir, icmp, c, tc, topts,
+                                 snaps, new_file_number=allocator(300),
                                  device_name="cpu")
     assert sorted(os.listdir(dbdir)) == before
 

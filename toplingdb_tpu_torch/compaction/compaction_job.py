@@ -1,17 +1,24 @@
-"""Per-job compaction stats and the tombstones a job writes (copied from
-toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats` and
-`surviving_tombstone_fragments`; the per-entry CompactionJob comes with a
-later slice)."""
+"""Per-job compaction stats, the tombstones a job writes, and the per-entry
+output cutter (copied from toplingdb_tpu/compaction/compaction_job.py,
+trimmed to `CompactionStats`, `surviving_tombstone_fragments` and
+`build_outputs`, without per-entry protection; the CPU CompactionJob comes
+with the DB engine in a later slice)."""
 
 from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
 
+from toplingdb_tpu_torch.compaction.picker import Compaction
+from toplingdb_tpu_torch.db import dbformat, filename
+from toplingdb_tpu_torch.db.blob import decode_blob_index
 from toplingdb_tpu_torch.db.range_del import (
     RangeDelAggregator,
     fragment_tombstones,
 )
+from toplingdb_tpu_torch.db.version_edit import FileMetaData
+from toplingdb_tpu_torch.table.factory import new_table_builder
+from toplingdb_tpu_torch.utils.status import NotFound
 
 
 @dataclass
@@ -104,3 +111,116 @@ def surviving_tombstone_fragments(rd: RangeDelAggregator,
     if bottommost:
         return [f for f in frags if bisect.bisect_left(snaps, f.seq) > 0]
     return frags
+
+
+def _delete_quietly(env, path: str) -> None:
+    try:
+        env.delete_file(path)
+    except (NotFound, OSError):
+        pass  # best-effort cleanup; the job's own error propagates
+
+
+def build_outputs(env, dbname: str, icmp, compaction: Compaction,
+                  entries_iter, surviving_tombstones, new_file_number,
+                  table_options, stats: CompactionStats,
+                  creation_time: int,
+                  column_family: tuple[int, str] = (0, "default"),
+                  ) -> list[FileMetaData]:
+    """Cut the survivor stream into output tables (RocksDB's
+    CompactionOutputs / SubcompactionState::AddToOutput): outputs are cut
+    only at user-key boundaries once a file reaches max_output_file_size,
+    and while range tombstones survive there is one output. On any failure
+    every partial or finished output of the job is deleted before the
+    error propagates."""
+    outputs: list[FileMetaData] = []
+    builder = None
+    wfile = None
+    fnum = None
+    blob_refs: set[int] = set()
+
+    def open_output():
+        nonlocal builder, wfile, fnum
+        fnum = new_file_number()
+        wfile = env.new_writable_file(filename.table_file_name(dbname, fnum))
+        builder = new_table_builder(wfile, icmp, table_options,
+                                    creation_time=creation_time,
+                                    column_family_id=column_family[0],
+                                    column_family_name=column_family[1])
+        blob_refs.clear()
+
+    def close_output(pending_tombstones):
+        nonlocal builder, wfile
+        if builder is None:
+            return
+        for frag in pending_tombstones:
+            b, e = frag.to_table_entry()
+            builder.add_tombstone(b, e)
+        if builder.num_entries == 0:
+            wfile.close()
+            env.delete_file(filename.table_file_name(dbname, fnum))
+            builder = None
+            wfile = None
+            return
+        props = builder.finish()
+        wfile.sync()
+        wfile.close()
+        meta = FileMetaData(
+            number=fnum,
+            file_size=env.get_file_size(
+                filename.table_file_name(dbname, fnum)),
+            smallest=builder.smallest_key,
+            largest=builder.largest_key,
+            smallest_seqno=props.smallest_seqno,
+            largest_seqno=props.largest_seqno,
+            num_entries=props.num_entries,
+            num_deletions=props.num_deletions,
+            num_range_deletions=props.num_range_deletions,
+            blob_refs=sorted(blob_refs),
+            marked_for_compaction=builder.need_compaction,
+        )
+        outputs.append(meta)
+        stats.output_bytes += meta.file_size
+        stats.output_files += 1
+        builder = None
+        wfile = None
+
+    last_user_key = None
+    try:
+        for ikey, value in entries_iter:
+            if builder is None:
+                open_output()
+            uk = dbformat.extract_user_key(ikey)
+            if (builder.file_size() >= compaction.max_output_file_size
+                    and last_user_key is not None
+                    and not surviving_tombstones
+                    and icmp.user_comparator.compare(uk, last_user_key) != 0):
+                # Cut outputs only at user-key boundaries (all versions of a
+                # key stay in one file). While range tombstones survive a
+                # single output is produced: add_tombstone widens the file
+                # bounds to the tombstone span, and splitting would make
+                # sibling outputs overlap.
+                close_output([])
+                open_output()
+            builder.add(ikey, value)
+            if ikey[-8] == dbformat.ValueType.BLOB_INDEX:
+                blob_refs.add(decode_blob_index(value)[0])
+            stats.output_records += 1
+            last_user_key = uk
+        if surviving_tombstones and builder is None:
+            open_output()
+        close_output(surviving_tombstones)
+    except BaseException:
+        # Failed job: no partial or completed output may survive.
+        if wfile is not None:
+            try:
+                wfile.close()
+            except OSError:
+                pass  # best-effort cleanup; the job's own error propagates
+        for m in outputs:
+            _delete_quietly(env, filename.table_file_name(dbname, m.number))
+        # fnum may name an output whose builder never constructed (the
+        # constructor raised): the file exists, so delete it regardless.
+        if fnum is not None:
+            _delete_quietly(env, filename.table_file_name(dbname, fnum))
+        raise
+    return outputs

@@ -60,6 +60,33 @@ def split_internal_key(ikey: bytes) -> tuple[bytes, int, int]:
     return ikey[:-8], seq, t
 
 
+def extract_user_key(ikey: bytes) -> bytes:
+    if len(ikey) < 8:
+        raise Corruption(f"internal key too short: {len(ikey)}")
+    return ikey[:-8]
+
+
+def extract_seqno(ikey: bytes) -> int:
+    return _U64.unpack_from(ikey, len(ikey) - 8)[0] >> 8
+
+
+def extract_value_type(ikey: bytes) -> int:
+    # The trailer is little-endian fixed64 of (seqno << 8 | type): the type
+    # is its first byte.
+    if len(ikey) < 8:
+        raise Corruption(f"internal key too short: {len(ikey)}")
+    return ikey[-8]
+
+
+# User-defined timestamps: a key's stored suffix is the bitwise-inverted
+# big-endian u64, so ascending byte order is descending timestamp.
+MAX_TIMESTAMP = (1 << 64) - 1
+
+
+def encode_ts(ts: int) -> bytes:
+    return (ts ^ MAX_TIMESTAMP).to_bytes(8, "big")
+
+
 class Comparator:
     """Bytewise user-key comparator; find_shortest_separator and
     find_short_successor shorten index-block keys."""

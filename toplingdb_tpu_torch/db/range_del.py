@@ -87,6 +87,16 @@ class RangeDelAggregator:
     def empty(self) -> bool:
         return not self._tombstones
 
+    def max_covering_seq(self, user_key: bytes, snapshot_seq: int) -> int:
+        """Max tombstone seqno <= snapshot covering user_key (0 = none)."""
+        best = 0
+        for t in self._tombstones:
+            if (t.seq <= snapshot_seq and t.seq > best
+                    and self._ucmp.compare(t.begin, user_key) <= 0
+                    and self._ucmp.compare(user_key, t.end) < 0):
+                best = t.seq
+        return best
+
     def fragments(self) -> list[RangeTombstone]:
         return fragment_tombstones(self._tombstones, self._ucmp)
 

@@ -6,6 +6,13 @@ does not cross by itself is a live options object: `table_options_from_plain`
 builds the port's TableOptions from plain values — the scalar fields of the
 reference's TableOptions plus `filter_policy_name`, the name the SST
 properties record for the filter policy (empty for none).
+
+Merge operators and compaction filters cross by name, through their
+registries, as a reference job's options travel to a remote worker:
+`utils.merge_operator.create_merge_operator(op.name())` and
+`utils.compaction_filter.create_compaction_filter(f.name())` build the
+port's counterpart of a reference object `op` or `f`; a custom filter
+registers on both sides (`register_compaction_filter`).
 """
 
 from __future__ import annotations

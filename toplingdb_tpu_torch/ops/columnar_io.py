@@ -53,6 +53,10 @@ class ColumnarKV:
         o = self.key_offs[i]
         return self.key_buf[o: o + self.key_lens[i]].tobytes()
 
+    def value(self, i: int) -> bytes:
+        o = self.val_offs[i]
+        return self.val_buf[o: o + self.val_lens[i]].tobytes()
+
     @staticmethod
     def concat(parts: list["ColumnarKV"]) -> "ColumnarKV":
         if len(parts) == 1:

@@ -26,6 +26,11 @@ each row (trailer unpack, big-endian user-key words), orders the rows by a
 full LSD sort, runs the same GC mask (`gc_rows`) and compacts the
 survivors; the order, zero-seq and complex flags come back whole.
 
+The per-entry route (ops/device_compaction.device_gc_entries) takes a
+job's entries as columns: `pad_columns`, `device_sort` (the same LSD sort,
+ties kept in original order) and `gc_mask`, which returns the sorted rows'
+keep / zero-seq / complex flags and their user-key group ids.
+
 Every reference u32 word is carried in int64 and masked to 32 bits after
 `~`, `<<` and `+`; the kernels take int32 tensors holding the bit patterns.
 All functions take an explicit device; nothing is global.
@@ -123,7 +128,8 @@ def _gc_mask(key_words, key_len, inv_hi, inv_lo, vtype, snap_hi, snap_lo,
     """GC mask over SORTED columns (the reference's _gc_mask_impl).
     key_words [p, w] / key_len / inv_hi / inv_lo / vtype int32; snap_* and
     tomb_* int32 u32 bit patterns (tomb_* None = no tombstones). Returns
-    (keep, zero_seq, host_resolve) bool tensors of padded length."""
+    (keep, zero_seq, host_resolve) bool tensors and the int64 group_id
+    (user-key group of each row), all of padded length."""
     n = key_words.shape[0]
     same_words = (key_words == torch.roll(key_words, 1, 0)).all(dim=1)
     same_len = key_len == torch.roll(key_len, 1)
@@ -156,7 +162,7 @@ def _gc_mask(key_words, key_len, inv_hi, inv_lo, vtype, snap_hi, snap_lo,
     else:
         zero_seq = torch.zeros_like(keep)
     keep = keep & ~host_resolve
-    return keep, zero_seq, host_resolve & ~is_pad
+    return keep, zero_seq, host_resolve & ~is_pad, group_id
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +284,7 @@ def _uniform_shard_core(kb, pkb, starts, min_his, min_los, tomb_hi, tomb_lo,
     if tomb_hi is not None:
         th = tomb_hi[perm]
         tl = tomb_lo[perm]
-    keep, zero_seq, host_resolve = _gc_mask(
+    keep, zero_seq, host_resolve, _ = _gc_mask(
         kw, kl, ih, il, vt, snap_hi, snap_lo, th, tl, bottommost)
     out = keep | host_resolve
     return {
@@ -371,7 +377,7 @@ def _sort_gc_compact_tail(key_words, key_len, inv_hi, inv_lo, vtype,
     if tomb_hi_orig is not None:
         th = tomb_hi_orig[perm]
         tl = tomb_lo_orig[perm]
-    keep, zero_seq, host_resolve = _gc_mask(
+    keep, zero_seq, host_resolve, _ = _gc_mask(
         key_words[perm], key_len[perm], inv_hi[perm], inv_lo[perm],
         vtype[perm], snap_hi, snap_lo, th, tl, bottommost)
     out = keep | host_resolve
@@ -472,6 +478,93 @@ def fused_encode_sort_gc(key_buf, key_offs, key_lens, max_key_bytes,
     return fused_encode_sort_gc_finish(fused_encode_sort_gc_start(
         key_buf, key_offs, key_lens, max_key_bytes, snapshots, bottommost,
         cover, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Per-entry route: sort and GC mask over padded columns
+# ---------------------------------------------------------------------------
+
+
+def _split_cover(cover: np.ndarray, p: int):
+    """uint64 per-row max-covering-tombstone seqnos → (hi, lo) u32 word
+    arrays padded to p rows."""
+    tc = np.zeros(p, dtype=np.uint64)
+    tc[: len(cover)] = cover
+    return ((tc >> np.uint64(32)).astype(np.uint32),
+            (tc & np.uint64(_M32)).astype(np.uint32))
+
+
+def pad_columns(col) -> dict:
+    """Pad a ColumnarEntries to the next power of two. Sentinel rows sort
+    last (int32 max keys) and carry vtype=-1."""
+    n = col.n
+    p = _next_pow2(max(1, n))
+    w = col.key_words.shape[1]
+    out = {
+        "n": n, "w": w,
+        "key_words": np.full((p, w), _INT32_MAX, dtype=np.int32),
+        "key_len": np.full(p, _INT32_MAX, dtype=np.int32),
+        "inv_hi": np.full(p, _INT32_MAX, dtype=np.int32),
+        "inv_lo": np.full(p, _INT32_MAX, dtype=np.int32),
+        "vtype": np.full(p, -1, dtype=np.int32),
+    }
+    out["key_words"][:n] = col.key_words
+    out["key_len"][:n] = col.key_len
+    out["inv_hi"][:n] = col.inv_hi
+    out["inv_lo"][:n] = col.inv_lo
+    out["vtype"][:n] = col.vtype
+    return out
+
+
+def device_sort(padded: dict, device="cuda"):
+    """Upload padded columns to `device` and sort them into internal-key
+    order there (the reference's one stable multi-operand lax.sort: ties
+    keep their original order). Returns a dict of SORTED on-device columns
+    (padding rows last) plus the permutation of original indices as
+    np.ndarray[:n]."""
+    device = torch.device(device)
+    kw = _to_device(padded["key_words"], device)
+    kl = _to_device(padded["key_len"], device)
+    ih = _to_device(padded["inv_hi"], device)
+    il = _to_device(padded["inv_lo"], device)
+    vt = _to_device(padded["vtype"], device)
+    perm = _sort_perm([kw[:, j] for j in range(padded["w"])] + [kl, ih, il])
+    sorted_cols = {
+        "n": padded["n"], "w": padded["w"], "key_words": kw[perm],
+        "key_len": kl[perm], "inv_hi": ih[perm], "inv_lo": il[perm],
+        "vtype": vt[perm],
+    }
+    return sorted_cols, perm[: padded["n"]].to(torch.int32).cpu().numpy()
+
+
+def gc_mask(sorted_cols: dict, snapshots: list[int],
+            tomb_cover: np.ndarray | None, bottommost: bool):
+    """Host wrapper over sorted on-device columns from device_sort().
+    tomb_cover: [n] uint64 max covering tombstone seq per sorted entry
+    (None = no tombstones). Returns (keep, zero_seq, host_resolve, group_id)
+    as numpy arrays trimmed to n."""
+    if len(snapshots) > MAX_SNAPSHOTS:
+        # Truncating would merge stripes and corrupt MVCC.
+        raise NotSupported(
+            f"device GC supports <= {MAX_SNAPSHOTS} live snapshots, "
+            f"got {len(snapshots)}")
+    device = sorted_cols["key_words"].device
+    p = sorted_cols["key_words"].shape[0]
+    n = sorted_cols["n"]
+    snap_hi, snap_lo = _split_snapshots(snapshots)
+    tomb_hi = tomb_lo = None
+    if tomb_cover is not None:
+        th, tl = _split_cover(tomb_cover, p)
+        tomb_hi, tomb_lo = _to_device(th, device), _to_device(tl, device)
+    keep, zero_seq, host_resolve, group_id = _gc_mask(
+        sorted_cols["key_words"], sorted_cols["key_len"],
+        sorted_cols["inv_hi"], sorted_cols["inv_lo"], sorted_cols["vtype"],
+        _to_device(snap_hi, device), _to_device(snap_lo, device),
+        tomb_hi, tomb_lo, bool(bottommost))
+    out = torch.stack([keep[:n], zero_seq[:n], host_resolve[:n]]).cpu()
+    keep, zero_seq, host_resolve = out.numpy()
+    return (keep, zero_seq, host_resolve,
+            group_id[:n].to(torch.int32).cpu().numpy())
 
 
 def prepare_uniform_chunk(key_buf: np.ndarray, n: int, key_len: int):

@@ -1,38 +1,52 @@
 """Device compaction data plane: host orchestration (the counterpart of
 toplingdb_tpu/ops/device_compaction.py).
 
-One compaction job, from input SSTs to output SSTs, by one of three routes:
-  - the pipelined plane (the default, `pipeline=True`; ops/pipeline.py):
-    per-file scan threads, a compute thread that uploads and runs one
-    key-range shard's device program while the next shard uploads, and the
-    native SST writer streaming each shard's survivors, all overlapped. Jobs
-    it does not cover (fewer than MIN_PIPELINE_ROWS rows, non-uniform key
-    lengths, `device_blocks=True`) fall through to the serial route with
-    clean stats;
-  - the serial route: a native whole-file scan of every input into columnar
-    buffers, the range tombstones of every input into a per-row max covering
-    tombstone seqno (stripe-clamped on the host; fragments are few), then
-    - uniform-length keys: the input runs cut into user-key-range shards of
-      about 1M rows, and per shard one device program
-      (ops/compaction_kernels.py) - merge of the presorted runs, MVCC GC,
-      survivor compaction, packed download - whose survivors stream into
-      the native SST writer; or, with `device_blocks=True` and a
-      single-shard job that `block_assembly.assembly_supported` accepts,
-      the device builds the finished data-block payloads and the host only
-      frames them;
-    - variable-length keys (dense buffers): one whole-job device program
-      (`fused_encode_sort_gc`: encode, full sort, MVCC GC, compaction) and
-      the survivor order written in one pass.
-Output files are byte-identical to the reference's for the same job.
+One compaction job, from input SSTs to output SSTs, by one of two routes:
 
-`run_device_compaction(..., device_name="cuda")` runs the device programs
-on the card and raises when there is none; `device_name="cpu"` runs the
-plain versions of the kernels. Jobs this slice of the port does not cover
-raise NotSupported naming what is missing; nothing is routed elsewhere.
+- the columnar route, for jobs without a compaction filter or active blob
+  GC. It tries the pipelined plane first (`pipeline=True`, the default;
+  ops/pipeline.py): per-file scan threads, a compute thread that uploads
+  and runs one key-range shard's device program while the next shard
+  uploads, and the native SST writer streaming each shard's survivors.
+  Jobs it does not cover (fewer than MIN_PIPELINE_ROWS rows, non-uniform
+  key lengths, MERGE / SINGLE_DELETION groups, `device_blocks=True`) fall
+  through to the serial route with clean stats: a native whole-file scan
+  into columnar buffers, the range tombstones into a per-row max covering
+  tombstone seqno, then
+    - uniform-length keys: the runs cut into user-key-range shards, one
+      device program per shard (ops/compaction_kernels.py: merge of the
+      presorted runs, MVCC GC, survivor compaction, packed download); with
+      `device_blocks=True` and a single-shard job that
+      `block_assembly.assembly_supported` accepts, the device builds the
+      finished data-block payloads;
+    - variable-length keys in a dense buffer: one whole-job device program
+      (`fused_encode_sort_gc`).
+  The device flags the user-key groups holding MERGE or SINGLE_DELETION
+  rows; every shard is then collected before the writer, and those groups
+  fold on the host through CompactionIterator._process_group
+  (`_resolve_complex_stream`), their results patched into the columns the
+  writer reads;
+- the per-entry route, for compaction filters and active blob GC, and for
+  the jobs the columnar route hands over (`_FallbackToEntries`: keys over
+  MAX_DEVICE_KEY_BYTES, a sparse key buffer, a value buffer past its int32
+  budget, a fold the columns cannot hold, a native writer that refuses an
+  entry): every entry read in Python (`collect_raw_entries`), sorted and
+  GC-masked on the same device (`device_gc_entries`: `device_sort`,
+  `gc_mask`, whose core is the `gc_rows` kernel), complex groups and the
+  filter applied on the host, blob GC rewriting the stream, and the
+  per-entry table builder (`build_outputs`).
+
+Output files, and blob files where GC writes one, are byte-identical to the
+reference's for the same job. `device_name="cuda"` runs the device
+programs on the card and raises when there is none; `device_name="cpu"`
+runs the plain versions of the kernels. A kernel or CUDA failure on either
+route reaches the caller; only NotSupported inside the columnar route
+sends a job to the per-entry route, as in the reference.
 """
 
 from __future__ import annotations
 
+import bisect
 import sys
 import time
 import types
@@ -41,27 +55,241 @@ import numpy as np
 import torch
 
 from toplingdb_tpu_torch import native
+from toplingdb_tpu_torch.compaction.compaction_iterator import (
+    CompactionIterator,
+)
 from toplingdb_tpu_torch.compaction.compaction_job import (
     CompactionStats,
+    build_outputs,
     surviving_tombstone_fragments,
 )
 from toplingdb_tpu_torch.db import dbformat
+from toplingdb_tpu_torch.db.blob import decode_blob_index
 from toplingdb_tpu_torch.db.range_del import (
     RangeDelAggregator,
     RangeTombstone,
 )
 from toplingdb_tpu_torch.ops import block_assembly as ba
 from toplingdb_tpu_torch.ops import compaction_kernels as ck
+from toplingdb_tpu_torch.ops.columnar import ColumnarEntries
 from toplingdb_tpu_torch.table.builder import unsupported_options
+from toplingdb_tpu_torch.utils.compaction_filter import Decision
 from toplingdb_tpu_torch.utils.status import NotSupported
 
-# Longest user key the device path accepts (one sort operand per 4 bytes).
+# Longest user key the device routes accept (one sort operand per 4 bytes).
 MAX_DEVICE_KEY_BYTES = 128
 
 # Below this row count a job runs as one shard.
 _SHARD_MIN_ROWS = 1 << 18
 # Target rows per shard (a power-of-two shard count, up to 16).
 _SHARD_ROWS = 1 << 20
+
+
+# ---------------------------------------------------------------------------
+# The per-entry route
+# ---------------------------------------------------------------------------
+
+
+def collect_raw_entries(compaction, table_cache, icmp, stats=None):
+    """Sequentially read every input file's entries (no host merge: the
+    device sort is the merge). Returns (entries list, RangeDelAggregator);
+    `stats` (CompactionStats) accumulates the scan's readahead counters."""
+    entries: list[tuple[bytes, bytes]] = []
+    rd = RangeDelAggregator(icmp.user_comparator)
+    for _, f in compaction.all_inputs():
+        r = table_cache.get_reader(f.number)
+        it = r.new_iterator()
+        it.seek_to_first()
+        entries.extend(it.entries())
+        if stats is not None:
+            h, m = it.prefetch_counts()
+            stats.prefetch_hits += h
+            stats.prefetch_misses += m
+        for b, e in r.range_del_entries():
+            rd.add(RangeTombstone.from_table_entry(b, e))
+    return entries, rd
+
+
+def _tombstone_cover(sorted_user_keys: list[bytes], rd: RangeDelAggregator,
+                     sorted_seqs, snapshots) -> np.ndarray | None:
+    """Per-sorted-entry max covering tombstone seqno (uint64), clamped to
+    each entry's snapshot stripe: a tombstone above the next snapshot must
+    not mask an in-stripe one. Interval mapping on the host (fragments are
+    few, entries many)."""
+    if rd.empty():
+        return None
+    n = len(sorted_user_keys)
+    cover = np.zeros(n, dtype=np.uint64)
+    seqs = np.asarray(sorted_seqs, dtype=np.uint64)
+    snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
+    if len(snaps):
+        idx = np.searchsorted(snaps, seqs, side="left")
+        upper = np.where(
+            idx < len(snaps), snaps[np.minimum(idx, len(snaps) - 1)],
+            np.uint64(dbformat.MAX_SEQUENCE_NUMBER),
+        )
+    else:
+        upper = np.full(n, dbformat.MAX_SEQUENCE_NUMBER, dtype=np.uint64)
+    for frag in rd.fragments():
+        lo = bisect.bisect_left(sorted_user_keys, frag.begin)
+        hi = bisect.bisect_left(sorted_user_keys, frag.end)
+        if lo < hi:
+            t = np.uint64(frag.seq)
+            sl = slice(lo, hi)
+            elig = (t > seqs[sl]) & (t <= upper[sl]) & (t > cover[sl])
+            cover[sl] = np.where(elig, t, cover[sl])
+    return cover
+
+
+def device_gc_entries(entries, icmp, snapshots, bottommost,
+                      merge_operator=None, compaction_filter=None,
+                      compaction_filter_level=0, rd=None,
+                      max_key_bytes=None, blob_resolver=None,
+                      device_name="cuda"):
+    """Run the device data plane over raw (unsorted) entries on
+    `device_name`; yields the surviving (internal_key, value) stream,
+    identical to CompactionIterator.entries() over the merged sorted input.
+    The sort and the GC mask run on the device; complex groups and the
+    compaction filter are applied on the host. Raises NotSupported for user
+    keys over MAX_DEVICE_KEY_BYTES, a non-bytewise comparator and more than
+    MAX_SNAPSHOTS snapshots."""
+    if not entries:
+        return
+    if max_key_bytes is None:
+        longest = max(len(k) for k, _ in entries) - 8
+        if longest > MAX_DEVICE_KEY_BYTES:
+            raise NotSupported(
+                f"user keys up to {longest}B exceed the device key budget "
+                f"({MAX_DEVICE_KEY_BYTES}B)")
+    if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
+        # The device sort realizes bytewise-ascending user-key order.
+        raise NotSupported(
+            f"device compaction requires the bytewise comparator, "
+            f"got {icmp.user_comparator.name()!r}")
+    device = resolve_device(device_name)
+    col = ColumnarEntries.from_entries(entries, max_key_bytes)
+    sorted_cols, perm = ck.device_sort(ck.pad_columns(col), device)
+    cover = None
+    if rd is not None:
+        sorted_uks = [col.user_key(i) for i in perm]
+        cover = _tombstone_cover(sorted_uks, rd, col.seq[perm], snapshots)
+    keep, zero_seq, host_resolve, group_id = ck.gc_mask(
+        sorted_cols, snapshots, cover, bottommost)
+    del sorted_cols
+
+    # Host-side finishing: complex groups through the reference state
+    # machine; simple survivors filtered / zeroed to match it exactly.
+    helper = CompactionIterator(
+        _EmptyIter(), icmp, snapshots, bottommost_level=bottommost,
+        merge_operator=merge_operator, compaction_filter=compaction_filter,
+        compaction_filter_level=compaction_filter_level, range_del_agg=rd,
+        blob_resolver=blob_resolver,
+    )
+    earliest = min(snapshots) if snapshots else dbformat.MAX_SEQUENCE_NUMBER
+    n = col.n
+    values = col.values
+    ikeys = col.ikeys
+    fast = compaction_filter is None  # emit the original key bytes
+    i = 0
+    while i < n:
+        if host_resolve[i]:
+            g = group_id[i]
+            j = i
+            group = []
+            while j < n and group_id[j] == g:
+                oi = perm[j]
+                group.append((int(col.seq[oi]), int(col.vtype[oi]),
+                              values[oi]))
+                j += 1
+            yield from helper._process_group(col.user_key(perm[i]), group)
+            i = j
+            continue
+        if keep[i]:
+            oi = perm[i]
+            if fast:
+                if zero_seq[i]:
+                    yield dbformat.make_internal_key(
+                        ikeys[oi][:-8], 0, int(col.vtype[oi])), values[oi]
+                else:
+                    yield ikeys[oi], values[oi]
+                i += 1
+                continue
+            seq, t = int(col.seq[oi]), int(col.vtype[oi])
+            val = values[oi]
+            uk = col.user_key(oi)
+            if t == dbformat.ValueType.VALUE and seq <= earliest:
+                d, newv = compaction_filter.filter(
+                    compaction_filter_level, uk, val)
+                if d == Decision.REMOVE:
+                    i += 1
+                    continue
+                if d == Decision.CHANGE_VALUE:
+                    val = newv if newv is not None else b""
+            if zero_seq[i]:
+                seq = 0
+            yield dbformat.make_internal_key(uk, seq, t), val
+        i += 1
+
+
+class _EmptyIter:
+    def valid(self):
+        return False
+
+
+class _FallbackToEntries(Exception):
+    """Raised inside the columnar route when the job needs the per-entry
+    route (the reference's routing; the per-entry route runs on the same
+    device)."""
+
+
+def _run_per_entry(env, dbname, icmp, compaction, table_cache,
+                   table_options, snapshots, merge_operator,
+                   compaction_filter, new_file_number, creation_time,
+                   device_name, blob_resolver, blob_gc, column_family):
+    """The per-entry route: read every entry, device_gc_entries, blob GC,
+    build_outputs. A failure deletes every output and the half-written blob
+    file before it propagates."""
+    t0 = time.time()
+    stats = CompactionStats(device=str(device_name))
+    stats.input_bytes = compaction.total_input_bytes()
+    stats.input_files = len(compaction.all_inputs())
+    entries, rd = collect_raw_entries(compaction, table_cache, icmp, stats)
+    stats.input_records = len(entries)
+    stats.input_scan_usec = int((time.time() - t0) * 1e6)
+    stream = device_gc_entries(
+        entries, icmp, snapshots, compaction.bottommost,
+        merge_operator=merge_operator, compaction_filter=compaction_filter,
+        compaction_filter_level=compaction.output_level,
+        rd=None if rd.empty() else rd, blob_resolver=blob_resolver,
+        device_name=device_name,
+    )
+    tombs = surviving_tombstone_fragments(
+        rd, snapshots, compaction.bottommost, icmp.user_comparator)
+    if blob_gc is not None and blob_gc.active:
+        stream = blob_gc.rewrite(stream)
+    t_wr = time.time()
+    try:
+        outputs = build_outputs(
+            env, dbname, icmp, compaction, stream, tombs, new_file_number,
+            table_options, stats,
+            creation_time if creation_time is not None else int(time.time()),
+            column_family=column_family,
+        )
+    except BaseException:
+        if blob_gc is not None:
+            blob_gc.abort()
+        raise
+    if blob_gc is not None:
+        blob_gc.finish()
+    # The stream's device work and host fold run inside the writer's loop.
+    stats.encode_write_usec = int((time.time() - t_wr) * 1e6)
+    stats.work_time_usec = int((time.time() - t0) * 1e6)
+    return outputs, stats
+
+
+# ---------------------------------------------------------------------------
+# The columnar route
+# ---------------------------------------------------------------------------
 
 
 def _kv_seq_vtype(kv):
@@ -281,16 +509,98 @@ def _ranges_lmap(ranges) -> np.ndarray:
     ])
 
 
-def _outputs_from_files(env, files, stats):
-    """Output FileMetaData list from write_tables_columnar tuples; empty
-    outputs are deleted."""
+def _kv_user_key(kv, r: int) -> bytes:
+    o = int(kv.key_offs[r])
+    return kv.key_buf[o: o + int(kv.key_lens[r]) - 8].tobytes()
+
+
+def _patch_kv_values(kv, rows: list[int], vals: list[bytes]) -> None:
+    """Append replacement values (folded merge results) to kv's value
+    buffer and repoint the rows at them; the columnar writer then emits
+    them as it emits any value."""
+    side = b"".join(vals)
+    base = len(kv.val_buf)
+    if base + len(side) > 2 ** 31 - 8:
+        raise _FallbackToEntries()  # int32 offset budget
+    kv.val_buf = np.concatenate([
+        kv.val_buf, np.frombuffer(side, dtype=np.uint8)
+    ])
+    if not kv.val_offs.flags.writeable:
+        kv.val_offs = kv.val_offs.copy()
+    if not kv.val_lens.flags.writeable:
+        kv.val_lens = kv.val_lens.copy()
+    off = base
+    for r, v in zip(rows, vals):
+        kv.val_offs[r] = off
+        kv.val_lens[r] = len(v)
+        off += len(v)
+
+
+def _resolve_complex_stream(kv, order, cx_flags, trailer_override, seqs,
+                            vtypes, helper):
+    """Fold the complex (MERGE / SINGLE_DELETION) user-key groups the
+    device flagged in the survivor stream through the reference state
+    machine (CompactionIterator._process_group, RocksDB's
+    MergeHelper::MergeUntil role) without leaving the columnar route: each
+    group's emitted entries overwrite the group's leading rows (trailer /
+    seq / vtype overrides, replacement values appended to kv's value
+    buffer); surplus rows drop out of the order. Returns the filtered
+    order; mutates trailer_override / seqs / vtypes and patches kv."""
+    keep_mask = np.ones(len(order), dtype=bool)
+    repl_rows: list[int] = []
+    repl_vals: list[bytes] = []
+    pos_list = np.flatnonzero(cx_flags)
+    i = 0
+    P = len(pos_list)
+    while i < P:
+        p0 = int(pos_list[i])
+        uk = _kv_user_key(kv, int(order[p0]))
+        j = i + 1
+        while (j < P and int(pos_list[j]) == int(pos_list[j - 1]) + 1
+               and _kv_user_key(kv, int(order[int(pos_list[j])])) == uk):
+            j += 1
+        rows = [int(order[int(pos_list[t])]) for t in range(i, j)]
+        group = [(int(seqs[r]), int(vtypes[r]), kv.value(r)) for r in rows]
+        emitted = list(helper._process_group(uk, group))
+        if len(emitted) > len(rows):
+            raise _FallbackToEntries()  # cannot happen; belt and braces
+        for t, (ik, v) in enumerate(emitted):
+            r = rows[t]
+            if ik[:-8] != uk:
+                raise _FallbackToEntries()
+            packed = int.from_bytes(ik[-8:], "little")
+            if packed >= 2 ** 63:
+                raise _FallbackToEntries()  # int64 trailer budget
+            trailer_override[r] = packed
+            seqs[r] = packed >> 8
+            vtypes[r] = packed & 0xFF
+            if v != kv.value(r):
+                repl_rows.append(r)
+                repl_vals.append(v)
+        for t in range(len(emitted), len(rows)):
+            keep_mask[int(pos_list[i + t])] = False
+        i = j
+    if repl_rows:
+        _patch_kv_values(kv, repl_rows, repl_vals)
+    return order[keep_mask]
+
+
+def _outputs_from_files(env, files, kv, vtypes, stats):
+    """Output FileMetaData list from write_tables_columnar tuples: empty
+    outputs deleted, blob refs decoded from the surviving BLOB_INDEX
+    rows."""
     from toplingdb_tpu_torch.db.version_edit import FileMetaData
 
     outputs = []
-    for fnum, path, props, smallest, largest, _sel in files:
+    for fnum, path, props, smallest, largest, sel in files:
         if props.num_entries == 0 and props.num_range_deletions == 0:
             env.delete_file(path)
             continue
+        blob_refs = set()
+        bi_mask = vtypes[sel] == dbformat.ValueType.BLOB_INDEX
+        if bi_mask.any():
+            for oi in sel[bi_mask]:
+                blob_refs.add(decode_blob_index(kv.value(oi))[0])
         meta = FileMetaData(
             number=fnum, file_size=env.get_file_size(path),
             smallest=smallest, largest=largest,
@@ -299,6 +609,7 @@ def _outputs_from_files(env, files, stats):
             num_entries=props.num_entries,
             num_deletions=props.num_deletions,
             num_range_deletions=props.num_range_deletions,
+            blob_refs=sorted(blob_refs),
         )
         outputs.append(meta)
         stats.output_bytes += meta.file_size
@@ -350,10 +661,15 @@ def resolve_device(device_name: str) -> torch.device:
 
 def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                     table_cache, table_options, snapshots,
-                                    new_file_number, creation_time, device,
+                                    merge_operator, new_file_number,
+                                    creation_time, device,
                                     column_family=(0, "default"),
-                                    device_blocks=False, num_shards=None,
-                                    pipeline=True, pipeline_shards=None):
+                                    blob_resolver=None, device_blocks=False,
+                                    num_shards=None, pipeline=True,
+                                    pipeline_shards=None):
+    """The columnar route. Raises _FallbackToEntries where the reference
+    hands the job to the per-entry route; partial outputs are gone by
+    then."""
     from toplingdb_tpu_torch.ops import pipeline as pl
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
 
@@ -370,7 +686,7 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
         pstats.input_bytes = stats.input_bytes
         pstats.input_files = stats.input_files
         try:
-            pfiles = pl.run_pipelined(
+            pfiles, pkv, pvt = pl.run_pipelined(
                 env, dbname, icmp, compaction, table_cache, table_options,
                 snapshots, new_file_number, creation_time, pstats,
                 MAX_DEVICE_KEY_BYTES, column_family, device=device,
@@ -379,116 +695,159 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
         except (pl.PipelineIneligible, NotSupported):
             pass  # the serial route decides (and raises what it must)
         else:
-            outputs = _outputs_from_files(env, pfiles, pstats)
+            outputs = _outputs_from_files(env, pfiles, pkv, pvt, pstats)
             pstats.work_time_usec = int((time.time() - t0) * 1e6)
             return outputs, pstats
-    kv, rd, shards, parts = _collect_raw_columnar(
-        compaction, table_cache, icmp, num_shards)
+    try:
+        kv, rd, shards, parts = _collect_raw_columnar(
+            compaction, table_cache, icmp, num_shards)
+    except NotSupported:
+        raise _FallbackToEntries()  # buffers over the int32 budget etc.
     stats.input_scan_usec = int((time.time() - t0) * 1e6)
     stats.input_records = kv.n
     if kv.n == 0 and rd.empty():
         stats.work_time_usec = int((time.time() - t0) * 1e6)
         return [], stats
     if kv.n and int(kv.key_lens.max()) - 8 > MAX_DEVICE_KEY_BYTES:
-        raise NotSupported(
-            f"user keys over {MAX_DEVICE_KEY_BYTES}B are not supported by "
-            "the device path")
+        raise _FallbackToEntries()  # the per-entry route refuses them too
     t_fin = time.time()
     col = _kv_seq_vtype(kv)
     _VT = dbformat.ValueType
-    if np.any((col.vtype == int(_VT.MERGE))
-              | (col.vtype == int(_VT.SINGLE_DELETION))):
-        raise NotSupported(
-            "MERGE / SINGLE_DELETION groups (the host resolve through "
-            "CompactionIterator) are not ported yet")
-    if np.any(col.vtype == int(_VT.BLOB_INDEX)):
-        raise NotSupported("blob values are not ported yet")
-    if len(snapshots) > ck.MAX_SNAPSHOTS:
-        raise NotSupported(
-            f"device GC supports <= {ck.MAX_SNAPSHOTS} live snapshots")
+    any_complex = bool(kv.n) and bool(np.any(
+        (col.vtype == int(_VT.MERGE))
+        | (col.vtype == int(_VT.SINGLE_DELETION))))
     tombs = surviving_tombstone_fragments(
         rd, snapshots, compaction.bottommost, icmp.user_comparator)
     stats.finish_usec += int((time.time() - t_fin) * 1e6)
     if creation_time is None:
         creation_time = int(time.time())
-    # Range tombstones ride the device programs as a per-row max covering
-    # seqno side input.
-    t_cov = time.time()
-    cover = None if rd.empty() else _cover_for_parts(parts, rd, snapshots)
-    stats.host_compute_usec += int((time.time() - t_cov) * 1e6)
+    streamed = False
+    order = zero_flags = cx_flags = None
+    has_complex = False
+    try:
+        # Range tombstones ride the device programs as a per-row max
+        # covering seqno side input.
+        t_cov = time.time()
+        cover = (None if rd.empty()
+                 else _cover_for_parts(parts, rd, snapshots))
+        stats.host_compute_usec += int((time.time() - t_cov) * 1e6)
+        if ba.assembly_supported(device_blocks, table_options, kv, shards,
+                                 any_complex, compaction.max_output_file_size,
+                                 col.vtype):
+            files = ba.run_block_assembly(
+                env, dbname, icmp, kv, shards[0], cover, snapshots,
+                compaction.bottommost, table_options, new_file_number,
+                creation_time, tombs, device, column_family, stats=stats)
+            outputs = _outputs_from_files(env, files, kv, col.vtype, stats)
+            stats.work_time_usec = int((time.time() - t0) * 1e6)
+            return outputs, stats
+        if kv.n and shards is not None:
+            t_up = time.time()
+            finish_shard = _dispatch_shards(
+                shards, cover, snapshots, compaction.bottommost, device)
+            stats.transfer_time_usec += int((time.time() - t_up) * 1e6)
+            if not any_complex:
+                # Stream each shard's survivors straight into the writer.
+                streamed = True
+            else:
+                # Complex groups must fold before the writer hoists its
+                # value-buffer pointers, so every shard is collected first;
+                # the shard programs still overlap each other.
+                orders, zfs, cxs = [], [], []
+                for s_i, (_chunks, ranges) in enumerate(shards):
+                    t_dn = time.time()
+                    o, z, cx, hc = finish_shard(s_i)
+                    stats.device_wait_usec += int(
+                        (time.time() - t_dn) * 1e6)
+                    orders.append(_ranges_lmap(ranges)[o])
+                    zfs.append(z)
+                    cxs.append(cx)
+                    has_complex = has_complex or hc
+                order = np.concatenate(orders)
+                zero_flags = np.concatenate(zfs)
+                cx_flags = np.concatenate(cxs)
+        elif kv.n:
+            # Variable-length keys (or shards the uniform path refused):
+            # one whole-job program over the raw key bytes; NotSupported
+            # for a sparse key buffer.
+            t_up = time.time()
+            pending = ck.fused_encode_sort_gc_start(
+                kv.key_buf, kv.key_offs, kv.key_lens,
+                max(4, int(kv.key_lens.max()) - 8), snapshots,
+                compaction.bottommost, cover, device=device)
+            t_dn = time.time()
+            stats.transfer_time_usec += int((t_dn - t_up) * 1e6)
+            order, zero_flags, cx_flags, has_complex = \
+                ck.fused_encode_sort_gc_finish(pending)
+            stats.device_wait_usec += int((time.time() - t_dn) * 1e6)
+        else:
+            order = np.empty(0, dtype=np.int32)  # tombstones only
+            zero_flags = cx_flags = np.empty(0, dtype=bool)
+    except NotSupported:
+        raise _FallbackToEntries()  # sparse buffers, > MAX_SNAPSHOTS etc.
 
-    if ba.assembly_supported(device_blocks, table_options, kv, shards,
-                             False, compaction.max_output_file_size,
-                             col.vtype):
-        files = ba.run_block_assembly(
-            env, dbname, icmp, kv, shards[0], cover, snapshots,
-            compaction.bottommost, table_options, new_file_number,
-            creation_time, tombs, device, column_family, stats=stats)
-        outputs = _outputs_from_files(env, files, stats)
-        stats.work_time_usec = int((time.time() - t0) * 1e6)
-        return outputs, stats
-
+    t_fin = time.time()
     trailer_override = np.full(kv.n, -1, dtype=np.int64)
     seqs = col.seq.copy()
-
-    def _shard_order_chunks(finish_shard):
-        # Each chunk's trailers/seqs land just before the writer consumes
-        # it (the writer reads both arrays per native call).
-        for s_i, (_chunks, ranges) in enumerate(shards):
-            t_dn = time.time()
-            o, z, _cx, hc = finish_shard(s_i)
-            stats.device_wait_usec += int((time.time() - t_dn) * 1e6)
-            if hc:
-                raise NotSupported("complex groups reached the device path")
-            order_s = _ranges_lmap(ranges)[o]
-            zero_s = order_s[z]
-            trailer_override[zero_s] = col.vtype[zero_s].astype(np.int64)
-            seqs[zero_s] = 0
-            yield order_s
-
-    if kv.n and shards is None:
-        # Variable-length keys (or shards the uniform path refused): one
-        # whole-job program over the raw key bytes; raises NotSupported
-        # when the key buffer is not densely packed.
-        t_up = time.time()
-        pending = ck.fused_encode_sort_gc_start(
-            kv.key_buf, kv.key_offs, kv.key_lens,
-            max(4, int(kv.key_lens.max()) - 8), snapshots,
-            compaction.bottommost, cover, device=device)
-        t_dn = time.time()
-        stats.transfer_time_usec += int((t_dn - t_up) * 1e6)
-        order, zero_flags, _cx, has_complex = ck.fused_encode_sort_gc_finish(
-            pending)
-        stats.device_wait_usec += int((time.time() - t_dn) * 1e6)
-        if has_complex:
-            raise NotSupported("complex groups reached the device path")
-        t_fin = time.time()
-        zero_orig = order[zero_flags]
+    vtypes = col.vtype
+    if not streamed:
+        # The packed trailer of seq 0 is the type byte. Complex rows' zero
+        # flags are provisional: _process_group decides them.
+        zmask = zero_flags if not has_complex else (zero_flags & ~cx_flags)
+        zero_orig = order[zmask]
         trailer_override[zero_orig] = col.vtype[zero_orig].astype(np.int64)
         seqs[zero_orig] = 0
+        if has_complex:
+            vtypes = vtypes.copy()
+            helper = CompactionIterator(
+                _EmptyIter(), icmp, snapshots,
+                bottommost_level=compaction.bottommost,
+                merge_operator=merge_operator,
+                range_del_agg=None if rd.empty() else rd,
+                blob_resolver=blob_resolver,
+            )
+            t_rs = time.time()
+            order = _resolve_complex_stream(
+                kv, order, cx_flags, trailer_override, seqs, vtypes, helper)
+            stats.resolve_usec = int((time.time() - t_rs) * 1e6)
         order_feed = order
-        stats.finish_usec += int((time.time() - t_fin) * 1e6)
-        if not len(order) and not tombs:
-            stats.work_time_usec = int((time.time() - t0) * 1e6)
-            return [], stats
-    elif kv.n:
-        t_up = time.time()
-        order_feed = _shard_order_chunks(_dispatch_shards(
-            shards, cover, snapshots, compaction.bottommost, device))
-        stats.transfer_time_usec += int((time.time() - t_up) * 1e6)
-    elif tombs:
-        order_feed = np.empty(0, dtype=np.int32)  # tombstones only
     else:
-        stats.work_time_usec = int((time.time() - t0) * 1e6)
-        return [], stats
+        def _shard_order_chunks():
+            # Each chunk's trailers / seqs land just before the writer
+            # consumes it (the writer reads both arrays per native call).
+            for s_i, (_chunks, ranges) in enumerate(shards):
+                t_dn = time.time()
+                o, z, _cx, hc = finish_shard(s_i)
+                stats.device_wait_usec += int((time.time() - t_dn) * 1e6)
+                if hc:
+                    raise _FallbackToEntries()
+                order_s = _ranges_lmap(ranges)[o]
+                zero_s = order_s[z]
+                trailer_override[zero_s] = col.vtype[zero_s].astype(
+                    np.int64)
+                seqs[zero_s] = 0
+                yield order_s
+
+        order_feed = _shard_order_chunks()
+    # finish = zero-seq patch and tombstones, minus the complex-group
+    # resolve reported apart.
+    stats.finish_usec += max(
+        0, int((time.time() - t_fin) * 1e6) - stats.resolve_usec)
+    outputs = []
     t_wr = time.time()
-    files = write_tables_columnar(
-        env, dbname, new_file_number, icmp, table_options, kv, order_feed,
-        trailer_override, col.vtype, seqs, creation_time,
-        max_output_file_size=compaction.max_output_file_size,
-        column_family=column_family, tombstones=tombs,
-    )
-    outputs = _outputs_from_files(env, files, stats)
+    if order is None or len(order) or tombs:
+        try:
+            files = write_tables_columnar(
+                env, dbname, new_file_number, icmp, table_options, kv,
+                order_feed, trailer_override, vtypes, seqs, creation_time,
+                max_output_file_size=compaction.max_output_file_size,
+                column_family=column_family, tombstones=tombs,
+            )
+        except NotSupported:
+            # The native builder refused an entry (partial outputs are
+            # already deleted): the per-entry route takes the job.
+            raise _FallbackToEntries()
+        outputs = _outputs_from_files(env, files, kv, vtypes, stats)
     stats.encode_write_usec = int((time.time() - t_wr) * 1e6)
     stats.work_time_usec = int((time.time() - t0) * 1e6)
     return outputs, stats
@@ -504,34 +863,34 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                           pipeline_shards=None):
     """Run one compaction job through the device data plane; the same
     signature as the reference's run_device_compaction and byte-identical
-    outputs (including output cutting). Returns (outputs, stats).
+    outputs (including output cutting, and the blob file blob GC writes).
+    Returns (outputs, stats).
 
     device_name: "cuda" (default; raises when no card is present) or "cpu"
-    (the plain versions of the kernels). pipeline: try the pipelined plane
-    first (the reference's default, TPULSM_PIPELINE=1); jobs it does not
-    cover take the serial route. pipeline_shards: the pipeline's key-range
-    shard count (the reference's TPULSM_PIPELINE_SHARDS; None sizes shards
-    to about 2^19 rows). device_blocks: take the on-device block-assembly
-    route where its gate admits the job (the reference's
-    TPULSM_DEVICE_BLOCKS=1, which also turns the pipeline off); other jobs
-    take the packed-download route. num_shards: the serial route's
-    key-range shard count for jobs of at least _SHARD_MIN_ROWS rows (the
-    reference's TPULSM_DEVICE_SHARDS; None sizes shards to about _SHARD_ROWS
-    rows). Raises NotSupported for what this slice of the port does not
-    cover: compaction filters, blob GC, non-bytewise comparators, table
-    options other than uncompressed block-based tables with a binary index,
-    MERGE / SINGLE_DELETION rows, blob values, variable-length keys in a
-    sparse key buffer and more than 1024 snapshots. No output is left
-    behind: the serial route raises before writing, and a pipelined attempt
-    that gives up deletes what it wrote."""
+    (the plain versions of the kernels). merge_operator: folds MERGE groups
+    (a job with MERGE rows and none raises Corruption, as the reference's).
+    compaction_filter: consulted for surviving VALUE rows at or below the
+    earliest snapshot; takes the per-entry route. blob_resolver: a
+    BLOB_INDEX payload → value callable (BlobSource.get), needed by a merge
+    over a blob base. blob_gc: a BlobGarbageCollector; when active the job
+    takes the per-entry route and its survivors are rewritten out of the
+    oldest blob files. pipeline: try the pipelined plane first (the
+    reference's default, TPULSM_PIPELINE=1). pipeline_shards: the
+    pipeline's key-range shard count (TPULSM_PIPELINE_SHARDS; None sizes
+    shards to about 2^19 rows). device_blocks: take the on-device
+    block-assembly route where its gate admits the job (the reference's
+    TPULSM_DEVICE_BLOCKS=1, which also turns the pipeline off). num_shards:
+    the serial route's key-range shard count for jobs of at least
+    _SHARD_MIN_ROWS rows (TPULSM_DEVICE_SHARDS; None sizes shards to about
+    _SHARD_ROWS rows).
+
+    Raises NotSupported for what the reference's device data plane also
+    refuses (user keys over MAX_DEVICE_KEY_BYTES, a non-bytewise
+    comparator, more than MAX_SNAPSHOTS snapshots) and for what this port
+    does not carry yet (table options other than uncompressed block-based
+    tables with a binary index and no per-entry protection). No output is
+    left behind on any failure."""
     device = resolve_device(device_name)
-    del merge_operator, blob_resolver  # used only by complex groups
-    if native.lib() is None:
-        raise NotSupported("the native host library could not be built")
-    if compaction_filter is not None:
-        raise NotSupported("compaction filters are not ported yet")
-    if blob_gc is not None and getattr(blob_gc, "active", True):
-        raise NotSupported("blob GC is not ported yet")
     if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
         raise NotSupported(
             "device compaction requires the bytewise comparator, got "
@@ -539,9 +898,19 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     bad = unsupported_options(table_options)
     if bad:
         raise NotSupported("table options not ported yet: " + ", ".join(bad))
-    return _run_device_compaction_columnar(
+    if (native.lib() is not None and compaction_filter is None
+            and (blob_gc is None or not blob_gc.active)):
+        try:
+            return _run_device_compaction_columnar(
+                env, dbname, icmp, compaction, table_cache, table_options,
+                snapshots, merge_operator, new_file_number, creation_time,
+                device, column_family, blob_resolver=blob_resolver,
+                device_blocks=device_blocks, num_shards=num_shards,
+                pipeline=pipeline, pipeline_shards=pipeline_shards,
+            )
+        except _FallbackToEntries:
+            pass
+    return _run_per_entry(
         env, dbname, icmp, compaction, table_cache, table_options,
-        snapshots, new_file_number, creation_time, device, column_family,
-        device_blocks=device_blocks, num_shards=num_shards,
-        pipeline=pipeline, pipeline_shards=pipeline_shards,
-    )
+        snapshots, merge_operator, compaction_filter, new_file_number,
+        creation_time, device_name, blob_resolver, blob_gc, column_family)

@@ -46,7 +46,7 @@ import torch
 
 from toplingdb_tpu_torch import native
 from toplingdb_tpu_torch.db import dbformat
-from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
+from toplingdb_tpu_torch.utils.status import Corruption
 
 
 class PipelineIneligible(Exception):
@@ -439,8 +439,6 @@ def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
         og = lmap[o]
         for lo, hi in ranges:
             seq_r, vt_r = _range_seq_vtype(kv, lo, hi)
-            if np.any(vt_r == int(dbformat.ValueType.BLOB_INDEX)):
-                raise NotSupported("blob values are not ported yet")
             shared.seqs[lo:hi] = seq_r
             shared.vtypes[lo:hi] = vt_r
         zg = og[z]
@@ -507,7 +505,8 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
     """Run one compaction through the three-stage pipeline on `device`
     (CUDA: the kernels; CPU: their plain versions), with `n_shards`
     key-range shards (None: _pipeline_shards). Returns the
-    write_tables_columnar file tuples.
+    write_tables_columnar file tuples, the scanned ColumnarKV and the
+    per-row value types (for the outputs' blob refs).
 
     Raises PipelineIneligible for shapes the serial path must take and
     propagates hard errors (Corruption, IO, kernel and CUDA failures) after
@@ -608,7 +607,7 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
         raise prog.err
     stats.input_scan_usec = int(
         ((prog.scan_end or time.time()) - t_scan0) * 1e6)
-    return out_files
+    return out_files, kv, shared.vtypes
 
 
 def _compute_guard(prog, outq, fn, *args):

@@ -2,10 +2,12 @@
 
 Opens a block-based SST: footer → metaindex → {filter, properties,
 range-del} blocks and the single-level index held in memory; data blocks are
-read per iterator step. The compaction scan goes through the native
+read per iterator step through the iterator's own readahead buffer
+(`table/prefetch.py`). The columnar compaction scan goes through the native
 whole-file decoder (`ops/columnar_io.py`), which uses the reader for the
-file handle, the index and the properties. Partitioned indexes and filters,
-block caches, prefetch buffers and compressed blocks come with later slices.
+file handle, the index and the properties; the per-entry route iterates.
+Partitioned indexes and filters, block caches and compressed blocks come
+with later slices.
 """
 
 from __future__ import annotations
@@ -100,12 +102,20 @@ class TableReader:
 
 
 class TableIterator:
-    """Two-level iterator: index → data block."""
+    """Two-level iterator: index → data block. Sequential block loads go
+    through a FilePrefetchBuffer (windowed readahead)."""
 
     def __init__(self, reader: TableReader):
+        from toplingdb_tpu_torch.table.prefetch import FilePrefetchBuffer
+
         self._r = reader
         self._idx = reader.new_index_iterator()
         self._data: BlockIter | None = None
+        self._pf = FilePrefetchBuffer(reader._f)
+
+    def prefetch_counts(self) -> tuple[int, int]:
+        """(hits, misses) of this iterator's readahead buffer."""
+        return self._pf.hits, self._pf.misses
 
     def _load_data_block(self) -> None:
         if not self._idx.valid():
@@ -113,7 +123,7 @@ class TableIterator:
             return
         handle = fmt.BlockHandle.decode_exact(self._idx.value())
         self._data = BlockIter(
-            fmt.read_block(self._r._f, handle, self._r.opts.verify_checksums))
+            fmt.read_block(self._pf, handle, self._r.opts.verify_checksums))
 
     def valid(self) -> bool:
         return self._data is not None and self._data.valid()
