@@ -62,10 +62,31 @@ Phases (any failure ends the run with a non-zero exit code):
      then with RemoveEmptyValueCompactionFilter and blob GC (age cutoff
      0.5, min_blob_size 512) on the per-entry route, one gc_rows launch at
      p = 2^20: "cuda" and "cpu" write identical SST and blob bytes, every
-     blob index resolves to its value, no filtered empty value survives.
+     blob index resolves to its value, no filtered empty value survives;
+ 11. compressed tables and the dcompact worker: the codecs the card's host
+     loads are printed, and the headline codec is the first of snappy,
+     zstd and zlib that is there (named in every line). (a) bench.py's
+     headline job (bench.py:1692-1716): phase 4's generator at N =
+     10,000,000 written in the headline codec with 4 KiB blocks, a job dir
+     written with the port's CompactionParams (device "cuda", no
+     snapshots, a sampled trace context) run through the worker's run_job
+     in-process: status ok, pipelined, gc_rows and the merge launched
+     (counts set to 0 just before, read just after), every output matches
+     the oracle, the serial route writes the same bytes; wall, raw MB/s,
+     phases, the worker's spans, file bytes and the compression ratio
+     beside phase 4's uncompressed job. (b) the worker's CLI (python -m
+     toplingdb_tpu_torch.compaction.worker --job-dir DIR) on a
+     1,000,000-entry job: exit code 0, the bytes of an in-process run_job
+     of a copy of the job dir, the heartbeat file written. (c) every codec
+     the host has (snappy, lz4, lz4hc, zstd, zstd with a 16 KiB
+     dictionary, zlib at 1,000,000 entries; bz2 and lzma at 200,000) on
+     "cuda" and on "cpu": identical SST bytes; then bench.py's
+     compaction_zstd_out shape (bench.py:1778-1785), uncompressed in and
+     zstd out, the same.
 
-The last three lines of standard output are the card's name and power
-limit, one JSON object {"kernels": [...]}, and the result line
+The script's total wall is printed before the last three lines of
+standard output: the card's name and power limit, one JSON object
+{"kernels": [...]}, and the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, the script exits non-zero and prints no
 result. Scratch SSTs go to `_smoke/` in the checkout and are removed.
@@ -97,6 +118,8 @@ TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
 COMPLEX_N = 2_000_000
 ENTRIES_N = 1_000_000
+CODEC_N = 1_000_000     # phase 11 (b) and (c)
+SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
 
 
 def log(msg: str) -> None:
@@ -668,6 +691,50 @@ def entry_timers():
         (TableBuilder, "finish"))
 
 
+class ShardPrograms:
+    """While open, times each uniform-key shard program
+    (`_uniform_shard_tail`, on the stream that runs it) with CUDA events;
+    `log` holds (padded p, start event, end event) per program."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.log = []
+
+    def __enter__(self):
+        from toplingdb_tpu_torch.ops import compaction_kernels as ck
+
+        self._ck, self._tail = ck, ck._uniform_shard_tail
+        torch, tail, log = self.torch, self._tail, self.log
+
+        def timed_tail(kb, pkb, *a, **k):
+            if pkb.device.type != "cuda":
+                log.append((pkb.shape[0], None, None))
+                return tail(kb, pkb, *a, **k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = tail(kb, pkb, *a, **k)
+            end.record()
+            log.append((pkb.shape[0], start, end))
+            return out
+
+        ck._uniform_shard_tail = timed_tail
+        return self
+
+    def __exit__(self, *exc):
+        self._ck._uniform_shard_tail = self._tail
+
+    def busy(self, wall):
+        """(summed program ms, a text with the device busy share) — the
+        ms is None where the programs ran on the CPU."""
+        if not self.log or self.log[0][1] is None:
+            return None, "device busy share not measured"
+        ms = sum(a.elapsed_time(b) for _, a, b in self.log)
+        return ms, (f"{ms:.3f} ms of shard programs by CUDA events, "
+                    f"{ms / 1e3 / wall:.4f} of the wall (device busy "
+                    "share, derived)")
+
+
 class Alloc:
     def __init__(self, base):
         self.n = base
@@ -715,7 +782,6 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     is timed with CUDA events. The serial route (pipeline=False) then runs
     the same inputs and must write the same bytes. Returns (launches summed
     over the pipelined jobs, jobs)."""
-    from toplingdb_tpu_torch.ops import compaction_kernels as ck
     from toplingdb_tpu_torch.ops import kernels
 
     t0 = time.time()
@@ -725,35 +791,15 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
     max_seq = n // 4 * 4
     runs = [("no snapshots", []),
             ("3 snapshots", [max_seq // 5, max_seq // 2, 4 * max_seq // 5])]
-    tail = ck._uniform_shard_tail
-    shard_log = []  # (padded p, start event, end event) per shard program
-
-    def timed_tail(kb, pkb, *a, **k):
-        if pkb.device.type != "cuda":
-            shard_log.append((pkb.shape[0], None, None))
-            return tail(kb, pkb, *a, **k)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = tail(kb, pkb, *a, **k)
-        end.record()
-        shard_log.append((pkb.shape[0], start, end))
-        return out
-
     launches = {"gc_rows": 0, "merge_runs": 0}
     jobs = []
     for label, snaps in runs:
-        shard_log.clear()
         kernels.gc_rows.launches = 0
         kernels.merge_runs_perm.launches = 0
-        ck._uniform_shard_tail = timed_tail
-        try:
-            with plane_timers() as timers:
-                outputs, stats, wall = compact(env, dbdir, icmp, topts, metas,
-                                               snaps, device_name,
-                                               Alloc(10_000))
-        finally:
-            ck._uniform_shard_tail = tail
+        with ShardPrograms(torch) as programs, plane_timers() as timers:
+            outputs, stats, wall = compact(env, dbdir, icmp, topts, metas,
+                                           snaps, device_name, Alloc(10_000))
+        shard_log = programs.log
         gc_n = kernels.gc_rows.launches
         mr_n = kernels.merge_runs_perm.launches
         launches["gc_rows"] += gc_n
@@ -763,12 +809,7 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
         shard_ps = sorted({p for p, _, _ in shard_log})
         if device_name != "cpu":
             assert gc_n > 0 and mr_n > 0, "a kernel of the path never launched"
-            prog_ms = sum(a.elapsed_time(b) for _, a, b in shard_log)
-            busy = (f"{prog_ms:.3f} ms of shard programs by CUDA events, "
-                    f"{prog_ms / 1e3 / wall:.4f} of the wall (device busy "
-                    "share, derived)")
-        else:
-            prog_ms, busy = None, "device busy share not measured"
+        prog_ms, busy = programs.busy(wall)
         log(f"main path job ({label}, pipelined): wall {wall:.3f}s, "
             f"{mbps:.2f} raw MB/s, {stats.output_records} entries in "
             f"{len(outputs)} SSTs, {len(shard_log)} shards padded to p="
@@ -798,7 +839,9 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
                          serial_wall_s=swall, serial_raw_MBps=smbps,
                          phases=stats.phase_dict(), shards=len(shard_log),
                          shard_p=shard_ps, program_ms=prog_ms,
-                         gc_rows=gc_n, merge_runs=mr_n))
+                         gc_rows=gc_n, merge_runs=mr_n,
+                         in_bytes=sum(m.file_size for m in metas),
+                         out_bytes=sum(m.file_size for m in outputs)))
         remove_ssts(dbdir, outputs)
         remove_ssts(dbdir, serial)
     remove_ssts(dbdir, metas)
@@ -1586,6 +1629,210 @@ def entries_path(torch, env, dbdir, icmp, topts, n, card,
                  gc_rows=launches, rewritten=gc.rewritten)]
 
 
+# ---------------------------------------------------------------------------
+# Compressed tables and the dcompact worker
+# ---------------------------------------------------------------------------
+
+
+def write_job_dir(job, inputs, compression, device, trace=None):
+    """A dcompact job dir (params.json, an empty out/) written with the
+    port's CompactionParams: one L0 -> L2 bottommost job, no snapshots,
+    4 KiB blocks, one output file per job (bench.py's setting)."""
+    from toplingdb_tpu_torch.compaction.executor import CompactionParams
+
+    os.makedirs(os.path.join(job, "out"))
+    with open(os.path.join(job, "params.json"), "w") as f:
+        f.write(CompactionParams(
+            job_id=11, attempt=1, dbname=os.path.dirname(inputs[0]),
+            output_dir=os.path.join(job, "out"), input_files=inputs,
+            output_level=2, bottommost=True, max_output_file_size=1 << 62,
+            snapshots=[], comparator="tpulsm.BytewiseComparator",
+            merge_operator=None, compaction_filter=None,
+            compression=compression, block_size=4096, creation_time=1,
+            device=device, lease_sec=30.0, trace=trace).to_json())
+
+
+def job_outputs(job):
+    """(results dict, FileMetaData list, output bytes list) of a run job."""
+    from toplingdb_tpu_torch.compaction.executor import decode_file_meta
+
+    with open(os.path.join(job, "results.json")) as f:
+        res = json.load(f)
+    metas = [decode_file_meta(d, int(d["path"][:6]))
+             for d in res["output_files"]]
+    return res, metas, sst_bytes(os.path.join(job, "out"), metas)
+
+
+def compressed_path(torch, env, dbdir, icmp, n, n_each, n_slow, main_jobs,
+                    device_name="cuda"):
+    """Phase 11: (a) the headline job at n entries in the headline codec
+    through the worker's run_job, (b) the worker's CLI at n_each entries,
+    (c) every available codec at n_each entries (bz2 and lzma at n_slow)
+    on the card and on the CPU, then uncompressed in and zstd out.
+    `main_jobs`: phase 4's jobs (its uncompressed numbers, same N)."""
+    from toplingdb_tpu_torch.compaction import worker
+    from toplingdb_tpu_torch.compaction.compaction_job import CompactionStats
+    from toplingdb_tpu_torch.compaction.resilience import HEARTBEAT_FILE
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.table import format as fmt
+    from toplingdb_tpu_torch.table.builder import (
+        CompressionOptions,
+        TableOptions,
+    )
+    from toplingdb_tpu_torch.utils import codecs
+
+    # The job dir's device name: the card, or (a CPU rehearsal) the same
+    # data plane through the kernels' plain versions.
+    job_device = "cuda" if device_name == "cuda" else "cpu-jax"
+    have = {c: codecs.available(c) for c in ("snappy", "lz4", "zstd")}
+    ctype = {"snappy": fmt.SNAPPY_COMPRESSION, "zstd": fmt.ZSTD_COMPRESSION,
+             "zlib": fmt.ZLIB_COMPRESSION}
+    head = next(c for c in ("snappy", "zstd", "zlib")
+                if c == "zlib" or have[c])
+    log(f"codecs on this host: {json.dumps(have)} (zlib, bz2, lzma: "
+        f"stdlib); headline codec: {head}")
+
+    # (a) the headline job through the worker's run_job.
+    topts = TableOptions(block_size=4096, compression=ctype[head])
+    t0 = time.time()
+    metas, rows, _ = write_runs(env, dbdir, icmp, topts, n, Alloc(9))
+    inputs = [os.path.join(dbdir, f"{m.number:06d}.sst") for m in metas]
+    in_bytes = sum(m.file_size for m in metas)
+    log(f"[{head}] headline inputs: {n} entries, {len(metas)} SSTs, "
+        f"{in_bytes} bytes ({time.time() - t0:.1f}s)")
+    job = os.path.join(dbdir, "job-headline")
+    write_job_dir(job, inputs, ctype[head], job_device,
+                  trace={"trace_id": "chipsmoke11", "span_id": 1,
+                         "sampled": 1})
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    with ShardPrograms(torch) as programs, plane_timers() as timers:
+        t0 = time.time()
+        rc = worker.run_job(job)
+        wall = time.time() - t0
+    gc_n = kernels.gc_rows.launches
+    mr_n = kernels.merge_runs_perm.launches
+    res, outs, out_bytes = job_outputs(job)
+    assert rc == 0 and res["status"] == "ok", res["status"]
+    assert res["stats"]["pipelined"], "the headline job did not pipeline"
+    if device_name != "cpu":
+        assert gc_n > 0 and mr_n > 0, "a kernel of the path never launched"
+    stats = CompactionStats(**res["stats"])
+    mbps = n * RAW_PER_ENTRY / 1e6 / wall
+    out_size = sum(len(b) for b in out_bytes)
+    spans = {}  # name -> [count, seconds]
+    for sp in res["spans"]:
+        c = spans.setdefault(sp["name"], [0, 0.0])
+        c[0] += 1
+        c[1] = round(c[1] + sp["dur_us"] / 1e6, 3)
+    _, busy = programs.busy(wall)
+    log(f"[{head}] headline job, worker run_job on {job_device!r}: wall "
+        f"{wall:.3f}s, {mbps:.2f} raw MB/s, {stats.output_records} entries "
+        f"in {len(outs)} SSTs, launches gc_rows={gc_n} merge_runs={mr_n}, "
+        f"{len(programs.log)} shard programs, {busy}, "
+        f"prefetch_hits={stats.prefetch_hits} "
+        f"prefetch_misses={stats.prefetch_misses}, phases "
+        f"{json.dumps(stats.phase_dict())}, worker spans [count, seconds] "
+        f"{json.dumps(spans)}; host seconds by thread/function "
+        f"{timers.text()}")
+    t1 = time.time()
+    n_ok = check_against_oracle(env, os.path.join(job, "out"), icmp, outs,
+                                rows, [])
+    log(f"[{head}] headline job: {n_ok} entries match the oracle "
+        f"({time.time() - t1:.1f}s)")
+    serial, sstats, swall = compact(env, dbdir, icmp, topts, metas, [],
+                                    device_name, Alloc(20_000),
+                                    pipeline=False)
+    assert not sstats.pipelined
+    assert sst_bytes(dbdir, serial) == out_bytes, \
+        "the serial route writes other bytes than the worker's job"
+    remove_ssts(dbdir, serial)
+    plain = next(j for j in main_jobs if j["label"] == "no snapshots")
+    log(f"[{head}] headline job: input files {in_bytes} B, output files "
+        f"{out_size} B, raw {n * RAW_PER_ENTRY} B (ratio raw/output "
+        f"{n * RAW_PER_ENTRY / out_size:.3f}); serial route {swall:.3f}s, "
+        f"same bytes; phase 4's uncompressed job at the same N: wall "
+        f"{plain['wall_s']:.3f}s, {plain['raw_MBps']:.2f} raw MB/s, input "
+        f"files {plain['in_bytes']} B, output files {plain['out_bytes']} B")
+    shutil.rmtree(job)
+    remove_ssts(dbdir, metas)
+
+    # (b) the CLI in a subprocess, against an in-process twin.
+    metas, _, _ = write_runs(env, dbdir, icmp, topts, n_each, Alloc(9))
+    inputs = [os.path.join(dbdir, f"{m.number:06d}.sst") for m in metas]
+    job = os.path.join(dbdir, "job-cli")
+    twin = os.path.join(dbdir, "job-twin")
+    write_job_dir(job, inputs, ctype[head], job_device)
+    write_job_dir(twin, inputs, ctype[head], job_device)
+    env_vars = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "toplingdb_tpu_torch.compaction.worker",
+         "--job-dir", job], cwd=REPO, env=env_vars, capture_output=True,
+        text=True, timeout=600)
+    cli_wall = time.time() - t0
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert worker.run_job(twin) == 0
+    cres, couts, cbytes = job_outputs(job)
+    tres, _, tbytes = job_outputs(twin)
+    assert cres["status"] == tres["status"] == "ok"
+    assert cres["output_files"] == tres["output_files"] and cbytes == tbytes
+    assert os.path.exists(os.path.join(job, HEARTBEAT_FILE))
+    log(f"[{head}] worker CLI, {n_each} entries: exit 0 in {cli_wall:.3f}s "
+        f"(process start included), the bytes of an in-process run_job, "
+        f"heartbeat written")
+    shutil.rmtree(job)
+    shutil.rmtree(twin)
+    remove_ssts(dbdir, metas)
+
+    # (c) every codec on the card and on the CPU.
+    cases = [("snappy", fmt.SNAPPY_COMPRESSION, None, have["snappy"]),
+             ("lz4", fmt.LZ4_COMPRESSION, None, have["lz4"]),
+             ("lz4hc", fmt.LZ4HC_COMPRESSION, None, have["lz4"]),
+             ("zstd", fmt.ZSTD_COMPRESSION, None, have["zstd"]),
+             ("zstd-dict", fmt.ZSTD_COMPRESSION,
+              CompressionOptions(max_dict_bytes=16384), have["zstd"]),
+             ("zlib", fmt.ZLIB_COMPRESSION, None, True),
+             ("bz2", fmt.BZIP2_COMPRESSION, None, True),
+             ("lzma", fmt.LZMA_COMPRESSION, None, True),
+             ("none in, zstd out", fmt.ZSTD_COMPRESSION, None,
+              have["zstd"])]
+    for name, c, copts, ok in cases:
+        if not ok:
+            log(f"[{name}] skipped: its library is not on this host")
+            continue
+        cn = n_slow if name in ("bz2", "lzma") else n_each
+        out_opts = TableOptions(block_size=4096, compression=c)
+        if copts is not None:
+            out_opts.compression_opts = copts
+        in_opts = TableOptions(block_size=4096) \
+            if name.startswith("none") else out_opts
+        metas, rows, _ = write_runs(env, dbdir, icmp, in_opts, cn, Alloc(9))
+        kernels.gc_rows.launches = 0
+        kernels.merge_runs_perm.launches = 0
+        o, st, w = compact(env, dbdir, icmp, out_opts, metas, [],
+                           device_name, Alloc(30_000))
+        c_gc, c_mr = (kernels.gc_rows.launches,
+                      kernels.merge_runs_perm.launches)
+        if device_name != "cpu":
+            assert c_gc > 0 and c_mr > 0, \
+                f"[{name}] a kernel of the path never launched"
+        co, _, cw = compact(env, dbdir, icmp, out_opts, metas, [], "cpu",
+                            Alloc(40_000))
+        got = sst_bytes(dbdir, o)
+        assert got == sst_bytes(dbdir, co), \
+            f"[{name}] cuda and cpu write different bytes"
+        check_against_oracle(env, dbdir, icmp, o, rows, [])
+        size = sum(len(b) for b in got)
+        log(f"[{name}] {cn} entries: {device_name} {w:.3f}s (pipelined="
+            f"{st.pipelined}, launches gc_rows={c_gc} merge_runs={c_mr}), "
+            f"cpu {cw:.3f}s, identical bytes, oracle matched, input files "
+            f"{sum(m.file_size for m in metas)} B, output files {size} B")
+        remove_ssts(dbdir, o)
+        remove_ssts(dbdir, co)
+        remove_ssts(dbdir, metas)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1596,6 +1843,7 @@ def card_line() -> str:
 def main() -> int:
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1640,6 +1888,8 @@ def main() -> int:
         device_vs_plain(env, dbdir, icmp, topts, PLAIN_N)
         complex_path(torch, env, dbdir, icmp, topts, COMPLEX_N, smi)
         entries_path(torch, env, dbdir, icmp, topts, ENTRIES_N, smi)
+        compressed_path(torch, env, dbdir, icmp, MAIN_N, CODEC_N,
+                        SLOW_CODEC_N, _jobs)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -1651,6 +1901,7 @@ def main() -> int:
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"chip_smoke total wall: {time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
                                 for r in results.values()]}))

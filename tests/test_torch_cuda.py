@@ -21,7 +21,12 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   GC write the same SST and blob bytes on "cuda" as on "cpu"; the
   per-entry route's GC mask at 1 and 3 rows equals the plain version's;
   a CUDA error inside the per-entry route reaches the caller and leaves no
-  file behind.
+  file behind;
+- compressed jobs (snappy where libsnappy is there, and zstd, through the
+  pipeline; zstd with a dictionary through the serial route) write the
+  same SST bytes on "cuda" as on "cpu", and the dcompact worker with
+  device "cuda" writes the bytes it writes with "cpu-jax"; without a card
+  (or with it hidden) a "cuda" worker job fails with no output.
 """
 
 import os
@@ -372,9 +377,10 @@ def test_kernels_at_the_pipeline_shard_shape(dev):
             assert torch.equal(g, w), tombs
 
 
-def _job(dev_name, env, dbdir, icmp, topts, metas, base, **kw):
+def _job(dev_name, env, dbdir, icmp, topts, metas, base, max_out=1 << 16,
+         **kw):
     c = Compaction(level=0, output_level=2, inputs=list(metas),
-                   bottommost=True, max_output_file_size=1 << 16)
+                   bottommost=True, max_output_file_size=max_out)
     alloc = iter(range(base, base + 100))
     outs, stats = dc.run_device_compaction(
         env, dbdir, icmp, c, TableCache(env, dbdir, icmp, topts), topts,
@@ -649,3 +655,103 @@ def test_cuda_error_in_the_per_entry_route_reaches_the_caller(
     with pytest.raises(torch.OutOfMemoryError):
         _gc_job("cuda", env, dbdir, icmp, topts, metas)
     assert set(os.listdir(dbdir)) == before
+
+
+def _compressed_runs(env, dbdir, icmp, topts, seed, n_runs=4, n=4096):
+    rng = np.random.default_rng(seed)
+    return [_write_run(env, dbdir, icmp, topts, 10 + i, rng, n,
+                       1 + i * n) for i in range(n_runs)]
+
+
+@pytest.mark.parametrize("codec", ["snappy", "zstd", "zstd-dict"])
+def test_compressed_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch,
+                                             codec):
+    """Snappy and zstd inputs and outputs through the pipelined plane (the
+    native scan inflates inline, the writer compresses natively); zstd
+    with a dictionary through the serial route (the pipeline gives up on
+    dictionary inputs; Python inflate and per-block writer). The kernels
+    launch and the bytes equal the CPU route's."""
+    from toplingdb_tpu_torch.table.builder import CompressionOptions
+    from toplingdb_tpu_torch.utils import codecs
+
+    if not codecs.available(codec.split("-")[0]):
+        pytest.skip(f"lib{codec.split('-')[0]} is not on this host")
+    monkeypatch.setattr(pl, "MIN_PIPELINE_ROWS", 256)
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    topts = {"snappy": TableOptions(compression=1),
+             "zstd": TableOptions(compression=7),
+             "zstd-dict": TableOptions(
+                 compression=7, compression_opts=CompressionOptions(
+                     max_dict_bytes=4096, zstd_max_train_bytes=1 << 15))
+             }[codec]
+    dbdir = str(tmp_path)
+    metas = _compressed_runs(env, dbdir, icmp, topts, 21)
+    counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches]
+    got, stats = _job("cuda", env, dbdir, icmp, topts, metas, 100,
+                      max_out=1 << 14, pipeline_shards=4)
+    assert stats.pipelined == (codec != "zstd-dict")
+    assert kernels.gc_rows.launches > counts[0]
+    assert kernels.merge_runs_perm.launches > counts[1]
+    want, _ = _job("cpu", env, dbdir, icmp, topts, metas, 200,
+                   max_out=1 << 14, pipeline_shards=4)
+    assert len(got) > 1 and got == want
+
+
+def _port_job_dir(root, inputs, device, compression=7):
+    import json
+
+    from toplingdb_tpu_torch.compaction.executor import CompactionParams
+
+    job = os.path.join(root, f"job-{device}")
+    os.makedirs(os.path.join(job, "out"))
+    with open(os.path.join(job, "params.json"), "w") as f:
+        f.write(CompactionParams(
+            job_id=1, attempt=1, dbname=root,
+            output_dir=os.path.join(job, "out"), input_files=inputs,
+            output_level=2, bottommost=True, max_output_file_size=1 << 14,
+            snapshots=[5000], comparator="tpulsm.BytewiseComparator",
+            merge_operator=None, compaction_filter=None,
+            compression=compression, block_size=4096, creation_time=1,
+            device=device, lease_sec=0.0).to_json())
+    return job, lambda: json.load(open(os.path.join(job, "results.json")))
+
+
+def test_worker_cuda_writes_the_cpu_jax_bytes(dev, tmp_path):
+    """A zstd job (libzstd is on the card's host) through the worker."""
+    from toplingdb_tpu_torch.compaction import worker
+
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    topts = TableOptions(compression=7)
+    dbdir = str(tmp_path)
+    metas = _compressed_runs(env, dbdir, icmp, topts, 22)
+    inputs = [f"{dbdir}/{m.number:06d}.sst" for m in metas]
+    out = {}
+    for device in ("cuda", "cpu-jax"):
+        before = kernels.gc_rows.launches
+        job, results = _port_job_dir(dbdir, inputs, device)
+        assert worker.run_job(job) == 0
+        res = results()
+        assert res["status"] == "ok"
+        if device == "cuda":
+            assert kernels.gc_rows.launches > before
+        out[device] = (res["output_files"], [
+            open(os.path.join(job, "out", f["path"]), "rb").read()
+            for f in res["output_files"]])
+    assert len(out["cuda"][1]) > 1 and out["cuda"] == out["cpu-jax"]
+
+
+def test_cuda_worker_job_without_a_card_fails(tmp_path, monkeypatch):
+    """No fallback hides the device: without a card (hidden here when one
+    is present) a "cuda" job fails with rc 1 and writes nothing."""
+    from toplingdb_tpu_torch.compaction import worker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    topts = TableOptions(compression=7)
+    dbdir = str(tmp_path)
+    metas = _compressed_runs(env, dbdir, icmp, topts, 23, n_runs=2, n=512)
+    inputs = [f"{dbdir}/{m.number:06d}.sst" for m in metas]
+    job, results = _port_job_dir(dbdir, inputs, "cuda")
+    assert worker.main(["--job-dir", job]) == 1
+    assert "no CUDA device" in results()["status"]
+    assert os.listdir(os.path.join(job, "out")) == []

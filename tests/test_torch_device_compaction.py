@@ -40,11 +40,13 @@ BLOCK = 512
 
 
 def plain_options(o) -> dict:
-    """The reference options as plain values (scalars + filter name)."""
+    """The reference options as plain values (scalars, the filter name and
+    the compression options)."""
     d = {f.name: getattr(o, f.name) for f in dataclasses.fields(o)
          if isinstance(getattr(o, f.name), (bool, int, float, str))}
     d["filter_policy_name"] = o.filter_policy.name() if o.filter_policy \
         else ""
+    d["compression_opts"] = dataclasses.asdict(o.compression_opts)
     return d
 
 
@@ -113,12 +115,13 @@ def run_ref(dbdir, metas, snaps, bottommost, max_out):
 
 
 def run_port(dbdir, metas, snaps, bottommost, max_out, device="cpu",
-             num_shards=None, **kwargs):
+             num_shards=None, compression=0, **kwargs):
     inputs = [FileMetaData(**{k: v for k, v in dataclasses.asdict(m).items()})
               for m in metas]
     c = Compaction(level=0, output_level=2, inputs=inputs,
                    bottommost=bottommost, max_output_file_size=max_out)
-    topts = table_options_from_plain(plain_options(RefTO(block_size=BLOCK)))
+    topts = table_options_from_plain(plain_options(
+        RefTO(block_size=BLOCK, compression=compression)))
     tc = TableCache(PosixEnv(), dbdir, ICMP, topts)
     outs, stats = dc.run_device_compaction(
         PosixEnv(), dbdir, ICMP, c, tc, topts, snaps,
@@ -263,10 +266,10 @@ def _long_key_inputs(dbdir):
     "non_bytewise_comparator", "long_keys_per_entry",
     "over_1024_snapshots"])
 def test_unsupported_jobs_raise_without_output(tmp_path, kind):
-    """MERGE and SINGLE_DELETION rows, once refused, now write the
-    reference's bytes on the columnar route. What the port still refuses
-    (compressed tables, a non-bytewise comparator, user keys over 128
-    bytes, which reach the per-entry route and are refused there as in the
+    """MERGE and SINGLE_DELETION rows and compressed tables, once refused,
+    now write the reference's bytes on the columnar route. What the port
+    still refuses (a non-bytewise comparator, user keys over 128 bytes,
+    which reach the per-entry route and are refused there as in the
     reference, and more than 1024 snapshots, refused the same way) raises
     NotSupported and leaves no file behind."""
     from toplingdb_tpu.utils.merge_operator import StringAppendOperator
@@ -286,16 +289,19 @@ def test_unsupported_jobs_raise_without_output(tmp_path, kind):
                           if kind == "single_deletion_rows"
                           else ValueType.MERGE))
     ref_op = StringAppendOperator()
-    if kind in ("single_deletion_rows", "merge_rows"):
+    if kind in ("single_deletion_rows", "merge_rows", "compressed_options"):
         c = RefCompaction(level=0, output_level=2, inputs=list(metas),
                           bottommost=True)
-        topts = RefTO(block_size=BLOCK)
+        # Snappy output for the compressed case (compression type 1).
+        ctype = 1 if kind == "compressed_options" else 0
+        topts = RefTO(block_size=BLOCK, compression=ctype)
         tc = RefTableCache(default_env(), dbdir, REF_ICMP, topts)
         ref_outs, _ = ref_dc.run_device_compaction(
             default_env(), dbdir, REF_ICMP, c, tc, topts, [],
             merge_operator=ref_op, new_file_number=allocator(100),
             creation_time=7, device_name="cpu")
         port_outs = run_port(dbdir, metas, [], True, 1 << 30,
+                             compression=ctype,
                              merge_operator=create_merge_operator(
                                  ref_op.name()))
         assert ref_outs and len(ref_outs) == len(port_outs)
@@ -309,9 +315,7 @@ def test_unsupported_jobs_raise_without_output(tmp_path, kind):
     icmp = ICMP
     topts = table_options_from_plain(plain_options(RefTO(block_size=BLOCK)))
     tc = TableCache(PosixEnv(), dbdir, ICMP, topts)
-    if kind == "compressed_options":
-        topts = dataclasses.replace(topts, compression=1)
-    elif kind == "non_bytewise_comparator":
+    if kind == "non_bytewise_comparator":
         icmp = InternalKeyComparator(_ReverseComparator())
     snaps = list(range(1, 1026)) if kind == "over_1024_snapshots" else []
     if kind in ("long_keys_per_entry", "over_1024_snapshots"):
@@ -329,7 +333,6 @@ def test_unsupported_jobs_raise_without_output(tmp_path, kind):
     with pytest.raises(NotSupported, match={
             "long_keys_per_entry": "device key budget",
             "over_1024_snapshots": "1024 live snapshots",
-            "compressed_options": "compression",
             "non_bytewise_comparator": "bytewise comparator"}[kind]):
         dc.run_device_compaction(PosixEnv(), dbdir, icmp, c, tc, topts,
                                  snaps, new_file_number=allocator(300),

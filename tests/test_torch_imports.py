@@ -79,3 +79,58 @@ def test_sources_import_neither(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_worker_subprocess_loads_no_jax(tmp_path):
+    """The dcompact worker run as a process (a snappy job written with the
+    port's own TableBuilder and CompactionParams, device "cpu-jax") loads
+    neither jax nor any toplingdb_tpu module."""
+    from toplingdb_tpu_torch.compaction.executor import CompactionParams
+    from toplingdb_tpu_torch.db.dbformat import (
+        InternalKeyComparator,
+        make_internal_key,
+    )
+    from toplingdb_tpu_torch.env import PosixEnv
+    from toplingdb_tpu_torch.table.builder import TableBuilder, TableOptions
+
+    inputs = []
+    for f in range(2):
+        path = str(tmp_path / ("%06d.sst" % (f + 1)))
+        w = PosixEnv().new_writable_file(path)
+        b = TableBuilder(w, InternalKeyComparator(),
+                         TableOptions(block_size=512, compression=1))
+        for i in range(300):
+            b.add(make_internal_key(b"k%05d" % i, f * 1000 + i + 1, 1),
+                  b"v%05d" % i)
+        b.finish()
+        w.close()
+        inputs.append(path)
+    job = tmp_path / "job"
+    (job / "out").mkdir(parents=True)
+    (job / "params.json").write_text(CompactionParams(
+        job_id=1, attempt=1, dbname=str(tmp_path),
+        output_dir=str(job / "out"), input_files=inputs, output_level=1,
+        bottommost=True, max_output_file_size=1 << 30, snapshots=[],
+        comparator="tpulsm.BytewiseComparator", merge_operator=None,
+        compaction_filter=None, compression=1, block_size=512,
+        creation_time=1, device="cpu-jax", lease_sec=0.0).to_json())
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from toplingdb_tpu_torch.compaction import worker\n"
+        f"rc = worker.main(['--job-dir', {str(job)!r}])\n"
+        "print(rc)\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[0] == "0", out.stderr
+    loaded = [m for m in lines[1:] if m]
+    assert "toplingdb_tpu_torch.ops.pipeline" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+    assert os.listdir(job / "out")

@@ -58,6 +58,7 @@ def plain_options(o) -> dict:
          if isinstance(getattr(o, f.name), (bool, int, float, str))}
     d["filter_policy_name"] = o.filter_policy.name() if o.filter_policy \
         else ""
+    d["compression_opts"] = dataclasses.asdict(o.compression_opts)
     return d
 
 

@@ -1,1 +1,2 @@
-"""Compaction job descriptor and per-job stats."""
+"""Compaction: the job descriptor, per-job stats, the iterator, and the
+dcompact worker with its job boundary and leases."""

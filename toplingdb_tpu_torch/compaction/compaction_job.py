@@ -1,8 +1,9 @@
-"""Per-job compaction stats, the tombstones a job writes, and the per-entry
-output cutter (copied from toplingdb_tpu/compaction/compaction_job.py,
-trimmed to `CompactionStats`, `surviving_tombstone_fragments` and
-`build_outputs`, without per-entry protection; the CPU CompactionJob comes
-with the DB engine in a later slice)."""
+"""Per-job compaction stats, their phase spans, the tombstones a job
+writes, and the per-entry output cutter (copied from
+toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats`,
+`emit_phase_spans`, `surviving_tombstone_fragments` and `build_outputs`,
+without per-entry protection; the CPU CompactionJob comes with the DB
+engine in a later slice)."""
 
 from __future__ import annotations
 
@@ -95,6 +96,33 @@ class CompactionStats:
             if resid < 0:
                 out["pipeline_overlap_s"] = round(-resid / 1e6, 3)
         return out
+
+
+# Stats phase field → telemetry span name: every route reports its
+# interior through CompactionStats, so one synthesis point gives each a
+# stage waterfall (a dcompact worker emits them under its own root).
+_PHASE_SPANS = (
+    ("waiting_time_usec", "compaction.queue_wait"),
+    ("prepare_time_usec", "compaction.prepare"),
+    ("input_scan_usec", "compaction.input_scan"),
+    ("host_compute_usec", "compaction.compute"),
+    ("transfer_time_usec", "compaction.transfer"),
+    ("device_wait_usec", "compaction.device_wait"),
+    ("resolve_usec", "compaction.resolve"),
+    ("encode_write_usec", "compaction.encode_write"),
+    ("rpc_time_usec", "compaction.rpc"),
+)
+
+
+def emit_phase_spans(stats) -> None:
+    """Pre-finished child spans from a CompactionStats phase breakdown,
+    attached under the calling thread's active span (no-op untraced)."""
+    from toplingdb_tpu_torch.utils import telemetry
+
+    for field, name in _PHASE_SPANS:
+        v = getattr(stats, field, 0)
+        if v:
+            telemetry.span_event(name, v)
 
 
 def surviving_tombstone_fragments(rd: RangeDelAggregator,

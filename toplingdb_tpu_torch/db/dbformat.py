@@ -1,5 +1,6 @@
 """Internal key format and comparators (copied from
-toplingdb_tpu/db/dbformat.py, trimmed to the bytewise comparator).
+toplingdb_tpu/db/dbformat.py, trimmed to the three comparators a job may
+name: bytewise, reverse bytewise and bytewise with a u64 timestamp).
 
 An internal key is `user_key + packed(seqno, type)` where the trailer is 8
 bytes: `(seqno << 8) | type`, stored little-endian fixed64. Ordering: user
@@ -91,6 +92,9 @@ class Comparator:
     """Bytewise user-key comparator; find_shortest_separator and
     find_short_successor shorten index-block keys."""
 
+    #: bytes of user-defined timestamp suffixed to every user key.
+    timestamp_size = 0
+
     def name(self) -> str:
         return "tpulsm.BytewiseComparator"
 
@@ -118,7 +122,57 @@ class Comparator:
         return key
 
 
+class ReverseBytewiseComparator(Comparator):
+    def name(self) -> str:
+        return "tpulsm.ReverseBytewiseComparator"
+
+    def compare(self, a: bytes, b: bytes) -> int:
+        return (a < b) - (a > b)
+
+    def find_shortest_separator(self, start: bytes, limit: bytes) -> bytes:
+        return start
+
+    def find_short_successor(self, key: bytes) -> bytes:
+        return key
+
+
+class U64TsBytewiseComparator(Comparator):
+    """Bytewise comparator over keys with a u64 user-defined timestamp: the
+    stored key is the escaped user key followed by the bitwise-inverted
+    timestamp, so plain bytewise order over the stored bytes is (key asc,
+    ts desc) and the comparison is bytewise."""
+
+    timestamp_size = 8
+
+    def name(self) -> str:
+        return "tpulsm.BytewiseComparator.u64ts"
+
+    def find_shortest_separator(self, start: bytes, limit: bytes) -> bytes:
+        return start  # never synthesize keys across a ts boundary
+
+    def find_short_successor(self, key: bytes) -> bytes:
+        return key
+
+
 BYTEWISE = Comparator()
+REVERSE_BYTEWISE = ReverseBytewiseComparator()
+U64_TS_BYTEWISE = U64TsBytewiseComparator()
+
+
+class _OrderedKey:
+    """Wrapper making a comparator usable as a sort key function."""
+
+    __slots__ = ("cmp", "k")
+
+    def __init__(self, cmp, k):
+        self.cmp = cmp
+        self.k = k
+
+    def __lt__(self, other):
+        return self.cmp(self.k, other.k) < 0
+
+    def __eq__(self, other):
+        return self.cmp(self.k, other.k) == 0
 
 
 class InternalKeyComparator:
@@ -126,6 +180,10 @@ class InternalKeyComparator:
 
     def __init__(self, user_cmp: Comparator = BYTEWISE):
         self.user_comparator = user_cmp
+
+    def sort_key(self, k: bytes) -> "_OrderedKey":
+        """For use as `key=` in sorted()/min()/max() over internal keys."""
+        return _OrderedKey(self.compare, k)
 
     def name(self) -> str:
         return "tpulsm.InternalKeyComparator:" + self.user_comparator.name()

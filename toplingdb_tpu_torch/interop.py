@@ -4,8 +4,14 @@ The state of this system is its files, and the port's SST format is its own
 copy of the reference's, so SSTs cross in both directions as they are. What
 does not cross by itself is a live options object: `table_options_from_plain`
 builds the port's TableOptions from plain values — the scalar fields of the
-reference's TableOptions plus `filter_policy_name`, the name the SST
-properties record for the filter policy (empty for none).
+reference's TableOptions, `filter_policy_name` (the name the SST
+properties record for the filter policy, empty for none) and
+`compression_opts` (a dict of the reference's CompressionOptions fields:
+`level`, `max_dict_bytes`, `zstd_max_train_bytes`).
+
+A dcompact job crosses as its job dir: the port's worker
+(`compaction/worker.py`) reads a params.json written by the reference's
+`CompactionParams.to_json`, and the reference's worker reads the port's.
 
 Merge operators and compaction filters cross by name, through their
 registries, as a reference job's options travel to a remote worker:
@@ -19,22 +25,30 @@ from __future__ import annotations
 
 import dataclasses
 
-from toplingdb_tpu_torch.table.builder import TableOptions
+from toplingdb_tpu_torch.table.builder import CompressionOptions, TableOptions
 from toplingdb_tpu_torch.table.filter import filter_policy_from_name
 from toplingdb_tpu_torch.utils.status import InvalidArgument
 
 
 def table_options_from_plain(d: dict) -> TableOptions:
     """TableOptions from a dict of plain values. Keys are TableOptions
-    field names (every scalar field of the reference's options) and
-    `filter_policy_name`; unknown keys raise InvalidArgument."""
+    field names (every scalar field of the reference's options),
+    `filter_policy_name` and `compression_opts` (a dict of
+    CompressionOptions fields); unknown keys raise InvalidArgument."""
     fields = {f.name for f in dataclasses.fields(TableOptions)}
+    copt_fields = {f.name for f in dataclasses.fields(CompressionOptions)}
     kwargs = {}
     for k, v in d.items():
         if k == "filter_policy_name":
             if v and filter_policy_from_name(v) is None:
                 raise InvalidArgument(f"unknown filter policy {v!r}")
             kwargs["filter_policy"] = filter_policy_from_name(v) if v else None
+        elif k == "compression_opts":
+            bad = set(v) - copt_fields
+            if bad:
+                raise InvalidArgument(
+                    f"unknown compression options {sorted(bad)!r}")
+            kwargs[k] = CompressionOptions(**v)
         elif k in fields and k != "filter_policy":
             kwargs[k] = v
         else:

@@ -3,7 +3,10 @@
 Builds `_tpulsm_native.so` from the port's own `tpulsm_native.cc` with g++
 on first use, into the package's git-ignored build directory
 (`toplingdb_tpu_torch/_build/`), and binds the C ABI with ctypes. Callers
-check `lib()` for None (no toolchain) and raise NotSupported.
+check `lib()` for None (no toolchain) and raise NotSupported. The codec
+libraries (libsnappy, libzstd) are dlopen'd by the library at run time; a
+missing one makes its codec's native paths report "unavailable", and the
+callers take the Python codecs instead.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ _lib: ctypes.CDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 1
+_ABI_VERSION = 2
 
 
 def _build() -> bool:
@@ -32,7 +35,7 @@ def _build() -> bool:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-           "-o", tmp, _SRC]
+           "-o", tmp, _SRC, "-ldl"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, _SO)
@@ -98,6 +101,34 @@ def _bind(l: ctypes.CDLL) -> None:
         i64, i64,                                   # base_size, max_size
         i64p, i64p, i64,                            # counts, plens, max_blocks
         u8p, i64, i64p,                             # out, cap, out_len
+    ]
+    l.tpulsm_build_block.restype = i64
+    l.tpulsm_build_block.argtypes = [
+        u8p, i32p, i32p,                            # key buf/offs/lens
+        u8p, i32p, i32p,                            # val buf/offs/lens
+        i64p,                                       # trailer_override
+        i32p, i64, i64,                             # order, start, limit
+        i64, i64,                                   # block_size, restart_int
+        u8p, i64, i64p,                             # out, cap, out_len
+    ]
+    l.tpulsm_build_data_section_c.restype = i64
+    l.tpulsm_build_data_section_c.argtypes = [
+        u8p, i32p, i32p,                            # key buf/offs/lens
+        u8p, i32p, i32p,                            # val buf/offs/lens
+        i64p,                                       # trailer_override
+        i32p, i64, i64,                             # order, start, limit
+        i64, i64,                                   # block_size, restart_int
+        ctypes.c_int32, ctypes.c_int32,             # ctype, level
+        i64, i64,                                   # base_size, max_size
+        i64p, i64p, i64p, i64,                      # counts, plens, raw lens
+        u8p, i64, i64p,                             # out, cap, out_len
+    ]
+    l.tpulsm_inflate_blocks.restype = i64
+    l.tpulsm_inflate_blocks.argtypes = [
+        u8p, i64,                                   # file buf, len
+        i64p, i64p, i64,                            # block offs/lens, n
+        ctypes.c_int32,                             # verify_crc
+        u8p, i64, i64p, i64p,                       # out, cap, offs, lens
     ]
     l.tpulsm_build_index_block.restype = i64
     l.tpulsm_build_index_block.argtypes = [

@@ -1,14 +1,17 @@
 """Columnar SST IO: native bulk decode and native table building (copied
-from toplingdb_tpu/ops/columnar_io.py, trimmed to uncompressed block-based
-tables).
+from toplingdb_tpu/ops/columnar_io.py, trimmed to block-based tables).
 
 The host halves of the device compaction data plane: whole-file scans into
-flat buffers through the C++ block decoder, and output building through the
-C++ data-section and index-block builders plus the native bloom fill — no
-per-entry Python. `write_tables_columnar` cuts outputs at a user-key
-boundary once a file's written bytes reach max_output_file_size, exactly as
-the reference writer does, so both packages write the same bytes for the
-same job.
+flat buffers through the C++ block decoder (snappy and zstd blocks inflate
+inside it; dictionary frames and the other codecs inflate in Python
+threads), and output building through the C++ data-section and index-block
+builders plus the native bloom fill — no per-entry Python. Snappy and zstd
+sections compress natively; a ZSTD dictionary and the other codecs take
+the per-block path (native block build, Python codecs, optionally on a
+thread pool). `write_tables_columnar` cuts outputs at a user-key boundary
+once a file's written bytes reach max_output_file_size, exactly as the
+reference writer does, so both packages write the same bytes for the same
+job.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.table import format as fmt
 from toplingdb_tpu_torch.table.block import BlockBuilder
 from toplingdb_tpu_torch.table.builder import (
+    METAINDEX_COMPRESSION_DICT,
     METAINDEX_FILTER,
     METAINDEX_PROPERTIES,
     METAINDEX_RANGE_DEL,
@@ -101,14 +105,19 @@ def scan_tables_columnar_prealloc(readers):
     buffers, sized exactly from each file's TableProperties
     (raw_key_size/raw_value_size/num_entries). Returns (kv, parts) where kv
     spans all files and parts[i] is a ZERO-COPY per-file view — or None
-    when ineligible (properties absent or wrong, compressed blocks, >int32
-    buffers); the caller then scans file by file."""
+    when ineligible (properties absent or wrong, a codec the native scan
+    does not inflate, dictionary-compressed files, >int32 buffers); the
+    caller then scans file by file."""
     lib = native.lib()
     if lib is None:
         return None
     infos = []
     tk = tv = tn = 0
     for r in readers:
+        if r._compression_dict:
+            # Dictionary frames need the stored dictionary, which the
+            # native scan does not carry: the per-file path does.
+            return None
         p = r.properties
         ne, rk, rv = int(p.num_entries), int(p.raw_key_size), int(
             p.raw_value_size)
@@ -178,10 +187,10 @@ def scan_tables_columnar_prealloc(readers):
         if rc == -6:
             raise Corruption("block checksum mismatch (fused scan)")
         if rc == -8:
-            raise Corruption("block decode failed (fused scan)")
+            raise Corruption("block decode/decompress failed (fused scan)")
         if rc != infos[i][0]:
-            # Entry-count disagreement with the properties or a compressed
-            # block: the per-file path decides.
+            # Entry-count disagreement with the properties, or a codec the
+            # native scan does not inflate: the per-file path decides.
             return None
     kv = ColumnarKV(key_buf, key_offs, key_lens, val_buf, val_offs, val_lens)
     parts = []
@@ -199,11 +208,14 @@ def scan_tables_columnar_prealloc(readers):
 
 
 def scan_table_columnar(reader) -> ColumnarKV:
-    """Whole-file bulk scan through the native block decoder, in ONE native
-    call over the raw file bytes: values REFERENCED into the file image
-    (the image stays alive as val_buf), keys copied; the value-copying
-    decode decides where that is ineligible. Compressed files raise
-    NotSupported."""
+    """Whole-file bulk scan through the native block decoder. Uncompressed
+    files decode in ONE native call over the raw file bytes, values
+    REFERENCED into the file image (the image stays alive as val_buf) and
+    keys copied; the value-copying decode decides where that is
+    ineligible. Compressed files inflate first: snappy and zstd blocks in
+    one multi-threaded native call into a synthetic uncompressed image,
+    dictionary frames and the other codecs through `fmt.decompress` on
+    Python threads; then the same bulk decode."""
     lib = native.lib()
     if lib is None:
         raise NotSupported("native library unavailable")
@@ -219,8 +231,69 @@ def scan_table_columnar(reader) -> ColumnarKV:
     if kv is not None:
         return kv
     kv = _bulk_decode(lib, raw, block_offs, block_lens, verify)
+    if kv is not None:
+        return kv
+
+    n_blocks = len(block_offs)
+    cdict = reader._compression_dict
+    if not cdict:
+        rawb = np.frombuffer(bytes(raw), dtype=np.uint8)
+        out_cap = 4 * int(block_lens.sum()) + 5 * n_blocks + 4096
+        out_offs = np.empty(n_blocks, dtype=np.int64)
+        out_lens = np.empty(n_blocks, dtype=np.int64)
+        for _ in range(4):
+            out = np.empty(out_cap, dtype=np.uint8)
+            rc = lib.tpulsm_inflate_blocks(
+                native.np_u8p(rawb), len(rawb),
+                native.np_i64p(block_offs), native.np_i64p(block_lens),
+                n_blocks, 1 if verify else 0,
+                native.np_u8p(out), out_cap,
+                native.np_i64p(out_offs), native.np_i64p(out_lens),
+            )
+            if rc == -2:
+                out_cap *= 4
+                continue
+            break
+        if rc == -6:
+            raise Corruption("block checksum mismatch (native inflate)")
+        if rc == -3:
+            raise Corruption("block decompression failed (native inflate)")
+        if rc > 0:
+            kv = _bulk_decode(lib, out[: int(rc)], out_offs, out_lens,
+                              False)
+            if kv is not None:
+                return kv
+        # rc == -1: a codec the native inflate lacks, or a dictionary frame.
+    mv = memoryview(raw)
+
+    def _inflate(i):
+        off, size = int(block_offs[i]), int(block_lens[i])
+        end = off + size
+        payload = bytes(mv[off:end])
+        ctype = raw[end]
+        if verify:
+            from toplingdb_tpu_torch.utils import crc32c as _crc
+
+            stored = _crc.unmask(int.from_bytes(raw[end + 1:end + 5],
+                                                "little"))
+            if stored != _crc.value(payload + bytes([ctype])):
+                raise Corruption(f"block checksum mismatch at {off}")
+        return fmt.decompress(payload, ctype, cdict)
+
+    if n_blocks > 8:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(8) as ex:
+            blocks = list(ex.map(_inflate, range(n_blocks)))
+    else:
+        blocks = [_inflate(i) for i in range(n_blocks)]
+    trailer = b"\x00" * 5  # type=NO_COMPRESSION + dummy CRC (verify off)
+    synth = trailer.join(blocks) + trailer
+    lens = np.array([len(b) for b in blocks], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens + 5)[:-1]]).astype(np.int64)
+    kv = _bulk_decode(lib, synth, offs, lens, False)
     if kv is None:
-        raise NotSupported("compressed blocks: codecs are not ported yet")
+        raise Corruption("decompressed blocks failed native bulk decode")
     return kv
 
 
@@ -325,13 +398,16 @@ def _bulk_decode(lib, raw, block_offs, block_lens, verify):
 
 class _ColumnarSST:
     """Framing state for ONE output file of the columnar writer (index,
-    props, meta blocks, footer): data blocks arrive as pre-framed sections.
-    Sections from the native builder keep per-block arrays and the whole
-    index block is built natively at finish; sections framed elsewhere
-    (the on-device block assembly) index each block as it is added."""
+    props, meta blocks, footer). Data blocks arrive three ways: pre-framed
+    sections from the native builder (per-block metadata kept as arrays,
+    the whole index block built natively at finish), pre-framed sections
+    framed elsewhere (the on-device block assembly; each block indexed as
+    it is added), and raw blocks (`add_block`: compressed here, on `pool`
+    threads when one is given, in order; a ZSTD dictionary is trained from
+    the first train_budget() raw bytes first, as in TableBuilder)."""
 
     def __init__(self, env, dbname, fnum, icmp, options, creation_time,
-                 column_family=(0, "default")):
+                 column_family=(0, "default"), pool=None):
         from toplingdb_tpu_torch.db import filename as _fn
 
         self.fnum = fnum
@@ -339,6 +415,14 @@ class _ColumnarSST:
         self.w = env.new_writable_file(self.path)
         self._icmp = icmp
         self._options = options
+        self._pool = pool
+        self._copts = options.compression_opts
+        self._dict: bytes | None = (
+            b"" if (options.compression == fmt.ZSTD_COMPRESSION
+                    and self._copts.max_dict_bytes > 0) else None)
+        self._dict_samples: list = []
+        self._dict_bytes = 0
+        self._pending: list = []  # (future, raw_len, first, last, n)
         self.props = TableProperties(
             comparator_name=icmp.user_comparator.name(),
             filter_policy_name=(
@@ -358,18 +442,86 @@ class _ColumnarSST:
         self.last_key: bytes | None = None
         self.num_entries = 0
 
-    def add_framed_section_arrays(self, section, counts, plens, nb: int,
-                                  start_pos: int, entry_key_fn) -> None:
+    def _account_block(self, handle, raw_len: int, block_first: bytes,
+                       block_last: bytes, n_entries: int) -> None:
+        """Index and properties bookkeeping of one written block."""
+        if self.first_key is None:
+            self.first_key = block_first
+        if self.pending_last_key is not None:
+            sep = self._icmp.find_shortest_separator(
+                self.pending_last_key, block_first)
+            self.index_block.add(sep, self.pending_handle.encode())
+        self.pending_handle = handle
+        self.pending_last_key = block_last
+        self.props.data_size += raw_len
+        self.props.num_data_blocks += 1
+        self.last_key = block_last
+        self.num_entries += n_entries
+
+    def pending_bytes(self) -> int:
+        """Raw bytes held for dictionary training or queued for
+        compression, counted into the output-cut size check."""
+        return self._dict_bytes + sum(p[1] for p in self._pending)
+
+    def add_block(self, raw: bytes, block_first: bytes, block_last: bytes,
+                  n_entries: int) -> None:
+        if self._dict == b"":
+            self._dict_samples.append((raw, block_first, block_last,
+                                       n_entries))
+            self._dict_bytes += len(raw)
+            if self._dict_bytes >= self._copts.train_budget():
+                self._train_dict_and_flush()
+            return
+        if (self._pool is not None
+                and self._options.compression != fmt.NO_COMPRESSION):
+            fut = self._pool.submit(
+                fmt.compress_for_block, raw, self._options.compression,
+                self._copts.level, self._dict or b"")
+            self._pending.append((fut, len(raw), block_first, block_last,
+                                  n_entries))
+            self._drain(wait=False)
+            return
+        handle = fmt.write_block(self.w, raw, self._options.compression,
+                                 self._copts.level, self._dict or b"")
+        self._account_block(handle, len(raw), block_first, block_last,
+                            n_entries)
+
+    def _train_dict_and_flush(self) -> None:
+        from toplingdb_tpu_torch.utils import codecs
+
+        self._dict = codecs.zstd_train_dictionary(
+            [r for r, _f, _l, _n in self._dict_samples],
+            self._copts.max_dict_bytes)
+        if self._dict == b"":
+            # Training failed: b"" is the pending sentinel, so the replay
+            # below would buffer forever; the dictionary is off instead.
+            self._dict = None
+        samples, self._dict_samples, self._dict_bytes = \
+            self._dict_samples, [], 0
+        for raw, first, last, n in samples:
+            self.add_block(raw, first, last, n)
+
+    def _drain(self, wait: bool) -> None:
+        while self._pending and (wait or self._pending[0][0].done()):
+            fut, raw_len, first, last, n = self._pending.pop(0)
+            payload, out_type = fut.result()
+            h = fmt.write_compressed_block(self.w, payload, out_type)
+            self._account_block(h, raw_len, first, last, n)
+
+    def add_framed_section_arrays(self, section, counts, plens, rawlens,
+                                  nb: int, start_pos: int,
+                                  entry_key_fn) -> None:
         """Append a run of framed blocks; per-block metadata is kept as
         arrays for the index build at finish, and only the file's
-        first/last keys are materialized here."""
+        first/last keys are materialized here. `rawlens`: the blocks'
+        uncompressed payload lengths (the properties' data size)."""
         base = self.w.file_size()
         if self.first_key is None:
             self.first_key = entry_key_fn(start_pos)
         cnts = counts[:nb].astype(np.int64, copy=True)
         pls = plens[:nb].astype(np.int64, copy=True)
         self._sections.append((start_pos, cnts, pls, base))
-        self.props.data_size += int(pls.sum())
+        self.props.data_size += int(rawlens[:nb].sum())
         self.props.num_data_blocks += nb
         total = int(cnts.sum())
         self.num_entries += total
@@ -383,18 +535,9 @@ class _ColumnarSST:
         order, and each block's index entry is added here."""
         offset = self.w.file_size()
         for payload_len, block_first, block_last, n_entries in blocks:
-            if self.first_key is None:
-                self.first_key = block_first
-            if self.pending_last_key is not None:
-                sep = self._icmp.find_shortest_separator(
-                    self.pending_last_key, block_first)
-                self.index_block.add(sep, self.pending_handle.encode())
-            self.pending_handle = fmt.BlockHandle(offset, payload_len)
-            self.pending_last_key = block_last
-            self.props.data_size += payload_len
-            self.props.num_data_blocks += 1
-            self.last_key = block_last
-            self.num_entries += n_entries
+            self._account_block(fmt.BlockHandle(offset, payload_len),
+                                payload_len, block_first, block_last,
+                                n_entries)
             offset += payload_len + fmt.BLOCK_TRAILER_SIZE
         self.w.append(section)
 
@@ -445,6 +588,9 @@ class _ColumnarSST:
         block assembly; its `sel` then only feeds the bloom) — a dict with
         num_entries/raw_key_size/raw_value_size/num_deletions/
         num_merge_operands/smallest_seqno/largest_seqno."""
+        if self._dict == b"":
+            self._train_dict_and_flush()  # small file: train from the lot
+        self._drain(wait=True)
         icmp = self._icmp
         options = self._options
         props = self.props
@@ -511,6 +657,10 @@ class _ColumnarSST:
             rh = fmt.write_block(self.w, rdb.finish())
             meta_entries.append((METAINDEX_RANGE_DEL, rh))
 
+        if self._dict:
+            dh = fmt.write_block(self.w, self._dict)
+            meta_entries.append((METAINDEX_COMPRESSION_DICT, dh))
+
         if self._sections:
             iraw = self._native_index_raw(lib, kv, order, trailer_override)
         else:
@@ -521,7 +671,7 @@ class _ColumnarSST:
         for name, handle in sorted(meta_entries):
             metaindex.add(name, handle.encode())
         mih = fmt.write_block(self.w, metaindex.finish())
-        ih = fmt.write_block(self.w, iraw)
+        ih = fmt.write_block(self.w, iraw, options.compression)
         self.w.append(fmt.Footer(mih, ih).encode())
         self.w.flush()
         self.w.sync()
@@ -546,6 +696,11 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     (fnum, path, props, smallest, largest, sel) where sel is the
     original-index selection written to that file. On any failure every
     partial output is deleted before re-raising.
+
+    Uncompressed, snappy and dictionary-less zstd output is built in whole
+    runs of framed blocks per native call; a ZSTD dictionary and the other
+    codecs build one block per native call and compress it in Python (on
+    `compression_parallel_threads` threads when that is > 1).
 
     `order` may also be an ITERATOR of int32 chunks (the device shards:
     shard s's survivors stream into SSTs while shard s+1 is still
@@ -583,6 +738,11 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     max_entry = int(kv.key_lens.max() if kv.n else 0) + int(
         kv.val_lens.max() if kv.n else 0
     )
+    if not start_exhausted:
+        # Streamed callers may hand over buffers that reader threads are
+        # still filling: the size is only a capacity guess, clamped to a
+        # sane window (the rc == -2 grow loops correct small guesses).
+        max_entry = min(max(max_entry, 0), 4 << 20)
     out_cap = options.block_size * 2 + max_entry + 8192
 
     def entry_key(pos: int) -> bytes:
@@ -612,6 +772,19 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     p_tro = native.np_i64p(trailer_override)
     p_order = native.np_i32p(order)
 
+    # The section codec: uncompressed, snappy and dictionary-less zstd runs
+    # are built (and compressed) natively; everything else is per block.
+    copts = options.compression_opts
+    if options.compression == fmt.NO_COMPRESSION:
+        use_section, sec_ctype = True, 0
+    elif (options.compression in (fmt.SNAPPY_COMPRESSION,
+                                  fmt.ZSTD_COMPRESSION)
+          and copts.max_dict_bytes <= 0):
+        use_section, sec_ctype = True, options.compression
+    else:
+        use_section, sec_ctype = False, 0
+    sec_level = copts.level if copts.level is not None else -(2 ** 31)
+
     # Each native call emits a whole RUN of framed blocks (payload + type
     # byte + crc trailer) of at most ~_SECTION_RUN_BYTES, so the section
     # buffer and the per-call copy stay bounded for any job size.
@@ -623,11 +796,25 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     max_blocks = sec_cap // max(1, options.block_size) + 1024
     sec_counts = np.empty(max_blocks, dtype=np.int64)
     sec_plens = np.empty(max_blocks, dtype=np.int64)
+    sec_rawlens = np.empty(max_blocks, dtype=np.int64)
     sec_len = np.zeros(1, dtype=np.int64)
     p_sec = native.np_u8p(sec_buf)
     p_counts = native.np_i64p(sec_counts)
     p_plens = native.np_i64p(sec_plens)
+    p_rawlens = native.np_i64p(sec_rawlens)
     p_seclen = native.np_i64p(sec_len)
+    out_buf = np.empty(out_cap, dtype=np.uint8)
+    out_len = np.zeros(1, dtype=np.int64)
+    p_out = native.np_u8p(out_buf)
+    p_outlen = native.np_i64p(out_len)
+
+    pool = None
+    if (options.compression != fmt.NO_COMPRESSION
+            and options.compression_parallel_threads > 1):
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(
+            max_workers=options.compression_parallel_threads)
 
     can_cut = not tombstones  # single output while tombstones survive
     results = []
@@ -638,7 +825,7 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     exhausted = start_exhausted
     try:
         cur = _ColumnarSST(env, dbname, new_file_number(), icmp, options,
-                           creation_time, column_family)
+                           creation_time, column_family, pool)
         need_fetch = False
         while True:
             if start >= filled or need_fetch:
@@ -656,7 +843,8 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                     break
             limit = filled
             if (can_cut and cur.num_entries
-                    and cur.w.file_size() >= max_output_file_size):
+                    and cur.w.file_size() + cur.pending_bytes()
+                    >= max_output_file_size):
                 if not same_user_key(start, start - 1):
                     # Cut HERE (the per-entry path's pre-add check).
                     sel = order[lo:start]
@@ -664,7 +852,8 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                         lib, kv, sel, vtypes, seqs, order, trailer_override
                     ) + (sel,))
                     cur = _ColumnarSST(env, dbname, new_file_number(), icmp,
-                                       options, creation_time, column_family)
+                                       options, creation_time, column_family,
+                                       pool)
                     lo = start
                 else:
                     # Same user key spans the boundary: all its versions
@@ -674,18 +863,60 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                     while j < filled and same_user_key(j, j - 1):
                         j += 1
                     limit = j
+            if not use_section:
+                rc = lib.tpulsm_build_block(
+                    p_kbuf, p_koff, p_klen, p_vbuf, p_voff, p_vlen, p_tro,
+                    p_order, start, limit,
+                    options.block_size, options.restart_interval,
+                    p_out, out_cap, p_outlen,
+                )
+                if rc == -2:
+                    out_cap *= 4
+                    out_buf = np.empty(out_cap, dtype=np.uint8)
+                    p_out = native.np_u8p(out_buf)
+                    continue
+                if rc == -3 or rc == -8:
+                    raise NotSupported(
+                        f"native block build unsupported input rc={rc}")
+                if rc <= 0:
+                    raise Corruption(f"native block build failed rc={rc}")
+                if not exhausted and start + int(rc) == filled:
+                    # Possibly starved at the chunk boundary: rebuild this
+                    # block once more data arrives.
+                    need_fetch = True
+                    continue
+                cur.add_block(out_buf[: int(out_len[0])].tobytes(),
+                              entry_key(start),
+                              entry_key(start + int(rc) - 1), int(rc))
+                start += int(rc)
+                continue
             base_size = cur.w.file_size()
             budget = base_size + _SECTION_RUN_BYTES
             if can_cut and max_output_file_size < budget:
                 budget = max_output_file_size
-            rc = lib.tpulsm_build_data_section(
-                p_kbuf, p_koff, p_klen, p_vbuf, p_voff, p_vlen,
-                p_tro, p_order, start, limit,
-                options.block_size, options.restart_interval,
-                base_size, budget,
-                p_counts, p_plens, max_blocks,
-                p_sec, sec_cap, p_seclen,
-            )
+            if sec_ctype:
+                rc = lib.tpulsm_build_data_section_c(
+                    p_kbuf, p_koff, p_klen, p_vbuf, p_voff, p_vlen,
+                    p_tro, p_order, start, limit,
+                    options.block_size, options.restart_interval,
+                    sec_ctype, sec_level, base_size, budget,
+                    p_counts, p_plens, p_rawlens, max_blocks,
+                    p_sec, sec_cap, p_seclen,
+                )
+                if rc == -9:
+                    # The codec library is missing on this host: the
+                    # per-block path's Python codec raises NotSupported.
+                    use_section = False
+                    continue
+            else:
+                rc = lib.tpulsm_build_data_section(
+                    p_kbuf, p_koff, p_klen, p_vbuf, p_voff, p_vlen,
+                    p_tro, p_order, start, limit,
+                    options.block_size, options.restart_interval,
+                    base_size, budget,
+                    p_counts, p_plens, max_blocks,
+                    p_sec, sec_cap, p_seclen,
+                )
             if rc == -2:
                 sec_cap *= 4
                 sec_buf = np.empty(sec_cap, dtype=np.uint8)
@@ -711,9 +942,11 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
                 need_fetch = True
                 if nb == 0:
                     continue
+            # Uncompressed payloads are their own raw lengths.
             cur.add_framed_section_arrays(
-                sec_buf[:sec_total].tobytes(), sec_counts, sec_plens, nb,
-                start, entry_key)
+                sec_buf[:sec_total].tobytes(), sec_counts, sec_plens,
+                sec_rawlens if sec_ctype else sec_plens, nb, start,
+                entry_key)
             start = pos
         sel = order[lo:filled]
         results.append((cur.fnum, cur.path) + cur.finish(
@@ -734,3 +967,6 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
             except Exception:  # noqa: BLE001 - best-effort cleanup
                 pass
         raise
+    finally:
+        if pool is not None:
+            pool.shutdown()

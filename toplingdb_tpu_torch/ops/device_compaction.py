@@ -887,9 +887,11 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     Raises NotSupported for what the reference's device data plane also
     refuses (user keys over MAX_DEVICE_KEY_BYTES, a non-bytewise
     comparator, more than MAX_SNAPSHOTS snapshots) and for what this port
-    does not carry yet (table options other than uncompressed block-based
-    tables with a binary index and no per-entry protection). No output is
-    left behind on any failure."""
+    does not carry yet (table options other than block-based tables with a
+    binary index, no partitioned filters and no per-entry protection).
+    Inputs and outputs may be compressed with any codec of
+    `table/format.py`, with or without a ZSTD dictionary. No output is left
+    behind on any failure."""
     device = resolve_device(device_name)
     if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
         raise NotSupported(

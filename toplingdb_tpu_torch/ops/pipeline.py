@@ -25,10 +25,14 @@ key lands in exactly one shard), so per-shard GC decisions (snapshot
 stripes, tombstone shadowing, bottommost seqno zeroing) equal the global
 ones and the concatenated survivor stream is byte-identical to the serial
 path's. Jobs the pipeline does not cover (non-uniform key lengths, complex
-merge / single-delete groups, missing properties, small inputs) raise
-PipelineIneligible, and the caller runs the serial path, which computes the
-same bytes. A kernel or CUDA failure in any stage is raised to the caller
-as it is.
+merge / single-delete groups, missing properties, small inputs,
+dictionary-compressed inputs and codecs the native scan does not inflate)
+raise PipelineIneligible, and the caller runs the serial path, which
+computes the same bytes. A kernel or CUDA failure in any stage is raised to
+the caller as it is. When the calling thread carries a sampled trace
+(utils/telemetry.py), the stages record `pipeline.scan` (per file and
+shard), `pipeline.merge_gc` (per shard) and `pipeline.encode_write` (per
+chunk) spans under it.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 
 from toplingdb_tpu_torch import native
 from toplingdb_tpu_torch.db import dbformat
+from toplingdb_tpu_torch.utils import telemetry
 from toplingdb_tpu_torch.utils.status import Corruption
 
 
@@ -185,9 +190,11 @@ def _build_plan(readers, n_shards_req=None):
         raise PipelineIneligible("native fused scan unavailable")
     infos = []
     tk = tv = tn = 0
-    # The port's readers are block-based tables without compression
-    # dictionaries (TableReader refuses the rest when it opens a file).
+    # The port's readers are block-based tables (TableReader refuses the
+    # rest when it opens a file).
     for r in readers:
+        if r._compression_dict:
+            raise PipelineIneligible("dict-compressed input")
         p = r.properties
         ne, rk, rv = int(p.num_entries), int(p.raw_key_size), int(
             p.raw_value_size)
@@ -268,9 +275,12 @@ def _build_plan(readers, n_shards_req=None):
     return kv, files, splitters
 
 
-def _scan_file(fi, fp, kv, prog, splitters, stats, stats_mu):
+def _scan_file(fi, fp, kv, prog, splitters, stats, stats_mu,
+               trace_handle=None):
     """Reader worker: decode one file shard-by-shard into its slice of the
-    global buffers, publishing row bounds + progress per shard."""
+    global buffers (snappy and zstd blocks inflate inside the native scan),
+    publishing row bounds + progress per shard; one `pipeline.scan` span
+    per shard under `trace_handle` when the job is traced."""
     lib = native.lib()
     n_shards = len(splitters) + 1
     try:
@@ -280,6 +290,7 @@ def _scan_file(fi, fp, kv, prog, splitters, stats, stats_mu):
         for s in range(n_shards):
             if prog.stop:
                 return
+            t_sh = time.time() if trace_handle is not None else 0.0
             blo, bhi = fp.groups[s], fp.groups[s + 1]
             if bhi > blo:
                 w0 = int(fp.block_offs[blo])
@@ -311,8 +322,9 @@ def _scan_file(fi, fp, kv, prog, splitters, stats, stats_mu):
                 if rc == -8:
                     raise Corruption("block decode failed (pipeline)")
                 if rc < 0:
-                    # -1 codec, -2/-3/-4 capacity disagreements with the
-                    # properties: the serial path covers these.
+                    # -1 a codec the native scan lacks, -2/-3/-4 capacity
+                    # disagreements with the properties: the serial path
+                    # covers these.
                     raise PipelineIneligible(f"native scan rc={rc}")
                 if rc > 0:
                     last = fp.n_base + rows + int(rc) - 1
@@ -331,6 +343,11 @@ def _scan_file(fi, fp, kv, prog, splitters, stats, stats_mu):
             if s == n_shards - 1 and (rows != fp.ne or k_used != fp.rk
                                       or v_used != fp.rv):
                 raise PipelineIneligible("scan totals disagree with props")
+            if trace_handle is not None and bhi > blo:
+                telemetry.span_event_under(
+                    trace_handle, "pipeline.scan",
+                    (time.time() - t_sh) * 1e6, file=fi, shard=s,
+                    blocks=bhi - blo)
             prog.mark(fi, s)
         with stats_mu:
             stats.prefetch_hits += fp.pf.hits
@@ -425,15 +442,18 @@ def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
     n_shards = len(splitters) + 1
     snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
     depth = 1  # shards in flight beyond the one being finished
-    pendings = []  # (ranges, lmap, pending) | None
+    pendings = []  # (shard, ranges, lmap, pending) | None
 
     def finish_one(item):
         if item is None:
             return
-        ranges, lmap, pending = item
+        s, ranges, lmap, pending = item
         t0 = time.time()
         o, z, _cx, hc = ck.fused_uniform_shard_finish(pending)
-        shared.stats.device_wait_usec += int((time.time() - t0) * 1e6)
+        dwait = time.time() - t0
+        shared.stats.device_wait_usec += int(dwait * 1e6)
+        telemetry.span_event_under(shared.trace, "pipeline.merge_gc",
+                                   dwait * 1e6, shard=s, device=True)
         if hc:
             raise PipelineIneligible("complex groups present")
         og = lmap[o]
@@ -482,7 +502,7 @@ def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
                 snapshots, bottommost,
             )
             shared.stats.transfer_time_usec += int((time.time() - t0) * 1e6)
-            pendings.append((ranges, _ranges_lmap(ranges), pending))
+            pendings.append((s, ranges, _ranges_lmap(ranges), pending))
         # Keep the lookahead window in flight; finish older shards now.
         while len(pendings) > depth:
             finish_one(pendings.pop(0))
@@ -493,9 +513,10 @@ def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
 
 class _Shared:
     """Arrays shared between compute and the writer (aliased per the
-    chunked-order contract of write_tables_columnar) plus the stats."""
+    chunked-order contract of write_tables_columnar), the stats, and the
+    telemetry handle the stage threads parent their spans under."""
 
-    __slots__ = ("trailer_override", "seqs", "vtypes", "stats")
+    __slots__ = ("trailer_override", "seqs", "vtypes", "stats", "trace")
 
 
 def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
@@ -551,6 +572,9 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
     shared.vtypes = np.zeros(kv.n, dtype=np.int32)
     shared.stats = stats
     stats.pipelined = True
+    # The job's span lives on the calling thread; the stage threads parent
+    # their per-shard spans under this exported handle.
+    shared.trace = telemetry.current_handle()
 
     prog = _Progress(len(files))
     outq: Queue = Queue(maxsize=4)
@@ -559,7 +583,8 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
     t_scan0 = time.time()
     rthreads = [
         threading.Thread(target=_scan_file, name=f"pipeline-scan-{fi}",
-                         args=(fi, fp, kv, prog, splitters, stats, stats_mu),
+                         args=(fi, fp, kv, prog, splitters, stats, stats_mu,
+                               shared.trace),
                          daemon=True)
         for fi, fp in enumerate(files)
     ]
@@ -574,14 +599,24 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
     cthread.start()
 
     def chunk_stream():
+        chunk = 0
+        t_resumed = None  # when the writer got control back after a yield
         while True:
             t0 = time.time()
+            if t_resumed is not None:
+                # The time since the previous chunk was handed over is that
+                # chunk's encode + write.
+                telemetry.span_event_under(
+                    shared.trace, "pipeline.encode_write",
+                    (t0 - t_resumed) * 1e6, chunk=chunk)
+                chunk += 1
             item = outq.get()
             stats.pipeline_stall_usec += int((time.time() - t0) * 1e6)
             if item is _DONE:
                 return
             if isinstance(item, _Err):
                 raise item.exc
+            t_resumed = time.time()
             yield item
 
     t_wr = time.time()

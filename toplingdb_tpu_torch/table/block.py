@@ -6,7 +6,8 @@ Each entry is
     | key_delta | value
 with full keys at restart points every `restart_interval` entries; the block
 ends with a fixed32 array of restart offsets and a fixed32 restart count.
-This slice reads blocks front to back only.
+The iterator walks forward and backward and seeks to either end; keyed
+seeks come with a later slice.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ class BlockBuilder:
 
 
 class BlockIter:
-    """Forward iterator over a finished block, in stored (key) order."""
+    """Iterator over a finished block, in stored (key) order."""
 
     def __init__(self, contents: bytes):
         if len(contents) < 4:
@@ -79,13 +80,18 @@ class BlockIter:
         self._num_restarts = coding.decode_fixed32(contents, len(contents) - 4)
         if self._num_restarts == 0:
             raise Corruption("block has no restarts")
-        self._limit = len(contents) - 4 - 4 * self._num_restarts
-        if self._limit < 0:
+        self._restart_off = len(contents) - 4 - 4 * self._num_restarts
+        if self._restart_off < 0:
             raise Corruption("block restart array overflows block")
+        self._limit = self._restart_off
         self._cur = self._limit  # invalid
         self._key = b""
         self._val_off = 0
         self._val_len = 0
+        self._restart_idx = 0
+
+    def _restart_point(self, i: int) -> int:
+        return coding.decode_fixed32(self._data, self._restart_off + 4 * i)
 
     def _decode_at(self, off: int, prev_key: bytes) -> tuple[int, bytes]:
         """Decode entry at `off` given previous key; returns (next_off, key)
@@ -111,10 +117,27 @@ class BlockIter:
         return bytes(self._data[self._val_off : self._val_off + self._val_len])
 
     def seek_to_first(self) -> None:
+        self._restart_idx = 0
         self._cur = 0
         if self._limit == 0:
             return
         self._next_off, self._key = self._decode_at(0, b"")
+
+    def seek_to_last(self) -> None:
+        if self._limit == 0:
+            self._cur = self._limit
+            return
+        self._restart_idx = self._num_restarts - 1
+        off = self._restart_point(self._restart_idx)
+        key = b""
+        while True:
+            self._cur = off
+            nxt, key = self._decode_at(off, key)
+            if nxt >= self._limit:
+                self._key = key
+                self._next_off = nxt
+                return
+            off = nxt
 
     def next(self) -> None:
         assert self.valid()
@@ -123,6 +146,30 @@ class BlockIter:
             return
         self._cur = self._next_off
         self._next_off, self._key = self._decode_at(self._cur, self._key)
+
+    def prev(self) -> None:
+        assert self.valid()
+        target = self._cur
+        if target == 0:
+            self._cur = self._limit
+            return
+        # The last restart before the previous entry, then decode forward.
+        while (self._restart_idx > 0
+               and self._restart_point(self._restart_idx) >= target):
+            self._restart_idx -= 1
+        off = self._restart_point(self._restart_idx)
+        key = b""
+        prev_off = None
+        while off < target:
+            prev_off = off
+            off, key = self._decode_at(off, key)
+        if prev_off is None:
+            self._cur = self._limit
+            return
+        # The last decode was the entry at prev_off: its key and value span.
+        self._cur = prev_off
+        self._key = key
+        self._next_off = target
 
     def entries(self):
         """Yield (key, value) from current position to end."""

@@ -1,8 +1,8 @@
-"""On-disk SST framing: block handles, trailers, footer (copied from
-toplingdb_tpu/table/format.py, trimmed to uncompressed blocks).
+"""On-disk SST framing: block handles, trailers, footer, compression
+(copied from toplingdb_tpu/table/format.py).
 
 Every block is written as
-    payload | compression_type(1B) | masked_crc32c(4B over payload+type)
+    payload' | compression_type(1B) | masked_crc32c(4B over payload'+type)
 and the file ends with a fixed-size footer
     checksum_type(1B) | metaindex_handle | index_handle | padding
     | version(4B) | magic(8B)
@@ -11,6 +11,9 @@ Handles are (offset, size) varint64 pairs.
 
 from __future__ import annotations
 
+import bz2
+import lzma
+import zlib
 from dataclasses import dataclass
 
 from toplingdb_tpu_torch.utils import coding, crc32c
@@ -22,9 +25,17 @@ BLOCK_TRAILER_SIZE = 5  # type byte + crc32
 MAX_HANDLE_LEN = 20     # two varint64s
 FOOTER_LEN = 1 + 2 * MAX_HANDLE_LEN + 4 + 8
 
-# Compression type byte: only NO_COMPRESSION is read or written by this
-# slice of the port.
+# Compression type byte (the reference's enum where the codec exists in
+# both: kNoCompression=0, kSnappyCompression=1, kZlibCompression=2,
+# kBZip2=3, kLZ4=4, kLZ4HC=5, kZSTD=7; kLZMA takes a private value).
 NO_COMPRESSION = 0
+SNAPPY_COMPRESSION = 1
+ZLIB_COMPRESSION = 2
+BZIP2_COMPRESSION = 3
+LZ4_COMPRESSION = 4
+LZ4HC_COMPRESSION = 5
+ZSTD_COMPRESSION = 7
+LZMA_COMPRESSION = 0x21
 
 CHECKSUM_CRC32C = 1
 
@@ -70,6 +81,13 @@ class Footer:
         return bytes(out)
 
     @staticmethod
+    def read_magic(buf: bytes) -> int:
+        """The footer's magic number (format dispatch)."""
+        if len(buf) < FOOTER_LEN:
+            raise Corruption("footer too short")
+        return coding.decode_fixed64(buf, len(buf) - 8)
+
+    @staticmethod
     def decode(buf: bytes, expected_magic: int = MAGIC) -> "Footer":
         if len(buf) < FOOTER_LEN:
             raise Corruption("footer too short")
@@ -84,21 +102,100 @@ class Footer:
         return Footer(mih, ih, checksum_type, version, magic)
 
 
-def write_block(wfile, raw: bytes, ctype: int = NO_COMPRESSION) -> BlockHandle:
-    """Frame an uncompressed block with its trailer and append it."""
+def compress(data: bytes, ctype: int, level: int | None = None,
+             dict_: bytes = b"") -> bytes:
+    if ctype == NO_COMPRESSION:
+        return data
+    if ctype == SNAPPY_COMPRESSION:
+        from toplingdb_tpu_torch.utils import codecs
+
+        return codecs.snappy_compress(data)
+    if ctype == ZLIB_COMPRESSION:
+        return zlib.compress(data, 6 if level is None else level)
+    if ctype == BZIP2_COMPRESSION:
+        return bz2.compress(data)
+    if ctype == LZ4_COMPRESSION:
+        from toplingdb_tpu_torch.utils import codecs
+
+        return codecs.lz4_compress(data)
+    if ctype == LZ4HC_COMPRESSION:
+        from toplingdb_tpu_torch.utils import codecs
+
+        return codecs.lz4_compress(data, hc=True, level=level or 9)
+    if ctype == ZSTD_COMPRESSION:
+        from toplingdb_tpu_torch.utils import codecs
+
+        return codecs.zstd_compress(data, 3 if level is None else level,
+                                    dict_)
+    if ctype == LZMA_COMPRESSION:
+        return lzma.compress(data)
+    raise NotSupported(f"compression type {ctype}")
+
+
+def decompress(data: bytes, ctype: int, dict_: bytes = b"") -> bytes:
+    """Inflate one block payload. A payload its codec rejects raises
+    Corruption, as does an unknown type byte."""
+    if ctype == NO_COMPRESSION:
+        return data
+    try:
+        if ctype == SNAPPY_COMPRESSION:
+            from toplingdb_tpu_torch.utils import codecs
+
+            return codecs.snappy_decompress(data)
+        if ctype == ZLIB_COMPRESSION:
+            return zlib.decompress(data)
+        if ctype == BZIP2_COMPRESSION:
+            return bz2.decompress(data)
+        if ctype in (LZ4_COMPRESSION, LZ4HC_COMPRESSION):
+            from toplingdb_tpu_torch.utils import codecs
+
+            return codecs.lz4_decompress(data)
+        if ctype == ZSTD_COMPRESSION:
+            from toplingdb_tpu_torch.utils import codecs
+
+            return codecs.zstd_decompress(data, dict_)
+        if ctype == LZMA_COMPRESSION:
+            return lzma.decompress(data)
+    except (zlib.error, OSError, EOFError, lzma.LZMAError, ValueError) as e:
+        raise Corruption(f"corrupt block (compression type {ctype}): {e}")
+    raise Corruption(f"unknown compression type {ctype}")
+
+
+def compress_for_block(raw: bytes, ctype: int, level: int | None = None,
+                       dict_: bytes = b"") -> tuple[bytes, int]:
+    """The CPU half of write_block: (payload, effective_type), falling back
+    to uncompressed when compression gains less than 12.5%. Safe on worker
+    threads (every codec releases the GIL)."""
     if ctype != NO_COMPRESSION:
-        raise NotSupported(f"compression type {ctype}")
+        c = compress(raw, ctype, level, dict_)
+        if len(c) < len(raw) - len(raw) // 8:
+            return c, ctype
+    return raw, NO_COMPRESSION
+
+
+def write_compressed_block(wfile, payload: bytes,
+                           out_type: int) -> BlockHandle:
+    """The IO half of write_block: frame with the trailer, append, return
+    the handle."""
     offset = wfile.file_size()
-    crc = crc32c.value(raw + bytes([NO_COMPRESSION]))
-    wfile.append(raw)
-    wfile.append(bytes([NO_COMPRESSION]))
+    crc = crc32c.value(payload + bytes([out_type]))
+    wfile.append(payload)
+    wfile.append(bytes([out_type]))
     wfile.append(coding.encode_fixed32(crc32c.mask(crc)))
-    return BlockHandle(offset, len(raw))
+    return BlockHandle(offset, len(payload))
 
 
-def read_block(rfile, handle: BlockHandle,
-               verify_checksums: bool = True) -> bytes:
-    """Read and verify one uncompressed block."""
+def write_block(wfile, raw: bytes, ctype: int = NO_COMPRESSION,
+                level: int | None = None, dict_: bytes = b"") -> BlockHandle:
+    """Compress (if profitable), frame with the trailer, append. Returns
+    the handle."""
+    payload, out_type = compress_for_block(raw, ctype, level, dict_)
+    return write_compressed_block(wfile, payload, out_type)
+
+
+def read_block(rfile, handle: BlockHandle, verify_checksums: bool = True,
+               dict_: bytes = b"") -> bytes:
+    """Read, verify the trailer CRC, decompress."""
     buf = rfile.read(handle.offset, handle.size + BLOCK_TRAILER_SIZE)
     if len(buf) != handle.size + BLOCK_TRAILER_SIZE:
         raise Corruption(
@@ -115,7 +212,4 @@ def read_block(rfile, handle: BlockHandle,
                 f"block checksum mismatch at {handle.offset}: "
                 f"stored {stored:#x} != computed {actual:#x}"
             )
-    if ctype != NO_COMPRESSION:
-        raise NotSupported(f"compressed block (type {ctype}) at "
-                           f"{handle.offset}: codecs are not ported yet")
-    return payload
+    return decompress(payload, ctype, dict_)

@@ -1,13 +1,14 @@
 """SST reader (copied from toplingdb_tpu/table/reader.py, trimmed).
 
 Opens a block-based SST: footer → metaindex → {filter, properties,
-range-del} blocks and the single-level index held in memory; data blocks are
-read per iterator step through the iterator's own readahead buffer
-(`table/prefetch.py`). The columnar compaction scan goes through the native
-whole-file decoder (`ops/columnar_io.py`), which uses the reader for the
-file handle, the index and the properties; the per-entry route iterates.
-Partitioned indexes and filters, block caches and compressed blocks come
-with later slices.
+range-del, compression-dictionary} blocks and the single-level index held
+in memory; data blocks are read (and inflated, with the file's ZSTD
+dictionary where it has one) per iterator step through the iterator's own
+readahead buffer (`table/prefetch.py`). The columnar compaction scan goes
+through the native whole-file decoder (`ops/columnar_io.py`), which uses
+the reader for the file handle, the index, the properties and the
+dictionary; the per-entry route iterates. Partitioned indexes and filters
+and block caches come with later slices.
 """
 
 from __future__ import annotations
@@ -46,11 +47,8 @@ class TableReader:
         mit.seek_to_first()
         for k, v in mit.entries():
             self._meta_handles[k] = fmt.BlockHandle.decode_exact(v)
-        if (METAINDEX_FILTER_PARTS in self._meta_handles
-                or METAINDEX_COMPRESSION_DICT in self._meta_handles):
-            raise NotSupported(
-                "partitioned filters and compression dictionaries are not "
-                "ported yet")
+        if METAINDEX_FILTER_PARTS in self._meta_handles:
+            raise NotSupported("partitioned filters are not ported yet")
 
         self.properties = TableProperties()
         ph = self._meta_handles.get(METAINDEX_PROPERTIES)
@@ -74,6 +72,12 @@ class TableReader:
         rh = self._meta_handles.get(METAINDEX_RANGE_DEL)
         if rh is not None:
             self._range_del_data = fmt.read_block(rfile, rh, verify)
+
+        # The ZSTD dictionary the data blocks were compressed with.
+        self._compression_dict = b""
+        dh = self._meta_handles.get(METAINDEX_COMPRESSION_DICT)
+        if dh is not None:
+            self._compression_dict = fmt.read_block(rfile, dh, verify)
 
     def close(self) -> None:
         self._f.close()
@@ -123,7 +127,8 @@ class TableIterator:
             return
         handle = fmt.BlockHandle.decode_exact(self._idx.value())
         self._data = BlockIter(
-            fmt.read_block(self._pf, handle, self._r.opts.verify_checksums))
+            fmt.read_block(self._pf, handle, self._r.opts.verify_checksums,
+                           self._r._compression_dict))
 
     def valid(self) -> bool:
         return self._data is not None and self._data.valid()
@@ -141,6 +146,13 @@ class TableIterator:
             self._data.seek_to_first()
             self._skip_forward_empty()
 
+    def seek_to_last(self) -> None:
+        self._idx.seek_to_last()
+        self._load_data_block()
+        if self._data is not None:
+            self._data.seek_to_last()
+            self._skip_backward_empty()
+
     def next(self) -> None:
         assert self.valid()
         self._data.next()
@@ -152,6 +164,13 @@ class TableIterator:
             self._load_data_block()
             if self._data is not None:
                 self._data.seek_to_first()
+
+    def _skip_backward_empty(self) -> None:
+        while self._data is not None and not self._data.valid():
+            self._idx.prev()
+            self._load_data_block()
+            if self._data is not None:
+                self._data.seek_to_last()
 
     def entries(self):
         while self.valid():

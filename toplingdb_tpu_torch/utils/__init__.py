@@ -1,1 +1,2 @@
-"""Host utilities: status model, byte coding, checksums."""
+"""Host utilities: status model, byte coding, checksums, block codecs,
+merge operators, compaction filters and span tracing."""
