@@ -83,6 +83,30 @@ Phases (any failure ends the run with a non-zero exit code):
      "cuda" and on "cpu": identical SST bytes; then bench.py's
      compaction_zstd_out shape (bench.py:1778-1785), uncompressed in and
      zstd out, the same.
+ 12. table formats: (a) bench.py's compaction_zip_out job
+     (bench.py:1786-1799): phase 4's generator at N = 10,000,000,
+     uncompressed inputs, TableOptions(format="zip", compression=ZSTD)
+     outputs, bottommost, no snapshots, through run_device_compaction(
+     device_name="cuda"): it must run pipelined, launch gc_rows 32 times
+     and the merge 96 times (counts set to 0 just before, read just
+     after), every output read back through ZipTableReader.scan_columnar
+     matches the oracle, and the serial route writes the same bytes; wall,
+     raw MB/s, encode_write_s / pipeline_stall_s, the device busy share,
+     file bytes and the ratio beside phase 4's job. (b) the zip job at
+     1,000,000 entries on "cuda", "cpu" and with zip_plane=False
+     (identical bytes), then with 3 snapshots and 20 range tombstones, the
+     same. (c) protection_bytes_per_key=8 at 1,000,000 entries on the
+     pipelined, serial and block-assembly routes: each route's bytes equal
+     the unprotected job's, and its kernels launch. (d) at 200,000 entries
+     each, "cuda" against "cpu" (identical bytes, the oracle, one gc_rows
+     launch on the per-entry route): a two-level index with partitioned
+     filters, a fixed-prefix extractor on the block format (the columnar
+     route), a CompactOnDeletionCollector, single_fast, plain with a
+     prefix extractor, cuckoo, and zip inputs. (e) a job dir with
+     table_format "zip", prefix_extractor "tpulsm.FixedPrefix.4" and a
+     collector, written with the port's CompactionParams, through run_job
+     on "cuda" at 200,000 entries: status ok, the oracle, and the bytes of
+     an in-process "cpu" run with the job's table options.
 
 The script's total wall is printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -120,6 +144,8 @@ COMPLEX_N = 2_000_000
 ENTRIES_N = 1_000_000
 CODEC_N = 1_000_000     # phase 11 (b) and (c)
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
+FORMAT_N = 1_000_000    # phase 12 (b) and (c)
+ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
 
 
 def log(msg: str) -> None:
@@ -135,7 +161,7 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
                p_del=0.0, num_runs=4, n_tombs=0, mix=None):
     """bench.py's build_inputs (bench.py:78): 8 ASCII decimal digit keys,
     20-byte values, ~2x overwrite factor (key space N/2), one sorted run per
-    file. With p_del > 0 that share of rows are DELETIONs (empty values).
+    file (a zip table where `topts.format` is "zip", else block-based). With p_del > 0 that share of rows are DELETIONs (empty values).
     With `mix` ({value type: share}) the rows' types are drawn from it
     instead: MERGE rows carry an 8-byte little-endian operand (seqno % 97),
     DELETION and SINGLE_DELETION rows an empty value. With n_tombs > 0 each
@@ -151,7 +177,10 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
         ColumnarKV,
         write_tables_columnar,
     )
+    from toplingdb_tpu_torch.table.zip_table import write_tables_zip_columnar
 
+    writer = (write_tables_zip_columnar if topts.format == "zip"
+              else write_tables_columnar)
     rng = np.random.default_rng(seed)
     key_space = max(n_entries // 2, 1)
     per_run = n_entries // num_runs
@@ -202,7 +231,7 @@ def write_runs(env, dbdir, icmp, topts, n_entries, alloc, seed=1234,
             vals[s][np.arange(20)[None, :] < val_lens[:, None]],
             val_offs, val_lens,
         )
-        files = write_tables_columnar(
+        files = writer(
             env, dbdir, alloc, icmp, topts, kv,
             np.arange(n, dtype=np.int32), np.full(n, -1, dtype=np.int64),
             vt[s], seqs[s], creation_time=1,
@@ -249,19 +278,50 @@ def expected_survivors(rows, snapshots, bottommost=True, tombs=()):
     return key[keep], out_seq[keep], vt[keep], seq[keep]
 
 
+def scan_output(env, path, icmp):
+    """One output SST of any format read back with the port's readers, as
+    a ColumnarKV: block-based tables through the native columnar scan, zip
+    tables through ZipTableReader.scan_columnar (the native key and
+    value-group decoders), the other formats by iteration."""
+    from toplingdb_tpu_torch.ops.columnar_io import (
+        ColumnarKV,
+        scan_table_columnar,
+    )
+    from toplingdb_tpu_torch.table.factory import open_table
+    from toplingdb_tpu_torch.table.reader import TableReader
+    from toplingdb_tpu_torch.table.zip_table import ZipTableReader
+
+    r = open_table(env.new_random_access_file(path), icmp)
+    try:
+        if isinstance(r, TableReader):
+            return scan_table_columnar(r)
+        if isinstance(r, ZipTableReader):
+            kb, ko, kl, vb, vo, vl = r.scan_columnar(0, r.n)
+            return ColumnarKV(kb, ko.astype(np.int32), kl.astype(np.int32),
+                              vb, vo.astype(np.int32), vl.astype(np.int32))
+        it = r.new_iterator()
+        it.seek_to_first()
+        ents = list(it.entries())
+    finally:
+        r.close()
+    kl = np.array([len(k) for k, _ in ents], dtype=np.int32)
+    vl = np.array([len(v) for _, v in ents], dtype=np.int32)
+    return ColumnarKV(
+        np.frombuffer(b"".join(k for k, _ in ents) or b"\0", np.uint8),
+        (np.cumsum(kl) - kl).astype(np.int32), kl,
+        np.frombuffer(b"".join(v for _, v in ents) or b"\0", np.uint8),
+        (np.cumsum(vl) - vl).astype(np.int32), vl)
+
+
 def read_outputs(env, dbdir, icmp, outputs):
-    """Every output SST read back with the port's reader: (key, seq,
+    """Every output SST read back with the port's readers: (key, seq,
     vtype, value last byte or -1) in file order."""
     from toplingdb_tpu_torch.db import filename
-    from toplingdb_tpu_torch.ops.columnar_io import scan_table_columnar
-    from toplingdb_tpu_torch.table.reader import TableReader
 
     keys, seqs, vts, vlast = [], [], [], []
     for m in outputs:
-        r = TableReader(env.new_random_access_file(
-            filename.table_file_name(dbdir, m.number)), icmp)
-        kv = scan_table_columnar(r)
-        r.close()
+        kv = scan_output(env, filename.table_file_name(dbdir, m.number),
+                         icmp)
         assert np.all(kv.key_lens == 16), "unexpected key length"
         kb = kv.key_buf.reshape(kv.n, 16)
         digits = kb[:, :8].astype(np.int64) - ord("0")
@@ -1833,6 +1893,258 @@ def compressed_path(torch, env, dbdir, icmp, n, n_each, n_slow, main_jobs,
         remove_ssts(dbdir, metas)
 
 
+def zip_options(**kw):
+    """bench.py's compaction_zip_out output options (bench.py:1786-1799):
+    zip tables, zstd values, the default compression options."""
+    from toplingdb_tpu_torch.table import format as fmt
+    from toplingdb_tpu_torch.table.builder import TableOptions
+
+    return TableOptions(format="zip", compression=fmt.ZSTD_COMPRESSION, **kw)
+
+
+def counted(kernels):
+    """Set both kernels' counts to 0; returns a reader of (gc_rows,
+    merge_runs) launches since."""
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    return lambda: (kernels.gc_rows.launches,
+                    kernels.merge_runs_perm.launches)
+
+
+def formats_path(torch, env, dbdir, icmp, n_main, n_each, n_entry,
+                 main_jobs, device_name="cuda"):
+    """Phase 12, table formats: (a) bench.py's zip job at n_main entries
+    through the pipelined plane, (b) the zip job at n_each entries on the
+    card, on the CPU and on the numpy encoders, then with snapshots and
+    range tombstones, (c) per-entry protection at n_each entries on the
+    pipelined, serial and block-assembly routes, (d) the per-entry formats
+    and options at n_entry entries, card against CPU, (e) the worker with
+    zip outputs, a prefix extractor and a collector. `main_jobs`: phase
+    4's jobs (its uncompressed numbers, same N)."""
+    from toplingdb_tpu_torch.compaction import worker
+    from toplingdb_tpu_torch.compaction.executor import (
+        CompactionParams,
+        table_options_from_params,
+    )
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.table.builder import TableOptions
+    from toplingdb_tpu_torch.utils.slice_transform import (
+        FixedPrefixTransform,
+    )
+    from toplingdb_tpu_torch.utils.table_properties_collector import (
+        CompactOnDeletionCollectorFactory,
+    )
+
+    card = device_name != "cpu"
+    plain_topts = TableOptions()
+
+    # (a) the zip headline job.
+    t0 = time.time()
+    metas, rows, _ = write_runs(env, dbdir, icmp, plain_topts, n_main,
+                                Alloc(9))
+    in_bytes = sum(m.file_size for m in metas)
+    log(f"[zip] headline inputs: {n_main} entries, {len(metas)} SSTs, "
+        f"{in_bytes} bytes ({time.time() - t0:.1f}s)")
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, plane_timers() as timers:
+        outs, stats, wall = compact(env, dbdir, icmp, zip_options(), metas,
+                                    [], device_name, Alloc(10_000))
+    gc_n, mr_n = launched()
+    assert stats.pipelined, "the zip job did not run pipelined"
+    if card:
+        assert gc_n > 0, "a kernel of the path never launched"
+        assert mr_n == 3 * gc_n == 3 * len(programs.log), (gc_n, mr_n)
+        if n_main == MAIN_N:
+            assert (gc_n, mr_n) == (32, 96), (gc_n, mr_n)
+    mbps = n_main * RAW_PER_ENTRY / 1e6 / wall
+    out_size = sum(m.file_size for m in outs)
+    _, busy = programs.busy(wall)
+    ph = stats.phase_dict()
+    plain = next(j for j in main_jobs if j["label"] == "no snapshots")
+    log(f"[zip] headline job (pipelined, {device_name}): wall {wall:.3f}s, "
+        f"{mbps:.2f} raw MB/s, {stats.output_records} entries in "
+        f"{len(outs)} SSTs, launches gc_rows={gc_n} merge_runs={mr_n}, "
+        f"{busy}, encode_write_s={ph.get('encode_write_s', 0)} "
+        f"pipeline_stall_s={ph.get('pipeline_stall_s', 0)}, phases "
+        f"{json.dumps(ph)}; host seconds by thread/function "
+        f"{timers.text()}")
+    t1 = time.time()
+    n_ok = check_against_oracle(env, dbdir, icmp, outs, rows, [])
+    log(f"[zip] headline job: {n_ok} entries read back through "
+        f"ZipTableReader.scan_columnar match the oracle "
+        f"({time.time() - t1:.1f}s)")
+    serial, sstats, swall = compact(env, dbdir, icmp, zip_options(), metas,
+                                    [], device_name, Alloc(20_000),
+                                    pipeline=False)
+    assert not sstats.pipelined
+    assert sst_bytes(dbdir, serial) == sst_bytes(dbdir, outs), \
+        "the pipelined and serial zip routes write different bytes"
+    log(f"[zip] headline job: input files {in_bytes} B, output files "
+        f"{out_size} B, raw {n_main * RAW_PER_ENTRY} B (ratio raw/output "
+        f"{n_main * RAW_PER_ENTRY / out_size:.3f}); serial route "
+        f"{swall:.3f}s ({n_main * RAW_PER_ENTRY / 1e6 / swall:.2f} raw "
+        f"MB/s), same bytes, phases {json.dumps(sstats.phase_dict())}; "
+        f"phase 4's uncompressed job at the same N: wall "
+        f"{plain['wall_s']:.3f}s, {plain['raw_MBps']:.2f} raw MB/s, output "
+        f"files {plain['out_bytes']} B")
+    remove_ssts(dbdir, outs)
+    remove_ssts(dbdir, serial)
+    remove_ssts(dbdir, metas)
+
+    # (b) the zip job at n_each: card, CPU, numpy encoders; then with
+    # snapshots and range tombstones.
+    max_seq = n_each // 4 * 4
+    snaps3 = [max_seq // 5, max_seq // 2, 4 * max_seq // 5]
+    zip_b = None
+    for label, snaps, n_tombs, p_del in (("plain", [], 0, 0.0),
+                                          ("3 snapshots, 20 tombstones",
+                                           snaps3, 20, 0.1)):
+        metas, rows, tombs = write_runs(env, dbdir, icmp, plain_topts,
+                                        n_each, Alloc(9), p_del=p_del,
+                                        n_tombs=n_tombs)
+        launched = counted(kernels)
+        o, st, w = compact(env, dbdir, icmp, zip_options(), metas, snaps,
+                           device_name, Alloc(30_000))
+        gc_n, mr_n = launched()
+        if card:
+            assert gc_n > 0 and mr_n > 0, "[zip] a kernel never launched"
+        got = sst_bytes(dbdir, o)
+        co, _, cw = compact(env, dbdir, icmp, zip_options(), metas, snaps,
+                            "cpu", Alloc(40_000))
+        no, nst, nw = compact(env, dbdir, icmp, zip_options(), metas, snaps,
+                              device_name, Alloc(50_000), zip_plane=False)
+        assert got == sst_bytes(dbdir, co) == sst_bytes(dbdir, no), \
+            f"[zip] {label}: cuda, cpu and the numpy encoders differ"
+        check_against_oracle(env, dbdir, icmp, o, rows, snaps, tombs)
+        log(f"[zip] {n_each} entries, {label}: {device_name} {w:.3f}s "
+            f"(pipelined={st.pipelined}, launches gc_rows={gc_n} "
+            f"merge_runs={mr_n}), cpu {cw:.3f}s, numpy encoders {nw:.3f}s "
+            f"(pipelined={nst.pipelined}): identical bytes, oracle matched, "
+            f"output files {sum(len(b) for b in got)} B")
+        if zip_b is None:
+            zip_b = got
+        for x in (o, co, no):
+            remove_ssts(dbdir, x)
+        remove_ssts(dbdir, metas)
+
+    # (c) protection on the pipelined, serial and block-assembly routes.
+    metas, rows, _ = write_runs(env, dbdir, icmp, plain_topts, n_each,
+                                Alloc(9), p_del=0.1)
+    base, _, bw = compact(env, dbdir, icmp, plain_topts, metas, snaps3,
+                          device_name, Alloc(30_000))
+    want = sst_bytes(dbdir, base)
+    prot = TableOptions(protection_bytes_per_key=8)
+    for i, (route, kw) in enumerate((
+            ("pipelined", {}), ("serial", dict(pipeline=False)),
+            ("block assembly", dict(device_blocks=True, num_shards=1)))):
+        launched = counted(kernels)
+        sp0 = kernels.shared_prefix_lengths.launches
+        o, st, w = compact(env, dbdir, icmp, prot, metas, snaps3,
+                           device_name, Alloc(40_000 + 10_000 * i), **kw)
+        gc_n, mr_n = launched()
+        sp_n = kernels.shared_prefix_lengths.launches - sp0
+        if card:
+            assert gc_n > 0 and mr_n > 0, f"[protection] {route}: no launch"
+            if route == "block assembly":
+                assert sp_n > 0, "[protection] shared_prefix never launched"
+        assert st.pipelined == (route == "pipelined")
+        assert sst_bytes(dbdir, o) == want, \
+            f"[protection] {route}: other bytes than the unprotected job"
+        log(f"[protection] {n_each} entries, {route}: {device_name} "
+            f"{w:.3f}s (every output re-read and verified; unprotected "
+            f"{bw:.3f}s), launches gc_rows={gc_n} merge_runs={mr_n} "
+            f"shared_prefix={sp_n}, the unprotected bytes")
+        remove_ssts(dbdir, o)
+    remove_ssts(dbdir, base)
+    remove_ssts(dbdir, metas)
+
+    # (d) the per-entry formats and options, card against CPU.
+    cases = [
+        ("two-level index, partitioned filters", plain_topts,
+         TableOptions(index_type="two_level", partition_filters=True)),
+        ("block, fixed-prefix extractor", plain_topts,
+         TableOptions(prefix_extractor=FixedPrefixTransform(5))),
+        ("collectors", plain_topts, TableOptions(
+            properties_collector_factories=[
+                CompactOnDeletionCollectorFactory(128, 8)])),
+        ("single_fast", plain_topts, TableOptions(format="single_fast")),
+        ("plain, prefix extractor", plain_topts, TableOptions(
+            format="plain", prefix_extractor=FixedPrefixTransform(6))),
+        ("cuckoo", plain_topts, TableOptions(format="cuckoo")),
+        ("zip inputs", zip_options(), plain_topts),
+    ]
+    for name, in_opts, out_opts in cases:
+        metas, rows, _ = write_runs(env, dbdir, icmp, in_opts, n_entry,
+                                    Alloc(9), p_del=0.1)
+        launched = counted(kernels)
+        o, st, w = compact(env, dbdir, icmp, out_opts, metas, [],
+                           device_name, Alloc(30_000))
+        gc_n, mr_n = launched()
+        # A prefix extractor alone keeps the job on the columnar route
+        # (its writer writes a whole-key filter); the rest go per entry.
+        route = "columnar" if name.startswith("block,") else "per-entry"
+        if card and route == "columnar":
+            assert gc_n > 0 and mr_n > 0, (name, gc_n, mr_n)
+        elif card:
+            assert (gc_n, mr_n) == (1, 0), (name, gc_n, mr_n)
+        co, _, cw = compact(env, dbdir, icmp, out_opts, metas, [], "cpu",
+                            Alloc(40_000))
+        got = sst_bytes(dbdir, o)
+        assert got == sst_bytes(dbdir, co), \
+            f"[{name}] cuda and cpu write different bytes"
+        check_against_oracle(env, dbdir, icmp, o, rows, [])
+        log(f"[{name}] {n_entry} entries ({route} route): {device_name} "
+            f"{w:.3f}s, launches "
+            f"gc_rows={gc_n} merge_runs={mr_n}, cpu {cw:.3f}s, identical "
+            f"bytes, oracle matched, output files "
+            f"{sum(len(b) for b in got)} B in {len(o)} SSTs")
+        remove_ssts(dbdir, o)
+        remove_ssts(dbdir, co)
+        remove_ssts(dbdir, metas)
+
+    # (e) the worker: zip outputs, a prefix extractor and a collector.
+    metas, rows, _ = write_runs(env, dbdir, icmp, plain_topts, n_entry,
+                                Alloc(9), p_del=0.1)
+    inputs = [os.path.join(dbdir, f"{m.number:06d}.sst") for m in metas]
+    job = os.path.join(dbdir, "job-formats")
+    os.makedirs(os.path.join(job, "out"))
+    params = CompactionParams(
+        job_id=12, attempt=1, dbname=dbdir,
+        output_dir=os.path.join(job, "out"), input_files=inputs,
+        output_level=2, bottommost=True, max_output_file_size=1 << 62,
+        snapshots=[], comparator="tpulsm.BytewiseComparator",
+        merge_operator=None, compaction_filter=None,
+        compression=zip_options().compression, block_size=4096,
+        creation_time=1, table_format="zip",
+        prefix_extractor="tpulsm.FixedPrefix.4",
+        collectors=[CompactOnDeletionCollectorFactory(128, 8).serialize()],
+        device="cuda" if card else "cpu-jax", lease_sec=0.0)
+    with open(os.path.join(job, "params.json"), "w") as f:
+        f.write(params.to_json())
+    launched = counted(kernels)
+    t0 = time.time()
+    rc = worker.run_job(job)
+    wall = time.time() - t0
+    gc_n, mr_n = launched()
+    res, wouts, wbytes = job_outputs(job)
+    assert rc == 0 and res["status"] == "ok", res["status"]
+    if card:
+        assert gc_n == 1, gc_n
+    co, _, cw = compact(env, dbdir, icmp, table_options_from_params(params),
+                        metas, [], "cpu", Alloc(40_000))
+    assert wbytes == sst_bytes(dbdir, co), \
+        "[worker] the job's bytes differ from the in-process cpu run"
+    check_against_oracle(env, os.path.join(job, "out"), icmp, wouts, rows,
+                         [])
+    log(f"[worker] {n_entry} entries, zip + FixedPrefix.4 + "
+        f"CompactOnDeletionCollector, run_job on {params.device!r}: status "
+        f"ok in {wall:.3f}s, launches gc_rows={gc_n} merge_runs={mr_n}, the "
+        f"bytes of the in-process cpu run ({cw:.3f}s), oracle matched")
+    shutil.rmtree(job)
+    remove_ssts(dbdir, co)
+    remove_ssts(dbdir, metas)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1890,6 +2202,8 @@ def main() -> int:
         entries_path(torch, env, dbdir, icmp, topts, ENTRIES_N, smi)
         compressed_path(torch, env, dbdir, icmp, MAIN_N, CODEC_N,
                         SLOW_CODEC_N, _jobs)
+        formats_path(torch, env, dbdir, icmp, MAIN_N, FORMAT_N, ENTRY_N,
+                     _jobs)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)

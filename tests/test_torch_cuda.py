@@ -26,7 +26,11 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   pipeline; zstd with a dictionary through the serial route) write the
   same SST bytes on "cuda" as on "cpu", and the dcompact worker with
   device "cuda" writes the bytes it writes with "cpu-jax"; without a card
-  (or with it hidden) a "cuda" worker job fails with no output.
+  (or with it hidden) a "cuda" worker job fails with no output;
+- a zstd zip job over 2^19+ rows through the pipelined plane (both
+  kernels, the native zip writer), a protected pipelined job and a
+  single_fast job on the per-entry route write the same SST bytes on
+  "cuda" as on "cpu".
 """
 
 import os
@@ -755,3 +759,94 @@ def test_cuda_worker_job_without_a_card_fails(tmp_path, monkeypatch):
     assert worker.main(["--job-dir", job]) == 1
     assert "no CUDA device" in results()["status"]
     assert os.listdir(os.path.join(job, "out")) == []
+
+
+def _format_job(dev_name, env, dbdir, icmp, in_topts, out_topts, metas,
+                base, snaps=(), max_out=1 << 62, **kw):
+    """One bottommost job; returns (output bytes, stats, the kernels'
+    launches during it)."""
+    c = Compaction(level=0, output_level=2, inputs=list(metas),
+                   bottommost=True, max_output_file_size=max_out)
+    alloc = iter(range(base, base + 100))
+    counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches]
+    outs, stats = dc.run_device_compaction(
+        env, dbdir, icmp, c, TableCache(env, dbdir, icmp, in_topts),
+        out_topts, list(snaps), new_file_number=lambda: next(alloc),
+        creation_time=1, device_name=dev_name, **kw)
+    launches = [kernels.gc_rows.launches - counts[0],
+                kernels.merge_runs_perm.launches - counts[1]]
+    return ([open(f"{dbdir}/{m.number:06d}.sst", "rb").read()
+             for m in outs], stats, launches)
+
+
+def test_zip_job_writes_the_cpu_bytes(dev, tmp_path):
+    """A zstd zip job over 2^19 + rows (4 runs of 140,000) through the
+    pipelined plane at its real shard shape: gc_rows once and the merge
+    three times per shard on the card, the zip writer on the native plane;
+    the bytes equal the "cpu" run's."""
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    in_topts = TableOptions()
+    zip_topts = TableOptions(format="zip", compression=7)
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(31)
+    metas = [_write_run(env, dbdir, icmp, in_topts, 10 + i, rng, 140_000,
+                        1 + i * 140_000) for i in range(4)]
+    got, stats, launches = _format_job("cuda", env, dbdir, icmp, in_topts,
+                                       zip_topts, metas, 100)
+    shards = launches[0]
+    assert stats.pipelined and shards >= 2 and launches[1] == 3 * shards
+    want, cstats, _ = _format_job("cpu", env, dbdir, icmp, in_topts,
+                                  zip_topts, metas, 200)
+    assert cstats.pipelined and got == want
+
+
+def test_protected_job_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    """protection_bytes_per_key=8 through the pipelined plane: the outputs
+    are verified and equal the unprotected bytes and the "cpu" run's."""
+    monkeypatch.setattr(pl, "MIN_PIPELINE_ROWS", 256)
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    in_topts = TableOptions()
+    topts = TableOptions(protection_bytes_per_key=8)
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(32)
+    metas = [_write_run(env, dbdir, icmp, in_topts, 10 + i, rng, 4096,
+                        1 + i * 4096) for i in range(4)]
+    verified = []
+    orig = dc.verify_output_table
+
+    def spy(*a, **k):
+        verified.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(dc, "verify_output_table", spy)
+    got, stats, launches = _format_job(
+        "cuda", env, dbdir, icmp, in_topts, topts, metas, 100,
+        snaps=[3000, 9000], max_out=1 << 16, pipeline_shards=4)
+    assert stats.pipelined and launches == [4, 12]
+    assert len(verified) == len(got) > 1
+    want, _, _ = _format_job("cpu", env, dbdir, icmp, in_topts, topts,
+                             metas, 200, snaps=[3000, 9000],
+                             max_out=1 << 16, pipeline_shards=4)
+    plain, _, _ = _format_job("cuda", env, dbdir, icmp, in_topts, in_topts,
+                              metas, 300, snaps=[3000, 9000],
+                              max_out=1 << 16, pipeline_shards=4)
+    assert got == want == plain
+
+
+def test_single_fast_job_writes_the_cpu_bytes(dev, tmp_path):
+    """A single_fast job takes the per-entry route: one gc_rows launch on
+    the card, and the bytes equal the "cpu" run's."""
+    env, icmp = PosixEnv(), InternalKeyComparator()
+    in_topts = TableOptions()
+    topts = TableOptions(format="single_fast", hash_index=True)
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(33)
+    metas = [_write_run(env, dbdir, icmp, in_topts, 10 + i, rng, 4096,
+                        1 + i * 4096) for i in range(3)]
+    got, _, launches = _format_job("cuda", env, dbdir, icmp, in_topts,
+                                   topts, metas, 100, snaps=[3000],
+                                   max_out=1 << 16)
+    assert launches == [1, 0]
+    want, _, _ = _format_job("cpu", env, dbdir, icmp, in_topts, topts,
+                             metas, 200, snaps=[3000], max_out=1 << 16)
+    assert len(got) > 1 and got == want

@@ -267,9 +267,11 @@ def _long_key_inputs(dbdir):
     "over_1024_snapshots"])
 def test_unsupported_jobs_raise_without_output(tmp_path, kind):
     """MERGE and SINGLE_DELETION rows and compressed tables, once refused,
-    now write the reference's bytes on the columnar route. What the port
-    still refuses (a non-bytewise comparator, user keys over 128 bytes,
-    which reach the per-entry route and are refused there as in the
+    now write the reference's bytes on the columnar route (every table
+    format and table option, also once refused, is held against the
+    reference in test_torch_table_formats.py and test_torch_zip.py). What
+    the port still refuses (a non-bytewise comparator, user keys over 128
+    bytes, which reach the per-entry route and are refused there as in the
     reference, and more than 1024 snapshots, refused the same way) raises
     NotSupported and leaves no file behind."""
     from toplingdb_tpu.utils.merge_operator import StringAppendOperator

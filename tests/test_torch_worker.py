@@ -4,9 +4,10 @@ CompactionParams.to_json() over reference-written snappy inputs, run by
 both packages' run_job on two copies of it (the reference on JAX's CPU
 backend). The output SST bytes, results.json's status and output_files
 (every field) and the key set of its stats must be equal. Tolerance:
-bitwise. Also: the jobs the port refuses fail with rc 1, an error status
-and no output, the heartbeat of a leased job, and the CLI in a
-subprocess."""
+bitwise. Also: jobs with a prefix extractor, collectors or zip outputs
+through both workers, the job the port refuses (the shared-store mode)
+failing with rc 1, an error status and no output, the heartbeat of a
+leased job, and the CLI in a subprocess."""
 
 import json
 import os
@@ -236,12 +237,29 @@ def test_worker_heartbeat(tmp_path):
 
 @pytest.mark.parametrize("field,value,needle", [
     ("store_spec", "mem://store", "store_spec"),
-    ("prefix_extractor", "rocksdb.FixedPrefix.4", "prefix_extractor"),
-    ("collectors", [{"name": "x"}], "collectors"),
-    ("table_format", "zip", "table format"),
+    ("prefix_extractor", "tpulsm.FixedPrefix.4", None),
+    ("collectors", [{"name": "CompactOnDeletionCollectorFactory",
+                     "window_size": 16, "deletion_trigger": 3,
+                     "deletion_ratio": 0.0}], None),
+    ("table_format", "zip", None),
 ])
 def test_worker_refuses_without_output(tmp_path, field, value, needle):
-    inputs = write_inputs(str(tmp_path), seed=6, n_files=1, per_file=50)
+    """The shared-store mode is refused with rc 1 and no output. A prefix
+    extractor, property collectors and the zip format, once refused the
+    same way, now run: the same job dir through both workers' device data
+    plane gives the same bytes."""
+    inputs = write_inputs(str(tmp_path), seed=6, n_files=1 if needle else 3,
+                          per_file=50 if needle else 400)
+    if needle is None:
+        job = write_job(str(tmp_path), inputs, device="cpu-jax",
+                        **{field: value})
+        ref, port = run_both(job)
+        assert ref[0] == 0 and ref[1]["status"] == "ok"
+        assert_same_job(ref, port)
+        if field == "collectors":
+            assert any(f["marked_for_compaction"]
+                       for f in port[1]["output_files"])
+        return
     job = write_job(str(tmp_path), inputs, **{field: value})
     assert worker.main(["--job-dir", job]) == 1
     res = json.load(open(os.path.join(job, "results.json")))

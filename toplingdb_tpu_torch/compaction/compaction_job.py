@@ -1,9 +1,9 @@
 """Per-job compaction stats, their phase spans, the tombstones a job
 writes, and the per-entry output cutter (copied from
 toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats`,
-`emit_phase_spans`, `surviving_tombstone_fragments` and `build_outputs`,
-without per-entry protection; the CPU CompactionJob comes with the DB
-engine in a later slice)."""
+`emit_phase_spans`, `surviving_tombstone_fragments`, `verify_output_table`
+and `build_outputs`; the CPU CompactionJob comes with the DB engine in a
+later slice)."""
 
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ from toplingdb_tpu_torch.db.range_del import (
     fragment_tombstones,
 )
 from toplingdb_tpu_torch.db.version_edit import FileMetaData
-from toplingdb_tpu_torch.table.factory import new_table_builder
-from toplingdb_tpu_torch.utils.status import NotFound
+from toplingdb_tpu_torch.table.factory import new_table_builder, open_table
+from toplingdb_tpu_torch.utils import protection
+from toplingdb_tpu_torch.utils.status import Corruption, NotFound
 
 
 @dataclass
@@ -148,6 +149,44 @@ def _delete_quietly(env, path: str) -> None:
         pass  # best-effort cleanup; the job's own error propagates
 
 
+def verify_output_table(env, path: str, icmp, table_options,
+                        expected: dict, expected_entries: int) -> None:
+    """Per-entry protection check of one output SST (RocksDB's
+    paranoid_file_checks with per-entry checksums): re-read the file from
+    disk, checksums verified, and match every entry against the multiset
+    `expected` (truncated protect_entry checksum → count) of the entries
+    meant for it. Raises Corruption when a writer altered a key or a
+    value, or when the entry counts differ."""
+    import dataclasses
+
+    pb = table_options.protection_bytes_per_key
+    topts = dataclasses.replace(table_options, verify_checksums=True)
+    reader = open_table(env.new_random_access_file(path), icmp, topts)
+    try:
+        remaining = dict(expected)
+        n = 0
+        it = reader.new_iterator()
+        it.seek_to_first()
+        for ikey, val in it.entries():
+            uk, _seq, t = dbformat.split_internal_key(ikey)
+            cs = protection.truncate(protection.protect_entry(t, uk, val),
+                                     pb)
+            left = remaining.get(cs, 0)
+            if left <= 0:
+                raise Corruption(
+                    f"compaction output {path}: entry {uk!r} (type {t}) "
+                    "does not match any emitted survivor — output bytes "
+                    "corrupted by the write plane")
+            remaining[cs] = left - 1
+            n += 1
+        if n != expected_entries:
+            raise Corruption(
+                f"compaction output {path}: {n} entries on disk, "
+                f"{expected_entries} emitted")
+    finally:
+        reader.close()
+
+
 def build_outputs(env, dbname: str, icmp, compaction: Compaction,
                   entries_iter, surviving_tombstones, new_file_number,
                   table_options, stats: CompactionStats,
@@ -157,17 +196,22 @@ def build_outputs(env, dbname: str, icmp, compaction: Compaction,
     """Cut the survivor stream into output tables (RocksDB's
     CompactionOutputs / SubcompactionState::AddToOutput): outputs are cut
     only at user-key boundaries once a file reaches max_output_file_size,
-    and while range tombstones survive there is one output. On any failure
-    every partial or finished output of the job is deleted before the
-    error propagates."""
+    and while range tombstones survive there is one output. With
+    protection_bytes_per_key set, each entry's checksum is banked as it is
+    added and every finished file is re-read and verified against its bank
+    (verify_output_table). On any failure every partial or finished output
+    of the job is deleted before the error propagates."""
+    pb = table_options.protection_bytes_per_key
     outputs: list[FileMetaData] = []
     builder = None
     wfile = None
     fnum = None
     blob_refs: set[int] = set()
+    emitted: dict[int, int] = {}  # checksum → count, the open output's
+    emitted_n = 0
 
     def open_output():
-        nonlocal builder, wfile, fnum
+        nonlocal builder, wfile, fnum, emitted, emitted_n
         fnum = new_file_number()
         wfile = env.new_writable_file(filename.table_file_name(dbname, fnum))
         builder = new_table_builder(wfile, icmp, table_options,
@@ -175,6 +219,8 @@ def build_outputs(env, dbname: str, icmp, compaction: Compaction,
                                     column_family_id=column_family[0],
                                     column_family_name=column_family[1])
         blob_refs.clear()
+        emitted = {}
+        emitted_n = 0
 
     def close_output(pending_tombstones):
         nonlocal builder, wfile
@@ -192,6 +238,9 @@ def build_outputs(env, dbname: str, icmp, compaction: Compaction,
         props = builder.finish()
         wfile.sync()
         wfile.close()
+        if pb:
+            verify_output_table(env, filename.table_file_name(dbname, fnum),
+                                icmp, table_options, emitted, emitted_n)
         meta = FileMetaData(
             number=fnum,
             file_size=env.get_file_size(
@@ -229,6 +278,11 @@ def build_outputs(env, dbname: str, icmp, compaction: Compaction,
                 # sibling outputs overlap.
                 close_output([])
                 open_output()
+            if pb:
+                cs = protection.truncate(
+                    protection.protect_entry(ikey[-8], uk, value), pb)
+                emitted[cs] = emitted.get(cs, 0) + 1
+                emitted_n += 1
             builder.add(ikey, value)
             if ikey[-8] == dbformat.ValueType.BLOB_INDEX:
                 blob_refs.add(decode_blob_index(value)[0])

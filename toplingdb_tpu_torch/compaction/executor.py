@@ -1,7 +1,8 @@
 """The serialized dcompact job boundary (copied from
 toplingdb_tpu/compaction/executor.py, trimmed to the job boundary:
-`CompactionParams`, `CompactionResults`, `encode_file_meta` and
-`decode_file_meta`). A job dir's params.json and results.json carry these
+`CompactionParams`, `CompactionResults`, `encode_file_meta`,
+`decode_file_meta`, and `table_options_from_params`, the worker's table
+options). A job dir's params.json and results.json carry these
 as JSON, in the reference's format, so a job written by either package is
 read by the other's worker. The executors that submit jobs read the DB's
 options and come with the DB engine.
@@ -69,6 +70,29 @@ class CompactionParams:
     @staticmethod
     def from_json(s: str) -> "CompactionParams":
         return CompactionParams(**json.loads(s))
+
+
+def table_options_from_params(params: CompactionParams):
+    """The output table options a job's params name, as the reference's
+    worker builds them: block size, compression, format, the prefix
+    extractor by its registry name and the collector factories from
+    their serialized form (other fields keep their defaults)."""
+    from toplingdb_tpu_torch.table.builder import TableOptions
+    from toplingdb_tpu_torch.utils.slice_transform import (
+        slice_transform_from_name,
+    )
+    from toplingdb_tpu_torch.utils.table_properties_collector import (
+        create_collector_factory,
+    )
+
+    return TableOptions(
+        block_size=params.block_size, compression=params.compression,
+        format=params.table_format,
+        prefix_extractor=(slice_transform_from_name(params.prefix_extractor)
+                          if params.prefix_extractor else None),
+        properties_collector_factories=[
+            create_collector_factory(d) for d in params.collectors],
+    )
 
 
 @dataclasses.dataclass

@@ -18,10 +18,12 @@ The job's `device` field picks the route:
                            host-sorted inputs
 A non-bytewise comparator takes the per-entry branch (with the device
 stream for the device names, which refuses it, as the reference's does).
-Any other device name fails with ValueError, and a job that needs what the
-port does not carry yet (`store_spec`, `prefix_extractor`, property
-`collectors`, a table format other than "block") fails with NotSupported,
-both before any file is written.
+Every table format, a prefix extractor and property collectors travel in
+the job (`table_format`, `prefix_extractor`, `collectors`;
+`executor.table_options_from_params`). Any other device name fails with
+ValueError, and a job that needs what the port does not carry yet (the
+shared-store mode, `store_spec`) fails with NotSupported, both before any
+file is written.
 
 Usage: python -m toplingdb_tpu_torch.compaction.worker --job-dir DIR
 """
@@ -92,18 +94,9 @@ def _run_job_inner(job_dir: str, params, t_enter: float,
     if params.device not in _DEVICE_NAMES and params.device != "cpu":
         raise ValueError(f"unknown device {params.device!r}: expected one "
                          f"of {sorted(_DEVICE_NAMES) + ['cpu']}")
-    refused = []
     if params.store_spec:
-        refused.append("the shared-store mode (store_spec)")
-    if params.prefix_extractor:
-        refused.append("prefix_extractor")
-    if params.collectors:
-        refused.append("table property collectors")
-    if params.table_format != "block":
-        refused.append(f"table format {params.table_format!r}")
-    if refused:
         raise NotSupported("dcompact job needs what the port does not "
-                           "carry yet: " + ", ".join(refused))
+                           "carry yet: the shared-store mode (store_spec)")
     return _run_job_body(job_dir, params, t_enter, waiting_usec)
 
 
@@ -115,7 +108,10 @@ def _run_job_body(job_dir: str, params, t_enter: float,
         emit_phase_spans,
         surviving_tombstone_fragments,
     )
-    from toplingdb_tpu_torch.compaction.executor import CompactionResults
+    from toplingdb_tpu_torch.compaction.executor import (
+        CompactionResults,
+        table_options_from_params,
+    )
     from toplingdb_tpu_torch.compaction.picker import Compaction
     from toplingdb_tpu_torch.db import dbformat
     from toplingdb_tpu_torch.db.blob import BlobSource
@@ -125,7 +121,6 @@ def _run_job_body(job_dir: str, params, t_enter: float,
     )
     from toplingdb_tpu_torch.db.version_edit import FileMetaData
     from toplingdb_tpu_torch.env import PosixEnv
-    from toplingdb_tpu_torch.table.builder import TableOptions
     from toplingdb_tpu_torch.table.factory import open_table
     from toplingdb_tpu_torch.utils import telemetry
     from toplingdb_tpu_torch.utils.compaction_filter import (
@@ -146,9 +141,7 @@ def _run_job_body(job_dir: str, params, t_enter: float,
                 if params.merge_operator else None)
     cfilter = (create_compaction_filter(params.compaction_filter)
                if params.compaction_filter else None)
-    topts = TableOptions(block_size=params.block_size,
-                         compression=params.compression,
-                         format=params.table_format)
+    topts = table_options_from_params(params)
     column_family = (params.cf_id, params.cf_name)
 
     blob_source = BlobSource(env, params.dbname)

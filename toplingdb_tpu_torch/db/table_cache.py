@@ -1,6 +1,7 @@
-"""TableCache: open TableReaders keyed by file number (copied from
+"""TableCache: open table readers keyed by file number (copied from
 toplingdb_tpu/db/table_cache.py, trimmed: no eviction, no block cache, no
-statistics)."""
+statistics). Files open through `table.factory.open_table`, so every
+table format reads."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import threading
 from toplingdb_tpu_torch.db import filename
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.table.builder import TableOptions
-from toplingdb_tpu_torch.table.reader import TableReader
+from toplingdb_tpu_torch.table.factory import open_table
 
 
 class TableCache:
@@ -19,17 +20,17 @@ class TableCache:
         self._dbname = dbname
         self._icmp = icmp
         self._topts = table_options or TableOptions()
-        self._readers: dict[int, TableReader] = {}
+        self._readers: dict = {}
         self._lock = threading.Lock()
 
-    def get_reader(self, file_number: int) -> TableReader:
+    def get_reader(self, file_number: int):
         with self._lock:
             r = self._readers.get(file_number)
             if r is not None:
                 return r
         path = filename.table_file_name(self._dbname, file_number)
-        r = TableReader(self._env.new_random_access_file(path), self._icmp,
-                        self._topts)
+        r = open_table(self._env.new_random_access_file(path), self._icmp,
+                       self._topts)
         with self._lock:
             existing = self._readers.setdefault(file_number, r)
         if existing is not r:

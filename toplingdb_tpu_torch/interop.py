@@ -1,13 +1,18 @@
 """Carrying a job's state across from toplingdb_tpu.
 
-The state of this system is its files, and the port's SST format is its own
-copy of the reference's, so SSTs cross in both directions as they are. What
-does not cross by itself is a live options object: `table_options_from_plain`
-builds the port's TableOptions from plain values — the scalar fields of the
-reference's TableOptions, `filter_policy_name` (the name the SST
-properties record for the filter policy, empty for none) and
+The state of this system is its files, and the port's SST formats are its
+own copies of the reference's, so SSTs cross in both directions as they
+are. What does not cross by itself is a live options object:
+`table_options_from_plain` builds the port's TableOptions from plain
+values — the scalar fields of the reference's TableOptions (`format`,
+`index_type`, `metadata_block_size`, `partition_filters`,
+`protection_bytes_per_key` among them), `filter_policy_name` (the name the
+SST properties record for the filter policy, empty for none),
 `compression_opts` (a dict of the reference's CompressionOptions fields:
-`level`, `max_dict_bytes`, `zstd_max_train_bytes`).
+`level`, `max_dict_bytes`, `zstd_max_train_bytes`), `prefix_extractor` (the
+extractor's name, as SST properties and dcompact jobs record it; empty or
+None for none) and `properties_collector_factories` (the factories'
+serialized dicts, as dcompact jobs carry them).
 
 A dcompact job crosses as its job dir: the port's worker
 (`compaction/worker.py`) reads a params.json written by the reference's
@@ -27,14 +32,20 @@ import dataclasses
 
 from toplingdb_tpu_torch.table.builder import CompressionOptions, TableOptions
 from toplingdb_tpu_torch.table.filter import filter_policy_from_name
+from toplingdb_tpu_torch.utils.slice_transform import slice_transform_from_name
 from toplingdb_tpu_torch.utils.status import InvalidArgument
+from toplingdb_tpu_torch.utils.table_properties_collector import (
+    create_collector_factory,
+)
 
 
 def table_options_from_plain(d: dict) -> TableOptions:
     """TableOptions from a dict of plain values. Keys are TableOptions
-    field names (every scalar field of the reference's options),
-    `filter_policy_name` and `compression_opts` (a dict of
-    CompressionOptions fields); unknown keys raise InvalidArgument."""
+    field names (every scalar field of the reference's options;
+    `prefix_extractor` as a name, `properties_collector_factories` as
+    serialized dicts), `filter_policy_name` and `compression_opts` (a dict
+    of CompressionOptions fields); unknown keys or names raise
+    InvalidArgument."""
     fields = {f.name for f in dataclasses.fields(TableOptions)}
     copt_fields = {f.name for f in dataclasses.fields(CompressionOptions)}
     kwargs = {}
@@ -49,6 +60,13 @@ def table_options_from_plain(d: dict) -> TableOptions:
                 raise InvalidArgument(
                     f"unknown compression options {sorted(bad)!r}")
             kwargs[k] = CompressionOptions(**v)
+        elif k == "prefix_extractor":
+            pe = slice_transform_from_name(v) if v else None
+            if v and pe is None:
+                raise InvalidArgument(f"unknown prefix extractor {v!r}")
+            kwargs[k] = pe
+        elif k == "properties_collector_factories":
+            kwargs[k] = [create_collector_factory(c) for c in v]
         elif k in fields and k != "filter_policy":
             kwargs[k] = v
         else:

@@ -6,7 +6,8 @@ on first use, into the package's git-ignored build directory
 check `lib()` for None (no toolchain) and raise NotSupported. The codec
 libraries (libsnappy, libzstd) are dlopen'd by the library at run time; a
 missing one makes its codec's native paths report "unavailable", and the
-callers take the Python codecs instead.
+callers take the Python codecs instead (the zip plane's encoders, asked
+for zstd without the library, report it and their caller raises).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ _lib: ctypes.CDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 2
+_ABI_VERSION = 3
 
 
 def _build() -> bool:
@@ -154,6 +155,37 @@ def _bind(l: ctypes.CDLL) -> None:
         u8p, i64,                                   # key out + cap
         i32p, i32p, i32p, i32p, i64,
         i64, i64,                                   # key_base, val_image_base
+    ]
+    # The zip-table plane (table/zip_table.py).
+    i32 = ctypes.c_int32
+    l.tpulsm_zip_newkey.restype = i64
+    l.tpulsm_zip_newkey.argtypes = [
+        u8p, i64, i64p, i64, i32,                   # key buf, offs, n, uklen
+        u8p,                                        # newkey out
+    ]
+    l.tpulsm_zip_encode_keys.restype = i64
+    l.tpulsm_zip_encode_keys.argtypes = [
+        u8p, i64, i64p, i64, i32,                   # key buf, offs, n, klen
+        i64p, i32, i32,                             # trailer_ov, group, m16
+        u8p, u8p, i64, u8p,                         # meta, sfx + cap, gso
+    ]
+    l.tpulsm_zip_encode_values.restype = i64
+    l.tpulsm_zip_encode_values.argtypes = [
+        u8p, i64, i64p, i64p, i64,                  # val buf, offs, lens, n
+        i32, i32, i32, i32,                         # vg, compress, level, mdb
+        u8p, i64, u8p, i64,                         # dict + cap, blob + cap
+        u8p, u8p, i64p,                             # go, flags, out meta
+    ]
+    l.tpulsm_zip_decode_keys.restype = i64
+    l.tpulsm_zip_decode_keys.argtypes = [
+        u8p, i64, i32, u8p, i64,                    # kmeta, meta16, ksfx
+        u8p, i64, i64, i32,                         # kgso, n, group
+        i64, i64, u8p, i64, i64p, i64p, i64,        # e0, e1, out, key_base
+    ]
+    l.tpulsm_zip_group_decode.restype = i64
+    l.tpulsm_zip_group_decode.argtypes = [
+        u8p, i64, u8p, i64, u8p, i64, u8p, i64,     # blob, go, flags, dict
+        i64, i64, i64p, u8p, i64,                   # g0, g1, raw offs, out
     ]
 
 

@@ -3,9 +3,11 @@
 // routines it calls from toplingdb_tpu/native/tpulsm_native.cc, trimmed to
 // them: CRC32C, xxhash64, block decode/encode, data-section and index-block
 // builds (uncompressed, and snappy / zstd compressed), bloom fills, the
-// whole-file columnar scans (inflating snappy / zstd blocks inline) and the
-// bulk block inflate. The codec libraries are dlopen'd at run time, so the
-// build needs none of their headers.
+// whole-file columnar scans (inflating snappy / zstd blocks inline), the
+// bulk block inflate, and the zip-table plane (key front-coding, value-group
+// encode with ZSTD dictionaries, key and value-group decode). The codec
+// libraries are dlopen'd at run time, so the build needs none of their
+// headers.
 //
 // Build:
 //   g++ -O3 -shared -fPIC -std=c++17 -pthread -o lib.so tpulsm_native.cc -ldl
@@ -17,6 +19,7 @@
 #include <cstring>
 #include <functional>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 #ifdef __linux__
@@ -53,7 +56,7 @@ extern "C" {
 // ABI version handshake: the ctypes loader refuses a .so whose version
 // differs from its own expectation. Bump whenever any exported signature
 // changes shape.
-#define TPULSM_ABI_VERSION 2
+#define TPULSM_ABI_VERSION 3
 
 int32_t tpulsm_abi_version(void) { return TPULSM_ABI_VERSION; }
 
@@ -745,6 +748,15 @@ typedef size_t (*zstd_dec_fn)(void*, size_t, const void*, size_t);
 typedef size_t (*zstd_cmp_fn)(void*, size_t, const void*, size_t, int);
 typedef size_t (*zstd_bound_fn)(size_t);
 typedef unsigned (*zstd_err_fn)(size_t);
+typedef void* (*zstd_ctx_new_fn)();
+typedef size_t (*zstd_ctx_free_fn)(void*);
+typedef size_t (*zstd_cmp_dict_fn)(void*, void*, size_t, const void*, size_t,
+                                   const void*, size_t, int);
+typedef size_t (*zstd_dec_dict_fn)(void*, void*, size_t, const void*, size_t,
+                                   const void*, size_t);
+typedef size_t (*zdict_train_fn)(void*, size_t, const void*, const size_t*,
+                                 unsigned);
+typedef unsigned (*zdict_err_fn)(size_t);
 
 struct Codecs {
   snappy_len_fn snappy_len = nullptr;
@@ -756,6 +768,17 @@ struct Codecs {
   zstd_cmp_fn zstd_cmp = nullptr;
   zstd_bound_fn zstd_bound = nullptr;
   zstd_err_fn zstd_err = nullptr;
+  // Dictionary surface for the zip-table kernels: the same libzstd the
+  // Python utils/codecs.py binds, so trained dictionaries and compressed
+  // frames are bit-identical across the two encoders.
+  zstd_ctx_new_fn zstd_cctx_new = nullptr;
+  zstd_ctx_free_fn zstd_cctx_free = nullptr;
+  zstd_cmp_dict_fn zstd_cmp_dict = nullptr;
+  zstd_ctx_new_fn zstd_dctx_new = nullptr;
+  zstd_ctx_free_fn zstd_dctx_free = nullptr;
+  zstd_dec_dict_fn zstd_dec_dict = nullptr;
+  zdict_train_fn zdict_train = nullptr;
+  zdict_err_fn zdict_err = nullptr;
 };
 
 const Codecs& codecs() {
@@ -779,6 +802,16 @@ const Codecs& codecs() {
       r.zstd_cmp = (zstd_cmp_fn)dlsym(z, "ZSTD_compress");
       r.zstd_bound = (zstd_bound_fn)dlsym(z, "ZSTD_compressBound");
       r.zstd_err = (zstd_err_fn)dlsym(z, "ZSTD_isError");
+      r.zstd_cctx_new = (zstd_ctx_new_fn)dlsym(z, "ZSTD_createCCtx");
+      r.zstd_cctx_free = (zstd_ctx_free_fn)dlsym(z, "ZSTD_freeCCtx");
+      r.zstd_cmp_dict =
+          (zstd_cmp_dict_fn)dlsym(z, "ZSTD_compress_usingDict");
+      r.zstd_dctx_new = (zstd_ctx_new_fn)dlsym(z, "ZSTD_createDCtx");
+      r.zstd_dctx_free = (zstd_ctx_free_fn)dlsym(z, "ZSTD_freeDCtx");
+      r.zstd_dec_dict =
+          (zstd_dec_dict_fn)dlsym(z, "ZSTD_decompress_usingDict");
+      r.zdict_train = (zdict_train_fn)dlsym(z, "ZDICT_trainFromBuffer");
+      r.zdict_err = (zdict_err_fn)dlsym(z, "ZDICT_isError");
     }
     return r;
   }();
@@ -1315,6 +1348,532 @@ int64_t tpulsm_build_data_section_c(
   }
   *out_len = used;
   return nb;
+}
+
+// ---------------------------------------------------------------------------
+// Zip-table data plane (table/zip_table.py): batched builder kernels that
+// replace the numpy matrix materialization in write_tables_zip_columnar
+// (key gather + front-coding + value group compression were the whole
+// serial cost), and reader kernels that decode front-coded key groups /
+// compressed value groups straight into the scan plane's columnar
+// buffers. The builder kernels must be BIT-IDENTICAL to the Python
+// encoders — same front-coding ties, same ZDICT sampling stride, same
+// per-group "compress only if smaller" decision — because the Python
+// writer is the parity oracle.
+// ---------------------------------------------------------------------------
+
+static inline uint32_t zload_u32(const uint8_t* p) {
+  uint32_t v;
+  std::memcpy(&v, p, 4);
+  return v;
+}
+
+// newkey[i] = 1 iff the first `uklen` key bytes of row i differ from row
+// i-1 (row 0 always 1): the survivor-boundary vector the zip writer cuts
+// value groups on. offs are per-row byte offsets into key_buf. Returns n,
+// or -3 on out-of-range offsets.
+int64_t tpulsm_zip_newkey(const uint8_t* key_buf, int64_t key_buf_len,
+                          const int64_t* offs, int64_t n, int32_t uklen,
+                          uint8_t* out) {
+  if (n <= 0 || uklen < 0) return -3;
+  for (int64_t i = 0; i < n; i++)
+    if (offs[i] < 0 || offs[i] > key_buf_len - uklen) return -3;
+  out[0] = 1;
+  size_t nthreads = effective_cpus();
+  if (nthreads > 8) nthreads = 8;
+  if (n < (1 << 16)) nthreads = 1;
+  std::atomic<int64_t> next_c{1};
+  const int64_t kChunk = 1 << 15;
+  auto worker = [&] {
+    while (true) {
+      int64_t lo = next_c.fetch_add(kChunk, std::memory_order_relaxed);
+      if (lo >= n) return;
+      int64_t hi = lo + kChunk < n ? lo + kChunk : n;
+      for (int64_t i = lo; i < hi; i++)
+        out[i] = std::memcmp(key_buf + offs[i], key_buf + offs[i - 1],
+                             (size_t)uklen) != 0;
+    }
+  };
+  if (nthreads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (size_t i = 1; i < nthreads; i++) {
+      try {
+        pool.emplace_back(worker);
+      } catch (...) {
+        break;
+      }
+    }
+    worker();
+    for (auto& w : pool) w.join();
+  }
+  return n;
+}
+
+// Front-code one zip segment: rows are full internal keys of uniform
+// length `klen` at key_buf[offs[i]], with the 8-byte trailer REPLACED by
+// the little-endian bytes of trailer_ov[i] when >= 0 (the compaction's
+// seqno-zeroing patch, applied on the fly instead of on a materialized
+// matrix). Emits (plen, slen) meta pairs (u16 LE when meta16 else u8),
+// the concatenated suffix stream, and the per-group suffix offsets
+// (u32). Prefix lengths tie byte-for-byte with the numpy argmin over the
+// FULL key including the patched trailer. Returns the suffix length, or
+// -2 sfx_cap too small, -3 invalid shape/offsets.
+int64_t tpulsm_zip_encode_keys(
+    const uint8_t* key_buf, int64_t key_buf_len, const int64_t* offs,
+    int64_t n, int32_t klen, const int64_t* trailer_ov, int32_t group,
+    int32_t meta16, uint8_t* meta_out, uint8_t* sfx_out, int64_t sfx_cap,
+    uint8_t* gso_out) {
+  if (n <= 0 || group <= 0 || klen < 8) return -3;
+  if (meta16 ? klen > 0xFFFF : klen > 0xFF) return -3;
+  for (int64_t i = 0; i < n; i++)
+    if (offs[i] < 0 || offs[i] > key_buf_len - klen) return -3;
+  const int32_t uk = klen - 8;
+  auto tbyte = [&](int64_t i, int32_t j) -> uint8_t {
+    int64_t ov = trailer_ov[i];
+    if (ov >= 0) return (uint8_t)((uint64_t)ov >> (8 * (j - uk)));
+    return key_buf[offs[i] + j];
+  };
+  std::vector<uint32_t> pl(n, 0);
+  size_t nthreads = effective_cpus();
+  if (nthreads > 8) nthreads = 8;
+  if (n < (1 << 14)) nthreads = 1;
+  {
+    std::atomic<int64_t> next_c{0};
+    const int64_t kChunk = 1 << 13;
+    auto worker = [&] {
+      while (true) {
+        int64_t lo = next_c.fetch_add(kChunk, std::memory_order_relaxed);
+        if (lo >= n) return;
+        int64_t hi = lo + kChunk < n ? lo + kChunk : n;
+        for (int64_t i = lo; i < hi; i++) {
+          if (i == 0 || i % group == 0) continue;  // group heads: plen 0
+          const uint8_t* a = key_buf + offs[i - 1];
+          const uint8_t* b = key_buf + offs[i];
+          int32_t p = 0;
+          while (p < uk && a[p] == b[p]) p++;
+          if (p == uk)
+            while (p < klen && tbyte(i - 1, p) == tbyte(i, p)) p++;
+          pl[i] = (uint32_t)p;
+        }
+      }
+    };
+    if (nthreads <= 1) {
+      worker();
+    } else {
+      std::vector<std::thread> pool;
+      for (size_t i = 1; i < nthreads; i++) {
+        try {
+          pool.emplace_back(worker);
+        } catch (...) {
+          break;
+        }
+      }
+      worker();
+      for (auto& w : pool) w.join();
+    }
+  }
+  // Serial: meta pairs, per-row suffix offsets, group directory.
+  std::vector<int64_t> soff(n);
+  int64_t cum = 0;
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t p = pl[i], s = (uint32_t)klen - p;
+    if (meta16) {
+      uint16_t a = (uint16_t)p, b = (uint16_t)s;
+      std::memcpy(meta_out + 4 * i, &a, 2);
+      std::memcpy(meta_out + 4 * i + 2, &b, 2);
+    } else {
+      meta_out[2 * i] = (uint8_t)p;
+      meta_out[2 * i + 1] = (uint8_t)s;
+    }
+    soff[i] = cum;
+    if (i % group == 0) {
+      if (cum > 0xFFFFFFFFll) return -3;  // u32 directory would wrap
+      uint32_t v = (uint32_t)cum;
+      std::memcpy(gso_out + 4 * (i / group), &v, 4);
+    }
+    cum += s;
+  }
+  if (cum > sfx_cap) return -2;
+  // Parallel: suffix byte emission.
+  {
+    std::atomic<int64_t> next_c{0};
+    const int64_t kChunk = 1 << 13;
+    auto worker = [&] {
+      while (true) {
+        int64_t lo = next_c.fetch_add(kChunk, std::memory_order_relaxed);
+        if (lo >= n) return;
+        int64_t hi = lo + kChunk < n ? lo + kChunk : n;
+        for (int64_t i = lo; i < hi; i++) {
+          int32_t j = (int32_t)pl[i];
+          uint8_t* dst = sfx_out + soff[i];
+          const uint8_t* src = key_buf + offs[i];
+          if (j < uk) {
+            std::memcpy(dst, src + j, (size_t)(uk - j));
+            dst += uk - j;
+            j = uk;
+          }
+          int64_t ov = trailer_ov[i];
+          if (ov >= 0) {
+            for (; j < klen; j++)
+              *dst++ = (uint8_t)((uint64_t)ov >> (8 * (j - uk)));
+          } else if (j < klen) {
+            std::memcpy(dst, src + j, (size_t)(klen - j));
+          }
+        }
+      }
+    };
+    if (nthreads <= 1) {
+      worker();
+    } else {
+      std::vector<std::thread> pool;
+      for (size_t i = 1; i < nthreads; i++) {
+        try {
+          pool.emplace_back(worker);
+        } catch (...) {
+          break;
+        }
+      }
+      worker();
+      for (auto& w : pool) w.join();
+    }
+  }
+  return cum;
+}
+
+// Value-plane encoder for one zip segment: gathers each VG-entry value
+// group from the columnar value buffer, trains one ZDICT dictionary over
+// every (ngroups//256)-th group (the Python sampling stride), compresses
+// groups >= 32 raw bytes in parallel, and packs payloads ("compress only
+// if strictly smaller" per group, flag bit set) with the u32 offset
+// directory. dict_out must hold max_dict_bytes; flags_out arrives
+// zeroed. out_meta returns [blob_len, dict_len]. Returns the group
+// count, or -1 zstd/ZDICT entry points unavailable (Python fallback),
+// -2 blob_cap/dict_cap too small, -3 invalid offsets or a compressor
+// error.
+int64_t tpulsm_zip_encode_values(
+    const uint8_t* val_buf, int64_t val_buf_len, const int64_t* offs,
+    const int64_t* lens, int64_t n, int32_t vg, int32_t compress,
+    int32_t level, int32_t max_dict_bytes, uint8_t* dict_out,
+    int64_t dict_cap, uint8_t* blob_out, int64_t blob_cap,
+    uint8_t* go_out, uint8_t* flags_out, int64_t* out_meta) {
+  if (n <= 0 || vg <= 0) return -3;
+  const int64_t ng = (n + vg - 1) / vg;
+  std::vector<int64_t> gb(ng + 1, 0);
+  for (int64_t i = 0; i < n; i++) {
+    if (lens[i] < 0 || offs[i] < 0 || lens[i] > val_buf_len ||
+        offs[i] > val_buf_len - lens[i])
+      return -3;
+    gb[i / vg + 1] += lens[i];
+  }
+  for (int64_t g = 0; g < ng; g++) gb[g + 1] += gb[g];
+  auto gather = [&](int64_t g, uint8_t* dst) {
+    int64_t e1 = (g + 1) * (int64_t)vg;
+    if (e1 > n) e1 = n;
+    for (int64_t i = g * (int64_t)vg; i < e1; i++) {
+      std::memcpy(dst, val_buf + offs[i], (size_t)lens[i]);
+      dst += lens[i];
+    }
+  };
+  const Codecs& c = codecs();
+  int64_t dlen = 0;
+  if (compress) {
+    if (!c.zstd_cmp || !c.zstd_bound || !c.zstd_err) return -1;
+    if (max_dict_bytes > 0 && ng >= 8) {
+      if (!c.zdict_train || !c.zdict_err || !c.zstd_cmp_dict ||
+          !c.zstd_cctx_new || !c.zstd_cctx_free)
+        return -1;
+      if (dict_cap < max_dict_bytes) return -2;
+      int64_t stride = ng / 256;
+      if (stride < 1) stride = 1;
+      std::string sblob;
+      std::vector<size_t> sizes;
+      for (int64_t g = 0; g < ng; g += stride) {
+        size_t base = sblob.size();
+        sblob.resize(base + (size_t)(gb[g + 1] - gb[g]));
+        gather(g, (uint8_t*)&sblob[base]);
+        sizes.push_back((size_t)(gb[g + 1] - gb[g]));
+      }
+      size_t r = c.zdict_train(dict_out, (size_t)max_dict_bytes,
+                               sblob.data(), sizes.data(),
+                               (unsigned)sizes.size());
+      // Training failure is NOT an error: the Python path gets b"" and
+      // compresses dictionary-less (utils/codecs.py contract).
+      if (!c.zdict_err(r)) dlen = (int64_t)r;
+    }
+  }
+  std::vector<std::string> zs(ng);  // "" → raw payload
+  if (compress) {
+    size_t nthreads = effective_cpus();
+    if (nthreads > 8) nthreads = 8;
+    if (ng < 4) nthreads = 1;
+    std::atomic<int64_t> nextg{0};
+    std::atomic<int> err{0};
+    auto worker = [&] {
+      void* cctx = nullptr;
+      if (dlen > 0) {
+        cctx = c.zstd_cctx_new();
+        if (!cctx) {
+          err.store(1, std::memory_order_relaxed);
+          return;
+        }
+      }
+      std::vector<uint8_t> raw;
+      while (true) {
+        int64_t g = nextg.fetch_add(1, std::memory_order_relaxed);
+        if (g >= ng || err.load(std::memory_order_relaxed)) break;
+        int64_t rsz = gb[g + 1] - gb[g];
+        if (rsz < 32) continue;  // python skips tiny groups entirely
+        if ((int64_t)raw.size() < rsz) raw.resize((size_t)rsz);
+        gather(g, raw.data());
+        size_t bound = c.zstd_bound((size_t)rsz);
+        std::string z;
+        z.resize(bound);
+        size_t zn = dlen > 0
+                        ? c.zstd_cmp_dict(cctx, &z[0], bound, raw.data(),
+                                          (size_t)rsz, dict_out,
+                                          (size_t)dlen, level)
+                        : c.zstd_cmp(&z[0], bound, raw.data(), (size_t)rsz,
+                                     level);
+        if (c.zstd_err(zn)) {
+          err.store(2, std::memory_order_relaxed);
+          break;
+        }
+        z.resize(zn);
+        zs[g] = std::move(z);
+      }
+      if (cctx) c.zstd_cctx_free(cctx);
+    };
+    if (nthreads <= 1) {
+      worker();
+    } else {
+      std::vector<std::thread> pool;
+      for (size_t i = 1; i < nthreads; i++) {
+        try {
+          pool.emplace_back(worker);
+        } catch (...) {
+          break;
+        }
+      }
+      worker();
+      for (auto& w : pool) w.join();
+    }
+    if (err.load()) return err.load() == 1 ? -1 : -3;
+  }
+  // Serial pack: compressed payload only when strictly smaller.
+  int64_t cum = 0;
+  uint32_t zero = 0;
+  std::memcpy(go_out, &zero, 4);
+  for (int64_t g = 0; g < ng; g++) {
+    int64_t rsz = gb[g + 1] - gb[g];
+    bool use_z = !zs[g].empty() && (int64_t)zs[g].size() < rsz;
+    int64_t psz = use_z ? (int64_t)zs[g].size() : rsz;
+    if (psz > blob_cap - cum) return -2;
+    if (use_z) {
+      std::memcpy(blob_out + cum, zs[g].data(), (size_t)psz);
+      flags_out[g >> 3] |= (uint8_t)(1 << (g & 7));
+    } else {
+      gather(g, blob_out + cum);
+    }
+    cum += psz;
+    if (cum > 0xFFFFFFFFll) return -3;  // u32 directory would wrap
+    uint32_t v = (uint32_t)cum;
+    std::memcpy(go_out + 4 * (g + 1), &v, 4);
+  }
+  out_meta[0] = cum;
+  out_meta[1] = dlen;
+  return ng;
+}
+
+// Reconstruct full internal keys for zip entries [e0, e1) into a
+// columnar slab: key_offs/key_lens are emitted per entry (offsets
+// ABSOLUTE via key_base). The meta/suffix/directory buffers come straight
+// from an on-disk file, so every offset is treated as hostile and
+// bounds-checked before use. Returns bytes written, or -2 key_cap too
+// small, -3 malformed sections/ranges.
+int64_t tpulsm_zip_decode_keys(
+    const uint8_t* kmeta, int64_t kmeta_len, int32_t meta16,
+    const uint8_t* ksfx, int64_t ksfx_len, const uint8_t* kgso,
+    int64_t kgso_len, int64_t n, int32_t group, int64_t e0, int64_t e1,
+    uint8_t* key_out, int64_t key_cap, int64_t* key_offs,
+    int64_t* key_lens, int64_t key_base) {
+  const int64_t kMaxKey = 1 << 17;
+  if (n < 0 || group <= 0 || e0 < 0 || e0 > e1 || e1 > n) return -3;
+  if (e0 == e1) return 0;
+  const int64_t msz = meta16 ? 4 : 2;
+  if (n > kmeta_len / msz) return -3;
+  const int64_t ng = (n + group - 1) / group;
+  if (ng > kgso_len / 4) return -3;
+  auto meta_at = [&](int64_t i, uint32_t* p, uint32_t* s) {
+    if (meta16) {
+      uint16_t a, b;
+      std::memcpy(&a, kmeta + 4 * i, 2);
+      std::memcpy(&b, kmeta + 4 * i + 2, 2);
+      *p = a;
+      *s = b;
+    } else {
+      *p = kmeta[2 * i];
+      *s = kmeta[2 * i + 1];
+    }
+  };
+  const int64_t g0 = e0 / group, g1 = (e1 - 1) / group;
+  // Serial validation + length prefix: the parallel decode below trusts
+  // exactly what this pass proves (front-coding chain, suffix bounds).
+  int64_t cum = 0;
+  for (int64_t g = g0; g <= g1; g++) {
+    uint64_t so = zload_u32(kgso + 4 * g);
+    if (so > (uint64_t)ksfx_len) return -3;
+    uint64_t klen_prev = 0;
+    int64_t jend = (g + 1) * (int64_t)group;
+    if (jend > e1) jend = e1;
+    for (int64_t j = g * (int64_t)group; j < jend; j++) {
+      uint32_t p, s;
+      meta_at(j, &p, &s);
+      if (j % group == 0 && p != 0) return -3;
+      uint64_t klen = (uint64_t)p + s;
+      if (p > klen_prev || klen == 0 || klen > (uint64_t)kMaxKey) return -3;
+      if (s > (uint64_t)ksfx_len - so) return -3;
+      so += s;
+      klen_prev = klen;
+      if (j >= e0) {
+        key_offs[j - e0] = key_base + cum;
+        key_lens[j - e0] = (int64_t)klen;
+        cum += (int64_t)klen;
+      }
+    }
+  }
+  if (cum > key_cap) return -2;
+  size_t nthreads = effective_cpus();
+  if (nthreads > 8) nthreads = 8;
+  if (g1 - g0 < 8) nthreads = 1;
+  std::atomic<int64_t> nextg{g0};
+  auto worker = [&] {
+    std::vector<uint8_t> cur((size_t)kMaxKey);
+    while (true) {
+      int64_t g = nextg.fetch_add(1, std::memory_order_relaxed);
+      if (g > g1) return;
+      uint64_t so = zload_u32(kgso + 4 * g);
+      int64_t jend = (g + 1) * (int64_t)group;
+      if (jend > e1) jend = e1;
+      for (int64_t j = g * (int64_t)group; j < jend; j++) {
+        uint32_t p, s;
+        meta_at(j, &p, &s);
+        std::memcpy(cur.data() + p, ksfx + so, s);
+        so += s;
+        if (j >= e0)
+          std::memcpy(key_out + (key_offs[j - e0] - key_base), cur.data(),
+                      (size_t)(p + s));
+      }
+    }
+  };
+  if (nthreads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (size_t i = 1; i < nthreads; i++) {
+      try {
+        pool.emplace_back(worker);
+      } catch (...) {
+        break;
+      }
+    }
+    worker();
+    for (auto& w : pool) w.join();
+  }
+  return cum;
+}
+
+// Bulk-decode zip value groups [g0, g1) into one contiguous raw buffer:
+// raw_offs (g1-g0+1 entries, raw_offs[0] == 0) gives each group's output
+// offset AND expected raw size — the caller derives both from the
+// v.lens section, and a group that inflates to anything else is
+// corruption. Raw (unflagged) groups memcpy straight through. Returns
+// total bytes, or -1 zstd unavailable for a flagged group, -2 out_cap
+// too small, -3 malformed directory/payload.
+int64_t tpulsm_zip_group_decode(
+    const uint8_t* vblob, int64_t vblob_len, const uint8_t* vgo,
+    int64_t vgo_len, const uint8_t* vflags, int64_t vflags_len,
+    const uint8_t* vdict, int64_t vdict_len, int64_t g0, int64_t g1,
+    const int64_t* raw_offs, uint8_t* out, int64_t out_cap) {
+  if (g0 < 0 || g1 < g0) return -3;
+  if (g0 == g1) return 0;
+  if (g1 > vgo_len / 4 - 1) return -3;
+  if (vflags_len < (g1 + 7) / 8) return -3;
+  if (raw_offs[0] != 0) return -3;
+  bool any_z = false;
+  for (int64_t g = g0; g < g1; g++) {
+    int64_t k = g - g0;
+    if (raw_offs[k + 1] < raw_offs[k]) return -3;
+    uint64_t p0 = zload_u32(vgo + 4 * g);
+    uint64_t p1 = zload_u32(vgo + 4 * (g + 1));
+    if (p1 < p0 || p1 > (uint64_t)vblob_len) return -3;
+    bool flagged = (vflags[g >> 3] >> (g & 7)) & 1;
+    if (flagged)
+      any_z = true;
+    else if (p1 - p0 != (uint64_t)(raw_offs[k + 1] - raw_offs[k]))
+      return -3;
+  }
+  if (raw_offs[g1 - g0] > out_cap) return -2;
+  const Codecs& c = codecs();
+  if (any_z && (!c.zstd_dec_dict || !c.zstd_dctx_new || !c.zstd_dctx_free))
+    return -1;
+  if (any_z && vdict_len > 0 && !vdict) return -3;
+  size_t nthreads = effective_cpus();
+  if (nthreads > 8) nthreads = 8;
+  if (g1 - g0 < 4) nthreads = 1;
+  std::atomic<int64_t> nextg{g0};
+  std::atomic<int> err{0};
+  auto worker = [&] {
+    void* dctx = nullptr;
+    while (true) {
+      int64_t g = nextg.fetch_add(1, std::memory_order_relaxed);
+      if (g >= g1 || err.load(std::memory_order_relaxed)) break;
+      int64_t k = g - g0;
+      uint64_t p0 = zload_u32(vgo + 4 * g);
+      uint64_t p1 = zload_u32(vgo + 4 * (g + 1));
+      uint8_t* dst = out + raw_offs[k];
+      size_t rawsz = (size_t)(raw_offs[k + 1] - raw_offs[k]);
+      if (!((vflags[g >> 3] >> (g & 7)) & 1)) {
+        std::memcpy(dst, vblob + p0, rawsz);
+        continue;
+      }
+      if (!dctx) {
+        dctx = c.zstd_dctx_new();
+        if (!dctx) {
+          err.store(1, std::memory_order_relaxed);
+          break;
+        }
+      }
+      size_t got = c.zstd_dec_dict(dctx, dst, rawsz, vblob + p0,
+                                   (size_t)(p1 - p0),
+                                   vdict_len > 0 ? vdict : nullptr,
+                                   (size_t)vdict_len);
+      if ((c.zstd_err && c.zstd_err(got)) || got != rawsz) {
+        err.store(2, std::memory_order_relaxed);
+        break;
+      }
+    }
+    if (dctx) c.zstd_dctx_free(dctx);
+  };
+  if (nthreads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (size_t i = 1; i < nthreads; i++) {
+      try {
+        pool.emplace_back(worker);
+      } catch (...) {
+        break;
+      }
+    }
+    worker();
+    for (auto& w : pool) w.join();
+  }
+  int e = err.load();
+  if (e == 1) return -1;
+  if (e) return -3;
+  return raw_offs[g1 - g0];
 }
 
 }  // extern "C"

@@ -284,8 +284,11 @@ def assembly_supported(device_blocks: bool, table_options, kv, shards,
         return False
     if table_options.compression != fmt.NO_COMPRESSION:
         return False
-    if (table_options.filter_policy is not None
-            and not table_options.whole_key_filtering):
+    if table_options.filter_policy is not None and (
+            not table_options.whole_key_filtering
+            or table_options.prefix_extractor is not None):
+        # Prefix filter keys exist only on the per-entry route; a
+        # whole-key-only bloom here would break byte parity.
         return False
     if not kv.n:
         return False

@@ -1,5 +1,10 @@
 """Columnar SST IO: native bulk decode and native table building (copied
-from toplingdb_tpu/ops/columnar_io.py, trimmed to block-based tables).
+from toplingdb_tpu/ops/columnar_io.py). The scans read block-based inputs,
+with a flat or two-level index; other formats raise NotSupported (the
+caller takes the per-entry route). The writer writes block-based tables
+with a binary index and, as the reference's does, one whole-key filter
+(no prefix keys, no filter partitions) whatever `prefix_extractor` and
+`partition_filters` say.
 
 The host halves of the device compaction data plane: whole-file scans into
 flat buffers through the C++ block decoder (snappy and zstd blocks inflate
@@ -27,7 +32,6 @@ from toplingdb_tpu_torch.table.builder import (
     METAINDEX_FILTER,
     METAINDEX_PROPERTIES,
     METAINDEX_RANGE_DEL,
-    unsupported_options,
 )
 from toplingdb_tpu_torch.table.properties import TableProperties
 from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
@@ -87,7 +91,7 @@ def _file_scan_prologue(reader):
     """Per-file scan setup: the whole raw file image plus the data block
     handles as arrays — (raw, block_offs, block_lens), or (None, None, None)
     for an empty file."""
-    idx = reader.new_index_iterator()
+    idx = reader.new_index_iterator()  # flat or two-level
     idx.seek_to_first()
     handles = [
         fmt.BlockHandle.decode_exact(enc) for _, enc in idx.entries()
@@ -114,6 +118,8 @@ def scan_tables_columnar_prealloc(readers):
     infos = []
     tk = tv = tn = 0
     for r in readers:
+        if not hasattr(r, "new_index_iterator"):
+            return None  # not a block-based table
         if r._compression_dict:
             # Dictionary frames need the stored dictionary, which the
             # native scan does not carry: the per-file path does.
@@ -219,6 +225,8 @@ def scan_table_columnar(reader) -> ColumnarKV:
     lib = native.lib()
     if lib is None:
         raise NotSupported("native library unavailable")
+    if not hasattr(reader, "new_index_iterator"):
+        raise NotSupported("bulk columnar scan requires the block format")
     raw, block_offs, block_lens = _file_scan_prologue(reader)
     if raw is None:
         return ColumnarKV(
@@ -710,9 +718,6 @@ def write_tables_columnar(env, dbname, new_file_number, icmp, options,
     lib = native.lib()
     if lib is None:
         raise NotSupported("native library unavailable")
-    bad = unsupported_options(options)
-    if bad:
-        raise NotSupported("columnar writer: " + ", ".join(bad))
     if isinstance(order, np.ndarray):
         chunks = iter(())
         order = np.ascontiguousarray(order, dtype=np.int32)

@@ -3,11 +3,13 @@ toplingdb_tpu/ops/device_compaction.py).
 
 One compaction job, from input SSTs to output SSTs, by one of two routes:
 
-- the columnar route, for jobs without a compaction filter or active blob
-  GC. It tries the pipelined plane first (`pipeline=True`, the default;
-  ops/pipeline.py): per-file scan threads, a compute thread that uploads
-  and runs one key-range shard's device program while the next shard
-  uploads, and the native SST writer streaming each shard's survivors.
+- the columnar route, for jobs without a compaction filter, active blob
+  GC or property collectors whose outputs are block-based tables with a
+  binary index or zip tables. It tries the pipelined plane first
+  (`pipeline=True`, the default; ops/pipeline.py): per-file scan
+  threads, a compute thread that uploads and runs one key-range shard's
+  device program while the next shard uploads, and the native SST writer
+  streaming each shard's survivors.
   Jobs it does not cover (fewer than MIN_PIPELINE_ROWS rows, non-uniform
   key lengths, MERGE / SINGLE_DELETION groups, `device_blocks=True`) fall
   through to the serial route with clean stats: a native whole-file scan
@@ -21,32 +23,42 @@ One compaction job, from input SSTs to output SSTs, by one of two routes:
       finished data-block payloads;
     - variable-length keys in a dense buffer: one whole-job device program
       (`fused_encode_sort_gc`).
+  The survivors go to the native block writer (`write_tables_columnar`)
+  or, for zip outputs, to `write_tables_zip_columnar` (the native zip
+  plane unless `zip_plane=False`).
   The device flags the user-key groups holding MERGE or SINGLE_DELETION
   rows; every shard is then collected before the writer, and those groups
   fold on the host through CompactionIterator._process_group
   (`_resolve_complex_stream`), their results patched into the columns the
   writer reads;
-- the per-entry route, for compaction filters and active blob GC, and for
-  the jobs the columnar route hands over (`_FallbackToEntries`: keys over
+- the per-entry route, for compaction filters, active blob GC, property
+  collectors, two-level indexes and the single_fast, plain and cuckoo
+  formats, and for the jobs the columnar route hands over
+  (`_FallbackToEntries`: inputs that are not block-based tables, keys over
   MAX_DEVICE_KEY_BYTES, a sparse key buffer, a value buffer past its int32
-  budget, a fold the columns cannot hold, a native writer that refuses an
-  entry): every entry read in Python (`collect_raw_entries`), sorted and
-  GC-masked on the same device (`device_gc_entries`: `device_sort`,
+  budget, a fold the columns cannot hold, a writer that refuses the job —
+  the zip writer refuses non-uniform keys, prefix extractors and
+  collectors): every entry read in Python (`collect_raw_entries`), sorted
+  and GC-masked on the same device (`device_gc_entries`: `device_sort`,
   `gc_mask`, whose core is the `gc_rows` kernel), complex groups and the
   filter applied on the host, blob GC rewriting the stream, and the
   per-entry table builder (`build_outputs`).
 
-Output files, and blob files where GC writes one, are byte-identical to the
-reference's for the same job. `device_name="cuda"` runs the device
-programs on the card and raises when there is none; `device_name="cpu"`
-runs the plain versions of the kernels. A kernel or CUDA failure on either
-route reaches the caller; only NotSupported inside the columnar route
-sends a job to the per-entry route, as in the reference.
+With `protection_bytes_per_key` set, every output is re-read and each
+entry checked against the entries meant for it (`verify_output_table`) on
+every route. Output files, and blob files where GC writes one, are
+byte-identical to the reference's for the same job. `device_name="cuda"`
+runs the device programs on the card and raises when there is none;
+`device_name="cpu"` runs the plain versions of the kernels. A kernel or
+CUDA failure on either route reaches the caller; only NotSupported inside
+the columnar route sends a job to the per-entry route, as in the
+reference.
 """
 
 from __future__ import annotations
 
 import bisect
+import functools
 import sys
 import time
 import types
@@ -62,6 +74,7 @@ from toplingdb_tpu_torch.compaction.compaction_job import (
     CompactionStats,
     build_outputs,
     surviving_tombstone_fragments,
+    verify_output_table,
 )
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.blob import decode_blob_index
@@ -72,7 +85,7 @@ from toplingdb_tpu_torch.db.range_del import (
 from toplingdb_tpu_torch.ops import block_assembly as ba
 from toplingdb_tpu_torch.ops import compaction_kernels as ck
 from toplingdb_tpu_torch.ops.columnar import ColumnarEntries
-from toplingdb_tpu_torch.table.builder import unsupported_options
+from toplingdb_tpu_torch.utils import protection
 from toplingdb_tpu_torch.utils.compaction_filter import Decision
 from toplingdb_tpu_torch.utils.status import NotSupported
 
@@ -101,7 +114,9 @@ def collect_raw_entries(compaction, table_cache, icmp, stats=None):
         it = r.new_iterator()
         it.seek_to_first()
         entries.extend(it.entries())
-        if stats is not None:
+        if stats is not None and hasattr(it, "prefetch_counts"):
+            # Block-based tables read through a readahead buffer; the
+            # in-memory formats have none.
             h, m = it.prefetch_counts()
             stats.prefetch_hits += h
             stats.prefetch_misses += m
@@ -585,12 +600,41 @@ def _resolve_complex_stream(kv, order, cx_flags, trailer_override, seqs,
     return order[keep_mask]
 
 
-def _outputs_from_files(env, files, kv, vtypes, stats):
-    """Output FileMetaData list from write_tables_columnar tuples: empty
-    outputs deleted, blob refs decoded from the surviving BLOB_INDEX
-    rows."""
+def _verify_columnar_output(env, icmp, table_options, path, kv, vtypes,
+                            sel) -> None:
+    """Per-entry protection check of one columnar output file: the entries
+    on disk must be exactly the surviving input rows `sel` (values as the
+    complex-group fold patched them; seqno zeroing does not enter the
+    checksum)."""
+    pb = table_options.protection_bytes_per_key
+    expected: dict[int, int] = {}
+    for r in sel.tolist():
+        ik = kv.ikey(r)
+        cs = protection.truncate(
+            protection.protect_entry(int(vtypes[r]), ik[:-8], kv.value(r)),
+            pb)
+        expected[cs] = expected.get(cs, 0) + 1
+    verify_output_table(env, path, icmp, table_options, expected, len(sel))
+
+
+def _outputs_from_files(env, files, kv, vtypes, stats, icmp, table_options):
+    """Output FileMetaData list from the columnar writers' tuples: empty
+    outputs deleted, blob refs decoded from the surviving BLOB_INDEX rows.
+    With protection on, every output is re-read and verified against its
+    surviving rows first (_verify_columnar_output); a failure deletes every
+    output of the job before it propagates."""
     from toplingdb_tpu_torch.db.version_edit import FileMetaData
 
+    if table_options.protection_bytes_per_key:
+        try:
+            for _fnum, path, props, _s, _l, sel in files:
+                if props.num_entries or props.num_range_deletions:
+                    _verify_columnar_output(env, icmp, table_options, path,
+                                            kv, vtypes, sel)
+        except BaseException:
+            for f in files:
+                env.delete_file(f[1])
+            raise
     outputs = []
     for fnum, path, props, smallest, largest, sel in files:
         if props.num_entries == 0 and props.num_range_deletions == 0:
@@ -666,12 +710,13 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                     column_family=(0, "default"),
                                     blob_resolver=None, device_blocks=False,
                                     num_shards=None, pipeline=True,
-                                    pipeline_shards=None):
+                                    pipeline_shards=None, zip_plane=True):
     """The columnar route. Raises _FallbackToEntries where the reference
     hands the job to the per-entry route; partial outputs are gone by
     then."""
     from toplingdb_tpu_torch.ops import pipeline as pl
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
+    from toplingdb_tpu_torch.table.zip_table import write_tables_zip_columnar
 
     t0 = time.time()
     stats = CompactionStats(device=str(device))
@@ -680,8 +725,10 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
     # Pipelined data plane first (on-device block assembly has its own data
     # plane): scan, device programs and encode overlap at key-range-shard
     # granularity, byte-identical outputs. Shapes it does not cover fall
-    # through to the serial route below with clean stats.
-    if pipeline and not device_blocks:
+    # through to the serial route below with clean stats. Zip outputs ride
+    # it on the native zip plane only.
+    zip_out = table_options.format == "zip"
+    if pipeline and not device_blocks and (zip_plane or not zip_out):
         pstats = CompactionStats(device=str(device))
         pstats.input_bytes = stats.input_bytes
         pstats.input_files = stats.input_files
@@ -690,12 +737,13 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                 env, dbname, icmp, compaction, table_cache, table_options,
                 snapshots, new_file_number, creation_time, pstats,
                 MAX_DEVICE_KEY_BYTES, column_family, device=device,
-                n_shards=pipeline_shards,
+                n_shards=pipeline_shards, zip_plane=zip_plane,
             )
         except (pl.PipelineIneligible, NotSupported):
             pass  # the serial route decides (and raises what it must)
         else:
-            outputs = _outputs_from_files(env, pfiles, pkv, pvt, pstats)
+            outputs = _outputs_from_files(env, pfiles, pkv, pvt, pstats,
+                                          icmp, table_options)
             pstats.work_time_usec = int((time.time() - t0) * 1e6)
             return outputs, pstats
     try:
@@ -738,7 +786,8 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                 env, dbname, icmp, kv, shards[0], cover, snapshots,
                 compaction.bottommost, table_options, new_file_number,
                 creation_time, tombs, device, column_family, stats=stats)
-            outputs = _outputs_from_files(env, files, kv, col.vtype, stats)
+            outputs = _outputs_from_files(env, files, kv, col.vtype, stats,
+                                          icmp, table_options)
             stats.work_time_usec = int((time.time() - t0) * 1e6)
             return outputs, stats
         if kv.n and shards is not None:
@@ -836,18 +885,25 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
     outputs = []
     t_wr = time.time()
     if order is None or len(order) or tombs:
+        writer = write_tables_columnar
+        if zip_out:
+            writer = functools.partial(write_tables_zip_columnar,
+                                       zip_plane=zip_plane)
         try:
-            files = write_tables_columnar(
+            files = writer(
                 env, dbname, new_file_number, icmp, table_options, kv,
                 order_feed, trailer_override, vtypes, seqs, creation_time,
                 max_output_file_size=compaction.max_output_file_size,
                 column_family=column_family, tombstones=tombs,
             )
         except NotSupported:
-            # The native builder refused an entry (partial outputs are
-            # already deleted): the per-entry route takes the job.
+            # The writer refused the job (an entry the native builder
+            # cannot hold; for zip, non-uniform keys or a prefix extractor;
+            # partial outputs are already deleted): the per-entry route
+            # takes it.
             raise _FallbackToEntries()
-        outputs = _outputs_from_files(env, files, kv, vtypes, stats)
+        outputs = _outputs_from_files(env, files, kv, vtypes, stats, icmp,
+                                      table_options)
     stats.encode_write_usec = int((time.time() - t_wr) * 1e6)
     stats.work_time_usec = int((time.time() - t0) * 1e6)
     return outputs, stats
@@ -860,7 +916,7 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                           blob_resolver=None, blob_gc=None,
                           column_family=(0, "default"), device_blocks=False,
                           num_shards=None, pipeline=True,
-                          pipeline_shards=None):
+                          pipeline_shards=None, zip_plane=True):
     """Run one compaction job through the device data plane; the same
     signature as the reference's run_device_compaction and byte-identical
     outputs (including output cutting, and the blob file blob GC writes).
@@ -882,26 +938,31 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     TPULSM_DEVICE_BLOCKS=1, which also turns the pipeline off). num_shards:
     the serial route's key-range shard count for jobs of at least
     _SHARD_MIN_ROWS rows (TPULSM_DEVICE_SHARDS; None sizes shards to about
-    _SHARD_ROWS rows).
+    _SHARD_ROWS rows). zip_plane: zip outputs through the native zip
+    plane (the default; a failure of it raises), or with False through the
+    numpy encoders (the same bytes; the reference's TPULSM_ZIP_PLANE=0,
+    which also keeps zip jobs off the pipeline).
 
-    Raises NotSupported for what the reference's device data plane also
-    refuses (user keys over MAX_DEVICE_KEY_BYTES, a non-bytewise
-    comparator, more than MAX_SNAPSHOTS snapshots) and for what this port
-    does not carry yet (table options other than block-based tables with a
-    binary index, no partitioned filters and no per-entry protection).
-    Inputs and outputs may be compressed with any codec of
-    `table/format.py`, with or without a ZSTD dictionary. No output is left
-    behind on any failure."""
+    Every table format (`table_options.format`: block, single_fast,
+    cuckoo, plain, zip) and table option of the reference's device route
+    is taken, inputs of every format are read, and outputs may be
+    compressed with any codec of `table/format.py`, with or without a ZSTD
+    dictionary. Raises NotSupported for what the reference's device data
+    plane also refuses (user keys over MAX_DEVICE_KEY_BYTES, a non-bytewise
+    comparator, more than MAX_SNAPSHOTS snapshots) and what a format
+    refuses (cuckoo: several versions of a key, range deletions). With
+    `protection_bytes_per_key` set a corrupted output raises Corruption. No
+    output is left behind on any failure."""
     device = resolve_device(device_name)
     if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
         raise NotSupported(
             "device compaction requires the bytewise comparator, got "
             f"{icmp.user_comparator.name()!r}")
-    bad = unsupported_options(table_options)
-    if bad:
-        raise NotSupported("table options not ported yet: " + ", ".join(bad))
     if (native.lib() is not None and compaction_filter is None
-            and (blob_gc is None or not blob_gc.active)):
+            and (blob_gc is None or not blob_gc.active)
+            and not table_options.properties_collector_factories
+            and table_options.format in ("block", "zip")
+            and table_options.index_type == "binary"):
         try:
             return _run_device_compaction_columnar(
                 env, dbname, icmp, compaction, table_cache, table_options,
@@ -909,6 +970,7 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                 device, column_family, blob_resolver=blob_resolver,
                 device_blocks=device_blocks, num_shards=num_shards,
                 pipeline=pipeline, pipeline_shards=pipeline_shards,
+                zip_plane=zip_plane,
             )
         except _FallbackToEntries:
             pass

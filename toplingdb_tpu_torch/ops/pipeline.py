@@ -18,7 +18,10 @@ user-key-range shard granularity:
            are finished in shard order
   writer   stream each shard's survivor order into the native block
            builder (write_tables_columnar's chunked-order mode) while later
-           shards are still being scanned and computed
+           shards are still being scanned and computed; for zip outputs
+           (`table_options.format == "zip"`, native zip plane only) the
+           writer is write_tables_zip_columnar, which drains the whole feed
+           before it encodes, so only scan and compute overlap
 
 Key-range shards are cut at user-key boundaries (every version of a user
 key lands in exactly one shard), so per-shard GC decisions (snapshot
@@ -40,6 +43,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import ctypes
+import functools
 import sys
 import threading
 import time
@@ -190,9 +194,9 @@ def _build_plan(readers, n_shards_req=None):
         raise PipelineIneligible("native fused scan unavailable")
     infos = []
     tk = tv = tn = 0
-    # The port's readers are block-based tables (TableReader refuses the
-    # rest when it opens a file).
     for r in readers:
+        if not hasattr(r, "new_index_iterator"):
+            raise PipelineIneligible("non-block input format")
         if r._compression_dict:
             raise PipelineIneligible("dict-compressed input")
         p = r.properties
@@ -522,12 +526,14 @@ class _Shared:
 def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
                   snapshots, new_file_number, creation_time, stats,
                   max_dev_key, column_family=(0, "default"),
-                  device=torch.device("cpu"), n_shards=None):
+                  device=torch.device("cpu"), n_shards=None, zip_plane=True):
     """Run one compaction through the three-stage pipeline on `device`
     (CUDA: the kernels; CPU: their plain versions), with `n_shards`
-    key-range shards (None: _pipeline_shards). Returns the
-    write_tables_columnar file tuples, the scanned ColumnarKV and the
-    per-row value types (for the outputs' blob refs).
+    key-range shards (None: _pipeline_shards). Zip outputs take
+    write_tables_zip_columnar on the native zip plane; `zip_plane=False`
+    makes a zip job PipelineIneligible (the serial route runs the numpy
+    encoders). Returns the writer's file tuples, the scanned ColumnarKV
+    and the per-row value types (for the outputs' blob refs).
 
     Raises PipelineIneligible for shapes the serial path must take and
     propagates hard errors (Corruption, IO, kernel and CUDA failures) after
@@ -546,6 +552,16 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
 
     if len(snapshots) > MAX_SNAPSHOTS:
         raise PipelineIneligible("snapshot count exceeds the device cap")
+    writer = write_tables_columnar
+    if table_options.format == "zip":
+        if not zip_plane:
+            raise PipelineIneligible("zip outputs without the native plane")
+        from toplingdb_tpu_torch.table.zip_table import (
+            write_tables_zip_columnar,
+        )
+
+        writer = functools.partial(write_tables_zip_columnar,
+                                   zip_plane=True)
     if device.type == "cuda" and device.index is None:
         # The compute thread has its own current device: name the caller's.
         device = torch.device("cuda", torch.cuda.current_device())
@@ -621,7 +637,7 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
 
     t_wr = time.time()
     try:
-        out_files = write_tables_columnar(
+        out_files = writer(
             env, dbname, new_file_number, icmp, table_options, kv,
             chunk_stream(), shared.trailer_override, shared.vtypes,
             shared.seqs,

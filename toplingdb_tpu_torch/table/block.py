@@ -6,8 +6,9 @@ Each entry is
     | key_delta | value
 with full keys at restart points every `restart_interval` entries; the block
 ends with a fixed32 array of restart offsets and a fixed32 restart count.
-The iterator walks forward and backward and seeks to either end; keyed
-seeks come with a later slice.
+The iterator walks forward and backward, seeks to either end, and seeks
+to a key (binary search over the restart points, then a linear scan) under
+the comparator it was given (bytewise by default).
 """
 
 from __future__ import annotations
@@ -70,10 +71,14 @@ class BlockBuilder:
         return bytes(out)
 
 
+def _bytewise(a: bytes, b: bytes) -> int:
+    return (a > b) - (a < b)
+
+
 class BlockIter:
     """Iterator over a finished block, in stored (key) order."""
 
-    def __init__(self, contents: bytes):
+    def __init__(self, contents: bytes, cmp=None):
         if len(contents) < 4:
             raise Corruption("block too small")
         self._data = contents
@@ -89,6 +94,7 @@ class BlockIter:
         self._val_off = 0
         self._val_len = 0
         self._restart_idx = 0
+        self._cmp = cmp or _bytewise
 
     def _restart_point(self, i: int) -> int:
         return coding.decode_fixed32(self._data, self._restart_off + 4 * i)
@@ -138,6 +144,39 @@ class BlockIter:
                 self._next_off = nxt
                 return
             off = nxt
+
+    def seek(self, target: bytes) -> None:
+        """Position at the first entry with key >= target."""
+        # The last restart point whose key is < target.
+        lo, hi = 0, self._num_restarts - 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            _, key = self._decode_at(self._restart_point(mid), b"")
+            if self._cmp(key, target) < 0:
+                lo = mid
+            else:
+                hi = mid - 1
+        off = self._restart_point(lo)
+        key = b""
+        self._restart_idx = lo
+        while off < self._limit:
+            self._cur = off
+            nxt, key = self._decode_at(off, key)
+            if self._cmp(key, target) >= 0:
+                self._key = key
+                self._next_off = nxt
+                return
+            off = nxt
+        self._cur = self._limit  # every key < target
+
+    def seek_for_prev(self, target: bytes) -> None:
+        """Position at the last entry with key <= target."""
+        self.seek(target)
+        if not self.valid():
+            self.seek_to_last()
+            return
+        if self._cmp(self._key, target) > 0:
+            self.prev()
 
     def next(self) -> None:
         assert self.valid()

@@ -1,19 +1,21 @@
 """Block-based SST builder: table options, meta-block names and the
-per-entry TableBuilder (copied from toplingdb_tpu/table/builder.py, trimmed
-to a single-level index and a whole-key filter: no prefix extractor, no
-property collectors). Compression comes with it: every codec of
-`table/format.py`, the parallel compression pool and the ZSTD dictionary.
+per-entry TableBuilder (copied from toplingdb_tpu/table/builder.py).
+Compression comes with it: every codec of `table/format.py`, the parallel
+compression pool and the ZSTD dictionary.
 
-`TableOptions` keeps every scalar field of the reference's options so that a
-job's options carry across (`toplingdb_tpu_torch.interop`); the writers and
-the compaction entry point refuse the values this port does not support
-(`unsupported_options`).
+`TableOptions` carries every field of the reference's options, so a job's
+options cross over as they are (`toplingdb_tpu_torch.interop`); `format`
+picks the builder (`table/factory.py`).
 
 TableBuilder is structured like RocksDB's BlockBasedTableBuilder: data
-blocks cut at `block_size`, a single-level index of shortest separators, a
-whole-file bloom filter over user keys, a range-deletion meta block, a
-properties meta block, a metaindex, and the fixed footer. Keys added must be
-internal keys in InternalKeyComparator order.
+blocks cut at `block_size`; a single-level index of shortest separators,
+or with `index_type="two_level"` index partitions of `metadata_block_size`
+behind a small top index; a bloom filter over user keys (and, with a
+`prefix_extractor`, their prefixes), whole-file or with
+`partition_filters` cut into partitions behind a top index; a
+range-deletion meta block; a properties meta block with what the
+`properties_collector_factories` collected; a metaindex; and the fixed
+footer. Keys added must be internal keys in InternalKeyComparator order.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from toplingdb_tpu_torch.table.block import BlockBuilder
 from toplingdb_tpu_torch.table.filter import (
     BlockedBloomFilterPolicy,
     FilterPolicy,
-    build_filter_block_native,
+    filter_from_keys,
 )
 from toplingdb_tpu_torch.table.properties import TableProperties
 
@@ -56,14 +58,22 @@ class CompressionOptions:
 
 @dataclass
 class TableOptions:
+    # 'block' | 'single_fast' | 'cuckoo' | 'plain' | 'zip' (table/factory.py)
     format: str = "block"
     block_size: int = 4096
     restart_interval: int = 16
     index_restart_interval: int = 1
+    # 'binary' = one index block; 'two_level' = index entries split into
+    # metadata_block_size partitions behind a small top index.
     index_type: str = "binary"
     metadata_block_size: int = 4096
+    # The bloom split into ~metadata_block_size partitions behind a top
+    # index (whole-key filtering only).
     partition_filters: bool = False
+    # single_fast only: also write an open-addressed hash bucket index.
     hash_index: bool = False
+    # single_fast only: accept unsorted adds and sort at finish (exact
+    # duplicate internal keys dedup last-write-wins).
     auto_sort: bool = False
     # > 1: data blocks compress on that many worker threads and are
     # written in order (the bytes do not change).
@@ -75,28 +85,28 @@ class TableOptions:
     filter_policy: FilterPolicy | None = field(
         default_factory=lambda: BlockedBloomFilterPolicy())
     whole_key_filtering: bool = True
+    # SliceTransform (utils/slice_transform.py) or None: key prefixes also
+    # go into the bloom filter, and the 'plain' format builds its prefix
+    # hash index from it.
+    prefix_extractor: object | None = None
     verify_checksums: bool = True
+    # TablePropertiesCollectorFactory list; a fresh collector per SST.
+    properties_collector_factories: list = field(default_factory=list)
+    # Per-entry protection (Options.protection_bytes_per_key): every
+    # compaction output is re-read and checked against the entries meant
+    # for it. 0 = off.
     protection_bytes_per_key: int = 0
-
-
-def unsupported_options(options: TableOptions) -> list[str]:
-    """What in `options` this slice of the port cannot write (empty when
-    the columnar writer takes them as they are)."""
-    out = []
-    if options.format != "block":
-        out.append(f"table format {options.format!r}")
-    if options.index_type != "binary":
-        out.append(f"index type {options.index_type!r}")
-    if options.partition_filters:
-        out.append("partitioned filters")
-    if options.protection_bytes_per_key:
-        out.append("per-entry protection")
-    return out
 
 
 class TableBuilder:
     """Per-entry block-table writer. Writes the bytes the reference's
     TableBuilder writes for the same entries and options.
+
+    Index entries are added as blocks are written, to the index block or,
+    for a two-level index, to a list cut into partitions at finish. Filter
+    keys are gathered per partition when filters are partitioned (a cut
+    at the first data-block boundary after a partition's estimated size
+    reaches metadata_block_size).
 
     Uncompressed and dictionary-less serial writes index each block as it
     is written. With `compression_parallel_threads > 1` or a ZSTD
@@ -109,18 +119,26 @@ class TableBuilder:
                  column_family_id: int = 0, column_family_name: str = "",
                  creation_time: int = 0):
         self.opts = options or TableOptions()
-        bad = unsupported_options(self.opts)
-        if bad:
-            from toplingdb_tpu_torch.utils.status import NotSupported
-
-            raise NotSupported("table builder: " + ", ".join(bad))
         self._w = wfile
         self._icmp = icmp
         self._data_block = BlockBuilder(self.opts.restart_interval)
-        self._index_block = BlockBuilder(self.opts.index_restart_interval)
-        # Whole user keys for the filter, gathered into one buffer.
-        self._filter_buf = bytearray()
-        self._filter_offs: list[int] = []
+        self._two_level_index = self.opts.index_type == "two_level"
+        self._index_block = (
+            None if self._two_level_index
+            else BlockBuilder(self.opts.index_restart_interval))
+        self._index_entries: list[tuple[bytes, bytes]] = []  # two-level
+        self._filter_keys: list[bytes] = []
+        self._last_filter_prefix: bytes | None = None
+        self._filter_parts: list[tuple[bytes, list[bytes]]] = []
+        self._partition_filters = bool(
+            self.opts.partition_filters
+            and self.opts.filter_policy is not None)
+        if self._partition_filters and self.opts.prefix_extractor is not None:
+            from toplingdb_tpu_torch.utils.status import InvalidArgument
+
+            raise InvalidArgument(
+                "partition_filters supports whole-key filtering only "
+                "(prefix probes could span filter partitions)")
         self._range_del_block = BlockBuilder(restart_interval=1)
         self.props = TableProperties(
             comparator_name=icmp.user_comparator.name(),
@@ -128,6 +146,9 @@ class TableBuilder:
                 self.opts.filter_policy.name() if self.opts.filter_policy
                 else ""),
             compression_name=str(self.opts.compression),
+            prefix_extractor_name=(
+                self.opts.prefix_extractor.name()
+                if self.opts.prefix_extractor else ""),
             column_family_id=column_family_id,
             column_family_name=column_family_name,
             creation_time=creation_time,
@@ -140,6 +161,8 @@ class TableBuilder:
         self._smallest: bytes | None = None
         self._largest: bytes | None = None
         self._finished = False
+        self._collectors = [
+            f.create() for f in self.opts.properties_collector_factories]
         self.need_compaction = False
         # Deferred emission: (future, first_key, last_key, raw_len) queued
         # on the pool; (first_key, last_key, handle) once written.
@@ -203,14 +226,25 @@ class TableBuilder:
             )
         if self._pending_index_entry:
             sep = self._icmp.find_shortest_separator(self._last_key, ikey)
-            self._index_block.add(sep, self._pending_handle.encode())
+            self._index_add(sep, self._pending_handle.encode())
             self._pending_index_entry = False
         if self._data_block.empty():
             self._block_first_key = ikey
+        uk = ikey[:-8]
         t = ikey[-8]
-        if self.opts.filter_policy and self.opts.whole_key_filtering:
-            self._filter_offs.append(len(self._filter_buf))
-            self._filter_buf += ikey[:-8]
+        if self.opts.filter_policy:
+            if self.opts.whole_key_filtering:
+                self._filter_keys.append(uk)
+            pe = self.opts.prefix_extractor
+            if pe is not None and pe.in_domain(uk):
+                p = pe.transform(uk)
+                if p != self._last_filter_prefix:
+                    self._filter_keys.append(p)
+                    self._last_filter_prefix = p
+        if self._collectors:
+            seq = int.from_bytes(ikey[-8:], "little") >> 8
+            for c in self._collectors:
+                c.add_user_key(uk, value, t, seq, self._w.file_size())
         self._data_block.add(ikey, value)
         self._last_key = ikey
         self._track_bounds(ikey)
@@ -223,6 +257,15 @@ class TableBuilder:
             self.props.num_merge_operands += 1
         if self._data_block.current_size_estimate() >= self.opts.block_size:
             self._flush_data_block()
+            if self._partition_filters and self._filter_keys:
+                est = (len(self._filter_keys)
+                       * getattr(self.opts.filter_policy, "bits_per_key",
+                                 10.0) / 8)
+                if est >= self.opts.metadata_block_size:
+                    # Cut at the data-block boundary: sibling partitions'
+                    # key ranges meet at most in the boundary key.
+                    self._filter_parts.append((uk, self._filter_keys))
+                    self._filter_keys = []
 
     def add_tombstone(self, begin_ikey: bytes, end_user_key: bytes) -> None:
         """Range tombstone: begin internal key (type RANGE_DELETION) → end
@@ -238,6 +281,12 @@ class TableBuilder:
         if (self._largest is None
                 or self._icmp.compare(end_ikey, self._largest) > 0):
             self._largest = end_ikey
+
+    def _index_add(self, key: bytes, handle_bytes: bytes) -> None:
+        if self._index_block is not None:
+            self._index_block.add(key, handle_bytes)
+        else:
+            self._index_entries.append((key, handle_bytes))
 
     def _flush_data_block(self) -> None:
         if self._data_block.empty():
@@ -308,23 +357,12 @@ class TableBuilder:
             self.props.data_size += raw_len
             self.props.num_data_blocks += 1
 
-    def _filter_data(self) -> bytes:
-        """The filter block over every added user key: the native builder
-        when the host library is there, the policy itself otherwise (the
-        same bytes either way)."""
-        import numpy as np
-
-        from toplingdb_tpu_torch import native
-
-        n = len(self._filter_offs)
-        buf = np.frombuffer(bytes(self._filter_buf), dtype=np.uint8)
-        offs = np.asarray(self._filter_offs + [len(buf)], dtype=np.int64)
-        return build_filter_block_native(
-            native.lib(), self.opts.filter_policy, buf, offs[:-1],
-            np.diff(offs), n)
-
     def finish(self) -> TableProperties:
         assert not self._finished
+        for c in self._collectors:
+            self.props.user_collected.update(c.finish())
+            if c.need_compact():
+                self.need_compaction = True
         self._flush_data_block()
         if self._dict == b"":
             self._train_dict_and_flush()  # small file: train from the lot
@@ -339,16 +377,33 @@ class TableBuilder:
                     last, self._par_meta[i + 1][0])
             else:
                 sep = self._icmp.find_short_successor(last)
-            self._index_block.add(sep, h.encode())
+            self._index_add(sep, h.encode())
         if self._pending_index_entry:
             succ = self._icmp.find_short_successor(self._last_key)
-            self._index_block.add(succ, self._pending_handle.encode())
+            self._index_add(succ, self._pending_handle.encode())
             self._pending_index_entry = False
 
         metaindex = BlockBuilder(restart_interval=1)
         meta_entries: list[tuple[bytes, fmt.BlockHandle]] = []
-        if self.opts.filter_policy and self._filter_offs:
-            fdata = self._filter_data()
+        if self._partition_filters and (self._filter_parts
+                                        or self._filter_keys):
+            if self._filter_keys:
+                last_uk = self._last_key[:-8] if self._last_key else b""
+                self._filter_parts.append((last_uk, self._filter_keys))
+                self._filter_keys = []
+            top = BlockBuilder(restart_interval=1)
+            total = 0
+            for last_uk, keys in self._filter_parts:
+                fdata = filter_from_keys(self.opts.filter_policy, keys)
+                fh = fmt.write_block(self._w, fdata)
+                top.add(last_uk, fh.encode())
+                total += len(fdata)
+            th = fmt.write_block(self._w, top.finish())
+            self.props.filter_size = total
+            meta_entries.append((METAINDEX_FILTER_PARTS, th))
+        elif self.opts.filter_policy and self._filter_keys:
+            fdata = filter_from_keys(self.opts.filter_policy,
+                                     self._filter_keys)
             fh = fmt.write_block(self._w, fdata)
             self.props.filter_size = len(fdata)
             meta_entries.append((METAINDEX_FILTER, fh))
@@ -358,9 +413,7 @@ class TableBuilder:
         if self._dict:
             dh = fmt.write_block(self._w, self._dict)
             meta_entries.append((METAINDEX_COMPRESSION_DICT, dh))
-        iraw = self._index_block.finish()
-        self.props.index_type = "binary"
-        self.props.index_size = len(iraw)
+        iraw = self._index_raw()
         ph = fmt.write_block(self._w, self.props.encode_block())
         meta_entries.append((METAINDEX_PROPERTIES, ph))
         for name, handle in sorted(meta_entries):
@@ -371,3 +424,47 @@ class TableBuilder:
         self._w.flush()
         self._finished = True
         return self.props
+
+    def _index_raw(self) -> bytes:
+        """The footer's index block. Two-level: the partition blocks are
+        written now and the returned top index points at them; with 0-1
+        index entries the index stays flat."""
+        if self._index_block is not None:
+            iraw = self._index_block.finish()
+            self.props.index_type = "binary"
+            self.props.index_size = len(iraw)
+            return iraw
+        ri = self.opts.index_restart_interval
+        if len(self._index_entries) <= 1:
+            flat = BlockBuilder(ri)
+            for k, v in self._index_entries:
+                flat.add(k, v)
+            iraw = flat.finish()
+            self.props.index_type = "binary"
+            self.props.index_size = len(iraw)
+            return iraw
+        self.props.index_type = "two_level"
+        top = BlockBuilder(ri)
+        part = BlockBuilder(ri)
+        part_size = 0
+        last_key = None
+        total = 0
+        for k, v in self._index_entries:
+            part.add(k, v)
+            part_size += len(k) + len(v) + 8
+            last_key = k
+            if part_size >= self.opts.metadata_block_size:
+                raw = part.finish()
+                ph = fmt.write_block(self._w, raw, self.opts.compression)
+                top.add(last_key, ph.encode())
+                total += len(raw)
+                part = BlockBuilder(ri)
+                part_size = 0
+        if part_size:
+            raw = part.finish()
+            ph = fmt.write_block(self._w, raw, self.opts.compression)
+            top.add(last_key, ph.encode())
+            total += len(raw)
+        iraw = top.finish()
+        self.props.index_size = total + len(iraw)
+        return iraw

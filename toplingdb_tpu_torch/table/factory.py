@@ -1,28 +1,44 @@
-"""Table format factory (copied from toplingdb_tpu/table/factory.py,
-trimmed to the block-based format: its builder, and `open_table`, the
-adaptive open that dispatches on the footer magic; the other formats come
-with a later slice and raise NotSupported on both sides)."""
+"""Table format factory and adaptive reader dispatch (copied from
+toplingdb_tpu/table/factory.py, without the block cache arguments).
+
+Builders are chosen by `TableOptions.format`; readers are dispatched by
+the footer magic, so a job may read a mix of formats.
+"""
 
 from __future__ import annotations
 
 from toplingdb_tpu_torch.table import format as fmt
 from toplingdb_tpu_torch.table.builder import TableBuilder, TableOptions
-from toplingdb_tpu_torch.table.reader import TableReader
-from toplingdb_tpu_torch.utils.status import (
-    Corruption,
-    InvalidArgument,
-    NotSupported,
+from toplingdb_tpu_torch.table.cuckoo import (
+    CuckooTableBuilder,
+    CuckooTableReader,
 )
-
-# Footer magics of the reference's other table formats.
-_OTHER_MAGICS = {
-    0x7470756C736D4654: "single_fast",
-    0x7470756C736D4354: "cuckoo",
-    0x7470756C736D5054: "plain",
-    0x7470756C736D5A54: "zip",
-}
+from toplingdb_tpu_torch.table.plain import PlainTableBuilder, PlainTableReader
+from toplingdb_tpu_torch.table.reader import TableReader
+from toplingdb_tpu_torch.table.single_fast import (
+    SingleFastTableBuilder,
+    SingleFastTableReader,
+)
+from toplingdb_tpu_torch.table.zip_table import ZipTableBuilder, ZipTableReader
+from toplingdb_tpu_torch.utils.status import Corruption, InvalidArgument
 
 FORMATS = ("block", "single_fast", "cuckoo", "plain", "zip")
+
+_BUILDERS = {
+    "block": TableBuilder,
+    "single_fast": SingleFastTableBuilder,
+    "cuckoo": CuckooTableBuilder,
+    "plain": PlainTableBuilder,
+    "zip": ZipTableBuilder,
+}
+
+_READERS = {
+    fmt.MAGIC: TableReader,
+    fmt.SINGLE_FAST_MAGIC: SingleFastTableReader,
+    fmt.CUCKOO_MAGIC: CuckooTableReader,
+    fmt.PLAIN_MAGIC: PlainTableReader,
+    fmt.ZIP_MAGIC: ZipTableReader,
+}
 
 
 def new_table_builder(wfile, icmp, options: TableOptions | None = None,
@@ -34,11 +50,9 @@ def new_table_builder(wfile, icmp, options: TableOptions | None = None,
             "auto_sort is a single_fast-format feature (the block builder "
             "requires sorted adds)"
         )
-    if f == "block":
-        return TableBuilder(wfile, icmp, options, **kw)
-    if f in FORMATS:
-        raise NotSupported(f"table format {f!r} is not ported yet")
-    raise InvalidArgument(f"unknown table format {f!r}")
+    if f not in _BUILDERS:
+        raise InvalidArgument(f"unknown table format {f!r}")
+    return _BUILDERS[f](wfile, icmp, options, **kw)
 
 
 def open_table(rfile, icmp, options: TableOptions | None = None):
@@ -46,9 +60,6 @@ def open_table(rfile, icmp, options: TableOptions | None = None):
     size = rfile.size()
     tail = rfile.read(max(0, size - fmt.FOOTER_LEN), fmt.FOOTER_LEN)
     magic = fmt.Footer.read_magic(tail)
-    if magic == fmt.MAGIC:
-        return TableReader(rfile, icmp, options)
-    if magic in _OTHER_MAGICS:
-        raise NotSupported(
-            f"table format {_OTHER_MAGICS[magic]!r} is not ported yet")
-    raise Corruption(f"unknown SST magic {magic:#x}")
+    if magic not in _READERS:
+        raise Corruption(f"unknown SST magic {magic:#x}")
+    return _READERS[magic](rfile, icmp, options)

@@ -1,8 +1,9 @@
 """Filter policies: classic and cache-line blocked bloom (copied from
 toplingdb_tpu/table/filter.py).
 
-A whole-file filter over user keys, probed before any index/data-block IO
-on point lookups; double hashing derived from xxh64.
+A filter over user keys (and, with a prefix extractor, their prefixes),
+whole-file or partitioned by the builder, probed before any index or
+data-block IO on point lookups; double hashing derived from xxh64.
 """
 
 from __future__ import annotations
@@ -184,6 +185,40 @@ def build_filter_block_native(lib, bp: FilterPolicy, key_buf, offs,
     keys = [bytes(key_buf[int(offs[i]): int(offs[i]) + int(uk_lens[i])])
             for i in range(n)]
     return bp.create_filter(keys)
+
+
+def filter_from_keys(bp: FilterPolicy, keys: list[bytes]) -> bytes:
+    """The filter block over `keys` (user keys and, with a prefix
+    extractor, prefixes): the native builder when the host library is
+    there, the policy itself otherwise — the same bytes either way."""
+    import numpy as np
+
+    from toplingdb_tpu_torch import native
+
+    n = len(keys)
+    lens = np.fromiter((len(k) for k in keys), dtype=np.int64, count=n)
+    offs = np.zeros(n, dtype=np.int64)
+    if n > 1:
+        np.cumsum(lens[:-1], out=offs[1:])
+    buf = np.frombuffer(b"".join(keys) or b"\0", dtype=np.uint8)
+    return build_filter_block_native(native.lib(), bp, buf, offs, lens, n)
+
+
+def filter_probe(policy: FilterPolicy | None, filter_data: bytes | None,
+                 whole_key_filtering: bool, prefix_extractor,
+                 user_key: bytes) -> bool:
+    """The point-lookup filter probe shared by the table readers: the
+    whole-key probe normally, the prefix probe when the file holds a
+    prefix-only filter (whole_key_filtering=0 in its properties). Fails
+    open when the filter or a needed extractor is unavailable."""
+    if policy is None or filter_data is None:
+        return True
+    if not whole_key_filtering:
+        pe = prefix_extractor
+        if pe is None or not pe.in_domain(user_key):
+            return True
+        return policy.key_may_match(pe.transform(user_key), filter_data)
+    return policy.key_may_match(user_key, filter_data)
 
 
 def filter_policy_from_name(name: str) -> FilterPolicy | None:

@@ -20,6 +20,10 @@ from toplingdb_tpu_torch.utils import coding, crc32c
 from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
 
 MAGIC = 0x7470756C736D5354  # "tpulsmST" big-endian spelling, stored fixed64 LE
+SINGLE_FAST_MAGIC = 0x7470756C736D4654  # "tpulsmFT": the flat L0/L1 format
+CUCKOO_MAGIC = 0x7470756C736D4354  # "tpulsmCT": cuckoo-hash point lookups
+PLAIN_MAGIC = 0x7470756C736D5054  # "tpulsmPT": plain table, prefix hash index
+ZIP_MAGIC = 0x7470756C736D5A54  # "tpulsmZT": searchable-compression format
 FOOTER_VERSION = 1
 BLOCK_TRAILER_SIZE = 5  # type byte + crc32
 MAX_HANDLE_LEN = 20     # two varint64s

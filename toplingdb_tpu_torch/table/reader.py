@@ -1,14 +1,16 @@
-"""SST reader (copied from toplingdb_tpu/table/reader.py, trimmed).
+"""SST reader (copied from toplingdb_tpu/table/reader.py, without the
+block cache and the native point-read handle).
 
-Opens a block-based SST: footer → metaindex → {filter, properties,
-range-del, compression-dictionary} blocks and the single-level index held
-in memory; data blocks are read (and inflated, with the file's ZSTD
-dictionary where it has one) per iterator step through the iterator's own
-readahead buffer (`table/prefetch.py`). The columnar compaction scan goes
-through the native whole-file decoder (`ops/columnar_io.py`), which uses
-the reader for the file handle, the index, the properties and the
-dictionary; the per-entry route iterates. Partitioned indexes and filters
-and block caches come with later slices.
+Opens a block-based SST: footer → metaindex → {filter or filter-partition
+top index, properties, range-del, compression-dictionary} blocks and the
+index held in memory — the whole index, or for a two-level index its top
+level, whose partitions load as an iterator reaches them. Data blocks are
+read (and inflated, with the file's ZSTD dictionary where it has one) per
+iterator step through the iterator's own readahead buffer
+(`table/prefetch.py`). The columnar compaction scan goes through the
+native whole-file decoder (`ops/columnar_io.py`), which uses the reader for
+the file handle, the index, the properties and the dictionary; the
+per-entry route iterates.
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ from toplingdb_tpu_torch.table.builder import (
     METAINDEX_RANGE_DEL,
     TableOptions,
 )
-from toplingdb_tpu_torch.table.filter import filter_policy_from_name
+from toplingdb_tpu_torch.table.filter import (
+    filter_policy_from_name,
+    filter_probe,
+)
 from toplingdb_tpu_torch.table.properties import TableProperties
-from toplingdb_tpu_torch.utils.status import NotSupported
+from toplingdb_tpu_torch.utils.slice_transform import resolve_file_extractor
 
 
 class TableReader:
@@ -47,18 +52,12 @@ class TableReader:
         mit.seek_to_first()
         for k, v in mit.entries():
             self._meta_handles[k] = fmt.BlockHandle.decode_exact(v)
-        if METAINDEX_FILTER_PARTS in self._meta_handles:
-            raise NotSupported("partitioned filters are not ported yet")
 
         self.properties = TableProperties()
         ph = self._meta_handles.get(METAINDEX_PROPERTIES)
         if ph is not None:
             self.properties = TableProperties.decode_block(
                 fmt.read_block(rfile, ph, verify))
-        if self.properties.index_type != "binary":
-            raise NotSupported(
-                f"index type {self.properties.index_type!r} is not ported "
-                "yet")
 
         self._filter_data: bytes | None = None
         self._filter_policy = None
@@ -67,6 +66,19 @@ class TableReader:
             self._filter_data = fmt.read_block(rfile, fh, verify)
             self._filter_policy = filter_policy_from_name(
                 self.properties.filter_policy_name)
+        # Partitioned filter: the top index (last user key → partition
+        # handle) loads now, a partition on its first probe.
+        self._filter_top: bytes | None = None
+        self._filter_part_memo: dict[int, bytes] = {}
+        th = self._meta_handles.get(METAINDEX_FILTER_PARTS)
+        if th is not None:
+            self._filter_top = fmt.read_block(rfile, th, verify)
+            self._filter_policy = filter_policy_from_name(
+                self.properties.filter_policy_name)
+        # The extractor this file's prefix filter keys were built with.
+        self._resolved_pe = resolve_file_extractor(
+            self.opts.prefix_extractor,
+            self.properties.prefix_extractor_name)
 
         self._range_del_data: bytes | None = None
         rh = self._meta_handles.get(METAINDEX_RANGE_DEL)
@@ -78,20 +90,60 @@ class TableReader:
         dh = self._meta_handles.get(METAINDEX_COMPRESSION_DICT)
         if dh is not None:
             self._compression_dict = fmt.read_block(rfile, dh, verify)
+        # Two-level index: _index_data is the top level.
+        self._partitioned_index = self.properties.index_type == "two_level"
 
     def close(self) -> None:
         self._f.close()
 
     def key_may_match(self, user_key: bytes) -> bool:
-        """Whole-key filter probe; fails open without a usable filter."""
-        if (self._filter_policy is None or self._filter_data is None
-                or not self.properties.whole_key_filtering):
-            return True
-        return self._filter_policy.key_may_match(user_key, self._filter_data)
+        """Filter probe (whole key, or prefix for a prefix-only filter);
+        fails open without a usable filter."""
+        if self._filter_top is not None:
+            return self._partitioned_filter_probe(user_key)
+        return filter_probe(
+            self._filter_policy, self._filter_data,
+            bool(self.properties.whole_key_filtering), self._resolved_pe,
+            user_key)
 
-    def new_index_iterator(self) -> BlockIter:
-        """Iterator over (separator_key, data BlockHandle bytes)."""
-        return BlockIter(self._index_data)
+    def _partitioned_filter_probe(self, user_key: bytes) -> bool:
+        """Seek the filter top index, load (once per reader) the one
+        partition that may hold the key, probe it. Fails open when the
+        policy cannot be rebuilt from its recorded name."""
+        if self._filter_policy is None:
+            return True
+        it = BlockIter(self._filter_top)
+        it.seek(user_key)  # first partition whose last key >= user_key
+        if not it.valid():
+            return False  # past every partition: absent
+        handle = fmt.BlockHandle.decode_exact(it.value())
+        fdata = self._filter_part_memo.get(handle.offset)
+        if fdata is None:
+            fdata = self.read_block(handle)
+            self._filter_part_memo[handle.offset] = fdata
+        return self._filter_policy.key_may_match(user_key, fdata)
+
+    def prefix_may_match(self, prefix: bytes) -> bool:
+        """Probe the filter with an already-extracted prefix (files built
+        with a prefix extractor only)."""
+        if (self._filter_policy is None or self._filter_data is None
+                or not self.properties.prefix_extractor_name):
+            return True
+        return self._filter_policy.key_may_match(prefix, self._filter_data)
+
+    def read_block(self, handle: fmt.BlockHandle, pf=None) -> bytes:
+        """One block (index partition, filter partition or data block),
+        read through `pf` (an iterator's readahead buffer) when given."""
+        return fmt.read_block(pf if pf is not None else self._f, handle,
+                              self.opts.verify_checksums,
+                              self._compression_dict)
+
+    def new_index_iterator(self):
+        """Iterator over (separator_key, data BlockHandle bytes), flat or
+        hopping across the partitions of a two-level index."""
+        if self._partitioned_index:
+            return _PartitionedIndexIter(self)
+        return BlockIter(self._index_data, self._icmp.compare)
 
     def new_iterator(self) -> "TableIterator":
         return TableIterator(self)
@@ -100,9 +152,78 @@ class TableReader:
         """Raw (begin_internal_key, end_user_key) tombstones in this file."""
         if self._range_del_data is None:
             return []
-        it = BlockIter(self._range_del_data)
+        it = BlockIter(self._range_del_data, self._icmp.compare)
         it.seek_to_first()
         return list(it.entries())
+
+
+class _PartitionedIndexIter:
+    """BlockIter-shaped view over a two-level index: the top block maps
+    each partition's last separator to its handle; partitions load on
+    demand."""
+
+    def __init__(self, reader: TableReader):
+        self._r = reader
+        self._cmp = reader._icmp.compare
+        self._top = BlockIter(reader._index_data, self._cmp)
+        self._sub: BlockIter | None = None
+
+    def _load(self) -> None:
+        if not self._top.valid():
+            self._sub = None
+            return
+        h = fmt.BlockHandle.decode_exact(self._top.value())
+        self._sub = BlockIter(self._r.read_block(h), self._cmp)
+
+    def valid(self) -> bool:
+        return self._sub is not None and self._sub.valid()
+
+    def key(self) -> bytes:
+        return self._sub.key()
+
+    def value(self) -> bytes:
+        return self._sub.value()
+
+    def seek_to_first(self) -> None:
+        self._top.seek_to_first()
+        self._load()
+        if self._sub is not None:
+            self._sub.seek_to_first()
+
+    def seek_to_last(self) -> None:
+        self._top.seek_to_last()
+        self._load()
+        if self._sub is not None:
+            self._sub.seek_to_last()
+
+    def seek(self, target: bytes) -> None:
+        self._top.seek(target)
+        self._load()
+        if self._sub is not None:
+            # Each top key is its partition's last separator, so the
+            # landed partition holds a separator >= target.
+            self._sub.seek(target)
+
+    def next(self) -> None:
+        self._sub.next()
+        if not self._sub.valid():
+            self._top.next()
+            self._load()
+            if self._sub is not None:
+                self._sub.seek_to_first()
+
+    def prev(self) -> None:
+        self._sub.prev()
+        if not self._sub.valid():
+            self._top.prev()
+            self._load()
+            if self._sub is not None:
+                self._sub.seek_to_last()
+
+    def entries(self):
+        while self.valid():
+            yield self.key(), self.value()
+            self.next()
 
 
 class TableIterator:
@@ -113,6 +234,7 @@ class TableIterator:
         from toplingdb_tpu_torch.table.prefetch import FilePrefetchBuffer
 
         self._r = reader
+        self._cmp = reader._icmp.compare
         self._idx = reader.new_index_iterator()
         self._data: BlockIter | None = None
         self._pf = FilePrefetchBuffer(reader._f)
@@ -126,9 +248,8 @@ class TableIterator:
             self._data = None
             return
         handle = fmt.BlockHandle.decode_exact(self._idx.value())
-        self._data = BlockIter(
-            fmt.read_block(self._pf, handle, self._r.opts.verify_checksums,
-                           self._r._compression_dict))
+        self._data = BlockIter(self._r.read_block(handle, self._pf),
+                               self._cmp)
 
     def valid(self) -> bool:
         return self._data is not None and self._data.valid()
@@ -153,10 +274,30 @@ class TableIterator:
             self._data.seek_to_last()
             self._skip_backward_empty()
 
+    def seek(self, target: bytes) -> None:
+        self._idx.seek(target)
+        self._load_data_block()
+        if self._data is not None:
+            self._data.seek(target)
+            self._skip_forward_empty()
+
+    def seek_for_prev(self, target: bytes) -> None:
+        self.seek(target)
+        if not self.valid():
+            self.seek_to_last()
+            return
+        if self._cmp(self.key(), target) > 0:
+            self.prev()
+
     def next(self) -> None:
         assert self.valid()
         self._data.next()
         self._skip_forward_empty()
+
+    def prev(self) -> None:
+        assert self.valid()
+        self._data.prev()
+        self._skip_backward_empty()
 
     def _skip_forward_empty(self) -> None:
         while self._data is not None and not self._data.valid():
