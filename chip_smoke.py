@@ -107,6 +107,28 @@ Phases (any failure ends the run with a non-zero exit code):
      collector, written with the port's CompactionParams, through run_job
      on "cuda" at 200,000 entries: status ok, the oracle, and the bytes of
      an in-process "cpu" run with the job's table options.
+ 13. the DB on the card: bench.py's DB deployment (bench.py:1366-1420,
+     BENCH_DB_N = 1,000,000) through the port's DB, opened with
+     Options(write_buffer_size=8 MiB, compaction_executor_factory=
+     DeviceCompactionExecutorFactory(device="cuda")) and auto compactions
+     on (L0 trigger 4): fillrandom from 4 writer threads in WriteBatches of
+     100 (16-digit keys (t*per + j) * 2654435761 % 2N, 20-byte values),
+     then flush(), wait_for_compactions() and compact_range(). Every
+     compaction must have run on the device executor (no job on the host
+     path, no scheduler error); gc_rows must have launched at least once
+     per device job and the merge whenever a job had more than one input
+     file (counts set to 0 just before the open, read just after
+     compact_range). Every live SST is then read back with the port's
+     table reader: one level holds them, and their rows are the written
+     keys in order, each a PUT whose 20 value bytes are compared row by
+     row. Then 100,000 readrandom probes (bench.py's Random(5) draw) and
+     a full forward scan against the written keys, close(),
+     reopen (recovery from the MANIFEST) and 10,000 probes again; last a
+     second DB takes 50,000 keys, is dropped without a flush or a close
+     (a crash), and its reopen must replay them from the WAL. Printed:
+     fill wall and ops/s, flushes, each device job's rows, route and wall,
+     compact_range wall and raw MB/s, readrandom ops/s, scan and reopen
+     walls.
 
 The script's total wall is printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -146,6 +168,9 @@ CODEC_N = 1_000_000     # phase 11 (b) and (c)
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
 FORMAT_N = 1_000_000    # phase 12 (b) and (c)
 ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
+DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
+DB_WAL_N = 50_000       # phase 13: the WAL-replay run
+DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
 
 
 def log(msg: str) -> None:
@@ -2145,6 +2170,201 @@ def formats_path(torch, env, dbdir, icmp, n_main, n_each, n_entry,
     remove_ssts(dbdir, metas)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the DB on the card
+# ---------------------------------------------------------------------------
+
+
+def db_key(i: int, n: int) -> bytes:
+    """bench.py's fillrandom / readrandom key of index i at N = n."""
+    return b"%016d" % (i * 2654435761 % (2 * n))
+
+
+def crash(db) -> None:
+    """Drop a DB without flushing its memtable (the WAL is synced and
+    closed, the background threads joined), as a killed process leaves
+    it."""
+    db._compaction_scheduler.shutdown()
+    db._wal.sync()
+    db._wal.close()
+    db.versions.close()
+    db.table_cache.close()
+    db._closed = True
+
+
+def db_files_against_oracle(db, want, value) -> int:
+    """Every live SST of the compacted DB read back with the port's table
+    reader: one level holds them all, and their rows, in file order, are
+    the user keys `want` in order, each a PUT whose value bytes equal
+    `value`, row by row."""
+    from toplingdb_tpu_torch.db import filename
+
+    levels = [fl for fl in db.versions.current.files if fl]
+    assert len(levels) == 1, db.versions.current.describe()
+    ukeys, vtypes, vals = [], [], []
+    width = len(want[0]) + 8
+    for m in levels[0]:
+        kv = scan_output(db.env, filename.table_file_name(db.dbname,
+                                                          m.number), db.icmp)
+        assert m.num_entries == kv.n
+        assert np.all(kv.key_lens == width), "unexpected key length"
+        assert np.all(kv.val_lens == len(value)), "unexpected value length"
+        kb = kv.key_buf.reshape(kv.n, width)
+        ukeys.append(kb[:, :-8])
+        trailer = np.ascontiguousarray(kb[:, -8:]).view("<u8").reshape(-1)
+        vtypes.append(trailer & np.uint64(0xFF))
+        vals.append(kv.val_buf[kv.val_offs[:, None].astype(np.int64)
+                               + np.arange(len(value))])
+    ukeys, vtypes, vals = (np.concatenate(a) for a in (ukeys, vtypes, vals))
+    wkeys = np.frombuffer(b"".join(want), np.uint8).reshape(len(want), -1)
+    assert ukeys.shape == wkeys.shape, (ukeys.shape, wkeys.shape)
+    assert np.array_equal(ukeys, wkeys), "user keys differ from the oracle"
+    assert np.all(vtypes == 1), "a row is not a PUT"
+    assert np.array_equal(vals, np.broadcast_to(
+        np.frombuffer(value, np.uint8), vals.shape)), \
+        "values differ from the oracle"
+    return len(levels[0])
+
+
+def db_path(torch, root, n, n_wal, device_name="cuda"):
+    """Phase 13: bench.py's DB deployment through the port's DB with its
+    compactions on `device_name`, then the read, recovery and WAL-replay
+    checks. Returns the launches of the fill + compactions."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+
+    value = b"v" * 20
+    n_threads, batch = 4, 100
+    per = n // n_threads
+    dbdir = os.path.join(root, "db")
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
+                   compaction_executor_factory=factory)
+    def worker(db, t, errs):
+        try:
+            for i in range(0, per, batch):
+                b = WriteBatch()
+                for j in range(i, i + batch):
+                    b.put(db_key(t * per + j, n), value)
+                db.write(b)
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs:
+        t_open = time.time()
+        db = DB.open(dbdir, opts)
+        errs = []
+        ts = [threading.Thread(target=worker, args=(db, t, errs))
+              for t in range(n_threads)]
+        t0 = time.time()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        fill = time.time() - t0
+        assert not errs, errs
+        n_auto = len(factory.jobs)
+        log(f"[db] fillrandom {n_threads * per} keys from {n_threads} "
+            f"threads in batches of {batch}: {fill:.3f}s, "
+            f"{n_threads * per / fill:.0f} ops/s, {db.num_flushes} flushes, "
+            f"{n_auto} device jobs during the fill")
+        t0 = time.time()
+        db.flush()
+        db.wait_for_compactions()
+        t1 = time.time()
+        db.compact_range()
+        crw = time.time() - t1
+        gc_n, mr_n = launched()
+    _, busy = programs.busy(time.time() - t_open)
+    sched = db._compaction_scheduler
+    jobs = factory.jobs
+    assert jobs, "no compaction ran on the device executor"
+    assert sched.num_local_jobs == 0, \
+        f"{sched.num_local_jobs} compactions ran on the host path"
+    assert sched.last_error is None, sched.last_error
+    if device_name != "cpu":
+        assert gc_n >= len(jobs), (gc_n, len(jobs))
+        if any(j["input_files"] > 1 for j in jobs):
+            assert mr_n > 0, "no merge launch for a multi-run job"
+    for k, j in enumerate(jobs):
+        log(f"[db] device job {k}: L{j['level']}->L{j['output_level']}, "
+            f"{j['input_files']} input files, {j['rows']} rows, "
+            f"{'pipelined' if j['pipelined'] else 'serial'} route, wall "
+            f"{j['wall_s']:.3f}s")
+    log(f"[db] flush + wait_for_compactions {t1 - t0:.3f}s; compact_range "
+        f"{crw:.3f}s, {n * DB_RAW_PER_ENTRY / 1e6 / crw:.2f} raw MB/s; "
+        f"{db.num_flushes} flushes, {len(jobs)} device jobs, "
+        f"{sched.num_trivial_moves} trivial moves, launches gc_rows={gc_n} "
+        f"merge_runs={mr_n}; open to compact_range's end: {busy}; levels "
+        f"{db.versions.current.describe()!r}")
+    want = sorted(db_key(i, n) for i in range(n_threads * per))
+    t0 = time.time()
+    n_files = db_files_against_oracle(db, want, value)
+    log(f"[db] {n_files} live SSTs read back with the table reader: "
+        f"{len(want)} rows, keys, PUT types and value bytes equal to the "
+        f"oracle row by row, {time.time() - t0:.3f}s")
+
+    import random
+
+    rng = random.Random(5)
+    probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
+    t0 = time.time()
+    for k in probes:
+        v = db.get(k)
+        assert v == value, (k, v)
+    rr = time.time() - t0
+    assert db.get(b"%016d" % (2 * n + 1)) is None
+    t0 = time.time()
+    it = db.new_iterator()
+    it.seek_to_first()
+    got = 0
+    for (k, v), w in zip(it.entries(), want):
+        assert k == w and v == value, (k, w)
+        got += 1
+    scan = time.time() - t0
+    assert got == len(want) and not it.valid(), (got, len(want))
+    t0 = time.time()
+    db.close()
+    db = DB.open(dbdir, opts)
+    reopen = time.time() - t0
+    try:
+        for k in probes[:10_000]:
+            assert db.get(k) == value, k
+    finally:
+        db.close()
+    log(f"[db] readrandom {len(probes)} probes {rr:.3f}s, "
+        f"{len(probes) / rr:.0f} ops/s, all found; full scan {got} keys "
+        f"{scan:.3f}s in order; close + reopen (MANIFEST recovery) "
+        f"{reopen:.3f}s, 10000 probes found")
+
+    waldir = os.path.join(root, "wal")
+    db = DB.open(waldir, opts)
+    keys = [db_key(i, n_wal) for i in range(n_wal)]
+    for i in range(0, n_wal, batch):
+        b = WriteBatch()
+        for k in keys[i:i + batch]:
+            b.put(k, value)
+        db.write(b)
+    crash(db)
+    assert not [f for f in os.listdir(waldir) if f.endswith(".sst")], \
+        "the WAL-replay run flushed before the crash"
+    t0 = time.time()
+    with DB.open(waldir, opts) as db:
+        replay = time.time() - t0
+        for k in keys:
+            assert db.get(k) == value, k
+        assert db.num_flushes == 1
+    log(f"[db] WAL replay: {n_wal} keys written, dropped without a flush, "
+        f"reopened in {replay:.3f}s (replay + one flush), all read back")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2204,6 +2424,7 @@ def main() -> int:
                         SLOW_CODEC_N, _jobs)
         formats_path(torch, env, dbdir, icmp, MAIN_N, FORMAT_N, ENTRY_N,
                      _jobs)
+        db_path(torch, os.path.join(dbdir, "db13"), DB_N, DB_WAL_N)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)

@@ -30,7 +30,11 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - a zstd zip job over 2^19+ rows through the pipelined plane (both
   kernels, the native zip writer), a protected pipelined job and a
   single_fast job on the per-entry route write the same SST bytes on
-  "cuda" as on "cpu".
+  "cuda" as on "cpu";
+- a 200,000-key DB whose compactions run on the card through
+  DeviceCompactionExecutorFactory(device="cuda") (both kernels launch, no
+  job on the host path) has the same get and scan views as the port's DB
+  on device="cpu", before and after reopen.
 """
 
 import os
@@ -850,3 +854,53 @@ def test_single_fast_job_writes_the_cpu_bytes(dev, tmp_path):
     want, _, _ = _format_job("cpu", env, dbdir, icmp, in_topts, topts,
                              metas, 200, snaps=[3000], max_out=1 << 16)
     assert len(got) > 1 and got == want
+
+
+def _db_views(path, device, n):
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=1 << 20, disable_auto_compactions=True,
+                   compaction_executor_factory=factory)
+    keys = [b"%016d" % (j * 2654435761 % (2 * n)) for j in range(n)]
+    db = DB.open(path, opts)
+    try:
+        for i in range(0, n, 100):
+            b = WriteBatch()
+            for j in range(i, i + 100):
+                b.put(keys[j], b"v%019d" % j)
+            db.write(b)
+            if i % 50_000 == 0:
+                db.delete(keys[i // 2])
+        db.flush()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert factory.jobs
+        assert sched.num_local_jobs == 0 and sched.last_error is None
+        probes = keys[::97] + [b"missing"]
+        gets = [db.get(k) for k in probes]
+        it = db.new_iterator()
+        it.seek_to_first()
+        scan = list(it.entries())
+    finally:
+        db.close()
+    with DB.open(path, opts) as db:
+        assert [db.get(k) for k in probes] == gets
+    return gets, scan
+
+
+def test_db_on_the_card_has_the_cpu_views(dev, tmp_path):
+    n = 200_000
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _db_views(str(tmp_path / "cuda"), "cuda", n)
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    want = _db_views(str(tmp_path / "cpu"), "cpu", n)
+    assert got == want
+    assert len(got[1]) == n - 4

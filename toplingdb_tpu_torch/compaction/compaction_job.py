@@ -1,23 +1,39 @@
-"""Per-job compaction stats, their phase spans, the tombstones a job
-writes, and the per-entry output cutter (copied from
-toplingdb_tpu/compaction/compaction_job.py, trimmed to `CompactionStats`,
-`emit_phase_spans`, `surviving_tombstone_fragments`, `verify_output_table`
-and `build_outputs`; the CPU CompactionJob comes with the DB engine in a
-later slice)."""
+"""CompactionJob: execute one picked compaction (copied from
+toplingdb_tpu/compaction/compaction_job.py).
+
+The job is split into stages shared by the CPU path here and the device
+path (ops/device_compaction.py), so both write byte-identical outputs:
+
+  collect_inputs()              open input files, gather range tombstones
+  CompactionIterator / device   the data plane (survivor stream)
+  build_outputs()               output-file cutting + table building
+
+`run_compaction_to_tables` is the CPU path (RocksDB's CompactionJob::
+RunLocal → ProcessKeyValueCompaction): a heap merge through the
+CompactionIterator, split into subcompactions on threads when asked.
+"""
 
 from __future__ import annotations
 
 import bisect
+import threading
+import time
 from dataclasses import dataclass
 
+from toplingdb_tpu_torch.compaction.compaction_iterator import (
+    CompactionIterator,
+)
 from toplingdb_tpu_torch.compaction.picker import Compaction
 from toplingdb_tpu_torch.db import dbformat, filename
 from toplingdb_tpu_torch.db.blob import decode_blob_index
+from toplingdb_tpu_torch.db.level_iterator import LevelIterator
 from toplingdb_tpu_torch.db.range_del import (
     RangeDelAggregator,
+    RangeTombstone,
     fragment_tombstones,
 )
-from toplingdb_tpu_torch.db.version_edit import FileMetaData
+from toplingdb_tpu_torch.db.version_edit import FileMetaData, VersionEdit
+from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
 from toplingdb_tpu_torch.table.factory import new_table_builder, open_table
 from toplingdb_tpu_torch.utils import protection
 from toplingdb_tpu_torch.utils.status import Corruption, NotFound
@@ -306,3 +322,270 @@ def build_outputs(env, dbname: str, icmp, compaction: Compaction,
             _delete_quietly(env, filename.table_file_name(dbname, fnum))
         raise
     return outputs
+
+
+def collect_inputs(compaction: Compaction, table_cache, icmp):
+    """Open all input files; returns (children_iterators, range_del_agg)
+    (RocksDB's VersionSet::MakeInputIterator)."""
+    children = []
+    rd = RangeDelAggregator(icmp.user_comparator)
+
+    def add_tombs(f):
+        r = table_cache.get_reader(f.number)
+        for b, e in r.range_del_entries():
+            rd.add(RangeTombstone.from_table_entry(b, e))
+        return r
+
+    if compaction.level == 0:
+        for f in compaction.inputs:
+            r = add_tombs(f)
+            children.append(r.new_iterator())
+    else:
+        files = sorted(compaction.inputs, key=lambda f: icmp.sort_key(f.smallest))
+        children.append(LevelIterator(table_cache, files, icmp))
+        for f in files:
+            add_tombs(f)
+    if compaction.output_level_inputs:
+        files = sorted(
+            compaction.output_level_inputs, key=lambda f: icmp.sort_key(f.smallest)
+        )
+        children.append(LevelIterator(table_cache, files, icmp))
+        for f in files:
+            add_tombs(f)
+    return children, rd
+
+
+def gen_subcompaction_boundaries(compaction: Compaction, icmp,
+                                 max_subcompactions: int) -> list[bytes]:
+    """User-key boundaries splitting the compaction into ranges (RocksDB's
+    CompactionJob::GenSubcompactionBoundaries; anchors come from input-file
+    bounds instead of TableReader::Anchors: cheap, even-ish partitions at
+    user-key granularity)."""
+    import functools
+
+    ucmp = icmp.user_comparator
+    anchors = set()
+    for _, f in compaction.all_inputs():
+        anchors.add(dbformat.extract_user_key(f.smallest))
+        anchors.add(dbformat.extract_user_key(f.largest))
+    ordered = sorted(anchors, key=functools.cmp_to_key(ucmp.compare))
+    inner = ordered[1:-1]
+    k = min(max_subcompactions, len(inner) + 1)
+    if k <= 1:
+        return []
+    bounds: list[bytes] = []
+    for i in range(1, k):
+        b = inner[(i * len(inner)) // k]
+        if not bounds or ucmp.compare(b, bounds[-1]) > 0:
+            bounds.append(b)
+    return bounds
+
+
+class _BoundedMerger:
+    """View of a positioned iterator that ends at user key `hi` (exclusive);
+    the subcompaction's input window."""
+
+    def __init__(self, it, icmp, hi: bytes | None):
+        self._it = it
+        self._ucmp = icmp.user_comparator
+        self._hi = hi
+
+    def valid(self):
+        if not self._it.valid():
+            return False
+        if self._hi is None:
+            return True
+        uk = dbformat.extract_user_key(self._it.key())
+        return self._ucmp.compare(uk, self._hi) < 0
+
+    def key(self):
+        return self._it.key()
+
+    def value(self):
+        return self._it.value()
+
+    def next(self):
+        self._it.next()
+
+
+def _clip_fragments(frags, lo: bytes | None, hi: bytes | None, ucmp):
+    """Restrict tombstone fragments to [lo, hi) so sibling subcompactions
+    don't write overlapping tombstone spans."""
+    out = []
+    for f in frags:
+        if lo is not None and ucmp.compare(f.end, lo) <= 0:
+            continue
+        if hi is not None and ucmp.compare(f.begin, hi) >= 0:
+            continue
+        nb = f.begin if lo is None or ucmp.compare(f.begin, lo) >= 0 else lo
+        ne = f.end if hi is None or ucmp.compare(f.end, hi) <= 0 else hi
+        out.append(type(f)(f.seq, nb, ne))
+    return out
+
+
+def run_compaction_to_tables(
+    env, dbname: str, icmp, compaction: Compaction, table_cache,
+    table_options, snapshots: list[int], merge_operator=None,
+    compaction_filter=None, new_file_number=None, creation_time=None,
+    blob_resolver=None, blob_gc=None, column_family: tuple[int, str] = (0, "default"),
+    max_subcompactions: int = 1,
+) -> tuple[list[FileMetaData], CompactionStats]:
+    """The CPU data plane: heap merge → CompactionIterator GC → outputs.
+    `blob_gc` is an optional BlobGarbageCollector rewriting survivors out of
+    aged blob files (blob GC during compaction). With
+    max_subcompactions > 1 the key range is partitioned at user-key anchors
+    and ranges run on parallel threads (RocksDB's subcompaction fan-out;
+    the native block codec releases the GIL, so threads scale the
+    encode/decode work)."""
+    t0 = time.time()
+    stats = CompactionStats()
+    stats.input_bytes = compaction.total_input_bytes()
+    stats.input_files = len(compaction.all_inputs())
+    gc_active = blob_gc is not None and blob_gc.active
+    bounds = (
+        gen_subcompaction_boundaries(compaction, icmp, max_subcompactions)
+        if max_subcompactions > 1 and not gc_active else []
+    )
+    outputs = _run_subcompactions(
+        env, dbname, icmp, compaction, table_cache, table_options,
+        snapshots, merge_operator, compaction_filter, new_file_number,
+        creation_time, blob_resolver, column_family, bounds, stats,
+        blob_gc=blob_gc if gc_active else None,
+    )
+    if blob_gc is not None and not gc_active:
+        blob_gc.finish()  # no-op close for an inactive collector
+    stats.work_time_usec = int((time.time() - t0) * 1e6)
+    return outputs, stats
+
+
+def _run_subcompactions(env, dbname, icmp, compaction, table_cache,
+                        table_options, snapshots, merge_operator,
+                        compaction_filter, new_file_number, creation_time,
+                        blob_resolver, column_family, bounds: list[bytes],
+                        stats: CompactionStats,
+                        blob_gc=None) -> list[FileMetaData]:
+    """One worker per key range (a single unbounded range when bounds is
+    empty — the degenerate case IS the single-threaded path, so the sub=1
+    and sub>1 pipelines cannot diverge); each range runs the full
+    merge→GC→build pipeline over its window and the results concatenate in
+    range order. Tombstones are fragmented ONCE and clipped per range.
+    `blob_gc` (single-range only) rewrites survivors out of aged blob
+    files."""
+    from toplingdb_tpu_torch.utils import telemetry
+
+    ucmp = icmp.user_comparator
+    ranges = [
+        (bounds[i - 1] if i > 0 else None,
+         bounds[i] if i < len(bounds) else None)
+        for i in range(len(bounds) + 1)
+    ]
+    assert blob_gc is None or len(ranges) == 1
+    ctime = creation_time if creation_time is not None else int(time.time())
+    # Fragment once (quadratic in tombstone count — not per thread); the
+    # readers' tombstone meta is cached, so per-thread aggregators for the
+    # point-key GC stay cheap.
+    rd0 = RangeDelAggregator(ucmp)
+    for _, f in compaction.all_inputs():
+        r = table_cache.get_reader(f.number)
+        for b, e in r.range_del_entries():
+            rd0.add(RangeTombstone.from_table_entry(b, e))
+    all_frags = surviving_tombstone_fragments(
+        rd0, snapshots, compaction.bottommost, ucmp
+    )
+    results: list = [None] * len(ranges)
+    errors: list[BaseException] = []
+    # Serial-plane telemetry: the streamed merge→GC→build stage per key
+    # range, parented cross-thread under the compaction root.
+    trace_handle = telemetry.current_handle()
+
+    def work(idx: int, lo: bytes | None, hi: bytes | None) -> None:
+        _tsp = telemetry.span_under(trace_handle,
+                                    "compaction.subcompaction", range=idx)
+        try:
+            st = CompactionStats()
+            children, rd = collect_inputs(compaction, table_cache, icmp)
+            merger = MergingIterator(icmp.compare, children)
+            if lo is None:
+                merger.seek_to_first()
+            else:
+                merger.seek(dbformat.make_internal_key(
+                    lo, dbformat.MAX_SEQUENCE_NUMBER,
+                    dbformat.VALUE_TYPE_FOR_SEEK,
+                ))
+            ci = CompactionIterator(
+                _BoundedMerger(merger, icmp, hi), icmp, snapshots,
+                bottommost_level=compaction.bottommost,
+                merge_operator=merge_operator,
+                compaction_filter=compaction_filter,
+                compaction_filter_level=compaction.output_level,
+                range_del_agg=None if rd.empty() else rd,
+                blob_resolver=blob_resolver,
+                full_history_ts_low=getattr(
+                    compaction, "full_history_ts_low", 0
+                ),
+            )
+            frags = _clip_fragments(all_frags, lo, hi, ucmp)
+            stream = ci.entries()
+            if blob_gc is not None:
+                stream = blob_gc.rewrite(stream)
+            outs = build_outputs(
+                env, dbname, icmp, compaction, stream, frags,
+                new_file_number, table_options, st, ctime,
+                column_family=column_family,
+            )
+            st.input_records = ci.num_input_records
+            st.dropped_obsolete = ci.num_dropped_obsolete
+            st.dropped_tombstone = ci.num_dropped_tombstone
+            st.merged_records = ci.num_merged
+            for ch in children:
+                pc = getattr(ch, "prefetch_counts", None)
+                if pc is not None:
+                    h, m = pc()
+                    st.prefetch_hits += h
+                    st.prefetch_misses += m
+            results[idx] = (outs, st)
+        except BaseException as e:  # noqa: BLE001 — surfaced by the driver
+            errors.append(e)
+        finally:
+            _tsp.finish()
+
+    if len(ranges) == 1:
+        work(0, None, None)
+    else:
+        threads = [
+            threading.Thread(target=work, args=(i, lo, hi),
+                             name=f"tpt-subcompaction-{i}", daemon=True)
+            for i, (lo, hi) in enumerate(ranges)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        if blob_gc is not None:
+            blob_gc.abort()
+        raise errors[0]
+    if blob_gc is not None:
+        blob_gc.finish()
+    outputs: list[FileMetaData] = []
+    for outs, st in results:
+        outputs.extend(outs)
+        stats.input_records += st.input_records
+        stats.output_records += st.output_records
+        stats.output_bytes += st.output_bytes
+        stats.output_files += st.output_files
+        stats.dropped_obsolete += st.dropped_obsolete
+        stats.dropped_tombstone += st.dropped_tombstone
+        stats.merged_records += st.merged_records
+        stats.prefetch_hits += st.prefetch_hits
+        stats.prefetch_misses += st.prefetch_misses
+    return outputs
+
+
+def make_version_edit(compaction: Compaction, outputs: list[FileMetaData]) -> VersionEdit:
+    edit = VersionEdit(column_family=compaction.cf_id)
+    for level, f in compaction.all_inputs():
+        edit.delete_file(level, f.number)
+    for meta in outputs:
+        edit.add_file(compaction.output_level, meta)
+    return edit

@@ -1,19 +1,128 @@
-"""The serialized dcompact job boundary (copied from
-toplingdb_tpu/compaction/executor.py, trimmed to the job boundary:
+"""The compaction executor boundary (copied from
+toplingdb_tpu/compaction/executor.py, trimmed to the in-process device
+executor and the serialized dcompact job boundary).
+
+  CompactionExecutorFactory.should_run_local / new_executor — decide
+  routing per job;
+  CompactionExecutor.execute(db, compaction, snapshots, alloc) — run the
+  data plane and return (outputs, stats).
+
+DeviceCompactionExecutor runs the job through run_device_compaction on the
+card ("cuda") or on the kernels' plain versions ("cpu"); it is the default
+of Options.compaction_executor_factory, on "cuda". Unlike toplingdb_tpu's
+factory, the port's never falls back to the CPU path: a failed device job
+raises and surfaces as the DB's background error. The host compaction
+path (run_compaction_to_tables) runs only where the caller names it with
+LocalCompactionExecutorFactory. The subprocess executor comes with a later
+slice.
+
 `CompactionParams`, `CompactionResults`, `encode_file_meta`,
-`decode_file_meta`, and `table_options_from_params`, the worker's table
-options). A job dir's params.json and results.json carry these
-as JSON, in the reference's format, so a job written by either package is
-read by the other's worker. The executors that submit jobs read the DB's
-options and come with the DB engine.
+`decode_file_meta` and `table_options_from_params` are the dcompact job
+dir's params.json and results.json, in toplingdb_tpu's format, so a job
+written by either package is read by the other's worker.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
+import time
 
+from toplingdb_tpu_torch.compaction.compaction_job import CompactionStats
+from toplingdb_tpu_torch.compaction.picker import Compaction
 from toplingdb_tpu_torch.db.version_edit import FileMetaData
+
+
+class CompactionExecutor:
+    def execute(self, db, compaction: Compaction, snapshots: list[int],
+                new_file_number) -> tuple[list[FileMetaData], CompactionStats]:
+        raise NotImplementedError
+
+
+class CompactionExecutorFactory:
+    """RocksDB's CompactionExecutorFactory (compaction_executor.h)."""
+
+    def should_run_local(self, compaction: Compaction) -> bool:
+        return False
+
+    def new_executor(self, compaction: Compaction) -> CompactionExecutor:
+        raise NotImplementedError
+
+
+class LocalCompactionExecutorFactory(CompactionExecutorFactory):
+    """Every job on the host compaction path (run_compaction_to_tables,
+    per entry): what toplingdb_tpu's DB runs with no factory. The port
+    runs it only where the caller asks for it by this factory."""
+
+    def should_run_local(self, compaction: Compaction) -> bool:
+        return True
+
+
+# ---------------------------------------------------------------------------
+# In-process device executor
+# ---------------------------------------------------------------------------
+
+
+class DeviceCompactionExecutor(CompactionExecutor):
+    def __init__(self, factory: "DeviceCompactionExecutorFactory"):
+        self.factory = factory
+        self.device = factory.device
+
+    def execute(self, db, compaction, snapshots, new_file_number):
+        from toplingdb_tpu_torch.db.blob import maybe_new_blob_gc
+        from toplingdb_tpu_torch.ops.device_compaction import (
+            run_device_compaction,
+        )
+
+        t0 = time.time()
+        outputs, stats = run_device_compaction(
+            db.env, db.dbname, db.icmp, compaction, db.table_cache,
+            db.options.table_options_for_level(
+                compaction.output_level, compaction.bottommost),
+            snapshots,
+            merge_operator=db.options.merge_operator,
+            compaction_filter=db.options.compaction_filter,
+            new_file_number=new_file_number,
+            device_name=self.device,
+            blob_resolver=db.blob_source.get,
+            blob_gc=maybe_new_blob_gc(db, compaction, new_file_number),
+            column_family=(compaction.cf_id, db.cf_name(compaction.cf_id)),
+        )
+        self.factory.record_job(compaction, stats, time.time() - t0)
+        return outputs, stats
+
+
+class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
+    """Every job on the device data plane, with run_device_compaction's
+    own choices of route.
+
+    device: "cuda" (the card; a job raises without one) or "cpu" (the
+    kernels' plain PyTorch versions). A failed job raises; nothing re-runs
+    it elsewhere. `jobs` logs every job the factory's executors ran: its
+    level pair, input files and rows, whether it ran pipelined, and its
+    wall."""
+
+    def __init__(self, device: str = "cuda"):
+        if device not in ("cuda", "cpu"):
+            raise ValueError(
+                f"device {device!r}: the port's executor runs 'cuda' or "
+                f"'cpu'")
+        self.device = device
+        self.jobs: list[dict] = []
+        self._lock = threading.Lock()
+
+    def new_executor(self, compaction: Compaction) -> CompactionExecutor:
+        return DeviceCompactionExecutor(self)
+
+    def record_job(self, compaction: Compaction, stats: CompactionStats,
+                   wall_s: float) -> None:
+        with self._lock:
+            self.jobs.append(dict(
+                level=compaction.level, output_level=compaction.output_level,
+                input_files=compaction.num_input_files(),
+                rows=stats.input_records, pipelined=stats.pipelined,
+                wall_s=wall_s))
 
 
 @dataclasses.dataclass

@@ -1,0 +1,281 @@
+"""Background compaction scheduling (copied from
+toplingdb_tpu/compaction/scheduler.py, trimmed to the leveled style: the
+periodic and preclude-last-level policies, the storage-pressure preflight,
+the local-pin gate, statistics and listeners come with later slices).
+
+The role of RocksDB's MaybeScheduleFlushOrCompaction → BGWorkCompaction
+chain (db/db_impl/db_impl_compaction_flush.cc): after every flush and
+compaction the scores are re-evaluated and jobs run on a bounded pool of
+background threads (named "tpt-compaction-bg"). Every job routes through
+Options.compaction_executor_factory: the device executor (the default, on
+the card) or, where the caller names LocalCompactionExecutorFactory, the
+host compaction path. A failed device job raises; none falls back.
+"""
+
+from __future__ import annotations
+
+import threading
+import traceback
+
+from toplingdb_tpu_torch.compaction.compaction_job import (
+    emit_phase_spans,
+    make_version_edit,
+    run_compaction_to_tables,
+)
+from toplingdb_tpu_torch.compaction.picker import Compaction, create_picker
+from toplingdb_tpu_torch.db import dbformat
+from toplingdb_tpu_torch.db.version_edit import VersionEdit
+
+THREAD_PREFIX = "tpt-"
+
+
+class CompactionScheduler:
+    def __init__(self, db):
+        self.db = db
+        self.picker = create_picker(db.options, db.icmp)
+        self._pending = 0
+        self._running = 0
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._shutdown = False
+        self._manual_active = False
+        self._threads: list[threading.Thread] = []
+        self.last_error: BaseException | None = None
+        self.num_trivial_moves = 0
+        # Jobs that ran the host compaction path (the factory's
+        # should_run_local: LocalCompactionExecutorFactory).
+        self.num_local_jobs = 0
+
+    # ------------------------------------------------------------------
+
+    def maybe_schedule(self) -> None:
+        if self.db.options.disable_auto_compactions:
+            return
+        with self._lock:
+            if self._shutdown or self._manual_active:
+                return
+            if self._running + self._pending >= self.db.options.max_background_jobs:
+                return
+            self._pending += 1
+            self._threads = [t for t in self._threads if t.is_alive()]
+            t = threading.Thread(target=self._bg_work, daemon=True,
+                                 name=THREAD_PREFIX + "compaction-bg")
+            self._threads.append(t)
+        t.start()
+
+    def _bg_work(self) -> None:
+        # Keep running jobs in THIS thread until no work remains: _running
+        # stays nonzero for the whole drain, so wait_idle() can never observe
+        # a false idle gap between one job finishing and its follow-up being
+        # scheduled.
+        with self._lock:
+            self._pending -= 1
+            self._running += 1
+        try:
+            while True:
+                with self._lock:
+                    if self._shutdown or self._manual_active:
+                        break
+                if not self._run_one():
+                    break
+        except BaseException as e:
+            # Surface to the DB's error handler: writes fail from now on
+            # (RocksDB's ErrorHandler).
+            self.last_error = e
+            self.db._set_background_error(e)
+            traceback.print_exc()
+        finally:
+            with self._lock:
+                self._running -= 1
+                self._cv.notify_all()
+
+    def wait_idle(self) -> None:
+        """Block until no compaction is running or pending."""
+        with self._lock:
+            while self._running or self._pending:
+                self._cv.wait(timeout=0.1)
+
+    def shutdown(self) -> None:
+        """Stop scheduling, wait for running jobs, and join every
+        background thread this scheduler started."""
+        with self._lock:
+            self._shutdown = True
+        self.wait_idle()
+        with self._lock:
+            threads, self._threads = self._threads, []
+        for t in threads:
+            t.join()
+
+    # ------------------------------------------------------------------
+
+    def _run_one(self) -> bool:
+        db = self.db
+        with db._mutex:
+            version = db.versions.current
+            scores = self.picker.compaction_score(version)
+            if not scores or scores[0][0] < 1.0:
+                return False
+            c = self.picker.pick_compaction(version)
+            if c is None:
+                return False
+            for _, f in c.all_inputs():
+                f.being_compacted = True
+        try:
+            self._run_compaction(c)
+        finally:
+            with db._mutex:
+                for _, f in c.all_inputs():
+                    f.being_compacted = False
+        return True
+
+    def _run_compaction(self, c: Compaction) -> None:
+        db = self.db
+        if not c.output_level_inputs and not c.inputs:
+            return
+
+        def _bottom_move_ok(f) -> bool:
+            # A bottommost rewrite exists to GC tombstones / fold merges;
+            # a file with neither loses nothing by moving.
+            if f.num_deletions or f.num_range_deletions:
+                return False
+            props = db.table_cache.get_reader(f.number).properties
+            return props.num_merge_operands == 0
+
+        if (len(c.inputs) == 1 and not c.output_level_inputs
+                and c.level > 0 and c.output_level > c.level
+                and db.options.compaction_filter is None
+                and (not c.bottommost or _bottom_move_ok(c.inputs[0]))
+                and not (db.options.enable_blob_garbage_collection
+                         and c.inputs[0].blob_refs)):
+            # Trivial move (RocksDB's Compaction::IsTrivialMove): nothing
+            # overlaps below — just relocate the file's metadata, no
+            # rewrite, no IO.
+            meta = c.inputs[0]
+            edit = VersionEdit(column_family=c.cf_id)
+            edit.delete_file(c.level, meta.number)
+            edit.add_file(c.output_level, meta)
+            with db._mutex:
+                db.versions.log_and_apply(edit)
+            with self._lock:
+                self.num_trivial_moves += 1
+            return
+        snapshots = db.snapshots.sequences()
+        pending: list[int] = []
+
+        def alloc() -> int:
+            # Protect in-flight outputs from obsolete-file GC until the
+            # version edit lands (RocksDB's pending_outputs_).
+            n = db.versions.new_file_number()
+            with db._mutex:
+                db._pending_outputs.add(n)
+            pending.append(n)
+            return n
+
+        try:
+            factory = db.options.compaction_executor_factory
+            if factory.should_run_local(c):
+                outputs, stats = self._run_local(c, snapshots, alloc)
+            else:
+                from toplingdb_tpu_torch.compaction.resilience import (
+                    execute_resilient,
+                )
+
+                outputs, stats = execute_resilient(
+                    db, factory, c, snapshots, alloc)
+            emit_phase_spans(stats)
+            if c.reason == "bottommost marked":
+                # The rewrite already dropped everything droppable; keeping a
+                # collector re-mark would rewrite the same file forever while
+                # snapshots pin its remaining tombstones.
+                for m in outputs:
+                    m.marked_for_compaction = False
+            # Whole-file checksums ride into the MANIFEST with the install.
+            db._stamp_file_checksums(outputs)
+            edit = make_version_edit(c, outputs)
+            with db._mutex:
+                db.versions.log_and_apply(edit)
+                db._delete_obsolete_files()
+        finally:
+            with db._mutex:
+                db._pending_outputs.difference_update(pending)
+
+    def _run_local(self, c: Compaction, snapshots, alloc):
+        from toplingdb_tpu_torch.db.blob import maybe_new_blob_gc
+
+        db = self.db
+        with self._lock:
+            self.num_local_jobs += 1
+        return run_compaction_to_tables(
+            db.env, db.dbname, db.icmp, c, db.table_cache,
+            db.options.table_options_for_level(c.output_level, c.bottommost),
+            snapshots,
+            merge_operator=db.options.merge_operator,
+            compaction_filter=db.options.compaction_filter,
+            new_file_number=alloc,
+            blob_resolver=db.blob_source.get,
+            blob_gc=maybe_new_blob_gc(db, c, alloc),
+            column_family=(c.cf_id, db.cf_name(c.cf_id)),
+            max_subcompactions=db.options.max_subcompactions,
+        )
+
+    # ------------------------------------------------------------------
+
+    def compact_range(self, begin: bytes | None, end: bytes | None) -> None:
+        """Manual compaction: push overlapping files down level by level
+        (RocksDB's DBImpl::CompactRange). Pauses auto scheduling while
+        running so picks cannot race."""
+        with self._lock:
+            self._manual_active = True
+        try:
+            self.wait_idle()
+            self._compact_range_impl(begin, end)
+        finally:
+            with self._lock:
+                self._manual_active = False
+        # The per-level loop's frame pinned the previous Version (weak-ref
+        # lifetime) during the last install; sweep again now it's released.
+        with self.db._mutex:
+            self.db._delete_obsolete_files()
+        self.maybe_schedule()
+
+    def _compact_range_impl(self, begin: bytes | None,
+                            end: bytes | None) -> None:
+        db = self.db
+        version = db.versions.current
+        for level in range(0, version.num_levels - 1):
+            with db._mutex:
+                version = db.versions.current
+                if level == 0:
+                    inputs = [f for f in version.files[0]
+                              if not f.quarantined]
+                else:
+                    inputs = [
+                        f for f in version.overlapping_files(level, begin, end)
+                        if not f.quarantined
+                    ]
+                if not inputs:
+                    continue
+                smallest = min((f.smallest for f in inputs), key=db.icmp.sort_key)
+                largest = max((f.largest for f in inputs), key=db.icmp.sort_key)
+                su = dbformat.extract_user_key(smallest)
+                lu = dbformat.extract_user_key(largest)
+                outputs = version.overlapping_files(level + 1, su, lu)
+                c = Compaction(
+                    level=level, output_level=level + 1, inputs=inputs,
+                    output_level_inputs=outputs,
+                    bottommost=self.picker._is_bottommost(
+                        version, level + 1, smallest, largest
+                    ),
+                    reason="manual",
+                    max_output_file_size=db.options.target_file_size(level + 1),
+                    cf_id=0,
+                    full_history_ts_low=db.options.full_history_ts_low,
+                )
+                for _, f in c.all_inputs():
+                    f.being_compacted = True
+            try:
+                self._run_compaction(c)
+            finally:
+                with db._mutex:
+                    for _, f in c.all_inputs():
+                        f.being_compacted = False

@@ -1,6 +1,6 @@
 """Integrated blob files: key-value separation for large values (copied
 from toplingdb_tpu/db/blob.py, without the value cache and statistics of
-BlobSource; `maybe_new_blob_gc` needs the DB and comes with it).
+BlobSource).
 
 Values >= min_blob_size live in .blob files; the LSM keeps a BLOB_INDEX
 entry pointing at (file, offset, size). Each SST's FileMetaData carries the
@@ -231,3 +231,20 @@ class BlobGarbageCollector:
         self._builder.finish()
         self._delete_new_file()
         self._builder = None
+
+
+def maybe_new_blob_gc(db, compaction, new_file_number):
+    """Shared constructor for the compaction-time collector (used by the
+    local scheduler AND the device executor so the eligibility policy can't
+    diverge): None unless GC is enabled and the inputs reference blob
+    files. The port's DB refuses blob files, so this is None there."""
+    opts = db.options
+    if not opts.enable_blob_garbage_collection:
+        return None
+    refs = [fn for _, f in compaction.all_inputs() for fn in f.blob_refs]
+    if not refs:
+        return None
+    return BlobGarbageCollector(
+        db.env, db.dbname, refs, opts.blob_garbage_collection_age_cutoff,
+        opts.min_blob_size, db.blob_source.get, new_file_number,
+    )

@@ -1,0 +1,841 @@
+"""DB: the central engine object (copied from toplingdb_tpu/db/db.py,
+trimmed to the core of a single-column-family leveled engine).
+
+The role of RocksDB's DBImpl (db/db_impl/db_impl.cc): open and recover
+(MANIFEST + WAL replay), the write path (group commit: WAL + memtable),
+point reads through memtable → immutables → versioned SST levels, flush,
+MVCC iterators, snapshots, manual compaction, the L0 write stall and
+obsolete-file GC. Background compactions run in the scheduler
+(compaction/scheduler.py) through Options.compaction_executor_factory: by
+default the port's DeviceCompactionExecutorFactory, on the card.
+
+The write path is toplingdb_tpu's Python group commit with its native
+write plane off, which writes byte-identical WAL records by design; each
+group's memtable insert is one native wire-image call per batch. What
+toplingdb_tpu runs beyond this core (column families, the staged write
+modes, blob files, statistics, listeners, the tracer, ...) is refused
+at open: `options.unported_fields` lists it and DB.open raises
+NotSupported instead of ignoring it.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import uuid
+
+from toplingdb_tpu_torch.db import dbformat, filename
+from toplingdb_tpu_torch.db.blob import BlobSource
+from toplingdb_tpu_torch.db.db_iter import DBIter
+from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
+from toplingdb_tpu_torch.db.flush_job import flush_memtable_to_table
+from toplingdb_tpu_torch.db.get_context import GetContext
+from toplingdb_tpu_torch.db.level_iterator import LevelIterator
+from toplingdb_tpu_torch.db.log import LogReader, LogWriter
+from toplingdb_tpu_torch.db.memtable import MemTable, create_memtable_rep
+from toplingdb_tpu_torch.db.range_del import (
+    RangeDelAggregator,
+    RangeTombstone,
+)
+from toplingdb_tpu_torch.db.snapshot import SnapshotList
+from toplingdb_tpu_torch.db.table_cache import TableCache
+from toplingdb_tpu_torch.db.version_edit import VersionEdit
+from toplingdb_tpu_torch.db.version_set import VersionSet
+from toplingdb_tpu_torch.db.write_batch import WriteBatch
+from toplingdb_tpu_torch.env import default_env
+from toplingdb_tpu_torch.options import (
+    FlushOptions,
+    Options,
+    ReadOptions,
+    WriteOptions,
+    unported_fields,
+)
+from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
+from toplingdb_tpu_torch.utils.status import (
+    InvalidArgument,
+    IOError_,
+    NotFound,
+    NotSupported,
+    ShutdownInProgress,
+)
+
+_DEFAULT_READ = ReadOptions()
+_DEFAULT_WRITE = WriteOptions()
+
+# Cap on bytes merged into one commit group (RocksDB's
+# max_write_batch_group_size_bytes).
+_MAX_WRITE_GROUP_BYTES = 1 << 20
+
+
+class _Writer:
+    """One queued write (RocksDB's WriteThread::Writer).
+
+    Lifecycle: enqueued → either becomes the group leader (front of queue) or
+    blocks on its event until a leader commits it (done=True), promotes it
+    to lead the next group (done=False), or drafts it into a parallel
+    memtable phase (parallel=True — RocksDB's
+    STATE_PARALLEL_MEMTABLE_WRITER)."""
+
+    __slots__ = ("batch", "opts", "done", "error", "event", "parallel",
+                 "pg", "pg_mem")
+
+    def __init__(self, batch: WriteBatch, opts: WriteOptions):
+        self.batch = batch
+        self.opts = opts
+        self.done = False
+        self.error: BaseException | None = None
+        self.event = threading.Event()
+        self.parallel = False          # drafted into parallel memtable phase
+        self.pg = None                 # _InsertBarrier of the phase
+        self.pg_mem = None             # the memtable to insert into
+
+
+class _InsertBarrier:
+    """Completion barrier for one group's parallel memtable phase
+    (RocksDB's LaunchParallelMemTableWriters /
+    CompleteParallelMemTableWriter)."""
+
+    __slots__ = ("remaining", "all_done", "error", "lock")
+
+    def __init__(self, n: int):
+        self.remaining = n
+        self.all_done = threading.Event()
+        self.error: BaseException | None = None
+        self.lock = threading.Lock()
+
+    def member_done(self, err: BaseException | None = None) -> None:
+        with self.lock:
+            if err is not None and self.error is None:
+                self.error = err
+            self.remaining -= 1
+            if self.remaining == 0:
+                self.all_done.set()
+
+
+class DB:
+    """LSM engine instance (one column family). Use DB.open()."""
+
+    def __init__(self, dbname: str, options: Options, env):
+        self.dbname = dbname
+        self.options = options
+        self.env = env
+        self.icmp = InternalKeyComparator(options.comparator)
+        from toplingdb_tpu_torch.utils.file_checksum import factory_for
+
+        self._file_checksum_factory = factory_for(options)
+        if (options.prefix_extractor is not None
+                and options.table_options.prefix_extractor is None):
+            # The CF-level extractor feeds the table layer (prefix blooms,
+            # the plain format). Copy: the caller's TableOptions object must
+            # not be mutated.
+            import dataclasses
+
+            options.table_options = dataclasses.replace(
+                options.table_options,
+                prefix_extractor=options.prefix_extractor,
+            )
+        if options.bottommost_format is not None:
+            from toplingdb_tpu_torch.table.factory import FORMATS
+
+            if options.bottommost_format not in FORMATS:
+                # Fail at open — a typo must not surface hours later as a
+                # repeatedly failing background compaction.
+                raise InvalidArgument(
+                    f"bottommost_format {options.bottommost_format!r} is "
+                    f"not one of {FORMATS}"
+                )
+        if (getattr(options.table_options, "partition_filters", False)
+                and options.table_options.prefix_extractor is not None):
+            raise InvalidArgument(
+                "partition_filters supports whole-key filtering only "
+                "(prefix probes could span filter partitions)"
+            )
+        if (getattr(options.table_options, "format", "block") == "plain"
+                and options.table_options.prefix_extractor is None):
+            raise InvalidArgument(
+                "plain table format requires Options.prefix_extractor"
+            )
+        self.versions = VersionSet(env, dbname, self.icmp, options.num_levels)
+        self.table_cache = TableCache(env, dbname, self.icmp,
+                                      options.table_options)
+        self.mem = MemTable(self.icmp,
+                            create_memtable_rep(options.memtable_rep))
+        self.imm: list[MemTable] = []
+        self.blob_source = BlobSource(env, dbname)
+        self.snapshots = SnapshotList()
+        self._mutex = threading.RLock()
+        self._writers: list[_Writer] = []  # FIFO write queue (leader = [0])
+        self._wq_lock = threading.Lock()
+        self._wal: LogWriter | None = None
+        self._wal_number = 0
+        self._closed = False
+        self._compaction_scheduler = None
+        self._pending_outputs: set[int] = set()  # files being written by jobs
+        self._bg_error: BaseException | None = None
+        self._options_file_number = 0  # latest persisted OPTIONS file
+        self.num_flushes = 0  # L0 tables written by flushes
+        self.identity = ""
+
+    # ==================================================================
+    # Open / close
+    # ==================================================================
+
+    @staticmethod
+    def open(dbname: str, options: Options | None = None,
+             env=None) -> "DB":
+        """RocksDB's DBImpl::Open: create or recover the DB at `dbname`.
+        Raises NotSupported for an option set away from its default that
+        the port does not run (options.unported_fields)."""
+        options = options or Options()
+        refused = unported_fields(options)
+        if refused:
+            raise NotSupported(
+                "the port's DB does not run " + "; ".join(
+                    f"Options.{name} ({why})" for name, why in refused))
+        env = env or default_env()
+        db = DB(dbname, options, env)  # validates; touches no file
+        env.create_dir(dbname)
+        current = filename.current_file_name(dbname)
+        if env.file_exists(current):
+            if options.error_if_exists:
+                raise InvalidArgument(f"{dbname} exists (error_if_exists)")
+            db._recover()
+        else:
+            if not options.create_if_missing:
+                raise InvalidArgument(
+                    f"{dbname} does not exist (create_if_missing=False)")
+            db.versions.create_new()
+            env.write_file(
+                filename.identity_file_name(dbname), uuid.uuid4().hex.encode()
+            )
+        try:
+            db.identity = env.read_file(
+                filename.identity_file_name(dbname)).decode()
+        except NotFound:
+            db.identity = uuid.uuid4().hex
+            env.write_file(filename.identity_file_name(dbname),
+                           db.identity.encode())
+        db._new_wal()
+        db._persist_options()
+        db._delete_obsolete_files()
+        from toplingdb_tpu_torch.compaction.scheduler import (
+            CompactionScheduler,
+        )
+
+        db._compaction_scheduler = CompactionScheduler(db)
+        db._maybe_schedule_compaction()
+        return db
+
+    def _persist_options(self) -> None:
+        """Write OPTIONS-NNNNNN next to the DB (RocksDB persists its options
+        on every open); older OPTIONS files become obsolete. The file holds
+        the scalar fields as JSON."""
+        num = self.versions.new_file_number()
+        fields = {
+            k: v for k, v in vars(self.options).items()
+            if isinstance(v, (bool, int, float, str)) or v is None
+        }
+        self.env.write_file(filename.options_file_name(self.dbname, num),
+                            json.dumps(fields, sort_keys=True).encode())
+        self._options_file_number = num
+
+    def _recover(self) -> None:
+        self.versions.recover()
+        # Replay WALs >= versions.log_number in file-number order
+        # (RocksDB's DBImpl::Recover → RecoverLogFiles).
+        wal_numbers = []
+        for child in self.env.get_children(self.dbname):
+            ftype, num = filename.parse_file_name(child)
+            if ftype == filename.FileType.WAL and num >= self.versions.log_number:
+                wal_numbers.append(num)
+            if ftype in (filename.FileType.WAL, filename.FileType.TABLE,
+                         filename.FileType.MANIFEST, filename.FileType.BLOB):
+                self.versions.mark_file_number_used(num)
+        max_seq = self.versions.last_sequence
+        for num in sorted(wal_numbers):
+            path = filename.log_file_name(self.dbname, num)
+            reader = LogReader(self.env.new_sequential_file(path),
+                               log_number=num)
+            for rec in reader.records():
+                batch = WriteBatch(rec)
+                batch.insert_into(self.mem)
+                end_seq = batch.sequence() + batch.count() - 1
+                max_seq = max(max_seq, end_seq)
+        self.versions.last_sequence = max_seq
+        if not self.mem.empty():
+            self._flush_memtables([self.mem], wal_number=None)
+            self.mem = self._fresh_memtable()
+            self.versions.log_and_apply(
+                VersionEdit(log_number=self.versions.next_file_number)
+            )
+
+    def _fresh_memtable(self) -> MemTable:
+        return MemTable(self.icmp,
+                        create_memtable_rep(self.options.memtable_rep))
+
+    def _new_wal(self) -> None:
+        self._wal_number = self.versions.new_file_number()
+        path = filename.log_file_name(self.dbname, self._wal_number)
+        self._wal = LogWriter(self.env.new_writable_file(path),
+                              log_number=self._wal_number)
+
+    def close(self) -> None:
+        """Stop the background compactions (joining their threads), flush
+        the memtables, and close the WAL, the MANIFEST and the readers."""
+        if self._compaction_scheduler is not None:
+            self._compaction_scheduler.shutdown()
+        with self._mutex:
+            if self._closed:
+                return
+            if not self.mem.empty() or self.imm:
+                self.flush(FlushOptions())
+            if self._wal is not None:
+                self._wal.sync()
+                self._wal.close()
+            self.versions.close()
+            self.table_cache.close()
+            self.blob_source.close()
+            self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def cf_name(self, cf_id: int) -> str:
+        return "default"
+
+    def _check_cf(self, cf) -> None:
+        if cf not in (None, 0):
+            raise NotSupported(
+                "the port's DB runs the default column family only")
+
+    # ==================================================================
+    # Write path
+    # ==================================================================
+
+    def put(self, key: bytes, value: bytes, opts: WriteOptions = _DEFAULT_WRITE,
+            cf=None) -> int:
+        self._check_cf(cf)
+        b = WriteBatch()
+        b.put(key, value)
+        return self.write(b, opts)
+
+    def delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
+               cf=None) -> int:
+        self._check_cf(cf)
+        b = WriteBatch()
+        b.delete(key)
+        return self.write(b, opts)
+
+    def single_delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
+                      cf=None) -> int:
+        self._check_cf(cf)
+        b = WriteBatch()
+        b.single_delete(key)
+        return self.write(b, opts)
+
+    def merge(self, key: bytes, value: bytes,
+              opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
+        self._check_cf(cf)
+        b = WriteBatch()
+        b.merge(key, value)
+        return self.write(b, opts)
+
+    def delete_range(self, begin: bytes, end: bytes,
+                     opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
+        self._check_cf(cf)
+        b = WriteBatch()
+        b.delete_range(begin, end)
+        return self.write(b, opts)
+
+    def write(self, batch: WriteBatch,
+              opts: WriteOptions = _DEFAULT_WRITE) -> int:
+        """Group-commit write path (RocksDB's DBImpl::WriteImpl +
+        WriteThread::JoinBatchGroup): concurrent writers queue up; the
+        front writer leads, merging the queue into one WAL append + one
+        fsync, then applies every batch to the memtable and publishes the
+        group's last sequence at once. Returns this batch's LAST sequence
+        number."""
+        if batch.is_empty():
+            return self.versions.last_sequence
+        self._check_open()  # fail fast before any stall sleep
+        if not batch._simple and batch.column_families() - {0}:
+            raise NotSupported(
+                "the port's DB runs the default column family only")
+        return self._write_impl(batch, opts)
+
+    @staticmethod
+    def _write_token(w: _Writer) -> int:
+        return w.batch.sequence() + w.batch.count() - 1
+
+    def _write_impl(self, batch: WriteBatch, opts: WriteOptions) -> int:
+        self._maybe_stall_writes()
+        w = _Writer(batch, opts)
+        with self._wq_lock:
+            self._writers.append(w)
+            is_leader = self._writers[0] is w
+        if not is_leader:
+            interrupted: BaseException | None = None
+            while True:
+                try:
+                    w.event.wait()
+                    break
+                except BaseException as e:  # noqa: BLE001
+                    # Async interrupt (KeyboardInterrupt) mid-wait: the queue
+                    # slot MUST still resolve — abandoning it would deadlock
+                    # every later writer behind a never-driven leader.
+                    interrupted = e
+            if w.parallel:
+                # Drafted into the group's parallel memtable phase: insert
+                # our own batch (GIL-free native path), then wait for the
+                # leader to publish.
+                interrupted = self._parallel_member(w) or interrupted
+                if interrupted is not None:
+                    raise interrupted
+                if w.error is not None:
+                    raise w.error
+                return self._write_token(w)
+            if w.done:
+                if interrupted is not None:
+                    raise interrupted
+                if w.error is not None:
+                    raise w.error
+                return self._write_token(w)
+            # Woken with done=False: promoted to lead the next group.
+            self._lead_write_group(w)
+            if interrupted is not None:
+                raise interrupted
+            return self._write_token(w)
+        self._lead_write_group(w)
+        return self._write_token(w)
+
+    def _parallel_member(self, w: _Writer) -> BaseException | None:
+        """Follower half of a parallel memtable phase: insert own batch,
+        report to the barrier, block until the leader completes the group.
+        Returns an async interrupt caught mid-wait (re-raised by write())."""
+        w.event.clear()
+        err: BaseException | None = None
+        try:
+            w.batch.insert_into(w.pg_mem)
+        except BaseException as e:  # noqa: BLE001
+            err = e
+        w.pg.member_done(err)
+        interrupted: BaseException | None = None
+        while True:
+            try:
+                w.event.wait()
+                return interrupted
+            except BaseException as e:  # noqa: BLE001
+                interrupted = e  # leader WILL complete us; keep the slot
+
+    def _snapshot_group(self, leader: _Writer) -> list[_Writer]:
+        # Leader + queued followers with the same WAL disposition, capped in
+        # bytes so a giant group can't starve later writers' latency
+        # (RocksDB's WriteThread::EnterAsBatchGroupLeader).
+        with self._wq_lock:
+            group = [leader]
+            size = leader.batch.data_size()
+            for w in self._writers[1:]:
+                if w.opts.disable_wal != leader.opts.disable_wal:
+                    break
+                size += w.batch.data_size()
+                if size > _MAX_WRITE_GROUP_BYTES:
+                    break
+                group.append(w)
+        return group
+
+    def _lead_write_group(self, leader: _Writer) -> None:
+        group = self._snapshot_group(leader)
+        err: BaseException | None = None
+        try:
+            self._commit_write_group(group)
+        except BaseException as e:  # propagate to the whole group
+            err = e
+        with self._wq_lock:
+            del self._writers[: len(group)]
+            nxt = self._writers[0] if self._writers else None
+        for w in group:
+            w.done = True
+            w.error = err
+            w.parallel = False
+            if w is not leader:
+                w.event.set()
+        if nxt is not None:
+            nxt.event.set()  # done=False → it takes over as leader
+        if err is not None:
+            raise err
+
+    def _append_group_wal(self, group: list[_Writer], first_seq: int) -> None:
+        """WAL append for one group (caller holds _mutex): one record, the
+        merged batch of every member."""
+        if len(group) == 1:
+            rec = group[0].batch.data()
+        else:
+            merged = WriteBatch()
+            merged.set_sequence(first_seq)
+            for w in group:
+                merged.append_from(w.batch)
+            rec = merged.data()
+        self._wal.add_record(rec)
+        if any(w.opts.sync for w in group):
+            self._wal.sync()
+        else:
+            self._wal.flush()
+
+    def _commit_write_group(self, group: list[_Writer]) -> None:
+        with self._mutex:
+            self._check_open()
+            if self._bg_error is not None:
+                raise IOError_(
+                    f"background error pending: {self._bg_error!r}")
+            first_seq = self.versions.last_sequence + 1
+            seq = first_seq
+            for w in group:
+                w.batch.set_sequence(seq)
+                seq += w.batch.count()
+            mem = self.mem
+            if self.options.wal_enabled and not group[0].opts.disable_wal:
+                self._append_group_wal(group, first_seq)
+            if self.options.allow_concurrent_memtable_write and len(group) > 1:
+                # Parallel memtable phase (RocksDB's
+                # LaunchParallelMemTableWriters): followers insert their own
+                # batches concurrently — the native skiplist insert is
+                # lock-free and GIL-releasing, so this scales with threads.
+                # The leader holds _mutex throughout, so no memtable switch
+                # can race the phase.
+                pg = _InsertBarrier(len(group))
+                for w in group[1:]:
+                    w.pg = pg
+                    w.pg_mem = mem
+                    w.parallel = True
+                    w.event.set()
+                try:
+                    group[0].batch.insert_into(mem)
+                    pg.member_done()
+                except BaseException as e:  # noqa: BLE001
+                    pg.member_done(e)
+                pg.all_done.wait()
+                for w in group[1:]:
+                    w.parallel = False
+                if pg.error is not None:
+                    raise pg.error
+            else:
+                for w in group:
+                    w.batch.insert_into(mem)
+            self.versions.last_sequence = seq - 1
+            if mem.approximate_memory_usage() >= self.options.write_buffer_size:
+                self._switch_memtable()
+                self._flush_immutables()
+
+    def _switch_memtable(self) -> None:
+        """Seal the non-empty active memtable and start a new WAL (RocksDB's
+        DBImpl::SwitchMemtable)."""
+        if self._wal is not None:
+            self._wal.sync()
+            self._wal.close()
+        if not self.mem.empty():
+            self.imm.insert(0, self.mem)
+            self.mem = self._fresh_memtable()
+        self._new_wal()
+
+    def _flush_immutables(self) -> None:
+        if self.imm:
+            self._flush_memtables(list(self.imm), wal_number=None)
+            self.imm = []
+            # Advance log_number only once the data below the current WAL
+            # is durable in SSTs.
+            self.versions.log_and_apply(
+                VersionEdit(log_number=self._wal_number))
+            self._delete_obsolete_files()
+            self._maybe_schedule_compaction()
+
+    def _flush_memtables(self, mems: list[MemTable],
+                         wal_number: int | None) -> None:
+        fnum = self.versions.new_file_number()
+        # Guard the in-flight output from obsolete-file GC until the
+        # version edit lands.
+        self._pending_outputs.add(fnum)
+        try:
+            meta = flush_memtable_to_table(
+                self.env, self.dbname, fnum, self.icmp, mems,
+                self.options.table_options_for_level(0),
+                creation_time=int(time.time()),
+                column_family=(0, "default"),
+            )
+            if meta is not None:
+                self._stamp_file_checksums([meta])
+                self.num_flushes += 1
+            edit = VersionEdit(log_number=wal_number)
+            if meta is not None:
+                edit.add_file(0, meta)
+            self.versions.log_and_apply(edit)
+        finally:
+            self._pending_outputs.discard(fnum)
+
+    def flush(self, fopts: FlushOptions = FlushOptions()) -> None:
+        """Write the active memtable (and any sealed ones) to L0 SSTs; the
+        flush is synchronous, so `fopts.wait` is always honoured."""
+        with self._mutex:
+            self._check_open()
+            if not self.mem.empty():
+                self._switch_memtable()
+            self._flush_immutables()
+
+    def _stamp_file_checksums(self, metas) -> None:
+        """Record whole-file checksums on freshly produced SST metadata
+        before it reaches the MANIFEST (flush and compaction install)."""
+        factory = self._file_checksum_factory
+        if factory is None:
+            return
+        from toplingdb_tpu_torch.utils.file_checksum import (
+            stamp_file_checksum,
+        )
+
+        for meta in metas:
+            stamp_file_checksum(
+                self.env, filename.table_file_name(self.dbname, meta.number),
+                meta, factory)
+
+    # ==================================================================
+    # Read path
+    # ==================================================================
+
+    def _probe_memtable(self, mem, key: bytes, snap_seq: int,
+                        ctx: GetContext) -> bool:
+        """One memtable source; returns False when the lookup is complete."""
+        ctx.add_tombstone_seq(mem.covering_tombstone_seq(key, snap_seq))
+        for seq, t, val in mem.entries_for_key(key, snap_seq):
+            if not ctx.save_value(seq, t, val):
+                return False
+        return True
+
+    def _probe_file(self, reader, key: bytes, snap_seq: int,
+                    ctx: GetContext) -> bool:
+        """One SST source; returns False when the lookup is complete."""
+        ucmp = self.icmp.user_comparator
+        for b, e in reader.range_del_entries():
+            t = RangeTombstone.from_table_entry(b, e)
+            if ucmp.compare(t.begin, key) <= 0 and ucmp.compare(key, t.end) < 0:
+                ctx.add_tombstone_seq(t.seq)
+        if not reader.key_may_match(key):
+            return True
+        it = reader.new_iterator()
+        if getattr(reader, "has_hash_index", False):
+            # O(1) bucket probe (hash-indexed formats): lands on the newest
+            # version; the loop below skips seqs above the snapshot.
+            ordinal = reader.hash_probe(key)
+            if ordinal is None:
+                return True  # definitively absent from this file
+            it.seek_ordinal(ordinal)
+        else:
+            it.seek(dbformat.make_internal_key(
+                key, snap_seq, dbformat.VALUE_TYPE_FOR_SEEK
+            ))
+        while it.valid():
+            uk, seq, t = dbformat.split_internal_key(it.key())
+            if ucmp.compare(uk, key) != 0:
+                break
+            if seq <= snap_seq:
+                if not ctx.save_value(seq, t, it.value()):
+                    return False
+            it.next()
+        return True
+
+    def get(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
+            cf=None) -> bytes | None:
+        """Point lookup (RocksDB's DBImpl::GetImpl). Returns None if not
+        found. A wide-column entity presents as its anonymous default
+        column."""
+        self._check_open()
+        self._check_cf(cf)
+        self._check_read_options(opts)
+        snap_seq = (
+            opts.snapshot.sequence if opts.snapshot is not None
+            else self.versions.last_sequence
+        )
+        ctx = GetContext(key, snap_seq, self.options.merge_operator,
+                         blob_resolver=self.blob_source.get)
+        # 1. Active memtable, then immutables (newest first).
+        for mem in [self.mem] + self.imm:
+            if not self._probe_memtable(mem, key, snap_seq, ctx):
+                return self._result(ctx)
+        # 2. SST files, newest data first.
+        version = self.versions.current
+        for _level, f in version.files_for_get(key):
+            reader = self.table_cache.get_reader(f.number)
+            if not self._probe_file(reader, key, snap_seq, ctx):
+                return self._result(ctx)
+        ctx.finish()
+        return self._result(ctx)
+
+    @staticmethod
+    def _result(ctx: GetContext) -> bytes | None:
+        v = ctx.result()
+        if v is not None and ctx.result_is_entity:
+            from toplingdb_tpu_torch.db.wide_columns import default_column_of
+
+            return default_column_of(v)
+        return v
+
+    def _check_read_options(self, opts: ReadOptions) -> None:
+        for name in ("tailing", "prefix_same_as_start", "async_io"):
+            if getattr(opts, name):
+                raise NotSupported(
+                    f"ReadOptions.{name} is not ported yet")
+        if opts.timestamp is not None:
+            raise NotSupported("ReadOptions.timestamp is not ported yet")
+        if opts.readahead_size:
+            raise NotSupported(
+                "ReadOptions.readahead_size is not ported yet")
+
+    def new_iterator(self, opts: ReadOptions = _DEFAULT_READ,
+                     cf=None) -> DBIter:
+        """MVCC iterator over the whole keyspace (RocksDB's
+        DBImpl::NewIterator → DBIter over a MergingIterator)."""
+        self._check_open()
+        self._check_cf(cf)
+        self._check_read_options(opts)
+        with self._mutex:
+            snap_seq = (
+                opts.snapshot.sequence if opts.snapshot is not None
+                else self.versions.last_sequence
+            )
+            version = self.versions.current
+            children = []
+            rd = RangeDelAggregator(self.icmp.user_comparator)
+            for mem in [self.mem] + self.imm:
+                children.append(mem.new_iterator())
+                for seq, begin, end in mem.range_del_entries():
+                    rd.add(RangeTombstone(seq, begin, end))
+            for f in version.files[0]:
+                reader = self.table_cache.get_reader(f.number)
+                children.append(reader.new_iterator())
+                for b, e in reader.range_del_entries():
+                    rd.add(RangeTombstone.from_table_entry(b, e))
+            for level in range(1, version.num_levels):
+                if version.files[level]:
+                    children.append(LevelIterator(
+                        self.table_cache, version.files[level], self.icmp))
+                    # Only files that hold tombstones are opened here
+                    # (num_range_deletions travels in the MANIFEST); data
+                    # blocks are opened lazily by LevelIterator.
+                    for f in version.files[level]:
+                        if f.num_range_deletions == 0:
+                            continue
+                        reader = self.table_cache.get_reader(f.number)
+                        for b, e in reader.range_del_entries():
+                            rd.add(RangeTombstone.from_table_entry(b, e))
+            it = DBIter(
+                MergingIterator(self.icmp.compare, children), self.icmp,
+                snap_seq,
+                range_del_agg=None if rd.empty() else rd,
+                merge_operator=self.options.merge_operator,
+                lower_bound=opts.iterate_lower_bound,
+                upper_bound=opts.iterate_upper_bound,
+                pinned=version,
+                blob_resolver=self.blob_source.get,
+            )
+            return it
+
+    def get_snapshot(self):
+        return self.snapshots.new_snapshot(self.versions.last_sequence)
+
+    def release_snapshot(self, snap) -> None:
+        snap.release()
+
+    # ==================================================================
+    # Maintenance
+    # ==================================================================
+
+    def compact_range(self, begin: bytes | None = None,
+                      end: bytes | None = None) -> None:
+        """Manual compaction: flush, then push the files overlapping
+        [begin, end] down level by level through the scheduler."""
+        self.flush()
+        if self._compaction_scheduler is not None:
+            self._compaction_scheduler.compact_range(begin, end)
+
+    def wait_for_compactions(self) -> None:
+        if self._compaction_scheduler is not None:
+            self._compaction_scheduler.wait_idle()
+        if self._bg_error is not None:
+            raise IOError_(f"background error: {self._bg_error!r}")
+
+    def _set_background_error(self, e: BaseException) -> None:
+        """RocksDB's ErrorHandler::SetBGError, reduced to one severity: the
+        first background error is kept and every later write raises
+        (reopen the DB to clear it)."""
+        with self._mutex:
+            if self._bg_error is None:
+                self._bg_error = e
+
+    def _maybe_schedule_compaction(self) -> None:
+        if (self._compaction_scheduler is not None
+                and not self.options.disable_auto_compactions):
+            self._compaction_scheduler.maybe_schedule()
+
+    def _max_l0_files(self) -> int:
+        return len(self.versions.current.files[0])
+
+    def _maybe_stall_writes(self, timeout: float = 10.0) -> None:
+        """L0 back-pressure (RocksDB's WriteController and the
+        level0_slowdown/stop triggers): past the slowdown trigger writes
+        are delayed; past the stop trigger they block until compaction
+        drains L0. No-op when nothing can drain L0 (auto compaction
+        off): stalling a bulk load forever helps no one."""
+        opts = self.options
+        if opts.disable_auto_compactions or self._compaction_scheduler is None:
+            return
+        n_l0 = self._max_l0_files()
+        if n_l0 >= opts.level0_stop_writes_trigger:
+            t0 = time.monotonic()
+            while (self._max_l0_files() >= opts.level0_stop_writes_trigger
+                   and time.monotonic() - t0 < timeout
+                   and not self._closed):
+                self._maybe_schedule_compaction()
+                time.sleep(0.01)
+        elif n_l0 >= opts.level0_slowdown_writes_trigger:
+            # Proportional delay ramp toward the stop trigger.
+            span = max(1, opts.level0_stop_writes_trigger
+                       - opts.level0_slowdown_writes_trigger)
+            frac = (n_l0 - opts.level0_slowdown_writes_trigger + 1) / span
+            time.sleep(min(0.05 * frac, 0.05))
+
+    def _delete_obsolete_files(self) -> None:
+        """GC: remove WALs below the manifest log number, non-live SSTs,
+        stale MANIFESTs and OPTIONS files (RocksDB's
+        DBImpl::DeleteObsoleteFiles)."""
+        live, live_blobs = self.versions.live_file_sets()
+        for child in self.env.get_children(self.dbname):
+            ftype, num = filename.parse_file_name(child)
+            keep = True
+            if ftype == filename.FileType.WAL:
+                keep = (num >= self.versions.log_number
+                        or num == self._wal_number)
+            elif ftype == filename.FileType.TABLE:
+                keep = num in live or num in self._pending_outputs
+            elif ftype == filename.FileType.BLOB:
+                keep = num in live_blobs or num in self._pending_outputs
+            elif ftype == filename.FileType.MANIFEST:
+                keep = num == self.versions.manifest_file_number
+            elif ftype == filename.FileType.OPTIONS:
+                keep = (num == self._options_file_number
+                        or self._options_file_number == 0)
+            elif ftype == filename.FileType.TEMP:
+                keep = False
+            if not keep:
+                if ftype == filename.FileType.TABLE:
+                    self.table_cache.evict(num)
+                elif ftype == filename.FileType.BLOB:
+                    self.blob_source.evict(num)
+                try:
+                    self.env.delete_file(f"{self.dbname}/{child}")
+                except NotFound:
+                    pass
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise ShutdownInProgress("DB is closed")

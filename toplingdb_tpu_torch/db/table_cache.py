@@ -1,6 +1,6 @@
 """TableCache: open table readers keyed by file number (copied from
-toplingdb_tpu/db/table_cache.py, trimmed: no eviction, no block cache, no
-statistics). Files open through `table.factory.open_table`, so every
+toplingdb_tpu/db/table_cache.py, trimmed: no capacity bound, no block
+cache, no statistics). Files open through `table.factory.open_table`, so every
 table format reads."""
 
 from __future__ import annotations
@@ -36,6 +36,13 @@ class TableCache:
         if existing is not r:
             r.close()
         return existing
+
+    def evict(self, file_number: int) -> None:
+        """Close and forget one file's reader (its file became obsolete)."""
+        with self._lock:
+            r = self._readers.pop(file_number, None)
+        if r is not None:
+            r.close()
 
     def close(self) -> None:
         with self._lock:

@@ -1,0 +1,368 @@
+"""Version / VersionSet: the LSM metadata spine (copied from
+toplingdb_tpu/db/version_set.py, trimmed to one column family and without
+the native read chain).
+
+The roles of RocksDB's Version / VersionSet / VersionBuilder
+(db/version_set.cc `Version::Get`, `LogAndApply`, `Recover`): a Version is
+an immutable snapshot of the file DAG (per-level sorted file lists);
+VersionSet owns the current Version, the MANIFEST log, and the file and
+sequence number allocators; VersionBuilder applies VersionEdits to produce
+new Versions. The MANIFEST records are toplingdb_tpu's, so either package
+opens the other's DB directory.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+
+from toplingdb_tpu_torch.db import dbformat, filename
+from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
+from toplingdb_tpu_torch.db.log import LogReader, LogWriter
+from toplingdb_tpu_torch.db.version_edit import FileMetaData, VersionEdit
+from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
+
+
+class Version:
+    """Immutable per-point-in-time file layout: files[level] sorted by
+    smallest key (L1+) / newest-first (L0)."""
+
+    def __init__(self, icmp: InternalKeyComparator, num_levels: int):
+        self.icmp = icmp
+        self.num_levels = num_levels
+        self.files: list[list[FileMetaData]] = [[] for _ in range(num_levels)]
+
+    # -- read path ------------------------------------------------------
+
+    def overlapping_files(self, level: int, smallest_user_key: bytes | None,
+                          largest_user_key: bytes | None) -> list[FileMetaData]:
+        """Files whose user-key range intersects [smallest, largest].
+        L1+ file lists are sorted and disjoint, so the scan bisects to the
+        first candidate instead of walking the level."""
+        ucmp = self.icmp.user_comparator
+        fl = self.files[level]
+        start = 0
+        if level > 0 and smallest_user_key is not None and fl:
+            lo, hi = 0, len(fl)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if ucmp.compare(dbformat.extract_user_key(fl[mid].largest),
+                                smallest_user_key) < 0:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            start = lo
+        out = []
+        for f in fl[start:]:
+            f_small = dbformat.extract_user_key(f.smallest)
+            f_large = dbformat.extract_user_key(f.largest)
+            if smallest_user_key is not None and ucmp.compare(f_large, smallest_user_key) < 0:
+                continue
+            if largest_user_key is not None and ucmp.compare(f_small, largest_user_key) > 0:
+                if level > 0:
+                    break  # sorted disjoint: nothing further overlaps
+                continue
+            out.append(f)
+        return out
+
+    def files_for_get(self, user_key: bytes):
+        """Yield files that may contain user_key, newest data first:
+        L0 newest-to-oldest, then each deeper level's single candidate
+        (RocksDB's FilePicker)."""
+        ucmp = self.icmp.user_comparator
+        for f in self.files[0]:  # already newest-first
+            if (ucmp.compare(dbformat.extract_user_key(f.smallest), user_key) <= 0
+                    and ucmp.compare(user_key, dbformat.extract_user_key(f.largest)) <= 0):
+                yield 0, f
+        for level in range(1, self.num_levels):
+            fl = self.files[level]
+            if not fl:
+                continue
+            lo, hi = 0, len(fl) - 1
+            pick = None
+            while lo <= hi:
+                mid = (lo + hi) // 2
+                if ucmp.compare(dbformat.extract_user_key(fl[mid].largest), user_key) < 0:
+                    lo = mid + 1
+                else:
+                    pick = mid
+                    hi = mid - 1
+            if pick is not None and ucmp.compare(
+                dbformat.extract_user_key(fl[pick].smallest), user_key
+            ) <= 0:
+                yield level, fl[pick]
+                # A range tombstone's exclusive end widens a file's largest
+                # bound to (end_uk, MAX_SEQ); the NEXT file may legally start
+                # at the same user key (RocksDB's FilePicker walks files
+                # while the user key still overlaps).
+                while (pick + 1 < len(fl) and ucmp.compare(
+                        dbformat.extract_user_key(fl[pick + 1].smallest),
+                        user_key) <= 0):
+                    pick += 1
+                    yield level, fl[pick]
+
+    def num_files(self) -> int:
+        return sum(len(fl) for fl in self.files)
+
+    def all_files(self):
+        for level, fl in enumerate(self.files):
+            for f in fl:
+                yield level, f
+
+    def describe(self) -> str:
+        lines = []
+        for level, fl in enumerate(self.files):
+            if fl:
+                lines.append(
+                    f"L{level}: " + " ".join(
+                        f"{f.number}({f.file_size})" for f in fl
+                    )
+                )
+        return "\n".join(lines)
+
+
+class VersionBuilder:
+    """Applies edits on a base Version to produce the next one (RocksDB's
+    db/version_builder.cc)."""
+
+    def __init__(self, base: Version):
+        self._base = base
+        self._added: list[list[FileMetaData]] = [[] for _ in range(base.num_levels)]
+        self._deleted: set[tuple[int, int]] = set()
+
+    def apply(self, edit: VersionEdit) -> None:
+        for level, number in edit.deleted_files:
+            self._deleted.add((level, number))
+            # Multi-edit replay (MANIFEST recovery): a file added by an
+            # earlier edit and deleted later must not survive in _added.
+            self._added[level] = [
+                f for f in self._added[level] if f.number != number
+            ]
+        for level, meta in edit.new_files:
+            self._deleted.discard((level, meta.number))
+            self._added[level].append(meta)
+
+    def save(self) -> Version:
+        v = Version(self._base.icmp, self._base.num_levels)
+        icmp = self._base.icmp
+        for level in range(self._base.num_levels):
+            merged = [
+                f for f in self._base.files[level]
+                if (level, f.number) not in self._deleted
+            ] + self._added[level]
+            if level == 0:
+                # Newest data first, by seqno (then file number).
+                merged.sort(key=lambda m: (-m.largest_seqno, -m.number))
+            else:
+                merged.sort(key=lambda m: _SmallestKey(icmp, m.smallest))
+                # Sanity: non-overlapping ranges in L1+.
+                for a, b in zip(merged, merged[1:]):
+                    if icmp.compare(a.largest, b.smallest) >= 0:
+                        raise Corruption(
+                            f"overlapping files at L{level}: "
+                            f"{a.number} and {b.number}"
+                        )
+            v.files[level] = merged
+        return v
+
+
+class _SmallestKey:
+    __slots__ = ("icmp", "k")
+
+    def __init__(self, icmp, k):
+        self.icmp = icmp
+        self.k = k
+
+    def __lt__(self, other):
+        return self.icmp.compare(self.k, other.k) < 0
+
+
+class VersionSet:
+    def __init__(self, env, dbname: str, icmp: InternalKeyComparator,
+                 num_levels: int = 7):
+        self.env = env
+        self.dbname = dbname
+        self.icmp = icmp
+        self.num_levels = num_levels
+        # Weak registry of every Version still referenced anywhere (readers
+        # hold strong refs while in flight) — the GC analogue of RocksDB's
+        # Version refcounts: obsolete-file deletion must respect files
+        # visible to ANY live Version, not just `current`.
+        self._all_versions: "weakref.WeakSet[Version]" = weakref.WeakSet()
+        self.current = Version(icmp, num_levels)
+        self._all_versions.add(self.current)
+        self.last_sequence = 0
+        self.log_number = 0          # WALs with number < this are obsolete
+        self.prev_log_number = 0
+        self.manifest_file_number = 0
+        self._next_file_number = 2
+        self._manifest_writer: LogWriter | None = None
+        self._lock = threading.Lock()
+
+    # -- number allocation ---------------------------------------------
+
+    def new_file_number(self) -> int:
+        with self._lock:
+            n = self._next_file_number
+            self._next_file_number += 1
+            return n
+
+    def mark_file_number_used(self, n: int) -> None:
+        with self._lock:
+            if self._next_file_number <= n:
+                self._next_file_number = n + 1
+
+    @property
+    def next_file_number(self) -> int:
+        return self._next_file_number
+
+    # -- manifest lifecycle --------------------------------------------
+
+    def create_new(self) -> None:
+        """Initialize a brand-new DB: write the MANIFEST snapshot + CURRENT."""
+        self.manifest_file_number = self.new_file_number()
+        edit = VersionEdit(
+            comparator=self.icmp.user_comparator.name(),
+            log_number=0,
+            next_file_number=self._next_file_number,
+            last_sequence=0,
+            column_family_add="default",
+            max_column_family=0,
+        )
+        path = filename.manifest_file_name(self.dbname, self.manifest_file_number)
+        w = self.env.new_writable_file(path)
+        self._manifest_writer = LogWriter(w)
+        self._manifest_writer.add_record(edit.encode())
+        self._manifest_writer.sync()
+        filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
+
+    def recover(self) -> None:
+        """Replay CURRENT → MANIFEST into the in-memory state (RocksDB's
+        VersionSet::Recover), then roll the MANIFEST into a fresh snapshot
+        file for appending."""
+        cur = self.env.read_file(filename.current_file_name(self.dbname))
+        try:
+            name = cur.decode().strip()
+        except UnicodeDecodeError:
+            raise Corruption("CURRENT file holds undecodable bytes") from None
+        if not name.startswith("MANIFEST-"):
+            raise Corruption(f"CURRENT points at {name!r}")
+        try:
+            self.manifest_file_number = int(name[len("MANIFEST-"):])
+        except ValueError:
+            raise Corruption(f"CURRENT points at {name!r}") from None
+        path = filename.manifest_file_name(self.dbname, self.manifest_file_number)
+        reader = LogReader(self.env.new_sequential_file(path))
+        builder = VersionBuilder(Version(self.icmp, self.num_levels))
+        have_comparator = None
+        have_log_number = have_next_file = have_last_seq = False
+        n_records = 0
+        for rec in reader.records():
+            n_records += 1
+            edit = VersionEdit.decode(rec)
+            if edit.column_family or edit.column_family_drop or (
+                    edit.column_family_add not in (None, "default")):
+                raise NotSupported(
+                    f"{path} holds column families other than the default "
+                    f"one; the port's DB runs the default column family only")
+            if edit.comparator is not None:
+                have_comparator = edit.comparator
+            if edit.log_number is not None:
+                self.log_number = edit.log_number
+                have_log_number = True
+            if edit.prev_log_number is not None:
+                self.prev_log_number = edit.prev_log_number
+            if edit.next_file_number is not None:
+                self._next_file_number = edit.next_file_number
+                have_next_file = True
+            if edit.last_sequence is not None:
+                self.last_sequence = edit.last_sequence
+                have_last_seq = True
+            if edit.new_files or edit.deleted_files:
+                builder.apply(edit)
+        if have_comparator is not None and have_comparator != self.icmp.user_comparator.name():
+            raise Corruption(
+                f"comparator mismatch: DB created with {have_comparator}, "
+                f"opened with {self.icmp.user_comparator.name()}"
+            )
+        # A readable manifest MUST yield the descriptor fields: a corrupt
+        # head otherwise "recovers" an EMPTY DB — the log reader treats
+        # undecodable bytes as a torn tail, which is only valid AFTER a
+        # good snapshot record.
+        if not (have_next_file and have_last_seq and have_log_number):
+            missing = [name for ok, name in (
+                (have_next_file, "next-file"), (have_last_seq, "last-seq"),
+                (have_log_number, "log-number")) if not ok]
+            raise Corruption(
+                f"manifest {path} yields no {'/'.join(missing)} entry "
+                f"({n_records} records decoded): corrupt descriptor head"
+            )
+        self.current = builder.save()
+        self._all_versions.add(self.current)
+        self.mark_file_number_used(self.manifest_file_number)
+        self._reopen_manifest_for_append()
+
+    def _reopen_manifest_for_append(self) -> None:
+        # The Env has no append mode: rewrite the manifest as a fresh
+        # snapshot in a new file. This also bounds manifest growth on
+        # reopen (RocksDB rolls the manifest similarly on recovery).
+        self.manifest_file_number = self.new_file_number()
+        newpath = filename.manifest_file_name(self.dbname, self.manifest_file_number)
+        w = self.env.new_writable_file(newpath)
+        self._manifest_writer = LogWriter(w)
+        self._manifest_writer.add_record(self._snapshot_edit().encode())
+        self._manifest_writer.sync()
+        filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
+
+    def _snapshot_edit(self) -> VersionEdit:
+        edit = VersionEdit(
+            column_family=0,
+            column_family_add="default",
+            max_column_family=0,
+            comparator=self.icmp.user_comparator.name(),
+            log_number=self.log_number,
+            prev_log_number=self.prev_log_number,
+            next_file_number=self._next_file_number,
+            last_sequence=self.last_sequence,
+        )
+        for level, f in self.current.all_files():
+            edit.add_file(level, f)
+        return edit
+
+    def log_and_apply(self, edit: VersionEdit, sync: bool = True) -> None:
+        """Append edit to the MANIFEST and install the resulting Version
+        (RocksDB's VersionSet::LogAndApply)."""
+        with self._lock:
+            if edit.log_number is not None:
+                assert edit.log_number >= self.log_number
+                self.log_number = edit.log_number
+            edit.next_file_number = self._next_file_number
+            edit.last_sequence = self.last_sequence
+            builder = VersionBuilder(self.current)
+            builder.apply(edit)
+            new_version = builder.save()
+            assert self._manifest_writer is not None
+            self._manifest_writer.add_record(edit.encode())
+            if sync:
+                self._manifest_writer.sync()
+            self._all_versions.add(new_version)
+            self.current = new_version
+
+    def close(self) -> None:
+        if self._manifest_writer is not None:
+            self._manifest_writer.close()
+            self._manifest_writer = None
+
+    # -- introspection --------------------------------------------------
+
+    def live_file_sets(self) -> tuple[set[int], set[int]]:
+        """(sst_numbers, blob_numbers) referenced by the current version
+        OR any version still held by an in-flight reader/iterator — the
+        deletion guards for obsolete-file GC, filled in one pass."""
+        ssts: set[int] = set()
+        blobs: set[int] = set()
+        for v in list(self._all_versions) + [self.current]:
+            for _, f in v.all_files():
+                ssts.add(f.number)
+                blobs.update(f.blob_refs)
+        return ssts, blobs

@@ -1,5 +1,5 @@
 """Wide-column entities (copied from toplingdb_tpu/db/wide_columns.py,
-trimmed to what a compaction's merge fold needs).
+trimmed to what a compaction's merge fold and a read of an entity need).
 
 An entity is a set of named columns serialized into one value:
   magic | varint32 num_columns | per column: lp(name) lp(value)
@@ -59,3 +59,12 @@ def merge_into_entity(encoded: bytes, fold_fn) -> bytes:
     cols = dict(decode_entity(encoded))
     cols[DEFAULT_COLUMN] = fold_fn(cols.get(DEFAULT_COLUMN))
     return encode_entity(cols)
+
+
+def default_column_of(value: bytes) -> bytes:
+    """A plain read of a wide-column entity returns its anonymous default
+    column's value (empty when the entity has none); non-entity values
+    pass through untouched."""
+    if not is_entity(value):
+        return value
+    return decode_entity(value).get(DEFAULT_COLUMN, b"")

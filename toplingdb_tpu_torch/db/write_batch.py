@@ -1,0 +1,183 @@
+"""WriteBatch: the serialized update record and WAL payload (copied from
+toplingdb_tpu/db/write_batch.py, without per-entry protection).
+
+Same wire shape as RocksDB's db/write_batch.cc:
+    fixed64 sequence | fixed32 count | records*
+where each record is a type byte followed by length-prefixed slices:
+    VALUE            key value
+    DELETION         key
+    SINGLE_DELETION  key
+    MERGE            key value
+    RANGE_DELETION   begin_key end_key
+    LOG_DATA         blob                (not counted, not applied)
+A batch is the atomic unit of the write path: it is appended to the WAL as one
+record and then applied to the memtable entry by entry with consecutive
+sequence numbers.
+
+Column families: non-default-CF records use the CF-prefixed record types
+(0x80 | base_type) followed by a varint32 column family id. The port's DB
+runs the default column family only and refuses the others.
+"""
+
+from __future__ import annotations
+
+from toplingdb_tpu_torch.db.dbformat import ValueType
+from toplingdb_tpu_torch.utils import coding
+from toplingdb_tpu_torch.utils.status import Corruption
+
+HEADER_SIZE = 12
+_CF_FLAG = 0x80
+
+
+class WriteBatch:
+    def __init__(self, data: bytes | None = None):
+        # _simple: only default-CF point records so far — eligible for the
+        # one-call native wire-image insert (wire-loaded batches decode
+        # through the parsed path, so they start non-simple).
+        if data is not None:
+            if len(data) < HEADER_SIZE:
+                raise Corruption("write batch header too small")
+            self._rep = bytearray(data)
+            self._simple = False
+            self._count = coding.decode_fixed32(self._rep, 8)
+        else:
+            self._rep = bytearray(HEADER_SIZE)
+            self._simple = True
+            self._count = 0  # header count patched lazily (see data())
+
+    # -- mutation -------------------------------------------------------
+
+    def put(self, key: bytes, value: bytes, cf: int = 0) -> None:
+        self._add_record(ValueType.VALUE, cf, key, value)
+
+    def delete(self, key: bytes, cf: int = 0) -> None:
+        self._add_record(ValueType.DELETION, cf, key)
+
+    def single_delete(self, key: bytes, cf: int = 0) -> None:
+        self._add_record(ValueType.SINGLE_DELETION, cf, key)
+
+    def merge(self, key: bytes, value: bytes, cf: int = 0) -> None:
+        self._add_record(ValueType.MERGE, cf, key, value)
+
+    def delete_range(self, begin: bytes, end: bytes, cf: int = 0) -> None:
+        self._add_record(ValueType.RANGE_DELETION, cf, begin, end)
+
+    def put_log_data(self, blob: bytes) -> None:
+        self._rep.append(ValueType.LOG_DATA)
+        coding.put_length_prefixed_slice(self._rep, blob)
+
+    def _add_record(self, t: ValueType, cf: int, *slices: bytes) -> None:
+        rep = self._rep
+        if cf == 0:
+            rep.append(t)
+            if t == ValueType.RANGE_DELETION:
+                self._simple = False
+        else:
+            self._simple = False
+            rep.append(_CF_FLAG | t)
+            rep += coding.encode_varint32(cf)
+        for s in slices:
+            n = len(s)
+            if n < 128:  # single-byte varint: the overwhelmingly common case
+                rep.append(n)
+                rep += s
+            else:
+                coding.put_length_prefixed_slice(rep, s)
+        self._count += 1
+
+    def append_from(self, other: "WriteBatch") -> None:
+        """Group-commit helper: append other's records to self."""
+        self._rep += other._rep[HEADER_SIZE:]
+        self._count += other.count()
+        self._simple = self._simple and other._simple
+
+    # -- header ---------------------------------------------------------
+
+    def sequence(self) -> int:
+        return coding.decode_fixed64(self._rep, 0)
+
+    def set_sequence(self, seq: int) -> None:
+        self._rep[0:8] = coding.encode_fixed64(seq)
+
+    def count(self) -> int:
+        return self._count
+
+    def data(self) -> bytes:
+        # The header count is maintained lazily; patch it on export.
+        self._rep[8:12] = coding.encode_fixed32(self._count)
+        return bytes(self._rep)
+
+    def data_size(self) -> int:
+        return len(self._rep)
+
+    def is_empty(self) -> bool:
+        return self.count() == 0
+
+    def column_families(self) -> set[int]:
+        """The column family ids this batch writes to."""
+        return {cf for cf, _t, _k, _v in self.entries_cf()}
+
+    # -- iteration ------------------------------------------------------
+
+    def entries(self):
+        """Yields (value_type, key, value_or_none) for the DEFAULT column
+        family only. RANGE_DELETION yields (type, begin, end); LOG_DATA is
+        skipped."""
+        for cf, t, k, v in self.entries_cf():
+            if cf == 0:
+                yield t, k, v
+
+    def entries_cf(self):
+        """Yields (cf_id, value_type, key, value_or_none)."""
+        rep = self._rep
+        off = HEADER_SIZE
+        n = 0
+        while off < len(rep):
+            t = rep[off]
+            off += 1
+            cf = 0
+            if t & _CF_FLAG and t != ValueType.LOG_DATA:
+                t &= ~_CF_FLAG
+                cf, off = coding.decode_varint32(rep, off)
+            if t in (ValueType.VALUE, ValueType.MERGE,
+                     ValueType.RANGE_DELETION,
+                     ValueType.WIDE_COLUMN_ENTITY):
+                k, off = coding.get_length_prefixed_slice(rep, off)
+                v, off = coding.get_length_prefixed_slice(rep, off)
+                yield cf, t, k, v
+                n += 1
+            elif t in (ValueType.DELETION, ValueType.SINGLE_DELETION):
+                k, off = coding.get_length_prefixed_slice(rep, off)
+                yield cf, t, k, None
+                n += 1
+            elif t == ValueType.LOG_DATA:
+                _, off = coding.get_length_prefixed_slice(rep, off)
+            else:
+                raise Corruption(f"unknown write batch record type {t}")
+        if n != self.count():
+            raise Corruption(
+                f"write batch count mismatch: header {self.count()}, actual {n}"
+            )
+
+    def insert_into(self, memtable, sequence: int | None = None) -> int:
+        """Apply to one memtable; returns the number of sequence numbers
+        consumed (== count). Simple batches (default-CF point records
+        only) apply through ONE native wire-image call
+        (MemTable.add_encoded — no per-record Python); the rest run the
+        parsed path, one native call per batch of point records."""
+        seq = self.sequence() if sequence is None else sequence
+        if self._simple and self.count():
+            if memtable.add_encoded(seq, self.data()) is not None:
+                return self.count()
+        ops = []
+        for cf, t, k, v in self.entries_cf():
+            if cf != 0:
+                from toplingdb_tpu_torch.utils.status import NotSupported
+
+                raise NotSupported(
+                    f"column family {cf}: the port's DB runs the default "
+                    f"column family only")
+            ops.append((t, k, v))
+        if ops:
+            memtable.add_batch(seq, ops)
+        return self.count()

@@ -1,5 +1,6 @@
-"""Filesystem access for SST reads and writes."""
+"""Filesystem access for the DB, its WAL and MANIFEST, and SST reads and
+writes."""
 
-from toplingdb_tpu_torch.env.env import PosixEnv
+from toplingdb_tpu_torch.env.env import PosixEnv, default_env
 
-__all__ = ["PosixEnv"]
+__all__ = ["PosixEnv", "default_env"]

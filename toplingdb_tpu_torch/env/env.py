@@ -1,6 +1,6 @@
 """Posix filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to
-the file operations the compaction data plane uses: no statistics, no
-async IO rings, no in-memory env)."""
+the file operations the compaction data plane and the DB use: no
+statistics, no async IO rings, no WAL recycling, no in-memory env)."""
 
 from __future__ import annotations
 
@@ -57,6 +57,23 @@ class _PosixRandomAccess:
             self._f.close()
 
 
+class _PosixSequential:
+    def __init__(self, path: str):
+        try:
+            self._f = open(path, "rb")
+        except FileNotFoundError as e:
+            raise NotFound(f"{path}") from e
+        except OSError as e:
+            raise IOError_(f"open {path}: {e}") from e
+
+    def read(self, n: int) -> bytes:
+        return self._f.read(n)
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+
 class PosixEnv:
     def new_writable_file(self, path: str) -> _PosixWritable:
         return _PosixWritable(path)
@@ -75,3 +92,41 @@ class PosixEnv:
             os.remove(path)
         except FileNotFoundError as e:
             raise NotFound(path) from e
+
+    def new_sequential_file(self, path: str) -> _PosixSequential:
+        return _PosixSequential(path)
+
+    def file_exists(self, path: str) -> bool:
+        return os.path.exists(path)
+
+    def rename_file(self, src: str, dst: str) -> None:
+        os.replace(src, dst)
+
+    def create_dir(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+
+    def get_children(self, path: str) -> list[str]:
+        try:
+            return sorted(os.listdir(path))
+        except FileNotFoundError as e:
+            raise NotFound(path) from e
+
+    def read_file(self, path: str) -> bytes:
+        f = self.new_random_access_file(path)
+        try:
+            return f.read(0, f.size())
+        finally:
+            f.close()
+
+    def write_file(self, path: str, data: bytes, sync: bool = False) -> None:
+        f = self.new_writable_file(path)
+        try:
+            f.append(data)
+            if sync:
+                f.sync()
+        finally:
+            f.close()
+
+
+def default_env() -> PosixEnv:
+    return PosixEnv()

@@ -24,10 +24,11 @@ _SO = os.path.join(BUILD_DIR, "_tpulsm_native.so")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_pylib: ctypes.PyDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 3
+_ABI_VERSION = 4
 
 
 def _build() -> bool:
@@ -156,6 +157,23 @@ def _bind(l: ctypes.CDLL) -> None:
         i32p, i32p, i32p, i32p, i64,
         i64, i64,                                   # key_base, val_image_base
     ]
+    # The skiplist memtable's writers (db/memtable.py), on this
+    # GIL-releasing handle: concurrent writer threads insert in parallel
+    # (the splice is lock-free).
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    l.tpulsm_skiplist_insert_batch.restype = i64
+    l.tpulsm_skiplist_insert_batch.argtypes = [
+        ctypes.c_void_p, u8p, i64p, i32p, u64p, u8p, i64p, i32p, i64,
+    ]
+    l.tpulsm_skiplist_insert_wb.restype = i64
+    l.tpulsm_skiplist_insert_wb.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_uint64, i64p,
+    ]
+    l.tpulsm_skiplist_export.restype = i64
+    l.tpulsm_skiplist_export.argtypes = [
+        ctypes.c_void_p, u8p, i64p, i32p, u64p, i32p,
+        u8p, i64p, i32p, i64, i64p,
+    ]
     # The zip-table plane (table/zip_table.py).
     i32 = ctypes.c_int32
     l.tpulsm_zip_newkey.restype = i64
@@ -218,6 +236,52 @@ def lib() -> ctypes.CDLL | None:
         _bind(l)
         _lib = l
         return _lib
+
+
+def pylib() -> ctypes.PyDLL | None:
+    """GIL-holding handle for the skiplist memtable's short calls (create,
+    single insert, seek, step, read a node): no GIL release per call, and
+    lockless Python readers see a consistent rep. None when the library
+    is unavailable."""
+    global _pylib
+    if _pylib is not None:
+        return _pylib
+    if lib() is None:  # builds and checks the library first
+        return None
+    l = ctypes.PyDLL(_SO)
+    vp = ctypes.c_void_p
+    l.tpulsm_skiplist_new.restype = vp
+    l.tpulsm_skiplist_new.argtypes = []
+    l.tpulsm_skiplist_free.restype = None
+    l.tpulsm_skiplist_free.argtypes = [vp]
+    l.tpulsm_skiplist_insert.restype = ctypes.c_int32
+    l.tpulsm_skiplist_insert.argtypes = [
+        vp, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint64,
+        ctypes.c_char_p, ctypes.c_uint32,
+    ]
+    l.tpulsm_skiplist_count.restype = ctypes.c_int64
+    l.tpulsm_skiplist_count.argtypes = [vp]
+    l.tpulsm_skiplist_memory.restype = ctypes.c_int64
+    l.tpulsm_skiplist_memory.argtypes = [vp]
+    for name in ("tpulsm_skiplist_seek_ge", "tpulsm_skiplist_seek_lt"):
+        fn = getattr(l, name)
+        fn.restype = vp
+        fn.argtypes = [vp, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint64]
+    for name in ("tpulsm_skiplist_first", "tpulsm_skiplist_last",
+                 "tpulsm_skiplist_next"):
+        fn = getattr(l, name)
+        fn.restype = vp
+        fn.argtypes = [vp]
+    l.tpulsm_skiplist_node.restype = None
+    l.tpulsm_skiplist_node.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
+    with _lock:
+        if _pylib is None:
+            _pylib = l
+    return _pylib
 
 
 def np_u8p(arr):

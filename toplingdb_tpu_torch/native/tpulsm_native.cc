@@ -4,8 +4,9 @@
 // them: CRC32C, xxhash64, block decode/encode, data-section and index-block
 // builds (uncompressed, and snappy / zstd compressed), bloom fills, the
 // whole-file columnar scans (inflating snappy / zstd blocks inline), the
-// bulk block inflate, and the zip-table plane (key front-coding, value-group
-// encode with ZSTD dictionaries, key and value-group decode). The codec
+// bulk block inflate, the zip-table plane (key front-coding, value-group
+// encode with ZSTD dictionaries, key and value-group decode), and the
+// skiplist memtable with its WriteBatch wire-image insert. The codec
 // libraries are dlopen'd at run time, so the build needs none of their
 // headers.
 //
@@ -56,7 +57,7 @@ extern "C" {
 // ABI version handshake: the ctypes loader refuses a .so whose version
 // differs from its own expectation. Bump whenever any exported signature
 // changes shape.
-#define TPULSM_ABI_VERSION 3
+#define TPULSM_ABI_VERSION 4
 
 int32_t tpulsm_abi_version(void) { return TPULSM_ABI_VERSION; }
 
@@ -1875,5 +1876,435 @@ int64_t tpulsm_zip_group_decode(
   if (e) return -3;
   return raw_offs[g1 - g0];
 }
+
+// ---------------------------------------------------------------------------
+// Arena skiplist memtable rep (the native analogue of RocksDB's
+// InlineSkipList memtable, memtable/inlineskiplist.h; db/memtable.py's
+// NativeSkipListRep binds it).
+// Ordering: user_key bytewise ascending, then inv_packed (u64) ascending
+// (inv = ~(seq<<8|type), so newer versions sort first).
+//
+// Concurrency: inserts are LOCK-FREE (CAS splice per level, the shape of RocksDB's
+// InsertConcurrently, memtable/inlineskiplist.h) and the batch
+// entry point is called WITHOUT the GIL (ctypes.CDLL), so multiple Python
+// writer threads insert in parallel. Readers (ctypes.PyDLL, under the GIL)
+// traverse acquire-loaded next pointers of fully-initialized nodes — safe
+// against concurrent writers with no reader-side locking.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct SLNode {
+  const uint8_t* key;
+  uint32_t key_len;
+  uint64_t inv_packed;
+  // Value = pointer to a [u32 len][bytes] arena record; a single atomic so
+  // in-place replace (WAL-replay duplicate) can't tear against readers.
+  std::atomic<const uint8_t*> val;
+  int height;
+  std::atomic<SLNode*> next[1];  // variable length
+
+  SLNode* nxt(int level, std::memory_order o = std::memory_order_acquire) {
+    return next[level].load(o);
+  }
+};
+
+struct Arena {
+  std::vector<uint8_t*> blocks;
+  size_t used = 0;
+  size_t cap = 0;
+  // Block size grows geometrically from min_block to 1MiB: 257 trie
+  // stripes at a fixed 1MiB first block held ~257MiB of mostly-empty
+  // arenas for byte-spread keys; the skiplist keeps a 1MiB start.
+  size_t min_block = 1u << 20;
+  std::atomic<size_t> total{0};   // allocated block bytes (physical)
+  std::atomic<size_t> handed{0};  // bytes handed to callers (tight bound)
+  std::mutex mu;
+
+  uint8_t* alloc(size_t n) {
+    n = (n + 7) & ~size_t(7);
+    std::lock_guard<std::mutex> g(mu);
+    if (used + n > cap) {
+      size_t bs = n > min_block ? n : min_block;
+      if (min_block < (1u << 20)) min_block *= 2;
+      blocks.push_back(new uint8_t[bs]);
+      used = 0;
+      cap = bs;
+      total.fetch_add(bs, std::memory_order_relaxed);
+    }
+    uint8_t* p = blocks.back() + used;
+    used += n;
+    handed.fetch_add(n, std::memory_order_relaxed);
+    return p;
+  }
+  ~Arena() {
+    for (auto* b : blocks) delete[] b;
+  }
+};
+
+static const int kMaxHeight = 12;
+
+static uint64_t random_height_seed() {
+  static std::atomic<uint64_t> c{0x9E3779B97F4A7C15ULL};
+  return c.fetch_add(0xBF58476D1CE4E5B9ULL, std::memory_order_relaxed);
+}
+
+struct SkipList {
+  Arena arena;
+  SLNode* head;
+  std::atomic<int> max_height{1};
+  std::atomic<int64_t> count{0};
+
+  SkipList() {
+    head = alloc_node(kMaxHeight);
+    head->key = nullptr;
+    head->key_len = 0;
+    for (int i = 0; i < kMaxHeight; i++)
+      head->next[i].store(nullptr, std::memory_order_relaxed);
+  }
+
+  SLNode* alloc_node(int height) {
+    size_t sz = sizeof(SLNode) + (height - 1) * sizeof(std::atomic<SLNode*>);
+    SLNode* n = reinterpret_cast<SLNode*>(arena.alloc(sz));
+    n->height = height;
+    return n;
+  }
+
+  int random_height() {
+    thread_local uint64_t rnd = random_height_seed();
+    rnd ^= rnd << 13; rnd ^= rnd >> 7; rnd ^= rnd << 17;
+    int h = 1;
+    uint64_t r = rnd;
+    while (h < kMaxHeight && (r & 3) == 0) { h++; r >>= 2; }
+    return h;
+  }
+
+  // <0: a < b (a = node key triple, b = probe)
+  static int cmp(const uint8_t* ak, uint32_t al, uint64_t ainv,
+                 const uint8_t* bk, uint32_t bl, uint64_t binv) {
+    uint32_t m = al < bl ? al : bl;
+    int r = m ? std::memcmp(ak, bk, m) : 0;
+    if (r) return r;
+    if (al != bl) return al < bl ? -1 : 1;
+    if (ainv != binv) return ainv < binv ? -1 : 1;
+    return 0;
+  }
+
+  static int cmp_node(SLNode* a, const uint8_t* k, uint32_t kl, uint64_t inv) {
+    return cmp(a->key, a->key_len, a->inv_packed, k, kl, inv);
+  }
+
+  // First node with node >= probe; fills prev[] when non-null.
+  SLNode* seek_ge(const uint8_t* k, uint32_t kl, uint64_t inv,
+                  SLNode** prev) {
+    SLNode* x = head;
+    int level = max_height.load(std::memory_order_acquire) - 1;
+    while (true) {
+      SLNode* nxt_ = x->nxt(level);
+      bool go_right = nxt_ && cmp_node(nxt_, k, kl, inv) < 0;
+      if (go_right) {
+        x = nxt_;
+      } else {
+        if (prev) prev[level] = x;
+        if (level == 0) return nxt_;
+        level--;
+      }
+    }
+  }
+
+  static void set_val(SLNode* n, Arena& a, const uint8_t* v, uint32_t vl) {
+    uint8_t* rec = a.alloc(4 + vl);
+    std::memcpy(rec, &vl, 4);
+    if (vl) std::memcpy(rec + 4, v, vl);
+    n->val.store(rec, std::memory_order_release);
+  }
+
+  // Returns 1 on fresh insert, 0 on in-place replace of an exact duplicate.
+  // Safe for concurrent callers (CAS splice; duplicates replace the value
+  // atomically — only WAL replay produces them, and that is single-threaded,
+  // but the path is still race-safe).
+  int insert(const uint8_t* k, uint32_t kl, uint64_t inv,
+             const uint8_t* v, uint32_t vl) {
+    SLNode* prev[kMaxHeight];
+    for (int i = 0; i < kMaxHeight; i++) prev[i] = head;
+    SLNode* ge = seek_ge(k, kl, inv, prev);
+    if (ge && cmp_node(ge, k, kl, inv) == 0) {
+      set_val(ge, arena, v, vl);
+      return 0;
+    }
+    int h = random_height();
+    int mh = max_height.load(std::memory_order_relaxed);
+    while (h > mh &&
+           !max_height.compare_exchange_weak(mh, h,
+                                             std::memory_order_relaxed)) {
+    }
+    SLNode* n = alloc_node(h);
+    uint8_t* kcopy = arena.alloc(kl);
+    std::memcpy(kcopy, k, kl);
+    n->key = kcopy;
+    n->key_len = kl;
+    n->inv_packed = inv;
+    set_val(n, arena, v, vl);
+    // Splice bottom-up (as RocksDB's InsertConcurrently): the node becomes
+    // reachable at level 0 first; higher levels are shortcuts. Only level 0
+    // may observe an exact duplicate (n not yet linked there) — at that
+    // point replace-in-place and abandon n entirely.
+    for (int i = 0; i < h; i++) {
+      while (true) {
+        // prev[i] may be stale after a lost race: re-walk right as needed.
+        SLNode* p = prev[i];
+        SLNode* nx = p->nxt(i);
+        while (nx && nx != n && cmp_node(nx, k, kl, inv) < 0) {
+          p = nx;
+          nx = p->nxt(i);
+        }
+        if (i == 0 && nx && cmp_node(nx, k, kl, inv) == 0) {
+          // Concurrent/replayed duplicate: last value wins, atomically.
+          set_val(nx, arena, v, vl);
+          return 0;
+        }
+        n->next[i].store(nx, std::memory_order_relaxed);
+        if (p->next[i].compare_exchange_strong(nx, n,
+                                               std::memory_order_release)) {
+          break;
+        }
+        prev[i] = p;  // retry from the rescanned position
+      }
+    }
+    count.fetch_add(1, std::memory_order_relaxed);
+    return 1;
+  }
+};
+
+}  // namespace
+
+void* tpulsm_skiplist_new() { return new SkipList(); }
+void tpulsm_skiplist_free(void* h) { delete static_cast<SkipList*>(h); }
+
+int32_t tpulsm_skiplist_insert(void* h, const uint8_t* k, uint32_t kl,
+                               uint64_t inv, const uint8_t* v, uint32_t vl) {
+  return static_cast<SkipList*>(h)->insert(k, kl, inv, v, vl);
+}
+
+int64_t tpulsm_skiplist_count(void* h) {
+  return static_cast<SkipList*>(h)->count.load(std::memory_order_relaxed);
+}
+
+int64_t tpulsm_skiplist_memory(void* h) {
+  // Handed-out bytes (content + node overhead), matching the trie rep's
+  // accounting so flush cadence compares reps on equal footing.
+  return (int64_t)static_cast<SkipList*>(h)->arena.handed.load(
+      std::memory_order_relaxed);
+}
+
+void* tpulsm_skiplist_seek_ge(void* h, const uint8_t* k, uint32_t kl,
+                              uint64_t inv) {
+  return static_cast<SkipList*>(h)->seek_ge(k, kl, inv, nullptr);
+}
+
+void* tpulsm_skiplist_first(void* h) {
+  return static_cast<SkipList*>(h)->head->nxt(0);
+}
+
+void* tpulsm_skiplist_next(void* node) {
+  return static_cast<SLNode*>(node)->nxt(0);
+}
+
+// Last node strictly BEFORE the probe (nullptr if none) — the O(log n)
+// backward step of the iterator protocol.
+void* tpulsm_skiplist_seek_lt(void* h, const uint8_t* k, uint32_t kl,
+                              uint64_t inv) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  SLNode* prev[kMaxHeight];
+  for (int i = 0; i < kMaxHeight; i++) prev[i] = sl->head;
+  sl->seek_ge(k, kl, inv, prev);
+  return prev[0] == sl->head ? nullptr : prev[0];
+}
+
+void* tpulsm_skiplist_last(void* h) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  SLNode* x = sl->head;
+  for (int level = sl->max_height.load(std::memory_order_acquire) - 1;
+       level >= 0; level--) {
+    while (x->nxt(level)) x = x->nxt(level);
+  }
+  return x == sl->head ? nullptr : x;
+}
+
+void tpulsm_skiplist_node(void* node, const uint8_t** k, uint32_t* kl,
+                          uint64_t* inv, const uint8_t** v, uint32_t* vl) {
+  SLNode* n = static_cast<SLNode*>(node);
+  *k = n->key;
+  *kl = n->key_len;
+  *inv = n->inv_packed;
+  const uint8_t* rec = n->val.load(std::memory_order_acquire);
+  uint32_t len;
+  std::memcpy(&len, rec, 4);
+  *v = rec + 4;
+  *vl = len;
+}
+
+// Batch insert: n entries from flat buffers, ONE ctypes crossing with the
+// GIL released for the whole loop (registered on the CDLL handle). Safe to
+// call from multiple threads concurrently (lock-free splice). Returns the
+// number of FRESH inserts (duplicates replaced in place don't count).
+int64_t tpulsm_skiplist_insert_batch(
+    void* h, const uint8_t* keybuf, const int64_t* key_offs,
+    const int32_t* key_lens, const uint64_t* invs, const uint8_t* valbuf,
+    const int64_t* val_offs, const int32_t* val_lens, int64_t n) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  int64_t fresh = 0;
+  for (int64_t i = 0; i < n; i++) {
+    fresh += sl->insert(keybuf + key_offs[i], (uint32_t)key_lens[i], invs[i],
+                        valbuf + val_offs[i], (uint32_t)val_lens[i]);
+  }
+  return fresh;
+}
+
+// Bulk ordered export of the whole skiplist into flat columnar buffers —
+// the memtable half of the columnar flush fast path (one GIL-released
+// crossing instead of one Python iteration per entry; the role of
+// RocksDB's FlushJob::WriteLevel0Table memtable scan).
+// Keys are emitted as INTERNAL keys: user_key bytes followed by the 8-byte
+// little-endian packed trailer ((seq<<8)|type == ~inv_packed), i.e. exactly
+// the SST key encoding. seqs[i]/vtypes[i] receive the split trailer.
+//
+// Sizing call: key_buf == nullptr → fills out_sizes[3] = {key_bytes (incl.
+// the 8B trailers), val_bytes, rows} and returns rows. Fill call: writes up
+// to max_rows rows, bounded by the byte capacities the caller passes back
+// in out_sizes[0]/[1] (the sizing results); returns rows written, or -1 on
+// any overflow — row count OR byte budget — so a mutation between the two
+// calls (contract violation: flush runs on an immutable memtable) can
+// never write past the caller's buffers.
+int64_t tpulsm_skiplist_export(
+    void* h, uint8_t* key_buf, int64_t* key_offs, int32_t* key_lens,
+    uint64_t* seqs, int32_t* vtypes, uint8_t* val_buf, int64_t* val_offs,
+    int32_t* val_lens, int64_t max_rows, int64_t* out_sizes) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  if (key_buf == nullptr) {
+    int64_t kb = 0, vb = 0, rows = 0;
+    for (SLNode* n = sl->head->nxt(0); n; n = n->nxt(0)) {
+      const uint8_t* rec = n->val.load(std::memory_order_acquire);
+      uint32_t vl;
+      std::memcpy(&vl, rec, 4);
+      kb += n->key_len + 8;
+      vb += vl;
+      rows++;
+    }
+    out_sizes[0] = kb;
+    out_sizes[1] = vb;
+    out_sizes[2] = rows;
+    return rows;
+  }
+  const int64_t key_cap = out_sizes[0], val_cap = out_sizes[1];
+  int64_t ko = 0, vo = 0, rows = 0;
+  for (SLNode* n = sl->head->nxt(0); n; n = n->nxt(0)) {
+    if (rows >= max_rows) return -1;
+    const uint8_t* rec = n->val.load(std::memory_order_acquire);
+    uint32_t vl;
+    std::memcpy(&vl, rec, 4);
+    if (ko + (int64_t)n->key_len + 8 > key_cap || vo + (int64_t)vl > val_cap)
+      return -1;
+    uint64_t packed = ~n->inv_packed;
+    std::memcpy(key_buf + ko, n->key, n->key_len);
+    for (int b = 0; b < 8; b++)
+      key_buf[ko + n->key_len + b] = (uint8_t)(packed >> (8 * b));
+    key_offs[rows] = ko;
+    key_lens[rows] = (int32_t)(n->key_len + 8);
+    seqs[rows] = packed >> 8;
+    vtypes[rows] = (int32_t)(packed & 0xFF);
+    std::memcpy(val_buf + vo, rec + 4, vl);
+    val_offs[rows] = vo;
+    val_lens[rows] = (int32_t)vl;
+    ko += n->key_len + 8;
+    vo += vl;
+    rows++;
+  }
+  return rows;
+}
+
+// Insert every counted record of a WriteBatch WIRE IMAGE (db/write_batch.py
+// format: fixed64 seq | fixed32 count | [type][varint klen][key]
+// [varint vlen][value]...) into the skiplist — ONE GIL-free ctypes call
+// per batch, no per-record Python or numpy. Parses in two passes: a
+// validation scan first, so a batch this parser cannot take (non-default
+// CF record, range deletion, corruption) is rejected with NOTHING
+// inserted and the caller falls back to the Python path.
+// Returns inserted count; out[0] = memtable byte delta (k+v+24 per
+// record), out[1] = point-delete count. rc: -2 unsupported record,
+// -4 corrupt. Concurrency-safe (lock-free splice per record).
+// Shared WriteBatch wire-image parse/apply loop: validates the whole
+// image on pass 0 (count header, varint bounds, supported record types),
+// applies on pass 1 through the insert callback. Returns the record
+// count, or -2 (unsupported record: Python path) / -4 (corrupt image).
+extern "C++" {
+template <typename InsertFn>
+static int64_t wb_wire_apply(const uint8_t* rep, int64_t len,
+                             uint64_t first_seq, int64_t* out,
+                             InsertFn&& ins) {
+  static const uint8_t kValue = 0x1, kDelete = 0x0, kMerge = 0x2,
+                       kSingleDelete = 0x7, kLogData = 0x3,
+                       kWideEntity = 0x16;
+  if (len < 12) return -4;
+  const uint8_t* end = rep + len;
+  uint32_t hdr_count = (uint32_t)rep[8] | ((uint32_t)rep[9] << 8) |
+                       ((uint32_t)rep[10] << 16) | ((uint32_t)rep[11] << 24);
+  for (int pass = 0; pass < 2; pass++) {
+    const uint8_t* p = rep + 12;
+    uint64_t seq = first_seq;
+    int64_t count = 0, delta = 0, deletes = 0;
+    while (p < end) {
+      uint8_t t = *p++;
+      if (t & 0x80) return -2;  // CF-prefixed record: Python path
+      uint32_t klen, vlen = 0;
+      p = get_varint32(p, end, &klen);
+      if (!p || p + klen > end) return -4;
+      const uint8_t* k = p;
+      p += klen;
+      const uint8_t* v = p;
+      if (t == kValue || t == kMerge || t == kWideEntity) {
+        p = get_varint32(p, end, &vlen);
+        if (!p || p + vlen > end) return -4;
+        v = p;
+        p += vlen;
+      } else if (t == kDelete || t == kSingleDelete) {
+        // key only
+      } else if (t == kLogData) {
+        continue;  // not counted, not applied (klen was the blob)
+      } else {
+        return -2;  // RANGE_DELETION etc.: Python path
+      }
+      if (pass == 1) {
+        uint64_t inv = ~((seq << 8) | (uint64_t)t);
+        ins(k, klen, inv, v, vlen);
+        delta += (int64_t)klen + vlen + 24;
+        if (t == kDelete || t == kSingleDelete) deletes++;
+      }
+      seq++;
+      count++;
+    }
+    if (pass == 0) {
+      if ((uint32_t)count != hdr_count) return -4;
+    } else {
+      out[0] = delta;
+      out[1] = deletes;
+      return count;
+    }
+  }
+  return -4;  // unreachable
+}
+
+}  // extern "C++"
+
+int64_t tpulsm_skiplist_insert_wb(void* h, const uint8_t* rep, int64_t len,
+                                  uint64_t first_seq, int64_t* out) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  return wb_wire_apply(rep, len, first_seq, out,
+                       [sl](const uint8_t* k, uint32_t kl, uint64_t inv,
+                            const uint8_t* v, uint32_t vl) {
+                         sl->insert(k, kl, inv, v, vl);
+                       });
+}
+
 
 }  // extern "C"

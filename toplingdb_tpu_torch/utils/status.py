@@ -13,6 +13,8 @@ class Code(enum.IntEnum):
     NOT_SUPPORTED = 3
     INVALID_ARGUMENT = 4
     IO_ERROR = 5
+    MERGE_IN_PROGRESS = 6
+    SHUTDOWN_IN_PROGRESS = 8
 
 
 class Status(Exception):
@@ -47,3 +49,11 @@ class InvalidArgument(Status):
 
 class IOError_(Status):
     code = Code.IO_ERROR
+
+
+class MergeInProgress(Status):
+    code = Code.MERGE_IN_PROGRESS
+
+
+class ShutdownInProgress(Status):
+    code = Code.SHUTDOWN_IN_PROGRESS
