@@ -129,6 +129,37 @@ Phases (any failure ends the run with a non-zero exit code):
      fill wall and ops/s, flushes, each device job's rows, route and wall,
      compact_range wall and raw MB/s, readrandom ops/s, scan and reopen
      walls.
+ 14. distributed compaction from the port's DB, the card in the worker.
+     (a) the HTTP transport at full width: DcompactWorkerService(
+     device="cuda") started in this process (port 0), and phase 13's DB
+     deployment (DB_N keys, 8 MiB write buffer, 4 writer threads, batches
+     of 100) opened with HttpCompactionExecutorFactory([url],
+     device="cuda"), a Statistics and a recording listener; fill, flush,
+     wait_for_compactions, compact_range. Every compaction that was not a
+     trivial move came back remote on "cuda"; gc_rows launched at least
+     once per job and the merge on every multi-input job (counts set to 0
+     before the open, read after compact_range); DCOMPACTION_ATTEMPTS
+     equals the jobs, RETRIES, JOB_FAILURES and FALLBACK_LOCAL are 0; one
+     on_compaction_completed per job; no scheduler error; the live SSTs
+     read back row by row against the oracle; 10,000 readrandom probes.
+     Printed: fill and compact_range walls, each job's rows,
+     work_time_usec and rpc_time_usec, the DCOMPACTION_* histograms'
+     counts and medians, beside phase 13's in-process compact_range.
+     (b) the service CLI in its own process (python -m
+     toplingdb_tpu_torch.compaction.dcompact_service --port 0 --device
+     cuda): a DB of SMALL_DB_N keys with distinct values (one writer, 1
+     MiB write buffer, auto compactions off) whose one L0->L1 job meets
+     DcompactFaultInjector(schedule={0: "drop", 1: "truncate",
+     2: "corrupt", 3: "delay"}): RETRIES == 3, JOB_FAILURES == 0, the
+     service's /stats jobs_done equals the attempts that reached it (all
+     but the dropped one), the live entries equal the oracle; then the
+     process is stopped and must be gone. (c) the subprocess transport:
+     SubprocessCompactionExecutorFactory(device="cuda") on the same DB
+     shape with schedule={0: "kill"}: the first worker process exits 137
+     mid-job and its attempt dir is swept, the retry succeeds on the card,
+     no job-* dir is left under <db>/dcompact; then a stale attempt dir
+     (params, a partial SST, a heartbeat older than lease_sec) is placed
+     there, and the reopen sweeps it (DCOMPACTION_ORPHANS_SWEPT == 1).
 
 The script's total wall is printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -171,6 +202,7 @@ ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
 DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
 DB_WAL_N = 50_000       # phase 13: the WAL-replay run
 DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
+SMALL_DB_N = 200_000    # phase 14 (b) and (c)
 
 
 def log(msg: str) -> None:
@@ -2362,7 +2394,337 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
         assert db.num_flushes == 1
     log(f"[db] WAL replay: {n_wal} keys written, dropped without a flush, "
         f"reopened in {replay:.3f}s (replay + one flush), all read back")
-    return gc_n, mr_n
+    return gc_n, mr_n, crw
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: distributed compaction from the port's DB
+# ---------------------------------------------------------------------------
+
+
+def recorded_jobs(factory):
+    """Wrap `factory`'s executors so every job that came back records its
+    CompactionStats' route fields. Returns the list they append to."""
+    jobs = []
+    make = factory.new_executor
+
+    def new_executor(c):
+        ex = make(c)
+        if ex is None:
+            return None
+        run = ex.execute
+
+        def execute(db, comp, snaps, alloc):
+            outs, st = run(db, comp, snaps, alloc)
+            jobs.append(dict(
+                level=comp.level, output_level=comp.output_level,
+                input_files=comp.num_input_files(), rows=st.input_records,
+                remote=st.remote, device=st.device,
+                work_us=st.work_time_usec, rpc_us=st.rpc_time_usec))
+            return outs, st
+
+        ex.execute = execute
+        return ex
+
+    factory.new_executor = new_executor
+    return jobs
+
+
+def job_events():
+    """A listener that records compactions and dcompact attempts (its
+    class is built here: the script imports no package code before it
+    checks for a card)."""
+    from toplingdb_tpu_torch.utils.listener import EventListener
+
+    class Recorder(EventListener):
+        def __init__(self):
+            self.completed, self.attempts = [], []
+
+        def on_compaction_completed(self, db, info):
+            self.completed.append(info)
+
+        def on_dcompact_attempt(self, db, info):
+            self.attempts.append(info)
+
+    return Recorder()
+
+
+def dcompact_histograms(stats) -> str:
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    out = []
+    for name in (st.DCOMPACTION_ATTEMPT_MICROS, st.DCOMPACTION_TIME_MICROS,
+                 st.DCOMPACTION_RPC_MICROS, st.DCOMPACTION_PREPARE_MICROS,
+                 st.DCOMPACTION_WAITING_MICROS):
+        h = stats.get_histogram(name)
+        med = h.percentile(50) if h.count else 0.0
+        out.append(f"{name} count {h.count} median {med:.0f}us")
+    return "; ".join(out)
+
+
+def small_db(path, opts, n):
+    """SMALL_DB_N distinct keys with distinct values from one writer, a
+    flush, then compact_range; returns the oracle."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+
+    want = {}
+    db = DB.open(path, opts)
+    try:
+        for i in range(0, n, 100):
+            b = WriteBatch()
+            for j in range(i, i + 100):
+                k, v = db_key(j, n), b"%020d" % j
+                b.put(k, v)
+                want[k] = v
+            db.write(b)
+        db.flush()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert sched.last_error is None and db._bg_error is None
+        assert sched.num_local_jobs == 0
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = list(it.entries())
+        assert got == sorted(want.items()), "live entries differ"
+    finally:
+        db.close()
+    return want
+
+
+def dcompact_path(torch, root, n, n_small, in_process_crw,
+                  device_name="cuda"):
+    """Phase 14: (a) the in-process HTTP service at full width, (b) the
+    service CLI in its own process under a fault schedule, (c) the
+    subprocess transport with a killed worker and the orphan sweep."""
+    import random
+    import urllib.request
+
+    from toplingdb_tpu_torch.compaction.dcompact_service import (
+        DcompactWorkerService,
+        HttpCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.compaction.executor import (
+        SubprocessCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.compaction.resilience import (
+        DcompactFaultInjector,
+        DcompactOptions,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    # (a) ---------------------------------------------------------------
+    value = b"v" * 20
+    n_threads, batch = 4, 100
+    per = n // n_threads
+    svc = DcompactWorkerService(device=device_name)
+    url = f"http://127.0.0.1:{svc.start(port=0)}"
+    factory = HttpCompactionExecutorFactory([url], device=device_name)
+    jobs = recorded_jobs(factory)
+    events = job_events()
+    stats = st.Statistics()
+    opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
+                   compaction_executor_factory=factory, statistics=stats,
+                   listeners=[events])
+
+    def writer(db, t, errs):
+        try:
+            for i in range(0, per, batch):
+                b = WriteBatch()
+                for j in range(i, i + batch):
+                    b.put(db_key(t * per + j, n), value)
+                db.write(b)
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    try:
+        launched = counted(kernels)
+        with ShardPrograms(torch) as programs:
+            t_open = time.time()
+            db = DB.open(os.path.join(root, "http"), opts)
+            try:
+                errs = []
+                ts = [threading.Thread(target=writer, args=(db, t, errs))
+                      for t in range(n_threads)]
+                t0 = time.time()
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+                fill = time.time() - t0
+                assert not errs, errs
+                db.flush()
+                db.wait_for_compactions()
+                t1 = time.time()
+                db.compact_range()
+                crw = time.time() - t1
+                gc_n, mr_n = launched()
+            except BaseException:
+                db.close()
+                raise
+        _, busy = programs.busy(time.time() - t_open)
+        try:
+            sched = db._compaction_scheduler
+            assert sched.last_error is None and db._bg_error is None
+            assert sched.num_local_jobs == 0
+            assert jobs, "no compaction went through the HTTP transport"
+            bad = [j for j in jobs
+                   if not j["remote"] or j["device"] != device_name]
+            assert not bad, bad
+            rewrites = [i for i in events.completed if i.device != "move"]
+            assert len(rewrites) == len(jobs), (len(rewrites), len(jobs))
+            assert all(i.device == device_name for i in rewrites)
+            t = stats.tickers()
+            assert t.get(st.DCOMPACTION_ATTEMPTS, 0) == len(jobs), t
+            for name in (st.DCOMPACTION_RETRIES, st.DCOMPACTION_JOB_FAILURES,
+                         st.DCOMPACTION_FALLBACK_LOCAL):
+                assert t.get(name, 0) == 0, (name, t)
+            if device_name == "cuda":
+                assert gc_n >= len(jobs), (gc_n, len(jobs))
+                if any(j["input_files"] > 1 for j in jobs):
+                    assert mr_n > 0, "no merge launch for a multi-run job"
+            for k, j in enumerate(jobs):
+                log(f"[dcompact-http] job {k}: L{j['level']}->"
+                    f"L{j['output_level']}, {j['input_files']} input files, "
+                    f"{j['rows']} rows, remote on {j['device']}, "
+                    f"work_time_usec {j['work_us']}, rpc_time_usec "
+                    f"{j['rpc_us']}")
+            want = sorted(db_key(i, n) for i in range(n_threads * per))
+            n_files = db_files_against_oracle(db, want, value)
+            rng = random.Random(5)
+            probes = [db_key(rng.randrange(n), n) for _ in range(10_000)]
+            for k in probes:
+                assert db.get(k) == value, k
+            log(f"[dcompact-http] fillrandom {n_threads * per} keys from "
+                f"{n_threads} threads: {fill:.3f}s, "
+                f"{n_threads * per / fill:.0f} ops/s; compact_range "
+                f"{crw:.3f}s ({n * DB_RAW_PER_ENTRY / 1e6 / crw:.2f} raw "
+                f"MB/s; phase 13's in-process compact_range "
+                f"{in_process_crw:.3f}s); {len(jobs)} remote jobs, "
+                f"{len(events.completed) - len(rewrites)} trivial moves, "
+                f"launches gc_rows={gc_n} merge_runs={mr_n}; open to "
+                f"compact_range's end: {busy}; {n_files} live SSTs equal to "
+                f"the oracle row by row; 10000 probes found; service "
+                f"jobs_done {svc.jobs_done}")
+            log(f"[dcompact-http] {dcompact_histograms(stats)}")
+        finally:
+            db.close()
+    finally:
+        svc.stop()
+
+    # (b) ---------------------------------------------------------------
+    # Four attempts, and a breaker that stays closed through the three
+    # failures (its default threshold of 3 would open it before the last).
+    policy = DcompactOptions(max_attempts=4, backoff_base=0.01,
+                             attempt_timeout=600.0,
+                             breaker_failure_threshold=10)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "toplingdb_tpu_torch.compaction.dcompact_service",
+         "--port", "0", "--host", "127.0.0.1", "--device", device_name],
+        stdout=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"listening on [\d.]+:(\d+)", line)
+        assert m, f"no port in the service's first line: {line!r}"
+        url = f"http://127.0.0.1:{m.group(1)}"
+        inj = DcompactFaultInjector(
+            schedule={0: "drop", 1: "truncate", 2: "corrupt", 3: "delay"})
+        factory = HttpCompactionExecutorFactory([url], device=device_name,
+                                                policy=policy,
+                                                fault_injector=inj)
+        jobs = recorded_jobs(factory)
+        stats = st.Statistics()
+        t0 = time.time()
+        small_db(os.path.join(root, "cli"), Options(
+            create_if_missing=True, write_buffer_size=1 << 20,
+            disable_auto_compactions=True,
+            compaction_executor_factory=factory, statistics=stats,
+            dcompact=policy), n_small)
+        wall = time.time() - t0
+        t = stats.tickers()
+        served = json.loads(urllib.request.urlopen(
+            url + "/stats", timeout=60).read())
+        drops = inj.injected_counts().get("drop", 0)
+        assert inj.injected_counts() == {
+            "drop": 1, "truncate": 1, "corrupt": 1, "delay": 1}, \
+            inj.injected_counts()
+        assert t.get(st.DCOMPACTION_RETRIES, 0) == 3, t
+        assert t.get(st.DCOMPACTION_JOB_FAILURES, 0) == 0, t
+        assert all(j["remote"] and j["device"] == device_name for j in jobs)
+        assert served["jobs_done"] == t[st.DCOMPACTION_ATTEMPTS] - drops, \
+            (served, t)
+        assert served["device"] == device_name
+        log(f"[dcompact-cli] service process on {device_name}: "
+            f"{n_small} keys, {len(jobs)} job(s), attempts "
+            f"{t[st.DCOMPACTION_ATTEMPTS]}, retries "
+            f"{t[st.DCOMPACTION_RETRIES]} (drop, truncate, corrupt; delay "
+            f"succeeds), service jobs_done {served['jobs_done']}, live "
+            f"entries equal the oracle; {wall:.3f}s open to close; "
+            f"{dcompact_histograms(stats)}")
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=60)
+    assert proc.poll() is not None and rc == 0, rc
+    log(f"[dcompact-cli] service process stopped (rc {rc})")
+
+    # (c) ---------------------------------------------------------------
+    policy = DcompactOptions(max_attempts=3, backoff_base=0.01,
+                             attempt_timeout=600.0, lease_sec=30.0)
+    inj = DcompactFaultInjector(schedule={0: "kill"})
+    factory = SubprocessCompactionExecutorFactory(
+        device=device_name, policy=policy, fault_injector=inj)
+    jobs = recorded_jobs(factory)
+    events = job_events()
+    path = os.path.join(root, "subprocess")
+    t0 = time.time()
+    small_db(path, Options(
+        create_if_missing=True, write_buffer_size=1 << 20,
+        disable_auto_compactions=True, compaction_executor_factory=factory,
+        statistics=st.Statistics(), dcompact=policy, listeners=[events]),
+        n_small)
+    wall = time.time() - t0
+    killed = [a for a in events.attempts if not a.ok]
+    assert inj.injected_counts() == {"kill": 1}
+    assert len(killed) == 1 and "rc=137" in killed[0].error, killed
+    assert killed[0].will_retry
+    assert not os.path.exists(os.path.join(
+        path, "dcompact", f"job-{killed[0].job_id:05d}", "att-00"))
+    assert jobs and all(j["remote"] and j["device"] == device_name
+                        for j in jobs)
+    job_dirs = [d for d in os.listdir(os.path.join(path, "dcompact"))
+                if d.startswith("job-")]
+    assert job_dirs == [], job_dirs
+    att = os.path.join(path, "dcompact", "job-99999", "att-00")
+    os.makedirs(os.path.join(att, "out"))
+    with open(os.path.join(att, "params.json"), "w") as fh:
+        json.dump({"job_id": 99999, "attempt": 0}, fh)
+    with open(os.path.join(att, "out", "000001.sst"), "wb") as fh:
+        fh.write(b"\0" * 4096)
+    with open(os.path.join(att, "heartbeat"), "w") as fh:
+        fh.write("1 0.0\n")
+    old = time.time() - 10 * policy.lease_sec
+    for name in ("params.json", "heartbeat"):
+        os.utime(os.path.join(att, name), (old, old))
+    stats = st.Statistics()
+    with DB.open(path, Options(
+            compaction_executor_factory=factory, statistics=stats,
+            dcompact=policy, disable_auto_compactions=True)):
+        swept = stats.get_ticker_count(st.DCOMPACTION_ORPHANS_SWEPT)
+    assert swept == 1 and not os.path.exists(att), swept
+    log(f"[dcompact-subprocess] {n_small} keys: worker killed mid-job "
+        f"({killed[0].error[:60]!r}), attempt dir swept, retry on "
+        f"{jobs[0]['device']} ({jobs[0]['rows']} rows, work_time_usec "
+        f"{jobs[0]['work_us']}, rpc_time_usec {jobs[0]['rpc_us']}), no job "
+        f"dir left, {wall:.3f}s open to close; a stale attempt dir swept "
+        f"on reopen (DCOMPACTION_ORPHANS_SWEPT {swept})")
 
 
 def card_line() -> str:
@@ -2424,7 +2786,10 @@ def main() -> int:
                         SLOW_CODEC_N, _jobs)
         formats_path(torch, env, dbdir, icmp, MAIN_N, FORMAT_N, ENTRY_N,
                      _jobs)
-        db_path(torch, os.path.join(dbdir, "db13"), DB_N, DB_WAL_N)
+        _gc, _mr, db_crw = db_path(torch, os.path.join(dbdir, "db13"), DB_N,
+                                   DB_WAL_N)
+        dcompact_path(torch, os.path.join(dbdir, "db14"), DB_N, SMALL_DB_N,
+                      db_crw)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)

@@ -34,7 +34,12 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - a 200,000-key DB whose compactions run on the card through
   DeviceCompactionExecutorFactory(device="cuda") (both kernels launch, no
   job on the host path) has the same get and scan views as the port's DB
-  on device="cpu", before and after reopen.
+  on device="cpu", before and after reopen;
+- a small DB whose compaction goes through the in-process HTTP worker
+  service on "cuda" (both kernels launch in the service) and one whose
+  compaction goes through a subprocess worker on "cuda" write the SST
+  bytes, level files and WAL bytes of the same DB through a "cpu-jax"
+  service.
 """
 
 import os
@@ -904,3 +909,106 @@ def test_db_on_the_card_has_the_cpu_views(dev, tmp_path):
     want = _db_views(str(tmp_path / "cpu"), "cpu", n)
     assert got == want
     assert len(got[1]) == n - 4
+
+
+def _remote_db(path, factory):
+    """The dcompact tests' workload (tests/test_torch_dcompact.py): 1600
+    overwrites of 500 keys, explicit flushes, one remote L0->L1 job.
+    Returns the live SSTs by file number, the level files, the WAL bytes
+    and the job's stats."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils.listener import EventListener
+
+    jobs = []
+
+    class Watch(EventListener):
+        def on_compaction_completed(self, db, info):
+            jobs.append((info.device, info.reason))
+
+    db = DB.open(path, Options(
+        write_buffer_size=1 << 20, disable_auto_compactions=True,
+        compaction_executor_factory=factory, listeners=[Watch()]))
+    try:
+        for i in range(1600):
+            db.put(b"mk%05d" % (i % 500), b"mv%07d" % i)
+            if i % 400 == 399:
+                db.flush()
+        db.flush()
+        db.compact_range()
+        assert db._bg_error is None
+        assert db.get(b"mk00499") == b"mv%07d" % 1499
+        v = db.versions.current
+        levels = [[(f.number, f.smallest, f.largest) for f in lvl]
+                  for lvl in v.files]
+        ssts = {f.number: open(os.path.join(path, "%06d.sst" % f.number),
+                               "rb").read()
+                for lvl in v.files for f in lvl}
+        wals = {n: open(os.path.join(path, n), "rb").read()
+                for n in os.listdir(path) if n.endswith(".log")}
+    finally:
+        db.close()
+    return (levels, ssts, wals), jobs
+
+
+def _frozen(monkeypatch):
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+
+
+@pytest.fixture
+def cpu_jax_twin(tmp_path, monkeypatch):
+    from toplingdb_tpu_torch.compaction.dcompact_service import (
+        DcompactWorkerService,
+        HttpCompactionExecutorFactory,
+    )
+
+    _frozen(monkeypatch)
+    svc = DcompactWorkerService(device="cpu-jax")
+    port = svc.start()
+    try:
+        return _remote_db(str(tmp_path / "cpu-jax"),
+                          HttpCompactionExecutorFactory(
+                              [f"http://127.0.0.1:{port}"],
+                              device="cpu-jax"))
+    finally:
+        svc.stop()
+
+
+def test_http_service_on_the_card_writes_the_cpu_jax_bytes(
+        dev, tmp_path, cpu_jax_twin):
+    from toplingdb_tpu_torch.compaction.dcompact_service import (
+        DcompactWorkerService,
+        HttpCompactionExecutorFactory,
+    )
+
+    svc = DcompactWorkerService(device="cuda")
+    port = svc.start()
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    try:
+        got, jobs = _remote_db(str(tmp_path / "cuda"),
+                               HttpCompactionExecutorFactory(
+                                   [f"http://127.0.0.1:{port}"]))
+    finally:
+        svc.stop()
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    assert svc.jobs_done == 1 and svc.jobs_failed == 0
+    assert ("cuda", "manual") in jobs
+    assert got == cpu_jax_twin[0]
+
+
+def test_subprocess_worker_on_the_card_writes_the_cpu_jax_bytes(
+        dev, tmp_path, cpu_jax_twin):
+    from toplingdb_tpu_torch.compaction.executor import (
+        SubprocessCompactionExecutorFactory,
+    )
+
+    got, jobs = _remote_db(str(tmp_path / "cuda"),
+                           SubprocessCompactionExecutorFactory())
+    assert ("cuda", "manual") in jobs
+    assert got == cpu_jax_twin[0]
+    assert [d for d in os.listdir(str(tmp_path / "cuda" / "dcompact"))
+            if d.startswith("job-")] == []

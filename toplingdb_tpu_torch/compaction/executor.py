@@ -1,6 +1,6 @@
 """The compaction executor boundary (copied from
-toplingdb_tpu/compaction/executor.py, trimmed to the in-process device
-executor and the serialized dcompact job boundary).
+toplingdb_tpu/compaction/executor.py: the in-process device executor, the
+serialized dcompact job boundary and the subprocess transport).
 
   CompactionExecutorFactory.should_run_local / new_executor — decide
   routing per job;
@@ -13,8 +13,19 @@ of Options.compaction_executor_factory, on "cuda". Unlike toplingdb_tpu's
 factory, the port's never falls back to the CPU path: a failed device job
 raises and surfaces as the DB's background error. The host compaction
 path (run_compaction_to_tables) runs only where the caller names it with
-LocalCompactionExecutorFactory. The subprocess executor comes with a later
-slice.
+LocalCompactionExecutorFactory.
+
+SubprocessCompactionExecutor ships a job through a job dir: params.json
+(CompactionParams) and lease.json are written to
+`<db>/dcompact/job-NNNNN/att-NN`, a worker process
+(`python -m toplingdb_tpu_torch.compaction.worker`) runs it and writes its
+outputs and results.json, and the outputs are renamed into the DB dir
+under fresh file numbers (RocksDB's CompactionJob::RunRemote). Its
+factory's default device is "cuda": the worker owns the card. "cpu-jax"
+(the kernels' plain versions) and "cpu" (the per-entry
+CompactionIterator) run only where the caller names them. The HTTP
+transport (compaction/dcompact_service.py) reuses the executor with a
+POST in place of the spawn.
 
 `CompactionParams`, `CompactionResults`, `encode_file_meta`,
 `decode_file_meta` and `table_options_from_params` are the dcompact job
@@ -25,7 +36,12 @@ written by either package is read by the other's worker.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import os
+import shutil
+import subprocess
+import sys
 import threading
 import time
 
@@ -48,6 +64,9 @@ class CompactionExecutorFactory:
 
     def new_executor(self, compaction: Compaction) -> CompactionExecutor:
         raise NotImplementedError
+
+    def job_url(self, job_id: int, attempt: int) -> str:
+        return ""
 
 
 class LocalCompactionExecutorFactory(CompactionExecutorFactory):
@@ -261,3 +280,255 @@ def decode_file_meta(d: dict, number: int) -> FileMetaData:
         if d.get("file_checksum") else b"",
         file_checksum_func_name=d.get("file_checksum_func_name", ""),
     )
+
+
+# ---------------------------------------------------------------------------
+# Subprocess transport (the dcompact worker in its own process)
+# ---------------------------------------------------------------------------
+
+# The device names a remote job may carry: the worker maps them
+# (compaction/worker.py).
+REMOTE_DEVICES = ("cuda", "cpu-jax", "cpu")
+
+# Job ids come from a PROCESS-WIDE counter: the factory builds one executor
+# per compaction, and concurrent jobs with per-executor counters would
+# collide on the same job dir.
+_job_counter = itertools.count(1)
+
+
+def _check_remote_device(device: str) -> None:
+    if device not in REMOTE_DEVICES:
+        raise ValueError(
+            f"device {device!r}: a dcompact worker runs one of "
+            f"{REMOTE_DEVICES}")
+
+
+class SubprocessCompactionExecutor(CompactionExecutor):
+    """Ship the job to a worker process through a shared job dir: the
+    transport shape of dcompact (HTTP + NFS in ToplingDB; a local spawn and
+    a shared filesystem here; the hop is pluggable through `spawn`)."""
+
+    def __init__(self, device: str = "cuda", job_root: str | None = None,
+                 spawn=None, policy=None, fault_injector=None):
+        _check_remote_device(device)
+        self.device = device
+        self.job_root = job_root
+        self._local_spawn = spawn is None
+        self.spawn = spawn or self._spawn_local
+        self._job_seq = 0
+        # Set by the retry driver (compaction/resilience.py) before each
+        # execute(); attempt N gets its own att-NN dir so a failed
+        # attempt's partial outputs never collide with the retry's.
+        self.attempt = 0
+        self.policy = policy          # DcompactOptions or None (defaults)
+        self.fault_injector = fault_injector
+        self.url = ""                 # transport identity (HTTP sets it)
+        self._plan = None             # active injected-fault plan
+
+    def _spawn_local(self, job_dir: str, device: str) -> None:
+        # The child's environment is a copy: nothing here writes the
+        # parent's os.environ.
+        env = dict(os.environ)
+        if self._plan == "kill":
+            # The worker crashes hard mid-job (os._exit after heartbeats
+            # and a partial output): deterministically a kill -9.
+            env["TPULSM_TEST_WORKER_CRASH"] = "mid_job"
+        timeout = (self.policy.attempt_timeout
+                   if self.policy is not None else 3600.0)
+        r = subprocess.run(
+            [sys.executable, "-m", "toplingdb_tpu_torch.compaction.worker",
+             "--job-dir", job_dir],
+            capture_output=True, env=env, timeout=timeout,
+        )
+        if r.returncode != 0:
+            from toplingdb_tpu_torch.utils.status import IOError_
+
+            raise IOError_(
+                f"compaction worker failed rc={r.returncode}: "
+                f"{r.stderr.decode(errors='replace')[-2000:]}"
+            )
+
+    def execute(self, db, compaction, snapshots, new_file_number):
+        if hasattr(db.env, "publish_sst"):
+            from toplingdb_tpu_torch.utils.status import NotSupported
+
+            # Checked before any job dir exists: nothing is left behind.
+            raise NotSupported(
+                "dcompact job on a shared SST store (store_spec mode) is "
+                "not ported yet")
+        self._job_seq = next(_job_counter)
+        job_root = self.job_root or os.path.join(db.dbname, "dcompact")
+        job_dir = os.path.join(
+            job_root, f"job-{self._job_seq:05d}", f"att-{self.attempt:02d}"
+        )
+        os.makedirs(os.path.join(job_dir, "out"), exist_ok=True)
+        try:
+            return self._execute_in(db, compaction, snapshots,
+                                    new_file_number, job_dir)
+        except BaseException:
+            # Sweep THIS attempt's partial state (params, lease, partial
+            # outputs) so a retry or the on-open orphan sweep never sees
+            # half-written SSTs as live job state.
+            self._cleanup(job_dir)
+            raise
+
+    def _params(self, db, compaction, snapshots, job_dir,
+                lease_sec: float) -> CompactionParams:
+        from toplingdb_tpu_torch.db import filename
+        from toplingdb_tpu_torch.utils import telemetry
+        from toplingdb_tpu_torch.utils.table_properties_collector import (
+            serialize_collector_factory,
+        )
+
+        opts = db.options
+        return CompactionParams(
+            job_id=self._job_seq,
+            attempt=self.attempt,
+            dbname=db.dbname,
+            output_dir=os.path.join(job_dir, "out"),
+            input_files=[
+                filename.table_file_name(db.dbname, f.number)
+                for _, f in compaction.all_inputs()
+            ],
+            output_level=compaction.output_level,
+            bottommost=compaction.bottommost,
+            max_output_file_size=compaction.max_output_file_size,
+            snapshots=list(snapshots),
+            comparator=opts.comparator.name(),
+            merge_operator=(
+                opts.merge_operator.name() if opts.merge_operator else None
+            ),
+            compaction_filter=(
+                opts.compaction_filter.name() if opts.compaction_filter
+                else None
+            ),
+            compression=opts.compression_for_level(
+                compaction.output_level, compaction.bottommost),
+            block_size=opts.table_options.block_size,
+            creation_time=int(time.time()),
+            device=self.device,
+            table_format=getattr(opts.table_options, "format", "block"),
+            prefix_extractor=(
+                opts.table_options.prefix_extractor.name()
+                if getattr(opts.table_options, "prefix_extractor", None)
+                else None
+            ),
+            cf_id=compaction.cf_id,
+            cf_name=db.cf_name(compaction.cf_id),
+            collectors=[
+                serialize_collector_factory(f)
+                for f in opts.table_options.properties_collector_factories
+            ],
+            lease_sec=lease_sec,
+            trace=telemetry.inject(),
+        )
+
+    def _execute_in(self, db, compaction, snapshots, new_file_number,
+                    job_dir):
+        from toplingdb_tpu_torch.compaction.resilience import write_lease
+        from toplingdb_tpu_torch.db import filename
+        from toplingdb_tpu_torch.utils import telemetry
+        from toplingdb_tpu_torch.utils.status import IOError_
+
+        opts = db.options
+        if opts.compaction_filter is not None:
+            # An unregistered filter cannot travel the serialized
+            # boundary: fail before the worker starts.
+            from toplingdb_tpu_torch.utils.compaction_filter import (
+                create_compaction_filter,
+            )
+
+            create_compaction_filter(opts.compaction_filter.name())
+        policy = self.policy or getattr(opts, "dcompact", None)
+        lease_sec = policy.lease_sec if policy is not None else 30.0
+        params = self._params(db, compaction, snapshots, job_dir, lease_sec)
+        with open(os.path.join(job_dir, "params.json"), "w") as f:
+            f.write(params.to_json())
+        write_lease(job_dir, self._job_seq, self.attempt, lease_sec)
+        inj = self.fault_injector
+        self._plan = inj.plan(self._job_seq, self.attempt) if inj else None
+        t0 = time.time()
+        if inj is not None:
+            inj.before_spawn(self._plan)
+        if self._plan == "kill" and not self._local_spawn:
+            # A transport without a worker process of its own cannot kill
+            # one: leave the observable state of one (a partial output),
+            # then fail the attempt.
+            with open(os.path.join(job_dir, "out", "partial.sst"), "wb") as f:
+                f.write(b"\x00" * 64)
+            raise IOError_("injected: worker killed mid-job")
+        self.spawn(job_dir, self.device)
+        if inj is not None:
+            inj.after_spawn(self._plan, job_dir)
+        rpc_usec = int((time.time() - t0) * 1e6)
+        try:
+            with open(os.path.join(job_dir, "results.json")) as f:
+                results = CompactionResults.from_json(f.read())
+        except (OSError, ValueError, TypeError) as e:
+            # Missing, truncated or garbage results.json: a worker crash
+            # between compute and a complete write, a transport failure.
+            raise IOError_(f"dcompact results unreadable: {e!r}") from e
+        if results.status != "ok":
+            raise IOError_(f"worker error: {results.status}")
+        if results.spans:
+            # Stitch the worker's spans into the compaction trace active
+            # on this thread (no-op when the job ran untraced).
+            telemetry.attach_current(results.spans)
+        # Rename the outputs into the DB dir under fresh file numbers
+        # (RocksDB's RunRemote rename loop).
+        outputs = []
+        shipped = 0
+        for d in results.output_files:
+            num = new_file_number()
+            os.replace(os.path.join(params.output_dir, d["path"]),
+                       filename.table_file_name(db.dbname, num))
+            shipped += int(d["file_size"])
+            outputs.append(decode_file_meta(d, num))
+        stats = CompactionStats(**results.stats)
+        stats.sst_bytes_shipped = shipped
+        stats.device = self.device
+        stats.remote = True
+        stats.work_time_usec = results.work_time_usec
+        # Transport time, the counterpart of ToplingDB's curl_time_usec.
+        stats.rpc_time_usec = rpc_usec - results.work_time_usec
+        self._cleanup(job_dir)
+        return outputs, stats
+
+    @staticmethod
+    def _rmdir_if_empty(path: str) -> None:
+        try:
+            if os.path.isdir(path) and not os.listdir(path):
+                os.rmdir(path)
+        except OSError:
+            pass
+
+    @classmethod
+    def _cleanup(cls, job_dir: str) -> None:
+        """Remove the whole attempt dir (outputs were renamed into the DB
+        dir, or the attempt failed) and the job skeleton once empty: a
+        finished job leaves no residue for the on-open orphan sweep."""
+        shutil.rmtree(job_dir, ignore_errors=True)
+        cls._rmdir_if_empty(os.path.dirname(job_dir))
+
+
+class SubprocessCompactionExecutorFactory(CompactionExecutorFactory):
+    """Every job through a worker process on `device` ("cuda" by default;
+    "cpu-jax" or "cpu" by name). A failed attempt is retried by the
+    scheduler's retry driver; a job whose attempts all fail raises."""
+
+    def __init__(self, device: str = "cuda", job_root: str | None = None,
+                 policy=None, fault_injector=None):
+        _check_remote_device(device)
+        self.device = device
+        self.job_root = job_root
+        self.policy = policy                  # DcompactOptions or None
+        self.fault_injector = fault_injector  # DcompactFaultInjector
+
+    def new_executor(self, compaction: Compaction) -> CompactionExecutor:
+        return SubprocessCompactionExecutor(
+            self.device, self.job_root, policy=self.policy,
+            fault_injector=self.fault_injector)
+
+    def job_url(self, job_id: int, attempt: int) -> str:
+        return (f"file://{self.job_root or 'dcompact'}/job-{job_id:05d}/"
+                f"att-{attempt:02d}")

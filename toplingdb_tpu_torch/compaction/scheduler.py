@@ -1,7 +1,8 @@
 """Background compaction scheduling (copied from
 toplingdb_tpu/compaction/scheduler.py, trimmed to the leveled style: the
-periodic and preclude-last-level policies, the storage-pressure preflight,
-the local-pin gate, statistics and listeners come with later slices).
+periodic and preclude-last-level policies and the storage-pressure
+preflight come with later slices; the local-pin gate is not ported, since
+no job falls back).
 
 The role of RocksDB's MaybeScheduleFlushOrCompaction → BGWorkCompaction
 chain (db/db_impl/db_impl_compaction_flush.cc): after every flush and
@@ -10,6 +11,12 @@ background threads (named "tpt-compaction-bg"). Every job routes through
 Options.compaction_executor_factory: the device executor (the default, on
 the card) or, where the caller names LocalCompactionExecutorFactory, the
 host compaction path. A failed device job raises; none falls back.
+
+Every finished job reports as toplingdb_tpu's does: the compaction
+tickers and histograms (`Statistics.record_compaction`), a
+`compaction_finished` or `trivial_move` event-log line,
+`on_compaction_completed` to the listeners, and a "compaction" root span
+tagged with the job's mode while the DB has a tracer.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from toplingdb_tpu_torch.compaction.compaction_job import (
 from toplingdb_tpu_torch.compaction.picker import Compaction, create_picker
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.version_edit import VersionEdit
+from toplingdb_tpu_torch.utils import telemetry as _tm
+from toplingdb_tpu_torch.utils.listener import CompactionJobInfo, notify
 
 THREAD_PREFIX = "tpt-"
 
@@ -158,7 +167,33 @@ class CompactionScheduler:
                 db.versions.log_and_apply(edit)
             with self._lock:
                 self.num_trivial_moves += 1
+            db.event_logger.log(
+                "trivial_move", file_number=meta.number,
+                from_level=c.level, to_level=c.output_level,
+            )
+            notify(db.options.listeners, "on_compaction_completed", db,
+                   CompactionJobInfo(
+                       db_name=db.dbname, input_level=c.level,
+                       output_level=c.output_level,
+                       input_files=[meta.number], output_files=[meta.number],
+                       input_records=meta.num_entries,
+                       output_records=meta.num_entries,
+                       elapsed_micros=0, device="move",
+                       reason="trivial move",
+                   ))
             return
+        # Compactions are always traced while a tracer exists.
+        root = (db.tracer.start(
+            "compaction", level=c.level, output_level=c.output_level,
+            reason=c.reason, cf_id=c.cf_id)
+            if db.tracer is not None else _tm.NOOP_SPAN)
+        try:
+            self._run_compaction_traced(c, root)
+        finally:
+            root.finish()
+
+    def _run_compaction_traced(self, c: Compaction, root) -> None:
+        db = self.db
         snapshots = db.snapshots.sequences()
         pending: list[int] = []
 
@@ -182,7 +217,12 @@ class CompactionScheduler:
 
                 outputs, stats = execute_resilient(
                     db, factory, c, snapshots, alloc)
+            root.tag(mode=self._compaction_mode(stats),
+                     input_records=stats.input_records,
+                     output_records=stats.output_records)
             emit_phase_spans(stats)
+            if db.options.statistics is not None:
+                db.options.statistics.record_compaction(stats)
             if c.reason == "bottommost marked":
                 # The rewrite already dropped everything droppable; keeping a
                 # collector re-mark would rewrite the same file forever while
@@ -195,9 +235,42 @@ class CompactionScheduler:
             with db._mutex:
                 db.versions.log_and_apply(edit)
                 db._delete_obsolete_files()
+            db.event_logger.log(
+                "compaction_finished", input_level=c.level,
+                output_level=c.output_level, device=stats.device,
+                input_records=stats.input_records,
+                output_records=stats.output_records,
+                input_bytes=stats.input_bytes, output_bytes=stats.output_bytes,
+                micros=stats.work_time_usec, reason=c.reason,
+            )
+            notify(db.options.listeners, "on_compaction_completed", db,
+                   CompactionJobInfo(
+                       db_name=db.dbname, input_level=c.level,
+                       output_level=c.output_level,
+                       input_files=[f.number for _, f in c.all_inputs()],
+                       output_files=[m.number for m in outputs],
+                       input_records=stats.input_records,
+                       output_records=stats.output_records,
+                       elapsed_micros=stats.work_time_usec,
+                       device=stats.device, reason=c.reason,
+                   ))
         finally:
             with db._mutex:
                 db._pending_outputs.difference_update(pending)
+
+    @staticmethod
+    def _compaction_mode(stats) -> str:
+        """serial / columnar / device / pipelined / remote: the root span's
+        `mode` tag."""
+        if stats.remote:
+            return "remote"
+        if stats.pipelined:
+            return "pipelined"
+        if stats.device != "cpu":
+            return "device"
+        if stats.host_compute_usec or stats.encode_write_usec:
+            return "columnar"
+        return "serial"
 
     def _run_local(self, c: Compaction, snapshots, alloc):
         from toplingdb_tpu_torch.db.blob import maybe_new_blob_gc

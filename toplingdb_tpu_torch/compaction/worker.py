@@ -23,7 +23,9 @@ the job (`table_format`, `prefix_extractor`, `collectors`;
 `executor.table_options_from_params`). Any other device name fails with
 ValueError, and a job that needs what the port does not carry yet (the
 shared-store mode, `store_spec`) fails with NotSupported, both before any
-file is written.
+file is written. With TPULSM_TEST_WORKER_CRASH=mid_job in its environment
+(the fault injector's "kill" plan sets it in the child's environment only)
+the worker dies mid-job as kill -9 would, exit code 137.
 
 Usage: python -m toplingdb_tpu_torch.compaction.worker --job-dir DIR
 """
@@ -127,6 +129,15 @@ def _run_job_body(job_dir: str, params, t_enter: float,
         create_compaction_filter,
     )
 
+    if os.environ.get("TPULSM_TEST_WORKER_CRASH") == "mid_job":
+        # Chaos hook (resilience.DcompactFaultInjector's "kill" plan, set
+        # in this process's environment by the spawning side): die the
+        # way kill -9 does — a partial output on disk, heartbeats
+        # stopped, no results.json, no cleanup.
+        with open(os.path.join(params.output_dir, "partial.sst"),
+                  "wb") as f:
+            f.write(b"\x00" * 4096)
+        os._exit(137)
     env = PosixEnv()
     comparators = {c.name(): c for c in (dbformat.BYTEWISE,
                                          dbformat.REVERSE_BYTEWISE,

@@ -11,16 +11,25 @@ default the port's DeviceCompactionExecutorFactory, on the card.
 
 The write path is toplingdb_tpu's Python group commit with its native
 write plane off, which writes byte-identical WAL records by design; each
-group's memtable insert is one native wire-image call per batch. What
-toplingdb_tpu runs beyond this core (column families, the staged write
-modes, blob files, statistics, listeners, the tracer, ...) is refused
-at open: `options.unported_fields` lists it and DB.open raises
-NotSupported instead of ignoring it.
+group's memtable insert is one native wire-image call per batch.
+
+Observability, as toplingdb_tpu's DB wires it: `Options.statistics`
+(tickers and histograms of the write, get, iterator, flush and compaction
+paths; `stats_history`, `stats_persist_period_sec`,
+`stats_dump_period_sec`, `histogram_window_sec`), `Options.listeners`,
+the structured event log in `<db>/LOG` (rolled to `LOG.old` on open) and
+the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`).
+On open, job dirs of dcompact workers whose lease expired are swept from
+`<db>/dcompact`. What toplingdb_tpu runs beyond this (column families,
+the staged write modes, blob files, the SLO engine, ...) is refused at
+open: `options.unported_fields` lists it and DB.open raises NotSupported
+instead of ignoring it.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 import uuid
@@ -52,6 +61,10 @@ from toplingdb_tpu_torch.options import (
     unported_fields,
 )
 from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
+from toplingdb_tpu_torch.utils import errors as _errors
+from toplingdb_tpu_torch.utils import statistics as _st
+from toplingdb_tpu_torch.utils import telemetry as _tm
+from toplingdb_tpu_torch.utils.listener import EventLogger, notify
 from toplingdb_tpu_torch.utils.status import (
     InvalidArgument,
     IOError_,
@@ -159,6 +172,7 @@ class DB:
         self.versions = VersionSet(env, dbname, self.icmp, options.num_levels)
         self.table_cache = TableCache(env, dbname, self.icmp,
                                       options.table_options)
+        self.table_cache.stats = options.statistics
         self.mem = MemTable(self.icmp,
                             create_memtable_rep(options.memtable_rep))
         self.imm: list[MemTable] = []
@@ -176,6 +190,111 @@ class DB:
         self._options_file_number = 0  # latest persisted OPTIONS file
         self.num_flushes = 0  # L0 tables written by flushes
         self.identity = ""
+        self._init_observability()
+
+    def _init_observability(self) -> None:
+        """Statistics, stats history, the span tracer and the event logger
+        (toplingdb_tpu's DB.__init__ wiring). The LOG file and the dump
+        threads start in open(): the LOG once the directory exists, the
+        threads last."""
+        from toplingdb_tpu_torch.utils.stats_history import StatsHistory
+
+        options = self.options
+        self.stats = options.statistics  # may be None
+        if (self.stats is not None
+                and options.histogram_window_sec != self.stats._window_sec):
+            # Re-key the windowed-histogram ring to the DB's knob (only
+            # empty histograms are rebuilt; a shared Statistics keeps its
+            # populated series).
+            self.stats.set_histogram_window(options.histogram_window_sec)
+        self.stats_history = StatsHistory(self.stats)
+        self._stats_dumper = None       # stats_persist_period_sec thread
+        self._stats_dump_thread = None  # stats_dump_period_sec thread
+        # Request-scoped span tracer: None unless a trace_* knob turns it
+        # on. The get path's 1-in-N decision is a precomputed cycle
+        # (`_trace_sched` yields 1 on the Nth op, 2 for slow-watch rounds,
+        # 0 otherwise).
+        self.tracer = _tm.tracer_from_options(options)
+        self._trace_sched = None
+        tr = self.tracer
+        if tr is not None:
+            import itertools
+
+            se, slow = tr.sample_every, tr.slow_usec
+            pat = ([2 if slow else 0] * (se - 1) + [1]) if se else [2]
+            self._trace_sched = itertools.cycle(pat).__next__
+        self._log_file = None
+        self.event_logger = EventLogger(None)
+
+    def _open_log(self) -> None:
+        """Open `<db>/LOG`, the previous one rolled to LOG.old (RocksDB's
+        auto_roll_logger)."""
+        env, dbname = self.env, self.dbname
+        try:
+            if env.file_exists(f"{dbname}/LOG"):
+                env.rename_file(f"{dbname}/LOG", f"{dbname}/LOG.old")
+            self._log_file = env.new_writable_file(f"{dbname}/LOG")
+        except Exception as e:  # noqa: BLE001 - the info LOG is best-effort
+            _errors.swallow(reason="info-log-roll-best-effort", exc=e,
+                            stats=self.stats)
+        if self._log_file is not None:
+            self.event_logger = EventLogger(
+                lambda line: self._log_file.append(line.encode() + b"\n"))
+
+    def _start_stats_threads(self) -> None:
+        """The periodic stats threads (the last step of open, so a failed
+        open leaves none running)."""
+        from toplingdb_tpu_torch.utils.stats_history import StatsDumpScheduler
+
+        options = self.options
+        if self.stats is not None and options.stats_persist_period_sec > 0:
+            self._stats_dumper = StatsDumpScheduler(
+                self.stats_history, options.stats_persist_period_sec)
+        if self.stats is not None and options.stats_dump_period_sec > 0:
+            self._stats_dump_thread = StatsDumpScheduler(
+                self.stats_history, options.stats_dump_period_sec,
+                on_snapshot=self._log_stats_dump)
+
+    def _log_stats_dump(self) -> None:
+        """One compact stats line per dump period (RocksDB's periodic stats
+        dump into the info LOG), fed from the history ring's latest delta
+        sample so the dump and the history always agree."""
+        sample = self.stats_history.last_sample()
+        if sample is None:
+            return
+        ts, delta = sample
+        top = sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:12]
+        self.event_logger.log(
+            "stats_dump", sample_ts=ts,
+            tickers={k: v for k, v in top},
+            last_sequence=self.versions.last_sequence,
+        )
+
+    def _sweep_orphan_jobs(self) -> None:
+        """A kill -9'd dcompact worker leaves its job dir (params, partial
+        outputs, a stale heartbeat) behind: sweep every attempt dir whose
+        lease expired before background work starts. The job's inputs are
+        still live in the version, so the picker simply re-runs it."""
+        from toplingdb_tpu_torch.compaction.resilience import (
+            DcompactOptions,
+            sweep_orphan_jobs,
+        )
+
+        options = self.options
+        policy = options.dcompact or DcompactOptions()
+        roots = {os.path.join(self.dbname, "dcompact")}
+        job_root = getattr(options.compaction_executor_factory, "job_root",
+                           None)
+        if job_root:
+            roots.add(job_root)
+        for root in sorted(roots):
+            try:
+                sweep_orphan_jobs(root, policy.lease_sec,
+                                  statistics=self.stats,
+                                  event_logger=self.event_logger)
+            except Exception as e:  # noqa: BLE001 - never blocks open
+                _errors.swallow(reason="orphan-job-sweep-on-open", exc=e,
+                                stats=self.stats)
 
     # ==================================================================
     # Open / close
@@ -196,6 +315,7 @@ class DB:
         env = env or default_env()
         db = DB(dbname, options, env)  # validates; touches no file
         env.create_dir(dbname)
+        db._open_log()
         current = filename.current_file_name(dbname)
         if env.file_exists(current):
             if options.error_if_exists:
@@ -219,11 +339,13 @@ class DB:
         db._new_wal()
         db._persist_options()
         db._delete_obsolete_files()
+        db._sweep_orphan_jobs()
         from toplingdb_tpu_torch.compaction.scheduler import (
             CompactionScheduler,
         )
 
         db._compaction_scheduler = CompactionScheduler(db)
+        db._start_stats_threads()
         db._maybe_schedule_compaction()
         return db
 
@@ -283,6 +405,9 @@ class DB:
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
         the memtables, and close the WAL, the MANIFEST and the readers."""
+        for t in (self._stats_dumper, self._stats_dump_thread):
+            if t is not None:
+                t.stop()
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.shutdown()
         with self._mutex:
@@ -296,6 +421,8 @@ class DB:
             self.versions.close()
             self.table_cache.close()
             self.blob_source.close()
+            if self._log_file is not None:
+                self._log_file.close()
             self._closed = True
 
     def __enter__(self):
@@ -365,7 +492,30 @@ class DB:
         if not batch._simple and batch.column_families() - {0}:
             raise NotSupported(
                 "the port's DB runs the default column family only")
-        return self._write_impl(batch, opts)
+        tracer = self.tracer
+        root = None
+        if tracer is not None and tracer.sample_every \
+                and next(tracer.counter) % tracer.sample_every == 0:
+            # Sampled: the full span tree for this write.
+            root = tracer.start("db.write", records=batch.count(),
+                                bytes=batch.data_size(),
+                                sync=bool(opts.sync))
+        stats = self.stats
+        if stats is None and tracer is None:
+            return self._write_impl(batch, opts)
+        t0 = time.perf_counter()
+        try:
+            return self._write_impl(batch, opts)
+        finally:
+            micros = (time.perf_counter() - t0) * 1e6
+            if stats is not None:
+                stats.record_in_histogram(_st.DB_WRITE_MICROS, micros)
+            if root is not None:
+                root.finish()
+            elif tracer is not None and tracer.slow_usec \
+                    and micros >= tracer.slow_usec:
+                tracer.note_slow("db.write", micros,
+                                 records=batch.count())
 
     @staticmethod
     def _write_token(w: _Writer) -> int:
@@ -480,10 +630,37 @@ class DB:
                 merged.append_from(w.batch)
             rec = merged.data()
         self._wal.add_record(rec)
+        stats = self.stats
+        if stats is not None:
+            stats.record_tick(_st.WAL_BYTES, len(rec))
+            stats.record_tick(_st.WRITE_WITH_WAL, len(group))
+        if _st.perf_level:
+            _st.perf_context().wal_write_bytes += len(rec)
         if any(w.opts.sync for w in group):
+            t_sync = time.perf_counter() if stats is not None else 0
             self._wal.sync()
+            if stats is not None:
+                stats.record_tick(_st.WAL_SYNCS)
+                stats.record_in_histogram(
+                    _st.WAL_FILE_SYNC_MICROS,
+                    (time.perf_counter() - t_sync) * 1e6)
         else:
             self._wal.flush()
+
+    def _tick_write_group(self, group: list[_Writer]) -> None:
+        """WRITE_GROUP_* observability for one committed group (the
+        Python group commit: toplingdb_tpu's WRITE_GROUP_FALLBACKS)."""
+        stats = self.stats
+        if stats is None:
+            return
+        stats.record_ticks((
+            (_st.WRITE_GROUP_LED, 1),
+            (_st.WRITE_GROUP_FOLLOWERS, len(group) - 1),
+            (_st.WRITE_GROUP_FALLBACKS, 1),
+        ))
+        stats.record_in_histogram(
+            _st.WRITE_GROUP_BYTES,
+            sum(w.batch.data_size() for w in group))
 
     def _commit_write_group(self, group: list[_Writer]) -> None:
         with self._mutex:
@@ -497,38 +674,62 @@ class DB:
                 w.batch.set_sequence(seq)
                 seq += w.batch.count()
             mem = self.mem
-            if self.options.wal_enabled and not group[0].opts.disable_wal:
-                self._append_group_wal(group, first_seq)
-            if self.options.allow_concurrent_memtable_write and len(group) > 1:
-                # Parallel memtable phase (RocksDB's
-                # LaunchParallelMemTableWriters): followers insert their own
-                # batches concurrently — the native skiplist insert is
-                # lock-free and GIL-releasing, so this scales with threads.
-                # The leader holds _mutex throughout, so no memtable switch
-                # can race the phase.
-                pg = _InsertBarrier(len(group))
-                for w in group[1:]:
-                    w.pg = pg
-                    w.pg_mem = mem
-                    w.parallel = True
-                    w.event.set()
-                try:
-                    group[0].batch.insert_into(mem)
-                    pg.member_done()
-                except BaseException as e:  # noqa: BLE001
-                    pg.member_done(e)
-                pg.all_done.wait()
-                for w in group[1:]:
-                    w.parallel = False
-                if pg.error is not None:
-                    raise pg.error
-            else:
-                for w in group:
-                    w.batch.insert_into(mem)
+            wal_on = (self.options.wal_enabled
+                      and not group[0].opts.disable_wal)
+            with _tm.span("write.wal_frame", group=len(group), wal=wal_on):
+                if wal_on:
+                    self._append_group_wal(group, first_seq)
+            with _tm.span("write.memtable_apply", group=len(group),
+                          native=False):
+                self._apply_group(group, mem)
+            self._tick_write_group(group)
             self.versions.last_sequence = seq - 1
+            if self.stats is not None:
+                bw = sum(w.batch.data_size() for w in group)
+                self.stats.record_tick(
+                    _st.NUMBER_KEYS_WRITTEN,
+                    sum(w.batch.count() for w in group))
+                self.stats.record_tick(_st.BYTES_WRITTEN, bw)
+                self.stats.record_in_histogram(_st.BYTES_PER_WRITE, bw)
+                self.stats.record_tick(_st.WRITE_DONE_BY_SELF)
+                if len(group) > 1:
+                    self.stats.record_tick(_st.WRITE_DONE_BY_OTHER,
+                                           len(group) - 1)
             if mem.approximate_memory_usage() >= self.options.write_buffer_size:
                 self._switch_memtable()
                 self._flush_immutables()
+
+    def _apply_group(self, group: list[_Writer], mem) -> None:
+        """The group's memtable phase (caller holds _mutex, so no memtable
+        switch can race it)."""
+        _mt0 = time.perf_counter() if _st.perf_level >= 2 else 0.0
+        if self.options.allow_concurrent_memtable_write and len(group) > 1:
+            # Parallel memtable phase (RocksDB's
+            # LaunchParallelMemTableWriters): followers insert their own
+            # batches concurrently — the native skiplist insert is
+            # lock-free and GIL-releasing, so this scales with threads.
+            pg = _InsertBarrier(len(group))
+            for w in group[1:]:
+                w.pg = pg
+                w.pg_mem = mem
+                w.parallel = True
+                w.event.set()
+            try:
+                group[0].batch.insert_into(mem)
+                pg.member_done()
+            except BaseException as e:  # noqa: BLE001
+                pg.member_done(e)
+            pg.all_done.wait()
+            for w in group[1:]:
+                w.parallel = False
+            if pg.error is not None:
+                raise pg.error
+        else:
+            for w in group:
+                w.batch.insert_into(mem)
+        if _mt0:
+            _st.perf_context().write_memtable_time += int(
+                (time.perf_counter() - _mt0) * 1e9)
 
     def _switch_memtable(self) -> None:
         """Seal the non-empty active memtable and start a new WAL (RocksDB's
@@ -554,17 +755,30 @@ class DB:
 
     def _flush_memtables(self, mems: list[MemTable],
                          wal_number: int | None) -> None:
+        # Flushes are rare and high-value: always traced while a tracer
+        # exists (sampling applies to the per-op read / write roots only).
+        root = (self.tracer.start("flush", cf_id=0, memtables=len(mems))
+                if self.tracer is not None else _tm.NOOP_SPAN)
+        try:
+            self._flush_memtables_traced(mems, wal_number)
+        finally:
+            root.finish()
+
+    def _flush_memtables_traced(self, mems: list[MemTable],
+                                wal_number: int | None) -> None:
+        t0 = time.time()
         fnum = self.versions.new_file_number()
         # Guard the in-flight output from obsolete-file GC until the
         # version edit lands.
         self._pending_outputs.add(fnum)
         try:
-            meta = flush_memtable_to_table(
-                self.env, self.dbname, fnum, self.icmp, mems,
-                self.options.table_options_for_level(0),
-                creation_time=int(time.time()),
-                column_family=(0, "default"),
-            )
+            with _tm.span("flush.build_table", file_number=fnum):
+                meta = flush_memtable_to_table(
+                    self.env, self.dbname, fnum, self.icmp, mems,
+                    self.options.table_options_for_level(0),
+                    creation_time=int(time.time()),
+                    column_family=(0, "default"),
+                )
             if meta is not None:
                 self._stamp_file_checksums([meta])
                 self.num_flushes += 1
@@ -574,6 +788,24 @@ class DB:
             self.versions.log_and_apply(edit)
         finally:
             self._pending_outputs.discard(fnum)
+        if meta is not None:
+            from toplingdb_tpu_torch.utils.listener import FlushJobInfo
+
+            if self.stats is not None:
+                self.stats.record_tick(_st.FLUSH_WRITE_BYTES, meta.file_size)
+                self.stats.record_in_histogram(
+                    _st.FLUSH_TIME_MICROS, (time.time() - t0) * 1e6)
+            self.event_logger.log(
+                "flush_finished", file_number=meta.number,
+                file_size=meta.file_size, num_entries=meta.num_entries,
+            )
+            notify(self.options.listeners, "on_flush_completed", self,
+                   FlushJobInfo(
+                       db_name=self.dbname, file_number=meta.number,
+                       file_size=meta.file_size, num_entries=meta.num_entries,
+                       smallest_seqno=meta.smallest_seqno,
+                       largest_seqno=meta.largest_seqno,
+                   ))
 
     def flush(self, fopts: FlushOptions = FlushOptions()) -> None:
         """Write the active memtable (and any sealed ones) to L0 SSTs; the
@@ -606,6 +838,8 @@ class DB:
     def _probe_memtable(self, mem, key: bytes, snap_seq: int,
                         ctx: GetContext) -> bool:
         """One memtable source; returns False when the lookup is complete."""
+        if _st.perf_level:
+            _st.perf_context().get_from_memtable_count += 1
         ctx.add_tombstone_seq(mem.covering_tombstone_seq(key, snap_seq))
         for seq, t, val in mem.entries_for_key(key, snap_seq):
             if not ctx.save_value(seq, t, val):
@@ -620,8 +854,17 @@ class DB:
             t = RangeTombstone.from_table_entry(b, e)
             if ucmp.compare(t.begin, key) <= 0 and ucmp.compare(key, t.end) < 0:
                 ctx.add_tombstone_seq(t.seq)
+        has_filter = (getattr(reader, "_filter_data", None) is not None
+                      or getattr(reader, "_filter_top", None) is not None)
         if not reader.key_may_match(key):
+            if self.stats is not None:
+                self.stats.record_tick(_st.BLOOM_USEFUL)
+            if _st.perf_level:
+                _st.perf_context().bloom_sst_miss_count += 1
             return True
+        if has_filter and _st.perf_level:
+            # Only a consulted filter counts (fail-open paths don't).
+            _st.perf_context().bloom_sst_hit_count += 1
         it = reader.new_iterator()
         if getattr(reader, "has_hash_index", False):
             # O(1) bucket probe (hash-indexed formats): lands on the newest
@@ -649,6 +892,30 @@ class DB:
         """Point lookup (RocksDB's DBImpl::GetImpl). Returns None if not
         found. A wide-column entity presents as its anonymous default
         column."""
+        sched = self._trace_sched
+        if sched is not None:
+            m = sched()
+            if m:
+                return self._get_traced(key, opts, cf, m == 1)
+        return self._get_impl(key, opts, cf)
+
+    def _get_traced(self, key: bytes, opts, cf, sampled: bool):
+        """The rare half of get(): a sampled root span, or the slow-watch
+        backstop when trace_slow_usec is set."""
+        tracer = self.tracer
+        root = tracer.start("db.get") if sampled else None
+        t0 = 0.0 if sampled else time.perf_counter()
+        try:
+            return self._get_impl(key, opts, cf)
+        finally:
+            if root is not None:
+                root.finish()
+            else:
+                us = (time.perf_counter() - t0) * 1e6
+                if us >= tracer.slow_usec:
+                    tracer.note_slow("db.get", us)
+
+    def _get_impl(self, key: bytes, opts: ReadOptions, cf) -> bytes | None:
         self._check_open()
         self._check_cf(cf)
         self._check_read_options(opts)
@@ -656,20 +923,36 @@ class DB:
             opts.snapshot.sequence if opts.snapshot is not None
             else self.versions.last_sequence
         )
+        st_on = self.stats is not None
+        t0 = time.perf_counter() if st_on else 0.0
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
         for mem in [self.mem] + self.imm:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
+                if st_on:
+                    self._record_get_stats(t0, ctx.result(), "mem")
                 return self._result(ctx)
         # 2. SST files, newest data first.
         version = self.versions.current
-        for _level, f in version.files_for_get(key):
+        hit_level = None
+        for level, f in version.files_for_get(key):
             reader = self.table_cache.get_reader(f.number)
             if not self._probe_file(reader, key, snap_seq, ctx):
-                return self._result(ctx)
-        ctx.finish()
+                hit_level = level
+                break
+        else:
+            ctx.finish()
+        if st_on:
+            self._record_get_stats(t0, ctx.result(), hit_level)
         return self._result(ctx)
+
+    def _record_get_stats(self, t0: float, val, src) -> None:
+        """Read-path ticker family (MEMTABLE_HIT / GET_HIT_L*, RocksDB's
+        statistics.h) in one lock acquisition."""
+        self.stats.record_get(
+            (time.perf_counter() - t0) * 1e6,
+            len(val) if val is not None else None, src)
 
     @staticmethod
     def _result(ctx: GetContext) -> bytes | None:
@@ -738,6 +1021,9 @@ class DB:
                 pinned=version,
                 blob_resolver=self.blob_source.get,
             )
+            if self.stats is not None:
+                it.stats = self.stats
+                self.stats.record_tick(_st.NO_ITERATOR_CREATED)
             return it
 
     def get_snapshot(self):
@@ -767,10 +1053,30 @@ class DB:
     def _set_background_error(self, e: BaseException) -> None:
         """RocksDB's ErrorHandler::SetBGError, reduced to one severity: the
         first background error is kept and every later write raises
-        (reopen the DB to clear it)."""
+        (reopen the DB to clear it). Listeners hear of the error that
+        latched (`on_background_error`)."""
         with self._mutex:
-            if self._bg_error is None:
-                self._bg_error = e
+            if self._bg_error is not None:
+                return
+            self._bg_error = e
+        notify(self.options.listeners, "on_background_error", self, e)
+
+    def get_stats_history(self, start_time: int = 0,
+                          end_time: int = 2 ** 62):
+        """Time-series ticker deltas (RocksDB's DBImpl::GetStatsHistory):
+        samples taken every stats_persist_period_sec, or by
+        persist_stats()."""
+        return self.stats_history.get(start_time, end_time)
+
+    def persist_stats(self, to_db: bool = False) -> None:
+        """Snapshot the tickers into the stats history. `to_db=True`
+        (toplingdb_tpu's hidden stats column family) is refused: the port's
+        DB runs one column family."""
+        if to_db:
+            raise NotSupported(
+                "persist_stats(to_db=True) writes the hidden stats column "
+                "family: column families are not ported yet")
+        self.stats_history.snapshot()
 
     def _maybe_schedule_compaction(self) -> None:
         if (self._compaction_scheduler is not None
@@ -797,12 +1103,31 @@ class DB:
                    and not self._closed):
                 self._maybe_schedule_compaction()
                 time.sleep(0.01)
+            stalled = time.monotonic() - t0
+            self._account_stall(stalled)
+            if stalled >= timeout:
+                self.event_logger.log(
+                    "write_stall_timeout", l0_files=self._max_l0_files(),
+                    stalled_s=round(stalled, 2),
+                )
         elif n_l0 >= opts.level0_slowdown_writes_trigger:
             # Proportional delay ramp toward the stop trigger.
             span = max(1, opts.level0_stop_writes_trigger
                        - opts.level0_slowdown_writes_trigger)
             frac = (n_l0 - opts.level0_slowdown_writes_trigger + 1) / span
-            time.sleep(min(0.05 * frac, 0.05))
+            delay = min(0.05 * frac, 0.05)
+            time.sleep(delay)
+            self._account_stall(delay)
+
+    def _account_stall(self, stalled_s: float) -> None:
+        """One stall episode: the STALL_MICROS / WRITE_STALL_COUNT tickers
+        and the write-stall histogram."""
+        if self.stats is not None:
+            micros = int(stalled_s * 1e6)
+            self.stats.record_tick(_st.STALL_MICROS, micros)
+            self.stats.record_tick(_st.WRITE_STALL_COUNT)
+            self.stats.record_in_histogram(_st.WRITE_STALL_MICROS_HIST,
+                                           micros)
 
     def _delete_obsolete_files(self) -> None:
         """GC: remove WALs below the manifest log number, non-live SSTs,

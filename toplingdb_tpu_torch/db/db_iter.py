@@ -1,18 +1,22 @@
 """DBIter: the user-facing MVCC iterator (copied from
-toplingdb_tpu/db/db_iter.py, without the chunked scan plane, statistics,
+toplingdb_tpu/db/db_iter.py, without the chunked scan plane,
 user-defined timestamps, prefix-mode iteration and the WritePrepared
 exclusion ranges).
 
 The role of RocksDB's DBIter (db/db_iter.cc): wraps a MergingIterator over
 {memtable, immutables, SST levels} and collapses the internal-key stream
 into the user view at a snapshot — newest visible version per user key;
-tombstones (point + range) hide keys; merge chains are folded.
+tombstones (point + range) hide keys; merge chains are folded. With a
+Statistics sink (`stats`, set by DB.new_iterator) it ticks the reference's
+NUMBER_DB_SEEK/NEXT/PREV, NUMBER_DB_SEEK_FOUND, ITER_BYTES_READ and the
+PREFETCH_HITS/MISSES of its tables' prefetch buffers.
 """
 
 from __future__ import annotations
 
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.dbformat import ValueType
+from toplingdb_tpu_torch.utils import statistics as st
 from toplingdb_tpu_torch.utils.status import Corruption, MergeInProgress
 
 
@@ -39,6 +43,7 @@ class DBIter:
         self._key: bytes | None = None
         self._value: bytes | None = None
         self._entry_type: int | None = None  # ValueType of current entry
+        self._pf_banked = (0, 0)  # prefetch (hits, misses) already ticked
 
     # -- public protocol ------------------------------------------------
 
@@ -59,14 +64,59 @@ class DBIter:
         return self._value
 
     def seek_to_first(self) -> None:
+        self._bank_prefetch()
         if self._lower is not None:
             self._seek_impl(self._lower)
+            self._tick_seek()
             return
         self._iter.seek_to_first()
         self._find_next_user_entry(skip_key=None)
+        self._tick_seek()
 
     def seek(self, user_key: bytes) -> None:
+        self._bank_prefetch()
         self._seek_impl(user_key)
+        self._tick_seek()
+
+    # -- statistics ------------------------------------------------------
+
+    # Optional Statistics sink (set by DB.new_iterator).
+    stats = None
+
+    def _tick(self, name: str, n: int = 1) -> None:
+        if self.stats is not None:
+            self.stats.record_tick(name, n)
+
+    def _tick_seek(self) -> None:
+        if self.stats is not None:
+            self._tick_entry_read(st.NUMBER_DB_SEEK, st.NUMBER_DB_SEEK_FOUND)
+
+    def _tick_entry_read(self, op_name: str, found_name: str | None) -> None:
+        """One iterator step's tickers: the op count + (when positioned)
+        bytes read and the optional found counter."""
+        self._tick(op_name)
+        if self._valid:
+            if found_name is not None:
+                self._tick(found_name)
+            self._tick(st.ITER_BYTES_READ,
+                       len(self._key) + len(self._value))
+
+    def _bank_prefetch(self) -> None:
+        """Flush the internal iterator's FilePrefetchBuffer deltas into
+        the PREFETCH_* tickers."""
+        if self.stats is None:
+            return
+        pc = getattr(self._iter, "prefetch_counts", None)
+        if pc is None:
+            return
+        h, m = pc()
+        dh, dm = h - self._pf_banked[0], m - self._pf_banked[1]
+        if dh or dm:
+            if dh:
+                self._tick(st.PREFETCH_HITS, dh)
+            if dm:
+                self._tick(st.PREFETCH_MISSES, dm)
+            self._pf_banked = (h, m)
 
     def _seek_impl(self, user_key: bytes) -> None:
         if self._lower is not None and self._ucmp.compare(
@@ -105,6 +155,8 @@ class DBIter:
         assert self._valid
         # _iter may sit anywhere within the current user key's versions.
         self._find_next_user_entry(skip_key=self._key)
+        if self.stats is not None:
+            self._tick_entry_read(st.NUMBER_DB_NEXT, None)
 
     def prev(self) -> None:
         assert self._valid
@@ -123,6 +175,8 @@ class DBIter:
             ) >= 0:
                 self._iter.prev()
         self._find_prev_user_entry()
+        if self.stats is not None:
+            self._tick_entry_read(st.NUMBER_DB_PREV, None)
 
     def entries(self):
         while self.valid():
@@ -203,6 +257,7 @@ class DBIter:
             self._emit_merge(merge_key, None, operands)
             return
         self._valid = False
+        self._bank_prefetch()
 
     def _resolve_blob(self, idx: bytes) -> bytes:
         if self._blob_resolver is None:
@@ -252,6 +307,7 @@ class DBIter:
                 return
             # Key dead/invisible: continue scanning previous keys.
         self._valid = False
+        self._bank_prefetch()
 
     def _resolve_backward(self, uk: bytes,
                           entries: list[tuple[int, int, bytes]]) -> bool:

@@ -432,15 +432,9 @@ UNPORTED = {
     "blob_cache": "blob files in the DB",
     "blob_file_open_limit": "blob files in the DB",
     "legacy_wide_column_unwrap": "wide-column entities",
-    "stats_persist_period_sec": "statistics",
-    "stats_dump_period_sec": "statistics",
-    "trace_sample_every": "the span tracer",
-    "trace_slow_usec": "the span tracer",
-    "trace_ring": "the span tracer",
-    "histogram_window_sec": "statistics",
-    "slo_specs": "statistics",
-    "slo_eval_period_sec": "statistics",
-    "slo_window_sec": "statistics",
+    "slo_specs": "the SLO engine",
+    "slo_eval_period_sec": "the SLO engine",
+    "slo_window_sec": "the SLO engine",
     "seqno_time_sample_period_sec": "the seqno-to-time mapping",
     "preclude_last_level_data_seconds": "the seqno-to-time mapping",
     "sst_file_manager": "the storage-pressure plane",
@@ -458,9 +452,6 @@ UNPORTED = {
     "protection_bytes_per_key": "per-entry protection on the write path",
     "integrity_scrub_period_sec": "the integrity scrubber",
     "integrity_scrub_bytes_per_sec": "the integrity scrubber",
-    "statistics": "statistics",
-    "listeners": "listeners",
-    "info_log": "the info log",
 }
 
 

@@ -59,6 +59,18 @@ class MergingIterator:
     def value(self):
         return self._children[self._current].value()
 
+    def prefetch_counts(self) -> tuple[int, int]:
+        """Summed FilePrefetchBuffer (hits, misses) of every child that
+        has one; DBIter banks the deltas into the PREFETCH_* tickers."""
+        h = m = 0
+        for c in self._children:
+            pc = getattr(c, "prefetch_counts", None)
+            if pc is not None:
+                ch, cm = pc()
+                h += ch
+                m += cm
+        return h, m
+
     def seek_to_first(self) -> None:
         for c in self._children:
             c.seek_to_first()
