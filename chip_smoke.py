@@ -5,9 +5,9 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build: the native host library (g++) and the three CUDA kernels (one
-     nvcc per source, all started together), from the sources in the
-     checkout;
+  2. build: the native host library and the point read's fastget
+     extension (g++) and the three CUDA kernels (one nvcc per source, all
+     started together), from the sources in the checkout;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes (bitwise; gc_rows and the merge at the
      pipelined route's p = 2^19, the serial packed route's p = 2^20 and the
@@ -110,10 +110,14 @@ Phases (any failure ends the run with a non-zero exit code):
  13. the DB on the card: bench.py's DB deployment (bench.py:1366-1420,
      BENCH_DB_N = 1,000,000) through the port's DB, opened with
      Options(write_buffer_size=8 MiB, compaction_executor_factory=
-     DeviceCompactionExecutorFactory(device="cuda")) and auto compactions
-     on (L0 trigger 4): fillrandom from 4 writer threads in WriteBatches of
-     100 (16-digit keys (t*per + j) * 2654435761 % 2N, 20-byte values),
-     then flush(), wait_for_compactions() and compact_range(). Every
+     DeviceCompactionExecutorFactory(device="cuda"), statistics=
+     Statistics()) and DB.open's defaults (the native group-commit write
+     plane, the native point-read chain, the chunked scan plane) and auto
+     compactions on (L0 trigger 4): fillrandom from 4 writer threads in
+     WriteBatches of 100 (16-digit keys (t*per + j) * 2654435761 % 2N,
+     20-byte values), then flush(), wait_for_compactions() and
+     compact_range(). Every fill group must have committed natively
+     (WRITE_GROUP_NATIVE_COMMITS = WRITE_GROUP_LED, no fallback). Every
      compaction must have run on the device executor (no job on the host
      path, no scheduler error); gc_rows must have launched at least once
      per device job and the merge whenever a job had more than one input
@@ -121,14 +125,21 @@ Phases (any failure ends the run with a non-zero exit code):
      compact_range). Every live SST is then read back with the port's
      table reader: one level holds them, and their rows are the written
      keys in order, each a PUT whose 20 value bytes are compared row by
-     row. Then 100,000 readrandom probes (bench.py's Random(5) draw) and
-     a full forward scan against the written keys, close(),
-     reopen (recovery from the MANIFEST) and 10,000 probes again; last a
-     second DB takes 50,000 keys, is dropped without a flush or a close
-     (a crash), and its reopen must replay them from the WAL. Printed:
-     fill wall and ops/s, flushes, each device job's rows, route and wall,
-     compact_range wall and raw MB/s, readrandom ops/s, scan and reopen
-     walls.
+     row. Then 100,000 readrandom probes (bench.py's Random(5) draw),
+     every one decided by the native chain (a wrapper on the instance's
+     _native_get counts them; fastget or the ctypes call, as printed), and
+     a full forward scan through the chunk plane (ITER_CHUNK_REFILLS > 0,
+     no ITER_CHUNK_FALLBACKS), both against the written keys; close() and
+     a second handle, reopened (recovery from the MANIFEST) with
+     iter_chunk_rows=0 and _nget_lib=None, repeats the probes through the
+     Python chain and the scan through the per-entry DBIter; four fills
+     of N/5 keys into fresh DBs without Statistics or compactions time the
+     write plane alone, in turns on / off / off / on; last a second
+     DB takes 50,000 keys, is dropped without a flush or a close (a
+     crash), and its reopen must replay them from the WAL. Printed: fill
+     wall and ops/s, native commits, flushes, each device job's rows,
+     route and wall, compact_range wall and raw MB/s, readrandom ops/s
+     and scan walls with the planes on and off, and the reopen wall.
  14. distributed compaction from the port's DB, the card in the worker.
      (a) the HTTP transport at full width: DcompactWorkerService(
      device="cuda") started in this process (port 0), and phase 13's DB
@@ -2259,9 +2270,12 @@ def db_files_against_oracle(db, want, value) -> int:
 
 
 def db_path(torch, root, n, n_wal, device_name="cuda"):
-    """Phase 13: bench.py's DB deployment through the port's DB with its
-    compactions on `device_name`, then the read, recovery and WAL-replay
-    checks. Returns the launches of the fill + compactions."""
+    """Phase 13: bench.py's DB deployment through the port's DB, opened
+    with its default host planes (the native group commit, the native
+    point-read chain, the chunked scan plane), with its compactions on
+    `device_name`; then the read, recovery and WAL-replay checks, and the
+    reads again on a second handle with the native chain and the scan
+    plane off. Returns the launches of the fill + compactions."""
     from toplingdb_tpu_torch.compaction.executor import (
         DeviceCompactionExecutorFactory,
     )
@@ -2269,43 +2283,59 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
     from toplingdb_tpu_torch.db.write_batch import WriteBatch
     from toplingdb_tpu_torch.ops import kernels
     from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
 
     value = b"v" * 20
     n_threads, batch = 4, 100
     per = n // n_threads
     dbdir = os.path.join(root, "db")
     factory = DeviceCompactionExecutorFactory(device=device_name)
+    stats = st.Statistics()
     opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
-                   compaction_executor_factory=factory)
-    def worker(db, t, errs):
-        try:
-            for i in range(0, per, batch):
-                b = WriteBatch()
-                for j in range(i, i + batch):
-                    b.put(db_key(t * per + j, n), value)
-                db.write(b)
-        except Exception as e:  # noqa: BLE001
-            errs.append(e)
+                   compaction_executor_factory=factory, statistics=stats)
 
-    launched = counted(kernels)
-    with ShardPrograms(torch) as programs:
-        t_open = time.time()
-        db = DB.open(dbdir, opts)
+    def fillrandom(db, n_keys):
+        """bench.py's fill of n_keys keys from n_threads writer threads;
+        returns its wall."""
+        per_t = n_keys // n_threads
         errs = []
-        ts = [threading.Thread(target=worker, args=(db, t, errs))
+
+        def worker(t):
+            try:
+                for i in range(0, per_t, batch):
+                    b = WriteBatch()
+                    for j in range(i, i + batch):
+                        b.put(db_key(t * per_t + j, n_keys), value)
+                    db.write(b)
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+
+        ts = [threading.Thread(target=worker, args=(t,))
               for t in range(n_threads)]
         t0 = time.time()
         for t in ts:
             t.start()
         for t in ts:
             t.join()
-        fill = time.time() - t0
         assert not errs, errs
+        return time.time() - t0
+
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs:
+        t_open = time.time()
+        db = DB.open(dbdir, opts)
+        fill = fillrandom(db, n)
         n_auto = len(factory.jobs)
+        groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+        commits = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+        fallbacks = stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS)
+        assert commits == groups > 0 and fallbacks == 0, \
+            (groups, commits, fallbacks)
         log(f"[db] fillrandom {n_threads * per} keys from {n_threads} "
             f"threads in batches of {batch}: {fill:.3f}s, "
             f"{n_threads * per / fill:.0f} ops/s, {db.num_flushes} flushes, "
-            f"{n_auto} device jobs during the fill")
+            f"{n_auto} device jobs during the fill; write plane: {commits} "
+            f"native commits of {groups} groups, {fallbacks} fallbacks")
         t0 = time.time()
         db.flush()
         db.wait_for_compactions()
@@ -2346,34 +2376,101 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
 
     rng = random.Random(5)
     probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
-    t0 = time.time()
-    for k in probes:
-        v = db.get(k)
-        assert v == value, (k, v)
-    rr = time.time() - t0
+
+    def counted_gets(db):
+        """Wrap the instance's native chain: counts the gets it decided."""
+        calls = {"native": 0, "python": 0}
+        chain = db._native_get
+
+        def spy(*a):
+            r = chain(*a)
+            calls["native" if r[0] else "python"] += 1
+            return r
+
+        db._native_get = spy
+        return calls
+
+    def readrandom(db):
+        t0 = time.time()
+        for k in probes:
+            v = db.get(k)
+            assert v == value, (k, v)
+        return time.time() - t0
+
+    def full_scan(db):
+        before = stats.tickers()
+        t0 = time.time()
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        for (k, v), w in zip(it.entries(), want):
+            assert k == w and v == value, (k, w)
+            got += 1
+        wall = time.time() - t0
+        assert got == len(want) and not it.valid(), (got, len(want))
+        after = stats.tickers()
+        return wall, {t: after.get(t, 0) - before.get(t, 0)
+                      for t in (st.ITER_CHUNK_REFILLS,
+                                st.ITER_CHUNK_FALLBACKS)}, it
+
+    calls = counted_gets(db)
+    rr = readrandom(db)
+    assert calls == {"native": len(probes), "python": 0}, calls
+    decided = calls["native"]
+    served_by = "fastget" if db._nget_tl.state.fast is not None else "ctypes"
     assert db.get(b"%016d" % (2 * n + 1)) is None
-    t0 = time.time()
-    it = db.new_iterator()
-    it.seek_to_first()
-    got = 0
-    for (k, v), w in zip(it.entries(), want):
-        assert k == w and v == value, (k, w)
-        got += 1
-    scan = time.time() - t0
-    assert got == len(want) and not it.valid(), (got, len(want))
+    scan, chunks, it = full_scan(db)
+    assert it._plane is not None, "the scan left the chunk plane"
+    assert chunks[st.ITER_CHUNK_REFILLS] > 0, chunks
+    assert chunks[st.ITER_CHUNK_FALLBACKS] == 0, chunks
+    log(f"[db] planes on: readrandom {len(probes)} probes {rr:.3f}s, "
+        f"{len(probes) / rr:.0f} ops/s, all found, {decided} of "
+        f"{len(probes)} decided by the native chain (through {served_by}); "
+        f"full scan {len(want)} keys {scan:.3f}s in order, "
+        f"{chunks[st.ITER_CHUNK_REFILLS]} chunk refills, "
+        f"{chunks[st.ITER_CHUNK_FALLBACKS]} fallbacks")
     t0 = time.time()
     db.close()
-    db = DB.open(dbdir, opts)
+    # The second handle: the scan plane off by its open argument, the
+    # native chain off on the instance before its first get.
+    db = DB.open(dbdir, opts, iter_chunk_rows=0)
     reopen = time.time() - t0
     try:
-        for k in probes[:10_000]:
-            assert db.get(k) == value, k
+        db._nget_lib = None
+        calls = counted_gets(db)
+        rr_off = readrandom(db)
+        assert calls == {"native": 0, "python": len(probes)}, calls
+        scan_off, chunks, it = full_scan(db)
+        assert it._plane is None and not any(chunks.values()), chunks
     finally:
         db.close()
-    log(f"[db] readrandom {len(probes)} probes {rr:.3f}s, "
-        f"{len(probes) / rr:.0f} ops/s, all found; full scan {got} keys "
-        f"{scan:.3f}s in order; close + reopen (MANIFEST recovery) "
-        f"{reopen:.3f}s, 10000 probes found")
+    log(f"[db] close + reopen (MANIFEST recovery) {reopen:.3f}s; planes "
+        f"off (second handle, iter_chunk_rows=0, _nget_lib=None): "
+        f"readrandom {len(probes)} probes {rr_off:.3f}s, "
+        f"{len(probes) / rr_off:.0f} ops/s, all found through the Python "
+        f"chain; full scan {scan_off:.3f}s through the per-entry DBIter; "
+        f"planes on / off: readrandom {rr_off / rr:.2f}x, scan "
+        f"{scan_off / scan:.2f}x faster")
+
+    # The write plane alone, in turns (on, off, off, on): fills of n // 5
+    # keys into fresh DBs with no Statistics and no compaction, so the
+    # walls are the write path's.
+    walls = {True: [], False: []}
+    for k, on in enumerate((True, False, False, True)):
+        abdir = os.path.join(root, f"fill-ab{k}")
+        ab = DB.open(abdir, Options(
+            create_if_missing=True, write_buffer_size=8 << 20,
+            compaction_executor_factory=factory,
+            disable_auto_compactions=True), write_plane=on)
+        try:
+            walls[on].append(fillrandom(ab, n // 5))
+        finally:
+            ab.close()
+        shutil.rmtree(abdir)
+    log(f"[db] write plane A/B, {n // 5} keys from {n_threads} threads, no "
+        f"Statistics, no compaction, in turns on/off/off/on: on "
+        f"{walls[True][0]:.3f}s / {walls[True][1]:.3f}s, off "
+        f"{walls[False][0]:.3f}s / {walls[False][1]:.3f}s")
 
     waldir = os.path.join(root, "wal")
     db = DB.open(waldir, opts)
@@ -2755,13 +2852,15 @@ def main() -> int:
 
     t0 = time.time()
     host = {}
-    th = threading.Thread(target=lambda: host.update(lib=native.lib()))
+    th = threading.Thread(target=lambda: host.update(
+        lib=native.lib(), fastget=native.fastget()))
     th.start()
     secs = kernels.build()
     th.join()
     assert host.get("lib") is not None, "native host library failed to build"
     log(f"build: kernels {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
-        f" s, total {time.time() - t0:.1f}s")
+        f" s, total {time.time() - t0:.1f}s; the point read's fastget "
+        f"extension {'built' if host['fastget'] else 'unavailable (ctypes)'}")
 
     results = kernel_phase(torch, device)
     shard_phase(torch, device)

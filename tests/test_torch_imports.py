@@ -134,3 +134,42 @@ def test_worker_subprocess_loads_no_jax(tmp_path):
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
     assert os.listdir(job / "out")
+
+
+def test_native_planes_load_no_jax(tmp_path):
+    """The DB's host planes run in a process (the native library and the
+    `tpt_fastget` extension built and loaded by native/__init__.py, a
+    natively committed write, a get through the native chain, a scan
+    through ops/scan_plane.py) load neither jax nor any toplingdb_tpu
+    module."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from toplingdb_tpu_torch import native\n"
+        "from toplingdb_tpu_torch.compaction.executor import (\n"
+        "    LocalCompactionExecutorFactory)\n"
+        "from toplingdb_tpu_torch.db.db import DB\n"
+        "from toplingdb_tpu_torch.options import Options\n"
+        f"db = DB.open({str(tmp_path / 'db')!r}, Options(\n"
+        "    create_if_missing=True,\n"
+        "    compaction_executor_factory=LocalCompactionExecutorFactory()))\n"
+        "for i in range(100):\n"
+        "    db.put(b'k%03d' % i, b'v')\n"
+        "db.flush()\n"
+        "assert db.get(b'k007') == b'v' and native.fastget() is not None\n"
+        "it = db.new_iterator()\n"
+        "it.seek_to_first()\n"
+        "assert it._plane is not None and len(list(it.entries())) == 100\n"
+        "db.close()\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = [m for m in out.stdout.split("\n") if m]
+    assert "toplingdb_tpu_torch.ops.scan_plane" in loaded
+    assert "tpt_fastget" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad

@@ -8,11 +8,16 @@ The scenario is tests/test_statistics_breadth.py:7's single-threaded one,
 run through both DBs side by side: every ticker count must equal the
 reference's, except the named time-valued or thread-order-valued ones
 (`EXCLUDED`, each with its reason), and the count of every histogram must
-be equal. The reference runs its Python write, get and iterator paths,
-which the port runs (its native write plane, native get chain and chunked
-scan plane are not ported: ROADMAP A5.2, A5.9): TPULSM_WRITE_PLANE=0 and
-TPULSM_ITER_CHUNK=0 for the reference's open, and its DB's native get
-library unset. Also: the listener event sequences of
+be equal. It runs on both sides' host planes (`planes`): "python" pins
+both DBs to their Python write, get and iterator paths
+(TPULSM_WRITE_PLANE=0 and TPULSM_ITER_CHUNK=0 for the reference's open,
+write_plane=False and iter_chunk_rows=0 for the port's, and both DBs'
+native get library unset); "native" runs both DBs on their defaults (the
+native group commit, the native get chain and the chunked scan plane), on
+the skiplist memtable with explicit flushes, and compares the
+WRITE_GROUP_NATIVE_COMMITS, BLOCK_CACHE_* and ITER_CHUNK_* counts with the
+rest. The other tests here run the python planes. Also: the listener
+event sequences of
 tests/test_utilities.py:297, the `event` names in LOG (:318), the span
 names of traced writes, gets, flushes and compactions, the worker spans
 an HTTP job stitches (tests/test_telemetry.py:218), and the mirrors of
@@ -66,12 +71,17 @@ PORT = types.SimpleNamespace(name="port", DB=dbm.DB, Options=opts_mod.Options,
                              listener=listener, sh=sh)
 
 
-@pytest.fixture
-def python_paths(monkeypatch):
-    """The reference on its Python write and iterator paths (the port has
-    no native write plane or chunked scan plane yet), time frozen."""
+def _pin_python_planes(monkeypatch):
+    """The reference's open on its Python write and iterator paths (the
+    port's are DB.open arguments, see _open)."""
     monkeypatch.setenv("TPULSM_WRITE_PLANE", "0")
     monkeypatch.setenv("TPULSM_ITER_CHUNK", "0")
+
+
+@pytest.fixture
+def python_paths(monkeypatch):
+    """Both DBs on their Python write and iterator paths, time frozen."""
+    _pin_python_planes(monkeypatch)
     monkeypatch.setattr(time, "time", lambda: FROZEN_TIME)
 
 
@@ -96,10 +106,18 @@ def _factory(pkg, executor, urls):
                                                  device="cpu-jax")
 
 
-def _open(pkg, path, **kw):
-    db = pkg.DB.open(path, pkg.Options(create_if_missing=True, **kw))
+def _open(pkg, path, planes="python", **kw):
+    """Open `pkg`'s DB. planes="python": the Python write, get and
+    iterator paths (the reference's also need _pin_python_planes);
+    "native": each DB's defaults."""
+    opts = pkg.Options(create_if_missing=True, **kw)
+    if planes == "native":
+        return pkg.DB.open(path, opts)
     if pkg is REF:
-        db._nget_lib = None  # the reference's Python get chain
+        db = pkg.DB.open(path, opts)
+    else:
+        db = pkg.DB.open(path, opts, write_plane=False, iter_chunk_rows=0)
+    db._nget_lib = None  # the Python get chain
     return db
 
 
@@ -128,22 +146,31 @@ class _Recorder:
         self.listener = L()
 
 
-def _breadth(pkg, root, executor, urls):
+def _breadth(pkg, root, executor, urls, planes="python"):
     """tests/test_statistics_breadth.py:7's scenario. Returns the
-    statistics, the listener's events and the LOG's event names. The
-    vector memtable rep charges logical bytes, so the flushes on memory
-    use cut at the same entries in both DBs (the skiplist's physical
-    charge follows random node heights that depend on what ran before in
-    the process)."""
+    statistics, the listener's events and the LOG's event names. On the
+    python planes the vector memtable rep charges logical bytes, so the
+    flushes on memory use cut at the same entries in both DBs (the
+    skiplist's physical charge follows random node heights that depend on
+    what ran before in the process). The native planes need the skiplist:
+    its write buffer is not filled, and the DB flushes every 700 puts (3
+    L0 files in all, below the compaction trigger, so compact_range runs
+    the one compaction)."""
     stats = pkg.st.Statistics()
     rec = _Recorder(pkg)
     path = os.path.join(root, pkg.name, "db")
-    with _open(pkg, path, write_buffer_size=64 * 1024, statistics=stats,
-               memtable_rep="vector", listeners=[rec.listener],
+    native = planes == "native"
+    with _open(pkg, path, planes=planes,
+               write_buffer_size=(64 << 20) if native else 64 * 1024,
+               statistics=stats,
+               memtable_rep="skiplist" if native else "vector",
+               listeners=[rec.listener],
                compaction_executor_factory=_factory(pkg, executor,
                                                     urls)) as db:
         for i in range(2000):
             db.put(b"key%05d" % i, b"v" * 20)
+            if native and i % 700 == 699:
+                db.flush()
         db.put(b"sync", b"x", pkg.WriteOptions(sync=True))
         db.flush()
         for i in range(0, 2000, 7):
@@ -165,10 +192,18 @@ def _breadth(pkg, root, executor, urls):
     return stats, rec.events, log
 
 
-@pytest.mark.parametrize("executor", ["local", "http"])
+@pytest.mark.parametrize(
+    "planes,executor",
+    [("python", "local"), ("python", "http"), ("native", "local"),
+     ("native", "http")],
+    ids=["local", "http", "native-local", "native-http"])
 def test_breadth_tickers_histograms_events_match_reference(
-        tmp_path, python_paths, services, executor):
-    got = {pkg.name: _breadth(pkg, str(tmp_path), executor, services)
+        tmp_path, monkeypatch, services, planes, executor):
+    if planes == "python":
+        _pin_python_planes(monkeypatch)
+    monkeypatch.setattr(time, "time", lambda: FROZEN_TIME)
+    got = {pkg.name: _breadth(pkg, str(tmp_path), executor, services,
+                              planes)
            for pkg in (REF, PORT)}
     (rs, rev, rlog), (ps, pev, plog) = got["ref"], got["port"]
     rt, pt = rs.tickers(), ps.tickers()
@@ -186,6 +221,18 @@ def test_breadth_tickers_histograms_events_match_reference(
     assert pt[family] > 0
     if executor == "http":
         assert pt[st.DCOMPACTION_ATTEMPTS] == 1
+    if planes == "native":
+        # Every put committed natively, gets read through the native
+        # chain's block cache, the scan through the chunk plane until
+        # prev() dropped it.
+        assert pt[st.WRITE_GROUP_NATIVE_COMMITS] == 2001
+        assert pt.get(st.WRITE_GROUP_FALLBACKS, 0) == 0
+        assert pt[st.BLOCK_CACHE_MISS] > 0
+        assert pt[st.ITER_CHUNK_REFILLS] > 0
+        assert pt[st.ITER_CHUNK_FALLBACKS] == 1
+    else:
+        assert pt[st.WRITE_GROUP_FALLBACKS] == 2001
+        assert pt.get(st.ITER_CHUNK_REFILLS, 0) == 0
     hist = set(rs._histograms) | set(ps._histograms)
     hdiff = {k: (rs.get_histogram(k).count, ps.get_histogram(k).count)
              for k in hist

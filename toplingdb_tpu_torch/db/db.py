@@ -9,9 +9,29 @@ obsolete-file GC. Background compactions run in the scheduler
 (compaction/scheduler.py) through Options.compaction_executor_factory: by
 default the port's DeviceCompactionExecutorFactory, on the card.
 
-The write path is toplingdb_tpu's Python group commit with its native
-write plane off, which writes byte-identical WAL records by design; each
-group's memtable insert is one native wire-image call per batch.
+The host planes are toplingdb_tpu's defaults, each switched by an
+explicit DB.open argument instead of its process-wide knob:
+
+  write plane   `write_plane=True`: each write group is validated, framed
+                into one WAL record and applied to the skiplist memtable
+                in native calls (tpulsm_wb_group_commit). Groups it does
+                not take (range deletes, merge-heavy or wide-column
+                batches, the vector rep) run the Python group commit,
+                which writes the same WAL bytes.
+  read chain    always on: `get` walks memtables and SST levels in one
+                native call (tpulsm_getctx_get, through the `fastget`
+                extension where it builds); anything the native walk
+                cannot decide (merge operands, blob indexes, range
+                tombstones, single deletes in SSTs) runs the Python
+                GetContext chain.
+  scan plane    `iter_chunk_rows=4096` (0 = off): forward iteration
+                serves chunks merged natively (ops/scan_plane.py);
+                backward steps and shapes it cannot take drop to the
+                per-entry DBIter.
+
+With `write_plane=True` or `iter_chunk_rows > 0`, DB.open raises
+NotSupported naming the plane when the native library cannot be built or
+loaded.
 
 Observability, as toplingdb_tpu's DB wires it: `Options.statistics`
 (tickers and histograms of the write, get, iterator, flush and compaction
@@ -53,6 +73,7 @@ from toplingdb_tpu_torch.db.version_edit import VersionEdit
 from toplingdb_tpu_torch.db.version_set import VersionSet
 from toplingdb_tpu_torch.db.write_batch import WriteBatch
 from toplingdb_tpu_torch.env import default_env
+from toplingdb_tpu_torch.ops.scan_plane import DEFAULT_CHUNK, make_scan_plane
 from toplingdb_tpu_torch.options import (
     FlushOptions,
     Options,
@@ -126,13 +147,98 @@ class _InsertBarrier:
                 self.all_done.set()
 
 
+class _NGetState:
+    """Per-thread bound state of the native point-read chain: the native
+    context (it owns the out and value buffers), their mapped views, and
+    strong refs to the memtables and the version whose handles the context
+    embeds (compared by identity to notice a memtable switch or a version
+    install, and keeping those handles alive while this thread holds
+    them)."""
+
+    __slots__ = ("mem", "imm", "version", "ctx", "fn", "out",
+                 "val_ptr", "val_cap", "_lib", "fast")
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        ctx = getattr(self, "ctx", None)
+        if lib is not None and ctx:
+            try:
+                lib.tpulsm_getctx_free(ctx)
+            except Exception as e:  # noqa: BLE001 - interpreter teardown
+                _errors.swallow(reason="getctx-free-at-gc", exc=e)
+
+    def remap(self, lib, vlen: int) -> None:
+        # The C side grew its buffer to >= vlen; record vlen as the known
+        # capacity so any LARGER future value triggers another remap (the
+        # vector may reallocate again, moving the pointer).
+        self.val_ptr = lib.tpulsm_getctx_val(self.ctx)
+        self.val_cap = vlen
+
+    @classmethod
+    def build(cls, lib, mem, imm, version, table_cache):
+        import ctypes
+
+        from toplingdb_tpu_torch import native
+
+        handles = []
+        kinds = []
+        for m in [mem] + imm:
+            h = getattr(m._rep, "_h", None)
+            kind = getattr(m._rep, "_nget_mem_kind", None)
+            if h is None or kind is None:
+                return None  # a rep the native probe cannot walk
+            handles.append(h)
+            kinds.append(kind)
+        vh = version.native_read_chain(table_cache)
+        if vh is None and any(version.files):
+            return None
+        marr = (ctypes.c_void_p * len(handles))(*handles)
+        ctx = lib.tpulsm_getctx_new(marr, len(handles), vh, 4096)
+        if not ctx:
+            return None
+        for i, kind in enumerate(kinds):
+            if kind:
+                lib.tpulsm_getctx_set_mem_kind(ctx, i, kind)
+        s = cls.__new__(cls)
+        s.mem = mem
+        s.imm = list(imm)
+        s.version = version
+        s.ctx = ctx
+        s.fn = lib.tpulsm_getctx_get
+        s.out = (ctypes.c_int64 * 8).from_address(
+            lib.tpulsm_getctx_out(ctx))
+        s.val_ptr = lib.tpulsm_getctx_val(ctx)
+        s.val_cap = 4096
+        s._lib = lib
+        # The C-extension call (ctypes marshaling is a large share of a
+        # warm get); None keeps the ctypes call in charge.
+        s.fast = native.fastget()
+        return s
+
+
 class DB:
     """LSM engine instance (one column family). Use DB.open()."""
 
-    def __init__(self, dbname: str, options: Options, env):
+    def __init__(self, dbname: str, options: Options, env,
+                 write_plane: bool = True,
+                 iter_chunk_rows: int = DEFAULT_CHUNK):
         self.dbname = dbname
         self.options = options
         self.env = env
+        # The host planes (see the module docstring); DB.open refused a
+        # plane asked for without the native library.
+        from toplingdb_tpu_torch import native
+
+        lib = native.lib()
+        self._write_plane = (lib.tpulsm_wb_group_commit
+                             if write_plane and lib is not None else None)
+        self.iter_chunk_rows = iter_chunk_rows
+        # The native point-read chain's library, None for the Python chain
+        # (no library, or a user block cache: a contract of capacity and
+        # stats the chain's own LRU would bypass), and each thread's
+        # _NGetState.
+        self._nget_lib = lib if options.block_cache is None else None
+        self._nget_tl = threading.local()
         self.icmp = InternalKeyComparator(options.comparator)
         from toplingdb_tpu_torch.utils.file_checksum import factory_for
 
@@ -301,19 +407,40 @@ class DB:
     # ==================================================================
 
     @staticmethod
-    def open(dbname: str, options: Options | None = None,
-             env=None) -> "DB":
+    def open(dbname: str, options: Options | None = None, env=None, *,
+             write_plane: bool = True,
+             iter_chunk_rows: int = DEFAULT_CHUNK) -> "DB":
         """RocksDB's DBImpl::Open: create or recover the DB at `dbname`.
         Raises NotSupported for an option set away from its default that
-        the port does not run (options.unported_fields)."""
+        the port does not run (options.unported_fields), and for a host
+        plane asked for without the native library. `write_plane` is
+        toplingdb_tpu's TPULSM_WRITE_PLANE (the native group commit);
+        `iter_chunk_rows` its TPULSM_ITER_CHUNK (rows per scan-plane
+        chunk, 0 = no scan plane). The defaults are toplingdb_tpu's."""
         options = options or Options()
         refused = unported_fields(options)
         if refused:
             raise NotSupported(
                 "the port's DB does not run " + "; ".join(
                     f"Options.{name} ({why})" for name, why in refused))
+        if not isinstance(iter_chunk_rows, int) or iter_chunk_rows < 0:
+            raise InvalidArgument(
+                f"iter_chunk_rows must be an int >= 0, got "
+                f"{iter_chunk_rows!r}")
+        from toplingdb_tpu_torch import native
+
+        planes = [name for name, on in (
+            ("the native write plane (write_plane=True)", write_plane),
+            ("the chunked scan plane (iter_chunk_rows > 0)",
+             iter_chunk_rows > 0)) if on]
+        if planes and native.lib() is None:
+            raise NotSupported(
+                " and ".join(planes) + " needs the port's native library, "
+                "which could not be built or loaded (g++ missing?)")
         env = env or default_env()
-        db = DB(dbname, options, env)  # validates; touches no file
+        # Validates; touches no file.
+        db = DB(dbname, options, env, write_plane=write_plane,
+                iter_chunk_rows=iter_chunk_rows)
         env.create_dir(dbname)
         db._open_log()
         current = filename.current_file_name(dbname)
@@ -619,8 +746,8 @@ class DB:
             raise err
 
     def _append_group_wal(self, group: list[_Writer], first_seq: int) -> None:
-        """WAL append for one group (caller holds _mutex): one record, the
-        merged batch of every member."""
+        """WAL append for one group through the Python encoder (caller
+        holds _mutex): one record, the merged batch of every member."""
         if len(group) == 1:
             rec = group[0].batch.data()
         else:
@@ -630,12 +757,18 @@ class DB:
                 merged.append_from(w.batch)
             rec = merged.data()
         self._wal.add_record(rec)
+        self._group_wal_durability(group, len(rec))
+
+    def _group_wal_durability(self, group: list[_Writer],
+                              rec_len: int) -> None:
+        """The durability tail of both WAL encoders (the Python merge and
+        the native plane): stats ticks, then the sync or flush."""
         stats = self.stats
         if stats is not None:
-            stats.record_tick(_st.WAL_BYTES, len(rec))
+            stats.record_tick(_st.WAL_BYTES, rec_len)
             stats.record_tick(_st.WRITE_WITH_WAL, len(group))
         if _st.perf_level:
-            _st.perf_context().wal_write_bytes += len(rec)
+            _st.perf_context().wal_write_bytes += rec_len
         if any(w.opts.sync for w in group):
             t_sync = time.perf_counter() if stats is not None else 0
             self._wal.sync()
@@ -647,16 +780,101 @@ class DB:
         else:
             self._wal.flush()
 
-    def _tick_write_group(self, group: list[_Writer]) -> None:
-        """WRITE_GROUP_* observability for one committed group (the
-        Python group commit: toplingdb_tpu's WRITE_GROUP_FALLBACKS)."""
+    # -- the fused native write plane -----------------------------------
+
+    def _native_group_commit(self, group: list[_Writer], first_seq: int,
+                             mem, frame: bool):
+        """The fused native write plane for one group
+        (tpulsm_wb_group_commit): the frame call re-sequences the merged
+        header and frames the WAL record gather-style (no Python
+        append_from copy, no Python crc framing); the insert call applies
+        every record to the skiplist with consecutive seqnos, GIL-free.
+
+        frame=True (caller holds _mutex, WAL on): frames, appends and
+        settles durability, then returns the memtable phase as a zero-arg
+        callable (the insert skips re-validation: the frame call just
+        proved these exact buffers). frame=False (WAL off for this group):
+        validates and inserts in ONE call and returns True.
+        Returns None on fallback, with nothing framed or inserted: the
+        Python interiors take CF-prefixed records, range deletes,
+        wide-column entities, merge-heavy groups and non-native reps."""
+        fn = self._write_plane
+        if fn is None:
+            return None
+        gh = mem.group_handle()
+        if gh is None:
+            return None
+        reps = []
+        total = 0
+        for w in group:
+            b = w.batch
+            if (not b._simple or b._has_wide
+                    or (b._n_merge and b._n_merge * 2 > b._count)):
+                return None  # fallback matrix: the Python path decides
+            reps.append(b.data())
+            total += b._count
+        if total == 0:
+            return None
+        import ctypes
+
+        n = len(reps)
+        rep_arr = (ctypes.c_char_p * n)(*reps)
+        len_arr = (ctypes.c_int64 * n)(*[len(r) for r in reps])
+        # out[0..4]: framed bytes / new block offset / memtable byte delta
+        # / delete count / merged record length; out[5..7]: the native
+        # interior's timings in ns (validate / WAL frame / memtable insert)
+        # for the span tracer.
+        out = (ctypes.c_int64 * 8)()
+
+        def run(mode, block_off=0, log_no=-1, wal_ptr=None, cap=0):
+            # No protection vectors: per-entry protection is not ported.
+            return fn(gh[0], gh[1], rep_arr, len_arr, n, first_seq, None,
+                      0, 0, mode, block_off, log_no, wal_ptr, cap, out)
+
+        def insert(validated=True):
+            rc = run(2 | (4 if validated else 0))
+            if rc < 0:  # only reachable from the unvalidated single call
+                return None
+            if out[7]:
+                _tm.span_event("native.memtable_insert", out[7] // 1000,
+                               records=total)
+            mem.note_group_applied(int(out[2]), int(out[3]), rc)
+            return rc
+
+        if not frame:
+            return True if insert(validated=False) is not None else None
+        block_off, log_no = self._wal.framing_state()
+        merged_len = 12 + sum(len(r) - 12 for r in reps)
+        # Tight framed bound: one 7/11B header per fragment + <=10B of
+        # block-tail padding (a fragment spans at most BLOCK-hdr bytes).
+        cap = merged_len + 11 * (merged_len // 32757 + 2) + 16
+        wal_buf = bytearray(cap)
+        wal_ptr = (ctypes.c_ubyte * cap).from_buffer(wal_buf)
+        rc = run(1, block_off, log_no, wal_ptr, cap)
+        del wal_ptr  # release the bytearray's buffer export
+        if rc < 0:
+            return None  # -2/-4: the Python path decides (and names) it
+        if out[5]:
+            _tm.span_event("native.wal_validate", out[5] // 1000,
+                           records=rc)
+        if out[6]:
+            _tm.span_event("native.wal_frame", out[6] // 1000,
+                           bytes=int(out[0]))
+        self._wal.append_preframed(memoryview(wal_buf)[:int(out[0])],
+                                   int(out[1]))
+        self._group_wal_durability(group, int(out[4]))
+        return insert
+
+    def _tick_write_group(self, group: list[_Writer], native: bool) -> None:
+        """WRITE_GROUP_* observability for one committed group."""
         stats = self.stats
         if stats is None:
             return
         stats.record_ticks((
             (_st.WRITE_GROUP_LED, 1),
             (_st.WRITE_GROUP_FOLLOWERS, len(group) - 1),
-            (_st.WRITE_GROUP_FALLBACKS, 1),
+            (_st.WRITE_GROUP_NATIVE_COMMITS if native
+             else _st.WRITE_GROUP_FALLBACKS, 1),
         ))
         stats.record_in_histogram(
             _st.WRITE_GROUP_BYTES,
@@ -674,15 +892,29 @@ class DB:
                 w.batch.set_sequence(seq)
                 seq += w.batch.count()
             mem = self.mem
+            # The native plane frames and appends the merged WAL record
+            # first (a WAL failure inserts nothing, as on the Python path),
+            # then applies the whole group to the memtable in one call.
             wal_on = (self.options.wal_enabled
                       and not group[0].opts.disable_wal)
             with _tm.span("write.wal_frame", group=len(group), wal=wal_on):
-                if wal_on:
+                plane = self._native_group_commit(group, first_seq, mem,
+                                                  frame=wal_on)
+                if plane is None and wal_on:
                     self._append_group_wal(group, first_seq)
-            with _tm.span("write.memtable_apply", group=len(group),
-                          native=False):
-                self._apply_group(group, mem)
-            self._tick_write_group(group)
+            _mt0 = time.perf_counter() if _st.perf_level >= 2 else 0.0
+            if plane is None:
+                with _tm.span("write.memtable_apply", group=len(group),
+                              native=False):
+                    self._apply_group(group, mem)
+            elif plane is not True:
+                with _tm.span("write.memtable_apply", group=len(group),
+                              native=True):
+                    plane()
+            if _mt0:
+                _st.perf_context().write_memtable_time += int(
+                    (time.perf_counter() - _mt0) * 1e9)
+            self._tick_write_group(group, native=plane is not None)
             self.versions.last_sequence = seq - 1
             if self.stats is not None:
                 bw = sum(w.batch.data_size() for w in group)
@@ -702,7 +934,6 @@ class DB:
     def _apply_group(self, group: list[_Writer], mem) -> None:
         """The group's memtable phase (caller holds _mutex, so no memtable
         switch can race it)."""
-        _mt0 = time.perf_counter() if _st.perf_level >= 2 else 0.0
         if self.options.allow_concurrent_memtable_write and len(group) > 1:
             # Parallel memtable phase (RocksDB's
             # LaunchParallelMemTableWriters): followers insert their own
@@ -727,9 +958,6 @@ class DB:
         else:
             for w in group:
                 w.batch.insert_into(mem)
-        if _mt0:
-            _st.perf_context().write_memtable_time += int(
-                (time.perf_counter() - _mt0) * 1e9)
 
     def _switch_memtable(self) -> None:
         """Seal the non-empty active memtable and start a new WAL (RocksDB's
@@ -835,6 +1063,98 @@ class DB:
     # Read path
     # ==================================================================
 
+    def _nget_state(self, opts):
+        """The native chain's eligibility gate and this thread's call
+        state: (lib, state), state None when the Python chain must run.
+        The state is PER-THREAD (the context's out and value buffers are
+        written inside a GIL-released call) and keyed by the identity of
+        (active memtable, immutables, version); it holds refs to them, so
+        a flush or a compaction that installs a new version makes the next
+        get rebuild it while the old handles live on with the old state."""
+        lib = self._nget_lib
+        if lib is None or opts.just_check_key_exists:
+            return lib, None
+        mem = self.mem
+        if mem._range_dels:
+            # The ACTIVE memtable mutates under a cached state, so this
+            # check runs per call; immutables are frozen and are vetted
+            # once, when the state is built.
+            return lib, None
+        imm = self.imm
+        version = self.versions.current
+        tl = self._nget_tl
+        cc = getattr(tl, "state", None)
+        if cc is not None and cc.mem is mem and cc.version is version \
+                and cc.imm == imm:
+            return lib, cc
+        if any(m._range_dels for m in imm):
+            return lib, None
+        cc = _NGetState.build(lib, mem, imm, version, self.table_cache)
+        if cc is None:
+            return lib, None
+        tl.state = cc
+        return lib, cc
+
+    def _native_get(self, key: bytes, snap_seq: int, opts):
+        """One-call native point lookup (RocksDB's GetImpl chain in one
+        GIL-released call: DBImpl::GetImpl → Version::Get →
+        BlockBasedTable::Get). Returns (handled, value, src): handled=False
+        → run the Python chain (ineligible, or the native walk met
+        something only the Python state machine handles). The value and
+        the counters are read from context-owned memory mapped once."""
+        # Inlined steady-state check (one cached-state hit per get is the
+        # common case; _nget_state handles every slow or ineligible path).
+        mem = self.mem
+        cc = None
+        if opts is _DEFAULT_READ and not mem._range_dels:
+            cc = getattr(self._nget_tl, "state", None)
+            if cc is not None and (cc.mem is not mem
+                                   or cc.version is not self.versions.current
+                                   or cc.imm != self.imm):
+                cc = None
+        if cc is None:
+            _lib, cc = self._nget_state(opts)
+            if cc is None:
+                return False, None, None
+        fast = cc.fast
+        if fast is not None:
+            r = fast(cc.ctx, key, snap_seq)
+            if r is False:
+                return False, None, None
+            rc = 0 if r is None else 1
+        else:
+            rc = cc.fn(cc.ctx, key, len(key), snap_seq)
+            if rc == 2 or rc < 0:
+                return False, None, None
+        out = cc.out
+        if _st.perf_level:
+            pctx = _st.perf_context()
+            pctx.get_from_memtable_count += out[2]
+            pctx.bloom_sst_miss_count += out[3]
+            pctx.bloom_sst_hit_count += out[4]
+            pctx.block_cache_hit_count += out[5]
+            pctx.block_read_count += out[6]
+            pctx.block_read_byte += out[7]
+        if self.stats is not None and (out[3] or out[5] or out[6]):
+            # The chain's own block cache feeds BLOCK_CACHE_*, as in
+            # toplingdb_tpu's native get.
+            self.stats.record_ticks(
+                (t, c) for t, c in ((_st.BLOOM_USEFUL, out[3]),
+                                    (_st.BLOCK_CACHE_HIT, out[5]),
+                                    (_st.BLOCK_CACHE_MISS, out[6])) if c)
+        src = out[1]
+        src = "mem" if src == 0 else (src - 1 if src >= 1 else None)
+        if rc == 1:
+            if fast is not None:
+                return True, r, src  # the extension already built bytes
+            vlen = out[0]
+            if vlen > cc.val_cap:  # the context grew its buffer: re-map
+                cc.remap(cc._lib, vlen)
+            import ctypes
+
+            return True, ctypes.string_at(cc.val_ptr, vlen), src
+        return True, None, src
+
     def _probe_memtable(self, mem, key: bytes, snap_seq: int,
                         ctx: GetContext) -> bool:
         """One memtable source; returns False when the lookup is complete."""
@@ -925,6 +1245,15 @@ class DB:
         )
         st_on = self.stats is not None
         t0 = time.perf_counter() if st_on else 0.0
+        # The native chain: memtable skiplists + SST walk in ONE
+        # GIL-released call. Anything the Python state machine must see
+        # (merge operands, single deletes in SSTs, blob indexes, range
+        # tombstones, wide-column entities) falls through below.
+        handled, val, src = self._native_get(key, snap_seq, opts)
+        if handled:
+            if st_on:
+                self._record_get_stats(t0, val, src)
+            return val
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
@@ -1021,6 +1350,28 @@ class DB:
                 pinned=version,
                 blob_resolver=self.blob_source.get,
             )
+            # The chunked scan plane (ops/scan_plane.py): native block
+            # decode + k-way merge for forward scans; None when the
+            # iterator's shape is ineligible (the per-entry path runs).
+            plane = make_scan_plane(
+                mems=[self.mem] + list(self.imm),
+                l0_files=list(version.files[0]),
+                level_runs=[version.files[lv]
+                            for lv in range(1, version.num_levels)
+                            if version.files[lv]],
+                table_cache=self.table_cache,
+                icmp=self.icmp,
+                snap_seq=snap_seq,
+                rd=None if rd.empty() else rd,
+                lower=opts.iterate_lower_bound,
+                upper=opts.iterate_upper_bound,
+                blob_resolver=self.blob_source.get,
+                merge_operator=self.options.merge_operator,
+                stats=self.stats,
+                chunk=self.iter_chunk_rows,
+            )
+            if plane is not None:
+                it.attach_scan_plane(plane)
             if self.stats is not None:
                 it.stats = self.stats
                 self.stats.record_tick(_st.NO_ITERATOR_CREATED)

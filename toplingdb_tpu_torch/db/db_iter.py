@@ -1,7 +1,6 @@
 """DBIter: the user-facing MVCC iterator (copied from
-toplingdb_tpu/db/db_iter.py, without the chunked scan plane,
-user-defined timestamps, prefix-mode iteration and the WritePrepared
-exclusion ranges).
+toplingdb_tpu/db/db_iter.py, without user-defined timestamps,
+prefix-mode iteration and the WritePrepared exclusion ranges).
 
 The role of RocksDB's DBIter (db/db_iter.cc): wraps a MergingIterator over
 {memtable, immutables, SST levels} and collapses the internal-key stream
@@ -9,7 +8,11 @@ into the user view at a snapshot — newest visible version per user key;
 tombstones (point + range) hide keys; merge chains are folded. With a
 Statistics sink (`stats`, set by DB.new_iterator) it ticks the reference's
 NUMBER_DB_SEEK/NEXT/PREV, NUMBER_DB_SEEK_FOUND, ITER_BYTES_READ and the
-PREFETCH_HITS/MISSES of its tables' prefetch buffers.
+PREFETCH_HITS/MISSES of its tables' prefetch buffers. With a chunked scan
+plane attached (ops/scan_plane.py, `attach_scan_plane`), forward seeks and
+next() serve from its chunks; a backward step, a seek-dominated pattern or
+a chunk the plane cannot take drops the plane for the per-entry path
+(ITER_CHUNK_FALLBACKS).
 """
 
 from __future__ import annotations
@@ -44,6 +47,58 @@ class DBIter:
         self._value: bytes | None = None
         self._entry_type: int | None = None  # ValueType of current entry
         self._pf_banked = (0, 0)  # prefetch (hits, misses) already ticked
+        # Chunked scan plane (ops/scan_plane.py): when attached, forward
+        # ops serve from its chunk cursor; backward ops and mid-stream
+        # ineligible shapes degrade to the per-entry path below.
+        self._plane = None
+        # Access-pattern tracking for the plane: chunked decode wins for
+        # scans but re-decodes blocks per seek; a seek-dominated pattern
+        # (many seeks, few next() steps between them) runs faster on the
+        # per-entry path, so the plane is dropped once that is established.
+        self._plane_seeks = 0
+        self._plane_steps = 0
+
+    def attach_scan_plane(self, plane) -> None:
+        self._plane = plane
+
+    def _plane_sync(self) -> None:
+        p = self._plane
+        if p.is_valid:
+            self._valid = True
+            self._key = p.cur_key
+            self._value = p.cur_value
+            self._entry_type = p.cur_type
+        else:
+            self._valid = False
+
+    def _plane_drop(self) -> None:
+        """Deactivate the plane (direction switch / ineligible shape)."""
+        self._plane = None
+        self._tick(st.ITER_CHUNK_FALLBACKS)
+
+    def _plane_position(self, user_key: bytes | None) -> bool:
+        """Position the plane (None = start of keyspace); False = the plane
+        bailed and the caller must run the per-entry path for this
+        operation."""
+        from toplingdb_tpu_torch.ops.scan_plane import PlaneIneligible
+
+        try:
+            if user_key is None:
+                self._plane.seek_first()
+            else:
+                self._plane.seek(user_key)
+        except PlaneIneligible:
+            self._plane_drop()
+            return False
+        self._plane_sync()
+        return True
+
+    def _resume_per_entry_after(self, cur: bytes) -> None:
+        """Position the per-entry path just past `cur` (the plane's last
+        emitted key) after a mid-stream degrade."""
+        self._seek_impl(cur)
+        if self._valid and self._ucmp.compare(self._key, cur) <= 0:
+            self._find_next_user_entry(skip_key=cur)
 
     # -- public protocol ------------------------------------------------
 
@@ -64,6 +119,9 @@ class DBIter:
         return self._value
 
     def seek_to_first(self) -> None:
+        if self._plane is not None and self._plane_position(self._lower):
+            self._tick_seek()
+            return
         self._bank_prefetch()
         if self._lower is not None:
             self._seek_impl(self._lower)
@@ -74,6 +132,19 @@ class DBIter:
         self._tick_seek()
 
     def seek(self, user_key: bytes) -> None:
+        if self._plane is not None:
+            self._plane_seeks += 1
+            if self._plane_seeks >= 16 and \
+                    self._plane_steps < 64 * self._plane_seeks:
+                self._plane_drop()  # seek-dominated: per-entry path wins
+            else:
+                uk = user_key
+                if self._lower is not None \
+                        and self._ucmp.compare(uk, self._lower) < 0:
+                    uk = self._lower
+                if self._plane_position(uk):
+                    self._tick_seek()
+                    return
         self._bank_prefetch()
         self._seek_impl(user_key)
         self._tick_seek()
@@ -129,6 +200,8 @@ class DBIter:
         self._find_next_user_entry(skip_key=None)
 
     def seek_to_last(self) -> None:
+        if self._plane is not None:
+            self._plane_drop()  # backward iteration: per-entry path only
         if self._upper is not None:
             # Upper bound is exclusive: (upper, MAX_SEQ, FOR_SEEK) sorts before
             # every entry of user key `upper`, so seek_for_prev lands strictly
@@ -144,6 +217,8 @@ class DBIter:
         self._find_prev_user_entry()
 
     def seek_for_prev(self, user_key: bytes) -> None:
+        if self._plane is not None:
+            self._plane_drop()  # backward iteration: per-entry path only
         target = dbformat.make_internal_key(user_key, 0, 0)
         # All entries for user_key sort before target's successor; position at
         # the last entry <= (user_key, seq 0): that's the oldest entry of
@@ -153,6 +228,21 @@ class DBIter:
 
     def next(self) -> None:
         assert self._valid
+        if self._plane is not None:
+            from toplingdb_tpu_torch.ops.scan_plane import PlaneIneligible
+
+            self._plane_steps += 1
+            cur = self._key
+            try:
+                self._plane.advance()
+            except PlaneIneligible:
+                self._plane_drop()
+                self._resume_per_entry_after(cur)
+            else:
+                self._plane_sync()
+            if self.stats is not None:
+                self._tick_entry_read(st.NUMBER_DB_NEXT, None)
+            return
         # _iter may sit anywhere within the current user key's versions.
         self._find_next_user_entry(skip_key=self._key)
         if self.stats is not None:
@@ -160,6 +250,13 @@ class DBIter:
 
     def prev(self) -> None:
         assert self._valid
+        if self._plane is not None:
+            # Direction switch: degrade to the per-entry path, positioned
+            # at the plane's current key (still visible — the snapshot is
+            # fixed), then run the normal backward step below.
+            cur0 = self._key
+            self._plane_drop()
+            self._seek_impl(cur0)
         # Move internal iterator to strictly before the current user key.
         cur = self._key
         if not self._iter.valid():

@@ -77,6 +77,20 @@ class LogWriter:
             if left == 0:
                 break
 
+    def framing_state(self) -> tuple[int, int]:
+        """(block_offset, log_number_or_-1) for an external framer (the
+        native group-commit plane): -1 selects the classic 7-byte record
+        headers, >= 0 the recyclable format stamped with that number."""
+        return self._block_offset, (self._log_number if self._recycled else -1)
+
+    def append_preframed(self, data, new_block_offset: int) -> None:
+        """Append bytes already framed in THIS writer's log format (the
+        native plane produced them from framing_state()) and adopt the
+        framer's new block offset. The caller guarantees byte-identity
+        with add_record of the same logical record."""
+        self._f.append(data)
+        self._block_offset = new_block_offset
+
     def _emit(self, t: int, frag: bytes) -> None:
         if self._recycled:
             t = _RECYCLE_OF[t]

@@ -83,6 +83,10 @@ class NativeSkipListRep(MemTableRep):
     # The rep charges handed-out arena bytes (content + node overhead) to
     # the flush budget — RocksDB's physical ApproximateMemoryUsage.
     charge_physical_memory = True
+    # tpulsm_db_get and tpulsm_wb_group_commit walk this rep's handle
+    # directly; the kind names its layout (0 = skiplist). Reps without the
+    # attribute are not native-probeable.
+    _nget_mem_kind = 0
 
     def __init__(self):
         from toplingdb_tpu_torch import native
@@ -365,6 +369,26 @@ class MemTable:
             self._num_deletes += deletes
             self._mem_usage += delta
         return count
+
+    def group_handle(self):
+        """(native_rep_handle, kind) for the fused group-commit plane
+        (db.py _native_group_commit; kind 0 = skiplist), or None when this
+        rep has no native handle (pure-Python reps)."""
+        rep = self._rep
+        kind = getattr(rep, "_nget_mem_kind", None)
+        h = getattr(rep, "_h", None)
+        if kind is None or not h:
+            return None
+        return h, kind
+
+    def note_group_applied(self, mem_delta: int, deletes: int,
+                           total: int) -> None:
+        """Bookkeeping for a whole write group the native plane already
+        applied straight into the rep (tpulsm_wb_group_commit)."""
+        with self._lock:
+            self._num_entries += total
+            self._num_deletes += deletes
+            self._mem_usage += mem_delta
 
     def add_batch(self, first_seq: int, ops) -> int:
         """Apply a run of parsed ops [(type, key, value_or_None)] with

@@ -23,6 +23,12 @@ from toplingdb_tpu_torch.db.version_edit import FileMetaData, VersionEdit
 from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
 
 
+# A read chain pins a reader and a dup'd fd per file for the version's
+# lifetime: past the reference table cache's default capacity the
+# version's gets run the Python chain instead, as in toplingdb_tpu.
+_MAX_CHAIN_FILES = 512
+
+
 class Version:
     """Immutable per-point-in-time file layout: files[level] sorted by
     smallest key (L1+) / newest-first (L0)."""
@@ -64,6 +70,57 @@ class Version:
                 continue
             out.append(f)
         return out
+
+    def native_read_chain(self, table_cache):
+        """Native read-chain handle for tpulsm_db_get (built once: a
+        Version is immutable): L0 newest-first then the deeper levels, each
+        table's handle from its cached reader. Returns the handle, or None
+        when the native library is unavailable, a table has no handle, or
+        the version holds more files than _MAX_CHAIN_FILES. The chain keeps
+        strong refs to every reader, so the table handles outlive it."""
+        cached = getattr(self, "_nchain", False)
+        if cached is not False:
+            return cached[0] if cached else None
+        import ctypes
+
+        from toplingdb_tpu_torch import native
+        from toplingdb_tpu_torch.utils import errors
+
+        cl = native.lib()
+        if cl is None or sum(len(fl) for fl in self.files) > _MAX_CHAIN_FILES:
+            self._nchain = None
+            return None
+        readers, handles = [], []
+        level_offs = []
+        try:
+            for level in range(self.num_levels):
+                for f in self.files[level]:
+                    r = table_cache.get_reader(f.number)
+                    h = r.native_get_handle(
+                        dbformat.extract_user_key(f.smallest),
+                        dbformat.extract_user_key(f.largest),
+                    )
+                    if h is None:
+                        self._nchain = None
+                        return None
+                    readers.append(r)
+                    handles.append(h)
+                # level_offs[0] == n_l0; [li], [li+1] bound deeper level li.
+                level_offs.append(len(handles))
+        except Exception as e:  # noqa: BLE001 - the Python chain serves
+            errors.swallow(reason="native-chain-build-fallback", exc=e)
+            self._nchain = None
+            return None
+        offs = (ctypes.c_int32 * len(level_offs))(*level_offs)
+        arr = (ctypes.c_void_p * max(1, len(handles)))(*handles)
+        vh = cl.tpulsm_version_handle_new(arr, level_offs[0], offs,
+                                          self.num_levels - 1)
+        if not vh:
+            self._nchain = None
+            return None
+        self._nchain = (vh, readers)
+        weakref.finalize(self, cl.tpulsm_version_handle_free, vh)
+        return vh
 
     def files_for_get(self, user_key: bytes):
         """Yield files that may contain user_key, newest data first:

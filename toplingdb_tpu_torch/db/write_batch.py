@@ -33,7 +33,12 @@ class WriteBatch:
     def __init__(self, data: bytes | None = None):
         # _simple: only default-CF point records so far — eligible for the
         # one-call native wire-image insert (wire-loaded batches decode
-        # through the parsed path, so they start non-simple).
+        # through the parsed path, so they start non-simple). _has_wide and
+        # _n_merge feed the write plane's fallback matrix (db.py
+        # _native_group_commit: wide-column entities and merge-heavy
+        # batches take the Python interiors).
+        self._has_wide = False
+        self._n_merge = 0
         if data is not None:
             if len(data) < HEADER_SIZE:
                 raise Corruption("write batch header too small")
@@ -68,6 +73,10 @@ class WriteBatch:
 
     def _add_record(self, t: ValueType, cf: int, *slices: bytes) -> None:
         rep = self._rep
+        if t == ValueType.MERGE:
+            self._n_merge += 1
+        elif t == ValueType.WIDE_COLUMN_ENTITY:
+            self._has_wide = True
         if cf == 0:
             rep.append(t)
             if t == ValueType.RANGE_DELETION:
@@ -90,6 +99,8 @@ class WriteBatch:
         self._rep += other._rep[HEADER_SIZE:]
         self._count += other.count()
         self._simple = self._simple and other._simple
+        self._has_wide = self._has_wide or other._has_wide
+        self._n_merge += other._n_merge
 
     # -- header ---------------------------------------------------------
 

@@ -3,7 +3,12 @@
 Builds `_tpulsm_native.so` from the port's own `tpulsm_native.cc` with g++
 on first use, into the package's git-ignored build directory
 (`toplingdb_tpu_torch/_build/`), and binds the C ABI with ctypes. Callers
-check `lib()` for None (no toolchain) and raise NotSupported. The codec
+check `lib()` for None (no toolchain) and raise NotSupported. The library
+is linked with -Bsymbolic and loaded RTLD_LOCAL, and the `fastget`
+extension (`fastget.c`, the point read's ctypes-free call) is built under
+its own module name and binds the library RTLD_LOCAL: toplingdb_tpu's
+library exports the same tpulsm_* names, and neither package's calls may
+land in the other's code. The codec
 libraries (libsnappy, libzstd) are dlopen'd by the library at run time; a
 missing one makes its codec's native paths report "unavailable", and the
 callers take the Python codecs instead (the zip plane's encoders, asked
@@ -28,19 +33,23 @@ _pylib: ctypes.PyDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 4
+_ABI_VERSION = 5
 
 
 def _build() -> bool:
+    return _compile(_SRC, _SO, ["-O3", "-std=c++17", "-pthread",
+                                "-Wl,-Bsymbolic"])
+
+
+def _compile(src: str, so: str, flags: list[str]) -> bool:
     """Compile to a per-pid temporary, then swap it in (two processes may
     race the first build)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-           "-o", tmp, _SRC, "-ldl"]
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-shared", "-fPIC", *flags, "-o", tmp, src, "-ldl"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
         return True
     except (subprocess.SubprocessError, OSError):
         try:
@@ -50,10 +59,10 @@ def _build() -> bool:
         return False
 
 
-def _stale() -> bool:
+def _stale(so: str = _SO, src: str = _SRC) -> bool:
     try:
-        return not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC))
+        return not os.path.exists(so) or (
+            os.path.getmtime(so) < os.path.getmtime(src))
     except OSError:
         return True
 
@@ -72,6 +81,8 @@ def _bind(l: ctypes.CDLL) -> None:
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i64 = ctypes.c_int64
+    i32 = ctypes.c_int32
+    u64p = ctypes.POINTER(ctypes.c_uint64)
     l.tpulsm_crc32c_extend.restype = ctypes.c_uint32
     l.tpulsm_crc32c_extend.argtypes = [
         ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t,
@@ -160,7 +171,6 @@ def _bind(l: ctypes.CDLL) -> None:
     # The skiplist memtable's writers (db/memtable.py), on this
     # GIL-releasing handle: concurrent writer threads insert in parallel
     # (the splice is lock-free).
-    u64p = ctypes.POINTER(ctypes.c_uint64)
     l.tpulsm_skiplist_insert_batch.restype = i64
     l.tpulsm_skiplist_insert_batch.argtypes = [
         ctypes.c_void_p, u8p, i64p, i32p, u64p, u8p, i64p, i32p, i64,
@@ -175,7 +185,6 @@ def _bind(l: ctypes.CDLL) -> None:
         u8p, i64p, i32p, i64, i64p,
     ]
     # The zip-table plane (table/zip_table.py).
-    i32 = ctypes.c_int32
     l.tpulsm_zip_newkey.restype = i64
     l.tpulsm_zip_newkey.argtypes = [
         u8p, i64, i64p, i64, i32,                   # key buf, offs, n, uklen
@@ -204,6 +213,87 @@ def _bind(l: ctypes.CDLL) -> None:
     l.tpulsm_zip_group_decode.argtypes = [
         u8p, i64, u8p, i64, u8p, i64, u8p, i64,     # blob, go, flags, dict
         i64, i64, i64p, u8p, i64,                   # g0, g1, raw offs, out
+    ]
+    # The scan plane's order (ops/scan_plane.py): host k-way merge of
+    # presorted runs, and the stable sort for keys past its 8-byte path.
+    for name in ("tpulsm_sort_entries", "tpulsm_merge_runs"):
+        getattr(l, name).restype = i32
+    l.tpulsm_sort_entries.argtypes = [
+        u8p, i64p, i64p, i64,                       # key buf/offs/lens, n
+        i32p, u8p, u64p,                            # order, new_key, packed
+    ]
+    l.tpulsm_merge_runs.argtypes = [
+        u8p, i64p, i64p, i64,                       # key buf/offs/lens, n
+        i64p, i32,                                  # run_starts, n_runs
+        i32p, u8p, u64p,                            # order, new_key, packed
+    ]
+    # The fused group-commit write plane (db/db.py _native_group_commit):
+    # validate a write group, frame its merged WAL record and apply it to
+    # the skiplist, GIL-free.
+    l.tpulsm_wb_group_commit.restype = i64
+    l.tpulsm_wb_group_commit.argtypes = [
+        ctypes.c_void_p, i32,                       # mem, mem_kind
+        ctypes.POINTER(ctypes.c_char_p), i64p,      # reps, lens
+        i64, ctypes.c_uint64,                       # n_batches, first_seq
+        u64p, i64, i32,                             # prots, n, pb
+        i32,                                        # mode
+        i64, i64,                                   # block_off, log_no
+        u8p, i64, i64p,                             # wal out/cap, out
+    ]
+    # The native point-read chain (db/db.py _native_get): table and
+    # version handles, then the whole get chain in one GIL-free call
+    # against a persistent per-thread context.
+    vp = ctypes.c_void_p
+    vpp = ctypes.POINTER(ctypes.c_void_p)
+    l.tpulsm_table_handle_new.restype = vp
+    l.tpulsm_table_handle_new.argtypes = [
+        i32, ctypes.c_uint64, i32,                  # fd, cache id, flags
+        u8p, i64, u8p, i64,                         # index, filter
+        u8p, i32, u8p, i32,                         # smallest, largest uk
+    ]
+    l.tpulsm_zip_table_handle_new.restype = vp
+    l.tpulsm_zip_table_handle_new.argtypes = [
+        ctypes.c_uint64, i32, i32, i32,             # cache id, flags, G, VG
+        i64, i32, i32,                              # n, meta16, lens32
+        u8p, i64, u8p, i64, u8p, i64,               # kmeta, ksfx, kgso
+        u8p, i64, u8p, i64, u8p, i64,               # vlens, vgo, vflags
+        u8p, i64, u8p, i64,                         # vdict, vblob
+        u8p, i64,                                   # filter
+        u8p, i32, u8p, i32,                         # smallest, largest uk
+    ]
+    for name in ("tpulsm_table_handle_free", "tpulsm_version_handle_free",
+                 "tpulsm_getctx_free"):
+        getattr(l, name).restype = None
+        getattr(l, name).argtypes = [vp]
+    l.tpulsm_version_handle_new.restype = vp
+    l.tpulsm_version_handle_new.argtypes = [vpp, i32, i32p, i32]
+    l.tpulsm_block_cache_config.restype = None
+    l.tpulsm_block_cache_config.argtypes = [i64, i64p]
+    l.tpulsm_db_get.restype = i32
+    l.tpulsm_db_get.argtypes = [
+        vpp, i32, vp, ctypes.c_char_p, i32, ctypes.c_uint64,
+        u8p, i32, i32p, i32p, i64p,
+    ]
+    l.tpulsm_db_get_kinds.restype = i32
+    l.tpulsm_db_get_kinds.argtypes = [
+        vpp, i32p, i32, vp, ctypes.c_char_p, i32, ctypes.c_uint64,
+        u8p, i32, i32p, i32p, i64p,
+    ]
+    l.tpulsm_getctx_new.restype = vp
+    l.tpulsm_getctx_new.argtypes = [vpp, i32, vp, i64]
+    l.tpulsm_getctx_out.restype = vp
+    l.tpulsm_getctx_out.argtypes = [vp]
+    l.tpulsm_getctx_val.restype = vp
+    l.tpulsm_getctx_val.argtypes = [vp]
+    l.tpulsm_getctx_set_mem_kind.restype = None
+    l.tpulsm_getctx_set_mem_kind.argtypes = [vp, i32, i32]
+    l.tpulsm_getctx_get.restype = i32
+    l.tpulsm_getctx_get.argtypes = [vp, ctypes.c_char_p, i32,
+                                    ctypes.c_uint64]
+    l.tpulsm_getctx_multiget.restype = i32
+    l.tpulsm_getctx_multiget.argtypes = [
+        vp, u8p, i64p, i32p, i64, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_int8), i64p, i64p, u8p, i64, i64p, i64p,
     ]
 
 
@@ -282,6 +372,68 @@ def pylib() -> ctypes.PyDLL | None:
         if _pylib is None:
             _pylib = l
     return _pylib
+
+
+_FASTGET_SRC = os.path.join(_DIR, "fastget.c")
+# Not the reference's `tpulsm_fastget`: both extensions may live in one
+# process.
+_FASTGET_NAME = "tpt_fastget"
+_fastget_mod = None
+_fastget_tried = False
+
+
+def _fastget_so_path() -> str:
+    # The interpreter's cache tag rides in the file name, so an extension
+    # built for another CPython ABI is never loaded.
+    import sys
+
+    tag = getattr(sys.implementation, "cache_tag", None) or "py"
+    return os.path.join(BUILD_DIR, f"{_FASTGET_NAME}.{tag}.so")
+
+
+def fastget():
+    """The C-extension call of tpulsm_getctx_get (`fastget.c`): get(ctx,
+    key, snap_seq) -> bytes (found) | None (a decisive miss) | False (the
+    Python chain must run). None when the extension cannot be built or
+    loaded (no Python.h, no compiler): callers keep the ctypes call of the
+    same native function."""
+    global _fastget_mod, _fastget_tried
+    if _fastget_mod is not None:
+        return _fastget_mod.get
+    if _fastget_tried or lib() is None:  # lib() takes _lock itself
+        return None
+    with _lock:
+        if _fastget_mod is not None:
+            return _fastget_mod.get
+        if _fastget_tried:
+            return None
+        _fastget_tried = True
+        so = _fastget_so_path()
+        if _stale(so, _FASTGET_SRC):
+            import sysconfig
+
+            inc = sysconfig.get_paths().get("include")
+            if not inc or not os.path.exists(os.path.join(inc, "Python.h")):
+                return None
+            if not _compile(_FASTGET_SRC, so, [f"-I{inc}", "-O2"]):
+                return None
+        try:
+            import importlib.machinery
+            import importlib.util
+
+            loader = importlib.machinery.ExtensionFileLoader(
+                _FASTGET_NAME, so)
+            spec = importlib.util.spec_from_loader(_FASTGET_NAME, loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            mod.bind(_SO)
+        except Exception as e:  # noqa: BLE001 - the ctypes call stays
+            from toplingdb_tpu_torch.utils import errors
+
+            errors.swallow(reason="fastget-bind-fallback", exc=e)
+            return None
+        _fastget_mod = mod
+        return mod.get
 
 
 def np_u8p(arr):

@@ -1,5 +1,5 @@
 """SST reader (copied from toplingdb_tpu/table/reader.py, without the
-block cache and the native point-read handle).
+block cache).
 
 Opens a block-based SST: footer → metaindex → {filter or filter-partition
 top index, properties, range-del, compression-dictionary} blocks and the
@@ -10,10 +10,14 @@ iterator step through the iterator's own readahead buffer
 (`table/prefetch.py`). The columnar compaction scan goes through the
 native whole-file decoder (`ops/columnar_io.py`), which uses the reader for
 the file handle, the index, the properties and the dictionary; the
-per-entry route iterates.
+per-entry route iterates. `native_get_handle` hands the DB's native
+point-read chain (db/db.py `_native_get`) this table's index, filter and
+a dup of its file descriptor.
 """
 
 from __future__ import annotations
+
+import itertools
 
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.table import format as fmt
@@ -32,6 +36,11 @@ from toplingdb_tpu_torch.table.filter import (
 )
 from toplingdb_tpu_torch.table.properties import TableProperties
 from toplingdb_tpu_torch.utils.slice_transform import resolve_file_extractor
+
+# Process-global cache-namespace allocator of the native point-read chain:
+# its block cache is process-wide and two DBs' file numbers collide, so
+# every table handle gets a fresh id.
+_NGET_ID = itertools.count(1)
 
 
 class TableReader:
@@ -92,6 +101,89 @@ class TableReader:
             self._compression_dict = fmt.read_block(rfile, dh, verify)
         # Two-level index: _index_data is the top level.
         self._partitioned_index = self.properties.index_type == "two_level"
+
+    def native_get_handle(self, smallest_uk: bytes, largest_uk: bytes):
+        """Handle for the native point-read chain (tpulsm_db_get), built
+        lazily and owned by this reader (freed at GC; the native side dups
+        the fd, so closing the reader does not invalidate it). Ineligible
+        tables (partitioned index or filter, range tombstones, dictionary
+        compression, no posix file, a comparator that is not bytewise) get
+        an eligible=0 handle: the chain walk returns FALLBACK on contact,
+        and the Python chain serves the lookup. None when the native
+        library is unavailable."""
+        h = getattr(self, "_nget_handle", False)
+        if h is not False:
+            return h
+        import ctypes
+        import weakref
+
+        from toplingdb_tpu_torch import native
+
+        cl = native.lib()
+        if cl is None:
+            self._nget_handle = None
+            return None
+        try:
+            fd = self._f._f.fileno()  # posix random-access file only
+        except AttributeError:
+            fd = -1
+        eligible = (
+            fd >= 0
+            and not self._partitioned_index
+            and self._filter_top is None
+            and self._range_del_data is None
+            and not self._compression_dict
+            and self._icmp.user_comparator.name()
+            == "tpulsm.BytewiseComparator"
+        )
+        filt = b""
+        filter_kind = 0
+        fname = str(self.properties.filter_policy_name)
+        if (eligible and self._filter_data is not None
+                and self.properties.whole_key_filtering):
+            if fname.startswith("tpulsm.BloomFilter"):
+                filt = self._filter_data
+            elif fname.startswith("tpulsm.BlockedBloom"):
+                filt = self._filter_data
+                filter_kind = 1
+        idx = self._index_data if eligible else b""
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+
+        def buf(b):
+            return ctypes.cast(ctypes.c_char_p(bytes(b)), u8)
+
+        h = cl.tpulsm_table_handle_new(
+            fd if eligible else -1,
+            next(_NGET_ID),
+            (1 | (filter_kind << 1)) if eligible else 0,
+            buf(idx), len(idx), buf(filt), len(filt),
+            buf(smallest_uk), len(smallest_uk),
+            buf(largest_uk), len(largest_uk),
+        )
+        h = h or None
+        self._nget_handle = h
+        if h:
+            weakref.finalize(self, cl.tpulsm_table_handle_free, h)
+        return h
+
+    def plan_block_reads(self, seek_ikeys) -> list[tuple[int, int]]:
+        """The (offset, length) byte ranges of the data blocks that seeking
+        each internal key lands on, deduplicated, in first-seen order. The
+        length covers the block trailer, exactly what `fmt.read_block`
+        consumes (the reference's async read plane preloads these)."""
+        idx = self.new_index_iterator()
+        seen: set[int] = set()
+        out: list[tuple[int, int]] = []
+        for ik in seek_ikeys:
+            idx.seek(ik)
+            if not idx.valid():
+                continue
+            h = fmt.BlockHandle.decode_exact(idx.value())
+            if h.offset in seen:
+                continue
+            seen.add(h.offset)
+            out.append((h.offset, h.size + fmt.BLOCK_TRAILER_SIZE))
+        return out
 
     def close(self) -> None:
         self._f.close()

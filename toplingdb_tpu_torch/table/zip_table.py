@@ -1,6 +1,6 @@
 """ZipTable: the searchable-compression SST format for cold levels (copied
-from toplingdb_tpu/table/zip_table.py, without the native point-read
-handle and the async read plane's hooks).
+from toplingdb_tpu/table/zip_table.py, without the async read plane's
+hooks).
 
 The role of ToplingDB's ToplingZipTable ("searchable compression": a
 succinct key index and entropy-coded values, so point lookups never
@@ -518,6 +518,24 @@ class ZipTableReader:
     def new_iterator(self) -> "ZipTableIterator":
         return ZipTableIterator(self)
 
+    def plan_value_groups(self, seek_ikeys) -> list[int]:
+        """The value-group ordinals the entries landed on by each internal
+        seek key live in, deduplicated, compressed groups only (the
+        reference's async read plane preloads these decodes)."""
+        out: list[int] = []
+        seen: set[int] = set()
+        for ik in seek_ikeys:
+            i = self.entry_lower_bound(ik)
+            if not 0 <= i < self.n:
+                continue
+            vg = i // self.VG
+            if vg in seen:
+                continue
+            seen.add(vg)
+            if len(self._vflags) and self._vflags[vg // 8] & (1 << (vg % 8)):
+                out.append(vg)
+        return out
+
     def range_del_entries(self):
         if self._range_del_data is None:
             return []
@@ -641,8 +659,90 @@ class ZipTableReader:
         return (key_out, key_offs, key_lens, val_out[:vcap], val_offs,
                 val_lens)
 
+    def native_get_handle(self, smallest_uk: bytes, largest_uk: bytes):
+        """Handle for the native point-read chain. Unlike the block reader
+        (which hands C an index copy and an fd), the zip sections are
+        BORROWED by C: the finalize closure pins them until
+        tpulsm_table_handle_free runs. Ineligible tables (range tombstones,
+        a comparator that is not bytewise, an empty file) get an
+        eligible=0 handle, so the chain walk falls back on contact. None
+        when the native library is unavailable."""
+        h = getattr(self, "_nget_handle", False)
+        if h is not False:
+            return h
+        import ctypes
+        import weakref
+
+        from toplingdb_tpu_torch import native
+        from toplingdb_tpu_torch.table.reader import _NGET_ID
+
+        cl = native.lib()
+        if cl is None:
+            self._nget_handle = None
+            return None
+        eligible = (
+            self.n > 0
+            and self._range_del_data is None
+            and self._icmp.user_comparator.name()
+            == "tpulsm.BytewiseComparator"
+        )
+        filt = b""
+        filter_kind = 0
+        fname = str(self.properties.filter_policy_name)
+        if (eligible and self._filter_data is not None
+                and self.properties.whole_key_filtering):
+            if fname.startswith("tpulsm.BloomFilter"):
+                filt = self._filter_data
+            elif fname.startswith("tpulsm.BlockedBloom"):
+                filt = self._filter_data
+                filter_kind = 1
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+
+        def buf(b):
+            return ctypes.cast(ctypes.c_char_p(bytes(b)), u8)
+
+        keep = None
+        if eligible:
+            s = self._scan_sections()
+            keep = (s, filt)
+            h = cl.tpulsm_zip_table_handle_new(
+                next(_NGET_ID), 1 | (filter_kind << 1), self.G, self.VG,
+                self.n, 1 if self._kmeta.dtype.itemsize == 2 else 0,
+                1 if self._vlens.dtype.itemsize == 4 else 0,
+                native.np_u8p(s["kmeta"]), self._kmeta.nbytes,
+                native.np_u8p(s["ksfx"]), len(self._ksfx),
+                native.np_u8p(s["kgso"]), self._kgso.nbytes,
+                native.np_u8p(s["vlens"]), self._vlens.nbytes,
+                native.np_u8p(s["vgo"]), self._vgo.nbytes,
+                native.np_u8p(s["vflags"]), self._vflags.nbytes,
+                native.np_u8p(s["vdict"]), len(self._vdict),
+                native.np_u8p(s["vblob"]), len(self._vblob),
+                buf(filt), len(filt),
+                buf(smallest_uk), len(smallest_uk),
+                buf(largest_uk), len(largest_uk),
+            )
+        else:
+            h = cl.tpulsm_zip_table_handle_new(
+                next(_NGET_ID), 0, 0, 0, 0, 0, 0,
+                None, 0, None, 0, None, 0, None, 0, None, 0, None, 0,
+                None, 0, None, 0, None, 0,
+                buf(smallest_uk), len(smallest_uk),
+                buf(largest_uk), len(largest_uk),
+            )
+        h = h or None
+        self._nget_handle = h
+        if h:
+            weakref.finalize(self, _zip_handle_free,
+                             cl.tpulsm_table_handle_free, h, keep)
+        return h
+
     def close(self) -> None:
         pass
+
+
+def _zip_handle_free(free_fn, h, _sections):
+    # _sections pins the buffers C borrowed until the handle dies with it
+    free_fn(h)
 
 
 class ZipTableIterator:
