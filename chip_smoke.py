@@ -171,6 +171,36 @@ Phases (any failure ends the run with a non-zero exit code):
      no job-* dir is left under <db>/dcompact; then a stale attempt dir
      (params, a partial SST, a heartbeat older than lease_sec) is placed
      there, and the reopen sweeps it (DCOMPACTION_ORPHANS_SWEPT == 1).
+ 15. column families on the card: db_bench's --num_column_families=4
+     deployment (CFs "default" and column_family_name_000001-3) at phase
+     13's size (DB_N = 1,000,000 keys, 36 bytes a key) through the port's
+     DB, opened as in phase 13 (8 MiB write buffer, the "cuda" device
+     factory, a Statistics, the default planes, auto compactions on):
+     fillrandom from 4 threads in WriteBatches of 100 with phase 13's key
+     formula, key index i in CF i % 4 (db_bench's GetCfh), so every batch
+     spans the four CFs and every group is a Python commit
+     (WRITE_GROUP_FALLBACKS = WRITE_GROUP_LED, as in the reference); then
+     flush(), wait_for_compactions() and compact_range(). Device jobs ran
+     in all four CFs, none on the host path, no scheduler error; gc_rows
+     launched at least once per job and the merge on multi-input jobs
+     (counts set to 0 before the open, read after compact_range); every
+     live SST of each CF read back row by row against that CF's keys, its
+     properties naming the CF's id and name. 100,000 readrandom probes
+     (bench.py's Random(5) draw), each in its key's CF, all decided by the
+     native chain; a full scan per CF through the chunk plane (refills,
+     no fallback). persist_stats(to_db=True) twice: two samples in the
+     hidden stats CF. column_family_name_000002 exported and imported
+     into a second DB with create_column_family_with_import: 10,000
+     probes against the oracle, then 10,000 of its keys rewritten,
+     flushed and compacted into the imported files on the card (the SSTs
+     against the oracle again). column_family_name_000003 dropped: its
+     SSTs leave the disk; close and reopen: default, _000001, _000002 and
+     the stats CF listed, the two persisted samples read back, 10,000
+     probes per CF. Printed: the fill wall and ops/s, native / Python
+     commits, flushes, each device job's CF, rows, route and wall,
+     compact_range's wall and raw MB/s, readrandom ops/s, the scan wall
+     per CF, the export, import and reopen walls, and the card's busy
+     share from open to compact_range's end.
 
 The script's total wall is printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -2235,20 +2265,30 @@ def crash(db) -> None:
     db._closed = True
 
 
-def db_files_against_oracle(db, want, value) -> int:
-    """Every live SST of the compacted DB read back with the port's table
-    reader: one level holds them all, and their rows, in file order, are
-    the user keys `want` in order, each a PUT whose value bytes equal
-    `value`, row by row."""
+def db_files_against_oracle(db, want, value, cf=None) -> int:
+    """Every live SST of the compacted DB (of column family `cf`, a
+    handle; None: the default one) read back with the port's table reader:
+    one level holds them all, and their rows, in file order, are the user
+    keys `want` in order, each a PUT whose value bytes equal `value`, row
+    by row. With `cf`, every file's properties name that CF's id and
+    name."""
     from toplingdb_tpu_torch.db import filename
+    from toplingdb_tpu_torch.table.factory import open_table
 
-    levels = [fl for fl in db.versions.current.files if fl]
-    assert len(levels) == 1, db.versions.current.describe()
+    version = db.versions.cf_current(cf.id if cf is not None else 0)
+    levels = [fl for fl in version.files if fl]
+    assert len(levels) == 1, version.describe()
     ukeys, vtypes, vals = [], [], []
     width = len(want[0]) + 8
     for m in levels[0]:
-        kv = scan_output(db.env, filename.table_file_name(db.dbname,
-                                                          m.number), db.icmp)
+        path = filename.table_file_name(db.dbname, m.number)
+        if cf is not None:
+            props = open_table(db.env.new_random_access_file(path),
+                               db.icmp).properties
+            assert (props.column_family_id, props.column_family_name) == \
+                (cf.id, cf.name), (m.number, props.column_family_id,
+                                   props.column_family_name)
+        kv = scan_output(db.env, path, db.icmp)
         assert m.num_entries == kv.n
         assert np.all(kv.key_lens == width), "unexpected key length"
         assert np.all(kv.val_lens == len(value)), "unexpected value length"
@@ -2417,7 +2457,8 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
     rr = readrandom(db)
     assert calls == {"native": len(probes), "python": 0}, calls
     decided = calls["native"]
-    served_by = "fastget" if db._nget_tl.state.fast is not None else "ctypes"
+    served_by = ("fastget" if db._nget_tl.states[0].fast is not None
+                 else "ctypes")
     assert db.get(b"%016d" % (2 * n + 1)) is None
     scan, chunks, it = full_scan(db)
     assert it._plane is not None, "the scan left the chunk plane"
@@ -2824,6 +2865,263 @@ def dcompact_path(torch, root, n, n_small, in_process_crw,
         f"on reopen (DCOMPACTION_ORPHANS_SWEPT {swept})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: column families on the card
+# ---------------------------------------------------------------------------
+
+# db_bench's --num_column_families=4 names (db_bench_tool.cc
+# ColumnFamilyName): the default CF and three more.
+CF_NAMES = ["default"] + ["column_family_name_%06d" % i for i in (1, 2, 3)]
+STATS_CF = "__tpulsm_stats__"
+
+
+def cf_path(torch, root, n, n_probe=10_000, device_name="cuda"):
+    """Phase 15: phase 13's DB deployment over db_bench's four column
+    families, key index i in CF i % 4 inside every batch; then the
+    per-CF reads and scans, the stats CF, export / import, drop and
+    reopen. Returns the launches of the fill + compactions and
+    compact_range's wall."""
+    import random
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.import_column_family_job import (
+        export_column_family,
+    )
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    value = b"v" * 20
+    n_threads, batch, n_cf = 4, 100, len(CF_NAMES)
+    per = n // n_threads
+    dbdir = os.path.join(root, "db")
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    stats = st.Statistics()
+    opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
+                   compaction_executor_factory=factory, statistics=stats)
+
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs:
+        t_open = time.time()
+        db = DB.open(dbdir, opts)
+        handles = [db.default_cf] + [db.create_column_family(name)
+                                     for name in CF_NAMES[1:]]
+        ids = [h.id for h in handles]
+        errs = []
+
+        def worker(t):
+            try:
+                for i in range(t * per, (t + 1) * per, batch):
+                    b = WriteBatch()
+                    for j in range(i, i + batch):
+                        b.put(db_key(j, n), value, cf=ids[j % n_cf])
+                    db.write(b)
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+
+        ts = [threading.Thread(target=worker, args=(t,))
+              for t in range(n_threads)]
+        t0 = time.time()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        fill = time.time() - t0
+        assert not errs, errs
+        n_auto = len(factory.jobs)
+        groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+        commits = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+        fallbacks = stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS)
+        # Every batch spans the four CFs: every group is a Python commit,
+        # as in the reference.
+        assert fallbacks == groups > 0 and commits == 0, \
+            (groups, commits, fallbacks)
+        log(f"[cf] fillrandom {n_threads * per} keys over {n_cf} column "
+            f"families (key i in CF i % {n_cf}) from {n_threads} threads in "
+            f"batches of {batch}: {fill:.3f}s, {n_threads * per / fill:.0f} "
+            f"ops/s, {db.num_flushes} flushes, {n_auto} device jobs during "
+            f"the fill; commits: {commits} native, {fallbacks} Python of "
+            f"{groups} groups")
+        t0 = time.time()
+        db.flush()
+        db.wait_for_compactions()
+        t1 = time.time()
+        db.compact_range()
+        crw = time.time() - t1
+        gc_n, mr_n = launched()
+    _, busy = programs.busy(time.time() - t_open)
+    sched = db._compaction_scheduler
+    jobs = factory.jobs
+    assert {j["cf_id"] for j in jobs} == set(ids), \
+        sorted({j["cf_id"] for j in jobs})
+    assert sched.num_local_jobs == 0, \
+        f"{sched.num_local_jobs} compactions ran on the host path"
+    assert sched.last_error is None, sched.last_error
+    if device_name != "cpu":
+        assert gc_n >= len(jobs), (gc_n, len(jobs))
+        if any(j["input_files"] > 1 for j in jobs):
+            assert mr_n > 0, "no merge launch for a multi-run job"
+    for k, j in enumerate(jobs):
+        log(f"[cf] device job {k}: CF {CF_NAMES[ids.index(j['cf_id'])]}, "
+            f"L{j['level']}->L{j['output_level']}, {j['input_files']} input "
+            f"files, {j['rows']} rows, "
+            f"{'pipelined' if j['pipelined'] else 'serial'} route, wall "
+            f"{j['wall_s']:.3f}s")
+    log(f"[cf] flush + wait_for_compactions {t1 - t0:.3f}s; compact_range "
+        f"{crw:.3f}s, {n * DB_RAW_PER_ENTRY / 1e6 / crw:.2f} raw MB/s; "
+        f"{db.num_flushes} flushes, {len(jobs)} device jobs "
+        f"({', '.join(str(sum(j['cf_id'] == i for j in jobs)) for i in ids)}"
+        f" by CF), {sched.num_trivial_moves} trivial moves, launches "
+        f"gc_rows={gc_n} merge_runs={mr_n}; open to compact_range's end: "
+        f"{busy}")
+    wants = [sorted(db_key(i, n) for i in range(k, n_threads * per, n_cf))
+             for k in range(n_cf)]
+    t0 = time.time()
+    n_files = [db_files_against_oracle(db, want, value, cf=h)
+               for h, want in zip(handles, wants)]
+    log(f"[cf] live SSTs read back per CF with the table reader: "
+        f"{n_files} files, {[len(w) for w in wants]} rows, keys, PUT types "
+        f"and value bytes equal to each CF's oracle row by row, properties "
+        f"naming each CF, {time.time() - t0:.3f}s")
+
+    rng = random.Random(5)
+    probe_idx = [rng.randrange(n) for _ in range(min(100_000, n))]
+    probes = [(db_key(i, n), handles[i % n_cf]) for i in probe_idx]
+    calls = {"native": 0, "python": 0}
+    chain = db._native_get
+
+    def spy(*a):
+        r = chain(*a)
+        calls["native" if r[0] else "python"] += 1
+        return r
+
+    db._native_get = spy
+    t0 = time.time()
+    for k, h in probes:
+        v = db.get(k, cf=h)
+        assert v == value, (k, h, v)
+    rr = time.time() - t0
+    assert calls == {"native": len(probes), "python": 0}, calls
+    decided = calls["native"]
+    i0 = probe_idx[0]
+    assert db.get(db_key(i0, n), cf=handles[(i0 + 1) % n_cf]) is None
+    scans = []
+    for h, want in zip(handles, wants):
+        before = stats.tickers()
+        t0 = time.time()
+        it = db.new_iterator(cf=h)
+        it.seek_to_first()
+        got = 0
+        for (k, v), w in zip(it.entries(), want):
+            assert k == w and v == value, (h.name, k, w)
+            got += 1
+        wall = time.time() - t0
+        assert got == len(want) and not it.valid(), (h.name, got)
+        assert it._plane is not None, "the scan left the chunk plane"
+        after = stats.tickers()
+        refills = (after.get(st.ITER_CHUNK_REFILLS, 0)
+                   - before.get(st.ITER_CHUNK_REFILLS, 0))
+        fallbacks = (after.get(st.ITER_CHUNK_FALLBACKS, 0)
+                     - before.get(st.ITER_CHUNK_FALLBACKS, 0))
+        assert refills > 0 and fallbacks == 0, (h.name, refills, fallbacks)
+        scans.append((wall, refills))
+        del it
+    log(f"[cf] readrandom {len(probes)} probes, each in its key's CF: "
+        f"{rr:.3f}s, {len(probes) / rr:.0f} ops/s, all found, "
+        f"{decided} decided by the native chain; full scan per CF "
+        + ", ".join(f"{name} {w:.3f}s ({r} refills)"
+                    for name, (w, r) in zip(CF_NAMES, scans)))
+
+    db.persist_stats(to_db=True)
+    db.persist_stats(to_db=True)
+    stats_cf = db.get_column_family(STATS_CF)
+    assert stats_cf is not None
+    it = db.new_iterator(cf=stats_cf)
+    it.seek_to_first()
+    n_stats = sum(1 for _ in it.entries())
+    del it
+    hist = db.get_stats_history(include_persisted=True)
+    assert n_stats == 2 and len(hist) >= 2, (n_stats, len(hist))
+
+    exp = os.path.join(root, "export")
+    t0 = time.time()
+    meta = export_column_family(db, handles[2], exp)
+    t_export = time.time() - t0
+    factory2 = DeviceCompactionExecutorFactory(device=device_name)
+    db2 = DB.open(os.path.join(root, "import"), Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=factory2))
+    try:
+        t0 = time.time()
+        h2 = db2.create_column_family_with_import(CF_NAMES[2], exp)
+        t_import = time.time() - t0
+        rng = random.Random(7)
+        for _ in range(n_probe):
+            i = rng.randrange(n)
+            want = value if i % n_cf == 2 else None
+            assert db2.get(db_key(i, n), cf=h2) == want, i
+        # One compaction of the imported CF on the card: overwrite some
+        # of its keys (same value), flush, and push them down into the
+        # imported files.
+        launched2 = counted(kernels)
+        for i in range(2, 2 + n_cf * n_probe, n_cf * batch):
+            b = WriteBatch()
+            for j in range(i, i + n_cf * batch, n_cf):
+                b.put(db_key(j, n), value, cf=h2.id)
+            db2.write(b)
+        db2.flush()
+        t0 = time.time()
+        db2.compact_range()
+        t_icr = time.time() - t0
+        gc2, mr2 = launched2()
+        jobs2 = factory2.jobs
+        assert jobs2 and {j["cf_id"] for j in jobs2} == {h2.id}, jobs2
+        assert db2._compaction_scheduler.num_local_jobs == 0
+        if device_name != "cpu":
+            assert gc2 >= len(jobs2), (gc2, len(jobs2))
+        db_files_against_oracle(db2, wants[2], value, cf=h2)
+    finally:
+        db2.close()
+    log(f"[cf] export {CF_NAMES[2]} ({len(meta.files)} SSTs) {t_export:.3f}"
+        f"s; import into a second DB {t_import:.3f}s, {n_probe} probes "
+        f"against the oracle; {len(jobs2)} device jobs of the imported CF "
+        f"(rows {[j['rows'] for j in jobs2]}, compact_range {t_icr:.3f}s, "
+        f"launches gc_rows={gc2} merge_runs={mr2}), its SSTs equal to the "
+        f"oracle")
+
+    gone = db.versions.cf_current(handles[3].id)
+    numbers = [f.number for _, f in gone.all_files()]
+    del gone
+    db.drop_column_family(handles[3])
+    left = [x for x in numbers
+            if os.path.exists(os.path.join(dbdir, "%06d.sst" % x))]
+    assert numbers and not left, left
+    t0 = time.time()
+    db.close()
+    db = DB.open(dbdir, opts)
+    reopen = time.time() - t0
+    try:
+        names = [h.name for h in db.list_column_families()]
+        assert names == CF_NAMES[:3] + [STATS_CF], names
+        assert len(db.get_stats_history(include_persisted=True)) == 2
+        rng = random.Random(9)
+        for k in range(3):
+            h = db.get_column_family(CF_NAMES[k])
+            for _ in range(n_probe):
+                key = wants[k][rng.randrange(len(wants[k]))]
+                assert db.get(key, cf=h) == value, (k, key)
+    finally:
+        db.close()
+    log(f"[cf] stats CF: 2 samples persisted and read back; "
+        f"{CF_NAMES[3]} dropped, its {len(numbers)} SSTs gone from disk; "
+        f"close + reopen {reopen:.3f}s: {names}, {n_probe} probes per CF")
+    return gc_n, mr_n, crw
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2889,6 +3187,7 @@ def main() -> int:
                                    DB_WAL_N)
         dcompact_path(torch, os.path.join(dbdir, "db14"), DB_N, SMALL_DB_N,
                       db_crw)
+        cf_path(torch, os.path.join(dbdir, "db15"), DB_N)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)

@@ -35,6 +35,9 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   DeviceCompactionExecutorFactory(device="cuda") (both kernels launch, no
   job on the host path) has the same get and scan views as the port's DB
   on device="cpu", before and after reopen;
+- a DB with two column families, fed by mixed-CF batches, writes the same
+  SST bytes (by file number, per CF) with its compactions on "cuda" as on
+  "cpu", and every output's properties name its CF;
 - a small DB whose compaction goes through the in-process HTTP worker
   service on "cuda" (both kernels launch in the service) and one whose
   compaction goes through a subprocess worker on "cuda" write the SST
@@ -909,6 +912,64 @@ def test_db_on_the_card_has_the_cpu_views(dev, tmp_path):
     want = _db_views(str(tmp_path / "cpu"), "cpu", n)
     assert got == want
     assert len(got[1]) == n - 4
+
+
+def _cf_db_files(path, device, n):
+    """A DB with CF "aux" beside the default one, fed by batches that
+    alternate the CF per key, flushed and compacted (both CFs' jobs on
+    `device`). Returns {CF name: {file number: (bytes, (cf id, cf name))}}
+    and the jobs' CF ids."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.table.factory import open_table
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=1 << 20, disable_auto_compactions=True,
+                   compaction_executor_factory=factory)
+    env = PosixEnv()
+    out = {}
+    with DB.open(path, opts) as db:
+        aux = db.create_column_family("aux")
+        for r in range(3):
+            for i in range(0, n, 100):
+                b = WriteBatch()
+                for j in range(i, i + 100):
+                    b.put(b"%016d" % (j * 2654435761 % (2 * n)),
+                          b"v%d-%017d" % (r, j), cf=aux.id if j % 2 else 0)
+                db.write(b)
+            db.flush()
+        db.compact_range()
+        assert db._compaction_scheduler.last_error is None
+        for h in db.list_column_families():
+            files = {}
+            for _, f in db.versions.cf_current(h.id).all_files():
+                fpath = os.path.join(path, "%06d.sst" % f.number)
+                props = open_table(env.new_random_access_file(fpath),
+                                   InternalKeyComparator()).properties
+                files[f.number] = (open(fpath, "rb").read(),
+                                   (props.column_family_id,
+                                    props.column_family_name))
+            out[h.name] = files
+    return out, sorted({j["cf_id"] for j in factory.jobs})
+
+
+def test_cf_db_on_the_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    _frozen(monkeypatch)
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got, cfs = _cf_db_files(str(tmp_path / "cuda"), "cuda", 60_000)
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    want, _ = _cf_db_files(str(tmp_path / "cpu"), "cpu", 60_000)
+    assert cfs == [0, 1]
+    assert got == want
+    for name, cf_id in (("default", 0), ("aux", 1)):
+        assert got[name]
+        assert {tag for _, tag in got[name].values()} == {(cf_id, name)}
 
 
 def _remote_db(path, factory):

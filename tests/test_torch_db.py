@@ -9,15 +9,18 @@ backend, as tests/test_device_compaction.py runs it).
   cases that flush and compact only on explicit calls (a write buffer the
   case does not fill, auto compactions off), every live SST must be
   byte-identical by file number, the per-level file sets equal (number,
-  smallest, largest, seqnos) and the WAL bytes equal. Two cases leave the
-  file layout to background flushes and compactions and compare the views
-  only. Each case runs with the device executor and with the host
-  compaction path (the reference with no executor, the port with
-  LocalCompactionExecutorFactory);
+  smallest, largest, seqnos), the WAL bytes and the MANIFEST bytes equal.
+  Two cases leave the file layout to background flushes and compactions
+  and compare the views only. Each case runs with the device executor
+  and with the host compaction path (the reference with no executor, the
+  port with LocalCompactionExecutorFactory). The Twin's operations take
+  a column family's name (tests/test_torch_column_families.py);
 - the mirror of tests/test_device_compaction.py::test_device_executor_in_db
   on the port's DB;
 - auto compactions on, 4 writer threads: the port's views equal a dict
   oracle and the reference DB's views over the same writes;
+- a get that overlaps a flush's install or a memtable switch folds each
+  merge operand once (the windows held open by hand);
 - a failing device job raises, latches the DB's background error and
   writes no output (nothing re-runs it on the CPU path);
 - the default Options send every compaction to the device executor on
@@ -90,7 +93,8 @@ def pinned_clock(monkeypatch):
 class Twin:
     """The same operations on the reference DB and the port's DB in two
     sibling directories; `check` holds the views (and, with byte parity,
-    the files) equal."""
+    the files) equal. Operations take `cf=`, a column family's name (None:
+    the default CF); every CF's views are checked."""
 
     def __init__(self, root, executor: str, byte_parity: bool, **kw):
         self.root = root
@@ -100,7 +104,7 @@ class Twin:
         self.ref_dir = os.path.join(root, "ref")
         self.dir = os.path.join(root, "port")
         self.ref = self.port = None
-        self.keys: set[bytes] = set()
+        self.keys: dict[str | None, set[bytes]] = {None: set()}
         self.open()
 
     def _options(self):
@@ -138,33 +142,61 @@ class Twin:
         self.open()
         self.check()
 
+    # -- column families ----------------------------------------------
+
+    def _h(self, cf):
+        """(reference handle, port handle) of CF `cf` (None: default)."""
+        if cf is None:
+            return None, None
+        return self.ref.get_column_family(cf), self.port.get_column_family(cf)
+
+    def create_cf(self, name):
+        r = self.ref.create_column_family(name)
+        p = self.port.create_column_family(name)
+        assert p.id == r.id and p.name == r.name == name
+        self.keys[name] = set()
+
+    def drop_cf(self, name):
+        r, p = self._h(name)
+        self.ref.drop_column_family(r)
+        self.port.drop_column_family(p)
+        del self.keys[name]
+
     # -- operations on both -------------------------------------------
 
-    def put(self, k, v, sync=False):
-        self.keys.add(k)
-        self.ref.put(k, v, RefWriteOptions(sync=sync))
-        self.port.put(k, v, WriteOptions(sync=sync))
+    def put(self, k, v, sync=False, cf=None):
+        self.keys[cf].add(k)
+        r, p = self._h(cf)
+        self.ref.put(k, v, RefWriteOptions(sync=sync), cf=r)
+        self.port.put(k, v, WriteOptions(sync=sync), cf=p)
 
-    def delete(self, k):
-        self.keys.add(k)
-        self.ref.delete(k)
-        self.port.delete(k)
+    def delete(self, k, cf=None):
+        self.keys[cf].add(k)
+        r, p = self._h(cf)
+        self.ref.delete(k, cf=r)
+        self.port.delete(k, cf=p)
 
-    def merge(self, k, v):
-        self.keys.add(k)
-        self.ref.merge(k, v)
-        self.port.merge(k, v)
+    def merge(self, k, v, cf=None):
+        self.keys[cf].add(k)
+        r, p = self._h(cf)
+        self.ref.merge(k, v, cf=r)
+        self.port.merge(k, v, cf=p)
 
-    def delete_range(self, b, e):
-        self.ref.delete_range(b, e)
-        self.port.delete_range(b, e)
+    def delete_range(self, b, e, cf=None):
+        r, p = self._h(cf)
+        self.ref.delete_range(b, e, cf=r)
+        self.port.delete_range(b, e, cf=p)
 
     def write(self, ops):
+        """One batch on each side. An op is (name, *args), with the CF's
+        name appended as a str for a CF other than the default."""
         rb, pb = RefWriteBatch(), WriteBatch()
         for op, *args in ops:
-            self.keys.add(args[0])
-            getattr(rb, op)(*args)
-            getattr(pb, op)(*args)
+            cf = args.pop() if isinstance(args[-1], str) else None
+            self.keys[cf].add(args[0])
+            r, p = self._h(cf)
+            getattr(rb, op)(*args, cf=r.id if r is not None else 0)
+            getattr(pb, op)(*args, cf=p.id if p is not None else 0)
         self.ref.write(rb)
         self.port.write(pb)
 
@@ -183,19 +215,20 @@ class Twin:
     def snapshot(self):
         return self.ref.get_snapshot(), self.port.get_snapshot()
 
-    def get(self, k, snap=None):
+    def get(self, k, snap=None, cf=None):
+        r_h, p_h = self._h(cf)
         r = self.ref.get(k, RefReadOptions(snapshot=snap[0]) if snap
-                         else RefReadOptions())
+                         else RefReadOptions(), cf=r_h)
         p = self.port.get(k, ReadOptions(snapshot=snap[1]) if snap
-                          else ReadOptions())
-        assert p == r, (k, p, r)
+                          else ReadOptions(), cf=p_h)
+        assert p == r, (cf, k, p, r)
         return p
 
     # -- views and files ----------------------------------------------
 
     @staticmethod
-    def _scan(db, reverse=False):
-        it = db.new_iterator()
+    def _scan(db, reverse=False, cf=None):
+        it = db.new_iterator(cf=cf)
         out = []
         if reverse:
             it.seek_to_last()
@@ -213,17 +246,27 @@ class Twin:
 
     @staticmethod
     def _level_sets(db):
-        return [[(f.number, f.smallest, f.largest, f.smallest_seqno,
-                  f.largest_seqno, f.num_entries, f.file_size)
-                 for f in fl] for fl in db.versions.current.files]
+        """Every CF's level file sets, by CF name."""
+        return {h.name: [[(f.number, f.smallest, f.largest,
+                           f.smallest_seqno, f.largest_seqno,
+                           f.num_entries, f.file_size) for f in fl]
+                         for fl in db.versions.cf_current(h.id).files]
+                for h in db.list_column_families()}
 
     def check(self, snap=None):
-        for k in sorted(self.keys) + [b"missing"]:
-            self.get(k, snap)
-        fwd = self._scan(self.port)
-        assert fwd == self._scan(self.ref)
-        rev = self._scan(self.port, reverse=True)
-        assert rev == list(reversed(fwd))
+        names = [h.name for h in self.port.list_column_families()]
+        assert names == [h.name for h in self.ref.list_column_families()]
+        fwd = None
+        for cf in self.keys:
+            for k in sorted(self.keys[cf]) + [b"missing"]:
+                self.get(k, snap, cf)
+            r, p = self._h(cf)
+            view = self._scan(self.port, cf=p)
+            assert view == self._scan(self.ref, cf=r), cf
+            rev = self._scan(self.port, reverse=True, cf=p)
+            assert rev == list(reversed(view)), cf
+            if cf is None:
+                fwd = view
         if self.executor == "device":
             # Every compaction of the port ran on the device executor.
             assert self.port._compaction_scheduler.num_local_jobs == 0
@@ -232,19 +275,24 @@ class Twin:
         assert self.port.versions.last_sequence == \
             self.ref.versions.last_sequence
         assert self._level_sets(self.port) == self._level_sets(self.ref)
-        # Live files: the SSTs of the current version and the WALs from the
-        # MANIFEST's log number on (the reference may keep obsolete SSTs a
-        # while longer: an old Version its read path still holds pins them).
+        # Live files: every CF's SSTs, the WALs from the MANIFEST's log
+        # number on and the MANIFEST (the reference may keep obsolete SSTs
+        # a while longer: an old Version its read path still holds pins
+        # them).
         assert self.port.versions.log_number == self.ref.versions.log_number
         live = [f"{f.number:06d}.sst"
-                for _, f in self.port.versions.current.all_files()]
+                for h in self.port.list_column_families()
+                for _, f in self.port.versions.cf_current(h.id).all_files()]
         wals = [n for n in self._files(self.dir) if n.endswith(".log")
                 and int(n[:-4]) >= self.port.versions.log_number]
         assert wals == [n for n in self._files(self.ref_dir)
                         if n.endswith(".log")
                         and int(n[:-4]) >= self.ref.versions.log_number]
         assert wals, "no live WAL"
-        for name in live + wals:
+        manifest = "MANIFEST-%06d" % self.port.versions.manifest_file_number
+        assert manifest == \
+            "MANIFEST-%06d" % self.ref.versions.manifest_file_number
+        for name in live + wals + [manifest]:
             a = open(os.path.join(self.dir, name), "rb").read()
             b = open(os.path.join(self.ref_dir, name), "rb").read()
             assert a == b, name
@@ -515,6 +563,41 @@ def test_device_executor_in_db(tmp_path):
         assert db._compaction_scheduler.last_error is None
         assert factory.jobs
         assert db._compaction_scheduler.num_local_jobs == 0
+
+
+def test_get_overlapping_an_install_folds_each_operand_once(tmp_path):
+    """A get that overlaps a flush's install or a memtable switch (it
+    takes no mutex) can read one memtable twice, or a memtable and the L0
+    file it became: the port's Python chain folds each merge operand once.
+    The windows are held open here by hand, under the DB mutex."""
+    db = dbm.DB.open(str(tmp_path / "db"), Options(
+        merge_operator=mo.StringAppendOperator(),
+        disable_auto_compactions=True,
+        compaction_executor_factory=LocalCompactionExecutorFactory()))
+    try:
+        db._nget_lib = None  # merges go to the Python chain anyway
+        db.put(b"k", b"base")
+        db.flush()
+        db.merge(b"k", b"a")
+        db.merge(b"k", b"b")
+        with db._mutex:
+            db._switch_memtable()
+            sealed = list(db.imm)
+            # The flush installed the L0 file; the list is not cleared yet.
+            db._flush_memtables(sealed, wal_number=None)
+            assert db.imm == sealed and len(db.versions.current.files[0]) == 2
+            assert db.get(b"k") == b"base,a,b"
+            # The switch window too: the sealed memtable still active.
+            active = db.mem
+            db.mem = sealed[0]
+            assert db.get(b"k") == b"base,a,b"
+            db.mem = active
+            db.imm = []
+        assert db.get(b"k") == b"base,a,b"
+        db.merge(b"k", b"c")
+        assert db.get(b"k") == b"base,a,b,c"
+    finally:
+        db.close()
 
 
 def _threaded_fill(db, batch_cls, n_threads, per, seed):

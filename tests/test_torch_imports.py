@@ -49,6 +49,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(lines[0]) >= 20  # every submodule was imported
     loaded = [m for m in lines[1:] if m]
     assert "toplingdb_tpu_torch.ops.device_compaction" in loaded
+    assert "toplingdb_tpu_torch.db.import_column_family_job" in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

@@ -586,7 +586,8 @@ def test_blob_index_and_merge_operands_fall_back_on_both(tmp_path, defaults):
                                   (b"plain", True, b"p"),
                                   (b"gone", True, None)):
             r = ref._native_get(cfd, key, seq, RefReadOptions())
-            p = port._native_get(key, seq, ReadOptions())
+            p = port._native_get(port._cf_data(None), key, seq,
+                                 ReadOptions())
             assert (p[0], p[1]) == (r[0], r[1]) == (handled, val), key
     finally:
         _close(ref, port)
@@ -893,7 +894,7 @@ for db, tag in ((port, b"port"), (ref, b"ref")):
     db.put(b"mem", tag)
 got = {"port": [port.get(b"key0007"), port.get(b"mem")],
        "ref": [ref.get(b"key0007"), ref.get(b"mem")]}
-state = port._nget_tl.state
+state = port._nget_tl.states[0]
 fn_addr = ctypes.cast(state.fn, ctypes.c_void_p).value
 glob = getattr(ctypes.CDLL(None), "tpulsm_getctx_get", None)
 out = {
@@ -970,7 +971,8 @@ for i in range(500):
 db.flush()
 db.put(b"mem", b"m")
 seq = db.versions.last_sequence
-handled = [db._native_get(b"key%04d" % i, seq, ReadOptions())[0]
+cfd = db._cf_data(None)
+handled = [db._native_get(cfd, b"key%04d" % i, seq, ReadOptions())[0]
            for i in range(0, 500, 50)]
 assert all(handled), handled
 assert db.get(b"key0042") == b"v42" and db.get(b"mem") == b"m"

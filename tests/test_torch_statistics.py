@@ -422,36 +422,54 @@ def test_stats_dump_scheduler_error_ticker_and_stop():
     assert hist.last_sample() is not None
 
 
-def test_event_log_correlation_and_stats_dump(tmp_path):
+def test_event_log_correlation_and_stats_dump(tmp_path, python_paths):
     """Mirror of tests/test_telemetry.py:501 (reading LOG directly: the
     ldb tool is not ported): flush events carry their trace id, a
     persist_stats + dump hook writes a stats_dump line, a reopen rolls LOG
-    to LOG.old, and persist_stats(to_db=True) is refused."""
-    d = str(tmp_path / "db")
-    db = _open(PORT, d, trace_sample_every=1, statistics=st.Statistics(),
-               compaction_executor_factory=LocalCompactionExecutorFactory())
-    try:
-        for i in range(50):
-            db.put(b"key%06d" % i, b"v" * 24)
-        db.flush()
-        db.persist_stats()
-        db._log_stats_dump()
-        assert len(db.get_stats_history()) == 1
-        with pytest.raises(NotSupported, match="column famil"):
+    to LOG.old. Then persist_stats(to_db=True), twice, in both DBs: after
+    a reopen (an empty in-memory history) the hidden stats CF is listed
+    and get_stats_history(include_persisted=True) returns both samples,
+    equal to the reference's."""
+    persisted = {}
+    for pkg in (REF, PORT):
+        d = str(tmp_path / pkg.name)
+        db = _open(pkg, d, trace_sample_every=1,
+                   statistics=pkg.st.Statistics(),
+                   compaction_executor_factory=_factory(pkg, "local", None))
+        try:
+            for i in range(50):
+                db.put(b"key%06d" % i, b"v" * 24)
+            db.flush()
+            db.persist_stats()
+            db._log_stats_dump()
+            assert len(db.get_stats_history()) == 1
             db.persist_stats(to_db=True)
-    finally:
-        db.close()
-    with open(os.path.join(d, "LOG")) as f:
-        events = [json.loads(line) for line in f]
-    kinds = {e["event"] for e in events}
-    assert {"flush_finished", "stats_dump"} <= kinds
-    assert any("trace_id" in e for e in events
-               if e["event"] == "flush_finished")
-    assert all(isinstance(e["time_micros"], int) for e in events)
-    db = _open(PORT, d, compaction_executor_factory=(
-        LocalCompactionExecutorFactory()))
-    db.close()
-    assert os.path.exists(os.path.join(d, "LOG.old"))
+            db.put(b"after", b"x")
+            db.persist_stats(to_db=True)
+        finally:
+            db.close()
+        if pkg is PORT:
+            with open(os.path.join(d, "LOG")) as f:
+                events = [json.loads(line) for line in f]
+            kinds = {e["event"] for e in events}
+            assert {"flush_finished", "stats_dump"} <= kinds
+            assert any("trace_id" in e for e in events
+                       if e["event"] == "flush_finished")
+            assert all(isinstance(e["time_micros"], int) for e in events)
+        db = _open(pkg, d, statistics=pkg.st.Statistics(),
+                   compaction_executor_factory=_factory(pkg, "local", None))
+        try:
+            assert db.get_stats_history() == []
+            persisted[pkg.name] = (
+                [h.name for h in db.list_column_families()],
+                db.get_stats_history(include_persisted=True))
+        finally:
+            db.close()
+        assert os.path.exists(os.path.join(d, "LOG.old"))
+    names, history = persisted["port"]
+    assert names == ["default", "__tpulsm_stats__"]
+    assert len(history) == 2 and history[1][1]
+    assert persisted["port"] == persisted["ref"]
 
 
 def test_stats_dump_thread_writes_log(tmp_path):

@@ -119,8 +119,8 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
     device: "cuda" (the card; a job raises without one) or "cpu" (the
     kernels' plain PyTorch versions). A failed job raises; nothing re-runs
     it elsewhere. `jobs` logs every job the factory's executors ran: its
-    level pair, input files and rows, whether it ran pipelined, and its
-    wall."""
+    column family id, level pair, input files and rows, whether it ran
+    pipelined, and its wall."""
 
     def __init__(self, device: str = "cuda"):
         if device not in ("cuda", "cpu"):
@@ -138,6 +138,7 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
                    wall_s: float) -> None:
         with self._lock:
             self.jobs.append(dict(
+                cf_id=compaction.cf_id,
                 level=compaction.level, output_level=compaction.output_level,
                 input_files=compaction.num_input_files(),
                 rows=stats.input_records, pipelined=stats.pipelined,

@@ -11,6 +11,9 @@ background threads (named "tpt-compaction-bg"). Every job routes through
 Options.compaction_executor_factory: the device executor (the default, on
 the card) or, where the caller names LocalCompactionExecutorFactory, the
 host compaction path. A failed device job raises; none falls back.
+Column families are picked by descending top score (a fixed order would
+starve the later CFs under load on an earlier one), and a manual
+compaction runs over every CF in id order.
 
 Every finished job reports as toplingdb_tpu's does: the compaction
 tickers and histograms (`Statistics.record_compaction`), a
@@ -120,11 +123,21 @@ class CompactionScheduler:
     def _run_one(self) -> bool:
         db = self.db
         with db._mutex:
-            version = db.versions.current
-            scores = self.picker.compaction_score(version)
-            if not scores or scores[0][0] < 1.0:
-                return False
-            c = self.picker.pick_compaction(version)
+            scored = []
+            for cf_id in db.versions.column_families:
+                version = db.versions.cf_current(cf_id)
+                scores = self.picker.compaction_score(version)
+                top = scores[0][0] if scores else 0.0
+                scored.append((top, cf_id, version))
+            scored.sort(key=lambda s: -s[0])
+            c = None
+            for top, cf_id, version in scored:
+                if top < 1.0:
+                    break
+                c = self.picker.pick_compaction(version)
+                if c is not None:
+                    c.cf_id = cf_id
+                    break
             if c is None:
                 return False
             for _, f in c.all_inputs():
@@ -313,11 +326,18 @@ class CompactionScheduler:
 
     def _compact_range_impl(self, begin: bytes | None,
                             end: bytes | None) -> None:
+        for cf_id in sorted(self.db.versions.column_families):
+            self._compact_range_cf(begin, end, cf_id)
+
+    def _compact_range_cf(self, begin: bytes | None, end: bytes | None,
+                          cf_id: int) -> None:
         db = self.db
-        version = db.versions.current
+        if cf_id not in db.versions.column_families:
+            return  # dropped concurrently
+        version = db.versions.cf_current(cf_id)
         for level in range(0, version.num_levels - 1):
             with db._mutex:
-                version = db.versions.current
+                version = db.versions.cf_current(cf_id)
                 if level == 0:
                     inputs = [f for f in version.files[0]
                               if not f.quarantined]
@@ -341,7 +361,7 @@ class CompactionScheduler:
                     ),
                     reason="manual",
                     max_output_file_size=db.options.target_file_size(level + 1),
-                    cf_id=0,
+                    cf_id=cf_id,
                     full_history_ts_low=db.options.full_history_ts_low,
                 )
                 for _, f in c.all_inputs():

@@ -1,5 +1,5 @@
 """DB: the central engine object (copied from toplingdb_tpu/db/db.py,
-trimmed to the core of a single-column-family leveled engine).
+trimmed to the core of a leveled engine with column families).
 
 The role of RocksDB's DBImpl (db/db_impl/db_impl.cc): open and recover
 (MANIFEST + WAL replay), the write path (group commit: WAL + memtable),
@@ -9,15 +9,30 @@ obsolete-file GC. Background compactions run in the scheduler
 (compaction/scheduler.py) through Options.compaction_executor_factory: by
 default the port's DeviceCompactionExecutorFactory, on the card.
 
+Column families (RocksDB's ColumnFamilyData): `create_column_family(name)`
+returns a ColumnFamilyHandle that put / delete / merge / delete_range /
+get / new_iterator take as `cf=`, and a WriteBatch takes as its id
+(`cf=handle.id`); a batch may span CFs and stays atomic. Every CF has its
+own memtables and Version and shares the one WAL, MANIFEST, sequence and
+Options. A memtable switch seals every non-empty CF, so the MANIFEST's
+log number advances once all of them are flushed; compactions are picked
+per CF and run on the same executor, their outputs tagged with the CF's
+id and name. `drop_column_family` discards the CF (its files go with the
+next obsolete-file pass, an edit of a job still in flight is dropped);
+`export_column_family` (db/import_column_family_job.py) and
+`create_column_family_with_import` move one CF's SSTs between DBs;
+`persist_stats(to_db=True)` writes samples into the hidden CF
+"__tpulsm_stats__".
+
 The host planes are toplingdb_tpu's defaults, each switched by an
 explicit DB.open argument instead of its process-wide knob:
 
   write plane   `write_plane=True`: each write group is validated, framed
                 into one WAL record and applied to the skiplist memtable
                 in native calls (tpulsm_wb_group_commit). Groups it does
-                not take (range deletes, merge-heavy or wide-column
-                batches, the vector rep) run the Python group commit,
-                which writes the same WAL bytes.
+                not take (CF-prefixed records, range deletes,
+                merge-heavy or wide-column batches, the vector rep) run
+                the Python group commit, which writes the same WAL bytes.
   read chain    always on: `get` walks memtables and SST levels in one
                 native call (tpulsm_getctx_get, through the `fastget`
                 extension where it builds); anything the native walk
@@ -40,10 +55,10 @@ paths; `stats_history`, `stats_persist_period_sec`,
 the structured event log in `<db>/LOG` (rolled to `LOG.old` on open) and
 the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`).
 On open, job dirs of dcompact workers whose lease expired are swept from
-`<db>/dcompact`. What toplingdb_tpu runs beyond this (column families,
-the staged write modes, blob files, the SLO engine, ...) is refused at
-open: `options.unported_fields` lists it and DB.open raises NotSupported
-instead of ignoring it.
+`<db>/dcompact`. What toplingdb_tpu runs beyond this (the staged write
+modes, blob files, the SLO engine, ...) is refused at open:
+`options.unported_fields` lists it and DB.open raises NotSupported instead
+of ignoring it.
 """
 
 from __future__ import annotations
@@ -112,7 +127,7 @@ class _Writer:
     STATE_PARALLEL_MEMTABLE_WRITER)."""
 
     __slots__ = ("batch", "opts", "done", "error", "event", "parallel",
-                 "pg", "pg_mem")
+                 "pg", "pg_mems")
 
     def __init__(self, batch: WriteBatch, opts: WriteOptions):
         self.batch = batch
@@ -122,7 +137,7 @@ class _Writer:
         self.event = threading.Event()
         self.parallel = False          # drafted into parallel memtable phase
         self.pg = None                 # _InsertBarrier of the phase
-        self.pg_mem = None             # the memtable to insert into
+        self.pg_mems = None            # {cf_id: MemTable} to insert into
 
 
 class _InsertBarrier:
@@ -145,6 +160,32 @@ class _InsertBarrier:
             self.remaining -= 1
             if self.remaining == 0:
                 self.all_done.set()
+
+
+class ColumnFamilyHandle:
+    """Opaque per-CF handle (RocksDB's include/rocksdb/db.h
+    ColumnFamilyHandle)."""
+
+    __slots__ = ("id", "name")
+
+    def __init__(self, cf_id: int, name: str):
+        self.id = cf_id
+        self.name = name
+
+    def __repr__(self):
+        return f"ColumnFamilyHandle({self.id}, {self.name!r})"
+
+
+class _CFData:
+    """Mutable per-CF state (the memtable side of RocksDB's
+    ColumnFamilyData)."""
+
+    __slots__ = ("handle", "mem", "imm")
+
+    def __init__(self, handle: ColumnFamilyHandle, icmp, rep_name: str):
+        self.handle = handle
+        self.mem = MemTable(icmp, create_memtable_rep(rep_name))
+        self.imm: list[MemTable] = []
 
 
 class _NGetState:
@@ -217,7 +258,7 @@ class _NGetState:
 
 
 class DB:
-    """LSM engine instance (one column family). Use DB.open()."""
+    """LSM engine instance. Use DB.open()."""
 
     def __init__(self, dbname: str, options: Options, env,
                  write_plane: bool = True,
@@ -238,7 +279,7 @@ class DB:
         # stats the chain's own LRU would bypass), and each thread's
         # _NGetState.
         self._nget_lib = lib if options.block_cache is None else None
-        self._nget_tl = threading.local()
+        self._nget_tl = threading.local()  # .states: {cf_id: _NGetState}
         self.icmp = InternalKeyComparator(options.comparator)
         from toplingdb_tpu_torch.utils.file_checksum import factory_for
 
@@ -279,9 +320,10 @@ class DB:
         self.table_cache = TableCache(env, dbname, self.icmp,
                                       options.table_options)
         self.table_cache.stats = options.statistics
-        self.mem = MemTable(self.icmp,
-                            create_memtable_rep(options.memtable_rep))
-        self.imm: list[MemTable] = []
+        self.default_cf = ColumnFamilyHandle(0, "default")
+        self._cfs: dict[int, _CFData] = {
+            0: _CFData(self.default_cf, self.icmp, options.memtable_rep)
+        }
         self.blob_source = BlobSource(env, dbname)
         self.snapshots = SnapshotList()
         self._mutex = threading.RLock()
@@ -294,6 +336,8 @@ class DB:
         self._pending_outputs: set[int] = set()  # files being written by jobs
         self._bg_error: BaseException | None = None
         self._options_file_number = 0  # latest persisted OPTIONS file
+        self._file_deletions_disabled = 0  # DisableFileDeletions pin count
+        self._stats_persist_seq = 0  # suffix of persisted stats keys
         self.num_flushes = 0  # L0 tables written by flushes
         self.identity = ""
         self._init_observability()
@@ -491,6 +535,7 @@ class DB:
 
     def _recover(self) -> None:
         self.versions.recover()
+        self._materialize_cfs()
         # Replay WALs >= versions.log_number in file-number order
         # (RocksDB's DBImpl::Recover → RecoverLogFiles).
         wal_numbers = []
@@ -502,22 +547,39 @@ class DB:
                          filename.FileType.MANIFEST, filename.FileType.BLOB):
                 self.versions.mark_file_number_used(num)
         max_seq = self.versions.last_sequence
+        # Records of a CF dropped after they were logged find no memtable
+        # in the dict and are skipped.
+        mems = {cf_id: cfd.mem for cf_id, cfd in self._cfs.items()}
         for num in sorted(wal_numbers):
             path = filename.log_file_name(self.dbname, num)
             reader = LogReader(self.env.new_sequential_file(path),
                                log_number=num)
             for rec in reader.records():
                 batch = WriteBatch(rec)
-                batch.insert_into(self.mem)
+                batch.insert_into(mems)
                 end_seq = batch.sequence() + batch.count() - 1
                 max_seq = max(max_seq, end_seq)
         self.versions.last_sequence = max_seq
-        if not self.mem.empty():
-            self._flush_memtables([self.mem], wal_number=None)
-            self.mem = self._fresh_memtable()
+        any_flushed = False
+        for cf_id, cfd in self._cfs.items():
+            if not cfd.mem.empty():
+                self._flush_memtables([cfd.mem], wal_number=None,
+                                      cf_id=cf_id)
+                cfd.mem = self._fresh_memtable()
+                any_flushed = True
+        if any_flushed:
+            # One log_number advance once every CF is durable.
             self.versions.log_and_apply(
                 VersionEdit(log_number=self.versions.next_file_number)
             )
+
+    def _materialize_cfs(self) -> None:
+        """Build per-CF memtable state from the recovered VersionSet."""
+        for cf_id, st in self.versions.column_families.items():
+            if cf_id not in self._cfs:
+                h = ColumnFamilyHandle(cf_id, st.name)
+                self._cfs[cf_id] = _CFData(h, self.icmp,
+                                           self.options.memtable_rep)
 
     def _fresh_memtable(self) -> MemTable:
         return MemTable(self.icmp,
@@ -540,7 +602,7 @@ class DB:
         with self._mutex:
             if self._closed:
                 return
-            if not self.mem.empty() or self.imm:
+            if any(not c.mem.empty() or c.imm for c in self._cfs.values()):
                 self.flush(FlushOptions())
             if self._wal is not None:
                 self._wal.sync()
@@ -558,13 +620,87 @@ class DB:
     def __exit__(self, *exc):
         self.close()
 
-    def cf_name(self, cf_id: int) -> str:
-        return "default"
+    # -- default-CF views (most callers are single-CF) ------------------
 
-    def _check_cf(self, cf) -> None:
-        if cf not in (None, 0):
-            raise NotSupported(
-                "the port's DB runs the default column family only")
+    @property
+    def mem(self) -> MemTable:
+        return self._cfs[0].mem
+
+    @mem.setter
+    def mem(self, m: MemTable) -> None:
+        self._cfs[0].mem = m
+
+    @property
+    def imm(self) -> list:
+        return self._cfs[0].imm
+
+    @imm.setter
+    def imm(self, v: list) -> None:
+        self._cfs[0].imm = v
+
+    def _cf_id(self, cf) -> int:
+        if cf is None:
+            return 0
+        if isinstance(cf, ColumnFamilyHandle):
+            return cf.id
+        return int(cf)
+
+    def _cf_data(self, cf) -> _CFData:
+        cfd = self._cfs.get(self._cf_id(cf))
+        if cfd is None:
+            raise InvalidArgument(f"unknown column family {cf!r}")
+        return cfd
+
+    # -- column family management ---------------------------------------
+
+    def create_column_family(self, name: str) -> ColumnFamilyHandle:
+        with self._mutex:
+            cf_id = self.versions.create_column_family(name)
+            h = ColumnFamilyHandle(cf_id, name)
+            self._cfs[cf_id] = _CFData(h, self.icmp,
+                                       self.options.memtable_rep)
+            return h
+
+    def drop_column_family(self, handle: ColumnFamilyHandle) -> None:
+        """Drop the CF: its memtables go now, and its SSTs with the
+        obsolete-file pass, once no live iterator or in-flight job holds a
+        version of it. The calling thread's read-chain state of the CF is
+        released here (another thread's goes with that thread)."""
+        with self._mutex:
+            self.versions.drop_column_family(handle.id)
+            self._cfs.pop(handle.id, None)
+            getattr(self._nget_tl, "states", {}).pop(handle.id, None)
+            self._delete_obsolete_files()
+
+    def create_column_family_with_import(
+        self, name: str, source_dir: str, metadata=None,
+        move_files: bool = False,
+    ) -> ColumnFamilyHandle:
+        """Create a CF populated from an export_column_family directory
+        (RocksDB's DB::CreateColumnFamilyWithImport)."""
+        from toplingdb_tpu_torch.db.import_column_family_job import (
+            import_column_family,
+        )
+
+        return import_column_family(self, name, source_dir, metadata,
+                                    move_files=move_files)
+
+    def list_column_families(self) -> list[ColumnFamilyHandle]:
+        with self._mutex:
+            return [cfd.handle for cfd in self._cfs.values()]
+
+    def get_column_family(self, name: str) -> ColumnFamilyHandle | None:
+        for cfd in self._cfs.values():
+            if cfd.handle.name == name:
+                return cfd.handle
+        return None
+
+    def cf_name(self, cf_id: int) -> str:
+        cfd = self._cfs.get(cf_id)
+        if cfd is not None:
+            return cfd.handle.name
+        st = self.versions.column_families.get(cf_id)
+        return st.name if st is not None else f"cf{cf_id}"
 
     # ==================================================================
     # Write path
@@ -572,37 +708,32 @@ class DB:
 
     def put(self, key: bytes, value: bytes, opts: WriteOptions = _DEFAULT_WRITE,
             cf=None) -> int:
-        self._check_cf(cf)
         b = WriteBatch()
-        b.put(key, value)
+        b.put(key, value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
                cf=None) -> int:
-        self._check_cf(cf)
         b = WriteBatch()
-        b.delete(key)
+        b.delete(key, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def single_delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
                       cf=None) -> int:
-        self._check_cf(cf)
         b = WriteBatch()
-        b.single_delete(key)
+        b.single_delete(key, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def merge(self, key: bytes, value: bytes,
               opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
-        self._check_cf(cf)
         b = WriteBatch()
-        b.merge(key, value)
+        b.merge(key, value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete_range(self, begin: bytes, end: bytes,
                      opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
-        self._check_cf(cf)
         b = WriteBatch()
-        b.delete_range(begin, end)
+        b.delete_range(begin, end, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def write(self, batch: WriteBatch,
@@ -616,9 +747,6 @@ class DB:
         if batch.is_empty():
             return self.versions.last_sequence
         self._check_open()  # fail fast before any stall sleep
-        if not batch._simple and batch.column_families() - {0}:
-            raise NotSupported(
-                "the port's DB runs the default column family only")
         tracer = self.tracer
         root = None
         if tracer is not None and tracer.sample_every \
@@ -696,7 +824,7 @@ class DB:
         w.event.clear()
         err: BaseException | None = None
         try:
-            w.batch.insert_into(w.pg_mem)
+            w.batch.insert_into(w.pg_mems)
         except BaseException as e:  # noqa: BLE001
             err = e
         w.pg.member_done(err)
@@ -783,7 +911,7 @@ class DB:
     # -- the fused native write plane -----------------------------------
 
     def _native_group_commit(self, group: list[_Writer], first_seq: int,
-                             mem, frame: bool):
+                             mems, frame: bool):
         """The fused native write plane for one group
         (tpulsm_wb_group_commit): the frame call re-sequences the merged
         header and frames the WAL record gather-style (no Python
@@ -797,11 +925,14 @@ class DB:
         validates and inserts in ONE call and returns True.
         Returns None on fallback, with nothing framed or inserted: the
         Python interiors take CF-prefixed records, range deletes,
-        wide-column entities, merge-heavy groups and non-native reps."""
+        wide-column entities, merge-heavy groups and non-native reps.
+        `mems` is {cf_id: active memtable}; only the default CF's is
+        written here."""
         fn = self._write_plane
         if fn is None:
             return None
-        gh = mem.group_handle()
+        mem = mems.get(0)
+        gh = mem.group_handle() if mem is not None else None
         if gh is None:
             return None
         reps = []
@@ -891,14 +1022,14 @@ class DB:
             for w in group:
                 w.batch.set_sequence(seq)
                 seq += w.batch.count()
-            mem = self.mem
+            mems = {cf_id: cfd.mem for cf_id, cfd in self._cfs.items()}
             # The native plane frames and appends the merged WAL record
             # first (a WAL failure inserts nothing, as on the Python path),
             # then applies the whole group to the memtable in one call.
             wal_on = (self.options.wal_enabled
                       and not group[0].opts.disable_wal)
             with _tm.span("write.wal_frame", group=len(group), wal=wal_on):
-                plane = self._native_group_commit(group, first_seq, mem,
+                plane = self._native_group_commit(group, first_seq, mems,
                                                   frame=wal_on)
                 if plane is None and wal_on:
                     self._append_group_wal(group, first_seq)
@@ -906,7 +1037,7 @@ class DB:
             if plane is None:
                 with _tm.span("write.memtable_apply", group=len(group),
                               native=False):
-                    self._apply_group(group, mem)
+                    self._apply_group(group, mems)
             elif plane is not True:
                 with _tm.span("write.memtable_apply", group=len(group),
                               native=True):
@@ -927,13 +1058,16 @@ class DB:
                 if len(group) > 1:
                     self.stats.record_tick(_st.WRITE_DONE_BY_OTHER,
                                            len(group) - 1)
-            if mem.approximate_memory_usage() >= self.options.write_buffer_size:
+            # The write buffer budget covers every CF's active memtable.
+            total_mem = sum(c.mem.approximate_memory_usage()
+                            for c in self._cfs.values())
+            if total_mem >= self.options.write_buffer_size:
                 self._switch_memtable()
                 self._flush_immutables()
 
-    def _apply_group(self, group: list[_Writer], mem) -> None:
-        """The group's memtable phase (caller holds _mutex, so no memtable
-        switch can race it)."""
+    def _apply_group(self, group: list[_Writer], mems) -> None:
+        """The group's memtable phase into `mems` ({cf_id: memtable}; the
+        caller holds _mutex, so no memtable switch can race it)."""
         if self.options.allow_concurrent_memtable_write and len(group) > 1:
             # Parallel memtable phase (RocksDB's
             # LaunchParallelMemTableWriters): followers insert their own
@@ -942,11 +1076,11 @@ class DB:
             pg = _InsertBarrier(len(group))
             for w in group[1:]:
                 w.pg = pg
-                w.pg_mem = mem
+                w.pg_mems = mems
                 w.parallel = True
                 w.event.set()
             try:
-                group[0].batch.insert_into(mem)
+                group[0].batch.insert_into(mems)
                 pg.member_done()
             except BaseException as e:  # noqa: BLE001
                 pg.member_done(e)
@@ -957,43 +1091,52 @@ class DB:
                 raise pg.error
         else:
             for w in group:
-                w.batch.insert_into(mem)
+                w.batch.insert_into(mems)
 
     def _switch_memtable(self) -> None:
-        """Seal the non-empty active memtable and start a new WAL (RocksDB's
-        DBImpl::SwitchMemtable)."""
+        """Seal every CF's non-empty active memtable and start a new WAL
+        (RocksDB's DBImpl::SwitchMemtable; switching all CFs at once lets
+        the log number advance safely)."""
         if self._wal is not None:
             self._wal.sync()
             self._wal.close()
-        if not self.mem.empty():
-            self.imm.insert(0, self.mem)
-            self.mem = self._fresh_memtable()
+        for cfd in self._cfs.values():
+            if not cfd.mem.empty():
+                cfd.imm.insert(0, cfd.mem)
+                cfd.mem = self._fresh_memtable()
         self._new_wal()
 
     def _flush_immutables(self) -> None:
-        if self.imm:
-            self._flush_memtables(list(self.imm), wal_number=None)
-            self.imm = []
-            # Advance log_number only once the data below the current WAL
-            # is durable in SSTs.
+        flushed = False
+        for cf_id, cfd in self._cfs.items():
+            if not cfd.imm:
+                continue
+            self._flush_memtables(list(cfd.imm), wal_number=None,
+                                  cf_id=cf_id)
+            cfd.imm = []
+            flushed = True
+        if flushed:
+            # Advance log_number only after EVERY CF's data below the
+            # current WAL is durable in SSTs: a crash mid-flush must still
+            # replay the old WALs for the CFs not yet flushed.
             self.versions.log_and_apply(
                 VersionEdit(log_number=self._wal_number))
             self._delete_obsolete_files()
             self._maybe_schedule_compaction()
 
-    def _flush_memtables(self, mems: list[MemTable],
-                         wal_number: int | None) -> None:
+    def _flush_memtables(self, mems: list[MemTable], wal_number: int | None,
+                         cf_id: int = 0) -> None:
         # Flushes are rare and high-value: always traced while a tracer
         # exists (sampling applies to the per-op read / write roots only).
-        root = (self.tracer.start("flush", cf_id=0, memtables=len(mems))
+        root = (self.tracer.start("flush", cf_id=cf_id, memtables=len(mems))
                 if self.tracer is not None else _tm.NOOP_SPAN)
         try:
-            self._flush_memtables_traced(mems, wal_number)
+            self._flush_memtables_traced(mems, wal_number, cf_id)
         finally:
             root.finish()
 
     def _flush_memtables_traced(self, mems: list[MemTable],
-                                wal_number: int | None) -> None:
+                                wal_number: int | None, cf_id: int) -> None:
         t0 = time.time()
         fnum = self.versions.new_file_number()
         # Guard the in-flight output from obsolete-file GC until the
@@ -1005,12 +1148,12 @@ class DB:
                     self.env, self.dbname, fnum, self.icmp, mems,
                     self.options.table_options_for_level(0),
                     creation_time=int(time.time()),
-                    column_family=(0, "default"),
+                    column_family=(cf_id, self.cf_name(cf_id)),
                 )
             if meta is not None:
                 self._stamp_file_checksums([meta])
                 self.num_flushes += 1
-            edit = VersionEdit(log_number=wal_number)
+            edit = VersionEdit(log_number=wal_number, column_family=cf_id)
             if meta is not None:
                 edit.add_file(0, meta)
             self.versions.log_and_apply(edit)
@@ -1040,7 +1183,7 @@ class DB:
         flush is synchronous, so `fopts.wait` is always honoured."""
         with self._mutex:
             self._check_open()
-            if not self.mem.empty():
+            if any(not c.mem.empty() for c in self._cfs.values()):
                 self._switch_memtable()
             self._flush_immutables()
 
@@ -1063,27 +1206,32 @@ class DB:
     # Read path
     # ==================================================================
 
-    def _nget_state(self, opts):
+    def _nget_state(self, cfd, opts):
         """The native chain's eligibility gate and this thread's call
-        state: (lib, state), state None when the Python chain must run.
-        The state is PER-THREAD (the context's out and value buffers are
-        written inside a GIL-released call) and keyed by the identity of
-        (active memtable, immutables, version); it holds refs to them, so
-        a flush or a compaction that installs a new version makes the next
-        get rebuild it while the old handles live on with the old state."""
+        state for CF `cfd`: (lib, state), state None when the Python chain
+        must run. The state is PER-THREAD (the context's out and value
+        buffers are written inside a GIL-released call), one per CF, and
+        keyed by the identity of (active memtable, immutables, version); it
+        holds refs to them, so a flush or a compaction that installs a new
+        version makes the next get rebuild it while the old handles live on
+        with the old state."""
         lib = self._nget_lib
         if lib is None or opts.just_check_key_exists:
             return lib, None
-        mem = self.mem
+        mem = cfd.mem
         if mem._range_dels:
             # The ACTIVE memtable mutates under a cached state, so this
             # check runs per call; immutables are frozen and are vetted
             # once, when the state is built.
             return lib, None
-        imm = self.imm
-        version = self.versions.current
+        imm = cfd.imm
+        version = self.versions.cf_current(cfd.handle.id)
         tl = self._nget_tl
-        cc = getattr(tl, "state", None)
+        try:
+            states = tl.states
+        except AttributeError:
+            states = tl.states = {}
+        cc = states.get(cfd.handle.id)
         if cc is not None and cc.mem is mem and cc.version is version \
                 and cc.imm == imm:
             return lib, cc
@@ -1092,10 +1240,10 @@ class DB:
         cc = _NGetState.build(lib, mem, imm, version, self.table_cache)
         if cc is None:
             return lib, None
-        tl.state = cc
+        states[cfd.handle.id] = cc
         return lib, cc
 
-    def _native_get(self, key: bytes, snap_seq: int, opts):
+    def _native_get(self, cfd, key: bytes, snap_seq: int, opts):
         """One-call native point lookup (RocksDB's GetImpl chain in one
         GIL-released call: DBImpl::GetImpl → Version::Get →
         BlockBasedTable::Get). Returns (handled, value, src): handled=False
@@ -1104,16 +1252,20 @@ class DB:
         the counters are read from context-owned memory mapped once."""
         # Inlined steady-state check (one cached-state hit per get is the
         # common case; _nget_state handles every slow or ineligible path).
-        mem = self.mem
+        mem = cfd.mem
         cc = None
         if opts is _DEFAULT_READ and not mem._range_dels:
-            cc = getattr(self._nget_tl, "state", None)
-            if cc is not None and (cc.mem is not mem
-                                   or cc.version is not self.versions.current
-                                   or cc.imm != self.imm):
-                cc = None
+            states = getattr(self._nget_tl, "states", None)
+            if states is not None:
+                cc = states.get(cfd.handle.id)
+                if cc is not None and (
+                        cc.mem is not mem
+                        or cc.version is not self.versions.cf_current(
+                            cfd.handle.id)
+                        or cc.imm != cfd.imm):
+                    cc = None
         if cc is None:
-            _lib, cc = self._nget_state(opts)
+            _lib, cc = self._nget_state(cfd, opts)
             if cc is None:
                 return False, None, None
         fast = cc.fast
@@ -1237,8 +1389,8 @@ class DB:
 
     def _get_impl(self, key: bytes, opts: ReadOptions, cf) -> bytes | None:
         self._check_open()
-        self._check_cf(cf)
         self._check_read_options(opts)
+        cfd = self._cf_data(cf)
         snap_seq = (
             opts.snapshot.sequence if opts.snapshot is not None
             else self.versions.last_sequence
@@ -1249,7 +1401,7 @@ class DB:
         # GIL-released call. Anything the Python state machine must see
         # (merge operands, single deletes in SSTs, blob indexes, range
         # tombstones, wide-column entities) falls through below.
-        handled, val, src = self._native_get(key, snap_seq, opts)
+        handled, val, src = self._native_get(cfd, key, snap_seq, opts)
         if handled:
             if st_on:
                 self._record_get_stats(t0, val, src)
@@ -1257,13 +1409,13 @@ class DB:
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
-        for mem in [self.mem] + self.imm:
+        for mem in [cfd.mem] + cfd.imm:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
                 if st_on:
                     self._record_get_stats(t0, ctx.result(), "mem")
                 return self._result(ctx)
         # 2. SST files, newest data first.
-        version = self.versions.current
+        version = self.versions.cf_current(cfd.handle.id)
         hit_level = None
         for level, f in version.files_for_get(key):
             reader = self.table_cache.get_reader(f.number)
@@ -1305,20 +1457,20 @@ class DB:
 
     def new_iterator(self, opts: ReadOptions = _DEFAULT_READ,
                      cf=None) -> DBIter:
-        """MVCC iterator over the whole keyspace (RocksDB's
+        """MVCC iterator over the whole keyspace of CF `cf` (RocksDB's
         DBImpl::NewIterator → DBIter over a MergingIterator)."""
         self._check_open()
-        self._check_cf(cf)
         self._check_read_options(opts)
+        cfd = self._cf_data(cf)
         with self._mutex:
             snap_seq = (
                 opts.snapshot.sequence if opts.snapshot is not None
                 else self.versions.last_sequence
             )
-            version = self.versions.current
+            version = self.versions.cf_current(cfd.handle.id)
             children = []
             rd = RangeDelAggregator(self.icmp.user_comparator)
-            for mem in [self.mem] + self.imm:
+            for mem in [cfd.mem] + cfd.imm:
                 children.append(mem.new_iterator())
                 for seq, begin, end in mem.range_del_entries():
                     rd.add(RangeTombstone(seq, begin, end))
@@ -1354,7 +1506,7 @@ class DB:
             # decode + k-way merge for forward scans; None when the
             # iterator's shape is ineligible (the per-entry path runs).
             plane = make_scan_plane(
-                mems=[self.mem] + list(self.imm),
+                mems=[cfd.mem] + list(cfd.imm),
                 l0_files=list(version.files[0]),
                 level_runs=[version.files[lv]
                             for lv in range(1, version.num_levels)
@@ -1372,6 +1524,11 @@ class DB:
             )
             if plane is not None:
                 it.attach_scan_plane(plane)
+            if opts.snapshot is None:
+                # Refresh re-reads at the LATEST sequence; a snapshot-pinned
+                # iterator cannot refresh (RocksDB's Iterator::Refresh
+                # returns NotSupported for it).
+                it._refresh_fn = lambda: self.new_iterator(opts, cf)
             if self.stats is not None:
                 it.stats = self.stats
                 self.stats.record_tick(_st.NO_ITERATOR_CREATED)
@@ -1412,22 +1569,60 @@ class DB:
             self._bg_error = e
         notify(self.options.listeners, "on_background_error", self, e)
 
-    def get_stats_history(self, start_time: int = 0,
-                          end_time: int = 2 ** 62):
+    _STATS_CF = "__tpulsm_stats__"
+
+    def get_stats_history(self, start_time: int = 0, end_time: int = 2 ** 62,
+                          include_persisted: bool = False):
         """Time-series ticker deltas (RocksDB's DBImpl::GetStatsHistory):
         samples taken every stats_persist_period_sec, or by
-        persist_stats()."""
-        return self.stats_history.get(start_time, end_time)
+        persist_stats(). With include_persisted, the samples that
+        persist_stats(to_db=True) stored in the hidden stats CF are merged
+        in (RocksDB's persist_stats_to_disk)."""
+        out = self.stats_history.get(start_time, end_time)
+        if include_persisted:
+            in_memory = {ts for ts, _ in out}
+            cf = self.get_column_family(self._STATS_CF)
+            if cf is not None:
+                it = self.new_iterator(cf=cf)
+                it.seek(b"%020d" % start_time)
+                while it.valid():
+                    try:
+                        ts = int(it.key().split(b".")[0].decode())
+                        delta = {
+                            k: int(v) for k, v in
+                            json.loads(it.value().decode()).items()
+                        }
+                    except (ValueError, UnicodeDecodeError):
+                        it.next()
+                        continue  # a foreign or corrupt entry: skip it
+                    if ts >= end_time:
+                        break
+                    if ts not in in_memory:  # no sample counted twice
+                        out.append((ts, delta))
+                    it.next()
+                out.sort(key=lambda s: s[0])
+        return out
 
     def persist_stats(self, to_db: bool = False) -> None:
-        """Snapshot the tickers into the stats history. `to_db=True`
-        (toplingdb_tpu's hidden stats column family) is refused: the port's
-        DB runs one column family."""
-        if to_db:
-            raise NotSupported(
-                "persist_stats(to_db=True) writes the hidden stats column "
-                "family: column families are not ported yet")
+        """Snapshot the tickers into the stats history; with to_db=True,
+        also write the sample into the hidden stats CF (created on first
+        use), keyed by its timestamp and a counter."""
         self.stats_history.snapshot()
+        if not to_db:
+            return
+        sample = self.stats_history.last_sample()
+        if sample is None:
+            return
+        with self._mutex:
+            cf = self.get_column_family(self._STATS_CF)
+            if cf is None:
+                cf = self.create_column_family(self._STATS_CF)
+            self._stats_persist_seq += 1
+            seq = self._stats_persist_seq
+        ts, delta = sample
+        # Counter suffix: two persists in the same second must not collide.
+        self.put(b"%020d.%06d" % (ts, seq), json.dumps(delta).encode(),
+                 cf=cf)
 
     def _maybe_schedule_compaction(self) -> None:
         if (self._compaction_scheduler is not None
@@ -1435,7 +1630,11 @@ class DB:
             self._compaction_scheduler.maybe_schedule()
 
     def _max_l0_files(self) -> int:
-        return len(self.versions.current.files[0])
+        """L0 files of the worst CF: a pileup in any CF throttles."""
+        return max(
+            (len(self.versions.cf_current(cf_id).files[0])
+             for cf_id in self.versions.column_families), default=0,
+        )
 
     def _maybe_stall_writes(self, timeout: float = 10.0) -> None:
         """L0 back-pressure (RocksDB's WriteController and the
@@ -1480,10 +1679,26 @@ class DB:
             self.stats.record_in_histogram(_st.WRITE_STALL_MICROS_HIST,
                                            micros)
 
+    def disable_file_deletions(self) -> None:
+        """RocksDB's DB::DisableFileDeletions (an export pins the file set
+        while it links the files). Counted: each disable needs a matching
+        enable."""
+        with self._mutex:
+            self._file_deletions_disabled += 1
+
+    def enable_file_deletions(self, force: bool = False) -> None:
+        with self._mutex:
+            n = self._file_deletions_disabled
+            self._file_deletions_disabled = 0 if force else max(0, n - 1)
+            if n > 0 and self._file_deletions_disabled == 0:
+                self._delete_obsolete_files()  # the last unpin purges
+
     def _delete_obsolete_files(self) -> None:
-        """GC: remove WALs below the manifest log number, non-live SSTs,
-        stale MANIFESTs and OPTIONS files (RocksDB's
+        """GC: remove WALs below the manifest log number, SSTs no CF's
+        live versions hold, stale MANIFESTs and OPTIONS files (RocksDB's
         DBImpl::DeleteObsoleteFiles)."""
+        if self._file_deletions_disabled:
+            return  # an export is pinning the file set
         live, live_blobs = self.versions.live_file_sets()
         for child in self.env.get_children(self.dbname):
             ftype, num = filename.parse_file_name(child)

@@ -57,6 +57,19 @@ class DBIter:
         # per-entry path, so the plane is dropped once that is established.
         self._plane_seeks = 0
         self._plane_steps = 0
+        self._refresh_fn = None  # set by DB.new_iterator
+
+    def refresh(self) -> None:
+        """Rebind to the DB's current state (RocksDB's Iterator::Refresh):
+        the new memtable and SST sources and the latest sequence. The
+        position is invalidated: seek again, as in RocksDB."""
+        if self._refresh_fn is None:
+            from toplingdb_tpu_torch.utils.status import NotSupported
+
+            raise NotSupported("iterator was not created by DB.new_iterator")
+        fn = self._refresh_fn
+        self.__dict__.update(fn().__dict__)
+        self._refresh_fn = fn
 
     def attach_scan_plane(self, plane) -> None:
         self._plane = plane

@@ -1,6 +1,6 @@
 """Version / VersionSet: the LSM metadata spine (copied from
-toplingdb_tpu/db/version_set.py, trimmed to one column family and without
-the native read chain).
+toplingdb_tpu/db/version_set.py, with the column families and without the
+replication epoch and the read-only recovery).
 
 The roles of RocksDB's Version / VersionSet / VersionBuilder
 (db/version_set.cc `Version::Get`, `LogAndApply`, `Recover`): a Version is
@@ -9,6 +9,12 @@ VersionSet owns the current Version, the MANIFEST log, and the file and
 sequence number allocators; VersionBuilder applies VersionEdits to produce
 new Versions. The MANIFEST records are toplingdb_tpu's, so either package
 opens the other's DB directory.
+
+Column families (RocksDB's ColumnFamilySet): each CF has its own Version;
+one MANIFEST, one file-number allocator and one sequence serve them all.
+An edit names its CF (`VersionEdit.column_family`); an edit for a CF that
+was dropped meanwhile is discarded, as a device job may finish after its
+CF was dropped.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from toplingdb_tpu_torch.db import dbformat, filename
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.db.log import LogReader, LogWriter
 from toplingdb_tpu_torch.db.version_edit import FileMetaData, VersionEdit
-from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
+from toplingdb_tpu_torch.utils.status import Corruption, InvalidArgument
 
 
 # A read chain pins a reader and a dup'd fd per file for the version's
@@ -234,6 +240,19 @@ class _SmallestKey:
         return self.icmp.compare(self.k, other.k) < 0
 
 
+class ColumnFamilyState:
+    """Per-CF metadata inside the VersionSet (RocksDB's ColumnFamilyData,
+    db/column_family.h)."""
+
+    __slots__ = ("cf_id", "name", "current", "dropped")
+
+    def __init__(self, cf_id: int, name: str, current: Version):
+        self.cf_id = cf_id
+        self.name = name
+        self.current = current
+        self.dropped = False
+
+
 class VersionSet:
     def __init__(self, env, dbname: str, icmp: InternalKeyComparator,
                  num_levels: int = 7):
@@ -244,10 +263,14 @@ class VersionSet:
         # Weak registry of every Version still referenced anywhere (readers
         # hold strong refs while in flight) — the GC analogue of RocksDB's
         # Version refcounts: obsolete-file deletion must respect files
-        # visible to ANY live Version, not just `current`.
+        # visible to ANY live Version, not just the current ones.
         self._all_versions: "weakref.WeakSet[Version]" = weakref.WeakSet()
-        self.current = Version(icmp, num_levels)
-        self._all_versions.add(self.current)
+        v0 = Version(icmp, num_levels)
+        self._all_versions.add(v0)
+        self.column_families: dict[int, ColumnFamilyState] = {
+            0: ColumnFamilyState(0, "default", v0)
+        }
+        self.max_column_family = 0
         self.last_sequence = 0
         self.log_number = 0          # WALs with number < this are obsolete
         self.prev_log_number = 0
@@ -255,6 +278,19 @@ class VersionSet:
         self._next_file_number = 2
         self._manifest_writer: LogWriter | None = None
         self._lock = threading.Lock()
+
+    # The default CF's Version: the single-CF view wherever the CF does not
+    # matter.
+    @property
+    def current(self) -> Version:
+        return self.column_families[0].current
+
+    @current.setter
+    def current(self, v: Version) -> None:
+        self.column_families[0].current = v
+
+    def cf_current(self, cf_id: int) -> Version:
+        return self.column_families[cf_id].current
 
     # -- number allocation ---------------------------------------------
 
@@ -295,8 +331,8 @@ class VersionSet:
 
     def recover(self) -> None:
         """Replay CURRENT → MANIFEST into the in-memory state (RocksDB's
-        VersionSet::Recover), then roll the MANIFEST into a fresh snapshot
-        file for appending."""
+        VersionSet::Recover): every CF's adds, drops and file edits, then
+        roll the MANIFEST into a fresh snapshot file for appending."""
         cur = self.env.read_file(filename.current_file_name(self.dbname))
         try:
             name = cur.decode().strip()
@@ -310,18 +346,25 @@ class VersionSet:
             raise Corruption(f"CURRENT points at {name!r}") from None
         path = filename.manifest_file_name(self.dbname, self.manifest_file_number)
         reader = LogReader(self.env.new_sequential_file(path))
-        builder = VersionBuilder(Version(self.icmp, self.num_levels))
+        builders: dict[int, VersionBuilder] = {}
+        cf_names: dict[int, str] = {}
+        dropped: set[int] = set()
         have_comparator = None
+        next_cf_hint = 0
         have_log_number = have_next_file = have_last_seq = False
         n_records = 0
         for rec in reader.records():
             n_records += 1
             edit = VersionEdit.decode(rec)
-            if edit.column_family or edit.column_family_drop or (
-                    edit.column_family_add not in (None, "default")):
-                raise NotSupported(
-                    f"{path} holds column families other than the default "
-                    f"one; the port's DB runs the default column family only")
+            cf = edit.column_family
+            if edit.column_family_add is not None:
+                cf_names[cf] = edit.column_family_add
+                builders.setdefault(
+                    cf, VersionBuilder(Version(self.icmp, self.num_levels)))
+            if edit.column_family_drop:
+                dropped.add(cf)
+            if edit.max_column_family is not None:
+                next_cf_hint = max(next_cf_hint, edit.max_column_family)
             if edit.comparator is not None:
                 have_comparator = edit.comparator
             if edit.log_number is not None:
@@ -336,7 +379,9 @@ class VersionSet:
                 self.last_sequence = edit.last_sequence
                 have_last_seq = True
             if edit.new_files or edit.deleted_files:
-                builder.apply(edit)
+                builders.setdefault(
+                    cf, VersionBuilder(Version(self.icmp, self.num_levels))
+                ).apply(edit)
         if have_comparator is not None and have_comparator != self.icmp.user_comparator.name():
             raise Corruption(
                 f"comparator mismatch: DB created with {have_comparator}, "
@@ -354,8 +399,18 @@ class VersionSet:
                 f"manifest {path} yields no {'/'.join(missing)} entry "
                 f"({n_records} records decoded): corrupt descriptor head"
             )
-        self.current = builder.save()
-        self._all_versions.add(self.current)
+        builders.setdefault(0, VersionBuilder(Version(self.icmp, self.num_levels)))
+        cf_names.setdefault(0, "default")
+        self.column_families = {}
+        for cf, b in builders.items():
+            if cf in dropped:
+                continue
+            v = b.save()
+            self._all_versions.add(v)
+            self.column_families[cf] = ColumnFamilyState(
+                cf, cf_names.get(cf, f"cf{cf}"), v)
+        self.max_column_family = max(
+            [next_cf_hint] + list(self.column_families))
         self.mark_file_number_used(self.manifest_file_number)
         self._reopen_manifest_for_append()
 
@@ -367,35 +422,47 @@ class VersionSet:
         newpath = filename.manifest_file_name(self.dbname, self.manifest_file_number)
         w = self.env.new_writable_file(newpath)
         self._manifest_writer = LogWriter(w)
-        self._manifest_writer.add_record(self._snapshot_edit().encode())
+        for snap in self._snapshot_edits():
+            self._manifest_writer.add_record(snap.encode())
         self._manifest_writer.sync()
         filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
 
-    def _snapshot_edit(self) -> VersionEdit:
-        edit = VersionEdit(
-            column_family=0,
-            column_family_add="default",
-            max_column_family=0,
-            comparator=self.icmp.user_comparator.name(),
-            log_number=self.log_number,
-            prev_log_number=self.prev_log_number,
-            next_file_number=self._next_file_number,
-            last_sequence=self.last_sequence,
-        )
-        for level, f in self.current.all_files():
-            edit.add_file(level, f)
-        return edit
+    def _snapshot_edits(self) -> list[VersionEdit]:
+        """One snapshot record per CF, in id order; the default CF's also
+        carries the descriptor fields."""
+        edits = []
+        for cf_id in sorted(self.column_families):
+            st = self.column_families[cf_id]
+            edit = VersionEdit(
+                column_family=cf_id,
+                column_family_add=st.name,
+                max_column_family=self.max_column_family,
+            )
+            if cf_id == 0:
+                edit.comparator = self.icmp.user_comparator.name()
+                edit.log_number = self.log_number
+                edit.prev_log_number = self.prev_log_number
+                edit.next_file_number = self._next_file_number
+                edit.last_sequence = self.last_sequence
+            for level, f in st.current.all_files():
+                edit.add_file(level, f)
+            edits.append(edit)
+        return edits
 
     def log_and_apply(self, edit: VersionEdit, sync: bool = True) -> None:
-        """Append edit to the MANIFEST and install the resulting Version
-        (RocksDB's VersionSet::LogAndApply)."""
+        """Append edit to the MANIFEST and install the resulting Version for
+        the edit's column family (RocksDB's VersionSet::LogAndApply). An
+        edit for a CF dropped meanwhile is discarded."""
         with self._lock:
+            st = self.column_families.get(edit.column_family)
+            if st is None:
+                return
             if edit.log_number is not None:
                 assert edit.log_number >= self.log_number
                 self.log_number = edit.log_number
             edit.next_file_number = self._next_file_number
             edit.last_sequence = self.last_sequence
-            builder = VersionBuilder(self.current)
+            builder = VersionBuilder(st.current)
             builder.apply(edit)
             new_version = builder.save()
             assert self._manifest_writer is not None
@@ -403,7 +470,46 @@ class VersionSet:
             if sync:
                 self._manifest_writer.sync()
             self._all_versions.add(new_version)
-            self.current = new_version
+            st.current = new_version
+
+    def create_column_family(self, name: str) -> int:
+        """Register a new CF in the MANIFEST; returns its id (RocksDB's
+        VersionSet::CreateColumnFamily). Ids are never reused: a name
+        created again after a drop gets a fresh id."""
+        with self._lock:
+            for st in self.column_families.values():
+                if st.name == name:
+                    raise Corruption(f"column family {name!r} already exists")
+            cf_id = self.max_column_family + 1
+            self.max_column_family = cf_id
+            edit = VersionEdit(
+                column_family=cf_id, column_family_add=name,
+                max_column_family=cf_id,
+            )
+            assert self._manifest_writer is not None
+            self._manifest_writer.add_record(edit.encode())
+            self._manifest_writer.sync()
+            v = Version(self.icmp, self.num_levels)
+            self._all_versions.add(v)
+            self.column_families[cf_id] = ColumnFamilyState(cf_id, name, v)
+            return cf_id
+
+    def drop_column_family(self, cf_id: int) -> None:
+        """Record the drop in the MANIFEST. The default CF cannot be
+        dropped; dropping an unknown (or already dropped) CF raises
+        InvalidArgument."""
+        with self._lock:
+            if cf_id == 0:
+                raise Corruption("cannot drop the default column family")
+            if cf_id not in self.column_families:
+                raise InvalidArgument(
+                    f"column family {cf_id} does not exist (double drop?)")
+            st = self.column_families.pop(cf_id)
+            st.dropped = True
+            edit = VersionEdit(column_family=cf_id, column_family_drop=True)
+            assert self._manifest_writer is not None
+            self._manifest_writer.add_record(edit.encode())
+            self._manifest_writer.sync()
 
     def close(self) -> None:
         if self._manifest_writer is not None:
@@ -413,12 +519,14 @@ class VersionSet:
     # -- introspection --------------------------------------------------
 
     def live_file_sets(self) -> tuple[set[int], set[int]]:
-        """(sst_numbers, blob_numbers) referenced by the current version
-        OR any version still held by an in-flight reader/iterator — the
-        deletion guards for obsolete-file GC, filled in one pass."""
+        """(sst_numbers, blob_numbers) referenced by any CF's current
+        version OR any version still held by an in-flight reader/iterator —
+        the deletion guards for obsolete-file GC, filled in one pass."""
         ssts: set[int] = set()
         blobs: set[int] = set()
-        for v in list(self._all_versions) + [self.current]:
+        versions = list(self._all_versions) + [
+            st.current for st in self.column_families.values()]
+        for v in versions:
             for _, f in v.all_files():
                 ssts.add(f.number)
                 blobs.update(f.blob_refs)

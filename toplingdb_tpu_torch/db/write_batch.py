@@ -15,8 +15,8 @@ record and then applied to the memtable entry by entry with consecutive
 sequence numbers.
 
 Column families: non-default-CF records use the CF-prefixed record types
-(0x80 | base_type) followed by a varint32 column family id. The port's DB
-runs the default column family only and refuses the others.
+(0x80 | base_type) followed by a varint32 column family id, the same
+scheme as RocksDB's kTypeColumnFamily* records.
 """
 
 from __future__ import annotations
@@ -124,10 +124,6 @@ class WriteBatch:
     def is_empty(self) -> bool:
         return self.count() == 0
 
-    def column_families(self) -> set[int]:
-        """The column family ids this batch writes to."""
-        return {cf for cf, _t, _k, _v in self.entries_cf()}
-
     # -- iteration ------------------------------------------------------
 
     def entries(self):
@@ -171,24 +167,35 @@ class WriteBatch:
             )
 
     def insert_into(self, memtable, sequence: int | None = None) -> int:
-        """Apply to one memtable; returns the number of sequence numbers
-        consumed (== count). Simple batches (default-CF point records
-        only) apply through ONE native wire-image call
-        (MemTable.add_encoded — no per-record Python); the rest run the
-        parsed path, one native call per batch of point records."""
+        """Apply to one memtable (single-CF) or a {cf_id: memtable} dict;
+        returns the number of sequence numbers consumed (== count).
+        Records for CFs absent from the dict are skipped (a dropped CF).
+        Simple batches (default-CF point records only) apply through ONE
+        native wire-image call (MemTable.add_encoded — no per-record
+        Python); the rest run the parsed path with one native call per
+        same-memtable run."""
         seq = self.sequence() if sequence is None else sequence
+        is_map = isinstance(memtable, dict)
         if self._simple and self.count():
-            if memtable.add_encoded(seq, self.data()) is not None:
+            mem0 = memtable.get(0) if is_map else memtable
+            if mem0 is None:
+                return self.count()  # default CF dropped: all skipped
+            if mem0.add_encoded(seq, self.data()) is not None:
                 return self.count()
-        ops = []
+        run_mem = None
+        run_seq = seq
+        run: list = []
         for cf, t, k, v in self.entries_cf():
-            if cf != 0:
-                from toplingdb_tpu_torch.utils.status import NotSupported
-
-                raise NotSupported(
-                    f"column family {cf}: the port's DB runs the default "
-                    f"column family only")
-            ops.append((t, k, v))
-        if ops:
-            memtable.add_batch(seq, ops)
+            mem = memtable.get(cf) if is_map else memtable
+            if mem is not run_mem:
+                if run:
+                    run_mem.add_batch(run_seq, run)
+                    run = []
+                run_mem = mem
+                run_seq = seq
+            if mem is not None:
+                run.append((t, k, v))
+            seq += 1
+        if run and run_mem is not None:
+            run_mem.add_batch(run_seq, run)
         return self.count()

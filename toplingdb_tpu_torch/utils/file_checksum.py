@@ -96,3 +96,21 @@ def stamp_file_checksum(env, path: str, meta, factory) -> None:
     gen = factory.create()
     meta.file_checksum = compute_file_checksum(env, path, gen)
     meta.file_checksum_func_name = gen.name
+
+
+def verify_recorded_checksum(env, path: str, meta) -> int:
+    """Recompute and compare one file's recorded checksum; returns the
+    bytes verified (0 when the meta carries none). Raises Corruption on a
+    mismatch."""
+    if not meta.file_checksum:
+        return 0
+    gen = FileChecksumGenFactory(meta.file_checksum_func_name
+                                 or DEFAULT_CHECKSUM_NAME).create()
+    actual = compute_file_checksum(env, path, gen)
+    if actual != meta.file_checksum:
+        raise Corruption(
+            f"file checksum mismatch on {path}: recorded "
+            f"{meta.file_checksum.hex()} ({meta.file_checksum_func_name}), "
+            f"recomputed {actual.hex()}"
+        )
+    return env.get_file_size(path)
