@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit code):
      the main paths' shapes (bitwise; gc_rows and the merge at the
      pipelined route's p = 2^19, the serial packed route's p = 2^20 and the
      block-assembly route's p = 2^22), with its median time over 25
-     launches with the L2 flushed, the plain version's time, the least time
+     launches with the L2 flushed (after one untimed launch of the same
+     form), the plain version's time, the least time
      the card could take (bound) and, for the merge, the LSD torch.sort
      passes of the CPU "sort" mode as the library yardstick; then one
      serial-route shard through the whole shard program, timed, with its
@@ -201,6 +202,48 @@ Phases (any failure ends the run with a non-zero exit code):
      compact_range's wall and raw MB/s, readrandom ops/s, the scan wall
      per CF, the export, import and reopen walls, and the card's busy
      share from open to compact_range's end.
+ 16. the compaction styles at phase 13's deployment (DB_N keys from 4
+     threads in batches of 100, 8 MiB write buffer, the "cuda" device
+     factory, a Statistics). (a) universal: db_bench --compaction_style=1
+     with RocksDB's universal_compaction.h defaults (size_ratio 1,
+     min_merge_width 2, max_merge_width unbounded,
+     max_size_amplification_percent 200) and
+     level0_file_num_compaction_trigger 4; fill, flush,
+     wait_for_compactions, then compact_range (the manual universal job
+     into the last level). Every job ran on "cuda" with one output and a
+     universal reason (size-ratio / size-amp / merge-all / manual); on each
+     job that no other overlapped gc_rows launched, and the merge where
+     several runs were merged; L0 is empty after compact_range and the
+     last level is one SST, read back row by row against the oracle; then
+     100,000 readrandom probes and one full scan. (b) FIFO: db_bench
+     --compaction_style=2 with fifo_max_table_files_size a quarter of the
+     bytes (a)'s fill flushed: the files left fit the budget, they are the
+     newest flushes and the older ones are gone from disk, the surviving
+     files' keys read back and every other probe reads NotFound; zero
+     device jobs and zero kernel launches, since FIFO runs no kernel;
+ 17. integrated blob files: db_bench.py's fillrandomblob with RocksDB's
+     BlobDB flags (enable_blob_files, min_blob_size 256, 1 KiB values,
+     blob_cache 32 MiB = db_bench.py's --blob-cache-size) and RocksDB's
+     default 64 MiB write buffer (with bench.py's 8 MiB, ~190 flushes of
+     1 KiB values would rewrite all of L1 on every L0 job): BLOB_N =
+     250,000 keys (cut from 1,000,000: at 1M the phase alone took 319.8 s
+     on the card, 175.9 s of it compact_range's six per-entry GC jobs;
+     at 500,000, inside the whole script, about 258 s, 162.0 s of it
+     compact_range) from 4 threads, then an overwrite of the first
+     BLOB_N / 2 so the blob files hold garbage, with blob GC off (the
+     fill's jobs take the columnar blob route); then the DB reopened with
+     enable_blob_garbage_collection and
+     blob_garbage_collection_age_cutoff 0.25 for flush,
+     wait_for_compactions and compact_range (every job takes the per-entry
+     route with GC). Every job ran on "cuda", gc_rows launched on each,
+     every GC target blob file is gone from disk, the one level's SSTs
+     hold one BLOB_INDEX row a key, 100,000 probes and one full scan equal
+     the oracle's values (BLOB_DB_CACHE_* counts printed). Printed for
+     both phases: the fill wall and ops/s, the flushes and blob files,
+     each device job's reason, input runs, rows, route, wall and
+     launches, compact_range's wall and raw MB/s, readrandom ops/s, the
+     scan wall, and the card's busy share (the shard programs and the
+     per-entry route's device sorts and GC masks by CUDA events).
 
 The script's total wall is printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -244,6 +287,7 @@ DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
 DB_WAL_N = 50_000       # phase 13: the WAL-replay run
 DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
 SMALL_DB_N = 200_000    # phase 14 (b) and (c)
+BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
 
 
 def log(msg: str) -> None:
@@ -457,12 +501,14 @@ def check_against_oracle(env, dbdir, icmp, outputs, rows, snapshots,
 
 def time_ms(torch, fn, flush, iters=25):
     """Median device time of fn() in ms over `iters` launches (CUDA
-    events), with the 50 MB L2 cache flushed before each launch."""
+    events), with the 50 MB L2 cache flushed before each launch. Three
+    plain calls and one untimed launch in the timed form (flush, events,
+    sync) come first."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for i in range(iters + 1):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -470,7 +516,8 @@ def time_ms(torch, fn, flush, iters=25):
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        if i:  # the first is the warm-up
+            times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -2253,6 +2300,37 @@ def db_key(i: int, n: int) -> bytes:
     return b"%016d" % (i * 2654435761 % (2 * n))
 
 
+def threaded_fill(db, n_keys, kv, n_threads=4, batch=100) -> float:
+    """bench.py's fill: n_threads writer threads, thread t writing indices
+    [t * n_keys / n_threads, (t + 1) * n_keys / n_threads) in WriteBatches
+    of `batch`, kv(i) giving index i's (key, value). Returns its wall."""
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+
+    per_t = n_keys // n_threads
+    errs = []
+
+    def worker(t):
+        end = (t + 1) * per_t
+        try:
+            for i in range(t * per_t, end, batch):
+                b = WriteBatch()
+                for j in range(i, min(i + batch, end)):
+                    b.put(*kv(j))
+                db.write(b)
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(t,))
+          for t in range(n_threads)]
+    t0 = time.time()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert not errs, errs
+    return time.time() - t0
+
+
 def crash(db) -> None:
     """Drop a DB without flushing its memtable (the WAL is synced and
     closed, the background threads joined), as a killed process leaves
@@ -2335,30 +2413,8 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
                    compaction_executor_factory=factory, statistics=stats)
 
     def fillrandom(db, n_keys):
-        """bench.py's fill of n_keys keys from n_threads writer threads;
-        returns its wall."""
-        per_t = n_keys // n_threads
-        errs = []
-
-        def worker(t):
-            try:
-                for i in range(0, per_t, batch):
-                    b = WriteBatch()
-                    for j in range(i, i + batch):
-                        b.put(db_key(t * per_t + j, n_keys), value)
-                    db.write(b)
-            except Exception as e:  # noqa: BLE001
-                errs.append(e)
-
-        ts = [threading.Thread(target=worker, args=(t,))
-              for t in range(n_threads)]
-        t0 = time.time()
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join()
-        assert not errs, errs
-        return time.time() - t0
+        """bench.py's fill of n_keys keys; returns its wall."""
+        return threaded_fill(db, n_keys, lambda i: (db_key(i, n_keys), value))
 
     launched = counted(kernels)
     with ShardPrograms(torch) as programs:
@@ -3122,6 +3178,423 @@ def cf_path(torch, root, n, n_probe=10_000, device_name="cuda"):
     return gc_n, mr_n, crw
 
 
+# ---------------------------------------------------------------------------
+# Phases 16 and 17: the compaction styles and integrated blob files
+# ---------------------------------------------------------------------------
+
+UNIVERSAL_REASONS = {"universal size-ratio", "universal size-amp",
+                     "universal merge-all", "manual universal"}
+
+
+class JobLog:
+    """While open, wraps a device factory's executors: per job its reason,
+    level pair, input files, rows, route ("per-entry" when the job's thread
+    ran the per-entry route's device sort, else "pipelined" or "serial"),
+    device, outputs, wall, and the kernel launches between its start and
+    end (a job's own only where no other job overlapped it). The per-entry
+    route's device sort and GC mask are timed with CUDA events on a card,
+    for the busy share beside ShardPrograms'."""
+
+    def __init__(self, torch, factory, kernels):
+        self.torch, self.factory, self.kernels = torch, factory, kernels
+        self.jobs = []
+        self.entry_events = []
+
+    def __enter__(self):
+        from toplingdb_tpu_torch.ops import compaction_kernels as ck
+
+        torch, kernels, jobs, events = (self.torch, self.kernels, self.jobs,
+                                        self.entry_events)
+        tl = threading.local()
+        on_card = torch is not None and torch.cuda.is_available()
+        self._ck, self._sort, self._mask = ck, ck.device_sort, ck.gc_mask
+        self._make = self.factory.new_executor
+
+        def timed(fn, per_entry):
+            def call(*a, **k):
+                if per_entry:
+                    tl.per_entry = True
+                if not on_card:
+                    return fn(*a, **k)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                events.append((start, end))
+                return out
+            return call
+
+        ck.device_sort = timed(self._sort, True)
+        ck.gc_mask = timed(self._mask, False)
+        make = self._make
+
+        def new_executor(c):
+            ex = make(c)
+            run = ex.execute
+
+            def execute(db, comp, snaps, alloc):
+                tl.per_entry = False
+                g0 = kernels.gc_rows.launches
+                m0 = kernels.merge_runs_perm.launches
+                t0 = time.time()
+                outs, st = run(db, comp, snaps, alloc)
+                route = ("per-entry" if tl.per_entry else
+                         "pipelined" if st.pipelined else "serial")
+                jobs.append(dict(
+                    reason=comp.reason, level=comp.level,
+                    output_level=comp.output_level,
+                    input_files=comp.num_input_files(),
+                    rows=st.input_records, route=route, device=st.device,
+                    outputs=len(outs), t0=t0, t1=time.time(),
+                    gc=kernels.gc_rows.launches - g0,
+                    merge=kernels.merge_runs_perm.launches - m0))
+                return outs, st
+
+            ex.execute = execute
+            return ex
+
+        self.factory.new_executor = new_executor
+        return self
+
+    def __exit__(self, *exc):
+        self._ck.device_sort, self._ck.gc_mask = self._sort, self._mask
+        self.factory.new_executor = self._make
+
+    def entry_ms(self):
+        return sum(a.elapsed_time(b) for a, b in self.entry_events)
+
+    def check(self, device_name, tag):
+        """Every job ran on `device_name`; on a card, each job that no
+        other overlapped launched gc_rows, and the merge where its columnar
+        route merged several input files. Logs one line a job."""
+        for k, j in enumerate(self.jobs):
+            j["alone"] = not any(o is not j and o["t0"] < j["t1"]
+                                 and j["t0"] < o["t1"] for o in self.jobs)
+            assert j["device"] == device_name, j
+            if device_name != "cpu" and j["alone"]:
+                assert j["gc"] >= 1, j
+                if j["route"] != "per-entry" and j["input_files"] > 1:
+                    assert j["merge"] >= 1, j
+            log(f"[{tag}] device job {k}: {j['reason']}, L{j['level']}->"
+                f"L{j['output_level']}, {j['input_files']} input runs, "
+                f"{j['rows']} rows, {j['route']} route, {j['outputs']} "
+                f"outputs, wall {j['t1'] - j['t0']:.3f}s, launches gc_rows="
+                f"{j['gc']} merge_runs={j['merge']}"
+                f"{'' if j['alone'] else ' (overlapped another job)'}")
+
+
+def busy_text(programs, joblog, wall) -> str:
+    ms, _ = programs.busy(wall)
+    if ms is None:
+        return "device busy share not measured"
+    ms += joblog.entry_ms()
+    return (f"{ms:.3f} ms of shard programs and per-entry device sorts and "
+            f"GC masks by CUDA events, {ms / 1e3 / wall:.4f} of the wall "
+            f"(device busy share, derived)")
+
+
+def probe_and_scan(db, keys, value_of, n, tag):
+    """100,000 readrandom probes (bench.py's Random(5) draw over indices
+    of n keys) against the oracle `value_of` (key -> value, or None where
+    the key must read NotFound), then one full scan that must give the
+    sorted `keys` with their values. Returns the two walls, the probe
+    count and the probes found."""
+    import random
+
+    rng = random.Random(5)
+    probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
+    t0 = time.time()
+    found = 0
+    for k in probes:
+        v = db.get(k)
+        assert v == value_of(k), (tag, k, None if v is None else v[:32])
+        found += v is not None
+    rr = time.time() - t0
+    t0 = time.time()
+    it = db.new_iterator()
+    it.seek_to_first()
+    got = 0
+    for (k, v), wk in zip(it.entries(), keys):
+        assert k == wk and v == value_of(wk), (tag, k, wk)
+        got += 1
+    scan = time.time() - t0
+    assert got == len(keys) and not it.valid(), (tag, got, len(keys))
+    del it
+    return rr, scan, len(probes), found
+
+
+def styles_path(torch, root, n, device_name="cuda"):
+    """Phase 16: (a) universal compaction and (b) FIFO compaction at phase
+    13's deployment. Returns the flush bytes of (a)'s fill."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.listener import EventListener
+
+    value = b"v" * 20
+    keys = sorted(db_key(i, n) for i in range(n))
+
+    # (a) universal ----------------------------------------------------
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    stats = st.Statistics()
+    opts = Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=factory, statistics=stats,
+        compaction_style="universal", universal_size_ratio=1,
+        universal_min_merge_width=2, universal_max_merge_width=2**31 - 1,
+        universal_max_size_amplification_percent=200,
+        level0_file_num_compaction_trigger=4)
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        db = DB.open(os.path.join(root, "universal"), opts)
+        fill = threaded_fill(db, n, lambda i: (db_key(i, n), value))
+        n_auto = len(joblog.jobs)
+        db.flush()
+        db.wait_for_compactions()
+        flush_bytes = stats.get_ticker_count(st.FLUSH_WRITE_BYTES)
+        t1 = time.time()
+        db.compact_range()
+        crw = time.time() - t1
+        gc_n, mr_n = launched()
+        wall = time.time() - t_open
+    sched = db._compaction_scheduler
+    jobs = joblog.jobs
+    assert jobs and len(jobs) == len(factory.jobs), (len(jobs),
+                                                     len(factory.jobs))
+    assert sched.num_local_jobs == 0 and sched.last_error is None, \
+        (sched.num_local_jobs, sched.last_error)
+    assert {j["reason"] for j in jobs} <= UNIVERSAL_REASONS, jobs
+    assert jobs[-1]["reason"] == "manual universal", jobs[-1]
+    assert all(j["outputs"] == 1 for j in jobs), "a universal job was cut"
+    joblog.check(device_name, "universal")
+    if device_name != "cpu":
+        assert gc_n >= len(jobs) and mr_n > 0, (gc_n, mr_n)
+    v = db.versions.current
+    assert not v.files[0] and len(v.files[-1]) == 1, v.describe()
+    assert not any(v.files[1:-1]), v.describe()
+    log(f"[universal] fillrandom {n} keys from 4 threads in batches of 100:"
+        f" {fill:.3f}s, {n / fill:.0f} ops/s, {db.num_flushes} flushes "
+        f"({flush_bytes} bytes), {n_auto} device jobs during the fill; "
+        f"compact_range (one manual universal job) {crw:.3f}s, "
+        f"{n * DB_RAW_PER_ENTRY / 1e6 / crw:.2f} raw MB/s; {len(jobs)} "
+        f"device jobs, launches gc_rows={gc_n} merge_runs={mr_n}; open to "
+        f"compact_range's end: {busy_text(programs, joblog, wall)}; levels "
+        f"{v.describe()!r}")
+    t0 = time.time()
+    db_files_against_oracle(db, keys, value)
+    log(f"[universal] the last level's one SST read back with the table "
+        f"reader: {n} rows equal to the oracle, {time.time() - t0:.3f}s")
+    rr, scan, n_probe, found = probe_and_scan(db, keys, lambda k: value, n,
+                                              "universal")
+    assert found == n_probe
+    log(f"[universal] readrandom {n_probe} probes {rr:.3f}s, "
+        f"{n_probe / rr:.0f} ops/s, all found; full scan {n} keys "
+        f"{scan:.3f}s")
+    db.close()
+
+    # (b) FIFO ---------------------------------------------------------
+    class Flushes(EventListener):
+        def __init__(self):
+            self.files = []
+
+        def on_flush_completed(self, db, info):
+            self.files.append(info.file_number)
+
+    budget = flush_bytes // 4
+    flushes = Flushes()
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    opts = Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=factory, statistics=st.Statistics(),
+        compaction_style="fifo", fifo_max_table_files_size=budget,
+        listeners=[flushes])
+    launched = counted(kernels)
+    db = DB.open(os.path.join(root, "fifo"), opts)
+    fill = threaded_fill(db, n, lambda i: (db_key(i, n), value))
+    db.flush()
+    db.wait_for_compactions()
+    gc_n, mr_n = launched()
+    sched = db._compaction_scheduler
+    assert sched.last_error is None, sched.last_error
+    assert factory.jobs == [] and sched.num_local_jobs == 0, factory.jobs
+    assert gc_n == 0 and mr_n == 0, (gc_n, mr_n)
+    v = db.versions.current
+    live = sorted(f.number for f in v.files[0])
+    total = v.total_bytes(0)
+    assert 0 < total <= budget and not any(v.files[1:]), v.describe()
+    assert live == sorted(flushes.files)[-len(live):], (live, flushes.files)
+    dropped = sorted(flushes.files)[:-len(live)]
+    assert dropped, "FIFO dropped nothing"
+    left = [x for x in dropped
+            if os.path.exists(os.path.join(db.dbname, "%06d.sst" % x))]
+    assert not left, left
+    survivors = set()
+    for f in v.files[0]:
+        kv = scan_output(db.env, os.path.join(db.dbname, "%06d.sst"
+                                              % f.number), db.icmp)
+        survivors.update(row.tobytes()
+                         for row in kv.key_buf.reshape(kv.n, -1)[:, :-8])
+    rr, scan, n_probe, found = probe_and_scan(
+        db, sorted(survivors), lambda k: value if k in survivors else None,
+        n, "fifo")
+    log(f"[fifo] fillrandom {n} keys: {fill:.3f}s, {n / fill:.0f} ops/s, "
+        f"{db.num_flushes} flushes; budget {budget} bytes (a quarter of "
+        f"(a)'s flush bytes): {len(live)} files, {total} bytes left, "
+        f"{len(dropped)} oldest files dropped and gone from disk; "
+        f"{len(factory.jobs)} device jobs, launches gc_rows={gc_n} "
+        f"merge_runs={mr_n}: FIFO runs no kernel; readrandom {n_probe} "
+        f"probes {rr:.3f}s, {found} found in the surviving files, "
+        f"{n_probe - found} NotFound; full scan {len(survivors)} keys "
+        f"{scan:.3f}s")
+    db.close()
+    return flush_bytes
+
+
+def blob_path(torch, root, n, device_name="cuda"):
+    """Phase 17: integrated blob files with blob GC: the fill and the
+    overwrite with GC off (columnar blob jobs), then the DB reopened with
+    the GC flags for flush, wait_for_compactions and compact_range
+    (per-entry jobs with GC)."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db import blob as blob_mod
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    def old(i):
+        k = db_key(i, n)
+        return k, k * 64  # 1 KiB
+
+    def new(i):
+        k = db_key(i, n)
+        return k, (b"o" + k[1:]) * 64
+
+    newer = {db_key(i, n) for i in range(n // 2)}
+    keys = sorted(db_key(i, n) for i in range(n))
+
+    def value_of(k):
+        return ((b"o" + k[1:]) if k in newer else k) * 64
+
+    dbdir = os.path.join(root, "blob")
+    stats = st.Statistics()
+    base = dict(create_if_missing=True, write_buffer_size=64 << 20,
+                statistics=stats, enable_blob_files=True, min_blob_size=256,
+                blob_cache=32 << 20)
+    blob_files = lambda: sorted(  # noqa: E731
+        x for x in os.listdir(dbdir) if x.endswith(".blob"))
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs:
+        factory = DeviceCompactionExecutorFactory(device=device_name)
+        with JobLog(torch, factory, kernels) as fill_log:
+            t_open = time.time()
+            db = DB.open(dbdir, Options(compaction_executor_factory=factory,
+                                        **base))
+            fill = threaded_fill(db, n, old)
+            over = threaded_fill(db, n // 2, new)
+            db.flush()
+            db.wait_for_compactions()
+            n_flush, n_blob = db.num_flushes, len(blob_files())
+            db.close()
+        gc_factory = DeviceCompactionExecutorFactory(device=device_name)
+        collectors = []
+        make_gc = blob_mod.maybe_new_blob_gc
+
+        def spy_gc(*a, **k):
+            c = make_gc(*a, **k)
+            if c is not None:
+                collectors.append(c)
+            return c
+
+        blob_mod.maybe_new_blob_gc = spy_gc
+        try:
+            with JobLog(torch, gc_factory, kernels) as gc_log:
+                db = DB.open(dbdir, Options(
+                    compaction_executor_factory=gc_factory,
+                    enable_blob_garbage_collection=True,
+                    blob_garbage_collection_age_cutoff=0.25, **base))
+                db.flush()
+                db.wait_for_compactions()
+                before = blob_files()
+                t1 = time.time()
+                db.compact_range()
+                crw = time.time() - t1
+        finally:
+            blob_mod.maybe_new_blob_gc = make_gc
+        gc_n, mr_n = launched()
+        wall = time.time() - t_open
+    sched = db._compaction_scheduler
+    assert sched.num_local_jobs == 0 and sched.last_error is None, \
+        (sched.num_local_jobs, sched.last_error)
+    assert fill_log.jobs and gc_log.jobs
+    assert all(j["route"] != "per-entry" for j in fill_log.jobs), \
+        "a job of the fill took the per-entry route"
+    assert all(j["route"] == "per-entry" for j in gc_log.jobs), \
+        "a GC job took the columnar route"
+    fill_log.check(device_name, "blob fill")
+    gc_log.check(device_name, "blob gc")
+    if device_name != "cpu":
+        n_jobs = len(fill_log.jobs) + len(gc_log.jobs)
+        assert gc_n >= n_jobs, (gc_n, n_jobs)
+    targets = set()
+    for c in collectors:
+        targets |= c.gc_files
+    after = blob_files()
+    gone = ["%06d.blob" % x for x in sorted(targets)]
+    assert targets and not set(gone) & set(after), (gone, after)
+    v = db.versions.current
+    levels = [fl for fl in v.files if fl]
+    assert len(levels) == 1 and v.files[-1], v.describe()
+    log(f"[blob] fillrandomblob {n} keys of 1 KiB values from 4 threads: "
+        f"{fill:.3f}s, {n / fill:.0f} ops/s; overwrite of the first "
+        f"{n // 2}: {over:.3f}s, {n // 2 / over:.0f} ops/s; {n_flush} "
+        f"flushes, {n_blob} blob files on disk after the fill, "
+        f"{len(fill_log.jobs)} device jobs of the fill (GC off)")
+    log(f"[blob] reopened with GC (cutoff 0.25): compact_range {crw:.3f}s, "
+        f"{n * 1040 / 1e6 / crw:.2f} raw MB/s (16-byte key, 1 KiB "
+        f"value), {len(gc_log.jobs)} per-entry device jobs, "
+        f"{sum(c.rewritten for c in collectors)} blobs rewritten and "
+        f"{sum(c.inlined for c in collectors)} inlined; blob files "
+        f"{len(before)} before, {len(after)} after, the {len(gone)} GC "
+        f"targets gone from disk; launches gc_rows={gc_n} merge_runs={mr_n};"
+        f" open to compact_range's end: {busy_text(programs, gc_log, wall)}"
+        f" (the fill's per-entry time: {fill_log.entry_ms():.3f} ms)")
+    t0 = time.time()
+    rows = 0
+    for m in levels[0]:
+        kv = scan_output(db.env, os.path.join(dbdir, "%06d.sst" % m.number),
+                         db.icmp)
+        kb = kv.key_buf.reshape(kv.n, -1)
+        trailer = np.ascontiguousarray(kb[:, -8:]).view("<u8").reshape(-1)
+        assert np.all(trailer & np.uint64(0xFF) == 0x11), \
+            "a row is not a BLOB_INDEX"
+        rows += kv.n
+    assert rows == n, (rows, n)
+    log(f"[blob] {len(levels[0])} live SSTs read back: {rows} BLOB_INDEX rows, one "
+        f"per key, {time.time() - t0:.3f}s")
+    s0 = {t: stats.get_ticker_count(t) for t in (
+        st.BLOB_DB_CACHE_HIT, st.BLOB_DB_CACHE_MISS,
+        st.BLOB_DB_CACHE_BYTES_READ, st.BLOB_DB_CACHE_BYTES_WRITE,
+        st.BLOB_DB_BLOB_FILE_BYTES_READ)}
+    rr, scan, n_probe, found = probe_and_scan(db, keys, value_of, n, "blob")
+    assert found == n_probe
+    counts = ", ".join(f"{t} {stats.get_ticker_count(t) - c}"
+                       for t, c in s0.items())
+    log(f"[blob] readrandom {n_probe} probes {rr:.3f}s, "
+        f"{n_probe / rr:.0f} ops/s, all equal to the oracle's values; full "
+        f"scan {n} keys {scan:.3f}s; probes and scan: {counts}")
+    db.close()
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3188,6 +3661,8 @@ def main() -> int:
         dcompact_path(torch, os.path.join(dbdir, "db14"), DB_N, SMALL_DB_N,
                       db_crw)
         cf_path(torch, os.path.join(dbdir, "db15"), DB_N)
+        styles_path(torch, os.path.join(dbdir, "db16"), DB_N)
+        blob_path(torch, os.path.join(dbdir, "db17"), BLOB_N)
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)

@@ -42,7 +42,12 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   service on "cuda" (both kernels launch in the service) and one whose
   compaction goes through a subprocess worker on "cuda" write the SST
   bytes, level files and WAL bytes of the same DB through a "cpu-jax"
-  service.
+  service;
+- the merge over 12 runs padded to 16 (4 empty) equals its plain version
+  bitwise;
+- a small universal DB and a small blob DB with blob GC, their jobs on
+  "cuda", read back against a dict oracle and write the SST and blob file
+  bytes of the same DBs on "cpu".
 """
 
 import os
@@ -1073,3 +1078,96 @@ def test_subprocess_worker_on_the_card_writes_the_cpu_jax_bytes(
     assert got == cpu_jax_twin[0]
     assert [d for d in os.listdir(str(tmp_path / "cuda" / "dcompact"))
             if d.startswith("job-")] == []
+
+
+def test_merge_of_12_runs_padded_to_16_matches_plain(dev):
+    rng = np.random.default_rng(12)
+    p = 3 * (1 << 14)
+    cuts = np.sort(rng.integers(0, p + 1, 11))
+    starts = np.concatenate([[0], cuts, [p] * 5]).astype(np.int32)
+    assert starts.shape[0] == 17
+    cols = rng.integers(-3, 4, (5, p)).astype(np.int32)
+    for r in range(12):
+        s, e = starts[r], starts[r + 1]
+        cols[:, s:e] = cols[:, s:e][:, np.lexsort(cols[:, s:e][::-1])]
+    want = kernels.merge_runs_perm(torch.from_numpy(cols),
+                                   torch.from_numpy(starts), 4)
+    before = kernels.merge_runs_perm.launches
+    got = kernels.merge_runs_perm(torch.from_numpy(cols).to(dev),
+                                  torch.from_numpy(starts).to(dev), 4)
+    assert kernels.merge_runs_perm.launches == before + 4
+    assert torch.equal(got.cpu(), want)
+
+
+def _style_db(path, device, n, rounds, **kw):
+    """A DB of `kw`'s style fed `rounds` overlapping rounds of n keys, each
+    flushed and its compactions waited for, then compact_range. Returns
+    the live SST and blob file bytes by name, the get view of every key
+    against a dict oracle, and the device jobs."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=64 << 20,
+                   compaction_executor_factory=factory, **kw)
+    want = {}
+    with DB.open(path, opts) as db:
+        for r in range(rounds):
+            for i in range(r, n, 100):
+                b = WriteBatch()
+                for j in range(i, min(i + 100, n), 1 + r % 2):
+                    k = b"%016d" % (j * 2654435761 % (2 * n))
+                    v = b"r%d-%d-" % (r, j) * (1 + j % 60)
+                    b.put(k, v)
+                    want[k] = v
+                db.write(b)
+            db.flush()
+            db.wait_for_compactions()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert sched.num_local_jobs == 0 and sched.last_error is None
+        for k, v in want.items():
+            assert db.get(k) == v, k
+        it = db.new_iterator()
+        it.seek_to_first()
+        assert list(it.entries()) == sorted(want.items())
+        metas = [f for _, f in db.versions.current.all_files()]
+        names = ["%06d.sst" % f.number for f in metas] + [
+            "%06d.blob" % x for x in sorted({x for f in metas
+                                             for x in f.blob_refs})]
+    files = {}
+    for name in names:
+        with open(os.path.join(path, name), "rb") as f:
+            files[name] = f.read()
+    return files, factory.jobs
+
+
+@pytest.mark.parametrize("style", ["universal", "blob-gc"])
+def test_style_db_on_the_card_writes_the_cpu_bytes(dev, tmp_path,
+                                                   monkeypatch, style):
+    _frozen(monkeypatch)
+    kw = (dict(compaction_style="universal",
+               level0_file_num_compaction_trigger=3)
+          if style == "universal" else
+          dict(enable_blob_files=True, min_blob_size=256,
+               enable_blob_garbage_collection=True,
+               blob_garbage_collection_age_cutoff=0.25))
+    n = 40_000 if style == "universal" else 15_000  # per-entry GC jobs
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got, jobs = _style_db(str(tmp_path / "cuda"), "cuda", n, 5, **kw)
+    assert jobs and kernels.gc_rows.launches >= len(jobs)
+    if style == "universal":
+        assert kernels.merge_runs_perm.launches > 0
+        assert {j["reason"] for j in jobs} <= {
+            "universal size-ratio", "universal size-amp",
+            "universal merge-all", "manual universal"}
+    else:
+        assert any(name.endswith(".blob") for name in got)
+    want, cpu_jobs = _style_db(str(tmp_path / "cpu"), "cpu", n, 5, **kw)
+    assert [j["reason"] for j in jobs] == [j["reason"] for j in cpu_jobs]
+    assert got == want

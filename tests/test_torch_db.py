@@ -94,12 +94,16 @@ class Twin:
     """The same operations on the reference DB and the port's DB in two
     sibling directories; `check` holds the views (and, with byte parity,
     the files) equal. Operations take `cf=`, a column family's name (None:
-    the default CF); every CF's views are checked."""
+    the default CF); every CF's views are checked. Byte parity turns auto
+    compactions off unless `auto=True`: then the case waits for both DBs'
+    compactions after every flush, so both pick from the same versions."""
 
-    def __init__(self, root, executor: str, byte_parity: bool, **kw):
+    def __init__(self, root, executor: str, byte_parity: bool, auto=False,
+                 **kw):
         self.root = root
         self.executor = executor
         self.byte_parity = byte_parity
+        self.auto = auto
         self.kw = kw
         self.ref_dir = os.path.join(root, "ref")
         self.dir = os.path.join(root, "port")
@@ -113,7 +117,7 @@ class Twin:
         if self.byte_parity:
             for d in (rkw, pkw):
                 d.setdefault("write_buffer_size", 1 << 20)
-                d["disable_auto_compactions"] = True
+                d["disable_auto_compactions"] = not self.auto
         op = kw.pop("merge_operator", None)
         if op is not None:
             rkw["merge_operator"] = getattr(ref_mo, op)()
@@ -203,6 +207,8 @@ class Twin:
     def flush(self):
         self.ref.flush()
         self.port.flush()
+        if self.auto and self.byte_parity:
+            self.wait()
 
     def compact_range(self):
         self.ref.compact_range()
@@ -249,7 +255,8 @@ class Twin:
         """Every CF's level file sets, by CF name."""
         return {h.name: [[(f.number, f.smallest, f.largest,
                            f.smallest_seqno, f.largest_seqno,
-                           f.num_entries, f.file_size) for f in fl]
+                           f.num_entries, f.file_size, f.blob_refs)
+                          for f in fl]
                          for fl in db.versions.cf_current(h.id).files]
                 for h in db.list_column_families()}
 
@@ -275,14 +282,16 @@ class Twin:
         assert self.port.versions.last_sequence == \
             self.ref.versions.last_sequence
         assert self._level_sets(self.port) == self._level_sets(self.ref)
-        # Live files: every CF's SSTs, the WALs from the MANIFEST's log
-        # number on and the MANIFEST (the reference may keep obsolete SSTs
-        # a while longer: an old Version its read path still holds pins
-        # them).
+        # Live files: every CF's SSTs and the blob files they reference,
+        # the WALs from the MANIFEST's log number on and the MANIFEST (the
+        # reference may keep obsolete files a while longer: an old Version
+        # its read path still holds pins them).
         assert self.port.versions.log_number == self.ref.versions.log_number
-        live = [f"{f.number:06d}.sst"
-                for h in self.port.list_column_families()
-                for _, f in self.port.versions.cf_current(h.id).all_files()]
+        metas = [f for h in self.port.list_column_families()
+                 for _, f in self.port.versions.cf_current(h.id).all_files()]
+        live = [f"{f.number:06d}.sst" for f in metas] + [
+            f"{n:06d}.blob" for n in sorted({n for f in metas
+                                             for n in f.blob_refs})]
         wals = [n for n in self._files(self.dir) if n.endswith(".log")
                 and int(n[:-4]) >= self.port.versions.log_number]
         assert wals == [n for n in self._files(self.ref_dir)

@@ -15,7 +15,9 @@ on the same inputs, on the CPU:
   the CPU compaction path's SST bytes with 1 and 3 subcompactions;
 - the retry driver: an executor failing twice then succeeding, a failing
   executor raising its last error, and the job deadline;
-- every option the port's DB does not run raises NotSupported at open.
+- every option the port's DB does not run raises NotSupported at open
+  (the compaction styles, periodic compaction and blob files open:
+  tests/test_torch_compaction_styles.py, tests/test_torch_blob_db.py).
 
 Tolerance: none; bytes, records and answers must be equal.
 """
@@ -390,13 +392,6 @@ def test_leveled_picker_picks_the_same(seed):
                 f.number for f in rc.inputs]
 
 
-def test_universal_and_fifo_pickers_raise():
-    for style in ("universal", "fifo"):
-        with pytest.raises(NotSupported):
-            picker.create_picker(Options(compaction_style=style),
-                                 dbformat.InternalKeyComparator())
-
-
 @pytest.mark.parametrize("seed", range(4))
 def test_get_context_answers(seed):
     rng = random.Random(seed)
@@ -623,15 +618,13 @@ def _away_from_default(name):
     return object()
 
 
-REFUSED = sorted(popts.UNPORTED) + ["compaction_style", "memtable_rep",
-                                    "comparator",
+REFUSED = sorted(popts.UNPORTED) + ["memtable_rep", "comparator",
                                     "compaction_executor_factory"]
 
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_unported_option_raises(tmp_path, name):
     special = {
-        "compaction_style": "universal",
         "memtable_rep": "cspp",
         "comparator": dbformat.U64TsBytewiseComparator(),
         "compaction_executor_factory": None,

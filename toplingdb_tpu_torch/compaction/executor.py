@@ -119,8 +119,8 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
     device: "cuda" (the card; a job raises without one) or "cpu" (the
     kernels' plain PyTorch versions). A failed job raises; nothing re-runs
     it elsewhere. `jobs` logs every job the factory's executors ran: its
-    column family id, level pair, input files and rows, whether it ran
-    pipelined, and its wall."""
+    column family id, level pair, reason, input files and rows, whether it
+    ran pipelined, and its wall."""
 
     def __init__(self, device: str = "cuda"):
         if device not in ("cuda", "cpu"):
@@ -140,6 +140,7 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
             self.jobs.append(dict(
                 cf_id=compaction.cf_id,
                 level=compaction.level, output_level=compaction.output_level,
+                reason=compaction.reason,
                 input_files=compaction.num_input_files(),
                 rows=stats.input_records, pipelined=stats.pipelined,
                 wall_s=wall_s))

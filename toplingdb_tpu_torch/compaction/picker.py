@@ -1,16 +1,17 @@
 """Compaction picking: which files to merge next (copied from
-toplingdb_tpu/compaction/picker.py, with the leveled picker; the universal
-and FIFO pickers come with a later slice and raise NotSupported).
+toplingdb_tpu/compaction/picker.py).
 
 The leveled strategy is RocksDB's score-driven picker
 (db/compaction/compaction_picker_level.cc): L0 scores by file count
 against the trigger, L1+ by level bytes against the target; the highest-
 scoring level compacts into level+1, expanding inputs to all overlapping
-files.
+files. Universal and FIFO pickers cover the other two styles (RocksDB's
+compaction_picker_universal.cc, compaction_picker_fifo.cc).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 from toplingdb_tpu_torch.db import dbformat
@@ -223,14 +224,135 @@ class LeveledCompactionPicker(CompactionPicker):
         )
 
 
+class UniversalCompactionPicker(CompactionPicker):
+    """Size-tiered universal compaction over L0-resident sorted runs
+    (RocksDB's compaction_picker_universal.cc). Runs live in L0 (newest
+    first) plus at most one full-keyspace run in the last level. Every job
+    writes one output (no size cut)."""
+
+    def compaction_score(self, version: Version) -> list[tuple[float, int]]:
+        n = len(version.files[0])
+        return [(n / max(1, self.options.level0_file_num_compaction_trigger), 0)]
+
+    def pick_compaction(self, version: Version) -> Compaction | None:
+        runs = [f for f in version.files[0] if not _busy(f)]
+        if len(runs) < self.options.level0_file_num_compaction_trigger:
+            return None
+        if any(_busy(f) for f in version.files[0]):
+            return None
+        opts = self.options
+        # 1. Size-amplification trigger: the younger runs' bytes against
+        # the last level's, in percent.
+        last_level = version.num_levels - 1
+        base = version.files[last_level]
+        younger_bytes = sum(f.file_size for f in runs)
+        base_bytes = sum(f.file_size for f in base)
+        if base and not any(_busy(f) for f in base):
+            if base_bytes > 0 and younger_bytes * 100 >= (
+                opts.universal_max_size_amplification_percent * base_bytes
+            ):
+                return Compaction(
+                    level=0, output_level=last_level, inputs=runs,
+                    output_level_inputs=list(base), bottommost=True,
+                    reason="universal size-amp",
+                    max_output_file_size=2**62,
+                )
+        # 2. Size-ratio trigger: merge a run of similar-sized runs, oldest
+        # first (runs are sorted newest to oldest).
+        picked = [runs[-1]]
+        total = runs[-1].file_size
+        for f in reversed(runs[:-1]):
+            if total * (100 + opts.universal_size_ratio) >= f.file_size * 100:
+                picked.append(f)
+                total += f.file_size
+            else:
+                break
+        if len(picked) >= opts.universal_min_merge_width:
+            picked = picked[: opts.universal_max_merge_width]
+            picked_set = {f.number for f in picked}
+            inputs = [f for f in version.files[0] if f.number in picked_set]
+            bottom = self._is_bottommost(
+                version, 0, *self._key_range(inputs)
+            ) and len(inputs) == len(version.files[0])
+            return Compaction(
+                level=0, output_level=0, inputs=inputs,
+                bottommost=bottom, reason="universal size-ratio",
+                max_output_file_size=2**62,
+            )
+        # 3. Otherwise merge every run into the last level.
+        if base and any(_busy(f) for f in base):
+            return None
+        return Compaction(
+            level=0, output_level=last_level, inputs=runs,
+            output_level_inputs=list(base), bottommost=True,
+            reason="universal merge-all", max_output_file_size=2**62,
+        )
+
+
+class FIFOCompactionPicker(CompactionPicker):
+    """Drop the oldest files when the total size exceeds the budget, or
+    when they are older than fifo_ttl_seconds (RocksDB's
+    compaction_picker_fifo.cc with CompactionOptionsFIFO.ttl).
+    Deletion-only: a FIFO compaction writes nothing. `creation_time_fn`
+    (set by the scheduler) reads a file's creation time from its table
+    properties."""
+
+    creation_time_fn = None  # f -> unix time | None
+
+    def compaction_score(self, version: Version) -> list[tuple[float, int]]:
+        total = sum(f.file_size for f in version.files[0])
+        score = total / max(1, self.options.fifo_max_table_files_size)
+        if self._ttl_expired(version):
+            score = max(score, 1.0)
+        return [(score, 0)]
+
+    def _ttl_expired(self, version: Version) -> list:
+        ttl = self.options.fifo_ttl_seconds
+        if not ttl or self.creation_time_fn is None:
+            return []
+        cutoff = int(time.time()) - ttl
+        out = []
+        for f in version.files[0]:
+            if _busy(f):
+                continue
+            ct = self.creation_time_fn(f)
+            if ct and ct <= cutoff:
+                out.append(f)
+        return out
+
+    def pick_compaction(self, version: Version) -> Compaction | None:
+        expired = self._ttl_expired(version)
+        if expired:
+            return Compaction(
+                level=0, output_level=0, inputs=expired, reason="fifo ttl",
+            )
+        total = sum(f.file_size for f in version.files[0])
+        if total <= self.options.fifo_max_table_files_size:
+            return None
+        # files[0] is newest first: drop from the tail (the oldest).
+        drop = []
+        for f in reversed(version.files[0]):
+            if _busy(f):
+                break
+            drop.append(f)
+            total -= f.file_size
+            if total <= self.options.fifo_max_table_files_size:
+                break
+        if not drop:
+            return None
+        return Compaction(
+            level=0, output_level=0, inputs=drop, reason="fifo ttl/size",
+        )
+
+
 def create_picker(options, icmp) -> CompactionPicker:
     style = options.compaction_style
     if style == "leveled":
         return LeveledCompactionPicker(options, icmp)
-    if style in ("universal", "fifo"):
-        from toplingdb_tpu_torch.utils.status import NotSupported
-
-        raise NotSupported(f"{style} compaction is not ported yet")
+    if style == "universal":
+        return UniversalCompactionPicker(options, icmp)
+    if style == "fifo":
+        return FIFOCompactionPicker(options, icmp)
     from toplingdb_tpu_torch.utils.status import InvalidArgument
 
     raise InvalidArgument(f"unknown compaction style {style!r}")

@@ -1,8 +1,8 @@
 """Background compaction scheduling (copied from
-toplingdb_tpu/compaction/scheduler.py, trimmed to the leveled style: the
-periodic and preclude-last-level policies and the storage-pressure
-preflight come with later slices; the local-pin gate is not ported, since
-no job falls back).
+toplingdb_tpu/compaction/scheduler.py, with the leveled, universal and
+FIFO styles and the periodic trigger; the preclude-last-level policy and
+the storage-pressure preflight come with later slices; the local-pin gate
+is not ported, since no job falls back).
 
 The role of RocksDB's MaybeScheduleFlushOrCompaction → BGWorkCompaction
 chain (db/db_impl/db_impl_compaction_flush.cc): after every flush and
@@ -13,7 +13,10 @@ the card) or, where the caller names LocalCompactionExecutorFactory, the
 host compaction path. A failed device job raises; none falls back.
 Column families are picked by descending top score (a fixed order would
 starve the later CFs under load on an earlier one), and a manual
-compaction runs over every CF in id order.
+compaction runs over every CF in id order. A FIFO compaction only drops
+files: a version edit and the obsolete-file sweep, with no executor. A
+manual compaction of a universal DB is one job of every run into the last
+level.
 
 Every finished job reports as toplingdb_tpu's does: the compaction
 tickers and histograms (`Statistics.record_compaction`), a
@@ -25,6 +28,7 @@ tagged with the job's mode while the DB has a tracer.
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 
 from toplingdb_tpu_torch.compaction.compaction_job import (
@@ -45,6 +49,8 @@ class CompactionScheduler:
     def __init__(self, db):
         self.db = db
         self.picker = create_picker(db.options, db.icmp)
+        # Age policies read creation_time from the table properties.
+        self.picker.creation_time_fn = self._file_creation_time
         self._pending = 0
         self._running = 0
         self._lock = threading.Lock()
@@ -54,6 +60,7 @@ class CompactionScheduler:
         self._threads: list[threading.Thread] = []
         self.last_error: BaseException | None = None
         self.num_trivial_moves = 0
+        self.num_completed = 0
         # Jobs that ran the host compaction path (the factory's
         # should_run_local: LocalCompactionExecutorFactory).
         self.num_local_jobs = 0
@@ -120,7 +127,51 @@ class CompactionScheduler:
 
     # ------------------------------------------------------------------
 
-    def _run_one(self) -> bool:
+    def _file_creation_time(self, f):
+        """Creation time from the table properties, memoized on the meta so
+        the age sweeps never re-open files (a sweep across a big DB would
+        otherwise thrash the table cache on every cycle)."""
+        ct = getattr(f, "_creation_time_cache", None)
+        if ct is not None:
+            return ct or None  # 0: unreadable or absent before
+        try:
+            ct = self.db.table_cache.get_reader(f.number).properties \
+                .creation_time
+        except Exception as e:  # noqa: BLE001 - logged, file left alone
+            self.db.event_logger.log(
+                "creation_time_unreadable", file_number=f.number,
+                error=repr(e),
+            )
+            ct = 0
+        f._creation_time_cache = ct
+        return ct or None
+
+    def _apply_periodic_marking(self) -> None:
+        """RocksDB's periodic_compaction_seconds: files past the age are
+        marked so the picker rewrites them (the rewrite refreshes
+        creation_time; 'bottommost marked' outputs suppress re-marks).
+        Leveled style only: the universal and FIFO pickers do not read
+        marked_for_compaction (FIFO ages out by fifo_ttl_seconds)."""
+        db = self.db
+        per = db.options.periodic_compaction_seconds
+        if not per or db.options.compaction_style != "leveled":
+            return
+        cutoff = int(time.time()) - per
+        with db._mutex:
+            for cf_id in list(db.versions.column_families):
+                v = db.versions.cf_current(cf_id)
+                for lvl in range(v.num_levels):
+                    for f in v.files[lvl]:
+                        if f.marked_for_compaction or f.being_compacted:
+                            continue
+                        ct = self._file_creation_time(f)
+                        if ct and ct <= cutoff:
+                            f.marked_for_compaction = True
+
+    def _pick(self):
+        """(the next job over every CF, by descending top score, its input
+        files marked busy; the Version it was picked from), or (None,
+        None)."""
         db = self.db
         with db._mutex:
             scored = []
@@ -130,29 +181,52 @@ class CompactionScheduler:
                 top = scores[0][0] if scores else 0.0
                 scored.append((top, cf_id, version))
             scored.sort(key=lambda s: -s[0])
-            c = None
             for top, cf_id, version in scored:
                 if top < 1.0:
                     break
                 c = self.picker.pick_compaction(version)
                 if c is not None:
                     c.cf_id = cf_id
-                    break
-            if c is None:
-                return False
-            for _, f in c.all_inputs():
-                f.being_compacted = True
+                    for _, f in c.all_inputs():
+                        f.being_compacted = True
+                    return c, version
+        return None, None
+
+    def _run_one(self) -> bool:
+        db = self.db
+        self._apply_periodic_marking()
+        # The job holds the Version it was picked from, so its inputs stay
+        # on disk while it reads them, even if its CF is dropped (RocksDB's
+        # Compaction::input_version_).
+        c, version = self._pick()
+        if c is None:
+            return False
         try:
             self._run_compaction(c)
         finally:
             with db._mutex:
                 for _, f in c.all_inputs():
                     f.being_compacted = False
+        del version
+        # The job's own sweep ran while its Version was held: sweep again,
+        # or what the job made obsolete (a FIFO drop's files) stays on
+        # disk until the next flush or job.
+        with db._mutex:
+            db._delete_obsolete_files()
+        with self._lock:
+            self.num_completed += 1
         return True
 
     def _run_compaction(self, c: Compaction) -> None:
         db = self.db
         if not c.output_level_inputs and not c.inputs:
+            return
+        if c.reason.startswith("fifo"):
+            # Deletion only.
+            edit = make_version_edit(c, [])
+            with db._mutex:
+                db.versions.log_and_apply(edit)
+                db._delete_obsolete_files()
             return
 
         def _bottom_move_ok(f) -> bool:
@@ -334,6 +408,9 @@ class CompactionScheduler:
         db = self.db
         if cf_id not in db.versions.column_families:
             return  # dropped concurrently
+        if db.options.compaction_style == "universal":
+            self._manual_universal(cf_id)
+            return
         version = db.versions.cf_current(cf_id)
         for level in range(0, version.num_levels - 1):
             with db._mutex:
@@ -372,3 +449,30 @@ class CompactionScheduler:
                 with db._mutex:
                     for _, f in c.all_inputs():
                         f.being_compacted = False
+
+    def _manual_universal(self, cf_id: int) -> None:
+        """compact_range of a universal DB: every run of L0 and the last
+        level's run merged into the last level, in one job."""
+        db = self.db
+        with db._mutex:
+            version = db.versions.cf_current(cf_id)
+            runs = [f for f in version.files[0] if not f.quarantined]
+            last = version.num_levels - 1
+            base = [f for f in version.files[last] if not f.quarantined]
+            if not runs and not base:
+                return
+            c = Compaction(
+                level=0, output_level=last, inputs=runs,
+                output_level_inputs=base, bottommost=True,
+                reason="manual universal", max_output_file_size=2**62,
+                cf_id=cf_id,
+                full_history_ts_low=db.options.full_history_ts_low,
+            )
+            for _, f in c.all_inputs():
+                f.being_compacted = True
+        try:
+            self._run_compaction(c)
+        finally:
+            with db._mutex:
+                for _, f in c.all_inputs():
+                    f.being_compacted = False

@@ -1,9 +1,8 @@
 """Integrated blob files: key-value separation for large values (copied
-from toplingdb_tpu/db/blob.py, without the value cache and statistics of
-BlobSource).
+from toplingdb_tpu/db/blob.py; RocksDB's db/blob/).
 
-Values >= min_blob_size live in .blob files; the LSM keeps a BLOB_INDEX
-entry pointing at (file, offset, size). Each SST's FileMetaData carries the
+Values >= min_blob_size are written to .blob files at flush; the LSM keeps
+a BLOB_INDEX entry pointing at (file, offset, size). Each SST's FileMetaData carries the
 set of blob files it references (blob_refs), and compaction-time blob GC
 (BlobGarbageCollector) rewrites survivors out of the oldest referenced blob
 files.
@@ -23,6 +22,8 @@ from collections import OrderedDict
 
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.utils import coding, crc32c
+from toplingdb_tpu_torch.utils import statistics as st
+from toplingdb_tpu_torch.utils.cache import LRUCache
 from toplingdb_tpu_torch.utils.status import Corruption, NotFound
 
 MAGIC = b"TPULSMBL"
@@ -103,16 +104,27 @@ class BlobFileReader:
 
 
 class BlobSource:
-    """The blob read tier: an LRU-capped set of open blob readers.
-    Thread-safe. `get(blob_index)` is the `blob_resolver` a compaction
-    takes."""
+    """The blob read tier (RocksDB's db/blob/blob_source.{h,cc} and
+    blob_file_cache.cc): an LRU-capped set of open blob readers plus an
+    optional shared value cache, so hot blob workloads stop re-reading
+    files on every get. Thread-safe. `get(blob_index)` is the
+    `blob_resolver` a compaction takes. `blob_cache`: an int capacity in
+    bytes (an LRUCache is built; 0 = none) or a cache instance. Statistics:
+    BLOB_DB_CACHE_HIT / _MISS / _BYTES_READ / _BYTES_WRITE,
+    BLOB_DB_BYTES_READ, BLOB_DB_BLOB_FILE_BYTES_READ and
+    BLOB_DB_NUM_KEYS_READ."""
 
-    def __init__(self, env, dbname: str, open_limit: int = 256):
+    def __init__(self, env, dbname: str, blob_cache=None,
+                 open_limit: int = 256, statistics=None):
         self._env = env
         self._dbname = dbname
         self._readers: OrderedDict[int, BlobFileReader] = OrderedDict()
         self._open_limit = max(1, int(open_limit))
         self._mu = threading.Lock()
+        self.stats = statistics
+        if isinstance(blob_cache, int):
+            blob_cache = LRUCache(blob_cache) if blob_cache > 0 else None
+        self._cache = blob_cache
 
     def _reader(self, fn: int) -> BlobFileReader:
         with self._mu:
@@ -136,7 +148,31 @@ class BlobSource:
 
     def get(self, blob_index: bytes, verify: bool = True) -> bytes:
         fn, offset, size = decode_blob_index(blob_index)
-        return self._reader(fn).get(offset, size, verify)
+        s = self.stats
+        if s is not None:
+            s.record_tick(st.BLOB_DB_NUM_KEYS_READ)
+        cache = self._cache
+        if cache is not None:
+            ck = blob_index if isinstance(blob_index, bytes) \
+                else bytes(blob_index)
+            v = cache.lookup(ck)
+            if v is not None:
+                if s is not None:
+                    s.record_ticks(((st.BLOB_DB_CACHE_HIT, 1),
+                                    (st.BLOB_DB_CACHE_BYTES_READ, len(v)),
+                                    (st.BLOB_DB_BYTES_READ, len(v))))
+                return v
+            if s is not None:
+                s.record_tick(st.BLOB_DB_CACHE_MISS)
+        value = self._reader(fn).get(offset, size, verify)
+        if s is not None:
+            s.record_ticks(((st.BLOB_DB_BLOB_FILE_BYTES_READ, size),
+                            (st.BLOB_DB_BYTES_READ, len(value))))
+        if cache is not None:
+            cache.insert(ck, value, len(value))
+            if s is not None:
+                s.record_tick(st.BLOB_DB_CACHE_BYTES_WRITE, len(value))
+        return value
 
     def evict(self, file_number: int) -> None:
         with self._mu:
@@ -237,7 +273,7 @@ def maybe_new_blob_gc(db, compaction, new_file_number):
     """Shared constructor for the compaction-time collector (used by the
     local scheduler AND the device executor so the eligibility policy can't
     diverge): None unless GC is enabled and the inputs reference blob
-    files. The port's DB refuses blob files, so this is None there."""
+    files."""
     opts = db.options
     if not opts.enable_blob_garbage_collection:
         return None

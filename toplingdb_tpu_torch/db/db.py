@@ -1,5 +1,5 @@
 """DB: the central engine object (copied from toplingdb_tpu/db/db.py,
-trimmed to the core of a leveled engine with column families).
+trimmed to the core of the engine with column families).
 
 The role of RocksDB's DBImpl (db/db_impl/db_impl.cc): open and recover
 (MANIFEST + WAL replay), the write path (group commit: WAL + memtable),
@@ -7,7 +7,19 @@ point reads through memtable → immutables → versioned SST levels, flush,
 MVCC iterators, snapshots, manual compaction, the L0 write stall and
 obsolete-file GC. Background compactions run in the scheduler
 (compaction/scheduler.py) through Options.compaction_executor_factory: by
-default the port's DeviceCompactionExecutorFactory, on the card.
+default the port's DeviceCompactionExecutorFactory, on the card. The
+three compaction styles run (`compaction_style` "leveled", "universal",
+"fifo"), and `periodic_compaction_seconds` marks aged files of a leveled
+DB for a rewrite.
+
+Integrated blob files (RocksDB's BlobDB): with `enable_blob_files`, a
+flush writes values of `min_blob_size` bytes or more to a sibling blob
+file and BLOB_INDEX rows into the SST; gets and scans resolve them through
+`blob_source` (a BlobSource with the `blob_cache` value cache and
+`blob_file_open_limit` open readers), and with
+`enable_blob_garbage_collection` each compaction rewrites the survivors
+of the oldest `blob_garbage_collection_age_cutoff` fraction of the blob
+files it references.
 
 Column families (RocksDB's ColumnFamilyData): `create_column_family(name)`
 returns a ColumnFamilyHandle that put / delete / merge / delete_range /
@@ -56,7 +68,7 @@ the structured event log in `<db>/LOG` (rolled to `LOG.old` on open) and
 the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`).
 On open, job dirs of dcompact workers whose lease expired are swept from
 `<db>/dcompact`. What toplingdb_tpu runs beyond this (the staged write
-modes, blob files, the SLO engine, ...) is refused at open:
+modes, the SLO engine, ...) is refused at open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
 of ignoring it.
 """
@@ -324,7 +336,10 @@ class DB:
         self._cfs: dict[int, _CFData] = {
             0: _CFData(self.default_cf, self.icmp, options.memtable_rep)
         }
-        self.blob_source = BlobSource(env, dbname)
+        self.blob_source = BlobSource(
+            env, dbname, blob_cache=options.blob_cache,
+            open_limit=options.blob_file_open_limit,
+            statistics=options.statistics)
         self.snapshots = SnapshotList()
         self._mutex = threading.RLock()
         self._writers: list[_Writer] = []  # FIFO write queue (leader = [0])
@@ -1139,15 +1154,21 @@ class DB:
                                 wal_number: int | None, cf_id: int) -> None:
         t0 = time.time()
         fnum = self.versions.new_file_number()
-        # Guard the in-flight output from obsolete-file GC until the
-        # version edit lands.
+        blob_num = (self.versions.new_file_number()
+                    if self.options.enable_blob_files else None)
+        # Guard the in-flight outputs (the blob sibling too) from
+        # obsolete-file GC until the version edit lands.
         self._pending_outputs.add(fnum)
+        if blob_num is not None:
+            self._pending_outputs.add(blob_num)
         try:
             with _tm.span("flush.build_table", file_number=fnum):
                 meta = flush_memtable_to_table(
                     self.env, self.dbname, fnum, self.icmp, mems,
                     self.options.table_options_for_level(0),
                     creation_time=int(time.time()),
+                    blob_file_number=blob_num,
+                    min_blob_size=self.options.min_blob_size,
                     column_family=(cf_id, self.cf_name(cf_id)),
                 )
             if meta is not None:
@@ -1159,6 +1180,8 @@ class DB:
             self.versions.log_and_apply(edit)
         finally:
             self._pending_outputs.discard(fnum)
+            if blob_num is not None:
+                self._pending_outputs.discard(blob_num)
         if meta is not None:
             from toplingdb_tpu_torch.utils.listener import FlushJobInfo
 

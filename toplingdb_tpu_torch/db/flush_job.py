@@ -1,15 +1,17 @@
 """FlushJob: memtable → L0 SST (copied from toplingdb_tpu/db/flush_job.py,
-without per-entry protection and blob separation; RocksDB's
-db/flush_job.cc `WriteLevel0Table`)."""
+without per-entry protection; RocksDB's db/flush_job.cc
+`WriteLevel0Table`), with blob separation into a sibling blob file."""
 
 from __future__ import annotations
 
 from toplingdb_tpu_torch.db import dbformat, filename
+from toplingdb_tpu_torch.db.blob import BlobFileBuilder, blob_file_name
 from toplingdb_tpu_torch.db.memtable import MemTable
 from toplingdb_tpu_torch.db.range_del import RangeTombstone, fragment_tombstones
 from toplingdb_tpu_torch.db.version_edit import FileMetaData
 from toplingdb_tpu_torch.table.factory import new_table_builder
 from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
+from toplingdb_tpu_torch.utils import errors as _errors
 
 
 def _flush_columnar(env, dbname, file_number, icmp, mem, table_options,
@@ -74,11 +76,15 @@ def _flush_columnar(env, dbname, file_number, icmp, mem, table_options,
 def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
                             memtables: list[MemTable], table_options,
                             creation_time: int = 0,
+                            blob_file_number: int | None = None,
+                            min_blob_size: int = 0,
                             column_family: tuple[int, str] = (0, "default"),
                             ) -> FileMetaData | None:
     """Write one or more memtables (newest first) to a single L0 SST via a
     k-way merge of their already-sorted iterators. Returns None if there was
-    nothing to write."""
+    nothing to write. With blob_file_number set, values >= min_blob_size go
+    to a sibling blob file and the SST stores BLOB_INDEX pointers (RocksDB's
+    BlobFileBuilder in the flush); an empty blob file is deleted."""
     tombstones: list[RangeTombstone] = []
     total = 0
     for mem in memtables:
@@ -88,13 +94,17 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
     if total == 0 and not tombstones:
         return None
 
-    if len(memtables) == 1:
+    if len(memtables) == 1 and blob_file_number is None:
         meta = _flush_columnar(env, dbname, file_number, icmp, memtables[0],
                                table_options, tombstones, creation_time,
                                column_family)
         if meta is not None:
             return meta
 
+    # min_blob_size == 0 separates every value (RocksDB's semantics); the
+    # enable flag, by way of blob_file_number, gates separation.
+    blob_builder = (BlobFileBuilder(env, dbname, blob_file_number)
+                    if blob_file_number is not None else None)
     path = filename.table_file_name(dbname, file_number)
     w = env.new_writable_file(path)
     try:
@@ -114,6 +124,14 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
             if last_ikey is not None and icmp.compare(last_ikey, ikey) == 0:
                 continue
             last_ikey = ikey
+            if (blob_builder is not None
+                    and ikey[-8] == dbformat.ValueType.VALUE
+                    and len(val) >= min_blob_size):
+                uk, seq, _ = dbformat.split_internal_key(ikey)
+                idx = blob_builder.add(uk, val)
+                builder.add(dbformat.make_internal_key(
+                    uk, seq, dbformat.ValueType.BLOB_INDEX), idx)
+                continue
             builder.add(ikey, val)
         for frag in fragment_tombstones(tombstones, icmp.user_comparator):
             begin_ikey, end_uk = frag.to_table_entry()
@@ -127,6 +145,11 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
         w.sync()
     finally:
         w.close()
+        if blob_builder is not None and blob_builder.finish() == 0:
+            try:
+                env.delete_file(blob_file_name(dbname, blob_file_number))
+            except Exception as e:  # noqa: BLE001 - counted, not raised
+                _errors.swallow(reason="blob-empty-file-delete", exc=e)
 
     return FileMetaData(
         number=file_number,
@@ -138,5 +161,9 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
         num_entries=props.num_entries,
         num_deletions=props.num_deletions,
         num_range_deletions=props.num_range_deletions,
+        blob_refs=(
+            [blob_file_number]
+            if blob_builder is not None and blob_builder.num_values else []
+        ),
         marked_for_compaction=builder.need_compaction,
     )

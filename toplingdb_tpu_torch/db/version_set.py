@@ -164,6 +164,9 @@ class Version:
                     pick += 1
                     yield level, fl[pick]
 
+    def total_bytes(self, level: int) -> int:
+        return sum(f.file_size for f in self.files[level])
+
     def num_files(self) -> int:
         return sum(len(fl) for fl in self.files)
 

@@ -417,20 +417,7 @@ UNPORTED = {
     "async_read_task_capacity": "the async read plane",
     "db_write_buffer_size": "the write buffer manager",
     "write_buffer_manager": "the write buffer manager",
-    "universal_size_ratio": "universal compaction",
-    "universal_min_merge_width": "universal compaction",
-    "universal_max_merge_width": "universal compaction",
-    "universal_max_size_amplification_percent": "universal compaction",
-    "fifo_max_table_files_size": "FIFO compaction",
-    "fifo_ttl_seconds": "FIFO compaction",
-    "periodic_compaction_seconds": "periodic compaction",
     "full_history_ts_low": "user-defined timestamps",
-    "enable_blob_files": "blob files in the DB",
-    "min_blob_size": "blob files in the DB",
-    "enable_blob_garbage_collection": "blob files in the DB",
-    "blob_garbage_collection_age_cutoff": "blob files in the DB",
-    "blob_cache": "blob files in the DB",
-    "blob_file_open_limit": "blob files in the DB",
     "legacy_wide_column_unwrap": "wide-column entities",
     "slo_specs": "the SLO engine",
     "slo_eval_period_sec": "the SLO engine",
@@ -458,15 +445,11 @@ UNPORTED = {
 def unported_fields(options: Options) -> list[tuple[str, str]]:
     """(field, feature) for every field of `options` that is set away
     from its default and that the port's DB does not run, plus the
-    choices of a ported field that it does not run (a compaction style
-    other than leveled, a memtable rep other than skiplist / vector, no
-    compaction executor factory)."""
+    choices of a ported field that it does not run (a memtable rep other
+    than skiplist / vector, no compaction executor factory)."""
     base = Options()
     out = [(name, why) for name, why in UNPORTED.items()
            if getattr(options, name) != getattr(base, name)]
-    if options.compaction_style != "leveled":
-        out.append(("compaction_style",
-                    f"{options.compaction_style!r} compaction"))
     if options.memtable_rep not in ("skiplist", "vector"):
         out.append(("memtable_rep",
                     f"the {options.memtable_rep!r} memtable rep"))
