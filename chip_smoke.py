@@ -132,8 +132,10 @@ Phases (any failure ends the run with a non-zero exit code):
      a full forward scan through the chunk plane (ITER_CHUNK_REFILLS > 0,
      no ITER_CHUNK_FALLBACKS), both against the written keys; close() and
      a second handle, reopened (recovery from the MANIFEST) with
-     iter_chunk_rows=0 and _nget_lib=None, repeats the probes through the
-     Python chain and the scan through the per-entry DBIter; four fills
+     iter_chunk_rows=0 and _nget_lib=None, repeats the first
+     DB_OFF_PROBES = 20,000 probes (cut from 100,000: 10.8-28.7 s
+     through the Python chain) there and the scan through the per-entry
+     DBIter; four fills
      of N/5 keys into fresh DBs without Statistics or compactions time the
      write plane alone, in turns on / off / off / on; last a second
      DB takes 50,000 keys, is dropped without a flush or a close (a
@@ -237,15 +239,49 @@ Phases (any failure ends the run with a non-zero exit code):
      wait_for_compactions and compact_range (every job takes the per-entry
      route with GC). Every job ran on "cuda", gc_rows launched on each,
      every GC target blob file is gone from disk, the one level's SSTs
-     hold one BLOB_INDEX row a key, 100,000 probes and one full scan equal
-     the oracle's values (BLOB_DB_CACHE_* counts printed). Printed for
-     both phases: the fill wall and ops/s, the flushes and blob files,
+     hold one BLOB_INDEX row a key, BLOB_PROBES = 20,000 probes (cut from
+     100,000: at 100,000, 21-37 s through the Python get chain, to keep
+     the script well inside its limit with phase 18 added) and one full
+     scan equal the oracle's values (BLOB_DB_CACHE_* counts printed).
+     Printed for both phases: the fill wall and ops/s, the flushes and blob files,
      each device job's reason, input runs, rows, route, wall and
      launches, compact_range's wall and raw MB/s, readrandom ops/s, the
      scan wall, and the card's busy share (the shard programs and the
      per-entry route's device sorts and GC masks by CUDA events).
+ 18. the integrity plane on the card: phase 13's deployment (INTEGRITY_N
+     = 1,000,000 keys from 4 threads in batches of 100, 8 MiB write
+     buffer, leveled, the "cuda" device factory, a Statistics, the default
+     planes) with the integrity settings users turn on:
+     protection_bytes_per_key=8 (RocksDB's
+     memtable_protection_bytes_per_key=8), crc32c file checksums and the
+     background scrubber every second (integrity_scrub_period_sec=1).
+     Fill: every group a native protected commit (WRITE_GROUP_NATIVE_
+     COMMITS = WRITE_GROUP_LED, no fallback), every flush through the
+     handoff check (one XOR fold of its export equal to the memtable's
+     carried fold a flush, no per-entry walk). Compaction: flush,
+     wait_for_compactions, compact_range; every job on "cuda", every
+     output re-read and verified per entry, gc_rows launched on every job
+     and the merge on multi-input jobs (counts set to 0 before the open);
+     every live SST read back row by row against the oracle. Reads:
+     100,000 readrandom probes (bench.py's Random(5) draw), all decided
+     by the native chain; one full scan through the chunk plane with its
+     protection bank (refills, no fallback, 0
+     INTEGRITY_PROTECTION_MISMATCHES). Verification: verify_file_checksums
+     and verify_checksum over the whole DB, timed; the background
+     scrubber ran a pass. Corruption round trip: one byte of a live SST
+     flipped on disk; scrub() quarantines exactly it
+     (INTEGRITY_CORRUPTIONS_DETECTED 1, on_corruption_detected fired), a
+     put raises, the bytes restored, a second scrub() reports it
+     repaired, resume(), a put and its get. Last, a fill of the same keys
+     without protection into a fresh DB. Printed, each beside the card's
+     name and power limit: both fill walls and ops/s, the flushes, each
+     job's rows, route and wall, compact_range's wall and raw MB/s,
+     readrandom ops/s, the scan wall, both verify walls and bytes, the
+     scrub pass wall and the card's busy share. Its gc_rows and merge
+     launches are added to the kernels line's counts.
 
-The script's total wall is printed before the last three lines of
+Each phase's wall (one summary line) and the script's total wall are
+printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
 {"kernels": [...]}, and the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
@@ -288,6 +324,9 @@ DB_WAL_N = 50_000       # phase 13: the WAL-replay run
 DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
 SMALL_DB_N = 200_000    # phase 14 (b) and (c)
 BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
+BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
+DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
+INTEGRITY_N = 1_000_000  # phase 18: phase 13's deployment
 
 
 def log(msg: str) -> None:
@@ -2300,10 +2339,11 @@ def db_key(i: int, n: int) -> bytes:
     return b"%016d" % (i * 2654435761 % (2 * n))
 
 
-def threaded_fill(db, n_keys, kv, n_threads=4, batch=100) -> float:
+def threaded_fill(db, n_keys, kv, n_threads=4, batch=100, pb=0) -> float:
     """bench.py's fill: n_threads writer threads, thread t writing indices
     [t * n_keys / n_threads, (t + 1) * n_keys / n_threads) in WriteBatches
-    of `batch`, kv(i) giving index i's (key, value). Returns its wall."""
+    of `batch` (with per-entry protection of `pb` bytes a key), kv(i)
+    giving index i's (key, value). Returns its wall."""
     from toplingdb_tpu_torch.db.write_batch import WriteBatch
 
     per_t = n_keys // n_threads
@@ -2313,7 +2353,7 @@ def threaded_fill(db, n_keys, kv, n_threads=4, batch=100) -> float:
         end = (t + 1) * per_t
         try:
             for i in range(t * per_t, end, batch):
-                b = WriteBatch()
+                b = WriteBatch(protection_bytes_per_key=pb)
                 for j in range(i, min(i + batch, end)):
                     b.put(*kv(j))
                 db.write(b)
@@ -2486,9 +2526,9 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
         db._native_get = spy
         return calls
 
-    def readrandom(db):
+    def readrandom(db, keys=probes):
         t0 = time.time()
-        for k in probes:
+        for k in keys:
             v = db.get(k)
             assert v == value, (k, v)
         return time.time() - t0
@@ -2535,18 +2575,20 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
     try:
         db._nget_lib = None
         calls = counted_gets(db)
-        rr_off = readrandom(db)
-        assert calls == {"native": 0, "python": len(probes)}, calls
+        probes_off = probes[:DB_OFF_PROBES]
+        rr_off = readrandom(db, probes_off)
+        assert calls == {"native": 0, "python": len(probes_off)}, calls
         scan_off, chunks, it = full_scan(db)
         assert it._plane is None and not any(chunks.values()), chunks
     finally:
         db.close()
     log(f"[db] close + reopen (MANIFEST recovery) {reopen:.3f}s; planes "
         f"off (second handle, iter_chunk_rows=0, _nget_lib=None): "
-        f"readrandom {len(probes)} probes {rr_off:.3f}s, "
-        f"{len(probes) / rr_off:.0f} ops/s, all found through the Python "
-        f"chain; full scan {scan_off:.3f}s through the per-entry DBIter; "
-        f"planes on / off: readrandom {rr_off / rr:.2f}x, scan "
+        f"readrandom {len(probes_off)} probes {rr_off:.3f}s, "
+        f"{len(probes_off) / rr_off:.0f} ops/s, all found through the "
+        f"Python chain; full scan {scan_off:.3f}s through the per-entry "
+        f"DBIter; planes on / off: readrandom "
+        f"{rr_off / len(probes_off) / (rr / len(probes)):.2f}x a probe, scan "
         f"{scan_off / scan:.2f}x faster")
 
     # The write plane alone, in turns (on, off, off, on): fills of n // 5
@@ -3294,8 +3336,8 @@ def busy_text(programs, joblog, wall) -> str:
             f"(device busy share, derived)")
 
 
-def probe_and_scan(db, keys, value_of, n, tag):
-    """100,000 readrandom probes (bench.py's Random(5) draw over indices
+def probe_and_scan(db, keys, value_of, n, tag, n_probe=100_000):
+    """n_probe readrandom probes (bench.py's Random(5) draw over indices
     of n keys) against the oracle `value_of` (key -> value, or None where
     the key must read NotFound), then one full scan that must give the
     sorted `keys` with their values. Returns the two walls, the probe
@@ -3303,7 +3345,7 @@ def probe_and_scan(db, keys, value_of, n, tag):
     import random
 
     rng = random.Random(5)
-    probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
+    probes = [db_key(rng.randrange(n), n) for _ in range(min(n_probe, n))]
     t0 = time.time()
     found = 0
     for k in probes:
@@ -3585,7 +3627,8 @@ def blob_path(torch, root, n, device_name="cuda"):
         st.BLOB_DB_CACHE_HIT, st.BLOB_DB_CACHE_MISS,
         st.BLOB_DB_CACHE_BYTES_READ, st.BLOB_DB_CACHE_BYTES_WRITE,
         st.BLOB_DB_BLOB_FILE_BYTES_READ)}
-    rr, scan, n_probe, found = probe_and_scan(db, keys, value_of, n, "blob")
+    rr, scan, n_probe, found = probe_and_scan(db, keys, value_of, n, "blob",
+                                              n_probe=BLOB_PROBES)
     assert found == n_probe
     counts = ", ".join(f"{t} {stats.get_ticker_count(t) - c}"
                        for t, c in s0.items())
@@ -3593,6 +3636,276 @@ def blob_path(torch, root, n, device_name="cuda"):
         f"{n_probe / rr:.0f} ops/s, all equal to the oracle's values; full "
         f"scan {n} keys {scan:.3f}s; probes and scan: {counts}")
     db.close()
+
+# ---------------------------------------------------------------------------
+# Phase 18: the integrity plane on the card
+# ---------------------------------------------------------------------------
+
+
+def integrity_path(torch, root, n, card, device_name="cuda"):
+    """Phase 18: phase 13's deployment with the integrity settings users
+    turn on (protection_bytes_per_key=8, crc32c file checksums, the
+    background scrubber every second): the fill, the card's compactions
+    with every output verified, the reads, the two verification passes,
+    a corruption round trip through scrub / quarantine / resume(), and a
+    fill of the same keys without protection. Returns the (gc_rows,
+    merge_runs) launches from the open to compact_range's end."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db import flush_job
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import device_compaction as dc
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.listener import EventListener
+
+    value = b"v" * 20
+    n_threads, batch, pb = 4, 100, 8
+    per = n // n_threads
+    dbdir = os.path.join(root, "db")
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    stats = st.Statistics()
+    events = []
+
+    class Corruptions(EventListener):
+        def on_corruption_detected(self, db, info):
+            events.append(info)
+
+    base = dict(create_if_missing=True, write_buffer_size=8 << 20,
+                compaction_executor_factory=factory, statistics=stats)
+    opts = Options(protection_bytes_per_key=pb, file_checksum="crc32c",
+                   integrity_scrub_period_sec=1, listeners=[Corruptions()],
+                   **base)
+
+    def kv(i):
+        return db_key(i, n), value
+
+    # Spies: every columnar flush's XOR fold of its export against the
+    # memtable's carried fold, the per-entry walk that names a culprit,
+    # every job's outputs and every verified output file.
+    folds, walks, outputs, verified = [], [], [], []
+    fold, walk = flush_job._columnar_protect_xor, flush_job._verify_flush_entry
+    run_job, verify = dc.run_device_compaction, dc.verify_output_table
+
+    def spy_fold(*a, **k):
+        r = fold(*a, **k)
+        folds.append(r)
+        return r
+
+    def spy_walk(*a, **k):
+        walks.append(1)
+        return walk(*a, **k)
+
+    def spy_job(*a, **k):
+        outs, jstats = run_job(*a, **k)
+        outputs.extend(m.number for m in outs)
+        return outs, jstats
+
+    def spy_verify(env, path, *a, **k):
+        verified.append(int(os.path.basename(path).split(".")[0]))
+        return verify(env, path, *a, **k)
+
+    flush_job._columnar_protect_xor = spy_fold
+    flush_job._verify_flush_entry = spy_walk
+    dc.run_device_compaction = spy_job
+    dc.verify_output_table = spy_verify
+    launched = counted(kernels)
+    try:
+        with ShardPrograms(torch) as programs:
+            t_open = time.time()
+            db = DB.open(dbdir, opts)
+            fill = threaded_fill(db, n, kv, n_threads, batch, pb=pb)
+            groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+            commits = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+            fallbacks = stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS)
+            assert commits == groups > 0 and fallbacks == 0, \
+                (groups, commits, fallbacks)
+            n_fill_flush = db.num_flushes
+            t0 = time.time()
+            db.flush()
+            db.wait_for_compactions()
+            t1 = time.time()
+            db.compact_range()
+            crw = time.time() - t1
+            gc_n, mr_n = launched()
+        _, busy = programs.busy(time.time() - t_open)
+    finally:
+        flush_job._columnar_protect_xor = fold
+        flush_job._verify_flush_entry = walk
+        dc.run_device_compaction = run_job
+        dc.verify_output_table = verify
+    sched = db._compaction_scheduler
+    jobs = factory.jobs
+    assert jobs, "no compaction ran on the device executor"
+    assert sched.num_local_jobs == 0 and sched.last_error is None, \
+        (sched.num_local_jobs, sched.last_error)
+    assert db._bg_error is None, db._bg_error
+    assert len(folds) == db.num_flushes and None not in folds, \
+        (len(folds), db.num_flushes)
+    assert not walks, f"{len(walks)} flush entries took the per-entry walk"
+    assert outputs and sorted(verified) == sorted(outputs), \
+        (sorted(outputs), sorted(verified))
+    if device_name != "cpu":
+        assert gc_n >= len(jobs), (gc_n, len(jobs))
+        if any(j["input_files"] > 1 for j in jobs):
+            assert mr_n > 0, "no merge launch for a multi-run job"
+    log(f"[integrity] fillrandom {n_threads * per} keys from {n_threads} "
+        f"threads in protected batches of {batch} (protection 8): "
+        f"{fill:.3f}s, {n_threads * per / fill:.0f} ops/s; {commits} "
+        f"native protected commits of {groups} groups, {fallbacks} "
+        f"fallbacks; {n_fill_flush} flushes in the fill [{card}]")
+    for k, j in enumerate(jobs):
+        log(f"[integrity] device job {k}: L{j['level']}->"
+            f"L{j['output_level']}, {j['input_files']} input files, "
+            f"{j['rows']} rows, {'pipelined' if j['pipelined'] else 'serial'}"
+            f" route, wall {j['wall_s']:.3f}s, outputs verified per entry "
+            f"[{card}]")
+    log(f"[integrity] flush + wait_for_compactions {t1 - t0:.3f}s; "
+        f"compact_range {crw:.3f}s, {n * DB_RAW_PER_ENTRY / 1e6 / crw:.2f} "
+        f"raw MB/s; {db.num_flushes} flushes, each through the handoff "
+        f"check ({len(folds)} XOR folds equal to the carried fold, 0 "
+        f"per-entry walks); {len(jobs)} device jobs, {len(outputs)} outputs"
+        f", all {len(verified)} verified; launches gc_rows={gc_n} "
+        f"merge_runs={mr_n}; open to compact_range's end: {busy} [{card}]")
+    want = sorted(db_key(i, n) for i in range(n_threads * per))
+    n_files = db_files_against_oracle(db, want, value)
+
+    import random
+
+    rng = random.Random(5)
+    probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
+    calls = {"native": 0, "python": 0}
+    chain = db._native_get
+
+    def spy_get(*a):
+        r = chain(*a)
+        calls["native" if r[0] else "python"] += 1
+        return r
+
+    db._native_get = spy_get
+    t0 = time.time()
+    for k in probes:
+        assert db.get(k) == value, k
+    rr = time.time() - t0
+    assert calls == {"native": len(probes), "python": 0}, calls
+    before = stats.tickers()
+    t0 = time.time()
+    it = db.new_iterator()
+    assert it._plane is not None and it._plane._prot_bank is not None
+    it.seek_to_first()
+    got = 0
+    for (k, v), w in zip(it.entries(), want):
+        assert k == w and v == value, (k, w)
+        got += 1
+    scan = time.time() - t0
+    assert got == len(want) and not it.valid(), (got, len(want))
+    after = stats.tickers()
+    delta = {t: after.get(t, 0) - before.get(t, 0) for t in (
+        st.ITER_CHUNK_REFILLS, st.ITER_CHUNK_FALLBACKS,
+        st.INTEGRITY_PROTECTION_MISMATCHES)}
+    assert delta[st.ITER_CHUNK_REFILLS] > 0, delta
+    assert delta[st.ITER_CHUNK_FALLBACKS] == 0, delta
+    assert delta[st.INTEGRITY_PROTECTION_MISMATCHES] == 0, delta
+    log(f"[integrity] {n_files} live SSTs read back row by row against "
+        f"the oracle; readrandom {len(probes)} probes {rr:.3f}s, "
+        f"{len(probes) / rr:.0f} ops/s, all decided by the native chain; "
+        f"full scan {got} keys {scan:.3f}s through the chunk plane with "
+        f"its protection bank: {delta[st.ITER_CHUNK_REFILLS]} refills, "
+        f"{delta[st.ITER_CHUNK_FALLBACKS]} fallbacks, "
+        f"{delta[st.INTEGRITY_PROTECTION_MISMATCHES]} mismatches [{card}]")
+    del it
+
+    t0 = time.time()
+    res = db.verify_file_checksums()
+    vfc = time.time() - t0
+    assert res["files_verified"] >= n_files and res["files_skipped"] == 0, \
+        res
+    t0 = time.time()
+    db.verify_checksum()
+    vc = time.time() - t0
+    scrubber = db._integrity_scrubber
+    deadline = time.time() + 30
+    while scrubber.passes == 0 and time.time() < deadline:
+        time.sleep(0.1)
+    bg_passes = scrubber.passes
+    assert bg_passes >= 1, "the background scrubber ran no pass"
+    # The round trip below scrubs by hand, with a scrubber of its own (a
+    # stopped scrubber's passes end at once).
+    scrubber.stop()
+    db._integrity_scrubber = None
+    live_bytes = sum(f.file_size for _, f in db.versions.current.all_files())
+    log(f"[integrity] verify_file_checksums {vfc:.3f}s over "
+        f"{res['files_verified']} files, {res['bytes_verified']} bytes "
+        f"(crc32c); verify_checksum {vc:.3f}s over {live_bytes} bytes "
+        f"(every block and its CRC); the background scrubber ran "
+        f"{bg_passes} passes, the last {scrubber.last_pass_micros / 1e6:.3f}s"
+        f" [{card}]")
+
+    # The corruption round trip.
+    victim = db.versions.current.files[-1][len(
+        db.versions.current.files[-1]) // 2]
+    path = os.path.join(dbdir, "%06d.sst" % victim.number)
+    with open(path, "rb") as f:
+        orig = f.read()
+    buf = bytearray(orig)
+    buf[len(buf) // 2] ^= 0x01
+    with open(path, "wb") as f:
+        f.write(buf)
+    t0 = time.time()
+    rep = db.scrub()
+    scrub_wall = time.time() - t0
+    assert [c["file_number"] for c in rep["corruptions"]] == \
+        [victim.number], rep["corruptions"]
+    assert rep["quarantined"] == [victim.number], rep
+    assert stats.get_ticker_count(st.INTEGRITY_CORRUPTIONS_DETECTED) == 1
+    assert [e.file_number for e in events] == [victim.number]
+    blocked = None
+    try:
+        db.put(b"blocked", value)
+    except Exception as e:  # noqa: BLE001 - the HARD latch
+        blocked = e
+    assert blocked is not None and "background error pending" in str(
+        blocked), f"a put went through the quarantine latch: {blocked!r}"
+    assert db._bg_error_severity.name == "HARD_ERROR"
+    blocked = type(blocked).__name__
+    with open(path, "wb") as f:
+        f.write(orig)
+    rep2 = db.scrub()
+    assert not rep2["corruptions"] and rep2["repaired"] == \
+        [victim.number], rep2
+    db.resume()
+    db.put(b"resumed", value)
+    assert db.get(b"resumed") == value
+    log(f"[integrity] corruption round trip: one byte of {victim.number:06d}"
+        f".sst flipped; scrub {scrub_wall:.3f}s ({rep['files_scanned']} "
+        f"files, {rep['bytes_verified']} bytes verified) quarantined "
+        f"exactly it, INTEGRITY_CORRUPTIONS_DETECTED 1, "
+        f"on_corruption_detected fired; a put raised {blocked}; bytes "
+        f"restored, the re-scrub repaired it; resume(), a put and its get "
+        f"[{card}]")
+    db.close()
+
+    # The same keys without protection, scrubber or checksums on, for the
+    # fill's wall.
+    offdir = os.path.join(root, "off")
+    off_factory = DeviceCompactionExecutorFactory(device=device_name)
+    off = DB.open(offdir, Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=off_factory,
+        statistics=st.Statistics()))
+    try:
+        fill_off = threaded_fill(off, n, kv, n_threads, batch)
+    finally:
+        off.close()
+    shutil.rmtree(offdir)
+    log(f"[integrity] fill A/B in one call, {n_threads * per} keys: "
+        f"protection 8 + crc32c checksums + 1 s scrubber {fill:.3f}s "
+        f"({n_threads * per / fill:.0f} ops/s), unprotected {fill_off:.3f}s "
+        f"({n_threads * per / fill_off:.0f} ops/s), {fill / fill_off:.2f}x "
+        f"[{card}]")
+    return gc_n, mr_n
 
 
 def card_line() -> str:
@@ -3633,8 +3946,17 @@ def main() -> int:
         f" s, total {time.time() - t0:.1f}s; the point read's fastget "
         f"extension {'built' if host['fastget'] else 'unavailable (ctypes)'}")
 
-    results = kernel_phase(torch, device)
-    shard_phase(torch, device)
+    walls = {"build": round(time.time() - t0, 1)}
+
+    def phase(name, fn, *args):
+        """Runs one phase and keeps its wall for the summary line."""
+        t = time.time()
+        out = fn(*args)
+        walls[name] = round(time.time() - t, 1)
+        return out
+
+    results = phase("3 kernels", kernel_phase, torch, device)
+    phase("shard", shard_phase, torch, device)
 
     dbdir = os.path.join(REPO, "_smoke")
     shutil.rmtree(dbdir, ignore_errors=True)
@@ -3643,26 +3965,36 @@ def main() -> int:
     icmp = InternalKeyComparator()
     topts = TableOptions()
     try:
-        launches, _jobs = main_path(torch, env, dbdir, icmp, topts, MAIN_N)
-        blk_launches, _bjobs = blocks_path(torch, env, dbdir, icmp, topts,
-                                           BLOCKS_N)
-        varlen_path(torch, env, dbdir, icmp, topts, VARLEN_N,
-                    VARLEN_PLAIN_N)
-        tombstone_path(torch, env, dbdir, icmp, topts, TOMB_N)
-        device_vs_plain(env, dbdir, icmp, topts, PLAIN_N)
-        complex_path(torch, env, dbdir, icmp, topts, COMPLEX_N, smi)
-        entries_path(torch, env, dbdir, icmp, topts, ENTRIES_N, smi)
-        compressed_path(torch, env, dbdir, icmp, MAIN_N, CODEC_N,
-                        SLOW_CODEC_N, _jobs)
-        formats_path(torch, env, dbdir, icmp, MAIN_N, FORMAT_N, ENTRY_N,
-                     _jobs)
-        _gc, _mr, db_crw = db_path(torch, os.path.join(dbdir, "db13"), DB_N,
-                                   DB_WAL_N)
-        dcompact_path(torch, os.path.join(dbdir, "db14"), DB_N, SMALL_DB_N,
-                      db_crw)
-        cf_path(torch, os.path.join(dbdir, "db15"), DB_N)
-        styles_path(torch, os.path.join(dbdir, "db16"), DB_N)
-        blob_path(torch, os.path.join(dbdir, "db17"), BLOB_N)
+        launches, _jobs = phase("4 main", main_path, torch, env, dbdir,
+                                icmp, topts, MAIN_N)
+        blk_launches, _bjobs = phase("5 blocks", blocks_path, torch, env,
+                                     dbdir, icmp, topts, BLOCKS_N)
+        phase("6 varlen", varlen_path, torch, env, dbdir, icmp, topts,
+              VARLEN_N, VARLEN_PLAIN_N)
+        phase("7 tombstones", tombstone_path, torch, env, dbdir, icmp,
+              topts, TOMB_N)
+        phase("8 plain", device_vs_plain, env, dbdir, icmp, topts, PLAIN_N)
+        phase("9 complex", complex_path, torch, env, dbdir, icmp, topts,
+              COMPLEX_N, smi)
+        phase("10 entries", entries_path, torch, env, dbdir, icmp, topts,
+              ENTRIES_N, smi)
+        phase("11 codecs", compressed_path, torch, env, dbdir, icmp, MAIN_N,
+              CODEC_N, SLOW_CODEC_N, _jobs)
+        phase("12 formats", formats_path, torch, env, dbdir, icmp, MAIN_N,
+              FORMAT_N, ENTRY_N, _jobs)
+        _gc, _mr, db_crw = phase("13 db", db_path, torch,
+                                 os.path.join(dbdir, "db13"), DB_N, DB_WAL_N)
+        phase("14 dcompact", dcompact_path, torch,
+              os.path.join(dbdir, "db14"), DB_N, SMALL_DB_N, db_crw)
+        phase("15 cf", cf_path, torch, os.path.join(dbdir, "db15"), DB_N)
+        phase("16 styles", styles_path, torch, os.path.join(dbdir, "db16"),
+              DB_N)
+        phase("17 blob", blob_path, torch, os.path.join(dbdir, "db17"),
+              BLOB_N)
+        int_gc, int_mr = phase("18 integrity", integrity_path, torch,
+                               os.path.join(dbdir, "db18"), INTEGRITY_N, smi)
+        log(f"[integrity] phase 18 wall {walls['18 integrity']:.1f}s "
+            f"[{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -3670,10 +4002,14 @@ def main() -> int:
     # Launches on each kernel's own main path: the pipelined plane for
     # gc_rows and the merge, the block-assembly route for shared_prefix.
     launches["shared_prefix"] = blk_launches["shared_prefix_lengths"]
+    # Phase 18's protected DB runs gc_rows and the merge on its own path.
+    launches["gc_rows"] += int_gc
+    launches["merge_runs"] += int_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"phase walls (s): {json.dumps(walls)}")
     log(f"chip_smoke total wall: {time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -6,10 +6,10 @@ returns, so every journaled op must survive the kill; only the one op in
 flight (written, not yet journaled) may diverge, once per kill. The child
 is killed at a random point after its first journaled op (the port's
 child starts slower than the reference's: it imports torch). After each
-kill the DB reopens, every journaled key reads back, and a full scan of
-both column families reads every table block and blob record with its
-checksum (the reference's test calls verify_checksum, which the port's DB
-does not have yet)."""
+kill the DB reopens, every journaled key reads back, a full scan of both
+column families counts the journaled keys, and `verify_checksum` reads
+every table block and blob record with its checksum, as the reference's
+test does."""
 
 import os
 import random
@@ -128,6 +128,7 @@ def test_crash_recovery_with_cfs_and_blobs(tmp_path):
                 n = sum(1 for _ in it.entries())
                 assert abs(n - len(model[h is not None])) <= rnd + 1
                 del it
+            db.verify_checksum()
         finally:
             db.close()
     shutil.rmtree(base, ignore_errors=True)

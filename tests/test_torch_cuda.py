@@ -47,7 +47,10 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   bitwise;
 - a small universal DB and a small blob DB with blob GC, their jobs on
   "cuda", read back against a dict oracle and write the SST and blob file
-  bytes of the same DBs on "cpu".
+  bytes of the same DBs on "cpu";
+- a small protected DB (protection_bytes_per_key=8) whose jobs run on
+  "cuda": every output verified per entry, a clean scrub, and the SST
+  bytes and scan of the same DB on "cpu".
 """
 
 import os
@@ -1171,3 +1174,68 @@ def test_style_db_on_the_card_writes_the_cpu_bytes(dev, tmp_path,
     want, cpu_jobs = _style_db(str(tmp_path / "cpu"), "cpu", n, 5, **kw)
     assert [j["reason"] for j in jobs] == [j["reason"] for j in cpu_jobs]
     assert got == want
+
+
+def _protected_db(path, device, n, verified):
+    """A DB with protection_bytes_per_key=8 whose flushes and compactions
+    run on `device`, `verified` collecting every output file the jobs
+    verified per entry. Returns its SST bytes by file number and a scan."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=1 << 20, disable_auto_compactions=True,
+                   protection_bytes_per_key=8,
+                   compaction_executor_factory=factory)
+    with DB.open(path, opts) as db:
+        for r in range(3):
+            for i in range(0, n, 100):
+                b = WriteBatch(protection_bytes_per_key=8)
+                for j in range(i, i + 100):
+                    b.put(b"%016d" % (j * 2654435761 % (2 * n)),
+                          b"v%d-%017d" % (r, j))
+                db.write(b)
+            db.flush()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert factory.jobs and sched.num_local_jobs == 0
+        assert sched.last_error is None and db._bg_error is None
+        assert db.scrub()["corruptions"] == []
+        files = {f.number: open(os.path.join(path, "%06d.sst" % f.number),
+                                "rb").read()
+                 for _, f in db.versions.current.all_files()}
+        it = db.new_iterator()
+        it.seek_to_first()
+        scan = list(it.entries())
+    assert sorted(verified) == sorted(files), (verified, sorted(files))
+    verified.clear()
+    return files, scan
+
+
+def test_protected_db_on_the_card_verifies_its_outputs(dev, tmp_path,
+                                                       monkeypatch):
+    """A small protected DB (protection 8): its jobs run on "cuda" (gc_rows
+    and the merge launch), every output is re-read and verified per entry,
+    and its SST bytes and scan equal the same DB's on "cpu"."""
+    verified = []
+    verify = dc.verify_output_table
+
+    def spy(env, path, *a, **k):
+        verified.append(int(os.path.basename(path).split(".")[0]))
+        return verify(env, path, *a, **k)
+
+    monkeypatch.setattr(dc, "verify_output_table", spy)
+    _frozen(monkeypatch)
+    n = 100_000
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _protected_db(str(tmp_path / "cuda"), "cuda", n, verified)
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    want = _protected_db(str(tmp_path / "cpu"), "cpu", n, verified)
+    assert got == want
+    assert len(got[1]) == n

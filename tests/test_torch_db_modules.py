@@ -17,7 +17,9 @@ on the same inputs, on the CPU:
   executor raising its last error, and the job deadline;
 - every option the port's DB does not run raises NotSupported at open
   (the compaction styles, periodic compaction and blob files open:
-  tests/test_torch_compaction_styles.py, tests/test_torch_blob_db.py).
+  tests/test_torch_compaction_styles.py, tests/test_torch_blob_db.py);
+  the three integrity fields open (`test_ported_option_opens`; held
+  against the reference in tests/test_torch_integrity.py).
 
 Tolerance: none; bytes, records and answers must be equal.
 """
@@ -635,6 +637,41 @@ def test_unported_option_raises(tmp_path, name):
     with pytest.raises(NotSupported, match=name):
         DB.open(path, opts)
     assert not os.path.exists(path)
+
+
+# The integrity fields open (tests/test_torch_integrity.py holds them
+# against the reference).
+NOW_OPEN = {
+    "protection_bytes_per_key": dict(protection_bytes_per_key=8),
+    "integrity_scrub_period_sec": dict(integrity_scrub_period_sec=60),
+    "integrity_scrub_bytes_per_sec": dict(
+        integrity_scrub_bytes_per_sec=1 << 20),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_OPEN))
+def test_ported_option_opens(tmp_path, name):
+    from toplingdb_tpu_torch.compaction.executor import (
+        LocalCompactionExecutorFactory,
+    )
+
+    assert name not in popts.UNPORTED
+    opts = Options(compaction_executor_factory=(
+        LocalCompactionExecutorFactory()), **NOW_OPEN[name])
+    assert popts.unported_fields(opts) == []
+    with DB.open(str(tmp_path / "db"), opts) as db:
+        db.put(b"k", b"v" * 300)
+        assert (db.mem._prot is not None) == (
+            name == "protection_bytes_per_key")
+        assert (db._integrity_scrubber is not None) == (
+            name == "integrity_scrub_period_sec")
+        db.flush()
+        assert db.get(b"k") == b"v" * 300
+        db.compact_range()
+        assert db.get(b"k") == b"v" * 300
+        assert db.scrub()["files_scanned"] == 1
+    with DB.open(str(tmp_path / "db"), opts) as db:
+        assert db.get(b"k") == b"v" * 300
 
 
 def test_defaults_open(tmp_path):

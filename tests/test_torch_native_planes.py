@@ -20,7 +20,8 @@ toplingdb_tpu's, both on their default paths, on the CPU:
 - DB.open refuses a plane without the native library, naming it; the port
   reads neither TPULSM_WRITE_PLANE nor TPULSM_ITER_CHUNK;
 - the two packages' native libraries stay isolated in one process
-  (a subprocess loading both, in either order).
+  (a subprocess loading both, in either order, with protected DBs: the
+  protection exports included).
 
 The reference runs with TPULSM_WRITE_PLANE and TPULSM_ITER_CHUNK unset
 (its defaults), the port with write_plane=True and iter_chunk_rows=4096
@@ -883,10 +884,13 @@ from toplingdb_tpu_torch.options import Options as PO
 import toplingdb_tpu.db.db as rdbm
 
 root = sys.argv[2]
+# Protected DBs: every put is a protected native group commit, every flush
+# folds its export through tpulsm_columnar_protect.
 port = PDB.open(os.path.join(root, "port"), PO(
-    create_if_missing=True,
+    create_if_missing=True, protection_bytes_per_key=8,
     compaction_executor_factory=LocalCompactionExecutorFactory()))
-ref = rdbm.DB.open(os.path.join(root, "ref"), RO(create_if_missing=True))
+ref = rdbm.DB.open(os.path.join(root, "ref"), RO(
+    create_if_missing=True, protection_bytes_per_key=8))
 for db, tag in ((port, b"port"), (ref, b"ref")):
     for i in range(300):
         db.put(b"key%04d" % i, tag + b"%d" % i)
@@ -894,6 +898,19 @@ for db, tag in ((port, b"port"), (ref, b"ref")):
     db.put(b"mem", tag)
 got = {"port": [port.get(b"key0007"), port.get(b"mem")],
        "ref": [ref.get(b"key0007"), ref.get(b"mem")]}
+from toplingdb_tpu.db.write_batch import WriteBatch as RWB
+from toplingdb_tpu.db.write_batch import _native_protect as ref_protect
+from toplingdb_tpu_torch.db.write_batch import _native_protect as port_protect
+from toplingdb_tpu_torch.utils import protection as pprot
+
+wb = RWB()
+for i in range(20):
+    wb.put(b"pk%d" % i, b"pv%d" % i)
+    wb.delete(b"dk%d" % i)
+want = [pprot.truncate(pprot.protect_entry(int(t), k, v or b""), 8)
+        for t, k, v in wb.entries()]
+prot_names = ("tpulsm_wb_protect", "tpulsm_columnar_protect",
+              "tpulsm_skiplist_insert_wb_prot", "tpulsm_wb_group_commit")
 state = port._nget_tl.states[0]
 fn_addr = ctypes.cast(state.fn, ctypes.c_void_p).value
 glob = getattr(ctypes.CDLL(None), "tpulsm_getctx_get", None)
@@ -908,6 +925,15 @@ out = {
     "ref_fast": where(ctypes.cast(
         libs["ref"].tpulsm_getctx_get, ctypes.c_void_p).value),
     "got": {k: [v.decode() for v in vs] for k, vs in got.items()},
+    "prot_where": {k: [where(ctypes.cast(getattr(libs[k], n),
+                                         ctypes.c_void_p).value)
+                       for n in prot_names] for k in ("port", "ref")},
+    "prot_global": [where(ctypes.cast(getattr(ctypes.CDLL(None), n),
+                                      ctypes.c_void_p).value)
+                    if hasattr(ctypes.CDLL(None), n) else None
+                    for n in prot_names],
+    "prot_vec": [[int(x) for x in f(wb.data(), 8, False)] == want
+                 for f in (port_protect, ref_protect)],
 }
 port.close()
 ref.close()
@@ -923,7 +949,11 @@ def test_native_libraries_stay_isolated(tmp_path, order):
     tpulsm_getctx_get from the port's library, the port's get context
     function and its fastget binding lie in the port's library, the
     reference's in its own, and each package's get returns its own
-    data."""
+    data. Both DBs run with protection_bytes_per_key=8, so the protected
+    group commit, the fused verify+insert and the flush's columnar fold
+    run in the same process: each package's protection exports lie in its
+    own library, none of the port's is the one the global scope resolves,
+    and both compute the vector utils/protection.py computes."""
     import json
 
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -941,6 +971,9 @@ def test_native_libraries_stay_isolated(tmp_path, order):
     assert res["port_fast"] == port_so and res["port_fast_used"]
     assert res["ref_fast"] == ref_so
     assert res["got"] == {"port": ["port7", "port"], "ref": ["ref7", "ref"]}
+    assert res["prot_where"] == {"port": [port_so] * 4, "ref": [ref_so] * 4}
+    assert port_so not in res["prot_global"]
+    assert res["prot_vec"] == [True, True]
 
 
 _SHIM = r"""

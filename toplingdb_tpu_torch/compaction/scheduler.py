@@ -98,10 +98,11 @@ class CompactionScheduler:
                 if not self._run_one():
                     break
         except BaseException as e:
-            # Surface to the DB's error handler: writes fail from now on
-            # (RocksDB's ErrorHandler).
+            # Surface to the DB's error handler: writes fail until resume()
+            # (RocksDB's ErrorHandler, db/error_handler.h).
             self.last_error = e
-            self.db._set_background_error(e)
+            self.db._set_background_error(
+                e, getattr(e, "_bg_reason", "compaction"))
             traceback.print_exc()
         finally:
             with self._lock:

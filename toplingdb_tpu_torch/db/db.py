@@ -60,6 +60,25 @@ With `write_plane=True` or `iter_chunk_rows > 0`, DB.open raises
 NotSupported naming the plane when the native library cannot be built or
 loaded.
 
+The integrity plane, as toplingdb_tpu runs it. With
+`protection_bytes_per_key` (1, 2, 4 or 8) every record of a WriteBatch
+carries a checksum from the first handoff on: the write plane computes or
+verifies the vectors inside its WAL frame walk (the Python group commit
+at the memtable insert), the memtable keeps them until the flush checks
+every entry it writes against them, the scan plane banks the checksum of
+every decoded row and checks every row it serves, and the card jobs
+verify their outputs; a mismatch raises Corruption. Tables carry
+whole-file checksums (`file_checksum`, taken from the bytes written),
+checked by `verify_file_checksums`, `verify_checksum` (every block and
+blob record) and the IntegrityScrubber (db/integrity.py; `scrub()`, and
+a background pass every `integrity_scrub_period_sec`), which quarantines
+a corrupt file away from compaction picks. Background errors latch with
+RocksDB's ErrorHandler severities: SOFT ones (retryable flush and job IO
+errors, no space) leave writes on and start an auto-recover thread; HARD
+ones (a scrub's corruption, other IO errors) stop writes until
+`resume()`; FATAL and UNRECOVERABLE ones (corruption found by a job, a
+MANIFEST failure) need a reopen.
+
 Observability, as toplingdb_tpu's DB wires it: `Options.statistics`
 (tickers and histograms of the write, get, iterator, flush and compaction
 paths; `stats_history`, `stats_persist_period_sec`,
@@ -114,11 +133,14 @@ from toplingdb_tpu_torch.utils import statistics as _st
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.listener import EventLogger, notify
 from toplingdb_tpu_torch.utils.status import (
+    Corruption,
     InvalidArgument,
     IOError_,
     NotFound,
     NotSupported,
+    Severity,
     ShutdownInProgress,
+    is_no_space,
 )
 
 _DEFAULT_READ = ReadOptions()
@@ -194,9 +216,11 @@ class _CFData:
 
     __slots__ = ("handle", "mem", "imm")
 
-    def __init__(self, handle: ColumnFamilyHandle, icmp, rep_name: str):
+    def __init__(self, handle: ColumnFamilyHandle, icmp, rep_name: str,
+                 protection_bytes: int = 0):
         self.handle = handle
-        self.mem = MemTable(icmp, create_memtable_rep(rep_name))
+        self.mem = MemTable(icmp, create_memtable_rep(rep_name),
+                            protection_bytes=protection_bytes)
         self.imm: list[MemTable] = []
 
 
@@ -293,9 +317,35 @@ class DB:
         self._nget_lib = lib if options.block_cache is None else None
         self._nget_tl = threading.local()  # .states: {cf_id: _NGetState}
         self.icmp = InternalKeyComparator(options.comparator)
-        from toplingdb_tpu_torch.utils.file_checksum import factory_for
+        # The integrity plane: per-entry protection, whole-file checksums
+        # and the scrubber's state (utils/protection.py,
+        # utils/file_checksum.py, db/integrity.py).
+        from toplingdb_tpu_torch.utils.file_checksum import (
+            ChecksumTapEnv,
+            factory_for,
+        )
+        from toplingdb_tpu_torch.utils.protection import (
+            check_protection_bytes,
+        )
 
+        pb = options.protection_bytes_per_key
+        check_protection_bytes(pb)
+        self._protection = pb
         self._file_checksum_factory = factory_for(options)
+        if self._file_checksum_factory is not None:
+            # Flushes and jobs write their tables through self.env: each
+            # table's checksum is taken from the bytes written.
+            self.env = ChecksumTapEnv(env, self._file_checksum_factory)
+        self._quarantined: set[int] = set()
+        self._integrity_scrubber = None
+        if pb and options.table_options.protection_bytes_per_key != pb:
+            # The table layer reads the width (the flush handoff check and
+            # the card jobs' output verification). Copy: the caller's
+            # TableOptions object must not be mutated.
+            import dataclasses
+
+            options.table_options = dataclasses.replace(
+                options.table_options, protection_bytes_per_key=pb)
         if (options.prefix_extractor is not None
                 and options.table_options.prefix_extractor is None):
             # The CF-level extractor feeds the table layer (prefix blooms,
@@ -334,7 +384,8 @@ class DB:
         self.table_cache.stats = options.statistics
         self.default_cf = ColumnFamilyHandle(0, "default")
         self._cfs: dict[int, _CFData] = {
-            0: _CFData(self.default_cf, self.icmp, options.memtable_rep)
+            0: _CFData(self.default_cf, self.icmp, options.memtable_rep,
+                       protection_bytes=self._protection)
         }
         self.blob_source = BlobSource(
             env, dbname, blob_cache=options.blob_cache,
@@ -349,7 +400,14 @@ class DB:
         self._closed = False
         self._compaction_scheduler = None
         self._pending_outputs: set[int] = set()  # files being written by jobs
+        # The background-error latch (RocksDB's ErrorHandler): the error,
+        # its Severity and the background reason it was raised for; the
+        # event stops the auto-recover loop at close.
         self._bg_error: BaseException | None = None
+        self._bg_error_severity = Severity.NO_ERROR
+        self._bg_error_reason = ""
+        self._recover_stop = threading.Event()
+        self._recover_threads: list[threading.Thread] = []
         self._options_file_number = 0  # latest persisted OPTIONS file
         self._file_deletions_disabled = 0  # DisableFileDeletions pin count
         self._stats_persist_seq = 0  # suffix of persisted stats keys
@@ -533,6 +591,11 @@ class DB:
         db._compaction_scheduler = CompactionScheduler(db)
         db._start_stats_threads()
         db._maybe_schedule_compaction()
+        if options.integrity_scrub_period_sec > 0:
+            from toplingdb_tpu_torch.db.integrity import IntegrityScrubber
+
+            db._integrity_scrubber = IntegrityScrubber(db)
+            db._integrity_scrubber.start()
         return db
 
     def _persist_options(self) -> None:
@@ -570,7 +633,11 @@ class DB:
             reader = LogReader(self.env.new_sequential_file(path),
                                log_number=num)
             for rec in reader.records():
-                batch = WriteBatch(rec)
+                # The WAL record's own CRC vouched for `rec`; protection
+                # computed here covers the replayed entries from decode
+                # through memtable and flush.
+                batch = WriteBatch(
+                    rec, protection_bytes_per_key=self._protection)
                 batch.insert_into(mems)
                 end_seq = batch.sequence() + batch.count() - 1
                 max_seq = max(max_seq, end_seq)
@@ -594,11 +661,13 @@ class DB:
             if cf_id not in self._cfs:
                 h = ColumnFamilyHandle(cf_id, st.name)
                 self._cfs[cf_id] = _CFData(h, self.icmp,
-                                           self.options.memtable_rep)
+                                           self.options.memtable_rep,
+                                           protection_bytes=self._protection)
 
     def _fresh_memtable(self) -> MemTable:
         return MemTable(self.icmp,
-                        create_memtable_rep(self.options.memtable_rep))
+                        create_memtable_rep(self.options.memtable_rep),
+                        protection_bytes=self._protection)
 
     def _new_wal(self) -> None:
         self._wal_number = self.versions.new_file_number()
@@ -609,11 +678,15 @@ class DB:
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
         the memtables, and close the WAL, the MANIFEST and the readers."""
-        for t in (self._stats_dumper, self._stats_dump_thread):
+        self._recover_stop.set()
+        for t in (self._integrity_scrubber, self._stats_dumper,
+                  self._stats_dump_thread):
             if t is not None:
                 t.stop()
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.shutdown()
+        for t in self._recover_threads:
+            t.join(timeout=10.0)
         with self._mutex:
             if self._closed:
                 return
@@ -673,7 +746,8 @@ class DB:
             cf_id = self.versions.create_column_family(name)
             h = ColumnFamilyHandle(cf_id, name)
             self._cfs[cf_id] = _CFData(h, self.icmp,
-                                       self.options.memtable_rep)
+                                       self.options.memtable_rep,
+                                       protection_bytes=self._protection)
             return h
 
     def drop_column_family(self, handle: ColumnFamilyHandle) -> None:
@@ -723,31 +797,31 @@ class DB:
 
     def put(self, key: bytes, value: bytes, opts: WriteOptions = _DEFAULT_WRITE,
             cf=None) -> int:
-        b = WriteBatch()
+        b = WriteBatch(protection_bytes_per_key=self._protection)
         b.put(key, value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
                cf=None) -> int:
-        b = WriteBatch()
+        b = WriteBatch(protection_bytes_per_key=self._protection)
         b.delete(key, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def single_delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
                       cf=None) -> int:
-        b = WriteBatch()
+        b = WriteBatch(protection_bytes_per_key=self._protection)
         b.single_delete(key, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def merge(self, key: bytes, value: bytes,
               opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
-        b = WriteBatch()
+        b = WriteBatch(protection_bytes_per_key=self._protection)
         b.merge(key, value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete_range(self, begin: bytes, end: bytes,
                      opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
-        b = WriteBatch()
+        b = WriteBatch(protection_bytes_per_key=self._protection)
         b.delete_range(begin, end, cf=self._cf_id(cf))
         return self.write(b, opts)
 
@@ -762,6 +836,17 @@ class DB:
         if batch.is_empty():
             return self.versions.last_sequence
         self._check_open()  # fail fast before any stall sleep
+        if self._protection and (self._write_plane is None
+                                 or batch._pb != self._protection
+                                 or batch._prot is None):
+            # Materialize (caller-constructed batches, records added since
+            # the last compute): one native pass BEFORE the WAL append and
+            # the group merge, so the memtable-insert re-verification
+            # spans the whole commit path. Otherwise defer: the write plane
+            # VERIFIES a current vector or COMPUTES a stale one fused into
+            # its WAL frame walk (each record hashed once), and the Python
+            # group commit attaches it at the insert handoff.
+            batch.ensure_protection(self._protection)
         tracer = self.tracer
         root = None
         if tracer is not None and tracer.sample_every \
@@ -929,9 +1014,10 @@ class DB:
                              mems, frame: bool):
         """The fused native write plane for one group
         (tpulsm_wb_group_commit): the frame call re-sequences the merged
-        header and frames the WAL record gather-style (no Python
-        append_from copy, no Python crc framing); the insert call applies
-        every record to the skiplist with consecutive seqnos, GIL-free.
+        header, frames the WAL record gather-style (no Python append_from
+        copy, no Python crc framing) and re-hashes carried protection in
+        the same validation pass; the insert call applies every record to
+        the skiplist with consecutive seqnos, GIL-free.
 
         frame=True (caller holds _mutex, WAL on): frames, appends and
         settles durability, then returns the memtable phase as a zero-arg
@@ -940,7 +1026,9 @@ class DB:
         validates and inserts in ONE call and returns True.
         Returns None on fallback, with nothing framed or inserted: the
         Python interiors take CF-prefixed records, range deletes,
-        wide-column entities, merge-heavy groups and non-native reps.
+        wide-column entities, merge-heavy groups, non-native reps and a
+        group mixing current and stale protection. Raises Corruption, with
+        NOTHING framed or inserted, on a protection mismatch.
         `mems` is {cf_id: active memtable}; only the default CF's is
         written here."""
         fn = self._write_plane
@@ -950,41 +1038,112 @@ class DB:
         gh = mem.group_handle() if mem is not None else None
         if gh is None:
             return None
+        pb = self._protection
         reps = []
+        prot_vecs = [] if pb else None
         total = 0
+        n_stale = 0
         for w in group:
             b = w.batch
             if (not b._simple or b._has_wide
                     or (b._n_merge and b._n_merge * 2 > b._count)):
                 return None  # fallback matrix: the Python path decides
+            if pb:
+                if b._prot is None or b._pb != pb:
+                    return None
+                if b._prot_n != b._count:
+                    n_stale += 1
+                else:
+                    prot_vecs.append(b._prot)
             reps.append(b.data())
             total += b._count
         if total == 0:
+            return None
+        # Protection: every member current -> VERIFY the carried vectors;
+        # every member stale (DB.write's deferral) -> FILL them fused with
+        # the frame walk; a mixed group falls back (each member keeps its
+        # own verification point).
+        fill = n_stale == len(group) if pb and n_stale else False
+        if pb and n_stale and not fill:
             return None
         import ctypes
 
         n = len(reps)
         rep_arr = (ctypes.c_char_p * n)(*reps)
         len_arr = (ctypes.c_int64 * n)(*[len(r) for r in reps])
+        prot_ptr = None
+        n_prots = 0
+        # `keep` holds every buffer prot_ptr points into for as long as the
+        # closures below can run (the insert call outlives this frame).
+        keep = None
+        if pb:
+            if fill:
+                prot_ptr = keep = (ctypes.c_uint64 * total)()
+                n_prots = total
+            else:
+                base = getattr(prot_vecs[0], "base", None) if n == 1 \
+                    else None
+                if isinstance(base, ctypes.Array) and len(base) == total:
+                    # _native_protect's buffer: no data_as crossing.
+                    prot_ptr = keep = base
+                    n_prots = total
+                else:
+                    import numpy as np
+
+                    keep = (np.ascontiguousarray(prot_vecs[0],
+                                                 dtype=np.uint64)
+                            if n == 1 else np.concatenate(
+                                [np.asarray(p, dtype=np.uint64)
+                                 for p in prot_vecs]))
+                    prot_ptr = keep.ctypes.data_as(
+                        ctypes.POINTER(ctypes.c_uint64))
+                    n_prots = len(keep)
         # out[0..4]: framed bytes / new block offset / memtable byte delta
         # / delete count / merged record length; out[5..7]: the native
         # interior's timings in ns (validate / WAL frame / memtable insert)
         # for the span tracer.
         out = (ctypes.c_int64 * 8)()
 
-        def run(mode, block_off=0, log_no=-1, wal_ptr=None, cap=0):
-            # No protection vectors: per-entry protection is not ported.
-            return fn(gh[0], gh[1], rep_arr, len_arr, n, first_seq, None,
-                      0, 0, mode, block_off, log_no, wal_ptr, cap, out)
+        def run(mode, block_off=0, log_no=-1, wal_ptr=None, cap=0,
+                _keep=keep):
+            rc = fn(gh[0], gh[1], rep_arr, len_arr, n, first_seq, prot_ptr,
+                    n_prots, pb, mode, block_off, log_no, wal_ptr, cap, out)
+            if rc <= -5:
+                raise Corruption(
+                    f"write batch protection mismatch at record "
+                    f"{-(rc + 5)} during group commit"
+                )
+            return rc
+
+        def adopt_filled():
+            # Hand the fused-computed vectors back to the batches (the
+            # zero-copy shape _native_protect produces), so the memtable
+            # carry and any later verify see them.
+            import numpy as np
+
+            vec = np.frombuffer(prot_ptr, dtype=np.uint64)
+            off = 0
+            for w in group:
+                c = w.batch._count
+                w.batch._prot = vec if n == 1 else vec[off:off + c]
+                w.batch._prot_n = c
+                off += c
 
         def insert(validated=True):
-            rc = run(2 | (4 if validated else 0))
+            rc = run(2 | (4 if validated else 8 if fill else 0))
             if rc < 0:  # only reachable from the unvalidated single call
                 return None
             if out[7]:
                 _tm.span_event("native.memtable_insert", out[7] // 1000,
                                records=total)
-            mem.note_group_applied(int(out[2]), int(out[3]), rc)
+            if fill and not validated:
+                adopt_filled()
+            seq = first_seq
+            meta = []
+            for w, rep in zip(group, reps):
+                meta.append((seq, rep, w.batch._prot if pb else None))
+                seq += w.batch._count
+            mem.note_group_applied(meta, int(out[2]), int(out[3]), rc)
             return rc
 
         if not frame:
@@ -996,7 +1155,7 @@ class DB:
         cap = merged_len + 11 * (merged_len // 32757 + 2) + 16
         wal_buf = bytearray(cap)
         wal_ptr = (ctypes.c_ubyte * cap).from_buffer(wal_buf)
-        rc = run(1, block_off, log_no, wal_ptr, cap)
+        rc = run(1 | (8 if fill else 0), block_off, log_no, wal_ptr, cap)
         del wal_ptr  # release the bytearray's buffer export
         if rc < 0:
             return None  # -2/-4: the Python path decides (and names) it
@@ -1006,6 +1165,8 @@ class DB:
         if out[6]:
             _tm.span_event("native.wal_frame", out[6] // 1000,
                            bytes=int(out[0]))
+        if fill:
+            adopt_filled()
         self._wal.append_preframed(memoryview(wal_buf)[:int(out[0])],
                                    int(out[1]))
         self._group_wal_durability(group, int(out[4]))
@@ -1029,9 +1190,11 @@ class DB:
     def _commit_write_group(self, group: list[_Writer]) -> None:
         with self._mutex:
             self._check_open()
-            if self._bg_error is not None:
+            if (self._bg_error is not None
+                    and self._bg_error_severity >= Severity.HARD_ERROR):
                 raise IOError_(
-                    f"background error pending: {self._bg_error!r}")
+                    f"background error pending (call resume()): "
+                    f"{self._bg_error!r}")
             first_seq = self.versions.last_sequence + 1
             seq = first_seq
             for w in group:
@@ -1544,6 +1707,7 @@ class DB:
                 merge_operator=self.options.merge_operator,
                 stats=self.stats,
                 chunk=self.iter_chunk_rows,
+                protection_bytes=self._protection,
             )
             if plane is not None:
                 it.attach_scan_plane(plane)
@@ -1581,16 +1745,235 @@ class DB:
         if self._bg_error is not None:
             raise IOError_(f"background error: {self._bg_error!r}")
 
-    def _set_background_error(self, e: BaseException) -> None:
-        """RocksDB's ErrorHandler::SetBGError, reduced to one severity: the
-        first background error is kept and every later write raises
-        (reopen the DB to clear it). Listeners hear of the error that
-        latched (`on_background_error`)."""
+    def _classify_bg_error(self, e: BaseException, reason: str):
+        """Map (error, background reason) to a Severity, as RocksDB's
+        ErrorHandler severity tables do (db/error_handler.cc): SOFT for
+        retryable or no-space flush and compaction IO errors, FATAL for
+        MANIFEST failures and corruption, UNRECOVERABLE for corruption
+        found BY a compaction (it would be baked into new SSTs). The
+        scrubber's corruption latch (reason="scrub") is HARD, not FATAL:
+        the corrupt file is quarantined before the latch, so nothing wrong
+        was served or propagated, and after the operator restores the file
+        and a clean re-scrub, resume() is legitimate (db/integrity.py)."""
+        if isinstance(e, Corruption):
+            if reason == "scrub":
+                return Severity.HARD_ERROR
+            return (Severity.UNRECOVERABLE if reason == "compaction"
+                    else Severity.FATAL_ERROR)
+        if reason == "manifest":
+            return Severity.FATAL_ERROR
+        if reason == "no_space":
+            # Space comes back (the operator frees the disk): SOFT, so the
+            # auto-recover loop clears the latch.
+            return Severity.SOFT_ERROR
+        if getattr(e, "retryable", False) and reason in (
+                "flush", "compaction"):
+            return Severity.SOFT_ERROR
+        return Severity.HARD_ERROR
+
+    def _set_background_error(self, e: BaseException,
+                              reason: str = "compaction") -> None:
+        """RocksDB's ErrorHandler::SetBGError. Severity decides behavior:
+        SOFT (retryable flush / compaction IO): foreground writes go on and
+        the auto-recover loop retries; HARD: writes raise until resume();
+        FATAL / UNRECOVERABLE (corruption, MANIFEST loss): resume()
+        refuses, the DB must be reopened. The latch only ever escalates;
+        listeners hear of every error that latched or escalated
+        (`on_background_error`)."""
+        if reason != "no_space" and is_no_space(e):
+            # A raw ENOSPC surfacing through any background path classifies
+            # SOFT and auto-recovers (RocksDB's kNoSpace subcode).
+            reason = "no_space"
+        if reason == "no_space":
+            try:
+                e.retryable = True  # the recover loop's keep-retrying gate
+                e._bg_reason = "no_space"
+            except Exception as attr_err:  # noqa: BLE001 - __slots__ errors
+                _errors.swallow(reason="bg-error-annotate", exc=attr_err)
+            if self.stats is not None:
+                self.stats.record_tick(_st.NO_SPACE_ERRORS, 1)
+        sev = self._classify_bg_error(e, reason)
         with self._mutex:
-            if self._bg_error is not None:
+            if self._bg_error is not None and sev <= self._bg_error_severity:
                 return
             self._bg_error = e
+            self._bg_error_severity = sev
+            self._bg_error_reason = reason
+        # Escalations notify too, and a retryable error that replaced the
+        # one a recovery thread was chasing gets a fresh thread (the old
+        # one exits at its identity check).
         notify(self.options.listeners, "on_background_error", self, e)
+        if sev == Severity.SOFT_ERROR or (
+                getattr(e, "retryable", False)
+                and sev < Severity.FATAL_ERROR):
+            t = threading.Thread(target=self._auto_recover_loop, args=(e,),
+                                 daemon=True, name="tpt-auto-recover")
+            with self._mutex:
+                self._recover_threads = [
+                    x for x in self._recover_threads if x.is_alive()] + [t]
+            t.start()
+
+    def _auto_recover_loop(self, target: BaseException,
+                           max_attempts: int = 10,
+                           base_delay: float = 0.05) -> None:
+        """Retry resume() with backoff for THE error this thread was started
+        for. A different error latched meanwhile, a manual resume() or the
+        DB's close ends the loop untouched (RocksDB checks the recovery
+        error's identity the same way). Background work reruns on the same
+        compaction executor; nothing falls back to another path."""
+        attempt = 0
+        backoff = 0
+        while attempt < max_attempts:
+            if self._recover_stop.wait(
+                    min(base_delay * (2 ** min(backoff, 8)), 2.0)):
+                return  # the DB is closing
+            backoff += 1
+            with self._mutex:
+                if self._closed or self._bg_error is not target:
+                    return
+            attempt += 1
+            try:
+                self.resume(_auto=True)
+                self.wait_for_compactions()
+                self.event_logger.log("auto_recovery_succeeded",
+                                      attempts=attempt)
+                return
+            except Exception as err:  # noqa: BLE001 - still failing
+                # One thread per latched error: a new error latched through
+                # _set_background_error starts its own successor, so any
+                # identity mismatch ends this thread's watch.
+                with self._mutex:
+                    latched = self._bg_error
+                if latched is target and getattr(
+                        target, "retryable", False):
+                    continue  # still our transient error; keep retrying
+                if latched is None:
+                    # Our retry cleared the latch but failed with a fresh
+                    # error nothing latched yet: classify it and bow out.
+                    self._set_background_error(
+                        err, getattr(err, "_bg_reason", "flush"))
+                return
+        self.event_logger.log("auto_recovery_gave_up", attempts=max_attempts)
+
+    def resume(self, *, _auto: bool = False) -> None:
+        """Clear a background error and restart background work (RocksDB's
+        DB::Resume). FATAL and UNRECOVERABLE errors refuse: the DB must be
+        reopened. Clearing a live latch ticks BG_ERROR_RESUMES and notifies
+        `on_error_recovery_completed`."""
+        with self._mutex:
+            if (self._bg_error is not None
+                    and self._bg_error_severity >= Severity.FATAL_ERROR):
+                raise IOError_(
+                    f"background error is not resumable "
+                    f"({self._bg_error_severity.name}); reopen the DB: "
+                    f"{self._bg_error!r}"
+                )
+            had = self._bg_error
+            reason = self._bg_error_reason
+            self._bg_error = None
+            self._bg_error_severity = Severity.NO_ERROR
+            self._bg_error_reason = ""
+        if had is not None:
+            if self.stats is not None:
+                self.stats.record_tick(_st.BG_ERROR_RESUMES, 1)
+            from toplingdb_tpu_torch.utils.listener import ErrorRecoveryInfo
+
+            notify(self.options.listeners, "on_error_recovery_completed",
+                   self, ErrorRecoveryInfo(db_name=self.dbname,
+                                           reason=reason, auto=_auto))
+        self._maybe_schedule_compaction()
+
+    # ==================================================================
+    # Integrity (the at-rest half: verification passes and the scrubber)
+    # ==================================================================
+
+    def _live_versions(self) -> list:
+        """Every CF's current Version; holding them pins their files
+        against a concurrent obsolete-file pass."""
+        with self._mutex:
+            return [self.versions.cf_current(cf_id)
+                    for cf_id in self.versions.column_families]
+
+    def verify_checksum(self) -> None:
+        """Full checksum scan of every live SST (RocksDB's
+        DB::VerifyChecksum): every block is read FROM DISK and
+        CRC-verified, bypassing cached readers; opening with
+        verify_checksums=True also verifies the index, metaindex,
+        properties, filter and range-del blocks, and every BLOB_INDEX
+        entry's blob record is read with its record CRC. Raises Corruption
+        on the first bad block or record."""
+        import dataclasses
+
+        from toplingdb_tpu_torch.table.factory import open_table
+
+        topts = dataclasses.replace(self.options.table_options,
+                                    verify_checksums=True)
+        bytes_verified = 0
+        for version in self._live_versions():
+            for _, f in version.all_files():
+                path = filename.table_file_name(self.dbname, f.number)
+                reader = open_table(self.env.new_random_access_file(path),
+                                    self.icmp, topts)
+                try:
+                    it = reader.new_iterator()
+                    it.seek_to_first()
+                    for ik, v in it.entries():  # decoding verifies CRCs
+                        if ik[-8] == dbformat.ValueType.BLOB_INDEX:
+                            self.blob_source.get(v, verify=True)
+                finally:
+                    reader.close()
+                bytes_verified += f.file_size
+        if self.stats is not None and bytes_verified:
+            self.stats.record_tick(_st.INTEGRITY_BYTES_VERIFIED,
+                                   bytes_verified)
+
+    def verify_file_checksums(self) -> dict:
+        """Recompute every live SST's whole-file checksum and compare it
+        with the MANIFEST's (RocksDB's DB::VerifyFileChecksums); raises
+        Corruption on the first mismatch. Returns {'files_verified',
+        'bytes_verified', 'files_skipped'}: skipped files carry no
+        recorded checksum."""
+        from toplingdb_tpu_torch.utils.file_checksum import (
+            verify_recorded_checksum,
+        )
+
+        verified = bytes_v = skipped = 0
+        seen: set[int] = set()
+        for version in self._live_versions():
+            for _, f in version.all_files():
+                if f.number in seen:
+                    continue
+                seen.add(f.number)
+                path = filename.table_file_name(self.dbname, f.number)
+                n = verify_recorded_checksum(self.env, path, f)
+                if n:
+                    verified += 1
+                    bytes_v += n
+                else:
+                    skipped += 1
+        if self.stats is not None and bytes_v:
+            self.stats.record_tick(_st.INTEGRITY_BYTES_VERIFIED, bytes_v)
+        return {"files_verified": verified, "bytes_verified": bytes_v,
+                "files_skipped": skipped}
+
+    def scrub(self, deep: bool = False) -> dict:
+        """Run one IntegrityScrubber pass synchronously (db/integrity.py)
+        and return its report. Detected corruption quarantines the file,
+        fires on_corruption_detected and latches a HARD background error
+        (resume() after the repair and a clean re-scrub)."""
+        self._check_open()
+        if self._integrity_scrubber is None:
+            from toplingdb_tpu_torch.db.integrity import IntegrityScrubber
+
+            self._integrity_scrubber = IntegrityScrubber(self)
+        return self._integrity_scrubber.run_pass(deep=deep)
+
+    def scrub_status(self) -> dict:
+        """The scrubber's rolling status (passes, bytes, quarantine)."""
+        if self._integrity_scrubber is None:
+            return {"running": False, "passes": 0,
+                    "quarantined_files": sorted(self._quarantined)}
+        return self._integrity_scrubber.status()
 
     _STATS_CF = "__tpulsm_stats__"
 

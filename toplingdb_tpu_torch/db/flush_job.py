@@ -1,6 +1,7 @@
 """FlushJob: memtable → L0 SST (copied from toplingdb_tpu/db/flush_job.py,
-without per-entry protection; RocksDB's db/flush_job.cc
-`WriteLevel0Table`), with blob separation into a sibling blob file."""
+with its per-entry protection check at the memtable->flush handoff;
+RocksDB's db/flush_job.cc `WriteLevel0Table`), with blob separation into a
+sibling blob file."""
 
 from __future__ import annotations
 
@@ -12,6 +13,79 @@ from toplingdb_tpu_torch.db.version_edit import FileMetaData
 from toplingdb_tpu_torch.table.factory import new_table_builder
 from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
 from toplingdb_tpu_torch.utils import errors as _errors
+from toplingdb_tpu_torch.utils import protection as _p
+from toplingdb_tpu_torch.utils.status import Corruption
+
+
+def _flush_protection(memtables, table_options):
+    """(pb, mems) when per-entry protection is active for this flush —
+    every memtable must carry checksums, or verification is off."""
+    pb = getattr(table_options, "protection_bytes_per_key", 0)
+    if pb and all(m._prot is not None for m in memtables):
+        return pb, memtables
+    return 0, ()
+
+
+def _columnar_protect_xor(kv, vtypes, pb: int) -> int | None:
+    """XOR fold of every exported entry's checksum in ONE native call
+    (tpulsm_columnar_protect), or None -> caller walks per entry."""
+    import ctypes
+
+    import numpy as np
+
+    from toplingdb_tpu_torch import native
+
+    l = native.lib()
+    fn = getattr(l, "tpulsm_columnar_protect", None) if l is not None else None
+    if fn is None:
+        return None
+    ko = np.ascontiguousarray(kv.key_offs, dtype=np.int32)
+    kl = np.ascontiguousarray(kv.key_lens, dtype=np.int32)
+    vo = np.ascontiguousarray(kv.val_offs, dtype=np.int32)
+    vl = np.ascontiguousarray(kv.val_lens, dtype=np.int32)
+    vt = np.ascontiguousarray(vtypes, dtype=np.int32)
+    out = ctypes.c_uint64()
+    rc = fn(native.np_u8p(kv.key_buf), native.np_i32p(ko),
+            native.np_i32p(kl), native.np_u8p(kv.val_buf),
+            native.np_i32p(vo), native.np_i32p(vl), native.np_i32p(vt),
+            kv.n, pb, ctypes.byref(out))
+    if rc != kv.n:
+        return None
+    return out.value
+
+
+def _verify_flush_entry(mems, pb, uk: bytes, seq: int, t: int,
+                        value: bytes) -> None:
+    """The memtable->flush handoff check (RocksDB's memtable KV-checksum
+    verification): the entry coming back OUT of the (native) rep must
+    match the checksum recorded when it went IN."""
+    for m in mems:
+        stored = m.stored_protection(uk, seq, t)
+        if stored is not None:
+            if stored != _p.truncate(_p.protect_entry(int(t), uk, value),
+                                     pb):
+                raise Corruption(
+                    f"flush protection mismatch: key {uk!r} seq={seq} "
+                    f"type={t} changed inside the memtable rep"
+                )
+            return
+    raise Corruption(
+        f"flush protection: no checksum recorded for key {uk!r} seq={seq} "
+        f"type={t} (entry fabricated or index corrupted)"
+    )
+
+
+def _verify_flush_tombstones(memtables, pb) -> None:
+    for m in memtables:
+        for seq, begin, end in m.range_del_entries():
+            stored = m.stored_rd_protection(seq, begin, end)
+            if stored is None or stored != _p.truncate(
+                    _p.protect_entry(int(dbformat.ValueType.RANGE_DELETION),
+                                     begin, end), pb):
+                raise Corruption(
+                    f"flush protection mismatch on range tombstone "
+                    f"[{begin!r}, {end!r}) seq={seq}"
+                )
 
 
 def _flush_columnar(env, dbname, file_number, icmp, mem, table_options,
@@ -37,6 +111,29 @@ def _flush_columnar(env, dbname, file_number, icmp, mem, table_options,
         # Tombstone-only table: the columnar writer's n==0 seqno accounting
         # differs from TableBuilder's — the iterator path stays bit-true.
         return None
+    pb, pmems = _flush_protection([mem], table_options)
+    if pb:
+        # Verify the whole native export against the carried checksums
+        # BEFORE any byte reaches the SST writer. Fast path: ONE native
+        # pass folds the export into an XOR aggregate (checksums are
+        # XOR-composable) and compares it with the memtable's carried
+        # fold — no per-entry Python. Only on mismatch (or without the
+        # native symbol) does the per-entry walk run, to name the
+        # culprit record — or to absolve a benign aggregate drift
+        # (duplicate WAL-replay entries dedup in the rep but not in the
+        # pending fold).
+        agg = _columnar_protect_xor(kv, vtypes, pb)
+        ref = mem.protection_aggregate()
+        if agg is None or ref is None or ref != (kv.n, agg):
+            if kv.n != len(mem.protection_map()):
+                raise Corruption(
+                    f"flush protection: exported {kv.n} entries, "
+                    f"{len(mem.protection_map())} protected"
+                )
+            for i in range(kv.n):
+                ik = kv.ikey(i)
+                _verify_flush_entry(pmems, pb, ik[:-8], int(seqs[i]),
+                                    int(vtypes[i]), kv.value(i))
     import numpy as np
 
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
@@ -93,6 +190,9 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
             tombstones.append(RangeTombstone(seq, begin, end))
     if total == 0 and not tombstones:
         return None
+    pb, pmems = _flush_protection(memtables, table_options)
+    if pb:
+        _verify_flush_tombstones(memtables, pb)
 
     if len(memtables) == 1 and blob_file_number is None:
         meta = _flush_columnar(env, dbname, file_number, icmp, memtables[0],
@@ -124,6 +224,9 @@ def flush_memtable_to_table(env, dbname: str, file_number: int, icmp,
             if last_ikey is not None and icmp.compare(last_ikey, ikey) == 0:
                 continue
             last_ikey = ikey
+            if pb:
+                uk_, seq_, t_ = dbformat.split_internal_key(ikey)
+                _verify_flush_entry(pmems, pb, uk_, seq_, t_, val)
             if (blob_builder is not None
                     and ikey[-8] == dbformat.ValueType.VALUE
                     and len(val) >= min_blob_size):

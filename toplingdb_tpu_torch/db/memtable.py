@@ -1,7 +1,7 @@
 """MemTable: the in-memory sorted run, with pluggable representations
 (copied from toplingdb_tpu/db/memtable.py, trimmed to the "skiplist" and
-"vector" reps, without per-entry protection; the trie and hash reps come
-with a later slice).
+"vector" reps, with per-entry protection; the trie and hash reps come with
+a later slice).
 
 Role matches RocksDB's MemTable (db/memtable.cc `Get`, `Add`; rep factories
 at include/rocksdb/memtablerep.h). Entries are ordered by (user_key asc,
@@ -24,7 +24,11 @@ import threading
 
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.dbformat import ValueType
-from toplingdb_tpu_torch.utils.status import InvalidArgument, NotSupported
+from toplingdb_tpu_torch.utils.status import (
+    Corruption,
+    InvalidArgument,
+    NotSupported,
+)
 
 _MAX_PACKED = (1 << 64) - 1
 
@@ -121,6 +125,35 @@ class NativeSkipListRep(MemTableRep):
         out = (ctypes.c_int64 * 2)()
         rc = self._cl.tpulsm_skiplist_insert_wb(self._h, rep, len(rep),
                                                 first_seq, out)
+        if rc < 0:
+            return None
+        return int(rc), int(out[0]), int(out[1])
+
+    def insert_wb_prot(self, rep: bytes, first_seq: int, prots, pb: int):
+        """Fused verify+insert: ONE native call re-hashes every counted
+        record against the batch's carried protection vector `prots`
+        (validation pass — on mismatch NOTHING is inserted and Corruption
+        is raised naming the record) then inserts. Returns (count,
+        mem_delta, deletes) or None when the native side can't take the
+        batch (caller falls back to verify-then-insert as two steps)."""
+        import ctypes
+
+        import numpy as np
+
+        out = (ctypes.c_int64 * 2)()
+        base = getattr(prots, "base", None)
+        if isinstance(base, ctypes.Array) and len(base) == len(prots):
+            ptr = base  # _native_protect's buffer: no data_as() crossing
+        else:
+            pv = np.ascontiguousarray(prots, dtype=np.uint64)
+            ptr = pv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+        rc = self._cl.tpulsm_skiplist_insert_wb_prot(
+            self._h, rep, len(rep), first_seq, ptr, len(prots), pb, out)
+        if rc <= -5:
+            raise Corruption(
+                f"write batch protection mismatch at record {-(rc + 5)} "
+                f"during memtable insert"
+            )
         if rc < 0:
             return None
         return int(rc), int(out[0]), int(out[1])
@@ -323,7 +356,8 @@ def create_memtable_rep(name: str) -> MemTableRep:
 
 class MemTable:
     def __init__(self, icmp: dbformat.InternalKeyComparator,
-                 rep: MemTableRep | None = None):
+                 rep: MemTableRep | None = None,
+                 protection_bytes: int = 0):
         self._icmp = icmp
         self._rep = rep if rep is not None else PyVectorRep()
         self._range_dels: list[tuple[int, bytes, bytes]] = []  # (seq, begin, end)
@@ -331,10 +365,22 @@ class MemTable:
         self._num_entries = 0
         self._num_deletes = 0
         self._lock = threading.Lock()
+        # Per-entry protection carry (RocksDB's memtable KV checksums,
+        # db/kv_checksum.h): CF-stripped truncated checksums keyed by the
+        # rep's sort key, verified when flush re-reads the entry out of
+        # the (native) rep — the memtable->flush handoff check.
+        self.protection_bytes = protection_bytes
+        self._prot: dict | None = {} if protection_bytes else None
+        self._rd_prot: dict | None = {} if protection_bytes else None
+        # Wire-image inserts defer per-record bookkeeping: (first_seq,
+        # rep, prots) tuples drain into _prot lazily at the first flush
+        # lookup (_drain_prot_pending) — the write path stays native.
+        self._prot_pending: list = []
 
     # ------------------------------------------------------------------
 
-    def add(self, seq: int, t: int, user_key: bytes, value: bytes) -> None:
+    def add(self, seq: int, t: int, user_key: bytes, value: bytes,
+            prot: int | None = None) -> None:
         with self._lock:
             if t == ValueType.RANGE_DELETION:
                 if self._icmp.user_comparator.compare(user_key, value) >= 0:
@@ -343,28 +389,67 @@ class MemTable:
                     # otherwise flush a boundless empty table.
                     return
                 self._range_dels.append((seq, user_key, value))
+                if self._rd_prot is not None:
+                    self._rd_prot[(seq, user_key, value)] = \
+                        self._entry_prot(t, user_key, value, prot)
             else:
                 packed = dbformat.pack_seq_type(seq, t)
-                self._rep.insert(_sort_key(user_key, packed), value)
+                skey = _sort_key(user_key, packed)
+                self._rep.insert(skey, value)
+                if self._prot is not None:
+                    self._prot[skey] = self._entry_prot(
+                        t, user_key, value, prot)
             self._num_entries += 1
             if t in (ValueType.DELETION, ValueType.SINGLE_DELETION):
                 self._num_deletes += 1
             self._mem_usage += len(user_key) + len(value) + 24
 
-    def add_encoded(self, first_seq: int, rep: bytes) -> int | None:
+    def _entry_prot(self, t: int, user_key: bytes, value: bytes,
+                    prot: int | None) -> int:
+        """The CF-stripped truncated checksum to carry: the one handed
+        down by WriteBatch.insert_into (already verified there), or a
+        fresh one for direct add() callers."""
+        if prot is not None:
+            return prot
+        from toplingdb_tpu_torch.utils import protection as _p
+
+        return _p.truncate(_p.protect_entry(int(t), user_key, value),
+                           self.protection_bytes)
+
+    def add_encoded(self, first_seq: int, rep: bytes,
+                    prots=None, pb: int = 0) -> int | None:
         """Apply a whole WriteBatch wire image in one native call (the
         WriteBatchInternal::InsertInto hot loop with zero per-record
         Python). Returns the count applied, or None when the native fast
         path can't take it (caller uses the parsed path). Thread-safe
-        against concurrent add/add_batch/add_encoded callers."""
-        wb = getattr(self._rep, "insert_wb", None)
-        if wb is None:
-            return None
-        res = wb(rep, first_seq)
+        against concurrent add/add_batch/add_encoded callers.
+
+        Protected memtables take this path too when the caller hands the
+        batch's CF-stripped checksums: the (rep, prots) pair parks in
+        _prot_pending and drains into the per-entry map lazily at flush,
+        keeping the write path native. With pb > 0 the checksums are NOT
+        yet verified — the fused native call (insert_wb_prot) re-hashes
+        every record against them in its validation pass and raises
+        Corruption (nothing inserted) on the first mismatch; pb == 0
+        means the caller already verified them."""
+        if self._prot is not None and prots is None:
+            return None  # nothing to carry: the parsed path computes them
+        if prots is not None and pb:
+            wbp = getattr(self._rep, "insert_wb_prot", None)
+            if wbp is None:
+                return None
+            res = wbp(rep, first_seq, prots, pb)  # raises on mismatch
+        else:
+            wb = getattr(self._rep, "insert_wb", None)
+            if wb is None:
+                return None
+            res = wb(rep, first_seq)
         if res is None:
             return None
         count, delta, deletes = res
         with self._lock:
+            if self._prot is not None:
+                self._prot_pending.append((first_seq, rep, prots))
             self._num_entries += count
             self._num_deletes += deletes
             self._mem_usage += delta
@@ -381,27 +466,37 @@ class MemTable:
             return None
         return h, kind
 
-    def note_group_applied(self, mem_delta: int, deletes: int,
-                           total: int) -> None:
+    def note_group_applied(self, entries_meta, mem_delta: int,
+                           deletes: int, total: int) -> None:
         """Bookkeeping for a whole write group the native plane already
-        applied straight into the rep (tpulsm_wb_group_commit)."""
+        applied straight into the rep (tpulsm_wb_group_commit):
+        entries_meta is [(first_seq, rep_bytes, prots_or_None)] per member
+        batch — protected members park in _prot_pending exactly like
+        add_encoded's wire-image deferral, so flush verification sees the
+        same carried checksums either way."""
         with self._lock:
+            if self._prot is not None:
+                for fs, rep, prots in entries_meta:
+                    self._prot_pending.append((fs, rep, prots))
             self._num_entries += total
             self._num_deletes += deletes
             self._mem_usage += mem_delta
 
-    def add_batch(self, first_seq: int, ops) -> int:
+    def add_batch(self, first_seq: int, ops, prots=None) -> int:
         """Apply a run of parsed ops [(type, key, value_or_None)] with
         consecutive seqnos starting at first_seq (RocksDB's
-        WriteBatchInternal::InsertInto). With the native skiplist rep the
-        point inserts happen in ONE GIL-releasing native call; thread-safe
-        against concurrent add/add_batch callers. Returns the number of
-        sequence numbers consumed (== len(ops))."""
+        WriteBatchInternal::InsertInto driving InsertConcurrently). With the
+        native skiplist rep the point inserts happen in ONE GIL-releasing
+        native call; thread-safe against concurrent add/add_batch callers.
+        `prots`, when given, carries one CF-stripped protection checksum
+        per op (WriteBatch.insert_into already verified them).
+        Returns the number of sequence numbers consumed (== len(ops))."""
         n = len(ops)
         rep_batch = getattr(self._rep, "insert_batch", None)
         if rep_batch is None or n < 4:
             for i, (t, k, v) in enumerate(ops):
-                self.add(first_seq + i, t, k, v if v is not None else b"")
+                self.add(first_seq + i, t, k, v if v is not None else b"",
+                         prot=prots[i] if prots is not None else None)
             return n
         import numpy as np
 
@@ -416,8 +511,18 @@ class MemTable:
                     if self._icmp.user_comparator.compare(k, v) >= 0:
                         continue
                     self._range_dels.append((seq, k, v))
+                    if self._rd_prot is not None:
+                        self._rd_prot[(seq, k, v)] = self._entry_prot(
+                            t, k, v,
+                            prots[i] if prots is not None else None)
                 else:
                     points.append((seq, t, k, v))
+                    if self._prot is not None:
+                        self._prot[_sort_key(
+                            k, dbformat.pack_seq_type(seq, t))] = \
+                            self._entry_prot(
+                                t, k, v,
+                                prots[i] if prots is not None else None)
                 if t in (ValueType.DELETION, ValueType.SINGLE_DELETION):
                     deletes += 1
                 mem_delta += len(k) + len(v) + 24
@@ -453,6 +558,73 @@ class MemTable:
         export; callers fall back to the per-entry iterator."""
         exp = getattr(self._rep, "export_columnar", None)
         return exp() if exp is not None else None
+
+    def _drain_prot_pending(self) -> None:
+        """Materialize checksums parked by wire-image inserts into the
+        per-entry map (flush-time only: the cold side of the deferral)."""
+        with self._lock:
+            pending, self._prot_pending = self._prot_pending, []
+        if not pending:
+            return
+        from toplingdb_tpu_torch.db.write_batch import WriteBatch
+
+        for first_seq, rep, prots in pending:
+            seq = first_seq
+            for i, (t, k, _v) in enumerate(WriteBatch(rep).entries()):
+                self._prot[_sort_key(
+                    k, dbformat.pack_seq_type(seq + i, t))] = prots[i]
+
+    def protection_map(self) -> dict | None:
+        """The fully materialized per-entry checksum map (None when this
+        memtable is unprotected) — the flush handoff's reference side."""
+        if self._prot is None:
+            return None
+        self._drain_prot_pending()
+        return self._prot
+
+    def protection_aggregate(self) -> tuple[int, int] | None:
+        """(count, xor) over every carried point-entry checksum WITHOUT
+        parsing the pending wire images — the O(entries) integer fold the
+        columnar flush compares against tpulsm_columnar_protect's export
+        aggregate. Duplicate replayed entries (WAL recovery) make the
+        pending count overshoot the deduplicated rep; callers treat any
+        mismatch as "fall back to the per-entry map", never as proof of
+        corruption on its own."""
+        if self._prot is None:
+            return None
+        import numpy as np
+
+        with self._lock:
+            pending = list(self._prot_pending)
+            acc = 0
+            cnt = len(self._prot)
+            for v in self._prot.values():
+                acc ^= int(v)
+        for _seq, _rep, prots in pending:
+            cnt += len(prots)
+            if isinstance(prots, np.ndarray):
+                if len(prots):
+                    acc ^= int(np.bitwise_xor.reduce(prots))
+            else:
+                for p in prots:
+                    acc ^= int(p)
+        return cnt, acc
+
+    def stored_protection(self, user_key: bytes, seq: int, t: int):
+        """The carried protection checksum for one point entry, or None
+        (unprotected memtable / unknown entry — flush treats 'unknown'
+        as corruption when protection is on)."""
+        if self._prot is None:
+            return None
+        if self._prot_pending:
+            self._drain_prot_pending()
+        return self._prot.get(
+            _sort_key(user_key, dbformat.pack_seq_type(seq, t)))
+
+    def stored_rd_protection(self, seq: int, begin: bytes, end: bytes):
+        if self._rd_prot is None:
+            return None
+        return self._rd_prot.get((seq, begin, end))
 
     def entries_for_key(self, user_key: bytes, snapshot_seq: int):
         """Yield (seq, type, value) for user_key with seq <= snapshot,

@@ -455,7 +455,21 @@ class VersionSet:
     def log_and_apply(self, edit: VersionEdit, sync: bool = True) -> None:
         """Append edit to the MANIFEST and install the resulting Version for
         the edit's column family (RocksDB's VersionSet::LogAndApply). An
-        edit for a CF dropped meanwhile is discarded."""
+        edit for a CF dropped meanwhile is discarded. Failures are tagged
+        _bg_reason="manifest", so the DB's error handler latches them FATAL
+        whichever caller surfaced them (RocksDB's
+        BackgroundErrorReason::kManifestWrite)."""
+        try:
+            self._log_and_apply_locked(edit, sync)
+        except BaseException as e:
+            try:
+                e._bg_reason = "manifest"
+            except AttributeError:
+                pass  # exceptions with __slots__: classification falls back
+            raise
+
+    def _log_and_apply_locked(self, edit: VersionEdit,
+                              sync: bool = True) -> None:
         with self._lock:
             st = self.column_families.get(edit.column_family)
             if st is None:

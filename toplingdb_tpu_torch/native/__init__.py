@@ -33,7 +33,7 @@ _pylib: ctypes.PyDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 5
+_ABI_VERSION = 6
 
 
 def _build() -> bool:
@@ -178,6 +178,23 @@ def _bind(l: ctypes.CDLL) -> None:
     l.tpulsm_skiplist_insert_wb.restype = i64
     l.tpulsm_skiplist_insert_wb.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_uint64, i64p,
+    ]
+    # Per-entry protection (utils/protection.py, bit-identical): the fused
+    # verify+insert of a protected batch (every record re-hashed against
+    # the carried vector, inserted only if ALL match), the whole-batch
+    # vector, and the XOR aggregate over a flush's columnar export.
+    l.tpulsm_skiplist_insert_wb_prot.restype = i64
+    l.tpulsm_skiplist_insert_wb_prot.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_uint64,
+        u64p, i64, i32, i64p,
+    ]
+    l.tpulsm_wb_protect.restype = i64
+    l.tpulsm_wb_protect.argtypes = [
+        ctypes.c_char_p, i64, i32, i32, u64p, i64,
+    ]
+    l.tpulsm_columnar_protect.restype = i64
+    l.tpulsm_columnar_protect.argtypes = [
+        u8p, i32p, i32p, u8p, i32p, i32p, i32p, i64, i32, u64p,
     ]
     l.tpulsm_skiplist_export.restype = i64
     l.tpulsm_skiplist_export.argtypes = [

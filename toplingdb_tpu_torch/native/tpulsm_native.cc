@@ -73,7 +73,7 @@ extern "C" {
 // ABI version handshake: the ctypes loader refuses a .so whose version
 // differs from its own expectation. Bump whenever any exported signature
 // changes shape.
-#define TPULSM_ABI_VERSION 5
+#define TPULSM_ABI_VERSION 6
 
 int32_t tpulsm_abi_version(void) { return TPULSM_ABI_VERSION; }
 
@@ -2254,10 +2254,10 @@ int64_t tpulsm_skiplist_export(
 // applies on pass 1 through the insert callback. Returns the record
 // count, or -2 (unsupported record: Python path) / -4 (corrupt image).
 extern "C++" {
-template <typename InsertFn>
-static int64_t wb_wire_apply(const uint8_t* rep, int64_t len,
-                             uint64_t first_seq, int64_t* out,
-                             InsertFn&& ins) {
+template <typename InsertFn, typename CheckFn>
+static int64_t wb_wire_apply_chk(const uint8_t* rep, int64_t len,
+                                 uint64_t first_seq, int64_t* out,
+                                 InsertFn&& ins, CheckFn&& chk) {
   static const uint8_t kValue = 0x1, kDelete = 0x0, kMerge = 0x2,
                        kSingleDelete = 0x7, kLogData = 0x3,
                        kWideEntity = 0x16;
@@ -2290,7 +2290,11 @@ static int64_t wb_wire_apply(const uint8_t* rep, int64_t len,
       } else {
         return -2;  // RANGE_DELETION etc.: Python path
       }
-      if (pass == 1) {
+      if (pass == 0) {
+        // Validation pass: a failing check rejects the WHOLE batch with
+        // nothing inserted (-5 - index of the offending record).
+        if (!chk(count, t, k, klen, v, vlen)) return -5 - count;
+      } else {
         uint64_t inv = ~((seq << 8) | (uint64_t)t);
         ins(k, klen, inv, v, vlen);
         delta += (int64_t)klen + vlen + 24;
@@ -2310,6 +2314,15 @@ static int64_t wb_wire_apply(const uint8_t* rep, int64_t len,
   return -4;  // unreachable
 }
 
+template <typename InsertFn>
+static int64_t wb_wire_apply(const uint8_t* rep, int64_t len,
+                             uint64_t first_seq, int64_t* out,
+                             InsertFn&& ins) {
+  return wb_wire_apply_chk(
+      rep, len, first_seq, out, static_cast<InsertFn&&>(ins),
+      [](int64_t, uint8_t, const uint8_t*, uint32_t, const uint8_t*,
+         uint32_t) { return true; });
+}
 }  // extern "C++"
 
 int64_t tpulsm_skiplist_insert_wb(void* h, const uint8_t* rep, int64_t len,
@@ -2320,6 +2333,205 @@ int64_t tpulsm_skiplist_insert_wb(void* h, const uint8_t* rep, int64_t len,
                             const uint8_t* v, uint32_t vl) {
                          sl->insert(k, kl, inv, v, vl);
                        });
+}
+
+// ---------------------------------------------------------------------------
+// Per-entry protection info (utils/protection.py): one native pass over a
+// WriteBatch wire image computing every counted record's checksum — the
+// write path's integrity hot loop (compute at batch build, re-verify at
+// the batch->memtable handoff) without per-record Python. The hash MUST
+// bit-match utils/protection.py: zlib crc32 per component, one
+// multiply-xorshift lane mix, XOR of key/value/type/cf components.
+// ---------------------------------------------------------------------------
+
+extern "C++" {
+namespace {
+
+// zlib/IEEE crc32 (poly 0xEDB88320 reflected), slicing-by-8.
+struct ZCrcTables {
+  uint32_t t[8][256];
+  ZCrcTables() {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      t[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; i++)
+      for (int j = 1; j < 8; j++)
+        t[j][i] = (t[j - 1][i] >> 8) ^ t[0][t[j - 1][i] & 0xFF];
+  }
+};
+
+static inline uint32_t zcrc32(const uint8_t* p, size_t n) {
+  static const ZCrcTables T;
+  uint32_t c = 0xFFFFFFFFu;
+  while (n >= 8) {
+    uint32_t lo;
+    uint32_t hi;
+    memcpy(&lo, p, 4);
+    memcpy(&hi, p + 4, 4);
+    lo ^= c;
+    c = T.t[7][lo & 0xFF] ^ T.t[6][(lo >> 8) & 0xFF] ^
+        T.t[5][(lo >> 16) & 0xFF] ^ T.t[4][lo >> 24] ^
+        T.t[3][hi & 0xFF] ^ T.t[2][(hi >> 8) & 0xFF] ^
+        T.t[1][(hi >> 16) & 0xFF] ^ T.t[0][hi >> 24];
+    p += 8;
+    n -= 8;
+  }
+  while (n--) c = T.t[0][(c ^ *p++) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+static inline uint64_t prot_mix(uint64_t x) {
+  x *= 0xBF58476D1CE4E5B9ull;
+  return x ^ (x >> 29);
+}
+
+}  // namespace
+}  // extern "C++"
+
+// Computes the truncated protection checksum of every counted record in
+// `rep` (a WriteBatch wire image, header included) into out[0..count).
+// `strip_cf` != 0 emits the CF-stripped (cf=0) memtable-carried form.
+// Returns the record count, or -3 (out_cap too small) / -4 (corrupt).
+int64_t tpulsm_wb_protect(const uint8_t* rep, int64_t len, int32_t pb,
+                          int32_t strip_cf, uint64_t* out, int64_t out_cap) {
+  static const uint8_t kValue = 0x1, kDelete = 0x0, kMerge = 0x2,
+                       kSingleDelete = 0x7, kLogData = 0x3,
+                       kRangeDel = 0xF, kWideEntity = 0x16;
+  const uint64_t kKey = 0x9E3779B97F4A7C15ull, kVal = 0xC2B2AE3D27D4EB4Full,
+                 kType = 0x165667B19E3779F9ull, kCf = 0x27D4EB2F165667C5ull;
+  if (len < 12) return -4;
+  const uint8_t* end = rep + len;
+  const uint8_t* p = rep + 12;
+  uint32_t hdr_count = (uint32_t)rep[8] | ((uint32_t)rep[9] << 8) |
+                       ((uint32_t)rep[10] << 16) | ((uint32_t)rep[11] << 24);
+  const uint64_t mask =
+      (pb >= 8 || pb <= 0) ? ~0ull : ((1ull << (8 * pb)) - 1);
+  const uint64_t empty_val_term = prot_mix(kVal ^ (uint64_t)zcrc32(p, 0));
+  int64_t count = 0;
+  while (p < end) {
+    uint8_t t = *p++;
+    uint32_t cf = 0;
+    if ((t & 0x80) && t != kLogData) {
+      t &= 0x7F;
+      p = get_varint32(p, end, &cf);
+      if (!p) return -4;
+    }
+    uint32_t klen;
+    const uint8_t* kp = p = get_varint32(p, end, &klen);
+    if (!p || p + klen > end) return -4;
+    p += klen;
+    if (t == kLogData) continue;  // not counted, not protected
+    uint64_t vterm = empty_val_term;
+    if (t == kValue || t == kMerge || t == kWideEntity || t == kRangeDel) {
+      uint32_t vlen;
+      const uint8_t* vp = p = get_varint32(p, end, &vlen);
+      if (!p || p + vlen > end) return -4;
+      p += vlen;
+      vterm = prot_mix(kVal ^ (uint64_t)zcrc32(vp, vlen) ^
+                       ((uint64_t)vlen << 32));
+    } else if (t != kDelete && t != kSingleDelete) {
+      return -4;  // unknown record type
+    }
+    if (count >= out_cap) return -3;
+    uint64_t cs = prot_mix(kKey ^ (uint64_t)zcrc32(kp, klen) ^
+                           ((uint64_t)klen << 32)) ^
+                  vterm ^ prot_mix(kType ^ (uint64_t)t) ^
+                  prot_mix(kCf ^ (uint64_t)((strip_cf ? 0 : cf) + 1));
+    out[count++] = cs & mask;
+  }
+  if ((uint32_t)count != hdr_count) return -4;
+  return count;
+}
+
+// XOR-aggregate protection over a columnar export (INTERNAL keys: user key
+// + 8B packed trailer). Computes each entry's CF-0 truncated checksum —
+// bit-identical to utils/protection.py protect_entry(t, uk, v) — and folds
+// them into *xor_out. XOR is the right aggregate because the checksum is
+// already XOR-composable per component: equality of (count, xor) against
+// the memtable's carried side proves the flush export intact without a
+// per-entry Python walk; on mismatch the caller re-walks per entry for the
+// precise culprit. Returns n, or -4 on a malformed (short) internal key.
+int64_t tpulsm_columnar_protect(const uint8_t* key_buf,
+                                const int32_t* key_offs,
+                                const int32_t* key_lens,
+                                const uint8_t* val_buf,
+                                const int32_t* val_offs,
+                                const int32_t* val_lens,
+                                const int32_t* vtypes, int64_t n, int32_t pb,
+                                uint64_t* xor_out) {
+  const uint64_t kKey = 0x9E3779B97F4A7C15ull, kVal = 0xC2B2AE3D27D4EB4Full,
+                 kType = 0x165667B19E3779F9ull, kCf = 0x27D4EB2F165667C5ull;
+  const uint64_t mask =
+      (pb >= 8 || pb <= 0) ? ~0ull : ((1ull << (8 * pb)) - 1);
+  const uint64_t cf_term = prot_mix(kCf ^ 1ull);
+  uint64_t acc = 0;
+  for (int64_t i = 0; i < n; i++) {
+    if (key_lens[i] < 8) return -4;
+    uint32_t uklen = (uint32_t)key_lens[i] - 8;
+    uint32_t vlen = (uint32_t)val_lens[i];
+    uint64_t cs =
+        prot_mix(kKey ^ (uint64_t)zcrc32(key_buf + key_offs[i], uklen) ^
+                 ((uint64_t)uklen << 32)) ^
+        prot_mix(kVal ^ (uint64_t)zcrc32(val_buf + val_offs[i], vlen) ^
+                 ((uint64_t)vlen << 32)) ^
+        prot_mix(kType ^ (uint64_t)(uint8_t)vtypes[i]) ^ cf_term;
+    acc ^= cs & mask;
+  }
+  *xor_out = acc;
+  return n;
+}
+
+extern "C++" {
+namespace {
+
+// Pass-0 record check for the fused verify+insert wire apply: recomputes
+// the CF-0 protection checksum of each counted record and compares it to
+// the batch's carried vector. Default-CF only (wb_wire_apply already
+// rejects CF-prefixed records with -2 before this runs).
+struct ProtCheck {
+  const uint64_t* prots;
+  int64_t n;
+  uint64_t mask;
+  bool operator()(int64_t i, uint8_t t, const uint8_t* k, uint32_t kl,
+                  const uint8_t* v, uint32_t vl) const {
+    const uint64_t kKey = 0x9E3779B97F4A7C15ull, kVal = 0xC2B2AE3D27D4EB4Full,
+                   kType = 0x165667B19E3779F9ull, kCf = 0x27D4EB2F165667C5ull;
+    if (i >= n) return false;
+    uint64_t cs = prot_mix(kKey ^ (uint64_t)zcrc32(k, kl) ^
+                           ((uint64_t)kl << 32)) ^
+                  prot_mix(kVal ^ (uint64_t)zcrc32(v, vl) ^
+                           ((uint64_t)vl << 32)) ^
+                  prot_mix(kType ^ (uint64_t)t) ^ prot_mix(kCf ^ 1ull);
+    return (cs & mask) == prots[i];
+  }
+};
+
+inline uint64_t prot_trunc_mask(int32_t pb) {
+  return (pb >= 8 || pb <= 0) ? ~0ull : ((1ull << (8 * pb)) - 1);
+}
+
+}  // namespace
+}  // extern "C++"
+
+// Fused verify+insert: ONE call re-hashes every counted record against
+// `prots` (validation pass — a mismatch rejects the whole batch with
+// NOTHING inserted, rc = -5 - bad_index) then inserts (apply pass). This
+// keeps the protected write path at one native crossing per batch instead
+// of verify + insert as two (each re-parsing the wire image from Python).
+int64_t tpulsm_skiplist_insert_wb_prot(void* h, const uint8_t* rep,
+                                       int64_t len, uint64_t first_seq,
+                                       const uint64_t* prots, int64_t n_prots,
+                                       int32_t pb, int64_t* out) {
+  SkipList* sl = static_cast<SkipList*>(h);
+  int64_t rc = wb_wire_apply_chk(
+      rep, len, first_seq, out,
+      [sl](const uint8_t* k, uint32_t kl, uint64_t inv, const uint8_t* v,
+           uint32_t vl) { sl->insert(k, kl, inv, v, vl); },
+      ProtCheck{prots, n_prots, prot_trunc_mask(pb)});
+  if (rc >= 0 && rc != n_prots) return -5 - rc;  // carried vector too long
+  return rc;
 }
 
 
@@ -4093,21 +4305,25 @@ static int64_t gc_frame_merged(GcCursor& cur, int64_t total_len,
 //   clear. Any other kind is refused with -2 (the trie rep is not in the
 //   port).
 // reps/lens/n_batches: member batch wire images, group order.
-// prots/n_prots/pb: per-record protection vectors. Per-entry protection on
-//   the write path is not in the port: a non-null prots or pb > 0 is
-//   refused with -2, so the Python path decides.
+// prots/n_prots/pb: concatenated per-record protection vectors in group
+//   order, or null (unprotected).
 // mode: bit 0 (1) = frame WAL, bit 1 (2) = insert into the memtable,
 //   bit 2 (4) = skip the validation pass — ONLY legal when a prior call on
 //   the SAME buffers (the leader's frame call, microseconds earlier under
-//   the commit mutex) already validated them.
+//   the commit mutex) already validated them; protection was checked there.
+//   bit 3 (8) = protection FILL: prots is an OUT buffer of capacity
+//   n_prots — the validation pass writes each counted record's truncated
+//   checksum instead of comparing (fusing tpulsm_wb_protect into the WAL
+//   frame walk: the protected write path hashes each record ONCE).
 // block_offset/log_number: the LogWriter's framing state (log_number >= 0
 //   selects the recyclable format stamped with that number; -1 = classic).
 // out[0]=framed bytes, out[1]=new block offset, out[2]=memtable byte delta,
 // out[3]=point-delete count, out[4]=merged (unframed) record length,
 // out[5..7]=interior phase timings in ns (validate / WAL frame / memtable
 // insert) for the telemetry plane — the caller must size out >= 8.
-// Returns total counted records, or -2 (unsupported record, rep or
-// protection: Python path), -3 (wal_cap too small), -4 (corrupt image).
+// Returns total counted records, or -2 (unsupported record: Python path),
+// -3 (wal_cap too small), -4 (corrupt image), -5 - i (protection mismatch
+// at group record index i).
 int64_t tpulsm_wb_group_commit(void* mem, int32_t mem_kind,
                                const uint8_t* const* reps,
                                const int64_t* lens,
@@ -4116,7 +4332,10 @@ int64_t tpulsm_wb_group_commit(void* mem, int32_t mem_kind,
                                int32_t pb, int32_t mode, int64_t block_offset,
                                int64_t log_number, uint8_t* wal_out,
                                int64_t wal_cap, int64_t* out) {
-  if (prots || pb > 0 || mem_kind != 0) return -2;
+  const uint64_t kKey = 0x9E3779B97F4A7C15ull, kVal = 0xC2B2AE3D27D4EB4Full,
+                 kType = 0x165667B19E3779F9ull, kCf = 0x27D4EB2F165667C5ull;
+  const uint64_t mask = prot_trunc_mask(pb);
+  if (mem_kind != 0) return -2;
   auto gc_now_ns = []() -> int64_t {
     return (int64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
                std::chrono::steady_clock::now().time_since_epoch())
@@ -4133,7 +4352,7 @@ int64_t tpulsm_wb_group_commit(void* mem, int32_t mem_kind,
     }
   }
   // Pass 0: validate every batch — nothing is framed or inserted unless the
-  // WHOLE group parses.
+  // WHOLE group parses and (when protected) every record re-hashes clean.
   for (int64_t b = 0; (mode & 4) == 0 && b < n_batches; b++) {
     const uint8_t* rep = (const uint8_t*)reps[b];
     int64_t len = lens[b];
@@ -4149,10 +4368,13 @@ int64_t tpulsm_wb_group_commit(void* mem, int32_t mem_kind,
       uint32_t klen, vlen = 0;
       p = get_varint32(p, end, &klen);
       if (!p || p + klen > end) return -4;
+      const uint8_t* k = p;
       p += klen;
+      const uint8_t* v = p;
       if (t == 0x1 || t == 0x2 || t == 0x16) {  // VALUE / MERGE / WIDE
         p = get_varint32(p, end, &vlen);
         if (!p || p + vlen > end) return -4;
+        v = p;
         p += vlen;
       } else if (t == 0x0 || t == 0x7) {  // (SINGLE_)DELETION: key only
       } else if (t == 0x3) {              // LOG_DATA: klen was the blob
@@ -4160,11 +4382,26 @@ int64_t tpulsm_wb_group_commit(void* mem, int32_t mem_kind,
       } else {
         return -2;  // RANGE_DELETION etc.: Python path
       }
+      if (prots) {
+        int64_t gi = total + count;
+        if (gi >= n_prots) return (mode & 8) ? -3 : -5 - gi;
+        uint64_t cs = prot_mix(kKey ^ (uint64_t)zcrc32(k, klen) ^
+                               ((uint64_t)klen << 32)) ^
+                      prot_mix(kVal ^ (uint64_t)zcrc32(v, vlen) ^
+                               ((uint64_t)vlen << 32)) ^
+                      prot_mix(kType ^ (uint64_t)t) ^ prot_mix(kCf ^ 1ull);
+        if (mode & 8)
+          prots[gi] = cs & mask;
+        else if ((cs & mask) != prots[gi])
+          return -5 - gi;
+      }
       count++;
     }
     if ((uint32_t)count != hdr_count) return -4;
     total += count;
   }
+  if ((mode & 4) == 0 && prots && (mode & 8) == 0 && total != n_prots)
+    return -5 - total;
   const int64_t t_validated_ns = gc_now_ns();
   int64_t merged_len = 12;
   for (int64_t b = 0; b < n_batches; b++) merged_len += lens[b] - 12;

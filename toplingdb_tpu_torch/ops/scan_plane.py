@@ -1,8 +1,8 @@
 """Chunked forward-scan data plane: native block decode + k-way merge
-for DBIter (copied from toplingdb_tpu/ops/scan_plane.py, without the
-scan's protection bank, the async read plane's rings and a fixed
-readahead window: per-entry protection, async reads and
-ReadOptions.readahead_size are not in the port's DB, which refuses them).
+for DBIter (copied from toplingdb_tpu/ops/scan_plane.py, with the scan's
+protection bank, without the async read plane's rings and a fixed
+readahead window: async reads and ReadOptions.readahead_size are not in
+the port's DB, which refuses them).
 
 The per-entry read path (DBIter over MergingIterator) pays a Python heap
 pop/push, a comparator call, and an internal-key split for EVERY version
@@ -56,7 +56,9 @@ from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.dbformat import ValueType
 from toplingdb_tpu_torch.table.prefetch import FilePrefetchBuffer
 from toplingdb_tpu_torch.utils import errors as _errors
+from toplingdb_tpu_torch.utils import protection as _p
 from toplingdb_tpu_torch.utils import statistics as _stats_mod
+from toplingdb_tpu_torch.utils.status import Corruption
 
 
 class PlaneIneligible(Exception):
@@ -211,6 +213,21 @@ class _Pending:
         self.start, self.n = 0, len(self.ko)
 
 
+def _bank_rows(bank: set, pb: int, kb, ko, kl, vb, vo, vl,
+               start: int, n: int) -> None:
+    """Record each decoded row's (user_key, value) checksum at the moment
+    it enters a pending buffer — the scan plane's source-side half of the
+    protection handoff. Emission re-hashes and requires membership
+    (ScanPlane._verify_emission), so bytes garbled anywhere between the
+    native block decode and chunk emission are caught before serving."""
+    for i in range(start, n):
+        o = int(ko[i])
+        uk = kb[o: o + int(kl[i]) - 8].tobytes()
+        vo_i = int(vo[i])
+        v = vb[vo_i: vo_i + int(vl[i])].tobytes()
+        bank.add(_p.truncate(_p.kv_checksum(uk, v), pb))
+
+
 class _MemSource:
     """Memtable run: materialized ONCE (lazily, at first use) via the
     rep's native columnar export when available, else a Python walk of
@@ -218,7 +235,7 @@ class _MemSource:
     carry seqnos above the snapshot anyway, so missing them is exactly
     the per-entry path's visibility behavior."""
 
-    def __init__(self, mem):
+    def __init__(self, mem, prot_bank=None, protection_bytes: int = 0):
         self._mem = mem
         self.pending = _Pending()
         self.exhausted = True
@@ -226,6 +243,8 @@ class _MemSource:
         self._kb = None  # materialized arrays (seek re-slices them)
         self._n = 0
         self._vbb_cache = None  # bytes view of _vb, shared across seeks
+        self._prot_bank = prot_bank
+        self._pb = protection_bytes
 
     def _materialize(self) -> None:
         self._mat = True
@@ -263,6 +282,10 @@ class _MemSource:
     def seek(self, target: bytes | None, icmp) -> None:
         if not self._mat:
             self._materialize()
+            if self._prot_bank is not None and self._n:
+                _bank_rows(self._prot_bank, self._pb, self._kb, self._ko,
+                           self._kl, self._vb, self._vo, self._vl,
+                           0, self._n)
         self.pending.clear()
         if self._n == 0:
             return
@@ -305,12 +328,15 @@ class _SSTSource:
     `scan_columnar` bulk-decodes value groups natively, so the plane
     keeps chunk-merge eligibility on searchable-compression levels."""
 
-    def __init__(self, files, table_cache, icmp, upper_target, stats=None):
+    def __init__(self, files, table_cache, icmp, upper_target,
+                 prot_bank=None, protection_bytes: int = 0, stats=None):
         self._files = files
         self._tc = table_cache
         self._icmp = icmp
         self._upper_t = upper_target
         self._stats = stats
+        self._prot_bank = prot_bank
+        self._pb = protection_bytes
         self.pending = _Pending()
         self.exhausted = not files
         self._next_fi = 0
@@ -531,6 +557,9 @@ class _SSTSource:
             if lo >= rc:
                 return
             self._seek_t = None
+        if self._prot_bank is not None:
+            _bank_rows(self._prot_bank, self._pb, kb, ko, kl, vb, vo, vl,
+                       lo, rc)
         self.pending.append(kb, ko[lo:], kl[lo:], vb, vo[lo:], vl[lo:])
 
     def _fetch_zip_window(self) -> None:
@@ -554,6 +583,9 @@ class _SSTSource:
                 _stats_mod.ZIP_GROUP_DECODES, -(-e1 // vg) - e0 // vg)
             self._stats.record_tick(
                 _stats_mod.ZIP_GROUP_DECODE_BYTES, int(len(vb)))
+        if self._prot_bank is not None:
+            _bank_rows(self._prot_bank, self._pb, kb, ko, kl, vb, vo, vl,
+                       0, n)
         self.pending.append(kb, ko, kl, vb, vo, vl)
 
     def prefetch_counts(self) -> tuple[int, int]:
@@ -570,7 +602,8 @@ class ScanPlane:
     cur_key, cur_value, cur_type expose the current entry."""
 
     def __init__(self, sources, icmp, snap_seq: int, rd, upper, lower,
-                 blob_resolver, stats, chunk: int):
+                 blob_resolver, stats, chunk: int, prot_bank=None,
+                 protection_bytes: int = 0):
         self._srcs = sources
         self._icmp = icmp
         self._seq = snap_seq
@@ -579,6 +612,11 @@ class ScanPlane:
         self._lower = lower
         self._blob = blob_resolver
         self._stats = stats
+        # Protection (Options.protection_bytes_per_key): sources banked
+        # every decoded row's checksum into prot_bank; emission must find
+        # each served (user_key, value) there (_verify_emission).
+        self._prot_bank = prot_bank
+        self._pb = protection_bytes
         self._chunk = max(2, chunk)
         self.is_valid = False
         self.cur_key = self.cur_value = None
@@ -821,14 +859,27 @@ class ScanPlane:
         wvo_l = wvo.tolist()
         wve_l = wve.tolist()
         if np.all(vtw == int(ValueType.VALUE)):
+            if self._prot_bank is None:
+                keys.extend(uks)
+                vals.extend(vbufs[s][o:e]
+                            for s, o, e in zip(ws_l, wvo_l, wve_l))
+                types.extend([int(ValueType.VALUE)] * k)
+                return consume_uk
+            emit_vals = [vbufs[s][o:e]
+                         for s, o, e in zip(ws_l, wvo_l, wve_l)]
+            for j in range(k):
+                self._verify_emission(uks[j], emit_vals[j])
             keys.extend(uks)
-            vals.extend(vbufs[s][o:e] for s, o, e in zip(ws_l, wvo_l, wve_l))
+            vals.extend(emit_vals)
             types.extend([int(ValueType.VALUE)] * k)
             return consume_uk
         vt_l = vtw.tolist()
         for j in range(k):
             v = vbufs[ws_l[j]][wvo_l[j]: wve_l[j]]
             t = vt_l[j]
+            if self._prot_bank is not None:
+                # Verify the raw bytes BEFORE blob resolution rewrites them.
+                self._verify_emission(uks[j], v)
             if t == int(ValueType.BLOB_INDEX):
                 v = self._blob(v)
                 t = int(ValueType.VALUE)
@@ -837,10 +888,24 @@ class ScanPlane:
             types.append(t)
         return consume_uk
 
+    def _verify_emission(self, uk: bytes, value: bytes) -> None:
+        """Scan-plane chunk-emission protection check: the served bytes
+        must re-hash to a checksum banked when the row was decoded."""
+        cs = _p.truncate(_p.kv_checksum(uk, value), self._pb)
+        if cs not in self._prot_bank:
+            if self._stats is not None:
+                self._stats.record_tick(
+                    _stats_mod.INTEGRITY_PROTECTION_MISMATCHES)
+            raise Corruption(
+                f"scan-plane protection mismatch emitting key {uk!r}: "
+                f"served bytes match no decoded source row"
+            )
+
 
 def make_scan_plane(mems, l0_files, level_runs, table_cache, icmp,
                     snap_seq, rd, lower, upper, blob_resolver,
-                    merge_operator, stats, chunk: int):
+                    merge_operator, stats, chunk: int,
+                    protection_bytes: int = 0):
     """Build a ScanPlane for DB.new_iterator, or None when the iterator
     shape is ineligible at construction time (per-file eligibility is
     checked lazily and bails mid-stream instead). `chunk` is the DB's
@@ -865,14 +930,22 @@ def make_scan_plane(mems, l0_files, level_runs, table_cache, icmp,
     if upper is not None:
         upper_t = dbformat.make_internal_key(
             upper, dbformat.MAX_SEQUENCE_NUMBER, dbformat.VALUE_TYPE_FOR_SEEK)
-    sources: list = [_MemSource(m) for m in mems]
+    bank = set() if protection_bytes else None
+    sources: list = [_MemSource(m, prot_bank=bank,
+                                protection_bytes=protection_bytes)
+                     for m in mems]
     for f in l0_files:
         sources.append(_SSTSource([f], table_cache, icmp, upper_t,
+                                  prot_bank=bank,
+                                  protection_bytes=protection_bytes,
                                   stats=stats))
     for files in level_runs:
         sources.append(_SSTSource(list(files), table_cache, icmp, upper_t,
+                                  prot_bank=bank,
+                                  protection_bytes=protection_bytes,
                                   stats=stats))
     if not sources:
         return None
     return ScanPlane(sources, icmp, snap_seq, rd, upper, lower,
-                     blob_resolver, stats, chunk)
+                     blob_resolver, stats, chunk, prot_bank=bank,
+                     protection_bytes=protection_bytes)

@@ -436,9 +436,6 @@ UNPORTED = {
     "recycle_log_file_num": "WAL recycling",
     "wal_ttl_seconds": "WAL archiving",
     "shared_store": "the shared SST store",
-    "protection_bytes_per_key": "per-entry protection on the write path",
-    "integrity_scrub_period_sec": "the integrity scrubber",
-    "integrity_scrub_bytes_per_sec": "the integrity scrubber",
 }
 
 

@@ -1,5 +1,6 @@
 """Status/error model (copied from toplingdb_tpu/utils/status.py, trimmed
-to the error classes the port raises)."""
+to the error classes the port raises, and the background-error severities
+of RocksDB's ErrorHandler, db/error_handler.h)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,16 @@ class Code(enum.IntEnum):
     IO_ERROR = 5
     MERGE_IN_PROGRESS = 6
     SHUTDOWN_IN_PROGRESS = 8
+
+
+class Severity(enum.IntEnum):
+    """Background-error severity, mirroring RocksDB's db/error_handler.h."""
+
+    NO_ERROR = 0
+    SOFT_ERROR = 1      # writes may stall, reads fine, auto-recoverable
+    HARD_ERROR = 2      # writes stopped until Resume()
+    FATAL_ERROR = 3     # DB must be reopened
+    UNRECOVERABLE = 4
 
 
 class Status(Exception):
@@ -57,3 +68,33 @@ class MergeInProgress(Status):
 
 class ShutdownInProgress(Status):
     code = Code.SHUTDOWN_IN_PROGRESS
+
+
+class NoSpace(IOError_):
+    """Out-of-disk-space IO error (RocksDB's Status::NoSpace() subcode
+    kNoSpace). Retryable by default: the error handler latches it SOFT
+    and the auto-recover loop clears it."""
+
+    def __init__(self, msg: str = "", *, retryable: bool = True):
+        super().__init__(msg, retryable=retryable)
+
+
+def is_no_space(e: BaseException) -> bool:
+    """Does this exception chain mean the disk (or byte budget) is full?
+    Recognizes NoSpace, a raw OSError ENOSPC anywhere in the cause chain,
+    and wrapped messages (the posix Env re-raises OSErrors as IOError_
+    with the strerror text embedded)."""
+    import errno
+
+    seen = 0
+    while e is not None and seen < 8:
+        if isinstance(e, NoSpace):
+            return True
+        if isinstance(e, OSError) and e.errno == errno.ENOSPC:
+            return True
+        msg = str(e).lower()
+        if "enospc" in msg or "no space left" in msg:
+            return True
+        e = e.__cause__ or e.__context__
+        seen += 1
+    return False
