@@ -279,6 +279,48 @@ Phases (any failure ends the run with a non-zero exit code):
      readrandom ops/s, the scan wall, both verify walls and bytes, the
      scrub pass wall and the card's busy share. Its gc_rows and merge
      launches are added to the kernels line's counts.
+ 19. the rest of the write path on the card, each DB on phase 13's
+     settings (8 MiB write buffer, leveled, the "cuda" device factory, a
+     Statistics, the default planes) unless said otherwise, the gc_rows
+     and merge counts set to 0 before each open:
+     (a) the CSPP-role trie (bench.py's fillrandom_cspp_ops_s row):
+     memtable_rep="cspp", WRITE_N = 1,000,000 16-digit keys with 20-byte
+     values from 4 threads in batches of 100; every group a native commit
+     into the trie, every flush one tpulsm_trie_export; flush,
+     wait_for_compactions, compact_range, every job on "cuda" with gc_rows
+     launched; every live SST read back against the oracle; then
+     WRITE_OVERLAY_N = 20,000 keys rewritten into the trie memtable, and
+     100,000 readrandom probes (bench.py's Random(5) draw), every one
+     decided by the native chain through its trie branch, and a full scan
+     through the chunk plane; then crash() and a reopen whose WAL replay
+     into a trie memtable (one trie export) gives the same reads;
+     (b) unordered writes (bench.py's fillrandom_unordered_ops_s row):
+     unordered_write=True, allow_concurrent_memtable_write=True on the
+     skiplist, the same fill, compact_range and read-back;
+     (c) ToplingDB's published write deployment (SURVEY.md:506, db_bench
+     fillrandom at 45.3M ops/s): memtable_rep="cspp", unordered_write,
+     allow_concurrent_memtable_write and WriteOptions(disable_wal=True),
+     WRITE_N 8-byte keys (bench.py's index permutation, packed
+     big-endian) with 20-byte values in batches of 500; 4 writer threads,
+     cut from the source's 64 because the writers are Python threads;
+     compact_range on "cuda", every key read back (the SSTs against the
+     oracle, and a scan);
+     (d) pipelined writes through the async WAL (bench.py's
+     fillrandom_sync_ops_s rows): enable_pipelined_write=True,
+     enable_async_wal=True, WRITE_SYNC_N = 20,000 keys (bench.py's
+     n // 50) from 4 threads with WriteOptions(sync=True) in protected
+     batches of 100 and 1,000 on the checkout's disk, and the inline-fsync
+     twin in the same call; WRITE_GROUP_FSYNCS_COALESCED above 0, and a
+     reopen reads every acknowledged key;
+     (e) a WriteBufferManager of 4 MiB (half of one write buffer) shared
+     by two DBs of (a)'s shape filled at once, WBM_N = 100,000 keys each:
+     the budget forces flushes of memtables below their write buffer,
+     flush() leaves a residual charge under 4096 bytes a DB, close() none.
+     Fills' walls and ops/s, flushes, each job's rows, route and wall,
+     compact_range's wall and raw MB/s, (a)'s readrandom ops/s and scan
+     wall, (d)'s fsyncs and coalesced fsyncs and the card's busy share are
+     printed beside the card's name and power limit. Its gc_rows and merge
+     launches are added to the kernels line's counts.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -327,6 +369,11 @@ BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
 BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
 DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
 INTEGRITY_N = 1_000_000  # phase 18: phase 13's deployment
+WRITE_N = 1_000_000     # phase 19 (a)-(c): phase 13's deployment
+WRITE_OVERLAY_N = 20_000  # phase 19 (a): keys rewritten into the trie
+WRITE_SYNC_N = 20_000   # phase 19 (d): bench.py's sync rows, n // 50
+WBM_N = 100_000         # phase 19 (e): keys a DB
+WBM_BUDGET = 4 << 20    # phase 19 (e): half of one 8 MiB write buffer
 
 
 def log(msg: str) -> None:
@@ -2339,24 +2386,32 @@ def db_key(i: int, n: int) -> bytes:
     return b"%016d" % (i * 2654435761 % (2 * n))
 
 
-def threaded_fill(db, n_keys, kv, n_threads=4, batch=100, pb=0) -> float:
+def threaded_fill(db, n_keys, kv, n_threads=4, batch=100, pb=0,
+                  wopts=None) -> float:
     """bench.py's fill: n_threads writer threads, thread t writing indices
     [t * n_keys / n_threads, (t + 1) * n_keys / n_threads) in WriteBatches
-    of `batch` (with per-entry protection of `pb` bytes a key), kv(i)
-    giving index i's (key, value). Returns its wall."""
+    of `batch` (an int, or a tuple of sizes taken in turn; with per-entry
+    protection of `pb` bytes a key) written with `wopts` (None: the
+    defaults), kv(i) giving index i's (key, value). Returns its wall."""
     from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import WriteOptions
 
     per_t = n_keys // n_threads
+    sizes = batch if isinstance(batch, tuple) else (batch,)
+    wopts = wopts or WriteOptions()
     errs = []
 
     def worker(t):
         end = (t + 1) * per_t
         try:
-            for i in range(t * per_t, end, batch):
+            i, k = t * per_t, 0
+            while i < end:
                 b = WriteBatch(protection_bytes_per_key=pb)
-                for j in range(i, min(i + batch, end)):
+                stop = min(i + sizes[k % len(sizes)], end)
+                for j in range(i, stop):
                     b.put(*kv(j))
-                db.write(b)
+                db.write(b, wopts)
+                i, k = stop, k + 1
         except Exception as e:  # noqa: BLE001
             errs.append(e)
 
@@ -3908,6 +3963,386 @@ def integrity_path(torch, root, n, card, device_name="cuda"):
     return gc_n, mr_n
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the rest of the write path on the card
+# ---------------------------------------------------------------------------
+
+
+def count_trie_exports():
+    """Wraps NativeTrieRep.export_columnar (tpulsm_trie_export): returns
+    the list of its results, True where a flush got a columnar export,
+    and a restore callable."""
+    from toplingdb_tpu_torch.db.memtable import NativeTrieRep
+
+    orig = NativeTrieRep.export_columnar
+    got = []
+
+    def spy(self):
+        r = orig(self)
+        got.append(r is not None)
+        return r
+
+    NativeTrieRep.export_columnar = spy
+
+    def restore():
+        NativeTrieRep.export_columnar = orig
+
+    return got, restore
+
+
+def native_get_calls(db):
+    """Wraps the instance's native chain: counts the gets it decided."""
+    calls = {"native": 0, "python": 0}
+    chain = db._native_get
+
+    def spy(*a):
+        r = chain(*a)
+        calls["native" if r[0] else "python"] += 1
+        return r
+
+    db._native_get = spy
+    return calls
+
+
+def write_fill_part(torch, root, tag, n, kv, card, device_name, extra,
+                    batch=100, wopts=None, raw_per_key=DB_RAW_PER_ENTRY):
+    """One fill of phase 19 into a fresh DB on phase 13's settings plus
+    `extra` Options fields: the fill from 4 threads, flush,
+    wait_for_compactions and compact_range under a JobLog (every job on
+    `device_name`, gc_rows launched). Returns the open DB, its Statistics
+    and the (gc_rows, merge_runs) launches."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    stats = st.Statistics()
+    opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
+                   compaction_executor_factory=factory, statistics=stats,
+                   **extra)
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        db = DB.open(os.path.join(root, tag), opts)
+        fill = threaded_fill(db, n, kv, 4, batch, wopts=wopts)
+        n_fill_flush = db.num_flushes
+        t0 = time.time()
+        db.flush()
+        db.wait_for_compactions()
+        t1 = time.time()
+        db.compact_range()
+        crw = time.time() - t1
+        gc_n, mr_n = launched()
+        wall = time.time() - t_open
+    sched = db._compaction_scheduler
+    assert joblog.jobs, f"[{tag}] no compaction ran on the device executor"
+    assert sched.num_local_jobs == 0 and sched.last_error is None, \
+        (tag, sched.num_local_jobs, sched.last_error)
+    assert db._bg_error is None, db._bg_error
+    joblog.check(device_name, f"write {tag}")
+    if device_name != "cpu":
+        assert gc_n >= len(joblog.jobs), (tag, gc_n, len(joblog.jobs))
+    groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+    commits = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+    fallbacks = stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS)
+    log(f"[write {tag}] fill {n} keys from 4 threads in batches of "
+        f"{batch}: {fill:.3f}s, {n / fill:.0f} ops/s; {commits} native "
+        f"commits of {groups} groups, {fallbacks} fallbacks; "
+        f"{n_fill_flush} flushes in the fill [{card}]")
+    log(f"[write {tag}] flush + wait_for_compactions {t1 - t0:.3f}s; "
+        f"compact_range {crw:.3f}s, {n * raw_per_key / 1e6 / crw:.2f} raw "
+        f"MB/s; {db.num_flushes} flushes, {len(joblog.jobs)} device jobs, "
+        f"launches gc_rows={gc_n} merge_runs={mr_n}; open to "
+        f"compact_range's end: {busy_text(programs, joblog, wall)}; levels "
+        f"{db.versions.current.describe()!r} [{card}]")
+    return db, stats, (gc_n, mr_n)
+
+
+def write_path(torch, root, n, card, device_name="cuda"):
+    """Phase 19 (see the module docstring): (a) the CSPP-role trie, (b)
+    unordered writes with concurrent inserts, (c) ToplingDB's published
+    write deployment (memtable_rep="cspp", unordered writes, concurrent
+    inserts, no WAL, 8-byte keys, batches of 500; 4 writer threads, cut
+    from the source's 64 because the writers are Python threads), (d)
+    pipelined sync writes through the async WAL beside their inline-fsync
+    twin, (e) a WriteBufferManager shared by two DBs. Returns the
+    (gc_rows, merge_runs) launches of every part."""
+    import random
+    import struct
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.memtable import NativeTrieRep
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options, WriteOptions
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.rate_limiter import WriteBufferManager
+
+    value = b"v" * 20
+    total = [0, 0]
+
+    def add(launches):
+        total[0] += launches[0]
+        total[1] += launches[1]
+
+    def kv(i):
+        return db_key(i, n), value
+
+    want = sorted(db_key(i, n) for i in range(n))
+
+    # (a) The CSPP-role trie.
+    exports, restore = count_trie_exports()
+    try:
+        db, stats, launches = write_fill_part(
+            torch, root, "a", n, kv, card, device_name,
+            dict(memtable_rep="cspp"))
+        add(launches)
+        assert isinstance(db.mem._rep, NativeTrieRep)
+        groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+        assert stats.get_ticker_count(
+            st.WRITE_GROUP_NATIVE_COMMITS) == groups > 0, groups
+        assert exports == [True] * db.num_flushes, \
+            (len(exports), db.num_flushes)
+        n_files = db_files_against_oracle(db, want, value)
+        # The overlay: rewritten keys stay in the trie memtable, so the
+        # probes walk the trie branch with data in it.
+        fresh = b"w" * 20
+        overlay = {db_key(i, n) for i in range(WRITE_OVERLAY_N)}
+        flushes = db.num_flushes
+        for i in range(0, WRITE_OVERLAY_N, 100):
+            b = WriteBatch()
+            for j in range(i, i + 100):
+                b.put(db_key(j, n), fresh)
+            db.write(b)
+        assert db.num_flushes == flushes and len(db.mem._rep) == \
+            WRITE_OVERLAY_N, "the overlay left the trie memtable"
+
+        def value_of(k):
+            return fresh if k in overlay else value
+
+        rng = random.Random(5)
+        probes = [db_key(rng.randrange(n), n) for _ in range(min(100_000, n))]
+        calls = native_get_calls(db)
+        t0 = time.time()
+        for k in probes:
+            assert db.get(k) == value_of(k), k
+        rr = time.time() - t0
+        assert calls == {"native": len(probes), "python": 0}, calls
+        in_trie = sum(k in overlay for k in probes)
+        before = stats.tickers()
+        t0 = time.time()
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        for (k, v), w in zip(it.entries(), want):
+            assert k == w and v == value_of(w), (k, w)
+            got += 1
+        scan = time.time() - t0
+        assert got == len(want) and not it.valid(), (got, len(want))
+        assert it._plane is not None, "the scan left the chunk plane"
+        del it
+        after = stats.tickers()
+        refills = after.get(st.ITER_CHUNK_REFILLS, 0) - before.get(
+            st.ITER_CHUNK_REFILLS, 0)
+        fallbacks = after.get(st.ITER_CHUNK_FALLBACKS, 0) - before.get(
+            st.ITER_CHUNK_FALLBACKS, 0)
+        assert refills > 0 and fallbacks == 0, (refills, fallbacks)
+        log(f"[write a] {n_files} live SSTs read back against the oracle; "
+            f"{WRITE_OVERLAY_N} keys rewritten into the trie memtable; "
+            f"readrandom {len(probes)} probes {rr:.3f}s, "
+            f"{len(probes) / rr:.0f} ops/s, all decided by the native "
+            f"chain ({in_trie} found in the trie); full scan {got} keys "
+            f"{scan:.3f}s through the chunk plane, {refills} refills, "
+            f"{fallbacks} fallbacks; {db.num_flushes} flushes, each one "
+            f"tpulsm_trie_export, and {len(exports) - db.num_flushes} "
+            f"export(s) of the trie memtable by the scan plane [{card}]")
+        dbdir = db.dbname
+        opts = db.options
+        crash(db)
+        n_exports = len(exports)
+        t0 = time.time()
+        db = DB.open(dbdir, opts)
+        replay = time.time() - t0
+        try:
+            assert exports[n_exports:] == [True], exports[n_exports:]
+            calls = native_get_calls(db)
+            for k in sorted(overlay) + probes[:10_000]:
+                assert db.get(k) == value_of(k), k
+            assert calls["python"] == 0, calls
+        finally:
+            db.close()
+        log(f"[write a] crash() and reopen {replay:.3f}s: the WAL's "
+            f"{WRITE_OVERLAY_N} keys replayed into a trie memtable and "
+            f"flushed through one tpulsm_trie_export; the overlay and "
+            f"10000 probes read the same, natively [{card}]")
+    finally:
+        restore()
+
+    # (b) Unordered writes with concurrent inserts, on the skiplist.
+    db, stats, launches = write_fill_part(
+        torch, root, "b", n, kv, card, device_name,
+        dict(unordered_write=True, allow_concurrent_memtable_write=True))
+    add(launches)
+    try:
+        assert db.versions.last_sequence == n == db._seq_alloc
+        n_files = db_files_against_oracle(db, want, value)
+    finally:
+        db.close()
+    log(f"[write b] {n_files} live SSTs read back against the oracle "
+        f"[{card}]")
+
+    # (c) ToplingDB's published write deployment.
+    def kv8(i):
+        return struct.pack(">Q", i * 2654435761 % (2 * n)), value
+
+    want8 = sorted(kv8(i)[0] for i in range(n))
+    exports, restore = count_trie_exports()
+    try:
+        db, stats, launches = write_fill_part(
+            torch, root, "c", n, kv8, card, device_name,
+            dict(memtable_rep="cspp", unordered_write=True,
+                 allow_concurrent_memtable_write=True),
+            batch=500, wopts=WriteOptions(disable_wal=True),
+            raw_per_key=RAW_PER_ENTRY)
+    finally:
+        restore()
+    add(launches)
+    try:
+        assert stats.get_ticker_count(st.WAL_BYTES) == 0
+        assert exports == [True] * db.num_flushes, \
+            (len(exports), db.num_flushes)
+        n_files = db_files_against_oracle(db, want8, value)
+        t0 = time.time()
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        for (k, v), w in zip(it.entries(), want8):
+            assert k == w and v == value, (k, w)
+            got += 1
+        scan = time.time() - t0
+        assert got == n and not it.valid(), got
+        del it
+    finally:
+        db.close()
+    log(f"[write c] no WAL byte written; {n_files} live SSTs read back "
+        f"against the oracle, every key scanned back in {scan:.3f}s "
+        f"[{card}]")
+
+    # (d) Pipelined sync writes through the async WAL, and the inline twin.
+    n_sync = WRITE_SYNC_N
+    sync = {}
+    for label, async_wal in (("async WAL", True), ("inline fsync", False)):
+        d = os.path.join(root, "d-" + label.split()[0])
+        stats = st.Statistics()
+        opts = Options(
+            create_if_missing=True, write_buffer_size=8 << 20,
+            compaction_executor_factory=DeviceCompactionExecutorFactory(
+                device=device_name),
+            statistics=stats, protection_bytes_per_key=8,
+            enable_pipelined_write=True, enable_async_wal=async_wal)
+        db = DB.open(d, opts)
+        try:
+            wall = threaded_fill(db, n_sync, kv, 4, (100, 1000), pb=8,
+                                 wopts=WriteOptions(sync=True))
+            ring = db._wal_ring
+            fsyncs = ring.fsyncs if ring is not None else \
+                stats.get_ticker_count(st.WAL_SYNCS)
+            coalesced = stats.get_ticker_count(
+                st.WRITE_GROUP_FSYNCS_COALESCED)
+            groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+        finally:
+            db.close()
+        with DB.open(d, opts) as db:
+            per_t = n_sync // 4
+            for i in range(4 * per_t):
+                assert db.get(db_key(i, n)) == value, i
+        sync[label] = wall
+        log(f"[write d] {label}: {4 * per_t} keys from 4 threads, "
+            f"sync=True, pipelined, protected batches of 100 and 1000: "
+            f"{wall:.3f}s, {4 * per_t / wall:.0f} ops/s; {groups} groups, "
+            f"{fsyncs} fsyncs, {coalesced} coalesced fsyncs; the reopen "
+            f"read every acknowledged key [{card}]")
+        if async_wal:
+            assert coalesced > 0, "no fsync coalesced in the async WAL"
+    log(f"[write d] async WAL / inline fsync wall "
+        f"{sync['async WAL'] / sync['inline fsync']:.2f}x [{card}]")
+
+    # (e) A WriteBufferManager shared by two DBs of (a)'s shape.
+    wbm = WriteBufferManager(WBM_BUDGET)
+    dbs, switches = [], []
+    launched = counted(kernels)
+    for tag in ("e1", "e2"):
+        db = DB.open(os.path.join(root, tag), Options(
+            create_if_missing=True, write_buffer_size=8 << 20,
+            compaction_executor_factory=DeviceCompactionExecutorFactory(
+                device=device_name),
+            statistics=st.Statistics(), memtable_rep="cspp",
+            write_buffer_manager=wbm))
+        switch = db._switch_memtable
+
+        def spy(db=db, switch=switch):
+            # The active memtables' memory at the switch: below the write
+            # buffer, the switch is the shared budget's.
+            switches.append(sum(c.mem.approximate_memory_usage()
+                                for c in db._cfs.values()))
+            switch()
+
+        db._switch_memtable = spy
+        dbs.append(db)
+    try:
+        walls = [0.0, 0.0]
+
+        def fill_one(k):
+            walls[k] = threaded_fill(
+                dbs[k], WBM_N, lambda i: (db_key(i, WBM_N), value))
+
+        ts = [threading.Thread(target=fill_one, args=(k,)) for k in (0, 1)]
+        t0 = time.time()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        wall = time.time() - t0
+        peak_switches = list(switches)
+        by_budget = sum(m < (8 << 20) for m in peak_switches)
+        assert by_budget > 0, "the shared budget forced no flush"
+        flushed = [db.num_flushes for db in dbs]
+        for db in dbs:
+            db.wait_for_compactions()
+            assert db._compaction_scheduler.last_error is None
+        for k, db in enumerate(dbs):
+            for i in range(0, WBM_N, 997):
+                assert db.get(db_key(i, WBM_N)) == value, (k, i)
+        usage_before = wbm.memory_usage()
+        for db in dbs:
+            db.flush()
+        residual = wbm.memory_usage()
+        assert residual < 4096 * len(dbs), residual
+    finally:
+        for db in dbs:
+            db.close()
+    assert wbm.memory_usage() == 0, wbm.memory_usage()
+    gc_n, mr_n = launched()
+    total[0] += gc_n
+    total[1] += mr_n
+    log(f"[write e] WriteBufferManager({WBM_BUDGET}) over two DBs of "
+        f"(a)'s shape, {WBM_N} keys each filled at once: {wall:.3f}s "
+        f"({2 * WBM_N / wall:.0f} ops/s); {flushed} flushes, "
+        f"{by_budget} of {len(peak_switches)} memtable switches below the "
+        f"8 MiB write buffer (the budget's); charge {usage_before} bytes "
+        f"before flush(), {residual} after, 0 after close(); launches "
+        f"gc_rows={gc_n} merge_runs={mr_n} [{card}]")
+    return total[0], total[1]
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3995,6 +4430,9 @@ def main() -> int:
                                os.path.join(dbdir, "db18"), INTEGRITY_N, smi)
         log(f"[integrity] phase 18 wall {walls['18 integrity']:.1f}s "
             f"[{smi}]")
+        w_gc, w_mr = phase("19 write", write_path, torch,
+                           os.path.join(dbdir, "db19"), WRITE_N, smi)
+        log(f"[write] phase 19 wall {walls['19 write']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -4005,6 +4443,9 @@ def main() -> int:
     # Phase 18's protected DB runs gc_rows and the merge on its own path.
     launches["gc_rows"] += int_gc
     launches["merge_runs"] += int_mr
+    # So do phase 19's write-path DBs.
+    launches["gc_rows"] += w_gc
+    launches["merge_runs"] += w_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

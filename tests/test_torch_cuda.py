@@ -50,7 +50,10 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   bytes of the same DBs on "cpu";
 - a small protected DB (protection_bytes_per_key=8) whose jobs run on
   "cuda": every output verified per entry, a clean scrub, and the SST
-  bytes and scan of the same DB on "cpu".
+  bytes and scan of the same DB on "cpu";
+- a small CSPP-trie DB filled by four unordered writer threads with
+  concurrent inserts, its jobs on "cuda": every key reads back, and its
+  gets and scan equal the same DB's on "cpu".
 """
 
 import os
@@ -1239,3 +1242,69 @@ def test_protected_db_on_the_card_verifies_its_outputs(dev, tmp_path,
     want = _protected_db(str(tmp_path / "cpu"), "cpu", n, verified)
     assert got == want
     assert len(got[1]) == n
+
+
+def _trie_unordered_db(path, device, n):
+    """A CSPP-trie DB filled by 4 unordered writer threads with concurrent
+    inserts, its flushes and compactions on `device`. Returns its gets of
+    every key, taken after compact_range, and its scan."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=1 << 20, memtable_rep="cspp",
+                   unordered_write=True,
+                   allow_concurrent_memtable_write=True,
+                   compaction_executor_factory=factory)
+    keys = [b"%016d" % (j * 2654435761 % (2 * n)) for j in range(n)]
+    per = n // 4
+    errs = []
+
+    def writer(db, t):
+        try:
+            for i in range(t * per, (t + 1) * per, 100):
+                b = WriteBatch()
+                for j in range(i, i + 100):
+                    b.put(keys[j], b"v%019d" % j)
+                db.write(b)
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    with DB.open(path, opts) as db:
+        ts = [threading.Thread(target=writer, args=(db, t))
+              for t in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert not errs, errs
+        db.flush()
+        db.wait_for_compactions()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert factory.jobs and sched.num_local_jobs == 0
+        assert sched.last_error is None and db._bg_error is None
+        gets = [db.get(k) for k in keys]
+        it = db.new_iterator()
+        it.seek_to_first()
+        scan = list(it.entries())
+    return gets, scan
+
+
+def test_trie_db_with_unordered_writers_on_the_card(dev, tmp_path):
+    """A small CSPP-trie DB filled by unordered writers with concurrent
+    inserts: its jobs run on "cuda" (gc_rows and the merge launch), every
+    key reads back, and its gets and scan equal the same DB's on "cpu"."""
+    n = 200_000
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _trie_unordered_db(str(tmp_path / "cuda"), "cuda", n)
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    assert None not in got[0] and len(got[1]) == n
+    want = _trie_unordered_db(str(tmp_path / "cpu"), "cpu", n)
+    assert got == want

@@ -8,8 +8,11 @@ on the same inputs, on the CPU:
   log, and a torn tail dropped;
 - VersionEdit encode bytes and decode, each package decoding the other's;
 - MemTable point lookups, ordered iteration and iterator seeks on the
-  skiplist and vector reps; the skiplist rep refuses to start without the
-  native library instead of dropping to the Python rep;
+  skiplist and vector reps; the skiplist and trie reps refuse to start
+  without the native library instead of dropping to the Python rep; every
+  rep name of the factory opens a DB (the trie and hash reps against the
+  reference's: tests/test_torch_memtable_reps.py), and a bad one raises
+  InvalidArgument;
 - the leveled picker's scores and pick on the same Version, GetContext's
   answers over the same entry streams, the subcompaction boundaries, and
   the CPU compaction path's SST bytes with 1 and 3 subcompactions;
@@ -18,8 +21,9 @@ on the same inputs, on the CPU:
 - every option the port's DB does not run raises NotSupported at open
   (the compaction styles, periodic compaction and blob files open:
   tests/test_torch_compaction_styles.py, tests/test_torch_blob_db.py);
-  the three integrity fields open (`test_ported_option_opens`; held
-  against the reference in tests/test_torch_integrity.py).
+  the three integrity fields and the five write-path fields open
+  (`test_ported_option_opens`; held against the reference in
+  tests/test_torch_integrity.py and tests/test_torch_write_modes.py).
 
 Tolerance: none; bytes, records and answers must be equal.
 """
@@ -71,7 +75,8 @@ from toplingdb_tpu_torch.env import PosixEnv
 from toplingdb_tpu_torch.options import Options
 from toplingdb_tpu_torch.table.builder import TableBuilder, TableOptions
 from toplingdb_tpu_torch.utils import merge_operator as mo
-from toplingdb_tpu_torch.utils.status import NotSupported
+from toplingdb_tpu_torch.utils.rate_limiter import WriteBufferManager
+from toplingdb_tpu_torch.utils.status import InvalidArgument, NotSupported
 
 VT = dbformat.ValueType
 
@@ -329,10 +334,71 @@ def test_skiplist_rep_needs_the_native_library(tmp_path, monkeypatch):
         assert db.get(b"k") == b"v"
 
 
-@pytest.mark.parametrize("name", ["cspp", "hash_skiplist", "hash_skiplist:4"])
-def test_unported_memtable_reps_raise(name):
-    with pytest.raises(NotSupported):
+def test_trie_rep_needs_the_native_library(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "pylib", lambda: None)
+    for name in ("cspp", "trie", "patricia"):
+        with pytest.raises(NotSupported, match="native library"):
+            memtable.create_memtable_rep(name)
+    path = str(tmp_path / "db")
+    with pytest.raises(NotSupported, match="native library"):
+        DB.open(path, Options(memtable_rep="cspp"))
+    assert not os.path.exists(path)
+
+
+# The rep names the factory takes beside "skiplist" and "vector", and the
+# rep each builds (tests/test_torch_memtable_reps.py holds them against the
+# reference's reps).
+NEW_REPS = {
+    "cspp": memtable.NativeTrieRep,
+    "trie": memtable.NativeTrieRep,
+    "patricia": memtable.NativeTrieRep,
+    "hash_skiplist": memtable.HashPrefixRep,
+    "hash_linklist": memtable.HashPrefixRep,
+    "prefix_hash": memtable.HashPrefixRep,
+    "hash_skiplist:4": memtable.HashPrefixRep,
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_REPS))
+def test_memtable_rep_opens(tmp_path, name):
+    from toplingdb_tpu_torch.compaction.executor import (
+        LocalCompactionExecutorFactory,
+    )
+
+    rep = memtable.create_memtable_rep(name)
+    assert type(rep) is NEW_REPS[name]
+    if name == "hash_skiplist:4":
+        assert rep._plen == 4
+    opts = Options(memtable_rep=name, compaction_executor_factory=(
+        LocalCompactionExecutorFactory()))
+    assert popts.unported_fields(opts) == []
+    path = str(tmp_path / "db")
+    with DB.open(path, opts) as db:
+        assert type(db.mem._rep) is NEW_REPS[name]
+        for i in range(200):
+            db.put(b"key%04d" % (i * 7 % 200), b"v%d" % i)
+        db.delete(b"key0003")
+        assert db.get(b"key0003") is None
+        assert db.get(b"key0007") == b"v1"
+        db.flush()
+        db.put(b"key0003", b"back")
+    with DB.open(path, opts) as db:
+        it = db.new_iterator()
+        it.seek_to_first()
+        keys = [k for k, _ in it.entries()]
+        assert keys == [b"key%04d" % i for i in range(200)]
+        assert db.get(b"key0003") == b"back"
+
+
+@pytest.mark.parametrize("name", ["bogus", "hash_skiplist:0",
+                                  "hash_skiplist:x"])
+def test_bad_memtable_rep_raises(tmp_path, name):
+    with pytest.raises(InvalidArgument):
         memtable.create_memtable_rep(name)
+    path = str(tmp_path / "db")
+    with pytest.raises(InvalidArgument):
+        DB.open(path, Options(memtable_rep=name))
+    assert not os.path.exists(path)
 
 
 # ---------------------------------------------------------------------------
@@ -620,14 +686,13 @@ def _away_from_default(name):
     return object()
 
 
-REFUSED = sorted(popts.UNPORTED) + ["memtable_rep", "comparator",
+REFUSED = sorted(popts.UNPORTED) + ["comparator",
                                     "compaction_executor_factory"]
 
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_unported_option_raises(tmp_path, name):
     special = {
-        "memtable_rep": "cspp",
         "comparator": dbformat.U64TsBytewiseComparator(),
         "compaction_executor_factory": None,
     }
@@ -640,12 +705,20 @@ def test_unported_option_raises(tmp_path, name):
 
 
 # The integrity fields open (tests/test_torch_integrity.py holds them
-# against the reference).
+# against the reference), and the write-path fields
+# (tests/test_torch_write_modes.py).
 NOW_OPEN = {
     "protection_bytes_per_key": dict(protection_bytes_per_key=8),
     "integrity_scrub_period_sec": dict(integrity_scrub_period_sec=60),
     "integrity_scrub_bytes_per_sec": dict(
         integrity_scrub_bytes_per_sec=1 << 20),
+    "unordered_write": dict(unordered_write=True),
+    "enable_pipelined_write": dict(enable_pipelined_write=True),
+    "enable_async_wal": dict(enable_async_wal=True),
+    "async_wal_ring_size": dict(enable_async_wal=True,
+                                async_wal_ring_size=8),
+    "write_buffer_manager": dict(write_buffer_manager=WriteBufferManager(
+        1 << 20)),
 }
 
 
@@ -665,6 +738,7 @@ def test_ported_option_opens(tmp_path, name):
             name == "protection_bytes_per_key")
         assert (db._integrity_scrubber is not None) == (
             name == "integrity_scrub_period_sec")
+        assert (db._wal_ring is not None) == ("async_wal" in name)
         db.flush()
         assert db.get(b"k") == b"v" * 300
         db.compact_range()

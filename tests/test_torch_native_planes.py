@@ -896,8 +896,26 @@ for db, tag in ((port, b"port"), (ref, b"ref")):
         db.put(b"key%04d" % i, tag + b"%d" % i)
     db.flush()
     db.put(b"mem", tag)
+# Trie DBs: every put a protected native group commit into the trie,
+# every flush one tpulsm_trie_export, the gets through the trie branch.
+tport = PDB.open(os.path.join(root, "tport"), PO(
+    create_if_missing=True, protection_bytes_per_key=8, memtable_rep="cspp",
+    compaction_executor_factory=LocalCompactionExecutorFactory()))
+tref = rdbm.DB.open(os.path.join(root, "tref"), RO(
+    create_if_missing=True, protection_bytes_per_key=8, memtable_rep="cspp"))
+for db, tag in ((tport, b"tport"), (tref, b"tref")):
+    for i in range(300):
+        db.put(b"key%04d" % i, tag + b"%d" % i)
+    db.flush()
+    db.put(b"mem", tag)
 got = {"port": [port.get(b"key0007"), port.get(b"mem")],
-       "ref": [ref.get(b"key0007"), ref.get(b"mem")]}
+       "ref": [ref.get(b"key0007"), ref.get(b"mem")],
+       "tport": [tport.get(b"key0007"), tport.get(b"mem")],
+       "tref": [tref.get(b"key0007"), tref.get(b"mem")]}
+trie_names = tuple("tpulsm_trie_" + n for n in (
+    "new", "free", "insert", "count", "memory", "insert_batch", "insert_wb",
+    "insert_wb_prot", "seek_ge", "first", "last", "next", "seek_lt", "ver",
+    "export"))
 from toplingdb_tpu.db.write_batch import WriteBatch as RWB
 from toplingdb_tpu.db.write_batch import _native_protect as ref_protect
 from toplingdb_tpu_torch.db.write_batch import _native_protect as port_protect
@@ -934,9 +952,17 @@ out = {
                     for n in prot_names],
     "prot_vec": [[int(x) for x in f(wb.data(), 8, False)] == want
                  for f in (port_protect, ref_protect)],
+    "trie_where": {k: [where(ctypes.cast(getattr(libs[k], n),
+                                         ctypes.c_void_p).value)
+                       for n in trie_names] for k in ("port", "ref")},
+    "trie_global": [where(ctypes.cast(getattr(ctypes.CDLL(None), n),
+                                      ctypes.c_void_p).value)
+                    if hasattr(ctypes.CDLL(None), n) else None
+                    for n in trie_names],
+    "trie_native": tport._nget_tl.states[0].ctx is not None,
 }
-port.close()
-ref.close()
+for db in (port, ref, tport, tref):
+    db.close()
 print(json.dumps(out))
 """
 
@@ -953,7 +979,10 @@ def test_native_libraries_stay_isolated(tmp_path, order):
     group commit, the fused verify+insert and the flush's columnar fold
     run in the same process: each package's protection exports lie in its
     own library, none of the port's is the one the global scope resolves,
-    and both compute the vector utils/protection.py computes."""
+    and both compute the vector utils/protection.py computes. A second
+    pair of DBs on the trie rep ("cspp") reads its own data, and every
+    tpulsm_trie_* export of each package lies in its own library, none of
+    the port's the global scope's."""
     import json
 
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -970,10 +999,16 @@ def test_native_libraries_stay_isolated(tmp_path, order):
     assert res["port_fn"] == port_so
     assert res["port_fast"] == port_so and res["port_fast_used"]
     assert res["ref_fast"] == ref_so
-    assert res["got"] == {"port": ["port7", "port"], "ref": ["ref7", "ref"]}
+    assert res["got"] == {"port": ["port7", "port"], "ref": ["ref7", "ref"],
+                          "tport": ["tport7", "tport"],
+                          "tref": ["tref7", "tref"]}
     assert res["prot_where"] == {"port": [port_so] * 4, "ref": [ref_so] * 4}
     assert port_so not in res["prot_global"]
     assert res["prot_vec"] == [True, True]
+    assert res["trie_where"] == {"port": [port_so] * 15,
+                                 "ref": [ref_so] * 15}
+    assert port_so not in res["trie_global"]
+    assert res["trie_native"]
 
 
 _SHIM = r"""

@@ -40,10 +40,10 @@ The host planes are toplingdb_tpu's defaults, each switched by an
 explicit DB.open argument instead of its process-wide knob:
 
   write plane   `write_plane=True`: each write group is validated, framed
-                into one WAL record and applied to the skiplist memtable
-                in native calls (tpulsm_wb_group_commit). Groups it does
-                not take (CF-prefixed records, range deletes,
-                merge-heavy or wide-column batches, the vector rep) run
+                into one WAL record and applied to the skiplist or trie
+                memtable in native calls (tpulsm_wb_group_commit). Groups
+                it does not take (CF-prefixed records, range deletes,
+                merge-heavy or wide-column batches, the Python reps) run
                 the Python group commit, which writes the same WAL bytes.
   read chain    always on: `get` walks memtables and SST levels in one
                 native call (tpulsm_getctx_get, through the `fastget`
@@ -86,14 +86,35 @@ paths; `stats_history`, `stats_persist_period_sec`,
 the structured event log in `<db>/LOG` (rolled to `LOG.old` on open) and
 the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`).
 On open, job dirs of dcompact workers whose lease expired are swept from
-`<db>/dcompact`. What toplingdb_tpu runs beyond this (the staged write
-modes, the SLO engine, ...) is refused at open:
+`<db>/dcompact`.
+
+The write modes, as toplingdb_tpu runs them. Memtable reps: "skiplist"
+(native), "cspp" / "trie" / "patricia" (the native CSPP-role trie),
+"vector", and "hash_skiplist" / "hash_linklist" / "prefix_hash" with an
+optional ":N" prefix length. `enable_pipelined_write` and
+`unordered_write` take the staged path (RocksDB's PipelinedWriteImpl and
+WriteImplWALOnly): a group's sequence numbers are allocated and its WAL
+record written under `_mutex`, the next leader is woken, and the group's
+memtable phase runs outside the mutex; `last_sequence` advances as an
+in-order watermark over completed groups, and a memtable switch, `close`
+and (unordered) `get_snapshot` wait for the phases in flight.
+`enable_async_wal` moves WAL appends and fsyncs onto one writer thread
+(env.AsyncIORing, `async_wal_ring_size` entries), where concurrent
+groups' syncs coalesce into shared fsyncs; a failed append or fsync
+fails the group and latches a HARD background error with reason "wal".
+`write_buffer_manager` (utils/rate_limiter.WriteBufferManager) is a
+memtable budget shared between DBs: each DB charges its memtables' memory
+and a write flushes when the shared sum reaches it.
+
+What toplingdb_tpu runs beyond this (the SLO engine, ...) is refused at
+open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
 of ignoring it.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
@@ -119,6 +140,7 @@ from toplingdb_tpu_torch.db.version_edit import VersionEdit
 from toplingdb_tpu_torch.db.version_set import VersionSet
 from toplingdb_tpu_torch.db.write_batch import WriteBatch
 from toplingdb_tpu_torch.env import default_env
+from toplingdb_tpu_torch.env.env import AsyncIORing, AsyncWritableFile
 from toplingdb_tpu_torch.ops.scan_plane import DEFAULT_CHUNK, make_scan_plane
 from toplingdb_tpu_torch.options import (
     FlushOptions,
@@ -395,6 +417,21 @@ class DB:
         self._mutex = threading.RLock()
         self._writers: list[_Writer] = []  # FIFO write queue (leader = [0])
         self._wq_lock = threading.Lock()
+        # Staged write modes (pipelined / unordered): seqno ALLOCATION runs
+        # ahead of PUBLICATION. _alloc_ranges is a deque of [first, last,
+        # done] entries in allocation order (indexed by _alloc_entry for
+        # O(1) completion marking); last_sequence advances as an in-order
+        # low watermark over the done prefix. _mt_cv (on _mutex) signals
+        # completion to memtable-switch / snapshot / close waiters.
+        self._mt_cv = threading.Condition(self._mutex)
+        self._mt_inflight = 0
+        self._seq_alloc = 0
+        self._alloc_ranges: collections.deque[list] = collections.deque()
+        self._alloc_entry: dict[int, list] = {}  # first -> its deque entry
+        # Async WAL writer ring (Options.enable_async_wal), started by
+        # DB.open just before the first WAL (_start_wal_ring).
+        self._wal_ring = None
+        self._wbm_charged = 0  # bytes charged to options.write_buffer_manager
         self._wal: LogWriter | None = None
         self._wal_number = 0
         self._closed = False
@@ -580,6 +617,7 @@ class DB:
             db.identity = uuid.uuid4().hex
             env.write_file(filename.identity_file_name(dbname),
                            db.identity.encode())
+        db._start_wal_ring(env)
         db._new_wal()
         db._persist_options()
         db._delete_obsolete_files()
@@ -669,11 +707,31 @@ class DB:
                         create_memtable_rep(self.options.memtable_rep),
                         protection_bytes=self._protection)
 
+    def _start_wal_ring(self, env) -> None:
+        """With Options.enable_async_wal, the WAL's writer thread: WAL
+        durability leaves the commit critical section and concurrent
+        leaders' syncs coalesce into shared fsyncs. `env`'s
+        `wal_writer_fault` attribute, if any, is the ring's fault hook."""
+        opts = self.options
+        if not (opts.enable_async_wal and opts.wal_enabled):
+            return
+        stats = opts.statistics
+        self._wal_ring = AsyncIORing(
+            capacity=opts.async_wal_ring_size,
+            coalesce_cb=(
+                (lambda n: stats.record_tick(
+                    _st.WRITE_GROUP_FSYNCS_COALESCED, n))
+                if stats is not None else None),
+            fault_hook=getattr(env, "wal_writer_fault", None),
+            name="tpt-wal-writer")
+
     def _new_wal(self) -> None:
         self._wal_number = self.versions.new_file_number()
         path = filename.log_file_name(self.dbname, self._wal_number)
-        self._wal = LogWriter(self.env.new_writable_file(path),
-                              log_number=self._wal_number)
+        w = self.env.new_writable_file(path)
+        if self._wal_ring is not None:
+            w = AsyncWritableFile(w, self._wal_ring)
+        self._wal = LogWriter(w, log_number=self._wal_number)
 
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
@@ -690,14 +748,25 @@ class DB:
         with self._mutex:
             if self._closed:
                 return
+            # Drain staged (pipelined / unordered) memtable phases before
+            # flushing: their entries are WAL-durable but must land in the
+            # memtables for the final flush to carry them.
+            while self._mt_inflight > 0:
+                self._mt_cv.wait(timeout=10.0)
             if any(not c.mem.empty() or c.imm for c in self._cfs.values()):
                 self.flush(FlushOptions())
             if self._wal is not None:
                 self._wal.sync()
                 self._wal.close()
+            wbm = self.options.write_buffer_manager
+            if wbm is not None and self._wbm_charged:
+                wbm.free(self._wbm_charged)
+                self._wbm_charged = 0
             self.versions.close()
             self.table_cache.close()
             self.blob_source.close()
+            if self._wal_ring is not None:
+                self._wal_ring.close()
             if self._log_file is not None:
                 self._log_file.close()
             self._closed = True
@@ -954,6 +1023,9 @@ class DB:
 
     def _lead_write_group(self, leader: _Writer) -> None:
         group = self._snapshot_group(leader)
+        if self.options.unordered_write or self.options.enable_pipelined_write:
+            self._lead_write_group_staged(leader, group)
+            return
         err: BaseException | None = None
         try:
             self._commit_write_group(group)
@@ -973,9 +1045,188 @@ class DB:
         if err is not None:
             raise err
 
-    def _append_group_wal(self, group: list[_Writer], first_seq: int) -> None:
+    def _lead_write_group_staged(self, leader: _Writer,
+                                 group: list[_Writer]) -> None:
+        """Pipelined / unordered write path (RocksDB's PipelinedWriteImpl,
+        db_impl_write.cc:657, and WriteImplWALOnly, :267-301): the WAL
+        stage runs under _mutex, then the NEXT group's leader is woken —
+        its WAL append overlaps this group's memtable inserts. Publication
+        advances as an in-order low watermark over completed groups."""
+        err: BaseException | None = None
+        first = last = 0
+        mems: dict | None = None
+        wal_wait = None
+        plane = None
+        wal_on = (self.options.wal_enabled
+                  and not group[0].opts.disable_wal)
+        try:
+            with self._mutex:
+                self._check_open()
+                if (self._bg_error is not None
+                        and self._bg_error_severity >= Severity.HARD_ERROR):
+                    raise IOError_(
+                        f"background error pending (call resume()): "
+                        f"{self._bg_error!r}")
+                first = max(self._seq_alloc,
+                            self.versions.last_sequence) + 1
+                seq = first
+                for w in group:
+                    w.batch.set_sequence(seq)
+                    seq += w.batch.count()
+                last = seq - 1
+                mems = {cf_id: cfd.mem for cf_id, cfd in self._cfs.items()}
+                if wal_on:
+                    # The native plane frames and appends the merged record
+                    # here; its insert half runs OUTSIDE _mutex below,
+                    # exactly like the Python interiors it replaces.
+                    with _tm.span("write.wal_frame", group=len(group),
+                                  staged=True):
+                        plane = self._native_group_commit(group, first,
+                                                          mems, frame=True)
+                        wal_wait = (plane[0] if plane is not None
+                                    else self._append_group_wal(group,
+                                                                first))
+                self._seq_alloc = last
+                entry = [first, last, False]
+                self._alloc_ranges.append(entry)
+                self._alloc_entry[first] = entry
+                self._mt_inflight += 1
+        except BaseException as e:  # noqa: BLE001
+            err = e
+        # Hand the queue to the next leader NOW (the overlap window).
+        with self._wq_lock:
+            del self._writers[: len(group)]
+            nxt = self._writers[0] if self._writers else None
+        if nxt is not None:
+            nxt.event.set()
+        if err is not None:
+            for w in group:
+                w.done = True
+                w.error = err
+                if w is not leader:
+                    w.event.set()
+            raise err
+        # Memtable phase. The native plane applies the WHOLE group in one
+        # GIL-released call; otherwise unordered mode always fans out
+        # (each writer inserts its own batch, in parallel through the
+        # GIL-free native inserts) and pipelined-only mode fans out when
+        # allowed.
+        native_used = False
+        _msp = _tm.span("write.memtable_apply", group=len(group),
+                        staged=True)
+        if plane is not None:
+            try:
+                plane[1]()
+                native_used = True
+            except BaseException as e:  # noqa: BLE001
+                err = e
+                native_used = True  # nothing inserted, but don't re-run
+        elif not wal_on:
+            try:
+                native_used = self._native_group_commit(
+                    group, first, mems, frame=False) is not None
+            except BaseException as e:  # noqa: BLE001
+                err = e
+                native_used = True  # nothing inserted, but don't re-run
+        if not native_used and err is None:
+            try:
+                self._apply_group(group, mems, fan_out=(
+                    self.options.unordered_write
+                    or self.options.allow_concurrent_memtable_write))
+            except BaseException as e:  # noqa: BLE001
+                err = e
+        _msp.finish()
+        if wal_wait is not None:
+            # Async WAL: the durability barrier overlapped the memtable
+            # phase; settle it before completion so a failed group never
+            # acknowledges.
+            _fsp = _tm.span("write.fsync_barrier", staged=True)
+            try:
+                wal_wait()
+            except BaseException as e:  # noqa: BLE001
+                if err is None:
+                    err = e
+            finally:
+                _fsp.finish()
+        self._tick_write_group(group, native_used and err is None)
+        self._complete_staged_group(group, first, last, err)
+        if err is not None:
+            raise err
+
+    def _complete_staged_group(self, group: list[_Writer], first: int,
+                               last: int, err: BaseException | None) -> None:
+        """Mark one staged group's memtable phase complete, advance the
+        publish watermark in allocation order, and run the post-commit work
+        (stats, flush trigger). The group is marked complete even on
+        error — its records are durable in the WAL, and stalling the
+        watermark would deadlock every later write."""
+        with self._mutex:
+            self._mt_inflight -= 1
+            entry = self._alloc_entry.pop(first, None)
+            if entry is not None:
+                entry[2] = True
+            ranges = self._alloc_ranges
+            while ranges and ranges[0][2]:
+                # In-order publish watermark: O(1) per completed group.
+                self.versions.last_sequence = ranges.popleft()[1]
+            if not self._closed:
+                self._post_publish_work(group)
+            self._mt_cv.notify_all()
+        for w in group:
+            w.done = True
+            w.error = err
+            w.parallel = False
+            if w is not group[0]:
+                w.event.set()
+
+    def _post_publish_work(self, group: list[_Writer]) -> None:
+        """Stats and the flush trigger after a staged group's publish
+        (caller holds _mutex)."""
+        if self.stats is not None:
+            self.stats.record_tick(
+                _st.NUMBER_KEYS_WRITTEN, sum(w.batch.count() for w in group))
+            self.stats.record_tick(
+                _st.BYTES_WRITTEN, sum(w.batch.data_size() for w in group))
+        self._maybe_flush_on_memory()
+
+    def _maybe_flush_on_memory(self) -> None:
+        """The flush trigger of both commit paths (caller holds _mutex):
+        the write buffer budget covers every CF's active memtable; a
+        shared WriteBufferManager over its budget also flushes, above a
+        4096-byte floor so a tiny DB does not thrash."""
+        total_mem = sum(c.mem.approximate_memory_usage()
+                        for c in self._cfs.values())
+        wbm = self.options.write_buffer_manager
+        self._sync_wbm()
+        if total_mem >= self.options.write_buffer_size or (
+                wbm is not None and wbm.should_flush()
+                and total_mem >= 4096):
+            self._switch_memtable()
+            self._flush_immutables()
+
+    def _sync_wbm(self) -> None:
+        """Reconcile this DB's memtable memory with the shared
+        WriteBufferManager (RocksDB's WriteBufferManager charging): called
+        wherever memtable memory changes (writes AND flushes)."""
+        wbm = self.options.write_buffer_manager
+        if wbm is None:
+            return
+        total = sum(
+            c.mem.approximate_memory_usage()
+            + sum(m.approximate_memory_usage() for m in c.imm)
+            for c in self._cfs.values()
+        )
+        delta = total - self._wbm_charged
+        if delta > 0:
+            wbm.reserve(delta)
+        elif delta < 0:
+            wbm.free(-delta)
+        self._wbm_charged = total
+
+    def _append_group_wal(self, group: list[_Writer], first_seq: int):
         """WAL append for one group through the Python encoder (caller
-        holds _mutex): one record, the merged batch of every member."""
+        holds _mutex): one record, the merged batch of every member.
+        Returns the durability barrier of _group_wal_durability."""
         if len(group) == 1:
             rec = group[0].batch.data()
         else:
@@ -985,19 +1236,53 @@ class DB:
                 merged.append_from(w.batch)
             rec = merged.data()
         self._wal.add_record(rec)
-        self._group_wal_durability(group, len(rec))
+        return self._group_wal_durability(group, len(rec))
 
-    def _group_wal_durability(self, group: list[_Writer],
-                              rec_len: int) -> None:
+    def _group_wal_durability(self, group: list[_Writer], rec_len: int):
         """The durability tail of both WAL encoders (the Python merge and
-        the native plane): stats ticks, then the sync or flush."""
+        the native plane): stats ticks, then the sync or flush. With the
+        async WAL writer, returns a callable that waits on the ring's
+        barrier: WAL durability leaves the _mutex critical section and
+        overlaps the memtable phase, and concurrent leaders' sync
+        barriers coalesce into shared fsyncs on the writer thread.
+        Without it, settles inline (durability before insert) and
+        returns None."""
         stats = self.stats
         if stats is not None:
             stats.record_tick(_st.WAL_BYTES, rec_len)
             stats.record_tick(_st.WRITE_WITH_WAL, len(group))
         if _st.perf_level:
             _st.perf_context().wal_write_bytes += rec_len
-        if any(w.opts.sync for w in group):
+        want_sync = any(w.opts.sync for w in group)
+        if self._wal_ring is not None:
+            _sp = _tm.current_span()
+            if _sp is not None:
+                # Ring depth AT ENQUEUE: how backed up the async WAL
+                # writer was when this group's barrier was submitted.
+                _sp.tag(wal_ring_depth=len(self._wal_ring._q),
+                        want_sync=want_sync)
+            wfile = self._wal._f  # the AsyncWritableFile
+            tok = wfile.sync_async() if want_sync else wfile.append_barrier()
+
+            def wait(tok=tok, want_sync=want_sync, stats=stats):
+                t0 = time.perf_counter() if (want_sync
+                                             and stats is not None) else 0
+                try:
+                    tok.wait()
+                except BaseException as e:  # noqa: BLE001
+                    # The memtable phase already ran: latch a HARD error so
+                    # writes stop until resume() (RocksDB's ErrorHandler
+                    # on a WAL write failure).
+                    self._set_background_error(e, reason="wal")
+                    raise
+                if want_sync and stats is not None:
+                    stats.record_tick(_st.WAL_SYNCS)
+                    stats.record_in_histogram(
+                        _st.WAL_FILE_SYNC_MICROS,
+                        (time.perf_counter() - t0) * 1e6)
+
+            return wait
+        if want_sync:
             t_sync = time.perf_counter() if stats is not None else 0
             self._wal.sync()
             if stats is not None:
@@ -1007,6 +1292,7 @@ class DB:
                     (time.perf_counter() - t_sync) * 1e6)
         else:
             self._wal.flush()
+        return None
 
     # -- the fused native write plane -----------------------------------
 
@@ -1020,10 +1306,12 @@ class DB:
         the skiplist with consecutive seqnos, GIL-free.
 
         frame=True (caller holds _mutex, WAL on): frames, appends and
-        settles durability, then returns the memtable phase as a zero-arg
-        callable (the insert skips re-validation: the frame call just
-        proved these exact buffers). frame=False (WAL off for this group):
-        validates and inserts in ONE call and returns True.
+        starts durability, returning (wal_wait_or_None, insert_fn): the
+        caller runs insert_fn() as the memtable phase (outside _mutex in
+        the staged modes; the insert skips re-validation because the frame
+        call just proved these exact buffers) and then wal_wait(), the
+        async WAL's barrier. frame=False (WAL off for this group):
+        validates and inserts in ONE call and returns (None, None).
         Returns None on fallback, with nothing framed or inserted: the
         Python interiors take CF-prefixed records, range deletes,
         wide-column entities, merge-heavy groups, non-native reps and a
@@ -1147,7 +1435,8 @@ class DB:
             return rc
 
         if not frame:
-            return True if insert(validated=False) is not None else None
+            return (None, None) if insert(validated=False) is not None \
+                else None
         block_off, log_no = self._wal.framing_state()
         merged_len = 12 + sum(len(r) - 12 for r in reps)
         # Tight framed bound: one 7/11B header per fragment + <=10B of
@@ -1169,8 +1458,7 @@ class DB:
             adopt_filled()
         self._wal.append_preframed(memoryview(wal_buf)[:int(out[0])],
                                    int(out[1]))
-        self._group_wal_durability(group, int(out[4]))
-        return insert
+        return (self._group_wal_durability(group, int(out[4])), insert)
 
     def _tick_write_group(self, group: list[_Writer], native: bool) -> None:
         """WRITE_GROUP_* observability for one committed group."""
@@ -1195,35 +1483,44 @@ class DB:
                 raise IOError_(
                     f"background error pending (call resume()): "
                     f"{self._bg_error!r}")
-            first_seq = self.versions.last_sequence + 1
+            first_seq = max(self._seq_alloc,
+                            self.versions.last_sequence) + 1
             seq = first_seq
             for w in group:
                 w.batch.set_sequence(seq)
                 seq += w.batch.count()
+            self._seq_alloc = seq - 1
             mems = {cf_id: cfd.mem for cf_id, cfd in self._cfs.items()}
             # The native plane frames and appends the merged WAL record
             # first (a WAL failure inserts nothing, as on the Python path),
             # then applies the whole group to the memtable in one call.
             wal_on = (self.options.wal_enabled
                       and not group[0].opts.disable_wal)
+            wal_wait = None
             with _tm.span("write.wal_frame", group=len(group), wal=wal_on):
                 plane = self._native_group_commit(group, first_seq, mems,
                                                   frame=wal_on)
                 if plane is None and wal_on:
-                    self._append_group_wal(group, first_seq)
+                    wal_wait = self._append_group_wal(group, first_seq)
             _mt0 = time.perf_counter() if _st.perf_level >= 2 else 0.0
             if plane is None:
                 with _tm.span("write.memtable_apply", group=len(group),
                               native=False):
                     self._apply_group(group, mems)
-            elif plane is not True:
-                with _tm.span("write.memtable_apply", group=len(group),
-                              native=True):
-                    plane()
+            else:
+                wal_wait, insert_fn = plane
+                if insert_fn is not None:
+                    with _tm.span("write.memtable_apply", group=len(group),
+                                  native=True):
+                        insert_fn()
             if _mt0:
                 _st.perf_context().write_memtable_time += int(
                     (time.perf_counter() - _mt0) * 1e9)
             self._tick_write_group(group, native=plane is not None)
+            if wal_wait is not None:
+                # Async WAL: durability overlapped the inserts.
+                with _tm.span("write.fsync_barrier"):
+                    wal_wait()
             self.versions.last_sequence = seq - 1
             if self.stats is not None:
                 bw = sum(w.batch.data_size() for w in group)
@@ -1236,17 +1533,18 @@ class DB:
                 if len(group) > 1:
                     self.stats.record_tick(_st.WRITE_DONE_BY_OTHER,
                                            len(group) - 1)
-            # The write buffer budget covers every CF's active memtable.
-            total_mem = sum(c.mem.approximate_memory_usage()
-                            for c in self._cfs.values())
-            if total_mem >= self.options.write_buffer_size:
-                self._switch_memtable()
-                self._flush_immutables()
+            self._maybe_flush_on_memory()
 
-    def _apply_group(self, group: list[_Writer], mems) -> None:
+    def _apply_group(self, group: list[_Writer], mems,
+                     fan_out: bool | None = None) -> None:
         """The group's memtable phase into `mems` ({cf_id: memtable}; the
-        caller holds _mutex, so no memtable switch can race it)."""
-        if self.options.allow_concurrent_memtable_write and len(group) > 1:
+        caller holds _mutex, or a staged group's in-flight count, so no
+        memtable switch can race it). `fan_out` (default:
+        allow_concurrent_memtable_write) lets each writer insert its own
+        batch."""
+        if fan_out is None:
+            fan_out = self.options.allow_concurrent_memtable_write
+        if fan_out and len(group) > 1:
             # Parallel memtable phase (RocksDB's
             # LaunchParallelMemTableWriters): followers insert their own
             # batches concurrently — the native skiplist insert is
@@ -1275,6 +1573,12 @@ class DB:
         """Seal every CF's non-empty active memtable and start a new WAL
         (RocksDB's DBImpl::SwitchMemtable; switching all CFs at once lets
         the log number advance safely)."""
+        # Staged groups insert into the active memtables OUTSIDE _mutex
+        # (pipelined / unordered modes): sealing a memtable mid-insert could
+        # let the flush miss an already-published entry. Drain them first
+        # (RocksDB's WriteThread::WaitForMemTableWriters).
+        while self._mt_inflight > 0:
+            self._mt_cv.wait(timeout=10.0)
         if self._wal is not None:
             self._wal.sync()
             self._wal.close()
@@ -1301,6 +1605,7 @@ class DB:
                 VersionEdit(log_number=self._wal_number))
             self._delete_obsolete_files()
             self._maybe_schedule_compaction()
+        self._sync_wbm()
 
     def _flush_memtables(self, mems: list[MemTable], wal_number: int | None,
                          cf_id: int = 0) -> None:
@@ -1722,6 +2027,15 @@ class DB:
             return it
 
     def get_snapshot(self):
+        if self.options.unordered_write:
+            # Unordered writes insert out of allocation order: wait until
+            # every write allocated before now is published, so the
+            # snapshot covers each write that started before it (RocksDB's
+            # DBImpl::GetSnapshotImpl → WaitForPendingWrites).
+            with self._mutex:
+                target = self._seq_alloc
+                while self.versions.last_sequence < target:
+                    self._mt_cv.wait(timeout=10.0)
         return self.snapshots.new_snapshot(self.versions.last_sequence)
 
     def release_snapshot(self, snap) -> None:

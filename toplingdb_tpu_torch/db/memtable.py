@@ -1,7 +1,5 @@
 """MemTable: the in-memory sorted run, with pluggable representations
-(copied from toplingdb_tpu/db/memtable.py, trimmed to the "skiplist" and
-"vector" reps, with per-entry protection; the trie and hash reps come with
-a later slice).
+(copied from toplingdb_tpu/db/memtable.py, with per-entry protection).
 
 Role matches RocksDB's MemTable (db/memtable.cc `Get`, `Add`; rep factories
 at include/rocksdb/memtablerep.h). Entries are ordered by (user_key asc,
@@ -12,9 +10,13 @@ read time.
 Reps:
   NativeSkipListRep — the arena skiplist in the port's native library
                       (lock-free inserts, one GIL-free call per batch).
+  NativeTrieRep     — the CSPP-role adaptive radix trie in the same
+                      library (per-first-byte stripes, lockless readers).
   PyVectorRep       — bisect-maintained sorted list.
-`create_memtable_rep("skiplist")` raises when the native library cannot be
-built or loaded; it never drops to the Python rep unasked.
+  HashPrefixRep     — prefix buckets of PyVectorReps (RocksDB's hash
+                      skiplist / hash linklist role).
+`create_memtable_rep("skiplist" | "cspp")` raises when the native library
+cannot be built or loaded; it never drops to another rep unasked.
 """
 
 from __future__ import annotations
@@ -82,15 +84,23 @@ class NativeSkipListRep(MemTableRep):
     """Arena skiplist in C++ (native/tpulsm_native.cc) — the native
     memtable (RocksDB's InlineSkipList role). Requires the native library:
     short calls go through its GIL-holding handle, batch inserts and the
-    columnar export through the GIL-releasing one."""
+    columnar export through the GIL-releasing one.
 
-    # The rep charges handed-out arena bytes (content + node overhead) to
-    # the flush budget — RocksDB's physical ApproximateMemoryUsage.
+    The whole ctypes surface is symbol-parameterized (`_sym`): the trie rep
+    below shares every method body, differing only in its native prefix
+    and the next() call shape."""
+
+    # Both native reps charge handed-out arena bytes (content + node
+    # overhead) to the flush / WriteBufferManager budgets — RocksDB's
+    # physical ApproximateMemoryUsage.
     charge_physical_memory = True
     # tpulsm_db_get and tpulsm_wb_group_commit walk this rep's handle
-    # directly; the kind names its layout (0 = skiplist). Reps without the
-    # attribute are not native-probeable.
+    # directly; the kind names its layout (0 = skiplist, 1 = trie). Reps
+    # without the attribute are not native-probeable.
     _nget_mem_kind = 0
+    _sym = "tpulsm_skiplist"
+    _entry_sym = "node"  # {sym}_{entry_sym}(pos, ...) decodes a position
+    _rep_name = "skiplist"
 
     def __init__(self):
         from toplingdb_tpu_torch import native
@@ -99,20 +109,23 @@ class NativeSkipListRep(MemTableRep):
         self._cl = native.lib()
         if self._l is None or self._cl is None:
             raise NotSupported(
-                "memtable_rep='skiplist' needs the port's native library, "
-                "which could not be built or loaded (g++ missing?); "
-                "memtable_rep='vector' runs without it")
-        self._h = self._l.tpulsm_skiplist_new()
+                f"memtable_rep={self._rep_name!r} needs the port's native "
+                "library, which could not be built or loaded (g++ "
+                "missing?); memtable_rep='vector' runs without it")
+        self._h = getattr(self._l, self._sym + "_new")()
 
     def __del__(self):
         if getattr(self, "_h", None):
-            self._l.tpulsm_skiplist_free(self._h)
+            getattr(self._l, self._sym + "_free")(self._h)
             self._h = None
+
+    def _next(self, pos):
+        return self._l.tpulsm_skiplist_next(pos)
 
     def insert(self, skey, value: bytes) -> None:
         uk, inv = skey
-        self._l.tpulsm_skiplist_insert(self._h, uk, len(uk), inv, value,
-                                       len(value))
+        getattr(self._l, self._sym + "_insert")(
+            self._h, uk, len(uk), inv, value, len(value))
 
     def insert_wb(self, rep: bytes, first_seq: int):
         """Wire-image batch insert: ONE GIL-releasing native call parses
@@ -123,8 +136,8 @@ class NativeSkipListRep(MemTableRep):
         import ctypes
 
         out = (ctypes.c_int64 * 2)()
-        rc = self._cl.tpulsm_skiplist_insert_wb(self._h, rep, len(rep),
-                                                first_seq, out)
+        rc = getattr(self._cl, self._sym + "_insert_wb")(
+            self._h, rep, len(rep), first_seq, out)
         if rc < 0:
             return None
         return int(rc), int(out[0]), int(out[1])
@@ -147,7 +160,7 @@ class NativeSkipListRep(MemTableRep):
         else:
             pv = np.ascontiguousarray(prots, dtype=np.uint64)
             ptr = pv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
-        rc = self._cl.tpulsm_skiplist_insert_wb_prot(
+        rc = getattr(self._cl, self._sym + "_insert_wb_prot")(
             self._h, rep, len(rep), first_seq, ptr, len(prots), pb, out)
         if rc <= -5:
             raise Corruption(
@@ -167,7 +180,7 @@ class NativeSkipListRep(MemTableRep):
 
         from toplingdb_tpu_torch import native
 
-        self._cl.tpulsm_skiplist_insert_batch(
+        getattr(self._cl, self._sym + "_insert_batch")(
             self._h, native.np_u8p(keybuf), native.np_i64p(key_offs),
             native.np_i32p(key_lens),
             invs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
@@ -176,10 +189,10 @@ class NativeSkipListRep(MemTableRep):
         )
 
     def __len__(self) -> int:
-        return self._l.tpulsm_skiplist_count(self._h)
+        return getattr(self._l, self._sym + "_count")(self._h)
 
     def memory_usage(self) -> int:
-        return self._l.tpulsm_skiplist_memory(self._h)
+        return getattr(self._l, self._sym + "_memory")(self._h)
 
     def export_columnar(self):
         """Whole-rep ordered export in ONE GIL-releasing native call:
@@ -194,7 +207,7 @@ class NativeSkipListRep(MemTableRep):
         from toplingdb_tpu_torch import native
         from toplingdb_tpu_torch.ops.columnar_io import ColumnarKV
 
-        fn = self._cl.tpulsm_skiplist_export
+        fn = getattr(self._cl, self._sym + "_export")
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         sizes = np.zeros(3, dtype=np.int64)
@@ -237,7 +250,7 @@ class NativeSkipListRep(MemTableRep):
         inv = ctypes.c_uint64()
         vptr = ctypes.c_void_p()
         vlen = ctypes.c_uint32()
-        self._l.tpulsm_skiplist_node(
+        getattr(self._l, f"{self._sym}_{self._entry_sym}")(
             node, ctypes.byref(kptr), ctypes.byref(klen), ctypes.byref(inv),
             ctypes.byref(vptr), ctypes.byref(vlen),
         )
@@ -247,38 +260,59 @@ class NativeSkipListRep(MemTableRep):
 
     def iter_from(self, skey):
         uk, inv = skey
-        node = self._l.tpulsm_skiplist_seek_ge(self._h, uk, len(uk), inv)
+        node = getattr(self._l, self._sym + "_seek_ge")(
+            self._h, uk, len(uk), inv)
         while node:
             yield self._node_entry(node)
-            node = self._l.tpulsm_skiplist_next(node)
+            node = self._next(node)
 
     def iter_all(self):
-        node = self._l.tpulsm_skiplist_first(self._h)
+        node = getattr(self._l, self._sym + "_first")(self._h)
         while node:
             yield self._node_entry(node)
-            node = self._l.tpulsm_skiplist_next(node)
+            node = self._next(node)
 
     def pos_first(self):
-        return self._l.tpulsm_skiplist_first(self._h) or None
+        return getattr(self._l, self._sym + "_first")(self._h) or None
 
     def pos_last(self):
-        return self._l.tpulsm_skiplist_last(self._h) or None
+        return getattr(self._l, self._sym + "_last")(self._h) or None
 
     def pos_seek_ge(self, skey):
         uk, inv = skey
-        return self._l.tpulsm_skiplist_seek_ge(self._h, uk, len(uk),
-                                               inv) or None
+        return getattr(self._l, self._sym + "_seek_ge")(
+            self._h, uk, len(uk), inv) or None
 
     def pos_seek_lt(self, skey):
         uk, inv = skey
-        return self._l.tpulsm_skiplist_seek_lt(self._h, uk, len(uk),
-                                               inv) or None
+        return getattr(self._l, self._sym + "_seek_lt")(
+            self._h, uk, len(uk), inv) or None
 
     def pos_next(self, pos):
-        return self._l.tpulsm_skiplist_next(pos) or None
+        return self._next(pos) or None
 
     def entry_at(self, pos):
         return self._node_entry(pos)
+
+
+class NativeTrieRep(NativeSkipListRep):
+    """Adaptive-radix-trie memtable in C++ — the CSPP role (Topling's
+    Crash-Safe Parallel Patricia trie, the 45M ops/s write-path headline;
+    factory seam memtablerep.h:309): 257 first-byte-striped ART roots
+    (4/16/48/256-way nodes, path compression), per-stripe mutexes so
+    concurrent writers on different key regions never contend; versions
+    hang off one leaf per user key as release-published atomic lists
+    (lockless readers). Like the skiplist it raises NotSupported without
+    the native library."""
+
+    _nget_mem_kind = 1  # TrieRep* layout
+    _sym = "tpulsm_trie"
+    _entry_sym = "ver"
+    _rep_name = "cspp"
+
+    def _next(self, pos):
+        # The trie successor re-descends from the root: needs the handle.
+        return self._l.tpulsm_trie_next(self._h, pos)
 
 
 class PyVectorRep(MemTableRep):
@@ -340,17 +374,145 @@ class PyVectorRep(MemTableRep):
                 return entry
 
 
+class HashPrefixRep(MemTableRep):
+    """Prefix-bucketed rep (RocksDB's HashSkipListRep / HashLinkListRep,
+    memtable/hash_skiplist_rep.cc:22, hash_linklist_rep.cc:160): entries
+    bucket by the user key's leading `prefix_len` bytes, so point lookups
+    touch one small bucket. Because the bucket key is a LEADING slice of the
+    sort key, buckets are contiguous spans of the global order — full
+    iteration is sorted-bucket concatenation, not an N-way merge."""
+
+    def __init__(self, prefix_len: int = 8):
+        self._plen = prefix_len
+        self._buckets: dict[bytes, PyVectorRep] = {}
+        # Only WRITERS (serialized by the memtable write lock) replace this
+        # list, and they swap in a fully-built one — lockless readers always
+        # see a consistent snapshot and never mutate shared state.
+        self._sorted: list[bytes] = []
+        self._n = 0
+
+    def _pfx(self, skey) -> bytes:
+        return skey[0][: self._plen]
+
+    def _prefixes(self) -> list[bytes]:
+        return self._sorted
+
+    def insert(self, skey, value: bytes) -> None:
+        p = self._pfx(skey)
+        b = self._buckets.get(p)
+        if b is None:
+            b = self._buckets[p] = PyVectorRep()
+            self._sorted = sorted(self._buckets)  # atomic swap for readers
+        before = len(b)
+        b.insert(skey, value)
+        self._n += len(b) - before
+
+    def iter_from(self, skey):
+        sp = self._prefixes()
+        p = self._pfx(skey)
+        i = bisect.bisect_left(sp, p)
+        if i < len(sp) and sp[i] == p:
+            yield from self._buckets[p].iter_from(skey)
+            i += 1
+        for j in range(i, len(sp)):
+            yield from self._buckets[sp[j]].iter_all()
+
+    def iter_all(self):
+        for p in self._prefixes():
+            yield from self._buckets[p].iter_all()
+
+    def __len__(self) -> int:
+        return self._n
+
+    def pos_first(self):
+        for p in self._prefixes():
+            pos = self._buckets[p].pos_first()
+            if pos is not None:
+                return pos
+        return None
+
+    def pos_last(self):
+        for p in reversed(self._prefixes()):
+            pos = self._buckets[p].pos_last()
+            if pos is not None:
+                return pos
+        return None
+
+    def pos_seek_ge(self, skey):
+        sp = self._prefixes()
+        p = self._pfx(skey)
+        i = bisect.bisect_left(sp, p)
+        while i < len(sp):
+            b = self._buckets[sp[i]]
+            pos = b.pos_seek_ge(skey) if sp[i] == p else b.pos_first()
+            if pos is not None:
+                return pos
+            i += 1
+        return None
+
+    def pos_seek_lt(self, skey):
+        sp = self._prefixes()
+        p = self._pfx(skey)
+        i = bisect.bisect_left(sp, p)
+        if i < len(sp) and sp[i] == p:
+            pos = self._buckets[p].pos_seek_lt(skey)
+            if pos is not None:
+                return pos
+        i -= 1
+        while i >= 0:
+            pos = self._buckets[sp[i]].pos_last()
+            if pos is not None:
+                return pos
+            i -= 1
+        return None
+
+    def pos_next(self, pos):
+        p = self._pfx(pos)
+        nxt = self._buckets[p].pos_next(pos)
+        if nxt is not None:
+            return nxt
+        sp = self._prefixes()
+        i = bisect.bisect_right(sp, p)
+        while i < len(sp):
+            q = self._buckets[sp[i]].pos_first()
+            if q is not None:
+                return q
+            i += 1
+        return None
+
+    def entry_at(self, pos):
+        return self._buckets[self._pfx(pos)].entry_at(pos)
+
+    def memory_usage(self) -> int:
+        return sum(b.memory_usage() for b in self._buckets.values())
+
+
 def create_memtable_rep(name: str) -> MemTableRep:
-    """Factory seam: 'skiplist' (native) | 'vector'. 'skiplist' raises
-    NotSupported when the native library is unavailable; the other reps
-    of toplingdb_tpu come with a later slice."""
+    """Factory seam (RocksDB's memtablerep.h:309): 'vector' | 'skiplist' |
+    'cspp' ('trie', 'patricia') | 'hash_skiplist' ('hash_linklist',
+    'prefix_hash', each with an optional ':N' prefix length). The native
+    reps raise NotSupported when the native library is unavailable; none
+    drops to another rep unasked."""
     if name == "vector":
         return PyVectorRep()
     if name == "skiplist":
         return NativeSkipListRep()
-    if name in ("cspp", "trie", "patricia") or name.startswith(
-            ("hash_skiplist", "hash_linklist", "prefix_hash")):
-        raise NotSupported(f"memtable rep {name!r} is not ported yet")
+    if name in ("cspp", "trie", "patricia"):
+        return NativeTrieRep()
+    if name in ("hash_skiplist", "hash_linklist", "prefix_hash"):
+        return HashPrefixRep()
+    if name.startswith(("hash_skiplist:", "hash_linklist:", "prefix_hash:")):
+        # 'hash_skiplist:N' buckets by an N-byte prefix (matches a
+        # FixedPrefixTransform(N) CF extractor).
+        try:
+            plen = int(name.split(":", 1)[1])
+        except ValueError as e:
+            raise InvalidArgument(
+                f"bad memtable rep prefix len in {name!r}") from e
+        if plen <= 0:
+            raise InvalidArgument(
+                f"memtable rep prefix len must be positive: {name!r}")
+        return HashPrefixRep(prefix_len=plen)
     raise InvalidArgument(f"unknown memtable rep {name!r}")
 
 
@@ -457,8 +619,8 @@ class MemTable:
 
     def group_handle(self):
         """(native_rep_handle, kind) for the fused group-commit plane
-        (db.py _native_group_commit; kind 0 = skiplist), or None when this
-        rep has no native handle (pure-Python reps)."""
+        (db.py _native_group_commit; kind 0 = skiplist, 1 = trie), or None
+        when this rep has no native handle (pure-Python reps)."""
         rep = self._rep
         kind = getattr(rep, "_nget_mem_kind", None)
         h = getattr(rep, "_h", None)
@@ -485,9 +647,9 @@ class MemTable:
     def add_batch(self, first_seq: int, ops, prots=None) -> int:
         """Apply a run of parsed ops [(type, key, value_or_None)] with
         consecutive seqnos starting at first_seq (RocksDB's
-        WriteBatchInternal::InsertInto driving InsertConcurrently). With the
-        native skiplist rep the point inserts happen in ONE GIL-releasing
-        native call; thread-safe against concurrent add/add_batch callers.
+        WriteBatchInternal::InsertInto driving InsertConcurrently). With a
+        native rep (skiplist or trie) the point inserts happen in ONE
+        GIL-releasing native call; thread-safe against concurrent add/add_batch callers.
         `prots`, when given, carries one CF-stripped protection checksum
         per op (WriteBatch.insert_into already verified them).
         Returns the number of sequence numbers consumed (== len(ops))."""
@@ -668,9 +830,10 @@ class MemTable:
         return MemTableIterator(self)
 
     def approximate_memory_usage(self) -> int:
-        # The native rep charges PHYSICAL handed-out arena bytes (RocksDB's
-        # ApproximateMemoryUsage semantics), so write_buffer_size sees the
-        # real footprint; the Python rep keeps the logical len+24 estimate.
+        # Native reps (skiplist and trie) charge PHYSICAL handed-out arena
+        # bytes (RocksDB's ApproximateMemoryUsage semantics), so
+        # write_buffer_size and the WriteBufferManager see the real
+        # footprint; the Python reps keep the logical len+24 estimate.
         if getattr(self._rep, "charge_physical_memory", False):
             rep_mem = self._rep.memory_usage()
             if rep_mem > self._mem_usage:

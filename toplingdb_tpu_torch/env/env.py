@@ -1,12 +1,237 @@
 """Posix filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to
-the file operations the compaction data plane and the DB use: no
-statistics, no async IO rings, no WAL recycling, no in-memory env)."""
+the file operations the compaction data plane and the DB use, and to the
+async WAL writer's submit ring: no statistics, no read tasks on the ring,
+no WAL recycling, no in-memory env)."""
 
 from __future__ import annotations
 
 import os
+import threading
 
+from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils.status import IOError_, NotFound
+
+
+# ---------------------------------------------------------------------------
+# Async batched I/O (the Env-level submit ring of the async WAL writer)
+# ---------------------------------------------------------------------------
+
+
+class AioToken:
+    """Completion handle for one submitted ring operation. wait() blocks
+    until the writer thread settled it and re-raises any error."""
+
+    __slots__ = ("_ev", "error")
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self.error: BaseException | None = None
+
+    def done(self, err: BaseException | None = None) -> None:
+        self.error = err
+        self._ev.set()
+
+    def ready(self) -> bool:
+        return self._ev.is_set()
+
+    def wait(self) -> None:
+        self._ev.wait()
+        if self.error is not None:
+            raise self.error
+
+
+class AsyncIORing:
+    """Bounded submit ring with ONE dedicated I/O thread. Producers submit
+    appends, fsync barriers, per-file append barriers and drain barriers;
+    submission is cheap and non-blocking until the ring is full.
+
+    The write-plane property is FSYNC COALESCING: the worker drains the
+    queue in batches, executes every pending append in submit order, then
+    performs ONE fsync per file that has >= 1 pending sync request and
+    completes every such sync token — concurrent group-commit leaders'
+    sync=True barriers merge into shared fsyncs. This is sound because a
+    sync token only promises durability of the bytes submitted BEFORE it,
+    and the shared fsync covers a superset.
+
+    Error propagation: an append failure settles its own token AND parks
+    per-file; the file's next sync / append-barrier waiter receives it
+    (durability unknown past a failed append) and the park clears — a
+    clean resume, not a poisoned ring. `fault_hook(kind, nbytes)` is the
+    seeded injection seam (env/fault_injection.py WalWriterFaultInjector).
+    """
+
+    def __init__(self, capacity: int = 256, coalesce_cb=None,
+                 fault_hook=None, name: str = "tpt-aio"):
+        self._cap = max(1, int(capacity))
+        self._q: list = []
+        self._cv = threading.Condition()
+        self._closed = False
+        self.coalesce_cb = coalesce_cb     # callable(n_merged_fsyncs)
+        self.fault_hook = fault_hook       # callable(kind, nbytes) -> None
+        self.appends = 0
+        self.syncs = 0
+        self.fsyncs = 0
+        self.fsyncs_coalesced = 0
+        self._pending_err: dict[int, BaseException] = {}
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    # -- submission ----------------------------------------------------
+
+    def _submit(self, kind: str, f, data) -> AioToken:
+        tok = AioToken()
+        with self._cv:
+            if self._closed:
+                raise IOError_("async IO ring is closed")
+            while (not self._closed and kind == "append"
+                   and len(self._q) >= self._cap):
+                self._cv.wait()  # bounded: back-pressure the producer
+            if self._closed:
+                raise IOError_("async IO ring is closed")
+            self._q.append((kind, f, data, tok))
+            self._cv.notify_all()
+        return tok
+
+    def submit_append(self, wfile, data) -> AioToken:
+        return self._submit("append", wfile, data)
+
+    def submit_sync(self, wfile) -> AioToken:
+        return self._submit("sync", wfile, None)
+
+    def submit_barrier(self, wfile) -> AioToken:
+        """Completes when every append for `wfile` submitted before it has
+        been written (and the file flushed); carries any parked error."""
+        return self._submit("fbarrier", wfile, None)
+
+    def drain(self) -> None:
+        """Global barrier: every previously submitted op is settled."""
+        self._submit("barrier", None, None).wait()
+
+    def close(self) -> None:
+        with self._cv:
+            if self._closed:
+                return
+        self.drain()
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=10.0)
+
+    # -- the worker ----------------------------------------------------
+
+    def _exec(self, kind: str, fn, nbytes: int):
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(kind, nbytes)
+            return fn()
+        except BaseException as e:  # noqa: BLE001
+            return _AIO_ERR, e
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._q and not self._closed:
+                    self._cv.wait()
+                if not self._q and self._closed:
+                    return
+                batch = self._q
+                self._q = []
+                self._cv.notify_all()
+            per_file: dict[int, list] = {}  # id -> [f, appended, syncs, fbars]
+            global_bars: list[AioToken] = []
+
+            def state(f):
+                st = per_file.get(id(f))
+                if st is None:
+                    st = per_file[id(f)] = [f, False, [], []]
+                return st
+
+            for kind, f, data, tok in batch:
+                if kind == "append":
+                    r = self._exec("append", lambda: f.append(data), len(data))
+                    if type(r) is tuple and r and r[0] is _AIO_ERR:
+                        self._pending_err.setdefault(id(f), r[1])
+                        tok.done(r[1])
+                    else:
+                        self.appends += 1
+                        state(f)[1] = True
+                        tok.done()
+                elif kind == "sync":
+                    self.syncs += 1
+                    state(f)[2].append(tok)
+                elif kind == "fbarrier":
+                    state(f)[3].append(tok)
+                else:  # barrier
+                    global_bars.append(tok)
+            for f, appended, sync_toks, fbar_toks in per_file.values():
+                err = self._pending_err.pop(id(f), None)
+                if sync_toks and err is None:
+                    r = self._exec("sync", f.sync, 0)
+                    if type(r) is tuple and r and r[0] is _AIO_ERR:
+                        err = r[1]
+                    else:
+                        self.fsyncs += 1
+                        if len(sync_toks) > 1:
+                            merged = len(sync_toks) - 1
+                            self.fsyncs_coalesced += merged
+                            if self.coalesce_cb is not None:
+                                with _errors.guard(
+                                        listener=self.coalesce_cb):
+                                    self.coalesce_cb(merged)
+                elif appended and err is None:
+                    # No fsync requested: hand the bytes to the OS so a
+                    # process crash behaves like the inline write path.
+                    r = self._exec("flush", f.flush, 0)
+                    if type(r) is tuple and r and r[0] is _AIO_ERR:
+                        err = r[1]
+                waiters = sync_toks + fbar_toks
+                for tok in waiters:
+                    tok.done(err)
+                if err is not None and not waiters:
+                    # Nobody to tell yet: park for the file's next barrier.
+                    self._pending_err[id(f)] = err
+            for tok in global_bars:
+                tok.done()
+
+
+_AIO_ERR = object()  # sentinel tag for _exec error returns
+
+
+class AsyncWritableFile:
+    """Write-behind writable file: append() submits to an AsyncIORing and
+    returns immediately; sync() is a blocking coalesced-fsync barrier;
+    sync_async() / append_barrier() return AioTokens so a group-commit
+    leader can overlap WAL durability with its memtable phase and wait
+    outside the commit critical section (db.py _group_wal_durability)."""
+
+    def __init__(self, base, ring: AsyncIORing):
+        self._base = base
+        self._ring = ring
+        self._size = base.file_size()
+
+    def append(self, data) -> None:
+        self._size += len(data)
+        self._ring.submit_append(self._base, data)
+
+    def flush(self) -> None:
+        pass  # the ring flushes after each drained append run
+
+    def sync(self) -> None:
+        self.sync_async().wait()
+
+    def sync_async(self) -> AioToken:
+        return self._ring.submit_sync(self._base)
+
+    def append_barrier(self) -> AioToken:
+        return self._ring.submit_barrier(self._base)
+
+    def close(self) -> None:
+        self.append_barrier().wait()  # surface parked errors before close
+        self._base.close()
+
+    def file_size(self) -> int:
+        return self._size
 
 
 class _PosixWritable:

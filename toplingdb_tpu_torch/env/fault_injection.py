@@ -1,12 +1,15 @@
-"""Read-fault injection Env (copied from toplingdb_tpu/env/fault_injection.py,
-trimmed to FaultInjectionEnv's `corrupt_reads`, the only fault the port's
-tests inject): wraps any Env and damages the bytes its random-access and
-sequential reads return, while the files on disk stay intact. The role of
-RocksDB's utilities/fault_injection_fs.h FaultInjectionTestFS."""
+"""Fault injection (copied from toplingdb_tpu/env/fault_injection.py,
+trimmed to the faults the port's tests inject): FaultInjectionEnv's
+`corrupt_reads` wraps any Env and damages the bytes its random-access and
+sequential reads return, while the files on disk stay intact (the role of
+RocksDB's utilities/fault_injection_fs.h FaultInjectionTestFS);
+WalWriterFaultInjector fails or delays the async WAL writer's ring ops."""
 
 from __future__ import annotations
 
 import threading
+
+from toplingdb_tpu_torch.utils.status import IOError_
 
 
 class FaultInjectionEnv:
@@ -152,3 +155,63 @@ class _FISequential:
 
     def close(self):
         self._base.close()
+
+
+class WalWriterFaultInjector:
+    """Seeded fault points for the async WAL writer's submit ring
+    (env/env.py AsyncIORing.fault_hook; a DB picks it up from its Env's
+    `wal_writer_fault` attribute): each executed ring entry draws a plan
+    decided by (seed, op ordinal), so a chaos soak reproduces the exact
+    same WAL-writer-thread failures from a seed.
+
+      "fail"   the entry raises IOError_ — the group whose durability
+               barrier covers it receives the error (clean resume after)
+      "delay"  the writer thread sleeps `delay_sec` first — widens the
+               fsync-coalescing window and the publish/durability overlap
+
+    `schedule` pins a plan to a specific executed-op ordinal (0-based);
+    `rate` injects pseudo-randomly with plan weights `plans`. `ops`
+    restricts injection to those ring op kinds (default: append + sync)."""
+
+    def __init__(self, schedule: dict | None = None, rate: float = 0.0,
+                 plans: tuple = ("fail", "delay"), seed: int = 0,
+                 delay_sec: float = 0.005,
+                 ops: tuple = ("append", "sync")):
+        import random
+
+        self.schedule = dict(schedule or {})
+        self.rate = rate
+        self.plans = tuple(plans)
+        self.delay_sec = delay_sec
+        self.ops = tuple(ops)
+        self._rng = random.Random(seed)
+        self._mu = threading.Lock()
+        self._ordinal = 0
+        self.injected: list[tuple[int, str, str]] = []  # (ordinal, kind, plan)
+
+    def __call__(self, kind: str, nbytes: int) -> None:
+        if kind not in self.ops:
+            return
+        with self._mu:
+            ordinal = self._ordinal
+            self._ordinal += 1
+            p = self.schedule.get(ordinal)
+            if p is None and self.rate > 0 and self.plans:
+                if self._rng.random() < self.rate:
+                    p = self.plans[self._rng.randrange(len(self.plans))]
+            if p:
+                self.injected.append((ordinal, kind, p))
+        if p == "delay":
+            import time as _t
+
+            _t.sleep(self.delay_sec)
+        elif p == "fail":
+            raise IOError_(
+                f"injected WAL-writer {kind} failure at op {ordinal}")
+
+    def injected_counts(self) -> dict:
+        with self._mu:
+            out: dict[str, int] = {}
+            for _o, _k, p in self.injected:
+                out[p] = out.get(p, 0) + 1
+            return out

@@ -33,7 +33,7 @@ _pylib: ctypes.PyDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 6
+_ABI_VERSION = 7
 
 
 def _build() -> bool:
@@ -201,6 +201,27 @@ def _bind(l: ctypes.CDLL) -> None:
         ctypes.c_void_p, u8p, i64p, i32p, u64p, i32p,
         u8p, i64p, i32p, i64, i64p,
     ]
+    # The trie memtable rep (the CSPP role): the same writers and export,
+    # GIL-released (writers on different first bytes take different
+    # stripe mutexes).
+    l.tpulsm_trie_insert_batch.restype = i64
+    l.tpulsm_trie_insert_batch.argtypes = [
+        ctypes.c_void_p, u8p, i64p, i32p, u64p, u8p, i64p, i32p, i64,
+    ]
+    l.tpulsm_trie_insert_wb.restype = i64
+    l.tpulsm_trie_insert_wb.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_uint64, i64p,
+    ]
+    l.tpulsm_trie_insert_wb_prot.restype = i64
+    l.tpulsm_trie_insert_wb_prot.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_uint64,
+        u64p, i64, i32, i64p,
+    ]
+    l.tpulsm_trie_export.restype = i64
+    l.tpulsm_trie_export.argtypes = [
+        ctypes.c_void_p, u8p, i64p, i32p, u64p, i32p,
+        u8p, i64p, i32p, i64, i64p,
+    ]
     # The zip-table plane (table/zip_table.py).
     l.tpulsm_zip_newkey.restype = i64
     l.tpulsm_zip_newkey.argtypes = [
@@ -346,7 +367,7 @@ def lib() -> ctypes.CDLL | None:
 
 
 def pylib() -> ctypes.PyDLL | None:
-    """GIL-holding handle for the skiplist memtable's short calls (create,
+    """GIL-holding handle for the native memtables' short calls (create,
     single insert, seek, step, read a node): no GIL release per call, and
     lockless Python readers see a consistent rep. None when the library
     is unavailable."""
@@ -385,6 +406,34 @@ def pylib() -> ctypes.PyDLL | None:
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_uint32),
     ]
+    # The trie rep's short calls: the same surface, except that `next`
+    # takes the handle (the successor re-descends from the root) and a
+    # position decodes through `ver`.
+    l.tpulsm_trie_new.restype = vp
+    l.tpulsm_trie_new.argtypes = []
+    l.tpulsm_trie_free.restype = None
+    l.tpulsm_trie_free.argtypes = [vp]
+    l.tpulsm_trie_insert.restype = ctypes.c_int32
+    l.tpulsm_trie_insert.argtypes = [
+        vp, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint64,
+        ctypes.c_char_p, ctypes.c_uint32,
+    ]
+    l.tpulsm_trie_count.restype = ctypes.c_int64
+    l.tpulsm_trie_count.argtypes = [vp]
+    l.tpulsm_trie_memory.restype = ctypes.c_int64
+    l.tpulsm_trie_memory.argtypes = [vp]
+    for name in ("tpulsm_trie_seek_ge", "tpulsm_trie_seek_lt"):
+        fn = getattr(l, name)
+        fn.restype = vp
+        fn.argtypes = [vp, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint64]
+    for name in ("tpulsm_trie_first", "tpulsm_trie_last"):
+        fn = getattr(l, name)
+        fn.restype = vp
+        fn.argtypes = [vp]
+    l.tpulsm_trie_next.restype = vp
+    l.tpulsm_trie_next.argtypes = [vp, vp]
+    l.tpulsm_trie_ver.restype = None
+    l.tpulsm_trie_ver.argtypes = l.tpulsm_skiplist_node.argtypes
     with _lock:
         if _pylib is None:
             _pylib = l

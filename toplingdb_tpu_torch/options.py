@@ -409,14 +409,12 @@ class FlushOptions:
 # when one is set away from its default. Everything else in Options runs.
 UNPORTED = {
     "read_only": "read-only and secondary opens",
-    "unordered_write": "the unordered write path",
-    "enable_pipelined_write": "the pipelined write path",
-    "enable_async_wal": "the async WAL writer",
-    "async_wal_ring_size": "the async WAL writer",
     "async_read_rings": "the async read plane",
     "async_read_task_capacity": "the async read plane",
-    "db_write_buffer_size": "the write buffer manager",
-    "write_buffer_manager": "the write buffer manager",
+    "db_write_buffer_size": "a DB-wide write budget, which toplingdb_tpu "
+                            "declares but does not run either (share a "
+                            "WriteBufferManager through "
+                            "write_buffer_manager)",
     "full_history_ts_low": "user-defined timestamps",
     "legacy_wide_column_unwrap": "wide-column entities",
     "slo_specs": "the SLO engine",
@@ -442,14 +440,11 @@ UNPORTED = {
 def unported_fields(options: Options) -> list[tuple[str, str]]:
     """(field, feature) for every field of `options` that is set away
     from its default and that the port's DB does not run, plus the
-    choices of a ported field that it does not run (a memtable rep other
-    than skiplist / vector, no compaction executor factory)."""
+    choices of a ported field that it does not run (no compaction
+    executor factory)."""
     base = Options()
     out = [(name, why) for name, why in UNPORTED.items()
            if getattr(options, name) != getattr(base, name)]
-    if options.memtable_rep not in ("skiplist", "vector"):
-        out.append(("memtable_rep",
-                    f"the {options.memtable_rep!r} memtable rep"))
     if getattr(options.comparator, "timestamp_size", 0):
         out.append(("comparator", "user-defined timestamps"))
     if options.compaction_executor_factory is None:
