@@ -49,11 +49,13 @@ Phases (any failure ends the run with a non-zero exit code):
   8. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
      deletions and 4 serial shards on "cuda" and on "cpu" - identical SST
      bytes;
-  9. complex groups: a 2,000,000-entry job of db_bench's mergerandom kind
+  9. complex groups: a 1,000,000-entry job of db_bench's mergerandom kind
+     (cut from 2,000,000 to keep the script inside its limit with phase
+     20 added; the host fold is ~90% of the job)
      (60% Put, 20% Merge with the uint64add operator, 10% Delete, 10%
      SingleDelete) with 8 range tombstones, without and with 3 snapshots:
      the pipeline's attempt gives up on the complex groups, the serial
-     route runs 2 shards at p = 2^20 and folds the groups on the host;
+     route runs 2 shards at p = 2^19 and folds the groups on the host;
      "cuda" and "cpu" write identical bytes, the entries equal the port's
      CompactionIterator over the host-sorted inputs, and the per-entry
      route is never entered;
@@ -249,8 +251,10 @@ Phases (any failure ends the run with a non-zero exit code):
      scan wall, and the card's busy share (the shard programs and the
      per-entry route's device sorts and GC masks by CUDA events).
  18. the integrity plane on the card: phase 13's deployment (INTEGRITY_N
-     = 1,000,000 keys from 4 threads in batches of 100, 8 MiB write
-     buffer, leveled, the "cuda" device factory, a Statistics, the default
+     = 500,000 keys, cut from 1,000,000 to keep the script inside its
+     limit with phase 20 added, since the jobs' Python output
+     verification costs ~10 us a row; from 4 threads in batches of 100,
+     8 MiB write buffer, leveled, the "cuda" device factory, a Statistics, the default
      planes) with the integrity settings users turn on:
      protection_bytes_per_key=8 (RocksDB's
      memtable_protection_bytes_per_key=8), crc32c file checksums and the
@@ -322,6 +326,40 @@ Phases (any failure ends the run with a non-zero exit code):
      printed beside the card's name and power limit. Its gc_rows and merge
      launches are added to the kernels line's counts.
 
+ 20. the read path on the card: (a) multireadrandom (bench.py:1531-1541)
+     on phase 13's deployment, its compacted DB reopened from disk (built
+     anew at READ_N = 1,000,000 keys when absent): READ_OVERLAY_N = 20,000
+     keys rewritten with their own value, compact_range on "cuda", then
+     READ_PROBES = 100,000 probes (bench.py's Random(5) draw) as multi_get
+     batches of 128, equal to the per-key gets and the fill's oracle, with
+     the share of keys the native whole-batch call decided; (b) the same
+     DB reopened with a user block cache, so its reads take the Python
+     chain: LRUCache(8 MiB, db_bench's --cache_size, about a fifth of the
+     data) over a PersistentCache(64 MiB), READ_CACHE_PROBES = 20,000 gets
+     and 20,000 keys of multi_get (cut from 100,000, as phase 13's
+     planes-off probes were); the tier closed and reopened recovers the
+     same index and serves every record from disk with its bytes; then
+     the DB over the recovered tier; then a SimCache(ClockCache(8 MiB,
+     secondary=CompressedSecondaryCache(32 MiB)), 64 MiB) with a
+     BlockCacheTracer, whose analyzer's hit count equals the cache's own
+     (clock hits + tier hits); every answer equal to (a)'s; (c) the cold
+     async twin (bench.py:1158-1232): COLD_N = 30,000 keys filled with a
+     128 KiB write buffer (its jobs on "cuda"), a DelayedReadEnv of
+     200 us, LRUCache(64 KiB), COLD_PROBES = 4,096 probes in multi_get
+     batches of 128, async_reads=True and False in 3 interleaved rounds
+     with equal views; get_async, multi_get_async and
+     ReadOptions(async_io=True) on the same probes, and full scans plain,
+     with readahead_size=256 KiB and with ring windows, all equal; no
+     reader-ring thread after close(); (d) every job of the phase on
+     "cuda", gc_rows launched. Printed beside the card's name and power
+     limit: compact_range's wall, both multireadrandom and readrandom
+     ops/s, the native share, each cache's gets and multi_get ops/s and
+     hit rates, the tiers' stats, the BLOCK_CACHE_* and PERSISTENT_CACHE_*
+     tickers, the analyzer's counts, both cold-twin ops/s, their ratio,
+     READ_ASYNC_BATCHES and READ_ASYNC_COALESCED, the scans' walls and the
+     card's busy share from open to the last read. Its gc_rows and merge
+     launches are added to the kernels line's counts.
+
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
 standard output: the card's name and power limit, one JSON object
@@ -355,7 +393,7 @@ VARLEN_N = 4_000_000
 VARLEN_PLAIN_N = 1_000_000
 TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
-COMPLEX_N = 2_000_000
+COMPLEX_N = 1_000_000   # phase 9, cut from 2,000,000 (docstring)
 ENTRIES_N = 1_000_000
 CODEC_N = 1_000_000     # phase 11 (b) and (c)
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
@@ -368,12 +406,18 @@ SMALL_DB_N = 200_000    # phase 14 (b) and (c)
 BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
 BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
 DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
-INTEGRITY_N = 1_000_000  # phase 18: phase 13's deployment
+INTEGRITY_N = 500_000   # phase 18: phase 13's deployment, cut (docstring)
 WRITE_N = 1_000_000     # phase 19 (a)-(c): phase 13's deployment
 WRITE_OVERLAY_N = 20_000  # phase 19 (a): keys rewritten into the trie
 WRITE_SYNC_N = 20_000   # phase 19 (d): bench.py's sync rows, n // 50
 WBM_N = 100_000         # phase 19 (e): keys a DB
 WBM_BUDGET = 4 << 20    # phase 19 (e): half of one 8 MiB write buffer
+READ_N = 1_000_000      # phase 20 (a)-(b): phase 13's deployment
+READ_OVERLAY_N = 20_000  # phase 20 (a): keys rewritten before compact_range
+READ_PROBES = 100_000   # phase 20 (a): multireadrandom probes
+READ_CACHE_PROBES = 20_000  # phase 20 (b): cut from 100,000 (docstring)
+COLD_N = 30_000         # phase 20 (c): bench.py's cold async twin
+COLD_PROBES = 4_096     # phase 20 (c): its probes
 
 
 def log(msg: str) -> None:
@@ -4343,6 +4387,320 @@ def write_path(torch, root, n, card, device_name="cuda"):
     return total[0], total[1]
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the read path
+# ---------------------------------------------------------------------------
+
+
+def cache_tickers(stats, st) -> str:
+    """The BLOCK_CACHE_* and PERSISTENT_CACHE_* tickers, by name."""
+    names = [n for n in dir(st) if n.startswith(
+        ("BLOCK_CACHE_", "PERSISTENT_CACHE_")) and isinstance(
+            getattr(st, n), str)]
+    return json.dumps({n: stats.get_ticker_count(getattr(st, n))
+                       for n in sorted(names)})
+
+
+def read_path(torch, root, n, card, device_name="cuda", db13=None):
+    """Phase 20 (see the module docstring): (a) multireadrandom on phase
+    13's deployment (its compacted DB under `db13` when still on disk,
+    else built anew), (b) a user block cache with its tiers, (c) the
+    cold async twin. Every DB of the phase opens with one device factory,
+    under one JobLog. Returns the (gc_rows, merge_runs) launches."""
+    import random
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.env import PosixEnv
+    from toplingdb_tpu_torch.env.fault_injection import DelayedReadEnv
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.tools.block_cache_analyzer import analyze
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.cache import (
+        BlockCacheTracer,
+        ClockCache,
+        CompressedSecondaryCache,
+        LRUCache,
+        SimCache,
+    )
+    from toplingdb_tpu_torch.utils.persistent_cache import PersistentCache
+
+    value = b"v" * 20
+    os.makedirs(root, exist_ok=True)
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+
+    def options(**kw):
+        return Options(create_if_missing=True, write_buffer_size=8 << 20,
+                       compaction_executor_factory=factory, **kw)
+
+    rng = random.Random(5)
+    probes = [db_key(rng.randrange(n), n) for _ in range(READ_PROBES)]
+    absent = [b"%016d" % (2 * n + 1 + i) for i in range(128)]
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        # (a) multireadrandom on phase 13's deployment.
+        src = os.path.join(db13, "db") if db13 else None
+        if src and os.path.exists(os.path.join(src, "CURRENT")):
+            dbdir, origin = src, "phase 13's compacted DB, reopened"
+            db = DB.open(dbdir, options(statistics=st.Statistics()))
+        else:
+            dbdir, origin = os.path.join(root, "db"), "built anew"
+            db = DB.open(dbdir, options(statistics=st.Statistics()))
+            threaded_fill(db, n, lambda i: (db_key(i, n), value))
+            db.flush()
+            db.wait_for_compactions()
+        # Rewrite READ_OVERLAY_N keys with their own value: compact_range
+        # then merges a flushed run into the last level on the card.
+        for i in range(0, READ_OVERLAY_N, 100):
+            b = WriteBatch()
+            for j in range(i, min(i + 100, READ_OVERLAY_N)):
+                b.put(db_key(j, n), value)
+            db.write(b)
+        db.flush()
+        t0 = time.time()
+        db.compact_range()
+        crw = time.time() - t0
+        jobs_a = len(joblog.jobs)
+        assert jobs_a > 0, "compact_range ran no device job"
+        # Keys the native whole-batch call took, and those of them it
+        # could not decide (re-resolved in Python).
+        native_keys, undecided = [0], [0]
+        whole_batch = db._native_multi_get
+        resolve = db._mg_resolve_fallbacks
+
+        def counted_batch(cfd, keys, *a):
+            r = whole_batch(cfd, keys, *a)
+            native_keys[0] += len(keys) if r[0] else 0
+            return r
+
+        def counted_resolve(out, *a):
+            undecided[0] += sum(v is False for v in out)
+            return resolve(out, *a)
+
+        db._native_multi_get = counted_batch
+        db._mg_resolve_fallbacks = counted_resolve
+        t0 = time.time()
+        got = [v for i in range(0, len(probes), 128)
+               for v in db.multi_get(probes[i:i + 128])]
+        mg = time.time() - t0
+        assert got == [value] * len(probes), "multi_get differs from oracle"
+        decided = (native_keys[0] - undecided[0]) / len(probes)
+        assert db.multi_get(absent) == [None] * len(absent)
+        calls = native_get_calls(db)
+        t0 = time.time()
+        singles = [db.get(k) for k in probes]
+        rr = time.time() - t0
+        assert singles == got and calls["python"] == 0, calls
+        served_by = ("the C extension" if db._nget_tl.states[0].fast_mg
+                     is not None else "ctypes")
+        db.close()
+        log(f"[read a] {origin}: {READ_OVERLAY_N} keys rewritten, "
+            f"compact_range {crw:.3f}s ({jobs_a} device jobs in (a)); "
+            f"multireadrandom {len(probes)} probes in batches of 128 "
+            f"{mg:.3f}s, {len(probes) / mg:.0f} ops/s, "
+            f"{decided:.4f} of the keys decided by the native whole-batch "
+            f"call (through {served_by}); per-key "
+            f"readrandom {rr:.3f}s, {len(probes) / rr:.0f} ops/s; every "
+            f"answer equal to the get's and the oracle's [{card}]")
+
+        # (b) A user block cache: the Python chain on both routes.
+        want = [value] * READ_CACHE_PROBES
+        pb, mb = probes[:READ_CACHE_PROBES], \
+            probes[READ_CACHE_PROBES:2 * READ_CACHE_PROBES]
+        pdir = os.path.join(root, "pcache")
+
+        def cached_reads(bc, tag, stats):
+            db = DB.open(dbdir, options(block_cache=bc, statistics=stats))
+            assert db._nget_lib is None, "the native chain ran under a cache"
+            st.perf_level = 1
+            ctx = st.perf_context()
+            ctx.reset()
+            try:
+                t0 = time.time()
+                assert [db.get(k) for k in pb] == want, tag
+                g = time.time() - t0
+                t0 = time.time()
+                assert [v for i in range(0, len(mb), 128)
+                        for v in db.multi_get(mb[i:i + 128])] == want, tag
+                m = time.time() - t0
+                perf = dict(hits=ctx.block_cache_hit_count,
+                            misses=ctx.block_cache_miss_count,
+                            reads=ctx.block_read_count)
+            finally:
+                st.perf_level = 0
+            db.close()
+            return g, m, perf
+
+        sec = PersistentCache(pdir, 64 << 20)
+        lru = LRUCache(8 << 20, secondary=sec)
+        s1 = st.Statistics()
+        g, m, perf = cached_reads(lru, "lru", s1)
+        sec.flush()
+        index_before = dict(sec._index)
+        # Every record read back from its file: the bytes the reopened
+        # tier must give.
+        records = {k: sec.lookup(k) for k in index_before}
+        sec.close()
+        log(f"[read b] LRUCache(8 MiB, secondary=PersistentCache(64 MiB)): "
+            f"{len(pb)} gets {g:.3f}s, {len(pb) / g:.0f} ops/s; "
+            f"{len(mb)} keys of multi_get in batches of 128 {m:.3f}s, "
+            f"{len(mb) / m:.0f} ops/s; primary hit rate "
+            f"{lru.hit_rate():.4f}, usage {lru.usage()}; secondary "
+            f"{json.dumps(sec.stats())}; PerfContext {json.dumps(perf)}; "
+            f"tickers {cache_tickers(s1, st)} [{card}]")
+        sec = PersistentCache(pdir, 64 << 20)
+        assert sec._index == index_before, "the tier's index changed"
+        files = sec.stats()["files"]
+        t0 = time.time()
+        assert all(sec.lookup(k) == v for k, v in records.items()), \
+            "a recovered record's bytes changed"
+        rec_s = time.time() - t0
+        assert sec.hits == len(records) > 0, (sec.hits, len(records))
+        # The reopened DB keys its blocks under a new per-open session (as
+        # the reference's TableCache does), so its lookups meet the records
+        # its own evictions spill, not the recovered ones.
+        lru = LRUCache(8 << 20, secondary=sec)
+        s2 = st.Statistics()
+        g, m, perf = cached_reads(lru, "lru reopened", s2)
+        sec.close()
+        log(f"[read b] closed and reopened: the persistent tier recovered "
+            f"{len(index_before)} records from {files} files with the same "
+            f"index, each served from disk with the bytes it held before "
+            f"close ({rec_s:.3f}s); the DB reopened over it: gets "
+            f"{g:.3f}s, {len(pb) / g:.0f} ops/s; multi_get {m:.3f}s, "
+            f"{len(mb) / m:.0f} ops/s; primary hit rate "
+            f"{lru.hit_rate():.4f}; secondary {json.dumps(sec.stats())}; "
+            f"tickers {cache_tickers(s2, st)} [{card}]")
+        trace = os.path.join(root, "bc.trace")
+        tracer = BlockCacheTracer(trace)
+        tier = CompressedSecondaryCache(32 << 20)
+        clock = ClockCache(8 << 20, secondary=tier, tracer=tracer)
+        sim = SimCache(clock, 64 << 20)
+        s3 = st.Statistics()
+        g, m, perf = cached_reads(sim, "clock", s3)
+        tracer.close()
+        report = analyze(trace, top_n=3)
+        served = clock.hits + tier.hits
+        assert report["hits"] == served, (report["hits"], served)
+        log(f"[read b] SimCache(ClockCache(8 MiB, secondary="
+            f"CompressedSecondaryCache(32 MiB)), 64 MiB) with a "
+            f"BlockCacheTracer: gets {g:.3f}s, {len(pb) / g:.0f} ops/s; "
+            f"multi_get {m:.3f}s, {len(mb) / m:.0f} ops/s; clock hit rate "
+            f"{clock.hit_rate():.4f}, compressed tier {tier.hits} hits / "
+            f"{tier.misses} misses, usage {tier.usage()}; simulated 64 MiB "
+            f"hit rate {sim.sim_hit_rate():.4f}; the analyzer: "
+            f"{report['accesses']} accesses, {report['hits']} hits = the "
+            f"cache's own {clock.hits} + {tier.hits} from the tier, "
+            f"{report['unique_blocks']} blocks; every answer equal to "
+            f"(a)'s [{card}]")
+
+        # (c) The cold async twin (bench.py's async_read_rows).
+        cold = os.path.join(root, "cold")
+        db = DB.open(cold, Options(
+            create_if_missing=True, write_buffer_size=128 * 1024,
+            compaction_executor_factory=factory))
+        ckey = lambda i: b"%016d" % ((i * 2654435761) % (COLD_N * 2))  # noqa: E731
+        for i in range(COLD_N):
+            db.put(ckey(i), b"value-%016d" % i)
+        db.flush()
+        db.wait_for_compactions()
+        db.close()
+        oracle = {ckey(i): b"value-%016d" % i for i in range(COLD_N)}
+        crng = random.Random(11)
+        cprobes = [ckey(crng.randrange(COLD_N)) for _ in range(COLD_PROBES)]
+        cwant = [oracle[k] for k in cprobes]
+
+        def cold_open(async_reads, stats=None):
+            env = DelayedReadEnv(PosixEnv(), delay_sec=0.0002)
+            return DB.open(cold, Options(
+                block_cache=LRUCache(64 * 1024),
+                compaction_executor_factory=factory, statistics=stats),
+                env=env, async_reads=async_reads)
+
+        def cold_run(async_reads):
+            stats = st.Statistics()
+            dbr = cold_open(async_reads, stats)
+            t0 = time.time()
+            out = [v for i in range(0, len(cprobes), 128)
+                   for v in dbr.multi_get(cprobes[i:i + 128])]
+            dt = time.time() - t0
+            dbr.close()
+            return len(cprobes) / dt, out, stats
+
+        best = {True: 0.0, False: 0.0}
+        ticks = {}
+        for _ in range(3):
+            for a in (True, False):
+                rate, out, stats = cold_run(a)
+                assert out == cwant, f"cold twin async_reads={a} differs"
+                best[a] = max(best[a], rate)
+                ticks[a] = [stats.get_ticker_count(t) for t in (
+                    st.READ_ASYNC_BATCHES, st.READ_ASYNC_COALESCED,
+                    st.READ_ASYNC_FALLBACKS)]
+        assert ticks[True][0] > 0 and ticks[False] == [0, 0, 0], ticks
+        dba = cold_open(True)
+        dbs = cold_open(False)
+        try:
+            futs = [dba.get_async(k) for k in cprobes[:512]]
+            assert [f.result() for f in futs] == cwant[:512]
+            mfs = [dba.multi_get_async(cprobes[i:i + 128])
+                   for i in range(0, len(cprobes), 128)]
+            assert [v for f in mfs for v in f.result()] == cwant
+            aio = [v for i in range(0, len(cprobes), 128)
+                   for v in dbs.multi_get(cprobes[i:i + 128],
+                                          ReadOptions(async_io=True))]
+            assert aio == cwant
+            scans = {}
+            for tag, d, ro in (("plain", dbs, ReadOptions()),
+                               ("readahead 256 KiB", dbs,
+                                ReadOptions(readahead_size=256 * 1024)),
+                               ("ring windows", dba, ReadOptions())):
+                t0 = time.time()
+                it = d.new_iterator(ro)
+                it.seek_to_first()
+                scans[tag] = (list(it.entries()), time.time() - t0)
+                del it
+            assert scans["plain"][0] == sorted(oracle.items())
+            assert all(s[0] == scans["plain"][0] for s in scans.values())
+            assert any(t.name.startswith("tpt-read")
+                       for t in threading.enumerate())
+        finally:
+            dba.close()
+            dbs.close()
+        t_last = time.time()
+        survivors = [t.name for t in threading.enumerate()
+                     if "tpt-read" in t.name or "tpulsm-read" in t.name]
+        assert not survivors, survivors
+        log(f"[read c] cold twin: {COLD_N} keys, DelayedReadEnv 200 us, "
+            f"LRUCache(64 KiB), {len(cprobes)} probes in batches of 128, "
+            f"best of 3 interleaved rounds: async_reads=True "
+            f"{best[True]:.0f} ops/s, False {best[False]:.0f} ops/s, ratio "
+            f"{best[True] / best[False]:.3f}; READ_ASYNC_BATCHES "
+            f"{ticks[True][0]}, READ_ASYNC_COALESCED {ticks[True][1]}, "
+            f"READ_ASYNC_FALLBACKS {ticks[True][2]} a round; views equal; "
+            f"get_async, multi_get_async and ReadOptions(async_io=True) "
+            f"equal; full scans plain {scans['plain'][1]:.3f}s, "
+            f"readahead 256 KiB {scans['readahead 256 KiB'][1]:.3f}s, "
+            f"ring windows {scans['ring windows'][1]:.3f}s, all equal; no "
+            f"tpt-read thread after close() [{card}]")
+        gc_n, mr_n = launched()
+    assert joblog.jobs, "no compaction ran on the device executor"
+    joblog.check(device_name, "read")
+    if device_name != "cpu":
+        assert gc_n >= len(joblog.jobs), (gc_n, len(joblog.jobs))
+    log(f"[read d] {len(joblog.jobs)} device jobs in the phase ({jobs_a} "
+        f"in (a), the rest in (c)'s fill), launches gc_rows={gc_n} "
+        f"merge_runs={mr_n}; open to the last read: "
+        f"{busy_text(programs, joblog, t_last - t_open)} [{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4433,6 +4791,10 @@ def main() -> int:
         w_gc, w_mr = phase("19 write", write_path, torch,
                            os.path.join(dbdir, "db19"), WRITE_N, smi)
         log(f"[write] phase 19 wall {walls['19 write']:.1f}s [{smi}]")
+        r_gc, r_mr = phase("20 read", read_path, torch,
+                           os.path.join(dbdir, "db20"), READ_N, smi, "cuda",
+                           os.path.join(dbdir, "db13"))
+        log(f"[read] phase 20 wall {walls['20 read']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -4443,9 +4805,9 @@ def main() -> int:
     # Phase 18's protected DB runs gc_rows and the merge on its own path.
     launches["gc_rows"] += int_gc
     launches["merge_runs"] += int_mr
-    # So do phase 19's write-path DBs.
-    launches["gc_rows"] += w_gc
-    launches["merge_runs"] += w_mr
+    # So do phase 19's write-path DBs and phase 20's read-path DBs.
+    launches["gc_rows"] += w_gc + r_gc
+    launches["merge_runs"] += w_mr + r_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -53,7 +53,11 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   bytes and scan of the same DB on "cpu";
 - a small CSPP-trie DB filled by four unordered writer threads with
   concurrent inserts, its jobs on "cuda": every key reads back, and its
-  gets and scan equal the same DB's on "cpu".
+  gets and scan equal the same DB's on "cpu";
+- a small DB with an LRUCache block cache runs compact_range on "cuda":
+  its multi_get, get and async twin (async_reads=True: multi_get,
+  get_async, multi_get_async) agree with each other and with the same
+  DB's on "cpu".
 """
 
 import os
@@ -1307,4 +1311,74 @@ def test_trie_db_with_unordered_writers_on_the_card(dev, tmp_path):
     assert kernels.merge_runs_perm.launches > 0
     assert None not in got[0] and len(got[1]) == n
     want = _trie_unordered_db(str(tmp_path / "cpu"), "cpu", n)
+    assert got == want
+
+
+def _block_cache_db(path, device, n):
+    """A small DB with an LRUCache block cache (the Python read chain),
+    its compactions on `device`: after compact_range, the answers of
+    multi_get (in batches of 128), get, and the async twin (a reopen with
+    async_reads=True: multi_get, get_async, multi_get_async) on the same
+    probes, and its scan."""
+    import random
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils.cache import LRUCache
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+
+    def opts():
+        return Options(write_buffer_size=1 << 20,
+                       block_cache=LRUCache(256 * 1024),
+                       compaction_executor_factory=factory)
+
+    keys = [b"%016d" % (j * 2654435761 % (2 * n)) for j in range(n)]
+    rng = random.Random(7)
+    probes = [keys[rng.randrange(n)] for _ in range(4096)] + [b"absent"]
+    with DB.open(path, opts()) as db:
+        for i, k in enumerate(keys):
+            db.put(k, b"v%019d" % i)
+            if i % 50_000 == 49_999:
+                db.put(keys[i // 2], b"w%019d" % i)  # an overwrite
+        db.flush()
+        db.wait_for_compactions()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert factory.jobs and sched.num_local_jobs == 0
+        assert sched.last_error is None and db._bg_error is None
+        assert db._nget_lib is None  # a user block cache: Python chain
+        mget = [v for i in range(0, len(probes), 128)
+                for v in db.multi_get(probes[i:i + 128])]
+        gets = [db.get(k) for k in probes]
+        it = db.new_iterator()
+        it.seek_to_first()
+        scan = list(it.entries())
+    with DB.open(path, opts(), async_reads=True) as db:
+        amget = [v for i in range(0, len(probes), 128)
+                 for v in db.multi_get(probes[i:i + 128])]
+        aget = [f.result() for f in [db.get_async(k) for k in probes]]
+        afut = [v for f in [db.multi_get_async(probes[i:i + 128])
+                            for i in range(0, len(probes), 128)]
+                for v in f.result()]
+    assert mget == gets == amget == aget == afut
+    return gets, scan
+
+
+def test_block_cache_db_on_the_card_has_the_cpu_answers(dev, tmp_path):
+    """A small DB with a user block cache runs compact_range on "cuda"
+    (gc_rows and the merge launch); its multi_get, get and async twin agree
+    with each other and with the same DB's on "cpu"."""
+    n = 200_000
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _block_cache_db(str(tmp_path / "cuda"), "cuda", n)
+    assert kernels.gc_rows.launches > 0
+    assert kernels.merge_runs_perm.launches > 0
+    assert got[0][-1] is None and None not in got[0][:-1]
+    assert len(got[1]) == n
+    want = _block_cache_db(str(tmp_path / "cpu"), "cpu", n)
     assert got == want

@@ -96,7 +96,8 @@ class Twin:
     the files) equal. Operations take `cf=`, a column family's name (None:
     the default CF); every CF's views are checked. Byte parity turns auto
     compactions off unless `auto=True`: then the case waits for both DBs'
-    compactions after every flush, so both pick from the same versions."""
+    compactions after every flush, compact_range and reopen, so both pick
+    from the same versions and no check races a background job."""
 
     def __init__(self, root, executor: str, byte_parity: bool, auto=False,
                  **kw):
@@ -144,6 +145,8 @@ class Twin:
     def reopen(self):
         self.close()
         self.open()
+        if self.auto and self.byte_parity:
+            self.wait()  # the opens may have scheduled jobs on either side
         self.check()
 
     # -- column families ----------------------------------------------
@@ -213,6 +216,8 @@ class Twin:
     def compact_range(self):
         self.ref.compact_range()
         self.port.compact_range()
+        if self.auto and self.byte_parity:
+            self.wait()
 
     def wait(self):
         self.ref.wait_for_compactions()

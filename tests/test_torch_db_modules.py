@@ -21,9 +21,11 @@ on the same inputs, on the CPU:
 - every option the port's DB does not run raises NotSupported at open
   (the compaction styles, periodic compaction and blob files open:
   tests/test_torch_compaction_styles.py, tests/test_torch_blob_db.py);
-  the three integrity fields and the five write-path fields open
-  (`test_ported_option_opens`; held against the reference in
-  tests/test_torch_integrity.py and tests/test_torch_write_modes.py).
+  the three integrity fields, the five write-path fields and the three
+  read-path fields open (`test_ported_option_opens`; held against the
+  reference in tests/test_torch_integrity.py,
+  tests/test_torch_write_modes.py, tests/test_torch_block_cache.py and
+  tests/test_torch_read_path.py).
 
 Tolerance: none; bytes, records and answers must be equal.
 """
@@ -75,6 +77,7 @@ from toplingdb_tpu_torch.env import PosixEnv
 from toplingdb_tpu_torch.options import Options
 from toplingdb_tpu_torch.table.builder import TableBuilder, TableOptions
 from toplingdb_tpu_torch.utils import merge_operator as mo
+from toplingdb_tpu_torch.utils.cache import LRUCache
 from toplingdb_tpu_torch.utils.rate_limiter import WriteBufferManager
 from toplingdb_tpu_torch.utils.status import InvalidArgument, NotSupported
 
@@ -705,9 +708,13 @@ def test_unported_option_raises(tmp_path, name):
 
 
 # The integrity fields open (tests/test_torch_integrity.py holds them
-# against the reference), and the write-path fields
-# (tests/test_torch_write_modes.py).
+# against the reference), the write-path fields
+# (tests/test_torch_write_modes.py) and the read-path fields
+# (tests/test_torch_block_cache.py, tests/test_torch_read_path.py).
 NOW_OPEN = {
+    "block_cache": dict(block_cache=LRUCache(1 << 20)),
+    "async_read_rings": dict(async_read_rings=2),
+    "async_read_task_capacity": dict(async_read_task_capacity=16),
     "protection_bytes_per_key": dict(protection_bytes_per_key=8),
     "integrity_scrub_period_sec": dict(integrity_scrub_period_sec=60),
     "integrity_scrub_bytes_per_sec": dict(
@@ -739,6 +746,8 @@ def test_ported_option_opens(tmp_path, name):
         assert (db._integrity_scrubber is not None) == (
             name == "integrity_scrub_period_sec")
         assert (db._wal_ring is not None) == ("async_wal" in name)
+        assert (db.table_cache._block_cache is not None) == (
+            name == "block_cache")
         db.flush()
         assert db.get(b"k") == b"v" * 300
         db.compact_range()

@@ -50,6 +50,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
     loaded = [m for m in lines[1:] if m]
     assert "toplingdb_tpu_torch.ops.device_compaction" in loaded
     assert "toplingdb_tpu_torch.db.import_column_family_job" in loaded
+    for m in ("toplingdb_tpu_torch.tools.block_cache_analyzer",
+              "toplingdb_tpu_torch.env.async_reads",
+              "toplingdb_tpu_torch.utils.persistent_cache"):
+        assert m in loaded, m  # the read path's modules are walked too
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

@@ -106,6 +106,26 @@ fails the group and latches a HARD background error with reason "wal".
 memtable budget shared between DBs: each DB charges its memtables' memory
 and a write flushes when the shared sum reaches it.
 
+The read path, as toplingdb_tpu runs it. `Options.block_cache` (a
+utils.cache LRUCache or ClockCache, optionally with a secondary tier — a
+CompressedSecondaryCache or a utils.persistent_cache.PersistentCache —
+and a BlockCacheTracer, or a SimCache around one) serves the block
+readers' data, index-partition and filter-partition blocks under a
+per-open session prefix; with one the native read chain stays off, since
+its own LRU would bypass the user cache's contract. `multi_get` resolves a
+batch in one native call (keys it cannot decide re-resolve in Python,
+pinned to the batch's snapshot), or walks the batch per file in Python:
+each memtable and file is visited once for all its keys, L0 newest first
+and then each level. `ReadOptions.async_io` walks each missing key's file
+chain on a pool of `async_queue_depth` threads. `DB.open(async_reads=
+True)` is toplingdb_tpu's TPULSM_ASYNC_READS: gets and multi_gets take the
+Python walk with every candidate file's cache-missing blocks submitted up
+front as one coalesced batch across `async_read_rings` reader rings
+(env/async_reads.py; zip tables preload their value-group decodes), and
+iterators' readahead windows become ring tasks. `get_async` and
+`multi_get_async` return futures. `ReadOptions.readahead_size` pins a
+fixed readahead window on every table iterator and scan-plane source.
+
 What toplingdb_tpu runs beyond this (the SLO engine, ...) is refused at
 open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
@@ -115,6 +135,7 @@ of ignoring it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import threading
@@ -246,6 +267,16 @@ class _CFData:
         self.imm: list[MemTable] = []
 
 
+class _SeqSnapshot:
+    """Sequence-pinning shim for internal reads: quacks like a Snapshot
+    (.sequence) without registering in the snapshot list."""
+
+    __slots__ = ("sequence",)
+
+    def __init__(self, seq: int):
+        self.sequence = seq
+
+
 class _NGetState:
     """Per-thread bound state of the native point-read chain: the native
     context (it owns the out and value buffers), their mapped views, and
@@ -255,7 +286,8 @@ class _NGetState:
     them)."""
 
     __slots__ = ("mem", "imm", "version", "ctx", "fn", "out",
-                 "val_ptr", "val_cap", "_lib", "fast")
+                 "val_ptr", "val_cap", "_lib", "mg", "mg_arena", "fast",
+                 "fast_mg")
 
     def __del__(self):
         lib = getattr(self, "_lib", None)
@@ -309,9 +341,14 @@ class _NGetState:
         s.val_ptr = lib.tpulsm_getctx_val(ctx)
         s.val_cap = 4096
         s._lib = lib
-        # The C-extension call (ctypes marshaling is a large share of a
+        # multi_get's ctypes scratch (status / offsets / lengths, value
+        # arena), made on the first batch and kept for the next ones.
+        s.mg = None
+        s.mg_arena = None
+        # The C-extension calls (ctypes marshaling is a large share of a
         # warm get); None keeps the ctypes call in charge.
         s.fast = native.fastget()
+        s.fast_mg = native.fastmultiget()
         return s
 
 
@@ -320,7 +357,8 @@ class DB:
 
     def __init__(self, dbname: str, options: Options, env,
                  write_plane: bool = True,
-                 iter_chunk_rows: int = DEFAULT_CHUNK):
+                 iter_chunk_rows: int = DEFAULT_CHUNK,
+                 async_reads: bool = False):
         self.dbname = dbname
         self.options = options
         self.env = env
@@ -332,6 +370,18 @@ class DB:
         self._write_plane = (lib.tpulsm_wb_group_commit
                              if write_plane and lib is not None else None)
         self.iter_chunk_rows = iter_chunk_rows
+        # The async read plane (toplingdb_tpu's TPULSM_ASYNC_READS): the
+        # lazy AsyncReadBatcher fanning batched block fetches across
+        # Options.async_read_rings reader rings, the lazy executors of
+        # get_async / multi_get_async and of ReadOptions.async_io's per-key
+        # walks; close() joins them all.
+        self._async_reads = bool(async_reads)
+        self._read_batcher = None
+        self._async_pool = None
+        self._mget_pool = None
+        # Test seam: set before the first async-routed read to plug a
+        # ReadFaultInjector into every reader ring (fault_hook).
+        self.read_fault_hook = None
         # The native point-read chain's library, None for the Python chain
         # (no library, or a user block cache: a contract of capacity and
         # stats the chain's own LRU would bypass), and each thread's
@@ -402,7 +452,8 @@ class DB:
             )
         self.versions = VersionSet(env, dbname, self.icmp, options.num_levels)
         self.table_cache = TableCache(env, dbname, self.icmp,
-                                      options.table_options)
+                                      options.table_options,
+                                      block_cache=options.block_cache)
         self.table_cache.stats = options.statistics
         self.default_cf = ColumnFamilyHandle(0, "default")
         self._cfs: dict[int, _CFData] = {
@@ -563,14 +614,16 @@ class DB:
     @staticmethod
     def open(dbname: str, options: Options | None = None, env=None, *,
              write_plane: bool = True,
-             iter_chunk_rows: int = DEFAULT_CHUNK) -> "DB":
+             iter_chunk_rows: int = DEFAULT_CHUNK,
+             async_reads: bool = False) -> "DB":
         """RocksDB's DBImpl::Open: create or recover the DB at `dbname`.
         Raises NotSupported for an option set away from its default that
         the port does not run (options.unported_fields), and for a host
         plane asked for without the native library. `write_plane` is
         toplingdb_tpu's TPULSM_WRITE_PLANE (the native group commit);
         `iter_chunk_rows` its TPULSM_ITER_CHUNK (rows per scan-plane
-        chunk, 0 = no scan plane). The defaults are toplingdb_tpu's."""
+        chunk, 0 = no scan plane); `async_reads` its TPULSM_ASYNC_READS
+        (the async read plane). The defaults are toplingdb_tpu's."""
         options = options or Options()
         refused = unported_fields(options)
         if refused:
@@ -581,6 +634,9 @@ class DB:
             raise InvalidArgument(
                 f"iter_chunk_rows must be an int >= 0, got "
                 f"{iter_chunk_rows!r}")
+        if not isinstance(async_reads, bool):
+            raise InvalidArgument(
+                f"async_reads must be a bool, got {async_reads!r}")
         from toplingdb_tpu_torch import native
 
         planes = [name for name, on in (
@@ -594,7 +650,7 @@ class DB:
         env = env or default_env()
         # Validates; touches no file.
         db = DB(dbname, options, env, write_plane=write_plane,
-                iter_chunk_rows=iter_chunk_rows)
+                iter_chunk_rows=iter_chunk_rows, async_reads=async_reads)
         env.create_dir(dbname)
         db._open_log()
         current = filename.current_file_name(dbname)
@@ -735,12 +791,23 @@ class DB:
 
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
-        the memtables, and close the WAL, the MANIFEST and the readers."""
+        the memtables, and close the WAL, the MANIFEST and the readers.
+        The read plane's executors and reader rings are joined first."""
         self._recover_stop.set()
         for t in (self._integrity_scrubber, self._stats_dumper,
                   self._stats_dump_thread):
             if t is not None:
                 t.stop()
+        for attr in ("_mget_pool", "_async_pool"):
+            pool = getattr(self, attr)
+            if pool is not None:
+                pool.shutdown(wait=True)
+                setattr(self, attr, None)
+        if self._read_batcher is not None:
+            # Joins every reader-ring thread: no ring thread outlives
+            # close().
+            self._read_batcher.close()
+            self._read_batcher = None
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.shutdown()
         for t in self._recover_threads:
@@ -1810,11 +1877,16 @@ class DB:
         return True
 
     def _probe_file(self, reader, key: bytes, snap_seq: int,
-                    ctx: GetContext) -> bool:
-        """One SST source; returns False when the lookup is complete."""
+                    ctx: GetContext, tombs, it=None,
+                    preread=None) -> tuple[bool, object]:
+        """One SST source. `tombs` is the file's parsed RangeTombstone
+        list; `it` a reusable iterator of this reader (made on demand).
+        `preread`: the async read plane's overlay (a block table's
+        PrereadSpans or a zip table's value-group preload), only ever
+        given for readers whose new_iterator takes it. Returns (continue?,
+        iterator): continue is False when the lookup is complete."""
         ucmp = self.icmp.user_comparator
-        for b, e in reader.range_del_entries():
-            t = RangeTombstone.from_table_entry(b, e)
+        for t in tombs:
             if ucmp.compare(t.begin, key) <= 0 and ucmp.compare(key, t.end) < 0:
                 ctx.add_tombstone_seq(t.seq)
         has_filter = (getattr(reader, "_filter_data", None) is not None
@@ -1824,19 +1896,23 @@ class DB:
                 self.stats.record_tick(_st.BLOOM_USEFUL)
             if _st.perf_level:
                 _st.perf_context().bloom_sst_miss_count += 1
-            return True
+            return True, it
         if has_filter and _st.perf_level:
             # Only a consulted filter counts (fail-open paths don't).
             _st.perf_context().bloom_sst_hit_count += 1
-        it = reader.new_iterator()
         if getattr(reader, "has_hash_index", False):
             # O(1) bucket probe (hash-indexed formats): lands on the newest
             # version; the loop below skips seqs above the snapshot.
             ordinal = reader.hash_probe(key)
             if ordinal is None:
-                return True  # definitively absent from this file
+                return True, it  # definitively absent from this file
+            if it is None:
+                it = reader.new_iterator()
             it.seek_ordinal(ordinal)
         else:
+            if it is None:
+                it = (reader.new_iterator(preread=preread)
+                      if preread is not None else reader.new_iterator())
             it.seek(dbformat.make_internal_key(
                 key, snap_seq, dbformat.VALUE_TYPE_FOR_SEEK
             ))
@@ -1846,9 +1922,14 @@ class DB:
                 break
             if seq <= snap_seq:
                 if not ctx.save_value(seq, t, it.value()):
-                    return False
+                    return False, it
             it.next()
-        return True
+        return True, it
+
+    @staticmethod
+    def _parsed_tombstones(reader) -> list:
+        return [RangeTombstone.from_table_entry(b, e)
+                for b, e in reader.range_del_entries()]
 
     def get(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
             cf=None) -> bytes | None:
@@ -1891,12 +1972,16 @@ class DB:
         # The native chain: memtable skiplists + SST walk in ONE
         # GIL-released call. Anything the Python state machine must see
         # (merge operands, single deletes in SSTs, blob indexes, range
-        # tombstones, wide-column entities) falls through below.
-        handled, val, src = self._native_get(cfd, key, snap_seq, opts)
-        if handled:
-            if st_on:
-                self._record_get_stats(t0, val, src)
-            return val
+        # tombstones, wide-column entities) falls through below. The async
+        # read plane routes around it: it lives in the Python walk, whose
+        # block fetches batch-submit through the reader rings.
+        async_on = self._async_reads
+        if not async_on:
+            handled, val, src = self._native_get(cfd, key, snap_seq, opts)
+            if handled:
+                if st_on:
+                    self._record_get_stats(t0, val, src)
+                return val
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
@@ -1905,19 +1990,45 @@ class DB:
                 if st_on:
                     self._record_get_stats(t0, ctx.result(), "mem")
                 return self._result(ctx)
-        # 2. SST files, newest data first.
+        # 2. SST files, newest data first. Async plane: every candidate
+        # file's cache-missing blocks are submitted as ONE batch before
+        # the walk, so a multi-level chain overlaps its preads (deeper
+        # candidates are speculative: wasted only when an upper level
+        # ends the lookup first).
         version = self.versions.cf_current(cfd.handle.id)
-        hit_level = None
-        for level, f in version.files_for_get(key):
-            reader = self.table_cache.get_reader(f.number)
-            if not self._probe_file(reader, key, snap_seq, ctx):
-                hit_level = level
-                break
-        else:
-            ctx.finish()
+        preread_map = None
+        if async_on:
+            file_order = [f for _lvl, f in version.files_for_get(key)]
+            preread_map = self._plan_async_preread(
+                file_order, {f.number: [key] for f in file_order},
+                {key}, snap_seq)
+        hit_level = self._walk_sst_chain(version, key, snap_seq, ctx,
+                                         preread_map=preread_map)
         if st_on:
             self._record_get_stats(t0, ctx.result(), hit_level)
         return self._result(ctx)
+
+    def _walk_sst_chain(self, version, key: bytes, snap_seq: int, ctx,
+                        tombs_for=None, preread_map=None):
+        """Probe the key's SST candidates newest first until the lookup
+        completes (get, and multi_get's per-key walks). `preread_map`: the
+        async read plane's overlays keyed by file number — the chain's
+        block fetches were batch-submitted up front, so a deep walk
+        consumes reads already overlapped instead of paying one serial
+        pread per level. Returns the level that completed the lookup, or
+        None."""
+        for level, f in version.files_for_get(key):
+            reader = self.table_cache.get_reader(f.number)
+            tombs = (tombs_for(f) if tombs_for is not None
+                     else self._parsed_tombstones(reader))
+            more, _ = self._probe_file(
+                reader, key, snap_seq, ctx, tombs,
+                preread=(preread_map.get(f.number)
+                         if preread_map is not None else None))
+            if not more:
+                return level
+        ctx.finish()
+        return None
 
     def _record_get_stats(self, t0: float, val, src) -> None:
         """Read-path ticker family (MEMTABLE_HIT / GET_HIT_L*, RocksDB's
@@ -1936,15 +2047,376 @@ class DB:
         return v
 
     def _check_read_options(self, opts: ReadOptions) -> None:
-        for name in ("tailing", "prefix_same_as_start", "async_io"):
+        for name in ("tailing", "prefix_same_as_start"):
             if getattr(opts, name):
                 raise NotSupported(
                     f"ReadOptions.{name} is not ported yet")
         if opts.timestamp is not None:
             raise NotSupported("ReadOptions.timestamp is not ported yet")
-        if opts.readahead_size:
-            raise NotSupported(
-                "ReadOptions.readahead_size is not ported yet")
+
+    # -- multi_get and the async read plane ----------------------------
+
+    def multi_get(self, keys: list[bytes], opts: ReadOptions = _DEFAULT_READ,
+                  cf=None) -> list[bytes | None]:
+        """Batched point lookups (RocksDB's DBImpl::MultiGet, and
+        ToplingDB's fiber variant, db_impl.cc:3026-3227): the batch is
+        grouped per source, so each memtable and file is visited once for
+        all its keys. Returns one value or None per key, in order."""
+        self._check_open()
+        self._check_read_options(opts)
+        tracer = self.tracer
+        root = None
+        if tracer is not None and tracer.sample_every \
+                and next(tracer.counter) % tracer.sample_every == 0:
+            root = tracer.start("db.multiget", keys=len(keys))
+        t_mg = time.perf_counter() \
+            if (self.stats is not None or tracer is not None) else 0.0
+        try:
+            res = self._multi_get_impl(keys, opts, cf)
+        finally:
+            if root is not None:
+                root.finish()
+            elif tracer is not None and tracer.slow_usec:
+                us = (time.perf_counter() - t_mg) * 1e6
+                if us >= tracer.slow_usec:
+                    tracer.note_slow("db.multiget", us, keys=len(keys))
+        if self.stats is not None:
+            self.stats.record_tick(_st.NUMBER_MULTIGET_CALLS)
+            self.stats.record_tick(_st.NUMBER_MULTIGET_KEYS_READ, len(keys))
+            self.stats.record_tick(
+                _st.NUMBER_MULTIGET_BYTES_READ,
+                sum(len(v) for v in res if v is not None))
+            self.stats.record_in_histogram(
+                _st.DB_MULTIGET_MICROS, (time.perf_counter() - t_mg) * 1e6)
+        return res
+
+    def _multi_get_impl(self, keys, opts, cf):
+        cfd = self._cf_data(cf)
+        snap_seq = (
+            opts.snapshot.sequence if opts.snapshot is not None
+            else self.versions.last_sequence
+        )
+        # The async read plane runs the Python per-file walk with its
+        # block fetches fanned through the reader rings; the native
+        # whole-batch call serializes its preads in-call and is bypassed.
+        async_on = self._async_reads
+        if not async_on:
+            handled, native_res = self._native_multi_get(cfd, keys, snap_seq,
+                                                         opts, cf)
+            if handled:
+                return native_res
+        resolver = self.blob_source.get
+        ctxs = {
+            k: GetContext(k, snap_seq, self.options.merge_operator,
+                          blob_resolver=resolver)
+            for k in keys
+        }
+        live = dict(ctxs)
+        # 1. Memtables: one pass per source for ALL live keys.
+        for mem in [cfd.mem] + cfd.imm:
+            for k in list(live):
+                if not self._probe_memtable(mem, k, snap_seq, live[k]):
+                    del live[k]
+        # 2. SSTs: keys grouped by candidate file, so each reader and
+        # iterator is reused across the batch. A file's tombstones are
+        # parsed once per batch, under a lock (the async_io walks share
+        # the memo across threads).
+        version = self.versions.cf_current(cfd.handle.id)
+        tombs_cache: dict[int, list] = {}
+        cache_mu = threading.Lock()
+
+        def tombs_for(f):
+            with cache_mu:
+                t = tombs_cache.get(f.number)
+                if t is None:
+                    t = self._parsed_tombstones(
+                        self.table_cache.get_reader(f.number))
+                    tombs_cache[f.number] = t
+            return t
+
+        if live and opts.async_io and len(live) > 1 and not async_on:
+            # The fiber MultiGet's role: each missing key walks its own
+            # file chain on a worker thread (file preads release the GIL,
+            # so misses overlap their IO).
+            pool = self._mget_pool
+            if pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                with self._mutex:
+                    pool = self._mget_pool
+                    if pool is None:
+                        pool = self._mget_pool = ThreadPoolExecutor(
+                            max_workers=max(1, opts.async_queue_depth),
+                            thread_name_prefix="tpt-mget")
+            list(pool.map(
+                lambda k: self._walk_sst_chain(
+                    version, k, snap_seq, ctxs[k], tombs_for),
+                list(live),
+            ))
+            return [self._result(ctxs[k]) for k in keys]
+        if live:
+            per_file: dict[int, list[bytes]] = {}
+            for k in live:
+                for _level, f in version.files_for_get(k):
+                    per_file.setdefault(f.number, []).append(k)
+            # Files in global level order — L0 newest first, then each
+            # deeper level — which keeps EVERY key's newest-first source
+            # order (a key's candidates are a subsequence of this walk).
+            file_order = [
+                f for lvl in range(version.num_levels)
+                for f in version.files[lvl] if f.number in per_file
+            ]
+            # Async read plane: every file's cache-missing blocks are
+            # submitted as one batch before any probe, so the rings do the
+            # preads while this thread decodes what completed first.
+            overlays = None
+            if async_on and file_order:
+                overlays = self._plan_async_preread(
+                    file_order, per_file, live, snap_seq)
+            span_cm = (_tm.span("read.async.wait", files=len(file_order))
+                       if overlays else contextlib.nullcontext())
+            with span_cm:
+                for f in file_order:
+                    todo = [k for k in per_file[f.number] if k in live]
+                    if not todo:
+                        continue
+                    reader = self.table_cache.get_reader(f.number)
+                    tombs = tombs_for(f)
+                    it = None
+                    preread = (overlays.get(f.number)
+                               if overlays is not None else None)
+                    for k in sorted(todo):
+                        ctx = live.get(k)
+                        if ctx is None:
+                            continue
+                        more, it = self._probe_file(
+                            reader, k, snap_seq, ctx, tombs, it,
+                            preread=preread)
+                        if not more:
+                            del live[k]
+        for ctx in live.values():
+            ctx.finish()
+        return [self._result(ctxs[k]) for k in keys]
+
+    def _native_multi_get(self, cfd, keys, snap_seq: int, opts, cf=None):
+        """Whole-batch native MultiGet: one GIL-released call walks every
+        key's chain; only keys the native walk cannot decide (merge
+        chains, blob indexes, range-tombstoned tables) re-resolve through
+        the Python chain. Returns (handled, results)."""
+        if not keys:
+            return False, None
+        lib, cc = self._nget_state(cfd, opts)
+        if cc is None:
+            return False, None
+        if cc.fast_mg is not None and isinstance(keys, list) \
+                and all(type(k) is bytes for k in keys):
+            # Whole batch and its result objects in the C extension.
+            fm = cc.fast_mg(cc.ctx, keys, snap_seq)
+            if fm is not None:
+                res, ctr = fm
+                self._mg_record_stats(ctr)
+                return True, self._mg_resolve_fallbacks(
+                    res, keys, snap_seq, opts, cf)
+        import ctypes
+
+        import numpy as np
+
+        from toplingdb_tpu_torch import native as _nat
+
+        n = len(keys)
+        key_lens = np.fromiter((len(k) for k in keys), np.int32, n)
+        key_offs = np.zeros(n, np.int64)
+        np.cumsum(key_lens[:-1], out=key_offs[1:])
+        keybuf = np.frombuffer(b"".join(keys), np.uint8)
+        # Per-batch scratch lives on the thread's get state: a fresh 1 MiB
+        # arena per 128-key batch would dominate the batch's wall.
+        mg = cc.mg
+        if mg is None or len(mg[0]) < n:
+            cap = max(n, 256)
+            mg = cc.mg = (np.zeros(cap, np.int8), np.zeros(cap, np.int64),
+                          np.zeros(cap, np.int64))
+        status, voffs, vlens = mg
+        arena = cc.mg_arena
+        if arena is None:
+            arena = cc.mg_arena = np.empty(1 << 20, np.uint8)
+        ctr = (ctypes.c_int64 * 6)()
+        used = (ctypes.c_int64 * 1)()
+        while True:
+            rc = lib.tpulsm_getctx_multiget(
+                cc.ctx, _nat.np_u8p(keybuf), _nat.np_i64p(key_offs),
+                _nat.np_i32p(key_lens), n, snap_seq,
+                status.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                _nat.np_i64p(voffs), _nat.np_i64p(vlens),
+                _nat.np_u8p(arena), len(arena), used, ctr,
+            )
+            if rc == -2:
+                arena = cc.mg_arena = np.empty(len(arena) * 4, np.uint8)
+                continue
+            if rc != 0:
+                return False, None
+            break
+        self._mg_record_stats(ctr)
+        mv = memoryview(arena)
+        out: list = [None] * n
+        for i in range(n):
+            s = status[i]
+            if s == 1:
+                o = voffs[i]
+                out[i] = bytes(mv[o: o + vlens[i]])
+            elif s == 2:
+                out[i] = False  # undecidable natively: resolved below
+        return True, self._mg_resolve_fallbacks(out, keys, snap_seq, opts,
+                                                cf)
+
+    def _mg_record_stats(self, ctr) -> None:
+        """Batch-level perf and ticker accounting from the native
+        MultiGet's six counters (the ctypes and the extension calls)."""
+        if _st.perf_level:
+            pctx = _st.perf_context()
+            pctx.get_from_memtable_count += ctr[0]
+            pctx.bloom_sst_miss_count += ctr[1]
+            pctx.bloom_sst_hit_count += ctr[2]
+            pctx.block_cache_hit_count += ctr[3]
+            pctx.block_read_count += ctr[4]
+            pctx.block_read_byte += ctr[5]
+        if self.stats is not None:
+            for tick, cnt in ((_st.BLOOM_USEFUL, ctr[1]),
+                              (_st.BLOCK_CACHE_HIT, ctr[3]),
+                              (_st.BLOCK_CACHE_MISS, ctr[4])):
+                if cnt:
+                    self.stats.record_tick(tick, cnt)
+
+    def _mg_resolve_fallbacks(self, out, keys, snap_seq, opts, cf):
+        """Replace the False markers (keys the native walk could not
+        decide) with full per-key Python resolutions, PINNED to the
+        batch's sequence: re-reading at a fresh last_sequence would mix
+        sequence points within one MultiGet."""
+        if not any(v is False for v in out):
+            return out
+        pinned_opts = opts
+        if opts.snapshot is None:
+            import dataclasses
+
+            pinned_opts = dataclasses.replace(
+                opts, snapshot=_SeqSnapshot(snap_seq))
+        for i, v in enumerate(out):
+            if v is False:
+                out[i] = self._get_impl(keys[i], pinned_opts, cf)
+        return out
+
+    def _reader_batcher(self):
+        """The DB's AsyncReadBatcher, made on the first async-routed
+        read; None once the DB is closed."""
+        b = self._read_batcher
+        if b is None:
+            from toplingdb_tpu_torch.env.async_reads import AsyncReadBatcher
+
+            with self._mutex:
+                b = self._read_batcher
+                if b is None and not self._closed:
+                    opts = self.options
+                    b = self._read_batcher = AsyncReadBatcher(
+                        rings=max(1, opts.async_read_rings),
+                        task_capacity=opts.async_read_task_capacity,
+                        stats=self.stats,
+                        fault_hook=self.read_fault_hook,
+                        name="tpt-read")
+        return b
+
+    def _plan_async_preread(self, file_order, per_file, live, snap_seq):
+        """Plan and submit one batch of block fetches for a (multi_)get:
+        per candidate file, seek the resident index for each live key's
+        data-block handle, drop cache-resident blocks, and fan the rest
+        through the reader rings in ONE submit_batch (coalescing merges
+        neighbours). Returns {file_number: overlay}, the overlay a
+        PrereadSpans (block tables) or a {vg: token} value-group preload
+        (zip tables); files the plane cannot serve (hash-index and plain
+        formats) get no entry and probe synchronously, counted by
+        READ_ASYNC_FALLBACKS."""
+        batcher = self._reader_batcher()
+        if batcher is None:
+            return None
+        mk = dbformat.make_internal_key
+        flat: list[tuple] = []       # (rfile, offset, length)
+        flat_file: list[int] = []    # their file numbers
+        zip_plans: dict[int, tuple] = {}
+        planned: set[int] = set()
+        fallbacks = 0
+        for f in file_order:
+            if f.number in planned:
+                continue
+            planned.add(f.number)
+            todo = sorted(k for k in per_file[f.number] if k in live)
+            if not todo:
+                continue
+            reader = self.table_cache.get_reader(f.number)
+            ikeys = [mk(k, snap_seq, dbformat.VALUE_TYPE_FOR_SEEK)
+                     for k in todo if reader.key_may_match(k)]
+            if not ikeys:
+                continue
+            if hasattr(reader, "plan_block_reads") \
+                    and not getattr(reader, "has_hash_index", False):
+                for off, n in reader.plan_block_reads(ikeys):
+                    flat.append((reader._f, off, n))
+                    flat_file.append(f.number)
+            elif hasattr(reader, "plan_value_groups"):
+                vgs = reader.plan_value_groups(ikeys)
+                if vgs:
+                    zip_plans[f.number] = (reader, vgs)
+            else:
+                fallbacks += 1
+        overlays: dict[int, object] = {}
+        if flat:
+            from toplingdb_tpu_torch.env.async_reads import PrereadSpans
+
+            toks = batcher.submit_batch(flat)
+            spans: dict[int, list] = {}
+            for (_rf, off, n), fnum, tok in zip(flat, flat_file, toks):
+                spans.setdefault(fnum, []).append((off, off + n, tok))
+            for fnum, sp in spans.items():
+                overlays[fnum] = PrereadSpans(
+                    self.table_cache.get_reader(fnum)._f, sp)
+        for fnum, (reader, vgs) in zip_plans.items():
+            overlays[fnum] = {
+                vg: batcher.submit_task(
+                    lambda r=reader, v=vg: r._value_group(v))
+                for vg in vgs
+            }
+        if zip_plans and self.stats is not None:
+            # A value-group preload is one planned batch too.
+            self.stats.record_tick(_st.READ_ASYNC_BATCHES, len(zip_plans))
+        if fallbacks and self.stats is not None:
+            self.stats.record_tick(_st.READ_ASYNC_FALLBACKS, fallbacks)
+        return overlays
+
+    def _submit_async(self, fn):
+        """Run `fn` on the lazy async-read executor; returns a
+        concurrent.futures.Future."""
+        self._check_open()
+        pool = self._async_pool
+        if pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with self._mutex:
+                pool = self._async_pool
+                if pool is None:
+                    pool = self._async_pool = ThreadPoolExecutor(
+                        max_workers=max(2, self.options.async_read_rings),
+                        thread_name_prefix="tpt-get-async")
+        return pool.submit(fn)
+
+    def get_async(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
+                  cf=None):
+        """Future-returning point lookup: `.result()` is exactly what
+        `get(key, opts, cf)` returns."""
+        return self._submit_async(lambda: self.get(key, opts, cf))
+
+    def multi_get_async(self, keys: list[bytes],
+                        opts: ReadOptions = _DEFAULT_READ, cf=None):
+        """Future-returning batched lookup: `.result()` is exactly what
+        `multi_get(keys, opts, cf)` returns."""
+        keys = list(keys)
+        return self._submit_async(lambda: self.multi_get(keys, opts, cf))
 
     def new_iterator(self, opts: ReadOptions = _DEFAULT_READ,
                      cf=None) -> DBIter:
@@ -1953,6 +2425,11 @@ class DB:
         self._check_open()
         self._check_read_options(opts)
         cfd = self._cf_data(cf)
+        # Async read plane: iterator readahead windows become reader-ring
+        # tasks; each child pins one ring so its windows stay ordered
+        # while children overlap. The batcher is made BEFORE taking the DB
+        # mutex (making it takes the mutex).
+        batcher = self._reader_batcher() if self._async_reads else None
         with self._mutex:
             snap_seq = (
                 opts.snapshot.sequence if opts.snapshot is not None
@@ -1961,19 +2438,30 @@ class DB:
             version = self.versions.cf_current(cfd.handle.id)
             children = []
             rd = RangeDelAggregator(self.icmp.user_comparator)
+            ra = opts.readahead_size
             for mem in [cfd.mem] + cfd.imm:
                 children.append(mem.new_iterator())
                 for seq, begin, end in mem.range_del_entries():
                     rd.add(RangeTombstone(seq, begin, end))
-            for f in version.files[0]:
+            for i, f in enumerate(version.files[0]):
                 reader = self.table_cache.get_reader(f.number)
-                children.append(reader.new_iterator())
+                if (ra or batcher is not None) \
+                        and hasattr(reader, "new_index_iterator"):
+                    children.append(reader.new_iterator(
+                        readahead_size=ra,
+                        aio_ring=(batcher.ring_for(i)
+                                  if batcher is not None else None)))
+                else:
+                    children.append(reader.new_iterator())
                 for b, e in reader.range_del_entries():
                     rd.add(RangeTombstone.from_table_entry(b, e))
             for level in range(1, version.num_levels):
                 if version.files[level]:
                     children.append(LevelIterator(
-                        self.table_cache, version.files[level], self.icmp))
+                        self.table_cache, version.files[level], self.icmp,
+                        readahead_size=ra,
+                        aio_ring=(batcher.ring_for(level)
+                                  if batcher is not None else None)))
                     # Only files that hold tombstones are opened here
                     # (num_range_deletions travels in the MANIFEST); data
                     # blocks are opened lazily by LevelIterator.
@@ -2012,7 +2500,9 @@ class DB:
                 merge_operator=self.options.merge_operator,
                 stats=self.stats,
                 chunk=self.iter_chunk_rows,
+                readahead_size=ra,
                 protection_bytes=self._protection,
+                aio_rings=batcher,
             )
             if plane is not None:
                 it.attach_scan_plane(plane)

@@ -1,6 +1,6 @@
 """LevelIterator: concatenation over one sorted level's files (copied from
-toplingdb_tpu/db/level_iterator.py, without readahead windows and the async
-read ring; RocksDB's LevelIterator inside db/version_set.cc)."""
+toplingdb_tpu/db/level_iterator.py; RocksDB's LevelIterator inside
+db/version_set.cc)."""
 
 from __future__ import annotations
 
@@ -8,12 +8,19 @@ from toplingdb_tpu_torch.db.version_edit import FileMetaData
 
 
 class LevelIterator:
-    def __init__(self, table_cache, files: list[FileMetaData], icmp):
+    def __init__(self, table_cache, files: list[FileMetaData], icmp,
+                 readahead_size: int = 0, aio_ring=None):
         self._tc = table_cache
         self._files = files
         self._icmp = icmp
         self._file_idx = -1
         self._iter = None
+        # ReadOptions.readahead_size: fixed per-file-iterator prefetch
+        # window (0 = the buffer's auto-scaling default). `aio_ring`
+        # moves each file iterator's readahead windows onto a reader
+        # ring thread (async read plane, env/async_reads.py).
+        self._ra = readahead_size
+        self._aio = aio_ring
         self._pf_hits = 0    # readahead counts of already-closed file iters
         self._pf_misses = 0
 
@@ -22,7 +29,12 @@ class LevelIterator:
         self._file_idx = idx
         if 0 <= idx < len(self._files):
             reader = self._tc.get_reader(self._files[idx].number)
-            self._iter = reader.new_iterator()
+            if (self._ra or self._aio is not None) \
+                    and hasattr(reader, "new_index_iterator"):
+                self._iter = reader.new_iterator(readahead_size=self._ra,
+                                                 aio_ring=self._aio)
+            else:
+                self._iter = reader.new_iterator()
         else:
             self._iter = None
 

@@ -1,7 +1,7 @@
 """Posix filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to
 the file operations the compaction data plane and the DB use, and to the
-async WAL writer's submit ring: no statistics, no read tasks on the ring,
-no WAL recycling, no in-memory env)."""
+submit ring of the async WAL writer and the async read plane: no
+statistics, no WAL recycling, no in-memory env)."""
 
 from __future__ import annotations
 
@@ -13,36 +13,42 @@ from toplingdb_tpu_torch.utils.status import IOError_, NotFound
 
 
 # ---------------------------------------------------------------------------
-# Async batched I/O (the Env-level submit ring of the async WAL writer)
+# Async batched I/O (the Env-level submit ring)
 # ---------------------------------------------------------------------------
 
 
 class AioToken:
     """Completion handle for one submitted ring operation. wait() blocks
-    until the writer thread settled it and re-raises any error."""
+    until the writer thread settled it and re-raises any error; `result`
+    carries a task submission's return value."""
 
-    __slots__ = ("_ev", "error")
+    __slots__ = ("_ev", "error", "result")
 
     def __init__(self):
         self._ev = threading.Event()
         self.error: BaseException | None = None
+        self.result = None
 
-    def done(self, err: BaseException | None = None) -> None:
+    def done(self, err: BaseException | None = None, result=None) -> None:
         self.error = err
+        self.result = result
         self._ev.set()
 
     def ready(self) -> bool:
         return self._ev.is_set()
 
-    def wait(self) -> None:
+    def wait(self):
         self._ev.wait()
         if self.error is not None:
             raise self.error
+        return self.result
 
 
 class AsyncIORing:
     """Bounded submit ring with ONE dedicated I/O thread. Producers submit
-    appends, fsync barriers, per-file append barriers and drain barriers;
+    appends, fsync barriers, per-file append barriers, generic read tasks
+    (prefetch windows, the async read plane's block reads) and drain
+    barriers;
     submission is cheap and non-blocking until the ring is full.
 
     The write-plane property is FSYNC COALESCING: the worker drains the
@@ -61,9 +67,16 @@ class AsyncIORing:
     """
 
     def __init__(self, capacity: int = 256, coalesce_cb=None,
-                 fault_hook=None, name: str = "tpt-aio"):
+                 fault_hook=None, name: str = "tpt-aio",
+                 task_capacity: int | None = None):
         self._cap = max(1, int(capacity))
+        # Reads (submit_task) get their OWN cap: a miss storm must not fill
+        # the shared queue and starve WAL appends of their capacity slots,
+        # and appends must not let tasks pile up unbounded.
+        self._task_cap = max(1, int(task_capacity if task_capacity is not None
+                                    else capacity))
         self._q: list = []
+        self._n_task = 0
         self._cv = threading.Condition()
         self._closed = False
         self.coalesce_cb = coalesce_cb     # callable(n_merged_fsyncs)
@@ -84,11 +97,14 @@ class AsyncIORing:
         with self._cv:
             if self._closed:
                 raise IOError_("async IO ring is closed")
-            while (not self._closed and kind == "append"
-                   and len(self._q) >= self._cap):
+            while not self._closed and (
+                    (kind == "append" and len(self._q) >= self._cap)
+                    or (kind == "task" and self._n_task >= self._task_cap)):
                 self._cv.wait()  # bounded: back-pressure the producer
             if self._closed:
                 raise IOError_("async IO ring is closed")
+            if kind == "task":
+                self._n_task += 1
             self._q.append((kind, f, data, tok))
             self._cv.notify_all()
         return tok
@@ -103,6 +119,12 @@ class AsyncIORing:
         """Completes when every append for `wfile` submitted before it has
         been written (and the file flushed); carries any parked error."""
         return self._submit("fbarrier", wfile, None)
+
+    def submit_task(self, fn) -> AioToken:
+        """Generic async work on the I/O thread (prefetch window reads,
+        the read plane's block reads); token.wait() returns fn()'s
+        result."""
+        return self._submit("task", None, fn)
 
     def drain(self) -> None:
         """Global barrier: every previously submitted op is settled."""
@@ -137,6 +159,7 @@ class AsyncIORing:
                     return
                 batch = self._q
                 self._q = []
+                self._n_task = 0
                 self._cv.notify_all()
             per_file: dict[int, list] = {}  # id -> [f, appended, syncs, fbars]
             global_bars: list[AioToken] = []
@@ -157,6 +180,12 @@ class AsyncIORing:
                         self.appends += 1
                         state(f)[1] = True
                         tok.done()
+                elif kind == "task":
+                    r = self._exec("task", data, 0)
+                    if type(r) is tuple and r and r[0] is _AIO_ERR:
+                        tok.done(r[1])
+                    else:
+                        tok.done(result=r)
                 elif kind == "sync":
                     self.syncs += 1
                     state(f)[2].append(tok)

@@ -3,7 +3,9 @@ trimmed to the faults the port's tests inject): FaultInjectionEnv's
 `corrupt_reads` wraps any Env and damages the bytes its random-access and
 sequential reads return, while the files on disk stay intact (the role of
 RocksDB's utilities/fault_injection_fs.h FaultInjectionTestFS);
-WalWriterFaultInjector fails or delays the async WAL writer's ring ops."""
+DelayedReadEnv sleeps before every random-access read;
+WalWriterFaultInjector fails or delays the async WAL writer's ring ops,
+ReadFaultInjector the async read plane's reader-ring tasks."""
 
 from __future__ import annotations
 
@@ -157,6 +159,50 @@ class _FISequential:
         self._base.close()
 
 
+class DelayedReadEnv:
+    """Env wrapper whose random-access reads sleep `delay_sec` first.
+
+    Models device read latency on a page-cache-warm box, where real
+    preads return in microseconds and I/O overlap is unmeasurable: the
+    cold-cache twins run the async read plane (env/async_reads.py) on
+    and off on this env, so the ratio isolates ring fan-out and
+    coalescing. Wrapped file handles also make the native get / multiget
+    chains ineligible (no raw fd), which keeps the two twins on the same
+    Python walk — the comparison never mixes native-vs-Python with
+    sync-vs-async.
+    """
+
+    def __init__(self, base, delay_sec: float = 0.0002):
+        self.base = base
+        self.delay_sec = delay_sec
+        self.delayed_reads = 0  # benign race: diagnostic counter only
+
+    def new_random_access_file(self, path: str):
+        return _DelayedRandom(self, self.base.new_random_access_file(path))
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+
+class _DelayedRandom:
+    def __init__(self, env: DelayedReadEnv, base):
+        self._env = env
+        self._base = base
+
+    def read(self, offset, n):
+        import time as _t
+
+        _t.sleep(self._env.delay_sec)
+        self._env.delayed_reads += 1
+        return self._base.read(offset, n)
+
+    def size(self):
+        return self._base.size()
+
+    def close(self):
+        self._base.close()
+
+
 class WalWriterFaultInjector:
     """Seeded fault points for the async WAL writer's submit ring
     (env/env.py AsyncIORing.fault_hook; a DB picks it up from its Env's
@@ -208,6 +254,67 @@ class WalWriterFaultInjector:
         elif p == "fail":
             raise IOError_(
                 f"injected WAL-writer {kind} failure at op {ordinal}")
+
+    def injected_counts(self) -> dict:
+        with self._mu:
+            out: dict[str, int] = {}
+            for _o, _k, p in self.injected:
+                out[p] = out.get(p, 0) + 1
+            return out
+
+
+class ReadFaultInjector:
+    """Seeded fault points for the async read plane's reader rings
+    (env/async_reads.py AsyncReadBatcher, plugged in as each ring's
+    `fault_hook`): every executed ring entry draws a plan decided by
+    (seed, executed-op ordinal), so a read-path chaos soak reproduces
+    the exact same ring-thread failures from a seed.
+
+      "fail"   the ring task raises IOError_ — the waiter of THAT block's
+               token receives it (error propagation), the ring itself is
+               not poisoned, and the next batch runs clean (resume)
+      "delay"  the ring thread sleeps `delay_sec` first — models device
+               read latency, which is also what the cold-cache bench uses
+               to make I/O overlap measurable on a page-cache-warm box
+
+    `schedule` pins a plan to a specific executed-op ordinal (0-based);
+    `rate` injects pseudo-randomly with plan weights `plans`. `ops`
+    defaults to ("task",) — block reads ride the ring as task entries."""
+
+    def __init__(self, schedule: dict | None = None, rate: float = 0.0,
+                 plans: tuple = ("fail", "delay"), seed: int = 0,
+                 delay_sec: float = 0.0002, ops: tuple = ("task",)):
+        import random
+
+        self.schedule = dict(schedule or {})
+        self.rate = rate
+        self.plans = tuple(plans)
+        self.delay_sec = delay_sec
+        self.ops = tuple(ops)
+        self._rng = random.Random(seed)
+        self._mu = threading.Lock()
+        self._ordinal = 0
+        self.injected: list[tuple[int, str, str]] = []  # (ordinal, kind, plan)
+
+    def __call__(self, kind: str, nbytes: int) -> None:
+        if kind not in self.ops:
+            return
+        with self._mu:
+            ordinal = self._ordinal
+            self._ordinal += 1
+            p = self.schedule.get(ordinal)
+            if p is None and self.rate > 0 and self.plans:
+                if self._rng.random() < self.rate:
+                    p = self.plans[self._rng.randrange(len(self.plans))]
+            if p:
+                self.injected.append((ordinal, kind, p))
+        if p == "delay":
+            import time as _t
+
+            _t.sleep(self.delay_sec)
+        elif p == "fail":
+            raise IOError_(
+                f"injected reader-ring {kind} failure at op {ordinal}")
 
     def injected_counts(self) -> dict:
         with self._mu:

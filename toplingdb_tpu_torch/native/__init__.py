@@ -502,6 +502,15 @@ def fastget():
         return mod.get
 
 
+def fastmultiget():
+    """The C-extension whole-batch MultiGet of tpulsm_getctx_multiget
+    (`fastget.c`: list of bytes in, (results, counters) out), or None when
+    the extension is unavailable."""
+    if fastget() is None:
+        return None
+    return getattr(_fastget_mod, "multiget", None)
+
+
 def np_u8p(arr):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 

@@ -1,8 +1,7 @@
 """Chunked forward-scan data plane: native block decode + k-way merge
 for DBIter (copied from toplingdb_tpu/ops/scan_plane.py, with the scan's
-protection bank, without the async read plane's rings and a fixed
-readahead window: async reads and ReadOptions.readahead_size are not in
-the port's DB, which refuses them).
+protection bank, ReadOptions.readahead_size's fixed window and the async
+read plane's ring windows).
 
 The per-entry read path (DBIter over MergingIterator) pays a Python heap
 pop/push, a comparator call, and an internal-key split for EVERY version
@@ -329,12 +328,16 @@ class _SSTSource:
     keeps chunk-merge eligibility on searchable-compression levels."""
 
     def __init__(self, files, table_cache, icmp, upper_target,
-                 prot_bank=None, protection_bytes: int = 0, stats=None):
+                 readahead_size: int = 0, prot_bank=None,
+                 protection_bytes: int = 0, stats=None, aio_ring=None):
         self._files = files
         self._tc = table_cache
         self._icmp = icmp
         self._upper_t = upper_target
         self._stats = stats
+        self._ra = readahead_size
+        # Async read plane: readahead windows become reader-ring tasks.
+        self._aio = aio_ring
         self._prot_bank = prot_bank
         self._pb = protection_bytes
         self.pending = _Pending()
@@ -417,11 +420,18 @@ class _SSTSource:
             for k, enc in idx.entries():
                 handles.append(fmt.BlockHandle.decode_exact(enc))
                 seps.append(k)
-            # Auto-scaling: the window arms after two sequential span reads
-            # and doubles per refill; a point seek pays one block-sized
-            # pread, like the per-entry path.
-            pf = FilePrefetchBuffer(reader._f, max_readahead=_PF_MAX,
-                                    initial_readahead=_PF_INIT)
+            if self._ra > 0:
+                pf = FilePrefetchBuffer(
+                    reader._f, max_readahead=self._ra,
+                    initial_readahead=self._ra, arm_immediately=True,
+                    aio_ring=self._aio)
+            else:
+                # Auto-scaling: the window arms after two sequential span
+                # reads and doubles per refill; a point seek pays one
+                # block-sized pread, like the per-entry path.
+                pf = FilePrefetchBuffer(
+                    reader._f, max_readahead=_PF_MAX,
+                    initial_readahead=_PF_INIT, aio_ring=self._aio)
             memo = (reader,
                     np.array([h.offset for h in handles], dtype=np.int64),
                     np.array([h.size for h in handles], dtype=np.int64),
@@ -905,11 +915,13 @@ class ScanPlane:
 def make_scan_plane(mems, l0_files, level_runs, table_cache, icmp,
                     snap_seq, rd, lower, upper, blob_resolver,
                     merge_operator, stats, chunk: int,
-                    protection_bytes: int = 0):
+                    readahead_size: int = 0, protection_bytes: int = 0,
+                    aio_rings=None):
     """Build a ScanPlane for DB.new_iterator, or None when the iterator
     shape is ineligible at construction time (per-file eligibility is
     checked lazily and bails mid-stream instead). `chunk` is the DB's
-    iter_chunk_rows (0 = no plane)."""
+    iter_chunk_rows (0 = no plane); `aio_rings` the DB's
+    AsyncReadBatcher when the async read plane is on."""
     if chunk == 0 or merge_operator is not None:
         return None
     if icmp.user_comparator.name() != "tpulsm.BytewiseComparator":
@@ -934,16 +946,23 @@ def make_scan_plane(mems, l0_files, level_runs, table_cache, icmp,
     sources: list = [_MemSource(m, prot_bank=bank,
                                 protection_bytes=protection_bytes)
                      for m in mems]
-    for f in l0_files:
+    # Async read plane: each SST source pins one reader ring so its
+    # doubling readahead windows stay ordered per source while distinct
+    # sources overlap their I/O.
+    def _ring(seq):
+        return aio_rings.ring_for(seq) if aio_rings is not None else None
+
+    for i, f in enumerate(l0_files):
         sources.append(_SSTSource([f], table_cache, icmp, upper_t,
-                                  prot_bank=bank,
+                                  readahead_size, prot_bank=bank,
                                   protection_bytes=protection_bytes,
-                                  stats=stats))
-    for files in level_runs:
+                                  stats=stats, aio_ring=_ring(i)))
+    for i, files in enumerate(level_runs):
         sources.append(_SSTSource(list(files), table_cache, icmp, upper_t,
-                                  prot_bank=bank,
+                                  readahead_size, prot_bank=bank,
                                   protection_bytes=protection_bytes,
-                                  stats=stats))
+                                  stats=stats,
+                                  aio_ring=_ring(len(l0_files) + i)))
     if not sources:
         return None
     return ScanPlane(sources, icmp, snap_seq, rd, upper, lower,

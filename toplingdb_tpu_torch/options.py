@@ -75,7 +75,7 @@ class Options:
     # Submit-ring capacity (entries) of the async WAL writer.
     async_wal_ring_size: int = 256
     # Async read plane (env/async_reads.py AsyncReadBatcher, engaged by
-    # TPULSM_ASYNC_READS=1): number of reader rings — dedicated I/O
+    # DB.open(async_reads=True)): number of reader rings — dedicated I/O
     # threads the batched block fetches fan out across. os.pread drops
     # the GIL, so N rings genuinely overlap a cold-cache miss storm.
     async_read_rings: int = 4
@@ -234,8 +234,9 @@ class Options:
     disk_pressure_hysteresis: float = 0.02
 
     # -- caches ---------------------------------------------------------
-    # Shared block cache (utils.cache.LRUCache; optionally backed by a
-    # utils.persistent_cache.PersistentCache secondary tier). None = the
+    # Shared block cache (utils.cache.LRUCache or ClockCache, optionally
+    # backed by a CompressedSecondaryCache or a utils.persistent_cache.
+    # PersistentCache secondary tier; a SimCache wraps either). None = the
     # reader's per-file behavior without a shared cache.
     block_cache: Optional[object] = None
 
@@ -409,8 +410,6 @@ class FlushOptions:
 # when one is set away from its default. Everything else in Options runs.
 UNPORTED = {
     "read_only": "read-only and secondary opens",
-    "async_read_rings": "the async read plane",
-    "async_read_task_capacity": "the async read plane",
     "db_write_buffer_size": "a DB-wide write budget, which toplingdb_tpu "
                             "declares but does not run either (share a "
                             "WriteBufferManager through "
@@ -430,7 +429,6 @@ UNPORTED = {
     "disk_amber_free_ratio": "the storage-pressure plane",
     "disk_red_free_ratio": "the storage-pressure plane",
     "disk_pressure_hysteresis": "the storage-pressure plane",
-    "block_cache": "the block cache",
     "recycle_log_file_num": "WAL recycling",
     "wal_ttl_seconds": "WAL archiving",
     "shared_store": "the shared SST store",

@@ -1,5 +1,5 @@
 """Table format factory and adaptive reader dispatch (copied from
-toplingdb_tpu/table/factory.py, without the block cache arguments).
+toplingdb_tpu/table/factory.py).
 
 Builders are chosen by `TableOptions.format`; readers are dispatched by
 the footer magic, so a job may read a mix of formats.
@@ -55,11 +55,17 @@ def new_table_builder(wfile, icmp, options: TableOptions | None = None,
     return _BUILDERS[f](wfile, icmp, options, **kw)
 
 
-def open_table(rfile, icmp, options: TableOptions | None = None):
+def open_table(rfile, icmp, options: TableOptions | None = None,
+               block_cache=None, cache_key_prefix: bytes = b""):
     """Adaptive open: dispatch on the footer magic."""
     size = rfile.size()
     tail = rfile.read(max(0, size - fmt.FOOTER_LEN), fmt.FOOTER_LEN)
     magic = fmt.Footer.read_magic(tail)
     if magic not in _READERS:
         raise Corruption(f"unknown SST magic {magic:#x}")
+    if magic == fmt.MAGIC:
+        # Block tables read block by block, through the shared cache; the
+        # other formats hold their whole file (or its sections) resident.
+        return TableReader(rfile, icmp, options, block_cache=block_cache,
+                           cache_key_prefix=cache_key_prefix)
     return _READERS[magic](rfile, icmp, options)

@@ -1,5 +1,4 @@
-"""SST reader (copied from toplingdb_tpu/table/reader.py, without the
-block cache).
+"""SST reader (copied from toplingdb_tpu/table/reader.py).
 
 Opens a block-based SST: footer → metaindex → {filter or filter-partition
 top index, properties, range-del, compression-dictionary} blocks and the
@@ -7,10 +6,12 @@ index held in memory — the whole index, or for a two-level index its top
 level, whose partitions load as an iterator reaches them. Data blocks are
 read (and inflated, with the file's ZSTD dictionary where it has one) per
 iterator step through the iterator's own readahead buffer
-(`table/prefetch.py`). The columnar compaction scan goes through the
-native whole-file decoder (`ops/columnar_io.py`), which uses the reader for
-the file handle, the index, the properties and the dictionary; the
-per-entry route iterates. `native_get_handle` hands the DB's native
+(`table/prefetch.py`), or through the async read plane's prefetched spans
+(`env/async_reads.py`), and cached in the DB's block cache where it has
+one, under `cache_key_prefix` + the block handle. The columnar compaction
+scan goes through the native whole-file decoder (`ops/columnar_io.py`),
+which uses the reader for the file handle, the index, the properties and
+the dictionary; the per-entry route iterates. `native_get_handle` hands the DB's native
 point-read chain (db/db.py `_native_get`) this table's index, filter and
 a dup of its file descriptor.
 """
@@ -45,8 +46,11 @@ _NGET_ID = itertools.count(1)
 
 class TableReader:
     def __init__(self, rfile, icmp: InternalKeyComparator,
-                 options: TableOptions | None = None):
+                 options: TableOptions | None = None,
+                 block_cache=None, cache_key_prefix: bytes = b""):
         self.opts = options or TableOptions()
+        self._cache = block_cache
+        self._cache_prefix = cache_key_prefix
         self._f = rfile
         self._icmp = icmp
         size = rfile.size()
@@ -167,10 +171,12 @@ class TableReader:
         return h
 
     def plan_block_reads(self, seek_ikeys) -> list[tuple[int, int]]:
-        """The (offset, length) byte ranges of the data blocks that seeking
-        each internal key lands on, deduplicated, in first-seen order. The
-        length covers the block trailer, exactly what `fmt.read_block`
-        consumes (the reference's async read plane preloads these)."""
+        """The async read plane's planner: the (offset, length) byte ranges
+        of the data blocks that seeking each internal key lands on,
+        deduplicated, in first-seen order, block-cache-resident handles
+        skipped. The length covers the block trailer, exactly what
+        `fmt.read_block` consumes, so a prefetched range serves
+        `_read_data_block` byte for byte."""
         idx = self.new_index_iterator()
         seen: set[int] = set()
         out: list[tuple[int, int]] = []
@@ -182,6 +188,9 @@ class TableReader:
             if h.offset in seen:
                 continue
             seen.add(h.offset)
+            if self._cache is not None and self._cache.lookup(
+                    self._cache_prefix + h.encode()) is not None:
+                continue  # resident: the probe will hit the cache
             out.append((h.offset, h.size + fmt.BLOCK_TRAILER_SIZE))
         return out
 
@@ -209,10 +218,13 @@ class TableReader:
         if not it.valid():
             return False  # past every partition: absent
         handle = fmt.BlockHandle.decode_exact(it.value())
-        fdata = self._filter_part_memo.get(handle.offset)
-        if fdata is None:
-            fdata = self.read_block(handle)
-            self._filter_part_memo[handle.offset] = fdata
+        if self._cache is not None:
+            fdata = self._read_data_block(handle, kind="filter")
+        else:
+            fdata = self._filter_part_memo.get(handle.offset)
+            if fdata is None:
+                fdata = self._read_data_block(handle, kind="filter")
+                self._filter_part_memo[handle.offset] = fdata
         return self._filter_policy.key_may_match(user_key, fdata)
 
     def prefix_may_match(self, prefix: bytes) -> bool:
@@ -223,12 +235,42 @@ class TableReader:
             return True
         return self._filter_policy.key_may_match(prefix, self._filter_data)
 
-    def read_block(self, handle: fmt.BlockHandle, pf=None) -> bytes:
+    def _read_data_block(self, handle: fmt.BlockHandle, pf=None,
+                         kind: str = "") -> bytes:
         """One block (index partition, filter partition or data block),
-        read through `pf` (an iterator's readahead buffer) when given."""
-        return fmt.read_block(pf if pf is not None else self._f, handle,
+        through the block cache where the reader has one, read through
+        `pf` (an iterator's readahead buffer or the async read plane's
+        prefetched spans) when given. `kind`: "filter" / "index" routes
+        the PerfContext cache counters to the typed fields; "" counts as
+        a data block."""
+        from toplingdb_tpu_torch.utils import statistics as st
+
+        cache = self._cache
+        if cache is not None:
+            ckey = self._cache_prefix + handle.encode()
+            data = cache.lookup(ckey)
+            if data is not None:
+                if st.perf_level:
+                    ctx = st.perf_context()
+                    if kind == "filter":
+                        ctx.block_cache_filter_hit_count += 1
+                    elif kind == "index":
+                        ctx.block_cache_index_hit_count += 1
+                    else:
+                        ctx.block_cache_hit_count += 1
+                return data
+        data = fmt.read_block(pf if pf is not None else self._f, handle,
                               self.opts.verify_checksums,
                               self._compression_dict)
+        if cache is not None:
+            cache.insert(ckey, data, len(data))
+        if st.perf_level:
+            ctx = st.perf_context()
+            if cache is not None and not kind:
+                ctx.block_cache_miss_count += 1
+            ctx.block_read_count += 1
+            ctx.block_read_byte += len(data)
+        return data
 
     def new_index_iterator(self):
         """Iterator over (separator_key, data BlockHandle bytes), flat or
@@ -237,8 +279,17 @@ class TableReader:
             return _PartitionedIndexIter(self)
         return BlockIter(self._index_data, self._icmp.compare)
 
-    def new_iterator(self) -> "TableIterator":
-        return TableIterator(self)
+    def new_iterator(self, readahead_size: int = 0, preread=None,
+                     aio_ring=None) -> "TableIterator":
+        """`readahead_size`: ReadOptions.readahead_size, a fixed window
+        armed at once for this iterator; 0 keeps the auto-scaling ramp.
+        `preread`: a PrereadSpans overlay (env/async_reads.py) replacing
+        the prefetch buffer, so the async read plane's batched block
+        fetches serve this iterator's loads. `aio_ring`: an AsyncIORing
+        for the prefetch buffer's readahead windows (they become ring
+        tasks instead of inline preads)."""
+        return TableIterator(self, readahead_size=readahead_size,
+                             preread=preread, aio_ring=aio_ring)
 
     def range_del_entries(self) -> list[tuple[bytes, bytes]]:
         """Raw (begin_internal_key, end_user_key) tombstones in this file."""
@@ -265,7 +316,8 @@ class _PartitionedIndexIter:
             self._sub = None
             return
         h = fmt.BlockHandle.decode_exact(self._top.value())
-        self._sub = BlockIter(self._r.read_block(h), self._cmp)
+        self._sub = BlockIter(self._r._read_data_block(h, kind="index"),
+                              self._cmp)
 
     def valid(self) -> bool:
         return self._sub is not None and self._sub.valid()
@@ -322,14 +374,27 @@ class TableIterator:
     """Two-level iterator: index → data block. Sequential block loads go
     through a FilePrefetchBuffer (windowed readahead)."""
 
-    def __init__(self, reader: TableReader):
+    def __init__(self, reader: TableReader, readahead_size: int = 0,
+                 preread=None, aio_ring=None):
         from toplingdb_tpu_torch.table.prefetch import FilePrefetchBuffer
 
         self._r = reader
         self._cmp = reader._icmp.compare
         self._idx = reader.new_index_iterator()
         self._data: BlockIter | None = None
-        self._pf = FilePrefetchBuffer(reader._f)
+        # Sequential block loads escalate to windowed preads; random seeks
+        # pass through. A nonzero readahead_size pins a window armed at
+        # once instead of the ramp; a `preread` overlay replaces the
+        # buffer outright; an `aio_ring` moves the windows onto a ring.
+        if preread is not None:
+            self._pf = preread
+        elif readahead_size > 0:
+            self._pf = FilePrefetchBuffer(
+                reader._f, max_readahead=readahead_size,
+                initial_readahead=readahead_size, arm_immediately=True,
+                aio_ring=aio_ring)
+        else:
+            self._pf = FilePrefetchBuffer(reader._f, aio_ring=aio_ring)
 
     def prefetch_counts(self) -> tuple[int, int]:
         """(hits, misses) of this iterator's readahead buffer."""
@@ -340,7 +405,7 @@ class TableIterator:
             self._data = None
             return
         handle = fmt.BlockHandle.decode_exact(self._idx.value())
-        self._data = BlockIter(self._r.read_block(handle, self._pf),
+        self._data = BlockIter(self._r._read_data_block(handle, pf=self._pf),
                                self._cmp)
 
     def valid(self) -> bool:

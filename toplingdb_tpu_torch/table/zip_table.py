@@ -515,13 +515,18 @@ class ZipTableReader:
                                                      self._filter_data)
         return True
 
-    def new_iterator(self) -> "ZipTableIterator":
-        return ZipTableIterator(self)
+    def new_iterator(self, preread=None) -> "ZipTableIterator":
+        """`preread`: the async read plane's preload — {value-group
+        ordinal → completion token} whose wait() returns
+        `_value_group(vg)`'s result, so mini-group zstd inflates ran on a
+        reader ring while the request thread was elsewhere
+        (env/async_reads.py)."""
+        return ZipTableIterator(self, preload=preread)
 
     def plan_value_groups(self, seek_ikeys) -> list[int]:
         """The value-group ordinals the entries landed on by each internal
-        seek key live in, deduplicated, compressed groups only (the
-        reference's async read plane preloads these decodes)."""
+        seek key live in, deduplicated, compressed groups only (the async
+        read plane's planner: it preloads these decodes)."""
         out: list[int] = []
         seen: set[int] = set()
         for ik in seek_ikeys:
@@ -748,7 +753,7 @@ def _zip_handle_free(free_fn, h, _sections):
 class ZipTableIterator:
     """Forward/backward iterator over one ZipTable (TableIterator shape)."""
 
-    def __init__(self, r: ZipTableReader):
+    def __init__(self, r: ZipTableReader, preload: dict | None = None):
         self._r = r
         self._i = r.n
         self._gkeys: list[bytes] = []
@@ -756,6 +761,9 @@ class ZipTableIterator:
         self._vg = -1
         self._vg_payload: bytes = b""
         self._vg_offs: np.ndarray | None = None
+        # {vg → token} of ring-side _value_group decodes (async plane);
+        # each consumed once, then the sync decode path takes over.
+        self._preload = preload
 
     def _load(self, g: int) -> None:
         if g != self._g:
@@ -773,7 +781,11 @@ class ZipTableIterator:
         r = self._r
         vg = self._i // r.VG
         if vg != self._vg:
-            self._vg_payload, self._vg_offs = r._value_group(vg)
+            tok = self._preload.pop(vg, None) if self._preload else None
+            if tok is not None:
+                self._vg_payload, self._vg_offs = tok.wait()
+            else:
+                self._vg_payload, self._vg_offs = r._value_group(vg)
             self._vg = vg
         off = int(self._vg_offs[self._i % r.VG])
         return bytes(
