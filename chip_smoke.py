@@ -359,6 +359,52 @@ Phases (any failure ends the run with a non-zero exit code):
      READ_ASYNC_BATCHES and READ_ASYNC_COALESCED, the scans' walls and the
      card's busy share from open to the last read. Its gc_rows and merge
      launches are added to the kernels line's counts.
+ 21. the DB's manual and introspection entry points and its WAL plane, on
+     phase 13's deployment (MANUAL_N = 1,000,000 16-digit keys with
+     20-byte values from 4 threads in batches of 100, 8 MiB write buffer,
+     leveled, the "cuda" device factory; SSTs of 512 KiB, so that a 5% key
+     slice holds whole files, and an L0 trigger of 16, so that the jobs
+     set_options starts come from the marks): (a) the fill with auto
+     compactions off, so L0 piles up; compact_files of the older half of
+     L0 into L1, then of two L1 files into L2; suggest_compact_range over
+     the middle third of the key space, then
+     set_options({"disable_auto_compactions": False}), whose jobs run
+     while tpulsm.threads is polled (each pick logged: the first has
+     marked inputs with L0 below its trigger); delete_range over a 5%
+     slice, delete_files_in_range over it (whole files dropped) and
+     compact_range over it (RocksDB's recipe, which clears the boundary
+     data and the tombstone); each call's wall, device jobs and input /
+     output bytes (COMPACT_READ_BYTES / COMPACT_WRITE_BYTES) printed;
+     MANUAL_PROBES = 100,000 probes (bench.py's Random(5) draw) through
+     multi_get batches of 128 (the share the native whole-batch call took)
+     and a full scan equal the oracle; pause_background_work, a
+     MANUAL_OVERLAY_N = 100,000-key overlay and write_stall_state ("none",
+     not drainable), continue_background_work, wait, the state again and
+     the probes again; (b) on the same DB: get_approximate_sizes over 64
+     equal key ranges beside the live bytes of those ranges (the scan's
+     keys in each times the live bytes an entry), the whole key range
+     within 20% of tpulsm.estimate-live-data-size; every get_property
+     name; the backup recipe: disable_file_deletions, get_live_files and
+     get_sorted_wal_files, the files copied with the MANIFEST truncated at
+     manifest_file_size, enable_file_deletions, and the copy opened on
+     "cuda" scans equal to the source; the DB reopened with the uint64add
+     operator (which takes scans off the chunk plane, so only here) for a
+     MANUAL_MERGE_N = 10,000-key merge overlay (a put, flushed, then two
+     merges) read back by get_merge_operands as [base, 1, 2];
+     promote_l0(6) on a second DB filled in 10 disjoint sequential runs
+     with a flush after each (10,000 probes and a reopen); (c) db_bench's
+     fillrandom of MANUAL_N keys from 4 writers with
+     recycle_log_file_num=2 and with 0 (ops/s and the WALs reused, counted
+     at the env's reuse_writable_file), the recycled DB dropped without a
+     flush and reopened, so that recovery reads its recycled WALs (the
+     live one a reused file): 20,000 probes and a full scan equal the
+     oracle; a fill of MANUAL_N / 5 keys with wal_ttl_seconds=3600:
+     get_wal_files lists archived and live WALs, the archive aged with
+     os.utime, and the next switch purges it; (d) every job of the phase
+     on "cuda", gc_rows launched by each job that no other overlapped; the
+     launches and the card's busy share from open to the last read printed
+     beside the card's name and power limit. Its gc_rows and merge
+     launches are added to the kernels line's counts.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -418,6 +464,12 @@ READ_PROBES = 100_000   # phase 20 (a): multireadrandom probes
 READ_CACHE_PROBES = 20_000  # phase 20 (b): cut from 100,000 (docstring)
 COLD_N = 30_000         # phase 20 (c): bench.py's cold async twin
 COLD_PROBES = 4_096     # phase 20 (c): its probes
+MANUAL_N = 1_000_000    # phase 21: phase 13's deployment
+MANUAL_OVERLAY_N = 100_000  # phase 21 (a): keys written while paused
+MANUAL_PROBES = 100_000  # phase 21 (a): probes through multi_get
+MANUAL_MERGE_N = 10_000  # phase 21 (b): the uint64add merge overlay
+MANUAL_TARGET_FILE = 512 << 10  # phase 21: SST size (docstring)
+MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
 
 
 def log(msg: str) -> None:
@@ -4701,6 +4753,432 @@ def read_path(torch, root, n, card, device_name="cuda", db13=None):
     return gc_n, mr_n
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the manual and introspection entry points, WAL recycling and
+# archiving
+# ---------------------------------------------------------------------------
+
+
+def manual_path(torch, root, n, card, device_name="cuda", wbuf=8 << 20,
+                target_file=MANUAL_TARGET_FILE):
+    """Phase 21 (see the module docstring): (a) manual compaction on the
+    card, (b) introspection, (c) WAL recycling and archiving. Every DB of
+    the phase opens with one device factory, under one JobLog; `wbuf` and
+    `target_file` are the write buffer and SST sizes. Returns the
+    (gc_rows, merge_runs) launches."""
+    import itertools
+    import random
+    import struct
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.merge_operator import UInt64AddOperator
+
+    value, over = b"v" * 20, b"o" * 20
+    os.makedirs(root, exist_ok=True)
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+
+    def options(**kw):
+        return Options(create_if_missing=True, write_buffer_size=wbuf,
+                       compaction_executor_factory=factory, **kw)
+
+    def kv(i):
+        return db_key(i, n), value
+
+    # The 5% slice that delete_range and delete_files_in_range clear, and
+    # the 100,000-key overlay written while background work is paused.
+    lo, hi = b"%016d" % (2 * n * 40 // 100), b"%016d" % (2 * n * 45 // 100)
+    overlay = {db_key(i, n) for i in range(min(MANUAL_OVERLAY_N, n))}
+    written = {"overlay": False}
+
+    def value_of(k):
+        if written["overlay"] and k in overlay:
+            return over
+        return None if lo <= k < hi else value
+
+    rng = random.Random(5)
+    probes = [db_key(rng.randrange(n), n) for _ in range(MANUAL_PROBES)]
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        # (a) Manual compaction on the card.
+        stats = st.Statistics()
+        dbdir = os.path.join(root, "db")
+        db = DB.open(dbdir, options(
+            statistics=stats, disable_auto_compactions=True,
+            target_file_size_base=target_file,
+            level0_file_num_compaction_trigger=MANUAL_L0_TRIGGER))
+        fill = threaded_fill(db, n, kv)
+        db.flush()
+        l0 = [f.number for f in db.versions.current.files[0]]
+        assert len(l0) >= 4, f"L0 holds {len(l0)} files after the fill"
+        log(f"[manual a] fillrandom {n} keys, auto compactions off: "
+            f"{fill:.3f}s, {n / fill:.0f} ops/s, {len(l0)} L0 files "
+            f"[{card}]")
+
+        def call(tag, fn, *args):
+            """One entry point: its wall, device jobs and the bytes its
+            jobs read and wrote."""
+            j0 = len(joblog.jobs)
+            r0 = stats.get_ticker_count(st.COMPACT_READ_BYTES)
+            w0 = stats.get_ticker_count(st.COMPACT_WRITE_BYTES)
+            t0 = time.time()
+            out = fn(*args)
+            wall = time.time() - t0
+            jobs = len(joblog.jobs) - j0
+            rd = stats.get_ticker_count(st.COMPACT_READ_BYTES) - r0
+            wr = stats.get_ticker_count(st.COMPACT_WRITE_BYTES) - w0
+            log(f"[manual a] {tag}: {wall:.3f}s, {jobs} device jobs, "
+                f"{rd} bytes in, {wr} bytes out [{card}]")
+            return out, jobs
+
+        _, jobs = call(f"compact_files of the older {len(l0) // 2} of "
+                       f"{len(l0)} L0 files into L1", db.compact_files,
+                       l0[len(l0) - len(l0) // 2:], 1)
+        assert jobs == 1 and not set(l0[len(l0) - len(l0) // 2:]) & {
+            f.number for f in db.versions.current.files[0]}
+        l1 = [f.number for f in db.versions.current.files[1]]
+        assert len(l1) >= 3, l1
+        _, jobs = call(f"compact_files of L1 files {l1[1:3]} into L2",
+                       db.compact_files, l1[1:3], 2)
+        assert {f.number for f in db.versions.current.files[2]}
+        marked, _ = call(
+            "suggest_compact_range over the middle third",
+            db.suggest_compact_range, b"%016d" % (2 * n // 3),
+            b"%016d" % (4 * n // 3))
+        assert marked > 0
+        # Each pick that follows: its reason, the marked files among its
+        # inputs and L0's file count, which stays below the L0 trigger, so
+        # the first pick comes from the marks.
+        picks = []
+        picker = db._compaction_scheduler.picker
+        pick = picker.pick_compaction
+
+        def logged_pick(version):
+            c = pick(version)
+            if c is not None:
+                picks.append((c.reason, sum(
+                    f.marked_for_compaction for _, f in c.all_inputs()),
+                    len(version.files[0])))
+            return c
+
+        picker.pick_compaction = logged_pick
+        seen_threads = []
+
+        def enable_and_wait():
+            db.set_options({"disable_auto_compactions": False})
+            sched = db._compaction_scheduler
+            while sched._running or sched._pending:
+                rows = json.loads(db.get_property("tpulsm.threads"))
+                seen_threads.extend(r["operation"] for r in rows)
+                time.sleep(0.005)
+            db.wait_for_compactions()
+
+        _, jobs = call(f"set_options(disable_auto_compactions=False) and "
+                       f"the jobs of {marked} marked files",
+                       enable_and_wait)
+        picker.pick_compaction = pick
+        reasons = [j["reason"] for j in joblog.jobs]
+        assert jobs > 0 and not any(
+            f.marked_for_compaction
+            for _, f in db.versions.current.all_files()), reasons
+        assert picks and picks[0][1] > 0, picks
+        assert picks[0][2] < MANUAL_L0_TRIGGER, picks
+        log(f"[manual a] the picks after set_options (reason, marked "
+            f"inputs, L0 files): {picks} [{card}]")
+        db.delete_range(lo, hi)
+        dropped, _ = call("delete_range + delete_files_in_range over a 5% "
+                          "slice", db.delete_files_in_range, lo, hi)
+        assert dropped > 0, "no whole file inside the 5% slice"
+        # RocksDB's recipe: a compaction of the slice then clears the
+        # boundary files' data and the tombstone.
+        call("compact_range over the slice", db.compact_range, lo, hi)
+        log(f"[manual a] {dropped} files dropped; job reasons "
+            f"{json.dumps(reasons)}; threads seen by tpulsm.threads "
+            f"during the jobs: {sorted(set(seen_threads))}; levels "
+            f"{db.versions.current.describe()!r} [{card}]")
+
+        native_keys = [0]
+        whole_batch = db._native_multi_get
+
+        def counted_batch(cfd, keys, *a):
+            r = whole_batch(cfd, keys, *a)
+            native_keys[0] += len(keys) if r[0] else 0
+            return r
+
+        db._native_multi_get = counted_batch
+
+        def check_reads(tag):
+            native_keys[0] = 0
+            t0 = time.time()
+            got = [v for i in range(0, len(probes), 128)
+                   for v in db.multi_get(probes[i:i + 128])]
+            mg = time.time() - t0
+            assert got == [value_of(k) for k in probes], tag
+            return mg, native_keys[0] / len(probes)
+
+        mg, share = check_reads("after the manual jobs")
+        fill_keys = sorted(db_key(i, n) for i in range(n))
+        want = [k for k in fill_keys if value_of(k) is not None]
+        t0 = time.time()
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        buckets = [0] * 64
+        for (k, v), wk in zip(it.entries(), want):
+            assert k == wk and v == value_of(wk), (k, wk)
+            buckets[min(63, int(k) * 64 // (2 * n))] += 1
+            got += 1
+        scan = time.time() - t0
+        assert got == len(want) and not it.valid(), (got, len(want))
+        del it
+        log(f"[manual a] {len(probes)} probes through multi_get (batches "
+            f"of 128) {mg:.3f}s, {len(probes) / mg:.0f} ops/s, {share:.4f} "
+            f"of the keys taken by the native whole-batch call; full scan "
+            f"{len(want)} keys {scan:.3f}s; both equal to the oracle "
+            f"[{card}]")
+
+        db.pause_background_work()
+        t0 = time.time()
+        threaded_fill(db, len(overlay),
+                      lambda i: (db_key(i, n), over))
+        ov = time.time() - t0
+        written["overlay"] = True
+        paused = db.write_stall_state()
+        assert paused["drainable"] is False and paused["state"] == "none"
+        t0 = time.time()
+        db.continue_background_work()
+        db.wait_for_compactions()
+        resumed = time.time() - t0
+        after = db.write_stall_state()
+        assert after["drainable"] is True
+        mg2, share2 = check_reads("after the overlay")
+        log(f"[manual a] paused: {len(overlay)}-key overlay {ov:.3f}s, "
+            f"write_stall_state {json.dumps(paused)}; continue + wait "
+            f"{resumed:.3f}s, write_stall_state {json.dumps(after)}; "
+            f"{len(probes)} probes {mg2:.3f}s ({share2:.4f} native) equal "
+            f"to the oracle [{card}]")
+
+        # (b) Introspection on the same DB.
+        live = int(db.get_property("tpulsm.estimate-live-data-size"))
+        entries = sum(f.num_entries
+                      for _, f in db.versions.current.all_files())
+        per_entry = live / max(1, entries)
+        ranges = [(b"%016d" % (2 * n * r // 64),
+                   b"%016d" % (2 * n * (r + 1) // 64)) for r in range(64)]
+        t0 = time.time()
+        sizes = db.get_approximate_sizes(ranges)
+        whole = db.get_approximate_sizes([(b"0" * 16, b":")])[0]
+        appx = time.time() - t0
+        assert abs(whole - live) <= 0.2 * live, (whole, live)
+        ratios = [s / (b * per_entry) for s, b in zip(sizes, buckets) if b]
+        log(f"[manual b] get_approximate_sizes over 64 ranges {appx:.3f}s: "
+            f"{sizes}; live bytes of those ranges (keys in the scan x "
+            f"{per_entry:.2f} bytes a live entry): "
+            f"{[round(b * per_entry) for b in buckets]}; ratio min "
+            f"{min(ratios):.3f} max {max(ratios):.3f}; the whole key range "
+            f"{whole} against estimate-live-data-size {live} "
+            f"({whole / live:.4f}) [{card}]")
+        names = ["tpulsm.stats", "tpulsm.levelstats", "tpulsm.num-files",
+                 "tpulsm.background-errors", "tpulsm.bg-error-severity",
+                 "tpulsm.estimate-num-keys",
+                 "tpulsm.cur-size-all-mem-tables", "tpulsm.num-snapshots",
+                 "tpulsm.estimate-live-data-size",
+                 "tpulsm.num-running-compactions", "tpulsm.threads"] + [
+                     f"tpulsm.num-files-at-level{k}" for k in range(7)]
+        props = {name: db.get_property(name) for name in names}
+        assert all(v is not None for v in props.values()), props
+        assert props["tpulsm.background-errors"] == "0"
+        log(f"[manual b] get_property: {json.dumps(props)}")
+
+        # The backup recipe.
+        cdir = os.path.join(root, "copy")
+        os.makedirs(cdir)
+        t0 = time.time()
+        db.disable_file_deletions()
+        try:
+            files, msize = db.get_live_files()
+            wals = db.get_sorted_wal_files()
+            copied = 0
+            for f in files + wals:
+                shutil.copy2(os.path.join(dbdir, f), os.path.join(cdir, f))
+                if f.startswith("MANIFEST-"):
+                    with open(os.path.join(cdir, f), "r+b") as mf:
+                        mf.truncate(msize)
+                copied += os.path.getsize(os.path.join(cdir, f))
+        finally:
+            db.enable_file_deletions()
+        backup = time.time() - t0
+        # No compaction on the copy: its scan is read beside the source's.
+        copy = DB.open(cdir, options(disable_auto_compactions=True))
+        try:
+            t0 = time.time()
+            src_it, cp_it = db.new_iterator(), copy.new_iterator()
+            src_it.seek_to_first()
+            cp_it.seek_to_first()
+            n_cmp = 0
+            for a, b in itertools.zip_longest(src_it.entries(),
+                                              cp_it.entries()):
+                assert a == b, (n_cmp, a, b)
+                n_cmp += 1
+            assert n_cmp == len(want) + len(
+                [k for k in overlay if lo <= k < hi]), n_cmp
+            cmp_s = time.time() - t0
+            del src_it, cp_it
+        finally:
+            copy.close()
+        log(f"[manual b] backup: disable_file_deletions, get_live_files "
+            f"({len(files)} files, MANIFEST truncated at {msize} bytes), "
+            f"get_sorted_wal_files ({len(wals)}), {copied} bytes copied, "
+            f"enable_file_deletions: {backup:.3f}s; the copy opened on "
+            f"{device_name!r}, its scan of {n_cmp} entries equal to the "
+            f"source's {cmp_s:.3f}s [{card}]")
+        # The merge overlay needs the operator, which takes scans off the
+        # chunk plane: the DB is reopened with it for this part only.
+        db.close()
+        db = DB.open(dbdir, options(
+            statistics=stats, target_file_size_base=target_file,
+            level0_file_num_compaction_trigger=MANUAL_L0_TRIGGER,
+            merge_operator=UInt64AddOperator()))
+        u64 = struct.Struct("<Q").pack
+        mkeys = [b"m%015d" % i for i in range(MANUAL_MERGE_N)]
+        t0 = time.time()
+        for i in range(0, len(mkeys), 100):
+            b = WriteBatch()
+            for k in mkeys[i:i + 100]:
+                b.put(k, u64(7))
+            db.write(b)
+        db.flush()
+        for step in (1, 2):
+            for i in range(0, len(mkeys), 100):
+                b = WriteBatch()
+                for k in mkeys[i:i + 100]:
+                    b.merge(k, u64(step))
+                db.write(b)
+        mw = time.time() - t0
+        t0 = time.time()
+        for k in mkeys:
+            assert db.get_merge_operands(k) == [u64(7), u64(1), u64(2)], k
+        gmo = time.time() - t0
+        assert all(db.get(k) == u64(10) for k in mkeys[::97])
+        log(f"[manual b] uint64add overlay of {len(mkeys)} keys (a put, "
+            f"flushed, then two merges) {mw:.3f}s; get_merge_operands of "
+            f"every key {gmo:.3f}s, {len(mkeys) / gmo:.0f} calls/s, each "
+            f"[base, 1, 2] [{card}]")
+
+        db.close()
+
+        # promote_l0 on a second DB of 10 disjoint sequential runs.
+        pdir = os.path.join(root, "promote")
+        pdb = DB.open(pdir, options(disable_auto_compactions=True))
+        per_run = n // 50
+        t0 = time.time()
+        for r in range(10):
+            for i in range(r * per_run, (r + 1) * per_run, 100):
+                b = WriteBatch()
+                for j in range(i, i + 100):
+                    b.put(b"%016d" % j, value)
+                pdb.write(b)
+            pdb.flush()
+        pfill = time.time() - t0
+        assert len(pdb.versions.current.files[0]) == 10
+        t0 = time.time()
+        pdb.promote_l0(6)
+        promote = time.time() - t0
+        assert not pdb.versions.current.files[0]
+        assert len(pdb.versions.current.files[6]) == 10
+        prng = random.Random(9)
+        for j in (prng.randrange(10 * per_run) for _ in range(10_000)):
+            assert pdb.get(b"%016d" % j) == value, j
+        pdb.close()
+        with DB.open(pdir, options()) as pdb:
+            assert len(pdb.versions.current.files[6]) == 10
+            assert pdb.get(b"%016d" % (10 * per_run - 1)) == value
+        log(f"[manual b] promote_l0: {10 * per_run} sequential keys in 10 "
+            f"flushed runs {pfill:.3f}s; promote_l0(6) of 10 L0 files "
+            f"{promote * 1e3:.3f} ms (metadata only), 10,000 probes and a "
+            f"reopen equal [{card}]")
+
+        # (c) WAL recycling and archiving.
+        rates, reused = {}, {}
+        for recycle in (2, 0):
+            rdir = os.path.join(root, f"recycle{recycle}")
+            rdb = DB.open(rdir, options(recycle_log_file_num=recycle))
+            reuses = []
+            reuse = rdb.env.reuse_writable_file
+
+            def counted_reuse(old, new, reuse=reuse, reuses=reuses):
+                reuses.append(new)
+                return reuse(old, new)
+
+            rdb.env.reuse_writable_file = counted_reuse
+            wall = threaded_fill(rdb, n, kv)
+            rates[recycle] = n / wall
+            reused[recycle] = len(reuses)
+            if recycle:
+                live = os.path.join(rdir, "%06d.log" % rdb._wal_number)
+                assert live in reuses, "the live WAL is not a reused file"
+                crash(rdb)
+                t0 = time.time()
+                rdb = DB.open(rdir, options(recycle_log_file_num=recycle))
+                rec = time.time() - t0
+                rr, rscan, n_rp, found = probe_and_scan(
+                    rdb, fill_keys, lambda k: value, n, "recycled reopen",
+                    n_probe=20_000)
+                assert found == n_rp
+            rdb.close()
+            shutil.rmtree(rdir)
+        assert reused[2] > 0 and reused[0] == 0, reused
+        log(f"[manual c] fillrandom {n} keys, 4 writers: "
+            f"recycle_log_file_num=2 {rates[2]:.0f} ops/s, {reused[2]} "
+            f"WALs reused; recycle_log_file_num=0 {rates[0]:.0f} ops/s, "
+            f"0 reused; ratio {rates[2] / rates[0]:.3f}; the recycled DB "
+            f"dropped without a flush and reopened in {rec:.3f}s (its "
+            f"live WAL a reused file): {n_rp} probes {rr:.3f}s and a full "
+            f"scan {rscan:.3f}s equal to the oracle [{card}]")
+        adir = os.path.join(root, "archive")
+        adb = DB.open(adir, options(wal_ttl_seconds=3600.0))
+        an = n // 5
+        t0 = time.time()
+        threaded_fill(adb, an, lambda i: (db_key(i, an), value))
+        adb.flush()
+        afill = time.time() - t0
+        files = adb.get_wal_files()
+        archived = [p for _n, p, a in files if a]
+        assert archived and any(not a for _n, _p, a in files), files
+        for p in archived:
+            os.utime(p, (1, 1))
+        adb.put(b"%016d" % (2 * an + 1), value)  # a key of the fill's width
+        adb.flush()  # the switch archives the old WAL and purges the aged
+        left = [p for _n, p, a in adb.get_wal_files() if a]
+        assert not set(archived) & set(left), (archived, left)
+        assert adb.get(db_key(an - 1, an)) == value
+        adb.close()
+        log(f"[manual c] wal_ttl_seconds=3600: fill of {an} keys + flush "
+            f"{afill:.3f}s; get_wal_files listed {len(archived)} archived "
+            f"and {len(files) - len(archived)} live WALs; the archive aged "
+            f"by os.utime, the next switch purged all {len(archived)} "
+            f"({len(left)} newly archived left) [{card}]")
+        t_last = time.time()
+        gc_n, mr_n = launched()
+    joblog.check(device_name, "manual")
+    assert joblog.jobs, "no compaction ran on the device executor"
+    if device_name != "cpu":
+        assert gc_n >= len(joblog.jobs), (gc_n, len(joblog.jobs))
+    log(f"[manual d] {len(joblog.jobs)} device jobs in the phase, launches "
+        f"gc_rows={gc_n} merge_runs={mr_n}; open to the last read: "
+        f"{busy_text(programs, joblog, t_last - t_open)} [{card}]")
+    return gc_n, mr_n
+
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4795,6 +5273,9 @@ def main() -> int:
                            os.path.join(dbdir, "db20"), READ_N, smi, "cuda",
                            os.path.join(dbdir, "db13"))
         log(f"[read] phase 20 wall {walls['20 read']:.1f}s [{smi}]")
+        m_gc, m_mr = phase("21 manual", manual_path, torch,
+                           os.path.join(dbdir, "db21"), MANUAL_N, smi)
+        log(f"[manual] phase 21 wall {walls['21 manual']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -4805,9 +5286,10 @@ def main() -> int:
     # Phase 18's protected DB runs gc_rows and the merge on its own path.
     launches["gc_rows"] += int_gc
     launches["merge_runs"] += int_mr
-    # So do phase 19's write-path DBs and phase 20's read-path DBs.
-    launches["gc_rows"] += w_gc + r_gc
-    launches["merge_runs"] += w_mr + r_mr
+    # So do phase 19's write-path DBs, phase 20's read-path DBs and phase
+    # 21's compact_files, marked-file and other jobs.
+    launches["gc_rows"] += w_gc + r_gc + m_gc
+    launches["merge_runs"] += w_mr + r_mr + m_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -57,7 +57,12 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - a small DB with an LRUCache block cache runs compact_range on "cuda":
   its multi_get, get and async twin (async_reads=True: multi_get,
   get_async, multi_get_async) agree with each other and with the same
-  DB's on "cpu".
+  DB's on "cpu";
+- a small DB runs compact_files (L0 into L1, then part of L1 into L2) and
+  a suggest_compact_range pick after set_options({"disable_auto_
+  compactions": False}) on "cuda" (gc_rows and the merge launch, the
+  marked branch runs): the SST bytes, level sets and reads equal the
+  same DB's on "cpu".
 """
 
 import os
@@ -1382,3 +1387,75 @@ def test_block_cache_db_on_the_card_has_the_cpu_answers(dev, tmp_path):
     assert len(got[1]) == n
     want = _block_cache_db(str(tmp_path / "cpu"), "cpu", n)
     assert got == want
+
+
+def _manual_db(path, device, n):
+    """A DB with auto compactions off: five overlapping flushed rounds,
+    compact_files of the older L0 files into L1, then of two L1 files into
+    L2, then suggest_compact_range over the middle third and
+    set_options({"disable_auto_compactions": False}), which runs the
+    marked jobs. Returns the live SST bytes by name, the level sets, the
+    jobs' reasons and a scan, with every get checked against an
+    oracle."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=64 << 20, disable_auto_compactions=True,
+                   target_file_size_base=256 << 10, max_background_jobs=1,
+                   compaction_executor_factory=factory)
+    want = {}
+    key = lambda j: b"%016d" % (j * 2654435761 % (2 * n))  # noqa: E731
+    with DB.open(path, opts) as db:
+        for r in range(5):
+            for i in range(r, n, 100):
+                b = WriteBatch()
+                for j in range(i, min(i + 100, n), 1 + r % 2):
+                    b.put(key(j), b"r%d-%d" % (r, j))
+                    want[key(j)] = b"r%d-%d" % (r, j)
+                db.write(b)
+            db.flush()
+        l0 = [f.number for f in db.versions.current.files[0]]
+        db.compact_files(l0[2:3], 1)  # every older L0 file comes along
+        l1 = [f.number for f in db.versions.current.files[1]]
+        db.compact_files(l1[1:3], 2)
+        ordered = sorted(want)
+        third = len(ordered) // 3
+        assert db.suggest_compact_range(ordered[third],
+                                        ordered[2 * third]) > 0
+        db.set_options({"disable_auto_compactions": False})
+        db.wait_for_compactions()
+        sched = db._compaction_scheduler
+        assert sched.num_local_jobs == 0 and sched.last_error is None
+        for k, v in want.items():
+            assert db.get(k) == v, k
+        it = db.new_iterator()
+        it.seek_to_first()
+        scan = list(it.entries())
+        assert scan == sorted(want.items())
+        levels = [[f.number for f in fl] for fl in db.versions.current.files]
+        names = ["%06d.sst" % x for fl in levels for x in fl]
+    files = {}
+    for name in names:
+        with open(os.path.join(path, name), "rb") as f:
+            files[name] = f.read()
+    return files, levels, [j["reason"] for j in factory.jobs], scan
+
+
+def test_manual_compactions_on_the_card_write_the_cpu_bytes(dev, tmp_path,
+                                                             monkeypatch):
+    _frozen(monkeypatch)
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _manual_db(str(tmp_path / "cuda"), "cuda", 30_000)
+    assert got[2][:2] == ["compact_files", "compact_files"], got[2]
+    assert len(got[2]) > 2, got[2]  # the marked picks ran
+    assert kernels.gc_rows.launches >= len(got[2])
+    assert kernels.merge_runs_perm.launches > 0
+    want = _manual_db(str(tmp_path / "cpu"), "cpu", 30_000)
+    assert got[1:] == want[1:]
+    assert got[0] == want[0]

@@ -709,8 +709,9 @@ def test_unported_option_raises(tmp_path, name):
 
 # The integrity fields open (tests/test_torch_integrity.py holds them
 # against the reference), the write-path fields
-# (tests/test_torch_write_modes.py) and the read-path fields
-# (tests/test_torch_block_cache.py, tests/test_torch_read_path.py).
+# (tests/test_torch_write_modes.py), the read-path fields
+# (tests/test_torch_block_cache.py, tests/test_torch_read_path.py) and
+# the WAL plane's (tests/test_torch_wal_recycle.py).
 NOW_OPEN = {
     "block_cache": dict(block_cache=LRUCache(1 << 20)),
     "async_read_rings": dict(async_read_rings=2),
@@ -726,6 +727,9 @@ NOW_OPEN = {
                                 async_wal_ring_size=8),
     "write_buffer_manager": dict(write_buffer_manager=WriteBufferManager(
         1 << 20)),
+    # WAL recycling and archiving (tests/test_torch_wal_recycle.py).
+    "recycle_log_file_num": dict(recycle_log_file_num=2),
+    "wal_ttl_seconds": dict(wal_ttl_seconds=3600.0),
 }
 
 
@@ -746,6 +750,7 @@ def test_ported_option_opens(tmp_path, name):
         assert (db._integrity_scrubber is not None) == (
             name == "integrity_scrub_period_sec")
         assert (db._wal_ring is not None) == ("async_wal" in name)
+        assert db._wal._recycled == (name == "recycle_log_file_num")
         assert (db.table_cache._block_cache is not None) == (
             name == "block_cache")
         db.flush()

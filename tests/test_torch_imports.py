@@ -54,6 +54,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "toplingdb_tpu_torch.env.async_reads",
               "toplingdb_tpu_torch.utils.persistent_cache"):
         assert m in loaded, m  # the read path's modules are walked too
+    # and the thread-status registry of the manual entry points.
+    assert "toplingdb_tpu_torch.utils.thread_status" in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

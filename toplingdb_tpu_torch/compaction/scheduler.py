@@ -16,7 +16,10 @@ starve the later CFs under load on an earlier one), and a manual
 compaction runs over every CF in id order. A FIFO compaction only drops
 files: a version edit and the obsolete-file sweep, with no executor. A
 manual compaction of a universal DB is one job of every run into the last
-level.
+level. `pause` (DB.pause_background_work) waits for the running jobs and
+holds new ones until `resume_background`; DB.compact_files runs its one
+job through `_run_compaction` in the caller's thread. Every job reports
+itself to utils/thread_status while it runs.
 
 Every finished job reports as toplingdb_tpu's does: the compaction
 tickers and histograms (`Statistics.record_compaction`), a
@@ -41,6 +44,7 @@ from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.version_edit import VersionEdit
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.listener import CompactionJobInfo, notify
+from toplingdb_tpu_torch.utils.thread_status import thread_operation
 
 THREAD_PREFIX = "tpt-"
 
@@ -58,6 +62,7 @@ class CompactionScheduler:
         self._shutdown = False
         self._manual_active = False
         self._threads: list[threading.Thread] = []
+        self._paused = 0  # DB.pause_background_work holds (counted)
         self.last_error: BaseException | None = None
         self.num_trivial_moves = 0
         self.num_completed = 0
@@ -67,11 +72,25 @@ class CompactionScheduler:
 
     # ------------------------------------------------------------------
 
+    def pause(self) -> None:
+        """RocksDB's DB::PauseBackgroundWork: block until running jobs
+        drain, then hold new ones."""
+        with self._lock:
+            self._paused += 1
+        self.wait_idle()
+
+    def resume_background(self) -> None:
+        with self._lock:
+            self._paused = max(0, self._paused - 1)
+        self.maybe_schedule()
+
     def maybe_schedule(self) -> None:
         if self.db.options.disable_auto_compactions:
             return
         with self._lock:
-            if self._shutdown or self._manual_active:
+            # _paused must be checked under the lock, or a racing
+            # schedule could slip in after pause() returned.
+            if self._shutdown or self._manual_active or self._paused:
                 return
             if self._running + self._pending >= self.db.options.max_background_jobs:
                 return
@@ -270,15 +289,17 @@ class CompactionScheduler:
                        reason="trivial move",
                    ))
             return
-        # Compactions are always traced while a tracer exists.
-        root = (db.tracer.start(
-            "compaction", level=c.level, output_level=c.output_level,
-            reason=c.reason, cf_id=c.cf_id)
-            if db.tracer is not None else _tm.NOOP_SPAN)
-        try:
-            self._run_compaction_traced(c, root)
-        finally:
-            root.finish()
+        with thread_operation("compaction",
+                              f"L{c.level}->L{c.output_level}", db.dbname):
+            # Compactions are always traced while a tracer exists.
+            root = (db.tracer.start(
+                "compaction", level=c.level, output_level=c.output_level,
+                reason=c.reason, cf_id=c.cf_id)
+                if db.tracer is not None else _tm.NOOP_SPAN)
+            try:
+                self._run_compaction_traced(c, root)
+            finally:
+                root.finish()
 
     def _run_compaction_traced(self, c: Compaction, root) -> None:
         db = self.db

@@ -126,6 +126,23 @@ iterators' readahead windows become ring tasks. `get_async` and
 `multi_get_async` return futures. `ReadOptions.readahead_size` pins a
 fixed readahead window on every table iterator and scan-plane source.
 
+The manual and introspection entry points, as toplingdb_tpu runs them
+(RocksDB's db.h): `compact_files` runs one job of caller-chosen files in
+the caller's thread through the same executor (a failed job raises and
+latches the background error), `suggest_compact_range` marks files for
+the picker, `promote_l0` and `delete_files_in_range` edit the MANIFEST
+only; `get_property` ("tpulsm." names), `get_approximate_sizes`,
+`get_live_files` with `get_sorted_wal_files` and `get_wal_files` (the
+backup recipe), `key_exists`, `get_merge_operands`,
+`latest_sequence_number` and `write_stall_state` read; `flush_wal`,
+`pause_background_work` / `continue_background_work` and `set_options`
+(the mutable subset, persisted to a new OPTIONS file) control. With
+`recycle_log_file_num` obsolete WALs this DB wrote in the recyclable
+format are kept in a pool and renamed and overwritten in place as new
+WALs (their stale tails read as the end of the log); with
+`wal_ttl_seconds` obsolete WALs move to `<db>/archive/` and leave it
+once older than the TTL.
+
 What toplingdb_tpu runs beyond this (the SLO engine, ...) is refused at
 open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
@@ -143,7 +160,8 @@ import time
 import uuid
 
 from toplingdb_tpu_torch.db import dbformat, filename
-from toplingdb_tpu_torch.db.blob import BlobSource
+from toplingdb_tpu_torch.compaction.picker import Compaction
+from toplingdb_tpu_torch.db.blob import BlobSource, blob_file_name
 from toplingdb_tpu_torch.db.db_iter import DBIter
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.db.flush_job import flush_memtable_to_table
@@ -168,6 +186,7 @@ from toplingdb_tpu_torch.options import (
     Options,
     ReadOptions,
     WriteOptions,
+    UNPORTED,
     unported_fields,
 )
 from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
@@ -175,7 +194,12 @@ from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils import statistics as _st
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.listener import EventLogger, notify
+from toplingdb_tpu_torch.utils.thread_status import (
+    get_thread_list,
+    thread_operation,
+)
 from toplingdb_tpu_torch.utils.status import (
+    Busy,
     Corruption,
     InvalidArgument,
     IOError_,
@@ -485,7 +509,18 @@ class DB:
         self._wbm_charged = 0  # bytes charged to options.write_buffer_manager
         self._wal: LogWriter | None = None
         self._wal_number = 0
+        self._recycle_wals: list[int] = []  # obsolete WALs kept for reuse
+        # Only logs THIS process wrote in recyclable format may enter the
+        # pool: a legacy-format WAL's stale records carry no log-number
+        # stamp and could replay after reuse (RocksDB's alive_log_files
+        # scoping).
+        self._recyclable_written: set[int] = set()
         self._closed = False
+        # Write-stall accounting read by write_stall_state(): the
+        # cumulative counters are folded in by _account_stall; the live
+        # state is derived from L0 against the triggers at query time.
+        self._stall_totals = {"stalls": 0, "stall_micros": 0,
+                              "last_stall_micros": 0, "last_state": "none"}
         self._compaction_scheduler = None
         self._pending_outputs: set[int] = set()  # files being written by jobs
         # The background-error latch (RocksDB's ErrorHandler): the error,
@@ -782,12 +817,26 @@ class DB:
             name="tpt-wal-writer")
 
     def _new_wal(self) -> None:
+        """A new WAL: a pooled obsolete WAL renamed and overwritten in
+        place when `recycle_log_file_num` > 0 (RocksDB's WAL recycling),
+        else a new file."""
         self._wal_number = self.versions.new_file_number()
         path = filename.log_file_name(self.dbname, self._wal_number)
-        w = self.env.new_writable_file(path)
+        recycle_on = self.options.recycle_log_file_num > 0
+        if recycle_on and self._recycle_wals:
+            old_num = self._recycle_wals.pop(0)
+            w = self.env.reuse_writable_file(
+                filename.log_file_name(self.dbname, old_num), path)
+        else:
+            w = self.env.new_writable_file(path)
         if self._wal_ring is not None:
             w = AsyncWritableFile(w, self._wal_ring)
-        self._wal = LogWriter(w, log_number=self._wal_number)
+        # recycle_log_file_num > 0: ALWAYS the recyclable record format, so
+        # any WAL written from now on is safe to reuse later.
+        self._wal = LogWriter(w, log_number=self._wal_number,
+                              recycled=recycle_on)
+        if recycle_on:
+            self._recyclable_written.add(self._wal_number)
 
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
@@ -960,6 +1009,11 @@ class DB:
         b = WriteBatch(protection_bytes_per_key=self._protection)
         b.delete_range(begin, end, cf=self._cf_id(cf))
         return self.write(b, opts)
+
+    def latest_sequence_number(self) -> int:
+        """The newest PUBLISHED sequence (RocksDB's
+        GetLatestSequenceNumber)."""
+        return self.versions.last_sequence
 
     def write(self, batch: WriteBatch,
               opts: WriteOptions = _DEFAULT_WRITE) -> int:
@@ -1676,14 +1730,17 @@ class DB:
 
     def _flush_memtables(self, mems: list[MemTable], wal_number: int | None,
                          cf_id: int = 0) -> None:
-        # Flushes are rare and high-value: always traced while a tracer
-        # exists (sampling applies to the per-op read / write roots only).
-        root = (self.tracer.start("flush", cf_id=cf_id, memtables=len(mems))
-                if self.tracer is not None else _tm.NOOP_SPAN)
-        try:
-            self._flush_memtables_traced(mems, wal_number, cf_id)
-        finally:
-            root.finish()
+        with thread_operation("flush", f"cf{cf_id}", self.dbname):
+            # Flushes are rare and high-value: always traced while a tracer
+            # exists (sampling applies to the per-op read / write roots
+            # only).
+            root = (self.tracer.start("flush", cf_id=cf_id,
+                                      memtables=len(mems))
+                    if self.tracer is not None else _tm.NOOP_SPAN)
+            try:
+                self._flush_memtables_traced(mems, wal_number, cf_id)
+            finally:
+                root.finish()
 
     def _flush_memtables_traced(self, mems: list[MemTable],
                                 wal_number: int | None, cf_id: int) -> None:
@@ -2045,6 +2102,40 @@ class DB:
 
             return default_column_of(v)
         return v
+
+    def key_exists(self, key: bytes,
+                   opts: ReadOptions = _DEFAULT_READ) -> bool:
+        return self.get(key, opts) is not None
+
+    def get_merge_operands(self, key: bytes,
+                           opts: ReadOptions = _DEFAULT_READ,
+                           cf=None) -> list[bytes]:
+        """The UNMERGED chain for a key (RocksDB's DB::GetMergeOperands):
+        the base value (if any) first, then merge operands oldest→newest.
+        A plain key returns [value]; a missing or deleted key returns [].
+        GetContext's visibility and tombstone state machine in
+        collect-only mode, over the Python chain. toplingdb_tpu also
+        passes the seqno ranges of undecided WritePrepared transactions;
+        the port has no transactions yet, so there are none to pass."""
+        self._check_open()
+        self._check_read_options(opts)
+        cfd = self._cf_data(cf)
+        snap_seq = (
+            opts.snapshot.sequence if opts.snapshot is not None
+            else self.versions.last_sequence
+        )
+        ctx = GetContext(key, snap_seq, None,
+                         blob_resolver=self.blob_source.get,
+                         collect_operands=True)
+        more = True
+        for mem in [cfd.mem] + cfd.imm:
+            if not self._probe_memtable(mem, key, snap_seq, ctx):
+                more = False
+                break
+        if more:
+            version = self.versions.cf_current(cfd.handle.id)
+            self._walk_sst_chain(version, key, snap_seq, ctx)
+        return ctx.merge_operand_list()
 
     def _check_read_options(self, opts: ReadOptions) -> None:
         for name in ("tailing", "prefix_same_as_start"):
@@ -2543,6 +2634,217 @@ class DB:
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.compact_range(begin, end)
 
+    def compact_files(self, file_numbers: list[int], output_level: int,
+                      cf=None) -> None:
+        """Compact a caller-chosen set of files into output_level (RocksDB's
+        DB::CompactFiles), in the caller's thread, through the executor
+        factory. The files must live at one source level and / or at
+        output_level itself. A failed job raises to the caller, latches
+        the DB's background error and leaves no output."""
+        cfd = self._cf_data(cf)
+        if not 0 <= output_level < self.options.num_levels:
+            raise InvalidArgument(
+                f"output_level {output_level} out of range "
+                f"[0, {self.options.num_levels})"
+            )
+        sched = self._compaction_scheduler
+        want = set(file_numbers)
+        with self._mutex:
+            version = self.versions.cf_current(cfd.handle.id)
+            by_level: dict[int, list] = {}
+            for lvl, f in version.all_files():
+                if f.number in want:
+                    by_level.setdefault(lvl, []).append(f)
+                    want.discard(f.number)
+            if want:
+                raise InvalidArgument(f"files not live: {sorted(want)}")
+            src_levels = [lvl for lvl in by_level if lvl != output_level]
+            if len(src_levels) > 1:
+                raise InvalidArgument(
+                    f"input files span levels {sorted(by_level)}; at most "
+                    f"one source level plus output_level {output_level}"
+                )
+            src = src_levels[0] if src_levels else output_level
+            if src > output_level:
+                raise InvalidArgument(
+                    f"source level {src} is below output level {output_level}"
+                )
+            inputs = by_level.get(src, [])
+            out_inputs = (
+                by_level.get(output_level, []) if src != output_level else []
+            )
+            # RocksDB's CompactFiles sanitization EXPANDS the caller's set
+            # rather than rejecting it (compaction_picker.cc
+            # SanitizeCompactionInputFilesForAllLevels): at L0 every file
+            # OLDER than the newest listed file comes along (newer unlisted
+            # runs stay on top, so reads never see stale data below newer
+            # data); at sorted levels the listed run is widened across
+            # same-user-key boundaries; at the output level all overlapping
+            # files are included to keep it non-overlapping.
+            listed = {f.number for f in inputs + out_inputs}
+            ucmp = self.icmp.user_comparator
+
+            def _widen(lvl_files, lo, hi):
+                # Same-user-key boundary widening: a neighbor sharing a
+                # boundary user key must come along, else seqno zeroing can
+                # reorder that key across the excluded file.
+                while lo > 0 and ucmp.compare(
+                        dbformat.extract_user_key(lvl_files[lo - 1].largest),
+                        dbformat.extract_user_key(
+                            lvl_files[lo].smallest)) >= 0:
+                    lo -= 1
+                while hi + 1 < len(lvl_files) and ucmp.compare(
+                        dbformat.extract_user_key(lvl_files[hi + 1].smallest),
+                        dbformat.extract_user_key(
+                            lvl_files[hi].largest)) <= 0:
+                    hi += 1
+                return lo, hi
+
+            if inputs and src == 0:
+                # L0 is time-ordered, not key-ordered: every file OLDER than
+                # the newest listed file comes along (for intra-L0 jobs too
+                # — a non-contiguous subset compacted past an unlisted
+                # middle file would re-sort newer data below it).
+                l0 = version.files[0]  # newest-first
+                first = min(i for i, f in enumerate(l0)
+                            if f.number in listed)
+                inputs = list(l0[first:])
+            elif inputs and src >= 1:
+                lvl_files = version.files[src]  # sorted by smallest key
+                idxs = [i for i, f in enumerate(lvl_files)
+                        if f.number in listed]
+                lo, hi = _widen(lvl_files, min(idxs), max(idxs))
+                inputs = list(lvl_files[lo:hi + 1])
+            all_in = inputs + out_inputs
+            if all_in:
+                su = dbformat.extract_user_key(
+                    min((f.smallest for f in all_in), key=self.icmp.sort_key))
+                lu = dbformat.extract_user_key(
+                    max((f.largest for f in all_in), key=self.icmp.sort_key))
+                if src != output_level and output_level > 0:
+                    out_files = version.files[output_level]
+                    ov = {f.number for f in version.overlapping_files(
+                        output_level, su, lu)}
+                    oidxs = [i for i, f in enumerate(out_files)
+                             if f.number in ov]
+                    if oidxs:
+                        lo, hi = _widen(out_files, min(oidxs), max(oidxs))
+                        out_inputs = list(out_files[lo:hi + 1])
+                    else:
+                        out_inputs = []
+                # Intermediate levels can't be represented by a two-level
+                # Compaction: anything overlapping there keeps its newer
+                # data ABOVE the moved output, which is unsafe — reject.
+                for lvl in range(src + 1, output_level):
+                    for f in version.overlapping_files(lvl, su, lu):
+                        raise InvalidArgument(
+                            f"file #{f.number} at intermediate L{lvl} "
+                            f"overlaps the compaction range; compact it "
+                            f"first or choose output_level {lvl}"
+                        )
+            all_in = inputs + out_inputs
+            if any(f.being_compacted for f in all_in):
+                raise Busy("some input files are already being compacted")
+            c = Compaction(
+                level=src, output_level=output_level, inputs=inputs,
+                output_level_inputs=out_inputs,
+                bottommost=sched.picker._is_bottommost(
+                    version, output_level,
+                    min((f.smallest for f in all_in),
+                        key=self.icmp.sort_key),
+                    max((f.largest for f in all_in),
+                        key=self.icmp.sort_key),
+                ) if all_in else False,
+                reason="compact_files",
+                max_output_file_size=self.options.target_file_size(
+                    output_level),
+                cf_id=cfd.handle.id,
+                full_history_ts_low=self.options.full_history_ts_low,
+            )
+            for _, f in c.all_inputs():
+                f.being_compacted = True
+        try:
+            sched._run_compaction(c)
+        except BaseException as e:
+            # Ground rule of the device executor: a failed job raises and
+            # latches the background error (RocksDB's CompactFilesImpl sets
+            # the BG error for a failed job); nothing re-runs it elsewhere.
+            sched.last_error = e
+            self._set_background_error(
+                e, getattr(e, "_bg_reason", "compaction"))
+            raise
+        finally:
+            with self._mutex:
+                for _, f in c.all_inputs():
+                    f.being_compacted = False
+        del version
+        # The install's sweep ran while the picked Version was held: sweep
+        # again, so the replaced inputs leave the disk now.
+        with self._mutex:
+            self._delete_obsolete_files()
+
+    def suggest_compact_range(self, begin: bytes | None = None,
+                              end: bytes | None = None, cf=None) -> int:
+        """Mark files overlapping [begin, end) for compaction (RocksDB's
+        DB::SuggestCompactRange): the picker prioritizes marked files on
+        its next pass. Returns the number of files marked."""
+        cfd = self._cf_data(cf)
+        ucmp = self.icmp.user_comparator
+        marked = 0
+        with self._mutex:
+            version = self.versions.cf_current(cfd.handle.id)
+            for _lvl, f in version.all_files():
+                fs = dbformat.extract_user_key(f.smallest)
+                fl = dbformat.extract_user_key(f.largest)
+                if begin is not None and ucmp.compare(fl, begin) < 0:
+                    continue
+                if end is not None and ucmp.compare(fs, end) >= 0:
+                    continue
+                if not f.marked_for_compaction:
+                    f.marked_for_compaction = True
+                    marked += 1
+        if marked:
+            self._maybe_schedule_compaction()
+        return marked
+
+    def promote_l0(self, target_level: int = 1, cf=None) -> None:
+        """Metadata-only move of ALL L0 files to target_level (RocksDB's
+        DB::PromoteL0): requires pairwise non-overlapping L0 files and
+        empty levels 1..target_level."""
+        if not 1 <= target_level < self.options.num_levels:
+            raise InvalidArgument(
+                f"target_level {target_level} out of range "
+                f"[1, {self.options.num_levels})"
+            )
+        cfd = self._cf_data(cf)
+        ucmp = self.icmp.user_comparator
+        with self._mutex:
+            version = self.versions.cf_current(cfd.handle.id)
+            l0 = list(version.files[0])
+            if not l0:
+                return
+            for lvl in range(1, target_level + 1):
+                if version.files[lvl]:
+                    raise InvalidArgument(
+                        f"level {lvl} is not empty; cannot promote L0 over it"
+                    )
+            ordered = sorted(
+                l0, key=lambda f: self.icmp.sort_key(f.smallest)
+            )
+            for a, b in zip(ordered, ordered[1:]):
+                if ucmp.compare(dbformat.extract_user_key(a.largest),
+                                dbformat.extract_user_key(b.smallest)) >= 0:
+                    raise InvalidArgument(
+                        "L0 files overlap; compact instead of promoting"
+                    )
+            if any(f.being_compacted for f in l0):
+                raise Busy("L0 files are being compacted")
+            edit = VersionEdit(column_family=cfd.handle.id)
+            for f in l0:
+                edit.delete_file(0, f.number)
+                edit.add_file(target_level, f)
+            self.versions.log_and_apply(edit)
+
     def wait_for_compactions(self) -> None:
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.wait_idle()
@@ -2851,9 +3153,12 @@ class DB:
         level0_slowdown/stop triggers): past the slowdown trigger writes
         are delayed; past the stop trigger they block until compaction
         drains L0. No-op when nothing can drain L0 (auto compaction
-        off): stalling a bulk load forever helps no one."""
+        off, or background work paused): stalling a bulk load forever
+        helps no one."""
         opts = self.options
-        if opts.disable_auto_compactions or self._compaction_scheduler is None:
+        if (opts.disable_auto_compactions
+                or self._compaction_scheduler is None
+                or self._compaction_scheduler._paused):
             return
         n_l0 = self._max_l0_files()
         if n_l0 >= opts.level0_stop_writes_trigger:
@@ -2864,7 +3169,7 @@ class DB:
                 self._maybe_schedule_compaction()
                 time.sleep(0.01)
             stalled = time.monotonic() - t0
-            self._account_stall(stalled)
+            self._account_stall("stopped", stalled)
             if stalled >= timeout:
                 self.event_logger.log(
                     "write_stall_timeout", l0_files=self._max_l0_files(),
@@ -2877,17 +3182,52 @@ class DB:
             frac = (n_l0 - opts.level0_slowdown_writes_trigger + 1) / span
             delay = min(0.05 * frac, 0.05)
             time.sleep(delay)
-            self._account_stall(delay)
+            self._account_stall("delayed", delay)
 
-    def _account_stall(self, stalled_s: float) -> None:
-        """One stall episode: the STALL_MICROS / WRITE_STALL_COUNT tickers
+    def _account_stall(self, state: str, stalled_s: float) -> None:
+        """One stall episode: the cumulative totals of
+        write_stall_state(), the STALL_MICROS / WRITE_STALL_COUNT tickers
         and the write-stall histogram."""
+        micros = int(stalled_s * 1e6)
+        tot = self._stall_totals
+        tot["stalls"] += 1
+        tot["stall_micros"] += micros
+        tot["last_stall_micros"] = micros
+        tot["last_state"] = state
         if self.stats is not None:
-            micros = int(stalled_s * 1e6)
             self.stats.record_tick(_st.STALL_MICROS, micros)
             self.stats.record_tick(_st.WRITE_STALL_COUNT)
             self.stats.record_in_histogram(_st.WRITE_STALL_MICROS_HIST,
                                            micros)
+
+    def write_stall_state(self) -> dict:
+        """The write-stall state: the LIVE state derived from L0 file
+        counts against the slowdown / stop triggers ("none", "delayed" or
+        "stopped") and the cumulative stall totals. `drainable` is False
+        when nothing can reduce L0 (auto compaction off, background work
+        paused); writes are then never stalled either."""
+        opts = self.options
+        n_l0 = self._max_l0_files()
+        drainable = not (opts.disable_auto_compactions
+                         or self._compaction_scheduler is None
+                         or self._compaction_scheduler._paused)
+        if not drainable:
+            state = "none"
+        elif n_l0 >= opts.level0_stop_writes_trigger:
+            state = "stopped"
+        elif n_l0 >= opts.level0_slowdown_writes_trigger:
+            state = "delayed"
+        else:
+            state = "none"
+        out = dict(self._stall_totals)
+        out.update(
+            state=state,
+            l0_files=n_l0,
+            drainable=drainable,
+            slowdown_trigger=opts.level0_slowdown_writes_trigger,
+            stop_trigger=opts.level0_stop_writes_trigger,
+        )
+        return out
 
     def disable_file_deletions(self) -> None:
         """RocksDB's DB::DisableFileDeletions (an export pins the file set
@@ -2903,19 +3243,38 @@ class DB:
             if n > 0 and self._file_deletions_disabled == 0:
                 self._delete_obsolete_files()  # the last unpin purges
 
+    def flush_wal(self, sync: bool = False) -> None:
+        """RocksDB's DB::FlushWAL / SyncWAL."""
+        with self._mutex:
+            if self._wal is not None:
+                if sync:
+                    self._wal.sync()
+                else:
+                    self._wal.flush()
+
     def _delete_obsolete_files(self) -> None:
-        """GC: remove WALs below the manifest log number, SSTs no CF's
-        live versions hold, stale MANIFESTs and OPTIONS files (RocksDB's
-        DBImpl::DeleteObsoleteFiles)."""
+        """GC: remove WALs below the manifest log number (or keep them in
+        the recycle pool, or archive them under `wal_ttl_seconds`), SSTs
+        no CF's live versions hold, stale MANIFESTs and OPTIONS files
+        (RocksDB's DBImpl::DeleteObsoleteFiles)."""
         if self._file_deletions_disabled:
-            return  # an export is pinning the file set
+            return  # an export or a backup is pinning the file set
         live, live_blobs = self.versions.live_file_sets()
         for child in self.env.get_children(self.dbname):
             ftype, num = filename.parse_file_name(child)
             keep = True
             if ftype == filename.FileType.WAL:
                 keep = (num >= self.versions.log_number
-                        or num == self._wal_number)
+                        or num == self._wal_number
+                        or num in self._recycle_wals)
+                if not keep and (len(self._recycle_wals)
+                                 < self.options.recycle_log_file_num
+                                 and num in self._recyclable_written):
+                    self._recycle_wals.append(num)
+                    keep = True
+                if not keep and self.options.wal_ttl_seconds > 0:
+                    self._archive_wal(child)
+                    continue
             elif ftype == filename.FileType.TABLE:
                 keep = num in live or num in self._pending_outputs
             elif ftype == filename.FileType.BLOB:
@@ -2936,6 +3295,289 @@ class DB:
                     self.env.delete_file(f"{self.dbname}/{child}")
                 except NotFound:
                     pass
+
+    def _archive_wal(self, child: str) -> None:
+        """Move an obsolete WAL to <db>/archive/ and purge entries older
+        than wal_ttl_seconds (RocksDB's WalManager::ArchiveWALFile and
+        PurgeObsoleteWALFiles)."""
+        arch = f"{self.dbname}/archive"
+        self.env.create_dir(arch)
+        try:
+            self.env.rename_file(f"{self.dbname}/{child}", f"{arch}/{child}")
+        except (OSError, NotFound):
+            return
+        now = time.time()
+        try:
+            names = self.env.get_children(arch)
+        except NotFound:
+            return
+        for name in names:
+            p = f"{arch}/{name}"
+            try:
+                if now - self.env.get_file_mtime(p) > \
+                        self.options.wal_ttl_seconds:
+                    self.env.delete_file(p)
+            except (OSError, NotFound):
+                continue
+
+    def get_wal_files(self) -> list[tuple[int, str, bool]]:
+        """(log_number, path, archived) for every retained WAL, live and
+        archived, oldest first (RocksDB's WalFile metadata;
+        get_sorted_wal_files keeps its names-only live-file contract for
+        backup tools)."""
+        out = []
+        for child in self.env.get_children(self.dbname):
+            ftype, num = filename.parse_file_name(child)
+            if ftype == filename.FileType.WAL:
+                out.append((num, f"{self.dbname}/{child}", False))
+        arch = f"{self.dbname}/archive"
+        try:
+            for child in self.env.get_children(arch):
+                ftype, num = filename.parse_file_name(child)
+                if ftype == filename.FileType.WAL:
+                    out.append((num, f"{arch}/{child}", True))
+        except NotFound:
+            pass
+        return sorted(out)
+
+    def get_sorted_wal_files(self) -> list[str]:
+        """Live WAL file names, oldest first (RocksDB's
+        DB::GetSortedWalFiles). While file deletions are disabled, EVERY
+        on-disk WAL is returned: a concurrent flush may have advanced
+        log_number, but the pinned older WALs can still carry data absent
+        from a get_live_files snapshot taken earlier."""
+        self._check_open()
+        with self._mutex:
+            pinned = self._file_deletions_disabled > 0
+            nums = sorted(
+                num for child in self.env.get_children(self.dbname)
+                for t, num in [filename.parse_file_name(child)]
+                if t == filename.FileType.WAL
+                and (pinned or num >= self.versions.log_number
+                     or num == self._wal_number)
+            )
+            return [filename.log_file_name("", n) for n in nums]
+
+    def get_live_files(self, flush_memtable: bool = True
+                       ) -> tuple[list[str], int]:
+        """(relative file names, manifest_file_size): everything a
+        consistent copy needs (RocksDB's DB::GetLiveFiles): SSTs, blobs,
+        CURRENT, MANIFEST and OPTIONS. The live MANIFEST keeps growing, so
+        the caller must TRUNCATE its copy at manifest_file_size or the copy
+        references files newer than the snapshot. Hold
+        disable_file_deletions() while copying."""
+        self._check_open()
+        if flush_memtable:
+            self.flush()
+        with self._mutex:
+            # CURRENT versions only: files pinned solely by in-flight
+            # readers are not part of a consistent copy.
+            ssts: set[int] = set()
+            blobs: set[int] = set()
+            for cf_id in self.versions.column_families:
+                for _, f in self.versions.cf_current(cf_id).all_files():
+                    ssts.add(f.number)
+                    blobs.update(f.blob_refs)
+            # The filename helpers with dbname="" yield bare basenames.
+            out = [filename.table_file_name("", n) for n in sorted(ssts)]
+            out += [blob_file_name("", n) for n in sorted(blobs)]
+            out.append(filename.current_file_name(""))
+            out.append(filename.manifest_file_name(
+                "", self.versions.manifest_file_number))
+            if self._options_file_number:
+                out.append(filename.options_file_name(
+                    "", self._options_file_number))
+            return out, self.versions.manifest_size()
+
+    def get_approximate_sizes(self, ranges: list[tuple[bytes, bytes]],
+                              cf=None) -> list[int]:
+        """Approximate on-disk bytes per [begin, end) user-key range
+        (RocksDB's DB::GetApproximateSizes through ApproximateOffsetOf)."""
+        cfd = self._cf_data(cf)
+        ucmp = self.icmp.user_comparator
+        version = self.versions.cf_current(cfd.handle.id)
+        out = []
+        for begin, end in ranges:
+            bk = dbformat.make_internal_key(
+                begin, dbformat.MAX_SEQUENCE_NUMBER,
+                dbformat.VALUE_TYPE_FOR_SEEK)
+            ek = dbformat.make_internal_key(
+                end, dbformat.MAX_SEQUENCE_NUMBER,
+                dbformat.VALUE_TYPE_FOR_SEEK)
+            total = 0
+            for level in range(version.num_levels):
+                for f in version.files[level]:
+                    # Metadata-only overlap check before touching a reader.
+                    if (ucmp.compare(dbformat.extract_user_key(f.largest),
+                                     begin) < 0
+                            or ucmp.compare(end, dbformat.extract_user_key(
+                                f.smallest)) < 0):
+                        continue
+                    reader = self.table_cache.get_reader(f.number)
+                    lo = reader.approximate_offset_of(bk)
+                    hi = reader.approximate_offset_of(ek)
+                    if hi > lo:
+                        total += hi - lo
+            out.append(total)
+        return out
+
+    def delete_files_in_range(self, begin: bytes, end: bytes, cf=None) -> int:
+        """Drop whole SSTs fully contained in [begin, end) (RocksDB's
+        DeleteFilesInRange, the bulk-wipe fast path; boundary files keep
+        their data, which a DeleteRange and a compaction then clear). L0
+        files and files being compacted are skipped. Returns the number of
+        files dropped."""
+        cfd = self._cf_data(cf)
+        ucmp = self.icmp.user_comparator
+        with self._mutex:
+            version = self.versions.cf_current(cfd.handle.id)
+            doomed: list[tuple[int, int]] = []
+            for level in range(1, version.num_levels):  # L0 ranges overlap
+                for f in version.files[level]:
+                    if f.being_compacted:
+                        continue
+                    fs = dbformat.extract_user_key(f.smallest)
+                    fl = dbformat.extract_user_key(f.largest)
+                    if (ucmp.compare(begin, fs) <= 0
+                            and ucmp.compare(fl, end) < 0):
+                        doomed.append((level, f.number))
+            if not doomed:
+                return 0
+            edit = VersionEdit(column_family=cfd.handle.id)
+            for level, num in doomed:
+                edit.delete_file(level, num)
+            self.versions.log_and_apply(edit)
+            del version
+            self._delete_obsolete_files()
+            return len(doomed)
+
+    def pause_background_work(self) -> None:
+        """RocksDB's DB::PauseBackgroundWork: wait for the running jobs,
+        then hold new ones until continue_background_work()."""
+        if self._compaction_scheduler is not None:
+            self._compaction_scheduler.pause()
+
+    def continue_background_work(self) -> None:
+        if self._compaction_scheduler is not None:
+            self._compaction_scheduler.resume_background()
+
+    # The options DB.set_options may change on an open DB (toplingdb_tpu's
+    # set; RocksDB's mutable CF and DB options). Every reader reads them
+    # from self.options at the time of use.
+    _MUTABLE_OPTIONS = frozenset({
+        "write_buffer_size", "level0_file_num_compaction_trigger",
+        "level0_slowdown_writes_trigger", "level0_stop_writes_trigger",
+        "disable_auto_compactions", "max_bytes_for_level_base",
+        "max_bytes_for_level_multiplier", "target_file_size_base",
+        "target_file_size_multiplier", "max_compaction_bytes",
+        "max_subcompactions", "max_background_jobs",
+        "enable_blob_garbage_collection",
+        "blob_garbage_collection_age_cutoff", "min_blob_size",
+        "seqno_time_sample_period_sec", "fifo_ttl_seconds",
+        "periodic_compaction_seconds",
+    })
+
+    def set_options(self, changes: dict) -> None:
+        """Online option changes for the mutable subset (RocksDB's
+        DB::SetOptions; the SidePlugin online-config mechanism). Unknown
+        or immutable names, and values of the wrong type, raise
+        InvalidArgument; a field the port does not run yet
+        (options.UNPORTED), set away from its default, raises
+        NotSupported naming it. The new values persist to a fresh OPTIONS
+        file and the old one is removed, under the DB mutex so concurrent
+        callers can't interleave the roll."""
+        base = Options()
+        for k, v in changes.items():
+            if k not in self._MUTABLE_OPTIONS:
+                raise InvalidArgument(f"option {k!r} is not dynamically "
+                                      f"changeable")
+            want = type(getattr(base, k))
+            if want is bool:
+                ok = isinstance(v, bool)
+            elif want is int:
+                ok = isinstance(v, int) and not isinstance(v, bool)
+            elif want is float:
+                ok = isinstance(v, (int, float)) and not isinstance(v, bool)
+            else:
+                ok = isinstance(v, want)
+            if not ok:
+                raise InvalidArgument(
+                    f"option {k!r} expects {want.__name__}, "
+                    f"got {type(v).__name__}"
+                )
+            if k in UNPORTED and v != getattr(base, k):
+                raise NotSupported(
+                    f"the port's DB does not run Options.{k} "
+                    f"({UNPORTED[k]})")
+        with self._mutex:
+            for k, v in changes.items():
+                setattr(self.options, k, v)
+            old = self._options_file_number
+            self._persist_options()
+            if old:
+                try:
+                    self.env.delete_file(
+                        filename.options_file_name(self.dbname, old))
+                except NotFound:
+                    pass
+        self._maybe_schedule_compaction()
+
+    def get_property(self, name: str) -> str | None:
+        """RocksDB's DB::GetProperty, under toplingdb_tpu's "tpulsm."
+        names; None for a name it does not answer."""
+        v = self.versions.current
+        if name in ("tpulsm.stats", "tpulsm.levelstats"):
+            lines = [f"last_seq={self.versions.last_sequence} "
+                     f"mem_entries={self.mem.num_entries} imm={len(self.imm)}"]
+            for level in range(v.num_levels):
+                n = len(v.files[level])
+                if n:
+                    lines.append(
+                        f"L{level}: {n} files {v.total_bytes(level)} bytes")
+            return "\n".join(lines)
+        if name == "tpulsm.num-files":
+            return str(v.num_files())
+        if name == "tpulsm.background-errors":
+            return str(int(self._bg_error is not None))
+        if name == "tpulsm.bg-error-severity":
+            return self._bg_error_severity.name
+        if name == "tpulsm.estimate-num-keys":
+            # RocksDB's rocksdb.estimate-num-keys: live table entries minus
+            # deletions plus memtable entries (overcounts overwrites).
+            n = sum(
+                max(0, m.num_entries - 2 * m.num_deletes)
+                for c in self._cfs.values() for m in [c.mem] + c.imm
+            )
+            for cf_id in self.versions.column_families:
+                for _, f in self.versions.cf_current(cf_id).all_files():
+                    n += max(0, f.num_entries - 2 * f.num_deletions)
+            return str(n)
+        if name == "tpulsm.cur-size-all-mem-tables":
+            return str(sum(
+                c.mem.approximate_memory_usage()
+                + sum(m.approximate_memory_usage() for m in c.imm)
+                for c in self._cfs.values()
+            ))
+        if name == "tpulsm.num-snapshots":
+            return str(self.snapshots.num_live())
+        if name == "tpulsm.estimate-live-data-size":
+            return str(sum(
+                f.file_size
+                for cf_id in self.versions.column_families
+                for _, f in self.versions.cf_current(cf_id).all_files()
+            ))
+        if name == "tpulsm.num-running-compactions":
+            s = self._compaction_scheduler
+            return str(s._running if s is not None else 0)
+        if name == "tpulsm.threads":
+            return json.dumps(get_thread_list())
+        if name.startswith("tpulsm.num-files-at-level"):
+            try:
+                lvl = int(name[len("tpulsm.num-files-at-level"):])
+            except ValueError:
+                return None
+            return str(len(v.files[lvl])) if 0 <= lvl < v.num_levels else None
+        return None
 
     def _check_open(self) -> None:
         if self._closed:

@@ -1,6 +1,6 @@
 """GetContext: the per-lookup state machine (copied from
 toplingdb_tpu/db/get_context.py, without the WritePrepared exclusion
-ranges and the unfolded operand collection of GetMergeOperands).
+ranges, which come with transactions).
 
 The role of RocksDB's GetContext (table/get_context.h): sources (memtable, immutable memtables, L0 files newest→
 oldest, then deeper levels) feed visible entries for the target user key in
@@ -35,7 +35,7 @@ class GetState(enum.Enum):
 
 class GetContext:
     def __init__(self, user_key: bytes, snapshot_seq: int, merge_operator=None,
-                 blob_resolver=None):
+                 blob_resolver=None, collect_operands: bool = False):
         self.user_key = user_key
         self.snapshot_seq = snapshot_seq
         self.merge_operator = merge_operator
@@ -47,6 +47,10 @@ class GetContext:
         self._last_operand_seq = 0  # seqno of operands[-1]
         self.max_covering_tombstone_seq = 0
         self.found_final_value = False
+        # collect_operands (RocksDB's DB::GetMergeOperands): keep the chain
+        # unfolded — same visibility/tombstone state machine, no folding,
+        # no merge_operator required.
+        self.collect_operands = collect_operands
 
     # ------------------------------------------------------------------
 
@@ -75,7 +79,7 @@ class GetContext:
             value = self.blob_resolver(value)
             t = ValueType.VALUE
         if t == ValueType.VALUE:
-            if self.state == GetState.MERGE:
+            if self.state == GetState.MERGE and not self.collect_operands:
                 self.state = GetState.FOUND
                 self.value = self._fold(value)
             else:
@@ -88,7 +92,7 @@ class GetContext:
             # kTypeWideColumnEntity): merge chains
             # fold against the entity's DEFAULT column, and the result
             # stays an entity with the default column replaced.
-            if self.state == GetState.MERGE:
+            if self.state == GetState.MERGE and not self.collect_operands:
                 from toplingdb_tpu_torch.db.wide_columns import merge_into_entity
 
                 self.state = GetState.FOUND
@@ -102,14 +106,17 @@ class GetContext:
             return False
         if t in (ValueType.DELETION, ValueType.SINGLE_DELETION):
             if self.state == GetState.MERGE:
-                self.state = GetState.FOUND
-                self.value = self._fold(None)
+                if self.collect_operands:
+                    pass  # chain ends with no base; keep the operands
+                else:
+                    self.state = GetState.FOUND
+                    self.value = self._fold(None)
             else:
                 self.state = GetState.DELETED
             self.found_final_value = True
             return False
         if t == ValueType.MERGE:
-            if self.merge_operator is None:
+            if self.merge_operator is None and not self.collect_operands:
                 self.state = GetState.CORRUPT
                 self.found_final_value = True
                 return False
@@ -121,7 +128,7 @@ class GetContext:
 
     def finish(self) -> None:
         """No more sources. Resolve an open merge chain against no base."""
-        if self.state == GetState.MERGE:
+        if self.state == GetState.MERGE and not self.collect_operands:
             self.value = self._fold(None)
             self.state = GetState.FOUND
             self.found_final_value = True
@@ -144,3 +151,13 @@ class GetContext:
         if self.state == GetState.FOUND:
             return self.value
         return None
+
+    def merge_operand_list(self) -> list[bytes]:
+        """collect_operands result: base value (if any) first, then merge
+        operands oldest→newest; [] when missing/deleted."""
+        out: list[bytes] = []
+        if self.state in (GetState.FOUND, GetState.MERGE) and \
+                self.value is not None:
+            out.append(self.value)
+        out.extend(reversed(self.operands))
+        return out

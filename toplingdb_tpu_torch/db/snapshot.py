@@ -51,3 +51,8 @@ class SnapshotList:
         must preserve (the CompactionIterator's snapshot list)."""
         with self._lock:
             return sorted({s.sequence for s in self._snapshots})
+
+    def num_live(self) -> int:
+        """Live snapshots (the tpulsm.num-snapshots property)."""
+        with self._lock:
+            return len(self._snapshots)

@@ -452,6 +452,14 @@ class VersionSet:
             edits.append(edit)
         return edits
 
+    def manifest_size(self) -> int:
+        """Current byte size of the live MANIFEST, synced: the truncation
+        point for consistent file-copy backups (RocksDB's GetLiveFiles'
+        manifest_file_size)."""
+        with self._lock:
+            self._manifest_writer.sync()
+            return self._manifest_writer._f.file_size()
+
     def log_and_apply(self, edit: VersionEdit, sync: bool = True) -> None:
         """Append edit to the MANIFEST and install the resulting Version for
         the edit's column family (RocksDB's VersionSet::LogAndApply). An

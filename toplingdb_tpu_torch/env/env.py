@@ -1,7 +1,8 @@
 """Posix filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to
 the file operations the compaction data plane and the DB use, and to the
-submit ring of the async WAL writer and the async read plane: no
-statistics, no WAL recycling, no in-memory env)."""
+submit ring of the async WAL writer and the async read plane, and to
+WAL recycling's reuse and archiving's mtime: no statistics, no in-memory
+env)."""
 
 from __future__ import annotations
 
@@ -264,9 +265,11 @@ class AsyncWritableFile:
 
 
 class _PosixWritable:
-    def __init__(self, path: str):
+    def __init__(self, path: str, reuse: bool = False):
         try:
-            self._f = open(path, "wb")
+            # reuse: overwrite in place from offset 0 without truncating
+            # (the recycled file's preallocated blocks are rewritten).
+            self._f = open(path, "r+b" if reuse else "wb")
         except OSError as e:
             raise IOError_(f"open {path}: {e}") from e
         self._size = 0
@@ -331,6 +334,23 @@ class _PosixSequential:
 class PosixEnv:
     def new_writable_file(self, path: str) -> _PosixWritable:
         return _PosixWritable(path)
+
+    def reuse_writable_file(self, old_path: str,
+                            new_path: str) -> _PosixWritable:
+        """Rename old_path to new_path and open it for OVERWRITE from
+        offset 0 WITHOUT truncating (WAL recycling, RocksDB's
+        Env::ReuseWritableFile: the already-allocated blocks are rewritten
+        in place; the recyclable log format makes the stale tail safe)."""
+        os.replace(old_path, new_path)
+        return _PosixWritable(new_path, reuse=True)
+
+    def get_file_mtime(self, path: str) -> float:
+        """Last-modification time (RocksDB's
+        Env::GetFileModificationTime)."""
+        try:
+            return os.path.getmtime(path)
+        except FileNotFoundError as e:
+            raise NotFound(path) from e
 
     def new_random_access_file(self, path: str) -> _PosixRandomAccess:
         return _PosixRandomAccess(path)

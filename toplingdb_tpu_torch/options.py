@@ -429,8 +429,6 @@ UNPORTED = {
     "disk_amber_free_ratio": "the storage-pressure plane",
     "disk_red_free_ratio": "the storage-pressure plane",
     "disk_pressure_hysteresis": "the storage-pressure plane",
-    "recycle_log_file_num": "WAL recycling",
-    "wal_ttl_seconds": "WAL archiving",
     "shared_store": "the shared SST store",
 }
 

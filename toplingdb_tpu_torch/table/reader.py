@@ -291,6 +291,16 @@ class TableReader:
         return TableIterator(self, readahead_size=readahead_size,
                              preread=preread, aio_ring=aio_ring)
 
+    def approximate_offset_of(self, ikey: bytes) -> int:
+        """Approximate file offset of ikey (RocksDB's TableReader::
+        ApproximateOffsetOf): the offset of the data block whose index
+        entry is the first at or past ikey, else the metaindex's."""
+        idx = self.new_index_iterator()
+        idx.seek(ikey)
+        if idx.valid():
+            return fmt.BlockHandle.decode_exact(idx.value()).offset
+        return self.footer.metaindex_handle.offset
+
     def range_del_entries(self) -> list[tuple[bytes, bytes]]:
         """Raw (begin_internal_key, end_user_key) tombstones in this file."""
         if self._range_del_data is None:

@@ -16,6 +16,7 @@ class Code(enum.IntEnum):
     IO_ERROR = 5
     MERGE_IN_PROGRESS = 6
     SHUTDOWN_IN_PROGRESS = 8
+    BUSY = 11
 
 
 class Severity(enum.IntEnum):
@@ -68,6 +69,10 @@ class MergeInProgress(Status):
 
 class ShutdownInProgress(Status):
     code = Code.SHUTDOWN_IN_PROGRESS
+
+
+class Busy(Status):
+    code = Code.BUSY
 
 
 class NoSpace(IOError_):
