@@ -251,9 +251,10 @@ Phases (any failure ends the run with a non-zero exit code):
      scan wall, and the card's busy share (the shard programs and the
      per-entry route's device sorts and GC masks by CUDA events).
  18. the integrity plane on the card: phase 13's deployment (INTEGRITY_N
-     = 500,000 keys, cut from 1,000,000 to keep the script inside its
-     limit with phase 20 added, since the jobs' Python output
-     verification costs ~10 us a row; from 4 threads in batches of 100,
+     = 300,000 keys, cut from 1,000,000 to keep the script inside its
+     limit, to 500,000 with phase 20 added and to 300,000 with phase 22,
+     since the jobs' Python output verification costs ~10 us a row;
+     from 4 threads in batches of 100,
      8 MiB write buffer, leveled, the "cuda" device factory, a Statistics, the default
      planes) with the integrity settings users turn on:
      protection_bytes_per_key=8 (RocksDB's
@@ -405,6 +406,48 @@ Phases (any failure ends the run with a non-zero exit code):
      launches and the card's busy share from open to the last read printed
      beside the card's name and power limit. Its gc_rows and merge
      launches are added to the kernels line's counts.
+ 22. the storage-pressure plane, the seqno-to-time mapping and
+     wide-column entities, every DB on phase 13's deployment (8 MiB write
+     buffer, leveled, 16-digit keys with 20-byte values from 4 writers in
+     batches of 100, the "cuda" device factory): (a) RocksDB's
+     SstFileManager with SetMaxAllowedSpaceUsage and a paced trash deleter
+     (include/rocksdb/sst_file_manager.h): a shared
+     SstFileManager(bytes_per_sec_delete=64 MiB/s) through
+     Options.sst_file_manager with max_allowed_space_usage B =
+     STORAGE_BUDGET_X = 1.5 x the raw bytes of STORAGE_N = 1,000,000 keys
+     (36 MB), the DB's default flush headroom (2 write buffers) and
+     free_space_poll_period_sec=0.05; the fill gets compactions refused and
+     a flush refused by the preflight (a SOFT no_space latch; the writers
+     whose writes raised wait and write again), then B is raised to 4B:
+     the latch clears with no resume() call and card jobs run; the levels
+     passed, NO_SPACE_PREFLIGHT_BLOCKS, NO_SPACE_ERRORS, the time to
+     recover, the tracked bytes against the bytes on disk, and every
+     acked key read back; (b) the plain-DB leg of toplingdb_tpu's disk-full
+     soak (tests/test_disk_pressure.py:475) on FaultInjectionEnv(
+     PosixEnv()) with set_disk_budget("*", FULL_BUDGET_X = 0.8 x the raw
+     bytes), FULL_N = 200,000 keys (cut from 1,000,000: the budget must be
+     reached and refilled): the fill until a genuine ENOSPC (torn short
+     writes) and a SOFT no_space latch, every acked key read while
+     latched, add_disk_budget, the auto-clear, FULL_POST_N = 20,000 more
+     keys, flush and compact_range on the card, a reopen on a plain
+     PosixEnv against the oracle; (c) RocksDB's tiered-storage option
+     preclude_last_level_data_seconds = 3600
+     (include/rocksdb/advanced_options.h): STORAGE_N keys and a 1% delete
+     overlay, compact_range on the card (young data: every last-level
+     file keeps smallest_seqno > 0 and every tombstone, rows equal the
+     oracle by db_files_against_oracle), an OVERLAY_PRECLUDE_N = 50,000-key
+     re-put overlay, close, the SEQNO_TIME.json samples moved back 7200 s,
+     reopen, compact_range again: the bottommost job zeroes every seqno and
+     drops the tombstones, rows equal the oracle; (d) RocksDB's
+     DB::PutEntity / GetEntity (include/rocksdb/db.h): ENTITY_N = 250,000
+     entities of three 20-byte columns, the default one included (cut
+     from 1,000,000: every entity group takes the Python commit), a
+     ENTITY_MERGE_N = 10,000-key string-append merge overlay (the complex
+     fold), compact_range on the card, ENTITY_PROBES = 20,000 get_entity
+     probes, the same keys through multi_get and a scan with columns()
+     against the oracle; (e) every job of the phase on "cuda"; the
+     launches and the card's busy share. Its gc_rows and merge launches
+     are added to the kernels line's counts.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -452,7 +495,7 @@ SMALL_DB_N = 200_000    # phase 14 (b) and (c)
 BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
 BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
 DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
-INTEGRITY_N = 500_000   # phase 18: phase 13's deployment, cut (docstring)
+INTEGRITY_N = 300_000   # phase 18: phase 13's deployment, cut (docstring)
 WRITE_N = 1_000_000     # phase 19 (a)-(c): phase 13's deployment
 WRITE_OVERLAY_N = 20_000  # phase 19 (a): keys rewritten into the trie
 WRITE_SYNC_N = 20_000   # phase 19 (d): bench.py's sync rows, n // 50
@@ -469,6 +512,15 @@ MANUAL_OVERLAY_N = 100_000  # phase 21 (a): keys written while paused
 MANUAL_PROBES = 100_000  # phase 21 (a): probes through multi_get
 MANUAL_MERGE_N = 10_000  # phase 21 (b): the uint64add merge overlay
 MANUAL_TARGET_FILE = 512 << 10  # phase 21: SST size (docstring)
+STORAGE_N = 1_000_000   # phase 22 (a) and (c): phase 13's deployment
+STORAGE_BUDGET_X = 0.85  # phase 22 (a): B over the raw bytes (docstring)
+FULL_N = 200_000        # phase 22 (b): cut from 1,000,000 (docstring)
+FULL_BUDGET_X = 0.8     # phase 22 (b): the fault env's budget over raw
+FULL_POST_N = 20_000    # phase 22 (b): keys written after the recovery
+OVERLAY_PRECLUDE_N = 50_000  # phase 22 (c): the re-put overlay
+ENTITY_N = 250_000      # phase 22 (d): cut from 1,000,000 (docstring)
+ENTITY_MERGE_N = 10_000  # phase 22 (d): the merge overlay
+ENTITY_PROBES = 20_000  # phase 22 (d): get_entity probes
 MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
 
 
@@ -2534,13 +2586,15 @@ def crash(db) -> None:
     db._closed = True
 
 
-def db_files_against_oracle(db, want, value, cf=None) -> int:
+def db_files_against_oracle(db, want, value, cf=None, tombstones=()) -> int:
     """Every live SST of the compacted DB (of column family `cf`, a
     handle; None: the default one) read back with the port's table reader:
     one level holds them all, and their rows, in file order, are the user
     keys `want` in order, each a PUT whose value bytes equal `value`, row
-    by row. With `cf`, every file's properties name that CF's id and
-    name."""
+    by row. With `tombstones` (user keys, kept by a job that was not
+    bottommost), the rows are `want` and `tombstones` merged in order,
+    each of those a DELETE with an empty value. With `cf`, every file's
+    properties name that CF's id and name."""
     from toplingdb_tpu_torch.db import filename
     from toplingdb_tpu_torch.table.factory import open_table
 
@@ -2560,18 +2614,26 @@ def db_files_against_oracle(db, want, value, cf=None) -> int:
         kv = scan_output(db.env, path, db.icmp)
         assert m.num_entries == kv.n
         assert np.all(kv.key_lens == width), "unexpected key length"
-        assert np.all(kv.val_lens == len(value)), "unexpected value length"
         kb = kv.key_buf.reshape(kv.n, width)
         ukeys.append(kb[:, :-8])
         trailer = np.ascontiguousarray(kb[:, -8:]).view("<u8").reshape(-1)
-        vtypes.append(trailer & np.uint64(0xFF))
-        vals.append(kv.val_buf[kv.val_offs[:, None].astype(np.int64)
+        t = trailer & np.uint64(0xFF)
+        vtypes.append(t)
+        put = t == 1
+        assert np.all(kv.val_lens[put] == len(value)), \
+            "unexpected value length"
+        assert np.all(kv.val_lens[~put] == 0), "a tombstone has a value"
+        vals.append(kv.val_buf[kv.val_offs[put][:, None].astype(np.int64)
                                + np.arange(len(value))])
     ukeys, vtypes, vals = (np.concatenate(a) for a in (ukeys, vtypes, vals))
-    wkeys = np.frombuffer(b"".join(want), np.uint8).reshape(len(want), -1)
+    rows = sorted([(k, 1) for k in want] + [(k, 0) for k in tombstones])
+    wkeys = np.frombuffer(b"".join(k for k, _ in rows), np.uint8).reshape(
+        len(rows), -1)
     assert ukeys.shape == wkeys.shape, (ukeys.shape, wkeys.shape)
     assert np.array_equal(ukeys, wkeys), "user keys differ from the oracle"
-    assert np.all(vtypes == 1), "a row is not a PUT"
+    assert np.array_equal(vtypes, np.array([t for _, t in rows],
+                                           dtype=np.uint64)), \
+        "a row's type differs from the oracle (PUT / DELETE)"
     assert np.array_equal(vals, np.broadcast_to(
         np.frombuffer(value, np.uint8), vals.shape)), \
         "values differ from the oracle"
@@ -5179,6 +5241,451 @@ def manual_path(torch, root, n, card, device_name="cuda", wbuf=8 << 20,
 
 
 
+
+def storage_fill(db, keys_of, n, value_of, retry_gate=None, n_threads=4,
+                 batch=100):
+    """bench.py's fill of n keys (n_threads writers, batches of `batch`)
+    that survives a full disk: a write that raises no-space counts as not
+    acknowledged; with `retry_gate` (an Event) the writer waits for it and
+    writes the batch again (puts are idempotent), else goes on. Returns
+    (acked key set, failed writes, the first no-space error seen)."""
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.utils.status import is_no_space
+
+    per_t = n // n_threads
+    acked, failed, first, errs = set(), [0], [], []
+    mu = threading.Lock()
+
+    def worker(t):
+        try:
+            for i in range(t * per_t, (t + 1) * per_t, batch):
+                ks = [keys_of(j) for j in range(i, min(i + batch,
+                                                        (t + 1) * per_t))]
+                while True:
+                    b = WriteBatch()
+                    for k in ks:
+                        b.put(k, value_of(k))
+                    try:
+                        db.write(b)
+                    except Exception as e:  # noqa: BLE001
+                        if not is_no_space(e):
+                            raise
+                        with mu:
+                            failed[0] += 1
+                            if not first:
+                                first.append(e)
+                        if retry_gate is None:
+                            break
+                        retry_gate.wait()
+                        continue
+                    with mu:
+                        acked.update(ks)
+                    break
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(t,))
+          for t in range(n_threads)]
+    for t in ts:
+        t.start()
+    return ts, acked, failed, first, errs
+
+
+def read_back(db, keys, value_of, tag) -> float:
+    """Every key in `keys` through multi_get batches of 10,000 against
+    value_of; returns the wall."""
+    keys = sorted(keys)
+    t0 = time.time()
+    for i in range(0, len(keys), 10_000):
+        part = keys[i:i + 10_000]
+        for k, v in zip(part, db.multi_get(part)):
+            assert v == value_of(k), (tag, k, v)
+    return time.time() - t0
+
+
+def storage_path(torch, root, n, card, device_name="cuda", n_full=FULL_N,
+                 n_entity=ENTITY_N):
+    """Phase 22 (see the module docstring): (a) a disk budget through a
+    shared SstFileManager, (b) a disk that really fills, (c)
+    preclude_last_level_data_seconds, (d) wide-column entities. Every DB
+    of the phase opens with one device factory, under one JobLog. Returns
+    the (gc_rows, merge_runs) launches."""
+    import random
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.wide_columns import encode_entity
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.env import PosixEnv
+    from toplingdb_tpu_torch.env.fault_injection import FaultInjectionEnv
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.listener import EventListener
+    from toplingdb_tpu_torch.utils.merge_operator import StringAppendOperator
+    from toplingdb_tpu_torch.utils.rate_limiter import SstFileManager
+
+    class Watch(EventListener):
+        """Pressure transitions and recoveries of one DB."""
+
+        def __init__(self):
+            self.levels = []
+            self.recovered = []
+
+        def on_disk_pressure(self, db, info):
+            self.levels.append(f"{info.prev_level}->{info.level}")
+
+        def on_error_recovery_completed(self, db, info):
+            self.recovered.append((info.reason, info.auto))
+
+    value = b"v" * 20
+    wbuf = 8 << 20
+    os.makedirs(root, exist_ok=True)
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+
+    def options(**kw):
+        return Options(create_if_missing=True, write_buffer_size=wbuf,
+                       compaction_executor_factory=factory, **kw)
+
+    def key_n(m):
+        return lambda i: db_key(i, m)
+
+    def wait_for(cond, timeout, what):
+        t0 = time.time()
+        while not cond():
+            assert time.time() - t0 < timeout, what
+            time.sleep(0.005)
+        return time.time() - t0
+
+    def disk_bytes(d):
+        return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+                   if f.endswith((".sst", ".log", ".blob")))
+
+    launched = counted(kernels)
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        # (a) A disk budget: SetMaxAllowedSpaceUsage and a paced trash
+        # deleter, shared through Options.sst_file_manager.
+        t_a = time.time()
+        budget = int(STORAGE_BUDGET_X * n * DB_RAW_PER_ENTRY)
+        sfm = SstFileManager(bytes_per_sec_delete=64 << 20,
+                             max_allowed_space_usage=budget,
+                             flush_headroom_bytes=2 * wbuf,
+                             free_space_poll_period_sec=0.05)
+        stats = st.Statistics()
+        watch = Watch()
+        adir = os.path.join(root, "budget")
+        db = DB.open(adir, options(sst_file_manager=sfm, statistics=stats,
+                                   listeners=[watch]))
+        sched = db._compaction_scheduler
+        refused = [0]
+        space_refused = sched._space_refused
+
+        def counting_refusal(c):
+            r = space_refused(c)
+            refused[0] += r
+            return r
+
+        sched._space_refused = counting_refusal
+        gate = threading.Event()
+        ts, acked, failed, first, errs = storage_fill(
+            db, key_n(n), n, lambda k: value, retry_gate=gate)
+        wait_for(lambda: first or not any(t.is_alive() for t in ts), 600,
+                 "the budgeted fill never ended")
+        assert first, (f"B = {budget} never latched: calibrate "
+                       f"STORAGE_BUDGET_X (tracked {sfm.total_size()})")
+        wait_for(lambda: db._bg_error is not None, 30, "no latch")
+        latch = (db._bg_error_reason, db._bg_error_severity.name)
+        assert latch == ("no_space", "SOFT_ERROR"), latch
+        blocks = stats.get_ticker_count(st.NO_SPACE_PREFLIGHT_BLOCKS)
+        assert refused[0] >= 1, "no compaction was refused before the latch"
+        at_latch = (sfm.total_size(), sfm.pressure(),
+                    len(db.versions.current.files[0]))
+        jobs_before = len(joblog.jobs)
+        t_raise = time.time()
+        sfm.set_max_allowed_space_usage(4 * budget)
+        ttr = wait_for(lambda: db._bg_error is None, 60,
+                       "the no_space latch never cleared")
+        gate.set()
+        for t in ts:
+            t.join()
+        assert not errs, errs
+        assert len(acked) == n - n % 4, len(acked)
+        db.flush()
+        db.wait_for_compactions()
+        after = [j for j in joblog.jobs[jobs_before:] if j["t0"] >= t_raise]
+        assert after and all(j["device"] == device_name for j in after), \
+            "no card job after the latch cleared"
+        assert watch.recovered and all(a for _r, a in watch.recovered), \
+            watch.recovered
+        sfm.wait_for_deletes()
+        tracked, on_disk = sfm.total_size(), disk_bytes(adir)
+        rb = read_back(db, acked, lambda k: value, "budget")
+        errs_n = stats.get_ticker_count(st.NO_SPACE_ERRORS)
+        db.close()
+        sfm.close()
+        log(f"[storage a] B = {STORAGE_BUDGET_X} x {n} x "
+            f"{DB_RAW_PER_ENTRY} B = {budget} bytes "
+            f"(max_allowed_space_usage, flush headroom {2 * wbuf}); the fill "
+            f"latched at {at_latch[0]} tracked bytes, pressure "
+            f"{at_latch[1]}, {at_latch[2]} L0 files; levels passed "
+            f"{' '.join(watch.levels) or 'none'}; "
+            f"NO_SPACE_PREFLIGHT_BLOCKS={blocks} (compactions refused "
+            f"{refused[0]}) NO_SPACE_ERRORS={errs_n}; latch {latch[0]} "
+            f"{latch[1]}, {failed[0]} writes refused and retried; budget "
+            f"raised to 4B: latch cleared in {ttr:.3f}s (time to recover) "
+            f"with 0 resume() calls ({len(watch.recovered)} auto), "
+            f"{len(after)} device jobs after it on {device_name}; tracked "
+            f"{tracked} bytes against {on_disk} on disk; {len(acked)} acked "
+            f"keys read back in {rb:.3f}s; wall {time.time() - t_a:.3f}s "
+            f"[{card}]")
+
+        # (b) A disk that really fills: FaultInjectionEnv's byte budget.
+        t_b = time.time()
+        fe = FaultInjectionEnv(PosixEnv())
+        fbudget = int(FULL_BUDGET_X * n_full * DB_RAW_PER_ENTRY)
+        fe.set_disk_budget("*", fbudget)
+        stats = st.Statistics()
+        watch = Watch()
+        bdir = os.path.join(root, "full")
+        db = DB.open(bdir, options(free_space_poll_period_sec=0.05,
+                                   statistics=stats, listeners=[watch]),
+                     env=fe)
+        ts, acked, failed, first, errs = storage_fill(
+            db, key_n(n_full), n_full, lambda k: value)
+        for t in ts:
+            t.join()
+        assert not errs, errs
+        assert fe.enospc_injected >= 1, "no genuine ENOSPC"
+        # The fill's first latch (its memtable switch refused by the
+        # preflight) cleared itself while the disk still had room. The
+        # disk is full now: with 64 KiB freed (so the WAL's sync can land)
+        # a flush is refused by the preflight and the latch holds at red.
+        early = list(watch.recovered)
+        assert fe.disk_budget_remaining("*") == 0
+        fe.add_disk_budget("*", 64 << 10)
+        try:
+            db.flush()
+            raise AssertionError("a flush on the full disk succeeded")
+        except Exception as e:  # noqa: BLE001
+            from toplingdb_tpu_torch.utils.status import is_no_space
+
+            assert is_no_space(e), repr(e)
+        wait_for(lambda: db._bg_error is not None, 30, "no latch")
+        time.sleep(0.3)  # the recover loop parks on the headroom gate
+        assert db._bg_error is not None, "the latch cleared on a full disk"
+        latch = (db._bg_error_reason, db._bg_error_severity.name,
+                 db.disk_pressure())
+        assert latch == ("no_space", "SOFT_ERROR", "red"), latch
+        rl = read_back(db, acked, lambda k: value, "full, latched")
+        t_raise = time.time()
+        fe.add_disk_budget("*", 64 << 20)
+        ttr = wait_for(lambda: db._bg_error is None, 60,
+                       "the ENOSPC latch never cleared")
+        post = [b"%016d" % (2 * n_full + 1 + 2 * i)
+                for i in range(FULL_POST_N)]
+        oracle = set(acked) | set(post)
+        for i in range(0, len(post), 100):
+            b = WriteBatch()
+            for k in post[i:i + 100]:
+                b.put(k, value)
+            db.write(b)
+        db.flush()
+        jobs_before = len(joblog.jobs)
+        db.compact_range()
+        assert len(joblog.jobs) > jobs_before, "no card job after ENOSPC"
+        native = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+        fallbacks = stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS)
+        enospc = fe.enospc_injected
+        db.close()
+        db = DB.open(bdir, options())  # a plain PosixEnv
+        rr = read_back(db, oracle, lambda k: value, "full, reopened")
+        it = db.new_iterator()
+        it.seek_to_first()
+        attempted = {db_key(i, n_full) for i in range(n_full)} | set(post)
+        extra = 0
+        for k, v in it.entries():
+            assert k in attempted and v == value, k
+            extra += k not in oracle
+        del it
+        db.close()
+        log(f"[storage b] FaultInjectionEnv(PosixEnv()) budget "
+            f"{FULL_BUDGET_X} x {n_full} x {DB_RAW_PER_ENTRY} B = {fbudget} "
+            f"bytes: {len(acked)} of {n_full} keys acked, {failed[0]} "
+            f"writes failed, {enospc} genuine ENOSPC (torn short writes), "
+            f"{len(early)} preflight latch of the fill cleared on its own "
+            f"while room was left; on the full disk, 64 KiB freed, a flush "
+            f"latched {latch[0]} {latch[1]} at pressure {latch[2]}; every "
+            f"acked key read while "
+            f"latched ({rl:.3f}s); add_disk_budget(64 MiB): latch cleared "
+            f"in {ttr:.3f}s, {len(watch.recovered)} auto recoveries in all; "
+            f"{FULL_POST_N} more keys, flush, compact_range on "
+            f"{device_name}; reopened on PosixEnv: {len(oracle)} keys equal "
+            f"the oracle ({rr:.3f}s), {extra} keys of writes that raised "
+            f"after their commit; WRITE_GROUP_NATIVE_COMMITS={native} "
+            f"WRITE_GROUP_FALLBACKS={fallbacks} under the fault env; wall "
+            f"{time.time() - t_b:.3f}s [{card}]")
+
+        # (c) preclude_last_level_data_seconds=3600.
+        t_c = time.time()
+        cdir = os.path.join(root, "preclude")
+        copts = dict(preclude_last_level_data_seconds=3600)
+        db = DB.open(cdir, options(**copts))
+        fill = threaded_fill(db, n, lambda i: (db_key(i, n), value))
+        rng = random.Random(22)
+        keys = sorted(db_key(i, n) for i in range(n))
+        dead = sorted(rng.sample(keys, n // 100))
+        for i in range(0, len(dead), 100):
+            b = WriteBatch()
+            for k in dead[i:i + 100]:
+                b.delete(k)
+            db.write(b)
+        db.flush()
+        db.wait_for_compactions()
+        live = sorted(set(keys) - set(dead))
+        j0 = len(joblog.jobs)
+        t0 = time.time()
+        db.compact_range()
+        w1 = time.time() - t0
+        jobs1 = joblog.jobs[j0:]
+        assert jobs1, "no card job in the precluded compact_range"
+        last = db.versions.current.files[-1]
+        assert last and min(f.smallest_seqno for f in last) > 0, \
+            "young data lost its seqnos"
+        n_files = db_files_against_oracle(db, live, value, tombstones=dead)
+        kept = sum(f.num_deletions for f in last)
+        assert kept == len(dead), (kept, len(dead))
+        overlay = rng.sample(live, OVERLAY_PRECLUDE_N)
+        for i in range(0, len(overlay), 100):
+            b = WriteBatch()
+            for k in overlay[i:i + 100]:
+                b.put(k, value)
+            db.write(b)
+        db.flush()
+        db.close()
+        side = os.path.join(cdir, "SEQNO_TIME.json")
+        with open(side) as f:
+            pairs = json.load(f)
+        with open(side, "w") as f:
+            f.write(json.dumps([[q, t - 7200] for q, t in pairs]))
+        db = DB.open(cdir, options(**copts))
+        j0 = len(joblog.jobs)
+        t0 = time.time()
+        db.compact_range()
+        w2 = time.time() - t0
+        jobs2 = joblog.jobs[j0:]
+        assert any(j["output_level"] == db.versions.current.num_levels - 1
+                   for j in jobs2), jobs2
+        last = db.versions.current.files[-1]
+        assert max(f.largest_seqno for f in last) == 0, \
+            "aged data kept its seqnos"
+        n_files2 = db_files_against_oracle(db, live, value)
+        db.close()
+        log(f"[storage c] preclude_last_level_data_seconds=3600: fill of "
+            f"{n} keys {fill:.3f}s, {len(dead)} deletes; compact_range "
+            f"{w1:.3f}s in {len(jobs1)} device jobs (non-bottommost): "
+            f"{n_files} last-level files, smallest_seqno > 0, "
+            f"{kept} tombstones kept, rows equal the oracle; a "
+            f"{OVERLAY_PRECLUDE_N}-key overlay, close, the sidecar's "
+            f"{len(pairs)} samples moved back 7200 s, reopen: compact_range "
+            f"{w2:.3f}s in {len(jobs2)} device jobs, the last level's "
+            f"{n_files2} files zeroed (largest_seqno 0), tombstones dropped, "
+            f"rows equal the oracle; wall {time.time() - t_c:.3f}s [{card}]")
+
+        # (d) Wide-column entities with a merge overlay (the complex fold).
+        t_d = time.time()
+        ddir = os.path.join(root, "entity")
+        db = DB.open(ddir, options(
+            merge_operator=StringAppendOperator(b",")))
+        ekeys = [db_key(i, n_entity) for i in range(n_entity)]
+
+        def cols(k):
+            return {b"": b"d" + k[-19:].rjust(19, b"0"),
+                    b"c1": b"a" + k[-19:].rjust(19, b"0"),
+                    b"c2": b"b" + k[-19:].rjust(19, b"0")}
+
+        per_t = n_entity // 4
+        errs = []
+
+        def ent_worker(t):
+            try:
+                for i in range(t * per_t, (t + 1) * per_t, 100):
+                    b = WriteBatch()
+                    for k in ekeys[i:min(i + 100, (t + 1) * per_t)]:
+                        b.put_entity(k, encode_entity(cols(k)))
+                    db.write(b)
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+
+        ts = [threading.Thread(target=ent_worker, args=(t,))
+              for t in range(4)]
+        t0 = time.time()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        efill = time.time() - t0
+        assert not errs, errs
+        want = {k: cols(k) for k in ekeys}
+        db.flush()
+        for k in rng.sample(ekeys, ENTITY_MERGE_N):
+            db.merge(k, b"m")
+            want[k] = dict(want[k])
+            want[k][b""] += b",m"
+        db.flush()
+        db.wait_for_compactions()
+        j0 = len(joblog.jobs)
+        t0 = time.time()
+        db.compact_range()
+        w3 = time.time() - t0
+        jobs3 = joblog.jobs[j0:]
+        assert jobs3, "no card job over the entities"
+        probes = rng.sample(ekeys, ENTITY_PROBES)
+        t0 = time.time()
+        for k in probes:
+            assert db.get_entity(k) == want[k], k
+        pr = time.time() - t0
+        t0 = time.time()
+        for i in range(0, len(probes), 128):
+            part = probes[i:i + 128]
+            assert db.multi_get(part) == [want[k][b""] for k in part]
+        mg = time.time() - t0
+        t0 = time.time()
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        for k in sorted(ekeys):
+            assert it.valid() and it.key() == k, k
+            assert it.columns() == want[k] and it.value() == want[k][b""]
+            it.next()
+            got += 1
+        assert not it.valid()
+        del it
+        sc = time.time() - t0
+        db.close()
+        log(f"[storage d] {n_entity} entities of three 20-byte columns "
+            f"from 4 writers {efill:.3f}s ({n_entity / efill:.0f} ops/s, "
+            f"the Python commit), a {ENTITY_MERGE_N}-key string-append "
+            f"merge overlay; compact_range {w3:.3f}s in {len(jobs3)} device "
+            f"jobs; {ENTITY_PROBES} get_entity probes {pr:.3f}s, the same "
+            f"keys through multi_get batches of 128 {mg:.3f}s, a scan of "
+            f"{got} entities with columns() {sc:.3f}s, all equal the oracle "
+            f"[{card}]")
+        t_last = time.time()
+        gc_n, mr_n = launched()
+    joblog.check(device_name, "storage")
+    assert joblog.jobs, "no compaction ran on the device executor"
+    if device_name != "cpu":
+        assert gc_n >= len(joblog.jobs), (gc_n, len(joblog.jobs))
+    log(f"[storage e] {len(joblog.jobs)} device jobs in the phase, launches "
+        f"gc_rows={gc_n} merge_runs={mr_n}; open to the last read: "
+        f"{busy_text(programs, joblog, t_last - t_open)} [{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5276,6 +5783,9 @@ def main() -> int:
         m_gc, m_mr = phase("21 manual", manual_path, torch,
                            os.path.join(dbdir, "db21"), MANUAL_N, smi)
         log(f"[manual] phase 21 wall {walls['21 manual']:.1f}s [{smi}]")
+        s_gc, s_mr = phase("22 storage", storage_path, torch,
+                           os.path.join(dbdir, "db22"), STORAGE_N, smi)
+        log(f"[storage] phase 22 wall {walls['22 storage']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -5286,10 +5796,11 @@ def main() -> int:
     # Phase 18's protected DB runs gc_rows and the merge on its own path.
     launches["gc_rows"] += int_gc
     launches["merge_runs"] += int_mr
-    # So do phase 19's write-path DBs, phase 20's read-path DBs and phase
-    # 21's compact_files, marked-file and other jobs.
-    launches["gc_rows"] += w_gc + r_gc + m_gc
-    launches["merge_runs"] += w_mr + r_mr + m_mr
+    # So do phase 19's write-path DBs, phase 20's read-path DBs, phase
+    # 21's compact_files, marked-file and other jobs, and phase 22's jobs
+    # after a space block, precluded, aged and over entities.
+    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc
+    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -62,7 +62,13 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   a suggest_compact_range pick after set_options({"disable_auto_
   compactions": False}) on "cuda" (gc_rows and the merge launch, the
   marked branch runs): the SST bytes, level sets and reads equal the
-  same DB's on "cpu".
+  same DB's on "cpu";
+- a DB with preclude_last_level_data_seconds whose young data is pushed
+  to the last level by compact_range on "cuda" (the jobs run
+  non-bottommost: seqnos and tombstones kept), and a DB of wide-column
+  entities with a merge overlay and deletes compacted on "cuda" (the
+  complex fold): the SST bytes, level sets and reads equal the same DBs'
+  on "cpu".
 """
 
 import os
@@ -1457,5 +1463,85 @@ def test_manual_compactions_on_the_card_write_the_cpu_bytes(dev, tmp_path,
     assert kernels.gc_rows.launches >= len(got[2])
     assert kernels.merge_runs_perm.launches > 0
     want = _manual_db(str(tmp_path / "cpu"), "cpu", 30_000)
+    assert got[1:] == want[1:]
+    assert got[0] == want[0]
+
+
+def _storage_db(path, device, n, kind):
+    """kind "preclude": n keys with deletes in three flushes under
+    preclude_last_level_data_seconds=3600, compact_range (young data: the
+    jobs keep seqnos and tombstones); kind "entity": n entities of three
+    columns, a string-append merge overlay on a tenth, deletes, then
+    compact_range. Returns the live SST bytes by name, the level sets,
+    the jobs, and the reads checked against an oracle."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils.merge_operator import StringAppendOperator
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=64 << 20, disable_auto_compactions=True,
+                   compaction_executor_factory=factory,
+                   merge_operator=StringAppendOperator(b","),
+                   preclude_last_level_data_seconds=(
+                       3600 if kind == "preclude" else 0))
+    key = lambda j: b"%016d" % (j * 2654435761 % (2 * n))  # noqa: E731
+    want = {}
+    with DB.open(path, opts) as db:
+        for r in range(3):
+            for i in range(r, n, 1 + r):
+                k = key(i)
+                if kind == "entity":
+                    cols = {b"": b"d%d-%d" % (r, i), b"c1": b"x" * 20,
+                            b"c2": b"y%d" % i}
+                    db.put_entity(k, cols)
+                    want[k] = cols
+                else:
+                    db.put(k, b"r%d-%d" % (r, i))
+                    want[k] = {b"": b"r%d-%d" % (r, i)}
+            for i in range(r, n, 17):
+                db.delete(key(i))
+                want[key(i)] = None
+            if kind == "entity":
+                for i in range(r + 1, n, 10):
+                    if want[key(i)] is not None:
+                        db.merge(key(i), b"m%d" % r)
+                        want[key(i)] = dict(want[key(i)])
+                        want[key(i)][b""] += b",m%d" % r
+            db.flush()
+        db.compact_range()
+        sched = db._compaction_scheduler
+        assert sched.num_local_jobs == 0 and sched.last_error is None
+        for k, v in want.items():
+            assert db.get_entity(k) == v, k
+        levels = [[(f.number, f.smallest_seqno, f.largest_seqno,
+                    f.num_entries, f.num_deletions) for f in fl]
+                  for fl in db.versions.current.files]
+        names = ["%06d.sst" % f[0] for fl in levels for f in fl]
+    files = {}
+    for name in names:
+        with open(os.path.join(path, name), "rb") as f:
+            files[name] = f.read()
+    return files, levels, len(factory.jobs)
+
+
+@pytest.mark.parametrize("kind", ["preclude", "entity"])
+def test_storage_slice_jobs_on_the_card_write_the_cpu_bytes(dev, tmp_path,
+                                                            monkeypatch,
+                                                            kind):
+    _frozen(monkeypatch)
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    got = _storage_db(str(tmp_path / "cuda"), "cuda", 30_000, kind)
+    assert got[2] > 0 and kernels.gc_rows.launches >= got[2]
+    assert kernels.merge_runs_perm.launches > 0
+    last = [fl for fl in got[1] if fl][-1]
+    if kind == "preclude":
+        # Young data at the last level: seqnos and tombstones kept.
+        assert min(f[1] for f in last) > 0
+        assert sum(f[4] for f in last) > 0
+    want = _storage_db(str(tmp_path / "cpu"), "cpu", 30_000, kind)
     assert got[1:] == want[1:]
     assert got[0] == want[0]

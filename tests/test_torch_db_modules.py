@@ -78,7 +78,10 @@ from toplingdb_tpu_torch.options import Options
 from toplingdb_tpu_torch.table.builder import TableBuilder, TableOptions
 from toplingdb_tpu_torch.utils import merge_operator as mo
 from toplingdb_tpu_torch.utils.cache import LRUCache
-from toplingdb_tpu_torch.utils.rate_limiter import WriteBufferManager
+from toplingdb_tpu_torch.utils.rate_limiter import (
+    SstFileManager,
+    WriteBufferManager,
+)
 from toplingdb_tpu_torch.utils.status import InvalidArgument, NotSupported
 
 VT = dbformat.ValueType
@@ -730,7 +733,33 @@ NOW_OPEN = {
     # WAL recycling and archiving (tests/test_torch_wal_recycle.py).
     "recycle_log_file_num": dict(recycle_log_file_num=2),
     "wal_ttl_seconds": dict(wal_ttl_seconds=3600.0),
+    # The storage-pressure plane (tests/test_torch_disk_pressure.py); the
+    # ratios and reserves with a budget, which builds the DB's manager.
+    "sst_file_manager": dict(sst_file_manager=SstFileManager()),
+    "max_allowed_space_usage": dict(max_allowed_space_usage=1 << 30),
+    "compaction_buffer_size": dict(max_allowed_space_usage=1 << 30,
+                                   compaction_buffer_size=1 << 20),
+    "flush_headroom_bytes": dict(max_allowed_space_usage=1 << 30,
+                                 flush_headroom_bytes=1 << 20),
+    "free_space_poll_period_sec": dict(free_space_poll_period_sec=0.05),
+    "disk_amber_free_ratio": dict(max_allowed_space_usage=1 << 30,
+                                  disk_amber_free_ratio=0.2),
+    "disk_red_free_ratio": dict(max_allowed_space_usage=1 << 30,
+                                disk_red_free_ratio=0.1),
+    "disk_pressure_hysteresis": dict(max_allowed_space_usage=1 << 30,
+                                     disk_pressure_hysteresis=0.05),
+    # The seqno-to-time mapping (tests/test_torch_seqno_time.py).
+    "seqno_time_sample_period_sec": dict(seqno_time_sample_period_sec=1),
+    "preclude_last_level_data_seconds": dict(
+        preclude_last_level_data_seconds=3600),
+    # Wide-column entities (tests/test_torch_wide_columns.py).
+    "legacy_wide_column_unwrap": dict(legacy_wide_column_unwrap=True),
 }
+
+
+STORAGE_FIELDS = ("sst_file_manager", "max_allowed_space_usage",
+                  "compaction_buffer_size", "flush_headroom_bytes",
+                  "free_space_poll_period_sec", "disk_")
 
 
 @pytest.mark.parametrize("name", sorted(NOW_OPEN))
@@ -751,6 +780,7 @@ def test_ported_option_opens(tmp_path, name):
             name == "integrity_scrub_period_sec")
         assert (db._wal_ring is not None) == ("async_wal" in name)
         assert db._wal._recycled == (name == "recycle_log_file_num")
+        assert (db._sfm is not None) == name.startswith(STORAGE_FIELDS)
         assert (db.table_cache._block_cache is not None) == (
             name == "block_cache")
         db.flush()

@@ -56,6 +56,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         assert m in loaded, m  # the read path's modules are walked too
     # and the thread-status registry of the manual entry points.
     assert "toplingdb_tpu_torch.utils.thread_status" in loaded
+    # and the seqno-to-time mapping of the storage slice.
+    assert "toplingdb_tpu_torch.utils.seqno_to_time" in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

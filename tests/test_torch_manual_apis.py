@@ -31,6 +31,7 @@ import json
 import os
 import shutil
 import threading
+import time
 
 import pytest
 
@@ -655,22 +656,31 @@ def test_byte_parity(tmp_path, pinned_clock, case, kw):  # noqa: F811
 
 
 def test_set_options_refuses_unported_field(tmp_path):
-    """toplingdb_tpu's mutable set includes seqno_time_sample_period_sec,
-    which the port does not run yet: away from its default it raises
-    NotSupported naming the field and changes nothing; at its default it
-    is accepted."""
+    """No mutable option of toplingdb_tpu's set is unported any more:
+    seqno_time_sample_period_sec, the last one, is accepted and applied
+    (the next write after the new period samples the mapping) and
+    persisted to a fresh OPTIONS file."""
     with dbm.DB.open(str(tmp_path / "db"), Side(False).opts()) as db:
+        db.put(b"a", b"1")
+        assert len(db.seqno_to_time) == 1  # the first write samples
         before = sorted(n for n in os.listdir(db.dbname)
                         if n.startswith("OPTIONS-"))
-        with pytest.raises(status.NotSupported,
-                           match="seqno_time_sample_period_sec"):
-            db.set_options({"seqno_time_sample_period_sec": 5,
-                            "write_buffer_size": 1 << 16})
-        assert db.options.write_buffer_size == 32 * 1024
-        assert sorted(n for n in os.listdir(db.dbname)
-                      if n.startswith("OPTIONS-")) == before
-        db.set_options({"seqno_time_sample_period_sec":
-                        Options().seqno_time_sample_period_sec})
+        db.set_options({"seqno_time_sample_period_sec": 5,
+                        "write_buffer_size": 1 << 16})
+        assert db.options.seqno_time_sample_period_sec == 5
+        assert db.options.write_buffer_size == 1 << 16
+        after = sorted(n for n in os.listdir(db.dbname)
+                       if n.startswith("OPTIONS-"))
+        assert after != before and len(after) == 1
+        with open(os.path.join(db.dbname, after[0])) as f:
+            assert json.load(f)["seqno_time_sample_period_sec"] == 5
+        db._last_seqno_time_sample = time.time() - 6
+        db.put(b"b", b"2")
+        assert len(db.seqno_to_time) == 2
+        db.set_options({"seqno_time_sample_period_sec": 0})
+        db._last_seqno_time_sample = 0.0
+        db.put(b"c", b"3")  # period 0: manual only
+        assert len(db.seqno_to_time) == 2
 
 
 class _Recorder(EventListener):

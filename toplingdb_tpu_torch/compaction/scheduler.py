@@ -1,8 +1,8 @@
 """Background compaction scheduling (copied from
 toplingdb_tpu/compaction/scheduler.py, with the leveled, universal and
-FIFO styles and the periodic trigger; the preclude-last-level policy and
-the storage-pressure preflight come with later slices; the local-pin gate
-is not ported, since no job falls back).
+FIFO styles, the periodic trigger, the storage-pressure preflight and the
+preclude-last-level policy; the local-pin gate is not ported, since no
+job falls back).
 
 The role of RocksDB's MaybeScheduleFlushOrCompaction → BGWorkCompaction
 chain (db/db_impl/db_impl_compaction_flush.cc): after every flush and
@@ -16,7 +16,15 @@ starve the later CFs under load on an earlier one), and a manual
 compaction runs over every CF in id order. A FIFO compaction only drops
 files: a version edit and the obsolete-file sweep, with no executor. A
 manual compaction of a universal DB is one job of every run into the last
-level. `pause` (DB.pause_background_work) waits for the running jobs and
+level. Under storage pressure (the DB's SstFileManager at amber or red,
+or a job whose output would eat the reserved headroom) a picked job does
+not start: its files stay pickable and the pressure callback reschedules
+once the poller sees headroom; FIFO drops are exempt. With
+`preclude_last_level_data_seconds`, a bottommost job whose inputs hold
+data younger than that (by the DB's seqno-to-time mapping) runs as a
+non-bottommost one, keeping its seqnos and tombstones; a young marked
+rewrite is skipped and its files re-marked after a backoff.
+`pause` (DB.pause_background_work) waits for the running jobs and
 holds new ones until `resume_background`; DB.compact_files runs its one
 job through `_run_compaction` in the caller's thread. Every job reports
 itself to utils/thread_status while it runs.
@@ -40,7 +48,7 @@ from toplingdb_tpu_torch.compaction.compaction_job import (
     run_compaction_to_tables,
 )
 from toplingdb_tpu_torch.compaction.picker import Compaction, create_picker
-from toplingdb_tpu_torch.db import dbformat
+from toplingdb_tpu_torch.db import dbformat, filename
 from toplingdb_tpu_torch.db.version_edit import VersionEdit
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.listener import CompactionJobInfo, notify
@@ -69,6 +77,12 @@ class CompactionScheduler:
         # Jobs that ran the host compaction path (the factory's
         # should_run_local: LocalCompactionExecutorFactory).
         self.num_local_jobs = 0
+        # (retry_ts, FileMetaData) of marked-rewrite jobs postponed by
+        # preclude_last_level_data_seconds; re-marked once aged.
+        self._preclude_remark: list = []
+        # Consecutive space-preflight refusals since the last job that ran
+        # (the first of a streak is logged, all of them ticked).
+        self._space_blocks = 0
 
     # ------------------------------------------------------------------
 
@@ -123,6 +137,10 @@ class CompactionScheduler:
             self.db._set_background_error(
                 e, getattr(e, "_bg_reason", "compaction"))
             traceback.print_exc()
+            # The latched error outlives this thread; its frames must not:
+            # their locals hold the failed job's Version, whose files would
+            # stay on disk after the rerun made them obsolete.
+            traceback.clear_frames(e.__traceback__)
         finally:
             with self._lock:
                 self._running -= 1
@@ -191,7 +209,8 @@ class CompactionScheduler:
     def _pick(self):
         """(the next job over every CF, by descending top score, its input
         files marked busy; the Version it was picked from), or (None,
-        None)."""
+        None) — also when the space preflight refuses the job, whose files
+        then stay pickable."""
         db = self.db
         with db._mutex:
             scored = []
@@ -206,15 +225,97 @@ class CompactionScheduler:
                     break
                 c = self.picker.pick_compaction(version)
                 if c is not None:
+                    if self._space_refused(c):
+                        # Returning None stops the drain loop (re-picking
+                        # would spin); the pressure callback's reschedule
+                        # re-enters once the poller sees headroom.
+                        return None, None
                     c.cf_id = cf_id
                     for _, f in c.all_inputs():
                         f.being_compacted = True
                     return c, version
         return None, None
 
+    def _space_refused(self, c: Compaction) -> bool:
+        """The storage-pressure preflight (RocksDB's
+        SstFileManagerImpl::EnoughRoomForCompaction): refuse to START a
+        rewriting job while pressure is amber or red (degradation is
+        amber first: jobs pause before anything errors), or when its
+        estimated output (~ its input bytes) would eat the reserved flush
+        headroom and compaction buffer. FIFO drops are exempt: they only
+        free space. Manual compactions do not come through here."""
+        db = self.db
+        sfm = db._sfm
+        if sfm is None or c.reason.startswith("fifo"):
+            return False
+        est = sum(f.file_size for _, f in c.all_inputs())
+        if sfm.pressure() == "ok" and sfm.check_compaction(est):
+            return False
+        if db.stats is not None:
+            from toplingdb_tpu_torch.utils import statistics as _st
+
+            db.stats.record_tick(_st.NO_SPACE_PREFLIGHT_BLOCKS, 1)
+        with self._lock:
+            first = self._space_blocks == 0
+            self._space_blocks += 1
+        if first:
+            db.event_logger.log(
+                "compaction_space_blocked", reason=c.reason,
+                estimated_bytes=est, pressure=sfm.pressure(),
+            )
+        return True
+
+    def _remark_precluded(self) -> None:
+        """Re-mark the files of postponed young marked rewrites whose
+        backoff has passed."""
+        if not self._preclude_remark:
+            return
+        now = time.time()
+        with self._lock:  # concurrent workers append and sweep
+            expired = [f for retry, f in self._preclude_remark
+                       if retry <= now]
+            self._preclude_remark = [(retry, f) for retry, f
+                                     in self._preclude_remark if retry > now]
+        for f in expired:
+            f.marked_for_compaction = True
+
+    def _maybe_preclude_last_level(self, c: Compaction) -> bool:
+        """preclude_last_level_data_seconds: a bottommost job whose inputs
+        hold data YOUNGER than the cutoff keeps full MVCC semantics (no
+        seqno zeroing, no tombstone dropping: c.bottommost = False, which
+        the device executor reads on every route) until a later job finds
+        it aged. Placement is not changed (RocksDB splits outputs to the
+        penultimate level per key; toplingdb_tpu defers the last-level
+        treatment instead, and so does the port). A young marked rewrite,
+        which exists only to drop garbage, is skipped: its files are
+        unmarked and re-marked after a backoff. Returns True when the job
+        is skipped."""
+        db = self.db
+        secs = db.options.preclude_last_level_data_seconds
+        if not secs or not c.bottommost:
+            return False
+        cutoff_seq = db.seqno_to_time.get_proximal_seqno(
+            int(time.time()) - secs)
+        if cutoff_seq is None:
+            # The cutoff predates every sample: nothing is provably old.
+            cutoff_seq = 0
+        newest = max((f.largest_seqno for _, f in c.all_inputs()),
+                     default=0)
+        if newest > cutoff_seq:
+            if c.reason == "bottommost marked":
+                retry = time.time() + min(60.0, float(secs))
+                with self._lock:
+                    for f in c.inputs:
+                        f.marked_for_compaction = False
+                        self._preclude_remark.append((retry, f))
+                return True
+            c.bottommost = False
+        return False
+
     def _run_one(self) -> bool:
         db = self.db
         self._apply_periodic_marking()
+        self._remark_precluded()
         # The job holds the Version it was picked from, so its inputs stay
         # on disk while it reads them, even if its CF is dropped (RocksDB's
         # Compaction::input_version_).
@@ -235,12 +336,15 @@ class CompactionScheduler:
             db._delete_obsolete_files()
         with self._lock:
             self.num_completed += 1
+            self._space_blocks = 0
         return True
 
     def _run_compaction(self, c: Compaction) -> None:
         db = self.db
         if not c.output_level_inputs and not c.inputs:
             return
+        if self._maybe_preclude_last_level(c):
+            return  # a young marked rewrite, re-marked later
         if c.reason.startswith("fifo"):
             # Deletion only.
             edit = make_version_edit(c, [])
@@ -344,6 +448,11 @@ class CompactionScheduler:
             with db._mutex:
                 db.versions.log_and_apply(edit)
                 db._delete_obsolete_files()
+            if db._sfm is not None:
+                for m in outputs:
+                    db._sfm.on_add_file(
+                        filename.table_file_name(db.dbname, m.number),
+                        m.file_size)
             db.event_logger.log(
                 "compaction_finished", input_level=c.level,
                 output_level=c.output_level, device=stats.device,

@@ -143,6 +143,28 @@ WALs (their stale tails read as the end of the log); with
 `wal_ttl_seconds` obsolete WALs move to `<db>/archive/` and leave it
 once older than the TTL.
 
+The storage-pressure plane, as toplingdb_tpu runs it. An SstFileManager
+(utils/rate_limiter.py; shared through `Options.sst_file_manager`, else
+built by the DB when `max_allowed_space_usage` or
+`free_space_poll_period_sec` is set) tracks the live SST, WAL and blob
+bytes, polls the env's free space and publishes a pressure level ("ok",
+"amber", "red"; `disk_pressure()`). A flush that would breach the budget
+does not start: it latches a SOFT `no_space` background error, as does an
+ENOSPC from any write of a flush or a job; the auto-recover loop waits for
+headroom without spending an attempt and clears the latch itself, and the
+jobs rerun on the same executor. The scheduler refuses to start a job
+under pressure or when its output would eat the reserved headroom. A
+pressure rise runs the reclaim ladder (obsolete SSTs and blobs go through
+the manager's paced trash deletion, which it unpaces). The seqno-to-time
+mapping samples `(sequence, time)` every `seqno_time_sample_period_sec`
+on every publishing path and persists it as `SEQNO_TIME.json` at every
+flush and close; with `preclude_last_level_data_seconds` a bottommost job
+over data younger than that keeps its seqnos and tombstones. Wide-column
+entities: `put_entity` / `get_entity` (the dedicated value type), a plain
+read presents an entity's default column, the iterator's `columns()` all
+of them; `legacy_wide_column_unwrap` also unwraps values that merely
+start with the entity magic.
+
 What toplingdb_tpu runs beyond this (the SLO engine, ...) is refused at
 open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
@@ -186,7 +208,6 @@ from toplingdb_tpu_torch.options import (
     Options,
     ReadOptions,
     WriteOptions,
-    UNPORTED,
     unported_fields,
 )
 from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
@@ -204,6 +225,7 @@ from toplingdb_tpu_torch.utils.status import (
     InvalidArgument,
     IOError_,
     NotFound,
+    NoSpace,
     NotSupported,
     Severity,
     ShutdownInProgress,
@@ -537,6 +559,59 @@ class DB:
         self.num_flushes = 0  # L0 tables written by flushes
         self.identity = ""
         self._init_observability()
+        self._init_storage_pressure()
+        # The seqno <-> time mapping (utils/seqno_to_time.py): sampled on
+        # publish, persisted as SEQNO_TIME.json at flush and close (without
+        # it a reopen would treat all data as young for
+        # preclude_last_level_data_seconds), loaded at open.
+        from toplingdb_tpu_torch.utils.seqno_to_time import (
+            SeqnoToTimeMapping,
+        )
+
+        self.seqno_to_time = SeqnoToTimeMapping()
+        self._seqno_time_path = None
+        self._seqno_time_dirty = False
+        self._last_seqno_time_sample = 0.0
+
+    def _init_storage_pressure(self) -> None:
+        """The SstFileManager tracking this DB's live SST + WAL + blob
+        bytes: the caller's (Options.sst_file_manager; it adopts this DB's
+        env, root and statistics where it has none, and its owner closes
+        it), else one built here when a disk budget or poller knob is set;
+        None otherwise (the no-knob path pays nothing)."""
+        from toplingdb_tpu_torch.utils.rate_limiter import SstFileManager
+
+        options = self.options
+        sfm = options.sst_file_manager
+        self._sfm_owned = False
+        self._store_gc_inflight = False  # one reclaim GC sweep at a time
+        if sfm is None and (options.max_allowed_space_usage > 0
+                            or options.free_space_poll_period_sec > 0):
+            headroom = options.flush_headroom_bytes
+            if headroom <= 0 and options.max_allowed_space_usage > 0:
+                headroom = 2 * options.write_buffer_size
+            sfm = SstFileManager(
+                env=self.env, path=self.dbname,
+                max_allowed_space_usage=options.max_allowed_space_usage,
+                compaction_buffer_size=options.compaction_buffer_size,
+                flush_headroom_bytes=headroom,
+                free_space_poll_period_sec=(
+                    options.free_space_poll_period_sec),
+                amber_free_ratio=options.disk_amber_free_ratio,
+                red_free_ratio=options.disk_red_free_ratio,
+                pressure_hysteresis=options.disk_pressure_hysteresis,
+                statistics=self.stats)
+            self._sfm_owned = True
+        elif sfm is not None:
+            if sfm._env is None:
+                sfm._env = self.env
+            if sfm._path is None:
+                sfm._path = self.dbname
+            if sfm._stats is None:
+                sfm._stats = self.stats
+        self._sfm = sfm
+        if sfm is not None:
+            sfm.add_pressure_callback(self._on_disk_pressure_change)
 
     def _init_observability(self) -> None:
         """Statistics, stats history, the span tracer and the event logger
@@ -710,9 +785,11 @@ class DB:
                            db.identity.encode())
         db._start_wal_ring(env)
         db._new_wal()
+        db._load_seqno_time()
         db._persist_options()
         db._delete_obsolete_files()
         db._sweep_orphan_jobs()
+        db._start_space_tracking()
         from toplingdb_tpu_torch.compaction.scheduler import (
             CompactionScheduler,
         )
@@ -726,6 +803,32 @@ class DB:
             db._integrity_scrubber = IntegrityScrubber(db)
             db._integrity_scrubber.start()
         return db
+
+    def _load_seqno_time(self) -> None:
+        """Load the SEQNO_TIME.json sidecar; a new DB starts a fresh
+        mapping, and so does a corrupt sidecar (a counted swallow)."""
+        self._seqno_time_path = os.path.join(self.dbname, "SEQNO_TIME.json")
+        if not self.env.file_exists(self._seqno_time_path):
+            return
+        try:
+            raw = self.env.read_file(self._seqno_time_path)
+            self.seqno_to_time.load(json.loads(raw.decode()))
+        except Exception as e:  # noqa: BLE001 - a corrupt sidecar
+            _errors.swallow(reason="seqno-time-sidecar-load", exc=e)
+
+    def _start_space_tracking(self) -> None:
+        """Seed the SstFileManager with the surviving tree (recovered SSTs,
+        blobs, the fresh WAL) so the budget math starts from reality, then
+        start its free-space poller."""
+        if self._sfm is None:
+            return
+        for child in self.env.get_children(self.dbname):
+            ftype, _num = filename.parse_file_name(child)
+            if ftype in (filename.FileType.TABLE, filename.FileType.BLOB,
+                         filename.FileType.WAL):
+                self._sfm.on_add_file(f"{self.dbname}/{child}")
+        self._sfm.poll()
+        self._sfm.start_poller()
 
     def _persist_options(self) -> None:
         """Write OPTIONS-NNNNNN next to the DB (RocksDB persists its options
@@ -825,8 +928,10 @@ class DB:
         recycle_on = self.options.recycle_log_file_num > 0
         if recycle_on and self._recycle_wals:
             old_num = self._recycle_wals.pop(0)
-            w = self.env.reuse_writable_file(
-                filename.log_file_name(self.dbname, old_num), path)
+            old_path = filename.log_file_name(self.dbname, old_num)
+            w = self.env.reuse_writable_file(old_path, path)
+            if self._sfm is not None:
+                self._sfm.on_delete_file(old_path)  # renamed onto `path`
         else:
             w = self.env.new_writable_file(path)
         if self._wal_ring is not None:
@@ -837,6 +942,8 @@ class DB:
                               recycled=recycle_on)
         if recycle_on:
             self._recyclable_written.add(self._wal_number)
+        if self._sfm is not None:
+            self._sfm.on_add_file(path, 0)  # grows; resized at the switch
 
     def close(self) -> None:
         """Stop the background compactions (joining their threads), flush
@@ -861,6 +968,11 @@ class DB:
             self._compaction_scheduler.shutdown()
         for t in self._recover_threads:
             t.join(timeout=10.0)
+        if self._sfm is not None and self._sfm_owned:
+            # A private manager: join its poller and trash deleters. A
+            # shared one (Options.sst_file_manager) outlives this DB and is
+            # closed by whoever built it.
+            self._sfm.close()
         with self._mutex:
             if self._closed:
                 return
@@ -878,6 +990,9 @@ class DB:
             if wbm is not None and self._wbm_charged:
                 wbm.free(self._wbm_charged)
                 self._wbm_charged = 0
+            self.seqno_to_time.append(self.versions.last_sequence,
+                                      int(time.time()))
+            self._save_seqno_time()
             self.versions.close()
             self.table_cache.close()
             self.blob_source.close()
@@ -1300,9 +1415,38 @@ class DB:
             if w is not group[0]:
                 w.event.set()
 
+    def _maybe_sample_seqno_time(self, seq: int) -> None:
+        """Record (seq, now) once the sampling period has elapsed (period 0
+        = manual only), on every publishing path. Persisting happens off
+        the write hot path (flush, close)."""
+        period = self.options.seqno_time_sample_period_sec
+        if period <= 0:
+            return
+        now = time.time()
+        if now - self._last_seqno_time_sample >= period:
+            self._last_seqno_time_sample = now
+            self.seqno_to_time.append(seq, int(now))
+            self._seqno_time_dirty = True
+
+    def _save_seqno_time(self) -> None:
+        """Best-effort persistence of the seqno <-> time mapping as the
+        SEQNO_TIME.json sidecar (toplingdb_tpu's; RocksDB rides the
+        MANIFEST and the SST properties)."""
+        if self._seqno_time_path is None:
+            return
+        self._seqno_time_dirty = False
+        try:
+            self.env.write_file(
+                self._seqno_time_path,
+                json.dumps(self.seqno_to_time.to_list()).encode())
+        except Exception as e:  # noqa: BLE001 - best effort, counted
+            _errors.swallow(reason="seqno-time-sidecar-save", exc=e,
+                            stats=self.stats)
+
     def _post_publish_work(self, group: list[_Writer]) -> None:
-        """Stats and the flush trigger after a staged group's publish
-        (caller holds _mutex)."""
+        """Stats, seqno-time sampling and the flush trigger after a staged
+        group's publish (caller holds _mutex)."""
+        self._maybe_sample_seqno_time(self.versions.last_sequence)
         if self.stats is not None:
             self.stats.record_tick(
                 _st.NUMBER_KEYS_WRITTEN, sum(w.batch.count() for w in group))
@@ -1643,6 +1787,7 @@ class DB:
                 with _tm.span("write.fsync_barrier"):
                     wal_wait()
             self.versions.last_sequence = seq - 1
+            self._maybe_sample_seqno_time(seq - 1)
             if self.stats is not None:
                 bw = sum(w.batch.data_size() for w in group)
                 self.stats.record_tick(
@@ -1703,6 +1848,10 @@ class DB:
         if self._wal is not None:
             self._wal.sync()
             self._wal.close()
+            if self._sfm is not None:
+                # The sealed WAL's final size (tracked as 0 at creation).
+                self._sfm.on_add_file(filename.log_file_name(
+                    self.dbname, self._wal_number))
         for cfd in self._cfs.values():
             if not cfd.mem.empty():
                 cfd.imm.insert(0, cfd.mem)
@@ -1730,6 +1879,20 @@ class DB:
 
     def _flush_memtables(self, mems: list[MemTable], wal_number: int | None,
                          cf_id: int = 0) -> None:
+        if self._sfm is not None:
+            # Preflight: refuse to START a flush only when even the reserved
+            # flush headroom cannot absorb it (flushes may spend the
+            # headroom compactions leave alone, so a red-pressure DB still
+            # drains its memtables). A refusal latches SOFT no_space;
+            # ingest resumes when space frees.
+            est = sum(m.approximate_memory_usage() for m in mems)
+            if not self._sfm.check_flush(est):
+                if self.stats is not None:
+                    self.stats.record_tick(_st.NO_SPACE_PREFLIGHT_BLOCKS, 1)
+                err = NoSpace(
+                    f"flush of ~{est} bytes would breach the disk budget")
+                self._set_background_error(err, reason="no_space")
+                raise err
         with thread_operation("flush", f"cf{cf_id}", self.dbname):
             # Flushes are rare and high-value: always traced while a tracer
             # exists (sampling applies to the per-op read / write roots
@@ -1745,6 +1908,10 @@ class DB:
     def _flush_memtables_traced(self, mems: list[MemTable],
                                 wal_number: int | None, cf_id: int) -> None:
         t0 = time.time()
+        if self._seqno_time_dirty:
+            # Every flush path funnels here, off the write hot path:
+            # persist the pending samples so a crash does not lose them.
+            self._save_seqno_time()
         fnum = self.versions.new_file_number()
         blob_num = (self.versions.new_file_number()
                     if self.options.enable_blob_files else None)
@@ -1774,6 +1941,14 @@ class DB:
             self._pending_outputs.discard(fnum)
             if blob_num is not None:
                 self._pending_outputs.discard(blob_num)
+        if meta is not None and self._sfm is not None:
+            self._sfm.on_add_file(
+                filename.table_file_name(self.dbname, meta.number),
+                meta.file_size)
+            if blob_num is not None:
+                bpath = blob_file_name(self.dbname, blob_num)
+                if self.env.file_exists(bpath):
+                    self._sfm.on_add_file(bpath)
         if meta is not None:
             from toplingdb_tpu_torch.utils.listener import FlushJobInfo
 
@@ -1801,6 +1976,8 @@ class DB:
             if any(not c.mem.empty() for c in self._cfs.values()):
                 self._switch_memtable()
             self._flush_immutables()
+        if self._seqno_time_dirty:
+            self._save_seqno_time()  # outside _mutex: best-effort IO
 
     def _stamp_file_checksums(self, metas) -> None:
         """Record whole-file checksums on freshly produced SST metadata
@@ -1992,13 +2169,17 @@ class DB:
             cf=None) -> bytes | None:
         """Point lookup (RocksDB's DBImpl::GetImpl). Returns None if not
         found. A wide-column entity presents as its anonymous default
-        column."""
+        column (use get_entity for every column); entities are detected by
+        their dedicated value type, so a plain binary value is never
+        reinterpreted, except that Options.legacy_wide_column_unwrap also
+        unwraps plain values starting with the entity magic (databases
+        written before the dedicated type)."""
         sched = self._trace_sched
         if sched is not None:
             m = sched()
             if m:
                 return self._get_traced(key, opts, cf, m == 1)
-        return self._get_impl(key, opts, cf)
+        return self._present(*self._get_entry(key, opts, cf))
 
     def _get_traced(self, key: bytes, opts, cf, sampled: bool):
         """The rare half of get(): a sampled root span, or the slow-watch
@@ -2007,7 +2188,7 @@ class DB:
         root = tracer.start("db.get") if sampled else None
         t0 = 0.0 if sampled else time.perf_counter()
         try:
-            return self._get_impl(key, opts, cf)
+            return self._present(*self._get_entry(key, opts, cf))
         finally:
             if root is not None:
                 root.finish()
@@ -2016,7 +2197,21 @@ class DB:
                 if us >= tracer.slow_usec:
                     tracer.note_slow("db.get", us)
 
-    def _get_impl(self, key: bytes, opts: ReadOptions, cf) -> bytes | None:
+    def _present(self, v: bytes | None, is_entity: bool) -> bytes | None:
+        """get's presentation of a stored value: an entity's default
+        column, and behind the legacy gate the magic sniff."""
+        if v is None:
+            return None
+        if is_entity or (v[:1] == b"\x00"
+                         and self.options.legacy_wide_column_unwrap):
+            from toplingdb_tpu_torch.db.wide_columns import default_column_of
+
+            return default_column_of(v)
+        return v
+
+    def _get_entry(self, key: bytes, opts: ReadOptions,
+                   cf) -> tuple[bytes | None, bool]:
+        """(stored value or None, whether it is a wide-column entity)."""
         self._check_open()
         self._check_read_options(opts)
         cfd = self._cf_data(cf)
@@ -2038,7 +2233,7 @@ class DB:
             if handled:
                 if st_on:
                     self._record_get_stats(t0, val, src)
-                return val
+                return val, False  # the native chain hands entities back
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
@@ -2046,7 +2241,7 @@ class DB:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
                 if st_on:
                     self._record_get_stats(t0, ctx.result(), "mem")
-                return self._result(ctx)
+                return ctx.result(), ctx.result_is_entity
         # 2. SST files, newest data first. Async plane: every candidate
         # file's cache-missing blocks are submitted as ONE batch before
         # the walk, so a multi-level chain overlaps its preads (deeper
@@ -2063,7 +2258,7 @@ class DB:
                                          preread_map=preread_map)
         if st_on:
             self._record_get_stats(t0, ctx.result(), hit_level)
-        return self._result(ctx)
+        return ctx.result(), ctx.result_is_entity
 
     def _walk_sst_chain(self, version, key: bytes, snap_seq: int, ctx,
                         tombs_for=None, preread_map=None):
@@ -2106,6 +2301,31 @@ class DB:
     def key_exists(self, key: bytes,
                    opts: ReadOptions = _DEFAULT_READ) -> bool:
         return self.get(key, opts) is not None
+
+    def put_entity(self, key: bytes, columns: dict[bytes, bytes],
+                   opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> None:
+        """Wide-column write under the dedicated entity value type
+        (RocksDB's DB::PutEntity, kTypeWideColumnEntity)."""
+        from toplingdb_tpu_torch.db.wide_columns import encode_entity
+
+        b = WriteBatch(protection_bytes_per_key=self._protection)
+        b.put_entity(key, encode_entity(columns), cf=self._cf_id(cf))
+        self.write(b, opts)
+
+    def get_entity(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
+                   cf=None) -> dict[bytes, bytes] | None:
+        """Wide-column read (RocksDB's DB::GetEntity); a plain value
+        presents as the anonymous default column."""
+        from toplingdb_tpu_torch.db.wide_columns import decode_entity
+
+        v = self._get_raw(key, opts, cf=cf)
+        return None if v is None else decode_entity(v)
+
+    def _get_raw(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
+                 cf=None) -> bytes | None:
+        """Point lookup WITHOUT the default-column unwrap (get_entity needs
+        the whole encoding)."""
+        return self._get_entry(key, opts, cf)[0]
 
     def get_merge_operands(self, key: bytes,
                            opts: ReadOptions = _DEFAULT_READ,
@@ -2171,6 +2391,13 @@ class DB:
                 us = (time.perf_counter() - t_mg) * 1e6
                 if us >= tracer.slow_usec:
                     tracer.note_slow("db.multiget", us, keys=len(keys))
+        # Entities were unwrapped per key by their typed resolution; the
+        # magic sniff runs only behind the legacy gate.
+        if self.options.legacy_wide_column_unwrap \
+                and any(v is not None and v[:1] == b"\x00" for v in res):
+            from toplingdb_tpu_torch.db.wide_columns import default_column_of
+
+            res = [v if v is None else default_column_of(v) for v in res]
         if self.stats is not None:
             self.stats.record_tick(_st.NUMBER_MULTIGET_CALLS)
             self.stats.record_tick(_st.NUMBER_MULTIGET_KEYS_READ, len(keys))
@@ -2392,7 +2619,14 @@ class DB:
                 opts, snapshot=_SeqSnapshot(snap_seq))
         for i, v in enumerate(out):
             if v is False:
-                out[i] = self._get_impl(keys[i], pinned_opts, cf)
+                r, is_entity = self._get_entry(keys[i], pinned_opts, cf)
+                if r is not None and is_entity:
+                    from toplingdb_tpu_torch.db.wide_columns import (
+                        default_column_of,
+                    )
+
+                    r = default_column_of(r)
+                out[i] = r
         return out
 
     def _reader_batcher(self):
@@ -2571,6 +2805,7 @@ class DB:
                 upper_bound=opts.iterate_upper_bound,
                 pinned=version,
                 blob_resolver=self.blob_source.get,
+                legacy_wce=self.options.legacy_wide_column_unwrap,
             )
             # The chunked scan plane (ops/scan_plane.py): native block
             # decode + k-way merge for forward scans; None when the
@@ -2925,10 +3160,14 @@ class DB:
         """Retry resume() with backoff for THE error this thread was started
         for. A different error latched meanwhile, a manual resume() or the
         DB's close ends the loop untouched (RocksDB checks the recovery
-        error's identity the same way). Background work reruns on the same
-        compaction executor; nothing falls back to another path."""
+        error's identity the same way). A no_space latch first waits for
+        the SstFileManager's headroom, spending no attempt while it waits.
+        Background work reruns on the same compaction executor; nothing
+        falls back to another path."""
+        no_space = getattr(target, "_bg_reason", "") == "no_space" or (
+            self._bg_error is target and self._bg_error_reason == "no_space")
         attempt = 0
-        backoff = 0
+        backoff = 0  # grows on every pass, attempted or not
         while attempt < max_attempts:
             if self._recover_stop.wait(
                     min(base_delay * (2 ** min(backoff, 8)), 2.0)):
@@ -2937,6 +3176,12 @@ class DB:
             with self._mutex:
                 if self._closed or self._bg_error is not target:
                     return
+            if (no_space and self._sfm is not None
+                    and not self._sfm.has_headroom()):
+                # Space has not come back yet (trash still draining, the
+                # disk still full): a no_space latch clears exactly when
+                # the poller sees headroom, however long that takes.
+                continue
             attempt += 1
             try:
                 self.resume(_auto=True)
@@ -2988,6 +3233,99 @@ class DB:
                    self, ErrorRecoveryInfo(db_name=self.dbname,
                                            reason=reason, auto=_auto))
         self._maybe_schedule_compaction()
+
+    # ==================================================================
+    # Storage pressure
+    # ==================================================================
+
+    def disk_pressure(self) -> str:
+        """The storage-pressure level ("ok" / "amber" / "red") from the
+        SstFileManager's poller; "ok" when no manager is attached."""
+        return self._sfm.pressure() if self._sfm is not None else "ok"
+
+    def _on_disk_pressure_change(self, level: str, prev: str,
+                                 info: dict) -> None:
+        """The SstFileManager's transition callback (outside the manager's
+        locks, on the polling thread): listeners hear of it, a rise climbs
+        the reclaim ladder, a return to ok restarts paused compactions."""
+        from toplingdb_tpu_torch.utils.listener import DiskPressureInfo
+
+        notify(self.options.listeners, "on_disk_pressure", self,
+               DiskPressureInfo(
+                   db_name=self.dbname, path=self.dbname, level=level,
+                   prev_level=prev,
+                   free_fraction=info.get("free_fraction", 0.0),
+                   tracked_bytes=info.get("tracked_bytes", 0),
+                   trash_bytes=info.get("trash_bytes", 0),
+                   budget_bytes=info.get("budget_bytes", 0)))
+        self.event_logger.log(
+            "disk_pressure", level=level, prev=prev,
+            free_fraction=round(info.get("free_fraction", 0.0), 4))
+        order = {"ok": 0, "amber": 1, "red": 2}
+        if order.get(level, 0) > order.get(prev, 0):
+            self._run_reclaim_ladder(level)
+        elif level == "ok":
+            self._maybe_schedule_compaction()
+
+    def _run_reclaim_ladder(self, level: str) -> None:
+        """Free bytes in escalating cost order: (1) unpace trash deletion,
+        so bytes already condemned drain at once; at red also (2) prune
+        the env's clean cache tier and (3) start a mark-sweep GC of its
+        shared object store. Steps 2 and 3 act only on an env carrying
+        `tier` / `store` (toplingdb_tpu's shared SST store, whose
+        storage/ package the port does not have yet); with every env the
+        port has they do nothing, as in toplingdb_tpu with a plain env."""
+        if self._sfm is None:
+            return
+        if self.stats is not None:
+            self.stats.record_tick(_st.DISK_RECLAIM_RUNS, 1)
+        self._sfm.accelerate_deletes()
+        if level != "red":
+            return
+        tier = getattr(self.env, "tier", None)
+        if tier is not None and hasattr(tier, "prune"):
+            try:
+                tier.prune()
+            except Exception as e:  # noqa: BLE001 - reclaim is best effort
+                _errors.swallow(reason="disk-reclaim-cache-prune", exc=e,
+                                stats=self.stats)
+        store = getattr(self.env, "store", None)
+        if store is not None and not self._store_gc_inflight:
+            self._store_gc_inflight = True
+
+            def run_gc():
+                try:
+                    from toplingdb_tpu_torch.storage.gc import mark_sweep
+
+                    # Roots: this DB plus every sibling directory holding a
+                    # CURRENT (fleet shards share one store; a sweep rooted
+                    # at this shard alone would reap its neighbours' live
+                    # objects).
+                    roots = {self.dbname}
+                    parent = os.path.dirname(self.dbname)
+                    try:
+                        for child in self.env.get_children(parent or "."):
+                            d = f"{parent}/{child}" if parent else child
+                            if self.env.file_exists(
+                                    filename.current_file_name(d)):
+                                roots.add(d)
+                    except Exception as probe_err:  # noqa: BLE001
+                        _errors.swallow(reason="reclaim-gc-root-scan",
+                                        exc=probe_err)
+                    mark_sweep(store, sorted(roots), env=self.env,
+                               grace_sec=60.0, statistics=self.stats)
+                except Exception as e:  # noqa: BLE001 - best effort
+                    _errors.swallow(reason="disk-reclaim-store-gc", exc=e,
+                                    stats=self.stats)
+                finally:
+                    self._store_gc_inflight = False
+
+            t = threading.Thread(target=run_gc, daemon=True,
+                                 name="tpt-disk-reclaim-store-gc")
+            with self._mutex:
+                self._recover_threads = [
+                    x for x in self._recover_threads if x.is_alive()] + [t]
+            t.start()
 
     # ==================================================================
     # Integrity (the at-rest half: verification passes and the scrubber)
@@ -3287,12 +3625,21 @@ class DB:
             elif ftype == filename.FileType.TEMP:
                 keep = False
             if not keep:
+                path = f"{self.dbname}/{child}"
                 if ftype == filename.FileType.TABLE:
                     self.table_cache.evict(num)
                 elif ftype == filename.FileType.BLOB:
                     self.blob_source.evict(num)
+                if self._sfm is not None:
+                    if ftype in (filename.FileType.TABLE,
+                                 filename.FileType.BLOB):
+                        # Obsolete SSTs and blobs go through the manager:
+                        # paced trash deletion and live-byte accounting.
+                        self._sfm.schedule_delete(path)
+                        continue
+                    self._sfm.on_delete_file(path)
                 try:
-                    self.env.delete_file(f"{self.dbname}/{child}")
+                    self.env.delete_file(path)
                 except NotFound:
                     pass
 
@@ -3306,6 +3653,10 @@ class DB:
             self.env.rename_file(f"{self.dbname}/{child}", f"{arch}/{child}")
         except (OSError, NotFound):
             return
+        if self._sfm is not None:
+            # Archived WALs leave the tracked tree (the TTL purge owns
+            # them).
+            self._sfm.on_delete_file(f"{self.dbname}/{child}")
         now = time.time()
         try:
             names = self.env.get_children(arch)
@@ -3481,10 +3832,8 @@ class DB:
         """Online option changes for the mutable subset (RocksDB's
         DB::SetOptions; the SidePlugin online-config mechanism). Unknown
         or immutable names, and values of the wrong type, raise
-        InvalidArgument; a field the port does not run yet
-        (options.UNPORTED), set away from its default, raises
-        NotSupported naming it. The new values persist to a fresh OPTIONS
-        file and the old one is removed, under the DB mutex so concurrent
+        InvalidArgument. The new values persist to a fresh OPTIONS file
+        and the old one is removed, under the DB mutex so concurrent
         callers can't interleave the roll."""
         base = Options()
         for k, v in changes.items():
@@ -3505,10 +3854,6 @@ class DB:
                     f"option {k!r} expects {want.__name__}, "
                     f"got {type(v).__name__}"
                 )
-            if k in UNPORTED and v != getattr(base, k):
-                raise NotSupported(
-                    f"the port's DB does not run Options.{k} "
-                    f"({UNPORTED[k]})")
         with self._mutex:
             for k, v in changes.items():
                 setattr(self.options, k, v)

@@ -1,6 +1,8 @@
 """DBIter: the user-facing MVCC iterator (copied from
 toplingdb_tpu/db/db_iter.py, without user-defined timestamps,
-prefix-mode iteration and the WritePrepared exclusion ranges).
+prefix-mode iteration and the WritePrepared exclusion ranges). An entity
+presents its default column through value() and all of them through
+columns().
 
 The role of RocksDB's DBIter (db/db_iter.cc): wraps a MergingIterator over
 {memtable, immutables, SST levels} and collapses the internal-key stream
@@ -28,8 +30,10 @@ class DBIter:
                  range_del_agg=None, merge_operator=None,
                  lower_bound: bytes | None = None,
                  upper_bound: bytes | None = None,
-                 pinned=None, blob_resolver=None):
+                 pinned=None, blob_resolver=None,
+                 legacy_wce: bool = False):
         self._blob_resolver = blob_resolver
+        self._legacy_wce = legacy_wce  # magic-sniff gate (pre-type DBs)
         # `pinned` keeps the source Version (and anything else) alive for the
         # iterator's lifetime so obsolete-file GC cannot delete SSTs that
         # LevelIterator children will open lazily.
@@ -122,14 +126,42 @@ class DBIter:
         assert self._valid
         return self._key
 
+    def raw_value(self) -> bytes:
+        """The stored value WITHOUT the wide-column default-column
+        unwrap."""
+        assert self._valid
+        return self._value
+
     def value(self) -> bytes:
         assert self._valid
-        if self._entry_type == ValueType.WIDE_COLUMN_ENTITY:
-            # A wide-column entity presents its anonymous default column.
+        if self._entry_is_entity():
+            # A wide-column entity presents its anonymous default column;
+            # columns() gives them all.
             from toplingdb_tpu_torch.db.wide_columns import default_column_of
 
             return default_column_of(self._value)
         return self._value
+
+    def _entry_is_entity(self) -> bool:
+        """Typed detection (kTypeWideColumnEntity); the magic sniff only
+        behind the legacy gate, for databases written before the type."""
+        if self._entry_type == ValueType.WIDE_COLUMN_ENTITY:
+            return True
+        return self._legacy_wce and self._value[:1] == b"\x00"
+
+    def columns(self) -> dict[bytes, bytes]:
+        """All columns of the current entry (RocksDB's
+        Iterator::columns(): a plain value presents as the anonymous
+        default column)."""
+        assert self._valid
+        from toplingdb_tpu_torch.db.wide_columns import (
+            DEFAULT_COLUMN,
+            decode_entity,
+        )
+
+        if self._entry_is_entity():
+            return decode_entity(self._value)
+        return {DEFAULT_COLUMN: self._value}
 
     def seek_to_first(self) -> None:
         if self._plane is not None and self._plane_position(self._lower):

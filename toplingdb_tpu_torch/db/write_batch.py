@@ -133,6 +133,15 @@ class WriteBatch:
     def merge(self, key: bytes, value: bytes, cf: int = 0) -> None:
         self._add_record(ValueType.MERGE, cf, key, value)
 
+    def put_entity(self, key: bytes, encoded_entity: bytes,
+                   cf: int = 0) -> None:
+        """Wide-column entity record (RocksDB's kTypeWideColumnEntity,
+        db/write_batch.cc WriteBatch::PutEntity): the dedicated value type
+        keeps plain binary values unambiguous (no magic sniffing).
+        `encoded_entity` is db.wide_columns.encode_entity's encoding."""
+        self._add_record(ValueType.WIDE_COLUMN_ENTITY, cf, key,
+                         encoded_entity)
+
     def delete_range(self, begin: bytes, end: bytes, cf: int = 0) -> None:
         self._add_record(ValueType.RANGE_DELETION, cf, begin, end)
 

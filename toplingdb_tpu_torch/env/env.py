@@ -1,8 +1,10 @@
-"""Posix filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to
-the file operations the compaction data plane and the DB use, and to the
-submit ring of the async WAL writer and the async read plane, and to
-WAL recycling's reuse and archiving's mtime: no statistics, no in-memory
-env)."""
+"""Filesystem access (copied from toplingdb_tpu/env/env.py, trimmed to the
+file operations the compaction data plane and the DB use, to the submit
+ring of the async WAL writer and the async read plane, to WAL recycling's
+reuse and archiving's mtime, and to the free-space probe of the
+storage-pressure plane: no statistics). PosixEnv is the DB's env; MemEnv
+is the in-memory one, with a simulated capacity, for the SstFileManager
+and FaultInjectionEnv on their own."""
 
 from __future__ import annotations
 
@@ -335,6 +337,21 @@ class PosixEnv:
     def new_writable_file(self, path: str) -> _PosixWritable:
         return _PosixWritable(path)
 
+    def get_free_space(self, path: str) -> int:
+        """Free bytes on the filesystem holding `path`; a path that does
+        not exist yet walks up to its closest existing parent."""
+        p = path
+        while p and not os.path.exists(p):
+            parent = os.path.dirname(p)
+            if parent == p:
+                break
+            p = parent
+        try:
+            st = os.statvfs(p or "/")
+        except OSError as e:
+            raise IOError_(f"statvfs {path}: {e}") from e
+        return st.f_bavail * st.f_frsize
+
     def reuse_writable_file(self, old_path: str,
                             new_path: str) -> _PosixWritable:
         """Rename old_path to new_path and open it for OVERWRITE from
@@ -400,6 +417,159 @@ class PosixEnv:
                 f.sync()
         finally:
             f.close()
+
+
+# ---------------------------------------------------------------------------
+# In-memory (RocksDB's env/mock_env.cc role)
+# ---------------------------------------------------------------------------
+
+
+class _MemFileState:
+    __slots__ = ("data", "synced_len", "mtime")
+
+    def __init__(self):
+        import time
+
+        self.data = bytearray()
+        self.synced_len = 0
+        self.mtime = time.time()
+
+
+class _MemWritable:
+    def __init__(self, st: _MemFileState):
+        self._st = st
+
+    def append(self, data) -> None:
+        self._st.data += data
+
+    def flush(self) -> None:
+        pass
+
+    def sync(self) -> None:
+        self._st.synced_len = len(self._st.data)
+
+    def close(self) -> None:
+        pass
+
+    def file_size(self) -> int:
+        return len(self._st.data)
+
+
+class _MemRandomAccess:
+    def __init__(self, st: _MemFileState):
+        self._st = st
+
+    def read(self, offset: int, n: int) -> bytes:
+        return bytes(self._st.data[offset: offset + n])
+
+    def size(self) -> int:
+        return len(self._st.data)
+
+    def close(self) -> None:
+        pass
+
+
+class _MemSequential:
+    def __init__(self, st: _MemFileState):
+        import io
+
+        self._buf = io.BytesIO(bytes(st.data))
+
+    def read(self, n: int) -> bytes:
+        return self._buf.read(n)
+
+    def close(self) -> None:
+        pass
+
+
+class MemEnv:
+    """In-memory env. `set_capacity` simulates a filesystem of that size:
+    get_free_space is the capacity less the bytes stored (unlimited, 2^62,
+    until a capacity is set)."""
+
+    def __init__(self):
+        self._files: dict[str, _MemFileState] = {}
+        self._dirs: set[str] = {"/"}
+        self._lock = threading.Lock()
+        self._capacity = 0  # 0 = unlimited
+
+    @staticmethod
+    def _norm(path: str) -> str:
+        return os.path.normpath(path)
+
+    def _state(self, path: str) -> _MemFileState:
+        st = self._files.get(self._norm(path))
+        if st is None:
+            raise NotFound(path)
+        return st
+
+    def new_writable_file(self, path: str) -> _MemWritable:
+        with self._lock:
+            st = _MemFileState()
+            self._files[self._norm(path)] = st
+            return _MemWritable(st)
+
+    def get_file_mtime(self, path: str) -> float:
+        with self._lock:
+            return self._state(path).mtime
+
+    def new_random_access_file(self, path: str) -> _MemRandomAccess:
+        with self._lock:
+            return _MemRandomAccess(self._state(path))
+
+    def new_sequential_file(self, path: str) -> _MemSequential:
+        with self._lock:
+            return _MemSequential(self._state(path))
+
+    def file_exists(self, path: str) -> bool:
+        p = self._norm(path)
+        return p in self._files or p in self._dirs
+
+    def get_file_size(self, path: str) -> int:
+        return len(self._state(path).data)
+
+    def delete_file(self, path: str) -> None:
+        with self._lock:
+            if self._files.pop(self._norm(path), None) is None:
+                raise NotFound(path)
+
+    def rename_file(self, src: str, dst: str) -> None:
+        with self._lock:
+            st = self._files.pop(self._norm(src), None)
+            if st is None:
+                raise NotFound(src)
+            self._files[self._norm(dst)] = st
+
+    def create_dir(self, path: str) -> None:
+        self._dirs.add(self._norm(path))
+
+    def get_children(self, path: str) -> list[str]:
+        p = self._norm(path)
+        return sorted({os.path.basename(f)
+                       for f in self._files.keys() | self._dirs
+                       if f != p and os.path.dirname(f) == p})
+
+    def read_file(self, path: str) -> bytes:
+        with self._lock:
+            return bytes(self._state(path).data)
+
+    def write_file(self, path: str, data: bytes, sync: bool = False) -> None:
+        f = self.new_writable_file(path)
+        f.append(data)
+        if sync:
+            f.sync()
+
+    def set_capacity(self, nbytes: int) -> None:
+        """Simulated filesystem size; get_free_space = capacity - stored."""
+        with self._lock:
+            self._capacity = int(nbytes)
+
+    def get_free_space(self, path: str) -> int:
+        with self._lock:
+            if self._capacity <= 0:
+                return 1 << 62
+            used = sum(len(st.data) for st in self._files.values())
+            return max(0, self._capacity - used)
 
 
 def default_env() -> PosixEnv:

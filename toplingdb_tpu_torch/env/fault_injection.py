@@ -1,8 +1,11 @@
 """Fault injection (copied from toplingdb_tpu/env/fault_injection.py,
-trimmed to the faults the port's tests inject): FaultInjectionEnv's
-`corrupt_reads` wraps any Env and damages the bytes its random-access and
-sequential reads return, while the files on disk stay intact (the role of
-RocksDB's utilities/fault_injection_fs.h FaultInjectionTestFS);
+trimmed to the faults the port's tests inject): FaultInjectionEnv wraps
+any Env (the role of RocksDB's utilities/fault_injection_fs.h
+FaultInjectionTestFS); its `corrupt_reads` damages the bytes its
+random-access and sequential reads return, while the files on disk stay
+intact, and its `set_disk_budget` caps the bytes writable to matching
+files: past the budget a write lands its affordable prefix (a torn short
+write) and raises a genuine OSError(ENOSPC);
 DelayedReadEnv sleeps before every random-access read;
 WalWriterFaultInjector fails or delays the async WAL writer's ring ops,
 ReadFaultInjector the async read plane's reader-ring tasks."""
@@ -21,6 +24,14 @@ class FaultInjectionEnv:
         self._corrupt_rules: list[dict] = []
         self._corrupt_tick = 0  # transient-mode read counter
         self.corruptions_injected: list[tuple[str, int, int]] = []
+        # Disk-full injection (set_disk_budget): fnmatch pattern ->
+        # remaining writable bytes. Appends charge the first matching
+        # budget; exhaustion writes the affordable PREFIX (a torn short
+        # write, as a real disk does) then raises OSError(ENOSPC).
+        # delete_file refunds the deleted size, so trash deletion
+        # genuinely restores headroom.
+        self._disk_budgets: dict[str, int] = {}
+        self.enospc_injected = 0
 
     def __getattr__(self, name):
         return getattr(self.base, name)
@@ -109,7 +120,109 @@ class FaultInjectionEnv:
                     self.corruptions_injected.append((name, offset, n_hit))
         return data if out is None else out
 
+    # -- disk-full injection (`set_disk_budget` kind) ------------------
+
+    def set_disk_budget(self, pattern: str, budget_bytes: int) -> None:
+        """Cap the bytes writable to files matching `pattern` (fnmatch
+        against the full path OR the basename: '*' for a whole-disk
+        budget, '*.sst' to starve only table writes). Writing past the
+        budget injects a torn short write + OSError(ENOSPC); deleting a
+        matching file refunds its size. get_free_space() reports the
+        remaining budget, so the SstFileManager's poller sees the same
+        full disk the writers hit."""
+        with self._mu:
+            self._disk_budgets[pattern] = int(budget_bytes)
+
+    def add_disk_budget(self, pattern: str, delta: int) -> None:
+        """Grow (or shrink) an existing budget: 'the operator freed
+        space'."""
+        with self._mu:
+            if pattern in self._disk_budgets:
+                self._disk_budgets[pattern] += int(delta)
+
+    def clear_disk_budgets(self) -> None:
+        with self._mu:
+            self._disk_budgets.clear()
+
+    def disk_budget_remaining(self, pattern: str = "*") -> int | None:
+        with self._mu:
+            return self._disk_budgets.get(pattern)
+
+    @staticmethod
+    def _disk_match(path: str, pattern: str) -> bool:
+        import fnmatch
+
+        return (fnmatch.fnmatch(path, pattern)
+                or fnmatch.fnmatch(path.rsplit("/", 1)[-1], pattern))
+
+    def _charge_disk(self, path: str, nbytes: int) -> int:
+        """Charge `nbytes` against the first matching budget; returns the
+        affordable byte count (nbytes when no budget matches)."""
+        if nbytes <= 0:
+            return nbytes
+        with self._mu:
+            for pat, rem in self._disk_budgets.items():
+                if self._disk_match(path, pat):
+                    afford = max(0, min(nbytes, rem))
+                    self._disk_budgets[pat] = rem - afford
+                    if afford < nbytes:
+                        self.enospc_injected += 1
+                    return afford
+        return nbytes
+
+    def _refund_disk(self, path: str, nbytes: int) -> None:
+        if nbytes <= 0:
+            return
+        with self._mu:
+            for pat in self._disk_budgets:
+                if self._disk_match(path, pat):
+                    self._disk_budgets[pat] += nbytes
+                    return
+
+    def _disk_exhausted(self, path: str) -> bool:
+        with self._mu:
+            for pat, rem in self._disk_budgets.items():
+                if self._disk_match(path, pat):
+                    return rem <= 0
+        return False
+
     # -- Env interface --------------------------------------------------
+
+    def new_writable_file(self, path: str):
+        return _FIWritable(self, path, self.base.new_writable_file(path))
+
+    def reuse_writable_file(self, old_path: str, new_path: str):
+        return _FIWritable(self, new_path,
+                           self.base.reuse_writable_file(old_path, new_path))
+
+    def write_file(self, path: str, data: bytes, sync: bool = False) -> None:
+        f = self.new_writable_file(path)
+        try:
+            f.append(data)
+            if sync:
+                f.sync()
+        finally:
+            f.close()
+
+    def delete_file(self, path: str) -> None:
+        freed = 0
+        if self._disk_budgets:
+            try:
+                freed = self.base.get_file_size(path)
+            except Exception as e:  # noqa: BLE001 - the delete decides
+                from toplingdb_tpu_torch.utils import errors as _errors
+
+                _errors.swallow(reason="fi-delete-size-probe", exc=e)
+        self.base.delete_file(path)
+        self._refund_disk(path, freed)
+
+    def get_free_space(self, path: str) -> int:
+        free = self.base.get_free_space(path)
+        with self._mu:
+            for pat, rem in self._disk_budgets.items():
+                if self._disk_match(path, pat):
+                    return min(free, max(0, rem))
+        return free
 
     def new_random_access_file(self, path: str):
         return _FIRandom(self, self.base.new_random_access_file(path), path)
@@ -123,6 +236,45 @@ class FaultInjectionEnv:
             return f.read(0, f.size())
         finally:
             f.close()
+
+
+class _FIWritable:
+    def __init__(self, env: FaultInjectionEnv, path: str, base):
+        self._env = env
+        self._path = path
+        self._base = base
+
+    def _enospc(self):
+        import errno
+        import os
+
+        return OSError(errno.ENOSPC, os.strerror(errno.ENOSPC), self._path)
+
+    def append(self, data) -> None:
+        afford = self._env._charge_disk(self._path, len(data))
+        if afford < len(data):
+            if afford > 0:
+                # Torn short write: a real disk persists the prefix that
+                # fit before failing the call.
+                self._base.append(bytes(data[:afford]))
+            raise self._enospc()
+        self._base.append(data)
+
+    def flush(self) -> None:
+        self._base.flush()
+
+    def sync(self) -> None:
+        if self._env._disk_exhausted(self._path):
+            # fsync on a full filesystem fails too (dirty pages cannot
+            # land); it succeeds again once something refunds the budget.
+            raise self._enospc()
+        self._base.sync()
+
+    def close(self) -> None:
+        self._base.close()
+
+    def file_size(self) -> int:
+        return self._base.file_size()
 
 
 class _FIRandom:

@@ -415,20 +415,9 @@ UNPORTED = {
                             "WriteBufferManager through "
                             "write_buffer_manager)",
     "full_history_ts_low": "user-defined timestamps",
-    "legacy_wide_column_unwrap": "wide-column entities",
     "slo_specs": "the SLO engine",
     "slo_eval_period_sec": "the SLO engine",
     "slo_window_sec": "the SLO engine",
-    "seqno_time_sample_period_sec": "the seqno-to-time mapping",
-    "preclude_last_level_data_seconds": "the seqno-to-time mapping",
-    "sst_file_manager": "the storage-pressure plane",
-    "max_allowed_space_usage": "the storage-pressure plane",
-    "compaction_buffer_size": "the storage-pressure plane",
-    "flush_headroom_bytes": "the storage-pressure plane",
-    "free_space_poll_period_sec": "the storage-pressure plane",
-    "disk_amber_free_ratio": "the storage-pressure plane",
-    "disk_red_free_ratio": "the storage-pressure plane",
-    "disk_pressure_hysteresis": "the storage-pressure plane",
     "shared_store": "the shared SST store",
 }
 
