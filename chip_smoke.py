@@ -34,7 +34,9 @@ Phases (any failure ends the run with a non-zero exit code):
      num_shards=1), without and with 3 snapshots; each output matches the
      oracle and the serial packed-download route's bytes for the same
      inputs, and all three kernels launch;
-  6. variable-length keys: 4,000,000 entries in 4 presorted runs with YCSB
+  6. variable-length keys: 2,000,000 entries (cut from 4,000,000 when
+     phase 23 came, to keep the script inside its limit) in 4 presorted
+     runs with YCSB
      keys ("user" + the decimal FNV-64 hash of the key number, 5-23 bytes)
      and 100-byte values (one YCSB field, not the 10-field 1 KB record),
      ~10% deletions, without and with 3 snapshots, through the whole-job
@@ -49,22 +51,24 @@ Phases (any failure ends the run with a non-zero exit code):
   8. device versus plain: a 1,000,000-entry job with 3 snapshots, ~10%
      deletions and 4 serial shards on "cuda" and on "cpu" - identical SST
      bytes;
-  9. complex groups: a 1,000,000-entry job of db_bench's mergerandom kind
-     (cut from 2,000,000 to keep the script inside its limit with phase
-     20 added; the host fold is ~90% of the job)
+  9. complex groups: a 500,000-entry job of db_bench's mergerandom kind
+     (cut from 2,000,000 to 1,000,000 when phase 20 came and to 500,000
+     when phase 23 came, to keep the script inside its limit; the host
+     fold is ~90% of the job)
      (60% Put, 20% Merge with the uint64add operator, 10% Delete, 10%
      SingleDelete) with 8 range tombstones, without and with 3 snapshots:
      the pipeline's attempt gives up on the complex groups, the serial
-     route runs 2 shards at p = 2^19 and folds the groups on the host;
+     route runs 2 shards at p = 2^18 and folds the groups on the host;
      "cuda" and "cpu" write identical bytes, the entries equal the port's
      CompactionIterator over the host-sorted inputs, and the per-entry
      route is never entered;
- 10. the per-entry route: a 1,000,000-entry job with 5% empty values and
+ 10. the per-entry route: a 500,000-entry job (cut from 1,000,000 when
+     phase 23 came) with 5% empty values and
      10% BLOB_INDEX rows (1 KiB values in two blob files) and 3 snapshots,
      first on the columnar route (blob_refs equal to the CPU route's),
      then with RemoveEmptyValueCompactionFilter and blob GC (age cutoff
      0.5, min_blob_size 512) on the per-entry route, one gc_rows launch at
-     p = 2^20: "cuda" and "cpu" write identical SST and blob bytes, every
+     p = 2^19: "cuda" and "cpu" write identical SST and blob bytes, every
      blob index resolves to its value, no filtered empty value survives;
  11. compressed tables and the dcompact worker: the codecs the card's host
      loads are printed, and the headline codec is the first of snappy,
@@ -79,10 +83,11 @@ Phases (any failure ends the run with a non-zero exit code):
      phases, the worker's spans, file bytes and the compression ratio
      beside phase 4's uncompressed job. (b) the worker's CLI (python -m
      toplingdb_tpu_torch.compaction.worker --job-dir DIR) on a
-     1,000,000-entry job: exit code 0, the bytes of an in-process run_job
+     500,000-entry job (CODEC_N, cut from 1,000,000 when phase 23 came):
+     exit code 0, the bytes of an in-process run_job
      of a copy of the job dir, the heartbeat file written. (c) every codec
      the host has (snappy, lz4, lz4hc, zstd, zstd with a 16 KiB
-     dictionary, zlib at 1,000,000 entries; bz2 and lzma at 200,000) on
+     dictionary, zlib at 500,000 entries; bz2 and lzma at 200,000) on
      "cuda" and on "cpu": identical SST bytes; then bench.py's
      compaction_zstd_out shape (bench.py:1778-1785), uncompressed in and
      zstd out, the same.
@@ -96,9 +101,11 @@ Phases (any failure ends the run with a non-zero exit code):
      matches the oracle, and the serial route writes the same bytes; wall,
      raw MB/s, encode_write_s / pipeline_stall_s, the device busy share,
      file bytes and the ratio beside phase 4's job. (b) the zip job at
-     1,000,000 entries on "cuda", "cpu" and with zip_plane=False
+     FORMAT_N = 600,000 entries (cut from 1,000,000 when phase 23 came;
+     the pipeline needs more than 2^19 rows) on "cuda", "cpu" and with
+     zip_plane=False
      (identical bytes), then with 3 snapshots and 20 range tombstones, the
-     same. (c) protection_bytes_per_key=8 at 1,000,000 entries on the
+     same. (c) protection_bytes_per_key=8 at FORMAT_N entries on the
      pipelined, serial and block-assembly routes: each route's bytes equal
      the unprotected job's, and its kernels launch. (d) at 200,000 entries
      each, "cuda" against "cpu" (identical bytes, the oracle, one gc_rows
@@ -336,9 +343,10 @@ Phases (any failure ends the run with a non-zero exit code):
      the share of keys the native whole-batch call decided; (b) the same
      DB reopened with a user block cache, so its reads take the Python
      chain: LRUCache(8 MiB, db_bench's --cache_size, about a fifth of the
-     data) over a PersistentCache(64 MiB), READ_CACHE_PROBES = 20,000 gets
-     and 20,000 keys of multi_get (cut from 100,000, as phase 13's
-     planes-off probes were); the tier closed and reopened recovers the
+     data) over a PersistentCache(64 MiB), READ_CACHE_PROBES = 8,000 gets
+     and 8,000 keys of multi_get (cut from 100,000, as phase 13's
+     planes-off probes were, and from 20,000 when phase 23 came); the
+     tier closed and reopened recovers the
      same index and serves every record from disk with its bytes; then
      the DB over the recovered tier; then a SimCache(ClockCache(8 MiB,
      secondary=CompressedSecondaryCache(32 MiB)), 64 MiB) with a
@@ -448,6 +456,43 @@ Phases (any failure ends the run with a non-zero exit code):
      against the oracle; (e) every job of the phase on "cuda"; the
      launches and the card's busy share. Its gc_rows and merge launches
      are added to the kernels line's counts.
+ 23. user-defined timestamps, read replicas, tailers and repair, every
+     DB on phase 13's deployment and the "cuda" device factory: (a)
+     RocksDB's user-defined timestamps as db_bench's
+     --user_timestamp_size=8 runs them (tools/db_bench_tool.cc), with
+     Options(comparator=U64_TS_BYTEWISE): TS_N = 500,000 keys (cut from
+     1,000,000: every job of the DB takes the per-entry route, and at 1M
+     the part took over 230 s on the H100's host) at ts 1-5,000 (one a
+     batch of 100), 20%
+     overwritten at ts TS_OVERWRITE_BASE = 20,001-30,000;
+     increase_full_history_ts_low(20,000) and compact_range on the card:
+     the live SSTs hold TS_N + the overwrites rows, each against the
+     oracle (ts_files_against_oracle); TS_PROBES = 20,000 get_with_ts
+     probes at the newest ts and 20,000 gets at ReadOptions(timestamp=
+     20,000), a scan at that ts, against a dict oracle; the trim raised
+     above every ts (after one new version of the smallest and the
+     largest key, so that compact_range, which pushes data down, reaches
+     the last level) and compact_range again: TS_N rows left; a reopen
+     keeps the trim point and a read below it raises InvalidArgument;
+     every job of the part per-entry, each launching gc_rows; (b)
+     RocksDB's secondary instance and tailing iterator: a primary fills
+     REPLICA_N = 1,000,000 keys in 10 rounds with a fifth writer's
+     LOG_N = 100,000 sequential log/ keys; a SecondaryDB opened at the
+     start catches up after every round and reads SECONDARY_READS = 2,000
+     acked keys, with the primary's background work paused (a secondary
+     pins none of the primary's files, so a job that ends after the
+     catch-up could delete a table it is about to open); a
+     ReadOptions(tailing=True) iterator in a reader thread, polling every
+     TAIL_POLL_S, sees every log key once, in order; after close,
+     ReadOnlyDB.open serves RO_PROBES = 20,000 probes and a full scan
+     against the oracle and refuses a put; a DB with an 8-byte fixed
+     prefix extractor (PREFIX_N = 100,000 keys, 10 a prefix) answers
+     PREFIX_SEEKS = 1,000 prefix_same_as_start seeks with the rest of the
+     seek's prefix; (c) RocksDB's RepairDB on a copy of (b)'s DB with its
+     MANIFEST and CURRENT deleted: the report and wall, every key against
+     the oracle, compact_range on the card; (d) every job of the phase on
+     "cuda"; the launches and the card's busy share. Its gc_rows and
+     merge launches are added to the kernels line's counts.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -478,15 +523,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 MAIN_N = 10_000_000
 BLOCKS_N = 4_000_000
-VARLEN_N = 4_000_000
+VARLEN_N = 2_000_000     # phase 6, cut from 4,000,000 (docstring)
 VARLEN_PLAIN_N = 1_000_000
 TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
-COMPLEX_N = 1_000_000   # phase 9, cut from 2,000,000 (docstring)
-ENTRIES_N = 1_000_000
-CODEC_N = 1_000_000     # phase 11 (b) and (c)
+COMPLEX_N = 500_000     # phase 9, cut from 2,000,000 (docstring)
+ENTRIES_N = 500_000     # phase 10, cut from 1,000,000 (docstring)
+CODEC_N = 500_000       # phase 11 (b) and (c), cut from 1,000,000
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
-FORMAT_N = 1_000_000    # phase 12 (b) and (c)
+FORMAT_N = 600_000      # phase 12 (b) and (c), cut from 1,000,000
 ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
 DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
 DB_WAL_N = 50_000       # phase 13: the WAL-replay run
@@ -504,7 +549,7 @@ WBM_BUDGET = 4 << 20    # phase 19 (e): half of one 8 MiB write buffer
 READ_N = 1_000_000      # phase 20 (a)-(b): phase 13's deployment
 READ_OVERLAY_N = 20_000  # phase 20 (a): keys rewritten before compact_range
 READ_PROBES = 100_000   # phase 20 (a): multireadrandom probes
-READ_CACHE_PROBES = 20_000  # phase 20 (b): cut from 100,000 (docstring)
+READ_CACHE_PROBES = 8_000  # phase 20 (b): cut from 100,000 (docstring)
 COLD_N = 30_000         # phase 20 (c): bench.py's cold async twin
 COLD_PROBES = 4_096     # phase 20 (c): its probes
 MANUAL_N = 1_000_000    # phase 21: phase 13's deployment
@@ -521,6 +566,16 @@ OVERLAY_PRECLUDE_N = 50_000  # phase 22 (c): the re-put overlay
 ENTITY_N = 250_000      # phase 22 (d): cut from 1,000,000 (docstring)
 ENTITY_MERGE_N = 10_000  # phase 22 (d): the merge overlay
 ENTITY_PROBES = 20_000  # phase 22 (d): get_entity probes
+TS_N = 500_000          # phase 23 (a): cut from 1,000,000 (docstring)
+TS_OVERWRITE_BASE = 20_001  # phase 23 (a): the overwrites' first ts
+TS_PROBES = 20_000      # phase 23 (a): get_with_ts probes and ts gets
+REPLICA_N = 1_000_000   # phase 23 (b): the primary's keys
+LOG_N = 100_000         # phase 23 (b): the fifth writer's log/ keys
+SECONDARY_READS = 2_000  # phase 23 (b): reads after each catch-up
+TAIL_POLL_S = 0.02      # phase 23 (b): the tailer's wait at the end
+RO_PROBES = 20_000      # phase 23 (b): the read-only open's probes
+PREFIX_N = 100_000      # phase 23 (b): keys of the prefix DB
+PREFIX_SEEKS = 1_000    # phase 23 (b): prefix_same_as_start seeks
 MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
 
 
@@ -5686,6 +5741,435 @@ def storage_path(torch, root, n, card, device_name="cuda", n_full=FULL_N,
     return gc_n, mr_n
 
 
+def ts_files_against_oracle(db, rows) -> int:
+    """Every live SST of a compacted timestamp DB read back with the
+    port's table reader: one level holds them all, and their rows, in file
+    order, are the (stored key, value) pairs `rows` (sorted by stored key),
+    each a PUT. Returns the file count."""
+    from toplingdb_tpu_torch.db import filename
+
+    version = db.versions.current
+    levels = [fl for fl in version.files if fl]
+    assert len(levels) == 1, version.describe()
+    width = len(rows[0][0]) + 8
+    vlen = len(rows[0][1])
+    ukeys, vtypes, vals = [], [], []
+    for m in levels[0]:
+        kv = scan_output(db.env, filename.table_file_name(db.dbname,
+                                                          m.number), db.icmp)
+        assert m.num_entries == kv.n
+        assert np.all(kv.key_lens == width), "unexpected key length"
+        assert np.all(kv.val_lens == vlen), "unexpected value length"
+        kb = kv.key_buf.reshape(kv.n, width)
+        ukeys.append(kb[:, :-8])
+        trailer = np.ascontiguousarray(kb[:, -8:]).view("<u8").reshape(-1)
+        vtypes.append(trailer & np.uint64(0xFF))
+        vals.append(kv.val_buf[kv.val_offs[:, None].astype(np.int64)
+                               + np.arange(vlen)])
+    ukeys, vtypes, vals = (np.concatenate(a) for a in (ukeys, vtypes, vals))
+    wkeys = np.frombuffer(b"".join(k for k, _ in rows), np.uint8).reshape(
+        len(rows), -1)
+    wvals = np.frombuffer(b"".join(v for _, v in rows), np.uint8).reshape(
+        len(rows), -1)
+    assert ukeys.shape == wkeys.shape, (ukeys.shape, wkeys.shape)
+    assert np.array_equal(ukeys, wkeys), "stored keys differ from the oracle"
+    assert np.all(vtypes == 1), "a row is not a PUT"
+    assert np.array_equal(vals, wvals), "values differ from the oracle"
+    return len(levels[0])
+
+
+def ts_part(root, n, factory, joblog, card, rng):
+    """Phase 23 (a): user-defined timestamps. Returns the part's jobs."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.dbformat import (
+        U64_TS_BYTEWISE,
+        encode_ts_key,
+    )
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.utils.status import InvalidArgument
+
+    value, wvalue, xvalue = b"v" * 20, b"w" * 20, b"x" * 20
+    n_ow = n // 5  # the overwritten 20%: keys 5j, j < n_ow
+    low1 = TS_OVERWRITE_BASE - 1
+
+    def base_ts(i):
+        return i // 100 + 1  # one timestamp a batch of 100
+
+    def ow_ts(j):
+        return TS_OVERWRITE_BASE + j * 10_000 // n_ow
+
+    opts = Options(create_if_missing=True, write_buffer_size=8 << 20,
+                   comparator=U64_TS_BYTEWISE,
+                   compaction_executor_factory=factory)
+    tdir = os.path.join(root, "ts")
+    j_start = len(joblog.jobs)
+    db = DB.open(tdir, opts)
+    assert db._write_plane is None  # Python commits, as in the reference
+    keys = [db_key(i, n) for i in range(n)]
+    fill = threaded_fill(db, n, lambda i: (encode_ts_key(keys[i], base_ts(i)),
+                                           value))
+    ow = threaded_fill(db, n_ow, lambda j: (
+        encode_ts_key(keys[5 * j], ow_ts(j)), wvalue))
+    db.increase_full_history_ts_low(low1)
+    db.wait_for_compactions()
+    j0 = len(joblog.jobs)
+    t0 = time.time()
+    db.compact_range()
+    cr1 = time.time() - t0
+    jobs1 = joblog.jobs[j0:]
+    # The trim at low1 keeps both versions of an overwritten key (the old
+    # one is the value visible at low1): n + n_ow rows.
+    rows = sorted([(encode_ts_key(keys[i], base_ts(i)), value)
+                   for i in range(n)]
+                  + [(encode_ts_key(keys[5 * j], ow_ts(j)), wvalue)
+                     for j in range(n_ow)])
+    files1 = ts_files_against_oracle(db, rows)
+    del rows
+
+    def newest(i):
+        if i % 5 == 0 and i // 5 < n_ow:
+            return wvalue, ow_ts(i // 5)
+        return value, base_ts(i)
+
+    probes = [rng.randrange(2 * n) for _ in range(TS_PROBES)]
+    t0 = time.time()
+    for i in probes:
+        want = newest(i) if i < n else None
+        got = db.get_with_ts(db_key(i, n))
+        assert got == want, (i, got, want)
+    p1 = time.time() - t0
+    ro = ReadOptions(timestamp=low1)
+    t0 = time.time()
+    for i in probes:
+        got = db.get(db_key(i, n), ro)
+        assert got == (value if i < n else None), (i, got)
+    p2 = time.time() - t0
+    t0 = time.time()
+    it = db.new_iterator(ro)
+    it.seek_to_first()
+    order = sorted(range(n), key=lambda i: keys[i])
+    for i in order:
+        assert it.valid() and it.key() == keys[i], i
+        assert it.value() == value and it.timestamp() == base_ts(i), i
+        it.next()
+    assert not it.valid()
+    del it
+    sc = time.time() - t0
+    # Raise the trim point above every timestamp. compact_range pushes
+    # data down and never rewrites the last level on its own, so the
+    # smallest and the largest key get a new version first: the last
+    # hop then rewrites every last-level file under the new trim.
+    lo_k, hi_k = keys[order[0]], keys[order[-1]]
+    db.put(lo_k, xvalue, ts=TS_OVERWRITE_BASE + 10_000)
+    db.put(hi_k, xvalue, ts=TS_OVERWRITE_BASE + 10_000)
+    low2 = TS_OVERWRITE_BASE + 10_001
+    db.increase_full_history_ts_low(low2)
+    j1 = len(joblog.jobs)
+    t0 = time.time()
+    db.compact_range()
+    cr2 = time.time() - t0
+    jobs2 = joblog.jobs[j1:]
+    rows = []
+    for i in range(n):
+        v, ts = newest(i)
+        if keys[i] in (lo_k, hi_k):
+            v, ts = xvalue, TS_OVERWRITE_BASE + 10_000
+        rows.append((encode_ts_key(keys[i], ts), v))
+    rows.sort()
+    files2 = ts_files_against_oracle(db, rows)
+    assert len(rows) == n
+    del rows
+    db.close()
+    db = DB.open(tdir, Options(comparator=U64_TS_BYTEWISE,
+                               compaction_executor_factory=factory))
+    assert db.options.full_history_ts_low == low2
+    try:
+        db.get(keys[0], ReadOptions(timestamp=low1))
+        raise AssertionError("a read below the trim point was served")
+    except InvalidArgument:
+        pass
+    assert db.get_with_ts(keys[order[len(order) // 2]]) is not None
+    db.close()
+    jobs = joblog.jobs[j_start:]
+    assert jobs and all(j["route"] == "per-entry" for j in jobs), \
+        [j["route"] for j in jobs]
+    log(f"[ts a] {n} keys at ts 1-{base_ts(n - 1)} from 4 writers in "
+        f"batches of 100 {fill:.3f}s ({n / fill:.0f} ops/s, Python "
+        f"commits), {n_ow} overwrites at ts {ow_ts(0)}-{ow_ts(n_ow - 1)} "
+        f"{ow:.3f}s ({n_ow / ow:.0f} ops/s); "
+        f"increase_full_history_ts_low({low1}), compact_range {cr1:.3f}s in "
+        f"{len(jobs1)} per-entry device jobs ({sum(j['rows'] for j in jobs1)}"
+        f" rows in): {n + n_ow} rows in {files1} files equal the oracle; "
+        f"{TS_PROBES} get_with_ts probes at the newest ts {p1:.3f}s, "
+        f"{TS_PROBES} gets at ts {low1} {p2:.3f}s, a scan of {n} keys at "
+        f"ts {low1} {sc:.3f}s, all equal the oracle; trim raised to {low2}, "
+        f"compact_range {cr2:.3f}s in {len(jobs2)} jobs: {n} rows in "
+        f"{files2} files; reopened: the trim point kept, a read below it "
+        f"InvalidArgument; {len(jobs)} jobs in the part, all per-entry "
+        f"[{card}]")
+    return jobs
+
+
+def replica_part(root, n, n_log, factory, card, rng):
+    """Phase 23 (b): a secondary and a tailer on a primary's fill, then a
+    read-only open. Returns the primary's directory and its oracle keys."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.db_readonly import ReadOnlyDB, SecondaryDB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.utils.status import NotSupported
+
+    value = b"v" * 20
+    pdir = os.path.join(root, "primary")
+    db = DB.open(pdir, Options(create_if_missing=True,
+                               write_buffer_size=8 << 20,
+                               compaction_executor_factory=factory))
+    sec = SecondaryDB.open(pdir)
+    # 16 bytes, as the fill's keys: the jobs keep the uniform-key routes.
+    log_keys = [b"log/%012d" % i for i in range(n_log)]
+    seen, terr = [], []
+    t_deadline = time.time() + 900
+
+    def tailer():
+        try:
+            it = db.new_iterator(ReadOptions(tailing=True,
+                                             iterate_upper_bound=b"log0"))
+            it.seek(b"log/")
+            while len(seen) < n_log and time.time() < t_deadline:
+                if it.valid():
+                    seen.append(it.key())
+                else:
+                    time.sleep(TAIL_POLL_S)  # a consumer's poll interval
+                it.next()  # past the view's end: the catch-up
+        except Exception as e:  # noqa: BLE001
+            terr.append(e)
+
+    th = threading.Thread(target=tailer, name="tailer")
+    th.start()
+    rounds = 10
+    per, per_log = n // rounds, n_log // rounds
+    catch, reads, fills = [], [], []
+    for r in range(rounds):
+        lerr = []
+
+        def log_writer(r=r):
+            try:
+                part = log_keys[r * per_log:(r + 1) * per_log]
+                for i in range(0, len(part), 100):
+                    b = WriteBatch()
+                    for k in part[i:i + 100]:
+                        b.put(k, value)
+                    db.write(b)
+            except Exception as e:  # noqa: BLE001
+                lerr.append(e)
+
+        lw = threading.Thread(target=log_writer, name="log-writer")
+        t0 = time.time()
+        lw.start()
+        threaded_fill(db, per, lambda j, r=r: (db_key(r * per + j, n),
+                                                value))
+        lw.join()
+        fills.append(time.time() - t0)
+        assert not lerr, lerr
+        # Every key of rounds 0..r is acked. The catch-up and the reads
+        # run with the primary's background work paused: a secondary pins
+        # none of the primary's files, so a job that ends after the
+        # catch-up could delete a table the secondary is about to open
+        # (tests/test_torch_read_only.py).
+        db.pause_background_work()
+        try:
+            t0 = time.time()
+            sec.try_catch_up_with_primary()
+            catch.append(time.time() - t0)
+            t0 = time.time()
+            for _ in range(SECONDARY_READS):
+                i = rng.randrange((r + 1) * per)
+                got = sec.get(db_key(i, n))
+                assert got == value, (r, i, got)
+            reads.append(time.time() - t0)
+        finally:
+            db.continue_background_work()
+    th.join(timeout=max(1.0, t_deadline - time.time()))
+    assert not th.is_alive() and not terr, terr
+    assert seen == log_keys, (len(seen), seen[:3], seen[-3:])
+    db.wait_for_compactions()
+    sec.close()
+    db.close()
+    want = sorted([db_key(i, n) for i in range(n)] + log_keys)
+    log(f"[replicas b] primary: {n} keys from 4 writers in batches of 100 "
+        f"and {n_log} sequential log/ keys from a fifth (batches of 100 "
+        f"too), in {rounds} rounds "
+        f"({sum(fills):.3f}s, {(n + n_log) / sum(fills):.0f} ops/s); the "
+        f"secondary caught up after each round (median "
+        f"{statistics.median(catch):.3f}s, max {max(catch):.3f}s) with the "
+        f"primary's background work paused and read {SECONDARY_READS} acked "
+        f"keys each time (median {statistics.median(reads):.3f}s), all "
+        f"equal; the tailing iterator saw {len(seen)} of {n_log} log/ keys "
+        f"once each, in order [{card}]")
+
+    t0 = time.time()
+    rdb = ReadOnlyDB.open(pdir)
+    t_open = time.time() - t0
+    try:
+        rdb.put(b"x", value)
+        raise AssertionError("a read-only put was served")
+    except NotSupported:
+        pass
+    probes = [rng.randrange(2 * n) for _ in range(RO_PROBES)]
+    t0 = time.time()
+    for i in probes:
+        got = rdb.get(db_key(i, n))
+        assert got == (value if i < n else None), (i, got)
+    pr = time.time() - t0
+    t0 = time.time()
+    it = rdb.new_iterator()
+    it.seek_to_first()
+    got = 0
+    for (k, v), wk in zip(it.entries(), want):
+        assert k == wk and v == value, (k, wk)
+        got += 1
+    assert got == len(want) and not it.valid()
+    del it
+    sc = time.time() - t0
+    rdb.close()
+    log(f"[replicas b] ReadOnlyDB.open {t_open:.3f}s, put NotSupported, "
+        f"{RO_PROBES} probes {pr:.3f}s and a scan of {got} keys {sc:.3f}s "
+        f"equal the oracle [{card}]")
+    return pdir, want
+
+
+def prefix_part(root, factory, card, rng):
+    """Phase 23 (b): prefix_same_as_start over an 8-byte fixed prefix."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.utils.slice_transform import (
+        FixedPrefixTransform,
+    )
+
+    db = DB.open(os.path.join(root, "prefix"), Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        prefix_extractor=FixedPrefixTransform(8),
+        compaction_executor_factory=factory))
+    per = 10  # keys a prefix: suffixes 0, 3, ..., 27
+    n_p = PREFIX_N // per
+
+    def key(i):
+        return b"%08d%08d" % (i // per, 3 * (i % per))
+
+    fill = threaded_fill(db, PREFIX_N, lambda i: (key(i), b"v" * 20))
+    db.compact_range()
+    t0 = time.time()
+    total = 0
+    for _ in range(PREFIX_SEEKS):
+        p, j0 = rng.randrange(n_p), rng.randrange(30)
+        it = db.new_iterator(ReadOptions(prefix_same_as_start=True))
+        it.seek(b"%08d%08d" % (p, j0))
+        got = [k for k, _ in it.entries()]
+        want = [b"%08d%08d" % (p, 3 * j) for j in range(per) if 3 * j >= j0]
+        assert got == want, (p, j0, got[:3])
+        total += len(got)
+    sk = time.time() - t0
+    db.close()
+    log(f"[replicas b] {PREFIX_N} keys of {n_p} 8-byte prefixes "
+        f"{fill:.3f}s; {PREFIX_SEEKS} seeks with prefix_same_as_start "
+        f"{sk:.3f}s, each stopped at the end of its prefix ({total} keys) "
+        f"[{card}]")
+
+
+def repair_part(root, pdir, want, factory, card):
+    """Phase 23 (c): repair_db on a copy of the primary."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.repair import repair_db
+    from toplingdb_tpu_torch.options import Options
+
+    value = b"v" * 20
+    rdir = os.path.join(root, "repaired")
+    shutil.copytree(pdir, rdir)
+    lost = [f for f in os.listdir(rdir)
+            if f.startswith("MANIFEST") or f == "CURRENT"]
+    for f in lost:
+        os.remove(os.path.join(rdir, f))
+    t0 = time.time()
+    report = repair_db(rdir, Options())
+    rw = time.time() - t0
+    assert report["tables_dropped"] == 0 and report["wal_errors"] == 0, report
+
+    def scan(db):
+        it = db.new_iterator()
+        it.seek_to_first()
+        got = 0
+        for (k, v), wk in zip(it.entries(), want):
+            assert k == wk and v == value, (k, wk)
+            got += 1
+        assert got == len(want) and not it.valid()
+
+    db = DB.open(rdir, Options(write_buffer_size=8 << 20,
+                               compaction_executor_factory=factory))
+    l0 = len(db.versions.current.files[0])
+    t0 = time.time()
+    scan(db)
+    s1 = time.time() - t0
+    t0 = time.time()
+    db.compact_range()
+    cr = time.time() - t0
+    scan(db)
+    db.close()
+    log(f"[repair c] MANIFEST and CURRENT deleted ({len(lost)} files); "
+        f"repair_db {rw:.3f}s, report {json.dumps(report)}; reopened with "
+        f"{l0} L0 tables, a scan of {len(want)} keys {s1:.3f}s equal the "
+        f"oracle; compact_range on the card {cr:.3f}s, the scan again equal "
+        f"[{card}]")
+
+
+def replica_path(torch, root, card, device_name="cuda", ts_n=TS_N,
+                 n=REPLICA_N, n_log=LOG_N):
+    """Phase 23 (see the module docstring): (a) user-defined timestamps,
+    (b) a secondary, a tailer, a read-only open and prefix seeks, (c)
+    repair, (d) the jobs and launches. Every DB of the phase opens with
+    one device factory, under one JobLog. Returns the (gc_rows,
+    merge_runs) launches."""
+    import random
+
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.ops import kernels
+
+    os.makedirs(root, exist_ok=True)
+    rng = random.Random(23)
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    launched = counted(kernels)
+    walls = {}
+    with ShardPrograms(torch) as programs, \
+            JobLog(torch, factory, kernels) as joblog:
+        t_open = time.time()
+        t0 = time.time()
+        ts_jobs = ts_part(root, ts_n, factory, joblog, card, rng)
+        walls["a"] = time.time() - t0
+        t0 = time.time()
+        pdir, want = replica_part(root, n, n_log, factory, card, rng)
+        prefix_part(root, factory, card, rng)
+        walls["b"] = time.time() - t0
+        t0 = time.time()
+        repair_part(root, pdir, want, factory, card)
+        walls["c"] = time.time() - t0
+        t_last = time.time()
+        gc_n, mr_n = launched()
+    joblog.check(device_name, "replicas")
+    assert joblog.jobs, "no compaction ran on the device executor"
+    if device_name != "cpu":
+        for j in ts_jobs:
+            assert j["gc"] >= 1 or not j["alone"], j
+        assert gc_n >= len(joblog.jobs), (gc_n, len(joblog.jobs))
+    log(f"[replicas d] {len(joblog.jobs)} device jobs in the phase "
+        f"({len(ts_jobs)} per-entry timestamp jobs, gc_rows launched by "
+        f"each), launches gc_rows={gc_n} merge_runs={mr_n}; part walls (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; open "
+        f"to the last read: {busy_text(programs, joblog, t_last - t_open)} "
+        f"[{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5786,6 +6270,9 @@ def main() -> int:
         s_gc, s_mr = phase("22 storage", storage_path, torch,
                            os.path.join(dbdir, "db22"), STORAGE_N, smi)
         log(f"[storage] phase 22 wall {walls['22 storage']:.1f}s [{smi}]")
+        p_gc, p_mr = phase("23 replicas", replica_path, torch,
+                           os.path.join(dbdir, "db23"), smi)
+        log(f"[replicas] phase 23 wall {walls['23 replicas']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -5799,8 +6286,9 @@ def main() -> int:
     # So do phase 19's write-path DBs, phase 20's read-path DBs, phase
     # 21's compact_files, marked-file and other jobs, and phase 22's jobs
     # after a space block, precluded, aged and over entities.
-    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc
-    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr
+    # And phase 23's timestamp, primary, prefix and repaired DBs.
+    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc
+    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr + p_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

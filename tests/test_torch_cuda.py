@@ -68,7 +68,11 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   non-bottommost: seqnos and tombstones kept), and a DB of wide-column
   entities with a merge overlay and deletes compacted on "cuda" (the
   complex fold): the SST bytes, level sets and reads equal the same DBs'
-  on "cpu".
+  on "cpu";
+- a timestamp DB (U64_TS_BYTEWISE) with overwrites, deletes, single
+  deletes, a snapshot and increase_full_history_ts_low runs compact_range
+  on "cuda" (per-entry jobs, gc_rows launched, the history trim): the SST
+  bytes, level sets and reads equal the same DB's on "cpu".
 """
 
 import os
@@ -1543,5 +1547,80 @@ def test_storage_slice_jobs_on_the_card_write_the_cpu_bytes(dev, tmp_path,
         assert min(f[1] for f in last) > 0
         assert sum(f[4] for f in last) > 0
     want = _storage_db(str(tmp_path / "cpu"), "cpu", 30_000, kind)
+    assert got[1:] == want[1:]
+    assert got[0] == want[0]
+
+
+def _ts_db(path, device, n):
+    """A timestamp DB (U64_TS_BYTEWISE): n keys at ts by batch, a fifth
+    overwritten at later timestamps, deletes and single deletes, a
+    snapshot, increase_full_history_ts_low, compact_range (per-entry jobs
+    with the history trim). Returns the live SST bytes by name, the level
+    sets, the jobs, and the reads checked against an oracle."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.dbformat import U64_TS_BYTEWISE
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+
+    factory = DeviceCompactionExecutorFactory(device=device)
+    opts = Options(write_buffer_size=64 << 20, disable_auto_compactions=True,
+                   comparator=U64_TS_BYTEWISE,
+                   compaction_executor_factory=factory)
+    key = lambda j: b"%016d" % (j * 2654435761 % (2 * n))  # noqa: E731
+    with DB.open(path, opts) as db:
+        for i in range(n):
+            db.put(key(i), b"v%d" % i, ts=i // 100 + 1)
+        db.flush()
+        for i in range(0, n, 5):
+            db.put(key(i), b"w%d" % i, ts=1000 + i)
+        for i in range(1, n, 17):
+            db.delete(key(i), ts=2000 + i)
+        for i in range(2, n, 19):
+            db.single_delete(key(i), ts=2000 + i)
+        snap = db.get_snapshot()
+        db.flush()
+        db.increase_full_history_ts_low(1500)
+        db.compact_range()
+        reads = [db.get_with_ts(key(i)) for i in range(0, n, 7)]
+        reads += [db.get(key(i), ReadOptions(timestamp=1500))
+                  for i in range(0, n, 7)]
+        reads.append(db.get(key(0), ReadOptions(snapshot=snap)))
+        it = db.new_iterator(ReadOptions(timestamp=1500))
+        it.seek_to_first()
+        reads.append(sum(1 for _ in it.entries()))
+        snap.release()
+        for i in range(0, n, 7):
+            if i % 17 == 1 or i % 19 == 2:
+                want = None
+            elif i % 5 == 0:
+                want = (b"w%d" % i, 1000 + i)
+            else:
+                want = (b"v%d" % i, i // 100 + 1)
+            assert reads[i // 7] == want, i
+        levels = [[(f.number, f.smallest_seqno, f.largest_seqno,
+                    f.num_entries, f.num_deletions) for f in fl]
+                  for fl in db.versions.current.files]
+        files = {}
+        for fl in levels:
+            for f in fl:
+                with open(os.path.join(path, "%06d.sst" % f[0]), "rb") as fh:
+                    files[f[0]] = fh.read()
+        assert db._compaction_scheduler.num_local_jobs == 0
+        jobs = len(factory.jobs)
+    return files, levels, jobs, reads
+
+
+def test_timestamp_db_on_the_card_writes_the_cpu_bytes(dev, tmp_path,
+                                                       monkeypatch):
+    """A timestamp DB's jobs take the per-entry route on the card (the
+    gc_rows kernel, the history trim on the host) and write the SST bytes
+    of the same DB on "cpu"."""
+    _frozen(monkeypatch)
+    kernels.gc_rows.launches = 0
+    got = _ts_db(str(tmp_path / "cuda"), "cuda", 20_000)
+    assert got[2] > 0 and kernels.gc_rows.launches >= got[2]
+    want = _ts_db(str(tmp_path / "cpu"), "cpu", 20_000)
     assert got[1:] == want[1:]
     assert got[0] == want[0]

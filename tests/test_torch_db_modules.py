@@ -692,14 +692,12 @@ def _away_from_default(name):
     return object()
 
 
-REFUSED = sorted(popts.UNPORTED) + ["comparator",
-                                    "compaction_executor_factory"]
+REFUSED = sorted(popts.UNPORTED) + ["compaction_executor_factory"]
 
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_unported_option_raises(tmp_path, name):
     special = {
-        "comparator": dbformat.U64TsBytewiseComparator(),
         "compaction_executor_factory": None,
     }
     opts = dataclasses.replace(
@@ -754,6 +752,11 @@ NOW_OPEN = {
         preclude_last_level_data_seconds=3600),
     # Wide-column entities (tests/test_torch_wide_columns.py).
     "legacy_wide_column_unwrap": dict(legacy_wide_column_unwrap=True),
+    # Read-only opens through DB.open (tests/test_torch_read_only.py) and
+    # the timestamp trim point, which a plain DB accepts and does not read,
+    # as toplingdb_tpu's does (tests/test_torch_timestamps.py).
+    "read_only": dict(read_only=True),
+    "full_history_ts_low": dict(full_history_ts_low=5),
 }
 
 
@@ -790,6 +793,32 @@ def test_ported_option_opens(tmp_path, name):
         assert db.scrub()["files_scanned"] == 1
     with DB.open(str(tmp_path / "db"), opts) as db:
         assert db.get(b"k") == b"v" * 300
+
+
+def test_timestamp_comparator_opens(tmp_path):
+    """The u64-timestamp comparator and its trim point open; the DB's jobs
+    run on the device executor (tests/test_torch_timestamps.py holds them
+    against the reference)."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+
+    factory = DeviceCompactionExecutorFactory(device="cpu")
+    opts = Options(comparator=dbformat.U64_TS_BYTEWISE,
+                   full_history_ts_low=5,
+                   compaction_executor_factory=factory)
+    assert popts.unported_fields(opts) == []
+    with DB.open(str(tmp_path / "db"), opts) as db:
+        assert db._write_plane is None  # Python commits, as in the reference
+        db.put(b"k", b"v" * 300, ts=7)
+        db.flush()
+        db.put(b"k", b"w", ts=9)
+        db.compact_range()
+        assert db.get(b"k") == b"w"
+        assert db.get_with_ts(b"k") == (b"w", 9)
+        assert factory.jobs and db._compaction_scheduler.num_local_jobs == 0
+    with DB.open(str(tmp_path / "db"), opts) as db:
+        assert db.get_with_ts(b"k") == (b"w", 9)
 
 
 def test_defaults_open(tmp_path):

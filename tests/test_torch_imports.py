@@ -58,6 +58,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert "toplingdb_tpu_torch.utils.thread_status" in loaded
     # and the seqno-to-time mapping of the storage slice.
     assert "toplingdb_tpu_torch.utils.seqno_to_time" in loaded
+    # and the read-only, tailing and repair modules of the DB.
+    for m in ("toplingdb_tpu_torch.db.db_readonly",
+              "toplingdb_tpu_torch.db.forward_iterator",
+              "toplingdb_tpu_torch.db.repair"):
+        assert m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

@@ -188,13 +188,23 @@ def test_worker_merge_operator_and_filter_by_name(tmp_path, device):
 def test_worker_comparators(tmp_path, comparator, device):
     """Each comparator by name. The non-bytewise ones take the per-entry
     branch: the CompactionIterator for "cpu", the device stream for
-    "cpu-jax", which refuses them on both sides (rc 1, the same status)."""
+    "cpu-jax". The device stream refuses the reverse comparator on both
+    sides (rc 1, the same status). The port's admits the u64-timestamp
+    one, whose stored-byte order is bytewise, where the reference's
+    refuses it and its executor runs such a job on the host path: the
+    port's outputs equal the reference's "cpu" run of the same job."""
     inputs = write_inputs(str(tmp_path), seed=3, comparator=comparator)
     job = write_job(str(tmp_path), inputs, comparator=comparator,
                     device=device)
     ref, port = run_both(job)
+    if comparator == "u64ts" and device == "cpu-jax":
+        assert ref[0] == 1 and "bytewise comparator" in ref[1]["status"]
+        host = write_job(str(tmp_path / "host"), inputs,
+                         comparator=comparator, device="cpu")
+        ref, _ = run_both(host)
+        assert ref[0] == 0
     assert_same_job(ref, port)
-    if comparator == "bytewise" or device == "cpu":
+    if comparator != "reverse" or device == "cpu":
         assert port[0] == 0 and port[1]["output_files"]
     else:
         assert port[0] == 1

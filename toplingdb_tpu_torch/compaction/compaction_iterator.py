@@ -105,49 +105,13 @@ class CompactionIterator:
     def entries(self):
         """Yields surviving (internal_key, value) in internal-key order.
         With a ts comparator and full_history_ts_low set, versions below the
-        trim point collapse to their newest (reference UDT history trim)."""
-        ts_sz = getattr(self._ucmp, "timestamp_size", 0)
-        if not (ts_sz and self._full_history_ts_low):
-            yield from self._entries_impl()
-            return
-        low_b = dbformat.encode_ts(self._full_history_ts_low)
-        prev_stripped: bytes | None = None
-        # Seqno of the newest RETAINED below-low version of the current
-        # logical key, or None. A below-low version behind it may only drop
-        # when the retained one is visible to EVERY live seqno snapshot
-        # (seq < earliest_snapshot) — otherwise a snapshot older than the
-        # retained version still reads the one behind it.
-        kept_seq: int | None = None
-        for ikey, val in self._entries_impl():
-            uk = dbformat.extract_user_key(ikey)
-            stripped, tsb = uk[:-ts_sz], uk[-ts_sz:]
-            if stripped != prev_stripped:
-                prev_stripped = stripped
-                kept_seq = None
-            # Suffixes store ~ts: suffix AFTER low_b ⇔ ts < ts_low.
-            if tsb > low_b:
-                # Versions come newest-ts first: the first below-low one is
-                # the value visible at ts_low; later ones are unreachable
-                # (reads below ts_low are outside the contract) unless a
-                # live snapshot cannot yet see the retained one.
-                if kept_seq is not None and kept_seq < self._earliest_snapshot:
-                    self.num_dropped_obsolete += 1
-                    continue
-                seq_e = dbformat.extract_seqno(ikey)
-                t_e = dbformat.extract_value_type(ikey)
-                if (self._bottommost and kept_seq is None
-                        and t_e in (ValueType.DELETION,
-                                    ValueType.SINGLE_DELETION)
-                        and seq_e < self._earliest_snapshot):
-                    # The key's visible-at-ts_low state is "deleted" and
-                    # nothing lies beneath this level: the tombstone has
-                    # done its job — drop it, and the kept_seq guard drops
-                    # the older versions it shadowed.
-                    self.num_dropped_tombstone += 1
-                    kept_seq = seq_e
-                    continue
-                kept_seq = seq_e
-            yield ikey, val
+        trim point collapse to their newest (trim_history)."""
+        stream = self._entries_impl()
+        if self._ts_sz and self._full_history_ts_low:
+            stream = trim_history(
+                stream, self._full_history_ts_low, self._earliest_snapshot,
+                self._bottommost, self._ts_sz, counts=self)
+        yield from stream
 
     def _entries_impl(self):
         it = self._input
@@ -357,3 +321,53 @@ class CompactionIterator:
             j - i,
             newest_stripe,
         )
+
+
+def trim_history(stream, full_history_ts_low: int, earliest_snapshot: int,
+                 bottommost: bool, ts_sz: int, counts=None):
+    """The user-defined-timestamp history trim over a survivor stream in
+    internal-key order (the host path's CompactionIterator.entries and the
+    device route's stream share it): the versions of a key below
+    `full_history_ts_low` collapse to the newest of them, the one visible
+    at the trim point. `counts` (a CompactionIterator) takes the dropped
+    rows in num_dropped_obsolete / num_dropped_tombstone."""
+    low_b = dbformat.encode_ts(full_history_ts_low)
+    prev_stripped: bytes | None = None
+    # Seqno of the newest RETAINED below-low version of the current
+    # logical key, or None. A below-low version behind it may only drop
+    # when the retained one is visible to EVERY live seqno snapshot
+    # (seq < earliest_snapshot) — otherwise a snapshot older than the
+    # retained version still reads the one behind it.
+    kept_seq: int | None = None
+    for ikey, val in stream:
+        uk = dbformat.extract_user_key(ikey)
+        stripped, tsb = uk[:-ts_sz], uk[-ts_sz:]
+        if stripped != prev_stripped:
+            prev_stripped = stripped
+            kept_seq = None
+        # Suffixes store ~ts: suffix AFTER low_b ⇔ ts < ts_low.
+        if tsb > low_b:
+            # Versions come newest-ts first: the first below-low one is
+            # the value visible at ts_low; later ones are unreachable
+            # (reads below ts_low are outside the contract) unless a live
+            # snapshot cannot yet see the retained one.
+            if kept_seq is not None and kept_seq < earliest_snapshot:
+                if counts is not None:
+                    counts.num_dropped_obsolete += 1
+                continue
+            seq_e = dbformat.extract_seqno(ikey)
+            t_e = dbformat.extract_value_type(ikey)
+            if (bottommost and kept_seq is None
+                    and t_e in (ValueType.DELETION,
+                                ValueType.SINGLE_DELETION)
+                    and seq_e < earliest_snapshot):
+                # The key's visible-at-ts_low state is "deleted" and
+                # nothing lies beneath this level: the tombstone has done
+                # its job — drop it, and the kept_seq guard drops the older
+                # versions it shadowed.
+                if counts is not None:
+                    counts.num_dropped_tombstone += 1
+                kept_seq = seq_e
+                continue
+            kept_seq = seq_e
+        yield ikey, val

@@ -231,6 +231,10 @@ class CompactionScheduler:
                         # re-enters once the poller sees headroom.
                         return None, None
                     c.cf_id = cf_id
+                    # Every picked job carries the history trim point, as
+                    # the manual paths do (toplingdb_tpu's scheduler sets it
+                    # on every pick).
+                    c.full_history_ts_low = db.options.full_history_ts_low
                     for _, f in c.all_inputs():
                         f.being_compacted = True
                     return c, version

@@ -144,8 +144,13 @@ def _run_job_body(job_dir: str, params, t_enter: float,
                                          dbformat.U64_TS_BYTEWISE)}
     if params.comparator not in comparators:
         raise ValueError(f"unknown comparator {params.comparator!r}")
-    # The u64-timestamp comparator's raw order is plain bytewise, so the
-    # merge / GC path needs nothing of it (keeping every version is safe).
+    # The u64-timestamp comparator's order (key asc, ts desc) is baked into
+    # the stored bytes, so the device sort and GC mask are right for it
+    # (device_gc_entries keeps its bottommost tombstones, as
+    # CompactionIterator does). CompactionParams carries no history trim
+    # point (the reference's format has none), so a worker job keeps every
+    # version below full_history_ts_low: safe, since reads below it are
+    # refused.
     ucmp = comparators[params.comparator]
     icmp = dbformat.InternalKeyComparator(ucmp)
     merge_op = (_merge_operator_by_name(params.merge_operator)

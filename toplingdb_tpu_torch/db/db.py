@@ -413,8 +413,12 @@ class DB:
         from toplingdb_tpu_torch import native
 
         lib = native.lib()
-        self._write_plane = (lib.tpulsm_wb_group_commit
-                             if write_plane and lib is not None else None)
+        # A timestamp comparator's writes commit through Python, as in
+        # toplingdb_tpu (its write plane refuses such a comparator).
+        self._write_plane = (
+            lib.tpulsm_wb_group_commit
+            if write_plane and lib is not None
+            and options.comparator.timestamp_size == 0 else None)
         self.iter_chunk_rows = iter_chunk_rows
         # The async read plane (toplingdb_tpu's TPULSM_ASYNC_READS): the
         # lazy AsyncReadBatcher fanning batched block fetches across
@@ -735,6 +739,70 @@ class DB:
         chunk, 0 = no scan plane); `async_reads` its TPULSM_ASYNC_READS
         (the async read plane). The defaults are toplingdb_tpu's."""
         options = options or Options()
+        DB._check_open_args(options, write_plane, iter_chunk_rows,
+                            async_reads)
+        env = env or default_env()
+        # Validates; touches no file.
+        db = DB(dbname, options, env, write_plane=write_plane,
+                iter_chunk_rows=iter_chunk_rows, async_reads=async_reads)
+        env.create_dir(dbname)
+        if not options.read_only:
+            db._open_log()
+        current = filename.current_file_name(dbname)
+        if env.file_exists(current):
+            if options.error_if_exists:
+                raise InvalidArgument(f"{dbname} exists (error_if_exists)")
+            db._recover()
+        else:
+            if not options.create_if_missing:
+                raise InvalidArgument(
+                    f"{dbname} does not exist (create_if_missing=False)")
+            db.versions.create_new()
+            env.write_file(
+                filename.identity_file_name(dbname), uuid.uuid4().hex.encode()
+            )
+        try:
+            db.identity = env.read_file(
+                filename.identity_file_name(dbname)).decode()
+        except NotFound:
+            db.identity = uuid.uuid4().hex
+            env.write_file(filename.identity_file_name(dbname),
+                           db.identity.encode())
+        if not options.read_only:
+            db._start_wal_ring(env)
+        db._new_wal()
+        db._load_seqno_time()
+        if db.icmp.user_comparator.timestamp_size:
+            # full_history_ts_low never falls across reopens (RocksDB
+            # keeps it in the MANIFEST): the larger of the caller's and the
+            # persisted one, so trimmed history never becomes readable.
+            prev = load_latest_options(dbname, env)
+            if prev is not None:
+                options.full_history_ts_low = max(
+                    options.full_history_ts_low, prev.full_history_ts_low)
+        db._persist_options()
+        db._delete_obsolete_files()
+        db._sweep_orphan_jobs()
+        db._start_space_tracking()
+        from toplingdb_tpu_torch.compaction.scheduler import (
+            CompactionScheduler,
+        )
+
+        db._compaction_scheduler = CompactionScheduler(db)
+        db._start_stats_threads()
+        db._maybe_schedule_compaction()
+        if options.integrity_scrub_period_sec > 0 and not options.read_only:
+            from toplingdb_tpu_torch.db.integrity import IntegrityScrubber
+
+            db._integrity_scrubber = IntegrityScrubber(db)
+            db._integrity_scrubber.start()
+        return db
+
+    @staticmethod
+    def _check_open_args(options: Options, write_plane: bool,
+                         iter_chunk_rows: int, async_reads: bool) -> None:
+        """The open-time refusals: an option the port does not run, a bad
+        plane argument, a host plane without the native library."""
         refused = unported_fields(options)
         if refused:
             raise NotSupported(
@@ -757,52 +825,6 @@ class DB:
             raise NotSupported(
                 " and ".join(planes) + " needs the port's native library, "
                 "which could not be built or loaded (g++ missing?)")
-        env = env or default_env()
-        # Validates; touches no file.
-        db = DB(dbname, options, env, write_plane=write_plane,
-                iter_chunk_rows=iter_chunk_rows, async_reads=async_reads)
-        env.create_dir(dbname)
-        db._open_log()
-        current = filename.current_file_name(dbname)
-        if env.file_exists(current):
-            if options.error_if_exists:
-                raise InvalidArgument(f"{dbname} exists (error_if_exists)")
-            db._recover()
-        else:
-            if not options.create_if_missing:
-                raise InvalidArgument(
-                    f"{dbname} does not exist (create_if_missing=False)")
-            db.versions.create_new()
-            env.write_file(
-                filename.identity_file_name(dbname), uuid.uuid4().hex.encode()
-            )
-        try:
-            db.identity = env.read_file(
-                filename.identity_file_name(dbname)).decode()
-        except NotFound:
-            db.identity = uuid.uuid4().hex
-            env.write_file(filename.identity_file_name(dbname),
-                           db.identity.encode())
-        db._start_wal_ring(env)
-        db._new_wal()
-        db._load_seqno_time()
-        db._persist_options()
-        db._delete_obsolete_files()
-        db._sweep_orphan_jobs()
-        db._start_space_tracking()
-        from toplingdb_tpu_torch.compaction.scheduler import (
-            CompactionScheduler,
-        )
-
-        db._compaction_scheduler = CompactionScheduler(db)
-        db._start_stats_threads()
-        db._maybe_schedule_compaction()
-        if options.integrity_scrub_period_sec > 0:
-            from toplingdb_tpu_torch.db.integrity import IntegrityScrubber
-
-            db._integrity_scrubber = IntegrityScrubber(db)
-            db._integrity_scrubber.start()
-        return db
 
     def _load_seqno_time(self) -> None:
         """Load the SEQNO_TIME.json sidecar; a new DB starts a fresh
@@ -954,16 +976,7 @@ class DB:
                   self._stats_dump_thread):
             if t is not None:
                 t.stop()
-        for attr in ("_mget_pool", "_async_pool"):
-            pool = getattr(self, attr)
-            if pool is not None:
-                pool.shutdown(wait=True)
-                setattr(self, attr, None)
-        if self._read_batcher is not None:
-            # Joins every reader-ring thread: no ring thread outlives
-            # close().
-            self._read_batcher.close()
-            self._read_batcher = None
+        self._stop_read_plane()
         if self._compaction_scheduler is not None:
             self._compaction_scheduler.shutdown()
         for t in self._recover_threads:
@@ -1001,6 +1014,18 @@ class DB:
             if self._log_file is not None:
                 self._log_file.close()
             self._closed = True
+
+    def _stop_read_plane(self) -> None:
+        """Join the read plane's executors and reader rings: no ring
+        thread outlives close()."""
+        for attr in ("_mget_pool", "_async_pool"):
+            pool = getattr(self, attr)
+            if pool is not None:
+                pool.shutdown(wait=True)
+                setattr(self, attr, None)
+        if self._read_batcher is not None:
+            self._read_batcher.close()
+            self._read_batcher = None
 
     def __enter__(self):
         return self
@@ -1095,32 +1120,74 @@ class DB:
     # Write path
     # ==================================================================
 
+    def _validate_ts_batch(self, batch: WriteBatch) -> None:
+        """Every key entering a timestamp DB must carry its suffix
+        (encode_ts_key form): one raw key would break iteration for good
+        (strip_ts raises on it). DeleteRange cannot carry a timestamp and
+        is refused here."""
+        if getattr(batch, "_ts_checked", False):
+            return
+        for _cf, t, key, _val in batch.entries_cf():
+            if t == dbformat.ValueType.RANGE_DELETION:
+                raise InvalidArgument(
+                    "DeleteRange is not supported with user-defined "
+                    "timestamps")
+            if t == dbformat.ValueType.LOG_DATA:
+                continue
+            try:
+                dbformat.strip_ts(key)
+            except ValueError as e:
+                raise InvalidArgument(
+                    f"key {key!r} lacks a timestamp suffix; this DB's "
+                    f"comparator requires ts= on every write") from e
+        batch._ts_checked = True
+
+    def _ts_key(self, key: bytes, ts: int | None) -> bytes:
+        """The stored key: `key` with its timestamp suffix when the
+        comparator carries one (RocksDB's Put(cf, key, ts, value))."""
+        if self.icmp.user_comparator.timestamp_size == 0:
+            if ts is not None:
+                raise InvalidArgument(
+                    "timestamp given but the comparator has none "
+                    "(use Options(comparator=U64_TS_BYTEWISE))")
+            return key
+        if ts is None:
+            raise InvalidArgument(
+                "this DB's comparator requires a timestamp on every write")
+        return dbformat.encode_ts_key(key, ts)
+
     def put(self, key: bytes, value: bytes, opts: WriteOptions = _DEFAULT_WRITE,
-            cf=None) -> int:
+            cf=None, ts: int | None = None) -> int:
         b = WriteBatch(protection_bytes_per_key=self._protection)
-        b.put(key, value, cf=self._cf_id(cf))
+        b.put(self._ts_key(key, ts), value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
-               cf=None) -> int:
+               cf=None, ts: int | None = None) -> int:
         b = WriteBatch(protection_bytes_per_key=self._protection)
-        b.delete(key, cf=self._cf_id(cf))
+        b.delete(self._ts_key(key, ts), cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def single_delete(self, key: bytes, opts: WriteOptions = _DEFAULT_WRITE,
-                      cf=None) -> int:
+                      cf=None, ts: int | None = None) -> int:
         b = WriteBatch(protection_bytes_per_key=self._protection)
-        b.single_delete(key, cf=self._cf_id(cf))
+        b.single_delete(self._ts_key(key, ts), cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def merge(self, key: bytes, value: bytes,
               opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
+        if self.icmp.user_comparator.timestamp_size:
+            raise InvalidArgument(
+                "Merge is not supported with user-defined timestamps")
         b = WriteBatch(protection_bytes_per_key=self._protection)
         b.merge(key, value, cf=self._cf_id(cf))
         return self.write(b, opts)
 
     def delete_range(self, begin: bytes, end: bytes,
                      opts: WriteOptions = _DEFAULT_WRITE, cf=None) -> int:
+        if self.icmp.user_comparator.timestamp_size:
+            raise InvalidArgument(
+                "DeleteRange is not supported with user-defined timestamps")
         b = WriteBatch(protection_bytes_per_key=self._protection)
         b.delete_range(begin, end, cf=self._cf_id(cf))
         return self.write(b, opts)
@@ -1182,6 +1249,8 @@ class DB:
         return w.batch.sequence() + w.batch.count() - 1
 
     def _write_impl(self, batch: WriteBatch, opts: WriteOptions) -> int:
+        if self.icmp.user_comparator.timestamp_size:
+            self._validate_ts_batch(batch)
         self._maybe_stall_writes()
         w = _Writer(batch, opts)
         with self._wq_lock:
@@ -2213,7 +2282,11 @@ class DB:
                    cf) -> tuple[bytes | None, bool]:
         """(stored value or None, whether it is a wide-column entity)."""
         self._check_open()
-        self._check_read_options(opts)
+        if self.icmp.user_comparator.timestamp_size:
+            # The timestamp chain; the native chain stays off for such a
+            # DB, as in toplingdb_tpu.
+            return self._get_with_ts(key, opts, cf), False
+        self._check_read_ts(opts)
         cfd = self._cf_data(cf)
         snap_seq = (
             opts.snapshot.sequence if opts.snapshot is not None
@@ -2309,7 +2382,8 @@ class DB:
         from toplingdb_tpu_torch.db.wide_columns import encode_entity
 
         b = WriteBatch(protection_bytes_per_key=self._protection)
-        b.put_entity(key, encode_entity(columns), cf=self._cf_id(cf))
+        b.put_entity(self._ts_key(key, None), encode_entity(columns),
+                     cf=self._cf_id(cf))
         self.write(b, opts)
 
     def get_entity(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
@@ -2338,7 +2412,7 @@ class DB:
         passes the seqno ranges of undecided WritePrepared transactions;
         the port has no transactions yet, so there are none to pass."""
         self._check_open()
-        self._check_read_options(opts)
+        self._check_read_ts(opts)
         cfd = self._cf_data(cf)
         snap_seq = (
             opts.snapshot.sequence if opts.snapshot is not None
@@ -2357,13 +2431,140 @@ class DB:
             self._walk_sst_chain(version, key, snap_seq, ctx)
         return ctx.merge_operand_list()
 
-    def _check_read_options(self, opts: ReadOptions) -> None:
-        for name in ("tailing", "prefix_same_as_start"):
-            if getattr(opts, name):
-                raise NotSupported(
-                    f"ReadOptions.{name} is not ported yet")
-        if opts.timestamp is not None:
-            raise NotSupported("ReadOptions.timestamp is not ported yet")
+    # -- user-defined timestamps ----------------------------------------
+
+    def _check_read_ts(self, opts: ReadOptions) -> None:
+        """ReadOptions.timestamp needs a timestamp comparator, and a read
+        below full_history_ts_low is InvalidArgument: that history may
+        already be collapsed, so its answer would depend on which
+        compactions ran."""
+        if opts.timestamp is None:
+            return
+        if self.icmp.user_comparator.timestamp_size == 0:
+            raise InvalidArgument(
+                "ReadOptions.timestamp requires a timestamp-carrying "
+                "comparator (U64_TS_BYTEWISE)")
+        if opts.timestamp < self.options.full_history_ts_low:
+            raise InvalidArgument(
+                f"cannot read at ts={opts.timestamp}: history below "
+                f"full_history_ts_low={self.options.full_history_ts_low} "
+                f"may be collapsed")
+
+    def _ts_lookup(self, it, key: bytes) -> tuple[bytes, int] | None:
+        """Point lookup over a timestamp-aware iterator: the seek lands on
+        the key's newest visible version."""
+        it.seek(key)
+        if it.valid() and it.key() == key:
+            # Raw: the caller unwraps an entity exactly once.
+            return it.raw_value(), it.timestamp()
+        return None
+
+    _TS_SLOW = object()  # the layered lookup's hand-over to the iterator
+
+    def _ts_fast_lookup(self, key: bytes, opts: ReadOptions, cf):
+        """The layered point lookup of a timestamp DB: each source (the
+        memtable, the immutables, each level's overlapping files) is sought
+        on its own for its newest visible version, and the candidates
+        combine by (ts desc, seq desc), DBIter's order. Returns (value, ts),
+        None, or _TS_SLOW when the iterator must decide (a merge operator,
+        range tombstones, a merge or single delete met)."""
+        if self.options.merge_operator is not None:
+            return self._TS_SLOW
+        cfd = self._cf_data(cf)
+        read_ts = (opts.timestamp if opts.timestamp is not None
+                   else dbformat.MAX_TIMESTAMP)
+        snap_seq = (
+            opts.snapshot.sequence if opts.snapshot is not None
+            else self.versions.last_sequence
+        )
+        enc_hi = dbformat.encode_ts_key(key, read_ts)  # newest visible
+        enc_lo = dbformat.encode_ts_key(key, 0)        # oldest possible
+        seek_ikey = dbformat.make_internal_key(
+            enc_hi, snap_seq, dbformat.VALUE_TYPE_FOR_SEEK)
+        esc = enc_lo[:-8]  # the escaped key and its terminator
+        best = None  # (ts, seq, vtype, value)
+
+        def probe(it) -> bool:
+            """The source's newest visible version into `best`; False:
+            hand over to the iterator."""
+            nonlocal best
+            it.seek(seek_ikey)
+            while it.valid():
+                uk, seq, t = dbformat.split_internal_key(it.key())
+                if len(uk) != len(esc) + 8 or not uk.startswith(esc):
+                    break  # past this key's versions
+                if t in (dbformat.ValueType.MERGE,
+                         dbformat.ValueType.SINGLE_DELETION):
+                    return False
+                if seq <= snap_seq:
+                    cand = (dbformat.decode_ts(uk[-8:]), seq, t, it.value())
+                    if best is None or cand[:2] > best[:2]:
+                        best = cand
+                    break  # (ts desc, seq desc): the first one wins here
+                it.next()
+            return True
+
+        for mem in [cfd.mem] + cfd.imm:
+            if mem._range_dels or not probe(mem.new_iterator()):
+                return self._TS_SLOW
+        version = self.versions.cf_current(cfd.handle.id)
+        for level in range(version.num_levels):
+            for f in version.overlapping_files(level, enc_hi, enc_lo):
+                reader = self.table_cache.get_reader(f.number)
+                if reader.range_del_entries() \
+                        or not probe(reader.new_iterator()):
+                    return self._TS_SLOW
+        if best is None:
+            return None
+        if best[2] == dbformat.ValueType.BLOB_INDEX:
+            return self.blob_source.get(best[3]), best[0]
+        if best[2] != dbformat.ValueType.VALUE:
+            return None
+        return best[3], best[0]
+
+    def _ts_point_lookup(self, key: bytes, opts: ReadOptions,
+                         cf) -> tuple[bytes, int] | None:
+        self._check_read_ts(opts)
+        hit = self._ts_fast_lookup(key, opts, cf)
+        if hit is not self._TS_SLOW:
+            return hit
+        return self._ts_lookup(self.new_iterator(opts, cf=cf), key)
+
+    def _get_with_ts(self, key: bytes, opts: ReadOptions,
+                     cf) -> bytes | None:
+        """get on a timestamp DB (RocksDB's GetImpl with
+        ReadOptions.timestamp)."""
+        hit = self._ts_point_lookup(key, opts, cf)
+        if hit is None:
+            return None
+        return b"" if opts.just_check_key_exists else hit[0]
+
+    def get_with_ts(self, key: bytes, opts: ReadOptions = _DEFAULT_READ,
+                    cf=None) -> tuple[bytes, int] | None:
+        """(value, the version's timestamp) or None (RocksDB's
+        Get(..., std::string* timestamp))."""
+        self._check_open()
+        return self._ts_point_lookup(key, opts, cf)
+
+    def increase_full_history_ts_low(self, ts_low: int) -> None:
+        """Raise the history trim point (RocksDB's
+        DB::IncreaseFullHistoryTsLow): later compactions collapse the
+        versions below it. Monotonic; needs a timestamp comparator. The
+        new point is persisted (OPTIONS) before any job can trim under it,
+        or rolled back."""
+        if self.icmp.user_comparator.timestamp_size == 0:
+            raise InvalidArgument("DB has no user-defined timestamps")
+        if ts_low < self.options.full_history_ts_low:
+            raise InvalidArgument(
+                f"full_history_ts_low can only increase "
+                f"({ts_low} < {self.options.full_history_ts_low})")
+        old = self.options.full_history_ts_low
+        self.options.full_history_ts_low = ts_low
+        try:
+            self._persist_options()
+        except Exception:
+            self.options.full_history_ts_low = old
+            raise
 
     # -- multi_get and the async read plane ----------------------------
 
@@ -2374,7 +2575,7 @@ class DB:
         grouped per source, so each memtable and file is visited once for
         all its keys. Returns one value or None per key, in order."""
         self._check_open()
-        self._check_read_options(opts)
+        self._check_read_ts(opts)
         tracer = self.tracer
         root = None
         if tracer is not None and tracer.sample_every \
@@ -2409,6 +2610,15 @@ class DB:
         return res
 
     def _multi_get_impl(self, keys, opts, cf):
+        if self.icmp.user_comparator.timestamp_size:
+            # One iterator for the whole batch, sought across the keys in
+            # sorted order.
+            it = self.new_iterator(opts, cf=cf)
+            hits = {}
+            for k in sorted(set(keys)):
+                hit = self._ts_lookup(it, k)
+                hits[k] = None if hit is None else hit[0]
+            return [hits[k] for k in keys]
         cfd = self._cf_data(cf)
         snap_seq = (
             opts.snapshot.sequence if opts.snapshot is not None
@@ -2744,11 +2954,24 @@ class DB:
         return self._submit_async(lambda: self.multi_get(keys, opts, cf))
 
     def new_iterator(self, opts: ReadOptions = _DEFAULT_READ,
-                     cf=None) -> DBIter:
+                     cf=None, *, scan_plane: bool = True) -> DBIter:
         """MVCC iterator over the whole keyspace of CF `cf` (RocksDB's
-        DBImpl::NewIterator → DBIter over a MergingIterator)."""
+        DBImpl::NewIterator → DBIter over a MergingIterator). With
+        ReadOptions.tailing, a ForwardIterator over it. scan_plane=False
+        keeps the iterator on the per-entry path (the tailing iterator's
+        views: the chunked plane materializes the memtable at each seek,
+        and a tailer seeks at every catch-up)."""
         self._check_open()
-        self._check_read_options(opts)
+        self._check_read_ts(opts)
+        if opts.tailing:
+            import dataclasses
+
+            from toplingdb_tpu_torch.db.forward_iterator import (
+                ForwardIterator,
+            )
+
+            return ForwardIterator(
+                self, dataclasses.replace(opts, tailing=False), cf=cf)
         cfd = self._cf_data(cf)
         # Async read plane: iterator readahead windows become reader-ring
         # tasks; each child pins one ring so its windows stay ordered
@@ -2805,12 +3028,16 @@ class DB:
                 upper_bound=opts.iterate_upper_bound,
                 pinned=version,
                 blob_resolver=self.blob_source.get,
+                prefix_extractor=self.options.prefix_extractor,
+                prefix_same_as_start=(opts.prefix_same_as_start
+                                      and not opts.total_order_seek),
+                read_ts=opts.timestamp,
                 legacy_wce=self.options.legacy_wide_column_unwrap,
             )
             # The chunked scan plane (ops/scan_plane.py): native block
             # decode + k-way merge for forward scans; None when the
             # iterator's shape is ineligible (the per-entry path runs).
-            plane = make_scan_plane(
+            plane = None if not scan_plane else make_scan_plane(
                 mems=[cfd.mem] + list(cfd.imm),
                 l0_files=list(version.files[0]),
                 level_runs=[version.files[lv]
@@ -2824,6 +3051,10 @@ class DB:
                 upper=opts.iterate_upper_bound,
                 blob_resolver=self.blob_source.get,
                 merge_operator=self.options.merge_operator,
+                prefix_mode=(opts.prefix_same_as_start
+                             and not opts.total_order_seek
+                             and self.options.prefix_extractor is not None),
+                read_ts=opts.timestamp,
                 stats=self.stats,
                 chunk=self.iter_chunk_rows,
                 readahead_size=ra,
@@ -3927,3 +4158,22 @@ class DB:
     def _check_open(self) -> None:
         if self._closed:
             raise ShutdownInProgress("DB is closed")
+
+
+def load_latest_options(dbname: str, env=None) -> Options | None:
+    """Options rebuilt from the newest OPTIONS-NNNNNN of `dbname` (its
+    scalar fields over the defaults; RocksDB's LoadLatestOptions), or None
+    when the DB has no OPTIONS file."""
+    env = env or default_env()
+    nums = [num for child in env.get_children(dbname)
+            for t, num in [filename.parse_file_name(child)]
+            if t == filename.FileType.OPTIONS]
+    if not nums:
+        return None
+    fields = json.loads(
+        env.read_file(filename.options_file_name(dbname, max(nums))).decode())
+    opts = Options()
+    for name, value in fields.items():
+        if hasattr(opts, name):
+            setattr(opts, name, value)
+    return opts

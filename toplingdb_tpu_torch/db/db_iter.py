@@ -1,8 +1,9 @@
 """DBIter: the user-facing MVCC iterator (copied from
-toplingdb_tpu/db/db_iter.py, without user-defined timestamps,
-prefix-mode iteration and the WritePrepared exclusion ranges). An entity
-presents its default column through value() and all of them through
-columns().
+toplingdb_tpu/db/db_iter.py, without the WritePrepared exclusion ranges).
+An entity presents its default column through value() and all of them
+through columns(). With a timestamp comparator it reads as of `read_ts`:
+key() is the user key, timestamp() the version's. With
+`prefix_same_as_start`, a seek stops at the end of its target's prefix.
 
 The role of RocksDB's DBIter (db/db_iter.cc): wraps a MergingIterator over
 {memtable, immutables, SST levels} and collapses the internal-key stream
@@ -31,6 +32,8 @@ class DBIter:
                  lower_bound: bytes | None = None,
                  upper_bound: bytes | None = None,
                  pinned=None, blob_resolver=None,
+                 prefix_extractor=None, prefix_same_as_start: bool = False,
+                 read_ts: int | None = None,
                  legacy_wce: bool = False):
         self._blob_resolver = blob_resolver
         self._legacy_wce = legacy_wce  # magic-sniff gate (pre-type DBs)
@@ -62,6 +65,20 @@ class DBIter:
         self._plane_seeks = 0
         self._plane_steps = 0
         self._refresh_fn = None  # set by DB.new_iterator
+        # Prefix-mode iteration (RocksDB's ReadOptions.prefix_same_as_start):
+        # after a seek the iterator ends with its target's prefix group.
+        # Armed per seek; the total-order entry points clear it.
+        self._pe = prefix_extractor if prefix_same_as_start else None
+        self._prefix: bytes | None = None
+        # User-defined timestamps: with a timestamp comparator the iterator
+        # groups versions by the STRIPPED key, hides versions newer than
+        # read_ts, and key() is the stripped key (timestamp() the
+        # version's). The u64ts comparator is bytewise underneath, so
+        # stripped keys compare as raw bytes.
+        self._ts_sz = self._ucmp.timestamp_size
+        self._read_ts_b = (dbformat.encode_ts(read_ts)
+                           if self._ts_sz and read_ts is not None else None)
+        self._key_full: bytes | None = None  # the stored key of the entry
 
     def refresh(self) -> None:
         """Rebind to the DB's current state (RocksDB's Iterator::Refresh):
@@ -113,8 +130,8 @@ class DBIter:
     def _resume_per_entry_after(self, cur: bytes) -> None:
         """Position the per-entry path just past `cur` (the plane's last
         emitted key) after a mid-stream degrade."""
-        self._seek_impl(cur)
-        if self._valid and self._ucmp.compare(self._key, cur) <= 0:
+        self._seek_impl(cur, arm_prefix=False)
+        if self._valid and self._vcmp(self._key, cur) <= 0:
             self._find_next_user_entry(skip_key=cur)
 
     # -- public protocol ------------------------------------------------
@@ -163,13 +180,40 @@ class DBIter:
             return decode_entity(self._value)
         return {DEFAULT_COLUMN: self._value}
 
+    def timestamp(self) -> int | None:
+        """The current version's timestamp (timestamp DBs; else None)."""
+        assert self._valid
+        if not self._ts_sz:
+            return None
+        return dbformat.decode_ts(self._key_full[-self._ts_sz:])
+
+    def _vkey(self, uk: bytes) -> bytes:
+        """The key the user sees: the stored key with its escape and
+        timestamp suffix stripped on a timestamp DB."""
+        return dbformat.strip_ts(uk) if self._ts_sz else uk
+
+    def _vcmp(self, a: bytes, b: bytes) -> int:
+        """Compare two visible (stripped) keys."""
+        if self._ts_sz:
+            return (a > b) - (a < b)
+        return self._ucmp.compare(a, b)
+
+    def _ts_invisible(self, uk: bytes) -> bool:
+        # Suffixes store ~ts, so a version newer than read_ts (invisible)
+        # has a suffix that sorts BEFORE the read timestamp's.
+        return (self._read_ts_b is not None
+                and uk[-self._ts_sz:] < self._read_ts_b)
+
     def seek_to_first(self) -> None:
+        # A total-order entry point: it never arms prefix mode, even when
+        # a lower bound redirects it through a seek.
+        self._prefix = None
         if self._plane is not None and self._plane_position(self._lower):
             self._tick_seek()
             return
         self._bank_prefetch()
         if self._lower is not None:
-            self._seek_impl(self._lower)
+            self._seek_impl(self._lower, arm_prefix=False)
             self._tick_seek()
             return
         self._iter.seek_to_first()
@@ -185,13 +229,13 @@ class DBIter:
             else:
                 uk = user_key
                 if self._lower is not None \
-                        and self._ucmp.compare(uk, self._lower) < 0:
+                        and self._vcmp(uk, self._lower) < 0:
                     uk = self._lower
                 if self._plane_position(uk):
                     self._tick_seek()
                     return
         self._bank_prefetch()
-        self._seek_impl(user_key)
+        self._seek_impl(user_key, arm_prefix=True)
         self._tick_seek()
 
     # -- statistics ------------------------------------------------------
@@ -234,10 +278,19 @@ class DBIter:
                 self._tick(st.PREFETCH_MISSES, dm)
             self._pf_banked = (h, m)
 
-    def _seek_impl(self, user_key: bytes) -> None:
-        if self._lower is not None and self._ucmp.compare(
-                user_key, self._lower) < 0:
+    def _seek_impl(self, user_key: bytes, arm_prefix: bool) -> None:
+        if self._lower is not None and self._vcmp(user_key, self._lower) < 0:
             user_key = self._lower
+        if arm_prefix:
+            self._arm_prefix(user_key)
+        if self._ts_sz:
+            # Land on the newest VISIBLE version: (key, read_ts) sorts after
+            # every newer version (timestamps order descending). No read_ts:
+            # the newest of all (ts MAX sorts first among the versions).
+            user_key = dbformat.encode_ts_key(
+                user_key,
+                dbformat.decode_ts(self._read_ts_b)
+                if self._read_ts_b is not None else dbformat.MAX_TIMESTAMP)
         target = dbformat.make_internal_key(
             user_key, self._seq, dbformat.VALUE_TYPE_FOR_SEEK
         )
@@ -247,12 +300,17 @@ class DBIter:
     def seek_to_last(self) -> None:
         if self._plane is not None:
             self._plane_drop()  # backward iteration: per-entry path only
+        self._prefix = None
         if self._upper is not None:
             # Upper bound is exclusive: (upper, MAX_SEQ, FOR_SEEK) sorts before
             # every entry of user key `upper`, so seek_for_prev lands strictly
             # below the bound under any comparator.
+            upper = self._upper
+            if self._ts_sz:
+                # ts MAX sorts first: the first version of `upper`.
+                upper = dbformat.encode_ts_key(upper, dbformat.MAX_TIMESTAMP)
             target = dbformat.make_internal_key(
-                self._upper, dbformat.MAX_SEQUENCE_NUMBER,
+                upper, dbformat.MAX_SEQUENCE_NUMBER,
                 dbformat.VALUE_TYPE_FOR_SEEK,
             )
             self._iter.seek_for_prev(target)
@@ -264,6 +322,10 @@ class DBIter:
     def seek_for_prev(self, user_key: bytes) -> None:
         if self._plane is not None:
             self._plane_drop()  # backward iteration: per-entry path only
+        self._arm_prefix(user_key)
+        if self._ts_sz:
+            # (key, ts=0) is the LAST version of the key.
+            user_key = dbformat.encode_ts_key(user_key, 0)
         target = dbformat.make_internal_key(user_key, 0, 0)
         # All entries for user_key sort before target's successor; position at
         # the last entry <= (user_key, seq 0): that's the oldest entry of
@@ -301,19 +363,21 @@ class DBIter:
             # fixed), then run the normal backward step below.
             cur0 = self._key
             self._plane_drop()
-            self._seek_impl(cur0)
+            self._seek_impl(cur0, arm_prefix=False)
         # Move internal iterator to strictly before the current user key.
-        cur = self._key
+        cur = self._key  # the visible (stripped) key
         if not self._iter.valid():
             # Forward resolution (e.g. a merge chain) exhausted the internal
             # iterator; re-position at the last entry before cur's versions.
+            first = (dbformat.encode_ts_key(cur, dbformat.MAX_TIMESTAMP)
+                     if self._ts_sz else cur)
             self._iter.seek_for_prev(dbformat.make_internal_key(
-                cur, dbformat.MAX_SEQUENCE_NUMBER,
+                first, dbformat.MAX_SEQUENCE_NUMBER,
                 dbformat.VALUE_TYPE_FOR_SEEK
             ))
         else:
-            while self._iter.valid() and self._ucmp.compare(
-                dbformat.extract_user_key(self._iter.key()), cur
+            while self._iter.valid() and self._vcmp(
+                self._vkey(dbformat.extract_user_key(self._iter.key())), cur
             ) >= 0:
                 self._iter.prev()
         self._find_prev_user_entry()
@@ -327,13 +391,24 @@ class DBIter:
 
     # -- internals ------------------------------------------------------
 
-    def _out_of_upper(self, uk: bytes) -> bool:
-        return self._upper is not None and self._ucmp.compare(
-            uk, self._upper) >= 0
+    def _arm_prefix(self, seek_key: bytes) -> None:
+        self._prefix = (
+            self._pe.transform(seek_key)
+            if self._pe is not None and self._pe.in_domain(seek_key)
+            else None
+        )
 
-    def _out_of_lower(self, uk: bytes) -> bool:
-        return self._lower is not None and self._ucmp.compare(
-            uk, self._lower) < 0
+    def _out_of_prefix(self, vk: bytes) -> bool:
+        return self._prefix is not None and (
+            not self._pe.in_domain(vk)
+            or self._pe.transform(vk) != self._prefix
+        )
+
+    def _out_of_upper(self, vk: bytes) -> bool:
+        return self._upper is not None and self._vcmp(vk, self._upper) >= 0
+
+    def _out_of_lower(self, vk: bytes) -> bool:
+        return self._lower is not None and self._vcmp(vk, self._lower) < 0
 
     def _tomb_covers(self, uk: bytes, seq: int) -> bool:
         return (
@@ -349,15 +424,17 @@ class DBIter:
         while self._iter.valid():
             ikey = self._iter.key()
             uk, seq, t = dbformat.split_internal_key(ikey)
-            if self._out_of_upper(uk):
+            vkey = self._vkey(uk)
+            if self._out_of_upper(vkey) or self._out_of_prefix(vkey):
                 break
-            if skip_key is not None and self._ucmp.compare(uk, skip_key) <= 0:
+            if skip_key is not None and self._vcmp(vkey, skip_key) <= 0:
                 self._iter.next()
                 continue
-            if seq > self._seq:
+            if seq > self._seq or (self._ts_sz and self._ts_invisible(uk)):
+                # Newer than the snapshot, or than the read timestamp.
                 self._iter.next()
                 continue
-            if merge_key is not None and self._ucmp.compare(uk, merge_key) != 0:
+            if merge_key is not None and self._vcmp(vkey, merge_key) != 0:
                 # Merge chain ran to the end of this key with no base.
                 self._emit_merge(merge_key, None, operands)
                 return
@@ -367,7 +444,7 @@ class DBIter:
                 if merge_key is not None:
                     self._emit_merge(merge_key, None, operands)
                     return
-                skip_key = uk  # key is dead; skip all its older versions
+                skip_key = vkey  # key is dead; skip all its older versions
                 self._iter.next()
                 continue
             if t in (ValueType.VALUE, ValueType.BLOB_INDEX,
@@ -382,15 +459,19 @@ class DBIter:
                                          t == ValueType.WIDE_COLUMN_ENTITY))
                     return
                 self._valid = True
-                self._key = uk
+                self._key = vkey
+                self._key_full = uk
                 self._value = v
                 self._entry_type = t
                 return
             if t == ValueType.MERGE:
+                if self._ts_sz:
+                    raise MergeInProgress(
+                        "Merge is not supported with user-defined timestamps")
                 if self._merge_op is None:
                     raise MergeInProgress("merge entry but no merge_operator")
                 if merge_key is None:
-                    merge_key = uk
+                    merge_key = vkey
                 operands.append(self._iter.value())
                 self._iter.next()
                 continue
@@ -409,9 +490,10 @@ class DBIter:
     def _emit_merge(self, uk: bytes, base: bytes | None,
                     operands: list[bytes],
                     base_is_entity: bool = False) -> None:
-        # operands collected newest→oldest.
+        # operands collected newest→oldest (never on a timestamp DB).
         self._valid = True
         self._key = uk
+        self._key_full = uk
         ops = list(reversed(operands))
         if base_is_entity:
             # Merge folds against the entity's default column; the entry
@@ -430,11 +512,16 @@ class DBIter:
         before the internal iterator's position, scanning backward."""
         while self._iter.valid():
             uk = dbformat.extract_user_key(self._iter.key())
-            if self._out_of_lower(uk):
+            vkey = self._vkey(uk)
+            if self._out_of_lower(vkey) or self._out_of_prefix(vkey):
                 break
-            if self._out_of_upper(uk):
+            if self._out_of_upper(vkey):
                 self._iter.prev()
                 continue
+            if self._ts_sz:
+                if self._resolve_backward_ts(vkey):
+                    return
+                continue  # dead or invisible: keep scanning backward
             # Collect all entries of this user key; the backward walk
             # yields them lowest seq first (internal order is seq desc).
             entries: list[tuple[int, int, bytes]] = []
@@ -450,6 +537,42 @@ class DBIter:
             # Key dead/invisible: continue scanning previous keys.
         self._valid = False
         self._bank_prefetch()
+
+    def _resolve_backward_ts(self, vkey: bytes) -> bool:
+        """The backward step of a timestamp DB: walk every (ts, seq)
+        version of the stripped key, take the newest visible one, surface
+        it if it is live. The internal iterator ends strictly before the
+        key's versions."""
+        best = None  # (ts suffix, seq, type, value, stored key)
+        while self._iter.valid():
+            uk2, seq2, t2 = dbformat.split_internal_key(self._iter.key())
+            if self._vkey(uk2) != vkey:
+                break
+            if seq2 <= self._seq and not self._ts_invisible(uk2):
+                if t2 == ValueType.MERGE:
+                    raise MergeInProgress(
+                        "Merge is not supported with user-defined timestamps")
+                # Suffixes store ~ts: the NEWEST version has the SMALLEST
+                # suffix; among equal timestamps the largest seq wins.
+                cand = (uk2[-self._ts_sz:], seq2, t2, self._iter.value(), uk2)
+                if best is None or (cand[0], -cand[1]) < (best[0], -best[1]):
+                    best = cand
+            self._iter.prev()
+        if best is None:
+            return False
+        _tsb, seq_, t_, val, full = best
+        if self._tomb_covers(full, seq_) or t_ in (
+                ValueType.DELETION, ValueType.SINGLE_DELETION):
+            return False
+        if t_ == ValueType.BLOB_INDEX:
+            val = self._resolve_blob(val)
+            t_ = ValueType.VALUE
+        self._valid = True
+        self._key = vkey
+        self._key_full = full
+        self._value = val
+        self._entry_type = t_
+        return True
 
     def _resolve_backward(self, uk: bytes,
                           entries: list[tuple[int, int, bytes]]) -> bool:
@@ -474,6 +597,7 @@ class DBIter:
                 else:
                     self._valid = True
                     self._key = uk
+                    self._key_full = uk
                     self._value = val
                     self._entry_type = t
                 return True

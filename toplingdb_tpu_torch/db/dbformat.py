@@ -88,6 +88,30 @@ def encode_ts(ts: int) -> bytes:
     return (ts ^ MAX_TIMESTAMP).to_bytes(8, "big")
 
 
+def decode_ts(suffix: bytes) -> int:
+    return int.from_bytes(suffix[-8:], "big") ^ MAX_TIMESTAMP
+
+
+_TS_TERM = b"\x00\x00"
+
+
+def encode_ts_key(user_key: bytes, ts: int) -> bytes:
+    """(key, ts) → stored key: the key made prefix-free by an
+    order-preserving escape (0x00 → 0x00 0xFF, terminated by 0x00 0x00),
+    then the inverted-ts suffix; bytewise(stored_a, stored_b) orders
+    (key asc, ts desc)."""
+    return user_key.replace(b"\x00", b"\x00\xff") + _TS_TERM + encode_ts(ts)
+
+
+def strip_ts(stored: bytes) -> bytes:
+    """Stored key → the user key (escape removed). ValueError when the
+    key carries no timestamp suffix."""
+    esc = stored[:-8]
+    if not esc.endswith(_TS_TERM):
+        raise ValueError(f"not a timestamped key: {stored!r}")
+    return esc[:-2].replace(b"\x00\xff", b"\x00")
+
+
 class Comparator:
     """Bytewise user-key comparator; find_shortest_separator and
     find_short_successor shorten index-block keys."""

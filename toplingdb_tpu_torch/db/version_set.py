@@ -332,10 +332,12 @@ class VersionSet:
         self._manifest_writer.sync()
         filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
 
-    def recover(self) -> None:
+    def recover(self, readonly: bool = False) -> None:
         """Replay CURRENT → MANIFEST into the in-memory state (RocksDB's
         VersionSet::Recover): every CF's adds, drops and file edits, then
-        roll the MANIFEST into a fresh snapshot file for appending."""
+        roll the MANIFEST into a fresh snapshot file for appending. With
+        readonly=True the directory is not touched (no roll), and
+        log_and_apply is unavailable."""
         cur = self.env.read_file(filename.current_file_name(self.dbname))
         try:
             name = cur.decode().strip()
@@ -415,7 +417,8 @@ class VersionSet:
         self.max_column_family = max(
             [next_cf_hint] + list(self.column_families))
         self.mark_file_number_used(self.manifest_file_number)
-        self._reopen_manifest_for_append()
+        if not readonly:
+            self._reopen_manifest_for_append()
 
     def _reopen_manifest_for_append(self) -> None:
         # The Env has no append mode: rewrite the manifest as a fresh

@@ -124,10 +124,14 @@ def _sort_perm(cols: list[torch.Tensor]) -> torch.Tensor:
 
 
 def _gc_mask(key_words, key_len, inv_hi, inv_lo, vtype, snap_hi, snap_lo,
-             tomb_hi, tomb_lo, bottommost: bool):
+             tomb_hi, tomb_lo, bottommost: bool,
+             keep_tombstones: bool = False):
     """GC mask over SORTED columns (the reference's _gc_mask_impl).
     key_words [p, w] / key_len / inv_hi / inv_lo / vtype int32; snap_* and
-    tomb_* int32 u32 bit patterns (tomb_* None = no tombstones). Returns
+    tomb_* int32 u32 bit patterns (tomb_* None = no tombstones).
+    keep_tombstones: a bottommost job keeps its DELETION rows (a timestamp
+    DB's tombstone still shadows the key's older versions, which are other
+    groups). Returns
     (keep, zero_seq, host_resolve) bool tensors and the int64 group_id
     (user-key group of each row), all of padded length."""
     n = key_words.shape[0]
@@ -157,7 +161,8 @@ def _gc_mask(key_words, key_len, inv_hi, inv_lo, vtype, snap_hi, snap_lo,
     is_pad = vtype < 0
     keep = first_in_stripe & ~covered & ~is_pad
     if bottommost:
-        keep = keep & ~((stripe == 0) & (vtype == _DELETION))
+        if not keep_tombstones:
+            keep = keep & ~((stripe == 0) & (vtype == _DELETION))
         zero_seq = keep & (stripe == 0) & (vtype == _VALUE)
     else:
         zero_seq = torch.zeros_like(keep)
@@ -538,10 +543,11 @@ def device_sort(padded: dict, device="cuda"):
 
 
 def gc_mask(sorted_cols: dict, snapshots: list[int],
-            tomb_cover: np.ndarray | None, bottommost: bool):
+            tomb_cover: np.ndarray | None, bottommost: bool,
+            keep_tombstones: bool = False):
     """Host wrapper over sorted on-device columns from device_sort().
     tomb_cover: [n] uint64 max covering tombstone seq per sorted entry
-    (None = no tombstones). Returns (keep, zero_seq, host_resolve, group_id)
+    (None = no tombstones); keep_tombstones: see _gc_mask. Returns (keep, zero_seq, host_resolve, group_id)
     as numpy arrays trimmed to n."""
     if len(snapshots) > MAX_SNAPSHOTS:
         # Truncating would merge stripes and corrupt MVCC.
@@ -560,7 +566,7 @@ def gc_mask(sorted_cols: dict, snapshots: list[int],
         sorted_cols["key_words"], sorted_cols["key_len"],
         sorted_cols["inv_hi"], sorted_cols["inv_lo"], sorted_cols["vtype"],
         _to_device(snap_hi, device), _to_device(snap_lo, device),
-        tomb_hi, tomb_lo, bool(bottommost))
+        tomb_hi, tomb_lo, bool(bottommost), keep_tombstones)
     out = torch.stack([keep[:n], zero_seq[:n], host_resolve[:n]]).cpu()
     keep, zero_seq, host_resolve = out.numpy()
     return (keep, zero_seq, host_resolve,

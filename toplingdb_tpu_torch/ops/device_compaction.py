@@ -32,8 +32,9 @@ One compaction job, from input SSTs to output SSTs, by one of two routes:
   (`_resolve_complex_stream`), their results patched into the columns the
   writer reads;
 - the per-entry route, for compaction filters, active blob GC, property
-  collectors, two-level indexes and the single_fast, plain and cuckoo
-  formats, and for the jobs the columnar route hands over
+  collectors, two-level indexes, the single_fast, plain and cuckoo
+  formats and a timestamp DB's jobs (with the history trim over the
+  survivor stream), and for the jobs the columnar route hands over
   (`_FallbackToEntries`: inputs that are not block-based tables, keys over
   MAX_DEVICE_KEY_BYTES, a sparse key buffer, a value buffer past its int32
   budget, a fold the columns cannot hold, a writer that refuses the job —
@@ -69,6 +70,7 @@ import torch
 from toplingdb_tpu_torch import native
 from toplingdb_tpu_torch.compaction.compaction_iterator import (
     CompactionIterator,
+    trim_history,
 )
 from toplingdb_tpu_torch.compaction.compaction_job import (
     CompactionStats,
@@ -90,7 +92,16 @@ from toplingdb_tpu_torch.utils.compaction_filter import Decision
 from toplingdb_tpu_torch.utils.status import NotSupported
 
 # Longest user key the device routes accept (one sort operand per 4 bytes).
+# On a timestamp DB it counts the STORED key: the plain key with each 0x00
+# byte escaped to two bytes, the 2-byte terminator and the 8-byte timestamp
+# suffix, so a plain key without zero bytes may hold up to 118 bytes.
 MAX_DEVICE_KEY_BYTES = 128
+
+# The comparators whose stored-byte order the device sort realizes: plain
+# bytewise, and bytewise with a u64 timestamp, whose order (key asc, ts
+# desc) is baked into the stored bytes (dbformat.encode_ts_key).
+_DEVICE_COMPARATORS = (dbformat.BYTEWISE.name(),
+                       dbformat.U64_TS_BYTEWISE.name())
 
 # Below this row count a job runs as one shard.
 _SHARD_MIN_ROWS = 1 << 18
@@ -160,27 +171,54 @@ def device_gc_entries(entries, icmp, snapshots, bottommost,
                       merge_operator=None, compaction_filter=None,
                       compaction_filter_level=0, rd=None,
                       max_key_bytes=None, blob_resolver=None,
-                      device_name="cuda"):
+                      device_name="cuda", full_history_ts_low=0):
     """Run the device data plane over raw (unsorted) entries on
     `device_name`; yields the surviving (internal_key, value) stream,
-    identical to CompactionIterator.entries() over the merged sorted input.
-    The sort and the GC mask run on the device; complex groups and the
-    compaction filter are applied on the host. Raises NotSupported for user
-    keys over MAX_DEVICE_KEY_BYTES, a non-bytewise comparator and more than
-    MAX_SNAPSHOTS snapshots."""
+    identical to CompactionIterator(..., full_history_ts_low=).entries()
+    over the merged sorted input. The sort and the GC mask run on the
+    device; complex groups, the compaction filter and a timestamp DB's
+    history trim are applied on the host. Raises NotSupported for user keys
+    over MAX_DEVICE_KEY_BYTES, a comparator other than bytewise or bytewise
+    with a u64 timestamp, and more than MAX_SNAPSHOTS snapshots."""
+    stream = _device_gc_stream(
+        entries, icmp, snapshots, bottommost, merge_operator,
+        compaction_filter, compaction_filter_level, rd, max_key_bytes,
+        blob_resolver, device_name)
+    ts_sz = icmp.user_comparator.timestamp_size
+    if ts_sz and full_history_ts_low:
+        earliest = min(snapshots) if snapshots \
+            else dbformat.MAX_SEQUENCE_NUMBER
+        stream = trim_history(stream, full_history_ts_low, earliest,
+                              bottommost, ts_sz)
+    yield from stream
+
+
+def _check_device_comparator(icmp) -> None:
+    name = icmp.user_comparator.name()
+    if name not in _DEVICE_COMPARATORS:
+        # The device sort realizes bytewise order of the stored keys (the
+        # u64-timestamp comparator's order is bytewise there); the message
+        # is the reference's.
+        raise NotSupported(
+            f"device compaction requires the bytewise comparator, "
+            f"got {name!r}")
+
+
+def _device_gc_stream(entries, icmp, snapshots, bottommost, merge_operator,
+                      compaction_filter, compaction_filter_level, rd,
+                      max_key_bytes, blob_resolver, device_name):
     if not entries:
         return
+    ts_sz = icmp.user_comparator.timestamp_size
     if max_key_bytes is None:
         longest = max(len(k) for k, _ in entries) - 8
         if longest > MAX_DEVICE_KEY_BYTES:
+            what = ("stored keys (escaped key + terminator + timestamp)"
+                    if ts_sz else "user keys")
             raise NotSupported(
-                f"user keys up to {longest}B exceed the device key budget "
+                f"{what} up to {longest}B exceed the device key budget "
                 f"({MAX_DEVICE_KEY_BYTES}B)")
-    if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
-        # The device sort realizes bytewise-ascending user-key order.
-        raise NotSupported(
-            f"device compaction requires the bytewise comparator, "
-            f"got {icmp.user_comparator.name()!r}")
+    _check_device_comparator(icmp)
     device = resolve_device(device_name)
     col = ColumnarEntries.from_entries(entries, max_key_bytes)
     sorted_cols, perm = ck.device_sort(ck.pad_columns(col), device)
@@ -188,8 +226,12 @@ def device_gc_entries(entries, icmp, snapshots, bottommost,
     if rd is not None:
         sorted_uks = [col.user_key(i) for i in perm]
         cover = _tombstone_cover(sorted_uks, rd, col.seq[perm], snapshots)
+    # A timestamp DB's group is one version of a key: its bottommost
+    # tombstone still shadows the older versions, so it stays (as in
+    # CompactionIterator).
     keep, zero_seq, host_resolve, group_id = ck.gc_mask(
-        sorted_cols, snapshots, cover, bottommost)
+        sorted_cols, snapshots, cover, bottommost,
+        keep_tombstones=bool(ts_sz))
     del sorted_cols
 
     # Host-side finishing: complex groups through the reference state
@@ -261,9 +303,10 @@ def _run_per_entry(env, dbname, icmp, compaction, table_cache,
                    table_options, snapshots, merge_operator,
                    compaction_filter, new_file_number, creation_time,
                    device_name, blob_resolver, blob_gc, column_family):
-    """The per-entry route: read every entry, device_gc_entries, blob GC,
-    build_outputs. A failure deletes every output and the half-written blob
-    file before it propagates."""
+    """The per-entry route: read every entry, device_gc_entries (with a
+    timestamp DB's history trim at compaction.full_history_ts_low), blob
+    GC, build_outputs. A failure deletes every output and the half-written
+    blob file before it propagates."""
     t0 = time.time()
     stats = CompactionStats(device=str(device_name))
     stats.input_bytes = compaction.total_input_bytes()
@@ -277,6 +320,7 @@ def _run_per_entry(env, dbname, icmp, compaction, table_cache,
         compaction_filter_level=compaction.output_level,
         rd=None if rd.empty() else rd, blob_resolver=blob_resolver,
         device_name=device_name,
+        full_history_ts_low=getattr(compaction, "full_history_ts_low", 0),
     )
     tombs = surviving_tombstone_fragments(
         rd, snapshots, compaction.bottommost, icmp.user_comparator)
@@ -947,18 +991,23 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     cuckoo, plain, zip) and table option of the reference's device route
     is taken, inputs of every format are read, and outputs may be
     compressed with any codec of `table/format.py`, with or without a ZSTD
-    dictionary. Raises NotSupported for what the reference's device data
-    plane also refuses (user keys over MAX_DEVICE_KEY_BYTES, a non-bytewise
-    comparator, more than MAX_SNAPSHOTS snapshots) and what a format
-    refuses (cuckoo: several versions of a key, range deletions). With
+    dictionary. A job under the u64-timestamp comparator, whose
+    stored-byte order is bytewise, takes the per-entry route with its
+    history trim at `compaction.full_history_ts_low` (toplingdb_tpu's device
+    route refuses that comparator and its executor runs the job on the host
+    path, whose outputs these equal). Raises NotSupported for what the
+    reference's device data plane also refuses (user keys over
+    MAX_DEVICE_KEY_BYTES, any other comparator, more than MAX_SNAPSHOTS
+    snapshots) and what a format refuses (cuckoo: several versions of a
+    key, range deletions). With
     `protection_bytes_per_key` set a corrupted output raises Corruption. No
     output is left behind on any failure."""
     device = resolve_device(device_name)
-    if icmp.user_comparator.name() != dbformat.BYTEWISE.name():
-        raise NotSupported(
-            "device compaction requires the bytewise comparator, got "
-            f"{icmp.user_comparator.name()!r}")
+    _check_device_comparator(icmp)
+    # A timestamp DB's jobs take the per-entry route: the history trim is
+    # a pass over its survivor stream.
     if (native.lib() is not None and compaction_filter is None
+            and icmp.user_comparator.timestamp_size == 0
             and (blob_gc is None or not blob_gc.active)
             and not table_options.properties_collector_factories
             and table_options.format in ("block", "zip")

@@ -914,15 +914,17 @@ class ScanPlane:
 
 def make_scan_plane(mems, l0_files, level_runs, table_cache, icmp,
                     snap_seq, rd, lower, upper, blob_resolver,
-                    merge_operator, stats, chunk: int,
+                    merge_operator, prefix_mode, read_ts, stats, chunk: int,
                     readahead_size: int = 0, protection_bytes: int = 0,
                     aio_rings=None):
     """Build a ScanPlane for DB.new_iterator, or None when the iterator
     shape is ineligible at construction time (per-file eligibility is
     checked lazily and bails mid-stream instead). `chunk` is the DB's
     iter_chunk_rows (0 = no plane); `aio_rings` the DB's
-    AsyncReadBatcher when the async read plane is on."""
-    if chunk == 0 or merge_operator is not None:
+    AsyncReadBatcher when the async read plane is on. Prefix-mode
+    iteration and a read timestamp take the per-entry path."""
+    if chunk == 0 or merge_operator is not None or prefix_mode \
+            or read_ts is not None:
         return None
     if icmp.user_comparator.name() != "tpulsm.BytewiseComparator":
         return None

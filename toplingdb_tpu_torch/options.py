@@ -409,12 +409,10 @@ class FlushOptions:
 # Fields the port's DB does not run, each with the reason DB.open gives
 # when one is set away from its default. Everything else in Options runs.
 UNPORTED = {
-    "read_only": "read-only and secondary opens",
     "db_write_buffer_size": "a DB-wide write budget, which toplingdb_tpu "
                             "declares but does not run either (share a "
                             "WriteBufferManager through "
                             "write_buffer_manager)",
-    "full_history_ts_low": "user-defined timestamps",
     "slo_specs": "the SLO engine",
     "slo_eval_period_sec": "the SLO engine",
     "slo_window_sec": "the SLO engine",
@@ -430,8 +428,6 @@ def unported_fields(options: Options) -> list[tuple[str, str]]:
     base = Options()
     out = [(name, why) for name, why in UNPORTED.items()
            if getattr(options, name) != getattr(base, name)]
-    if getattr(options.comparator, "timestamp_size", 0):
-        out.append(("comparator", "user-defined timestamps"))
     if options.compaction_executor_factory is None:
         out.append(("compaction_executor_factory",
                     "None, toplingdb_tpu's host compaction path: name it "
