@@ -83,11 +83,12 @@ Phases (any failure ends the run with a non-zero exit code):
      phases, the worker's spans, file bytes and the compression ratio
      beside phase 4's uncompressed job. (b) the worker's CLI (python -m
      toplingdb_tpu_torch.compaction.worker --job-dir DIR) on a
-     500,000-entry job (CODEC_N, cut from 1,000,000 when phase 23 came):
+     250,000-entry job (CODEC_N, cut from 1,000,000 to 500,000 when
+     phase 23 came and to 250,000 when phase 24 came):
      exit code 0, the bytes of an in-process run_job
      of a copy of the job dir, the heartbeat file written. (c) every codec
      the host has (snappy, lz4, lz4hc, zstd, zstd with a 16 KiB
-     dictionary, zlib at 500,000 entries; bz2 and lzma at 200,000) on
+     dictionary, zlib at CODEC_N entries; bz2 and lzma at 200,000) on
      "cuda" and on "cpu": identical SST bytes; then bench.py's
      compaction_zstd_out shape (bench.py:1778-1785), uncompressed in and
      zstd out, the same.
@@ -258,8 +259,9 @@ Phases (any failure ends the run with a non-zero exit code):
      scan wall, and the card's busy share (the shard programs and the
      per-entry route's device sorts and GC masks by CUDA events).
  18. the integrity plane on the card: phase 13's deployment (INTEGRITY_N
-     = 300,000 keys, cut from 1,000,000 to keep the script inside its
-     limit, to 500,000 with phase 20 added and to 300,000 with phase 22,
+     = 200,000 keys, cut from 1,000,000 to keep the script inside its
+     limit, to 500,000 with phase 20 added, to 300,000 with phase 22 and
+     to 200,000 with phase 24,
      since the jobs' Python output verification costs ~10 us a row;
      from 4 threads in batches of 100,
      8 MiB write buffer, leveled, the "cuda" device factory, a Statistics, the default
@@ -296,7 +298,9 @@ Phases (any failure ends the run with a non-zero exit code):
      Statistics, the default planes) unless said otherwise, the gc_rows
      and merge counts set to 0 before each open:
      (a) the CSPP-role trie (bench.py's fillrandom_cspp_ops_s row):
-     memtable_rep="cspp", WRITE_N = 1,000,000 16-digit keys with 20-byte
+     memtable_rep="cspp", WRITE_N = 500,000 (cut from 1,000,000 when
+     phase 24 came, to keep the script inside its limit) 16-digit keys
+     with 20-byte
      values from 4 threads in batches of 100; every group a native commit
      into the trie, every flush one tpulsm_trie_export; flush,
      wait_for_compactions, compact_range, every job on "cuda" with gc_rows
@@ -447,9 +451,10 @@ Phases (any failure ends the run with a non-zero exit code):
      re-put overlay, close, the SEQNO_TIME.json samples moved back 7200 s,
      reopen, compact_range again: the bottommost job zeroes every seqno and
      drops the tombstones, rows equal the oracle; (d) RocksDB's
-     DB::PutEntity / GetEntity (include/rocksdb/db.h): ENTITY_N = 250,000
+     DB::PutEntity / GetEntity (include/rocksdb/db.h): ENTITY_N = 100,000
      entities of three 20-byte columns, the default one included (cut
-     from 1,000,000: every entity group takes the Python commit), a
+     from 1,000,000 to 250,000: every entity group takes the Python
+     commit; and to 100,000 when phase 24 came), a
      ENTITY_MERGE_N = 10,000-key string-append merge overlay (the complex
      fold), compact_range on the card, ENTITY_PROBES = 20,000 get_entity
      probes, the same keys through multi_get and a scan with columns()
@@ -460,10 +465,12 @@ Phases (any failure ends the run with a non-zero exit code):
      DB on phase 13's deployment and the "cuda" device factory: (a)
      RocksDB's user-defined timestamps as db_bench's
      --user_timestamp_size=8 runs them (tools/db_bench_tool.cc), with
-     Options(comparator=U64_TS_BYTEWISE): TS_N = 500,000 keys (cut from
-     1,000,000: every job of the DB takes the per-entry route, and at 1M
-     the part took over 230 s on the H100's host) at ts 1-5,000 (one a
-     batch of 100), 20%
+     Options(comparator=U64_TS_BYTEWISE): TS_N = 100,000 keys (cut from
+     1,000,000 to 500,000: every job of the DB takes the per-entry route,
+     and at 1M the part took over 230 s on the H100's host; then to
+     100,000 when phase 24 came: at 500K the part took 156.4 s on a slow
+     host, and the script passed its limit) at ts 1-1,000 (one a batch
+     of 100), 20%
      overwritten at ts TS_OVERWRITE_BASE = 20,001-30,000;
      increase_full_history_ts_low(20,000) and compact_range on the card:
      the live SSTs hold TS_N + the overwrites rows, each against the
@@ -476,7 +483,8 @@ Phases (any failure ends the run with a non-zero exit code):
      keeps the trim point and a read below it raises InvalidArgument;
      every job of the part per-entry, each launching gc_rows; (b)
      RocksDB's secondary instance and tailing iterator: a primary fills
-     REPLICA_N = 1,000,000 keys in 10 rounds with a fifth writer's
+     REPLICA_N = 500,000 keys (cut from 1,000,000 when phase 24 came)
+     in 10 rounds with a fifth writer's
      LOG_N = 100,000 sequential log/ keys; a SecondaryDB opened at the
      start catches up after every round and reads SECONDARY_READS = 2,000
      acked keys, with the primary's background work paused (a secondary
@@ -493,6 +501,54 @@ Phases (any failure ends the run with a non-zero exit code):
      the oracle, compact_range on the card; (d) every job of the phase on
      "cuda"; the launches and the card's busy share. Its gc_rows and
      merge launches are added to the kernels line's counts.
+ 24. the SidePlugin deployment on the card: phase 13's deployment (8 MiB
+     write buffer, leveled, L0 trigger 4, 16-digit keys with 20-byte
+     values from 4 writers in batches of 100) opened by
+     SidePluginRepo.open_db from a JSON config (ToplingDB's SidePlugin
+     and rockside's config) naming the "device" factory on "cuda", a
+     10-bit bloom filter, a default Statistics with a 60 s histogram
+     window, trace_sample_every 1000, a latency SLO on DB_GET_MICROS and
+     a stall SLO, and slo_eval_period_sec 1, served by start_http(0):
+     (a) a poller GETs /metrics, /slo, /health, /db and /levels every
+     0.5 s during the fill (every answer a 200 that parses); after
+     flush, wait_for_compactions and compact_range, /levels equals the
+     version's files, /stats carries COMPACT_WRITE_BYTES > 0, /metrics
+     the tpulsm_slo_* gauges and the _recent quantiles (its scrape
+     timed), /traces the sampled flush and compaction trees, POST /scrub
+     a pass with no corruption, and options_to_config of the open DB
+     equals the config; (b) the op trace (RocksDB's DB::StartTrace,
+     trace_replay/trace_replay.cc) from before the fill: a mix of
+     SP_GETS gets, SP_OVERWRITE_N = 20,000 overwrites in batches of 100,
+     SP_SEEKS = 1,000 seeks of 10 nexts and SP_MGETS = 1,000 multi_gets
+     of 32 keys, then end_trace and the same gets untraced; the
+     analyzer's counts per op equal the calls made; a Replayer (one
+     thread, fast_forward) into a second DB opened from the same config
+     on the card, whose full scan equals the first's row for row; the
+     fill under the trace keeps its native commits; (c) a third DB of
+     SP_STALL_N = 200,000 keys with level0_slowdown_writes_trigger 2,
+     level0_file_num_compaction_trigger 4 and slo_window_sec 2, filled
+     in rounds until /slo reads firing, must read resolved within 3
+     windows after the writers stop and the jobs drain, with an
+     on_slo_alert listener seeing both transitions and SLO_ALERTS_FIRED /
+     RESOLVED each at least 1; (d) SP_DEBUG_N = 100,000 keys of (a)'s
+     deployment with the async WAL and the 1 s scrubber, filled with
+     lock debug off and then on (utils.concurrency.set_debug): no
+     LockInversionError, a lock-order graph with edges and no cycle, no
+     lock held over 1 s, and registry.check_leaks(owner=db) empty after
+     every close; (e) every job of the phase on "cuda", gc_rows launched
+     by each job that no other overlapped, the launches and the card's
+     busy share. SP_N was cut from 1,000,000 to 500,000 and SP_GETS from
+     100,000 to 50,000 (the mix first, then N) when the
+     phase first took 102.8 s at full size on the card: the replay of
+     the fill's 10,200 batches alone took 41.4 s, since a batch read
+     back from a trace takes the Python commit (as in the reference),
+     and the whole script would have passed 1,050 s on a slow host.
+     Printed: the fill's ops/s with the trace on beside phase 13's
+     (off), readrandom ops/s with the trace on and off, the replay's
+     ops/s, a /metrics scrape's wall, the microseconds of one
+     SLOEngine.evaluate pass, the fill's ops/s with lock debug on and
+     off, and each figure beside the card's name and power limit. Its
+     gc_rows and merge launches are added to the kernels line's counts.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -529,7 +585,7 @@ TOMB_N = 1_000_000
 PLAIN_N = 1_000_000
 COMPLEX_N = 500_000     # phase 9, cut from 2,000,000 (docstring)
 ENTRIES_N = 500_000     # phase 10, cut from 1,000,000 (docstring)
-CODEC_N = 500_000       # phase 11 (b) and (c), cut from 1,000,000
+CODEC_N = 250_000       # phase 11 (b) and (c), cut from 1,000,000
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
 FORMAT_N = 600_000      # phase 12 (b) and (c), cut from 1,000,000
 ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
@@ -540,8 +596,8 @@ SMALL_DB_N = 200_000    # phase 14 (b) and (c)
 BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
 BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
 DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
-INTEGRITY_N = 300_000   # phase 18: phase 13's deployment, cut (docstring)
-WRITE_N = 1_000_000     # phase 19 (a)-(c): phase 13's deployment
+INTEGRITY_N = 200_000   # phase 18: phase 13's deployment, cut (docstring)
+WRITE_N = 500_000       # phase 19 (a)-(c): cut from 1,000,000 (docstring)
 WRITE_OVERLAY_N = 20_000  # phase 19 (a): keys rewritten into the trie
 WRITE_SYNC_N = 20_000   # phase 19 (d): bench.py's sync rows, n // 50
 WBM_N = 100_000         # phase 19 (e): keys a DB
@@ -563,19 +619,27 @@ FULL_N = 200_000        # phase 22 (b): cut from 1,000,000 (docstring)
 FULL_BUDGET_X = 0.8     # phase 22 (b): the fault env's budget over raw
 FULL_POST_N = 20_000    # phase 22 (b): keys written after the recovery
 OVERLAY_PRECLUDE_N = 50_000  # phase 22 (c): the re-put overlay
-ENTITY_N = 250_000      # phase 22 (d): cut from 1,000,000 (docstring)
+ENTITY_N = 100_000      # phase 22 (d): cut from 1,000,000 (docstring)
 ENTITY_MERGE_N = 10_000  # phase 22 (d): the merge overlay
 ENTITY_PROBES = 20_000  # phase 22 (d): get_entity probes
-TS_N = 500_000          # phase 23 (a): cut from 1,000,000 (docstring)
+TS_N = 100_000          # phase 23 (a): cut from 1,000,000 (docstring)
 TS_OVERWRITE_BASE = 20_001  # phase 23 (a): the overwrites' first ts
 TS_PROBES = 20_000      # phase 23 (a): get_with_ts probes and ts gets
-REPLICA_N = 1_000_000   # phase 23 (b): the primary's keys
+REPLICA_N = 500_000     # phase 23 (b): cut from 1,000,000 (docstring)
 LOG_N = 100_000         # phase 23 (b): the fifth writer's log/ keys
 SECONDARY_READS = 2_000  # phase 23 (b): reads after each catch-up
 TAIL_POLL_S = 0.02      # phase 23 (b): the tailer's wait at the end
 RO_PROBES = 20_000      # phase 23 (b): the read-only open's probes
 PREFIX_N = 100_000      # phase 23 (b): keys of the prefix DB
 PREFIX_SEEKS = 1_000    # phase 23 (b): prefix_same_as_start seeks
+SP_N = 500_000          # phase 24 (a)-(b): cut from 1,000,000 (docstring)
+SP_GETS = 50_000        # phase 24 (b): cut from 100,000 (docstring)
+SP_OVERWRITE_N = 20_000  # phase 24 (b): overwrites, in batches of 100
+SP_SEEKS = 1_000        # phase 24 (b): seeks, 10 nexts each
+SP_MGETS = 1_000        # phase 24 (b): multi_gets of 32 keys
+SP_STALL_N = 200_000    # phase 24 (c): the stalled DB's keys
+SP_DEBUG_N = 100_000    # phase 24 (d): the lock-debug DB's keys
+FIGURES = {}            # phase 13's fill ops/s, printed beside phase 24's
 MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
 
 
@@ -2740,6 +2804,7 @@ def db_path(torch, root, n, n_wal, device_name="cuda"):
             f"{n_threads * per / fill:.0f} ops/s, {db.num_flushes} flushes, "
             f"{n_auto} device jobs during the fill; write plane: {commits} "
             f"native commits of {groups} groups, {fallbacks} fallbacks")
+        FIGURES["13 fill ops/s"] = n_threads * per / fill
         t0 = time.time()
         db.flush()
         db.wait_for_compactions()
@@ -6170,6 +6235,516 @@ def replica_path(torch, root, card, device_name="cuda", ts_n=TS_N,
     return gc_n, mr_n
 
 
+def http_get(url: str) -> bytes:
+    """GET `url`; anything but a 200 raises."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        assert r.status == 200, (url, r.status)
+        return r.read()
+
+
+def http_json(url: str, body: bytes | None = None):
+    """GET (or POST `body` to) `url`; the answer parsed as JSON."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200, (url, r.status)
+        return json.loads(r.read())
+
+
+_PROM_SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$")
+
+
+def parse_prometheus(text: str) -> int:
+    """Checks every line of a Prometheus text exposition; returns the
+    number of samples."""
+    n = 0
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("# TYPE "):
+            continue
+        assert _PROM_SAMPLE.match(line), f"bad exposition line {line!r}"
+        n += 1
+    return n
+
+
+class RoutePoller:
+    """A thread that GETs each of `routes` under `base` every `period`
+    seconds until stopped: every answer must be a 200 that parses (JSON,
+    or Prometheus text for /metrics). `firing` records the first time the
+    named SLO of a /slo route read firing, `answers` counts the answers."""
+
+    def __init__(self, base, routes, period=0.5, slo=None):
+        self.base, self.routes, self.period, self.slo = (base, routes,
+                                                         period, slo)
+        self.answers = 0
+        self.errors = []
+        self.firing_at = None
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, name="smoke-poller")
+
+    def _run(self):
+        while not self._stop.is_set():
+            for route in self.routes:
+                try:
+                    body = http_get(f"{self.base}/{route}")
+                    if route == "metrics":
+                        assert parse_prometheus(body.decode()) > 0
+                    else:
+                        doc = json.loads(body)
+                        if (self.slo is not None and route.startswith("slo/")
+                                and self.firing_at is None
+                                and doc["specs"][self.slo]["firing"]):
+                            self.firing_at = time.time()
+                    self.answers += 1
+                except Exception as e:  # noqa: BLE001 - reported by stop()
+                    self.errors.append(f"{route}: {e!r}")
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        assert not self.errors, self.errors[:5]
+
+
+def sp_config(path, name, device_name, **extra):
+    """Phase 24's SidePlugin config: phase 13's deployment (8 MiB write
+    buffer, leveled, L0 trigger 4) with the device factory on
+    `device_name`, a 10-bit bloom filter, a default Statistics with a 60 s
+    histogram window, the span tracer sampling 1 op in 1000, a latency SLO
+    on DB_GET_MICROS and a stall SLO, evaluated every second; `extra`
+    overrides options."""
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    opts = {
+        "create_if_missing": True,
+        "write_buffer_size": 8 << 20,
+        "compaction_executor_factory": {
+            "class": "device", "params": {"device_name": device_name}},
+        "table_options": {"filter_policy": {
+            "class": "bloom", "params": {"bits_per_key": 10}}},
+        "statistics": "default",
+        "histogram_window_sec": 60,
+        "trace_sample_every": 1000,
+        "slo_specs": [
+            {"name": "get-p99", "kind": "latency",
+             "histogram": st.DB_GET_MICROS, "objective": 0.99,
+             "threshold_usec": 1000},
+            {"name": "write-stall", "kind": "stall", "objective": 0.99}],
+        "slo_eval_period_sec": 1,
+    }
+    opts.update(extra)
+    return {"path": path, "name": name, "options": opts}
+
+
+def scan_rows(db):
+    """Every (key, value) of a full forward scan."""
+    it = db.new_iterator()
+    it.seek_to_first()
+    return it.entries()
+
+
+def sideplugin_part(torch, root, base, repo, card, device_name, n, mix,
+                    joblogs):
+    """Phase 24 (a) and (b): the SidePlugin deployment opened from its
+    config, served over HTTP while it fills under the op trace, then the
+    views, the trace's mix, the analyzer and the replay. Returns the
+    figures printed by the phase."""
+    import random
+
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.env import default_env
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.tools import trace_analyzer
+    from toplingdb_tpu_torch.utils import concurrency as ccy
+    from toplingdb_tpu_torch.utils import config as cfgmod
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.trace import Replayer
+
+    n_gets, n_over, n_seeks, n_mgets = mix
+    value, value2 = b"v" * 20, b"w" * 20
+    cfg = sp_config(os.path.join(root, "a"), "sp", device_name)
+    db = repo.open_db(cfg)
+    stats = db.stats
+    fig = {}
+    jl = JobLog(torch, db.options.compaction_executor_factory, kernels)
+    joblogs.append(("a+b", jl))
+    with jl:
+        trace_path = os.path.join(root, "ops.trace")
+        db.start_trace(trace_path)
+        routes = ["metrics", "slo/sp", "health/sp", "db/sp", "levels/sp"]
+        with RoutePoller(base, routes) as poller:
+            fill = threaded_fill(db, n, lambda i: (db_key(i, n), value))
+        groups = stats.get_ticker_count(st.WRITE_GROUP_LED)
+        commits = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)
+        assert commits == groups > 0, (commits, groups)
+        assert stats.get_ticker_count(st.WRITE_GROUP_FALLBACKS) == 0
+        fig["fill_traced_ops_s"] = n / fill
+        log(f"[sideplugin a] opened by SidePluginRepo.open_db from its "
+            f"config; fillrandom {n} keys from 4 threads under the op "
+            f"trace: {fill:.3f}s, {n / fill:.0f} ops/s, {commits} native "
+            f"commits of {groups} groups; {poller.answers} answers of "
+            f"/metrics /slo /health /db /levels polled every 0.5 s, all 200 "
+            f"and parsed")
+        db.flush()
+        db.wait_for_compactions()
+        t0 = time.time()
+        db.compact_range()
+        crw = time.time() - t0
+        # /levels matches the version's files.
+        v = db.versions.current
+        want = {f"L{lvl}": [[f.number, f.file_size, f.num_entries]
+                            for f in v.files[lvl]]
+                for lvl in range(v.num_levels) if v.files[lvl]}
+        got = {lv: [[f["file"], f["size"], f["entries"]] for f in files]
+               for lv, files in http_json(f"{base}/levels/sp").items()}
+        assert got == want, (got, want)
+        # /stats carries the compactions' written bytes.
+        lines = http_json(f"{base}/stats/sp")["statistics"]
+        cwb = [int(ln.split(":")[-1]) for ln in lines
+               if ln.startswith(st.COMPACT_WRITE_BYTES + " COUNT")]
+        assert cwb and cwb[0] > 0, lines[:5]
+        # /metrics: the SLO gauges and the windowed quantiles.
+        t0 = time.time()
+        text = http_get(f"{base}/metrics").decode()
+        fig["metrics_scrape_ms"] = (time.time() - t0) * 1e3
+        n_samples = parse_prometheus(text)
+        for want_s in ('tpulsm_slo_health{db="sp"}',
+                       'tpulsm_slo_burn_rate_fast{db="sp",slo="get-p99"}',
+                       'tpulsm_slo_firing{db="sp",slo="write-stall"}',
+                       "tpulsm_db_get_micros_recent",
+                       'tpulsm_level_files{db="sp",level="'):
+            assert want_s in text, want_s
+        # /traces: the sampled trees of the flushes and the compactions.
+        names = {t["name"] for t in http_json(f"{base}/traces/sp")["traces"]}
+        assert {"flush", "compaction"} <= names, names
+        # POST /scrub: one synchronous pass, no mismatch.
+        rep = http_json(f"{base}/scrub/sp", b"{}")["report"]
+        assert rep["files_scanned"] > 0 and rep["corruptions"] == [], rep
+        assert stats.get_ticker_count(
+            st.INTEGRITY_PROTECTION_MISMATCHES) == 0
+        # The open DB's options serialize back to the config it came from.
+        to = cfgmod.options_to_config(db.options)
+        assert to == cfgmod.options_to_config(
+            cfgmod.options_from_config(cfg["options"]))
+        for k, want_v in cfg["options"].items():
+            if k in to:
+                assert to[k] == want_v, (k, to[k], want_v)
+            elif k == "compaction_executor_factory":
+                assert db.options.compaction_executor_factory.device == \
+                    device_name
+            elif k == "table_options":
+                assert db.options.table_options.filter_policy \
+                    .bits_per_key == 10
+            else:  # a default value: options_to_config leaves it out
+                assert getattr(db.options, k) == want_v, k
+        log(f"[sideplugin a] flush + wait, compact_range {crw:.3f}s on "
+            f"{device_name}; /levels = the version's {sum(map(len, want.values()))} "
+            f"files; /stats {st.COMPACT_WRITE_BYTES} = {cwb[0]}; /metrics "
+            f"{n_samples} samples (tpulsm_slo_* gauges, _recent quantiles) "
+            f"in {fig['metrics_scrape_ms']:.1f} ms; /traces holds "
+            f"{sorted(names)}; POST /scrub: {rep['files_scanned']} files, "
+            f"{rep['bytes_verified']} bytes, 0 corruptions; "
+            f"options_to_config = the config [{card}]")
+        # (b) The mix, under the trace; the same gets again without it.
+        rng = random.Random(5)
+        probes = [db_key(rng.randrange(n), n) for _ in range(n_gets)]
+        t0 = time.time()
+        for k in probes:
+            assert db.get(k) is not None, k
+        rr_on = time.time() - t0
+        step = max(1, n // n_over)
+        over = [db_key(i, n) for i in range(0, n, step)][:n_over]
+        for i in range(0, len(over), 100):
+            b = WriteBatch()
+            for k in over[i:i + 100]:
+                b.put(k, value2)
+            db.write(b)
+        for _ in range(n_seeks):
+            it = db.new_iterator()
+            it.seek(db_key(rng.randrange(n), n))
+            for _ in range(10):
+                it.next()
+        for _ in range(n_mgets):
+            ks = [db_key(rng.randrange(n), n) for _ in range(32)]
+            assert all(x is not None for x in db.multi_get(ks))
+        db.end_trace()
+        t0 = time.time()
+        for k in probes:
+            assert db.get(k) is not None, k
+        rr_off = time.time() - t0
+        fig["readrandom_traced_ops_s"] = n_gets / rr_on
+        fig["readrandom_untraced_ops_s"] = n_gets / rr_off
+        eng = db.slo_engine
+        t0 = time.perf_counter()
+        for _ in range(200):
+            eng.evaluate()
+        fig["slo_evaluate_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        rep = trace_analyzer.analyze(default_env(), trace_path)
+        want_ops = {"write_batch": n // 100 + len(over) // 100,
+                    "get": n_gets, "iter_seek": n_seeks,
+                    "multiget": n_mgets}
+        assert rep["per_op"] == want_ops, (rep["per_op"], want_ops)
+        log(f"[sideplugin b] the op trace: {rep['total_ops']} records "
+            f"({os.path.getsize(trace_path)} bytes), the analyzer's counts "
+            f"per op = the calls made {json.dumps(want_ops)}; readrandom "
+            f"{n_gets} gets traced {fig['readrandom_traced_ops_s']:.0f} "
+            f"ops/s, untraced {fig['readrandom_untraced_ops_s']:.0f} ops/s; "
+            f"SLOEngine.evaluate {fig['slo_evaluate_us']:.1f} us a pass "
+            f"[{card}]")
+    # The replay into a second DB opened from the same config.
+    cfg_r = sp_config(os.path.join(root, "r"), "sp-replay", device_name)
+    db_r = repo.open_db(cfg_r)
+    jl_r = JobLog(torch, db_r.options.compaction_executor_factory, kernels)
+    joblogs.append(("replay", jl_r))
+    with jl_r:
+        t0 = time.time()
+        n_ops = Replayer(db_r, trace_path).replay(fast_forward=True,
+                                                  threads=1)
+        replay = time.time() - t0
+        assert n_ops == rep["total_ops"], (n_ops, rep["total_ops"])
+        db_r.flush()
+        db_r.wait_for_compactions()
+        t0 = time.time()
+        n_rows = 0
+        ends = object()
+        import itertools
+
+        for a, b in itertools.zip_longest(scan_rows(db), scan_rows(db_r),
+                                          fillvalue=ends):
+            assert a == b, (a, b)
+            n_rows += 1
+        assert n_rows == n, (n_rows, n)
+        scan = time.time() - t0
+    fig["replay_ops_s"] = n_ops / replay
+    log(f"[sideplugin b] Replayer(threads=1, fast_forward) into a DB opened "
+        f"from the same config: {n_ops} ops in {replay:.3f}s, "
+        f"{fig['replay_ops_s']:.0f} ops/s; its full scan equals the "
+        f"original's, {n_rows} rows, {scan:.3f}s for both [{card}]")
+    for d in (db, db_r):
+        d.close()
+        assert ccy.registry.check_leaks(owner=d) == []
+    return fig
+
+
+def stall_part(torch, root, base, repo, card, device_name, n, joblogs):
+    """Phase 24 (c): the SLO under a real stall. Returns the seconds from
+    the drain to the resolved read."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.utils import concurrency as ccy
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.config import options_from_config
+    from toplingdb_tpu_torch.utils.listener import EventListener
+
+    window = 2.0
+    cfg = sp_config(os.path.join(root, "c"), "sp-stall", device_name,
+                    level0_slowdown_writes_trigger=2,
+                    level0_file_num_compaction_trigger=4,
+                    slo_window_sec=window)
+    seen = []
+
+    class Alerts(EventListener):
+        def on_slo_alert(self, db, info):
+            seen.append((info.slo_name, info.state))
+
+    opts = options_from_config(cfg["options"])
+    opts.listeners = [Alerts()]
+    db = DB.open(cfg["path"], opts)
+    repo.attach_db("sp-stall", db, cfg)
+    stats = db.stats
+    jl = JobLog(torch, opts.compaction_executor_factory, kernels)
+    joblogs.append(("stall", jl))
+    rounds = 0
+    with jl:
+        with RoutePoller(base, ["slo/sp-stall"], period=0.25,
+                         slo="write-stall") as poller:
+            t_fill = time.time()
+            # Rounds over the same keys until /slo reads firing: the
+            # 8 MiB memtables reach the slowdown trigger (2 L0 files)
+            # after ~2 flushes, and every write then rides the delay ramp.
+            while poller.firing_at is None and rounds < 8:
+                threaded_fill(db, n, lambda i: (db_key(i, n),
+                                                b"%020d" % rounds))
+                rounds += 1
+            t_stop = time.time()
+        assert poller.firing_at is not None, "the stall SLO never fired"
+        assert poller.firing_at < t_stop
+        db.wait_for_compactions()
+        t_drain = time.time()
+        resolved_at = None
+        while time.time() - t_drain < 3 * window + 2.0:
+            doc = http_json(f"{base}/slo/sp-stall")
+            if not doc["specs"]["write-stall"]["firing"]:
+                resolved_at = time.time()
+                break
+            time.sleep(0.1)
+        assert resolved_at is not None, "not resolved within 3 windows"
+        assert resolved_at - t_drain <= 3 * window, resolved_at - t_drain
+        stall = [s for name, s in seen if name == "write-stall"]
+        assert stall[:2] == ["firing", "resolved"] and \
+            stall[-1] == "resolved", seen
+        fired = stats.get_ticker_count(st.SLO_ALERTS_FIRED)
+        resolved = stats.get_ticker_count(st.SLO_ALERTS_RESOLVED)
+        assert fired >= 1 and resolved >= 1, (fired, resolved)
+        stall_s = stats.get_ticker_count(st.STALL_MICROS) / 1e6
+    log(f"[sideplugin c] {rounds} rounds of {n} keys with "
+        f"level0_slowdown_writes_trigger 2: /slo read firing "
+        f"{poller.firing_at - t_fill:.2f}s into the fill "
+        f"({stall_s:.2f}s stalled in all); resolved "
+        f"{resolved_at - t_drain:.2f}s after the writers stopped and the "
+        f"jobs drained (window {window}s); on_slo_alert saw {seen}; "
+        f"SLO_ALERTS_FIRED={fired} RESOLVED={resolved} [{card}]")
+    repo._dbs.pop("sp-stall")
+    db.close()
+    assert ccy.registry.check_leaks(owner=db) == []
+    return resolved_at - t_drain
+
+
+def lock_cycle(edges):
+    """True when the lock-order graph has a cycle."""
+    adj = {}
+    for a, b in edges:
+        adj.setdefault(a, set()).add(b)
+    state = {}
+
+    def visit(x):
+        state[x] = 1
+        for y in adj.get(x, ()):
+            if state.get(y) == 1 or (y not in state and visit(y)):
+                return True
+        state[x] = 2
+        return False
+
+    return any(x not in state and visit(x) for x in list(adj))
+
+
+def debug_part(torch, root, repo, card, device_name, n, joblogs):
+    """Phase 24 (d): (a)'s deployment at n keys with the async WAL and
+    the scrubber, filled with lock debug off, then on. Returns (ops/s
+    off, ops/s on)."""
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.utils import concurrency as ccy
+
+    rates = {}
+    for on in (False, True):
+        tag = "on" if on else "off"
+        cfg = sp_config(os.path.join(root, f"d-{tag}"), f"sp-debug-{tag}",
+                        device_name, enable_async_wal=True,
+                        integrity_scrub_period_sec=1)
+        if on:
+            ccy.reset_lock_graph()
+            ccy.set_debug(True)
+        try:
+            db = repo.open_db(cfg)
+            assert (type(db._mutex).__name__ == "_DebugRLock") == on
+            jl = JobLog(torch, db.options.compaction_executor_factory,
+                        kernels)
+            joblogs.append((f"debug-{tag}", jl))
+            with jl:
+                fill = threaded_fill(db, n, lambda i: (db_key(i, n),
+                                                       b"d" * 20))
+                db.flush()
+                db.wait_for_compactions()
+                db.compact_range()
+                rates[on] = n / fill
+                if on:
+                    edges = ccy.lock_order_edges()
+                    assert edges, "the debug layer recorded no edge"
+                    assert not lock_cycle(edges), sorted(edges)
+                    held = ccy.scan_long_holds(threshold_ms=1000)
+                    assert held == [], held
+            repo._dbs.pop(f"sp-debug-{tag}")
+            db.close()
+        finally:
+            if on:
+                ccy.set_debug(False)
+        assert ccy.registry.check_leaks(owner=db) == []
+    log(f"[sideplugin d] lock debug on (set_debug(True)) against off, "
+        f"{n} keys with the async WAL, the 1 s scrubber and compact_range "
+        f"on {device_name}: fill {rates[True]:.0f} against {rates[False]:.0f} "
+        f"ops/s; no LockInversionError, {len(edges)} lock-order edges, no "
+        f"cycle, no hold over 1 s; check_leaks empty after each close "
+        f"[{card}]")
+    return rates[False], rates[True]
+
+
+def sideplugin_path(torch, root, card, device_name="cuda", n=SP_N,
+                    mix=(SP_GETS, SP_OVERWRITE_N, SP_SEEKS, SP_MGETS),
+                    n_stall=SP_STALL_N, n_debug=SP_DEBUG_N):
+    """Phase 24 (see the module docstring): (a) the SidePlugin
+    deployment served over HTTP, (b) the op trace, its analyzer and the
+    replay, (c) the SLO under a real stall, (d) the lock-debug mode,
+    (e) the jobs and launches. Returns the (gc_rows, merge_runs)
+    launches."""
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.utils import concurrency as ccy
+    from toplingdb_tpu_torch.utils.config import SidePluginRepo
+
+    os.makedirs(root, exist_ok=True)
+    launched = counted(kernels)
+    repo = SidePluginRepo()
+    port = repo.start_http(0)
+    base = f"http://127.0.0.1:{port}"
+    joblogs = []
+    walls = {}
+    with ShardPrograms(torch) as programs:
+        t_open = time.time()
+        t0 = time.time()
+        fig = sideplugin_part(torch, root, base, repo, card, device_name, n,
+                              mix, joblogs)
+        walls["a+b"] = time.time() - t0
+        t0 = time.time()
+        resolve_s = stall_part(torch, root, base, repo, card, device_name,
+                               n_stall, joblogs)
+        walls["c"] = time.time() - t0
+        t0 = time.time()
+        off, on = debug_part(torch, root, repo, card, device_name, n_debug,
+                             joblogs)
+        walls["d"] = time.time() - t0
+        t_last = time.time()
+        gc_n, mr_n = launched()
+    repo.close_all()
+    assert ccy.registry.check_leaks(owner=repo) == []
+    n_jobs = 0
+    entry_ms = 0.0
+    for tag, jl in joblogs:
+        jl.check(device_name, f"sideplugin {tag}")
+        n_jobs += len(jl.jobs)
+        entry_ms += jl.entry_ms() if device_name != "cpu" else 0.0
+    assert n_jobs, "no compaction ran on the device executor"
+    if device_name != "cpu":
+        assert gc_n >= 1, gc_n
+    ms, busy = programs.busy(t_last - t_open)
+    if ms is not None:
+        ms += entry_ms
+        busy = (f"{ms:.3f} ms of shard programs and per-entry device sorts "
+                f"and GC masks by CUDA events, {ms / 1e3 / (t_last - t_open):.4f}"
+                f" of the wall (device busy share, derived)")
+    phase13 = FIGURES.get("13 fill ops/s")
+    log(f"[sideplugin e] {n_jobs} device jobs on {device_name}, launches "
+        f"gc_rows={gc_n} merge_runs={mr_n}; open to the last job: {busy}; "
+        f"part walls (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} [{card}]")
+    log(f"[sideplugin] fill ops/s trace off (phase 13) "
+        f"{'not measured' if phase13 is None else f'{phase13:.0f}'}, "
+        f"trace on {fig['fill_traced_ops_s']:.0f}; readrandom ops/s trace on "
+        f"{fig['readrandom_traced_ops_s']:.0f}, off "
+        f"{fig['readrandom_untraced_ops_s']:.0f}; replay "
+        f"{fig['replay_ops_s']:.0f} ops/s; /metrics scrape "
+        f"{fig['metrics_scrape_ms']:.1f} ms; SLOEngine.evaluate "
+        f"{fig['slo_evaluate_us']:.1f} us a pass; stall SLO resolved "
+        f"{resolve_s:.2f}s after the drain; fill with lock debug on "
+        f"{on:.0f} against off {off:.0f} ops/s [{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6273,6 +6848,10 @@ def main() -> int:
         p_gc, p_mr = phase("23 replicas", replica_path, torch,
                            os.path.join(dbdir, "db23"), smi)
         log(f"[replicas] phase 23 wall {walls['23 replicas']:.1f}s [{smi}]")
+        sp_gc, sp_mr = phase("24 sideplugin", sideplugin_path, torch,
+                             os.path.join(dbdir, "db24"), smi)
+        log(f"[sideplugin] phase 24 wall {walls['24 sideplugin']:.1f}s "
+            f"[{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -6287,8 +6866,9 @@ def main() -> int:
     # 21's compact_files, marked-file and other jobs, and phase 22's jobs
     # after a space block, precluded, aged and over entities.
     # And phase 23's timestamp, primary, prefix and repaired DBs.
-    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc
-    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr + p_mr
+    # And phase 24's SidePlugin, replay, stalled and lock-debug DBs.
+    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc
+    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr + p_mr + sp_mr
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

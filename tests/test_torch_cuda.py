@@ -54,6 +54,10 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - a small CSPP-trie DB filled by four unordered writer threads with
   concurrent inserts, its jobs on "cuda": every key reads back, and its
   gets and scan equal the same DB's on "cpu";
+- a DB opened by SidePluginRepo.open_db with its jobs on "cuda" records
+  an op trace whose replay into a DB opened from the same config leaves
+  the same scan, and the induced-stall SLO fires on such a DB and
+  resolves;
 - a small DB with an LRUCache block cache runs compact_range on "cuda":
   its multi_get, get and async twin (async_reads=True: multi_get,
   get_async, multi_get_async) agree with each other and with the same
@@ -1624,3 +1628,122 @@ def test_timestamp_db_on_the_card_writes_the_cpu_bytes(dev, tmp_path,
     want = _ts_db(str(tmp_path / "cpu"), "cpu", 20_000)
     assert got[1:] == want[1:]
     assert got[0] == want[0]
+
+
+def _sp_config(path, device, **extra):
+    opts = {"create_if_missing": True, "write_buffer_size": 256 << 10,
+            "level0_file_num_compaction_trigger": 4,
+            "compaction_executor_factory": {
+                "class": "device", "params": {"device_name": device}},
+            "table_options": {"filter_policy": {
+                "class": "bloom", "params": {"bits_per_key": 10}}},
+            "statistics": "default", "trace_sample_every": 100,
+            "slo_specs": [{"name": "write-stall", "kind": "stall",
+                           "objective": 0.99}]}
+    opts.update(extra)
+    return {"path": path, "options": opts}
+
+
+def test_sideplugin_db_on_the_card_traces_and_replays(dev, tmp_path):
+    """A DB opened by SidePluginRepo.open_db on "cuda" records an op trace
+    of its fill and reads (jobs on the card, gc_rows launched, every fill
+    group a native commit); the trace replayed into a second DB opened
+    from the same config leaves the same full scan."""
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.env import default_env
+    from toplingdb_tpu_torch.tools.trace_analyzer import analyze
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.config import SidePluginRepo
+    from toplingdb_tpu_torch.utils.trace import Replayer
+
+    repo = SidePluginRepo()
+    trace = str(tmp_path / "ops.trace")
+    n = 60_000
+    key = lambda i: b"%016d" % (i * 2654435761 % (2 * n))  # noqa: E731
+    kernels.gc_rows.launches = 0
+    try:
+        db = repo.open_db(_sp_config(str(tmp_path / "a"), "cuda"), name="a")
+        assert db.options.compaction_executor_factory.device == "cuda"
+        db.start_trace(trace)
+        for i in range(0, n, 100):
+            b = WriteBatch()
+            for j in range(i, i + 100):
+                b.put(key(j), b"v%d" % j)
+            db.write(b)
+        for i in range(0, n, 7):
+            assert db.get(key(i)) == b"v%d" % i
+        db.multi_get([key(i) for i in range(32)])
+        it = db.new_iterator()
+        it.seek(key(5))
+        db.end_trace()
+        db.flush()
+        db.wait_for_compactions()
+        t = db.stats.tickers()
+        assert t[st.WRITE_GROUP_NATIVE_COMMITS] == t[st.WRITE_GROUP_LED]
+        jobs = db.options.compaction_executor_factory.jobs
+        assert jobs and kernels.gc_rows.launches >= 1
+        assert db._compaction_scheduler.num_local_jobs == 0
+        per = analyze(default_env(), trace)["per_op"]
+        assert per == {"write_batch": n // 100, "get": len(range(0, n, 7)),
+                       "multiget": 1, "iter_seek": 1}
+        db_r = repo.open_db(_sp_config(str(tmp_path / "r"), "cuda"),
+                            name="r")
+        assert Replayer(db_r, trace).replay() == sum(per.values())
+        db_r.flush()
+        db_r.wait_for_compactions()
+
+        def scan(d):
+            it = d.new_iterator()
+            it.seek_to_first()
+            return list(it.entries())
+
+        rows = scan(db)
+        assert len(rows) == n and scan(db_r) == rows
+    finally:
+        repo.close_all()
+
+
+def test_induced_stall_slo_fires_on_the_card(dev, tmp_path):
+    """The stall SLO of a DB opened from its config on "cuda" (slowdown
+    trigger 2): writes ride the delay ramp while the card's jobs drain L0,
+    the engine fires, and it resolves once the writers stop. A fake clock
+    drives the engine, so the verdict does not depend on the host's
+    load."""
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.config import SidePluginRepo
+
+    repo = SidePluginRepo()
+    try:
+        db = repo.open_db(_sp_config(
+            str(tmp_path / "s"), "cuda", level0_slowdown_writes_trigger=2,
+            slo_window_sec=2.0), name="s")
+        eng = db.slo_engine
+        clock = [1000.0]
+        eng._clock = lambda: clock[0]
+        eng.evaluate()
+        fired = False
+        jobs = db.options.compaction_executor_factory.jobs
+        for r in range(60):
+            stalled0 = db.stats.get_ticker_count(st.STALL_MICROS)
+            for i in range(2000):
+                db.put(b"%016d" % (r * 2000 + i), b"x" * 100)
+            clock[0] += 1.0
+            eng.evaluate()
+            if eng.status()["specs"]["write-stall"]["firing"]:
+                fired = fired or (
+                    db.stats.get_ticker_count(st.STALL_MICROS) > stalled0)
+            if fired and jobs:
+                break
+        assert fired, "the stall SLO never fired"
+        db.wait_for_compactions()
+        for _ in range(4):
+            clock[0] += 1.0
+            eng.evaluate()
+        assert not eng.status()["specs"]["write-stall"]["firing"]
+        fired_n = db.stats.get_ticker_count(st.SLO_ALERTS_FIRED)
+        assert fired_n >= 1
+        assert db.stats.get_ticker_count(st.SLO_ALERTS_RESOLVED) == fired_n
+        assert db.options.compaction_executor_factory.jobs
+        assert db._compaction_scheduler.num_local_jobs == 0
+    finally:
+        repo.close_all()

@@ -83,6 +83,7 @@ from toplingdb_tpu_torch.utils.rate_limiter import (
     WriteBufferManager,
 )
 from toplingdb_tpu_torch.utils.status import InvalidArgument, NotSupported
+from toplingdb_tpu_torch.utils.statistics import Statistics
 
 VT = dbformat.ValueType
 
@@ -757,6 +758,15 @@ NOW_OPEN = {
     # as toplingdb_tpu's does (tests/test_torch_timestamps.py).
     "read_only": dict(read_only=True),
     "full_history_ts_low": dict(full_history_ts_low=5),
+    # The SLO engine (tests/test_torch_slo.py); a spec needs statistics.
+    "slo_specs": dict(statistics=Statistics(),
+                      slo_specs=({"name": "get", "kind": "latency"},)),
+    "slo_eval_period_sec": dict(statistics=Statistics(),
+                                slo_specs=({"name": "w", "kind": "stall"},),
+                                slo_eval_period_sec=0.05),
+    "slo_window_sec": dict(statistics=Statistics(),
+                           slo_specs=({"name": "get", "kind": "latency"},),
+                           slo_window_sec=5.0),
 }
 
 
@@ -786,6 +796,7 @@ def test_ported_option_opens(tmp_path, name):
         assert (db._sfm is not None) == name.startswith(STORAGE_FIELDS)
         assert (db.table_cache._block_cache is not None) == (
             name == "block_cache")
+        assert (db.slo_engine is not None) == name.startswith("slo_")
         db.flush()
         assert db.get(b"k") == b"v" * 300
         db.compact_range()

@@ -14,8 +14,8 @@ disk-full soak.
   reference's with its device factory on "cpu-jax"), with what the
   reference's test asserts; each case's observations (latch reasons,
   severities, tickers, recovery notifications, counts) are equal across
-  the packages. :360 runs without the reference's lock-graph debug, which
-  needs toplingdb_tpu's utils/concurrency (not in the port); :475 runs
+  the packages. :360 runs under each package's lock-graph debug mode
+  (utils/concurrency.set_debug), as the reference's does; :475 runs
   its plain-DB leg (the follower leg needs replication, not in the port),
   and reports the port's WRITE_GROUP_NATIVE_COMMITS / _FALLBACKS under the
   fault env;
@@ -51,6 +51,7 @@ from toplingdb_tpu.options import Options as RefOptions
 from toplingdb_tpu.options import WriteOptions as RefWriteOptions
 from toplingdb_tpu.utils import listener as ref_listener
 from toplingdb_tpu.utils import statistics as ref_st
+from toplingdb_tpu.utils import concurrency as ref_ccy
 from toplingdb_tpu.utils import status as ref_status
 from toplingdb_tpu.utils.rate_limiter import SstFileManager as RefSfm
 
@@ -63,6 +64,7 @@ from toplingdb_tpu_torch.env.fault_injection import FaultInjectionEnv
 from toplingdb_tpu_torch.options import Options, WriteOptions
 from toplingdb_tpu_torch.utils import listener
 from toplingdb_tpu_torch.utils import statistics as st
+from toplingdb_tpu_torch.utils import concurrency as ccy
 from toplingdb_tpu_torch.utils import status
 from toplingdb_tpu_torch.utils.rate_limiter import SstFileManager
 
@@ -86,6 +88,7 @@ class Pkg:
         self.WriteOptions = RefWriteOptions if ref else WriteOptions
         # The auto-recover thread's name.
         self.recover_thread = "db-auto-recover" if ref else "tpt-auto-recover"
+        self.ccy = ref_ccy if ref else ccy
 
     def options(self, **kw):
         if self.ref:
@@ -404,11 +407,27 @@ def sc_manual_resume_notifies_and_ticks(p, d, obs):                 # :329
 def sc_soft_to_hard_escalation_single_successor(p, d, obs):         # :360
     """A SOFT no_space latch chased by one recovery thread escalates to a
     HARD retryable error: exactly one successor resumes; the first loop
-    bows out at its identity check (BG_ERROR_RESUMES == 1)."""
+    bows out at its identity check (BG_ERROR_RESUMES == 1). Under the
+    lock-graph debug mode of each package (the reference's debug_locks
+    fixture): every DB lock instrumented, no inversion raised, edges
+    recorded."""
+    p.ccy.reset_lock_graph()
+    p.ccy.set_debug(True)
+    try:
+        _escalation(p, d, obs)
+    finally:
+        p.ccy.set_debug(False)
+    obs.append(bool(p.ccy.lock_order_edges()))
+    p.ccy.reset_lock_graph()
+    assert obs[-1], "the debug layer recorded no edge"
+
+
+def _escalation(p, d, obs):
     stats = p.st.Statistics()
     watch = _watch(p)
     db = p.DB.open(d, p.options(statistics=stats, listeners=[watch],
                                 max_allowed_space_usage=1000))
+    assert type(db._mutex).__name__ == "_DebugRLock"
     try:
         # Pin the manager at red so the no_space chaser parks on its
         # headroom gate (spending no attempts while parked).

@@ -63,6 +63,15 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "toplingdb_tpu_torch.db.forward_iterator",
               "toplingdb_tpu_torch.db.repair"):
         assert m in loaded, m
+    # and the SLO engine, the op trace with its analyzer, the concurrency
+    # plane and the SidePlugin layer.
+    for m in ("toplingdb_tpu_torch.utils.slo",
+              "toplingdb_tpu_torch.utils.trace",
+              "toplingdb_tpu_torch.tools.trace_analyzer",
+              "toplingdb_tpu_torch.utils.concurrency",
+              "toplingdb_tpu_torch.utils.sync_point",
+              "toplingdb_tpu_torch.utils.config"):
+        assert m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 

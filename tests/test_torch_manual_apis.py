@@ -58,6 +58,9 @@ from toplingdb_tpu_torch.utils import statistics as st
 from toplingdb_tpu_torch.utils import status
 from toplingdb_tpu_torch.utils.listener import EventListener
 from toplingdb_tpu_torch.utils import thread_status
+from toplingdb_tpu_torch.utils.config import (
+    load_latest_options as port_load_latest_options,
+)
 
 from test_torch_db import Twin, pinned_clock  # noqa: F401
 
@@ -330,16 +333,12 @@ def sc_get_merge_operands_snapshot_and_zeroed(s, path, obs):       # :700
 
 
 def _options_read_back(s, path):
-    """The values of the newest OPTIONS file, as each package reads its
-    own format back: the reference through utils/config.py, the port's
-    JSON of scalar fields."""
-    if s.ref:
-        loaded = load_latest_options(path)
-        return loaded.write_buffer_size, loaded.disable_auto_compactions
-    newest = max(n for n in os.listdir(path) if n.startswith("OPTIONS-"))
-    with open(os.path.join(path, newest)) as f:
-        fields = json.load(f)
-    return fields["write_buffer_size"], fields["disable_auto_compactions"]
+    """The values of the newest OPTIONS file, as each package reads it
+    back through its own utils/config.py (both write toplingdb_tpu's
+    format)."""
+    load = load_latest_options if s.ref else port_load_latest_options
+    loaded = load(path)
+    return loaded.write_buffer_size, loaded.disable_auto_compactions
 
 
 def sc_set_options_dynamic(s, path, obs):                          # :733

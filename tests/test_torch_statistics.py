@@ -558,9 +558,27 @@ def test_ported_option_opens(tmp_path, name):
 
 
 def test_slo_fields_still_refused(tmp_path):
+    """The three SLO fields were refused until the SLO engine was ported
+    (utils/slo.py); now they open: the DB builds its engine, starts its
+    evaluation thread, and close() joins it. Only db_write_buffer_size
+    and shared_store stay refused."""
     for name in ("slo_specs", "slo_eval_period_sec", "slo_window_sec"):
-        assert opts_mod.UNPORTED[name] == "the SLO engine"
-    with pytest.raises(NotSupported, match="slo_eval_period_sec"):
-        dbm.DB.open(str(tmp_path / "db"), opts_mod.Options(
-            slo_eval_period_sec=1.0,
+        assert name not in opts_mod.UNPORTED
+    assert sorted(opts_mod.UNPORTED) == ["db_write_buffer_size",
+                                         "shared_store"]
+    db = dbm.DB.open(str(tmp_path / "db"), opts_mod.Options(
+        statistics=st.Statistics(),
+        slo_specs=({"name": "get", "kind": "latency"},),
+        slo_eval_period_sec=1.0, slo_window_sec=5.0,
+        compaction_executor_factory=LocalCompactionExecutorFactory()))
+    try:
+        eng = db.slo_engine
+        assert eng is not None and eng._thread is not None
+        assert eng.status()["specs"]["get"]["window_fast_sec"] == 5.0
+    finally:
+        db.close()
+    assert eng._thread is None
+    with pytest.raises(NotSupported, match="shared_store"):
+        dbm.DB.open(str(tmp_path / "db2"), opts_mod.Options(
+            shared_store="/nowhere",
             compaction_executor_factory=LocalCompactionExecutorFactory()))

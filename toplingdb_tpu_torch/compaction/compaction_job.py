@@ -16,7 +16,6 @@ CompactionIterator, split into subcompactions on threads when asked.
 from __future__ import annotations
 
 import bisect
-import threading
 import time
 from dataclasses import dataclass
 
@@ -37,6 +36,7 @@ from toplingdb_tpu_torch.table.merging_iterator import MergingIterator
 from toplingdb_tpu_torch.table.factory import new_table_builder, open_table
 from toplingdb_tpu_torch.utils import protection
 from toplingdb_tpu_torch.utils.status import Corruption, NotFound
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 @dataclass
@@ -553,8 +553,8 @@ def _run_subcompactions(env, dbname, icmp, compaction, table_cache,
         work(0, None, None)
     else:
         threads = [
-            threading.Thread(target=work, args=(i, lo, hi),
-                             name=f"tpt-subcompaction-{i}", daemon=True)
+            ccy.spawn(f"tpt-subcompaction-{i}", work, args=(i, lo, hi),
+                      start=False)
             for i, (lo, hi) in enumerate(ranges)
         ]
         for t in threads:

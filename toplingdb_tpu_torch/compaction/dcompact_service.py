@@ -38,6 +38,7 @@ from toplingdb_tpu_torch.compaction.executor import (
     _check_remote_device,
 )
 from toplingdb_tpu_torch.utils.status import IOError_, NotSupported
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _CHIPS_REFUSED = ("multi-chip packing (ChipPool, --chips > 1) is not "
                   "ported yet: ROADMAP A7, the mesh")
@@ -65,7 +66,8 @@ class DcompactWorkerService:
         self._sem = threading.Semaphore(max_workers)
         self._server: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
-        self._counter_mu = threading.Lock()
+        self._counter_mu = ccy.Lock(
+            "dcompact_service.DcompactWorkerService._counter_mu")
         self.jobs_done = 0
         self.jobs_failed = 0
 
@@ -169,10 +171,9 @@ class DcompactWorkerService:
                 self._reply(200, results)
 
         self._server = ThreadingHTTPServer((host, port), Handler)
-        self._thread = threading.Thread(
-            target=self._server.serve_forever, name="tpt-dcompact-http",
-            daemon=True)
-        self._thread.start()
+        self._thread = ccy.spawn("tpt-dcompact-http",
+                                 self._server.serve_forever, owner=self,
+                                 stop=self.stop)
         return self._server.server_address[1]
 
     def stop(self) -> None:

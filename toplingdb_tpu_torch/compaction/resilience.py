@@ -43,6 +43,7 @@ import time
 from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils import statistics as stats_mod
 from toplingdb_tpu_torch.utils.status import IOError_
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +114,7 @@ class CircuitBreaker:
         self.failure_threshold = max(1, failure_threshold)
         self.reset_timeout = reset_timeout
         self._clock = clock
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("resilience.CircuitBreaker._mu")
         self.state = self.CLOSED
         self.consecutive_failures = 0
         self._opened_at = 0.0
@@ -167,7 +168,7 @@ class WorkerHealthRegistry:
                  clock=time.monotonic):
         self.policy = policy or DcompactOptions()
         self._clock = clock
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("resilience.WorkerHealthRegistry._mu")
         self._breakers: dict[str, CircuitBreaker] = {}
         self._rr = 0
         # Observers: callables (url, state, consecutive_failures) -> None,
@@ -276,9 +277,8 @@ class HeartbeatWriter:
 
     def start(self) -> "HeartbeatWriter":
         self.beat()
-        self._thread = threading.Thread(
-            target=self._loop, name="dcompact-heartbeat", daemon=True)
-        self._thread.start()
+        self._thread = ccy.spawn("dcompact-heartbeat", self._loop,
+                                 owner=self, stop=self.stop)
         return self
 
     def _loop(self) -> None:
@@ -386,7 +386,7 @@ class DcompactFaultInjector:
         self.plans = tuple(plans)
         self.delay_sec = delay_sec
         self._rng = random.Random(seed)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("resilience.DcompactFaultInjector._mu")
         self._ordinal = 0
         self.injected: list[tuple[int, int, str]] = []  # (job, attempt, plan)
 

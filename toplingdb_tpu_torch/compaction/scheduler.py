@@ -53,6 +53,8 @@ from toplingdb_tpu_torch.db.version_edit import VersionEdit
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.listener import CompactionJobInfo, notify
 from toplingdb_tpu_torch.utils.thread_status import thread_operation
+from toplingdb_tpu_torch.utils import concurrency as ccy
+from toplingdb_tpu_torch.utils.sync_point import sync_point_callback
 
 THREAD_PREFIX = "tpt-"
 
@@ -65,8 +67,8 @@ class CompactionScheduler:
         self.picker.creation_time_fn = self._file_creation_time
         self._pending = 0
         self._running = 0
-        self._lock = threading.Lock()
-        self._cv = threading.Condition(self._lock)
+        self._lock = ccy.Lock("scheduler.CompactionScheduler._lock")
+        self._cv = ccy.Condition(lock=self._lock)
         self._shutdown = False
         self._manual_active = False
         self._threads: list[threading.Thread] = []
@@ -110,8 +112,8 @@ class CompactionScheduler:
                 return
             self._pending += 1
             self._threads = [t for t in self._threads if t.is_alive()]
-            t = threading.Thread(target=self._bg_work, daemon=True,
-                                 name=THREAD_PREFIX + "compaction-bg")
+            t = ccy.spawn(THREAD_PREFIX + "compaction-bg", self._bg_work,
+                          owner=self, stop=self.shutdown, start=False)
             self._threads.append(t)
         t.start()
 
@@ -440,6 +442,7 @@ class CompactionScheduler:
             emit_phase_spans(stats)
             if db.options.statistics is not None:
                 db.options.statistics.record_compaction(stats)
+            sync_point_callback("CompactionJob::BeforeInstall", c)
             if c.reason == "bottommost marked":
                 # The rewrite already dropped everything droppable; keeping a
                 # collector re-mark would rewrite the same file forever while

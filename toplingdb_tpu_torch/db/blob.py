@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import math
 import os
-import threading
 from collections import OrderedDict
 
 from toplingdb_tpu_torch.db import dbformat
@@ -25,6 +24,7 @@ from toplingdb_tpu_torch.utils import coding, crc32c
 from toplingdb_tpu_torch.utils import statistics as st
 from toplingdb_tpu_torch.utils.cache import LRUCache
 from toplingdb_tpu_torch.utils.status import Corruption, NotFound
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 MAGIC = b"TPULSMBL"
 
@@ -120,7 +120,7 @@ class BlobSource:
         self._dbname = dbname
         self._readers: OrderedDict[int, BlobFileReader] = OrderedDict()
         self._open_limit = max(1, int(open_limit))
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("blob.BlobSource._mu")
         self.stats = statistics
         if isinstance(blob_cache, int):
             blob_cache = LRUCache(blob_cache) if blob_cache > 0 else None

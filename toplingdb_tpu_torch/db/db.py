@@ -84,7 +84,12 @@ Observability, as toplingdb_tpu's DB wires it: `Options.statistics`
 paths; `stats_history`, `stats_persist_period_sec`,
 `stats_dump_period_sec`, `histogram_window_sec`), `Options.listeners`,
 the structured event log in `<db>/LOG` (rolled to `LOG.old` on open) and
-the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`).
+the span tracer (`trace_sample_every` / `trace_slow_usec` / `trace_ring`),
+the SLO engine (`slo_specs`, `slo_eval_period_sec`, `slo_window_sec`;
+`db.slo_engine`) and the op trace (`start_trace` / `end_trace`: every
+get, multi_get, write and iterator seek recorded before a native chain
+decides it). Every lock and thread comes from utils/concurrency's named
+factories; `close()` warns about a thread it owns that outlived it.
 On open, job dirs of dcompact workers whose lease expired are swept from
 `<db>/dcompact`.
 
@@ -180,6 +185,7 @@ import os
 import threading
 import time
 import uuid
+import warnings
 
 from toplingdb_tpu_torch.db import dbformat, filename
 from toplingdb_tpu_torch.compaction.picker import Compaction
@@ -231,6 +237,8 @@ from toplingdb_tpu_torch.utils.status import (
     ShutdownInProgress,
     is_no_space,
 )
+from toplingdb_tpu_torch.utils import concurrency as ccy
+from toplingdb_tpu_torch.utils.sync_point import sync_point
 
 _DEFAULT_READ = ReadOptions()
 _DEFAULT_WRITE = WriteOptions()
@@ -274,7 +282,7 @@ class _InsertBarrier:
         self.remaining = n
         self.all_done = threading.Event()
         self.error: BaseException | None = None
-        self.lock = threading.Lock()
+        self.lock = ccy.Lock("db._InsertBarrier.lock")
 
     def member_done(self, err: BaseException | None = None) -> None:
         with self.lock:
@@ -419,6 +427,7 @@ class DB:
             lib.tpulsm_wb_group_commit
             if write_plane and lib is not None
             and options.comparator.timestamp_size == 0 else None)
+        self._write_plane_knob = bool(write_plane)  # the /db view reads it
         self.iter_chunk_rows = iter_chunk_rows
         # The async read plane (toplingdb_tpu's TPULSM_ASYNC_READS): the
         # lazy AsyncReadBatcher fanning batched block fetches across
@@ -515,16 +524,16 @@ class DB:
             open_limit=options.blob_file_open_limit,
             statistics=options.statistics)
         self.snapshots = SnapshotList()
-        self._mutex = threading.RLock()
+        self._mutex = ccy.RLock("db.DB._mutex")
         self._writers: list[_Writer] = []  # FIFO write queue (leader = [0])
-        self._wq_lock = threading.Lock()
+        self._wq_lock = ccy.Lock("db.DB._wq_lock")
         # Staged write modes (pipelined / unordered): seqno ALLOCATION runs
         # ahead of PUBLICATION. _alloc_ranges is a deque of [first, last,
         # done] entries in allocation order (indexed by _alloc_entry for
         # O(1) completion marking); last_sequence advances as an in-order
         # low watermark over the done prefix. _mt_cv (on _mutex) signals
         # completion to memtable-switch / snapshot / close waiters.
-        self._mt_cv = threading.Condition(self._mutex)
+        self._mt_cv = ccy.Condition(lock=self._mutex)
         self._mt_inflight = 0
         self._seq_alloc = 0
         self._alloc_ranges: collections.deque[list] = collections.deque()
@@ -558,6 +567,7 @@ class DB:
         self._recover_stop = threading.Event()
         self._recover_threads: list[threading.Thread] = []
         self._options_file_number = 0  # latest persisted OPTIONS file
+        self._op_tracer = None  # DB::StartTrace's recorder (start_trace)
         self._file_deletions_disabled = 0  # DisableFileDeletions pin count
         self._stats_persist_seq = 0  # suffix of persisted stats keys
         self.num_flushes = 0  # L0 tables written by flushes
@@ -633,6 +643,17 @@ class DB:
             # populated series).
             self.stats.set_histogram_window(options.histogram_window_sec)
         self.stats_history = StatsHistory(self.stats)
+        # The SLO engine (utils/slo.py): declarative burn-rate objectives
+        # over the statistics; /slo/<name> and /metrics serve its
+        # verdicts. Its evaluation thread starts with the stats threads.
+        self.slo_engine = None
+        if self.stats is not None and options.slo_specs:
+            from toplingdb_tpu_torch.utils.slo import SLOEngine
+
+            self.slo_engine = SLOEngine(
+                self.stats, options.slo_specs, db=self,
+                db_name=self.dbname, listeners=options.listeners,
+                default_window_sec=options.slo_window_sec or 60.0)
         self._stats_dumper = None       # stats_persist_period_sec thread
         self._stats_dump_thread = None  # stats_dump_period_sec thread
         # Request-scoped span tracer: None unless a trace_* knob turns it
@@ -679,6 +700,8 @@ class DB:
             self._stats_dump_thread = StatsDumpScheduler(
                 self.stats_history, options.stats_dump_period_sec,
                 on_snapshot=self._log_stats_dump)
+        if self.slo_engine is not None and options.slo_eval_period_sec > 0:
+            self.slo_engine.start(options.slo_eval_period_sec)
 
     def _log_stats_dump(self) -> None:
         """One compact stats line per dump period (RocksDB's periodic stats
@@ -776,6 +799,8 @@ class DB:
             # full_history_ts_low never falls across reopens (RocksDB
             # keeps it in the MANIFEST): the larger of the caller's and the
             # persisted one, so trimmed history never becomes readable.
+            from toplingdb_tpu_torch.utils.config import load_latest_options
+
             prev = load_latest_options(dbname, env)
             if prev is not None:
                 options.full_history_ts_low = max(
@@ -854,16 +879,11 @@ class DB:
 
     def _persist_options(self) -> None:
         """Write OPTIONS-NNNNNN next to the DB (RocksDB persists its options
-        on every open); older OPTIONS files become obsolete. The file holds
-        the scalar fields as JSON."""
-        num = self.versions.new_file_number()
-        fields = {
-            k: v for k, v in vars(self.options).items()
-            if isinstance(v, (bool, int, float, str)) or v is None
-        }
-        self.env.write_file(filename.options_file_name(self.dbname, num),
-                            json.dumps(fields, sort_keys=True).encode())
-        self._options_file_number = num
+        on every open): utils/config.persist_options, toplingdb_tpu's
+        format. Older OPTIONS files become obsolete."""
+        from toplingdb_tpu_torch.utils.config import persist_options
+
+        persist_options(self)
 
     def _recover(self) -> None:
         self.versions.recover()
@@ -973,7 +993,7 @@ class DB:
         The read plane's executors and reader rings are joined first."""
         self._recover_stop.set()
         for t in (self._integrity_scrubber, self._stats_dumper,
-                  self._stats_dump_thread):
+                  self._stats_dump_thread, self.slo_engine):
             if t is not None:
                 t.stop()
         self._stop_read_plane()
@@ -1014,6 +1034,13 @@ class DB:
             if self._log_file is not None:
                 self._log_file.close()
             self._closed = True
+        # Thread-lifecycle check: everything spawned with owner=self must
+        # be gone by now. A leak here is a bug in a stop() path above.
+        ccy.registry.join_all(owner=self, timeout=5.0)
+        leaked = ccy.registry.check_leaks(owner=self)
+        if leaked:
+            warnings.warn(f"DB.close() leaked threads: {leaked}",
+                          RuntimeWarning, stacklevel=2)
 
     def _stop_read_plane(self) -> None:
         """Join the read plane's executors and reader rings: no ring
@@ -1219,6 +1246,11 @@ class DB:
             # its WAL frame walk (each record hashed once), and the Python
             # group commit attaches it at the insert handoff.
             batch.ensure_protection(self._protection)
+        tr = self._op_tracer
+        if tr is not None:
+            # The op trace records every write here, before any write
+            # mode or native plane decides it.
+            tr.record_write(batch.data())
         tracer = self.tracer
         root = None
         if tracer is not None and tracer.sample_every \
@@ -1445,6 +1477,7 @@ class DB:
             # Async WAL: the durability barrier overlapped the memtable
             # phase; settle it before completion so a failed group never
             # acknowledges.
+            sync_point("DBImpl::GroupCommit:BeforeWALBarrier")
             _fsp = _tm.span("write.fsync_barrier", staged=True)
             try:
                 wal_wait()
@@ -1852,7 +1885,9 @@ class DB:
                     (time.perf_counter() - _mt0) * 1e9)
             self._tick_write_group(group, native=plane is not None)
             if wal_wait is not None:
-                # Async WAL: durability overlapped the inserts.
+                # Async WAL: durability overlapped the inserts (the
+                # Python encoder's and the native plane's alike).
+                sync_point("DBImpl::GroupCommit:BeforeWALBarrier")
                 with _tm.span("write.fsync_barrier"):
                     wal_wait()
             self.versions.last_sequence = seq - 1
@@ -1914,6 +1949,10 @@ class DB:
         # (RocksDB's WriteThread::WaitForMemTableWriters).
         while self._mt_inflight > 0:
             self._mt_cv.wait(timeout=10.0)
+        # Interleaving seam: the switch closes the current WAL, so its
+        # order against a staged group's async durability barrier is the
+        # drain protocol above; this point lets tests pin that order.
+        sync_point("DBImpl::SwitchMemtable:Start")
         if self._wal is not None:
             self._wal.sync()
             self._wal.close()
@@ -1948,6 +1987,7 @@ class DB:
 
     def _flush_memtables(self, mems: list[MemTable], wal_number: int | None,
                          cf_id: int = 0) -> None:
+        sync_point("FlushJob::Start")
         if self._sfm is not None:
             # Preflight: refuse to START a flush only when even the reserved
             # flush headroom cannot absorb it (flushes may spend the
@@ -2066,6 +2106,27 @@ class DB:
     # ==================================================================
     # Read path
     # ==================================================================
+
+    # -- the op trace (RocksDB's DB::StartTrace / EndTrace) --------------
+
+    def start_trace(self, trace_path: str, options=None) -> None:
+        """Record every later get, multi_get, write and iterator seek to
+        `trace_path` until end_trace (RocksDB's DB::StartTrace,
+        trace_replay/trace_replay.cc), in toplingdb_tpu's trace format.
+        Replay with utils.trace.Replayer, analyze with
+        tools/trace_analyzer.py. `options`: a utils.trace.TraceOptions."""
+        from toplingdb_tpu_torch.utils.trace import OpTracer
+
+        self._check_open()
+        if self._op_tracer is not None:
+            raise InvalidArgument("a trace is already being recorded")
+        self._op_tracer = OpTracer(self.env, trace_path, options)
+
+    def end_trace(self) -> None:
+        tr = self._op_tracer
+        self._op_tracer = None
+        if tr is not None:
+            tr.close()
 
     def _nget_state(self, cfd, opts):
         """The native chain's eligibility gate and this thread's call
@@ -2278,10 +2339,16 @@ class DB:
             return default_column_of(v)
         return v
 
-    def _get_entry(self, key: bytes, opts: ReadOptions,
-                   cf) -> tuple[bytes | None, bool]:
-        """(stored value or None, whether it is a wide-column entity)."""
+    def _get_entry(self, key: bytes, opts: ReadOptions, cf,
+                   record_trace: bool = True) -> tuple[bytes | None, bool]:
+        """(stored value or None, whether it is a wide-column entity). The
+        op trace records the get here, before any native chain decides
+        it; multi_get's per-key fallbacks pass record_trace=False."""
         self._check_open()
+        if record_trace:
+            tr = self._op_tracer
+            if tr is not None:
+                tr.record_get(key)
         if self.icmp.user_comparator.timestamp_size:
             # The timestamp chain; the native chain stays off for such a
             # DB, as in toplingdb_tpu.
@@ -2575,6 +2642,9 @@ class DB:
         grouped per source, so each memtable and file is visited once for
         all its keys. Returns one value or None per key, in order."""
         self._check_open()
+        tr = self._op_tracer
+        if tr is not None:
+            tr.record_multiget(keys)
         self._check_read_ts(opts)
         tracer = self.tracer
         root = None
@@ -2651,7 +2721,7 @@ class DB:
         # the memo across threads).
         version = self.versions.cf_current(cfd.handle.id)
         tombs_cache: dict[int, list] = {}
-        cache_mu = threading.Lock()
+        cache_mu = ccy.Lock("db.DB.cache_mu")
 
         def tombs_for(f):
             with cache_mu:
@@ -2829,7 +2899,8 @@ class DB:
                 opts, snapshot=_SeqSnapshot(snap_seq))
         for i, v in enumerate(out):
             if v is False:
-                r, is_entity = self._get_entry(keys[i], pinned_opts, cf)
+                r, is_entity = self._get_entry(keys[i], pinned_opts, cf,
+                                               record_trace=False)
                 if r is not None and is_entity:
                     from toplingdb_tpu_torch.db.wide_columns import (
                         default_column_of,
@@ -2970,8 +3041,14 @@ class DB:
                 ForwardIterator,
             )
 
-            return ForwardIterator(
+            fwd = ForwardIterator(
                 self, dataclasses.replace(opts, tailing=False), cf=cf)
+            tr = self._op_tracer
+            if tr is not None:
+                from toplingdb_tpu_torch.utils.trace import TracingIterator
+
+                return TracingIterator(fwd, tr)
+            return fwd
         cfd = self._cf_data(cf)
         # Async read plane: iterator readahead windows become reader-ring
         # tasks; each child pins one ring so its windows stay ordered
@@ -3071,6 +3148,11 @@ class DB:
             if self.stats is not None:
                 it.stats = self.stats
                 self.stats.record_tick(_st.NO_ITERATOR_CREATED)
+            tr = self._op_tracer
+            if tr is not None:
+                from toplingdb_tpu_torch.utils.trace import TracingIterator
+
+                return TracingIterator(it, tr)
             return it
 
     def get_snapshot(self):
@@ -3378,8 +3460,8 @@ class DB:
         if sev == Severity.SOFT_ERROR or (
                 getattr(e, "retryable", False)
                 and sev < Severity.FATAL_ERROR):
-            t = threading.Thread(target=self._auto_recover_loop, args=(e,),
-                                 daemon=True, name="tpt-auto-recover")
+            t = ccy.spawn("tpt-auto-recover", self._auto_recover_loop,
+                          args=(e,), owner=self, start=False)
             with self._mutex:
                 self._recover_threads = [
                     x for x in self._recover_threads if x.is_alive()] + [t]
@@ -3551,8 +3633,8 @@ class DB:
                 finally:
                     self._store_gc_inflight = False
 
-            t = threading.Thread(target=run_gc, daemon=True,
-                                 name="tpt-disk-reclaim-store-gc")
+            t = ccy.spawn("tpt-disk-reclaim-store-gc", run_gc, owner=self,
+                          start=False)
             with self._mutex:
                 self._recover_threads = [
                     x for x in self._recover_threads if x.is_alive()] + [t]
@@ -4158,22 +4240,3 @@ class DB:
     def _check_open(self) -> None:
         if self._closed:
             raise ShutdownInProgress("DB is closed")
-
-
-def load_latest_options(dbname: str, env=None) -> Options | None:
-    """Options rebuilt from the newest OPTIONS-NNNNNN of `dbname` (its
-    scalar fields over the defaults; RocksDB's LoadLatestOptions), or None
-    when the DB has no OPTIONS file."""
-    env = env or default_env()
-    nums = [num for child in env.get_children(dbname)
-            for t, num in [filename.parse_file_name(child)]
-            if t == filename.FileType.OPTIONS]
-    if not nums:
-        return None
-    fields = json.loads(
-        env.read_file(filename.options_file_name(dbname, max(nums))).decode())
-    opts = Options()
-    for name, value in fields.items():
-        if hasattr(opts, name):
-            setattr(opts, name, value)
-    return opts

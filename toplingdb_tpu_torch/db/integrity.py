@@ -40,6 +40,7 @@ from toplingdb_tpu_torch.utils.file_checksum import (
 )
 from toplingdb_tpu_torch.utils.status import Corruption
 from toplingdb_tpu_torch.utils import errors as _errors
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class _Pacer:
@@ -72,7 +73,7 @@ class IntegrityScrubber:
         self.period_sec = (period_sec if period_sec is not None
                            else getattr(opts,
                                         "integrity_scrub_period_sec", 0))
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("integrity.IntegrityScrubber._mu")
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._in_progress = False
@@ -90,9 +91,8 @@ class IntegrityScrubber:
         if self.period_sec <= 0 or self._thread is not None:
             return
         self._stop.clear()
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="tpt-integrity-scrubber")
-        self._thread.start()
+        self._thread = ccy.spawn("tpt-integrity-scrubber", self._loop,
+                                 owner=self.db, stop=self.stop)
 
     def stop(self) -> None:
         self._stop.set()

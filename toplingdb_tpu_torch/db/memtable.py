@@ -22,7 +22,6 @@ cannot be built or loaded; it never drops to another rep unasked.
 from __future__ import annotations
 
 import bisect
-import threading
 
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.db.dbformat import ValueType
@@ -31,6 +30,7 @@ from toplingdb_tpu_torch.utils.status import (
     InvalidArgument,
     NotSupported,
 )
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _MAX_PACKED = (1 << 64) - 1
 
@@ -526,7 +526,7 @@ class MemTable:
         self._mem_usage = 0
         self._num_entries = 0
         self._num_deletes = 0
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("memtable.MemTable._lock")
         # Per-entry protection carry (RocksDB's memtable KV checksums,
         # db/kv_checksum.h): CF-stripped truncated checksums keyed by the
         # rep's sort key, verified when flush re-reads the entry out of

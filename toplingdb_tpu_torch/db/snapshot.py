@@ -4,7 +4,7 @@ db/snapshot_impl.h)."""
 
 from __future__ import annotations
 
-import threading
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class Snapshot:
@@ -26,7 +26,7 @@ class Snapshot:
 
 class SnapshotList:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("snapshot.SnapshotList._lock")
         self._snapshots: list[Snapshot] = []
 
     def new_snapshot(self, sequence: int) -> Snapshot:

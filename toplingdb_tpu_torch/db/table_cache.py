@@ -9,7 +9,6 @@ the file number."""
 
 from __future__ import annotations
 
-import threading
 import time
 import uuid
 from collections import OrderedDict
@@ -18,6 +17,7 @@ from toplingdb_tpu_torch.db import filename
 from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.table.builder import TableOptions
 from toplingdb_tpu_torch.table.factory import open_table
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class TableCache:
@@ -35,7 +35,7 @@ class TableCache:
         # file numbers collide.
         self._cache_session = uuid.uuid4().bytes[:8]
         self._readers: OrderedDict = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("table_cache.TableCache._lock")
         self.stats = None  # optional Statistics sink (set by the DB)
 
     def get_reader(self, file_number: int):

@@ -19,7 +19,6 @@ CF was dropped.
 
 from __future__ import annotations
 
-import threading
 import weakref
 
 from toplingdb_tpu_torch.db import dbformat, filename
@@ -27,6 +26,7 @@ from toplingdb_tpu_torch.db.dbformat import InternalKeyComparator
 from toplingdb_tpu_torch.db.log import LogReader, LogWriter
 from toplingdb_tpu_torch.db.version_edit import FileMetaData, VersionEdit
 from toplingdb_tpu_torch.utils.status import Corruption, InvalidArgument
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 # A read chain pins a reader and a dup'd fd per file for the version's
@@ -280,7 +280,7 @@ class VersionSet:
         self.manifest_file_number = 0
         self._next_file_number = 2
         self._manifest_writer: LogWriter | None = None
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("version_set.VersionSet._lock")
 
     # The default CF's Version: the single-CF view wherever the CF does not
     # matter.

@@ -32,12 +32,12 @@ correctness.
 
 from __future__ import annotations
 
-import threading
 
 from toplingdb_tpu_torch.env.env import AioToken, AsyncIORing
 from toplingdb_tpu_torch.utils import statistics as st
 from toplingdb_tpu_torch.utils import telemetry as _tm
 from toplingdb_tpu_torch.utils.status import IOError_
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 # One coalesced pread never exceeds this many bytes (matches the upper
 # readahead window of FilePrefetchBuffer: big enough to merge a run of
@@ -123,7 +123,7 @@ class AsyncReadBatcher:
                         task_capacity=task_capacity, fault_hook=fault_hook)
             for i in range(n)
         ]
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("async_reads.AsyncReadBatcher._mu")
         self._rr = 0
         self._closed = False
         self.stats = stats

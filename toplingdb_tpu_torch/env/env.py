@@ -13,6 +13,7 @@ import threading
 
 from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils.status import IOError_, NotFound
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +81,7 @@ class AsyncIORing:
                                     else capacity))
         self._q: list = []
         self._n_task = 0
-        self._cv = threading.Condition()
+        self._cv = ccy.Condition("env.AsyncIORing._cv")
         self._closed = False
         self.coalesce_cb = coalesce_cb     # callable(n_merged_fsyncs)
         self.fault_hook = fault_hook       # callable(kind, nbytes) -> None
@@ -89,9 +90,8 @@ class AsyncIORing:
         self.fsyncs = 0
         self.fsyncs_coalesced = 0
         self._pending_err: dict[int, BaseException] = {}
-        self._thread = threading.Thread(target=self._run, name=name,
-                                        daemon=True)
-        self._thread.start()
+        self._thread = ccy.spawn(name, self._run, owner=self,
+                                 stop=self.close)
 
     # -- submission ----------------------------------------------------
 
@@ -490,7 +490,7 @@ class MemEnv:
     def __init__(self):
         self._files: dict[str, _MemFileState] = {}
         self._dirs: set[str] = {"/"}
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("env.MemEnv._lock")
         self._capacity = 0  # 0 = unlimited
 
     @staticmethod

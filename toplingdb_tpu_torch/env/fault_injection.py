@@ -12,15 +12,15 @@ ReadFaultInjector the async read plane's reader-ring tasks."""
 
 from __future__ import annotations
 
-import threading
 
 from toplingdb_tpu_torch.utils.status import IOError_
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class FaultInjectionEnv:
     def __init__(self, base):
         self.base = base
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("fault_injection.FaultInjectionEnv._mu")
         self._corrupt_rules: list[dict] = []
         self._corrupt_tick = 0  # transient-mode read counter
         self.corruptions_injected: list[tuple[str, int, int]] = []
@@ -383,7 +383,7 @@ class WalWriterFaultInjector:
         self.delay_sec = delay_sec
         self.ops = tuple(ops)
         self._rng = random.Random(seed)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("fault_injection.WalWriterFaultInjector._mu")
         self._ordinal = 0
         self.injected: list[tuple[int, str, str]] = []  # (ordinal, kind, plan)
 
@@ -444,7 +444,7 @@ class ReadFaultInjector:
         self.delay_sec = delay_sec
         self.ops = tuple(ops)
         self._rng = random.Random(seed)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("fault_injection.ReadFaultInjector._mu")
         self._ordinal = 0
         self.injected: list[tuple[int, str, str]] = []  # (ordinal, kind, plan)
 

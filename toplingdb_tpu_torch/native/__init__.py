@@ -20,14 +20,14 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import threading
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "tpulsm_native.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _SO = os.path.join(BUILD_DIR, "_tpulsm_native.so")
 
-_lock = threading.Lock()
+_lock = ccy.Lock("native._lock")
 _lib: ctypes.CDLL | None = None
 _pylib: ctypes.PyDLL | None = None
 _tried = False

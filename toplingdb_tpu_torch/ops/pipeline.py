@@ -45,7 +45,6 @@ import contextlib
 import ctypes
 import functools
 import sys
-import threading
 import time
 from queue import Empty, Full, Queue
 
@@ -56,6 +55,7 @@ from toplingdb_tpu_torch import native
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.utils import telemetry
 from toplingdb_tpu_torch.utils.status import Corruption
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class PipelineIneligible(Exception):
@@ -114,7 +114,7 @@ class _Progress:
 
     def __init__(self, n_files: int):
         self._done = [-1] * n_files
-        self._cv = threading.Condition()
+        self._cv = ccy.Condition("pipeline._Progress._cv")
         self.err: BaseException | None = None
         self.stop = False
         self.scan_end = 0.0
@@ -594,18 +594,17 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
 
     prog = _Progress(len(files))
     outq: Queue = Queue(maxsize=4)
-    stats_mu = threading.Lock()
+    stats_mu = ccy.Lock("pipeline.run_pipelined.stats_mu")
 
     t_scan0 = time.time()
     rthreads = [
-        threading.Thread(target=_scan_file, name=f"pipeline-scan-{fi}",
-                         args=(fi, fp, kv, prog, splitters, stats, stats_mu,
-                               shared.trace),
-                         daemon=True)
+        ccy.spawn(f"pipeline-scan-{fi}", _scan_file, start=False,
+                  args=(fi, fp, kv, prog, splitters, stats, stats_mu,
+                        shared.trace))
         for fi, fp in enumerate(files)
     ]
-    cthread = threading.Thread(
-        target=_compute_guard, name="pipeline-compute", daemon=True,
+    cthread = ccy.spawn(
+        "pipeline-compute", _compute_guard, start=False,
         args=(prog, outq, _device_compute, kv, files, splitters, prog, outq,
               shared, snapshots, compaction.bottommost, frags, max_dev_key,
               device),

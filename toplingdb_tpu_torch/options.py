@@ -413,9 +413,6 @@ UNPORTED = {
                             "declares but does not run either (share a "
                             "WriteBufferManager through "
                             "write_buffer_manager)",
-    "slo_specs": "the SLO engine",
-    "slo_eval_period_sec": "the SLO engine",
-    "slo_window_sec": "the SLO engine",
     "shared_store": "the shared SST store",
 }
 

@@ -9,9 +9,9 @@ BlobSource as the blob value cache."""
 
 from __future__ import annotations
 
-import threading
 
 from collections import OrderedDict
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class BlockCacheTracer:
@@ -25,7 +25,7 @@ class BlockCacheTracer:
         self._json = json
         self._time = time
         self._f = open(trace_path, "a", buffering=1)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("cache.BlockCacheTracer._mu")
 
     def record_access(self, key: bytes, hit: bool) -> None:
         line = self._json.dumps({
@@ -147,7 +147,7 @@ class ClockCache:
         self._ring: list[bytes] = []
         self._hand = 0
         self._usage = 0
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("cache.ClockCache._mu")
         self.hits = 0
         self.misses = 0
         self.secondary = secondary
@@ -255,7 +255,7 @@ class CompressedSecondaryCache:
         # would otherwise under-account the shard budget).
         self._items: "OrderedDict[bytes, tuple[bytes, int]]" = OrderedDict()
         self._usage = 0
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("cache.CompressedSecondaryCache._mu")
         self.hits = 0
         self.misses = 0
 
@@ -355,7 +355,7 @@ class _Shard:
         self.usage = 0
         self.hits = 0
         self.misses = 0
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("cache._Shard._mu")
         self._spill = spill  # spill(key, value, charge) on eviction
 
     def lookup(self, key: bytes):

@@ -1,6 +1,6 @@
 """Production block codecs: Snappy, LZ4/LZ4HC, ZSTD (+ dictionary) (copied
-from toplingdb_tpu/utils/codecs.py; the library lock is a plain
-threading.Lock).
+from toplingdb_tpu/utils/codecs.py; the library lock is the named
+"codecs._lock").
 
 The reference's production codec set (RocksDB's
 include/rocksdb/compression_type.h:22-28: kSnappyCompression=1,
@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
-import threading
 
 from toplingdb_tpu_torch.utils import coding
 from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
-_lock = threading.Lock()
+_lock = ccy.Lock("codecs._lock")
 _libs: dict[str, ctypes.CDLL | None] = {}
 
 

@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import collections
 
-import threading
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _UNSET = object()
 
-_mu = threading.Lock()
+_mu = ccy.Lock("errors._mu")
 _total = 0
 _recent: collections.deque = collections.deque(maxlen=64)
 

@@ -13,6 +13,7 @@ import json
 import time
 from toplingdb_tpu_torch.utils import errors as _errors
 from dataclasses import dataclass, field
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 @dataclass
@@ -184,10 +185,9 @@ class EventLogger:
     sink."""
 
     def __init__(self, sink=None):
-        import threading
 
         self._sink = sink  # callable(str) or file-like; None = discarded
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("listener.EventLogger._mu")
 
     def log(self, event: str, **payload) -> str:
         rec = {"time_micros": int(time.time() * 1e6), "event": event}

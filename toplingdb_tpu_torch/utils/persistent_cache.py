@@ -24,10 +24,10 @@ at file granularity).
 from __future__ import annotations
 
 import os
-import threading
 
 from toplingdb_tpu_torch.utils import coding, crc32c
 from toplingdb_tpu_torch.utils import errors as _errors
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _F_SNAPPY = 0x1
 
@@ -49,7 +49,7 @@ class PersistentCache:
         self._tick = 0
         self._cur: int | None = None
         self._cur_f = None
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("persistent_cache.PersistentCache._mu")
         self._compress = compress and codecs.available("snappy")
         # -- stats (RocksDB's PersistentCache::Stats role) --------------
         self.hits = 0
@@ -68,13 +68,12 @@ class PersistentCache:
         self._pending_bytes = 0                  # not yet appended
         self._queue_cap = max(1 << 16, queue_bytes)
         self._closed = False
-        self._wake = threading.Condition(self._mu)
+        self._wake = ccy.Condition(lock=self._mu)
         self._writer = None
         if write_behind:
-            self._writer = threading.Thread(
-                target=self._writeback_loop, name="tpt-pcache-writeback",
-                daemon=True)
-            self._writer.start()
+            self._writer = ccy.spawn("tpt-pcache-writeback",
+                                     self._writeback_loop, owner=self,
+                                     stop=self.close)
 
     # -- layout helpers -------------------------------------------------
 

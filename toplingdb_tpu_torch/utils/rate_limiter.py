@@ -1,7 +1,6 @@
 """WriteBufferManager and SstFileManager (copied from
 toplingdb_tpu/utils/rate_limiter.py, trimmed to these two; the rate
-limiter and write controller are not in the port, and the manager's
-threads are plain threading.Thread): the roles of RocksDB's
+limiter and write controller are not in the port): the roles of RocksDB's
 memtable/write_buffer_manager.cc and file/sst_file_manager_impl.cc with
 file/delete_scheduler.cc."""
 
@@ -12,6 +11,7 @@ import threading
 
 from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils import statistics as _st
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class WriteBufferManager:
@@ -23,7 +23,7 @@ class WriteBufferManager:
     def __init__(self, buffer_size: int):
         self.buffer_size = buffer_size
         self._usage = 0
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("rate_limiter.WriteBufferManager._mu")
 
     def reserve(self, n: int) -> None:
         with self._mu:
@@ -84,7 +84,7 @@ class SstFileManager:
         self._trash: dict[str, int] = {}
         self._level = "ok"
         self._callbacks: list = []
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("rate_limiter.SstFileManager._mu")
         self._stop = threading.Event()
         self._wake = threading.Event()  # unpaces sleeping trash deleters
         self._delete_threads: list[threading.Thread] = []
@@ -223,9 +223,8 @@ class SstFileManager:
                     _errors.swallow(reason="disk-pressure-poll", exc=e)
                 self._stop.wait(self.poll_period)
 
-        self._poller = threading.Thread(target=loop, daemon=True,
-                                        name="tpt-disk-pressure-poller")
-        self._poller.start()
+        self._poller = ccy.spawn("tpt-disk-pressure-poller", loop,
+                                 owner=self)
 
     # -- preflight -------------------------------------------------------
 
@@ -336,9 +335,7 @@ class SstFileManager:
             if self._stats is not None and size:
                 self._stats.record_tick(_st.DISK_TRASH_BYTES_FREED, size)
 
-        t = threading.Thread(target=worker, daemon=True,
-                             name="tpt-sst-trash-delete")
-        t.start()
+        t = ccy.spawn("tpt-sst-trash-delete", worker, owner=self)
         with self._mu:
             self._delete_threads = [
                 x for x in self._delete_threads if x.is_alive()]

@@ -1,5 +1,5 @@
 """Seqno <-> wall-time mapping (copied from
-toplingdb_tpu/utils/seqno_to_time.py, with a plain threading.Lock).
+toplingdb_tpu/utils/seqno_to_time.py).
 
 The role of RocksDB's SeqnoToTimeMapping (db/seqno_to_time_mapping.cc): a
 sorted list of (seqno, time) pairs sampled as writes happen, used to answer
@@ -11,14 +11,14 @@ max_capacity)."""
 from __future__ import annotations
 
 import bisect
-import threading
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class SeqnoToTimeMapping:
     def __init__(self, max_capacity: int = 100):
         self._pairs: list[tuple[int, int]] = []  # (seqno, unix_time) ascending
         self._max = max(2, max_capacity)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("seqno_to_time.SeqnoToTimeMapping._mu")
 
     def append(self, seqno: int, time_: int) -> None:
         """Record seqno existed at time_; out-of-order appends are ignored

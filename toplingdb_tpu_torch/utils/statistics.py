@@ -11,6 +11,7 @@ import threading
 
 import time
 from collections import defaultdict
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 # Ticker names, grouped by the reference's families
 # (include/rocksdb/statistics.h Tickers enum); extensible by string.
@@ -570,7 +571,7 @@ class Statistics:
         self._window_intervals = max(1, int(histogram_window_intervals))
         self._histograms: dict[str, Histogram] = defaultdict(
             self._new_histogram)
-        self._lock = threading.Lock()
+        self._lock = ccy.Lock("statistics.Statistics._lock")
         # Hot read-path histograms pre-created so record_get skips the
         # defaultdict machinery per call.
         self._h_get_micros = self._histograms[DB_GET_MICROS]

@@ -22,6 +22,7 @@ import time
 import warnings
 
 from . import statistics as _st
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class StatsHistory:
@@ -36,7 +37,7 @@ class StatsHistory:
         # Per-histogram (count, sum) at the previous snapshot, for the
         # interval-delta rows.
         self._last_hist: dict[str, tuple[int, float]] = {}
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("stats_history.StatsHistory._mu")
 
     def snapshot(self, now: int | None = None) -> None:
         """Record the ticker + histogram deltas since the previous
@@ -126,9 +127,8 @@ class StatsDumpScheduler:
             else history._stats
         self.errors = 0
         self._stop = threading.Event()
-        self._thread = threading.Thread(
-            target=self._run, name="tpt-stats-dump", daemon=True)
-        self._thread.start()
+        self._thread = ccy.spawn("tpt-stats-dump", self._run, owner=self,
+                                 stop=self.stop)
 
     def _run(self) -> None:
         while not self._stop.wait(self._period):

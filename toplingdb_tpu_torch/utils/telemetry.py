@@ -1,5 +1,5 @@
 """Request-scoped span tracing: the telemetry plane's core (copied from
-toplingdb_tpu/utils/telemetry.py; locks are plain threading.Locks).
+toplingdb_tpu/utils/telemetry.py).
 
 A low-overhead tracer in the dapper/opentelemetry shape, scoped to what the
 engine needs:
@@ -36,6 +36,7 @@ import os
 import threading
 import time
 from collections import OrderedDict, deque
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _tls = threading.local()
 
@@ -177,7 +178,7 @@ class Tracer:
         # cost.
         self._tid_base = os.urandom(6).hex()
         self._tid_n = itertools.count(1)
-        self._mu = threading.Lock()
+        self._mu = ccy.Lock("telemetry.Tracer._mu")
         self._ring: deque[Trace] = deque(maxlen=max(1, int(ring)))
         self._by_id: dict[str, Trace] = {}
         self._active: dict[str, Trace] = {}

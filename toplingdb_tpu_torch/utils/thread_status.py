@@ -1,5 +1,5 @@
 """Thread status registry (copied from toplingdb_tpu/utils/thread_status.py,
-with a threading lock for the reference's `utils.concurrency` one).
+whole).
 
 The role of RocksDB's thread-status mechanism
 (monitoring/thread_status_updater.cc, ThreadStatus::STAGE_COMPACTION_RUN):
@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import threading
 import time
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 _REGISTRY: dict[int, dict] = {}
-_MU = threading.Lock()
+_MU = ccy.Lock("thread_status._MU")
 
 
 def set_thread_operation(operation: str, stage: str = "",
