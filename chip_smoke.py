@@ -27,7 +27,11 @@ Phases (any failure ends the run with a non-zero exit code):
      every output is read back and held against a numpy oracle of the
      surviving versions, and the serial route (pipeline=False) on the same
      inputs must write the same bytes. Each shard program's CUDA-event time
-     is summed over the job's wall as the device's busy share;
+     is summed over the job's wall as the device's busy share. The job
+     without snapshots also runs through the host twins (host_sort=True:
+     the pipelined host route, the native run merge with its inline GC per
+     shard): no kernel launch, the device route's bytes; its wall, raw MB/s
+     and host_compute_usec beside the card route's;
   5. the block-assembly route: the same generator at N = 4,000,000 (one
      shard of at most 2^22 rows, the route's envelope) through
      run_device_compaction(device_name="cuda", device_blocks=True,
@@ -537,7 +541,10 @@ Phases (any failure ends the run with a non-zero exit code):
      lock held over 1 s, and registry.check_leaks(owner=db) empty after
      every close; (e) every job of the phase on "cuda", gc_rows launched
      by each job that no other overlapped, the launches and the card's
-     busy share. SP_N was cut from 1,000,000 to 500,000 and SP_GETS from
+     busy share. SP_N was cut from 500,000 to 250,000 when phase 25
+     came (a slow host's whole run took 1,101.6 s, phase 24 109.7 s of
+     it, its replay 59.8 s); before that SP_N was cut from
+     1,000,000 to 500,000 and SP_GETS from
      100,000 to 50,000 (the mix first, then N) when the
      phase first took 102.8 s at full size on the card: the replay of
      the fill's 10,200 batches alone took 41.4 s, since a batch read
@@ -549,6 +556,31 @@ Phases (any failure ends the run with a non-zero exit code):
      SLOEngine.evaluate pass, the fill's ops/s with lock debug on and
      off, and each figure beside the card's name and power limit. Its
      gc_rows and merge launches are added to the kernels line's counts.
+ 25. the parallel plane (placement on one card; it measures no
+     multi-card scaling): (a) the mesh route: phase 4's generator at
+     PARALLEL_N = 2,000,000 entries, no snapshots, through the serial route
+     in PARALLEL_SHARDS = 8 shards on the card alone; then with the card's
+     own device list (mesh_devices=[cuda:0], one entry: one
+     `single-device` mesh fallback), with the card named twice
+     (mesh_devices=[cuda:0, cuda:0]: the plan's placement and its
+     UPLOAD_DEPTH x 2 window on real CUDA uploads) on the serial route and
+     on the pipelined route (the per-entry lookahead), and with a wedge
+     injected through ops/mesh_compaction's fault seam at shard 3 (one
+     mesh_fallbacks, the shards moved to the other entry). Every run
+     writes the single-device bytes; the gc_rows and merge launches of
+     the mesh runs (counts set to 0 before them) are added to the kernels
+     line's counts. (b) distributed GC (parallel/distributed_gc.py) on
+     NCCL at world size 1: a (jobs=1, range=1) mesh over a file store in
+     the run's scratch directory, a DGC_ROWS = 2^20-row job (12-digit
+     keys, values, deletions and merges) with 3 snapshots and tombstone
+     covers; its keep / zero_seq / sorted idx / is_complex arrays equal
+     the same call on a gloo CPU mesh in the same process bitwise, and
+     the step's CUDA-event time (median of 5) is printed beside the
+     card's name and power limit. (c) the driver pair
+     (parallel/entry.py) with its defaults: entry()'s forward step runs
+     on the card (one gc_rows launch, added to the kernels line's counts)
+     and equals the same step on "cpu" bitwise; dryrun_multichip(1) runs
+     one NCCL rank and checks its jobs against the single-device GC.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -632,7 +664,7 @@ TAIL_POLL_S = 0.02      # phase 23 (b): the tailer's wait at the end
 RO_PROBES = 20_000      # phase 23 (b): the read-only open's probes
 PREFIX_N = 100_000      # phase 23 (b): keys of the prefix DB
 PREFIX_SEEKS = 1_000    # phase 23 (b): prefix_same_as_start seeks
-SP_N = 500_000          # phase 24 (a)-(b): cut from 1,000,000 (docstring)
+SP_N = 250_000          # phase 24 (a)-(b): cut from 1,000,000 (docstring)
 SP_GETS = 50_000        # phase 24 (b): cut from 100,000 (docstring)
 SP_OVERWRITE_N = 20_000  # phase 24 (b): overwrites, in batches of 100
 SP_SEEKS = 1_000        # phase 24 (b): seeks, 10 nexts each
@@ -641,6 +673,9 @@ SP_STALL_N = 200_000    # phase 24 (c): the stalled DB's keys
 SP_DEBUG_N = 100_000    # phase 24 (d): the lock-debug DB's keys
 FIGURES = {}            # phase 13's fill ops/s, printed beside phase 24's
 MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
+PARALLEL_N = 2_000_000  # phase 25 (a): phase 4's generator, 8 shards
+PARALLEL_SHARDS = 8     # phase 25 (a)
+DGC_ROWS = 1 << 20      # phase 25 (b): the distributed GC job's rows
 
 
 def log(msg: str) -> None:
@@ -1381,6 +1416,9 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
         n_ok = check_against_oracle(env, dbdir, icmp, outputs, rows, snaps)
         log(f"main path job ({label}): {n_ok} entries match the oracle "
             f"({time.time() - t1:.1f}s)")
+        if not snaps:
+            host_twin_run(torch, env, dbdir, icmp, topts, metas, outputs, n,
+                          wall, stats, device_name)
         with plane_timers() as stimers:
             serial, sstats, swall = compact(env, dbdir, icmp, topts, metas,
                                             snaps, device_name, Alloc(20_000),
@@ -1404,6 +1442,33 @@ def main_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
         remove_ssts(dbdir, serial)
     remove_ssts(dbdir, metas)
     return launches, jobs
+
+
+def host_twin_run(torch, env, dbdir, icmp, topts, metas, dev_outputs, n,
+                  dev_wall, dev_stats, device_name):
+    """Phase 4's host-twin job: the same inputs through the pipelined host
+    route (host_sort=True: the native run merge with its inline GC per
+    shard); no kernel may launch, and the bytes must be the device
+    route's."""
+    from toplingdb_tpu_torch.ops import kernels
+
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    outs, hstats, hwall = compact(env, dbdir, icmp, topts, metas, [],
+                                  device_name, Alloc(30_000), host_sort=True)
+    assert hstats.pipelined, "the host twins did not run pipelined"
+    assert kernels.gc_rows.launches == kernels.merge_runs_perm.launches == 0
+    assert sst_bytes(dbdir, outs) == sst_bytes(dbdir, dev_outputs), \
+        "the host twins and the device route write different bytes"
+    card = card_line() if device_name != "cpu" else "cpu rehearsal"
+    log(f"main path job (no snapshots, host twins, host_sort=True): wall "
+        f"{hwall:.3f}s, {n * RAW_PER_ENTRY / 1e6 / hwall:.2f} raw MB/s, "
+        f"host_compute_usec={hstats.host_compute_usec}, the device route's "
+        f"bytes; the device route: wall {dev_wall:.3f}s, "
+        f"{n * RAW_PER_ENTRY / 1e6 / dev_wall:.2f} raw MB/s, "
+        f"host_compute_usec={dev_stats.host_compute_usec}, "
+        f"device_wait_usec={dev_stats.device_wait_usec} [{card}]")
+    remove_ssts(dbdir, outs)
 
 
 def blocks_path(torch, env, dbdir, icmp, topts, n, device_name="cuda"):
@@ -6745,6 +6810,200 @@ def sideplugin_path(torch, root, card, device_name="cuda", n=SP_N,
     return gc_n, mr_n
 
 
+def gc_columns(n: int, seed: int = 7):
+    """A distributed GC job of n rows laid out as compaction_kernels.
+    pad_columns lays out ColumnarEntries (12-digit decimal user keys over
+    n / 3 keys, unique seqnos 1..n, 70% values, 20% deletions, 10%
+    merges, padded to the next power of two), built with numpy, and a
+    tombstone cover on 10% of the rows."""
+    rng = np.random.default_rng(seed)
+    p = 1
+    while p < n:
+        p *= 2
+    draws = rng.integers(0, max(1, n // 3), n)
+    digits = ((draws[:, None] // 10 ** np.arange(11, -1, -1, dtype=np.int64))
+              % 10 + 48).astype(np.uint32).reshape(n, 3, 4)
+    words = ((digits[:, :, 0] << 24) | (digits[:, :, 1] << 16)
+             | (digits[:, :, 2] << 8) | digits[:, :, 3]) ^ np.uint32(1 << 31)
+    vt = rng.choice(np.array([1] * 7 + [0] * 2 + [2], dtype=np.int64), n)
+    packed = (np.arange(1, n + 1, dtype=np.uint64) << np.uint64(8)) \
+        | vt.astype(np.uint64)
+    inv = ~packed
+    sign = np.uint64(1 << 31)
+    m32 = np.uint64(0xFFFFFFFF)
+    i32max = np.iinfo(np.int32).max
+    job = {"n": n, "w": 3,
+           "key_words": np.full((p, 3), i32max, dtype=np.int32),
+           "key_len": np.full(p, i32max, dtype=np.int32),
+           "inv_hi": np.full(p, i32max, dtype=np.int32),
+           "inv_lo": np.full(p, i32max, dtype=np.int32),
+           "vtype": np.full(p, -1, dtype=np.int32)}
+    job["key_words"][:n] = words.view(np.int32)
+    job["key_len"][:n] = 12
+    job["inv_hi"][:n] = (((inv >> np.uint64(32)) & m32) ^ sign).astype(
+        np.uint32).view(np.int32)
+    job["inv_lo"][:n] = ((inv & m32) ^ sign).astype(np.uint32).view(np.int32)
+    job["vtype"][:n] = vt
+    job["tomb_cover"] = np.where(
+        rng.random(n) < 0.1, rng.integers(1, n + 1, n), 0).astype(np.uint64)
+    return job
+
+
+def parallel_path(torch, env, dbdir, icmp, topts, n, card,
+                  device_name="cuda", gc_rows_n=DGC_ROWS):
+    """Phase 25: the mesh route and distributed GC on one card. (a) phase
+    4's generator at n entries through the serial route in PARALLEL_SHARDS
+    shards: single-device, with the card's own device list (one entry: a
+    `single-device` mesh fallback), with the card named twice (placement,
+    the UPLOAD_DEPTH x 2 window) on the serial and the pipelined routes,
+    and with a wedge injected through the fault seam at shard 3; every run
+    writes the single-device bytes. (b) the distributed GC step on NCCL at
+    world size 1, a (jobs=1, range=1) mesh over a file store, equal bitwise
+    to the same call on a gloo CPU mesh in the same process, and its
+    CUDA-event time (median of 5). (c) the driver pair's defaults:
+    entry()'s forward step on the card equals the "cpu" step, and
+    dryrun_multichip(1) runs one rank. Returns the (gc_rows, merge)
+    launches of (a)'s mesh runs and (c)'s forward step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.ops import mesh_compaction as mc
+    from toplingdb_tpu_torch.parallel import distributed_gc as dg
+
+    dev = torch.device(device_name, 0) if device_name == "cuda" \
+        else torch.device("cpu")
+    t0 = time.time()
+    metas, _rows, _ = write_runs(env, dbdir, icmp, topts, n, Alloc(9))
+    log(f"[parallel] inputs: {n} entries, {len(metas)} SSTs "
+        f"({time.time() - t0:.1f}s); (a) exercises the mesh route's "
+        f"placement on one card (the card named twice) and measures no "
+        f"multi-card scaling [{card}]")
+    serial = dict(pipeline=False, num_shards=PARALLEL_SHARDS)
+    base, bstats, bwall = compact(env, dbdir, icmp, topts, metas, [],
+                                  device_name, Alloc(40_000), **serial)
+    want = sst_bytes(dbdir, base)
+    assert bstats.mesh_chips == 0
+
+    def run(tag, alloc, **kw):
+        outs, st_, wall = compact(env, dbdir, icmp, topts, metas, [],
+                                  device_name, Alloc(alloc), **kw)
+        assert sst_bytes(dbdir, outs) == want, f"{tag}: bytes differ"
+        log(f"[parallel] {tag}: wall {wall:.3f}s, "
+            f"{n * RAW_PER_ENTRY / 1e6 / wall:.2f} raw MB/s, mesh_chips="
+            f"{st_.mesh_chips} mesh_shards={st_.mesh_shards} "
+            f"mesh_fallbacks={st_.mesh_fallbacks}, pipelined="
+            f"{st_.pipelined}, the single-device bytes [{card}]")
+        remove_ssts(dbdir, outs)
+        return st_
+
+    log(f"[parallel] single device, serial route: wall {bwall:.3f}s, "
+        f"{n * RAW_PER_ENTRY / 1e6 / bwall:.2f} raw MB/s [{card}]")
+    st1 = run("the card's own device list (one entry)", 41_000,
+              mesh_devices=[dev], **serial)
+    assert (st1.mesh_fallbacks, st1.mesh_chips) == (1, 0), \
+        "one device must be a single-device mesh fallback"
+    kernels.gc_rows.launches = 0
+    kernels.merge_runs_perm.launches = 0
+    st2 = run("the card named twice, serial route", 42_000,
+              mesh_devices=[dev, dev], **serial)
+    assert (st2.mesh_chips, st2.mesh_shards, st2.mesh_fallbacks) == \
+        (2, PARALLEL_SHARDS, 0)
+    st3 = run("the card named twice, pipelined route", 43_000,
+              mesh_devices=[dev, dev], pipeline_shards=PARALLEL_SHARDS)
+    assert st3.pipelined and st3.mesh_chips == 2
+    fired = []
+
+    def wedge(s, _device):
+        if s == 3 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected wedge at shard 3")
+
+    mc._FAULT_HOOK = wedge
+    try:
+        st4 = run("the card named twice, a wedge at shard 3", 44_000,
+                  mesh_devices=[dev, dev], **serial)
+    finally:
+        mc._FAULT_HOOK = None
+    assert fired and (st4.mesh_fallbacks, st4.mesh_chips) == (1, 1)
+    gc_n = kernels.gc_rows.launches
+    mr_n = kernels.merge_runs_perm.launches
+    if device_name != "cpu":
+        assert gc_n > 0 and mr_n > 0, "a kernel of the mesh route never ran"
+    log(f"[parallel] the mesh runs launched gc_rows={gc_n} merge_runs={mr_n}")
+    remove_ssts(dbdir, base)
+    remove_ssts(dbdir, metas)
+
+    # (b) distributed GC: NCCL at world size 1 against gloo on the CPU.
+    t1 = time.time()
+    job = gc_columns(gc_rows_n - 1000)
+    snaps = [gc_rows_n // 5, gc_rows_n // 2, 4 * gc_rows_n // 5]
+    store = tempfile.mkdtemp(dir=dbdir)
+    backend = "nccl" if device_name == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1,
+                            **({"device_id": dev} if dev.type == "cuda"
+                               else {}))
+    try:
+        mesh = dg.make_mesh(1, 1)
+        cpu_mesh = dg.make_mesh(1, 1, device="cpu", backend="gloo")
+        got = dg.run_distributed_gc(mesh, [job], snaps, True)
+        ref = dg.run_distributed_gc(cpu_mesh, [job], snaps, True)
+        for a, b, what in zip(got, ref, ("keep", "zero_seq", "idx", "cx")):
+            assert a.shape == b.shape and np.array_equal(a, b), \
+                f"distributed GC {what} differs between {backend} and gloo"
+        w, inputs = dg.step_inputs(mesh, [job], snaps)
+        step = dg.make_distributed_gc_step(mesh, w, True)
+        times = []
+        for _ in range(5):
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(*inputs)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            else:
+                t = time.perf_counter()
+                step(*inputs)
+                times.append((time.perf_counter() - t) * 1e3)
+        kept = int(got[0].sum())
+        log(f"[parallel] (b) distributed GC, {backend} world 1, a (1, 1) "
+            f"mesh, p={job['key_words'].shape[0]} rows ({job['n']} real), "
+            f"3 snapshots, tombstone covers: keep/zero_seq/idx/is_complex "
+            f"bitwise equal to gloo on the CPU ({kept} kept); the step "
+            f"{statistics.median(times):.3f} ms median of 5 "
+            f"({'CUDA events' if dev.type == 'cuda' else 'host clock'}), "
+            f"all {[round(t, 3) for t in times]} ms; {time.time() - t1:.1f}s "
+            f"[{card}]")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (c) the driver pair with its defaults: entry()'s forward step on the
+    # card against the same step on "cpu", then dryrun_multichip(1).
+    from toplingdb_tpu_torch.parallel import entry
+
+    t2 = time.time()
+    fn, args = entry.entry(device_name)
+    kernels.gc_rows.launches = 0
+    got = fn(*args)
+    entry_n = kernels.gc_rows.launches
+    cfn, cargs = entry.entry("cpu")
+    for a, b, what in zip(got, cfn(*cargs), ("keep", "zero_seq", "perm")):
+        assert np.array_equal(a, b), f"entry() {what} differs from cpu's"
+    if device_name != "cpu":
+        assert entry_n == 1, "entry() did not launch gc_rows"
+    entry.dryrun_multichip(1, store_dir=dbdir, device=device_name)
+    log(f"[parallel] (c) entry() on {device_name}: gc_rows launches "
+        f"{entry_n}, keep / zero_seq / perm equal to cpu's; "
+        f"dryrun_multichip(1) on {backend}: {time.time() - t2:.1f}s "
+        f"[{card}]")
+    return gc_n + entry_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6852,6 +7111,9 @@ def main() -> int:
                              os.path.join(dbdir, "db24"), smi)
         log(f"[sideplugin] phase 24 wall {walls['24 sideplugin']:.1f}s "
             f"[{smi}]")
+        pa_gc, pa_mr = phase("25 parallel", parallel_path, torch, env,
+                             dbdir, icmp, topts, PARALLEL_N, smi)
+        log(f"[parallel] phase 25 wall {walls['25 parallel']:.1f}s [{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -6867,8 +7129,10 @@ def main() -> int:
     # after a space block, precluded, aged and over entities.
     # And phase 23's timestamp, primary, prefix and repaired DBs.
     # And phase 24's SidePlugin, replay, stalled and lock-debug DBs.
-    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc
-    launches["merge_runs"] += w_mr + r_mr + m_mr + s_mr + p_mr + sp_mr
+    # And phase 25's mesh runs.
+    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc + pa_gc
+    launches["merge_runs"] += (w_mr + r_mr + m_mr + s_mr + p_mr + sp_mr
+                               + pa_mr)
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -129,11 +129,9 @@ def _named_sites(path):
         return {(m.group(1), m.group(2)) for m in _FACTORY.finditer(f.read())}
 
 
-# Reference lock classes whose owner the port has only as a refusal.
-NOT_MADE = {
-    "dcompact_service.ChipPool._cv": "ChipPool raises NotSupported in the "
-                                     "port (the mesh, ROADMAP A11)",
-}
+# Reference lock classes whose owner the port has only as a refusal
+# (none since ChipPool was ported).
+NOT_MADE: dict[str, str] = {}
 
 
 def test_reference_lock_classes_made_the_same_way():

@@ -76,7 +76,15 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
 - a timestamp DB (U64_TS_BYTEWISE) with overwrites, deletes, single
   deletes, a snapshot and increase_full_history_ts_low runs compact_range
   on "cuda" (per-entry jobs, gc_rows launched, the history trim): the SST
-  bytes, level sets and reads equal the same DB's on "cpu".
+  bytes, level sets and reads equal the same DB's on "cpu";
+- the mesh route with the card named twice (mesh_devices=[cuda, cuda]),
+  on the serial and pipelined routes and with a wedge injected at shard 2,
+  writes the single-device bytes and launches both kernels;
+- the distributed GC step on NCCL at world size 1 (a spawned rank, a
+  file store) equals the same call on a gloo CPU mesh bitwise;
+- the driver pair's defaults run on the card: entry()'s forward step
+  launches gc_rows and equals its "cpu" step, and dryrun_multichip(1)
+  runs one NCCL rank.
 """
 
 import os
@@ -1747,3 +1755,94 @@ def test_induced_stall_slo_fires_on_the_card(dev, tmp_path):
         assert db._compaction_scheduler.num_local_jobs == 0
     finally:
         repo.close_all()
+
+
+def test_mesh_route_on_the_card_named_twice(dev, tmp_path, monkeypatch):
+    from toplingdb_tpu_torch.ops import mesh_compaction as mc
+    from toplingdb_tpu_torch.parallel import mesh_plan
+
+    monkeypatch.setattr(dc, "_SHARD_MIN_ROWS", 1)
+    monkeypatch.setattr(pl, "MIN_PIPELINE_ROWS", 256)
+    monkeypatch.setattr(mesh_plan, "DEFAULT_MESH_MIN_ROWS", 1)
+    env, icmp, topts = PosixEnv(), InternalKeyComparator(), TableOptions()
+    dbdir = str(tmp_path)
+    rng = np.random.default_rng(8)
+    metas = [_write_run(env, dbdir, icmp, topts, 10 + i, rng, 4096,
+                        1 + i * 4096) for i in range(4)]
+    card = torch.device("cuda", 0)
+    want, _ = _job("cuda", env, dbdir, icmp, topts, metas, 100,
+                   pipeline=False, num_shards=4)
+    counts = [kernels.gc_rows.launches, kernels.merge_runs_perm.launches]
+    got, stats = _job("cuda", env, dbdir, icmp, topts, metas, 200,
+                      pipeline=False, num_shards=4,
+                      mesh_devices=[card, card])
+    assert stats.mesh_chips == 2 and got == want
+    piped, pstats = _job("cuda", env, dbdir, icmp, topts, metas, 300,
+                         pipeline_shards=4, mesh_devices=[card, card])
+    assert pstats.pipelined and pstats.mesh_chips == 2 and piped == want
+    assert kernels.gc_rows.launches > counts[0]
+    assert kernels.merge_runs_perm.launches > counts[1]
+    fired = []
+
+    def wedge(s, _device):
+        if s == 2 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected wedge")
+
+    monkeypatch.setattr(mc, "_FAULT_HOOK", wedge)
+    wedged, wstats = _job("cuda", env, dbdir, icmp, topts, metas, 400,
+                          pipeline=False, num_shards=4,
+                          mesh_devices=[card, card])
+    assert fired and wstats.mesh_fallbacks == 1 and wedged == want
+
+
+def _nccl_vs_gloo_rank(rank, world, job, snaps, out_path):
+    import pickle
+
+    from toplingdb_tpu_torch.parallel import distributed_gc as dg
+
+    got = dg.run_distributed_gc(dg.make_mesh(1, 1), [job], snaps, True)
+    ref = dg.run_distributed_gc(
+        dg.make_mesh(1, 1, device="cpu", backend="gloo"), [job], snaps,
+        True)
+    with open(out_path, "wb") as f:
+        pickle.dump((got, ref), f)
+
+
+def test_distributed_gc_on_nccl_equals_gloo(dev, tmp_path):
+    import pickle
+
+    from toplingdb_tpu_torch.parallel import distributed_gc as dg
+    from toplingdb_tpu_torch.parallel import mesh_plan
+
+    job = mesh_plan.make_weak_scaling_job(5000)
+    rng = np.random.default_rng(4)
+    job["tomb_cover"] = np.where(rng.random(5000) < 0.1,
+                                 rng.integers(1, 5001, 5000),
+                                 0).astype(np.uint64)
+    out = str(tmp_path / "out.pkl")
+    dg.spawn_ranks(_nccl_vs_gloo_rank, 1, str(tmp_path),
+                   args=(job, [1000, 2500, 4000], out), backend="nccl",
+                   timeout=300)
+    with open(out, "rb") as f:
+        got, ref = pickle.load(f)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    assert got[0].any()
+
+
+def test_driver_pair_runs_on_the_card(dev, tmp_path, capfd):
+    """entry()'s default forward step runs on the card (gc_rows launched)
+    and equals the same step on "cpu" bitwise; dryrun_multichip(1) runs
+    one NCCL rank by default."""
+    from toplingdb_tpu_torch.parallel import entry
+
+    kernels.gc_rows.launches = 0
+    fn, args = entry.entry()
+    got = fn(*args)
+    assert kernels.gc_rows.launches == 1
+    cfn, cargs = entry.entry("cpu")
+    for a, b in zip(got, cfn(*cargs)):
+        np.testing.assert_array_equal(a, b)
+    entry.dryrun_multichip(1, store_dir=str(tmp_path))
+    assert "mesh jobs=1 x range=1, 2 jobs validated" in capfd.readouterr().out

@@ -64,6 +64,7 @@ from toplingdb_tpu_torch.db.write_batch import WriteBatch
 from toplingdb_tpu_torch.options import Options, ReadOptions, WriteOptions
 from toplingdb_tpu_torch.utils import merge_operator as mo
 from toplingdb_tpu_torch.utils.status import IOError_
+from toplingdb_tpu_torch.utils.sync_point import get_sync_point_registry
 
 CLOCK = 1_700_000_000.0
 
@@ -580,36 +581,127 @@ def test_device_executor_in_db(tmp_path):
 
 
 def test_get_overlapping_an_install_folds_each_operand_once(tmp_path):
-    """A get that overlaps a flush's install or a memtable switch (it
-    takes no mutex) can read one memtable twice, or a memtable and the L0
-    file it became: the port's Python chain folds each merge operand once.
-    The windows are held open here by hand, under the DB mutex."""
+    """A get that overlaps a memtable switch or a flush's install reads
+    one view of the memtables and the version (the CF's SuperVersion), so
+    each merge operand is folded once. Gets run on other threads while a
+    real flush holds the DB mutex: after its switch ("FlushJob::Start")
+    and right after its install ("FlushJob::InstallResults"); then a
+    reader thread polls through a run of real flushes."""
+    reg = get_sync_point_registry()
     db = dbm.DB.open(str(tmp_path / "db"), Options(
         merge_operator=mo.StringAppendOperator(),
         disable_auto_compactions=True,
         compaction_executor_factory=LocalCompactionExecutorFactory()))
+    seen = {}
+
+    def get_from_another_thread(point):
+        out = []
+        th = threading.Thread(target=lambda: out.append(db.get(b"k")))
+        th.start()
+        th.join(timeout=30)
+        assert not th.is_alive(), f"a get at {point} blocked"
+        seen[point] = (out[0], len(db.imm),
+                       len(db.versions.current.files[0]))
+
     try:
         db._nget_lib = None  # merges go to the Python chain anyway
         db.put(b"k", b"base")
         db.flush()
         db.merge(b"k", b"a")
         db.merge(b"k", b"b")
-        with db._mutex:
-            db._switch_memtable()
-            sealed = list(db.imm)
-            # The flush installed the L0 file; the list is not cleared yet.
-            db._flush_memtables(sealed, wal_number=None)
-            assert db.imm == sealed and len(db.versions.current.files[0]) == 2
-            assert db.get(b"k") == b"base,a,b"
-            # The switch window too: the sealed memtable still active.
-            active = db.mem
-            db.mem = sealed[0]
-            assert db.get(b"k") == b"base,a,b"
-            db.mem = active
-            db.imm = []
+        for point in ("FlushJob::Start", "FlushJob::InstallResults"):
+            reg.set_callback(point, lambda _arg, p=point:
+                             get_from_another_thread(p))
+        reg.enable_processing()
+        try:
+            db.flush()
+        finally:
+            reg.clear_all()
+        # After the switch the sealed memtable is the only immutable one;
+        # after the install its L0 file is the second and no memtable is.
+        assert seen == {"FlushJob::Start": (b"base,a,b", 1, 1),
+                        "FlushJob::InstallResults": (b"base,a,b", 0, 2)}
         assert db.get(b"k") == b"base,a,b"
         db.merge(b"k", b"c")
         assert db.get(b"k") == b"base,a,b,c"
+
+        stop = threading.Event()
+        bad = []
+
+        def reader():
+            while not stop.is_set():
+                v = db.get(b"k")
+                ops = v.split(b",")
+                if len(set(ops)) != len(ops):
+                    bad.append(v)
+        th = threading.Thread(target=reader)
+        th.start()
+        try:
+            for i in range(30):
+                db.merge(b"k", b"m%d" % i)
+                db.flush()
+        finally:
+            stop.set()
+            th.join(timeout=30)
+        assert not th.is_alive() and not bad, bad[:3]
+        assert db.get(b"k") == b",".join(
+            [b"base", b"a", b"b", b"c"] + [b"m%d" % i for i in range(30)])
+    finally:
+        db.close()
+
+
+def test_reads_after_installs_never_wait_for_the_mutex(tmp_path):
+    """Every install publishes its CF's read view under the DB mutex, so
+    a get, a multi_get and get_merge_operands read the view as published:
+    after promote_l0, a compaction install and delete_files_in_range they
+    finish while another thread holds the mutex (as a flush does for its
+    whole SST build), and they see the installed files."""
+    db = dbm.DB.open(str(tmp_path / "db"), Options(
+        merge_operator=mo.StringAppendOperator(),
+        disable_auto_compactions=True,
+        compaction_executor_factory=LocalCompactionExecutorFactory()))
+
+    def read_while_the_mutex_is_held():
+        held, release = threading.Event(), threading.Event()
+
+        def holder():
+            with db._mutex:
+                held.set()
+                release.wait(timeout=60)
+        h = threading.Thread(target=holder)
+        h.start()
+        held.wait(timeout=30)
+        out = []
+        th = threading.Thread(target=lambda: out.append((
+            db.get(b"k"), db.multi_get([b"k", b"k2"]),
+            db.get_merge_operands(b"k"))))
+        th.start()
+        th.join(timeout=30)
+        done = not th.is_alive()
+        release.set()
+        h.join(timeout=30)
+        th.join(timeout=30)
+        assert done, "a read waited for the DB mutex"
+        return out[0]
+
+    try:
+        db.put(b"k", b"base")
+        db.put(b"k2", b"v2")
+        db.flush()
+        db.promote_l0(1)  # a metadata-only install
+        assert db.versions.current.files[1] and not \
+            db.versions.current.files[0]
+        assert read_while_the_mutex_is_held() == (
+            b"base", [b"base", b"v2"], [b"base"])
+        db.merge(b"k", b"a")
+        db.flush()
+        db.compact_range()  # a compaction install
+        assert not db.versions.current.files[0]
+        assert read_while_the_mutex_is_held() == (
+            b"base,a", [b"base,a", b"v2"], [b"base,a"])
+        assert db.delete_files_in_range(b"", b"\xff") > 0
+        assert not any(db.versions.current.files)
+        assert read_while_the_mutex_is_held() == (None, [None, None], [])
     finally:
         db.close()
 

@@ -628,10 +628,16 @@ def test_defaults_name_the_card_and_refuse_chips():
     assert svc_mod.HttpCompactionExecutorFactory(["http://x"]).device == \
         "cuda"
     assert svc_mod.DcompactWorkerService().device == "cuda"
-    with pytest.raises(NotSupported, match="A7"):
-        svc_mod.DcompactWorkerService(device="cpu-jax", chips=2)
-    with pytest.raises(NotSupported, match="A7"):
-        svc_mod.ChipPool(2)
+    # Multi-card packing is ported (the mesh route): --chips no longer
+    # refuses, and a grant of two cards names them as the job's mesh.
+    svc = svc_mod.DcompactWorkerService(device="cpu-jax", chips=2)
+    assert svc.pool.chips == ["chip:0", "chip:1"]
+    assert svc.grant_devices(["chip:0", "chip:1"]) == ["cpu", "cpu"]
+    assert svc_mod.DcompactWorkerService(chips=2).grant_devices(
+        ["chip:1", "chip:0"]) == ["cuda:1", "cuda:0"]
+    assert svc.grant_devices(["chip:1"]) is None
+    pool = svc_mod.ChipPool(2)
+    assert sorted(pool.admit()) == ["chip:0", "chip:1"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """toplingdb_tpu_torch stands alone: importing it and every submodule
 loads neither jax nor any toplingdb_tpu module, and no source file of the
-port (nor chip_smoke.py) imports either."""
+port (nor chip_smoke.py) imports either, or touches the process
+environment for the reference's route knobs (TPULSM_HOST_SORT,
+TPULSM_HOST_MERGE, TPULSM_MESH_*, XLA_FLAGS): the port takes them as
+arguments."""
 
 import ast
 import os
@@ -63,6 +66,14 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "toplingdb_tpu_torch.db.forward_iterator",
               "toplingdb_tpu_torch.db.repair"):
         assert m in loaded, m
+    # and the host twins' pipeline, the mesh plane and distributed GC.
+    for m in ("toplingdb_tpu_torch.ops.mesh_compaction",
+              "toplingdb_tpu_torch.parallel",
+              "toplingdb_tpu_torch.parallel.mesh_plan",
+              "toplingdb_tpu_torch.parallel.distributed_gc",
+              "toplingdb_tpu_torch.parallel.scaling_probe",
+              "toplingdb_tpu_torch.parallel.entry"):
+        assert m in loaded, m
     # and the SLO engine, the op trace with its analyzer, the concurrency
     # plane and the SidePlugin layer.
     for m in ("toplingdb_tpu_torch.utils.slo",
@@ -102,6 +113,54 @@ def test_sources_import_neither(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+KNOBS = ("TPULSM_HOST_SORT", "TPULSM_HOST_MERGE", "XLA_FLAGS")
+
+
+def _knob(value) -> bool:
+    return isinstance(value, str) and (
+        value in KNOBS or value.startswith("TPULSM_MESH_"))
+
+
+def _is_environ(node) -> bool:
+    """os.environ, or a bare `environ` imported from os."""
+    return ((isinstance(node, ast.Attribute) and node.attr == "environ")
+            or (isinstance(node, ast.Name) and node.id == "environ"))
+
+
+def test_knob_rule():
+    src = ("import os\n"
+           "a = os.environ.get('TPULSM_HOST_SORT')\n"
+           "os.environ['TPULSM_MESH_COMPACT'] = '1'\n"
+           "b = os.getenv('XLA_FLAGS')\n"
+           "env = {'TPULSM_HOST_MERGE': '0'}\n"
+           "c = os.environ.get('TPULSM_PIPELINE')\n")
+    assert len(_knob_uses(ast.parse(src))) == 4
+
+
+def _knob_uses(tree):
+    """Every line that names a route knob: a string constant equal to
+    one (an environ subscript, get / pop / setdefault / os.getenv
+    argument, or an env-dict key), or an environ access with one."""
+    hits = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and _knob(node.value):
+            hits.add(node.lineno)
+        elif (isinstance(node, ast.Subscript) and _is_environ(node.value)
+              and isinstance(node.slice, ast.Constant)
+              and _knob(node.slice.value)):
+            hits.add(node.lineno)
+    return sorted(hits)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_read_no_route_knobs(path):
+    """Ground rule 4: no module of the port, nor chip_smoke.py, reads or
+    writes the process environment for the reference's route knobs."""
+    tree = ast.parse(open(path).read(), filename=path)
+    assert not _knob_uses(tree), f"{path}: knob at lines {_knob_uses(tree)}"
 
 
 def test_worker_subprocess_loads_no_jax(tmp_path):

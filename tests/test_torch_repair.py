@@ -9,7 +9,10 @@
 - a table with a flipped byte is set aside in lost/ by both packages with
   the same report, and the DB reopens without it;
 - the port's repaired DB compacts on the "cpu" device executor and keeps
-  its rows.
+  its rows;
+- a repaired DB whose L0 file and its L1 output hold the same merge
+  operand (a live iterator pinned the compacted file): get, multi_get,
+  get_merge_operands and an iterator read the same values on both sides.
 
 Tolerance: none.
 """
@@ -17,8 +20,12 @@ Tolerance: none.
 import os
 
 import toplingdb_tpu.db.db as ref_dbm
+from toplingdb_tpu.compaction.executor import (
+    DeviceCompactionExecutorFactory as RefFactory,
+)
 from toplingdb_tpu.db import repair as ref_repair
 from toplingdb_tpu.options import Options as RefOptions
+from toplingdb_tpu.utils import merge_operator as ref_mo
 
 import toplingdb_tpu_torch.db.db as dbm
 from toplingdb_tpu_torch.compaction.executor import (
@@ -26,6 +33,7 @@ from toplingdb_tpu_torch.compaction.executor import (
 )
 from toplingdb_tpu_torch.db import repair
 from toplingdb_tpu_torch.options import Options
+from toplingdb_tpu_torch.utils import merge_operator as mo
 
 from test_torch_db import pinned_clock  # noqa: F401
 
@@ -41,6 +49,16 @@ class Side:
             return RefOptions(**kw)
         return Options(compaction_executor_factory=(
             DeviceCompactionExecutorFactory(device="cpu")), **kw)
+
+    def device_options(self, **kw):
+        """Both packages' device executors on the CPU."""
+        if self.ref:
+            return RefOptions(compaction_executor_factory=RefFactory(
+                device="cpu-jax"), **kw)
+        return self.options(**kw)
+
+    def string_append(self):
+        return (ref_mo if self.ref else mo).StringAppendOperator()
 
 
 def _lose_manifest(d):
@@ -149,3 +167,40 @@ def test_repair_sets_a_damaged_table_aside(tmp_path, pinned_clock):  # noqa: F81
     obs = both(sc, tmp_path)
     assert obs[0]["tables_dropped"] == 1 and obs[0]["tables_kept"] == 2
     assert obs[2] == obs[3] == {"default": 600}
+
+
+def test_repaired_duplicate_operand_reads_like_the_reference(
+        tmp_path, pinned_clock):  # noqa: F811
+    """A duplicated merge operand after repair: an iterator pins the L0
+    file that compact_files rewrote into L1, so after close and a lost
+    MANIFEST, repair_db keeps both tables, which hold the same (key,
+    seqno) merge operand. Every read of both packages then folds it
+    twice: get, multi_get and the iterator read B,X,X and
+    get_merge_operands [B, X, X]."""
+    def sc(s, d, obs):
+        opts = dict(merge_operator=s.string_append(),
+                    disable_auto_compactions=True)
+        db = s.DB.open(d, s.device_options(**opts))
+        db.put(b"k", b"B")
+        db.flush()
+        db.compact_range()
+        db.merge(b"k", b"X")
+        db.flush()
+        it = db.new_iterator()
+        it.seek_to_first()
+        l0 = [f.number for f in db.versions.current.files[0]]
+        db.compact_files(l0, 1)
+        db.close()
+        _lose_manifest(d)
+        obs.append(s.repair_db(d, s.options(**opts))["tables_kept"])
+        del it
+        with s.DB.open(d, s.device_options(**opts)) as db:
+            obs.append(db.get(b"k"))
+            obs.append(db.multi_get([b"k", b"absent"]))
+            obs.append(db.get_merge_operands(b"k"))
+            it2 = db.new_iterator()
+            it2.seek_to_first()
+            obs.append(list(it2.entries()))
+    seen = both(sc, tmp_path)
+    assert seen == [3, b"B,X,X", [b"B,X,X", None], [b"B", b"X", b"X"],
+                        [(b"k", b"B,X,X")]]

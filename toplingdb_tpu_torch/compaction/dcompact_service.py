@@ -1,6 +1,5 @@
 """dcompact worker service: HTTP job submission over shared storage (copied
-from toplingdb_tpu/compaction/dcompact_service.py, without the multi-chip
-pool).
+from toplingdb_tpu/compaction/dcompact_service.py).
 
 The transport shape of ToplingDB's distributed compaction (a curl control
 plane and an NFS data plane; CompactionExecutorFactory::JobUrl in
@@ -11,15 +10,21 @@ data (input SSTs, output SSTs, params and results JSON) moves through the
 shared filesystem.
 
 Worker:  python -m toplingdb_tpu_torch.compaction.dcompact_service \
-             --port 8080 [--host H] [--device cuda] [--workers 1]
+             --port 8080 [--host H] [--device cuda] [--workers 1] [--chips N]
 
-The service runs each job in its own process with `worker.run_job` on its
-device: "cuda" (the default; the card, raising without one), "cpu-jax"
-(the kernels' plain versions) or "cpu" (the per-entry CompactionIterator).
-It prints the port it bound, so `--port 0` takes a free one.
-Multi-chip packing (toplingdb_tpu's `ChipPool`, `--chips N`) is not
-ported yet: `ChipPool` and `--chips` above 1 raise NotSupported (ROADMAP
-A7, the mesh).
+The service runs each job with `worker.run_job` on its device: "cuda"
+(the default; the card, raising without one), "cpu-jax" (the kernels'
+plain versions) or "cpu" (the per-entry CompactionIterator). It prints
+the port it bound, so `--port 0` takes a free one.
+
+Multi-card packing (`--chips N`): the host owns N cards, each a failure
+domain behind its own circuit breaker (the DB side's
+WorkerHealthRegistry, keyed "chip:<i>"). A job is admitted with as many
+healthy free cards as the pool can grant and runs the mesh route over
+them (`run_job(mesh_devices=...)`; the reference exports its grant
+through os.environ); a wedged card demotes later jobs to fewer cards,
+down to one, instead of stalling the queue. Per-card queue depths ride
+/metrics and /stats.
 """
 
 from __future__ import annotations
@@ -37,19 +42,106 @@ from toplingdb_tpu_torch.compaction.executor import (
     SubprocessCompactionExecutor,
     _check_remote_device,
 )
-from toplingdb_tpu_torch.utils.status import IOError_, NotSupported
-from toplingdb_tpu_torch.utils import concurrency as ccy
+import time
 
-_CHIPS_REFUSED = ("multi-chip packing (ChipPool, --chips > 1) is not "
-                  "ported yet: ROADMAP A7, the mesh")
+from toplingdb_tpu_torch.utils.status import IOError_
+from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
 class ChipPool:
-    """toplingdb_tpu's per-chip admission pool for one worker host; it
-    sizes the mesh plane to its grant, which the port does not have yet."""
+    """Per-card work queues and card-count-aware job admission for one
+    worker host. `admit()` targets the least-loaded healthy cards and
+    gang-waits for them; a card that wedges while a job queues is dropped
+    from the grant (fewer-card demotion), and a grant that times out takes
+    the subset that is free now, so a dead card degrades throughput, never
+    progress. Card health is the breaker machinery the DB side uses for
+    worker URLs, keyed "chip:<i>"."""
 
     def __init__(self, chips: int, policy=None):
-        raise NotSupported(_CHIPS_REFUSED)
+        from toplingdb_tpu_torch.compaction.resilience import (
+            DcompactOptions,
+            WorkerHealthRegistry,
+        )
+
+        self.chips = ["chip:%d" % i for i in range(max(1, chips))]
+        self.health = WorkerHealthRegistry(policy or DcompactOptions())
+        self._cv = ccy.Condition("dcompact_service.ChipPool._cv")
+        self._busy: set[str] = set()
+        # Granted-but-unreleased plus queued-targeting counts per card:
+        # the /metrics queue-depth gauge.
+        self._depth = {c: 0 for c in self.chips}
+
+    def _healthy(self) -> list[str]:
+        return [c for c in self.chips if self.health.breaker(c).allow()]
+
+    def _pick_targets(self, want: int) -> list[str]:
+        healthy = self._healthy()
+        healthy.sort(key=lambda c: self._depth[c])
+        return healthy[: max(0, want)]
+
+    def admit(self, want: int | None = None,
+              timeout: float = 30.0) -> list[str]:
+        """Block until the targeted cards are free; returns the granted
+        list (possibly smaller than `want`: demotion), or [] when no
+        healthy card exists (the job runs on one device)."""
+        want = len(self.chips) if want is None else max(1, want)
+        deadline = time.monotonic() + max(0.0, timeout)
+        with self._cv:
+            target = self._pick_targets(want)
+            for c in target:
+                self._depth[c] += 1
+            while True:
+                healthy = set(self._healthy())
+                alive = [c for c in target if c in healthy]
+                if len(alive) < len(target):
+                    # Wedged while queued: demote to the survivors.
+                    for c in set(target) - set(alive):
+                        self._depth[c] -= 1
+                    target = alive
+                if not target:
+                    return []
+                free = [c for c in target if c not in self._busy]
+                if len(free) == len(target):
+                    self._busy.update(target)
+                    return list(target)
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    # Take what is free now rather than stall the job.
+                    for c in set(target) - set(free):
+                        self._depth[c] -= 1
+                    self._busy.update(free)
+                    return list(free)
+                self._cv.wait(min(0.05, remaining))
+
+    def release(self, grant: list[str], ok: bool = True,
+                failed_chips=()) -> None:
+        with self._cv:
+            for c in grant:
+                self._busy.discard(c)
+                self._depth[c] -= 1
+            self._cv.notify_all()
+        # Health updates outside the pool lock (the breaker locks rank
+        # below the pool's).
+        for c in grant:
+            if ok and c not in failed_chips:
+                self.health.record_success(c)
+            else:
+                self.health.record_failure(c)
+
+    def queue_depths(self) -> dict[str, int]:
+        with self._cv:
+            return dict(self._depth)
+
+    def snapshot(self) -> dict:
+        with self._cv:
+            depths = dict(self._depth)
+            busy = set(self._busy)
+        health = self.health.snapshot()
+        return {
+            c: {"queue_depth": depths[c], "busy": c in busy,
+                "state": health.get(c, {}).get("state", "closed")}
+            for c in self.chips
+        }
 
 
 class DcompactWorkerService:
@@ -60,8 +152,6 @@ class DcompactWorkerService:
     def __init__(self, device: str = "cuda", max_workers: int = 1,
                  chips: int = 0):
         _check_remote_device(device)
-        if chips > 1:
-            raise NotSupported(_CHIPS_REFUSED)
         self.device = device
         self._sem = threading.Semaphore(max_workers)
         self._server: ThreadingHTTPServer | None = None
@@ -70,6 +160,34 @@ class DcompactWorkerService:
             "dcompact_service.DcompactWorkerService._counter_mu")
         self.jobs_done = 0
         self.jobs_failed = 0
+        # Multi-card packing: chips > 0 builds the per-card admission pool;
+        # 0 keeps one process per card.
+        self.pool = ChipPool(chips) if chips > 0 else None
+
+    def grant_devices(self, grant: list[str]) -> list[str] | None:
+        """A grant's mesh device list: "chip:<i>" → "cuda:<i>" on the card
+        ("cpu" for a "cpu-jax" service, the plain versions); None for 0 or
+        1 cards (one device, never half a mesh)."""
+        if len(grant) < 2:
+            return None
+        if self.device == "cpu-jax":
+            return ["cpu"] * len(grant)
+        return [f"cuda:{c.split(':')[1]}" for c in grant]
+
+    def _run_with_chips(self, run):
+        """Admit cards for one job, run it with the grant as its mesh
+        device list (`run(mesh_devices)`), and feed the outcome back into
+        the cards' breakers."""
+        if self.pool is None:
+            return run(None)
+        grant = self.pool.admit()
+        ok = False
+        try:
+            rc = run(self.grant_devices(grant))
+            ok = True
+            return rc
+        finally:
+            self.pool.release(grant, ok=ok)
 
     def _count(self, ok: bool) -> None:
         with self._counter_mu:
@@ -103,18 +221,32 @@ class DcompactWorkerService:
             if dirty:
                 with open(ppath, "w") as pf:
                     json.dump(params, pf, indent=1)
-            worker.run_job(job_dir)
+            self._run_with_chips(
+                lambda mesh: worker.run_job(job_dir, mesh_devices=mesh))
         with open(os.path.join(job_dir, "results.json")) as f:
             return json.load(f)
 
     def _metrics(self) -> bytes:
-        """Minimal Prometheus exposition of the job counters."""
+        """Minimal Prometheus exposition of the job counters and, with a
+        card pool, each card's queue depth, busy flag and breaker."""
         lines = []
         for metric, v in (("dcompact_jobs_done", self.jobs_done),
                           ("dcompact_jobs_failed", self.jobs_failed)):
             m = f"tpulsm_{metric}"
             lines.append(f"# TYPE {m} gauge")
             lines.append(f'{m}{{device="{self.device}"}} {v}')
+        if self.pool is not None:
+            snap = self.pool.snapshot()
+            for metric, val in (
+                ("dcompact_chip_queue_depth", lambda s: s["queue_depth"]),
+                ("dcompact_chip_busy", lambda s: int(s["busy"])),
+                ("dcompact_chip_wedged",
+                 lambda s: int(s["state"] != "closed")),
+            ):
+                m = f"tpulsm_{metric}"
+                lines.append(f"# TYPE {m} gauge")
+                for chip, s in snap.items():
+                    lines.append(f'{m}{{chip="{chip}"}} {val(s)}')
         return ("\n".join(lines) + "\n").encode()
 
     def start(self, port: int = 0, host: str = "127.0.0.1") -> int:
@@ -134,10 +266,13 @@ class DcompactWorkerService:
 
             def do_GET(self):
                 if self.path == "/stats":
-                    self._reply(200, {
+                    body = {
                         "device": svc.device, "jobs_done": svc.jobs_done,
                         "jobs_failed": svc.jobs_failed,
-                    })
+                    }
+                    if svc.pool is not None:
+                        body["chips"] = svc.pool.snapshot()
+                    self._reply(200, body)
                 elif self.path == "/health":
                     # Liveness probe for the DB side's health registry.
                     self._reply(200, {"ok": True, "device": svc.device})
@@ -270,8 +405,8 @@ def main(argv=None) -> int:
                     choices=("cuda", "cpu-jax", "cpu"))
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--chips", type=int, default=0,
-                    help="chips this host owns; above 1 is refused "
-                         "(multi-chip packing is not ported yet)")
+                    help="cards this host owns; > 0 enables multi-card "
+                         "packing (per-card queues, mesh-sized jobs)")
     args = ap.parse_args(argv)
     svc = DcompactWorkerService(args.device, args.workers, chips=args.chips)
     port = svc.start(args.port, args.host)

@@ -107,6 +107,9 @@ class DeviceCompactionExecutor(CompactionExecutor):
             blob_resolver=db.blob_source.get,
             blob_gc=maybe_new_blob_gc(db, compaction, new_file_number),
             column_family=(compaction.cf_id, db.cf_name(compaction.cf_id)),
+            host_sort=self.factory.host_sort,
+            host_merge=self.factory.host_merge,
+            mesh_devices=self.factory.mesh_devices,
         )
         self.factory.record_job(compaction, stats, time.time() - t0)
         return outputs, stats
@@ -117,17 +120,25 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
     own choices of route.
 
     device: "cuda" (the card; a job raises without one) or "cpu" (the
-    kernels' plain PyTorch versions). A failed job raises; nothing re-runs
-    it elsewhere. `jobs` logs every job the factory's executors ran: its
-    column family id, level pair, reason, input files and rows, whether it
-    ran pipelined, and its wall."""
+    kernels' plain PyTorch versions). host_sort / host_merge /
+    mesh_devices: run_device_compaction's route arguments (the host twins;
+    the mesh route over a device list). A failed job raises; nothing
+    re-runs it elsewhere. `jobs` logs every job the factory's executors
+    ran: its column family id, level pair, reason, input files and rows,
+    whether it ran pipelined, its mesh devices and fallbacks, and its
+    wall."""
 
-    def __init__(self, device: str = "cuda"):
+    def __init__(self, device: str = "cuda", host_sort: bool = False,
+                 host_merge: bool = True, mesh_devices=None):
         if device not in ("cuda", "cpu"):
             raise ValueError(
                 f"device {device!r}: the port's executor runs 'cuda' or "
                 f"'cpu'")
         self.device = device
+        self.host_sort = host_sort
+        self.host_merge = host_merge
+        self.mesh_devices = (None if mesh_devices is None
+                             else list(mesh_devices))
         self.jobs: list[dict] = []
         self._lock = threading.Lock()
 
@@ -143,7 +154,8 @@ class DeviceCompactionExecutorFactory(CompactionExecutorFactory):
                 reason=compaction.reason,
                 input_files=compaction.num_input_files(),
                 rows=stats.input_records, pipelined=stats.pipelined,
-                wall_s=wall_s))
+                mesh_chips=stats.mesh_chips,
+                mesh_fallbacks=stats.mesh_fallbacks, wall_s=wall_s))
 
 
 @dataclasses.dataclass
@@ -193,13 +205,28 @@ class CompactionParams:
     store_spec: str | None = None
     input_addrs: list | None = None
     checksum_func: str | None = None  # output stamping func in store mode
+    # The port's route arguments of run_device_compaction (the reference
+    # reads them from its process env: TPULSM_HOST_SORT, TPULSM_HOST_MERGE,
+    # TPULSM_MESH_COMPACT). Written only when they differ from these
+    # defaults, so the reference's worker reads a default job's params.
+    host_sort: bool = False
+    host_merge: bool = True
+    mesh_devices: list | None = None  # device names, e.g. ["cuda:0", ...]
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=1)
+        d = dataclasses.asdict(self)
+        for name, default in _ROUTE_DEFAULTS.items():
+            if d[name] == default:
+                del d[name]
+        return json.dumps(d, indent=1)
 
     @staticmethod
     def from_json(s: str) -> "CompactionParams":
         return CompactionParams(**json.loads(s))
+
+
+_ROUTE_DEFAULTS = {"host_sort": False, "host_merge": True,
+                   "mesh_devices": None}
 
 
 def table_options_from_params(params: CompactionParams):

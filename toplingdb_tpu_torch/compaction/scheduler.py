@@ -355,7 +355,7 @@ class CompactionScheduler:
             # Deletion only.
             edit = make_version_edit(c, [])
             with db._mutex:
-                db.versions.log_and_apply(edit)
+                db._install_edit(edit)
                 db._delete_obsolete_files()
             return
 
@@ -381,7 +381,7 @@ class CompactionScheduler:
             edit.delete_file(c.level, meta.number)
             edit.add_file(c.output_level, meta)
             with db._mutex:
-                db.versions.log_and_apply(edit)
+                db._install_edit(edit)
             with self._lock:
                 self.num_trivial_moves += 1
             db.event_logger.log(
@@ -453,7 +453,7 @@ class CompactionScheduler:
             db._stamp_file_checksums(outputs)
             edit = make_version_edit(c, outputs)
             with db._mutex:
-                db.versions.log_and_apply(edit)
+                db._install_edit(edit)
                 db._delete_obsolete_files()
             if db._sfm is not None:
                 for m in outputs:
@@ -485,10 +485,12 @@ class CompactionScheduler:
 
     @staticmethod
     def _compaction_mode(stats) -> str:
-        """serial / columnar / device / pipelined / remote: the root span's
-        `mode` tag."""
+        """serial / columnar / device / pipelined / remote / mesh: the root
+        span's `mode` tag."""
         if stats.remote:
             return "remote"
+        if stats.mesh_chips > 1:
+            return "mesh"
         if stats.pipelined:
             return "pipelined"
         if stats.device != "cpu":

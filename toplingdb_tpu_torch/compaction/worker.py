@@ -20,7 +20,10 @@ A non-bytewise comparator takes the per-entry branch (with the device
 stream for the device names, which refuses it, as the reference's does).
 Every table format, a prefix extractor and property collectors travel in
 the job (`table_format`, `prefix_extractor`, `collectors`;
-`executor.table_options_from_params`). Any other device name fails with
+`executor.table_options_from_params`), and so do the data plane's route
+arguments (`host_sort`, `host_merge`, `mesh_devices`; `run_job`'s
+`mesh_devices` overrides the job's, for the service's chip grant). Any
+other device name fails with
 ValueError, and a job that needs what the port does not carry yet (the
 shared-store mode, `store_spec`) fails with NotSupported, both before any
 file is written. With TPULSM_TEST_WORKER_CRASH=mid_job in its environment
@@ -44,7 +47,10 @@ _DEVICE_NAMES = {"cuda": "cuda", "tpu": "cuda", "device": "cuda",
                  "cpu-jax": "cpu"}
 
 
-def run_job(job_dir: str) -> int:
+def run_job(job_dir: str, mesh_devices=None) -> int:
+    """Run the job of `job_dir`. `mesh_devices` (a list of device names)
+    overrides the params' own: the worker service passes its chip grant
+    here."""
     from toplingdb_tpu_torch.compaction.executor import CompactionParams
 
     t_enter = time.time()
@@ -56,6 +62,8 @@ def run_job(job_dir: str) -> int:
         waiting_usec = 0
     with open(pjson) as f:
         params = CompactionParams.from_json(f.read())
+    if mesh_devices is not None:
+        params.mesh_devices = list(mesh_devices)
     # Job lease: heartbeat the job dir while the job runs, so the
     # submitting side can tell a live job from an orphan.
     heartbeat = None
@@ -203,7 +211,8 @@ def _run_job_body(job_dir: str, params, t_enter: float,
             merge_operator=merge_op, compaction_filter=cfilter,
             new_file_number=alloc, creation_time=params.creation_time,
             device_name=device_name, blob_resolver=blob_source.get,
-            column_family=column_family,
+            column_family=column_family, host_sort=params.host_sort,
+            host_merge=params.host_merge, mesh_devices=params.mesh_devices,
         )
         stats.input_files = len(params.input_files)
         stats.input_bytes = sum(

@@ -309,9 +309,9 @@ class ColumnFamilyHandle:
 
 class _CFData:
     """Mutable per-CF state (the memtable side of RocksDB's
-    ColumnFamilyData)."""
+    ColumnFamilyData). `sv` is the CF's published read view."""
 
-    __slots__ = ("handle", "mem", "imm")
+    __slots__ = ("handle", "mem", "imm", "sv")
 
     def __init__(self, handle: ColumnFamilyHandle, icmp, rep_name: str,
                  protection_bytes: int = 0):
@@ -319,6 +319,23 @@ class _CFData:
         self.mem = MemTable(icmp, create_memtable_rep(rep_name),
                             protection_bytes=protection_bytes)
         self.imm: list[MemTable] = []
+        self.sv: _SuperVersion | None = None
+
+
+class _SuperVersion:
+    """One CF's read view (RocksDB's SuperVersion): the active memtable,
+    the immutables newest first and the Version, taken together under the
+    DB mutex. A memtable switch and a flush's install publish a new one
+    under the mutex, so no view shows a sealed memtable beside the L0 file
+    it became, or one memtable twice."""
+
+    __slots__ = ("mem", "imm", "version", "mems")
+
+    def __init__(self, mem: MemTable, imm, version):
+        self.mem = mem
+        self.imm = tuple(imm)
+        self.version = version
+        self.mems = (mem,) + self.imm  # newest first
 
 
 class _SeqSnapshot:
@@ -334,12 +351,11 @@ class _SeqSnapshot:
 class _NGetState:
     """Per-thread bound state of the native point-read chain: the native
     context (it owns the out and value buffers), their mapped views, and
-    strong refs to the memtables and the version whose handles the context
-    embeds (compared by identity to notice a memtable switch or a version
-    install, and keeping those handles alive while this thread holds
-    them)."""
+    a strong ref to the read view whose memtables and version the context
+    embeds (compared by identity to notice a new view, and keeping those
+    handles alive while this thread holds them)."""
 
-    __slots__ = ("mem", "imm", "version", "ctx", "fn", "out",
+    __slots__ = ("sv", "ctx", "fn", "out",
                  "val_ptr", "val_cap", "_lib", "mg", "mg_arena", "fast",
                  "fast_mg")
 
@@ -360,14 +376,15 @@ class _NGetState:
         self.val_cap = vlen
 
     @classmethod
-    def build(cls, lib, mem, imm, version, table_cache):
+    def build(cls, lib, sv: _SuperVersion, table_cache):
         import ctypes
 
         from toplingdb_tpu_torch import native
 
         handles = []
         kinds = []
-        for m in [mem] + imm:
+        version = sv.version
+        for m in sv.mems:
             h = getattr(m._rep, "_h", None)
             kind = getattr(m._rep, "_nget_mem_kind", None)
             if h is None or kind is None:
@@ -385,9 +402,7 @@ class _NGetState:
             if kind:
                 lib.tpulsm_getctx_set_mem_kind(ctx, i, kind)
         s = cls.__new__(cls)
-        s.mem = mem
-        s.imm = list(imm)
-        s.version = version
+        s.sv = sv
         s.ctx = ctx
         s.fn = lib.tpulsm_getctx_get
         s.out = (ctypes.c_int64 * 8).from_address(
@@ -781,6 +796,7 @@ class DB:
                 raise InvalidArgument(
                     f"{dbname} does not exist (create_if_missing=False)")
             db.versions.create_new()
+            db._materialize_cfs()
             env.write_file(
                 filename.identity_file_name(dbname), uuid.uuid4().hex.encode()
             )
@@ -922,21 +938,25 @@ class DB:
                 self._flush_memtables([cfd.mem], wal_number=None,
                                       cf_id=cf_id)
                 cfd.mem = self._fresh_memtable()
+                self._install_super_version(cfd)
                 any_flushed = True
         if any_flushed:
             # One log_number advance once every CF is durable.
-            self.versions.log_and_apply(
+            self._install_edit(
                 VersionEdit(log_number=self.versions.next_file_number)
             )
 
     def _materialize_cfs(self) -> None:
-        """Build per-CF memtable state from the recovered VersionSet."""
+        """Build per-CF memtable state from the recovered VersionSet and
+        publish every CF's read view over it."""
         for cf_id, st in self.versions.column_families.items():
             if cf_id not in self._cfs:
                 h = ColumnFamilyHandle(cf_id, st.name)
                 self._cfs[cf_id] = _CFData(h, self.icmp,
                                            self.options.memtable_rep,
                                            protection_bytes=self._protection)
+        for cfd in self._cfs.values():
+            self._install_super_version(cfd)
 
     def _fresh_memtable(self) -> MemTable:
         return MemTable(self.icmp,
@@ -1097,9 +1117,10 @@ class DB:
         with self._mutex:
             cf_id = self.versions.create_column_family(name)
             h = ColumnFamilyHandle(cf_id, name)
-            self._cfs[cf_id] = _CFData(h, self.icmp,
-                                       self.options.memtable_rep,
-                                       protection_bytes=self._protection)
+            cfd = self._cfs[cf_id] = _CFData(
+                h, self.icmp, self.options.memtable_rep,
+                protection_bytes=self._protection)
+            self._install_super_version(cfd)
             return h
 
     def drop_column_family(self, handle: ColumnFamilyHandle) -> None:
@@ -1964,7 +1985,25 @@ class DB:
             if not cfd.mem.empty():
                 cfd.imm.insert(0, cfd.mem)
                 cfd.mem = self._fresh_memtable()
+                self._install_super_version(cfd)
         self._new_wal()
+
+    def _install_super_version(self, cfd: _CFData) -> None:
+        """Publish `cfd`'s read view from its memtables and its current
+        Version. The caller holds _mutex (or is opening the DB, before
+        any reader): every switch, install and catch-up publishes, so a
+        read takes `cfd.sv` as it stands, without the mutex."""
+        cfd.sv = _SuperVersion(
+            cfd.mem, cfd.imm, self.versions.cf_current(cfd.handle.id))
+
+    def _install_edit(self, edit: VersionEdit) -> None:
+        """Log and install `edit` (VersionSet.log_and_apply) and publish
+        its CF's new read view, so the view never pins the old Version's
+        files. The caller holds _mutex."""
+        self.versions.log_and_apply(edit)
+        cfd = self._cfs.get(edit.column_family)
+        if cfd is not None:
+            self._install_super_version(cfd)
 
     def _flush_immutables(self) -> None:
         flushed = False
@@ -1973,14 +2012,12 @@ class DB:
                 continue
             self._flush_memtables(list(cfd.imm), wal_number=None,
                                   cf_id=cf_id)
-            cfd.imm = []
             flushed = True
         if flushed:
             # Advance log_number only after EVERY CF's data below the
             # current WAL is durable in SSTs: a crash mid-flush must still
             # replay the old WALs for the CFs not yet flushed.
-            self.versions.log_and_apply(
-                VersionEdit(log_number=self._wal_number))
+            self._install_edit(VersionEdit(log_number=self._wal_number))
             self._delete_obsolete_files()
             self._maybe_schedule_compaction()
         self._sync_wbm()
@@ -2045,7 +2082,16 @@ class DB:
             edit = VersionEdit(log_number=wal_number, column_family=cf_id)
             if meta is not None:
                 edit.add_file(0, meta)
-            self.versions.log_and_apply(edit)
+            with self._mutex:
+                self.versions.log_and_apply(edit)
+                # The install: the flushed memtables leave the view in the
+                # same step as their L0 file enters it.
+                cfd = self._cfs.get(cf_id)
+                if cfd is not None:
+                    cfd.imm = [m for m in cfd.imm
+                               if not any(m is f for f in mems)]
+                    self._install_super_version(cfd)
+                sync_point("FlushJob::InstallResults")
         finally:
             self._pending_outputs.discard(fnum)
             if blob_num is not None:
@@ -2128,66 +2174,60 @@ class DB:
         if tr is not None:
             tr.close()
 
-    def _nget_state(self, cfd, opts):
+    def _nget_state(self, cfd, opts, sv: _SuperVersion):
         """The native chain's eligibility gate and this thread's call
-        state for CF `cfd`: (lib, state), state None when the Python chain
-        must run. The state is PER-THREAD (the context's out and value
-        buffers are written inside a GIL-released call), one per CF, and
-        keyed by the identity of (active memtable, immutables, version); it
-        holds refs to them, so a flush or a compaction that installs a new
-        version makes the next get rebuild it while the old handles live on
-        with the old state."""
+        state for CF `cfd` over the read view `sv`: (lib, state), state
+        None when the Python chain must run. The state is PER-THREAD (the
+        context's out and value buffers are written inside a GIL-released
+        call), one per CF, and keyed by the identity of the view; it holds
+        a ref to it, so a new view makes the next get rebuild the state
+        while the old handles live on with the old one."""
         lib = self._nget_lib
         if lib is None or opts.just_check_key_exists:
             return lib, None
-        mem = cfd.mem
-        if mem._range_dels:
+        if sv.mem._range_dels:
             # The ACTIVE memtable mutates under a cached state, so this
             # check runs per call; immutables are frozen and are vetted
             # once, when the state is built.
             return lib, None
-        imm = cfd.imm
-        version = self.versions.cf_current(cfd.handle.id)
         tl = self._nget_tl
         try:
             states = tl.states
         except AttributeError:
             states = tl.states = {}
         cc = states.get(cfd.handle.id)
-        if cc is not None and cc.mem is mem and cc.version is version \
-                and cc.imm == imm:
+        if cc is not None and cc.sv is sv:
             return lib, cc
-        if any(m._range_dels for m in imm):
+        if any(m._range_dels for m in sv.imm):
             return lib, None
-        cc = _NGetState.build(lib, mem, imm, version, self.table_cache)
+        cc = _NGetState.build(lib, sv, self.table_cache)
         if cc is None:
             return lib, None
         states[cfd.handle.id] = cc
         return lib, cc
 
-    def _native_get(self, cfd, key: bytes, snap_seq: int, opts):
+    def _native_get(self, cfd, key: bytes, snap_seq: int, opts,
+                    sv: _SuperVersion | None = None):
         """One-call native point lookup (RocksDB's GetImpl chain in one
         GIL-released call: DBImpl::GetImpl → Version::Get →
-        BlockBasedTable::Get). Returns (handled, value, src): handled=False
-        → run the Python chain (ineligible, or the native walk met
-        something only the Python state machine handles). The value and
-        the counters are read from context-owned memory mapped once."""
+        BlockBasedTable::Get) over the read view `sv` (the CF's current
+        one when None). Returns (handled, value, src): handled=False → run
+        the Python chain (ineligible, or the native walk met something
+        only the Python state machine handles). The value and the counters
+        are read from context-owned memory mapped once."""
         # Inlined steady-state check (one cached-state hit per get is the
         # common case; _nget_state handles every slow or ineligible path).
-        mem = cfd.mem
+        if sv is None:
+            sv = cfd.sv
         cc = None
-        if opts is _DEFAULT_READ and not mem._range_dels:
+        if opts is _DEFAULT_READ and not sv.mem._range_dels:
             states = getattr(self._nget_tl, "states", None)
             if states is not None:
                 cc = states.get(cfd.handle.id)
-                if cc is not None and (
-                        cc.mem is not mem
-                        or cc.version is not self.versions.cf_current(
-                            cfd.handle.id)
-                        or cc.imm != cfd.imm):
+                if cc is not None and cc.sv is not sv:
                     cc = None
         if cc is None:
-            _lib, cc = self._nget_state(cfd, opts)
+            _lib, cc = self._nget_state(cfd, opts, sv)
             if cc is None:
                 return False, None, None
         fast = cc.fast
@@ -2368,8 +2408,10 @@ class DB:
         # read plane routes around it: it lives in the Python walk, whose
         # block fetches batch-submit through the reader rings.
         async_on = self._async_reads
+        sv = cfd.sv
         if not async_on:
-            handled, val, src = self._native_get(cfd, key, snap_seq, opts)
+            handled, val, src = self._native_get(cfd, key, snap_seq, opts,
+                                                 sv)
             if handled:
                 if st_on:
                     self._record_get_stats(t0, val, src)
@@ -2377,7 +2419,7 @@ class DB:
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
                          blob_resolver=self.blob_source.get)
         # 1. Active memtable, then immutables (newest first).
-        for mem in [cfd.mem] + cfd.imm:
+        for mem in sv.mems:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
                 if st_on:
                     self._record_get_stats(t0, ctx.result(), "mem")
@@ -2387,7 +2429,7 @@ class DB:
         # the walk, so a multi-level chain overlaps its preads (deeper
         # candidates are speculative: wasted only when an upper level
         # ends the lookup first).
-        version = self.versions.cf_current(cfd.handle.id)
+        version = sv.version
         preread_map = None
         if async_on:
             file_order = [f for _lvl, f in version.files_for_get(key)]
@@ -2488,14 +2530,14 @@ class DB:
         ctx = GetContext(key, snap_seq, None,
                          blob_resolver=self.blob_source.get,
                          collect_operands=True)
+        sv = cfd.sv
         more = True
-        for mem in [cfd.mem] + cfd.imm:
+        for mem in sv.mems:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
                 more = False
                 break
         if more:
-            version = self.versions.cf_current(cfd.handle.id)
-            self._walk_sst_chain(version, key, snap_seq, ctx)
+            self._walk_sst_chain(sv.version, key, snap_seq, ctx)
         return ctx.merge_operand_list()
 
     # -- user-defined timestamps ----------------------------------------
@@ -2571,10 +2613,11 @@ class DB:
                 it.next()
             return True
 
-        for mem in [cfd.mem] + cfd.imm:
+        sv = cfd.sv
+        for mem in sv.mems:
             if mem._range_dels or not probe(mem.new_iterator()):
                 return self._TS_SLOW
-        version = self.versions.cf_current(cfd.handle.id)
+        version = sv.version
         for level in range(version.num_levels):
             for f in version.overlapping_files(level, enc_hi, enc_lo):
                 reader = self.table_cache.get_reader(f.number)
@@ -2698,9 +2741,10 @@ class DB:
         # block fetches fanned through the reader rings; the native
         # whole-batch call serializes its preads in-call and is bypassed.
         async_on = self._async_reads
+        sv = cfd.sv
         if not async_on:
             handled, native_res = self._native_multi_get(cfd, keys, snap_seq,
-                                                         opts, cf)
+                                                         opts, sv, cf)
             if handled:
                 return native_res
         resolver = self.blob_source.get
@@ -2711,7 +2755,7 @@ class DB:
         }
         live = dict(ctxs)
         # 1. Memtables: one pass per source for ALL live keys.
-        for mem in [cfd.mem] + cfd.imm:
+        for mem in sv.mems:
             for k in list(live):
                 if not self._probe_memtable(mem, k, snap_seq, live[k]):
                     del live[k]
@@ -2719,7 +2763,7 @@ class DB:
         # iterator is reused across the batch. A file's tombstones are
         # parsed once per batch, under a lock (the async_io walks share
         # the memo across threads).
-        version = self.versions.cf_current(cfd.handle.id)
+        version = sv.version
         tombs_cache: dict[int, list] = {}
         cache_mu = ccy.Lock("db.DB.cache_mu")
 
@@ -2796,14 +2840,15 @@ class DB:
             ctx.finish()
         return [self._result(ctxs[k]) for k in keys]
 
-    def _native_multi_get(self, cfd, keys, snap_seq: int, opts, cf=None):
+    def _native_multi_get(self, cfd, keys, snap_seq: int, opts,
+                          sv: _SuperVersion, cf=None):
         """Whole-batch native MultiGet: one GIL-released call walks every
         key's chain; only keys the native walk cannot decide (merge
         chains, blob indexes, range-tombstoned tables) re-resolve through
         the Python chain. Returns (handled, results)."""
         if not keys:
             return False, None
-        lib, cc = self._nget_state(cfd, opts)
+        lib, cc = self._nget_state(cfd, opts, sv)
         if cc is None:
             return False, None
         if cc.fast_mg is not None and isinstance(keys, list) \
@@ -3391,7 +3436,7 @@ class DB:
             for f in l0:
                 edit.delete_file(0, f.number)
                 edit.add_file(target_level, f)
-            self.versions.log_and_apply(edit)
+            self._install_edit(edit)
 
     def wait_for_compactions(self) -> None:
         if self._compaction_scheduler is not None:
@@ -4110,7 +4155,7 @@ class DB:
             edit = VersionEdit(column_family=cfd.handle.id)
             for level, num in doomed:
                 edit.delete_file(level, num)
-            self.versions.log_and_apply(edit)
+            self._install_edit(edit)
             del version
             self._delete_obsolete_files()
             return len(doomed)

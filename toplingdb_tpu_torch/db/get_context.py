@@ -7,14 +7,6 @@ oldest, then deeper levels) feed visible entries for the target user key in
 newest→oldest order; the context tracks kNotFound → kFound/kDeleted/
 kMerge-in-progress transitions, accumulates merge operands, and respects the
 max covering range-tombstone seqno seen so far.
-
-A get reads the memtables and the version without the DB mutex, so one
-that overlaps a memtable switch or a flush's install can meet the same
-entries twice (a memtable as the active one and as an immutable one, or
-an immutable memtable and the L0 file it became). Entries arrive newest
-first with unique seqnos, so an entry whose seqno is not below the last
-merge operand's is such a repeat and is skipped: each operand is folded
-once. toplingdb_tpu's GetContext folds the repeat (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -44,7 +36,6 @@ class GetContext:
         self.value: bytes | None = None
         self.result_is_entity = False  # value is a wide-column encoding
         self.operands: list[bytes] = []   # collected newest→oldest
-        self._last_operand_seq = 0  # seqno of operands[-1]
         self.max_covering_tombstone_seq = 0
         self.found_final_value = False
         # collect_operands (RocksDB's DB::GetMergeOperands): keep the chain
@@ -65,8 +56,6 @@ class GetContext:
         caller, newest first). Returns False when the lookup is complete and
         no older sources need to be consulted."""
         assert not self.found_final_value
-        if self.operands and seq >= self._last_operand_seq:
-            return True  # a repeat of an entry already read (see above)
         if seq < self.max_covering_tombstone_seq:
             # Shadowed by a strictly newer range tombstone. Strict: seqnos are
             # unique per write, and seqno-zeroed entries (bottommost
@@ -122,7 +111,6 @@ class GetContext:
                 return False
             self.state = GetState.MERGE
             self.operands.append(value)
-            self._last_operand_seq = seq
             return True
         raise Corruption(f"unexpected value type {t} in lookup")
 

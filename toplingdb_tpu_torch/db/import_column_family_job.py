@@ -241,7 +241,7 @@ def import_column_family(db, name: str, source_dir: str,
             if max_seqno > db.versions.last_sequence:
                 edit.last_sequence = max_seqno
                 db.versions.last_sequence = max_seqno
-            db.versions.log_and_apply(edit)
+            db._install_edit(edit)
         except Exception:
             # Roll the half-created CF back.
             for p in copied:

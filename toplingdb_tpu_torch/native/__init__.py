@@ -33,7 +33,7 @@ _pylib: ctypes.PyDLL | None = None
 _tried = False
 
 # Must match TPULSM_ABI_VERSION in tpulsm_native.cc.
-_ABI_VERSION = 7
+_ABI_VERSION = 8
 
 
 def _build() -> bool:
@@ -264,6 +264,18 @@ def _bind(l: ctypes.CDLL) -> None:
         u8p, i64p, i64p, i64,                       # key buf/offs/lens, n
         i64p, i32,                                  # run_starts, n_runs
         i32p, u8p, u64p,                            # order, new_key, packed
+    ]
+    # The host twin of the fused shard program (ops/compaction_kernels.
+    # host_merge_gc): k-way run merge with an inline MVCC GC mask.
+    l.tpulsm_merge_gc_runs.restype = i64
+    l.tpulsm_merge_gc_runs.argtypes = [
+        u8p, i64p, i64p, i64,                       # key buf/offs/lens, n
+        i64p, i32,                                  # run_starts, n_runs
+        u64p, i32,                                  # snapshots, n_snaps
+        u64p, i32,                                  # cover (nullable), bottom
+        i32p, u8p, u8p,                             # order, zero, cx out
+        u64p, i32p,                                 # packed, has_complex
+        i32,                                        # force_threads
     ]
     # The fused group-commit write plane (db/db.py _native_group_commit):
     # validate a write group, frame its merged WAL record and apply it to

@@ -10,8 +10,9 @@
 // three host planes: the fused group-commit write plane
 // (tpulsm_wb_group_commit), the point-read chain (table / version handles,
 // a shared decompressed-block LRU, tpulsm_getctx_*) and the scan plane's
-// host k-way merge and sort (tpulsm_merge_runs, tpulsm_sort_entries). The
-// codec libraries are dlopen'd at run time, so the build needs none of
+// host k-way merge and sort (tpulsm_merge_runs, tpulsm_sort_entries), and
+// the compaction's host twin, the run merge with an inline MVCC GC mask
+// (tpulsm_merge_gc_runs). The codec libraries are dlopen'd at run time, so the build needs none of
 // their headers.
 //
 // Build (-Bsymbolic binds the library's calls to its own exports, so a
@@ -73,7 +74,7 @@ extern "C" {
 // ABI version handshake: the ctypes loader refuses a .so whose version
 // differs from its own expectation. Bump whenever any exported signature
 // changes shape.
-#define TPULSM_ABI_VERSION 7
+#define TPULSM_ABI_VERSION 8
 
 int32_t tpulsm_abi_version(void) { return TPULSM_ABI_VERSION; }
 
@@ -3650,6 +3651,223 @@ int32_t tpulsm_merge_runs(const uint8_t* key_buf, const int64_t* offs,
             : 0;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Fused k-way run merge + MVCC GC (host twin of the fused device kernel,
+// semantics of ops/compaction_kernels.host_gc_mask — RocksDB's
+// CompactionIterator's snapshot-stripe dedup, db/compaction/
+// compaction_iterator.cc role). ONE pass: merge presorted runs in internal-
+// key order and emit only the surviving rows — no sorted scratch pass, no
+// numpy mask passes. Complex user-key groups (MERGE / SINGLE_DELETION
+// present) are emitted whole with cx=1 for the host state machine.
+//   snaps:  sorted-ascending live-snapshot seqnos (may be null when none)
+//   cover:  nullable per-ORIGINAL-row max covering range-tombstone seqno,
+//           stripe-clamped by the caller
+//   zero_out/cx_out: per SURVIVOR (parallel to the returned prefix of
+//           order_out)
+//   packed_out: per ORIGINAL row (seq<<8|type), like tpulsm_merge_runs
+//   force_threads: 1..16 pins the merge's thread count, 0 = automatic
+// Returns the survivor count, or -1 when ineligible (keys > 8B, bad runs).
+// ---------------------------------------------------------------------------
+int64_t tpulsm_merge_gc_runs(const uint8_t* key_buf, const int64_t* offs,
+                             const int64_t* lens, int64_t n,
+                             const int64_t* run_starts, int32_t n_runs,
+                             const uint64_t* snaps, int32_t n_snaps,
+                             const uint64_t* cover, int32_t bottommost,
+                             int32_t* order_out, uint8_t* zero_out,
+                             uint8_t* cx_out, uint64_t* packed_out,
+                             int32_t* has_complex_out,
+                             int32_t force_threads) {
+  if (n <= 0 || n_runs <= 0) return -1;
+  for (int64_t i = 0; i < n; i++)
+    if (lens[i] - 8 > 8) return -1;  // packed fast path only
+  using E = PackedEntry;
+  auto cmp = [](const E& a, const E& b) { return packed_entry_less(a, b); };
+  size_t nthreads = effective_cpus();
+  if (nthreads > 8) nthreads = 8;
+  if (n < (1 << 16)) nthreads = 1;
+  // force_threads (1..16) pins the thread count: the group-aligned
+  // splitter path only engages multi-core, so parity tests force it to
+  // exercise that path on small boxes. 0 = automatic.
+  if (force_threads >= 1 && force_threads <= 16)
+    nthreads = (size_t)force_threads;
+  std::vector<E> es;
+  std::vector<std::vector<int64_t>> lb;
+  std::vector<int64_t> tcount(nthreads, 0), tbase(nthreads, 0);
+  std::vector<uint8_t> tcomplex(nthreads, 0);
+  try {
+    es.resize(n);
+    lb.assign(nthreads + 1, std::vector<int64_t>(n_runs));
+  } catch (...) {
+    return -1;  // no exception may cross the extern "C" boundary
+  }
+  {
+    auto build = [&](int64_t lo, int64_t hi) {
+      for (int64_t i = lo; i < hi; i++) {
+        es[i] = packed_entry_of(key_buf, offs, lens, i);
+        if (packed_out) packed_out[i] = es[i].packed;
+      }
+    };
+    std::vector<std::thread> pool;
+    for (size_t t = 1; t < nthreads; t++)
+      spawn_or_inline_th(pool, [&, t] {
+        build(n * (int64_t)t / (int64_t)nthreads,
+              n * (int64_t)(t + 1) / (int64_t)nthreads);
+      });
+    build(0, n / (int64_t)nthreads);
+    for (auto& w : pool) w.join();
+  }
+  // Group-ALIGNED splitters: a synthetic (kw, len, seq=+inf) key compares
+  // before every real row of that user key, so lower_bound lands each
+  // boundary at a group start and no user-key group spans two threads
+  // (the per-group complex/stripe logic below needs whole groups).
+  int32_t big = 0;
+  for (int32_t r = 1; r < n_runs; r++)
+    if (run_starts[r + 1] - run_starts[r] >
+        run_starts[big + 1] - run_starts[big])
+      big = r;
+  for (int32_t r = 0; r < n_runs; r++) {
+    lb[0][r] = run_starts[r];
+    lb[nthreads][r] = run_starts[r + 1];
+  }
+  for (size_t t = 1; t < nthreads; t++) {
+    int64_t blo = run_starts[big], bhi = run_starts[big + 1];
+    E sp = es[blo + (bhi - blo) * (int64_t)t / (int64_t)nthreads];
+    sp.packed = ~0ull;
+    sp.idx = INT32_MIN;
+    for (int32_t r = 0; r < n_runs; r++) {
+      int64_t lo = run_starts[r], hi = run_starts[r + 1];
+      while (lo < hi) {
+        int64_t mid = (lo + hi) >> 1;
+        if (cmp(es[mid], sp))
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      lb[t][r] = lo;
+    }
+  }
+  std::vector<std::vector<int64_t>> heads, ends;
+  try {
+    heads.assign(nthreads, std::vector<int64_t>(n_runs));
+    ends.assign(nthreads, std::vector<int64_t>(n_runs));
+  } catch (...) {
+    return -1;
+  }
+  constexpr uint8_t kDeletion = 0x0, kValue = 0x1, kMerge = 0x2,
+                    kSingleDel = 0x7;
+  auto stripe_of = [&](uint64_t seq) -> int32_t {
+    // count of snaps < seq (searchsorted left); n_snaps is usually 0.
+    int32_t lo = 0, hi = n_snaps;
+    while (lo < hi) {
+      int32_t mid = (lo + hi) >> 1;
+      if (snaps[mid] < seq)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    return lo;
+  };
+  // Per-thread merge with inline per-group GC. Survivors are written into
+  // the thread's slice region of order_out/zero_out/cx_out (slice offsets
+  // bound the survivor count from above), then compacted after the join.
+  auto merge_slice = [&](size_t t) {
+    int64_t base = 0;
+    for (int32_t r = 0; r < n_runs; r++) base += lb[t][r] - run_starts[r];
+    tbase[t] = base;
+    int64_t pos = base;
+    std::vector<int64_t>& head = heads[t];
+    std::vector<int64_t>& end = ends[t];
+    for (int32_t r = 0; r < n_runs; r++) {
+      head[r] = lb[t][r];
+      end[r] = lb[t + 1][r];
+    }
+    // Current user-key group buffer; emit decisions happen on group close.
+    uint64_t gkw = 0;
+    uint32_t glen = 0;
+    bool gcomplex = false;
+    int64_t gn = 0;             // rows buffered for this group
+    std::vector<E> grp;
+    auto flush_group = [&]() {
+      if (!gn) return;
+      if (gcomplex) {
+        tcomplex[t] = 1;
+        for (int64_t i = 0; i < gn; i++) {
+          order_out[pos] = grp[i].idx;
+          zero_out[pos] = 0;
+          cx_out[pos] = 1;
+          pos++;
+        }
+      } else {
+        int32_t ps = -1;
+        for (int64_t i = 0; i < gn; i++) {
+          const E& e = grp[i];
+          uint64_t seq = e.packed >> 8;
+          uint8_t vt = (uint8_t)(e.packed & 0xFF);
+          int32_t st = n_snaps ? stripe_of(seq) : 0;
+          bool first_in_stripe = (i == 0) || (st != ps);
+          ps = st;
+          bool covered = cover && cover[e.idx] != 0 && cover[e.idx] > seq;
+          bool keep = first_in_stripe && !covered;
+          if (bottommost && st == 0 && vt == kDeletion) keep = false;
+          if (!keep) continue;
+          bool zero = bottommost && st == 0 && vt == kValue;
+          order_out[pos] = e.idx;
+          zero_out[pos] = zero ? 1 : 0;
+          cx_out[pos] = 0;
+          pos++;
+        }
+      }
+      gn = 0;
+      grp.clear();
+    };
+    while (true) {
+      int32_t best = -1;
+      for (int32_t r = 0; r < n_runs; r++) {
+        if (head[r] >= end[r]) continue;
+        if (best < 0 || cmp(es[head[r]], es[head[best]])) best = r;
+      }
+      if (best < 0) break;
+      const E& e = es[head[best]++];
+      if (gn == 0 || e.kw != gkw || e.len != glen) {
+        flush_group();
+        gkw = e.kw;
+        glen = e.len;
+        gcomplex = false;
+      }
+      uint8_t vt = (uint8_t)(e.packed & 0xFF);
+      if (vt == kMerge || vt == kSingleDel) gcomplex = true;
+      grp.push_back(e);
+      gn++;
+    }
+    flush_group();
+    tcount[t] = pos - base;
+  };
+  {
+    std::vector<std::thread> pool;
+    for (size_t t = 1; t < nthreads; t++)
+      spawn_or_inline_th(pool, [&, t] { merge_slice(t); });
+    merge_slice(0);
+    for (auto& w : pool) w.join();
+  }
+  // Compact the per-thread survivor regions to a dense prefix.
+  int64_t n_out = tcount[0];
+  for (size_t t = 1; t < nthreads; t++) {
+    if (tbase[t] != n_out && tcount[t]) {
+      std::memmove(order_out + n_out, order_out + tbase[t],
+                   tcount[t] * sizeof(int32_t));
+      std::memmove(zero_out + n_out, zero_out + tbase[t], tcount[t]);
+      std::memmove(cx_out + n_out, cx_out + tbase[t], tcount[t]);
+    }
+    n_out += tcount[t];
+  }
+  if (has_complex_out) {
+    int32_t hc = 0;
+    for (size_t t = 0; t < nthreads; t++) hc |= tcomplex[t];
+    *has_complex_out = hc;
+  }
+  return n_out;
 }
 
 

@@ -31,6 +31,12 @@ job's entries as columns: `pad_columns`, `device_sort` (the same LSD sort,
 ties kept in original order) and `gc_mask`, which returns the sorted rows'
 keep / zero-seq / complex flags and their user-key group ids.
 
+The host twins at the end of the module (`host_fused_full` and its parts)
+are the accelerator-less route in numpy and the native library: the k-way
+merge of the presorted runs with the GC mask inline
+(`tpulsm_merge_gc_runs`), or a native sort or np.lexsort followed by a
+numpy GC mask. Their outputs equal the device programs'.
+
 Every reference u32 word is carried in int64 and masked to 32 bits after
 `~`, `<<` and `+`; the kernels take int32 tensors holding the bit patterns.
 All functions take an explicit device; nothing is global.
@@ -789,3 +795,260 @@ def fused_uniform_shard_finish(pending):
     zero_flags = (po >> np.uint32(23)).astype(bool)
     cx_flags = ((po >> np.uint32(22)) & np.uint32(1)).astype(bool)
     return order, zero_flags, cx_flags, has_complex
+
+
+# ---------------------------------------------------------------------------
+# The host twins (the reference's accelerator-less route, selected there by
+# TPULSM_HOST_SORT=1; here by run_device_compaction(host_sort=True)): the
+# native k-way run merge with an inline GC mask per shard, or the two-pass
+# twin (a native sort or np.lexsort, then a numpy GC mask). Their outputs
+# equal the device programs' (bitwise). A missing native library raises:
+# the numpy sort runs only where a native routine refuses the shape.
+# ---------------------------------------------------------------------------
+
+_MERGE, _SINGLE_DELETION = 2, 7
+
+
+def _host_lib():
+    from toplingdb_tpu_torch import native
+
+    lib = native.lib()
+    if lib is None:
+        raise NotSupported("the host twins need the native library, which "
+                           "could not be built or loaded")
+    return native, lib
+
+
+def _valid_run_starts(run_starts, n: int):
+    """int64 run boundaries, or None when they are missing or malformed
+    (malformed ones would leave rows unmerged or index past the entries
+    in C)."""
+    if run_starts is None or len(run_starts) < 2:
+        return None
+    rs = np.ascontiguousarray(run_starts, dtype=np.int64)
+    if int(rs[0]) != 0 or int(rs[-1]) != n or not np.all(np.diff(rs) >= 0):
+        return None
+    return rs
+
+
+def host_encode_sort(key_buf: np.ndarray, key_offs: np.ndarray,
+                     key_lens: np.ndarray, max_key_bytes: int):
+    """The numpy half-twin: columnar encode + np.lexsort into internal-key
+    order. Returns (s, words, uk_len, seq, vtype) with s = the sorted →
+    original permutation and the UNSORTED per-entry columns."""
+    n = len(key_offs)
+    offs = key_offs.astype(np.int64)
+    lens = key_lens.astype(np.int64)
+
+    seq, vtype = _trailer_seq_vtype(key_buf, key_offs, key_lens)
+    packed = (seq << np.uint64(8)) | vtype.astype(np.uint64)
+    inv = ~packed  # descending seq under an ascending sort
+
+    # Big-endian user-key words, zero-masked past each key's length.
+    w = (max_key_bytes + 3) // 4
+    span = w * 4
+    uk_len = lens - 8
+    idx = offs[:, None] + np.arange(span)[None, :]
+    np.clip(idx, 0, max(len(key_buf) - 1, 0), out=idx)
+    kb = key_buf[idx].astype(np.uint32)
+    kb *= np.arange(span)[None, :] < uk_len[:, None]
+    kbw = kb.reshape(n, w, 4)
+    words = ((kbw[:, :, 0] << 24) | (kbw[:, :, 1] << 16)
+             | (kbw[:, :, 2] << 8) | kbw[:, :, 3])
+
+    # lexsort's LAST column is primary: (key words..., key_len, inv), the
+    # device's operand order; stable, so equal internal keys keep their
+    # input order.
+    s = np.lexsort((inv, uk_len) + tuple(
+        words[:, j] for j in range(w - 1, -1, -1)))
+    return s, words, uk_len, seq, vtype
+
+
+def host_sort_order(key_buf: np.ndarray, key_offs: np.ndarray,
+                    key_lens: np.ndarray, run_starts=None,
+                    host_merge: bool = True):
+    """(order, new_key, packed) from the native byte-span comparator, the
+    device sort's order; `packed` = per-ORIGINAL-row (seq << 8 | type).
+    With `run_starts` ([R+1] boundaries of PRESORTED input runs) and
+    `host_merge`, the multi-threaded k-way run merge replaces the full
+    sort where it takes the shape (user keys of at most 8 bytes). None
+    when the native sort refuses the job."""
+    import ctypes
+
+    native, lib = _host_lib()
+    n = len(key_offs)
+    offs = np.ascontiguousarray(key_offs, dtype=np.int64)
+    lens = np.ascontiguousarray(key_lens, dtype=np.int64)
+    kb = np.ascontiguousarray(key_buf)
+    order = np.empty(n, dtype=np.int32)
+    new_key = np.empty(n, dtype=np.uint8)
+    packed = np.empty(n, dtype=np.uint64)
+    u64p = packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+    rs = _valid_run_starts(run_starts, n) if host_merge and n else None
+    rc = -1
+    if rs is not None:
+        rc = lib.tpulsm_merge_runs(
+            native.np_u8p(kb), native.np_i64p(offs), native.np_i64p(lens),
+            n, native.np_i64p(rs), len(rs) - 1,
+            native.np_i32p(order), native.np_u8p(new_key), u64p)
+    if rc != 0:
+        rc = lib.tpulsm_sort_entries(
+            native.np_u8p(kb), native.np_i64p(offs), native.np_i64p(lens),
+            n, native.np_i32p(order), native.np_u8p(new_key), u64p)
+    if rc != 0:
+        return None
+    return order, new_key.astype(bool), packed
+
+
+def host_merge_gc(key_buf, key_offs, key_lens, snapshots, bottommost,
+                  cover, run_starts, host_merge: bool = True,
+                  threads: int = 0):
+    """ONE native pass: the k-way merge of presorted runs with the GC mask
+    inline. Returns host_fused_full's 6-tuple, or None where the routine
+    does not apply (host_merge=False, missing or malformed run boundaries,
+    user keys over 8 bytes); the two-pass twin runs then. `threads`
+    (1-16) pins the merge's thread count, 0 leaves it to the routine."""
+    import ctypes
+
+    native, lib = _host_lib()
+    if not host_merge:
+        return None
+    n = len(key_offs)
+    rs = _valid_run_starts(run_starts, n)
+    if rs is None:
+        return None
+    offs = np.ascontiguousarray(key_offs, dtype=np.int64)
+    lens = np.ascontiguousarray(key_lens, dtype=np.int64)
+    kb = np.ascontiguousarray(key_buf)
+    order = np.empty(n, dtype=np.int32)
+    zero = np.empty(n, dtype=np.uint8)
+    cx = np.empty(n, dtype=np.uint8)
+    packed = np.empty(n, dtype=np.uint64)
+    hc = np.zeros(1, dtype=np.int32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
+    cov = (np.ascontiguousarray(cover, dtype=np.uint64)
+           if cover is not None else None)
+    n_out = lib.tpulsm_merge_gc_runs(
+        native.np_u8p(kb), native.np_i64p(offs), native.np_i64p(lens), n,
+        native.np_i64p(rs), len(rs) - 1,
+        snaps.ctypes.data_as(u64p) if len(snaps) else None, len(snaps),
+        cov.ctypes.data_as(u64p) if cov is not None else None,
+        1 if bottommost else 0,
+        native.np_i32p(order), native.np_u8p(zero), native.np_u8p(cx),
+        packed.ctypes.data_as(u64p), native.np_i32p(hc), int(threads),
+    )
+    if n_out < 0:
+        return None
+    seq = packed >> np.uint64(8)
+    vtype = (packed & np.uint64(0xFF)).astype(np.int32)
+    return (order[:n_out], zero[:n_out].astype(bool),
+            cx[:n_out].astype(bool), bool(hc[0]), seq, vtype)
+
+
+def host_gc_mask(new_key, sseq, svt, snapshots, cover, bottommost):
+    """The numpy twin of the GC mask over SORTED columns; `new_key` marks
+    user-key group starts, `cover` is the per-sorted-row stripe-clamped max
+    covering tombstone seqno (or None). Returns (keep, zero_seq,
+    host_resolve, group_id), like gc_mask."""
+    n = len(sseq)
+    snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
+    stripe = np.searchsorted(snaps, sseq, side="left").astype(np.int64)
+    first_in_stripe = new_key.copy()
+    if n > 1:
+        first_in_stripe[1:] |= stripe[1:] != stripe[:-1]
+
+    is_complex = (svt == _MERGE) | (svt == _SINGLE_DELETION)
+    group_id = np.cumsum(new_key) - 1
+    starts = np.flatnonzero(new_key)
+    group_complex = (np.bitwise_or.reduceat(is_complex, starts)
+                     if n else np.zeros(0, dtype=bool))
+    host_resolve = group_complex[group_id] if n else is_complex
+
+    covered = np.zeros(n, dtype=bool)
+    if cover is not None:
+        c = np.asarray(cover, dtype=np.uint64)
+        covered = (c != 0) & (c > sseq)  # cover is stripe-clamped already
+
+    keep = first_in_stripe & ~covered
+    if bottommost:
+        keep &= ~((stripe == 0) & (svt == _DELETION))
+    zero_seq = (keep & bool(bottommost) & (stripe == 0)
+                & (svt == _VALUE))
+    keep &= ~host_resolve
+    return keep, zero_seq, host_resolve, group_id
+
+
+def host_fused_full(key_buf: np.ndarray, key_offs: np.ndarray,
+                    key_lens: np.ndarray, max_key_bytes: int,
+                    snapshots: list[int], bottommost: bool,
+                    cover: np.ndarray | None = None, run_starts=None,
+                    host_merge: bool = True, threads: int = 0):
+    """The host twin of the fused shard program: the native merge with
+    its inline GC, else the two-pass twin (host_sort_with_boundaries +
+    host_gc_mask). `cover`: optional per-ORIGINAL-row uint64 max covering
+    tombstone seqno. Returns (order, zero_flags, cx_flags, has_complex,
+    seq, vtype) with seq / vtype per ORIGINAL row; `order` includes the
+    complex groups' rows, flagged by cx_flags."""
+    if len(snapshots) > MAX_SNAPSHOTS:
+        raise NotSupported(
+            f"device GC supports <= {MAX_SNAPSHOTS} live snapshots")
+    n = len(key_offs)
+    if n == 0:
+        e = np.empty(0, np.uint64)
+        return (np.empty(0, np.int32), np.empty(0, bool),
+                np.empty(0, bool), False, e, e.astype(np.int32))
+    fused = host_merge_gc(key_buf, key_offs, key_lens, snapshots,
+                          bottommost, cover, run_starts,
+                          host_merge=host_merge, threads=threads)
+    if fused is not None:
+        return fused
+    s, new_key, seq, vtype = host_sort_with_boundaries(
+        key_buf, key_offs, key_lens, max_key_bytes, run_starts=run_starts,
+        host_merge=host_merge)
+    keep, zero_seq, host_resolve, _ = host_gc_mask(
+        new_key, seq[s], vtype[s], snapshots,
+        None if cover is None else cover[s], bottommost)
+    out = keep | host_resolve
+    order = s[out].astype(np.int32)
+    return (order, zero_seq[out], host_resolve[out],
+            bool(host_resolve.any()), seq, vtype)
+
+
+def host_sort_with_boundaries(key_buf, key_offs, key_lens, max_key_bytes,
+                              run_starts=None, host_merge: bool = True):
+    """The two-pass twin's front half: (s, new_key, seq, vtype) from the
+    native comparator, or from the lexsort twin where it refuses."""
+    nat = host_sort_order(key_buf, key_offs, key_lens,
+                          run_starts=run_starts, host_merge=host_merge)
+    if nat is not None:
+        s, new_key, packed = nat
+        seq = packed >> np.uint64(8)
+        vtype = (packed & np.uint64(0xFF)).astype(np.int32)
+    else:
+        s, words, uk_len, seq, vtype = host_encode_sort(
+            key_buf, key_offs, key_lens, max_key_bytes)
+        new_key = _new_key_from_words(words[s], uk_len[s])
+    return s, new_key, seq, vtype
+
+
+def _trailer_seq_vtype(key_buf, key_offs, key_lens):
+    """(seq, vtype) of each row from its 8 little-endian trailer bytes."""
+    offs = key_offs.astype(np.int64)
+    lens = key_lens.astype(np.int64)
+    tr_idx = (offs + lens - 8)[:, None] + np.arange(8)[None, :]
+    tr = key_buf[tr_idx].astype(np.uint64)
+    packed = np.zeros(len(offs), dtype=np.uint64)
+    for i in range(8):
+        packed |= tr[:, i] << np.uint64(8 * i)
+    return packed >> np.uint64(8), (packed & np.uint64(0xFF)).astype(np.int32)
+
+
+def _new_key_from_words(skw, slen):
+    """User-key group starts of sorted rows from their key words."""
+    n = len(slen)
+    same_key = np.zeros(n, dtype=bool)
+    if n > 1:
+        same_key[1:] = np.all(skw[1:] == skw[:-1], axis=1) & (
+            slen[1:] == slen[:-1])
+    return ~same_key

@@ -87,7 +87,7 @@ from toplingdb_tpu_torch.db.range_del import (
 from toplingdb_tpu_torch.ops import block_assembly as ba
 from toplingdb_tpu_torch.ops import compaction_kernels as ck
 from toplingdb_tpu_torch.ops.columnar import ColumnarEntries
-from toplingdb_tpu_torch.utils import protection
+from toplingdb_tpu_torch.utils import protection, telemetry
 from toplingdb_tpu_torch.utils.compaction_filter import Decision
 from toplingdb_tpu_torch.utils.status import NotSupported
 
@@ -426,12 +426,13 @@ def _device_shards(total_rows: int, num_shards: int | None = None) -> int:
     return s
 
 
-def _collect_raw_columnar(compaction, table_cache, icmp, num_shards=None):
+def _collect_raw_columnar(compaction, table_cache, icmp, num_shards=None,
+                          want_uploads=True):
     """Scan every input file into columnar buffers and its range tombstones
     into an aggregator, split the sorted parts into user-key-range shards
     and prepare each shard's uniform chunk columns on the host. Returns
     (kv, rd, shards, parts); shards is None when the uniform shard path
-    does not apply."""
+    does not apply, or with want_uploads=False (the host twins)."""
     from toplingdb_tpu_torch.ops.columnar_io import (
         ColumnarKV,
         scan_table_columnar,
@@ -451,7 +452,9 @@ def _collect_raw_columnar(compaction, table_cache, icmp, num_shards=None):
     for r in readers:
         for b, e in r.range_del_entries():
             rd.add(RangeTombstone.from_table_entry(b, e))
-    return kv, rd, _prepare_uniform_shards(parts, num_shards), parts
+    shards = (_prepare_uniform_shards(parts, num_shards) if want_uploads
+              else None)
+    return kv, rd, shards, parts
 
 
 def _cover_for_parts(parts, rd: RangeDelAggregator, snapshots):
@@ -706,29 +709,23 @@ def _outputs_from_files(env, files, kv, vtypes, stats, icmp, table_options):
     return outputs
 
 
-def _dispatch_shards(shards, cover, snapshots, bottommost, device):
-    """Serial shard dispatch: every shard is uploaded (with its rows'
-    tombstone cover, when there is one) and its device program enqueued up
-    front on one device (uploads and launches are asynchronous, so shard
-    s+1's copies stream while shard s computes, and each result's download
-    is enqueued behind its program). Returns finish(s), to be called for
-    s = 0..n-1 in order."""
-    pending = [
-        ck.fused_uniform_shard_start(
-            ck.upload_uniform_shard(
-                chunks,
-                None if cover is None else [cover[lo:hi]
-                                            for lo, hi in ranges],
-                device=device),
-            snapshots, bottommost)
-        for chunks, ranges in shards
-    ]
+def _dispatch_shards(shards, cover, snapshots, bottommost, device,
+                     stats=None, any_complex=False, mesh_devices=None):
+    """The serial route's shard dispatch, through the mesh seam
+    (ops/mesh_compaction.dispatch_shards): without a mesh plan every shard
+    is uploaded (with its rows' tombstone cover, when there is one) and its
+    device program enqueued up front on `device` (uploads and launches are
+    asynchronous, so shard s+1's copies stream while shard s computes, and
+    each result's download is enqueued behind its program); with one
+    (`mesh_devices`, an eligible job) the shards go round-robin over the
+    plan's devices, double-buffered per device. Returns finish(s), to be
+    called for s = 0..n-1 in order."""
+    from toplingdb_tpu_torch.ops import mesh_compaction as mc
 
-    def finish(s):
-        out = ck.fused_uniform_shard_finish(pending[s])
-        pending[s] = None
-        return out
-
+    finish, _mesh_on = mc.dispatch_shards(
+        shards, cover, snapshots, bottommost, stats=stats,
+        any_complex=any_complex, trace=telemetry.current_handle(),
+        device=device, mesh_devices=mesh_devices)
     return finish
 
 
@@ -754,10 +751,13 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                     column_family=(0, "default"),
                                     blob_resolver=None, device_blocks=False,
                                     num_shards=None, pipeline=True,
-                                    pipeline_shards=None, zip_plane=True):
+                                    pipeline_shards=None, zip_plane=True,
+                                    host_sort=False, host_merge=True,
+                                    mesh_devices=None):
     """The columnar route. Raises _FallbackToEntries where the reference
     hands the job to the per-entry route; partial outputs are gone by
-    then."""
+    then. host_sort=True: the host twins order and GC the rows (pipelined
+    per shard, or one whole-job call on the serial route)."""
     from toplingdb_tpu_torch.ops import pipeline as pl
     from toplingdb_tpu_torch.ops.columnar_io import write_tables_columnar
     from toplingdb_tpu_torch.table.zip_table import write_tables_zip_columnar
@@ -782,6 +782,8 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                 snapshots, new_file_number, creation_time, pstats,
                 MAX_DEVICE_KEY_BYTES, column_family, device=device,
                 n_shards=pipeline_shards, zip_plane=zip_plane,
+                host_sort=host_sort, host_merge=host_merge,
+                mesh_devices=mesh_devices,
             )
         except (pl.PipelineIneligible, NotSupported):
             pass  # the serial route decides (and raises what it must)
@@ -792,7 +794,8 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
             return outputs, pstats
     try:
         kv, rd, shards, parts = _collect_raw_columnar(
-            compaction, table_cache, icmp, num_shards)
+            compaction, table_cache, icmp, num_shards,
+            want_uploads=not host_sort)
     except NotSupported:
         raise _FallbackToEntries()  # buffers over the int32 budget etc.
     stats.input_scan_usec = int((time.time() - t0) * 1e6)
@@ -803,11 +806,14 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
     if kv.n and int(kv.key_lens.max()) - 8 > MAX_DEVICE_KEY_BYTES:
         raise _FallbackToEntries()  # the per-entry route refuses them too
     t_fin = time.time()
-    col = _kv_seq_vtype(kv)
-    _VT = dbformat.ValueType
-    any_complex = bool(kv.n) and bool(np.any(
-        (col.vtype == int(_VT.MERGE))
-        | (col.vtype == int(_VT.SINGLE_DELETION))))
+    col = any_complex = None
+    if not host_sort:
+        # The host twins return the trailer columns themselves.
+        col = _kv_seq_vtype(kv)
+        _VT = dbformat.ValueType
+        any_complex = bool(kv.n) and bool(np.any(
+            (col.vtype == int(_VT.MERGE))
+            | (col.vtype == int(_VT.SINGLE_DELETION))))
     tombs = surviving_tombstone_fragments(
         rd, snapshots, compaction.bottommost, icmp.user_comparator)
     stats.finish_usec += int((time.time() - t_fin) * 1e6)
@@ -823,9 +829,9 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
         cover = (None if rd.empty()
                  else _cover_for_parts(parts, rd, snapshots))
         stats.host_compute_usec += int((time.time() - t_cov) * 1e6)
-        if ba.assembly_supported(device_blocks, table_options, kv, shards,
-                                 any_complex, compaction.max_output_file_size,
-                                 col.vtype):
+        if not host_sort and ba.assembly_supported(
+                device_blocks, table_options, kv, shards, any_complex,
+                compaction.max_output_file_size, col.vtype):
             files = ba.run_block_assembly(
                 env, dbname, icmp, kv, shards[0], cover, snapshots,
                 compaction.bottommost, table_options, new_file_number,
@@ -834,10 +840,24 @@ def _run_device_compaction_columnar(env, dbname, icmp, compaction,
                                           icmp, table_options)
             stats.work_time_usec = int((time.time() - t0) * 1e6)
             return outputs, stats
-        if kv.n and shards is not None:
+        if host_sort:
+            # One whole-job call over the job's presorted input runs.
+            t_hc = time.time()
+            rs = np.cumsum([0] + [p_.n for p_ in parts], dtype=np.int64)
+            mkb = max(4, int(kv.key_lens.max()) - 8) if kv.n else 4
+            order, zero_flags, cx_flags, has_complex, seq_a, vt_a = \
+                ck.host_fused_full(
+                    kv.key_buf, kv.key_offs, kv.key_lens, mkb, snapshots,
+                    compaction.bottommost, cover, run_starts=rs,
+                    host_merge=host_merge)
+            stats.host_compute_usec += int((time.time() - t_hc) * 1e6)
+            col = types.SimpleNamespace(seq=seq_a, vtype=vt_a, n=kv.n)
+        elif kv.n and shards is not None:
             t_up = time.time()
             finish_shard = _dispatch_shards(
-                shards, cover, snapshots, compaction.bottommost, device)
+                shards, cover, snapshots, compaction.bottommost, device,
+                stats=stats, any_complex=any_complex,
+                mesh_devices=mesh_devices)
             stats.transfer_time_usec += int((time.time() - t_up) * 1e6)
             if not any_complex:
                 # Stream each shard's survivors straight into the writer.
@@ -960,7 +980,9 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                           blob_resolver=None, blob_gc=None,
                           column_family=(0, "default"), device_blocks=False,
                           num_shards=None, pipeline=True,
-                          pipeline_shards=None, zip_plane=True):
+                          pipeline_shards=None, zip_plane=True,
+                          host_sort=False, host_merge=True,
+                          mesh_devices=None):
     """Run one compaction job through the device data plane; the same
     signature as the reference's run_device_compaction and byte-identical
     outputs (including output cutting, and the blob file blob GC writes).
@@ -985,7 +1007,20 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     _SHARD_ROWS rows). zip_plane: zip outputs through the native zip
     plane (the default; a failure of it raises), or with False through the
     numpy encoders (the same bytes; the reference's TPULSM_ZIP_PLANE=0,
-    which also keeps zip jobs off the pipeline).
+    which also keeps zip jobs off the pipeline). host_sort: the columnar
+    route's rows are ordered and GC'd by the host twins
+    (compaction_kernels.host_fused_full: the native run merge with its
+    inline GC, pipelined per shard or whole-job on the serial route), the
+    reference's TPULSM_HOST_SORT=1, with the same bytes; it needs the
+    native library and raises NotSupported without it. host_merge=False
+    (the reference's TPULSM_HOST_MERGE=0) makes the host twins take the
+    two-pass route (a native full sort, then the numpy GC mask). A device
+    job never drops to the host twins. mesh_devices: a list of devices
+    (torch.device or names; they may repeat) over which an eligible job's
+    uniform shards go round-robin, pipelined or serial
+    (ops/mesh_compaction.py; the reference's TPULSM_MESH_COMPACT=1 over
+    its chips), the same bytes; a failing entry's shards move to the
+    others, then to `device_name`'s device, never to the host.
 
     Every table format (`table_options.format`: block, single_fast,
     cuckoo, plain, zip) and table option of the reference's device route
@@ -1004,6 +1039,11 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
     output is left behind on any failure."""
     device = resolve_device(device_name)
     _check_device_comparator(icmp)
+    if mesh_devices is not None:
+        mesh_devices = [torch.device(d) for d in mesh_devices]
+    if host_sort and native.lib() is None:
+        raise NotSupported("host_sort=True needs the native library, which "
+                           "could not be built or loaded")
     # A timestamp DB's jobs take the per-entry route: the history trim is
     # a pass over its survivor stream.
     if (native.lib() is not None and compaction_filter is None
@@ -1019,7 +1059,8 @@ def run_device_compaction(env, dbname, icmp, compaction, table_cache,
                 device, column_family, blob_resolver=blob_resolver,
                 device_blocks=device_blocks, num_shards=num_shards,
                 pipeline=pipeline, pipeline_shards=pipeline_shards,
-                zip_plane=zip_plane,
+                zip_plane=zip_plane, host_sort=host_sort,
+                host_merge=host_merge, mesh_devices=mesh_devices,
             )
         except _FallbackToEntries:
             pass

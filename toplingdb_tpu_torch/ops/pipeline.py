@@ -54,7 +54,7 @@ import torch
 from toplingdb_tpu_torch import native
 from toplingdb_tpu_torch.db import dbformat
 from toplingdb_tpu_torch.utils import telemetry
-from toplingdb_tpu_torch.utils.status import Corruption
+from toplingdb_tpu_torch.utils.status import Corruption, NotSupported
 from toplingdb_tpu_torch.utils import concurrency as ccy
 
 
@@ -421,43 +421,124 @@ def _put(outq, prog, item) -> None:
             continue
 
 
+def _host_compute(kv, files, splitters, prog, outq, shared, snapshots,
+                  bottommost, frags, max_dev_key, host_merge):
+    """Compute worker, host-twin mode: the native k-way merge with its
+    inline GC per shard (the two-pass twin where it refuses the shard, or
+    with host_merge=False); publishes global-row survivor chunks with the
+    zero-seq rows patched."""
+    from toplingdb_tpu_torch.ops import compaction_kernels as ck
+
+    n_shards = len(splitters) + 1
+    snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
+    for s in range(n_shards):
+        prog.wait_shard(s)
+        t0 = time.time()
+        ranges = _shard_ranges(files, s)
+        if not ranges:
+            continue
+        span = telemetry.span_under(shared.trace, "pipeline.merge_gc",
+                                    shard=s)
+        soffs = np.concatenate(
+            [kv.key_offs[lo:hi] for lo, hi in ranges]).astype(np.int64)
+        slens = np.concatenate(
+            [kv.key_lens[lo:hi] for lo, hi in ranges]).astype(np.int64)
+        mx = int(slens.max())
+        if mx - 8 > max_dev_key:
+            raise PipelineIneligible("keys exceed the device budget")
+        rs = np.cumsum([0] + [hi - lo for lo, hi in ranges],
+                       dtype=np.int64)
+        cover = _cover_for_ranges(kv, ranges, frags, snaps)
+        order, zero, _cx, hc, seq_l, vt_l = ck.host_fused_full(
+            kv.key_buf, soffs, slens, max(4, mx - 8), snapshots,
+            bottommost, cover, run_starts=rs, host_merge=host_merge)
+        if hc:
+            raise PipelineIneligible("complex groups present")
+        lmap = _ranges_lmap(ranges)
+        og = lmap[order]
+        shared.seqs[lmap] = seq_l
+        shared.vtypes[lmap] = vt_l
+        zg = og[zero]
+        shared.trailer_override[zg] = shared.vtypes[zg].astype(np.int64)
+        shared.seqs[zg] = 0
+        shared.stats.host_compute_usec += int((time.time() - t0) * 1e6)
+        span.finish()
+        _put(outq, prog, og)
+    _put(outq, prog, _DONE)
+
+
 def _device_compute(kv, files, splitters, prog, outq, shared, snapshots,
-                    bottommost, frags, max_dev_key, device):
+                    bottommost, frags, max_dev_key, device, mesh_devices):
     """Compute worker: upload each shard's uniform chunks as soon as its
     scan lands (asynchronous host→device copies + program enqueue), finish
     in order, one shard ahead, so shard s+1 transfers while shard s
-    computes. On CUDA the thread selects its device and runs every upload,
-    program and download on a stream of its own (PyTorch's current stream
-    is per thread); each shard's download and its event stay ordered
-    behind its program on that stream."""
+    computes. With `mesh_devices` (two or more) the shards go round-robin
+    over them and the lookahead widens to UPLOAD_DEPTH per entry; an entry
+    that fails mid-job demotes the rest of the job to `device`
+    (ops/mesh_compaction.py). On CUDA the thread selects its device and
+    runs every upload, program and download on a stream of its own
+    (PyTorch's current stream is per thread); each shard's download and
+    its event stay ordered behind its program on that stream."""
     with contextlib.ExitStack() as on_device:
         if device.type == "cuda":
             on_device.enter_context(torch.cuda.device(device))
             on_device.enter_context(
                 torch.cuda.stream(torch.cuda.Stream(device)))
         _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
-                        bottommost, frags, max_dev_key, device)
+                        bottommost, frags, max_dev_key, device, mesh_devices)
 
 
 def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
-                    bottommost, frags, max_dev_key, device):
+                    bottommost, frags, max_dev_key, device, mesh_devices):
     from toplingdb_tpu_torch.ops import compaction_kernels as ck
+    from toplingdb_tpu_torch.ops import mesh_compaction as mc
+    from toplingdb_tpu_torch.parallel import mesh_plan as mp
 
     n_shards = len(splitters) + 1
     snaps = np.asarray(sorted(snapshots), dtype=np.uint64)
-    depth = 1  # shards in flight beyond the one being finished
-    pendings = []  # (shard, ranges, lmap, pending) | None
+    mesh_devs = mc.pipeline_devices(n_shards, stats=shared.stats,
+                                    mesh_devices=mesh_devices)
+    # Shards in flight beyond the one being finished.
+    depth = [mp.UPLOAD_DEPTH * len(mesh_devs) if mesh_devs else 1]
+    pendings = []  # (shard, ranges, lmap, pending, dev, chunks, covers)
+
+    def _demote(exc) -> None:
+        # A failing entry: the rest of the job runs on `device`; the bytes
+        # are unchanged (the same programs), only the placement degrades.
+        mesh_devs.clear()
+        depth[0] = 1
+        shared.stats.mesh_chips = 1
+        shared.stats.mesh_fallbacks = getattr(
+            shared.stats, "mesh_fallbacks", 0) + 1
+        telemetry.span_event_under(shared.trace, "compaction.mesh.fallback",
+                                   0, reason="chip-wedged",
+                                   error=type(exc).__name__)
+
+    def start(chunks, covers, dev):
+        return ck.fused_uniform_shard_start(
+            ck.upload_uniform_shard(chunks, covers, device=dev), snapshots,
+            bottommost)
 
     def finish_one(item):
         if item is None:
             return
-        s, ranges, lmap, pending = item
+        s, ranges, lmap, pending, dev, chunks, covers = item
         t0 = time.time()
-        o, z, _cx, hc = ck.fused_uniform_shard_finish(pending)
+        try:
+            o, z, _cx, hc = ck.fused_uniform_shard_finish(pending)
+        except Exception as e:
+            if dev is None or isinstance(e, NotSupported):
+                raise
+            _demote(e)  # re-run this shard on the job's device
+            o, z, _cx, hc = ck.fused_uniform_shard_finish(
+                start(chunks, covers, device))
         dwait = time.time() - t0
         shared.stats.device_wait_usec += int(dwait * 1e6)
         telemetry.span_event_under(shared.trace, "pipeline.merge_gc",
                                    dwait * 1e6, shard=s, device=True)
+        if dev is not None:
+            telemetry.span_event_under(shared.trace, "compaction.mesh.shard",
+                                       dwait * 1e6, shard=s, chip=str(dev))
         if hc:
             raise PipelineIneligible("complex groups present")
         og = lmap[o]
@@ -501,14 +582,24 @@ def _compute_shards(kv, files, splitters, prog, outq, shared, snapshots,
                 for lo, hi in ranges:
                     covers.append(cov[pos:pos + (hi - lo)])
                     pos += hi - lo
-            pending = ck.fused_uniform_shard_start(
-                ck.upload_uniform_shard(chunks, covers, device=device),
-                snapshots, bottommost,
-            )
+            dev = mesh_devs[s % len(mesh_devs)] if mesh_devs else None
+            try:
+                if dev is not None and mc._FAULT_HOOK is not None:
+                    mc._FAULT_HOOK(s, dev)  # the mesh route's test seam
+                pending = start(chunks, covers,
+                                dev if dev is not None else device)
+            except Exception as e:
+                if dev is None or isinstance(e, NotSupported):
+                    raise
+                _demote(e)
+                dev = None
+                pending = start(chunks, covers, device)
             shared.stats.transfer_time_usec += int((time.time() - t0) * 1e6)
-            pendings.append((s, ranges, _ranges_lmap(ranges), pending))
-        # Keep the lookahead window in flight; finish older shards now.
-        while len(pendings) > depth:
+            pendings.append((s, ranges, _ranges_lmap(ranges), pending, dev,
+                             chunks, covers))
+        # Keep the lookahead window in flight (one shard serially,
+        # UPLOAD_DEPTH per entry on the mesh); finish older shards now.
+        while len(pendings) > depth[0]:
             finish_one(pendings.pop(0))
     while pendings:
         finish_one(pendings.pop(0))
@@ -526,10 +617,16 @@ class _Shared:
 def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
                   snapshots, new_file_number, creation_time, stats,
                   max_dev_key, column_family=(0, "default"),
-                  device=torch.device("cpu"), n_shards=None, zip_plane=True):
+                  device=torch.device("cpu"), n_shards=None, zip_plane=True,
+                  host_sort=False, host_merge=True, mesh_devices=None):
     """Run one compaction through the three-stage pipeline on `device`
     (CUDA: the kernels; CPU: their plain versions), with `n_shards`
-    key-range shards (None: _pipeline_shards). Zip outputs take
+    key-range shards (None: _pipeline_shards). `host_sort=True` computes
+    the shards with the host twins instead (the reference's
+    TPULSM_HOST_SORT=1; `host_merge=False` is its TPULSM_HOST_MERGE=0, the
+    two-pass twin), the same bytes. `mesh_devices`: the device compute
+    stage's shards go round-robin over these (ops/mesh_compaction.py).
+    Zip outputs take
     write_tables_zip_columnar on the native zip plane; `zip_plane=False`
     makes a zip job PipelineIneligible (the serial route runs the numpy
     encoders). Returns the writer's file tuples, the scanned ColumnarKV
@@ -603,11 +700,13 @@ def run_pipelined(env, dbname, icmp, compaction, table_cache, table_options,
                         shared.trace))
         for fi, fp in enumerate(files)
     ]
+    compute, extra = ((_host_compute, (host_merge,)) if host_sort
+                      else (_device_compute, (device, mesh_devices)))
     cthread = ccy.spawn(
         "pipeline-compute", _compute_guard, start=False,
-        args=(prog, outq, _device_compute, kv, files, splitters, prog, outq,
+        args=(prog, outq, compute, kv, files, splitters, prog, outq,
               shared, snapshots, compaction.bottommost, frags, max_dev_key,
-              device),
+              *extra),
     )
     for t in rthreads:
         t.start()

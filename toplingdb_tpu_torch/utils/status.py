@@ -17,6 +17,7 @@ class Code(enum.IntEnum):
     MERGE_IN_PROGRESS = 6
     SHUTDOWN_IN_PROGRESS = 8
     BUSY = 11
+    TRY_AGAIN = 13
 
 
 class Severity(enum.IntEnum):
@@ -73,6 +74,10 @@ class ShutdownInProgress(Status):
 
 class Busy(Status):
     code = Code.BUSY
+
+
+class TryAgain(Status):
+    code = Code.TRY_AGAIN
 
 
 class NoSpace(IOError_):
