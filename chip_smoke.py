@@ -242,7 +242,9 @@ Phases (any failure ends the run with a non-zero exit code):
      blob_cache 32 MiB = db_bench.py's --blob-cache-size) and RocksDB's
      default 64 MiB write buffer (with bench.py's 8 MiB, ~190 flushes of
      1 KiB values would rewrite all of L1 on every L0 job): BLOB_N =
-     250,000 keys (cut from 1,000,000: at 1M the phase alone took 319.8 s
+     125,000 keys (cut from 250,000 when phase 26 came: a slow host's
+     whole run took 1,140.0 s, phase 17 133.9 s of it; before that cut
+     from 1,000,000: at 1M the phase alone took 319.8 s
      on the card, 175.9 s of it compact_range's six per-entry GC jobs;
      at 500,000, inside the whole script, about 258 s, 162.0 s of it
      compact_range) from 4 threads, then an overwrite of the first
@@ -541,8 +543,10 @@ Phases (any failure ends the run with a non-zero exit code):
      lock held over 1 s, and registry.check_leaks(owner=db) empty after
      every close; (e) every job of the phase on "cuda", gc_rows launched
      by each job that no other overlapped, the launches and the card's
-     busy share. SP_N was cut from 500,000 to 250,000 when phase 25
-     came (a slow host's whole run took 1,101.6 s, phase 24 109.7 s of
+     busy share. SP_N was cut from 250,000 to 100,000 and SP_GETS
+     from 50,000 to 20,000 when phase 26 came (a slow host's whole run
+     took 1,140.0 s, phase 24 101.5 s of it); from 500,000 to 250,000
+     when phase 25 came (a slow host's whole run took 1,101.6 s, phase 24 109.7 s of
      it, its replay 59.8 s); before that SP_N was cut from
      1,000,000 to 500,000 and SP_GETS from
      100,000 to 50,000 (the mix first, then N) when the
@@ -581,6 +585,61 @@ Phases (any failure ends the run with a non-zero exit code):
      on the card (one gc_rows launch, added to the kernels line's counts)
      and equals the same step on "cpu" bitwise; dryrun_multichip(1) runs
      one NCCL rank and checks its jobs against the single-device GC.
+ 26. the utilities, the CompactionService and the wrapper Envs, on phase
+     13's deployment (8 MiB memtables, leveled, 16-digit keys, 20-byte
+     values; every compaction on "cuda" through one
+     DeviceCompactionExecutorFactory under a JobLog, or through the
+     service): (a) db_bench's randomtransaction shape: a pessimistic
+     TransactionDB (write_committed), 4 writer threads, each transaction
+     putting 100 keys, TXN_N = 200,000 keys (cut from 1,000,000 for
+     time), compact_range on the card, 20,000 gets and a full scan
+     against a dict oracle; a write_prepared TransactionDB: WP_TXNS =
+     500 2PC transactions of 100 keys (cut from 1,000; set_name, prepare,
+     commit; 4
+     threads), a snapshot taken while 10 of them are prepared, their
+     commit, flush and compact_range on the card: the snapshot reads
+     every pre-transaction value of those 10 (their guards parked in the
+     jobs' snapshot lists), the live scan the new ones; then 5
+     transactions prepared, the DB closed and reopened, the 5 recovered,
+     3 committed and 2 rolled back, every key checked; (b) a
+     CKPT_OVERLAY_N = 20,000-key overlay flushed over (a)'s compacted
+     level, create_checkpoint of (a)'s live DB, opened on the card and
+     compact_range there: its scan equals the source's; two
+     BackupEngine backups, the second after BACKUP_MORE_N = 10,000 more
+     writes (the SSTs the two share printed), verify, restore of the
+     second, opened, its scan equals the source's; (c) SstFileWriter
+     writes 4 external files of INGEST_N = 50,000 sorted keys (cut from
+     100,000), two
+     interleaved with (a)'s key range, two past it; ingest_external_file
+     of each, compact_range on the card, 20,000 gets and the scan against
+     the oracle in which ingested values win; (d) a TtlDB of TTL_N =
+     50,000 keys (cut from 200,000: TtlDB.put is a single-key write,
+     7,907 a second from one writer on the card's host, and single-key
+     writes from several Python threads convoy on the group commit: 4,099
+     a second) whose injected clock
+     expires the first half: compact_range's jobs all take the per-entry
+     route on the card, one gc_rows launch a job that no other
+     overlapped, no expired key survives, the survivors are the
+     oracle's; (e) a DB of SVC_N = 200,000 keys whose jobs run through
+     CompactionServiceExecutorFactory(InProcessCompactionService(),
+     device="cuda") launches both kernels and scans equal to its twin on
+     the device executor; one job of a SVC_SUB_N = 20,000-key DB's L0
+     files through SubprocessCompactionService (python -m
+     toplingdb_tpu_torch.compaction.compaction_service) exits 0 on the
+     card; (f) ENC_N = 200,000 keys over EncryptedEnv(PosixEnv(),
+     CTRCipher(...)): fill, flush, compact_range on the card, no 16-digit
+     run (a plaintext key) in any file on disk; reopened with the key,
+     ENC_GETS = 2,000 gets (the Python chain, which decrypts every block
+     it reads) and a full scan equal the oracle; the wrong key raises
+     Corruption; IO_N = 100,000 keys over IOTracingEnv filled and
+     compacted, the parsed per-op counts printed. Each part prints its
+     walls, rates and launches beside the card's name and power limit;
+     the phase's gc_rows and merge launches are added to the kernels
+     line's counts. The cuts of WP_TXNS, INGEST_N and TTL_N (to 100,000
+     first, then 50,000) came after a slow host's whole run took
+     1,140.0 s, phase 26 76.7 s of it: 2PC runs 82-286 transactions a
+     second on the card host's disk, an ingest rewrites each entry, and
+     TtlDB puts run ~7,700-8,400 a second.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -625,7 +684,7 @@ DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
 DB_WAL_N = 50_000       # phase 13: the WAL-replay run
 DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
 SMALL_DB_N = 200_000    # phase 14 (b) and (c)
-BLOB_N = 250_000        # phase 17, cut from DB_N (see its docstring)
+BLOB_N = 125_000        # phase 17, cut from DB_N (see its docstring)
 BLOB_PROBES = 20_000    # phase 17's probes, cut from 100,000 (docstring)
 DB_OFF_PROBES = 20_000  # phase 13's planes-off probes, cut from 100,000
 INTEGRITY_N = 200_000   # phase 18: phase 13's deployment, cut (docstring)
@@ -664,8 +723,8 @@ TAIL_POLL_S = 0.02      # phase 23 (b): the tailer's wait at the end
 RO_PROBES = 20_000      # phase 23 (b): the read-only open's probes
 PREFIX_N = 100_000      # phase 23 (b): keys of the prefix DB
 PREFIX_SEEKS = 1_000    # phase 23 (b): prefix_same_as_start seeks
-SP_N = 250_000          # phase 24 (a)-(b): cut from 1,000,000 (docstring)
-SP_GETS = 50_000        # phase 24 (b): cut from 100,000 (docstring)
+SP_N = 100_000          # phase 24 (a)-(b): cut from 1,000,000 (docstring)
+SP_GETS = 20_000        # phase 24 (b): cut from 100,000 (docstring)
 SP_OVERWRITE_N = 20_000  # phase 24 (b): overwrites, in batches of 100
 SP_SEEKS = 1_000        # phase 24 (b): seeks, 10 nexts each
 SP_MGETS = 1_000        # phase 24 (b): multi_gets of 32 keys
@@ -676,6 +735,17 @@ MANUAL_L0_TRIGGER = 16  # phase 21: L0 jobs start from marks (docstring)
 PARALLEL_N = 2_000_000  # phase 25 (a): phase 4's generator, 8 shards
 PARALLEL_SHARDS = 8     # phase 25 (a)
 DGC_ROWS = 1 << 20      # phase 25 (b): the distributed GC job's rows
+TXN_N = 200_000         # phase 26 (a): cut from 1,000,000 (docstring)
+WP_TXNS = 500           # phase 26 (a): cut from 1,000 (docstring)
+BACKUP_MORE_N = 10_000  # phase 26 (b): writes between the two backups
+INGEST_N = 50_000       # phase 26 (c): cut from 100,000 (docstring)
+TTL_N = 50_000          # phase 26 (d): cut from 200,000 (docstring)
+SVC_N = 200_000         # phase 26 (e): the service DB's keys
+SVC_SUB_N = 20_000      # phase 26 (e): the CLI job's DB
+ENC_N = 200_000         # phase 26 (f): the encrypted DB's keys
+IO_N = 100_000          # phase 26 (f): the traced DB's keys
+ENC_GETS = 2_000        # phase 26 (f): gets on the encrypted DB
+CKPT_OVERLAY_N = 20_000  # phase 26 (b): keys rewritten before the checkpoint
 
 
 def log(msg: str) -> None:
@@ -7004,6 +7074,570 @@ def parallel_path(torch, env, dbdir, icmp, topts, n, card,
     return gc_n + entry_n, mr_n
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the utilities, the CompactionService and the wrapper Envs
+# ---------------------------------------------------------------------------
+
+
+def txn_part(root, factory, card, n, n_wp, n_undecided):
+    """Phase 26 (a): a pessimistic TransactionDB filled by 4 writer threads
+    in transactions of 100 keys, compact_range on the card, every key read
+    back; a write_prepared TransactionDB's 2PC transactions with a
+    snapshot taken while 10 are prepared, a flush and compact_range on the
+    card; then 5 prepared transactions across a close and a reopen.
+    Returns the open pessimistic TransactionDB and its oracle."""
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.utilities.transactions import TransactionDB
+
+    def options():
+        return Options(create_if_missing=True, write_buffer_size=8 << 20,
+                       compaction_executor_factory=factory)
+
+    def value(i):
+        return b"t%019d" % i
+
+    tdb = TransactionDB.open(os.path.join(root, "txn"), options())
+    errs = []
+    per_t = n // 4
+
+    def writer(t):
+        try:
+            for lo in range(t * per_t, (t + 1) * per_t, 100):
+                txn = tdb.begin_transaction()
+                for i in range(lo, min(lo + 100, (t + 1) * per_t)):
+                    txn.put(db_key(i, n), value(i))
+                txn.commit()
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    ths = [threading.Thread(target=writer, args=(t,)) for t in range(4)]
+    t0 = time.time()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    assert not errs, errs
+    fill_s = time.time() - t0
+    t0 = time.time()
+    tdb.db.compact_range()
+    compact_s = time.time() - t0
+    oracle = {db_key(i, n): value(i) for i in range(per_t * 4)}
+    keys = sorted(oracle)
+    rr, scan_s, n_probe, found = probe_and_scan(
+        tdb.db, keys, oracle.get, per_t * 4, "txn", n_probe=20_000)
+    assert found == n_probe
+    log(f"[utilities a] pessimistic TransactionDB (write_committed): "
+        f"{per_t * 4} keys in {per_t * 4 // 100} transactions of 100 from 4 "
+        f"threads, {fill_s:.3f}s ({per_t * 4 / fill_s:.0f} keys/s); "
+        f"compact_range on {factory.device} {compact_s:.3f}s; {n_probe} "
+        f"gets {rr:.3f}s and a full scan {scan_s:.3f}s equal the oracle "
+        f"[{card}]")
+
+    # The write_prepared DB: 2PC transactions of 100 keys.
+    wpdir = os.path.join(root, "wp")
+    wp = TransactionDB.open(wpdir, options(), write_policy="write_prepared")
+
+    def wkey(j):
+        return b"wp%014d" % j
+
+    base = wp.begin_transaction()
+    for j in range(1000):                 # the 10 held transactions' keys
+        base.put(wkey(j), b"pre%017d" % j)
+    base.commit()
+    held = []
+    for t in range(10):
+        txn = wp.begin_transaction()
+        txn.set_name(f"held{t}")
+        for j in range(t * 100, t * 100 + 100):
+            txn.put(wkey(j), b"new%017d" % j)
+        txn.prepare()
+        held.append(txn)
+    snap = wp.db.get_snapshot()
+    assert len(snap.excluded_ranges) == 10
+    per_w = (n_wp - 10) // 4
+
+    def wp_writer(t):
+        try:
+            for x in range(10 + t * per_w, 10 + (t + 1) * per_w):
+                txn = wp.begin_transaction()
+                txn.set_name(f"x{x}")
+                for j in range(x * 100, x * 100 + 100):
+                    txn.put(wkey(j), b"new%017d" % j)
+                txn.prepare()
+                txn.commit()
+        except Exception as e:  # noqa: BLE001
+            errs.append(e)
+
+    ths = [threading.Thread(target=wp_writer, args=(t,)) for t in range(4)]
+    t0 = time.time()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    assert not errs, errs
+    wp_s = time.time() - t0
+    n_txn = 10 + 4 * per_w
+    for txn in held:
+        txn.commit()
+    assert len(wp._parked_guards) == 10, len(wp._parked_guards)
+    t0 = time.time()
+    wp.db.flush()
+    wp.db.compact_range()
+    wp_compact_s = time.time() - t0
+    ro = ReadOptions(snapshot=snap)
+    for j in range(1000):
+        assert wp.get(wkey(j), ro) == b"pre%017d" % j, j
+    wkeys = [wkey(j) for j in range(n_txn * 100)]
+    _, wscan, _, _ = probe_and_scan(
+        wp.db, wkeys, lambda k: b"new" + k[2:].rjust(17, b"0"), len(wkeys),
+        "wp", n_probe=0)
+    snap.release()
+    wp.begin_transaction().rollback()      # sweeps the parked guards
+    assert not wp._parked_guards
+    # Five prepared transactions across a close and a reopen.
+    for t in range(n_undecided):
+        txn = wp.begin_transaction()
+        txn.set_name(f"u{t}")
+        for j in range(t * 100, t * 100 + 100):
+            txn.put(wkey(j), b"und%017d" % j)
+        txn.prepare()
+    assert wp.get(wkey(0)) == b"new%017d" % 0
+    wp.close()
+    t0 = time.time()
+    wp = TransactionDB.open(wpdir, options(), write_policy="write_prepared")
+    reopen_s = time.time() - t0
+    rec = sorted(wp.get_prepared_transactions(), key=lambda x: x.name)
+    assert [x.name for x in rec] == [f"u{t}" for t in range(n_undecided)]
+    for j in range(n_undecided * 100):
+        assert wp.get(wkey(j)) == b"new%017d" % j   # still undecided
+    for x in rec[:3]:
+        x.commit()
+    for x in rec[3:]:
+        x.rollback()
+    for j in range(n_undecided * 100):
+        want = b"und%017d" % j if j < 300 else b"new%017d" % j
+        assert wp.get(wkey(j)) == want, j
+    wp.db.compact_range()
+    assert wp.get(wkey(350)) == b"new%017d" % 350
+    wp.close()
+    log(f"[utilities a] write_prepared TransactionDB: {n_txn} 2PC "
+        f"transactions of 100 keys (prepare, commit) from 4 threads "
+        f"{wp_s:.3f}s ({n_txn / wp_s:.0f} txn/s); a snapshot taken while "
+        f"10 were prepared read every pre-transaction value after their "
+        f"commit, a flush and compact_range on {factory.device} "
+        f"({wp_compact_s:.3f}s; 10 parked guards), the live view the new "
+        f"ones (scan {wscan:.3f}s); {n_undecided} prepared transactions "
+        f"across close and reopen ({reopen_s:.3f}s): 3 committed, 2 rolled "
+        f"back, every key checked [{card}]")
+    return tdb, oracle
+
+
+def backup_part(root, tdb, oracle, factory, card, n_more, n_overlay, n):
+    """Phase 26 (b): a checkpoint of (a)'s live DB opened and compacted
+    on the card, and two backups with a restore."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utilities.backup_engine import BackupEngine
+    from toplingdb_tpu_torch.utilities.checkpoint import create_checkpoint
+
+    def options():
+        return Options(write_buffer_size=8 << 20,
+                       compaction_executor_factory=factory)
+
+    def scan_all(db):
+        it = db.new_iterator()
+        it.seek_to_first()
+        return list(it.entries())
+
+    db = tdb.db
+    # An overlay in L0 over (a)'s compacted level, so the checkpoint's
+    # compact_range has a job to run.
+    for lo in range(0, n_overlay, 100):
+        b = WriteBatch()
+        for i in range(lo, min(lo + 100, n_overlay)):
+            k = db_key(i * 7 % n, n)
+            b.put(k, b"o%019d" % i)
+            oracle[k] = b"o%019d" % i
+        db.write(b)
+    db.flush()
+    ck = os.path.join(root, "ckpt")
+    t0 = time.time()
+    create_checkpoint(db, ck)
+    ck_s = time.time() - t0
+    src_scan = scan_all(db)
+    assert src_scan == sorted(oracle.items())
+    with DB.open(ck, options()) as cdb:
+        t0 = time.time()
+        cdb.compact_range()
+        ckc_s = time.time() - t0
+        assert scan_all(cdb) == src_scan
+    be = BackupEngine(os.path.join(root, "backups"))
+    t0 = time.time()
+    b1 = be.create_backup(db)
+    b1_s = time.time() - t0
+    for lo in range(0, n_more, 100):
+        b = WriteBatch()
+        for j in range(lo, min(lo + 100, n_more)):
+            k = b"bk%014d" % j
+            b.put(k, b"b%019d" % j)
+            oracle[k] = b"b%019d" % j
+        db.write(b)
+    t0 = time.time()
+    b2 = be.create_backup(db)
+    b2_s = time.time() - t0
+    metas = {}
+    for bid in (b1, b2):
+        with open(os.path.join(root, "backups", "meta", f"{bid}.json")) as f:
+            metas[bid] = {x["shared"] for x in json.load(f)["files"]}
+    shared = len(metas[b1] & metas[b2])
+    be.verify_backup(b2)
+    rdir = os.path.join(root, "restored")
+    t0 = time.time()
+    be.restore_db_from_backup(b2, rdir)
+    restore_s = time.time() - t0
+    src_scan = scan_all(db)
+    assert src_scan == sorted(oracle.items())
+    with DB.open(rdir, options()) as rdb:
+        assert scan_all(rdb) == src_scan
+    log(f"[utilities b] checkpoint of the live DB (an L0 overlay of "
+        f"{n_overlay} keys over its compacted level) {ck_s:.3f}s, opened "
+        f"and compacted on {factory.device} {ckc_s:.3f}s, its scan equals "
+        f"the source's ({len(src_scan) - n_more} keys); backups {b1_s:.3f}s and "
+        f"{b2_s:.3f}s (the second after {n_more} more writes: "
+        f"{len(metas[b2])} SSTs, {shared} shared with the first); restore "
+        f"{restore_s:.3f}s, its scan equals the source's [{card}]")
+
+
+def ingest_part(root, tdb, oracle, n, n_file, card, device):
+    """Phase 26 (c): 4 external SSTs of n_file sorted keys, two
+    interleaved with (a)'s key range and two past it, ingested into (a)'s
+    DB, then compact_range on the card."""
+    from toplingdb_tpu_torch.utilities.sst_file_writer import (
+        SstFileWriter,
+        ingest_external_file,
+    )
+
+    db = tdb.db
+    t0 = time.time()
+    paths = []
+    for f in range(4):
+        if f < 2:
+            nums = range(2 * f, 4 * n_file + 2 * f, 4)[:n_file]
+        else:
+            nums = range(2 * n + (f - 2) * n_file,
+                         2 * n + (f - 1) * n_file)
+        path = os.path.join(root, f"ext{f}.sst")
+        w = SstFileWriter()
+        w.open(path)
+        for x in nums:
+            k = b"%016d" % x
+            v = b"ing%d-%015d" % (f, x)
+            w.put(k, v)
+            oracle[k] = v
+        w.finish()
+        paths.append(path)
+    write_s = time.time() - t0
+    t0 = time.time()
+    levels = [ingest_external_file(db, p) for p in paths]
+    ingest_s = time.time() - t0
+    t0 = time.time()
+    db.compact_range()
+    compact_s = time.time() - t0
+    keys = sorted(oracle)
+    rng = __import__("random").Random(5)
+    n_get = min(20_000, len(keys))
+    for k in rng.sample(keys, n_get):
+        assert db.get(k) == oracle[k], k
+    it = db.new_iterator()
+    it.seek_to_first()
+    got = 0
+    for (k, v), wk in zip(it.entries(), keys):
+        assert k == wk and v == oracle[wk], (k, wk)
+        got += 1
+    assert got == len(keys) and not it.valid()
+    log(f"[utilities c] SstFileWriter: 4 files of {n_file} keys "
+        f"{write_s:.3f}s; ingested at levels {levels} {ingest_s:.3f}s; "
+        f"compact_range on {device} {compact_s:.3f}s; {n_get} gets and a "
+        f"scan of {len(keys)} keys equal the oracle (ingested values win) "
+        f"[{card}]")
+
+
+def ttl_part(root, factory, card, n, joblog):
+    """Phase 26 (d): a TtlDB whose injected clock expires half its keys;
+    compact_range takes the per-entry route on the card."""
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utilities.ttl import TtlDB
+
+    clock = [1_700_000_000.0]
+    db = TtlDB.open(os.path.join(root, "ttl"), ttl=1000, options=Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=factory), clock=lambda: clock[0])
+    half = n // 2
+
+    def fill(lo, hi):
+        # One writer: TtlDB.put is a single-key write, and single-key
+        # writes from several Python threads convoy on the group commit.
+        for i in range(lo, hi):
+            db.put(db_key(i, n), b"l%019d" % i)
+
+    j0 = len(joblog.jobs)
+    t0 = time.time()
+    fill(0, half)
+    clock[0] += 600
+    fill(half, n)
+    fill_s = time.time() - t0
+    clock[0] += 600                      # the first half is 1200 s old
+    t0 = time.time()
+    db.compact_range()
+    compact_s = time.time() - t0
+    live = sorted(db_key(i, n) for i in range(half, n))
+    it = db.db.new_iterator()
+    it.seek_to_first()
+    got = [k for k, _ in it.entries()]
+    assert got == live, (len(got), len(live))
+    for i in range(0, n, 97):
+        v = db.get(db_key(i, n))
+        assert v == (None if i < half else b"l%019d" % i), i
+    jobs = joblog.jobs[j0:]
+    assert jobs and all(j["route"] == "per-entry" for j in jobs), jobs
+    if factory.device != "cpu":
+        # One gc_rows launch a job, where no other job overlapped it.
+        for j in jobs:
+            if not any(o is not j and o["t0"] < j["t1"] and j["t0"] < o["t1"]
+                       for o in jobs):
+                assert j["gc"] == 1, j
+    db.close()
+    log(f"[utilities d] TtlDB: {n} keys (ttl 1000 s, the clock moved 600 s "
+        f"after half of them, then 600 s more) {fill_s:.3f}s "
+        f"({n / fill_s:.0f} puts/s); compact_range on {factory.device} "
+        f"{compact_s:.3f}s: {len(jobs)} jobs, all per-entry, gc_rows "
+        f"{sum(j['gc'] for j in jobs)} launches; {len(live)} survivors, "
+        f"the oracle's, no expired key [{card}]")
+
+
+def service_part(root, card, n, n_sub, device_name):
+    """Phase 26 (e): a DB whose compactions run through the
+    CompactionService on the card, against its twin on the device
+    executor; one job through the service's CLI."""
+    from toplingdb_tpu_torch.compaction import compaction_service as cs
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+
+    value = b"s" * 20
+    svc = cs.InProcessCompactionService()
+    scans = {}
+    walls = {}
+    launches = {}
+    for tag, factory in (
+            ("service", cs.CompactionServiceExecutorFactory(
+                svc, device=device_name)),
+            ("device", DeviceCompactionExecutorFactory(device=device_name))):
+        g0 = kernels.gc_rows.launches
+        m0 = kernels.merge_runs_perm.launches
+        db = DB.open(os.path.join(root, f"svc-{tag}"), Options(
+            create_if_missing=True, write_buffer_size=8 << 20,
+            compaction_executor_factory=factory))
+        t0 = time.time()
+        threaded_fill(db, n, lambda i: (db_key(i, n), value))
+        db.compact_range()
+        walls[tag] = time.time() - t0
+        launches[tag] = (kernels.gc_rows.launches - g0,
+                         kernels.merge_runs_perm.launches - m0)
+        assert db._compaction_scheduler.last_error is None
+        assert db._compaction_scheduler.num_local_jobs == 0
+        it = db.new_iterator()
+        it.seek_to_first()
+        scans[tag] = list(it.entries())
+        db.close()
+    assert scans["service"] == scans["device"]
+    assert len(scans["service"]) == n
+    assert svc.jobs >= 1
+    if device_name != "cpu":
+        assert launches["service"][0] >= svc.jobs, launches
+        assert launches["service"][1] >= 1, launches
+    # One job through the CLI: a small DB with its L0 files.
+    sdir = os.path.join(root, "svc-sub")
+    db = DB.open(sdir, Options(
+        create_if_missing=True, write_buffer_size=1 << 20,
+        disable_auto_compactions=True,
+        compaction_executor_factory=DeviceCompactionExecutorFactory(
+            device=device_name)))
+    threaded_fill(db, n_sub, lambda i: (db_key(i, n_sub), value))
+    db.flush()
+    nums = [f.number for f in db.versions.cf_current(0).files[0]]
+    db.close()
+    sub = cs.SubprocessCompactionService()
+    t0 = time.time()
+    res = cs.CompactionServiceResult.from_json(sub(
+        sdir, os.path.join(root, "svc-sub-out"),
+        cs.CompactionServiceInput(
+            cf_name="default", input_files=nums, output_level=1,
+            bottommost=True, snapshots=[], max_output_file_size=1 << 62,
+            device=device_name).to_json()))
+    sub_s = time.time() - t0
+    assert res.status == "ok" and sub.returncodes == [0], (
+        res.status, sub.returncodes)
+    assert sum(d["num_entries"] for d in res.output_files) == n_sub
+    log(f"[utilities e] CompactionService on {device_name}: {n} keys, fill "
+        f"and compact_range {walls['service']:.3f}s through "
+        f"{svc.jobs} in-process service jobs (launches gc_rows="
+        f"{launches['service'][0]} merge_runs={launches['service'][1]}) "
+        f"against {walls['device']:.3f}s on the device executor (gc_rows="
+        f"{launches['device'][0]} merge_runs={launches['device'][1]}): "
+        f"equal scans; one job of {len(nums)} L0 files through the CLI "
+        f"(python -m toplingdb_tpu_torch.compaction.compaction_service) "
+        f"rc 0 in {sub_s:.3f}s, {n_sub} entries [{card}]")
+    return launches["service"]
+
+
+def env_part(root, factory, card, n, n_io):
+    """Phase 26 (f): a DB over EncryptedEnv and one over IOTracingEnv,
+    their compactions on the card."""
+    import re
+
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.env import PosixEnv
+    from toplingdb_tpu_torch.env.encrypted import CTRCipher, EncryptedEnv
+    from toplingdb_tpu_torch.env.io_tracer import (
+        IOTracer,
+        IOTracingEnv,
+        parse_io_trace,
+    )
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.utils.status import Corruption
+
+    def options():
+        return Options(create_if_missing=True, write_buffer_size=8 << 20,
+                       compaction_executor_factory=factory)
+
+    def value(i):
+        return b"e%019d" % i
+
+    edir = os.path.join(root, "enc")
+    db = DB.open(edir, options(), env=EncryptedEnv(
+        PosixEnv(), CTRCipher(b"phase-26-key")))
+    t0 = time.time()
+    fill_s = threaded_fill(db, n, lambda i: (db_key(i, n), value(i)))
+    db.flush()
+    t1 = time.time()
+    db.compact_range()
+    compact_s = time.time() - t1
+    db.close()
+    enc_s = time.time() - t0
+    digits = re.compile(rb"\d{16}")
+    n_bytes = 0
+    for f in os.listdir(edir):
+        p = os.path.join(edir, f)
+        if os.path.isfile(p):
+            blob = open(p, "rb").read()
+            n_bytes += len(blob)
+            m = digits.search(blob)
+            assert m is None, (f, m.group(0))
+    oracle = {db_key(i, n): value(i) for i in range(n // 4 * 4)}
+    db = DB.open(edir, options(), env=EncryptedEnv(
+        PosixEnv(), CTRCipher(b"phase-26-key")))
+    rr, scan_s, n_probe, found = probe_and_scan(
+        db, sorted(oracle), oracle.get, n // 4 * 4, "enc", n_probe=ENC_GETS)
+    assert found == n_probe
+    db.close()
+    try:
+        DB.open(edir, options(), env=EncryptedEnv(PosixEnv(),
+                                                  CTRCipher(b"WRONG")))
+        raise AssertionError("the wrong key opened the encrypted DB")
+    except Corruption:
+        pass
+    log(f"[utilities f] EncryptedEnv: {n} keys filled {fill_s:.3f}s "
+        f"({n / fill_s:.0f} ops/s), compact_range on {factory.device} "
+        f"{compact_s:.3f}s, {enc_s:.3f}s in all; {n_bytes} bytes on disk "
+        f"hold no 16-digit key; reopened: {n_probe} gets {rr:.3f}s and a "
+        f"scan {scan_s:.3f}s equal the oracle; the wrong key raises "
+        f"Corruption [{card}]")
+    trace = os.path.join(root, "io.trace")
+    tracer = IOTracer(trace)
+    tdir = os.path.join(root, "traced")
+    db = DB.open(tdir, options(), env=IOTracingEnv(PosixEnv(), tracer))
+    t0 = time.time()
+    threaded_fill(db, n_io, lambda i: (db_key(i, n_io), value(i)))
+    db.flush()
+    db.compact_range()
+    io_s = time.time() - t0
+    db.close()
+    tracer.close()
+    per_op = parse_io_trace(trace)
+    assert per_op["append"]["count"] > 0 and per_op["read"]["bytes"] > 0
+    log(f"[utilities f] IOTracingEnv: {n_io} keys, fill, flush and "
+        f"compact_range on {factory.device} {io_s:.3f}s, "
+        f"{tracer.num_records} records; per op "
+        + json.dumps({k: [v["count"], v["bytes"]]
+                      for k, v in sorted(per_op.items())})
+        + f" (count, bytes) [{card}]")
+
+
+def utilities_path(torch, root, card, device_name="cuda", n_txn=TXN_N,
+                   n_wp=WP_TXNS, n_more=BACKUP_MORE_N, n_file=INGEST_N,
+                   n_ttl=TTL_N, n_svc=SVC_N, n_sub=SVC_SUB_N, n_enc=ENC_N,
+                   n_io=IO_N, n_overlay=CKPT_OVERLAY_N):
+    """Phase 26 (see the module docstring): (a) transactions, (b)
+    checkpoint and backup, (c) ingest, (d) TTL, (e) the CompactionService,
+    (f) the wrapper Envs. Returns the (gc_rows, merge_runs) launches."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.ops import kernels
+
+    os.makedirs(root, exist_ok=True)
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    launched = counted(kernels)
+    walls = {}
+    with JobLog(torch, factory, kernels) as joblog:
+        t0 = time.time()
+        tdb, oracle = txn_part(root, factory, card, n_txn, n_wp, 5)
+        walls["a"] = time.time() - t0
+        t0 = time.time()
+        backup_part(root, tdb, oracle, factory, card, n_more, n_overlay,
+                    n_txn)
+        walls["b"] = time.time() - t0
+        t0 = time.time()
+        ingest_part(root, tdb, oracle, n_txn, n_file, card, device_name)
+        tdb.close()
+        walls["c"] = time.time() - t0
+        t0 = time.time()
+        ttl_part(root, factory, card, n_ttl, joblog)
+        walls["d"] = time.time() - t0
+        t0 = time.time()
+        env_part(root, factory, card, n_enc, n_io)
+        walls["f"] = time.time() - t0
+    # Every job on the device; on a card, each job no other overlapped
+    # launched gc_rows (the merge only where its runs interleave, so the
+    # merge is checked over the phase).
+    routes = {}
+    for j in joblog.jobs:
+        assert j["device"] == device_name, j
+        alone = not any(o is not j and o["t0"] < j["t1"]
+                        and j["t0"] < o["t1"] for o in joblog.jobs)
+        if device_name != "cpu" and alone:
+            assert j["gc"] >= 1, j
+        routes[j["route"]] = routes.get(j["route"], 0) + 1
+    t0 = time.time()
+    service_part(root, card, n_svc, n_sub, device_name)
+    walls["e"] = time.time() - t0
+    gc_n, mr_n = launched()
+    if device_name != "cpu":
+        assert gc_n >= len(joblog.jobs) and mr_n >= 1, (gc_n, mr_n)
+    log(f"[utilities] {len(joblog.jobs)} device-executor jobs on "
+        f"{device_name} (routes {json.dumps(routes)}) and the service's, "
+        f"launches gc_rows={gc_n} "
+        f"merge_runs={mr_n}; part walls (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in sorted(walls.items())})}"
+        f" [{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7114,6 +7748,10 @@ def main() -> int:
         pa_gc, pa_mr = phase("25 parallel", parallel_path, torch, env,
                              dbdir, icmp, topts, PARALLEL_N, smi)
         log(f"[parallel] phase 25 wall {walls['25 parallel']:.1f}s [{smi}]")
+        u_gc, u_mr = phase("26 utilities", utilities_path, torch,
+                           os.path.join(dbdir, "db26"), smi)
+        log(f"[utilities] phase 26 wall {walls['26 utilities']:.1f}s "
+            f"[{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -7129,10 +7767,12 @@ def main() -> int:
     # after a space block, precluded, aged and over entities.
     # And phase 23's timestamp, primary, prefix and repaired DBs.
     # And phase 24's SidePlugin, replay, stalled and lock-debug DBs.
-    # And phase 25's mesh runs.
-    launches["gc_rows"] += w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc + pa_gc
+    # And phase 25's mesh runs, and phase 26's transaction, checkpoint,
+    # ingest, TTL, service and wrapper-Env DBs.
+    launches["gc_rows"] += (w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc + pa_gc
+                            + u_gc)
     launches["merge_runs"] += (w_mr + r_mr + m_mr + s_mr + p_mr + sp_mr
-                               + pa_mr)
+                               + pa_mr + u_mr)
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -84,7 +84,14 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   file store) equals the same call on a gloo CPU mesh bitwise;
 - the driver pair's defaults run on the card: entry()'s forward step
   launches gc_rows and equals its "cpu" step, and dryrun_multichip(1)
-  runs one NCCL rank.
+  runs one NCCL rank;
+- a write_prepared TransactionDB whose compact_range runs on "cuda": a
+  snapshot taken while a transaction was prepared reads the
+  pre-transaction value after the commit and the card's job (the parked
+  guard is in the job's snapshot list), live reads the committed one;
+- a CompactionService job on "cuda" (CompactionServiceExecutorFactory(
+  InProcessCompactionService(), device="cuda")) launches the kernels and
+  writes the SST bytes the device executor writes for the same DB.
 """
 
 import os
@@ -1846,3 +1853,82 @@ def test_driver_pair_runs_on_the_card(dev, tmp_path, capfd):
         np.testing.assert_array_equal(a, b)
     entry.dryrun_multichip(1, store_dir=str(tmp_path))
     assert "mesh jobs=1 x range=1, 2 jobs validated" in capfd.readouterr().out
+
+
+def test_write_prepared_guard_through_a_card_compaction(dev, tmp_path):
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.options import Options, ReadOptions
+    from toplingdb_tpu_torch.utilities.transactions import TransactionDB
+
+    factory = DeviceCompactionExecutorFactory(device="cuda")
+    tdb = TransactionDB.open(str(tmp_path / "db"), Options(
+        compaction_executor_factory=factory, write_buffer_size=64 << 10),
+        write_policy="write_prepared")
+    for i in range(5000):
+        tdb.put(b"k%05d" % i, b"pre%05d" % i)
+    tdb.db.flush()
+    txn = tdb.begin_transaction()
+    txn.set_name("t")
+    for i in range(0, 5000, 50):
+        txn.put(b"k%05d" % i, b"new%05d" % i)
+    txn.prepare()
+    snap = tdb.db.get_snapshot()
+    txn.commit()
+    assert len(tdb._parked_guards) == 1
+    kernels.gc_rows.launches = 0
+    tdb.db.compact_range()
+    assert kernels.gc_rows.launches >= 1
+    assert factory.jobs and tdb.db._compaction_scheduler.last_error is None
+    for i in range(0, 5000, 50):
+        k = b"k%05d" % i
+        assert tdb.get(k, ReadOptions(snapshot=snap)) == b"pre%05d" % i
+        assert tdb.get(k) == b"new%05d" % i
+    snap.release()
+    tdb.close()
+
+
+def test_compaction_service_job_on_the_card(dev, tmp_path):
+    import time as _time
+
+    from toplingdb_tpu_torch.compaction import compaction_service as cs
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db import db as dbm
+    from toplingdb_tpu_torch.options import Options
+
+    def fill(path, factory):
+        db = dbm.DB.open(path, Options(write_buffer_size=1 << 16,
+                                       disable_auto_compactions=True,
+                                       compaction_executor_factory=factory))
+        for i in range(20000):
+            db.put(b"s%06d" % ((i * 7919) % 12000), b"v%06d" % i)
+        db.flush()
+        return db
+
+    svc = cs.InProcessCompactionService()
+    outs = {}
+    real = _time.time
+    try:
+        _time.time = lambda: 1_700_000_000.0  # tables carry creation_time
+        for tag, factory in (
+                ("service", cs.CompactionServiceExecutorFactory(
+                    svc, device="cuda")),
+                ("device", DeviceCompactionExecutorFactory(device="cuda"))):
+            path = str(tmp_path / tag)
+            db = fill(path, factory)
+            kernels.gc_rows.launches = 0
+            kernels.merge_runs_perm.launches = 0
+            db.compact_range()
+            assert kernels.gc_rows.launches >= 1, tag
+            assert kernels.merge_runs_perm.launches >= 1, tag
+            files = sorted(f for f in os.listdir(path) if f.endswith(".sst"))
+            outs[tag] = [open(os.path.join(path, f), "rb").read()
+                         for f in files]
+            db.close()
+    finally:
+        _time.time = real
+    assert svc.jobs >= 1
+    assert outs["service"] == outs["device"]

@@ -83,8 +83,48 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "toplingdb_tpu_torch.utils.sync_point",
               "toplingdb_tpu_torch.utils.config"):
         assert m in loaded, m
+    # and the utilities, the CompactionService, the wrapper Envs and the
+    # CUDA probe.
+    for m in SLICE22_MODULES:
+        assert m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
+
+
+SLICE22_MODULES = (
+    "toplingdb_tpu_torch.utilities",
+    "toplingdb_tpu_torch.utilities.transactions",
+    "toplingdb_tpu_torch.utilities.write_batch_with_index",
+    "toplingdb_tpu_torch.utilities.checkpoint",
+    "toplingdb_tpu_torch.utilities.backup_engine",
+    "toplingdb_tpu_torch.utilities.sst_file_writer",
+    "toplingdb_tpu_torch.utilities.ttl",
+    "toplingdb_tpu_torch.utilities.option_migration",
+    "toplingdb_tpu_torch.compaction.compaction_service",
+    "toplingdb_tpu_torch.env.overlay",
+    "toplingdb_tpu_torch.env.remap",
+    "toplingdb_tpu_torch.env.encrypted",
+    "toplingdb_tpu_torch.env.io_tracer",
+    "toplingdb_tpu_torch.tools.io_tracer_parser",
+    "toplingdb_tpu_torch.utils.backend_probe",
+)
+
+
+@pytest.mark.parametrize("module", SLICE22_MODULES)
+def test_slice22_modules_read_no_environment(module):
+    """Ground rule 4 for the utilities, the service, the wrapper Envs and
+    the CUDA probe: no access to os.environ or os.getenv at all (the
+    probe decides nothing by the environment and redirects nothing)."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    path = mod.__file__
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        assert not _is_environ(node), f"{path}:{node.lineno} os.environ"
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("getenv", "putenv"), \
+                f"{path}:{node.lineno} os.{node.attr}"
 
 
 def _sources():

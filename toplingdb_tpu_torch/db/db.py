@@ -257,15 +257,21 @@ class _Writer:
     memtable phase (parallel=True — RocksDB's
     STATE_PARALLEL_MEMTABLE_WRITER)."""
 
-    __slots__ = ("batch", "opts", "done", "error", "event", "parallel",
-                 "pg", "pg_mems")
+    __slots__ = ("batch", "opts", "done", "error", "event", "on_sequenced",
+                 "parallel", "pg", "pg_mems")
 
-    def __init__(self, batch: WriteBatch, opts: WriteOptions):
+    def __init__(self, batch: WriteBatch, opts: WriteOptions,
+                 on_sequenced=None):
         self.batch = batch
         self.opts = opts
         self.done = False
         self.error: BaseException | None = None
         self.event = threading.Event()
+        # Optional callable(first_seq, last_seq) fired INSIDE the commit
+        # critical section, before the group's last_sequence publishes:
+        # the WritePrepared policy registers its undecided seqno range
+        # here, so no reader can ever observe the data unexcluded.
+        self.on_sequenced = on_sequenced
         self.parallel = False          # drafted into parallel memtable phase
         self.pg = None                 # _InsertBarrier of the phase
         self.pg_mems = None            # {cf_id: MemTable} to insert into
@@ -340,9 +346,11 @@ class _SuperVersion:
 
 class _SeqSnapshot:
     """Sequence-pinning shim for internal reads: quacks like a Snapshot
-    (.sequence) without registering in the snapshot list."""
+    (.sequence, no excluded ranges) without registering in the snapshot
+    list."""
 
     __slots__ = ("sequence",)
+    excluded_ranges = ()
 
     def __init__(self, seq: int):
         self.sequence = seq
@@ -586,6 +594,12 @@ class DB:
         self._file_deletions_disabled = 0  # DisableFileDeletions pin count
         self._stats_persist_seq = 0  # suffix of persisted stats keys
         self.num_flushes = 0  # L0 tables written by flushes
+        # WritePrepared policy hook (RocksDB's SnapshotChecker): a callable
+        # returning the seqno ranges of prepared but undecided
+        # transactions, which every read must treat as invisible. Set by
+        # utilities.transactions.TransactionDB under the write_prepared /
+        # write_unprepared policies; None = plain visibility.
+        self._undecided_provider = None
         self.identity = ""
         self._init_observability()
         self._init_storage_pressure()
@@ -1246,13 +1260,16 @@ class DB:
         return self.versions.last_sequence
 
     def write(self, batch: WriteBatch,
-              opts: WriteOptions = _DEFAULT_WRITE) -> int:
+              opts: WriteOptions = _DEFAULT_WRITE,
+              on_sequenced=None) -> int:
         """Group-commit write path (RocksDB's DBImpl::WriteImpl +
         WriteThread::JoinBatchGroup): concurrent writers queue up; the
         front writer leads, merging the queue into one WAL append + one
         fsync, then applies every batch to the memtable and publishes the
         group's last sequence at once. Returns this batch's LAST sequence
-        number."""
+        number. `on_sequenced(first, last)`, when given, runs once the
+        batch's records are in the WAL and the memtable and before its
+        sequence publishes (utilities/transactions.py)."""
         if batch.is_empty():
             return self.versions.last_sequence
         self._check_open()  # fail fast before any stall sleep
@@ -1282,10 +1299,10 @@ class DB:
                                 sync=bool(opts.sync))
         stats = self.stats
         if stats is None and tracer is None:
-            return self._write_impl(batch, opts)
+            return self._write_impl(batch, opts, on_sequenced)
         t0 = time.perf_counter()
         try:
-            return self._write_impl(batch, opts)
+            return self._write_impl(batch, opts, on_sequenced)
         finally:
             micros = (time.perf_counter() - t0) * 1e6
             if stats is not None:
@@ -1301,11 +1318,12 @@ class DB:
     def _write_token(w: _Writer) -> int:
         return w.batch.sequence() + w.batch.count() - 1
 
-    def _write_impl(self, batch: WriteBatch, opts: WriteOptions) -> int:
+    def _write_impl(self, batch: WriteBatch, opts: WriteOptions,
+                    on_sequenced=None) -> int:
         if self.icmp.user_comparator.timestamp_size:
             self._validate_ts_batch(batch)
         self._maybe_stall_writes()
-        w = _Writer(batch, opts)
+        w = _Writer(batch, opts, on_sequenced)
         with self._wq_lock:
             self._writers.append(w)
             is_leader = self._writers[0] is w
@@ -1521,6 +1539,11 @@ class DB:
         watermark would deadlock every later write."""
         with self._mutex:
             self._mt_inflight -= 1
+            if err is None:
+                for w in group:
+                    if w.on_sequenced is not None:
+                        s0 = w.batch.sequence()
+                        w.on_sequenced(s0, s0 + w.batch.count() - 1)
             entry = self._alloc_entry.pop(first, None)
             if entry is not None:
                 entry[2] = True
@@ -1911,6 +1934,15 @@ class DB:
                 sync_point("DBImpl::GroupCommit:BeforeWALBarrier")
                 with _tm.span("write.fsync_barrier"):
                     wal_wait()
+            # on_sequenced fires only after the WAL append and the memtable
+            # insert succeeded (a failed group leaks no registration), and
+            # BEFORE the group's sequence publishes: the entries stay
+            # invisible (seq > last_sequence) until the registration
+            # exists.
+            for w in group:
+                if w.on_sequenced is not None:
+                    s0 = w.batch.sequence()
+                    w.on_sequenced(s0, s0 + w.batch.count() - 1)
             self.versions.last_sequence = seq - 1
             self._maybe_sample_seqno_time(seq - 1)
             if self.stats is not None:
@@ -2183,7 +2215,8 @@ class DB:
         a ref to it, so a new view makes the next get rebuild the state
         while the old handles live on with the old one."""
         lib = self._nget_lib
-        if lib is None or opts.just_check_key_exists:
+        if (lib is None or opts.just_check_key_exists
+                or self._excluded_for(opts)):
             return lib, None
         if sv.mem._range_dels:
             # The ACTIVE memtable mutates under a cached state, so this
@@ -2220,7 +2253,8 @@ class DB:
         if sv is None:
             sv = cfd.sv
         cc = None
-        if opts is _DEFAULT_READ and not sv.mem._range_dels:
+        if (opts is _DEFAULT_READ and not sv.mem._range_dels
+                and self._undecided_provider is None):
             states = getattr(self._nget_tl, "states", None)
             if states is not None:
                 cc = states.get(cfd.handle.id)
@@ -2417,7 +2451,8 @@ class DB:
                     self._record_get_stats(t0, val, src)
                 return val, False  # the native chain hands entities back
         ctx = GetContext(key, snap_seq, self.options.merge_operator,
-                         blob_resolver=self.blob_source.get)
+                         blob_resolver=self.blob_source.get,
+                         excluded_ranges=self._excluded_for(opts))
         # 1. Active memtable, then immutables (newest first).
         for mem in sv.mems:
             if not self._probe_memtable(mem, key, snap_seq, ctx):
@@ -2529,7 +2564,8 @@ class DB:
         )
         ctx = GetContext(key, snap_seq, None,
                          blob_resolver=self.blob_source.get,
-                         collect_operands=True)
+                         collect_operands=True,
+                         excluded_ranges=self._excluded_for(opts))
         sv = cfd.sv
         more = True
         for mem in sv.mems:
@@ -2579,6 +2615,8 @@ class DB:
         range tombstones, a merge or single delete met)."""
         if self.options.merge_operator is not None:
             return self._TS_SLOW
+        if self._excluded_for(opts):
+            return self._TS_SLOW  # WritePrepared visibility exclusions
         cfd = self._cf_data(cf)
         read_ts = (opts.timestamp if opts.timestamp is not None
                    else dbformat.MAX_TIMESTAMP)
@@ -2748,9 +2786,10 @@ class DB:
             if handled:
                 return native_res
         resolver = self.blob_source.get
+        excluded = self._excluded_for(opts)
         ctxs = {
             k: GetContext(k, snap_seq, self.options.merge_operator,
-                          blob_resolver=resolver)
+                          blob_resolver=resolver, excluded_ranges=excluded)
             for k in keys
         }
         live = dict(ctxs)
@@ -3153,6 +3192,7 @@ class DB:
                 prefix_extractor=self.options.prefix_extractor,
                 prefix_same_as_start=(opts.prefix_same_as_start
                                       and not opts.total_order_seek),
+                excluded_ranges=self._excluded_for(opts),
                 read_ts=opts.timestamp,
                 legacy_wce=self.options.legacy_wide_column_unwrap,
             )
@@ -3176,6 +3216,7 @@ class DB:
                 prefix_mode=(opts.prefix_same_as_start
                              and not opts.total_order_seek
                              and self.options.prefix_extractor is not None),
+                excluded=self._excluded_for(opts),
                 read_ts=opts.timestamp,
                 stats=self.stats,
                 chunk=self.iter_chunk_rows,
@@ -3210,7 +3251,20 @@ class DB:
                 target = self._seq_alloc
                 while self.versions.last_sequence < target:
                     self._mt_cv.wait(timeout=10.0)
-        return self.snapshots.new_snapshot(self.versions.last_sequence)
+        fn = self._undecided_provider
+        return self.snapshots.new_snapshot(
+            self.versions.last_sequence,
+            excluded_ranges=fn() if fn is not None else (),
+        )
+
+    def _excluded_for(self, opts) -> tuple:
+        """Seqno ranges invisible to this read (undecided WritePrepared
+        transactions): a snapshot carries the set captured when it was
+        taken; a read without one uses the live set."""
+        if opts.snapshot is not None:
+            return getattr(opts.snapshot, "excluded_ranges", ())
+        fn = self._undecided_provider
+        return fn() if fn is not None else ()
 
     def release_snapshot(self, snap) -> None:
         snap.release()

@@ -33,6 +33,7 @@ class DBIter:
                  upper_bound: bytes | None = None,
                  pinned=None, blob_resolver=None,
                  prefix_extractor=None, prefix_same_as_start: bool = False,
+                 excluded_ranges: tuple = (),
                  read_ts: int | None = None,
                  legacy_wce: bool = False):
         self._blob_resolver = blob_resolver
@@ -41,6 +42,8 @@ class DBIter:
         # iterator's lifetime so obsolete-file GC cannot delete SSTs that
         # LevelIterator children will open lazily.
         self._pinned = pinned
+        # Undecided WritePrepared transaction data (see db/snapshot.py).
+        self._excluded_ranges = excluded_ranges
         self._iter = internal_iter
         self._icmp = icmp
         self._ucmp = icmp.user_comparator
@@ -197,6 +200,12 @@ class DBIter:
         if self._ts_sz:
             return (a > b) - (a < b)
         return self._ucmp.compare(a, b)
+
+    def _excluded(self, seq: int) -> bool:
+        for lo, hi in self._excluded_ranges:
+            if lo <= seq <= hi:
+                return True
+        return False
 
     def _ts_invisible(self, uk: bytes) -> bool:
         # Suffixes store ~ts, so a version newer than read_ts (invisible)
@@ -430,8 +439,11 @@ class DBIter:
             if skip_key is not None and self._vcmp(vkey, skip_key) <= 0:
                 self._iter.next()
                 continue
-            if seq > self._seq or (self._ts_sz and self._ts_invisible(uk)):
-                # Newer than the snapshot, or than the read timestamp.
+            if seq > self._seq or (
+                self._excluded_ranges and self._excluded(seq)
+            ) or (self._ts_sz and self._ts_invisible(uk)):
+                # Newer than the snapshot, undecided, or newer than the
+                # read timestamp.
                 self._iter.next()
                 continue
             if merge_key is not None and self._vcmp(vkey, merge_key) != 0:
@@ -529,7 +541,9 @@ class DBIter:
                 uk2, seq2, t2 = dbformat.split_internal_key(self._iter.key())
                 if self._ucmp.compare(uk2, uk) != 0:
                     break
-                if seq2 <= self._seq:
+                if seq2 <= self._seq and not (
+                    self._excluded_ranges and self._excluded(seq2)
+                ):
                     entries.append((seq2, t2, self._iter.value()))
                 self._iter.prev()
             if self._resolve_backward(uk, entries):
@@ -548,7 +562,9 @@ class DBIter:
             uk2, seq2, t2 = dbformat.split_internal_key(self._iter.key())
             if self._vkey(uk2) != vkey:
                 break
-            if seq2 <= self._seq and not self._ts_invisible(uk2):
+            if (seq2 <= self._seq
+                    and not (self._excluded_ranges and self._excluded(seq2))
+                    and not self._ts_invisible(uk2)):
                 if t2 == ValueType.MERGE:
                     raise MergeInProgress(
                         "Merge is not supported with user-defined timestamps")

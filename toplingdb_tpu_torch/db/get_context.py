@@ -1,6 +1,5 @@
 """GetContext: the per-lookup state machine (copied from
-toplingdb_tpu/db/get_context.py, without the WritePrepared exclusion
-ranges, which come with transactions).
+toplingdb_tpu/db/get_context.py).
 
 The role of RocksDB's GetContext (table/get_context.h): sources (memtable, immutable memtables, L0 files newest→
 oldest, then deeper levels) feed visible entries for the target user key in
@@ -27,9 +26,14 @@ class GetState(enum.Enum):
 
 class GetContext:
     def __init__(self, user_key: bytes, snapshot_seq: int, merge_operator=None,
-                 blob_resolver=None, collect_operands: bool = False):
+                 blob_resolver=None, collect_operands: bool = False,
+                 excluded_ranges: tuple = ()):
         self.user_key = user_key
         self.snapshot_seq = snapshot_seq
+        # Seqno ranges invisible despite being <= snapshot_seq: in-DB data
+        # of prepared but undecided WritePrepared transactions (RocksDB's
+        # SnapshotChecker role; see db/snapshot.py).
+        self.excluded_ranges = excluded_ranges
         self.merge_operator = merge_operator
         self.blob_resolver = blob_resolver  # BLOB_INDEX payload → real value
         self.state = GetState.NOT_FOUND
@@ -45,10 +49,17 @@ class GetContext:
 
     # ------------------------------------------------------------------
 
+    def _excluded(self, seq: int) -> bool:
+        for lo, hi in self.excluded_ranges:
+            if lo <= seq <= hi:
+                return True
+        return False
+
     def add_tombstone_seq(self, seq: int) -> None:
         """Register a range tombstone covering the key (from the current or a
         newer source)."""
-        if seq <= self.snapshot_seq and seq > self.max_covering_tombstone_seq:
+        if (seq <= self.snapshot_seq and seq > self.max_covering_tombstone_seq
+                and not self._excluded(seq)):
             self.max_covering_tombstone_seq = seq
 
     def save_value(self, seq: int, t: int, value: bytes) -> bool:
@@ -56,6 +67,8 @@ class GetContext:
         caller, newest first). Returns False when the lookup is complete and
         no older sources need to be consulted."""
         assert not self.found_final_value
+        if self.excluded_ranges and self._excluded(seq):
+            return True  # undecided-transaction data: keep descending
         if seq < self.max_covering_tombstone_seq:
             # Shadowed by a strictly newer range tombstone. Strict: seqnos are
             # unique per write, and seqno-zeroed entries (bottommost

@@ -172,6 +172,16 @@ class WriteBatch:
                 coding.put_length_prefixed_slice(rep, s)
         self._count += 1
 
+    def clear(self) -> None:
+        self._rep = bytearray(HEADER_SIZE)
+        self._simple = True
+        self._count = 0
+        self._prot_n = 0
+        self._has_wide = False
+        self._n_merge = 0
+        if self._prot is not None:
+            self._prot = []
+
     def append_from(self, other: "WriteBatch") -> None:
         """Group-commit helper: append other's records to self."""
         self._rep += other._rep[HEADER_SIZE:]
@@ -266,6 +276,11 @@ class WriteBatch:
 
     def count(self) -> int:
         return self._count
+
+    def set_count(self, n: int) -> None:
+        # _count is the single source of truth; the header bytes are
+        # patched only at export (data()).
+        self._count = n
 
     def data(self) -> bytes:
         # The header count is maintained lazily; patch it on export.

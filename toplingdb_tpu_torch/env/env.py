@@ -4,16 +4,88 @@ ring of the async WAL writer and the async read plane, to WAL recycling's
 reuse and archiving's mtime, and to the free-space probe of the
 storage-pressure plane: no statistics). PosixEnv is the DB's env; MemEnv
 is the in-memory one, with a simulated capacity, for the SstFileManager
-and FaultInjectionEnv on their own."""
+and FaultInjectionEnv on their own. `Env` is the base of the wrapper Envs
+(env/overlay.py, remap.py, encrypted.py, io_tracer.py): its defaults are
+the reference's, so a wrapper that does not pass reuse_writable_file or
+get_file_mtime through truncates a reused file and tracks no mtime."""
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils.status import IOError_, NotFound
 from toplingdb_tpu_torch.utils import concurrency as ccy
+
+
+class Env:
+    """Abstract Env: files, clock and free space (RocksDB's
+    include/rocksdb/env.h)."""
+
+    def new_writable_file(self, path: str):
+        raise NotImplementedError
+
+    def new_random_access_file(self, path: str):
+        raise NotImplementedError
+
+    def new_sequential_file(self, path: str):
+        raise NotImplementedError
+
+    def file_exists(self, path: str) -> bool:
+        raise NotImplementedError
+
+    def get_file_size(self, path: str) -> int:
+        raise NotImplementedError
+
+    def delete_file(self, path: str) -> None:
+        raise NotImplementedError
+
+    def rename_file(self, src: str, dst: str) -> None:
+        raise NotImplementedError
+
+    def reuse_writable_file(self, old_path: str, new_path: str):
+        """Rename old_path to new_path and open it for writing. This
+        fallback truncates (PosixEnv overwrites in place)."""
+        self.rename_file(old_path, new_path)
+        return self.new_writable_file(new_path)
+
+    def get_file_mtime(self, path: str) -> float | None:
+        """Last-modification time; None when the env tracks none (callers
+        must not purge by age)."""
+        return None
+
+    def create_dir(self, path: str) -> None:
+        raise NotImplementedError
+
+    def get_children(self, path: str) -> list[str]:
+        raise NotImplementedError
+
+    def now_micros(self) -> int:
+        return int(time.time() * 1e6)
+
+    def read_file(self, path: str) -> bytes:
+        f = self.new_random_access_file(path)
+        try:
+            return f.read(0, f.size())
+        finally:
+            f.close()
+
+    def write_file(self, path: str, data: bytes, sync: bool = False) -> None:
+        f = self.new_writable_file(path)
+        try:
+            f.append(data)
+            if sync:
+                f.sync()
+        finally:
+            f.close()
+
+    def get_free_space(self, path: str) -> int:
+        """Free bytes on the filesystem holding `path`: a wrapper with no
+        capacity of its own reports effectively infinite space."""
+        return 1 << 62
+
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +408,9 @@ class _PosixSequential:
 class PosixEnv:
     def new_writable_file(self, path: str) -> _PosixWritable:
         return _PosixWritable(path)
+
+    def now_micros(self) -> int:
+        return int(time.time() * 1e6)
 
     def get_free_space(self, path: str) -> int:
         """Free bytes on the filesystem holding `path`; a path that does

@@ -1,11 +1,16 @@
-"""Fault injection (copied from toplingdb_tpu/env/fault_injection.py,
-trimmed to the faults the port's tests inject): FaultInjectionEnv wraps
-any Env (the role of RocksDB's utilities/fault_injection_fs.h
-FaultInjectionTestFS); its `corrupt_reads` damages the bytes its
-random-access and sequential reads return, while the files on disk stay
-intact, and its `set_disk_budget` caps the bytes writable to matching
-files: past the budget a write lands its affordable prefix (a torn short
-write) and raises a genuine OSError(ENOSPC);
+"""Fault injection (copied from toplingdb_tpu/env/fault_injection.py;
+the store, shipping and partition injectors are not in the port):
+FaultInjectionEnv wraps any Env (the role of RocksDB's
+utilities/fault_injection_fs.h FaultInjectionTestFS). It counts every file
+operation (`io_counts`), fails chosen operation kinds (`fail_ops`) or every
+operation after the Nth (`fail_after_ops`), and simulates a crash:
+`drop_unsynced_and_deactivate` fails all further IO, and
+`reactivate_and_truncate` brings the filesystem back with every file it
+opened for writing cut to its last synced length. Its `corrupt_reads`
+damages the bytes its random-access and sequential reads return, while
+the files on disk stay intact, and its `set_disk_budget` caps the bytes
+writable to matching files: past the budget a write lands its affordable
+prefix (a torn short write) and raises a genuine OSError(ENOSPC);
 DelayedReadEnv sleeps before every random-access read;
 WalWriterFaultInjector fails or delays the async WAL writer's ring ops,
 ReadFaultInjector the async read plane's reader-ring tasks."""
@@ -21,6 +26,12 @@ class FaultInjectionEnv:
     def __init__(self, base):
         self.base = base
         self._mu = ccy.Lock("fault_injection.FaultInjectionEnv._mu")
+        self._unsynced: dict[str, int] = {}   # path -> synced length
+        self.fail_after_ops: int | None = None
+        self.fail_ops: set[str] = set()       # e.g. {"append", "sync", "read"}
+        self.op_count = 0
+        self.io_counts: dict[str, int] = {}
+        self._filesystem_active = True
         self._corrupt_rules: list[dict] = []
         self._corrupt_tick = 0  # transient-mode read counter
         self.corruptions_injected: list[tuple[str, int, int]] = []
@@ -186,14 +197,57 @@ class FaultInjectionEnv:
                     return rem <= 0
         return False
 
+    def _op(self, kind: str) -> None:
+        with self._mu:
+            self.op_count += 1
+            self.io_counts[kind] = self.io_counts.get(kind, 0) + 1
+            if not self._filesystem_active:
+                raise IOError_(f"injected: filesystem inactive ({kind})")
+            if kind in self.fail_ops:
+                raise IOError_(f"injected {kind} error")
+            if (self.fail_after_ops is not None
+                    and self.op_count > self.fail_after_ops):
+                raise IOError_(
+                    f"injected error after {self.fail_after_ops} ops")
+
+    def drop_unsynced_and_deactivate(self) -> None:
+        """Simulate a crash: all further IO fails until
+        reactivate_and_truncate(); unsynced data of the tracked writables
+        is lost there."""
+        with self._mu:
+            self._filesystem_active = False
+
+    def reactivate_and_truncate(self) -> None:
+        """Come back from the crash: every file opened for writing is cut
+        to its synced length."""
+        with self._mu:
+            self._filesystem_active = True
+            for path, synced in self._unsynced.items():
+                try:
+                    with open(path, "rb+") as f:
+                        f.truncate(synced)
+                except OSError:
+                    pass
+            self._unsynced.clear()
+
     # -- Env interface --------------------------------------------------
 
     def new_writable_file(self, path: str):
-        return _FIWritable(self, path, self.base.new_writable_file(path))
+        self._op("open_w")
+        f = _FIWritable(self, path, self.base.new_writable_file(path))
+        with self._mu:
+            self._unsynced[path] = 0
+        return f
 
     def reuse_writable_file(self, old_path: str, new_path: str):
-        return _FIWritable(self, new_path,
-                           self.base.reuse_writable_file(old_path, new_path))
+        self._op("rename")
+        self._op("open_w")
+        f = _FIWritable(self, new_path,
+                        self.base.reuse_writable_file(old_path, new_path))
+        with self._mu:
+            self._unsynced.pop(old_path, None)
+            self._unsynced[new_path] = 0
+        return f
 
     def write_file(self, path: str, data: bytes, sync: bool = False) -> None:
         f = self.new_writable_file(path)
@@ -205,6 +259,7 @@ class FaultInjectionEnv:
             f.close()
 
     def delete_file(self, path: str) -> None:
+        self._op("delete")
         freed = 0
         if self._disk_budgets:
             try:
@@ -216,6 +271,10 @@ class FaultInjectionEnv:
         self.base.delete_file(path)
         self._refund_disk(path, freed)
 
+    def rename_file(self, src: str, dst: str) -> None:
+        self._op("rename")
+        self.base.rename_file(src, dst)
+
     def get_free_space(self, path: str) -> int:
         free = self.base.get_free_space(path)
         with self._mu:
@@ -225,9 +284,11 @@ class FaultInjectionEnv:
         return free
 
     def new_random_access_file(self, path: str):
+        self._op("open_r")
         return _FIRandom(self, self.base.new_random_access_file(path), path)
 
     def new_sequential_file(self, path: str):
+        self._op("open_s")
         return _FISequential(self, self.base.new_sequential_file(path), path)
 
     def read_file(self, path: str) -> bytes:
@@ -251,6 +312,7 @@ class _FIWritable:
         return OSError(errno.ENOSPC, os.strerror(errno.ENOSPC), self._path)
 
     def append(self, data) -> None:
+        self._env._op("append")
         afford = self._env._charge_disk(self._path, len(data))
         if afford < len(data):
             if afford > 0:
@@ -264,11 +326,14 @@ class _FIWritable:
         self._base.flush()
 
     def sync(self) -> None:
+        self._env._op("sync")
         if self._env._disk_exhausted(self._path):
             # fsync on a full filesystem fails too (dirty pages cannot
             # land); it succeeds again once something refunds the budget.
             raise self._enospc()
         self._base.sync()
+        with self._env._mu:
+            self._env._unsynced[self._path] = self._base.file_size()
 
     def close(self) -> None:
         self._base.close()
@@ -284,6 +349,7 @@ class _FIRandom:
         self._path = path
 
     def read(self, offset, n):
+        self._env._op("read")
         data = self._base.read(offset, n)
         return self._env._maybe_corrupt(self._path, offset, data)
 
@@ -302,6 +368,7 @@ class _FISequential:
         self._off = 0  # running offset: deterministic corruption keying
 
     def read(self, n):
+        self._env._op("read")
         data = self._base.read(n)
         off = self._off
         self._off += len(data)

@@ -127,10 +127,13 @@ class TableReader:
         if cl is None:
             self._nget_handle = None
             return None
-        try:
-            fd = self._f._f.fileno()  # posix random-access file only
-        except AttributeError:
-            fd = -1
+        from toplingdb_tpu_torch.env.env import _PosixRandomAccess
+
+        # A posix random-access file only: a wrapper Env's handle (the
+        # encrypted, traced or fault-injecting ones) must be read through
+        # its own read(), so its tables take the Python chain.
+        fd = (self._f._f.fileno() if type(self._f) is _PosixRandomAccess
+              else -1)
         eligible = (
             fd >= 0
             and not self._partitioned_index

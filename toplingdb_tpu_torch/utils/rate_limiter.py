@@ -1,17 +1,125 @@
-"""WriteBufferManager and SstFileManager (copied from
-toplingdb_tpu/utils/rate_limiter.py, trimmed to these two; the rate
-limiter and write controller are not in the port): the roles of RocksDB's
-memtable/write_buffer_manager.cc and file/sst_file_manager_impl.cc with
-file/delete_scheduler.cc."""
+"""RateLimiter, WriteController, WriteBufferManager and SstFileManager
+(copied from toplingdb_tpu/utils/rate_limiter.py): the flow-control
+quartet, the roles of RocksDB's util/rate_limiter.cc,
+db/write_controller.cc, memtable/write_buffer_manager.cc and
+file/sst_file_manager_impl.cc with file/delete_scheduler.cc."""
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 from toplingdb_tpu_torch.utils import errors as _errors
 from toplingdb_tpu_torch.utils import statistics as _st
 from toplingdb_tpu_torch.utils import concurrency as ccy
+
+
+class RateLimiter:
+    """Token-bucket byte rate limiter (RocksDB's GenericRateLimiter)."""
+
+    def __init__(self, bytes_per_second: int, refill_period_us: int = 100_000):
+        self.rate = bytes_per_second
+        self._period = refill_period_us / 1e6
+        self._available = bytes_per_second * self._period
+        self._last_refill = time.monotonic()
+        self._mu = ccy.Lock("rate_limiter.RateLimiter._mu")
+        self.total_through = 0
+
+    def request(self, n: int) -> None:
+        """Blocks until n bytes of budget are available. Oversized requests
+        are split into period-sized chunks (RocksDB's GenericRateLimiter), so
+        a 1MB write against a 100KB/period budget still throttles."""
+        budget = max(1, int(self.rate * self._period))
+        while n > 0:
+            chunk = min(n, budget)
+            self._request_chunk(chunk)
+            n -= chunk
+
+    def try_request(self, n: int, timeout: float = 0.0) -> bool:
+        """Bounded-wait variant of request() for admission control
+        (sharding/admission.py): take n units within `timeout` seconds or
+        return False taking nothing. Requests larger than one period's
+        budget are admitted against the full accumulated budget and carry
+        the remainder as debt (available goes negative), so a big batch
+        pays its cost by delaying LATER requests instead of blocking the
+        caller unboundedly."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._mu:
+                now = time.monotonic()
+                elapsed = now - self._last_refill
+                if elapsed >= self._period:
+                    self._available = min(
+                        self.rate * self._period,
+                        self._available + self.rate * elapsed,
+                    )
+                    self._last_refill = now
+                need = min(n, self.rate * self._period)
+                if self._available >= need:
+                    self._available -= n  # may go negative: debt
+                    self.total_through += n
+                    return True
+                now = time.monotonic()
+            if now >= deadline:
+                return False
+            time.sleep(min(self._period / 4, max(0.0, deadline - now)))
+
+    def _request_chunk(self, n: int) -> None:
+        while True:
+            with self._mu:
+                now = time.monotonic()
+                elapsed = now - self._last_refill
+                if elapsed >= self._period:
+                    self._available = min(
+                        self.rate * self._period,
+                        self._available + self.rate * elapsed,
+                    )
+                    self._last_refill = now
+                if self._available >= n:
+                    self._available -= n
+                    self.total_through += n
+                    return
+            time.sleep(self._period / 4)
+
+
+class WriteController:
+    """Write throttling state: normal / delayed / stopped
+    (RocksDB's db/write_controller.h). A writer consults it before each write;
+    compaction pressure sets delays."""
+
+    def __init__(self):
+        self._stopped = False
+        self._delay_bytes_per_sec = 0
+        self._mu = ccy.Lock("rate_limiter.WriteController._mu")
+        self._cv = ccy.Condition(lock=self._mu)
+        self.total_stall_micros = 0
+
+    def stop_writes(self) -> None:
+        with self._mu:
+            self._stopped = True
+
+    def resume_writes(self) -> None:
+        with self._cv:
+            self._stopped = False
+            self._delay_bytes_per_sec = 0
+            self._cv.notify_all()
+
+    def set_delay(self, bytes_per_sec: int) -> None:
+        with self._mu:
+            self._delay_bytes_per_sec = bytes_per_sec
+
+    def wait_if_stalled(self, write_bytes: int, timeout: float = 10.0) -> None:
+        t0 = time.monotonic()
+        with self._cv:
+            while self._stopped and time.monotonic() - t0 < timeout:
+                self._cv.wait(0.05)
+        if self._delay_bytes_per_sec > 0 and write_bytes > 0:
+            delay = write_bytes / self._delay_bytes_per_sec
+            time.sleep(min(delay, 1.0))
+        stall = time.monotonic() - t0
+        if stall > 0.001:
+            self.total_stall_micros += int(stall * 1e6)
 
 
 class WriteBufferManager:

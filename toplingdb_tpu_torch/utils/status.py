@@ -17,6 +17,7 @@ class Code(enum.IntEnum):
     MERGE_IN_PROGRESS = 6
     SHUTDOWN_IN_PROGRESS = 8
     BUSY = 11
+    EXPIRED = 12
     TRY_AGAIN = 13
 
 
@@ -74,6 +75,10 @@ class ShutdownInProgress(Status):
 
 class Busy(Status):
     code = Code.BUSY
+
+
+class Expired(Status):
+    code = Code.EXPIRED
 
 
 class TryAgain(Status):
