@@ -112,15 +112,18 @@ Phases (any failure ends the run with a non-zero exit code):
      (identical bytes), then with 3 snapshots and 20 range tombstones, the
      same. (c) protection_bytes_per_key=8 at FORMAT_N entries on the
      pipelined, serial and block-assembly routes: each route's bytes equal
-     the unprotected job's, and its kernels launch. (d) at 200,000 entries
-     each, "cuda" against "cpu" (identical bytes, the oracle, one gc_rows
+     the unprotected job's, and its kernels launch. (d) at ENTRY_N =
+     100,000 entries each (cut from 200,000 when phase 27 came: the
+     seven cases ran card and CPU twins of 1.6-2.4 s each at 200K, ~25 s
+     of the phase, and half the rows run the same per-entry code),
+     "cuda" against "cpu" (identical bytes, the oracle, one gc_rows
      launch on the per-entry route): a two-level index with partitioned
      filters, a fixed-prefix extractor on the block format (the columnar
      route), a CompactOnDeletionCollector, single_fast, plain with a
      prefix extractor, cuckoo, and zip inputs. (e) a job dir with
      table_format "zip", prefix_extractor "tpulsm.FixedPrefix.4" and a
      collector, written with the port's CompactionParams, through run_job
-     on "cuda" at 200,000 entries: status ok, the oracle, and the bytes of
+     on "cuda" at ENTRY_N entries: status ok, the oracle, and the bytes of
      an in-process "cpu" run with the job's table options.
  13. the DB on the card: bench.py's DB deployment (bench.py:1366-1420,
      BENCH_DB_N = 1,000,000) through the port's DB, opened with
@@ -353,9 +356,12 @@ Phases (any failure ends the run with a non-zero exit code):
      the share of keys the native whole-batch call decided; (b) the same
      DB reopened with a user block cache, so its reads take the Python
      chain: LRUCache(8 MiB, db_bench's --cache_size, about a fifth of the
-     data) over a PersistentCache(64 MiB), READ_CACHE_PROBES = 8,000 gets
-     and 8,000 keys of multi_get (cut from 100,000, as phase 13's
-     planes-off probes were, and from 20,000 when phase 23 came); the
+     data) over a PersistentCache(64 MiB), READ_CACHE_PROBES = 4,000 gets
+     and 4,000 keys of multi_get (cut from 100,000, as phase 13's
+     planes-off probes were, from 20,000 when phase 23 came and from
+     8,000 when phase 27 came: each of the three caches' gets and
+     multi_gets ran 2.1-2.8 s at 8,000 on the Python chain, ~16 s of the
+     phase); the
      tier closed and reopened recovers the
      same index and serves every record from disk with its bytes; then
      the DB over the recovered tier; then a SimCache(ClockCache(8 MiB,
@@ -364,8 +370,11 @@ Phases (any failure ends the run with a non-zero exit code):
      (clock hits + tier hits); every answer equal to (a)'s; (c) the cold
      async twin (bench.py:1158-1232): COLD_N = 30,000 keys filled with a
      128 KiB write buffer (its jobs on "cuda"), a DelayedReadEnv of
-     200 us, LRUCache(64 KiB), COLD_PROBES = 4,096 probes in multi_get
-     batches of 128, async_reads=True and False in 3 interleaved rounds
+     200 us, LRUCache(64 KiB), COLD_PROBES = 2,048 probes in multi_get
+     batches of 128 (cut from 4,096 when phase 27 came: the synchronous
+     twin reads ~870 keys a second through its 200 us delays, so the
+     three rounds and the async_io pass spent ~20 s of the phase on it),
+     async_reads=True and False in 3 interleaved rounds
      with equal views; get_async, multi_get_async and
      ReadOptions(async_io=True) on the same probes, and full scans plain,
      with readahead_size=256 KiB and with ring windows, all equal; no
@@ -379,7 +388,10 @@ Phases (any failure ends the run with a non-zero exit code):
      card's busy share from open to the last read. Its gc_rows and merge
      launches are added to the kernels line's counts.
  21. the DB's manual and introspection entry points and its WAL plane, on
-     phase 13's deployment (MANUAL_N = 1,000,000 16-digit keys with
+     phase 13's deployment (MANUAL_N = 750,000 16-digit keys, cut from
+     1,000,000 when phase 27 came: a later run on a slow host passed 950
+     s, and the phase's two full scans and its fill take ~15 s at 1M; at
+     750K the 5% slice still holds whole 512 KiB files; with
      20-byte values from 4 threads in batches of 100, 8 MiB write buffer,
      leveled, the "cuda" device factory; SSTs of 512 KiB, so that a 5% key
      slice holds whole files, and an L0 trigger of 16, so that the jobs
@@ -412,7 +424,10 @@ Phases (any failure ends the run with a non-zero exit code):
      merges) read back by get_merge_operands as [base, 1, 2];
      promote_l0(6) on a second DB filled in 10 disjoint sequential runs
      with a flush after each (10,000 probes and a reopen); (c) db_bench's
-     fillrandom of MANUAL_N keys from 4 writers with
+     fillrandom of RECYCLE_N = 500,000 keys (cut from MANUAL_N when phase
+     27 came: the two fills of 1M keys, the reopen and its scan took ~20 s
+     of the phase, and at 500K the fill still spans several recycled
+     WALs) from 4 writers with
      recycle_log_file_num=2 and with 0 (ops/s and the WALs reused, counted
      at the env's reuse_writable_file), the recycled DB dropped without a
      flush and reopened, so that recovery reads its recycled WALs (the
@@ -450,7 +465,9 @@ Phases (any failure ends the run with a non-zero exit code):
      keys, flush and compact_range on the card, a reopen on a plain
      PosixEnv against the oracle; (c) RocksDB's tiered-storage option
      preclude_last_level_data_seconds = 3600
-     (include/rocksdb/advanced_options.h): STORAGE_N keys and a 1% delete
+     (include/rocksdb/advanced_options.h): PRECLUDE_N = 500,000 keys (cut
+     from STORAGE_N when phase 27 came: at 1M the part took ~25 s, 11.5 s
+     of it the fill) and a 1% delete
      overlay, compact_range on the card (young data: every last-level
      file keeps smallest_seqno > 0 and every tombstone, rows equal the
      oracle by db_files_against_oracle), an OVERLAY_PRECLUDE_N = 50,000-key
@@ -462,8 +479,10 @@ Phases (any failure ends the run with a non-zero exit code):
      from 1,000,000 to 250,000: every entity group takes the Python
      commit; and to 100,000 when phase 24 came), a
      ENTITY_MERGE_N = 10,000-key string-append merge overlay (the complex
-     fold), compact_range on the card, ENTITY_PROBES = 20,000 get_entity
-     probes, the same keys through multi_get and a scan with columns()
+     fold), compact_range on the card, ENTITY_PROBES = 5,000 get_entity
+     probes (cut from 20,000 when phase 27 came: 20,000 get_entity probes
+     and their multi_get twin took 7.8-13.2 s on the Python chain), the same
+     keys through multi_get and a scan with columns()
      against the oracle; (e) every job of the phase on "cuda"; the
      launches and the card's busy share. Its gc_rows and merge launches
      are added to the kernels line's counts.
@@ -640,6 +659,67 @@ Phases (any failure ends the run with a non-zero exit code):
      1,140.0 s, phase 26 76.7 s of it: 2PC runs 82-286 transactions a
      second on the card host's disk, an ingest rewrites each entry, and
      TtlDB puts run ~7,700-8,400 a second.
+ 27. the shared SST store and the replication plane, on phase 13's
+     deployment (bench.py's db_path_rows, bench.py:1366-1420: 8 MiB
+     memtables, leveled, 16-digit keys, 20-byte values, 4 writers in
+     batches of 100; every compaction on "cuda" through one
+     DeviceCompactionExecutorFactory under a JobLog, or through the
+     subprocess worker on "cuda") under ToplingDB's two data-sharing
+     deployments: dcompact's shared storage (compaction_job.cc:921-1152)
+     and RocksDB's secondary instance (db_impl_secondary.cc). STORE_N =
+     REPL_N = 100,000 keys, cut from bench.py's 1,000,000 for the time
+     limit (to 200,000 first; then to 100,000, the first cut when a whole
+     run passed 950 s: 1,020.2 s on a slow host, phase 27 38.5 s of it),
+     each fill in 4 flushed rounds (at these sizes an 8 MiB memtable
+     never fills; the flushes give L0 its trigger of 4, so the card
+     compacts during the fill). (a) A DB on Options(shared_store=<run
+     dir>/store): fill (its last round left in the memtable), then
+     compact_range on the card (its flush makes L0's fourth file and its
+     jobs run on the card); STORE_PUBLISHES
+     at least the live tables, every live SST's address in the store and
+     verify_payload passed on its bytes, STORE_GETS = 20,000 gets and a
+     full scan equal a dict oracle; the fill's ops/s, compact_range's
+     wall, its jobs and launches and the /store/<name> view's counts
+     printed. (b) A STORE_OVERLAY_N = 20,000-key overlay, then
+     create_checkpoint of the live DB in reference mode: 0 SST bytes in
+     its directory, its refs table names every table; restore_to a new
+     directory, opened on the store, compact_range on the card (the
+     tables materialize through the cache tier); its scan equals the
+     source's; both walls printed. (c) STORE_MORE_N = 20,000 more keys
+     and a flush, then one job (compact_files of L0 with the level
+     beneath) through SubprocessCompactionExecutorFactory(device="cuda")
+     in store mode: the job dir holds 0 SST bytes when the worker ends,
+     the outputs come back as store_addr and are adopted, the worker's
+     results name its device and route, the scan equals the oracle; beside
+     it, at the same time, the same job in path mode on a twin DB of the
+     same writes without the store: both jobs' rpc_time_usec and
+     work_time_usec printed. (d) A StoreServer over the store and a
+     second DB on shared_store="http://127.0.0.1:<port>" from a
+     reference-mode restore: STORE_HTTP_GETS = 2,000 gets and a scan
+     equal the oracle, every fetch over HTTP; STORE_MISSES,
+     STORE_BYTES_FETCHED and the STORE_FETCH_MICROS median printed. (e)
+     (b)'s checkpoint and restore dropped, mark_sweep over the two DBs
+     still open: only unreferenced addresses go (STORE_GC_SWEPT printed),
+     and each root reopens with the scan of its oracle. (f) A primary of
+     REPL_N keys with the device executor, a FollowerDB sharing its
+     directory and a standalone FollowerDB through HttpTransport ->
+     ReplicationServer, both tailing every 50 ms while 4 writers fill and
+     the card compacts: the lag (primary sequence minus applied sequence)
+     sampled every 100 ms, its median and max and the time to zero after
+     the fill stops; REPL_GETS = 20,000 gets through ReplicaRouter, each
+     batch's keys read with its token RYW_DELAY = 25 batches later, all
+     reading their own writes (the share served by followers printed);
+     both followers' scans equal the primary's; a third, standalone
+     follower opened after the primary's WAL GC bootstraps from a
+     checkpoint; the primary closed, POST /promote on a SidePluginRepo
+     promotes the shared follower, which takes REPL_PROMOTE_N = 10,000
+     writes and runs compact_range on the card. Every figure is printed
+     beside the card's name and power limit; the phase's gc_rows and
+     merge launches are added to the kernels line's counts. Past 950 s in
+     all, phase 27's own sizes are the first to cut. To make room, phases
+     12 and 20-22 were cut when it came: ENTRY_N (12), READ_CACHE_PROBES
+     and COLD_PROBES (20), RECYCLE_N (21), PRECLUDE_N and ENTITY_PROBES
+     (22), each named at its phase.
 
 Each phase's wall (one summary line) and the script's total wall are
 printed before the last three lines of
@@ -679,7 +759,7 @@ ENTRIES_N = 500_000     # phase 10, cut from 1,000,000 (docstring)
 CODEC_N = 250_000       # phase 11 (b) and (c), cut from 1,000,000
 SLOW_CODEC_N = 200_000  # phase 11 (c): bz2 and lzma
 FORMAT_N = 600_000      # phase 12 (b) and (c), cut from 1,000,000
-ENTRY_N = 200_000       # phase 12 (d) and (e): the per-entry route
+ENTRY_N = 100_000       # phase 12 (d) and (e): cut from 200,000 (docstring)
 DB_N = 1_000_000        # phase 13: bench.py's BENCH_DB_N
 DB_WAL_N = 50_000       # phase 13: the WAL-replay run
 DB_RAW_PER_ENTRY = 36   # phase 13: 16B key + 20B value
@@ -696,23 +776,25 @@ WBM_BUDGET = 4 << 20    # phase 19 (e): half of one 8 MiB write buffer
 READ_N = 1_000_000      # phase 20 (a)-(b): phase 13's deployment
 READ_OVERLAY_N = 20_000  # phase 20 (a): keys rewritten before compact_range
 READ_PROBES = 100_000   # phase 20 (a): multireadrandom probes
-READ_CACHE_PROBES = 8_000  # phase 20 (b): cut from 100,000 (docstring)
+READ_CACHE_PROBES = 4_000  # phase 20 (b): cut from 100,000 (docstring)
 COLD_N = 30_000         # phase 20 (c): bench.py's cold async twin
-COLD_PROBES = 4_096     # phase 20 (c): its probes
-MANUAL_N = 1_000_000    # phase 21: phase 13's deployment
+COLD_PROBES = 2_048     # phase 20 (c): cut from 4,096 (docstring)
+MANUAL_N = 750_000      # phase 21: cut from 1,000,000 (docstring)
 MANUAL_OVERLAY_N = 100_000  # phase 21 (a): keys written while paused
 MANUAL_PROBES = 100_000  # phase 21 (a): probes through multi_get
 MANUAL_MERGE_N = 10_000  # phase 21 (b): the uint64add merge overlay
 MANUAL_TARGET_FILE = 512 << 10  # phase 21: SST size (docstring)
+RECYCLE_N = 500_000     # phase 21 (c): cut from MANUAL_N (docstring)
 STORAGE_N = 1_000_000   # phase 22 (a) and (c): phase 13's deployment
 STORAGE_BUDGET_X = 0.85  # phase 22 (a): B over the raw bytes (docstring)
 FULL_N = 200_000        # phase 22 (b): cut from 1,000,000 (docstring)
 FULL_BUDGET_X = 0.8     # phase 22 (b): the fault env's budget over raw
 FULL_POST_N = 20_000    # phase 22 (b): keys written after the recovery
 OVERLAY_PRECLUDE_N = 50_000  # phase 22 (c): the re-put overlay
+PRECLUDE_N = 500_000    # phase 22 (c): cut from STORAGE_N (docstring)
 ENTITY_N = 100_000      # phase 22 (d): cut from 1,000,000 (docstring)
 ENTITY_MERGE_N = 10_000  # phase 22 (d): the merge overlay
-ENTITY_PROBES = 20_000  # phase 22 (d): get_entity probes
+ENTITY_PROBES = 5_000   # phase 22 (d): cut from 20,000 (docstring)
 TS_N = 100_000          # phase 23 (a): cut from 1,000,000 (docstring)
 TS_OVERWRITE_BASE = 20_001  # phase 23 (a): the overwrites' first ts
 TS_PROBES = 20_000      # phase 23 (a): get_with_ts probes and ts gets
@@ -746,6 +828,15 @@ ENC_N = 200_000         # phase 26 (f): the encrypted DB's keys
 IO_N = 100_000          # phase 26 (f): the traced DB's keys
 ENC_GETS = 2_000        # phase 26 (f): gets on the encrypted DB
 CKPT_OVERLAY_N = 20_000  # phase 26 (b): keys rewritten before the checkpoint
+STORE_N = 100_000       # phase 27 (a)-(e): cut from 1,000,000 (docstring)
+STORE_GETS = 20_000     # phase 27 (a): gets against the oracle
+STORE_OVERLAY_N = 20_000  # phase 27 (b): keys rewritten before the checkpoint
+STORE_MORE_N = 20_000   # phase 27 (c): keys written before the dcompact job
+STORE_HTTP_GETS = 2_000  # phase 27 (d): gets on the HTTP store's DB
+REPL_N = 100_000        # phase 27 (f): cut from 1,000,000 (docstring)
+REPL_GETS = 20_000      # phase 27 (f): read-your-writes gets via the router
+REPL_PROMOTE_N = 10_000  # phase 27 (f): writes into the promoted DB
+RYW_DELAY = 25          # phase 27 (f): batches between a write and its reads
 
 
 def log(msg: str) -> None:
@@ -5425,6 +5516,8 @@ def manual_path(torch, root, n, card, device_name="cuda", wbuf=8 << 20,
 
         # (c) WAL recycling and archiving.
         rates, reused = {}, {}
+        rn = min(n, RECYCLE_N)
+        rkeys = sorted(db_key(i, rn) for i in range(rn))
         for recycle in (2, 0):
             rdir = os.path.join(root, f"recycle{recycle}")
             rdb = DB.open(rdir, options(recycle_log_file_num=recycle))
@@ -5436,8 +5529,8 @@ def manual_path(torch, root, n, card, device_name="cuda", wbuf=8 << 20,
                 return reuse(old, new)
 
             rdb.env.reuse_writable_file = counted_reuse
-            wall = threaded_fill(rdb, n, kv)
-            rates[recycle] = n / wall
+            wall = threaded_fill(rdb, rn, lambda i: (db_key(i, rn), value))
+            rates[recycle] = rn / wall
             reused[recycle] = len(reuses)
             if recycle:
                 live = os.path.join(rdir, "%06d.log" % rdb._wal_number)
@@ -5447,13 +5540,13 @@ def manual_path(torch, root, n, card, device_name="cuda", wbuf=8 << 20,
                 rdb = DB.open(rdir, options(recycle_log_file_num=recycle))
                 rec = time.time() - t0
                 rr, rscan, n_rp, found = probe_and_scan(
-                    rdb, fill_keys, lambda k: value, n, "recycled reopen",
+                    rdb, rkeys, lambda k: value, rn, "recycled reopen",
                     n_probe=20_000)
                 assert found == n_rp
             rdb.close()
             shutil.rmtree(rdir)
         assert reused[2] > 0 and reused[0] == 0, reused
-        log(f"[manual c] fillrandom {n} keys, 4 writers: "
+        log(f"[manual c] fillrandom {rn} keys, 4 writers: "
             f"recycle_log_file_num=2 {rates[2]:.0f} ops/s, {reused[2]} "
             f"WALs reused; recycle_log_file_num=0 {rates[0]:.0f} ops/s, "
             f"0 reused; ratio {rates[2] / rates[0]:.3f}; the recycled DB "
@@ -5789,10 +5882,11 @@ def storage_path(torch, root, n, card, device_name="cuda", n_full=FULL_N,
         cdir = os.path.join(root, "preclude")
         copts = dict(preclude_last_level_data_seconds=3600)
         db = DB.open(cdir, options(**copts))
-        fill = threaded_fill(db, n, lambda i: (db_key(i, n), value))
+        pn = min(n, PRECLUDE_N)
+        fill = threaded_fill(db, pn, lambda i: (db_key(i, pn), value))
         rng = random.Random(22)
-        keys = sorted(db_key(i, n) for i in range(n))
-        dead = sorted(rng.sample(keys, n // 100))
+        keys = sorted(db_key(i, pn) for i in range(pn))
+        dead = sorted(rng.sample(keys, pn // 100))
         for i in range(0, len(dead), 100):
             b = WriteBatch()
             for k in dead[i:i + 100]:
@@ -5840,7 +5934,7 @@ def storage_path(torch, root, n, card, device_name="cuda", n_full=FULL_N,
         n_files2 = db_files_against_oracle(db, live, value)
         db.close()
         log(f"[storage c] preclude_last_level_data_seconds=3600: fill of "
-            f"{n} keys {fill:.3f}s, {len(dead)} deletes; compact_range "
+            f"{pn} keys {fill:.3f}s, {len(dead)} deletes; compact_range "
             f"{w1:.3f}s in {len(jobs1)} device jobs (non-bottommost): "
             f"{n_files} last-level files, smallest_seqno > 0, "
             f"{kept} tombstones kept, rows equal the oracle; a "
@@ -7638,6 +7732,652 @@ def utilities_path(torch, root, card, device_name="cuda", n_txn=TXN_N,
     return gc_n, mr_n
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the shared SST store and the replication plane
+# ---------------------------------------------------------------------------
+
+
+def fill_flushed(db, n, kv, rounds=4, flush_last=True):
+    """bench.py's fill of n keys (4 writers, batches of 100) in `rounds`
+    equal rounds, each flushed (the last one too unless `flush_last` is
+    False): at phase 27's sizes an 8 MiB memtable would never fill, and the
+    flushes give L0 its trigger of 4, so the card compacts while the fill
+    runs. Returns the fill's wall."""
+    per = n // rounds
+    t0 = time.time()
+    for r in range(rounds):
+        threaded_fill(db, per, lambda j, base=r * per: kv(base + j))
+        if flush_last or r < rounds - 1:
+            db.flush()
+    return time.time() - t0
+
+
+def shared_env(db):
+    """The DB's SharedSstEnv (below the checksum tap of its own tables)."""
+    return db.env.base if hasattr(db.env, "take_digest") else db.env
+
+
+def scan_equal(db, want: list, tag: str) -> float:
+    """A full forward scan equal to the sorted (key, value) list `want`,
+    row for row and in length; returns its wall."""
+    import itertools
+
+    t0 = time.time()
+    for got, w in itertools.zip_longest(scan_rows(db), want):
+        assert got == w, (tag, got and got[0], w and w[0])
+    return time.time() - t0
+
+
+def store_db_part(root, spec, factory, card, n, n_gets, n_overlay):
+    """Phase 27 (a) and (b): a DB on the store, filled, flushed and
+    compacted on the card; every live SST in the store and verified; gets
+    and a scan against the oracle; the /store view; then a reference-mode
+    checkpoint, its restore opened on the store and compacted on the card.
+    Returns the open DB, its oracle, the SidePlugin repo serving it, the
+    checkpoint, the restored DB and the repo's HTTP port."""
+    import random
+
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.ops import kernels
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.storage import address_of_meta, verify_payload
+    from toplingdb_tpu_torch.utilities.checkpoint import (
+        Checkpoint,
+        create_checkpoint,
+    )
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.config import SidePluginRepo
+
+    stats = st.Statistics()
+    adir = os.path.join(root, "a")
+    db = DB.open(adir, Options(create_if_missing=True,
+                               write_buffer_size=8 << 20, shared_store=spec,
+                               statistics=stats,
+                               compaction_executor_factory=factory))
+    oracle = {}
+
+    def kv(i):
+        k, v = db_key(i, n), b"%020d" % i
+        oracle[k] = v
+        return k, v
+
+    g0, m0, j0 = (kernels.gc_rows.launches, kernels.merge_runs_perm.launches,
+                  len(factory.jobs))
+    # The last round stays in the memtable: compact_range's flush makes
+    # L0's fourth file, and its jobs run on the card.
+    fill = fill_flushed(db, n, kv, flush_last=False)
+    t0 = time.time()
+    db.compact_range()
+    db.wait_for_compactions()
+    cr = time.time() - t0
+    jobs = len(factory.jobs) - j0
+    gc_n = kernels.gc_rows.launches - g0
+    mr_n = kernels.merge_runs_perm.launches - m0
+    assert jobs >= 1 and db._compaction_scheduler.num_local_jobs == 0
+    live = [f for _, f in db.versions.current.all_files()]
+    pubs = stats.get_ticker_count(st.STORE_PUBLISHES)
+    assert pubs >= len(live), (pubs, len(live))
+    store = db.env.store
+    t0 = time.time()
+    for f in live:
+        addr = address_of_meta(f)
+        assert store.contains(addr), addr
+        verify_payload(addr, store.fetch(addr))
+    verify_s = time.time() - t0
+    rng = random.Random(5)
+    keys = sorted(oracle)
+    t0 = time.time()
+    for _ in range(n_gets):
+        k = keys[rng.randrange(len(keys))]
+        assert db.get(k) == oracle[k], k
+    gets_s = time.time() - t0
+    scan_s = scan_equal(db, sorted(oracle.items()), "store a")
+    repo = SidePluginRepo()
+    repo.attach_db("a", db)
+    port = repo.start_http(0)
+    view = http_json(f"http://127.0.0.1:{port}/store/a")
+    assert view["enabled"] is True and view["store"]["objects"] >= len(live)
+    log(f"[store a] fillrandom {n} keys (4 writers, batches of 100, 4 "
+        f"rounds, the first 3 flushed) on shared_store={spec}: "
+        f"{fill:.3f}s, {n / fill:.0f} ops/s; compact_range (its flush, "
+        f"then the jobs) on {factory.device} {cr:.3f}s; {jobs} device "
+        f"jobs, launches "
+        f"gc_rows={gc_n} merge_runs={mr_n}; {len(live)} live SSTs, "
+        f"STORE_PUBLISHES {pubs}, every "
+        f"live SST's address in the store and verify_payload passed on its "
+        f"bytes ({verify_s:.3f}s); {n_gets} gets {gets_s:.3f}s, scan "
+        f"{scan_s:.3f}s, both equal to the oracle; /store/a: "
+        f"{view['store']['objects']} objects, {view['store']['bytes']} "
+        f"bytes, tickers {json.dumps(view['tickers'])} [{card}]")
+
+    # (b) An overlay flushed into L0 over the compacted level, so the
+    # restored DB's compact_range has a job; then the checkpoint.
+    for lo in range(0, n_overlay, 100):
+        b = WriteBatch()
+        for i in range(lo, min(lo + 100, n_overlay)):
+            k = db_key(i * 7 % n, n)
+            oracle[k] = b"b%019d" % i
+            b.put(k, oracle[k])
+        db.write(b)
+    ck = os.path.join(root, "ckpt")
+    t0 = time.time()
+    create_checkpoint(db, ck)
+    ck_s = time.time() - t0
+    env = shared_env(db)
+    refs = env.refs_of(ck)
+    names = {"%06d.sst" % f.number
+             for _, f in db.versions.current.all_files()}
+    ck_bytes = sum(os.path.getsize(os.path.join(ck, x))
+                   for x in os.listdir(ck) if x.endswith(".sst"))
+    assert ck_bytes == 0 and set(refs) == names, (ck_bytes, refs, names)
+    rest = os.path.join(root, "rest")
+    t0 = time.time()
+    Checkpoint(ck, env).restore_to(rest)
+    restore_s = time.time() - t0
+    rdb = DB.open(rest, Options(write_buffer_size=8 << 20,
+                                statistics=st.Statistics(),
+                                compaction_executor_factory=factory),
+                  env=env)
+    t0 = time.time()
+    rdb.compact_range()
+    rcr = time.time() - t0
+    want = sorted(oracle.items())
+    scan_equal(db, want, "store b source")
+    scan_equal(rdb, want, "store b restored")
+    log(f"[store b] reference-mode checkpoint of the live DB (an L0 overlay "
+        f"of {n_overlay} keys over its compacted level) {ck_s:.3f}s: 0 SST "
+        f"bytes in its directory, its refs table names all {len(refs)} "
+        f"tables; restore_to {restore_s:.3f}s; the restored DB opened on "
+        f"the store, its compact_range on {factory.device} {rcr:.3f}s "
+        f"(cold tables materialized through the cache tier), its scan "
+        f"equals the source's [{card}]")
+    return db, oracle, repo, port, ck, rdb
+
+
+def store_job_part(root, spec, db, oracle, card, device_name, n, n_more):
+    """Phase 27 (c): a store-mode dcompact job through the subprocess
+    worker on `device_name` from (a)'s DB (reopened with that factory)
+    after n_more keys and a flush, beside a path-mode job of the same
+    size on a twin DB without the store, both compact_range calls at
+    once. Returns (a)'s DB reopened."""
+    import glob
+
+    from toplingdb_tpu_torch.compaction import executor as ex
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+
+    runs = {}
+
+    def factory_for(tag):
+        rec = runs.setdefault(tag, {"sst_bytes": [], "results": [],
+                                    "stats": []})
+
+        class Capturing(ex.SubprocessCompactionExecutor):
+            def _spawn_local(self, job_dir, dev):
+                super()._spawn_local(job_dir, dev)
+                # The worker has ended: any SST it shipped is here now.
+                rec["sst_bytes"].append(sum(
+                    os.path.getsize(p) for p in glob.glob(
+                        os.path.join(job_dir, "**", "*.sst"),
+                        recursive=True)))
+                with open(os.path.join(job_dir, "results.json")) as f:
+                    rec["results"].append(json.load(f)["stats"])
+
+            def execute(self, db_, compaction, snapshots, alloc):
+                out = super().execute(db_, compaction, snapshots, alloc)
+                rec["stats"].append(out[1])
+                return out
+
+        class Factory(ex.SubprocessCompactionExecutorFactory):
+            def new_executor(self, compaction):
+                return Capturing(self.device, self.job_root)
+
+        return Factory(device=device_name,
+                       job_root=os.path.join(root, f"jobs-{tag}"))
+
+    def more(d, sink):
+        for lo in range(0, n_more, 100):
+            b = WriteBatch()
+            for i in range(lo, min(lo + 100, n_more)):
+                k = db_key(i * 11 % n, n)
+                sink[k] = b"c%019d" % i
+                b.put(k, sink[k])
+            d.write(b)
+        d.flush()
+
+    # The path-mode twin: the same writes as (a)'s DB into a DB without
+    # the store, its fill's jobs on the card in process.
+    twin = DB.open(os.path.join(root, "c-path"), Options(
+        create_if_missing=True, write_buffer_size=8 << 20,
+        compaction_executor_factory=ex.DeviceCompactionExecutorFactory(
+            device=device_name)))
+    twin_oracle = {}
+    fill_flushed(twin, n, lambda i: (db_key(i, n), b"%020d" % i))
+    twin.wait_for_compactions()
+    twin.compact_range()
+    b = WriteBatch()
+    for k, v in oracle.items():
+        if v[:1] == b"b":
+            b.put(k, v)
+    twin.write(b)
+    twin.flush()
+    twin.close()
+    db.close()
+    opts = dict(create_if_missing=False, write_buffer_size=8 << 20,
+                disable_auto_compactions=True)
+    db = DB.open(os.path.join(root, "a"), Options(
+        shared_store=spec, compaction_executor_factory=factory_for("store"),
+        **opts))
+    twin = DB.open(os.path.join(root, "c-path"), Options(
+        compaction_executor_factory=factory_for("path"), **opts))
+    more(db, oracle)
+    more(twin, twin_oracle)
+    walls, errs = {}, []
+
+    def run(tag, d):
+        """One job: every L0 file with the compacted level beneath them
+        (compact_files), so each DB starts one worker process."""
+        try:
+            v = d.versions.current
+            levels = {lvl for lvl, fl in enumerate(v.files) if fl}
+            out = max(levels)
+            assert levels <= {0, out}, v.describe()
+            t0 = time.time()
+            d.compact_files([f.number for _, f in v.all_files()], out)
+            walls[tag] = time.time() - t0
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=a)
+          for a in (("store", db), ("path", twin))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert not errs, errs
+    st_s, st_p = runs["store"], runs["path"]
+    assert len(st_s["stats"]) == len(st_p["stats"]) == 1, runs
+    for s, r in zip(st_s["stats"], st_s["results"]):
+        assert s.remote and s.sst_bytes_shipped == 0, s
+        assert r["device"] == device_name, r
+    assert st_s["sst_bytes"] and not any(st_s["sst_bytes"]), st_s
+    assert all(s.sst_bytes_shipped > 0 for s in st_p["stats"]), st_p
+    refs = shared_env(db).refs_of(os.path.join(root, "a"))
+    outs = {"%06d.sst" % f.number for _, f in db.versions.current.all_files()}
+    adopted = outs & set(refs)
+    assert adopted, (outs, refs)
+    scan_equal(db, sorted(oracle.items()), "store c")
+    twin.close()
+
+    def jobs_text(rec):
+        return "; ".join(
+            f"{s.input_records} rows, {r['device']} "
+            f"{'pipelined' if r['pipelined'] else 'serial'}, "
+            f"rpc_time_usec {s.rpc_time_usec}, work_time_usec "
+            f"{s.work_time_usec}, sst_bytes_shipped {s.sst_bytes_shipped}"
+            for s, r in zip(rec["stats"], rec["results"]))
+
+    log(f"[store c] store-mode dcompact through the subprocess worker on "
+        f"{device_name} after {n_more} more keys and a flush: "
+        f"{jobs_text(st_s)}; job dirs held {st_s['sst_bytes']} SST bytes "
+        f"when their workers ended; {len(adopted)} outputs adopted as store "
+        f"references; compact_files {walls['store']:.3f}s; the scan equals "
+        f"the oracle. The path-mode twin (same writes, no store), at the "
+        f"same time: {jobs_text(st_p)}; compact_files {walls['path']:.3f}s "
+        f"[{card}]")
+    return db
+
+
+def http_store_part(root, spec, db, oracle, card, factory, n_gets):
+    """Phase 27 (d): a StoreServer over the store and a second DB on
+    shared_store="http://..." from a reference-mode restore of a fresh
+    checkpoint of (a)'s DB: cold gets over HTTP and a scan. Returns the
+    server, the DB and its directory."""
+    import random
+
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.env import PosixEnv
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.storage import (
+        LocalObjectStore,
+        SharedSstEnv,
+        StoreClient,
+        StoreServer,
+    )
+    from toplingdb_tpu_torch.utilities.checkpoint import (
+        Checkpoint,
+        create_checkpoint,
+    )
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    srv = StoreServer(LocalObjectStore(spec))
+    url = f"http://127.0.0.1:{srv.start()}"
+    ck = os.path.join(root, "ckpt-d")
+    create_checkpoint(db, ck)
+    stats = st.Statistics()
+    env = SharedSstEnv(PosixEnv(), StoreClient(url), stats=stats)
+    ddir = os.path.join(root, "d")
+    Checkpoint(ck, env).restore_to(ddir)  # queues the warm over HTTP
+    ddb = DB.open(ddir, Options(shared_store=url, statistics=stats,
+                                write_buffer_size=8 << 20,
+                                compaction_executor_factory=factory),
+                  env=env)
+    rng = random.Random(7)
+    keys = sorted(oracle)
+    t0 = time.time()
+    for _ in range(n_gets):
+        k = keys[rng.randrange(len(keys))]
+        assert ddb.get(k) == oracle[k], k
+    gets_s = time.time() - t0
+    scan_s = scan_equal(ddb, sorted(oracle.items()), "store d")
+    env.tier.drain()
+    misses = stats.get_ticker_count(st.STORE_MISSES)
+    fetched = stats.get_ticker_count(st.STORE_BYTES_FETCHED)
+    h = stats.get_histogram(st.STORE_FETCH_MICROS)
+    assert misses >= 1 and fetched > 0, (misses, fetched)
+    log(f"[store d] StoreServer at {url} over the store; a second DB on "
+        f"shared_store={url} from a reference-mode restore: {n_gets} gets "
+        f"{gets_s:.3f}s and a scan {scan_s:.3f}s equal the oracle; "
+        f"STORE_MISSES {misses}, STORE_BYTES_FETCHED {fetched} (the "
+        f"restore's warm and the gets, every fetch over HTTP), "
+        f"STORE_FETCH_MICROS median {h.percentile(50):.0f} us over "
+        f"{h.count} fetches [{card}]")
+    shutil.rmtree(ck, ignore_errors=True)
+    return srv, ddb, ddir
+
+
+def sweep_part(root, spec, roots, card):
+    """Phase 27 (e): (b)'s checkpoint and restore dropped, a mark-sweep
+    over the roots still open; only unreferenced objects go, and every
+    root reopens with the scan of its oracle. `roots`: (directory,
+    reopen(), oracle) for each open DB, which is closed here."""
+    from toplingdb_tpu_torch.storage import (
+        LocalObjectStore,
+        collect_live_addresses,
+        mark_sweep,
+    )
+    from toplingdb_tpu_torch.utils import statistics as st
+
+    store = LocalObjectStore(spec)
+    before = set(store.list_addresses())
+    dirs = [d for d, _, _ in roots]
+    live = collect_live_addresses(dirs)
+    stats = st.Statistics()
+    t0 = time.time()
+    rep = mark_sweep(store, dirs, statistics=stats)
+    sweep_s = time.time() - t0
+    swept = set(rep["swept"])
+    assert not swept & live, swept & live
+    assert swept == before - live - set(store.pinned()), (swept, before)
+    assert all(store.contains(a) for a in live)
+    walls = []
+    for d, reopen, want in roots:
+        db = reopen()
+        try:
+            walls.append(scan_equal(db, want, f"store e {d}"))
+        finally:
+            db.close()
+    log(f"[store e] mark_sweep over {len(dirs)} roots {sweep_s:.3f}s: "
+        f"{len(before)} objects, {len(live)} live, STORE_GC_SWEPT "
+        f"{stats.get_ticker_count(st.STORE_GC_SWEPT)} (every unreferenced "
+        f"one, no live one); each root reopened, its scan equal to its "
+        f"oracle ({', '.join(f'{w:.3f}s' for w in walls)}) [{card}]")
+
+
+def replication_part(root, factory, card, n, n_gets, n_promote):
+    """Phase 27 (f): a primary of n keys with its compactions on the card
+    and two followers tailing every 50 ms (one sharing its directory, one
+    standalone through HttpTransport -> ReplicationServer): lag sampled
+    every 100 ms during the fill, read-your-writes gets through
+    ReplicaRouter, the followers' scans, a third follower bootstrapped
+    from a checkpoint after the WAL GC, and POST /promote of the shared
+    follower, which then takes writes and compacts on the card."""
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.db.write_batch import WriteBatch
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.replication import (
+        FollowerDB,
+        HttpTransport,
+        LocalTransport,
+        LogShipper,
+        ReplicaRouter,
+        ReplicationServer,
+    )
+    from toplingdb_tpu_torch.utils import statistics as st
+    from toplingdb_tpu_torch.utils.config import SidePluginRepo
+
+    from toplingdb_tpu_torch.ops import kernels
+
+    pdir = os.path.join(root, "primary")
+    db = DB.open(pdir, Options(create_if_missing=True,
+                               write_buffer_size=8 << 20,
+                               statistics=st.Statistics(),
+                               compaction_executor_factory=factory))
+    ship = LogShipper(db)
+    srv = ReplicationServer(db, ship)
+    url = f"http://127.0.0.1:{srv.start()}"
+    fol = FollowerDB.open(pdir, Options(statistics=st.Statistics()),
+                          transport=LocalTransport(ship), mode="shared")
+    sfol = FollowerDB.open(os.path.join(root, "standalone"),
+                           Options(statistics=st.Statistics()),
+                           transport=HttpTransport(url), mode="standalone")
+    # The promoted DB's options: phase 13's, its jobs on the factory's
+    # device.
+    repo = SidePluginRepo()
+    repo.attach_db("shared", fol, {"options": {
+        "write_buffer_size": 8 << 20, "compaction_executor_factory": {
+            "class": "device", "params": {"device_name": factory.device}}}})
+    hport = repo.start_http(0)
+    for f in (fol, sfol):
+        f.start_tailing(interval=0.05)
+    lags = {"shared": [], "standalone": []}
+    stop = threading.Event()
+
+    def sampler():
+        while not stop.wait(0.1):
+            last = db.versions.last_sequence
+            for tag, f in (("shared", fol), ("standalone", sfol)):
+                lags[tag].append(max(0, last - f.applied_sequence()))
+
+    th = threading.Thread(target=sampler)
+    th.start()
+    oracle = {}
+
+    def kv(i):
+        k, v = db_key(i, n), b"%020d" % i
+        oracle[k] = v
+        return k, v
+
+    try:
+        fill = fill_flushed(db, n, kv)
+    finally:
+        stop.set()
+        th.join()
+    t0 = time.time()
+    target = db.versions.last_sequence
+    while (fol.applied_sequence() < target
+           or sfol.applied_sequence() < target):
+        assert time.time() - t0 < 60, "followers never caught up"
+        time.sleep(0.005)
+    to_zero = time.time() - t0
+    # Read-your-writes through the router: each batch's keys read with the
+    # batch's token RYW_DELAY batches later.
+    router = ReplicaRouter(db, [fol, sfol])
+    pending, served = [], 0
+    f_reads0 = db.stats.get_ticker_count(st.ROUTER_FOLLOWER_READS) \
+        if db.stats is not None else 0
+    t0 = time.time()
+    n_batches = n_gets // 100
+    for bno in range(n_batches + RYW_DELAY):
+        if bno < n_batches:
+            b = WriteBatch()
+            ks = []
+            for j in range(100):
+                k = b"ryw%06d%07d" % (bno, j)
+                b.put(k, b"%020d" % (bno * 100 + j))
+                ks.append(k)
+            pending.append((router.write(b), ks))
+        if bno >= RYW_DELAY:
+            token, ks = pending[bno - RYW_DELAY]
+            for j, k in enumerate(ks):
+                v = router.get(k, token=token)
+                assert v == b"%020d" % ((bno - RYW_DELAY) * 100 + j), (k, v)
+                oracle[k] = v
+                served += 1
+    ryw_s = time.time() - t0
+    assert served == n_gets
+    f_reads = (db.stats.get_ticker_count(st.ROUTER_FOLLOWER_READS)
+               - f_reads0) if db.stats is not None else 0
+    target = db.versions.last_sequence
+    t0 = time.time()
+    while (fol.applied_sequence() < target
+           or sfol.applied_sequence() < target):
+        assert time.time() - t0 < 60, "followers never caught up"
+        time.sleep(0.005)
+    for f in (fol, sfol):
+        f.stop_tailing()
+    want = sorted(oracle.items())
+    scan_equal(db, want, "repl primary")
+    scan_equal(fol, want, "repl shared follower")
+    scan_equal(sfol, want, "repl standalone follower")
+    # A third follower after the primary's WAL GC: bootstraps from a
+    # checkpoint the ReplicationServer takes.
+    db.flush()
+    for i in range(1000):
+        db.put(b"late%06d" % i, b"%020d" % i)
+        oracle[b"late%06d" % i] = b"%020d" % i
+    db.flush()
+    t0 = time.time()
+    tfol = FollowerDB.open(os.path.join(root, "third"),
+                           Options(statistics=st.Statistics()),
+                           transport=HttpTransport(url), mode="standalone")
+    boot_s = time.time() - t0
+    tfol.catch_up()
+    assert tfol.get(b"late%06d" % 999) == b"%020d" % 999
+    assert tfol.applied_sequence() == db.versions.last_sequence
+    tfol.close()
+    sfol.close()
+    srv.stop()
+    # The primary dies; POST /promote makes the shared follower a DB.
+    db.close()
+    t0 = time.time()
+    out = http_json(f"http://127.0.0.1:{hport}/promote/shared", b"{}")
+    promote_s = time.time() - t0
+    pdb = repo.get_db("shared")
+    assert pdb is not fol and out["promoted"] == "shared"
+    pfactory = pdb.options.compaction_executor_factory
+    g0 = kernels.gc_rows.launches
+    t0 = time.time()
+    for lo in range(0, n_promote, 100):
+        b = WriteBatch()
+        for i in range(lo, min(lo + 100, n_promote)):
+            k = db_key(i * 13 % n, n)
+            oracle[k] = b"p%019d" % i
+            b.put(k, oracle[k])
+        pdb.write(b)
+    pdb.flush()
+    pdb.compact_range()
+    prom_cr = time.time() - t0
+    assert pfactory.jobs and pdb._compaction_scheduler.num_local_jobs == 0
+    assert pfactory.device == factory.device, pfactory.device
+    if factory.device != "cpu":
+        assert kernels.gc_rows.launches > g0
+    scan_equal(pdb, sorted(oracle.items()), "repl promoted")
+    repo.close_all()
+
+    def lag_text(xs):
+        return (f"median {statistics.median(xs) if xs else 0:.0f}, max "
+                f"{max(xs) if xs else 0} over {len(xs)} samples")
+
+    log(f"[repl f] primary fill of {n} keys (4 writers, 4 flushed rounds) "
+        f"with two followers tailing every 50 ms: {fill:.3f}s, "
+        f"{n / fill:.0f} ops/s; lag in sequences (primary minus applied, "
+        f"every 100 ms): shared {lag_text(lags['shared'])}, standalone "
+        f"(HTTP) {lag_text(lags['standalone'])}; both at 0 {to_zero:.3f}s "
+        f"after the fill stopped; {served} read-your-writes gets through "
+        f"ReplicaRouter (each batch's keys read with its token "
+        f"{RYW_DELAY} batches later) {ryw_s:.3f}s, all their own writes, "
+        f"{f_reads / max(served, 1):.3f} of them served by followers; both "
+        f"followers' scans equal the primary's; a third, standalone "
+        f"follower opened after the WAL GC bootstrapped from a checkpoint "
+        f"of the ReplicationServer in {boot_s:.3f}s and caught up; POST "
+        f"/promote {promote_s:.3f}s, the promoted DB took {n_promote} "
+        f"writes, flush and compact_range on {factory.device} "
+        f"{prom_cr:.3f}s ({len(pfactory.jobs)} device jobs), its scan "
+        f"equals the oracle [{card}]")
+
+
+def store_repl_path(torch, root, card, device_name="cuda", n_store=STORE_N,
+                    n_repl=REPL_N):
+    """Phase 27 (see the module docstring): (a)-(e) the shared SST store,
+    (f) the replication plane. Returns the (gc_rows, merge_runs)
+    launches."""
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db.db import DB
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.ops import kernels
+
+    os.makedirs(root, exist_ok=True)
+    spec = os.path.join(root, "store")
+    factory = DeviceCompactionExecutorFactory(device=device_name)
+    launched = counted(kernels)
+    walls = {}
+    with JobLog(torch, factory, kernels) as joblog:
+        t0 = time.time()
+        db, oracle, repo, _port, ck, rdb = store_db_part(
+            root, spec, factory, card, n_store, STORE_GETS, STORE_OVERLAY_N)
+        walls["a-b"] = time.time() - t0
+        rdb.close()
+        repo.stop_http()
+        t0 = time.time()
+        db = store_job_part(root, spec, db, oracle, card, device_name,
+                            n_store, STORE_MORE_N)
+        walls["c"] = time.time() - t0
+        t0 = time.time()
+        srv, ddb, ddir = http_store_part(root, spec, db, oracle, card,
+                                         factory, STORE_HTTP_GETS)
+        walls["d"] = time.time() - t0
+        t0 = time.time()
+        for d in (ck, os.path.join(root, "rest")):
+            shutil.rmtree(d)
+        want = sorted(oracle.items())
+        db.close()
+        ddb.close()
+        url = f"http://127.0.0.1:{srv.port}"
+        adir = os.path.join(root, "a")
+        sweep_part(root, spec, [
+            (adir, lambda: DB.open(adir, Options(
+                shared_store=spec, compaction_executor_factory=factory)),
+             want),
+            (ddir, lambda: DB.open(ddir, Options(
+                shared_store=url, compaction_executor_factory=factory)),
+             want)], card)
+        srv.stop()
+        walls["e"] = time.time() - t0
+        t0 = time.time()
+        replication_part(root, factory, card, n_repl, REPL_GETS,
+                         REPL_PROMOTE_N)
+        walls["f"] = time.time() - t0
+    for j in joblog.jobs:
+        assert j["device"] == device_name, j
+        alone = not any(o is not j and o["t0"] < j["t1"]
+                        and j["t0"] < o["t1"] for o in joblog.jobs)
+        if device_name != "cpu" and alone:
+            assert j["gc"] >= 1, j
+    gc_n, mr_n = launched()
+    if device_name != "cpu":
+        assert gc_n >= 1 and mr_n >= 1, (gc_n, mr_n)
+    log(f"[store-repl] {len(joblog.jobs)} device-executor jobs on "
+        f"{device_name}, launches gc_rows={gc_n} merge_runs={mr_n}; part "
+        f"walls (s) {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
+        f" [{card}]")
+    return gc_n, mr_n
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7752,6 +8492,10 @@ def main() -> int:
                            os.path.join(dbdir, "db26"), smi)
         log(f"[utilities] phase 26 wall {walls['26 utilities']:.1f}s "
             f"[{smi}]")
+        sr_gc, sr_mr = phase("27 store-repl", store_repl_path, torch,
+                             os.path.join(dbdir, "db27"), smi)
+        log(f"[store-repl] phase 27 wall {walls['27 store-repl']:.1f}s "
+            f"[{smi}]")
     finally:
         shutil.rmtree(dbdir, ignore_errors=True)
         shutil.rmtree(dbdir + "_cpu", ignore_errors=True)
@@ -7768,11 +8512,12 @@ def main() -> int:
     # And phase 23's timestamp, primary, prefix and repaired DBs.
     # And phase 24's SidePlugin, replay, stalled and lock-debug DBs.
     # And phase 25's mesh runs, and phase 26's transaction, checkpoint,
-    # ingest, TTL, service and wrapper-Env DBs.
+    # ingest, TTL, service and wrapper-Env DBs, and phase 27's DBs on the
+    # shared store, its primary and its promoted follower.
     launches["gc_rows"] += (w_gc + r_gc + m_gc + s_gc + p_gc + sp_gc + pa_gc
-                            + u_gc)
+                            + u_gc + sr_gc)
     launches["merge_runs"] += (w_mr + r_mr + m_mr + s_mr + p_mr + sp_mr
-                               + pa_mr + u_mr)
+                               + pa_mr + u_mr + sr_mr)
     for name, r in results.items():
         r["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

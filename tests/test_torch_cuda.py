@@ -91,7 +91,14 @@ without JAX: `python -m pytest tests/test_torch_cuda.py -q`.
   guard is in the job's snapshot list), live reads the committed one;
 - a CompactionService job on "cuda" (CompactionServiceExecutorFactory(
   InProcessCompactionService(), device="cuda")) launches the kernels and
-  writes the SST bytes the device executor writes for the same DB.
+  writes the SST bytes the device executor writes for the same DB;
+- a DB on a shared SST store (Options.shared_store) whose job runs in a
+  subprocess worker on "cuda" in store mode: the job dir holds no SST
+  byte when the worker ends, no SST byte is shipped, and the outputs the
+  DB adopts have the addresses (the bytes) of the same job on "cpu-jax";
+- a FollowerDB sharing a primary's directory reads, after catch_up, the
+  tables the primary's compactions wrote on the card (both kernels
+  launch), equal to a dict oracle.
 """
 
 import os
@@ -1932,3 +1939,117 @@ def test_compaction_service_job_on_the_card(dev, tmp_path):
         _time.time = real
     assert svc.jobs >= 1
     assert outs["service"] == outs["device"]
+
+
+def _store_job_db(root, device, monkeypatch):
+    """A DB on a store root whose one compact_range job runs through a
+    subprocess worker on `device`: (the live outputs' store addresses,
+    the job's stats, the SST paths the job dir held when its worker
+    ended, the DB's reads)."""
+    import glob
+
+    from toplingdb_tpu_torch.compaction import executor as ex
+    from toplingdb_tpu_torch.db import db as dbm
+    from toplingdb_tpu_torch.options import Options
+
+    seen, stats_out = [], []
+
+    class Capturing(ex.SubprocessCompactionExecutor):
+        def _spawn_local(self, job_dir, dev_name):
+            super()._spawn_local(job_dir, dev_name)
+            seen.extend(glob.glob(os.path.join(job_dir, "**", "*.sst"),
+                                  recursive=True))
+
+        def execute(self, db, compaction, snapshots, new_file_number):
+            out = super().execute(db, compaction, snapshots,
+                                  new_file_number)
+            stats_out.append(out[1])
+            return out
+
+    class Factory(ex.SubprocessCompactionExecutorFactory):
+        def new_executor(self, compaction):
+            return Capturing(self.device, self.job_root)
+
+    _frozen(monkeypatch)
+    db = dbm.DB.open(os.path.join(root, "db"), Options(
+        write_buffer_size=1 << 20, disable_auto_compactions=True,
+        shared_store=os.path.join(root, "store"),
+        compaction_executor_factory=Factory(device=device)))
+    try:
+        for r in range(3):
+            for i in range(20000):
+                db.put(b"s%06d" % ((i * 7919 + r) % 30000),
+                       b"v%d-%06d" % (r, i))
+            db.flush()
+        db.compact_range()
+        live = [f for _, f in db.versions.current.all_files()]
+        refs = db.env.refs_of(os.path.join(root, "db"))
+        addrs = sorted(refs["%06d.sst" % f.number] for f in live)
+        reads = [db.get(b"s%06d" % i) for i in range(0, 30000, 97)]
+    finally:
+        db.close()
+    return addrs, stats_out, seen, reads
+
+
+def test_store_mode_dcompact_on_the_card_writes_the_cpu_bytes(
+        dev, tmp_path, monkeypatch):
+    got = _store_job_db(str(tmp_path / "cuda"), "cuda", monkeypatch)
+    want = _store_job_db(str(tmp_path / "cpu-jax"), "cpu-jax", monkeypatch)
+    addrs, stats_out, seen, reads = got
+    assert stats_out and all(s.remote and s.sst_bytes_shipped == 0
+                             and s.device == "cuda" for s in stats_out)
+    assert seen == []  # no SST byte crossed the job dir
+    assert addrs and addrs == want[0]  # same addresses: same bytes
+    assert reads == want[3]
+
+
+def test_follower_reads_the_tables_the_card_compacted(dev, tmp_path):
+    from toplingdb_tpu_torch.compaction.executor import (
+        DeviceCompactionExecutorFactory,
+    )
+    from toplingdb_tpu_torch.db import db as dbm
+    from toplingdb_tpu_torch.options import Options
+    from toplingdb_tpu_torch.replication import (
+        FollowerDB,
+        LocalTransport,
+        LogShipper,
+    )
+
+    src = str(tmp_path / "db")
+    db = dbm.DB.open(src, Options(
+        write_buffer_size=1 << 18, disable_auto_compactions=True,
+        compaction_executor_factory=DeviceCompactionExecutorFactory(
+            device="cuda")))
+    fol = FollowerDB.open(src, transport=LocalTransport(LogShipper(db)),
+                          mode="shared")
+    oracle = {}
+    try:
+        kernels.gc_rows.launches = 0
+        kernels.merge_runs_perm.launches = 0
+        for r in range(4):
+            for i in range(15000):
+                k = b"f%06d" % ((i * 7919 + r * 13) % 40000)
+                oracle[k] = b"v%d-%06d" % (r, i)
+                db.put(k, oracle[k])
+            db.flush()
+            fol.catch_up()
+        db.compact_range()
+        assert kernels.gc_rows.launches >= 1
+        assert kernels.merge_runs_perm.launches >= 1
+        for i in range(0, 40000, 400):
+            db.delete(b"f%06d" % i)
+            oracle.pop(b"f%06d" % i, None)
+        for _ in range(3):
+            fol.catch_up()
+        assert fol.applied_sequence() == db.versions.last_sequence
+        assert sum(len(x) for x in fol.versions.current.files[1:]) >= 1
+        it = fol.new_iterator()
+        it.seek_to_first()
+        rows = {}
+        while it.valid():
+            rows[it.key()] = it.value()
+            it.next()
+        assert rows == oracle
+    finally:
+        fol.close()
+        db.close()

@@ -14,7 +14,8 @@ compaction/resilience.py) against toplingdb_tpu's, on the CPU.
 - the chaos matrix (mirror of tests/test_fault_soak.py:141 and :179):
   every faulted run is byte-identical to its fault-free twin, with the
   reference's DCOMPACTION_ATTEMPTS / RETRIES under the same schedule;
-- no fallback: a dead worker, every circuit open, a shared-store job;
+- no fallback: a dead worker, every circuit open; a store no worker can
+  reopen sends a job down the path mode;
 - an orphaned job dir swept on open, and the job re-run.
 
 `time.time()` is frozen (as tests/test_fault_soak.py freezes it) so the
@@ -46,7 +47,7 @@ import toplingdb_tpu_torch.db.db as dbm
 import toplingdb_tpu_torch.options as opts_mod
 import toplingdb_tpu_torch.utils.listener as listener
 import toplingdb_tpu_torch.utils.statistics as st
-from toplingdb_tpu_torch.utils.status import IOError_, NotSupported
+from toplingdb_tpu_torch.utils.status import IOError_
 
 FROZEN_TIME = 1_700_000_000.0
 
@@ -579,36 +580,51 @@ def test_all_circuits_open_raises_without_timeout(tmp_path):
 
 
 class _SharedStoreEnv:
-    """A stand-in for the reference's SharedSstEnv: an env whose tables
-    live in a shared store (it publishes SSTs)."""
+    """An env whose tables publish to a shared store that no worker
+    process can reopen: it has `publish_sst` and a store with neither a
+    root path nor a URL."""
 
     def __init__(self, env):
         self._env = env
+        self.store = object()
+        self.published = []
 
     def __getattr__(self, name):
         return getattr(self._env, name)
 
-    def publish_sst(self, *a, **k):
-        raise AssertionError("never reached")
+    def publish_sst(self, path, meta):
+        self.published.append(os.path.basename(path))
 
 
 def test_store_spec_job_refused_before_any_file(tmp_path):
+    """A store-mode dcompact job is no longer refused (storage/ is
+    ported): a store no worker can reopen sends the job down the path
+    mode, as toplingdb_tpu's _store_spec_of decides, so the job runs on
+    its device and ships its outputs through the job dir; the install
+    publishes them. tests/test_torch_storage.py holds a real store's job,
+    which ships no SST byte."""
     from toplingdb_tpu_torch.env import default_env
 
     path = str(tmp_path / "db")
+    env = _SharedStoreEnv(default_env())
     db = dbm.DB.open(path, opts_mod.Options(
-        disable_auto_compactions=True,
+        disable_auto_compactions=True, statistics=st.Statistics(),
         compaction_executor_factory=ex.SubprocessCompactionExecutorFactory(
-            device="cpu-jax")), env=_SharedStoreEnv(default_env()))
+            device="cpu-jax")), env=env)
     try:
         for r in range(2):
             db.put(b"k%d" % r, b"v")
             db.flush()
-        before = sorted(os.listdir(path))
-        with pytest.raises(NotSupported, match="shared SST store"):
-            db.compact_range()
-        assert sorted(os.listdir(path)) == before
-        assert not os.path.exists(os.path.join(path, "dcompact"))
+        assert len(env.published) == 2
+        db.compact_range()
+        live = [f for f in db.versions.current.all_files()]
+        assert len(live) == 1 and live[0][0] == 6  # the last level
+        assert env.published[-1] == "%06d.sst" % live[0][1].number
+        assert db.stats.get_ticker_count(st.DCOMPACTION_ATTEMPTS) == 1
+        jobs = os.path.join(path, "dcompact")
+        assert not os.path.isdir(jobs) or not [
+            d for d in os.listdir(jobs) if d.startswith("job-")]
+        assert [db.get(b"k%d" % r) for r in range(2)] == [b"v", b"v"]
     finally:
         db.close()
 

@@ -16,7 +16,8 @@ disk-full soak.
   severities, tickers, recovery notifications, counts) are equal across
   the packages. :360 runs under each package's lock-graph debug mode
   (utils/concurrency.set_debug), as the reference's does; :475 runs
-  its plain-DB leg (the follower leg needs replication, not in the port),
+  both its legs (the recovered primary, then a FollowerDB fed from its
+  WAL stream through a LogShipper, which must read the merged oracle),
   and reports the port's WRITE_GROUP_NATIVE_COMMITS / _FALLBACKS under the
   fault env;
 - the port alone: an ENOSPC inside a device job (a "*.sst" budget of
@@ -49,6 +50,7 @@ from toplingdb_tpu.env.fault_injection import (
 )
 from toplingdb_tpu.options import Options as RefOptions
 from toplingdb_tpu.options import WriteOptions as RefWriteOptions
+import toplingdb_tpu.replication as ref_repl
 from toplingdb_tpu.utils import listener as ref_listener
 from toplingdb_tpu.utils import statistics as ref_st
 from toplingdb_tpu.utils import concurrency as ref_ccy
@@ -62,6 +64,7 @@ from toplingdb_tpu_torch.compaction.executor import (
 from toplingdb_tpu_torch.env import MemEnv, PosixEnv
 from toplingdb_tpu_torch.env.fault_injection import FaultInjectionEnv
 from toplingdb_tpu_torch.options import Options, WriteOptions
+import toplingdb_tpu_torch.replication as repl
 from toplingdb_tpu_torch.utils import listener
 from toplingdb_tpu_torch.utils import statistics as st
 from toplingdb_tpu_torch.utils import concurrency as ccy
@@ -86,6 +89,8 @@ class Pkg:
         self.status = ref_status if ref else status
         self.listener = ref_listener if ref else listener
         self.WriteOptions = RefWriteOptions if ref else WriteOptions
+        self.repl = ref_repl if ref else repl
+        self.Options = RefOptions if ref else Options
         # The auto-recover thread's name.
         self.recover_thread = "db-auto-recover" if ref else "tpt-auto-recover"
         self.ccy = ref_ccy if ref else ccy
@@ -462,7 +467,8 @@ def _escalation(p, d, obs):
 def sc_disk_full_soak_enospc_recover_parity(p, d, obs):             # :475
     """Fill a byte-budgeted injected filesystem until a genuine ENOSPC
     latches the DB, free space, and require: autonomous un-latch (zero
-    resume() calls), zero lost acked writes, and a clean reopen."""
+    resume() calls), zero lost acked writes, a clean follower catch-up,
+    and a clean reopen."""
     stats = p.st.Statistics()
     watch = _watch(p)
     fe = p.FaultInjectionEnv(p.PosixEnv())
@@ -473,6 +479,7 @@ def sc_disk_full_soak_enospc_recover_parity(p, d, obs):             # :475
                                 flush_headroom_bytes=32 * 1024,
                                 statistics=stats, listeners=[watch]),
                    env=fe)
+    ship = p.repl.LogShipper(db, statistics=stats)
     oracle: dict[bytes, bytes] = {}
     wo = p.WriteOptions(sync=True)
     try:
@@ -515,6 +522,19 @@ def sc_disk_full_soak_enospc_recover_parity(p, d, obs):             # :475
         db.wait_for_compactions()
         bad = [k for k, v in oracle.items() if db.get(k) != v]
         assert not bad, ("post-recovery", bad[:3])
+        # Follower leg: a replica fed from the recovered primary's WAL
+        # stream converges to the same merged oracle.
+        fol = p.repl.FollowerDB.open(
+            d, p.Options(statistics=stats),
+            transport=p.repl.LocalTransport(ship), mode="shared")
+        try:
+            for _ in range(4):
+                fol.catch_up()
+            fbad = [k for k, v in oracle.items() if fol.get(k) != v]
+            assert not fbad, ("follower", fbad[:3])
+            assert fol.applied_sequence() == db.versions.last_sequence
+        finally:
+            fol.close()
         if not p.ref:
             # The native write plane frames through the budgeted writable.
             native = stats.get_ticker_count(st.WRITE_GROUP_NATIVE_COMMITS)

@@ -87,6 +87,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # CUDA probe.
     for m in SLICE22_MODULES:
         assert m in loaded, m
+    # and the shared SST store and the replication plane.
+    for m in SLICE23_MODULES:
+        assert m in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
@@ -108,6 +111,27 @@ SLICE22_MODULES = (
     "toplingdb_tpu_torch.tools.io_tracer_parser",
     "toplingdb_tpu_torch.utils.backend_probe",
 )
+
+
+SLICE23_MODULES = (
+    "toplingdb_tpu_torch.storage",
+    "toplingdb_tpu_torch.storage.object_store",
+    "toplingdb_tpu_torch.storage.shared_env",
+    "toplingdb_tpu_torch.storage.gc",
+    "toplingdb_tpu_torch.storage.store_server",
+    "toplingdb_tpu_torch.replication",
+    "toplingdb_tpu_torch.replication.log_shipper",
+    "toplingdb_tpu_torch.replication.follower",
+    "toplingdb_tpu_torch.replication.router",
+)
+
+
+@pytest.mark.parametrize("module", SLICE23_MODULES)
+def test_slice23_modules_read_no_environment(module):
+    """Ground rule 4 for the shared store and the replication plane: no
+    access to os.environ or os.getenv (Options.shared_store is the store's
+    only switch; toplingdb_tpu's DB reads TPULSM_SHARED_STORE)."""
+    test_slice22_modules_read_no_environment(module)
 
 
 @pytest.mark.parametrize("module", SLICE22_MODULES)

@@ -200,7 +200,6 @@ def test_left_out_half_raises_and_answers_501(tmp_path, no_thread_leaks):
                         (lambda: repo._fleet_gauges(), "fleet"),
                         (lambda: repo._shard_action("c", "split", {}),
                          "sharding"),
-                        (lambda: repo._promote("d"), "replication"),
                         (lambda: config._prometheus_cluster_gauges("c", None),
                          "sharding")):
         with pytest.raises(NotSupported, match=f"the {plane} plane"):
@@ -216,7 +215,6 @@ def test_left_out_half_raises_and_answers_501(tmp_path, no_thread_leaks):
                                     ("fleet", "GET", "fleet"),
                                     ("fleet/f", "GET", "fleet"),
                                     ("cluster/health", "GET", "fleet"),
-                                    ("promote/d", "POST", "replication"),
                                     ("shards/c/split", "POST", "sharding")):
             req = urllib.request.Request(
                 f"{base}/{path}", method=method,

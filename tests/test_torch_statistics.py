@@ -561,11 +561,11 @@ def test_slo_fields_still_refused(tmp_path):
     """The three SLO fields were refused until the SLO engine was ported
     (utils/slo.py); now they open: the DB builds its engine, starts its
     evaluation thread, and close() joins it. Only db_write_buffer_size
-    and shared_store stay refused."""
+    stays refused: shared_store opens since the storage plane was ported
+    (storage/), and its DB runs on a SharedSstEnv."""
     for name in ("slo_specs", "slo_eval_period_sec", "slo_window_sec"):
         assert name not in opts_mod.UNPORTED
-    assert sorted(opts_mod.UNPORTED) == ["db_write_buffer_size",
-                                         "shared_store"]
+    assert sorted(opts_mod.UNPORTED) == ["db_write_buffer_size"]
     db = dbm.DB.open(str(tmp_path / "db"), opts_mod.Options(
         statistics=st.Statistics(),
         slo_specs=({"name": "get", "kind": "latency"},),
@@ -578,7 +578,12 @@ def test_slo_fields_still_refused(tmp_path):
     finally:
         db.close()
     assert eng._thread is None
-    with pytest.raises(NotSupported, match="shared_store"):
+    with pytest.raises(NotSupported, match="db_write_buffer_size"):
         dbm.DB.open(str(tmp_path / "db2"), opts_mod.Options(
-            shared_store="/nowhere",
+            db_write_buffer_size=1 << 20,
             compaction_executor_factory=LocalCompactionExecutorFactory()))
+    with dbm.DB.open(str(tmp_path / "db3"), opts_mod.Options(
+            shared_store=str(tmp_path / "store"),
+            compaction_executor_factory=LocalCompactionExecutorFactory())
+            ) as db3:
+        assert hasattr(db3.env, "publish_sst")

@@ -5,8 +5,9 @@ both packages' run_job on two copies of it (the reference on JAX's CPU
 backend). The output SST bytes, results.json's status and output_files
 (every field) and the key set of its stats must be equal. Tolerance:
 bitwise. Also: jobs with a prefix extractor, collectors or zip outputs
-through both workers, the job the port refuses (the shared-store mode)
-failing with rc 1, an error status and no output, the heartbeat of a
+through both workers, the job the port refuses (a store_spec that names
+no store backend) failing with rc 1, an error status and no output, the
+heartbeat of a
 leased job, and the CLI in a subprocess."""
 
 import json
@@ -254,7 +255,8 @@ def test_worker_heartbeat(tmp_path):
     ("table_format", "zip", None),
 ])
 def test_worker_refuses_without_output(tmp_path, field, value, needle):
-    """The shared-store mode is refused with rc 1 and no output. A prefix
+    """A store_spec that names no store backend (a URL scheme other than
+    http(s)) is refused with rc 1 and no output. A prefix
     extractor, property collectors and the zip format, once refused the
     same way, now run: the same job dir through both workers' device data
     plane gives the same bytes."""

@@ -7,7 +7,11 @@ compaction_executor.h): a worker host runs `DcompactWorkerService`, one
 process per card, and the DB side's `HttpCompactionExecutorFactory` POSTs
 {"job_dir": ...} to /dcompact and waits for the CompactionResults. Bulk
 data (input SSTs, output SSTs, params and results JSON) moves through the
-shared filesystem.
+shared filesystem. A DB on a shared SST store (Options.shared_store)
+submits store-mode jobs: their params carry `store_spec` and
+`input_addrs` through the service unchanged, the worker fetches the
+inputs from the store and publishes the outputs back, and the job dir
+holds only the params and results JSON.
 
 Worker:  python -m toplingdb_tpu_torch.compaction.dcompact_service \
              --port 8080 [--host H] [--device cuda] [--workers 1] [--chips N]

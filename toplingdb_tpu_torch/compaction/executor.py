@@ -27,6 +27,15 @@ CompactionIterator) run only where the caller names them. The HTTP
 transport (compaction/dcompact_service.py) reuses the executor with a
 POST in place of the spawn.
 
+Store mode (ToplingDB's dcompact over shared storage): when the DB runs on
+a SharedSstEnv (Options.shared_store) whose store a worker can reopen (a
+root path or an http:// URL) and every input carries a checksum address,
+the job names the store (`store_spec`) and the inputs' addresses
+(`input_addrs`); the worker fetches the inputs from the store, runs the
+job on its device, publishes and pins each output, and answers with its
+address (`store_addr`), which the DB adopts as a reference. The job dir
+then carries no SST bytes (`sst_bytes_shipped` 0).
+
 `CompactionParams`, `CompactionResults`, `encode_file_meta`,
 `decode_file_meta` and `table_options_from_params` are the dcompact job
 dir's params.json and results.json, in toplingdb_tpu's format, so a job
@@ -198,8 +207,8 @@ class CompactionParams:
     # results.json so the DB stitches one end-to-end trace. None = the
     # submitting op was untraced.
     trace: dict | None = None
-    # Disaggregated-storage mode (the reference's storage/): when set, the
-    # worker resolves inputs by content address from the shared store
+    # Disaggregated-storage mode (storage/): when set, the worker
+    # resolves inputs by content address from the shared store
     # (input_addrs pairs with input_files) and publishes outputs back —
     # ZERO SST bytes cross the job transport. None = classic path mode.
     store_spec: str | None = None
@@ -315,6 +324,37 @@ def decode_file_meta(d: dict, number: int) -> FileMetaData:
 # Subprocess transport (the dcompact worker in its own process)
 # ---------------------------------------------------------------------------
 
+
+def _store_spec_of(env) -> str | None:
+    """The store spec a worker process can reopen: the HTTP URL of a
+    StoreClient or the root path of a LocalObjectStore. None when the env
+    has no store or its backend has no process-portable name."""
+    store = getattr(env, "store", None)
+    if store is None:
+        return None
+    url = getattr(store, "url", None)
+    if isinstance(url, str) and url:
+        return url
+    root = getattr(store, "root", None)
+    return root if isinstance(root, str) and root else None
+
+
+def _store_mode(db, compaction) -> tuple[str | None, list | None]:
+    """(store_spec, input_addrs) of a store-mode job: the DB runs on a
+    SharedSstEnv whose store a worker can reopen, and EVERY input carries
+    a checksum address. One unstamped input (file_checksum off) sends the
+    whole job down the path mode, as toplingdb_tpu does: a choice of
+    transport, the job runs on the same device either way."""
+    if not hasattr(db.env, "publish_sst"):
+        return None, None
+    from toplingdb_tpu_torch.storage.object_store import address_of_meta
+
+    addrs = [address_of_meta(f) for _, f in compaction.all_inputs()]
+    spec = _store_spec_of(db.env)
+    if spec is None or any(a is None for a in addrs):
+        return None, None
+    return spec, addrs
+
 # The device names a remote job may carry: the worker maps them
 # (compaction/worker.py).
 REMOTE_DEVICES = ("cuda", "cpu-jax", "cpu")
@@ -378,13 +418,6 @@ class SubprocessCompactionExecutor(CompactionExecutor):
             )
 
     def execute(self, db, compaction, snapshots, new_file_number):
-        if hasattr(db.env, "publish_sst"):
-            from toplingdb_tpu_torch.utils.status import NotSupported
-
-            # Checked before any job dir exists: nothing is left behind.
-            raise NotSupported(
-                "dcompact job on a shared SST store (store_spec mode) is "
-                "not ported yet")
         self._job_seq = next(_job_counter)
         job_root = self.job_root or os.path.join(db.dbname, "dcompact")
         job_dir = os.path.join(
@@ -410,6 +443,7 @@ class SubprocessCompactionExecutor(CompactionExecutor):
         )
 
         opts = db.options
+        store_spec, input_addrs = _store_mode(db, compaction)
         return CompactionParams(
             job_id=self._job_seq,
             attempt=self.attempt,
@@ -450,6 +484,10 @@ class SubprocessCompactionExecutor(CompactionExecutor):
             ],
             lease_sec=lease_sec,
             trace=telemetry.inject(),
+            store_spec=store_spec,
+            input_addrs=input_addrs,
+            checksum_func=(opts.file_checksum or "crc32c")
+            if store_spec else None,
         )
 
     def _execute_in(self, db, compaction, snapshots, new_file_number,
@@ -504,14 +542,26 @@ class SubprocessCompactionExecutor(CompactionExecutor):
             # on this thread (no-op when the job ran untraced).
             telemetry.attach_current(results.spans)
         # Rename the outputs into the DB dir under fresh file numbers
-        # (RocksDB's RunRemote rename loop).
+        # (RocksDB's RunRemote rename loop). Store-mode outputs are
+        # adopted instead: their bytes live in the shared store under
+        # their content address, and only the reference lands here.
         outputs = []
         shipped = 0
         for d in results.output_files:
             num = new_file_number()
-            os.replace(os.path.join(params.output_dir, d["path"]),
-                       filename.table_file_name(db.dbname, num))
-            shipped += int(d["file_size"])
+            dst = filename.table_file_name(db.dbname, num)
+            addr = d.get("store_addr")
+            if addr:
+                db.env.adopt(dst, addr)
+                try:
+                    db.env.store.unpin(addr)  # the ref shields it from GC
+                except Exception as e:  # noqa: BLE001 - the pin's TTL ends
+                    from toplingdb_tpu_torch.utils import errors as _errors
+
+                    _errors.swallow(reason="dcompact-adopt-unpin", exc=e)
+            else:
+                os.replace(os.path.join(params.output_dir, d["path"]), dst)
+                shipped += int(d["file_size"])
             outputs.append(decode_file_meta(d, num))
         stats = CompactionStats(**results.stats)
         stats.sst_bytes_shipped = shipped

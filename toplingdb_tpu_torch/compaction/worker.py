@@ -23,10 +23,17 @@ the job (`table_format`, `prefix_extractor`, `collectors`;
 `executor.table_options_from_params`), and so do the data plane's route
 arguments (`host_sort`, `host_merge`, `mesh_devices`; `run_job`'s
 `mesh_devices` overrides the job's, for the service's chip grant). Any
-other device name fails with
-ValueError, and a job that needs what the port does not carry yet (the
-shared-store mode, `store_spec`) fails with NotSupported, both before any
-file is written. With TPULSM_TEST_WORKER_CRASH=mid_job in its environment
+other device name fails with ValueError before any file is written.
+
+Store mode (`store_spec`, `input_addrs`; storage/): the inputs resolve from
+the shared store by content address into a scratch directory of this
+process (materialized on first open, each fetch verified against its
+address), the job runs on its device as above, and each output is
+checksum-stamped, published to the store, pinned until the DB adopts it
+and answered as `store_addr`: the job dir carries only params and
+results. A store_spec that names no backend (neither a directory path nor
+an http(s):// URL) fails with NotSupported before any file is written.
+With TPULSM_TEST_WORKER_CRASH=mid_job in its environment
 (the fault injector's "kill" plan sets it in the child's environment only)
 the worker dies mid-job as kill -9 would, exit code 137.
 
@@ -99,19 +106,20 @@ def run_job(job_dir: str, mesh_devices=None) -> int:
 
 def _run_job_inner(job_dir: str, params, t_enter: float,
                    waiting_usec: int) -> int:
-    from toplingdb_tpu_torch.utils.status import NotSupported
-
     if params.device not in _DEVICE_NAMES and params.device != "cpu":
         raise ValueError(f"unknown device {params.device!r}: expected one "
                          f"of {sorted(_DEVICE_NAMES) + ['cpu']}")
-    if params.store_spec:
-        raise NotSupported("dcompact job needs what the port does not "
-                           "carry yet: the shared-store mode (store_spec)")
-    return _run_job_body(job_dir, params, t_enter, waiting_usec)
+    store_mode = _StoreJobMode.maybe(params)
+    try:
+        return _run_job_body(job_dir, params, t_enter, waiting_usec,
+                             store_mode)
+    finally:
+        if store_mode is not None:
+            store_mode.cleanup()
 
 
 def _run_job_body(job_dir: str, params, t_enter: float,
-                  waiting_usec: int) -> int:
+                  waiting_usec: int, store_mode) -> int:
     from toplingdb_tpu_torch.compaction.compaction_job import (
         CompactionStats,
         build_outputs,
@@ -147,6 +155,11 @@ def _run_job_body(job_dir: str, params, t_enter: float,
             f.write(b"\x00" * 4096)
         os._exit(137)
     env = PosixEnv()
+    if store_mode is not None:
+        # The inputs resolve from the shared store into this process's
+        # scratch dir, and the outputs are written there and published
+        # back: the job dir (the transport) carries no SST bytes.
+        env = store_mode.attach(env)
     comparators = {c.name(): c for c in (dbformat.BYTEWISE,
                                          dbformat.REVERSE_BYTEWISE,
                                          dbformat.U64_TS_BYTEWISE)}
@@ -223,7 +236,8 @@ def _run_job_body(job_dir: str, params, t_enter: float,
         emit_phase_spans(stats)  # the worker's interior, under its root
         results = CompactionResults(
             status="ok",
-            output_files=_encode_outputs(outputs),
+            output_files=_encode_outputs(outputs, env, params,
+                                         store_mode),
             stats=dataclasses.asdict(stats),
             work_time_usec=stats.work_time_usec,
         )
@@ -297,7 +311,7 @@ def _run_job_body(job_dir: str, params, t_enter: float,
         )
     results = CompactionResults(
         status="ok",
-        output_files=_encode_outputs(outputs),
+        output_files=_encode_outputs(outputs, env, params, store_mode),
         stats=dataclasses.asdict(stats),
         # Disjoint from prepare: waiting + prepare + work partition the
         # worker's wall clock.
@@ -309,10 +323,99 @@ def _run_job_body(job_dir: str, params, t_enter: float,
     return 0
 
 
-def _encode_outputs(outputs) -> list[dict]:
+class _StoreJobMode:
+    """A store-mode job's context (storage/): resolve the inputs from the
+    shared store by content address, publish the outputs back, pin them
+    until the DB side adopts them. Every SST byte lives in a scratch dir
+    of this process, removed when the job ends, never in the job dir."""
+
+    @staticmethod
+    def maybe(params):
+        """The job's store context, or None for a path-mode job. Refuses,
+        before any file is written, a store_spec no backend opens and a
+        job without an address for every input."""
+        if not params.store_spec:
+            return None
+        from toplingdb_tpu_torch.storage import check_store_spec
+        from toplingdb_tpu_torch.utils.status import InvalidArgument
+
+        check_store_spec(params.store_spec)
+        addrs = params.input_addrs or []
+        if len(addrs) != len(params.input_files) or not all(addrs):
+            raise InvalidArgument(
+                f"store_spec job with {len(params.input_files)} inputs "
+                f"and input_addrs {params.input_addrs!r}: every input "
+                f"needs its store address")
+        return _StoreJobMode(params)
+
+    def __init__(self, params):
+        import tempfile
+
+        self.params = params
+        self.holder = f"dcompact-job-{params.job_id}"
+        self.scratch = tempfile.mkdtemp(
+            prefix=f"dcompact-store-{params.job_id}-")
+        self.env = None
+        self.store = None
+
+    def attach(self, base_env):
+        from toplingdb_tpu_torch.storage import SharedSstEnv, open_store
+
+        self.store = open_store(self.params.store_spec)
+        self.env = SharedSstEnv(base_env, self.store)
+        out_dir = os.path.join(self.scratch, "out")
+        os.makedirs(out_dir, exist_ok=True)
+        local_inputs = []
+        for path, addr in zip(self.params.input_files,
+                              self.params.input_addrs):
+            lp = os.path.join(self.scratch, os.path.basename(path))
+            self.env.adopt(lp, addr)  # materializes on first open
+            local_inputs.append(lp)
+        self.params.input_files = local_inputs
+        self.params.output_dir = out_dir
+        return self.env
+
+    def publish_output(self, env, path: str, meta) -> dict:
+        """Checksum-stamp and publish one output; returns the keys the DB
+        side needs to adopt it (its address and its digest)."""
+        from toplingdb_tpu_torch.storage.object_store import address_of_meta
+        from toplingdb_tpu_torch.utils.file_checksum import (
+            FileChecksumGenFactory,
+            stamp_file_checksum,
+        )
+
+        factory = FileChecksumGenFactory(
+            self.params.checksum_func or "crc32c")
+        stamp_file_checksum(env, path, meta, factory)
+        addr = address_of_meta(meta)
+        self.store.publish_file(path, addr, src_env=env.base)
+        # Pinned until the DB side's adopt makes a refs-table entry (the
+        # GC's mark phase sees that); the TTL bounds a crashed primary.
+        self.store.pin(addr, self.holder)
+        return {"store_addr": addr,
+                "file_checksum": meta.file_checksum.hex(),
+                "file_checksum_func_name": meta.file_checksum_func_name}
+
+    def cleanup(self):
+        import shutil
+
+        shutil.rmtree(self.scratch, ignore_errors=True)
+        if self.env is not None:
+            self.env.close()
+
+
+def _encode_outputs(outputs, env, params, store_mode) -> list[dict]:
     from toplingdb_tpu_torch.compaction.executor import encode_file_meta
 
-    return [encode_file_meta(m, f"{m.number:06d}.sst") for m in outputs]
+    docs = []
+    for m in outputs:
+        name = f"{m.number:06d}.sst"
+        d = encode_file_meta(m, name)
+        if store_mode is not None:
+            d.update(store_mode.publish_output(
+                env, os.path.join(params.output_dir, name), m))
+        docs.append(d)
+    return docs
 
 
 def _append_result_spans(job_dir: str, spans: list) -> None:

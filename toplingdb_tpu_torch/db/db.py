@@ -170,6 +170,14 @@ read presents an entity's default column, the iterator's `columns()` all
 of them; `legacy_wide_column_unwrap` also unwraps values that merely
 start with the entity magic.
 
+The shared SST store (storage/): with `Options.shared_store` (a store root
+path, an http:// URL of a StoreServer, or a store object) DB.open wraps
+the env in a SharedSstEnv; every table a flush, a compaction, an ingest or
+an import installs is published to the content-addressed store under its
+checksum address, tables a checkpoint restore or a store-mode dcompact job
+adopts live as references and materialize on first read, and the reclaim
+ladder's red steps prune the cache tier and sweep the store.
+
 What toplingdb_tpu runs beyond this (the SLO engine, ...) is refused at
 open:
 `options.unported_fields` lists it and DB.open raises NotSupported instead
@@ -439,6 +447,10 @@ class DB:
         self.dbname = dbname
         self.options = options
         self.env = env
+        self._owns_shared_env = False  # DB.open retained a SharedSstEnv
+        # The replication plane's status (a LogShipper or a FollowerDB
+        # sets it; the /replication view reads it).
+        self._repl_status_provider = None
         # The host planes (see the module docstring); DB.open refused a
         # plane asked for without the native library.
         from toplingdb_tpu_torch import native
@@ -793,7 +805,8 @@ class DB:
         options = options or Options()
         DB._check_open_args(options, write_plane, iter_chunk_rows,
                             async_reads)
-        env = env or default_env()
+        env, owns_shared_env = DB._shared_store_env(
+            env or default_env(), options)
         # Validates; touches no file.
         db = DB(dbname, options, env, write_plane=write_plane,
                 iter_chunk_rows=iter_chunk_rows, async_reads=async_reads)
@@ -851,7 +864,40 @@ class DB:
 
             db._integrity_scrubber = IntegrityScrubber(db)
             db._integrity_scrubber.start()
+        if owns_shared_env:
+            env.retain()
+            db._owns_shared_env = True
         return db
+
+    @staticmethod
+    def _shared_store_env(env, options: Options):
+        """(env, co-owned): with Options.shared_store on (the only switch;
+        no environment variable), `env` wrapped in a SharedSstEnv over the
+        store the spec names, so installed tables publish to the
+        content-addressed store and may live as references; a local store
+        root keeps its persistent cache under <root>/cache. An env that
+        already publishes SSTs (a SharedSstEnv a checkpoint restore or a
+        promoted follower reopens on) is used as it is and co-owned. Each
+        open retains the env, each close releases it, and the last release
+        closes the tier's threads."""
+        from toplingdb_tpu_torch.storage import (
+            SharedSstEnv,
+            open_store,
+            store_spec_enabled,
+        )
+
+        if hasattr(env, "publish_sst"):
+            return env, hasattr(env, "retain")
+        spec = options.shared_store
+        if not store_spec_enabled(spec):
+            return env, False
+        cache_dir = None
+        if isinstance(spec, str) and not spec.startswith(
+                ("http://", "https://")):
+            cache_dir = os.path.join(spec, "cache")
+        return SharedSstEnv(env, open_store(spec, env=env),
+                            cache_dir=cache_dir,
+                            stats=options.statistics), True
 
     @staticmethod
     def _check_open_args(options: Options, write_plane: bool,
@@ -1068,6 +1114,11 @@ class DB:
             if self._log_file is not None:
                 self._log_file.close()
             self._closed = True
+        # A shared-store env DB.open retained: the last release closes the
+        # tier's warm ring and persistent cache.
+        if self._owns_shared_env:
+            self._owns_shared_env = False
+            self.env.release()
         # Thread-lifecycle check: everything spawned with owner=self must
         # be gone by now. A leak here is a bug in a stop() path above.
         ccy.registry.join_all(owner=self, timeout=5.0)
@@ -2168,7 +2219,9 @@ class DB:
 
     def _stamp_file_checksums(self, metas) -> None:
         """Record whole-file checksums on freshly produced SST metadata
-        before it reaches the MANIFEST (flush and compaction install)."""
+        before it reaches the MANIFEST (flush, compaction install, ingest,
+        import). On a shared-store env each table is also published to
+        the content-addressed store under its checksum address."""
         factory = self._file_checksum_factory
         if factory is None:
             return
@@ -2176,10 +2229,20 @@ class DB:
             stamp_file_checksum,
         )
 
+        publish = getattr(self.env, "publish_sst", None)
         for meta in metas:
-            stamp_file_checksum(
-                self.env, filename.table_file_name(self.dbname, meta.number),
-                meta, factory)
+            path = filename.table_file_name(self.dbname, meta.number)
+            stamp_file_checksum(self.env, path, meta, factory)
+            if publish is not None:
+                # Idempotent: an address already in the store (an adopted
+                # dcompact output) is a contains() probe.
+                try:
+                    publish(path, meta)
+                except Exception as e:  # noqa: BLE001 - a store outage
+                    # The install stays valid on its local bytes; a later
+                    # checkpoint or dcompact job publishes it again.
+                    _errors.swallow(reason="install-publish-sst", exc=e,
+                                    stats=self.stats)
 
     # ==================================================================
     # Read path
@@ -3683,10 +3746,11 @@ class DB:
         """Free bytes in escalating cost order: (1) unpace trash deletion,
         so bytes already condemned drain at once; at red also (2) prune
         the env's clean cache tier and (3) start a mark-sweep GC of its
-        shared object store. Steps 2 and 3 act only on an env carrying
-        `tier` / `store` (toplingdb_tpu's shared SST store, whose
-        storage/ package the port does not have yet); with every env the
-        port has they do nothing, as in toplingdb_tpu with a plain env."""
+        shared object store. Steps 2 and 3 act on a SharedSstEnv
+        (storage/shared_env.py: its `tier` drops the clean cached objects,
+        which refetch on demand, and storage/gc.mark_sweep sweeps its
+        `store` with a 60 s grace, rooted at this DB and every sibling
+        directory holding a CURRENT); on a plain env they do nothing."""
         if self._sfm is None:
             return
         if self.stats is not None:

@@ -1,6 +1,5 @@
-"""WAL / MANIFEST record framing: writer and reader (copied from
-toplingdb_tpu/db/log.py; the tailing reader of WAL shipping comes with
-replication).
+"""WAL / MANIFEST record framing: writer, reader and the tailing reader of
+WAL shipping (copied from toplingdb_tpu/db/log.py).
 
 Same framing as RocksDB's log format (db/log_format.h, db/log_writer.cc,
 db/log_reader.cc): the file is a
@@ -247,3 +246,142 @@ class LogReader:
             if r is None:
                 return
             yield r
+
+
+class TailingLogReader:
+    """Tail a LIVE log file: poll() returns the complete records appended
+    since the previous poll. The crucial property for WAL shipping
+    (replication/log_shipper.py) is that a torn/partial trailing record —
+    the writer is mid-append, or a crash cut the tail — is RETRIED on the
+    next poll instead of being dropped or mis-read, while a bad checksum
+    strictly before the durable tail still raises Corruption (real damage
+    must not ship to followers).
+
+    The tail-vs-middle rule: an anomalous fragment whose claimed extent
+    reaches the file's current end may still be in flight (appends are not
+    atomic), so the reader parks at it; an anomaly with durable bytes
+    after it can never be completed by the writer and is corruption.
+    """
+
+    def __init__(self, env, path: str, verify_checksums: bool = True,
+                 log_number: int | None = None):
+        self._env = env
+        self._path = path
+        self._verify = verify_checksums
+        self._log_number = log_number
+        self._pos = 0           # absolute offset of the first unparsed byte
+        self._partial = None    # FIRST..MIDDLE assembly across polls
+        self._recycled_seen = False
+        self._ended = False     # recycled previous-life boundary reached
+
+    def tell(self) -> int:
+        return self._pos
+
+    def _finish(self):
+        self._partial = None  # dangling FIRST/MIDDLE chain: torn write
+
+    def poll(self, final: bool = False) -> list[bytes]:
+        """New complete records since the last poll. `final=True` declares
+        the log closed (a newer WAL exists / the file was archived): any
+        parked torn tail is dropped instead of awaited."""
+        if self._ended:
+            return []
+        size = self._env.get_file_size(self._path)
+        if size <= self._pos:
+            if final:
+                self._finish()
+            return []
+        f = self._env.new_random_access_file(self._path)
+        try:
+            data = f.read(self._pos, size - self._pos)
+        finally:
+            f.close()
+        base = self._pos
+        n = len(data)
+        out: list[bytes] = []
+        i = 0
+        while i < n:
+            abs_off = base + i
+            rem_block = BLOCK_SIZE - (abs_off % BLOCK_SIZE)
+            if rem_block < HEADER_SIZE:
+                # Block-tail padding zone; the writer zero-fills it before
+                # starting the next record. Mid-fill: wait for the rest.
+                if n - i < rem_block:
+                    break
+                i += rem_block
+                continue
+            if n - i < HEADER_SIZE:
+                break  # torn header: wait
+            stored_crc = coding.decode_fixed32(data, i)
+            length = coding.decode_fixed16(data, i + 4)
+            t = data[i + 6]
+            if t == 0 and length == 0:
+                # Zero padding to the end of the block.
+                if n - i < rem_block:
+                    break  # padding still being written
+                i += rem_block
+                continue
+            recyclable = RECYCLABLE_FULL <= t <= RECYCLABLE_LAST
+            hdr = RECYCLABLE_HEADER_SIZE if recyclable else HEADER_SIZE
+            claimed_end = abs_off + hdr + length
+            at_tail = claimed_end >= size
+            if t > RECYCLABLE_LAST:
+                if at_tail:
+                    break  # garbage that may still be overwritten: wait
+                raise Corruption(f"unknown log record type {t}")
+            if hdr + length > rem_block:
+                # Fragments never span blocks; a length pointing past the
+                # block can only complete if it is tail garbage in flight.
+                if at_tail:
+                    break
+                raise Corruption("log fragment overflows block")
+            if n - i < hdr + length:
+                break  # torn fragment: wait
+            payload = data[i + hdr : i + hdr + length]
+            if recyclable and self._log_number is not None and \
+                    coding.decode_fixed32(data, i + 7) != self._log_number:
+                # Previous life of a recycled file. Live tailing: the
+                # writer may overwrite these bytes next — wait. Final: the
+                # log really ends here.
+                if final:
+                    self._ended = True
+                break
+            if self._verify:
+                blob = bytes([t]) + (
+                    bytes(data[i + 7 : i + 11]) if recyclable else b""
+                ) + bytes(payload)
+                if crc32c.unmask(stored_crc) != crc32c.value(blob):
+                    if at_tail:
+                        break  # torn append in flight (or final: dropped)
+                    raise Corruption("log record checksum mismatch")
+            if recyclable:
+                self._recycled_seen = True
+                t -= RECYCLABLE_FULL - FULL
+            elif self._recycled_seen:
+                # Classic-format header after recyclable records: residue
+                # of the file's previous life — end of this log.
+                self._ended = True
+                break
+            i += hdr + length
+            if t == FULL:
+                if self._partial is not None:
+                    raise Corruption("FULL record inside fragmented record")
+                out.append(bytes(payload))
+            elif t == FIRST:
+                if self._partial is not None:
+                    raise Corruption("FIRST record inside fragmented record")
+                self._partial = bytearray(payload)
+            elif t == MIDDLE:
+                if self._partial is None:
+                    raise Corruption("MIDDLE record without FIRST")
+                self._partial += payload
+            else:  # LAST
+                if self._partial is None:
+                    raise Corruption("LAST record without FIRST")
+                self._partial += payload
+                out.append(bytes(self._partial))
+                self._partial = None
+        self._pos = base + i
+        if final:
+            self._finish()
+        return out

@@ -281,6 +281,11 @@ class VersionSet:
         self._next_file_number = 2
         self._manifest_writer: LogWriter | None = None
         self._lock = ccy.Lock("version_set.VersionSet._lock")
+        # Records in the live MANIFEST: the replication plane's epoch minor
+        # component. A follower re-reads the MANIFEST when
+        # (manifest_file_number, edit_seq) changes
+        # (replication/log_shipper.py).
+        self.edit_seq = 0
 
     # The default CF's Version: the single-CF view wherever the CF does not
     # matter.
@@ -330,6 +335,7 @@ class VersionSet:
         self._manifest_writer = LogWriter(w)
         self._manifest_writer.add_record(edit.encode())
         self._manifest_writer.sync()
+        self.edit_seq = 1  # records in the live MANIFEST
         filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
 
     def recover(self, readonly: bool = False) -> None:
@@ -416,6 +422,7 @@ class VersionSet:
                 cf, cf_names.get(cf, f"cf{cf}"), v)
         self.max_column_family = max(
             [next_cf_hint] + list(self.column_families))
+        self.edit_seq = n_records
         self.mark_file_number_used(self.manifest_file_number)
         if not readonly:
             self._reopen_manifest_for_append()
@@ -428,9 +435,13 @@ class VersionSet:
         newpath = filename.manifest_file_name(self.dbname, self.manifest_file_number)
         w = self.env.new_writable_file(newpath)
         self._manifest_writer = LogWriter(w)
-        for snap in self._snapshot_edits():
+        snaps = self._snapshot_edits()
+        for snap in snaps:
             self._manifest_writer.add_record(snap.encode())
         self._manifest_writer.sync()
+        # A read-only recover of this file counts the same records, so a
+        # directory-sharing follower's epoch matches until the next edit.
+        self.edit_seq = len(snaps)
         filename.set_current_file(self.env, self.dbname, self.manifest_file_number)
 
     def _snapshot_edits(self) -> list[VersionEdit]:
@@ -499,6 +510,7 @@ class VersionSet:
                 self._manifest_writer.sync()
             self._all_versions.add(new_version)
             st.current = new_version
+            self.edit_seq += 1
 
     def create_column_family(self, name: str) -> int:
         """Register a new CF in the MANIFEST; returns its id (RocksDB's
@@ -517,6 +529,7 @@ class VersionSet:
             assert self._manifest_writer is not None
             self._manifest_writer.add_record(edit.encode())
             self._manifest_writer.sync()
+            self.edit_seq += 1
             v = Version(self.icmp, self.num_levels)
             self._all_versions.add(v)
             self.column_families[cf_id] = ColumnFamilyState(cf_id, name, v)
@@ -538,6 +551,7 @@ class VersionSet:
             assert self._manifest_writer is not None
             self._manifest_writer.add_record(edit.encode())
             self._manifest_writer.sync()
+            self.edit_seq += 1
 
     def close(self) -> None:
         if self._manifest_writer is not None:

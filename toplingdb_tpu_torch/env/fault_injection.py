@@ -1,5 +1,4 @@
-"""Fault injection (copied from toplingdb_tpu/env/fault_injection.py;
-the store, shipping and partition injectors are not in the port):
+"""Fault injection (copied from toplingdb_tpu/env/fault_injection.py):
 FaultInjectionEnv wraps any Env (the role of RocksDB's
 utilities/fault_injection_fs.h FaultInjectionTestFS). It counts every file
 operation (`io_counts`), fails chosen operation kinds (`fail_ops`) or every
@@ -13,7 +12,11 @@ writable to matching files: past the budget a write lands its affordable
 prefix (a torn short write) and raises a genuine OSError(ENOSPC);
 DelayedReadEnv sleeps before every random-access read;
 WalWriterFaultInjector fails or delays the async WAL writer's ring ops,
-ReadFaultInjector the async read plane's reader-ring tasks."""
+ReadFaultInjector the async read plane's reader-ring tasks;
+ShipFaultInjector drops, delays or truncates the replication plane's
+shipped frames, PartitionGate cuts an HTTP client off, and
+StoreFaultInjector drops, delays, corrupts or truncates a shared SST
+store's data verbs. Every injector is seeded."""
 
 from __future__ import annotations
 
@@ -539,5 +542,186 @@ class ReadFaultInjector:
         with self._mu:
             out: dict[str, int] = {}
             for _o, _k, p in self.injected:
+                out[p] = out.get(p, 0) + 1
+            return out
+
+
+class ShipFaultInjector:
+    """Deterministic fault points for the replication ship transport
+    (replication/log_shipper.py FaultyTransport), mirroring
+    DcompactFaultInjector's shape so replication chaos soaks are
+    reproducible from a seed. Plans, decided per pull ordinal:
+
+      "drop"      the pulled frames never arrive (follower sees no progress)
+      "delay"     the frames arrive after `delay_sec`
+      "truncate"  a frame's encoded bytes are cut mid-payload (the follower
+                  must detect the bad CRC/short frame and re-pull, never
+                  apply a half batch)
+
+    `rate` injects pseudo-randomly from `seed` with plan weights `plans`;
+    `schedule` pins a plan to a specific pull ordinal (0-based)."""
+
+    def __init__(self, schedule: dict | None = None, rate: float = 0.0,
+                 plans: tuple = ("drop", "delay", "truncate"),
+                 seed: int = 0, delay_sec: float = 0.01):
+        import random
+
+        self.schedule = dict(schedule or {})
+        self.rate = rate
+        self.plans = tuple(plans)
+        self.delay_sec = delay_sec
+        self._rng = random.Random(seed)
+        self._mu = ccy.Lock("fault_injection.ShipFaultInjector._mu")
+        self._ordinal = 0
+        self.injected: list[tuple[int, str]] = []  # (ordinal, plan)
+
+    def plan(self) -> str | None:
+        with self._mu:
+            ordinal = self._ordinal
+            self._ordinal += 1
+            p = self.schedule.get(ordinal)
+            if p is None and self.rate > 0 and self.plans:
+                if self._rng.random() < self.rate:
+                    p = self.plans[self._rng.randrange(len(self.plans))]
+            if p:
+                self.injected.append((ordinal, p))
+            return p
+
+    def injected_counts(self) -> dict:
+        with self._mu:
+            out: dict[str, int] = {}
+            for _o, p in self.injected:
+                out[p] = out.get(p, 0) + 1
+            return out
+
+    def truncate_bytes(self, data: bytes) -> bytes:
+        """Cut an encoded frame roughly in half — past the header when
+        possible, so the follower exercises the CRC check rather than the
+        short-header check every time."""
+        if len(data) <= 2:
+            return data[:1]
+        return data[: max(1, len(data) // 2)]
+
+
+class PartitionGate:
+    """Network-partition switch for HTTP clients (fleet chaos soak): an
+    engaged gate makes every guarded call fail fast with IOError_, as a
+    dropped route would — the caller sees unreachability, not hangs.
+    Thread-safe; `blocked` counts the calls the partition ate."""
+
+    def __init__(self):
+        self._mu = ccy.Lock("fault_injection.PartitionGate._mu")
+        self._engaged = False
+        self.blocked = 0
+
+    def engage(self) -> None:
+        with self._mu:
+            self._engaged = True
+
+    def heal(self) -> None:
+        with self._mu:
+            self._engaged = False
+
+    @property
+    def engaged(self) -> bool:
+        with self._mu:
+            return self._engaged
+
+    def check(self, what: str = "call") -> None:
+        """Raise IOError_ if the partition is engaged."""
+        with self._mu:
+            if self._engaged:
+                self.blocked += 1
+                raise IOError_(f"partitioned: {what}")
+
+
+class StoreFaultInjector:
+    """Seeded fault wrapper for a shared SST object store
+    (storage/object_store.py LocalObjectStore or storage/store_server.py
+    StoreClient): interposes on the data-plane verbs so storage chaos
+    soaks reproduce exactly from a seed. Plans, decided per data op
+    ordinal (fetch/put/publish_file):
+
+      "drop"      the op raises IOError_ (an unreachable/refusing store)
+      "delay"     the op completes after `delay_sec`
+      "corrupt"   a fetch returns payload bytes with one flipped bit —
+                  the cache tier's address verification must catch it and
+                  re-fetch; a corrupt object must NEVER materialize
+      "truncate"  a fetch returns a prefix of the payload (same contract)
+
+    Writes only ever see "drop"/"delay": the store itself verifies
+    payloads before making them visible, so a corrupted upload is the
+    uploader's bug, not a transport fault. Control verbs (contains, pins,
+    list, delete, status) pass through untouched."""
+
+    def __init__(self, store, schedule: dict | None = None,
+                 rate: float = 0.0,
+                 plans: tuple = ("drop", "delay", "corrupt", "truncate"),
+                 seed: int = 0, delay_sec: float = 0.002):
+        import random
+
+        self._store = store
+        self.schedule = dict(schedule or {})
+        self.rate = rate
+        self.plans = tuple(plans)
+        self.delay_sec = delay_sec
+        self._rng = random.Random(seed)
+        self._mu = ccy.Lock("fault_injection.StoreFaultInjector._mu")
+        self._ordinal = 0
+        self.injected: list[tuple[int, str, str]] = []  # (ordinal, op, plan)
+
+    def _plan(self, op: str) -> str | None:
+        with self._mu:
+            ordinal = self._ordinal
+            self._ordinal += 1
+            p = self.schedule.get(ordinal)
+            if p is None and self.rate > 0 and self.plans:
+                if self._rng.random() < self.rate:
+                    p = self.plans[self._rng.randrange(len(self.plans))]
+            if p and op != "fetch" and p in ("corrupt", "truncate"):
+                p = "drop"  # writes can't lie (the store verifies): drop
+            if p:
+                self.injected.append((ordinal, op, p))
+            return p
+
+    def _apply(self, op: str):
+        p = self._plan(op)
+        if p == "delay":
+            import time as _t
+
+            _t.sleep(self.delay_sec)
+        elif p == "drop":
+            raise IOError_(f"injected: store {op} dropped")
+        return p
+
+    # -- data-plane verbs (faulted) ------------------------------------
+
+    def fetch(self, addr: str) -> bytes:
+        p = self._apply("fetch")
+        data = self._store.fetch(addr)
+        if p == "corrupt" and data:
+            i = self._rng.randrange(len(data))
+            return data[:i] + bytes([data[i] ^ 0x40]) + data[i + 1:]
+        if p == "truncate":
+            return data[: len(data) // 2]
+        return data
+
+    def put(self, addr: str, payload: bytes) -> bool:
+        self._apply("put")
+        return self._store.put(addr, payload)
+
+    def publish_file(self, src_path: str, addr: str, src_env=None) -> bool:
+        self._apply("publish")
+        return self._store.publish_file(src_path, addr, src_env=src_env)
+
+    # -- control verbs (clean) -----------------------------------------
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def injected_counts(self) -> dict:
+        with self._mu:
+            out: dict[str, int] = {}
+            for _o, _op, p in self.injected:
                 out[p] = out.get(p, 0) + 1
             return out

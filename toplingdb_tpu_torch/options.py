@@ -275,17 +275,16 @@ class Options:
     # JSON-configurable under the "dcompact" key (utils/config.py).
     dcompact: Any = None  # DcompactOptions; None = defaults, lazily built
 
-    # -- disaggregated SST storage (toplingdb_tpu/storage/) -------------
+    # -- disaggregated SST storage (storage/) ---------------------------
     # Content-addressed shared object store for SSTs, keyed by the
     # MANIFEST-recorded whole-file checksums (requires file_checksum on).
     # A filesystem path selects the local-directory backend, an http://
     # URL a StoreServer, a store-shaped object passes through; None/""/"0"
-    # keeps the classic local-files path (the byte-parity oracle).
-    # Env var TPULSM_SHARED_STORE overrides at DB.open. When enabled the
-    # DB env is wrapped in SharedSstEnv: tables publish on install, live
-    # thereafter as references, and re-materialize through the persistent
-    # cache tier on first read. See ARCHITECTURE.md "Disaggregated SST
-    # storage".
+    # keeps the classic local-files path (the byte-parity oracle). This
+    # field is the only switch: the port reads no TPULSM_SHARED_STORE.
+    # When enabled DB.open wraps the env in SharedSstEnv: tables publish
+    # on install, live thereafter as references, and re-materialize
+    # through the persistent cache tier on first read.
     shared_store: Any = None
 
     # -- integrity plane (utils/protection.py, utils/file_checksum.py,
@@ -413,7 +412,6 @@ UNPORTED = {
                             "declares but does not run either (share a "
                             "WriteBufferManager through "
                             "write_buffer_manager)",
-    "shared_store": "the shared SST store",
 }
 
 

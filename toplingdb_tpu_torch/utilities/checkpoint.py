@@ -9,9 +9,15 @@ IDENTITY and OPTIONS files, and CURRENT.
 CURRENT is written LAST: a directory without CURRENT is not a checkpoint,
 so a crash mid-copy can never leave a half snapshot that opens. Every
 copied SST is checked against its MANIFEST-recorded checksum, so a
-checkpoint never propagates corruption. The shared-store reference mode
-of toplingdb_tpu (SSTs held as object-store addresses) comes with the
-storage plane and is not here."""
+checkpoint never propagates corruption.
+
+Reference mode: on a SharedSstEnv (storage/shared_env.py) a checkpoint
+holds each checksum-stamped SST as a reference to its store address (the
+directory's refs table), so it copies no SST bytes; `restore_to` restores
+the references and starts a background warm of the cache (`warm_refs`).
+A store that fails while a checkpoint is taken degrades that file to the
+byte copy, as in toplingdb_tpu, and the fallback is counted
+(utils/errors.swallow)."""
 
 from __future__ import annotations
 
@@ -88,9 +94,28 @@ def _checkpoint_locked(db, env, dest: str) -> None:
             verify_recorded_checksum,
         )
 
+        # Reference mode: publish (idempotent; the install already did)
+        # and adopt, no bytes. Unstamped files (file_checksum off) copy.
+        ref_env = hasattr(env, "publish_sst") and hasattr(env, "adopt")
         for _, f in files:
             src = filename.table_file_name(db.dbname, f.number)
             dst = filename.table_file_name(dest, f.number)
+            if ref_env and f.file_checksum:
+                from toplingdb_tpu_torch.storage.object_store import (
+                    address_of_meta,
+                )
+
+                try:
+                    addr = address_of_meta(f)
+                    if not env.store.contains(addr):
+                        env.publish_sst(src, f)  # a table from before
+                    if env.store.contains(addr):
+                        env.adopt(dst, addr)
+                        continue  # self-verifying: checked at first fetch
+                except Exception as e:  # noqa: BLE001 - a store outage
+                    # A flaky or unreachable store must not abort the
+                    # checkpoint: this file takes the byte path.
+                    _errors.swallow(reason="checkpoint-ref-fallback", exc=e)
             link_or_copy(src, dst)
             # A checkpoint must not propagate corruption: the copy is
             # re-read and compared against the MANIFEST-recorded checksum
@@ -200,15 +225,23 @@ class Checkpoint:
             except Exception as e:
                 _errors.swallow(reason="restore-dest-probe", exc=e)
         env.create_dir(dest)
+        # Reference mode: SSTs the checkpoint holds by reference restore as
+        # references. The bootstrap is a metadata swap; the bytes arrive
+        # through the cache tier on first read, or by warm_refs below.
+        refs = dict(env.refs_of(self.path)) if hasattr(env, "refs_of") \
+            else {}
+        for name, addr in sorted(refs.items()):
+            env.adopt(f"{dest}/{name}", addr)
         children = [c for c in env.get_children(self.path)
-                    if c != "CURRENT"]
+                    if c != "CURRENT" and c not in refs]
         # Hard-link fast path: same-filesystem restore of a real posix
         # tree links instead of copying (EXDEV or any link failure falls
         # back to the byte copy, so cross-device restores still work). A
         # wrapper Env never links: its reads (faults, decryption) stay in
-        # the loop.
+        # the loop; only the shared-store env unwraps to its base.
         from toplingdb_tpu_torch.env.env import PosixEnv
-        can_link = type(env) is PosixEnv
+        base = env.base if hasattr(env, "refs_of") else env
+        can_link = type(base) is PosixEnv
         for child in children:
             if can_link:
                 try:
@@ -227,9 +260,15 @@ class Checkpoint:
         # follower's bootstrap path rides through here): every
         # MANIFEST-recorded SST checksum is recomputed on the copy, so a
         # truncated or bit-rotted restore fails HERE, not hours later.
-        from toplingdb_tpu_torch.utils.file_checksum import (
-            verify_dir_file_checksums,
-        )
+        # Referenced SSTs are exempt: their address is the checksum and the
+        # cache tier verifies every fetch, so recomputing here would force
+        # the full download the reference mode exists to avoid.
+        if not refs:
+            from toplingdb_tpu_torch.utils.file_checksum import (
+                verify_dir_file_checksums,
+            )
 
-        verify_dir_file_checksums(dest, env)
+            verify_dir_file_checksums(dest, env)
+        elif hasattr(env, "warm_refs"):
+            env.warm_refs(dest)  # fire-and-forget cache warm
         return dest

@@ -14,10 +14,12 @@ WebView, RocksDB's utilities/object_registry.cc):
                       config / SLO / health / metrics views (the WebView
                       analogue).
 
-toplingdb_tpu's cluster, fleet and shard half waits for the planes the
-port lacks (replication/, sharding/, tools/fleet_health): its methods
-raise NotSupported naming the missing plane, and its routes answer 501
-with the same words.
+The replication half runs: /replication/<name> serves a LogShipper's or a
+FollowerDB's status, and POST /promote/<name> promotes a registered
+FollowerDB. toplingdb_tpu's cluster, fleet and shard half waits for the
+planes the port lacks (sharding/, tools/fleet_health): its methods raise
+NotSupported naming the missing plane, and its routes answer 501 with the
+same words.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ _SHARDING = ("the sharding plane (toplingdb_tpu's sharding/: ShardRouter "
              "and its shard actions) is not in the port")
 _FLEET = ("the fleet plane (toplingdb_tpu's sharding.FleetSupervisor and "
           "tools/fleet_health) is not in the port")
-_REPLICATION = ("the replication plane (toplingdb_tpu's replication/: "
-                "FollowerDB promotion) is not in the port")
 _LEFT_OUT_ROUTES = {"shards": _SHARDING, "fleet": _FLEET}
 
 
@@ -552,16 +552,19 @@ class SidePluginRepo:
         """Serves /dbs, /stats/<name>, /levels/<name>, /config/<name>,
         /db/<name> (write-plane view: WAL_* + WRITE_GROUP_* counters,
         write.group.bytes histogram, async-WAL ring state),
-        /replication/<name> (a standalone DB's role), /integrity/<name>
-        (scrub progress, quarantined files, mismatch counters — the
-        integrity plane's view), /store/<name> ({"enabled": false} until
-        the shared store is ported), /traces/<name>, /stats_history/<name>,
+        /replication/<name> (a shipper's or a follower's status, else a
+        standalone DB's role), /integrity/<name> (scrub progress,
+        quarantined files, mismatch counters — the integrity plane's
+        view), /store/<name> (the shared SST store's references, cache
+        tier, backend status and store.* tickers; {"enabled": false} on a
+        plain env), /traces/<name>, /stats_history/<name>,
         /slo/<name>, /health/<name>, /view (HTML) and /metrics
         (Prometheus text format over every registered DB's Statistics —
         the rockside Prometheus role). POST /scrub/<name> runs one
         integrity-scrub pass and returns its report; POST
-        /setoptions/<name> changes options online. /shards, /fleet,
-        /cluster/health, POST /promote and POST /shards answer 501.
+        /setoptions/<name> changes options online; POST /promote/<name>
+        promotes a follower. /shards, /fleet, /cluster/health and POST
+        /shards answer 501.
         Returns the bound port."""
         repo = self
 
@@ -1011,4 +1014,30 @@ class SidePluginRepo:
         raise NotSupported(_SHARDING)
 
     def _promote(self, name: str):
-        raise NotSupported(_REPLICATION)
+        """Promote a registered FollowerDB: detach it from the (dead)
+        primary and reopen its directory read-write under the same name,
+        on its env (the failover half of the replication plane). The
+        options come from the follower's registered config without
+        read_only."""
+        db = self._dbs.get(name)
+        if db is None:
+            return 404, {"error": "no such db"}
+        promote = getattr(db, "promote", None)
+        if promote is None:
+            return 400, {"error": f"{name} is not a follower"}
+        from toplingdb_tpu_torch.db.db import DB
+        from toplingdb_tpu_torch.options import Options
+        from toplingdb_tpu_torch.utilities.checkpoint import _untapped
+
+        path = promote()  # final catch-up + close; returns the directory
+        opts_cfg = dict(self._configs.get(name, {}).get("options", {}))
+        opts_cfg.pop("read_only", None)
+        opts = options_from_config(opts_cfg) if opts_cfg else Options()
+        opts.create_if_missing = False
+        opts.read_only = False
+        new_db = DB.open(path, opts, env=_untapped(db.env))
+        self._dbs[name] = new_db
+        new_db.event_logger.log("promote_finished", name=name, path=path,
+                                last_sequence=new_db.versions.last_sequence)
+        return 200, {"promoted": name, "path": path,
+                     "last_sequence": new_db.versions.last_sequence}
